@@ -10,15 +10,26 @@ Phases, each of which must pass (nothing is caught):
      PyTorch version at Llama-3-8B shapes in bf16, with its stated
      tolerance, its time, the plain version's time, one library call's
      time (a yardstick the port never calls) and its bound on the card;
-  3. tiny: LlamaConfig.tiny() in f32, the same seeded weights served on
+  3. training kernels: RMSNorm, RoPE (forward and backward) and
+     FlashAttention (forward, forward with LSE, dQ, dK/dV) at the
+     training path's shapes (T = 8192, hidden 4096, 32 q / 8 kv heads,
+     head_dim 128, bf16, causal), with the same numbers;
+  4. tiny: LlamaConfig.tiny() in f32, the same seeded weights served on
      cuda (kernels) and on cpu (plain versions): greedy tokens must be
      identical over 6 requests with a shared prefix and forced
      preemption (a differing token is excused only when the CPU logits'
      top-2 margin there is below the f32 tolerance);
-  4. main: Llama-3-8B width in bf16 (random weights from a seed) behind
-     serving.Engine: 8 requests, prompts of 128..1024 tokens, two of
-     them sharing a 512-token prefix, 32 new tokens each.  The launch
-     counts of this phase alone show the path went through every kernel.
+  5. tiny training: the same f32 weights trained 5 AdamW steps on cuda
+     and on cpu: losses within the f32 tolerance, exact launch counts;
+  6. main serving: Llama-3-8B width in bf16 (random weights from a seed)
+     behind serving.Engine: 8 requests, prompts of 128..1024 tokens, two
+     of them sharing a 512-token prefix, 32 new tokens each;
+  7. main training: Llama-3-8B width, 8 of its 32 layers, bf16, one
+     [1, 8192] batch, AdamW(1e-4): 2 warm-up and 5 timed steps, one
+     profiled step and one eval forward without grad; finite, falling
+     losses and exact launch counts per step.
+The launch counts of phases 6 and 7, each reset just before it, show
+that each path went through every kernel of its own.
 
 Prints the card's name and power limit, then one JSON line of the
 kernels' numbers, then as its last line
@@ -27,6 +38,7 @@ Exits non-zero, printing no result, without a CUDA device.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -38,8 +50,12 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12            # dense bf16 tensor-core peak, same source
-F32_TOL = 1e-4                 # f32 logit tolerance of the tiny phase
-MAIN_LAYERS = 32               # depth of the main phase (full: 32)
+F32_FLOPS = 67e12              # f32 outside the tensor cores, same source
+F32_TOL = 1e-4                 # f32 logit / loss tolerance of the tiny phases
+MAIN_LAYERS = 32               # depth of the main serving phase (full: 32)
+TRAIN_LAYERS = 8               # depth of the main training phase (of 32)
+TRAIN_T = 8192                 # its sequence: Llama-3's pretraining context
+TRAIN_WARMUP, TRAIN_STEPS = 2, 5
 SLEEP_CYCLES = 50_000_000      # ~30 ms at the H100's clock: time to enqueue
 
 
@@ -71,9 +87,12 @@ def time_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS):
+    """The least time for the work: its bytes over the memory rate or its
+    operations over ``peak`` (the rate of the type they run in),
+    whichever is longer."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -147,7 +166,7 @@ def phase_kernels(dev):
         ms=time_ms(lambda: rms_norm.rms_norm(x, w, eps)),
         plain_ms=time_ms(lambda: rms_norm.rms_norm_plain(x, w, eps)),
         library_ms=time_ms(lambda: F.rms_norm(x, (HID,), w, eps)),
-        bound=bound_ms(nbytes, 4.0 * x.numel()),
+        bound=bound_ms(nbytes, 4.0 * x.numel(), F32_FLOPS),
         work="one [8, 4096] row block")
 
     # fused_norm_linear: the 5 projections of one layer (q, k, v, gate
@@ -275,11 +294,17 @@ def phase_kernels(dev):
         bound=bound_ms(2 * (2 * ctx * KVH * D + 2 * T * H * D)
                        + 4 * (nbs + 1), 4.0 * keys * H * D),
         work=f"one layer's prefill chunk, T={T}, context {ctx}")
-    for name, e in entries.items():
-        print(f"  {name}: {e['ms']:.4f} ms ({e['work']}), plain "
-              f"{e['plain_ms']:.4f} ms, library {e['library_ms']:.4f} ms, "
-              f"bound {e['bound'][0]:.4f} ms by {e['bound'][1]}", flush=True)
+    print_entries(entries)
     return entries
+
+
+def print_entries(entries):
+    for name, e in entries.items():
+        lib = "none" if e["library_ms"] is None \
+            else f"{e['library_ms']:.4f} ms"
+        print(f"  {name}: {e['ms']:.4f} ms ({e['work']}), plain "
+              f"{e['plain_ms']:.4f} ms, library {lib}, bound "
+              f"{e['bound'][0]:.4f} ms by {e['bound'][1]}", flush=True)
 
 
 def _rope_tables(head_dim, max_pos, theta, dev):
@@ -289,6 +314,224 @@ def _rope_tables(head_dim, max_pos, theta, dev):
 
 
 # ---------------------------------------------------------------- phase 3
+def hold_bf16_attention(name, got, plain, ref, cancels=False):
+    """A bf16 FlashAttention output against the f32 plain version ``ref``
+    of the same bf16-valued inputs.  The kernels round P and dS to bf16
+    for the second product, as FlashAttention-2 does on tensor cores,
+    where the plain version (as the TPU kernels) keeps them in f32; so
+    the kernel may be off the f32 result by twice what the bf16 plain
+    version is (which rounds only its output), plus one bf16 rounding
+    (2^-9) of the largest output for the rounded P and dS.
+
+    The rule holds again for each row (a query's output or dQ, a key's
+    dK or dV: the last axis), so that the small late rows are held to
+    their own size, not to the largest row's: twice the bf16 plain
+    version's error in that row, plus one bf16 unit roundoff (2^-8) of
+    the row's largest output, the size of the error that the rounded P
+    or dS entries of the row add (each off by up to 2^-8 of itself, in
+    a sum the size of the row).  A dQ row (``cancels``) is a sum of
+    dS entries that add up to zero, so it is smaller than its terms and
+    their roundings: it gets one bf16 ulp (2^-7) of its largest output
+    instead.  A row's largest output counts as at least 2^-8 of the
+    tensor's, for rows whose exact value cancels (the first query's dQ,
+    where dP - delta = 0): their error is the f32 roundoff of the terms
+    that cancel, not a fraction of what is left.  For dQ, dK and dV,
+    ``plain`` and ``ref`` take the kernel forward's O and LSE."""
+    diff = (got.float() - ref).abs()
+    pdiff = (plain.float() - ref).abs()
+    err, plain_err = float(diff.max()), float(pdiff.max())
+    top = float(ref.abs().max())
+    tol = 2 * plain_err + top * 2.0 ** -9
+    row_tol = 2 * pdiff.amax(-1) \
+        + ref.abs().amax(-1).clamp_min(top * 2.0 ** -8) \
+        * 2.0 ** (-7 if cancels else -8)
+    row_ratio = float((diff.amax(-1) / row_tol).max())
+    ok = math.isfinite(err) and err <= tol and row_ratio <= 1.0
+    print(f"  {name}: max_abs_err {err:.3e} vs the f32 plain version "
+          f"(bf16 plain version {plain_err:.3e}; tolerance {tol:.3e}); "
+          f"largest row error / row tolerance {row_ratio:.3f} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version ({err} > {tol} or a row at "
+                             f"{row_ratio} of its tolerance)")
+    return err
+
+
+def phase_train_kernels(dev):
+    """RoPE and FlashAttention at the training path's shapes: one layer
+    of Llama-3-8B at T = 8192 (B = 1, 32 q / 8 kv heads, head_dim 128),
+    bf16, causal, q/k/v in the model's [B, T, H, D] memory order.  The
+    plain attention versions hold [heads, T, T] f32 score matrices, so
+    they run (and are timed) a quarter of the heads at a time: 8 q heads
+    over their 2 kv heads, four times."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import rms_norm, rope
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    bf = torch.bfloat16
+    B, T, H, KVH, D, HID, eps = 1, TRAIN_T, 32, 8, 128, 4096, 1e-5
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(bf)
+
+    entries = {}
+    print(f"[train kernels] Llama-3-8B width, T={T}, bf16, causal",
+          flush=True)
+
+    # rms_norm: one norm of the training path, [1, T, 4096] rows (its
+    # launches are the training phase's "rms_norm" count)
+    x = (3 * randn(B, T, HID).float()).to(bf)
+    w = (1 + 0.1 * randn(HID).float()).to(bf)
+    got, ref = rms_norm.rms_norm(x, w, eps), rms_norm.rms_norm_plain(x, w, eps)
+    err = check_close(f"rms_norm [1, {T}, {HID}]", got, ref, bf16_tol(ref))
+    entries["rms_norm_train"] = dict(
+        counter="rms_norm", replaces="paddle_tpu/kernels/rms_norm.py:33",
+        source="paddle_tpu_torch/csrc/rms_norm.cu", max_abs_err=err,
+        ms=time_ms(lambda: rms_norm.rms_norm(x, w, eps)),
+        plain_ms=time_ms(lambda: rms_norm.rms_norm_plain(x, w, eps)),
+        library_ms=time_ms(lambda: F.rms_norm(x, (HID,), w, eps)),
+        bound=bound_ms(2 * 2 * x.numel() + 2 * w.numel(), 4.0 * x.numel(),
+                       F32_FLOPS),
+        work=f"one norm of a layer [1, {T}, {HID}]")
+    del x, w, got, ref
+
+    # rope: q of one layer with the 8B tables (theta 5e5) in bf16; the
+    # backward is the same kernel at the negated angle
+    cos, sin = (t.to(bf) for t in _rope_tables(D, T, 500000.0, dev))
+    x, gy = randn(B, T, H, D), randn(B, T, H, D)
+    got, ref = rope.fused_rope(x, cos, sin), rope.rope_plain(x, cos, sin)
+    err = check_close(f"rope [1, {T}, {H}, {D}]", got, ref, bf16_tol(ref))
+    xg = x.clone().requires_grad_()
+    rope.fused_rope(xg, cos, sin).backward(gy)
+    ref = rope.rope_plain(gy, cos, -sin)
+    err = max(err, check_close("rope backward (-sin)", xg.grad, ref,
+                               bf16_tol(ref)))
+    entries["rope"] = dict(
+        replaces="paddle_tpu/kernels/rope.py:32",
+        source="paddle_tpu_torch/csrc/rope.cu", max_abs_err=err,
+        ms=time_ms(lambda: rope.fused_rope(x, cos, sin)),
+        plain_ms=time_ms(lambda: rope.rope_plain(x, cos, sin), iters=5),
+        library_ms=None,
+        bound=bound_ms(2 * 2 * x.numel() + 2 * 2 * cos.numel(),
+                       3.0 * x.numel(), F32_FLOPS),
+        work=f"q of one layer [1, {T}, {H}, {D}]")
+    del x, gy, xg, got, ref
+
+    q, k, v, do = (t.transpose(1, 2) for t in (
+        randn(B, T, H, D), randn(B, T, KVH, D), randn(B, T, KVH, D),
+        randn(B, T, H, D)))
+    scale = D ** -0.5
+    o_nolse, _ = fa._fwd_kernel(q, k, v, True, scale, False)
+    o, lse = fa._fwd_kernel(q, k, v, True, scale, True)
+    ops = fa._bwd_operands(q, k, v, do, lse, fa._delta(o, do))
+    dq = fa._dq_kernel(*ops, True, scale)
+    dk, dv = fa._dkv_kernel(*ops, True, scale)
+    torch.cuda.synchronize()
+    if not torch.equal(o_nolse, o):
+        raise AssertionError("flash_attention_fwd and _fwd_lse differ")
+    got = dict(o=o, lse=lse, dq=dq, dk=dk, dv=dv)
+    G = 4
+    hq, hk = H // G, KVH // G
+    parts = [(slice(j * hq, (j + 1) * hq), slice(j * hk, (j + 1) * hk))
+             for j in range(G)]
+    err = dict.fromkeys(got, 0.0)
+    for qs, ks in parts:
+        # the backward's plain versions take the kernel forward's O and
+        # LSE, the backward kernels' own inputs: each kernel is held on
+        # the inputs it was given, and delta = rowsum(dO * O) is the same
+        # in all three
+        ins = (q[:, qs], k[:, ks], v[:, ks], do[:, qs])
+        ko, klse = o[:, qs], lse[:, qs]
+        po, plse = fa.flash_fwd_plain(*ins[:3], True, scale)
+        plain = dict(o=po, lse=plse, **dict(zip(
+            ("dq", "dk", "dv"),
+            fa.flash_bwd_plain(*ins[:3], ko, klse, ins[3], True, scale))))
+        f = [t.float() for t in ins]
+        ro, rlse = fa.flash_fwd_plain(*f[:3], True, scale)
+        ref = dict(o=ro, lse=rlse, **dict(zip(
+            ("dq", "dk", "dv"),
+            fa.flash_bwd_plain(*f[:3], ko.float(), klse, f[3], True,
+                               scale))))
+        for n in got:
+            sl = ks if n in ("dk", "dv") else qs
+            part = got[n][:, sl]
+            if n == "lse":   # f32 rows from the same products: f32 tolerance
+                e = check_close(f"lse heads {sl.start}..{sl.stop - 1}",
+                                part, ref[n], F32_TOL)
+            else:
+                e = hold_bf16_attention(f"{n} heads {sl.start}..{sl.stop - 1}",
+                                        part, plain[n], ref[n], n == "dq")
+            err[n] = max(err[n], e)
+        del plain, ref, f, po, plse, ro, rlse, ko, klse
+
+    def plain_fwd():
+        for qs, ks in parts:
+            fa.flash_fwd_plain(q[:, qs], k[:, ks], v[:, ks], True, scale)
+
+    def plain_bwd():
+        for qs, ks in parts:
+            fa.flash_bwd_plain(q[:, qs], k[:, ks], v[:, ks], o[:, qs],
+                               lse[:, qs], do[:, qs], True, scale)
+
+    def sdpa(*args):
+        return F.scaled_dot_product_attention(*args, is_causal=True,
+                                              enable_gqa=True)
+
+    plain_fwd_ms = time_ms(plain_fwd, iters=2, warmup=1)
+    plain_bwd_ms = time_ms(plain_bwd, iters=2, warmup=1)
+    with torch.no_grad():
+        sdpa_ms = time_ms(lambda: sdpa(q, k, v), iters=10)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    sdpa_grad_ms = time_ms(lambda: sdpa(qg, kg, vg), iters=10)
+    sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        sdpa(qg, kg, vg), (qg, kg, vg), do), iters=10) - sdpa_grad_ms
+
+    pairs = T * (T + 1) / 2        # causal (query, key) pairs of one head
+    prod = 2.0 * pairs * D * H     # flops of one [T, T] x D product, all heads
+    q_bytes, kv_bytes, row_bytes = 2 * B * T * H * D, 2 * B * T * KVH * D, \
+        4 * B * H * T
+    where = "paddle_tpu/kernels/flash_attention.py"
+    src = "paddle_tpu_torch/csrc/flash_attention.cu"
+    work = f"one layer, B=1, T={T}, 32/8 heads, D=128, causal"
+    entries[fa.FWD] = dict(
+        replaces=f"{where}:54", source=src, max_abs_err=err["o"],
+        ms=time_ms(lambda: fa._fwd_kernel(q, k, v, True, scale, False),
+                   iters=10),
+        plain_ms=plain_fwd_ms, library_ms=sdpa_ms,
+        bound=bound_ms(2 * q_bytes + 2 * kv_bytes, 2 * prod), work=work)
+    entries[fa.FWD_LSE] = dict(
+        replaces=f"{where}:97", source=src,
+        max_abs_err=max(err["o"], err["lse"]),
+        ms=time_ms(lambda: fa._fwd_kernel(q, k, v, True, scale, True),
+                   iters=10),
+        plain_ms=plain_fwd_ms, library_ms=sdpa_grad_ms,
+        bound=bound_ms(2 * q_bytes + 2 * kv_bytes + row_bytes, 2 * prod),
+        work=work)
+    entries[fa.BWD_DQ] = dict(
+        replaces=f"{where}:113", source=src, max_abs_err=err["dq"],
+        ms=time_ms(lambda: fa._dq_kernel(*ops, True, scale), iters=10),
+        plain_ms=plain_bwd_ms, library_ms=sdpa_bwd_ms,
+        bound=bound_ms(3 * q_bytes + 2 * kv_bytes + 2 * row_bytes,
+                       3 * prod), work=work)
+    entries[fa.BWD_DKV] = dict(
+        replaces=f"{where}:151", source=src,
+        max_abs_err=max(err["dk"], err["dv"]),
+        ms=time_ms(lambda: fa._dkv_kernel(*ops, True, scale), iters=10),
+        plain_ms=plain_bwd_ms, library_ms=sdpa_bwd_ms,
+        bound=bound_ms(2 * q_bytes + 4 * kv_bytes + 2 * row_bytes,
+                       4 * prod), work=work)
+    print("  plain attention timed 8 q heads at a time (4 calls); plain "
+          "backward = dQ, dK and dV together; library: SDPA forward "
+          "(without and with grad) and its backward as (fwd+bwd) - fwd, "
+          "dQ, dK and dV together")
+    print_entries(entries)
+    return entries
+
+
+# ---------------------------------------------------------------- phase 4
 def _prefix_logits(model, tokens, block_size, chunk):
     """f32 last-token logits of ``tokens`` through a fresh one-sequence
     pool (the chunked prefill step, as the engine runs it)."""
@@ -360,7 +603,73 @@ def phase_tiny(dev):
     print("  cuda tokens == cpu tokens", flush=True)
 
 
-# ---------------------------------------------------------------- phase 4
+# ---------------------------------------------------------------- phase 5
+def train_launches(L, grad=True):
+    """Kernel launches of one training step (``grad``) or one forward
+    without grad of an L-layer model: two RMSNorms a layer and the final
+    one (forward only: their backward is plain PyTorch); RoPE on q and
+    k, forward and backward; one attention forward, dQ and dK/dV."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    if not grad:
+        return {"rms_norm": 2 * L + 1, "rope": 2 * L, fa.FWD: L}
+    return {"rms_norm": 2 * L + 1, "rope": 4 * L, fa.FWD_LSE: L,
+            fa.BWD_DQ: L, fa.BWD_DKV: L}
+
+
+def train_step(model, opt, tokens, marks=None):
+    """One step; ``marks``, two CUDA events, are recorded after the
+    backward and after the optimizer step."""
+    loss, _ = model(tokens, labels=tokens)
+    loss.backward()
+    if marks:
+        marks[0].record()
+    opt.step()
+    opt.clear_grad()
+    if marks:
+        marks[1].record()
+    return float(loss.detach())
+
+
+def phase_tiny_train(dev):
+    """LlamaConfig.tiny() in f32 with the fused chunked loss, the same
+    seeded weights and batch on cpu (plain versions) and on cuda
+    (kernels): 5 AdamW steps, losses within F32_TOL."""
+    from paddle_tpu_torch.kernels import launches
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = LlamaConfig.tiny(fused_lm_loss=True, lm_loss_chunk=32)
+    cpu_model = LlamaForCausalLM(cfg, device="cpu", seed=0)
+    cuda_model = LlamaForCausalLM(cfg, device=dev, seed=None)
+    cuda_model.load_state_dict(cpu_model.state_dict())
+    tokens = torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (2, 40)))
+    per_step = train_launches(cfg.num_hidden_layers)
+    losses = {}
+    for name, model in (("cpu", cpu_model), ("cuda", cuda_model)):
+        opt = AdamW(1e-3, parameters=model.parameters())
+        x = tokens.to(model.device)
+        out = []
+        for _ in range(5):
+            launches.reset()
+            out.append(train_step(model, opt, x))
+            counts = launches.snapshot()
+            want = per_step if name == "cuda" else {}
+            if counts != want:
+                raise AssertionError(f"tiny train on {name}: launches "
+                                     f"{counts} != {want}")
+        losses[name] = out
+    diff = float(np.abs(np.subtract(losses["cuda"], losses["cpu"])).max())
+    print(f"[tiny train] f32, 5 AdamW steps: cuda losses "
+          f"{[round(x, 6) for x in losses['cuda']]}, max |cuda - cpu| "
+          f"{diff:.2e} (tolerance {F32_TOL:.0e}); launches a step "
+          f"{per_step}", flush=True)
+    if not diff <= F32_TOL or not losses["cuda"][-1] < losses["cuda"][0]:
+        raise AssertionError(f"tiny train: losses {losses}")
+
+
+# ---------------------------------------------------------------- phase 6
 def phase_main(dev):
     from paddle_tpu_torch.kernels import launches
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
@@ -481,8 +790,6 @@ def _step_profile(fn, args, reps=5, top=8):
     of the step's kernel times in a torch.profiler trace of one more
     call (0 when the trace shows no device time); the third the ``top``
     kernels by device time as (name, ms, launches)."""
-    from torch.profiler import ProfilerActivity, profile
-
     fn(*args)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -490,13 +797,145 @@ def _step_profile(fn, args, reps=5, top=8):
         fn(*args)
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / reps
+    dev_ms, rows = _profile_once(fn, args)
+    return wall, dev_ms, rows[:top]
+
+
+def _profile_once(fn, args):
+    """(device ms, kernels) of one ``fn(*args)`` in a torch.profiler
+    trace: the sum of its kernel times (0 when the trace shows no device
+    time) and every kernel as (name, ms, launches), longest first."""
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn(*args)
         torch.cuda.synchronize()
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                    for e in prof.key_averages()
                    if e.self_device_time_total > 0), key=lambda r: -r[1])
-    return wall, sum(r[1] for r in rows), rows[:top]
+    return sum(r[1] for r in rows), rows
+
+
+# kernel families of a training step, by the first pattern a kernel's
+# name holds (the rest is "other elementwise and reductions")
+TRAIN_FAMILIES = [
+    ("FlashAttention kernels", ("fa_fwd", "fa_bwd")),
+    ("RoPE kernel", ("rope_kernel",)),
+    ("RMSNorm kernel", ("rms_norm",)),
+    ("f32 products on TF32 (the chunked LM loss)", ("tf32",)),
+    ("bf16 products (cuBLAS)", ("nvjet", "gemm", "xmma")),
+    ("copies and casts", ("copy",)),
+]
+
+
+def _families(rows):
+    """{family: (ms, launches)} of profiler rows, in TRAIN_FAMILIES'
+    order, then the rest."""
+    out = {name: [0.0, 0] for name, _ in TRAIN_FAMILIES}
+    out["other elementwise and reductions"] = [0.0, 0]
+    for key, ms, count in rows:
+        fam = next((name for name, pats in TRAIN_FAMILIES
+                    if any(p in key for p in pats)),
+                   "other elementwise and reductions")
+        out[fam][0] += ms
+        out[fam][1] += count
+    return out
+
+
+# ---------------------------------------------------------------- phase 7
+def phase_train(dev):
+    """The training path at Llama-3-8B width, TRAIN_LAYERS of its 32
+    layers, bf16, one [1, TRAIN_T] batch with labels = tokens, AdamW(1e-4)
+    with its defaults.  Returns the launch counts of the whole phase."""
+    from paddle_tpu_torch.kernels import launches
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=TRAIN_LAYERS,
+                                fused_lm_loss=True)
+    L, V, T = cfg.num_hidden_layers, cfg.vocab_size, TRAIN_T
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    opt = AdamW(1e-4, parameters=model.parameters())
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, V, (1, T))).to(dev)
+    torch.cuda.synchronize()
+    print(f"[train] Llama-3-8B width, bf16, {L} of 32 layers, "
+          f"{n_params / 1e9:.3f} B parameters, random weights (seed 0) in "
+          f"{time.perf_counter() - t0:.1f} s; batch [1, {T}]", flush=True)
+    per_step = train_launches(L)
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+
+    def step():
+        marks[0].record()
+        return train_step(model, opt, tokens, marks[1:])
+
+    def counted(fn, want, what):
+        before = launches.snapshot()
+        out = fn()
+        got = {k: n - before.get(k, 0) for k, n in launches.snapshot().items()
+               if n != before.get(k, 0)}
+        if got != want:
+            raise AssertionError(f"{what}: launches {got} != {want}")
+        return out
+
+    torch.cuda.synchronize()
+    launches.reset()
+    losses, step_ms, fwd_bwd_ms, opt_ms = [], [], [], []
+    for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(counted(step, per_step, f"train step {i}"))
+        torch.cuda.synchronize()
+        if i >= TRAIN_WARMUP:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            fwd_bwd_ms.append(marks[0].elapsed_time(marks[1]))
+            opt_ms.append(marks[1].elapsed_time(marks[2]))
+    dev_ms, rows = counted(lambda: _profile_once(step, ()), per_step,
+                           "profiled train step")
+    with torch.no_grad():
+        eval_loss = counted(lambda: float(model(tokens, labels=tokens)[0]),
+                            train_launches(L, grad=False), "eval forward")
+    counts = launches.snapshot()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    print(f"  losses {[round(x, 4) for x in losses]}, eval after "
+          f"{len(losses) + 1} steps {eval_loss:.4f}, ln V {math.log(V):.4f}")
+    print(f"  launches a step {per_step}; eval forward "
+          f"{train_launches(L, grad=False)}; phase {counts}", flush=True)
+    # logits of unit variance (normed rows against std 1/sqrt(hidden)
+    # columns) put the first loss at ln V + 1/2 in expectation
+    if not all(math.isfinite(x) for x in losses + [eval_loss]) or \
+            abs(losses[0] - math.log(V)) > 1.0 or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"train: losses {losses}, eval {eval_loss}")
+    mean_ms = float(np.mean(step_ms))
+    tok_s = T / mean_ms * 1e3
+    flops_per_token = 6.0 * n_params + 12.0 * L * cfg.hidden_size * T
+    out = dict(step_ms=step_ms, mean_step_ms=mean_ms, tokens_per_s=tok_s,
+               fwd_bwd_ms=float(np.mean(fwd_bwd_ms)),
+               adamw_ms=float(np.mean(opt_ms)),
+               mfu=tok_s * flops_per_token / BF16_FLOPS,
+               flops_per_token=flops_per_token, n_params=n_params,
+               first_loss=losses[0], last_loss=losses[-1],
+               eval_loss=eval_loss, peak_mem_gb=peak_gb,
+               step_device_ms=dev_ms, layers=L, tokens=T)
+    busy = f"busy {dev_ms / mean_ms:.1%}" if dev_ms else "not measured"
+    print(f"  step {mean_ms:.1f} ms on the host's clock (mean of "
+          f"{TRAIN_STEPS}), {tok_s:.0f} tokens/s, MFU {out['mfu']:.1%}; "
+          f"forward+backward {out['fwd_bwd_ms']:.1f} ms and AdamW "
+          f"{out['adamw_ms']:.1f} ms on the device's clock; "
+          f"one step's kernels {dev_ms:.1f} ms on the device ({busy}); "
+          f"peak memory {peak_gb:.1f} GB", flush=True)
+    print("  by family:")
+    for name, (ms, count) in _families(rows).items():
+        print(f"    {ms:8.3f} ms  {count:5d}x  {name}")
+    print("  top kernels:")
+    for name, ms, count in rows[:12]:
+        print(f"    {ms:8.3f} ms  {count:5d}x  {name[:90]}")
+    print(f"  {json.dumps(out)}", flush=True)
+    return counts
 
 
 def main() -> int:
@@ -506,7 +945,8 @@ def main() -> int:
     from paddle_tpu_torch.kernels import launches
 
     dev = torch.device("cuda")
-    # f32 products in full f32 wherever results are compared
+    # f32 products in full f32 (PyTorch's default) wherever results are
+    # compared; the fused loss picks TF32 itself for its bf16 rows
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
@@ -515,14 +955,24 @@ def main() -> int:
     t_all = time.perf_counter()
     phase_build()
     entries = phase_kernels(dev)
+    train_entries = phase_train_kernels(dev)
     launches.reset()
     phase_tiny(dev)
+    phase_tiny_train(dev)
     counts = phase_main(dev)
+    gc.collect()                  # the serving model's 16 GB go first
+    torch.cuda.empty_cache()
+    train_counts = phase_train(dev)
     kernels = []
-    for name, e in entries.items():
+    for name, e in [*entries.items(), *train_entries.items()]:
+        # launches: the serving main phase for its kernels, the training
+        # main phase for the training path's kernels, under the name of
+        # the kernel's counter
+        run = counts if name in entries else train_counts
+        n = run.get(e.get("counter", name), 0)
         kernels.append({
             "name": name, "route": "cuda", "source": e["source"],
-            "replaces": e["replaces"], "launches": counts.get(name, 0),
+            "replaces": e["replaces"], "launches": n,
             "max_abs_err": e["max_abs_err"], "ms": e["ms"],
             "plain_ms": e["plain_ms"], "bound_ms": e["bound"][0],
             "bound_by": e["bound"][1], "library_ms": e["library_ms"]})

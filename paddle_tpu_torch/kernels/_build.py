@@ -111,15 +111,16 @@ def bind(name: str, fn: str, argtypes: list):
     return f
 
 
-def require_cuda(what: str, *tensors):
-    """Raise unless every tensor lies on one CUDA device and is
-    contiguous: the kernels index raw pointers."""
+def require_cuda(what: str, *tensors, contiguous: bool = True):
+    """Raise unless every tensor lies on one CUDA device and (unless the
+    kernel takes strides) is contiguous: the kernels index raw
+    pointers."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev or dev.type != "cuda":
             raise ValueError(f"{what}: tensors must share one CUDA device, "
                              f"got {t.device} and {dev}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{what}: tensors must be contiguous")
 
 

@@ -1,14 +1,23 @@
-"""Llama (Llama-2/3 architecture) for the serving path, in PyTorch.
+"""Llama (Llama-2/3 architecture) in PyTorch: the serving path and the
+no-cache training path.
 
-The port of ``paddle_tpu/models/llama.py`` as the continuous-batching
-engine runs it in its fused mode: every forward goes through a
-:class:`PagedKVCache`, each decoder layer folds its two RMSNorms into
-the projections that follow (``kernels.fused_norm_linear``), a decode
-step (one token per sequence) takes the fused paged-decode kernel and a
-prefill chunk the chunked-prefill kernel.  The final norm is
-``kernels.rms_norm``.  The embedding, ``o_proj``, ``down_proj`` and
-``lm_head`` are plain matrix products, as the JAX package leaves them to
-XLA.
+The port of ``paddle_tpu/models/llama.py`` in two modes.
+- Serving, as the continuous-batching engine runs it in its fused mode:
+  every forward goes through a :class:`PagedKVCache`, each decoder
+  layer folds its two RMSNorms into the projections that follow
+  (``kernels.fused_norm_linear``), a decode step (one token per
+  sequence) takes the fused paged-decode kernel and a prefill chunk the
+  chunked-prefill kernel.
+- Training (no cache): ``kernels.rms_norm`` before the unfused q/k/v
+  and gate/up projections, ``kernels.rope.fused_rope`` on q and k,
+  causal ``kernels.flash_attention.flash_attention_bthd``, and with
+  ``labels`` the next-token loss, chunked over tokens under
+  ``fused_lm_loss`` so the [tokens, vocab] logits never exist whole.
+  Every kernel there is differentiable (``torch.autograd.Function``s
+  whose backward runs the backward kernels).
+The final norm is ``kernels.rms_norm``.  The embedding, the
+projections that no kernel fuses and ``lm_head`` are plain matrix
+products, as the JAX package leaves them to XLA.
 
 Weights use Paddle's layout: every linear weight is [in, out].  The
 RoPE tables are kept in the model's dtype, as the JAX model's
@@ -17,18 +26,24 @@ compute with the same tables.  The KV pools are updated in place.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..kernels.chunked_prefill import chunked_attention
+from ..kernels.flash_attention import flash_attention_bthd
 from ..kernels.fused_norm_linear import fused_norm_linear, rms_scale
 from ..kernels.paged_attention import fused_paged_decode
 from ..kernels.rms_norm import rms_norm
+from ..kernels.rope import fused_rope
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -44,29 +59,35 @@ class LlamaConfig:
     max_position_embeddings: int = 4096
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
+    # forward(labels=...) returns (loss, None) with the next-token loss
+    # computed lm_loss_chunk tokens at a time (the logits never exist
+    # whole); off, it returns (loss, logits)
+    fused_lm_loss: bool = False
+    lm_loss_chunk: int = 2048
+    # options of the JAX model that the port does not have yet: anything
+    # but these values raises NotImplementedError
+    tie_word_embeddings: bool = False
+    sequence_parallel: bool = False
+    recompute: bool = False
+    moe_num_experts: int = 0
+    context_parallel: str = ""
     dtype: str = "bfloat16"
 
     @staticmethod
     def llama3_8b(**overrides):
         """Meta's published Llama-3-8B shape."""
-        cfg = LlamaConfig(
+        return dataclasses.replace(LlamaConfig(
             vocab_size=128256, hidden_size=4096, intermediate_size=14336,
             num_hidden_layers=32, num_attention_heads=32,
             num_key_value_heads=8, max_position_embeddings=8192,
-            rope_theta=500000.0)
-        for k, v in overrides.items():
-            setattr(cfg, k, v)
-        return cfg
+            rope_theta=500000.0), **overrides)
 
     @staticmethod
     def tiny(**overrides):
-        cfg = LlamaConfig(
+        return dataclasses.replace(LlamaConfig(
             vocab_size=256, hidden_size=64, intermediate_size=128,
             num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
-            max_position_embeddings=128, dtype="float32")
-        for k, v in overrides.items():
-            setattr(cfg, k, v)
-        return cfg
+            max_position_embeddings=128, dtype="float32"), **overrides)
 
     @property
     def head_dim(self) -> int:
@@ -120,7 +141,7 @@ class Linear(nn.Module):
 
     def __init__(self, weight):
         super().__init__()
-        self.weight = nn.Parameter(weight, requires_grad=False)
+        self.weight = nn.Parameter(weight)
 
     def forward(self, x):
         return x @ self.weight
@@ -129,7 +150,7 @@ class Linear(nn.Module):
 class LlamaRMSNorm(nn.Module):
     def __init__(self, weight, eps):
         super().__init__()
-        self.weight = nn.Parameter(weight, requires_grad=False)
+        self.weight = nn.Parameter(weight)
         self.eps = eps
 
     def forward(self, x):
@@ -146,14 +167,25 @@ class LlamaAttention(nn.Module):
         self.v_proj = Linear(make(h, config.num_key_value_heads * hd))
         self.o_proj = Linear(make(config.num_attention_heads * hd, h))
 
-    def forward(self, hidden, cos, sin, cache: PagedKVCache, positions,
-                norm_weight, norm_eps, write_mask=None):
-        """The fused serving forward: ``hidden`` is the UNNORMALIZED
-        residual stream; the input RMSNorm folds into q/k/v, which share
-        one row scale.  ``write_mask`` None means a decode step (T == 1);
-        else it is the [B, T] validity mask of a prefill chunk, whose
-        padded positions write into the garbage block 0."""
+    def forward(self, hidden, cos, sin, cache: Optional[PagedKVCache] = None,
+                positions=None, norm_weight=None, norm_eps=None,
+                write_mask=None):
+        """Without a cache, the training forward of the NORMALIZED
+        ``hidden`` [B, T, h]: unfused q/k/v, RoPE from position 0, causal
+        attention.  With one, the fused serving forward: ``hidden`` is
+        the UNNORMALIZED residual stream; the input RMSNorm folds into
+        q/k/v, which share one row scale.  ``write_mask`` None means a
+        decode step (T == 1); else it is the [B, T] validity mask of a
+        prefill chunk, whose padded positions write into the garbage
+        block 0."""
         B, T = hidden.shape[0], hidden.shape[1]
+        if cache is None:
+            q = self.q_proj(hidden).reshape(B, T, -1, self.head_dim)
+            k = self.k_proj(hidden).reshape(B, T, -1, self.head_dim)
+            v = self.v_proj(hidden).reshape(B, T, -1, self.head_dim)
+            q, k = fused_rope(q, cos, sin), fused_rope(k, cos, sin)
+            out = flash_attention_bthd(q, k, v, causal=True)
+            return self.o_proj(out.reshape(B, T, -1))
         rs = rms_scale(hidden, norm_eps)
         q = fused_norm_linear(hidden, rs, norm_weight, self.q_proj.weight)
         k = fused_norm_linear(hidden, rs, norm_weight, self.k_proj.weight)
@@ -204,9 +236,12 @@ class LlamaMLP(nn.Module):
         self.up_proj = Linear(make(h, m))
         self.down_proj = Linear(make(m, h))
 
-    def forward(self, x, norm_weight, norm_eps):
-        """The post-attention RMSNorm folds into gate/up (one shared row
-        scale); silu rides as gate's epilogue."""
+    def forward(self, x, norm_weight=None, norm_eps=None):
+        """Without ``norm_weight``, the unfused MLP of the normalized x.
+        With it, the post-attention RMSNorm folds into gate/up (one
+        shared row scale); silu rides as gate's epilogue."""
+        if norm_weight is None:
+            return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
         rs = rms_scale(x, norm_eps)
         g = fused_norm_linear(x, rs, norm_weight, self.gate_proj.weight,
                               activation="silu")
@@ -223,7 +258,12 @@ class LlamaDecoderLayer(nn.Module):
                                                      config.rms_norm_eps)
         self.mlp = LlamaMLP(config, make)
 
-    def forward(self, hidden, cos, sin, cache, positions, write_mask=None):
+    def forward(self, hidden, cos, sin, cache=None, positions=None,
+                write_mask=None):
+        if cache is None:
+            hidden = hidden + self.self_attn(self.input_layernorm(hidden),
+                                             cos, sin)
+            return hidden + self.mlp(self.post_attention_layernorm(hidden))
         ln = self.input_layernorm
         hidden = hidden + self.self_attn(hidden, cos, sin, cache, positions,
                                          ln.weight, ln.eps, write_mask)
@@ -236,7 +276,7 @@ class LlamaModel(nn.Module):
         super().__init__()
         self.config = config
         self.embed_tokens = nn.Embedding.from_pretrained(make_embed(),
-                                                         freeze=True)
+                                                         freeze=False)
         self.layers = nn.ModuleList(
             [LlamaDecoderLayer(config, make, make_norm)
              for _ in range(config.num_hidden_layers)])
@@ -249,12 +289,16 @@ class LlamaModel(nn.Module):
         self.register_buffer("rope_cos", cos.to(dtype), persistent=False)
         self.register_buffer("rope_sin", sin.to(dtype), persistent=False)
 
-    def forward(self, input_ids, caches, positions, write_mask=None,
-                last_index=None):
-        """Hidden states after the final norm.  ``last_index`` keeps only
-        that token's row before the norm (the norm is per row, so the
-        result is the same row the full forward would give)."""
+    def forward(self, input_ids, caches=None, positions=None,
+                write_mask=None, last_index=None):
+        """Hidden states after the final norm; without ``caches`` the
+        no-cache (training) forward from position 0.  ``last_index``
+        keeps only that token's row before the norm (the norm is per
+        row, so the result is the same row the full forward would
+        give)."""
         hidden = self.embed_tokens(input_ids)
+        if caches is None:
+            caches = [None] * len(self.layers)
         for layer, cache in zip(self.layers, caches):
             hidden = layer(hidden, self.rope_cos, self.rope_sin, cache,
                            positions, write_mask)
@@ -263,16 +307,122 @@ class LlamaModel(nn.Module):
         return self.norm(hidden)
 
 
+def causal_lm_loss(logits, labels):
+    """Mean next-token NLL over every position of logits [B, T, V] (the
+    JAX forward's unfused ``causal_lm_loss``: f32 log-softmax, labels
+    shifted by one)."""
+    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    picked = logp.gather(-1, labels[:, 1:, None].long())[..., 0]
+    return -picked.mean()
+
+
+@contextlib.contextmanager
+def _tf32_if_exact(dtype):
+    """Let f32 products on the card run in TF32 while the block runs when
+    ``dtype``'s values are exact in TF32 (bf16 and f16 both are: TF32 has
+    bf16's exponent and f16's fraction), and restore the setting after."""
+    mm = torch.backends.cuda.matmul
+    before = mm.allow_tf32
+    mm.allow_tf32 = before or dtype in (torch.bfloat16, torch.float16)
+    try:
+        yield
+    finally:
+        mm.allow_tf32 = before
+
+
+class _F32Logits(torch.autograd.Function):
+    """f32 logits ``h @ w`` of model-dtype rows h [n, hidden] against the
+    f32 weight w [hidden, V], as the JAX ``preferred_element_type=f32``
+    product gives them.  The precision is chosen here, not left to the
+    caller's process-wide setting: with bf16 rows both forward operands
+    are exact in TF32, so the product runs on the tensor cores and its
+    logits are the f32 ones; the backward's products round the f32
+    cotangent to TF32 (2^-11 relative) before dh is rounded to bf16
+    (2^-9) and dw, summed over the chunks in f32, to the weight's
+    dtype.  f32 rows keep full f32 products."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(h, w)
+        with _tf32_if_exact(h.dtype):
+            return h.float() @ w
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        dh = dw = None
+        with _tf32_if_exact(h.dtype):
+            if ctx.needs_input_grad[0]:
+                dh = (g @ w.t()).to(h.dtype)
+            if ctx.needs_input_grad[1]:
+                dw = h.float().t() @ g
+        return dh, dw
+
+
+def _chunk_nll(h, w, labels):
+    """Summed NLL of one token chunk: h [n, hidden] against the f32
+    lm_head weight w [hidden, V]; labels -1 are padding."""
+    logits = _F32Logits.apply(h, w)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, labels.clamp(min=0)[:, None])[:, 0]
+    return ((lse - picked) * (labels >= 0).float()).sum()
+
+
+def fused_causal_lm_loss(hidden, w, labels, chunk):
+    """The JAX ``_fused_causal_lm_loss``: next-token NLL computed
+    ``chunk`` tokens at a time, each chunk's logits recomputed in the
+    backward (``torch.utils.checkpoint`` in place of ``jax.checkpoint``)
+    so the [tokens, V] logits never exist whole; padded tokens carry the
+    label -1; the sum is divided by the token count.
+
+    The logits are f32 from the model-dtype operands (:class:`_F32Logits`):
+    the hidden rows and an f32 copy of the weight (made once, its
+    gradient summed over the chunks in f32) go through an f32 matrix
+    product, in TF32 on the card when the rows are bf16."""
+    h = hidden[:, :-1]
+    lab = labels[:, 1:].long()
+    B, T, H = h.shape
+    n_tok = B * T
+    hf = h.reshape(n_tok, H)
+    labf = lab.reshape(n_tok)
+    n_chunks = max(1, -(-n_tok // chunk))
+    csize = -(-n_tok // n_chunks)
+    pad = n_chunks * csize - n_tok
+    if pad:
+        hf = F.pad(hf, (0, 0, 0, pad))
+        labf = F.pad(labf, (0, pad), value=-1)
+    wf = w.float()
+    total = hidden.new_zeros((), dtype=torch.float32)
+    for c in range(n_chunks):
+        rows = slice(c * csize, (c + 1) * csize)
+        total = total + checkpoint(_chunk_nll, hf[rows], wf, labf[rows],
+                                   use_reentrant=False)
+    return total / n_tok
+
+
+# options of the JAX LlamaConfig the port does not have yet, with the one
+# value each may take
+UNPORTED_OPTIONS = {"tie_word_embeddings": False, "sequence_parallel": False,
+                    "recompute": False, "moe_num_experts": 0,
+                    "context_parallel": ""}
+
+
 class LlamaForCausalLM(nn.Module):
     """Llama causal LM on ``device`` (default ``cuda``; raises without a
     GPU unless ``device="cpu"``).  Weights are random from ``seed``
     (normal, std 1/sqrt(fan_in) for projections, 1 for the embedding,
     ones for the norms); ``seed=None`` leaves them uninitialized for a
-    loader such as ``convert.from_jax_state_dict`` to fill."""
+    loader such as ``convert.from_jax_state_dict`` to fill.  Every
+    parameter is trainable."""
 
     def __init__(self, config: LlamaConfig, device=None,
                  seed: Optional[int] = 0):
         super().__init__()
+        for option, value in UNPORTED_OPTIONS.items():
+            if getattr(config, option) != value:
+                raise NotImplementedError(
+                    f"LlamaConfig.{option}={getattr(config, option)!r} is "
+                    "not ported to paddle_tpu_torch yet")
         self.config = config
         self.device = resolve_device(device)
         dtype = config.torch_dtype
@@ -297,13 +447,23 @@ class LlamaForCausalLM(nn.Module):
         with torch.no_grad():
             self.model = LlamaModel(config, make, make_norm, make_embed)
             self.lm_head = Linear(make(config.hidden_size, config.vocab_size))
-        self.eval()
 
-    def forward(self, input_ids, caches, positions, write_mask=None,
-                last_index=None):
-        """Logits [B, T (or 1 with ``last_index``), V] in the model's
-        dtype, over the paged caches (one :class:`PagedKVCache` per
-        layer, pools updated in place)."""
+    def forward(self, input_ids, caches=None, positions=None,
+                write_mask=None, last_index=None, labels=None):
+        """Serving (``caches``: one :class:`PagedKVCache` per layer, pools
+        updated in place): logits [B, T (or 1 with ``last_index``), V] in
+        the model's dtype.  Without caches, the training forward from
+        position 0: logits [B, T, V]; with ``labels`` [B, T] (the next
+        token of position t is ``labels[:, t + 1]``) ``(loss, None)``
+        under ``fused_lm_loss`` and ``(loss, logits)`` otherwise."""
+        if labels is not None and caches is not None:
+            raise ValueError("labels belong to the no-cache forward")
         hidden = self.model(input_ids, caches, positions, write_mask,
                             last_index)
-        return self.lm_head(hidden)
+        if labels is None:
+            return self.lm_head(hidden)
+        if self.config.fused_lm_loss:
+            return fused_causal_lm_loss(hidden, self.lm_head.weight, labels,
+                                        self.config.lm_loss_chunk), None
+        logits = self.lm_head(hidden)
+        return causal_lm_loss(logits, labels), logits

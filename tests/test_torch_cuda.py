@@ -7,15 +7,20 @@ that has only PyTorch:
 
 (``--noconftest``: the repository's conftest sets JAX up.)  Tolerances:
 f32 1e-4 (same cast points, sums in another order); bf16 one rounding
-of the largest output.  The Llama-3-8B shapes are held in
+of the largest output, except FlashAttention in bf16 (see
+``_hold_bf16_attention``).  The Llama-3-8B shapes are held in
 chip_smoke.py.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
 
 from paddle_tpu_torch.kernels import (chunked_prefill, fused_norm_linear,
-                                      launches, paged_attention, rms_norm)
+                                      launches, paged_attention, rms_norm,
+                                      rope)
+from paddle_tpu_torch.kernels import flash_attention as fa
 from torch_operands import chunk_operands, decode_operands
 
 TOL = 1e-4
@@ -142,3 +147,171 @@ class TestCudaEngine:
             assert counts.get(name, 0) > 0, name
         for a, b in zip(*outs):
             np.testing.assert_array_equal(a, b)
+
+
+def _attn_inputs(B, H, KVH, Tq, Tk, D, dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=g).to(dtype).to(device)
+            for shape in ((B, H, Tq, D), (B, KVH, Tk, D), (B, KVH, Tk, D),
+                          (B, H, Tq, D))]
+
+
+def _grads(q, k, v, do, causal):
+    q, k, v = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    o = fa.flash_attention_bhtd(q, k, v, causal)
+    o.backward(do)
+    return [o.detach(), q.grad, k.grad, v.grad]
+
+
+def _hold_bf16_attention(got, plain, ref):
+    """A bf16 kernel output against the f32 plain version ``ref`` of the
+    same (bf16-valued) inputs: its error may be twice the bf16 plain
+    version's own error (which rounds only the output) plus one bf16
+    rounding (2^-9) of the largest output, for the kernel's rounding of
+    P and dS to bf16 ahead of the second product, which over a few tens
+    of keys does not average out."""
+    err = float((got.float() - ref).abs().max())
+    bound = 2 * float((plain.float() - ref).abs().max()) \
+        + float(ref.abs().max()) * 2.0 ** -9
+    assert err <= bound, (err, bound)
+
+
+ATTN_SHAPES = [  # B, H, KVH, Tq, Tk
+    (2, 4, 2, 37, 37), (1, 4, 1, 20, 45), (1, 8, 2, 130, 130),
+    (1, 2, 1, 200, 333)]
+
+
+@pytest.mark.cuda
+class TestCudaTrainingKernels:
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("offset", [0, 7])
+    def test_rope(self, cuda_device, dtype, offset):
+        g = torch.Generator().manual_seed(offset)
+        x = torch.randn(2, 37, 4, 64, generator=g).to(dtype)
+        ang = torch.randn(50, 32, generator=g)
+        cos, sin = ang.cos().to(dtype), ang.sin().to(dtype)
+        gy = torch.randn(x.shape, generator=g).to(dtype)
+        outs = []
+        for dev in ("cpu", cuda_device):
+            xd = x.detach().to(dev).requires_grad_()
+            y = rope.fused_rope(xd, cos.to(dev), sin.to(dev), offset)
+            y.backward(gy.to(dev))
+            outs.append((y.detach().cpu().float(), xd.grad.cpu().float()))
+        # f32: sums in another order; bf16: the same f32 arithmetic and
+        # one rounding, up to a contracted multiply-add
+        tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+        for got, want in zip(outs[1], outs[0]):
+            close(got, want, tol)
+
+    @pytest.mark.parametrize("causal", [False, True])
+    @pytest.mark.parametrize("B,H,KVH,Tq,Tk", ATTN_SHAPES)
+    def test_flash_attention_f32(self, cuda_device, B, H, KVH, Tq, Tk,
+                                 causal):
+        ops = _attn_inputs(B, H, KVH, Tq, Tk, 64, torch.float32, "cpu")
+        want = _grads(*ops, causal)
+        launches.reset()
+        got = _grads(*[x.to(cuda_device) for x in ops], causal)
+        assert launches.snapshot() == {fa.FWD_LSE: 1, fa.BWD_DQ: 1,
+                                       fa.BWD_DKV: 1}
+        for a, b in zip(got, want):
+            close(a.cpu(), b)
+        with torch.no_grad():
+            o = fa.flash_attention_bhtd(*[x.to(cuda_device)
+                                          for x in ops[:3]], causal)
+        assert launches.snapshot()[fa.FWD] == 1
+        close(o.cpu(), want[0])
+
+    @pytest.mark.parametrize("D", [64, 128])
+    @pytest.mark.parametrize("causal", [False, True])
+    @pytest.mark.parametrize("B,H,KVH,Tq,Tk", ATTN_SHAPES)
+    def test_flash_attention_bf16(self, cuda_device, B, H, KVH, Tq, Tk,
+                                  causal, D):
+        ops = _attn_inputs(B, H, KVH, Tq, Tk, D, torch.bfloat16,
+                           cuda_device, seed=D)
+        got = _grads(*ops, causal)
+        scale = 1 / math.sqrt(D)
+        # the plain version on the same bf16 inputs, and in f32
+        o, lse = fa.flash_fwd_plain(*ops[:3], causal, scale)
+        plain = [o, *fa.flash_bwd_plain(*ops[:3], o, lse, ops[3], causal,
+                                        scale)]
+        f = [x.float() for x in ops]
+        ro, rlse = fa.flash_fwd_plain(*f[:3], causal, scale)
+        ref = [ro, *fa.flash_bwd_plain(*f[:3], ro, rlse, f[3], causal,
+                                       scale)]
+        for a, b, r in zip(got, plain, ref):
+            _hold_bf16_attention(a, b, r)
+
+    def test_flash_attention_bthd_views(self, cuda_device):
+        # the model's [B, T, H, D] layout goes in as strided views and
+        # comes out in the same memory order, no copy
+        ops = _attn_inputs(1, 8, 2, 70, 70, 128, torch.bfloat16,
+                           cuda_device, seed=5)
+        q, k, v, do = (x.transpose(1, 2).contiguous() for x in ops)
+        out = fa.flash_attention_bthd(q, k, v, causal=True)
+        assert out.is_contiguous()
+        with torch.no_grad():
+            want = fa.flash_attention_bhtd(*ops[:3], causal=True)
+        assert torch.equal(out.transpose(1, 2), want)
+
+
+@pytest.mark.cuda
+class TestCudaTraining:
+    def test_tiny_training_matches_cpu(self, cuda_device):
+        from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+        from paddle_tpu_torch.optimizer import AdamW
+
+        cfg = LlamaConfig.tiny(fused_lm_loss=True, lm_loss_chunk=32)
+        cpu = LlamaForCausalLM(cfg, device="cpu", seed=0)
+        gpu = LlamaForCausalLM(cfg, device=cuda_device, seed=None)
+        gpu.load_state_dict(cpu.state_dict())
+        tokens = torch.from_numpy(
+            np.random.RandomState(0).randint(0, 256, (2, 40)))
+        losses, L = [], cfg.num_hidden_layers
+        for model in (cpu, gpu):
+            opt = AdamW(1e-3, parameters=model.parameters())
+            x = tokens.to(model.device)
+            out = []
+            for _ in range(5):
+                launches.reset()
+                loss, _ = model(x, labels=x)
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+                out.append(float(loss.detach()))
+            losses.append(out)
+        assert launches.snapshot() == {
+            "rms_norm": 2 * L + 1, "rope": 4 * L, fa.FWD_LSE: L,
+            fa.BWD_DQ: L, fa.BWD_DKV: L}
+        np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4,
+                                   atol=1e-4)
+        assert losses[1][-1] < losses[1][0]
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_adamw_rule_matches_cpu(self, cuda_device, dtype):
+        # the rule's multiply-adds round once and its divisions are
+        # correctly rounded on both devices, so the moments are identical;
+        # CUDA's f32 square root is one ulp off in a few elements, which
+        # the decayed parameter minus the update can double: f32
+        # parameters agree to 2 ulps, bf16 ones exactly
+        from paddle_tpu_torch.optimizer import adamw_rule
+
+        rng = np.random.RandomState(5)
+        p = t((rng.randn(256, 96) * 0.02).astype(np.float32)).to(dtype)
+        g = t((rng.randn(256, 96) * 0.01).astype(np.float32)).to(dtype)
+        m = t((rng.randn(256, 96) * 1e-3).astype(np.float32))
+        v = t((rng.rand(256, 96) * 1e-5).astype(np.float32))
+        out = []
+        for dev in ("cpu", cuda_device):
+            # copies: the rule updates p, m and v in place
+            ps, ms, vs = (x.to(dev, copy=True) for x in (p, m, v))
+            new = adamw_rule(ps, ms, vs, g.to(dev), 1e-3, 0.9, 0.999, 1e-8,
+                             3, 0.01)
+            out.append([x.cpu() for x in (new, ms, vs)])
+        (p_cpu, m_cpu, v_cpu), (p_gpu, m_gpu, v_gpu) = out
+        assert torch.equal(m_cpu, m_gpu) and torch.equal(v_cpu, v_gpu)
+        if dtype == torch.bfloat16:
+            assert torch.equal(p_cpu, p_gpu)
+        else:
+            np.testing.assert_array_max_ulp(p_cpu.numpy(), p_gpu.numpy(),
+                                            maxulp=2)

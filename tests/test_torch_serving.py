@@ -186,7 +186,8 @@ class TestStepsMatchJax:
 
 class TestConvert:
     def test_missing_and_misshapen_names_raise(self, models):
-        named = {k: v.numpy() for k, v in models[1].named_parameters()}
+        named = {k: v.detach().numpy()
+                 for k, v in models[1].named_parameters()}
         cfg = LlamaConfig.tiny()
         lost = dict(named)
         lost.pop("lm_head.weight")
@@ -200,4 +201,5 @@ class TestConvert:
     def test_linear_weights_keep_the_in_out_layout(self, models):
         q = models[1].model.layers[0].self_attn.q_proj.weight
         jq = models[0].state_dict()["model.layers.0.self_attn.q_proj.weight"]
-        np.testing.assert_array_equal(q.numpy(), np.asarray(jq.numpy()))
+        np.testing.assert_array_equal(q.detach().numpy(),
+                                      np.asarray(jq.numpy()))
