@@ -10,12 +10,15 @@ Phases, each of which must pass (nothing is caught):
      PyTorch version at Llama-3-8B shapes in bf16, with its stated
      tolerance, its time, the plain version's time, one library call's
      time (a yardstick the port never calls) and its bound on the card;
+     the paged-decode and chunked-prefill kernels also on int8 and fp8
+     KV pools, and the quantize-at-write scatter, bit-identical;
   3. training kernels: RMSNorm, RoPE (forward and backward) and
      FlashAttention (forward, forward with LSE, dQ, dK/dV) at the
      training path's shapes (T = 8192, hidden 4096, 32 q / 8 kv heads,
      head_dim 128, bf16, causal), with the same numbers;
   4. tiny: LlamaConfig.tiny() in f32, the same seeded weights served on
-     cuda (kernels) and on cpu (plain versions): greedy tokens must be
+     cuda (kernels) and on cpu (plain versions), from f32, int8 and fp8
+     KV pools and from fp8 pools with int8 weights: greedy tokens must be
      identical over 6 requests with a shared prefix and forced
      preemption (a differing token is excused only when the CPU logits'
      top-2 margin there is below the f32 tolerance);
@@ -23,13 +26,16 @@ Phases, each of which must pass (nothing is caught):
      and on cpu: losses within the f32 tolerance, exact launch counts;
   6. main serving: Llama-3-8B width in bf16 (random weights from a seed)
      behind serving.Engine: 8 requests, prompts of 128..1024 tokens, two
-     of them sharing a 512-token prefix, 32 new tokens each;
+     of them sharing a 512-token prefix, 32 new tokens each; then the
+     same from fp8 KV pools, from int8 KV pools and from fp8 pools with
+     int8 weights, each pool the bf16 pool's bytes, with the greedy
+     token's log-probability drift against the bf16 pool;
   7. main training: Llama-3-8B width, 8 of its 32 layers, bf16, one
      [1, 8192] batch, AdamW(1e-4): 2 warm-up and 5 timed steps, one
      profiled step and one eval forward without grad; finite, falling
      losses and exact launch counts per step.
-The launch counts of phases 6 and 7, each reset just before it, show
-that each path went through every kernel of its own.
+The launch counts of phases 6 and 7, reset just before each run and read
+just after it, show that each path went through every kernel of its own.
 
 Prints the card's name and power limit, then one JSON line of the
 kernels' numbers, then as its last line
@@ -136,12 +142,13 @@ def phase_build():
 # ---------------------------------------------------------------- phase 2
 def phase_kernels(dev):
     """Each kernel against its plain version at the main path's 8B
-    shapes, bf16.  Returns {entry name: numbers} for the JSON line."""
+    shapes, bf16; the attention kernels also on int8 and fp8 KV pools.
+    Returns {entry name: numbers} for the JSON line."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels import (chunked_prefill,
                                           fused_norm_linear as fnl,
-                                          paged_attention, rms_norm)
+                                          kv_quant, paged_attention, rms_norm)
 
     g = torch.Generator(device=dev).manual_seed(1)
     bf = torch.bfloat16
@@ -230,36 +237,13 @@ def phase_kernels(dev):
     c, s = cos[pos_l].to(bf), sin[pos_l].to(bf)
     q = randn(B, H, D)
     splits = paged_attention._default_splits(nbs)
-    args = (q, c, s, k_pool, v_pool, bt, positions, splits)
-    got = paged_attention.paged_decode_attention(*args)
-    ref = paged_attention.paged_decode_attention_plain(*args)
-    err = check_close(f"paged_decode B={B} nbs={nbs} splits={splits}",
-                      got, ref, bf16_tol(ref))
-    keys = float((positions + 1).sum())
+    dkeys = float((positions + 1).sum())
     Lmax = int(positions.max()) + 1
     q_rot = paged_attention._rotate_half(
-        q.float().reshape(B, H, D), c[:, None, :].float(),
+        q.float(), c[:, None, :].float(),
         s[:, None, :].float()).to(bf)[:, :, None, :]
-    kg = k_pool[bt.long()].reshape(B, nbs * bs, KVH, D)[:, :Lmax] \
-        .transpose(1, 2).contiguous()
-    vg = v_pool[bt.long()].reshape(B, nbs * bs, KVH, D)[:, :Lmax] \
-        .transpose(1, 2).contiguous()
     mask = (torch.arange(Lmax, device=dev)[None, :]
             <= positions[:, None])[:, None, None, :]
-    entries["paged_decode"] = dict(
-        replaces="paddle_tpu/kernels/paged_attention.py:102",
-        source="paddle_tpu_torch/csrc/paged_attention.cu", max_abs_err=err,
-        ms=time_ms(lambda: paged_attention.paged_decode_attention(*args)),
-        plain_ms=time_ms(
-            lambda: paged_attention.paged_decode_attention_plain(*args),
-            iters=5),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            q_rot, kg, vg, attn_mask=mask, enable_gqa=True)),
-        bound=bound_ms(2 * (2 * keys * KVH * D + 2 * B * H * D)
-                       + 4 * B * (nbs + 1 + D),
-                       4.0 * keys * H * D),
-        work=f"one layer's decode step, B={B}, {int(keys)} context keys")
-
     # chunked prefill: one 256-token chunk starting at 768 (the last
     # chunk of a 1024-token prompt)
     T, start = 256, 768
@@ -269,32 +253,128 @@ def phase_kernels(dev):
     bt1[0, :n] = 1 + torch.randperm(nb - 1, generator=g, device=dev)[:n].int()
     pos1 = torch.tensor([start], dtype=torch.int32, device=dev)
     qc = randn(1, T, H, D)
-    cargs = (qc, k_pool, v_pool, bt1, pos1)
-    got = chunked_prefill.chunked_attention(*cargs)
-    ref = chunked_prefill.chunked_attention_plain(*cargs)
-    err = check_close(f"chunked_prefill T={T} start={start}", got, ref,
-                      bf16_tol(ref))
-    keys = float(sum(start + t + 1 for t in range(T)))
-    kg = k_pool[bt1.long()].reshape(1, nbs * bs, KVH, D)[:, :ctx] \
-        .transpose(1, 2).contiguous()
-    vg = v_pool[bt1.long()].reshape(1, nbs * bs, KVH, D)[:, :ctx] \
-        .transpose(1, 2).contiguous()
+    ckeys = float(sum(start + t + 1 for t in range(T)))
     cmask = (torch.arange(ctx, device=dev)[None, :]
              <= start + torch.arange(T, device=dev)[:, None])[None, None]
     qt = qc.transpose(1, 2).contiguous()
-    entries["chunked_prefill"] = dict(
-        replaces="paddle_tpu/kernels/chunked_prefill.py:51",
-        source="paddle_tpu_torch/csrc/chunked_prefill.cu", max_abs_err=err,
-        ms=time_ms(lambda: chunked_prefill.chunked_attention(*cargs)),
-        plain_ms=time_ms(
-            lambda: chunked_prefill.chunked_attention_plain(*cargs),
-            iters=5),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kg, vg, attn_mask=cmask, enable_gqa=True)),
-        bound=bound_ms(2 * (2 * ctx * KVH * D + 2 * T * H * D)
-                       + 4 * (nbs + 1), 4.0 * keys * H * D),
-        work=f"one layer's prefill chunk, T={T}, context {ctx}")
+
+    # both on bf16 pools (rows 3, 4) and on the same K/V quantized per
+    # row to int8 and to fp8 codes (rows 3q, 4q); the library yardstick
+    # is SDPA on K/V already gathered (and dequantized)
+    for scheme in (None, "int8", "fp8"):
+        if scheme is None:
+            kp, vp, ks, vs, kd, vd = k_pool, v_pool, None, None, k_pool, \
+                v_pool
+        else:
+            (kp, ks), (vp, vs) = (kv_quant.quantize_kv(p, scheme)
+                                  for p in (k_pool, v_pool))
+            kd, vd = (kv_quant.dequantize_kv(x, sc, scheme).to(bf)
+                      for x, sc in ((kp, ks), (vp, vs)))
+        # bytes of one token's K (or V) row: bf16, or 1 byte an element
+        # and the row's f32 scale
+        row = 2 * KVH * D if scheme is None else KVH * D + 4
+        extra = "" if scheme is None else f", {scheme} pools"
+        path = "serve" if scheme is None else "quant"
+
+        args = (q, c, s, kp, vp, bt, positions, splits, ks, vs, scheme)
+        name = kv_quant.counter_name(paged_attention.KERNEL, scheme)
+        got = paged_attention.paged_decode_attention(*args)
+        ref = paged_attention.paged_decode_attention_plain(*args)
+        err = check_close(f"{name} B={B} nbs={nbs} splits={splits}",
+                          got, ref, bf16_tol(ref))
+        kg, vg = _gathered(kd, bt, Lmax), _gathered(vd, bt, Lmax)
+        entries[name] = dict(
+            path=path, replaces="paddle_tpu/kernels/paged_attention.py:102",
+            source="paddle_tpu_torch/csrc/paged_attention.cu",
+            max_abs_err=err,
+            ms=time_ms(lambda: paged_attention.paged_decode_attention(*args)),
+            plain_ms=time_ms(
+                lambda: paged_attention.paged_decode_attention_plain(*args),
+                iters=5),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q_rot, kg, vg, attn_mask=mask, enable_gqa=True)),
+            bound=bound_ms(2 * dkeys * row + 2 * 2 * B * H * D
+                           + 4 * B * (nbs + 1 + D), 4.0 * dkeys * H * D),
+            work=f"one layer's decode step, B={B}, {int(dkeys)} context "
+                 f"keys{extra}")
+
+        cargs = (qc, kp, vp, bt1, pos1, ks, vs, scheme)
+        name = kv_quant.counter_name(chunked_prefill.KERNEL, scheme)
+        got = chunked_prefill.chunked_attention(*cargs)
+        ref = chunked_prefill.chunked_attention_plain(*cargs)
+        err = check_close(f"{name} T={T} start={start}", got, ref,
+                          bf16_tol(ref))
+        kg, vg = _gathered(kd, bt1, ctx), _gathered(vd, bt1, ctx)
+        entries[name] = dict(
+            path=path, replaces="paddle_tpu/kernels/chunked_prefill.py:51",
+            source="paddle_tpu_torch/csrc/chunked_prefill.cu",
+            max_abs_err=err,
+            ms=time_ms(lambda: chunked_prefill.chunked_attention(*cargs)),
+            plain_ms=time_ms(
+                lambda: chunked_prefill.chunked_attention_plain(*cargs),
+                iters=5),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kg, vg, attn_mask=cmask, enable_gqa=True)),
+            bound=bound_ms(2 * ctx * row + 2 * 2 * T * H * D
+                           + 4 * (nbs + 1), 4.0 * ckeys * H * D),
+            work=f"one layer's prefill chunk, T={T}, context {ctx}{extra}")
+        del kg, vg
+    entries.update(scatter_entries(g, nb, bs, KVH, D, B, T))
     print_entries(entries)
+    return entries
+
+
+def _gathered(pool, bt, n_keys):
+    """[B, KVH, n_keys, D] contiguous K or V of the first n_keys pages
+    of ``bt``: the library yardstick's input."""
+    B, nbs = bt.shape
+    bs, KVH, D = pool.shape[1:]
+    return pool[bt.long()].reshape(B, nbs * bs, KVH, D)[:, :n_keys] \
+        .transpose(1, 2).contiguous()
+
+
+def scatter_entries(g, nb, bs, KVH, D, B, T):
+    """The quantize-at-write scatter at a decode step's [B, KVH, D] and a
+    prefill chunk's [T, KVH, D] new k and v rows of one layer, into
+    distinct rows of [nb, bs] int8 pools (rows that several tokens share,
+    the garbage block's row 0, take any one of them in both versions):
+    bit-identical to its plain version for both schemes, timed in fp8."""
+    from paddle_tpu_torch.kernels import kv_quant
+
+    dev, entries = g.device, {}
+    for N, name in ((B, "kv_quant_scatter"), (T, "kv_quant_scatter_chunk")):
+        new = [(torch.randn((N, KVH, D), generator=g, device=dev)
+                * torch.logspace(-2, 2, N, device=dev)[:, None, None])
+               .to(torch.bfloat16) for _ in range(2)]
+        rows = torch.randperm(nb * bs, generator=g, device=dev)[:N]
+        for scheme in ("int8", "fp8"):
+            pools = [torch.zeros((nb, bs, KVH, D), dtype=torch.int8,
+                                 device=dev) for _ in range(2)] + \
+                [torch.ones((nb, bs), device=dev) for _ in range(2)]
+            want = [x.clone() for x in pools]
+            kv_quant.quantize_scatter(*pools, *new, rows, scheme)
+            kv_quant.quantize_scatter_plain(*want, *new, rows, scheme)
+            same = all(torch.equal(a, b) for a, b in zip(pools, want))
+            print(f"  {name} [{N}, {KVH}, {D}] {scheme}: "
+                  f"{'bit-identical' if same else 'FAIL'}", flush=True)
+            if not same:
+                raise AssertionError(f"{name} {scheme}: the kernel's codes "
+                                     "or scales differ from the plain "
+                                     "version's")
+        args = (*pools, *new, rows, "fp8")
+        entries[name] = dict(
+            path="quant", counter=kv_quant.KERNEL,
+            replaces="paddle_tpu/kernels/paged_attention.py:80" if N == B
+            else "paddle_tpu/models/llama.py:390",
+            source="paddle_tpu_torch/csrc/kv_quant.cu", max_abs_err=0.0,
+            ms=time_ms(lambda: kv_quant.quantize_scatter(*args)),
+            plain_ms=time_ms(lambda: kv_quant.quantize_scatter_plain(*args)),
+            library_ms=None,
+            # each element read once in bf16 and written once as a code,
+            # each row's scale written, each row index read
+            bound=bound_ms(2 * N * KVH * D * (2 + 1) + 2 * 4 * N + 8 * N,
+                           2 * 3.0 * N * KVH * D, F32_FLOPS),
+            work=f"k and v rows [{N}, {KVH}, {D}] of one layer, fp8")
     return entries
 
 
@@ -532,9 +612,10 @@ def phase_train_kernels(dev):
 
 
 # ---------------------------------------------------------------- phase 4
-def _prefix_logits(model, tokens, block_size, chunk):
+def _prefix_logits(model, tokens, block_size, chunk, kv_cache_dtype=None):
     """f32 last-token logits of ``tokens`` through a fresh one-sequence
-    pool (the chunked prefill step, as the engine runs it)."""
+    pool of ``kv_cache_dtype`` (the chunked prefill step, as the engine
+    runs it)."""
     from paddle_tpu_torch.models.generation import make_chunked_prefill_step
     from paddle_tpu_torch.serving.cache import BlockKVPool
 
@@ -542,11 +623,12 @@ def _prefix_logits(model, tokens, block_size, chunk):
     n = -(-len(tokens) // block_size)
     pool = BlockKVPool(cfg.num_hidden_layers, n + 1, block_size,
                        cfg.num_key_value_heads, cfg.head_dim,
-                       cfg.torch_dtype, device=dev)
+                       cfg.torch_dtype, device=dev,
+                       kv_cache_dtype=kv_cache_dtype)
     nbs = -(-cfg.max_position_embeddings // block_size)
     bt = torch.zeros((1, nbs), dtype=torch.int32, device=dev)
     bt[0, :n] = torch.arange(1, n + 1, dtype=torch.int32)
-    step = make_chunked_prefill_step(model)
+    step = make_chunked_prefill_step(model, kv_cache_dtype)
     toks = np.asarray(tokens, np.int32)
     for start in range(0, len(toks), chunk):
         part = toks[start:start + chunk]
@@ -558,7 +640,19 @@ def _prefix_logits(model, tokens, block_size, chunk):
     return last[0].cpu()
 
 
+# (kv_cache_dtype, weight_dtype) of the tiny serving phase's runs
+TINY_RUNS = ((None, None), ("int8", None), ("fp8", None), ("fp8", "int8"))
+
+
 def phase_tiny(dev):
+    """LlamaConfig.tiny() in f32, the same seeded weights served on cuda
+    and on cpu, from f32, int8 and fp8 KV pools, and from fp8 pools with
+    int8 weights (each engine quantizes its own copy of the weights)."""
+    for kv, weights in TINY_RUNS:
+        _tiny_run(dev, kv, weights)
+
+
+def _tiny_run(dev, kv_cache_dtype, weight_dtype):
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.serving import Engine, ServingConfig
 
@@ -574,15 +668,17 @@ def phase_tiny(dev):
                rng.randint(1, 256, size=40), rng.randint(1, 256, size=3)]
     outs, stats = {}, {}
     for name, model in (("cpu", cpu_model), ("cuda", cuda_model)):
-        eng = Engine(model, ServingConfig(max_batch_size=4, block_size=8,
-                                          num_blocks=20, chunk_tokens=16))
+        eng = Engine(model, ServingConfig(
+            max_batch_size=4, block_size=8, num_blocks=20, chunk_tokens=16,
+            kv_cache_dtype=kv_cache_dtype, weight_dtype=weight_dtype))
         reqs = [eng.submit(p, max_new_tokens=24) for p in prompts]
         eng.run_until_complete()
         eng.pool.check_leaks()
         outs[name] = [r.generated for r in reqs]
         stats[name] = eng.stats()["counters"]
     c = stats["cuda"]
-    print(f"[tiny] f32, {len(prompts)} requests: preemptions "
+    print(f"[tiny] f32, KV {kv_cache_dtype or 'f32'}, weights "
+          f"{weight_dtype or 'f32'}, {len(prompts)} requests: preemptions "
           f"{c['preemptions']}, prefix-cache hits {c['prefix_cache_hits']}",
           flush=True)
     if c["preemptions"] == 0 or c["prefix_cache_hits"] == 0:
@@ -593,7 +689,7 @@ def phase_tiny(dev):
             continue
         j = next(k for k, (x, y) in enumerate(zip(a, b)) if x != y)
         top2 = torch.topk(_prefix_logits(cpu_model, np.concatenate(
-            [prompts[i], a[:j]]), 8, 16), 2).values
+            [prompts[i], a[:j]]), 8, 16, kv_cache_dtype), 2).values
         margin = float(top2[0] - top2[1])
         print(f"  request {i}: token {j} differs (cpu {a[j]}, cuda {b[j]}), "
               f"cpu top-2 margin {margin:.3e}")
@@ -670,30 +766,41 @@ def phase_tiny_train(dev):
 
 
 # ---------------------------------------------------------------- phase 6
-def phase_main(dev):
-    from paddle_tpu_torch.kernels import launches
-    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
-    from paddle_tpu_torch.serving import Engine, ServingConfig
+MAIN_BS, MAIN_NEW = 16, 32      # block size, new tokens a request
 
-    cfg = LlamaConfig.llama3_8b(num_hidden_layers=MAIN_LAYERS)
-    t0 = time.perf_counter()
-    model = LlamaForCausalLM(cfg, device=dev, seed=0)
-    torch.cuda.synchronize()
-    print(f"[main] Llama-3-8B width, bf16, {cfg.num_hidden_layers} of 32 "
-          f"layers, random weights (seed 0) in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+def _main_prompts(V):
+    """The 8 requests of the main serving phases: prompts of 128..1024
+    tokens, the first and the last sharing a 512-token prefix."""
     rng = np.random.RandomState(0)
-    V, new = cfg.vocab_size, 32
     prefix = rng.randint(1, V, size=512)
     lens = [128, 256, 384, 640, 768, 1024]
-    prompts = [np.concatenate([prefix, rng.randint(1, V, size=100)])] + \
+    return [np.concatenate([prefix, rng.randint(1, V, size=100)])] + \
         [rng.randint(1, V, size=n) for n in lens] + \
         [np.concatenate([prefix, rng.randint(1, V, size=200)])]
-    bs = 16
-    num_blocks = 1 + sum(-(-(len(p) + new) // bs) for p in prompts) + 8
-    eng = Engine(model, ServingConfig(max_batch_size=8, block_size=bs,
-                                      chunk_tokens=256,
-                                      num_blocks=num_blocks))
+
+
+def _serve_main(model, prompts, tag, kv_cache_dtype=None, weight_dtype=None,
+                **pool_size):
+    """One run of the main serving path: the 8 requests through
+    ``serving.Engine`` with the launch counts set to 0 just before and
+    read just after, held to exact counts, no leak, and the 128-token
+    request's first token equal to a fresh prefill's through a pool of
+    the same KV dtype.  Prints the run's numbers and one profiled decode
+    and prefill step.  Returns (numbers, launch counts, engine)."""
+    from paddle_tpu_torch.kernels import (chunked_prefill, launches,
+                                          paged_attention)
+    from paddle_tpu_torch.kernels.kv_quant import KERNEL as SCATTER
+    from paddle_tpu_torch.kernels.kv_quant import counter_name
+    from paddle_tpu_torch.serving import Engine, ServingConfig
+
+    cfg, V, bs, new = model.config, model.config.vocab_size, MAIN_BS, \
+        MAIN_NEW
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(model, ServingConfig(
+        max_batch_size=8, block_size=bs, chunk_tokens=256,
+        kv_cache_dtype=kv_cache_dtype, weight_dtype=weight_dtype,
+        **pool_size))
     captured = _capture_steps(eng)
     torch.cuda.synchronize()
     launches.reset()
@@ -713,27 +820,29 @@ def phase_main(dev):
     for r in reqs:
         if r.finish_reason != "length" or len(r.generated) != new or \
                 not all(0 <= t < V for t in r.generated):
-            raise AssertionError(f"{r.request_id}: {r.finish_reason}, "
+            raise AssertionError(f"{tag} {r.request_id}: {r.finish_reason}, "
                                  f"{len(r.generated)} tokens")
     ctr = st["counters"]
     L = cfg.num_hidden_layers
     chunks, decodes = ctr["prefill_chunks"], ctr["decode_iterations"]
     per_decode = {"rms_norm": 1, "fused_norm_linear_skinny": 5 * L,
-                  "paged_decode": L}
+                  counter_name(paged_attention.KERNEL, kv_cache_dtype): L}
     per_chunk = {"rms_norm": 1, "fused_norm_linear_tiled": 5 * L,
-                 "chunked_prefill": L}
+                 counter_name(chunked_prefill.KERNEL, kv_cache_dtype): L}
+    if kv_cache_dtype is not None:
+        per_decode[SCATTER] = per_chunk[SCATTER] = L
     expect = {k: per_decode.get(k, 0) * decodes + per_chunk.get(k, 0) * chunks
               for k in {**per_decode, **per_chunk}}
     print(f"  launches {counts} over {chunks} prefill chunks and {decodes} "
           f"decode steps; expected per decode step {per_decode}, per "
           f"prefill chunk {per_chunk}", flush=True)
     if counts != expect:
-        raise AssertionError(f"launch counts {counts} != {expect}")
+        raise AssertionError(f"{tag}: launch counts {counts} != {expect}")
     # the 128-token request's first token again, through a fresh pool
-    ref = _prefix_logits(model, prompts[1], bs, 256)
+    ref = _prefix_logits(model, prompts[1], bs, 256, kv_cache_dtype)
     if not torch.isfinite(ref).all() or int(ref.argmax()) != \
             reqs[1].generated[0]:
-        raise AssertionError("main: the engine's first token disagrees "
+        raise AssertionError(f"{tag}: the engine's first token disagrees "
                              "with a fresh prefill of the same prompt")
     tok = ctr["tokens_generated"]
     rq = st["requests"].values()
@@ -745,7 +854,10 @@ def phase_main(dev):
                prompt_tokens=int(sum(len(p) for p in prompts)),
                prefix_cache_hits=ctr["prefix_cache_hits"],
                prefill_chunks=chunks, decode_iterations=decodes,
-               layers=L, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+               layers=L, kv_dtype=st["pool"]["kv_dtype"],
+               weight_dtype=weight_dtype, num_blocks=eng.num_blocks,
+               block_bytes=st["pool"]["block_bytes"],
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     for what, unit in (("decode", "slots running"),
                        ("prefill", "tokens a chunk")):
         n, fn, args = captured[what]
@@ -758,8 +870,102 @@ def phase_main(dev):
             print(f"    {ms:8.3f} ms  {count:5d}x  {name[:90]}")
         out[f"{what}_step_host_ms"] = wall
         out[f"{what}_step_device_ms"] = dev_ms
+    return out, counts, eng
+
+
+def phase_main(dev):
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=MAIN_LAYERS)
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    print(f"[main] Llama-3-8B width, bf16, {cfg.num_hidden_layers} of 32 "
+          f"layers, random weights (seed 0) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    prompts = _main_prompts(cfg.vocab_size)
+    num_blocks = 1 + sum(-(-(len(p) + MAIN_NEW) // MAIN_BS)
+                         for p in prompts) + 8
+    out, counts, _ = _serve_main(model, prompts, "main",
+                                 num_blocks=num_blocks)
     print(f"  {json.dumps(out)}", flush=True)
-    return counts
+    return counts, num_blocks
+
+
+# (kv_cache_dtype, weight_dtype) of the main quantized serving phase, in
+# order: a bf16 pool first, the control that runs under the phase's own
+# conditions (a fresh model, a cold allocator); int8 weights last, since
+# they are quantized in place
+QUANT_RUNS = ((None, None), ("fp8", None), ("int8", None), ("fp8", "int8"))
+
+
+def _logprob(logits, tok):
+    lf = logits.double()
+    return float(lf[tok] - torch.logsumexp(lf, 0))
+
+
+def phase_main_quant(dev, bf16_blocks):
+    """The main serving path from quantized KV pools: Llama-3-8B at full
+    width, MAIN_LAYERS layers, bf16 model, the same 8 requests as the main
+    phase, served from a bf16 pool again (the control), from fp8 pools,
+    from int8 pools, then from fp8 pools with int8 weights.  Each pool
+    gets the bf16 main phase's KV bytes (``kv_pool_bytes``), so a
+    quantized one holds about twice its blocks.  Beside each run's
+    numbers: the greedy token's log-probability under the 1024-token
+    prompt's prefill logits, against the bf16 pool's with the unquantized
+    weights (the JAX package's quantized-serving measure).  Each
+    configuration is served twice, both runs held to the same checks,
+    and the second is reported beside the first's tokens/s: the
+    host-clock numbers of a single run spread widely.  Returns the launch
+    counts summed over the reported runs."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving.cache import BlockKVPool
+
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=MAIN_LAYERS)
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    prompts = _main_prompts(cfg.vocab_size)
+    L, KVH = cfg.num_hidden_layers, cfg.num_key_value_heads
+    bf16_block = BlockKVPool.block_bytes_for(L, MAIN_BS, KVH, cfg.head_dim,
+                                             cfg.torch_dtype)
+    long_prompt = prompts[6]                         # 1024 tokens
+    ref = _prefix_logits(model, long_prompt, MAIN_BS, 256)
+    tok = int(ref.argmax())
+    ref_lp = _logprob(ref, tok)
+    total = {}
+    for kv, weights in QUANT_RUNS:
+        tag = f"main {kv or 'bf16'}" + \
+            (f" + {weights} weights" if weights else "")
+        print(f"[{tag}] Llama-3-8B width, bf16, {L} of 32 layers, "
+              f"{kv or 'bf16'} KV pools"
+              + (f", {weights} weights" if weights else ""), flush=True)
+        for attempt in ("first", "reported"):
+            out, counts, eng = _serve_main(
+                model, prompts, f"{tag} ({attempt} run)", kv, weights,
+                kv_pool_bytes=bf16_blocks * bf16_block)
+            if attempt == "first":
+                first_tps = out["tokens_per_s"]
+                del eng
+                gc.collect()
+        out["first_run_tokens_per_s"] = first_tps
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+        logits = _prefix_logits(model, long_prompt, MAIN_BS, 256, kv)
+        out["greedy_logprob_delta"] = abs(_logprob(logits, tok) - ref_lp)
+        out["bf16_block_bytes"] = bf16_block
+        if not math.isfinite(out["greedy_logprob_delta"]):
+            raise AssertionError(f"{tag}: non-finite prefill logits")
+        print(f"  {out['tokens_per_s']:.1f} tokens/s (first run "
+              f"{first_tps:.1f}), mean TTFT "
+              f"{out['mean_ttft_s']:.3f} s, mean TPOT "
+              f"{out['mean_tpot_s'] * 1e3:.1f} ms; {out['num_blocks']} "
+              f"blocks of {out['block_bytes']} bytes (bf16: {bf16_blocks} of "
+              f"{bf16_block}); peak {out['peak_mem_gb']:.1f} GB; greedy "
+              f"log-prob delta of the 1024-token prefill vs the bf16 pool "
+              f"{out['greedy_logprob_delta']:.4e}", flush=True)
+        print(f"  {json.dumps(out)}", flush=True)
+        del eng
+        gc.collect()
+    return total
 
 
 def _capture_steps(eng):
@@ -959,17 +1165,21 @@ def main() -> int:
     launches.reset()
     phase_tiny(dev)
     phase_tiny_train(dev)
-    counts = phase_main(dev)
-    gc.collect()                  # the serving model's 16 GB go first
+    counts, bf16_blocks = phase_main(dev)
+    gc.collect()                  # each serving model's 16 GB go first
+    torch.cuda.empty_cache()
+    quant_counts = phase_main_quant(dev, bf16_blocks)
+    gc.collect()
     torch.cuda.empty_cache()
     train_counts = phase_train(dev)
+    runs = {"serve": counts, "quant": quant_counts, "train": train_counts}
     kernels = []
     for name, e in [*entries.items(), *train_entries.items()]:
-        # launches: the serving main phase for its kernels, the training
-        # main phase for the training path's kernels, under the name of
-        # the kernel's counter
-        run = counts if name in entries else train_counts
-        n = run.get(e.get("counter", name), 0)
+        # launches: from the main phase of the kernel's own path (bf16
+        # serving, quantized serving or training), under the name of the
+        # kernel's counter
+        path = e.get("path", "serve" if name in entries else "train")
+        n = runs[path].get(e.get("counter", name), 0)
         kernels.append({
             "name": name, "route": "cuda", "source": e["source"],
             "replaces": e["replaces"], "launches": n,

@@ -8,9 +8,10 @@ for ``sm_90a`` under ``csrc/``, built at first use
 (``kernels/_build.py``); beside each one sits its plain PyTorch version,
 which runs only for tensors on the CPU.
 
-Slice 1 covers the greedy serving path: ``serving.Engine`` over
+It covers the greedy serving path (``serving.Engine`` over
 ``models.llama.LlamaForCausalLM`` with the fused paged-decode and
-chunked-prefill steps.
+chunked-prefill steps, from full-precision or int8 / fp8 KV pools, with
+full-precision or int8 weights) and the no-cache training path.
 
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.serving import Engine, ServingConfig

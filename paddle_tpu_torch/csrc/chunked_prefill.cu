@@ -30,6 +30,18 @@
 // - f32 (the CPU-scale check configuration): CUDA cores, a block owns 32
 //   rows and stages one page at a time; q is scaled by 1/sqrt(D) in f32
 //   as it is staged, exactly the multiply the reference's caller does.
+//
+// Quantized pools (Q = 1 int8, Q = 2 fp8: the kv_dtype variant of
+// _chunk_kernel) hold int8 codes with one f32 scale per (block, token)
+// row.  The f32 kernel dequantizes as it stages a page, code times scale
+// in f32, the reference's math.  The bf16 kernel cannot: the reference
+// keeps the dequantized K/V in f32, and code * scale is not a bf16
+// value, so staging it as bf16 would add a rounding the reference does
+// not have.  It stages the CODES, which int8 and e4m3 both hold exactly
+// in bf16, and applies each key's scale as a factor in f32:
+//   S = mma(q, codes_k) * k_scale[key] / sqrt(D),
+//   O += mma(bf16(P * v_scale[key]), codes_v), l += P (unscaled, f32),
+// so the only rounding left is the one of P that FA-2 already has.
 #include <cstdint>
 
 #include "common.cuh"
@@ -40,11 +52,13 @@ constexpr int CP_PARTS = CP_THREADS / CP_ROWS;     // threads per row
 constexpr int CP_MAXD = 128;                      // MAX_HEAD_DIM in the wrapper
 constexpr int CP_COLS = CP_MAXD / CP_PARTS;        // columns per thread
 
-template <typename T>
+template <typename T, int Q>
 __global__ void __launch_bounds__(CP_THREADS) chunked_prefill_kernel(
     const T* __restrict__ q,        // [B, Tc, H, D] rotated
-    const T* __restrict__ k_pool,   // [nb, bs, KVH, D]
-    const T* __restrict__ v_pool,
+    const void* __restrict__ k_pool,  // [nb, bs, KVH, D] T, or int8 codes
+    const void* __restrict__ v_pool,
+    const float* __restrict__ k_scale,  // [nb, bs] (Q > 0)
+    const float* __restrict__ v_scale,
     const int* __restrict__ bt,     // [B, nbs]
     const int* __restrict__ pos,    // [B] chunk-start positions
     T* __restrict__ out,            // [B, Tc, H, D]
@@ -91,12 +105,13 @@ __global__ void __launch_bounds__(CP_THREADS) chunked_prefill_kernel(
 
   const size_t row_stride = (size_t)KVH * D;
   for (int page = 0; page <= last_page; ++page) {
-    const size_t base = ((size_t)bt[b * nbs + page] * bs * KVH + kvh) * D;
+    const size_t prow = (size_t)bt[b * nbs + page] * bs;
+    const size_t base = (prow * KVH + kvh) * D;
     for (int i = tid; i < bs * D; i += CP_THREADS) {
       const int t = i / D, d = i % D;
       const size_t off = base + t * row_stride + d;
-      k_s[t * (D + 1) + d] = to_f32(k_pool[off]);
-      v_s[i] = to_f32(v_pool[off]);
+      k_s[t * (D + 1) + d] = load_kv<T, Q>(k_pool, k_scale, off, prow + t);
+      v_s[i] = load_kv<T, Q>(v_pool, v_scale, off, prow + t);
     }
     __syncthreads();
     for (int i = tid; i < CP_ROWS * bs; i += CP_THREADS) {
@@ -184,19 +199,34 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// eight codes (8 bytes) as eight bf16 values, exactly
+template <int Q>
+__device__ __forceinline__ uint4 codes_to_bf16x8(uint2 c) {
+  const int8_t* b = reinterpret_cast<const int8_t*>(&c);
+  uint4 r;
+  uint32_t* w = reinterpret_cast<uint32_t*>(&r);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w[i] = pack_bf16(decode_code<Q>(b[2 * i]), decode_code<Q>(b[2 * i + 1]));
+  return r;
+}
+
 // Fragment layouts (m16n8k16): lane = 4 g + tg holds rows g and g + 8;
 // A pairs of k at 2 tg (and + 8), B pairs of k at 2 tg for column g, C
 // columns 2 tg and 2 tg + 1.  K and V rows are padded to D + 8 bf16,
-// which puts the 8 rows of a fragment load on distinct banks.
-template <int D>
+// which puts the 8 rows of a fragment load on distinct banks.  With
+// Q > 0, Ks / Vs hold the codes and KSc / VSc each key's scale.
+template <int D, int Q>
 __global__ void __launch_bounds__(FA_THREADS) chunked_prefill_bf16(
-    const bf16* __restrict__ q, const bf16* __restrict__ k_pool,
-    const bf16* __restrict__ v_pool, const int* __restrict__ bt,
+    const bf16* __restrict__ q, const void* __restrict__ k_pool,
+    const void* __restrict__ v_pool, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const int* __restrict__ bt,
     const int* __restrict__ pos, bf16* __restrict__ out, int Tc, int KVH,
     int rep, int bs, int nbs, float scale) {
   constexpr int LD = D + 8;
   __shared__ __align__(16) bf16 Ks[FA_KEYS][LD];
   __shared__ __align__(16) bf16 Vs[FA_KEYS][LD];
+  __shared__ float KSc[FA_KEYS], VSc[FA_KEYS];
   const int b = blockIdx.x, kvh = blockIdx.y, tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32, g = lane / 4, tg = lane % 4;
   const int H = KVH * rep, RT = rep * Tc;
@@ -245,11 +275,33 @@ __global__ void __launch_bounds__(FA_THREADS) chunked_prefill_bf16(
         const size_t off =
             ((size_t)bt[b * nbs + kp / bs] * bs + kp % bs) * row_stride +
             (size_t)kvh * D + d;
-        kv = *reinterpret_cast<const uint4*>(k_pool + off);
-        vv = *reinterpret_cast<const uint4*>(v_pool + off);
+        if constexpr (Q == 0) {
+          kv = *reinterpret_cast<const uint4*>(
+              static_cast<const bf16*>(k_pool) + off);
+          vv = *reinterpret_cast<const uint4*>(
+              static_cast<const bf16*>(v_pool) + off);
+        } else {
+          kv = codes_to_bf16x8<Q>(*reinterpret_cast<const uint2*>(
+              static_cast<const int8_t*>(k_pool) + off));
+          vv = codes_to_bf16x8<Q>(*reinterpret_cast<const uint2*>(
+              static_cast<const int8_t*>(v_pool) + off));
+        }
       }
       *reinterpret_cast<uint4*>(&Ks[j][d]) = kv;
       *reinterpret_cast<uint4*>(&Vs[j][d]) = vv;
+    }
+    if constexpr (Q != 0) {
+      for (int j = tid; j < FA_KEYS; j += FA_THREADS) {
+        const int kp = kbase + j;
+        float ks = 0.f, vs = 0.f;
+        if (kp <= last_key) {
+          const size_t row = (size_t)bt[b * nbs + kp / bs] * bs + kp % bs;
+          ks = k_scale[row];
+          vs = v_scale[row];
+        }
+        KSc[j] = ks;
+        VSc[j] = vs;
+      }
     }
     __syncthreads();
 
@@ -274,8 +326,10 @@ __global__ void __launch_bounds__(FA_THREADS) chunked_prefill_bf16(
     for (int j = 0; j < FA_KEYS / 8; ++j)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const int kp = kbase + j * 8 + 2 * tg + (c & 1);
-        s[j][c] = kp <= qpos[c / 2] ? s[j][c] * scale : NEG_INF;
+        const int kj = j * 8 + 2 * tg + (c & 1), kp = kbase + kj;
+        float sv = s[j][c];
+        if constexpr (Q != 0) sv *= KSc[kj];
+        s[j][c] = kp <= qpos[c / 2] ? sv * scale : NEG_INF;
         mx[c / 2] = fmaxf(mx[c / 2], s[j][c]);
       }
     float alpha[2], lsum[2] = {0.f, 0.f};
@@ -298,6 +352,13 @@ __global__ void __launch_bounds__(FA_THREADS) chunked_prefill_bf16(
     // this lane's share of each row sum; the 4 lanes meet at the end
     l[0] = l[0] * alpha[0] + lsum[0];
     l[1] = l[1] * alpha[1] + lsum[1];
+    if constexpr (Q != 0) {
+      // V's scale rides on P, after the sum took the unscaled P
+#pragma unroll
+      for (int j = 0; j < FA_KEYS / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[j][c] *= VSc[j * 8 + 2 * tg + (c & 1)];
+    }
 #pragma unroll
     for (int nd = 0; nd < D / 8; ++nd)
 #pragma unroll
@@ -344,30 +405,38 @@ extern "C" int chunked_prefill_smem_bytes(int D, int bs) {
 }
 
 // dtype 0 (f32): the CUDA-core kernel, any D <= CP_MAXD with D % 4 == 0;
-// dtype 1 (bf16): the tensor-core kernel, D 64 or 128
+// dtype 1 (bf16): the tensor-core kernel, D 64 or 128.  kv: what the
+// pools hold (0 q's type, 1 int8 codes, 2 fp8 codes, with the scales)
 extern "C" int chunked_prefill(const void* q, const void* k_pool,
-                               const void* v_pool, const void* bt,
+                               const void* v_pool, const void* k_scale,
+                               const void* v_scale, const void* bt,
                                const void* pos, void* out, int B, int Tc,
                                int KVH, int rep, int D, int bs, int nbs,
-                               float scale, int dtype, void* stream) {
+                               float scale, int dtype, int kv,
+                               void* stream) {
   if (B == 0 || Tc == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   const int* btp = (const int*)bt;
   const int* posp = (const int*)pos;
-  if (dtype == 0) {
-    const int smem = chunked_prefill_smem_bytes(D, bs);
-    const dim3 grid(B, KVH, (rep * Tc + CP_ROWS - 1) / CP_ROWS);
-    chunked_prefill_kernel<float><<<grid, CP_THREADS, smem, st>>>(
-        (const float*)q, (const float*)k_pool, (const float*)v_pool, btp,
-        posp, (float*)out, Tc, KVH, rep, D, bs, nbs, scale);
-  } else if (dtype == 1 && (D == 64 || D == 128)) {
-    const dim3 grid(B, KVH, (rep * Tc + FA_ROWS - 1) / FA_ROWS);
-    auto kernel = D == 64 ? chunked_prefill_bf16<64> : chunked_prefill_bf16<128>;
-    kernel<<<grid, FA_THREADS, 0, st>>>(
-        (const bf16*)q, (const bf16*)k_pool, (const bf16*)v_pool, btp, posp,
-        (bf16*)out, Tc, KVH, rep, bs, nbs, scale);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  const float* ksp = (const float*)k_scale;
+  const float* vsp = (const float*)v_scale;
+  DISPATCH_KV(kv, Q, {
+    if (dtype == 0) {
+      const int smem = chunked_prefill_smem_bytes(D, bs);
+      const dim3 grid(B, KVH, (rep * Tc + CP_ROWS - 1) / CP_ROWS);
+      chunked_prefill_kernel<float, Q><<<grid, CP_THREADS, smem, st>>>(
+          (const float*)q, k_pool, v_pool, ksp, vsp, btp, posp,
+          (float*)out, Tc, KVH, rep, D, bs, nbs, scale);
+    } else if (dtype == 1 && (D == 64 || D == 128)) {
+      const dim3 grid(B, KVH, (rep * Tc + FA_ROWS - 1) / FA_ROWS);
+      auto kernel = D == 64 ? chunked_prefill_bf16<64, Q>
+                            : chunked_prefill_bf16<128, Q>;
+      kernel<<<grid, FA_THREADS, 0, st>>>(
+          (const bf16*)q, k_pool, v_pool, ksp, vsp, btp, posp, (bf16*)out,
+          Tc, KVH, rep, bs, nbs, scale);
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
+  });
   return (int)cudaGetLastError();
 }

@@ -24,17 +24,26 @@
 // are 2*D flops per 2*D*sizeof(T) bytes).  This first version keeps
 // the page loop serial within a block (load, score, softmax, PV, each
 // behind a barrier); overlapping the next page's load is later work.
+//
+// Quantized pools (Q = 1 int8, Q = 2 fp8; the kv_dtype variant of
+// _decode_kernel): the pools hold int8 codes and each (block, token) row
+// has an f32 scale.  A page is dequantized as it is staged, code times
+// the row's scale in f32, the reference's math exactly, so the rest of
+// the kernel is unchanged; the page streams 1 byte an element plus 4
+// bytes a row instead of sizeof(T) an element.
 #include "common.cuh"
 
 constexpr int PD_THREADS = 128;
 
-template <typename T>
+template <typename T, int Q>
 __global__ void __launch_bounds__(PD_THREADS) paged_decode_partials(
     const T* __restrict__ q,        // [B, H, D] unrotated, H = KVH * rep
     const float* __restrict__ cs,   // [B, D/2] cos at each frontier
     const float* __restrict__ sn,   // [B, D/2] sin at each frontier
-    const T* __restrict__ k_pool,   // [nb, bs, KVH, D]
-    const T* __restrict__ v_pool,
+    const void* __restrict__ k_pool,  // [nb, bs, KVH, D] T, or int8 codes
+    const void* __restrict__ v_pool,
+    const float* __restrict__ k_scale,  // [nb, bs] (Q > 0)
+    const float* __restrict__ v_scale,
     const int* __restrict__ bt,     // [B, nbs]
     const int* __restrict__ pos,    // [B]
     float* __restrict__ acc_out,    // [B, S, H, D]
@@ -72,12 +81,13 @@ __global__ void __launch_bounds__(PD_THREADS) paged_decode_partials(
   const int last_page = min(frontier / bs, nbs - 1);
   const size_t row_stride = (size_t)KVH * D;
   for (int page = s; page <= last_page; page += S) {
-    const size_t base = ((size_t)bt[b * nbs + page] * bs * KVH + kvh) * D;
+    const size_t row0 = (size_t)bt[b * nbs + page] * bs;
+    const size_t base = (row0 * KVH + kvh) * D;
     for (int i = tid; i < bs * D; i += PD_THREADS) {
       const int t = i / D, d = i % D;
       const size_t off = base + t * row_stride + d;
-      k_s[t * (D + 1) + d] = to_f32(k_pool[off]);
-      v_s[i] = to_f32(v_pool[off]);
+      k_s[t * (D + 1) + d] = load_kv<T, Q>(k_pool, k_scale, off, row0 + t);
+      v_s[i] = load_kv<T, Q>(v_pool, v_scale, off, row0 + t);
     }
     __syncthreads();
     for (int i = tid; i < rep * bs; i += PD_THREADS) {
@@ -154,21 +164,27 @@ extern "C" int paged_decode_smem_bytes(int rep, int D, int bs) {
          (2 * rep * D + bs * (2 * D + 1) + rep * bs + 3 * rep);
 }
 
+// dtype: q's and the output's type (0 f32, 1 bf16); kv: what the pools
+// hold (0 the same type, 1 int8 codes, 2 fp8 codes, with the scales)
 extern "C" int paged_decode(const void* q, const void* cs, const void* sn,
                             const void* k_pool, const void* v_pool,
+                            const void* k_scale, const void* v_scale,
                             const void* bt, const void* pos, void* acc,
                             void* m, void* l, void* out, int B, int KVH,
                             int rep, int D, int bs, int nbs, int S,
-                            float scale, int dtype, void* stream) {
+                            float scale, int dtype, int kv, void* stream) {
   if (B == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   const int smem = paged_decode_smem_bytes(rep, D, bs);
   const int H = KVH * rep;
   DISPATCH_DTYPE(dtype, T, {
-    paged_decode_partials<T><<<dim3(B, KVH, S), PD_THREADS, smem, st>>>(
-        (const T*)q, (const float*)cs, (const float*)sn, (const T*)k_pool,
-        (const T*)v_pool, (const int*)bt, (const int*)pos, (float*)acc,
-        (float*)m, (float*)l, KVH, rep, D, bs, nbs, S, scale);
+    DISPATCH_KV(kv, Q, {
+      paged_decode_partials<T, Q><<<dim3(B, KVH, S), PD_THREADS, smem, st>>>(
+          (const T*)q, (const float*)cs, (const float*)sn, k_pool, v_pool,
+          (const float*)k_scale, (const float*)v_scale, (const int*)bt,
+          (const int*)pos, (float*)acc, (float*)m, (float*)l, KVH, rep, D,
+          bs, nbs, S, scale);
+    });
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     paged_decode_combine<T><<<B * H, PD_THREADS, 0, st>>>(

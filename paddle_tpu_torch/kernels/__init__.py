@@ -3,8 +3,13 @@ PyTorch version (which runs only for CPU tensors).
 
 - :mod:`rms_norm`           — ``csrc/rms_norm.cu``
 - :mod:`fused_norm_linear`  — ``csrc/fused_norm_linear.cu``
-- :mod:`paged_attention`    — ``csrc/paged_attention.cu``
-- :mod:`chunked_prefill`    — ``csrc/chunked_prefill.cu``
+- :mod:`paged_attention`    — ``csrc/paged_attention.cu`` (f32, bf16,
+  int8 and fp8 KV pools)
+- :mod:`chunked_prefill`    — ``csrc/chunked_prefill.cu`` (the same)
+- :mod:`kv_quant`           — ``csrc/kv_quant.cu``, the int8 / fp8 KV
+  codec and its quantize-at-write scatter
+- :mod:`rope`               — ``csrc/rope.cu``
+- :mod:`flash_attention`    — ``csrc/flash_attention.cu``
 
 ``_build.launches`` counts each kernel's launches.
 """

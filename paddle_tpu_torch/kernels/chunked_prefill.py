@@ -12,6 +12,14 @@ chunk's k/v into the pools; padded chunk positions went to the garbage
 block 0 and their output rows are discarded by the caller.  Query t of
 sequence b sits at ``positions[b] + t`` and sees keys ``k_pos <=
 positions[b] + t``.  GQA head ``h = kvh * rep + r``.
+
+Quantized pools (``kv_cache_dtype`` ``"int8"``/``"fp8"``, the
+reference's ``kv_dtype`` variant of ``_chunk_kernel``) hold int8 codes
+with [nb, bs] f32 row scales, which the caller filled with
+``kv_quant.quantize_scatter``; the kernels dequantize as they stage the
+pages (f32), or stage the codes and apply the scales per key (bf16; see
+the source).  Each scheme counts its own launches
+(``chunked_prefill_int8``, ``chunked_prefill_fp8``).
 """
 from __future__ import annotations
 
@@ -20,7 +28,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, kv_quant
 
 KERNEL = "chunked_prefill"
 NEG_INF = -1e30
@@ -30,7 +38,8 @@ BF16_HEAD_DIMS = (64, 128)  # the bf16 tensor-core kernel's instances
 SMEM_LIMIT = 48 * 1024
 
 
-def chunked_attention_plain(q, k_pool, v_pool, block_table, positions):
+def chunked_attention_plain(q, k_pool, v_pool, block_table, positions,
+                            k_scale=None, v_scale=None, kv_cache_dtype=None):
     """The reference's grouped-query chunk attention (``_xla_chunked``
     and its caller's grouping), in f32 with a full masked softmax."""
     B, T, H, D = q.shape
@@ -42,8 +51,10 @@ def chunked_attention_plain(q, k_pool, v_pool, block_table, positions):
     q_g = q.reshape(B, T, KVH, rep, D).permute(0, 2, 3, 1, 4) \
         .reshape(B, KVH, RT, D).float() * (1.0 / math.sqrt(D))
     bt = block_table.long()
-    kb = k_pool[bt].float().reshape(B, L, KVH, D)
-    vb = v_pool[bt].float().reshape(B, L, KVH, D)
+    kb = kv_quant.gather_pages(k_pool, k_scale, bt, kv_cache_dtype) \
+        .reshape(B, L, KVH, D)
+    vb = kv_quant.gather_pages(v_pool, v_scale, bt, kv_cache_dtype) \
+        .reshape(B, L, KVH, D)
     scores = torch.einsum("bkrd,blkd->bkrl", q_g, kb)
     k_pos = torch.arange(L, device=q.device)
     q_pos = positions[:, None] + torch.arange(RT, device=q.device) % T
@@ -58,25 +69,29 @@ def chunked_attention_plain(q, k_pool, v_pool, block_table, positions):
         .reshape(B, T, H, D).to(q.dtype)
 
 
-def chunked_attention(q, k_pool, v_pool, block_table, positions):
+def chunked_attention(q, k_pool, v_pool, block_table, positions,
+                      k_scale=None, v_scale=None, kv_cache_dtype=None):
     """Paged attention for one prefill chunk.
 
     q: [B, T, H, D] ROTATED queries; k_pool/v_pool [nb, bs, KVH, D]
-    already holding the chunk's k/v; block_table [B, nbs] int32;
-    positions [B] int32 chunk-start frontiers.  Returns [B, T, H, D] in
-    q's dtype.  CPU tensors take the plain version; CUDA tensors launch
-    the kernel."""
+    already holding the chunk's k/v, in q's dtype or as int8 codes of
+    ``kv_cache_dtype`` with their [nb, bs] f32 ``k_scale``/``v_scale``;
+    block_table [B, nbs] int32; positions [B] int32 chunk-start
+    frontiers.  Returns [B, T, H, D] in q's dtype.  CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
     if q.device.type == "cpu":
         return chunked_attention_plain(q, k_pool, v_pool, block_table,
-                                       positions)
+                                       positions, k_scale, v_scale,
+                                       kv_cache_dtype)
     B, T, H, D = q.shape
     nb, bs, KVH, Dk = k_pool.shape
     nbs = block_table.shape[1]
     head_dim_ok = (D in BF16_HEAD_DIMS if q.dtype == torch.bfloat16
                    else D <= MAX_HEAD_DIM and D % COL_PARTS == 0)
     if (Dk != D or H % KVH or not head_dim_ok
-            or v_pool.shape != k_pool.shape or k_pool.dtype != q.dtype
-            or v_pool.dtype != q.dtype or block_table.dtype != torch.int32
+            or not kv_quant.pools_fit(q.dtype, k_pool, v_pool, k_scale,
+                                      v_scale, kv_cache_dtype)
+            or block_table.dtype != torch.int32
             or positions.dtype != torch.int32):
         raise ValueError("chunked_attention: operands do not fit "
                          f"q {tuple(q.shape)} {q.dtype}, pool "
@@ -88,15 +103,21 @@ def chunked_attention(q, k_pool, v_pool, block_table, positions):
             raise ValueError(f"chunked_attention: D={D}, block_size={bs} "
                              f"needs {smem} B of shared memory")
     fn = _build.bind(KERNEL, "chunked_prefill",
-                     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                     + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_void_p])
+    name = kv_quant.counter_name(KERNEL, kv_cache_dtype)
     q = q.contiguous()
-    _build.require_cuda(KERNEL, q, k_pool, v_pool, block_table, positions)
+    scales = () if kv_cache_dtype is None else (k_scale, v_scale)
+    _build.require_cuda(name, q, k_pool, v_pool, block_table, positions,
+                        *scales)
     out = torch.empty_like(q)
     p = _build.ptr
-    _build.check(fn(p(q), p(k_pool), p(v_pool), p(block_table), p(positions),
-                    p(out), B, T, KVH, H // KVH, D, bs, nbs,
+    ks, vs = (p(t) for t in scales) if scales else (None, None)
+    _build.check(fn(p(q), p(k_pool), p(v_pool), ks, vs, p(block_table),
+                    p(positions), p(out), B, T, KVH, H // KVH, D, bs, nbs,
                     1.0 / math.sqrt(D), _build.dtype_code(q),
-                    _build.stream_ptr(q)), KERNEL)
-    _build.launches.add(KERNEL)
+                    kv_quant.KV_DTYPE_CODES[kv_cache_dtype],
+                    _build.stream_ptr(q)), name)
+    _build.launches.add(name)
     return out

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..kernels.kv_quant import resolve_kv_cache_dtype
 from .llama import PagedKVCache
 
 
@@ -21,33 +22,47 @@ def _cache_dims(model):
     return kv_heads, cfg.head_dim, cfg.torch_dtype
 
 
-def make_paged_decode_step(model):
+def _paged_caches(pools, block_tables, kv_dtype):
+    """Pool entries → per-layer :class:`PagedKVCache` views: ``(k, v)``
+    for full-precision pools, ``(k, v, k_scale, v_scale)`` for quantized
+    ones (``serving.cache.BlockKVPool.layers``)."""
+    if kv_dtype is not None:
+        return [PagedKVCache(k, v, block_tables, ks, vs, kv_dtype)
+                for k, v, ks, vs in pools]
+    return [PagedKVCache(k, v, block_tables) for k, v in pools]
+
+
+def make_paged_decode_step(model, kv_cache_dtype=None):
     """The continuous-batching decode step: one token for every slot of
     the bucket, each at its own position.  ``step(tok [B, 1], pools
     [(k, v)] per layer, block_tables [B, max_blocks] int32, lengths [B]
     int32) -> last_logits [B, V] f32``; writes each token's k/v at
-    ``lengths[b]``."""
+    ``lengths[b]``.  ``kv_cache_dtype`` (None / "int8" / "fp8") makes
+    each pool entry ``(k, v, k_scale, v_scale)``."""
+    kv_cache_dtype = resolve_kv_cache_dtype(kv_cache_dtype)
 
     @torch.inference_mode()
     def step(tok, pools, block_tables, lengths):
-        caches = [PagedKVCache(k, v, block_tables) for k, v in pools]
+        caches = _paged_caches(pools, block_tables, kv_cache_dtype)
         logits = model(tok, caches, lengths)
         return logits[:, -1].float()
 
     return step
 
 
-def make_chunked_prefill_step(model):
+def make_chunked_prefill_step(model, kv_cache_dtype=None):
     """Chunked prefill straight into the paged pool: ``step(ids [1, C],
     pools, block_table [1, max_blocks] int32, start [1] int32,
     last_index) -> logits [1, V] f32`` of the chunk's last REAL token
     (``last_index``); positions past it are padding, written to the
     garbage block and never returned.  Only that token's row goes
-    through the final norm and ``lm_head``."""
+    through the final norm and ``lm_head``.  ``kv_cache_dtype`` as in
+    :func:`make_paged_decode_step`."""
+    kv_cache_dtype = resolve_kv_cache_dtype(kv_cache_dtype)
 
     @torch.inference_mode()
     def step(ids, pools, block_table, start, last_index):
-        caches = [PagedKVCache(k, v, block_table) for k, v in pools]
+        caches = _paged_caches(pools, block_table, kv_cache_dtype)
         C = ids.shape[1]
         valid = (torch.arange(C, device=ids.device) <= last_index)[None, :]
         logits = model(ids, caches, start, write_mask=valid,

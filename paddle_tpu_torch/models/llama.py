@@ -7,7 +7,8 @@ The port of ``paddle_tpu/models/llama.py`` in two modes.
   layer folds its two RMSNorms into the projections that follow
   (``kernels.fused_norm_linear``), a decode step (one token per
   sequence) takes the fused paged-decode kernel and a prefill chunk the
-  chunked-prefill kernel.
+  chunked-prefill kernel; with an int8 or fp8 cache the new k/v rows
+  are quantized as they are written (``kernels.kv_quant``).
 - Training (no cache): ``kernels.rms_norm`` before the unfused q/k/v
   and gate/up projections, ``kernels.rope.fused_rope`` on q and k,
   causal ``kernels.flash_attention.flash_attention_bthd``, and with
@@ -41,6 +42,7 @@ from ..device import resolve_device
 from ..kernels.chunked_prefill import chunked_attention
 from ..kernels.flash_attention import flash_attention_bthd
 from ..kernels.fused_norm_linear import fused_norm_linear, rms_scale
+from ..kernels.kv_quant import quantize_scatter
 from ..kernels.paged_attention import fused_paged_decode
 from ..kernels.rms_norm import rms_norm
 from ..kernels.rope import fused_rope
@@ -126,14 +128,23 @@ class PagedKVCache:
     block_size, kv_heads, head_dim] shared pools and ``block_table``
     [B, max_blocks] int32 mapping each sequence's logical block to a
     pool block.  Keys past a sequence's frontier are masked, so stale
-    pool contents (the garbage block 0) are never observable."""
+    pool contents (the garbage block 0) are never observable.
 
-    __slots__ = ("k", "v", "block_table")
+    Quantized pools (``kv_dtype`` ``"int8"``/``"fp8"``,
+    ``kernels/kv_quant``) hold int8 codes, and ``k_scale``/``v_scale``
+    [num_blocks, block_size] f32 one scale per row: writes quantize,
+    the attention kernels dequantize as they read."""
 
-    def __init__(self, k, v, block_table):
+    __slots__ = ("k", "v", "block_table", "k_scale", "v_scale", "kv_dtype")
+
+    def __init__(self, k, v, block_table, k_scale=None, v_scale=None,
+                 kv_dtype=None):
         self.k = k
         self.v = v
         self.block_table = block_table
+        self.k_scale = k_scale
+        self.v_scale = v_scale
+        self.kv_dtype = kv_dtype
 
 
 class Linear(nn.Module):
@@ -197,15 +208,17 @@ class LlamaAttention(nn.Module):
             if T != 1:
                 raise ValueError("a decode step takes one token per "
                                  "sequence; a chunk needs its write mask")
-            out, _, _ = fused_paged_decode(q, k, v, cache.k, cache.v,
-                                           cache.block_table, positions,
-                                           cos, sin)
+            out = fused_paged_decode(
+                q, k, v, cache.k, cache.v, cache.block_table, positions,
+                cos, sin, k_scale=cache.k_scale, v_scale=cache.v_scale,
+                kv_cache_dtype=cache.kv_dtype)[0]
             return self.o_proj(out.reshape(B, T, -1))
         q = apply_rope(q, cos, sin, positions)
         k = apply_rope(k, cos, sin, positions)
         _scatter_chunk(cache, k, v, positions, write_mask)
         out = chunked_attention(q, cache.k, cache.v, cache.block_table,
-                                positions)
+                                positions, cache.k_scale, cache.v_scale,
+                                cache.kv_dtype)
         return self.o_proj(out.reshape(B, T, -1))
 
 
@@ -213,7 +226,8 @@ def _scatter_chunk(cache: PagedKVCache, k, v, positions, write_mask):
     """Write a chunk's k/v [B, T, KVH, D] into the pools in place: row
     ``block_table[b, pos // bs] * bs + pos % bs`` per position, the
     column clamped to the table, padded positions sent to row 0 (the
-    garbage block)."""
+    garbage block).  A quantized pool gets the rows' codes and scales
+    (``kv_quant.quantize_scatter``, the reference's ``_scatter_q``)."""
     pool = cache.k
     nb, bs = pool.shape[0], pool.shape[1]
     bt = cache.block_table
@@ -223,9 +237,14 @@ def _scatter_chunk(cache: PagedKVCache, k, v, positions, write_mask):
     col = torch.clamp(pos // bs, max=bt.shape[1] - 1)
     idx = bt[rows, col].long() * bs + pos % bs
     idx = torch.where(write_mask, idx, 0).reshape(-1)
+    k, v = (x.reshape(-1, x.shape[2], x.shape[3]) for x in (k, v))
+    if cache.kv_dtype is not None:
+        quantize_scatter(cache.k, cache.v, cache.k_scale, cache.v_scale, k,
+                         v, idx, cache.kv_dtype)
+        return
     for p, new in ((cache.k, k), (cache.v, v)):
         p.view(nb * bs, p.shape[2], p.shape[3]).index_copy_(
-            0, idx, new.reshape(-1, new.shape[2], new.shape[3]).to(p.dtype))
+            0, idx, new.to(p.dtype))
 
 
 class LlamaMLP(nn.Module):

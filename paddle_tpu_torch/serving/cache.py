@@ -1,23 +1,28 @@
 """Block-based KV-cache pool with content-addressed prefix caching.
 
-The port of ``paddle_tpu/serving/cache.py`` for full-precision pools.
-The pool owns per-layer (k, v) tensors of shape ``[num_blocks,
-block_size, kv_heads, head_dim]`` on the model's device; sequences own
-BLOCKS handed out from a free list as their frontier grows.  On top of
-the free list:
+The port of ``paddle_tpu/serving/cache.py``.  The pool owns per-layer
+(k, v) tensors of shape ``[num_blocks, block_size, kv_heads, head_dim]``
+on the model's device, or for a quantized pool (``kv_cache_dtype``
+``"int8"``/``"fp8"``, ``kernels/kv_quant``) (k, v, k_scale, v_scale):
+int8 code pools and [num_blocks, block_size] f32 row scales, which start
+at 1.0.  Sequences own BLOCKS handed out from a free list as their
+frontier grows.  On top of the free list:
 
 - **refcounts** — ``_owners[block]`` is the set of request ids holding
   it; a block is recycled only when its last owner lets go;
 - **chained content hashes** — a full block of prompt tokens is indexed
   by ``hash(parent_hash || block token ids)``, so matching block i
   implies blocks 0..i-1 matched too; only full blocks are registered;
+  the chain's seed is the pool's storage tag (:attr:`kv_dtype_tag`), so
+  pools of different KV dtypes never match each other's blocks;
 - **LRU eviction** — a block whose last owner releases it while its
   content is still indexed parks in an LRU list, matchable for free,
   and is evicted only when ``allocate`` runs dry.
 
 Registered blocks are immutable: a request that must write inside one
 first breaks the share with :meth:`ensure_writable`, a copy-on-write
-copy of the block (every layer, k and v) into a private block.
+copy of the block (every layer, k and v, and their scale rows) into a
+private block.
 
 Block 0 is a reserved garbage sink: idle slots and padded chunk
 positions write there, and attention masks it.
@@ -26,10 +31,14 @@ from __future__ import annotations
 
 import hashlib
 from collections import OrderedDict
-from typing import Dict, List, Sequence, Set, Tuple
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
+
+from ..kernels.kv_quant import (kv_bytes_per_element,
+                                kv_scale_bytes_per_block, kv_storage_dtype,
+                                resolve_kv_cache_dtype)
 
 
 class PoolExhausted(Exception):
@@ -39,7 +48,8 @@ class PoolExhausted(Exception):
 class BlockKVPool:
     def __init__(self, num_layers: int, num_blocks: int, block_size: int,
                  kv_heads: int, head_dim: int, dtype=torch.float32,
-                 device="cpu", enable_prefix_cache: bool = True):
+                 device="cpu", enable_prefix_cache: bool = True,
+                 kv_cache_dtype: Optional[str] = None):
         if num_blocks < 2:
             raise ValueError("need >= 2 blocks (block 0 is the reserved "
                              "garbage sink)")
@@ -48,16 +58,27 @@ class BlockKVPool:
         self.block_size = block_size
         self.kv_heads = kv_heads
         self.head_dim = head_dim
-        self.dtype = dtype
+        #: quantization scheme: None (full precision) / "int8" / "fp8"
+        self.kv_cache_dtype = resolve_kv_cache_dtype(kv_cache_dtype)
+        #: the model's KV dtype; ``dtype`` is what the pools store
+        self.model_dtype = dtype
+        self.dtype = kv_storage_dtype(self.kv_cache_dtype) or dtype
         self.enable_prefix_cache = enable_prefix_cache
-        # the same namespace string as the reference's full-precision
-        # pools ("fp32:<model dtype>") seeds every hash chain
+        # the reference's namespace strings ("int8", "fp8" or
+        # "fp32:<model dtype>") seed every hash chain
         self._hash_seed = self.kv_dtype_tag.encode()
         shape = (num_blocks, block_size, kv_heads, head_dim)
+
+        def zeros():
+            return torch.zeros(shape, dtype=self.dtype, device=device)
+
+        def ones():
+            return torch.ones(shape[:2], dtype=torch.float32, device=device)
+
         # one tensor per layer and side: the steps write them in place
-        self.layers: List[Tuple[torch.Tensor, torch.Tensor]] = [
-            (torch.zeros(shape, dtype=dtype, device=device),
-             torch.zeros(shape, dtype=dtype, device=device))
+        self.layers: List[Tuple[torch.Tensor, ...]] = [
+            (zeros(), zeros(), ones(), ones())
+            if self.kv_cache_dtype is not None else (zeros(), zeros())
             for _ in range(num_layers)]
         self._free: List[int] = list(range(num_blocks - 1, 0, -1))
         self._owners: Dict[int, Set] = {}
@@ -71,7 +92,11 @@ class BlockKVPool:
     # ------------------------------------------------------- accounting
     @property
     def kv_dtype_tag(self) -> str:
-        return "fp32:" + str(self.dtype).removeprefix("torch.")
+        """The pool's storage format: ``"int8"``, ``"fp8"`` or
+        ``"fp32:<model dtype>"`` (the reference's strings)."""
+        if self.kv_cache_dtype is not None:
+            return self.kv_cache_dtype
+        return "fp32:" + str(self.model_dtype).removeprefix("torch.")
 
     @property
     def capacity_blocks(self) -> int:
@@ -94,11 +119,31 @@ class BlockKVPool:
     def utilization(self) -> float:
         return self.num_used / self.capacity_blocks
 
+    @staticmethod
+    def block_bytes_for(num_layers: int, block_size: int, kv_heads: int,
+                        head_dim: int, dtype=torch.float32,
+                        kv_cache_dtype: Optional[str] = None) -> int:
+        """Device bytes one block costs across all layers, k and v, scale
+        rows included: computable before the pool exists, so the engine
+        can size ``num_blocks`` from a ``kv_pool_bytes`` budget."""
+        scheme = resolve_kv_cache_dtype(kv_cache_dtype)
+        per_side = (block_size * kv_heads * head_dim
+                    * kv_bytes_per_element(scheme, dtype)
+                    + kv_scale_bytes_per_block(block_size, scheme))
+        return int(num_layers * 2 * per_side)
+
     def block_bytes(self) -> int:
-        """Device bytes one block costs across all layers, k and v."""
-        esize = torch.empty((), dtype=self.dtype).element_size()
-        return (self.num_layers * 2 * self.block_size * self.kv_heads
-                * self.head_dim * esize)
+        """Device bytes one block of this pool costs."""
+        return self.block_bytes_for(self.num_layers, self.block_size,
+                                    self.kv_heads, self.head_dim,
+                                    self.model_dtype, self.kv_cache_dtype)
+
+    def capacity_bytes(self) -> int:
+        return self.capacity_blocks * self.block_bytes()
+
+    def used_bytes(self) -> int:
+        """Bytes of the blocks that live requests reference."""
+        return self.num_used * self.block_bytes()
 
     def blocks_for(self, num_tokens: int) -> int:
         return -(-int(num_tokens) // self.block_size)
@@ -252,9 +297,10 @@ class BlockKVPool:
         return new
 
     def _copy_block(self, src: int, dst: int):
-        for k, v in self.layers:
-            k[dst].copy_(k[src])
-            v[dst].copy_(v[src])
+        # a quantized block's scale rows move with its codes
+        for entry in self.layers:
+            for t in entry:
+                t[dst].copy_(t[src])
 
     def admission_plan(self, tokens, extra_tokens: int = 1):
         """``(matched_blocks, new_blocks_needed, feasible_now)`` for one
@@ -278,4 +324,8 @@ class BlockKVPool:
             "cow_copies": self.cow_copies,
             "kv_dtype": self.kv_dtype_tag,
             "block_bytes": self.block_bytes(),
+            "used_bytes": self.used_bytes(),
+            "capacity_bytes": self.capacity_bytes(),
+            "byte_utilization": round(self.used_bytes()
+                                      / self.capacity_bytes(), 4),
         }

@@ -12,13 +12,15 @@ per-slot frontiers [S].  Idle and mid-prefill slots decode into the
 reserved garbage block instead of branching.  Requests enter and leave
 at token granularity.
 
-This slice serves greedy decoding through the fused steps (the mode the
-JAX engine picks on its accelerator).  Options of later slices raise
-``NotImplementedError`` when set: speculative decoding, sampling,
-quantized KV or weights, a mesh, the startup X-ray / shard-plan audits,
-streaming callbacks, and the overload controls (request deadlines,
-priorities and load shedding; the watchdog and degradation ladder are
-not part of this engine yet).
+This engine serves greedy decoding through the fused steps (the mode the
+JAX engine picks on its accelerator), from full-precision or quantized
+KV pools (``kv_cache_dtype`` ``"int8"``/``"fp8"``, sized by
+``num_blocks`` or by a ``kv_pool_bytes`` budget) and with full-precision
+or int8 weights (``weight_dtype``).  Options of later slices raise
+``NotImplementedError`` when set: speculative decoding, sampling, a
+mesh, the startup X-ray / shard-plan audits, streaming callbacks, and
+the overload controls (request deadlines, priorities and load shedding;
+the watchdog and degradation ladder are not part of this engine yet).
 
 Correctness contract: greedy outputs are token-exact with the JAX
 engine on the same weights (tests/test_torch_serving.py), across
@@ -33,17 +35,19 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..kernels.kv_quant import (KV_DTYPE_CODES, kv_scale_bytes_per_block,
+                                resolve_kv_cache_dtype)
 from ..models.generation import (_cache_dims, make_chunked_prefill_step,
                                  make_paged_decode_step,
                                  normalize_stop_sequences)
+from ..quantization.serving import quantize_model_weights
 from .cache import BlockKVPool, PoolExhausted
 from .metrics import ServingMetrics
 from .scheduler import (FINISHED, PREFILLING, RUNNING, AdmissionError,
                         Request, Scheduler)
 
 # ServingConfig fields of later slices: each must stay at its default
-LATER_SLICE_OPTIONS = ("speculative", "kv_cache_dtype", "weight_dtype",
-                       "mesh", "xray_on_start", "shardplan")
+LATER_SLICE_OPTIONS = ("speculative", "mesh", "xray_on_start", "shardplan")
 
 
 @dataclass
@@ -62,10 +66,18 @@ class ServingConfig:
     prefill_token_budget: Optional[int] = None
     # the port serves the fused steps only: None or True
     fused_kernels: Optional[bool] = None
+    # KV pool storage: None full precision; "int8"/"fp8" int8 codes plus
+    # one f32 absmax scale per (block, token) row, quantized as each row
+    # is written and dequantized by the attention kernels
+    kv_cache_dtype: Optional[str] = None
+    # weight-only quantization: "int8" quantizes every linear weight in
+    # place (per-output-channel absmax) before the engine's steps are made
+    weight_dtype: Optional[str] = None
+    # a KV byte budget: when set, num_blocks is derived from it and the
+    # pool's block bytes (dtype-aware, scale rows included)
+    kv_pool_bytes: Optional[int] = None
     # ---- later slices: setting any of these raises NotImplementedError
     speculative: Any = None
-    kv_cache_dtype: Optional[str] = None
-    weight_dtype: Optional[str] = None
     mesh: Any = None
     xray_on_start: bool = False
     shardplan: Any = None
@@ -87,26 +99,48 @@ class Engine:
                 f"ServingConfig option(s) {', '.join(later)} are not "
                 "ported to paddle_tpu_torch yet")
         self.device = model.device
+        self.kv_cache_dtype = resolve_kv_cache_dtype(cfg.kv_cache_dtype)
+        if cfg.weight_dtype:
+            # in place and idempotent, before the steps are made
+            quantize_model_weights(model, cfg.weight_dtype)
         kv_heads, head_dim, dtype = _cache_dims(model)
+        num_layers = model.config.num_hidden_layers
         model_max = model.config.max_position_embeddings
         self.max_model_len = min(cfg.max_model_len or model_max, model_max)
         self.max_blocks_per_seq = -(-self.max_model_len // cfg.block_size)
         self.chunk_tokens = max(1, min(cfg.chunk_tokens, self.max_model_len))
+        self.num_blocks = cfg.num_blocks
+        if cfg.kv_pool_bytes is not None:
+            per_block = BlockKVPool.block_bytes_for(
+                num_layers, cfg.block_size, kv_heads, head_dim, dtype,
+                self.kv_cache_dtype)
+            self.num_blocks = int(cfg.kv_pool_bytes) // per_block
+            if self.num_blocks < 2:
+                raise ValueError(
+                    f"kv_pool_bytes={cfg.kv_pool_bytes} fits only "
+                    f"{self.num_blocks} block(s) of {per_block} bytes; "
+                    "need >= 2 (block 0 is the reserved garbage sink)")
         self.pool = BlockKVPool(
-            model.config.num_hidden_layers, cfg.num_blocks, cfg.block_size,
-            kv_heads, head_dim, dtype, device=self.device,
-            enable_prefix_cache=cfg.enable_prefix_cache)
+            num_layers, self.num_blocks, cfg.block_size, kv_heads, head_dim,
+            dtype, device=self.device,
+            enable_prefix_cache=cfg.enable_prefix_cache,
+            kv_cache_dtype=self.kv_cache_dtype)
         self.scheduler = Scheduler(self.pool,
                                    max_queue_len=cfg.max_queue_len)
         self.metrics = ServingMetrics()
+        self.metrics.on_kv_cache_config(
+            KV_DTYPE_CODES[self.kv_cache_dtype],
+            kv_scale_bytes_per_block(cfg.block_size, self.kv_cache_dtype))
         S = cfg.max_batch_size
         self._slots: List[Optional[Request]] = [None] * S
         self._block_tables = np.zeros((S, self.max_blocks_per_seq),
                                       np.int32)
         self._lengths = np.zeros((S,), np.int32)
         self._pending = np.zeros((S,), np.int32)  # next token to decode
-        self._decode_step = make_paged_decode_step(model)
-        self._prefill_step = make_chunked_prefill_step(model)
+        self._decode_step = make_paged_decode_step(model,
+                                                   self.kv_cache_dtype)
+        self._prefill_step = make_chunked_prefill_step(model,
+                                                       self.kv_cache_dtype)
         self._finished: Dict[str, Request] = {}
         self._ids = itertools.count()
         self._evictions_seen = 0

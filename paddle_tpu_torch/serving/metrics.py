@@ -68,11 +68,22 @@ class ServingMetrics:
         self._gauge_samples = 0
         self.last_batch_occupancy = 0.0
         self.last_cache_utilization = 0.0
+        # the KV pool's storage: dtype code (0 full precision / 1 int8 /
+        # 2 fp8) and the f32 scale bytes one block carries per side
+        self.kv_cache_dtype_code = 0
+        self.kv_quant_scale_bytes = 0
         self.requests: Dict[str, RequestTimeline] = {}
 
     def on_submit(self, request_id: str):
         self.submitted += 1
         self.requests[request_id] = RequestTimeline(submitted_ns=_now_ns())
+
+    def on_kv_cache_config(self, dtype_code: int, scale_bytes: int):
+        """The engine reports its pool's storage format: ``dtype_code``
+        per ``kernels.kv_quant.KV_DTYPE_CODES`` and ``scale_bytes``, the
+        f32 scale bytes of one block of one (k or v) side."""
+        self.kv_cache_dtype_code = int(dtype_code)
+        self.kv_quant_scale_bytes = int(scale_bytes)
 
     def on_reject(self):
         self.rejected += 1
@@ -147,6 +158,8 @@ class ServingMetrics:
                 "prefix_cached_token_ratio": round(
                     self._cached_tokens_sum
                     / max(self._prompt_tokens_sum, 1), 4),
+                "serving_kv_cache_dtype": self.kv_cache_dtype_code,
+                "kv_quant_scale_bytes": self.kv_quant_scale_bytes,
             },
             "requests": {rid: t.to_dict()
                          for rid, t in self.requests.items()},

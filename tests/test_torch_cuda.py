@@ -8,8 +8,8 @@ that has only PyTorch:
 (``--noconftest``: the repository's conftest sets JAX up.)  Tolerances:
 f32 1e-4 (same cast points, sums in another order); bf16 one rounding
 of the largest output, except FlashAttention in bf16 (see
-``_hold_bf16_attention``).  The Llama-3-8B shapes are held in
-chip_smoke.py.
+``_hold_bf16_attention``); the quantize-at-write scatter bit-identical.
+The Llama-3-8B shapes are held in chip_smoke.py.
 """
 import math
 
@@ -18,8 +18,8 @@ import pytest
 import torch
 
 from paddle_tpu_torch.kernels import (chunked_prefill, fused_norm_linear,
-                                      launches, paged_attention, rms_norm,
-                                      rope)
+                                      kv_quant, launches, paged_attention,
+                                      rms_norm, rope)
 from paddle_tpu_torch.kernels import flash_attention as fa
 from torch_operands import chunk_operands, decode_operands
 
@@ -121,6 +121,98 @@ class TestCudaKernels:
             float(want.abs().max()) / 128
 
 
+def _quantized(k_pool, v_pool, scheme):
+    """CPU (codes, codes, scales, scales) of float pools (plain codec)."""
+    (kc, ks), (vc, vs) = (kv_quant.quantize_kv(t(p), scheme)
+                          for p in (k_pool, v_pool))
+    return kc, vc, ks, vs
+
+
+@pytest.mark.cuda
+class TestCudaQuantizedKernels:
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("scheme", ["int8", "fp8"])
+    @pytest.mark.parametrize("N", [8, 256])
+    def test_quantize_scatter_is_bit_identical(self, cuda_device, scheme,
+                                               dtype, N):
+        # rows of very different sizes, a zero row, distinct destinations
+        g = torch.Generator().manual_seed(N)
+        new = [(torch.randn(N, 8, 128, generator=g)
+                * torch.logspace(-3, 3, N)[:, None, None]).to(dtype)
+               for _ in range(2)]
+        new[0][3] = 0
+        nb, bs = N // 4 + 3, 16
+        rows = torch.randperm(nb * bs, generator=g)[:N]
+        pools = [torch.zeros(nb, bs, 8, 128, dtype=torch.int8)
+                 for _ in range(2)] + [torch.ones(nb, bs) for _ in range(2)]
+        want = [x.clone() for x in pools]
+        kv_quant.quantize_scatter(*want, *new, rows, scheme)
+        got = [x.to(cuda_device) for x in pools]
+        launches.reset()
+        kv_quant.quantize_scatter(*got, *[x.to(cuda_device) for x in new],
+                                  rows.to(cuda_device), scheme)
+        assert launches.snapshot() == {"kv_quant_scatter": 1}
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+
+    @pytest.mark.parametrize("num_splits", [1, 4])
+    @pytest.mark.parametrize("scheme", ["int8", "fp8"])
+    def test_paged_decode(self, cuda_device, scheme, num_splits):
+        ops = _quantized_ops(decode_operands(nbs=8), scheme)
+        dev = [o.to(cuda_device) for o in ops]    # before the in-place write
+        kw = dict(num_splits=num_splits, kv_cache_dtype=scheme)
+        want = paged_attention.fused_paged_decode(
+            *ops[:9], k_scale=ops[9], v_scale=ops[10], **kw)
+        launches.reset()
+        got = paged_attention.fused_paged_decode(
+            *dev[:9], k_scale=dev[9], v_scale=dev[10], **kw)
+        assert launches.snapshot() == {"kv_quant_scatter": 1,
+                                       f"paged_decode_{scheme}": 1}
+        close(got[0].cpu(), want[0])
+        for a, b in zip(got[1:], want[1:]):
+            assert torch.equal(a.cpu(), b)
+
+    @pytest.mark.parametrize("scheme", ["int8", "fp8"])
+    def test_chunked_prefill(self, cuda_device, scheme):
+        args = chunk_operands(T=40, D=16, seed=3)
+        kc, vc, ks, vs = _quantized(args[1], args[2], scheme)
+        ops = [t(args[0]), kc, vc, t(args[3]), t(args[4]), ks, vs]
+        got = chunked_prefill.chunked_attention(
+            *[o.to(cuda_device) for o in ops], scheme)
+        close(got.cpu(), chunked_prefill.chunked_attention(*ops, scheme))
+
+    @pytest.mark.parametrize("D", [64, 128])
+    @pytest.mark.parametrize("scheme", ["int8", "fp8"])
+    def test_chunked_prefill_bf16(self, cuda_device, scheme, D):
+        # the tensor-core kernel stages codes and applies the scales per
+        # key; against the plain version on the same bf16 q and codes it
+        # keeps the unquantized kernel's rule (one rounding of the
+        # largest output): its only extra rounding is P * v_scale in bf16
+        args = chunk_operands(B=2, T=40, KVH=2, rep=4, D=D, bs=16, nbs=24,
+                              seed=4)
+        args[4] = np.array([0, 37], np.int32)
+        kc, vc, ks, vs = _quantized(args[1], args[2], scheme)
+        ops = [t(args[0]).bfloat16(), kc, vc, t(args[3]), t(args[4]), ks,
+               vs]
+        launches.reset()
+        got = chunked_prefill.chunked_attention(
+            *[o.to(cuda_device) for o in ops], scheme).cpu().float()
+        assert launches.snapshot() == {f"chunked_prefill_{scheme}": 1}
+        want = chunked_prefill.chunked_attention(*ops, scheme).float()
+        assert float((got - want).abs().max()) <= \
+            float(want.abs().max()) / 128
+
+
+def _quantized_ops(args, scheme):
+    """decode_operands with quantized pools, in fused_paged_decode's
+    order, then the two scales."""
+    kc, vc, ks, vs = _quantized(args[3], args[4], scheme)
+    ops = [t(a) for a in args]
+    ops[3:5] = [kc, vc]
+    return ops + [ks, vs]
+
+
 @pytest.mark.cuda
 class TestCudaEngine:
     def test_tiny_engine_tokens_match_cpu(self, cuda_device):
@@ -145,6 +237,34 @@ class TestCudaEngine:
                      "fused_norm_linear_tiled", "paged_decode",
                      "chunked_prefill"):
             assert counts.get(name, 0) > 0, name
+        for a, b in zip(*outs):
+            np.testing.assert_array_equal(a, b)
+
+    @pytest.mark.parametrize("scheme", ["int8", "fp8"])
+    def test_tiny_quantized_engine_tokens_match_cpu(self, cuda_device,
+                                                    scheme):
+        from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+        from paddle_tpu_torch.serving import Engine, ServingConfig
+
+        cfg = LlamaConfig.tiny()
+        cpu = LlamaForCausalLM(cfg, device="cpu", seed=0)
+        gpu = LlamaForCausalLM(cfg, device=cuda_device, seed=None)
+        gpu.load_state_dict(cpu.state_dict())
+        rng = np.random.RandomState(0)
+        prompts = [rng.randint(1, 256, size=n) for n in (5, 19, 33)]
+        outs = []
+        for model in (cpu, gpu):
+            eng = Engine(model, ServingConfig(
+                max_batch_size=2, block_size=8, num_blocks=16,
+                chunk_tokens=16, kv_cache_dtype=scheme, weight_dtype="int8"))
+            launches.reset()
+            outs.append(eng.generate(prompts, max_new_tokens=6))
+            eng.pool.check_leaks()
+        counts = launches.snapshot()
+        for name in (f"paged_decode_{scheme}", f"chunked_prefill_{scheme}",
+                     "kv_quant_scatter"):
+            assert counts.get(name, 0) > 0, name
+        assert "paged_decode" not in counts
         for a, b in zip(*outs):
             np.testing.assert_array_equal(a, b)
 

@@ -97,10 +97,9 @@ def tiny_model():
 
 class TestLaterSliceOptionsRaise:
     @pytest.mark.parametrize("option,value", [
-        ("speculative", object()), ("kv_cache_dtype", "int8"),
-        ("kv_cache_dtype", "fp8"), ("weight_dtype", "int8"),
-        ("mesh", {"tp": 2}), ("xray_on_start", True),
-        ("shardplan", True), ("fused_kernels", False)])
+        ("speculative", object()), ("mesh", {"tp": 2}),
+        ("xray_on_start", True), ("shardplan", True),
+        ("fused_kernels", False)])
     def test_serving_config(self, tiny_model, option, value):
         with pytest.raises(NotImplementedError, match=option):
             Engine(tiny_model, ServingConfig(**{option: value}))
