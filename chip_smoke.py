@@ -34,8 +34,22 @@ Phases, each of which must pass (nothing is caught):
      [1, 8192] batch, AdamW(1e-4): 2 warm-up and 5 timed steps, one
      profiled step and one eval forward without grad; finite, falling
      losses and exact launch counts per step.
-The launch counts of phases 6 and 7, reset just before each run and read
-just after it, show that each path went through every kernel of its own.
+Mixture of experts (Mixtral-8x7B's shape, mixtral_config):
+  2m. MoE kernels: dispatch and combine against their plain versions at
+     hidden 4096, 8 experts, top-2, bf16, at a decode step's, a prefill
+     chunk's and a training batch's shapes, a dropping capacity and the
+     duplicate-slot form a backward pass feeds dispatch;
+  4m. tiny MoE: LlamaConfig.tiny with 4 experts, top-2, capacity factor
+     2.0 (dropless), served on cuda and cpu from f32 and fp8 pools as in
+     phase 4, and trained 5 AdamW steps on both as in phase 5;
+  6m. main MoE serving: Mixtral width, 16 of its 32 layers, bf16, behind
+     serving.Engine with phase 6's 8 requests, dropless routing (capacity
+     factor 4.0 = E / K, as Mixtral routes);
+  7m. main MoE training: Mixtral width, 2 layers, one [1, 4096] batch,
+     as phase 7; it runs last.
+The launch counts of phases 6, 7, 6m and 7m, reset just before each run
+and read just after it, show that each path went through every kernel of
+its own.
 
 Prints the card's name and power limit, then one JSON line of the
 kernels' numbers, then as its last line
@@ -62,7 +76,36 @@ MAIN_LAYERS = 32               # depth of the main serving phase (full: 32)
 TRAIN_LAYERS = 8               # depth of the main training phase (of 32)
 TRAIN_T = 8192                 # its sequence: Llama-3's pretraining context
 TRAIN_WARMUP, TRAIN_STEPS = 2, 5
+MOE_LAYERS = 16                # depth of the main MoE serving phase (of 32)
+MOE_TRAIN_LAYERS = 2           # depth of the main MoE training phase
+MOE_TRAIN_T = 4096             # its sequence: the dropless [E, C, M]
+                               # buffers grow with T (C = T at factor 4)
+MOE_HID = 4096                 # the MoE kernel phase: Mixtral's hidden,
+MOE_KERNEL_CASES = (           # and (tag, T, C, skew, main phase) cases
+    ("decode", 8, 8, 0.0, "moe_serve"), ("chunk", 256, 256, 0.0, "moe_serve"),
+    ("train", 4096, 4096, 0.0, "moe_train"),
+    ("drop", 4096, 1024, 1.5, "moe_train"))
 SLEEP_CYCLES = 50_000_000      # ~30 ms at the H100's clock: time to enqueue
+
+
+def mixtral_config(**overrides):
+    """Mixtral-8x7B's shape from Mistral AI's published config.json
+    (mistralai/Mixtral-8x7B-v0.1): vocab 32000, hidden 4096, expert FFN
+    14336, 32 layers, 32 q / 8 kv heads (head_dim 128), rope_theta 1e6,
+    rms_norm_eps 1e-5, max_position 32768, 8 experts, top-2, no shared
+    expert.  Mixtral drops no token: capacity factor E / K = 4.0 makes
+    C = T, and each token names two different experts, so no expert
+    receives more than C choices."""
+    import dataclasses
+
+    from paddle_tpu_torch.models import LlamaConfig
+
+    return dataclasses.replace(LlamaConfig(
+        vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+        num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+        max_position_embeddings=32768, rms_norm_eps=1e-5, rope_theta=1e6,
+        moe_num_experts=8, moe_top_k=2, moe_capacity_factor=4.0),
+        **overrides)
 
 
 def smi_line() -> str:
@@ -611,6 +654,129 @@ def phase_train_kernels(dev):
     return entries
 
 
+# --------------------------------------------------------------- phase 2m
+def _moe_routing(g, T, E, K, skew=0.0):
+    """(eidx, sidx, gate) [T, K] as LlamaMoEMLP routes T bf16 tokens,
+    from random router logits (``skew`` added to expert 0's)."""
+    from paddle_tpu_torch.models.llama import route_top_k
+
+    logits = torch.randn((T, E), generator=g, device=g.device)
+    logits[:, 0] += skew
+    return route_top_k(logits, K, torch.bfloat16)
+
+
+def check_exact(name, got, ref):
+    same = torch.equal(got, ref)
+    print(f"  {name}: {'bit-identical' if same else 'FAIL'}", flush=True)
+    if not same:
+        raise AssertionError(f"{name}: the kernel differs from its plain "
+                             "version")
+    return 0.0
+
+
+def phase_moe_kernels(dev):
+    """MoE dispatch and combine at Mixtral-8x7B's widths (hidden 4096, 8
+    experts, top-2), bf16, against their plain versions: at a decode
+    step's 8 tokens, a prefill chunk's 256 and a training batch's 4096,
+    each at the dropless capacity C = T, then 4096 tokens at C = 1024
+    with a skewed routing, so that choices are dropped, and the form a
+    backward pass feeds dispatch there (slots clamped to C - 1, dropped
+    choices at weight 0, so slot C - 1 of a full expert is named by many).
+    Dispatch with weight 1 and unique slots, and the backward form, must
+    be bit-identical (each output is one f32 product, or none, rounded
+    once, in both versions); combine must be within one bf16 ulp of its
+    largest output (both sum the same two f32 products and round once,
+    so it is bit-identical unless a sum's order changes)."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import moe_dispatch as md
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    bf = torch.bfloat16
+    HID, E, K = MOE_HID, 8, 2
+    src, where = "paddle_tpu_torch/csrc/moe_dispatch.cu", \
+        "paddle_tpu/kernels/moe_dispatch.py"
+    entries = {}
+    print("[moe kernels] Mixtral-8x7B widths (hidden 4096, 8 experts, "
+          "top-2), bf16", flush=True)
+    for tag, T, C, skew, path in MOE_KERNEL_CASES:
+        eidx, sidx, gate = _moe_routing(g, T, E, K, skew)
+        tok = torch.randn((T, HID), generator=g, device=dev).to(bf)
+        eo = torch.randn((E, C, HID), generator=g, device=dev).to(bf)
+        ones = torch.ones_like(gate)
+        kept = sidx < C
+        n_kept, n_rows = int(kept.sum()), int(kept.any(1).sum())
+        if (tag == "drop") == (n_kept == T * K):
+            raise AssertionError(f"moe {tag}: {T * K - n_kept} dropped")
+        work = f"T={T}, C={C}, {T * K - n_kept} of {T * K} choices dropped"
+        err = check_exact(f"moe_dispatch {work}",
+                          md.moe_dispatch(tok, eidx, sidx, ones, E, C),
+                          md.dispatch_plain(tok, eidx, sidx, ones, E, C))
+        flat = eidx.long() * C + sidx.long().clamp(max=C - 1)
+        rows = tok.repeat_interleave(K, 0)[kept.reshape(-1)]
+        dst = flat.reshape(-1)[kept.reshape(-1)]
+        idx_bytes = 12 * T * K          # eidx, sidx, weights
+        entries[f"moe_dispatch_{tag}"] = dict(
+            path=path, counter=md.DISPATCH, replaces=f"{where}:53",
+            source=src, max_abs_err=err,
+            ms=time_ms(lambda: md.moe_dispatch(tok, eidx, sidx, ones, E, C)),
+            plain_ms=time_ms(lambda: md.dispatch_plain(tok, eidx, sidx, ones,
+                                                       E, C), iters=5),
+            # the yardstick: index_add_ of the routed (weight-1) rows into
+            # a zeroed buffer
+            library_ms=time_ms(lambda: torch.zeros(
+                (E * C, HID), dtype=bf, device=dev).index_add_(0, dst, rows)),
+            bound=bound_ms(2 * HID * (n_rows + E * C) + idx_bytes,
+                           2.0 * n_kept * HID, F32_FLOPS),
+            work=work)
+        ref = md.combine_plain(eo, eidx, sidx, gate)
+        top = float(ref.float().abs().max())
+        err = check_close(f"moe_combine {work}",
+                          md.moe_combine(eo, eidx, sidx, gate), ref,
+                          2.0 ** (math.floor(math.log2(top)) - 7))
+        wv = (gate * kept).to(bf)
+        table = eo.view(E * C, HID)
+        entries[f"moe_combine_{tag}"] = dict(
+            path=path, counter=md.COMBINE, replaces=f"{where}:83",
+            source=src, max_abs_err=err,
+            ms=time_ms(lambda: md.moe_combine(eo, eidx, sidx, gate)),
+            plain_ms=time_ms(lambda: md.combine_plain(eo, eidx, sidx, gate),
+                             iters=5),
+            library_ms=time_ms(lambda: F.embedding_bag(
+                flat, table, mode="sum", per_sample_weights=wv)),
+            bound=bound_ms(2 * HID * (n_kept + T) + idx_bytes,
+                           2.0 * n_kept * HID, F32_FLOPS),
+            work=work)
+        if tag != "drop":
+            continue
+        # combine's backward: a dispatch of the [T, M] cotangent with the
+        # slots clamped and the dropped choices' weights zeroed
+        safe, wz = sidx.clamp(max=C - 1), gate * kept
+        busiest = int(torch.bincount(flat.reshape(-1)).max())
+        work = f"T={T}, C={C}, clamped slots, up to {busiest} choices a slot"
+        err = check_exact(f"moe_dispatch (backward form) {work}",
+                          md.moe_dispatch(tok, eidx, safe, wz, E, C),
+                          md.dispatch_plain(tok, eidx, safe, wz, E, C))
+        pre = (rows.float() * gate.reshape(-1, 1)[kept.reshape(-1)]
+               .float()).to(bf)
+        entries["moe_dispatch_backward"] = dict(
+            path=path, counter=md.DISPATCH, replaces=f"{where}:53",
+            source=src, max_abs_err=err,
+            ms=time_ms(lambda: md.moe_dispatch(tok, eidx, safe, wz, E, C)),
+            plain_ms=time_ms(lambda: md.dispatch_plain(tok, eidx, safe, wz,
+                                                       E, C), iters=5),
+            library_ms=time_ms(lambda: torch.zeros(
+                (E * C, HID), dtype=bf, device=dev).index_add_(0, dst, pre)),
+            bound=bound_ms(2 * HID * (n_rows + E * C) + idx_bytes,
+                           2.0 * n_kept * HID, F32_FLOPS),
+            work=work)
+    print("  library: index_add_ of the routed rows, pre-weighted, into a "
+          "zeroed buffer (dispatch); F.embedding_bag(mode='sum', "
+          "per_sample_weights) over the [E*C, M] table (combine)")
+    print_entries(entries)
+    return entries
+
+
 # ---------------------------------------------------------------- phase 4
 def _prefix_logits(model, tokens, block_size, chunk, kv_cache_dtype=None):
     """f32 last-token logits of ``tokens`` through a fresh one-sequence
@@ -652,11 +818,27 @@ def phase_tiny(dev):
         _tiny_run(dev, kv, weights)
 
 
-def _tiny_run(dev, kv_cache_dtype, weight_dtype):
+TINY_MOE = dict(moe_num_experts=4, moe_top_k=2, moe_capacity_factor=2.0)
+
+
+def phase_tiny_moe(dev):
+    """The tiny config with 4 experts, top-2, capacity factor 2.0 (= E /
+    K, dropless, so a request's tokens do not depend on its batch mates
+    or on the idle slots): served on cuda and on cpu from f32 and fp8
+    pools as in phase 4, then trained as in phase 5."""
+    from paddle_tpu_torch.models import LlamaConfig
+
+    for kv in (None, "fp8"):
+        _tiny_run(dev, kv, None, LlamaConfig.tiny(**TINY_MOE))
+    phase_tiny_train(dev, LlamaConfig.tiny(fused_lm_loss=True,
+                                           lm_loss_chunk=32, **TINY_MOE))
+
+
+def _tiny_run(dev, kv_cache_dtype, weight_dtype, cfg=None):
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.serving import Engine, ServingConfig
 
-    cfg = LlamaConfig.tiny()
+    cfg = cfg or LlamaConfig.tiny()
     cpu_model = LlamaForCausalLM(cfg, device="cpu", seed=0)
     cuda_model = LlamaForCausalLM(cfg, device=dev, seed=None)
     cuda_model.load_state_dict(cpu_model.state_dict())
@@ -677,7 +859,9 @@ def _tiny_run(dev, kv_cache_dtype, weight_dtype):
         outs[name] = [r.generated for r in reqs]
         stats[name] = eng.stats()["counters"]
     c = stats["cuda"]
-    print(f"[tiny] f32, KV {kv_cache_dtype or 'f32'}, weights "
+    moe = f", {cfg.moe_num_experts} experts" if cfg.moe_num_experts else ""
+    print(f"[tiny{moe and ' moe'}] f32{moe}, KV {kv_cache_dtype or 'f32'}, "
+          f"weights "
           f"{weight_dtype or 'f32'}, {len(prompts)} requests: preemptions "
           f"{c['preemptions']}, prefix-cache hits {c['prefix_cache_hits']}",
           flush=True)
@@ -700,17 +884,23 @@ def _tiny_run(dev, kv_cache_dtype, weight_dtype):
 
 
 # ---------------------------------------------------------------- phase 5
-def train_launches(L, grad=True):
+def train_launches(L, grad=True, moe=False):
     """Kernel launches of one training step (``grad``) or one forward
     without grad of an L-layer model: two RMSNorms a layer and the final
     one (forward only: their backward is plain PyTorch); RoPE on q and
-    k, forward and backward; one attention forward, dQ and dK/dV."""
+    k, forward and backward; one attention forward, dQ and dK/dV; with
+    ``moe``, one dispatch and one combine a layer, and in the backward
+    each again as the other's gradient."""
     from paddle_tpu_torch.kernels import flash_attention as fa
 
     if not grad:
-        return {"rms_norm": 2 * L + 1, "rope": 2 * L, fa.FWD: L}
-    return {"rms_norm": 2 * L + 1, "rope": 4 * L, fa.FWD_LSE: L,
-            fa.BWD_DQ: L, fa.BWD_DKV: L}
+        out = {"rms_norm": 2 * L + 1, "rope": 2 * L, fa.FWD: L}
+    else:
+        out = {"rms_norm": 2 * L + 1, "rope": 4 * L, fa.FWD_LSE: L,
+               fa.BWD_DQ: L, fa.BWD_DKV: L}
+    if moe:
+        out.update(moe_dispatch=L * (1 + grad), moe_combine=L * (1 + grad))
+    return out
 
 
 def train_step(model, opt, tokens, marks=None):
@@ -727,21 +917,22 @@ def train_step(model, opt, tokens, marks=None):
     return float(loss.detach())
 
 
-def phase_tiny_train(dev):
-    """LlamaConfig.tiny() in f32 with the fused chunked loss, the same
-    seeded weights and batch on cpu (plain versions) and on cuda
+def phase_tiny_train(dev, cfg=None):
+    """LlamaConfig.tiny() in f32 with the fused chunked loss (or ``cfg``),
+    the same seeded weights and batch on cpu (plain versions) and on cuda
     (kernels): 5 AdamW steps, losses within F32_TOL."""
     from paddle_tpu_torch.kernels import launches
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.optimizer import AdamW
 
-    cfg = LlamaConfig.tiny(fused_lm_loss=True, lm_loss_chunk=32)
+    cfg = cfg or LlamaConfig.tiny(fused_lm_loss=True, lm_loss_chunk=32)
     cpu_model = LlamaForCausalLM(cfg, device="cpu", seed=0)
     cuda_model = LlamaForCausalLM(cfg, device=dev, seed=None)
     cuda_model.load_state_dict(cpu_model.state_dict())
     tokens = torch.from_numpy(np.random.RandomState(1).randint(
         0, cfg.vocab_size, (2, 40)))
-    per_step = train_launches(cfg.num_hidden_layers)
+    per_step = train_launches(cfg.num_hidden_layers,
+                              moe=cfg.moe_num_experts > 0)
     losses = {}
     for name, model in (("cpu", cpu_model), ("cuda", cuda_model)):
         opt = AdamW(1e-3, parameters=model.parameters())
@@ -757,7 +948,8 @@ def phase_tiny_train(dev):
                                      f"{counts} != {want}")
         losses[name] = out
     diff = float(np.abs(np.subtract(losses["cuda"], losses["cpu"])).max())
-    print(f"[tiny train] f32, 5 AdamW steps: cuda losses "
+    moe = f", {cfg.moe_num_experts} experts" if cfg.moe_num_experts else ""
+    print(f"[tiny train] f32{moe}, 5 AdamW steps: cuda losses "
           f"{[round(x, 6) for x in losses['cuda']]}, max |cuda - cpu| "
           f"{diff:.2e} (tolerance {F32_TOL:.0e}); launches a step "
           f"{per_step}", flush=True)
@@ -825,10 +1017,17 @@ def _serve_main(model, prompts, tag, kv_cache_dtype=None, weight_dtype=None,
     ctr = st["counters"]
     L = cfg.num_hidden_layers
     chunks, decodes = ctr["prefill_chunks"], ctr["decode_iterations"]
-    per_decode = {"rms_norm": 1, "fused_norm_linear_skinny": 5 * L,
-                  counter_name(paged_attention.KERNEL, kv_cache_dtype): L}
-    per_chunk = {"rms_norm": 1, "fused_norm_linear_tiled": 5 * L,
-                 counter_name(chunked_prefill.KERNEL, kv_cache_dtype): L}
+    if cfg.moe_num_experts:
+        # a MoE layer serves unfused: its two norms, then one dispatch
+        # and one combine
+        per_layer = {"rms_norm": 2 * L + 1, "moe_dispatch": L,
+                     "moe_combine": L}
+        per_decode, per_chunk = dict(per_layer), dict(per_layer)
+    else:
+        per_decode = {"rms_norm": 1, "fused_norm_linear_skinny": 5 * L}
+        per_chunk = {"rms_norm": 1, "fused_norm_linear_tiled": 5 * L}
+    per_decode[counter_name(paged_attention.KERNEL, kv_cache_dtype)] = L
+    per_chunk[counter_name(chunked_prefill.KERNEL, kv_cache_dtype)] = L
     if kv_cache_dtype is not None:
         per_decode[SCATTER] = per_chunk[SCATTER] = L
     expect = {k: per_decode.get(k, 0) * decodes + per_chunk.get(k, 0) * chunks
@@ -890,6 +1089,39 @@ def phase_main(dev):
                                  num_blocks=num_blocks)
     print(f"  {json.dumps(out)}", flush=True)
     return counts, num_blocks
+
+
+def phase_moe_main(dev):
+    """The main serving path of a mixture-of-experts model: Mixtral-8x7B
+    at full width, MOE_LAYERS of its 32 layers (all 32 would not fit the
+    card in bf16), bf16, random weights from seed 0, dropless routing,
+    behind serving.Engine with the 8 requests of phase 6 (token ids below
+    32000) and a bf16 pool of the requests' blocks + 9.  Dropless routing
+    makes a request's tokens independent of its batch mates, so its
+    first token must equal a fresh prefill's."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+
+    cfg = mixtral_config(num_hidden_layers=MOE_LAYERS)
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[main moe] Mixtral-8x7B width, bf16, {cfg.num_hidden_layers} of "
+          f"32 layers, {n_params / 1e9:.3f} B parameters, 8 experts, top-2, "
+          f"capacity factor {cfg.moe_capacity_factor} (dropless), random "
+          f"weights (seed 0) in {time.perf_counter() - t0:.1f} s", flush=True)
+    prompts = _main_prompts(cfg.vocab_size)
+    num_blocks = 1 + sum(-(-(len(p) + MAIN_NEW) // MAIN_BS)
+                         for p in prompts) + 8
+    out, counts, _ = _serve_main(model, prompts, "main moe",
+                                 num_blocks=num_blocks)
+    out["n_params"] = n_params
+    print(f"  {out['tokens_per_s']:.1f} tokens/s, mean TTFT "
+          f"{out['mean_ttft_s']:.3f} s, mean TPOT "
+          f"{out['mean_tpot_s'] * 1e3:.1f} ms; peak "
+          f"{out['peak_mem_gb']:.1f} GB", flush=True)
+    print(f"  {json.dumps(out)}", flush=True)
+    return counts
 
 
 # (kv_cache_dtype, weight_dtype) of the main quantized serving phase, in
@@ -1026,6 +1258,7 @@ def _profile_once(fn, args):
 # name holds (the rest is "other elementwise and reductions")
 TRAIN_FAMILIES = [
     ("FlashAttention kernels", ("fa_fwd", "fa_bwd")),
+    ("MoE dispatch and combine kernels", ("moe_",)),
     ("RoPE kernel", ("rope_kernel",)),
     ("RMSNorm kernel", ("rms_norm",)),
     ("f32 products on TF32 (the chunked LM loss)", ("tf32",)),
@@ -1049,29 +1282,32 @@ def _families(rows):
 
 
 # ---------------------------------------------------------------- phase 7
-def phase_train(dev):
-    """The training path at Llama-3-8B width, TRAIN_LAYERS of its 32
-    layers, bf16, one [1, TRAIN_T] batch with labels = tokens, AdamW(1e-4)
-    with its defaults.  Returns the launch counts of the whole phase."""
+def phase_train(dev, cfg, T, tag, title):
+    """The training path of ``cfg`` (bf16, fused loss), one [1, T] batch
+    with labels = tokens, AdamW(1e-4) with its defaults.  Returns the
+    launch counts of the whole phase.  A MoE model's MFU counts its
+    active parameters: the experts' weights K / E of them."""
     from paddle_tpu_torch.kernels import launches
-    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models import LlamaForCausalLM
     from paddle_tpu_torch.optimizer import AdamW
 
     torch.cuda.reset_peak_memory_stats()
-    cfg = LlamaConfig.llama3_8b(num_hidden_layers=TRAIN_LAYERS,
-                                fused_lm_loss=True)
-    L, V, T = cfg.num_hidden_layers, cfg.vocab_size, TRAIN_T
+    L, V, E = cfg.num_hidden_layers, cfg.vocab_size, cfg.moe_num_experts
     t0 = time.perf_counter()
     model = LlamaForCausalLM(cfg, device=dev, seed=0)
     opt = AdamW(1e-4, parameters=model.parameters())
     n_params = sum(p.numel() for p in model.parameters())
+    experts = sum(p.numel() for n, p in model.named_parameters()
+                  if n.endswith(("w_gate", "w_up", "w_down")))
+    n_active = n_params - (experts * (E - cfg.moe_top_k) // E if E else 0)
     tokens = torch.from_numpy(np.random.RandomState(0).randint(
         0, V, (1, T))).to(dev)
     torch.cuda.synchronize()
-    print(f"[train] Llama-3-8B width, bf16, {L} of 32 layers, "
-          f"{n_params / 1e9:.3f} B parameters, random weights (seed 0) in "
-          f"{time.perf_counter() - t0:.1f} s; batch [1, {T}]", flush=True)
-    per_step = train_launches(L)
+    print(f"[{tag}] {title}, bf16, {L} of 32 layers, {n_params / 1e9:.3f} B "
+          f"parameters ({n_active / 1e9:.3f} B active), random weights "
+          f"(seed 0) in {time.perf_counter() - t0:.1f} s; batch [1, {T}]",
+          flush=True)
+    per_step = train_launches(L, moe=E > 0)
     marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
 
     def step():
@@ -1102,28 +1338,31 @@ def phase_train(dev):
                            "profiled train step")
     with torch.no_grad():
         eval_loss = counted(lambda: float(model(tokens, labels=tokens)[0]),
-                            train_launches(L, grad=False), "eval forward")
+                            train_launches(L, grad=False, moe=E > 0),
+                            "eval forward")
     counts = launches.snapshot()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     print(f"  losses {[round(x, 4) for x in losses]}, eval after "
           f"{len(losses) + 1} steps {eval_loss:.4f}, ln V {math.log(V):.4f}")
     print(f"  launches a step {per_step}; eval forward "
-          f"{train_launches(L, grad=False)}; phase {counts}", flush=True)
+          f"{train_launches(L, grad=False, moe=E > 0)}; phase {counts}",
+          flush=True)
     # logits of unit variance (normed rows against std 1/sqrt(hidden)
     # columns) put the first loss at ln V + 1/2 in expectation
     if not all(math.isfinite(x) for x in losses + [eval_loss]) or \
             abs(losses[0] - math.log(V)) > 1.0 or \
             not losses[-1] < losses[0]:
-        raise AssertionError(f"train: losses {losses}, eval {eval_loss}")
+        raise AssertionError(f"{tag}: losses {losses}, eval {eval_loss}")
     mean_ms = float(np.mean(step_ms))
     tok_s = T / mean_ms * 1e3
-    flops_per_token = 6.0 * n_params + 12.0 * L * cfg.hidden_size * T
+    flops_per_token = 6.0 * n_active + 12.0 * L * cfg.hidden_size * T
     out = dict(step_ms=step_ms, mean_step_ms=mean_ms, tokens_per_s=tok_s,
                fwd_bwd_ms=float(np.mean(fwd_bwd_ms)),
                adamw_ms=float(np.mean(opt_ms)),
                mfu=tok_s * flops_per_token / BF16_FLOPS,
                flops_per_token=flops_per_token, n_params=n_params,
+               n_active_params=n_active,
                first_loss=losses[0], last_loss=losses[-1],
                eval_loss=eval_loss, peak_mem_gb=peak_gb,
                step_device_ms=dev_ms, layers=L, tokens=T)
@@ -1144,11 +1383,17 @@ def phase_train(dev):
     return counts
 
 
+def free():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from paddle_tpu_torch.kernels import launches
+    from paddle_tpu_torch.models import LlamaConfig
 
     dev = torch.device("cuda")
     # f32 products in full f32 (PyTorch's default) wherever results are
@@ -1162,19 +1407,29 @@ def main() -> int:
     phase_build()
     entries = phase_kernels(dev)
     train_entries = phase_train_kernels(dev)
+    moe_entries = phase_moe_kernels(dev)
     launches.reset()
     phase_tiny(dev)
     phase_tiny_train(dev)
+    phase_tiny_moe(dev)
     counts, bf16_blocks = phase_main(dev)
-    gc.collect()                  # each serving model's 16 GB go first
-    torch.cuda.empty_cache()
+    free()                        # each serving model's 16 GB go first
     quant_counts = phase_main_quant(dev, bf16_blocks)
-    gc.collect()
-    torch.cuda.empty_cache()
-    train_counts = phase_train(dev)
-    runs = {"serve": counts, "quant": quant_counts, "train": train_counts}
+    free()
+    moe_counts = phase_moe_main(dev)
+    free()                        # the MoE model's 47 GB
+    train_counts = phase_train(dev, LlamaConfig.llama3_8b(
+        num_hidden_layers=TRAIN_LAYERS, fused_lm_loss=True), TRAIN_T,
+        "train", "Llama-3-8B width")
+    free()
+    moe_train_counts = phase_train(dev, mixtral_config(
+        num_hidden_layers=MOE_TRAIN_LAYERS, fused_lm_loss=True),
+        MOE_TRAIN_T, "train moe", "Mixtral-8x7B width")
+    runs = {"serve": counts, "quant": quant_counts, "train": train_counts,
+            "moe_serve": moe_counts, "moe_train": moe_train_counts}
     kernels = []
-    for name, e in [*entries.items(), *train_entries.items()]:
+    for name, e in [*entries.items(), *train_entries.items(),
+                    *moe_entries.items()]:
         # launches: from the main phase of the kernel's own path (bf16
         # serving, quantized serving or training), under the name of the
         # kernel's counter

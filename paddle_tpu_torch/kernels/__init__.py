@@ -10,6 +10,8 @@ PyTorch version (which runs only for CPU tensors).
   codec and its quantize-at-write scatter
 - :mod:`rope`               — ``csrc/rope.cu``
 - :mod:`flash_attention`    — ``csrc/flash_attention.cu``
+- :mod:`moe_dispatch`       — ``csrc/moe_dispatch.cu``, MoE dispatch and
+  combine, each the other's backward
 
 ``_build.launches`` counts each kernel's launches.
 """

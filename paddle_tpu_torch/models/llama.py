@@ -16,6 +16,12 @@ The port of ``paddle_tpu/models/llama.py`` in two modes.
   ``fused_lm_loss`` so the [tokens, vocab] logits never exist whole.
   Every kernel there is differentiable (``torch.autograd.Function``s
   whose backward runs the backward kernels).
+- Mixture of experts (``moe_num_experts > 0``): each layer's MLP is
+  :class:`LlamaMoEMLP`, top-k routing through ``kernels.moe_dispatch``.
+  As in the JAX package, such a layer serves unfused: the two RMSNorms
+  run as ``kernels.rms_norm`` before plain q/k/v products and the MoE
+  MLP, while decode and prefill still take the paged-decode and
+  chunked-prefill kernels.
 The final norm is ``kernels.rms_norm``.  The embedding, the
 projections that no kernel fuses and ``lm_head`` are plain matrix
 products, as the JAX package leaves them to XLA.
@@ -43,6 +49,7 @@ from ..kernels.chunked_prefill import chunked_attention
 from ..kernels.flash_attention import flash_attention_bthd
 from ..kernels.fused_norm_linear import fused_norm_linear, rms_scale
 from ..kernels.kv_quant import quantize_scatter
+from ..kernels.moe_dispatch import moe_capacity, moe_combine, moe_dispatch
 from ..kernels.paged_attention import fused_paged_decode
 from ..kernels.rms_norm import rms_norm
 from ..kernels.rope import fused_rope
@@ -66,12 +73,15 @@ class LlamaConfig:
     # whole); off, it returns (loss, logits)
     fused_lm_loss: bool = False
     lm_loss_chunk: int = 2048
+    # mixture of experts: 0 experts is the dense LlamaMLP
+    moe_num_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 2.0
     # options of the JAX model that the port does not have yet: anything
     # but these values raises NotImplementedError
     tie_word_embeddings: bool = False
     sequence_parallel: bool = False
     recompute: bool = False
-    moe_num_experts: int = 0
     context_parallel: str = ""
     dtype: str = "bfloat16"
 
@@ -183,12 +193,13 @@ class LlamaAttention(nn.Module):
                 write_mask=None):
         """Without a cache, the training forward of the NORMALIZED
         ``hidden`` [B, T, h]: unfused q/k/v, RoPE from position 0, causal
-        attention.  With one, the fused serving forward: ``hidden`` is
-        the UNNORMALIZED residual stream; the input RMSNorm folds into
-        q/k/v, which share one row scale.  ``write_mask`` None means a
-        decode step (T == 1); else it is the [B, T] validity mask of a
-        prefill chunk, whose padded positions write into the garbage
-        block 0."""
+        attention.  With one, the serving forward: with ``norm_weight``,
+        ``hidden`` is the UNNORMALIZED residual stream and the input
+        RMSNorm folds into q/k/v, which share one row scale; without it
+        (a MoE layer), ``hidden`` is normalized and q/k/v are plain
+        products.  ``write_mask`` None means a decode step (T == 1); else
+        it is the [B, T] validity mask of a prefill chunk, whose padded
+        positions write into the garbage block 0."""
         B, T = hidden.shape[0], hidden.shape[1]
         if cache is None:
             q = self.q_proj(hidden).reshape(B, T, -1, self.head_dim)
@@ -197,10 +208,13 @@ class LlamaAttention(nn.Module):
             q, k = fused_rope(q, cos, sin), fused_rope(k, cos, sin)
             out = flash_attention_bthd(q, k, v, causal=True)
             return self.o_proj(out.reshape(B, T, -1))
-        rs = rms_scale(hidden, norm_eps)
-        q = fused_norm_linear(hidden, rs, norm_weight, self.q_proj.weight)
-        k = fused_norm_linear(hidden, rs, norm_weight, self.k_proj.weight)
-        v = fused_norm_linear(hidden, rs, norm_weight, self.v_proj.weight)
+        if norm_weight is None:
+            q, k, v = (p(hidden) for p in (self.q_proj, self.k_proj,
+                                           self.v_proj))
+        else:
+            rs = rms_scale(hidden, norm_eps)
+            q, k, v = (fused_norm_linear(hidden, rs, norm_weight, p.weight)
+                       for p in (self.q_proj, self.k_proj, self.v_proj))
         q = q.reshape(B, T, -1, self.head_dim)
         k = k.reshape(B, T, -1, self.head_dim)
         v = v.reshape(B, T, -1, self.head_dim)
@@ -268,6 +282,70 @@ class LlamaMLP(nn.Module):
         return (g * u) @ self.down_proj.weight
 
 
+def route_top_k(logits, top_k, dtype):
+    """(eidx, sidx, gate) [n, K] of router ``logits`` [n, E]: the top K
+    experts of an f32 softmax (a stable descending sort, so ties go to
+    the lower expert index as in ``jax.lax.top_k``), each choice's
+    capacity slot, the running count of earlier choices of its expert,
+    rows major and choices minor (both int32), and the gates renormalized
+    to sum to 1 and cast to ``dtype``."""
+    E = logits.shape[-1]
+    probs = torch.softmax(logits.float(), dim=-1)
+    top, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, eidx = top[:, :top_k], order[:, :top_k]
+    gate = (gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)) \
+        .to(dtype)
+    flat = eidx.reshape(-1, 1)
+    onehot = torch.zeros((flat.shape[0], E), dtype=torch.int32,
+                         device=logits.device).scatter_(1, flat, 1)
+    sidx = (onehot.cumsum(0, dtype=torch.int32) - onehot).gather(1, flat)
+    return eidx.int(), sidx.reshape(-1, top_k), gate
+
+
+class LlamaMoEMLP(nn.Module):
+    """Top-k routed mixture-of-experts MLP, the port of the JAX
+    ``LlamaMoEMLP``: GShard capacity-padded routing through
+    ``kernels.moe_dispatch`` with stacked expert weights ``w_gate`` /
+    ``w_up`` [E, h, m] and ``w_down`` [E, m, h] (the JAX names, so
+    ``convert`` maps them as they are) and a ``router`` [h, E].
+
+    Routing is :func:`route_top_k` over the rows of x; choices past
+    C = ceil(cf * T * K / E) are dropped.  T counts every row given,
+    padded and idle ones included, as the JAX layer does."""
+
+    def __init__(self, config: LlamaConfig, make):
+        super().__init__()
+        h, m = config.hidden_size, config.intermediate_size
+        E = config.moe_num_experts
+        self.num_experts = E
+        self.top_k = config.moe_top_k
+        self.capacity_factor = config.moe_capacity_factor
+        self.router = Linear(make(h, E))
+        self.w_gate = nn.Parameter(make(h, m, experts=E))
+        self.w_up = nn.Parameter(make(h, m, experts=E))
+        self.w_down = nn.Parameter(make(m, h, experts=E))
+
+    def route(self, x):
+        """(eidx, sidx, gate) [n, K] of the rows of x [..., h], gates in
+        x's dtype."""
+        return route_top_k(self.router(x).reshape(-1, self.num_experts),
+                           self.top_k, x.dtype)
+
+    def forward(self, x):
+        B, T, h = x.shape
+        n = B * T
+        C = moe_capacity(n, self.num_experts, self.top_k,
+                         self.capacity_factor)
+        eidx, sidx, gate = self.route(x)
+        disp = moe_dispatch(x.reshape(n, h), eidx, sidx,
+                            torch.ones_like(gate), self.num_experts, C)
+        g = torch.bmm(disp, self.w_gate)
+        u = torch.bmm(disp, self.w_up)
+        act = F.silu(g.float()).to(disp.dtype) * u
+        eo = torch.bmm(act, self.w_down)
+        return moe_combine(eo, eidx, sidx, gate).reshape(B, T, h)
+
+
 class LlamaDecoderLayer(nn.Module):
     def __init__(self, config: LlamaConfig, make, make_norm):
         super().__init__()
@@ -275,13 +353,20 @@ class LlamaDecoderLayer(nn.Module):
         self.self_attn = LlamaAttention(config, make)
         self.post_attention_layernorm = LlamaRMSNorm(make_norm(),
                                                      config.rms_norm_eps)
-        self.mlp = LlamaMLP(config, make)
+        self.moe = config.moe_num_experts > 0
+        self.mlp = LlamaMoEMLP(config, make) if self.moe \
+            else LlamaMLP(config, make)
 
     def forward(self, hidden, cos, sin, cache=None, positions=None,
                 write_mask=None):
-        if cache is None:
-            hidden = hidden + self.self_attn(self.input_layernorm(hidden),
-                                             cos, sin)
+        if cache is None or self.moe:
+            # the training forward; and a MoE layer's serving forward,
+            # which the JAX layer leaves unfused (its norms fold only into
+            # a dense MLP's projections)
+            normed = self.input_layernorm(hidden)
+            hidden = hidden + self.self_attn(normed, cos, sin, cache,
+                                             positions,
+                                             write_mask=write_mask)
             return hidden + self.mlp(self.post_attention_layernorm(hidden))
         ln = self.input_layernorm
         hidden = hidden + self.self_attn(hidden, cos, sin, cache, positions,
@@ -422,15 +507,14 @@ def fused_causal_lm_loss(hidden, w, labels, chunk):
 # options of the JAX LlamaConfig the port does not have yet, with the one
 # value each may take
 UNPORTED_OPTIONS = {"tie_word_embeddings": False, "sequence_parallel": False,
-                    "recompute": False, "moe_num_experts": 0,
-                    "context_parallel": ""}
+                    "recompute": False, "context_parallel": ""}
 
 
 class LlamaForCausalLM(nn.Module):
     """Llama causal LM on ``device`` (default ``cuda``; raises without a
     GPU unless ``device="cpu"``).  Weights are random from ``seed``
-    (normal, std 1/sqrt(fan_in) for projections, 1 for the embedding,
-    ones for the norms); ``seed=None`` leaves them uninitialized for a
+    (normal, std 1/sqrt(fan_in) for projections, the router and the
+    expert stacks, 1 for the embedding, ones for the norms); ``seed=None`` leaves them uninitialized for a
     loader such as ``convert.from_jax_state_dict`` to fill.  Every
     parameter is trainable."""
 
@@ -449,9 +533,10 @@ class LlamaForCausalLM(nn.Module):
         if seed is not None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
 
-        def make(fan_in, fan_out, std=None):
-            w = torch.empty((fan_in, fan_out), dtype=dtype,
-                            device=self.device)
+        def make(fan_in, fan_out, std=None, experts=None):
+            shape = (fan_in, fan_out) if experts is None \
+                else (experts, fan_in, fan_out)
+            w = torch.empty(shape, dtype=dtype, device=self.device)
             if gen is not None:
                 w.normal_(0.0, std or 1.0 / math.sqrt(fan_in), generator=gen)
             return w

@@ -8,7 +8,9 @@ that has only PyTorch:
 (``--noconftest``: the repository's conftest sets JAX up.)  Tolerances:
 f32 1e-4 (same cast points, sums in another order); bf16 one rounding
 of the largest output, except FlashAttention in bf16 (see
-``_hold_bf16_attention``); the quantize-at-write scatter bit-identical.
+``_hold_bf16_attention``); the quantize-at-write scatter bit-identical;
+MoE dispatch and combine bit-identical where every slot has one choice
+of weight 1, else 1e-6 in f32 and one bf16 ulp of each output.
 The Llama-3-8B shapes are held in chip_smoke.py.
 """
 import math
@@ -18,10 +20,10 @@ import pytest
 import torch
 
 from paddle_tpu_torch.kernels import (chunked_prefill, fused_norm_linear,
-                                      kv_quant, launches, paged_attention,
-                                      rms_norm, rope)
+                                      kv_quant, launches, moe_dispatch,
+                                      paged_attention, rms_norm, rope)
 from paddle_tpu_torch.kernels import flash_attention as fa
-from torch_operands import chunk_operands, decode_operands
+from torch_operands import chunk_operands, decode_operands, moe_routing
 
 TOL = 1e-4
 
@@ -435,3 +437,118 @@ class TestCudaTraining:
         else:
             np.testing.assert_array_max_ulp(p_cpu.numpy(), p_gpu.numpy(),
                                             maxulp=2)
+
+
+def _moe_hold(got, want, exact):
+    """Bit-identical, or within 1e-6 (f32) / one ulp of each output
+    (bf16)."""
+    f32 = got.dtype == torch.float32
+    got, want = got.cpu().float(), want.cpu().float()
+    if exact:
+        assert torch.equal(got, want)
+        return
+    if f32:
+        close(got, want, 1e-6)
+        return
+    mag = torch.maximum(got.abs(), want.abs()).clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    assert bool(((got - want).abs() <= ulp).all())
+
+
+@pytest.mark.cuda
+class TestCudaMoE:
+    E, C, T = 8, 64, 256
+
+    def _case(self, case, dtype, M, dev):
+        rng = np.random.RandomState(6)
+        tok = t(rng.randn(self.T, M).astype(np.float32)).to(dev, dtype)
+        eo = t(rng.randn(self.E, self.C, M).astype(np.float32)).to(dev, dtype)
+        eidx, sidx, w = (t(x).to(dev) for x in moe_routing(
+            case, self.T, self.E, self.C, seed=7))
+        return tok, eo, eidx, sidx, w
+
+    @pytest.mark.parametrize("M", [4096, 100])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("case", ["random", "unique", "clamped"])
+    def test_kernels_match_plain(self, cuda_device, case, dtype, M):
+        # M = 100 bf16 rows are not 16-byte multiples: the scalar path
+        tok, eo, eidx, sidx, w = self._case(case, dtype, M, cuda_device)
+        w = w.to(dtype) if case == "unique" else w
+        launches.reset()
+        d = moe_dispatch.moe_dispatch(tok, eidx, sidx, w, self.E, self.C)
+        c = moe_dispatch.moe_combine(eo, eidx, sidx, w)
+        torch.cuda.synchronize()
+        assert launches.snapshot() == {"moe_dispatch": 1, "moe_combine": 1}
+        cpu = [x.cpu() for x in (tok, eo, eidx, sidx, w)]
+        _moe_hold(d, moe_dispatch.dispatch_plain(
+            cpu[0], *cpu[2:], self.E, self.C), case == "unique")
+        _moe_hold(c, moe_dispatch.combine_plain(*cpu[1:]), case == "unique")
+        # slots no choice names (with a nonzero weight) are exact zeros
+        keep = (cpu[3] < self.C) & (cpu[4] != 0)
+        named = torch.zeros(self.E, self.C, dtype=torch.bool)
+        named[cpu[2][keep].long(), cpu[3][keep].long()] = True
+        assert (~named).any()
+        assert not d.cpu()[~named].any()
+
+    def test_autograd_matches_cpu(self, cuda_device):
+        grads = []
+        for dev in ("cpu", cuda_device):
+            tok, eo, eidx, sidx, wc = self._case("random", torch.float32,
+                                                 256, dev)
+            wd = torch.rand(wc.shape, generator=torch.Generator()
+                            .manual_seed(8)).to(dev)
+            tok, wd, wc = (x.clone().requires_grad_() for x in (tok, wd, wc))
+            d = moe_dispatch.moe_dispatch(tok, eidx, sidx, wd, self.E, self.C)
+            out = moe_dispatch.moe_combine(d * eo, eidx, sidx, wc)
+            (out * out).sum().backward()
+            grads.append([x.grad.cpu() for x in (tok, wd, wc)])
+        for got, want in zip(grads[1], grads[0]):
+            close(got, want, 1e-5 * float(want.abs().max()))
+
+    def test_rejects_what_it_does_not_take(self, cuda_device):
+        tok, eo, eidx, sidx, w = self._case("unique", torch.bfloat16, 64,
+                                            cuda_device)
+        launches.reset()
+        with pytest.raises(TypeError, match="int32"):
+            moe_dispatch.moe_dispatch(tok, eidx.long(), sidx, w, self.E,
+                                      self.C)
+        with pytest.raises(TypeError, match="int32"):
+            moe_dispatch.moe_combine(eo, eidx, sidx.long(), w)
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            moe_dispatch.moe_dispatch(tok.half(), eidx, sidx, w, self.E,
+                                      self.C)
+        with pytest.raises(TypeError, match="weights"):
+            moe_dispatch.moe_combine(eo, eidx, sidx, w.half())
+        assert launches.snapshot() == {}
+
+    def test_tiny_moe_training_matches_cpu(self, cuda_device):
+        from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+        from paddle_tpu_torch.optimizer import AdamW
+
+        cfg = LlamaConfig.tiny(moe_num_experts=4, fused_lm_loss=True,
+                               lm_loss_chunk=32)
+        cpu = LlamaForCausalLM(cfg, device="cpu", seed=0)
+        gpu = LlamaForCausalLM(cfg, device=cuda_device, seed=None)
+        gpu.load_state_dict(cpu.state_dict())
+        tokens = torch.from_numpy(
+            np.random.RandomState(0).randint(0, 256, (2, 40)))
+        losses, L = [], cfg.num_hidden_layers
+        for model in (cpu, gpu):
+            opt = AdamW(1e-3, parameters=model.parameters())
+            x = tokens.to(model.device)
+            out = []
+            for _ in range(5):
+                launches.reset()
+                loss, _ = model(x, labels=x)
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+                out.append(float(loss.detach()))
+            losses.append(out)
+        assert launches.snapshot() == {
+            "rms_norm": 2 * L + 1, "rope": 4 * L, fa.FWD_LSE: L,
+            fa.BWD_DQ: L, fa.BWD_DKV: L, "moe_dispatch": 2 * L,
+            "moe_combine": 2 * L}
+        np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4,
+                                   atol=1e-4)
+        assert losses[1][-1] < losses[1][0]

@@ -146,8 +146,7 @@ class TestTrainingPath:
 
     @pytest.mark.parametrize("option,value", [
         ("tie_word_embeddings", True), ("sequence_parallel", True),
-        ("recompute", True), ("moe_num_experts", 4),
-        ("context_parallel", "ring")])
+        ("recompute", True), ("context_parallel", "ring")])
     def test_unported_config_options_raise(self, option, value):
         with pytest.raises(NotImplementedError, match=option):
             LlamaForCausalLM(LlamaConfig.tiny(**{option: value}),
