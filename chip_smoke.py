@@ -46,10 +46,28 @@ Mixture of experts (Mixtral-8x7B's shape, mixtral_config):
      serving.Engine with phase 6's 8 requests, dropless routing (capacity
      factor 4.0 = E / K, as Mixtral routes);
   7m. main MoE training: Mixtral width, 2 layers, one [1, 4096] batch,
-     as phase 7; it runs last.
-The launch counts of phases 6, 7, 6m and 7m, reset just before each run
-and read just after it, show that each path went through every kernel of
-its own.
+     as phase 7.
+Static graph (BERT-base, Google's published bert_config.json):
+  2s. static kernels: fused_linear against its plain version at
+     BERT-base's shapes (M = 32 x 512 tokens, hidden 768, FFN 3072),
+     bf16: the FFN's gelu with bias, the MLM transform, each other
+     activation, no bias, a ragged M and N, and f32; its backward's dx,
+     dw and db against autograd through the plain version;
+  4s. tiny static: BertConfig.tiny() in f32, dropout 0, recorded as a
+     static Program, AdamW.minimize, then the build strategy (which
+     fuses linear -> gelu into fused_linear), run from the same seeded
+     weights on cuda and on cpu for 5 steps: losses within the f32
+     tolerance, exactly 3 fused_linear launches a step on cuda;
+  7s. main static training: BERT-base at full width and depth, bf16,
+     dropout 0.1 from an explicit generator, one [32, 512] batch (15 %
+     of the positions MLM labels, padded sequences masked), AdamW(1e-4,
+     weight decay 0.01 but not on biases and norms), recorded, minimized
+     and fused as in 4s: 2 warm-up, 5 timed and one profiled step; 13
+     fused_linear ops in the Program and 13 launches a step; it runs
+     last.
+The launch counts of phases 6, 7, 6m, 7m and 7s, reset just before each
+run and read just after it, show that each path went through every
+kernel of its own.
 
 Prints the card's name and power limit, then one JSON line of the
 kernels' numbers, then as its last line
@@ -85,6 +103,9 @@ MOE_KERNEL_CASES = (           # and (tag, T, C, skew, main phase) cases
     ("decode", 8, 8, 0.0, "moe_serve"), ("chunk", 256, 256, 0.0, "moe_serve"),
     ("train", 4096, 4096, 0.0, "moe_train"),
     ("drop", 4096, 1024, 1.5, "moe_train"))
+BERT_B, BERT_T = 32, 512       # the static phase's batch: BERT's sequence
+BERT_LAYERS = 12               # its depth (full: 12)
+BERT_WARMUP, BERT_STEPS = 2, 5
 SLEEP_CYCLES = 50_000_000      # ~30 ms at the H100's clock: time to enqueue
 
 
@@ -1257,6 +1278,7 @@ def _profile_once(fn, args):
 # kernel families of a training step, by the first pattern a kernel's
 # name holds (the rest is "other elementwise and reductions")
 TRAIN_FAMILIES = [
+    ("fused_linear kernel", ("fused_linear",)),
     ("FlashAttention kernels", ("fa_fwd", "fa_bwd")),
     ("MoE dispatch and combine kernels", ("moe_",)),
     ("RoPE kernel", ("rope_kernel",)),
@@ -1383,6 +1405,303 @@ def phase_train(dev, cfg, T, tag, title):
     return counts
 
 
+# ------------------------------------------------------- static graph
+# (tag, M, K, N, activation, bias, dtype) of phase 2s; the first two are
+# the main path's (BERT-base's FFN and MLM transform) and go in the
+# kernels' JSON line
+def fl_cases():
+    M, H, FFN, bf = BERT_B * BERT_T, 768, 3072, torch.bfloat16
+    return (("ffn", M, H, FFN, "gelu", True, bf),
+            ("mlm", M, H, H, "gelu", True, bf),
+            ("none", M, H, FFN, "none", True, bf),
+            ("relu", M, H, FFN, "relu", True, bf),
+            ("silu", M, H, FFN, "silu", True, bf),
+            ("gelu_tanh", M, H, FFN, "gelu_tanh", True, bf),
+            ("no bias", M, H, FFN, "gelu", False, bf),
+            ("ragged", M - 3, H, FFN - 5, "gelu", True, bf),
+            ("f32", 4096, H, FFN, "gelu", True, torch.float32))
+
+
+def phase_static_kernels(dev):
+    """fused_linear against its plain version at BERT-base's shapes
+    (``fl_cases``), with its time, the plain version's, the library call's
+    (the activation of ``F.linear``: cuBLAS, then an elementwise pass)
+    and its bound; then its backward at the FFN shape against autograd
+    through the plain version.  Returns the JSON entries of the two main
+    path shapes."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import fused_linear as fl
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    library = {"none": lambda z: z, "relu": torch.relu, "gelu": F.gelu,
+               "gelu_tanh": lambda z: F.gelu(z, approximate="tanh"),
+               "silu": F.silu}
+    entries, json_entries = {}, {}
+    print("[static kernels] fused_linear at BERT-base shapes (M = "
+          f"{BERT_B} x {BERT_T} tokens, hidden 768, FFN 3072)", flush=True)
+    for tag, m, k, n, act, bias, dtype in fl_cases():
+        x = torch.randn((m, k), generator=g, device=dev).to(dtype)
+        w = (torch.randn((n, k), generator=g, device=dev)
+             * k ** -0.5).to(dtype)
+        b = (torch.randn((n,), generator=g, device=dev) * 0.1).to(dtype) \
+            if bias else None
+        got = fl.fused_linear(x, w, b, act)
+        ref = fl.fused_linear_plain(x, w, b, act)
+        tol = bf16_tol(ref) if dtype == torch.bfloat16 \
+            else F32_TOL * max(1.0, float(ref.abs().max()))
+        work = (f"[{m}, {k}] x [{n}, {k}]^T, {act}"
+                f"{' + bias' if bias else ''}, {str(dtype)[6:]}")
+        err = check_close(f"fused_linear {tag}: {work}", got, ref, tol)
+        peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+        nbytes = x.element_size() * (m * k + n * k + m * n
+                                     + (n if bias else 0))
+        name = "fused_linear" if tag == "ffn" else f"fused_linear_{tag}"
+        entries[name] = dict(
+            path="static_train", counter=fl.KERNEL,
+            replaces="paddle_tpu/kernels/fused_linear.py:42",
+            source="paddle_tpu_torch/csrc/fused_linear.cu", max_abs_err=err,
+            ms=time_ms(lambda: fl.fused_linear(x, w, b, act)),
+            plain_ms=time_ms(lambda: fl.fused_linear_plain(x, w, b, act),
+                             iters=5),
+            library_ms=time_ms(lambda: library[act](F.linear(x, w, b))),
+            bound=bound_ms(nbytes, 2.0 * m * n * k, peak), work=work)
+        if tag in ("ffn", "mlm"):
+            json_entries[name] = entries[name]
+        del got, ref
+    # the backward (plain PyTorch on both paths: the reference's is XLA)
+    # at the FFN shape: the kernel path's autograd.Function against
+    # autograd through the plain version
+    _, m, k, n, act, _, dtype = fl_cases()[0]
+    x = torch.randn((m, k), generator=g, device=dev).to(dtype)
+    w = (torch.randn((n, k), generator=g, device=dev) * k ** -0.5).to(dtype)
+    b = (torch.randn((n,), generator=g, device=dev) * 0.1).to(dtype)
+    cot = torch.randn((m, n), generator=g, device=dev).to(dtype)
+    grads = []
+    for fn in (fl.fused_linear, fl.fused_linear_plain):
+        ops = [t.clone().requires_grad_() for t in (x, w, b)]
+        grads.append(torch.autograd.grad(fn(*ops, act), ops, cot))
+    for what, got, ref in zip(("dx", "dw", "db"), *grads):
+        check_close(f"fused_linear backward {what} {tuple(ref.shape)}",
+                    got, ref, bf16_tol(ref))
+    print("  library: the activation of F.linear(x, w, b) (cuBLAS, then an "
+          "elementwise pass)")
+    print_entries(entries)
+    return json_entries
+
+
+def bert_batch(V, B, T, seed, dev):
+    """A pretraining batch: random token ids, sequences of T * 3 / 4 .. T
+    tokens (the first full) padded and masked after, 15 % of the real
+    positions as MLM labels (-100 elsewhere)."""
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(T * 3 // 4, T + 1, B)
+    lens[0] = T
+    mask = np.arange(T)[None, :] < lens[:, None]
+    labels = np.where(mask & (rng.rand(B, T) < 0.15),
+                      rng.randint(0, V, (B, T)), -100)
+    return {"input_ids": torch.from_numpy(rng.randint(0, V, (B, T))),
+            "attention_mask": torch.from_numpy(mask.astype(np.float32)),
+            "masked_lm_labels": torch.from_numpy(labels)}, int(lens.sum())
+
+
+def static_bert_program(model, B, T, make_opt):
+    """BERT pretraining recorded as a static Program through the port's
+    entry points: ``static.data`` under ``program_guard``, the model's
+    forward and loss, ``make_opt(model).minimize(loss)``, then
+    ``apply_build_strategy`` with the loss kept (fuse_linear_act and
+    eliminate_dead_ops).  Returns (Program, loss Variable, rewrites)."""
+    from paddle_tpu_torch import static
+
+    static.enable_static()
+    try:
+        main, startup = static.Program(), static.Program()
+        with static.program_guard(main, startup):
+            ids = static.data("input_ids", [B, T], "int64")
+            mask = static.data("attention_mask", [B, T], "float32")
+            labels = static.data("masked_lm_labels", [B, T], "int64")
+            loss, _, _ = model(ids, attention_mask=mask,
+                               masked_lm_labels=labels)
+            make_opt(model).minimize(loss)
+        rewrites = static.apply_build_strategy(main, keep=[loss.name])
+    finally:
+        static.disable_static()
+    return main, loss, rewrites
+
+
+def phase_tiny_static(dev):
+    """BertConfig.tiny() in f32, dropout 0, the same seeded weights on
+    cpu (plain versions) and cuda (the kernel), each recorded as a
+    static Program with AdamW.minimize and the build strategy: 5 steps
+    on one batch, losses within F32_TOL, 3 fused_linear launches a step
+    on cuda and none on cpu."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.kernels import fused_linear as fl
+    from paddle_tpu_torch.kernels import launches
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = BertConfig.tiny(hidden_dropout_prob=0.0,
+                          attention_probs_dropout_prob=0.0)
+    state = BertForPretraining(cfg, device="cpu", seed=0).state_dict()
+    feed, _ = bert_batch(cfg.vocab_size, 2, 48, 2, "cpu")
+    losses = {}
+    for name, device in (("cpu", "cpu"), ("cuda", dev)):
+        model = BertForPretraining(cfg, device=device, seed=None)
+        model.load_state_dict(state)
+        main, loss, _ = static_bert_program(
+            model, 2, 48, lambda m: AdamW(1e-3,
+                                          parameters=m.named_parameters()))
+        exe = static.Executor(device)
+        want = {fl.KERNEL: 3} if name == "cuda" else {}
+        out = []
+        for _ in range(5):
+            launches.reset()
+            out.append(float(exe.run(main, feed=feed, fetch_list=[loss])[0]))
+            if launches.snapshot() != want:
+                raise AssertionError(f"tiny static on {name}: launches "
+                                     f"{launches.snapshot()} != {want}")
+        losses[name] = out
+    diff = float(np.abs(np.subtract(losses["cuda"], losses["cpu"])).max())
+    print(f"[tiny static] BERT tiny, f32, static Program, 5 AdamW steps: "
+          f"cuda losses {[round(x, 6) for x in losses['cuda']]}, max |cuda "
+          f"- cpu| {diff:.2e} (tolerance {F32_TOL:.0e}); {fl.KERNEL} "
+          f"launches a step 3", flush=True)
+    if not diff <= F32_TOL or not losses["cuda"][-1] < losses["cuda"][0]:
+        raise AssertionError(f"tiny static: losses {losses}")
+
+
+def _bert_no_decay(name):
+    """AdamW decays every weight but the biases and the LayerNorms'."""
+    return not (name.endswith("bias") or "norm" in name)
+
+
+def phase_static_train(dev):
+    """BERT-base pretraining as a static Program: full width and depth
+    (BERT_LAYERS of 12), bf16, dropout 0.1 from an explicit generator,
+    one [BERT_B, BERT_T] batch, AdamW(1e-4, weight decay 0.01 except on
+    biases and norms), the build strategy applied after minimize.
+    Returns the launch counts of the phase."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.kernels import fused_linear as fl
+    from paddle_tpu_torch.kernels import launches
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+    from paddle_tpu_torch.optimizer import AdamW
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = BertConfig.base(num_hidden_layers=BERT_LAYERS, dtype="bfloat16")
+    L, V, B, T = cfg.num_hidden_layers, cfg.vocab_size, BERT_B, BERT_T
+    t0 = time.perf_counter()
+    model = BertForPretraining(cfg, device=dev, seed=0, generator=torch
+                               .Generator(device=dev).manual_seed(1))
+    n_params = sum(p.numel() for p in model.parameters())
+    main, loss, rewrites = static_bert_program(
+        model, B, T, lambda m: AdamW(
+            1e-4, weight_decay=0.01, parameters=m.named_parameters(),
+            apply_decay_param_fun=_bert_no_decay))
+    ops = main.global_block().ops
+    producer = {o.name: op for op in ops for o in op.outputs}
+    pairs = [op for op in ops if op.type == "gelu" and any(
+        v.name in producer and producer[v.name].type == "linear"
+        for v in op.var_inputs())]
+    n_fused = sum(op.type == fl.KERNEL for op in ops)
+    feed, real_tokens = bert_batch(V, B, T, 3, "cpu")
+    feed = {k: v.to(dev) for k, v in feed.items()}
+    exe = static.Executor(dev)
+    torch.cuda.synchronize()
+    print(f"[static train] BERT-base, bf16, {L} of 12 layers, "
+          f"{n_params / 1e6:.1f} M parameters, dropout "
+          f"{cfg.hidden_dropout_prob}; static Program of {len(ops)} ops "
+          f"({n_fused} fused_linear, {rewrites} rewrites by the build "
+          f"strategy) recorded in {time.perf_counter() - t0:.1f} s; batch "
+          f"[{B}, {T}], {real_tokens} real tokens", flush=True)
+    if n_fused != L + 1 or pairs:
+        raise AssertionError(f"static train: {n_fused} fused_linear ops, "
+                             f"{len(pairs)} linear -> gelu pairs left")
+    per_step = {fl.KERNEL: L + 1}
+    # CUDA events at a step's start, after its backward op and at its
+    # end split the device time into forward+backward and the updates
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    backward = exe._backward
+
+    def marked_backward(*args, **kwargs):
+        backward(*args, **kwargs)
+        marks[1].record()
+
+    exe._backward = marked_backward
+
+    def step():
+        marks[0].record()
+        out = float(exe.run(main, feed=feed, fetch_list=[loss])[0])
+        marks[2].record()
+        return out
+
+    def counted(fn, what):
+        launches.reset()
+        out = fn()
+        if launches.snapshot() != per_step:
+            raise AssertionError(f"{what}: launches {launches.snapshot()} "
+                                 f"!= {per_step}")
+        return out
+
+    counts = {}
+    losses, step_ms, fwd_bwd_ms, opt_ms = [], [], [], []
+    for i in range(BERT_WARMUP + BERT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(counted(step, f"static train step {i}"))
+        torch.cuda.synchronize()
+        if i >= BERT_WARMUP:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            fwd_bwd_ms.append(marks[0].elapsed_time(marks[1]))
+            opt_ms.append(marks[1].elapsed_time(marks[2]))
+        for k, n in launches.snapshot().items():
+            counts[k] = counts.get(k, 0) + n
+    dev_ms, rows = counted(lambda: _profile_once(step, ()),
+                           "profiled static train step")
+    counts = {k: n + per_step[k] for k, n in counts.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  losses {[round(x, 4) for x in losses]}, ln V {math.log(V):.4f}"
+          f"; launches a step {per_step}; phase {counts}", flush=True)
+    # MLM logits of std ~0.55 (normed rows against std-0.02 embeddings)
+    # put the first loss just above ln V
+    if not all(math.isfinite(x) for x in losses) or \
+            abs(losses[0] - math.log(V)) > 1.0 or not losses[-1] < losses[0]:
+        raise AssertionError(f"static train: losses {losses}")
+    mean_ms = float(np.mean(step_ms))
+    # tokens/s counts the batch's real tokens; MFU counts every position,
+    # padding included, since the step computes all of them
+    tok_s = real_tokens / mean_ms * 1e3
+    pos_s = B * T / mean_ms * 1e3
+    flops_per_token = 6.0 * n_params + 12.0 * L * cfg.hidden_size * T
+    out = dict(step_ms=step_ms, mean_step_ms=mean_ms, tokens_per_s=tok_s,
+               positions_per_s=pos_s, padding=1.0 - real_tokens / (B * T),
+               fwd_bwd_ms=float(np.mean(fwd_bwd_ms)),
+               update_ms=float(np.mean(opt_ms)),
+               mfu=pos_s * flops_per_token / BF16_FLOPS,
+               flops_per_token=flops_per_token, n_params=n_params,
+               first_loss=losses[0], last_loss=losses[-1],
+               peak_mem_gb=peak_gb, step_device_ms=dev_ms, layers=L,
+               batch=[B, T], real_tokens=real_tokens, program_ops=len(ops))
+    busy = f"busy {dev_ms / mean_ms:.1%}" if dev_ms else "not measured"
+    print(f"  step {mean_ms:.1f} ms on the host's clock (mean of "
+          f"{BERT_STEPS}), {tok_s:.0f} real tokens/s, {pos_s:.0f} "
+          f"positions/s, MFU {out['mfu']:.1%} on all positions "
+          f"({out['padding']:.1%} padding); "
+          f"forward+backward {out['fwd_bwd_ms']:.1f} ms and the update ops "
+          f"{out['update_ms']:.1f} ms between CUDA events; one step's "
+          f"kernels {dev_ms:.1f} ms on the device ({busy}); peak memory "
+          f"{peak_gb:.1f} GB", flush=True)
+    print("  by family:")
+    for name, (ms, count) in _families(rows).items():
+        print(f"    {ms:8.3f} ms  {count:5d}x  {name}")
+    print("  top kernels:")
+    for name, ms, count in rows[:12]:
+        print(f"    {ms:8.3f} ms  {count:5d}x  {name[:90]}")
+    print(f"  {json.dumps(out)}", flush=True)
+    return counts
+
+
 def free():
     gc.collect()
     torch.cuda.empty_cache()
@@ -1408,10 +1727,13 @@ def main() -> int:
     entries = phase_kernels(dev)
     train_entries = phase_train_kernels(dev)
     moe_entries = phase_moe_kernels(dev)
+    static_entries = phase_static_kernels(dev)
+    free()
     launches.reset()
     phase_tiny(dev)
     phase_tiny_train(dev)
     phase_tiny_moe(dev)
+    phase_tiny_static(dev)
     counts, bf16_blocks = phase_main(dev)
     free()                        # each serving model's 16 GB go first
     quant_counts = phase_main_quant(dev, bf16_blocks)
@@ -1425,11 +1747,14 @@ def main() -> int:
     moe_train_counts = phase_train(dev, mixtral_config(
         num_hidden_layers=MOE_TRAIN_LAYERS, fused_lm_loss=True),
         MOE_TRAIN_T, "train moe", "Mixtral-8x7B width")
+    free()
+    static_counts = phase_static_train(dev)
     runs = {"serve": counts, "quant": quant_counts, "train": train_counts,
-            "moe_serve": moe_counts, "moe_train": moe_train_counts}
+            "moe_serve": moe_counts, "moe_train": moe_train_counts,
+            "static_train": static_counts}
     kernels = []
     for name, e in [*entries.items(), *train_entries.items(),
-                    *moe_entries.items()]:
+                    *moe_entries.items(), *static_entries.items()]:
         # launches: from the main phase of the kernel's own path (bf16
         # serving, quantized serving or training), under the name of the
         # kernel's counter

@@ -11,7 +11,10 @@ which runs only for tensors on the CPU.
 It covers the greedy serving path (``serving.Engine`` over
 ``models.llama.LlamaForCausalLM`` with the fused paged-decode and
 chunked-prefill steps, from full-precision or int8 / fp8 KV pools, with
-full-precision or int8 weights) and the no-cache training path.
+full-precision or int8 weights), the no-cache training path, and the
+static-graph frontend (``static``: record a Program, fuse linear ->
+activation pairs into the ``fused_linear`` kernel, train it with
+``Executor``), which BERT (``models.bert``) runs on.
 
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.serving import Engine, ServingConfig
@@ -22,6 +25,8 @@ full-precision or int8 weights) and the no-cache training path.
 """
 from __future__ import annotations
 
+from . import static
 from .device import resolve_device
+from .static import disable_static, enable_static
 
-__all__ = ["resolve_device"]
+__all__ = ["disable_static", "enable_static", "resolve_device", "static"]

@@ -1,8 +1,9 @@
 // Shared helpers for the port's CUDA kernels: float32 / bfloat16 loads
 // and stores, rounding through the storage type, block-wide sum and max,
-// the quantized KV codes, and the dtype dispatch every C entry point
-// uses (codes match kernels/_build.py DTYPE_CODES: 0 float32, 1
-// bfloat16; KV codes match kernels/kv_quant.py KV_DTYPE_CODES).
+// the tensor-core fragments of mma.sync, the quantized KV codes, and the
+// dtype dispatch every C entry point uses (codes match kernels/_build.py
+// DTYPE_CODES: 0 float32, 1 bfloat16; KV codes match kernels/kv_quant.py
+// KV_DTYPE_CODES).
 #pragma once
 
 #include <cstdint>
@@ -58,6 +59,43 @@ __device__ __forceinline__ float block_max(float v) {
   for (int i = 1; i < THREADS / 32; ++i) m = fmaxf(m, partial[i]);
   return m;
 }
+
+// ---- tensor-core helpers (mma.sync m16n8k16, bf16 in, f32 accumulate)
+// Fragment layouts: lane = 4 g + tg holds rows g and g + 8 of A and C;
+// A pairs of k at 2 tg (and + 8), B pairs of k at 2 tg for column g, C
+// columns 2 tg and 2 tg + 1.
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// two 8x8 b16 matrices, transposed: lanes 0-7 address the rows of the
+// first, lanes 8-15 of the second; lane t gets rows 2 (t % 4) and
+// 2 (t % 4) + 1 of column t / 4 of each (the B fragment of a [k, n]
+// tile stored row-major)
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t* r, const bf16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint4 zero4() { return make_uint4(0, 0, 0, 0); }
 
 // ---- quantized KV pools (kernels/kv_quant.py): Q = 0 the pool holds
 // the model's T, Q = 1 int8 codes, Q = 2 float8_e4m3fn bit patterns in

@@ -39,8 +39,6 @@
 
 #include "common.cuh"
 
-using bf16 = __nv_bfloat16;
-
 struct FAParams {
   const void* q;
   const void* k;
@@ -354,33 +352,6 @@ constexpr int T_ROWS = 64;       // rows a block
 constexpr int FWD_KEYS = 64;     // key tile of the forward
 constexpr int DQ_KEYS = 32;      // key tile of dQ
 constexpr int DKV_QROWS = 32;    // query tile of dK/dV
-
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// two 8x8 b16 matrices, transposed: the B fragment of a [k, n] tile
-// stored row-major (rows k), as in chunked_prefill.cu
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t* r, const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // Fragment layouts (m16n8k16): lane = 4 g + tg holds rows g and g + 8;
 // A pairs of k at 2 tg (and + 8), B pairs of k at 2 tg for column g, C

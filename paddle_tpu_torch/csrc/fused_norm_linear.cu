@@ -226,30 +226,6 @@ __global__ void __launch_bounds__(TB_THREADS)
 constexpr int MM_BM = 64, MM_BN = 128, MM_BK = 32, MM_THREADS = 256;
 constexpr int MM_LDA = MM_BK + 8;
 constexpr int MM_LDB = MM_BN + 8;
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// two 8x8 b16 matrices, transposed: lanes 0-7 address the rows of the
-// first, lanes 8-15 of the second; lane t gets rows 2 (t % 4) and
-// 2 (t % 4) + 1 of column t / 4 of each
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t* r, const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // global -> registers for one k-tile: each thread one 8-wide row piece
 // of A (64 x 32 = 256 pieces) and two of B (32 x 128 = 512 pieces);
@@ -257,8 +233,6 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
 struct MmaRegs {
   uint4 a, b[2];
 };
-
-__device__ __forceinline__ uint4 zero4() { return make_uint4(0, 0, 0, 0); }
 
 __device__ __forceinline__ void mma_load(MmaRegs& r, const bf16* x,
                                          const float* rs, const bf16* nw,

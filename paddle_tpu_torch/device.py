@@ -9,6 +9,8 @@ machine without one raises.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 DEFAULT_DEVICE = "cuda"
@@ -27,3 +29,17 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+@contextlib.contextmanager
+def tf32_if_exact(dtype):
+    """Let f32 products on the card run in TF32 while the block runs when
+    ``dtype``'s values are exact in TF32 (bf16 and f16 both are: TF32 has
+    bf16's exponent and f16's fraction), and restore the setting after."""
+    mm = torch.backends.cuda.matmul
+    before = mm.allow_tf32
+    mm.allow_tf32 = before or dtype in (torch.bfloat16, torch.float16)
+    try:
+        yield
+    finally:
+        mm.allow_tf32 = before

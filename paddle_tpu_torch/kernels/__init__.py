@@ -12,6 +12,9 @@ PyTorch version (which runs only for CPU tensors).
 - :mod:`flash_attention`    — ``csrc/flash_attention.cu``
 - :mod:`moe_dispatch`       — ``csrc/moe_dispatch.cu``, MoE dispatch and
   combine, each the other's backward
+- :mod:`fused_linear`       — ``csrc/fused_linear.cu``, a product with its
+  bias and activation in the epilogue (the static pass
+  ``fuse_linear_act`` puts it in place of linear -> activation)
 
 ``_build.launches`` counts each kernel's launches.
 """

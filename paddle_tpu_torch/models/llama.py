@@ -33,7 +33,6 @@ compute with the same tables.  The KV pools are updated in place.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 from dataclasses import dataclass
@@ -44,7 +43,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..device import resolve_device
+from ..device import resolve_device, tf32_if_exact
 from ..kernels.chunked_prefill import chunked_attention
 from ..kernels.flash_attention import flash_attention_bthd
 from ..kernels.fused_norm_linear import fused_norm_linear, rms_scale
@@ -420,20 +419,6 @@ def causal_lm_loss(logits, labels):
     return -picked.mean()
 
 
-@contextlib.contextmanager
-def _tf32_if_exact(dtype):
-    """Let f32 products on the card run in TF32 while the block runs when
-    ``dtype``'s values are exact in TF32 (bf16 and f16 both are: TF32 has
-    bf16's exponent and f16's fraction), and restore the setting after."""
-    mm = torch.backends.cuda.matmul
-    before = mm.allow_tf32
-    mm.allow_tf32 = before or dtype in (torch.bfloat16, torch.float16)
-    try:
-        yield
-    finally:
-        mm.allow_tf32 = before
-
-
 class _F32Logits(torch.autograd.Function):
     """f32 logits ``h @ w`` of model-dtype rows h [n, hidden] against the
     f32 weight w [hidden, V], as the JAX ``preferred_element_type=f32``
@@ -448,14 +433,14 @@ class _F32Logits(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, w):
         ctx.save_for_backward(h, w)
-        with _tf32_if_exact(h.dtype):
+        with tf32_if_exact(h.dtype):
             return h.float() @ w
 
     @staticmethod
     def backward(ctx, g):
         h, w = ctx.saved_tensors
         dh = dw = None
-        with _tf32_if_exact(h.dtype):
+        with tf32_if_exact(h.dtype):
             if ctx.needs_input_grad[0]:
                 dh = (g @ w.t()).to(h.dtype)
             if ctx.needs_input_grad[1]:

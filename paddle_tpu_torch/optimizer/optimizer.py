@@ -15,6 +15,13 @@ multiply-adds round once, as XLA fuses them.
 ``torch.optim.AdamW`` computes another function (it decays the
 parameter in its own dtype, a second rounding in bf16) and is not used.
 
+``Optimizer.minimize`` takes a dygraph loss (``backward()`` then
+``step()``) or a static-graph ``Variable``: then it records the
+backward (``static.append_backward``), one update op per parameter that
+writes the parameter and its moments in place under ``torch.no_grad()``
+(the counterpart of the JAX package's ``_static_minimize`` writeback
+ops), and an op that counts the step.
+
 Not ported yet (each raises ``NotImplementedError``): learning-rate
 schedulers (a float learning rate only), ``grad_clip``, ``lr_ratio``
 and per-group options in parameter groups.
@@ -67,9 +74,12 @@ class Optimizer:
     count.  A parameter may come as a ``(name, tensor)`` pair, as
     ``module.named_parameters()`` gives them: PyTorch tensors have no
     writable ``.name``, and the name is what ``apply_decay_param_fun``
-    reads.  ``name`` and ``multi_precision`` are taken for the Paddle
-    signature and change nothing: the accumulators are f32, as the JAX
-    AdamW's are whatever ``multi_precision`` says."""
+    reads (a static Program's parameters carry their own).  Without
+    ``parameters``, only ``minimize`` of a static loss works: it takes
+    the parameters the Program reads; ``step`` and ``minimize`` of a
+    dygraph loss raise.  ``name`` and ``multi_precision`` are taken for
+    the Paddle signature and change nothing: the accumulators are f32,
+    as the JAX AdamW's are whatever ``multi_precision`` says."""
 
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, name=None,
@@ -79,10 +89,23 @@ class Optimizer:
                                       "ported yet; pass a float")
         if grad_clip is not None:
             raise NotImplementedError("grad_clip is not ported yet")
-        if parameters is None:
-            raise ValueError("Optimizer created without parameters")
         self._learning_rate = float(learning_rate)
-        self._parameter_list, self._names = [], {}
+        self._names = {}
+        self._parameter_list = self._register(parameters or [])
+        if weight_decay is None:
+            self._weight_decay = 0.0
+        elif isinstance(weight_decay, (float, int)):
+            self._weight_decay = float(weight_decay)
+        else:  # an L2Decay-like object with a coefficient
+            self._weight_decay = float(getattr(
+                weight_decay, "_coeff", getattr(weight_decay, "coeff", 0.0)))
+        self._accumulators: dict = {}      # name -> {id(param): tensor}
+        self._step_count = 0
+
+    def _register(self, parameters) -> list:
+        """The flat parameter list of ``parameters`` (tensors, ``(name,
+        tensor)`` pairs or groups ``{"params": [...]}``), names noted."""
+        out = []
         for p in parameters:
             if isinstance(p, dict):
                 if set(p) != {"params"}:
@@ -96,16 +119,11 @@ class Optimizer:
                 if isinstance(q, tuple):
                     pname, q = q
                     self._names[id(q)] = pname
-                self._parameter_list.append(q)
-        if weight_decay is None:
-            self._weight_decay = 0.0
-        elif isinstance(weight_decay, (float, int)):
-            self._weight_decay = float(weight_decay)
-        else:  # an L2Decay-like object with a coefficient
-            self._weight_decay = float(getattr(
-                weight_decay, "_coeff", getattr(weight_decay, "coeff", 0.0)))
-        self._accumulators: dict = {}      # name -> {id(param): tensor}
-        self._step_count = 0
+                out.append(q)
+        return out
+
+    def _param_name(self, p) -> str:
+        return self._names.get(id(p)) or getattr(p, "name", None) or ""
 
     def _add_accumulator(self, name, param):
         store = self._accumulators.setdefault(name, {})
@@ -119,10 +137,19 @@ class Optimizer:
     def set_lr(self, value: float):
         self._learning_rate = float(value)
 
+    def _dygraph_parameters(self) -> list:
+        if not self._parameter_list:
+            raise ValueError(
+                f"{type(self).__name__} was created without parameters; "
+                "step() and minimize() of a dygraph loss need them (only "
+                "minimize() of a static Variable finds its own)")
+        return self._parameter_list
+
     @torch.no_grad()
     def step(self):
+        params = self._dygraph_parameters()
         lr = self.get_lr()
-        for p in self._parameter_list:
+        for p in params:
             if p.grad is not None and p.requires_grad:
                 self._update_param(p, p.grad, lr)
         self._step_count += 1
@@ -140,6 +167,37 @@ class Optimizer:
                 p.grad = None
 
     clear_gradients = clear_grad
+
+    def minimize(self, loss, parameters=None, no_grad_set=None):
+        """Dygraph: ``loss.backward(); step()``.  A static ``Variable``:
+        record the backward, the updates and the step count into its
+        Program (for ``parameters``, this optimizer's, or every trainable
+        parameter the Program reads, less those named in
+        ``no_grad_set``); returns ``([], [(param, grad_var)])``."""
+        from ..static import graph
+
+        if not isinstance(loss, graph.Variable):
+            self._dygraph_parameters()
+            loss.backward()
+            self.step()
+            return None, None
+        params = self._register(parameters) if parameters is not None \
+            else self._parameter_list or None
+        params_grads = graph.append_backward(loss, params, no_grad_set)
+        for p, g in params_grads:
+            graph.record_writeback_op(f"{type(self).__name__.lower()}_update",
+                                      self._static_update, [p, g], [p])
+        graph.record_writeback_op("increment_step", self._count_step, [], [],
+                                  block=loss.block)
+        return [], params_grads
+
+    def _static_update(self, p, g):
+        with torch.no_grad():
+            self._update_param(p, g, self.get_lr())
+        return p
+
+    def _count_step(self):
+        self._step_count += 1
 
 
 class AdamW(Optimizer):
@@ -163,7 +221,7 @@ class AdamW(Optimizer):
         v = self._add_accumulator("moment2", p)
         wd = self._weight_decay
         if self._apply_decay_param_fun is not None and \
-                not self._apply_decay_param_fun(self._names.get(id(p), "")):
+                not self._apply_decay_param_fun(self._param_name(p)):
             wd = 0.0
         adamw_rule(p, m, v, g, lr, self._beta1, self._beta2, self._epsilon,
                    self._step_count + 1, wd)

@@ -10,8 +10,11 @@ f32 1e-4 (same cast points, sums in another order); bf16 one rounding
 of the largest output, except FlashAttention in bf16 (see
 ``_hold_bf16_attention``); the quantize-at-write scatter bit-identical;
 MoE dispatch and combine bit-identical where every slot has one choice
-of weight 1, else 1e-6 in f32 and one bf16 ulp of each output.
-The Llama-3-8B shapes are held in chip_smoke.py.
+of weight 1, else 1e-6 in f32 and one bf16 ulp of each output;
+fused_linear f32 1e-4, bf16 one bf16 ulp (2^-7) of the largest output,
+its backward (plain PyTorch on both devices) 1e-5 of the largest entry;
+the tiny static BERT's losses 1e-4.
+The Llama-3-8B, Mixtral and BERT-base shapes are held in chip_smoke.py.
 """
 import math
 
@@ -19,9 +22,10 @@ import numpy as np
 import pytest
 import torch
 
-from paddle_tpu_torch.kernels import (chunked_prefill, fused_norm_linear,
-                                      kv_quant, launches, moe_dispatch,
-                                      paged_attention, rms_norm, rope)
+from paddle_tpu_torch.kernels import (chunked_prefill, fused_linear,
+                                      fused_norm_linear, kv_quant, launches,
+                                      moe_dispatch, paged_attention,
+                                      rms_norm, rope)
 from paddle_tpu_torch.kernels import flash_attention as fa
 from torch_operands import chunk_operands, decode_operands, moe_routing
 
@@ -552,3 +556,137 @@ class TestCudaMoE:
         np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4,
                                    atol=1e-4)
         assert losses[1][-1] < losses[1][0]
+
+
+@pytest.mark.cuda
+class TestCudaFusedLinear:
+    @staticmethod
+    def _operands(M, K, N, bias, dtype, lead=()):
+        g = torch.Generator().manual_seed(M * 7 + N)
+        x = torch.randn(*lead, M, K, generator=g).to(dtype)
+        w = (torch.randn(N, K, generator=g) / K ** 0.5).to(dtype)
+        b = torch.randn(N, generator=g).to(dtype) if bias else None
+        return x, w, b
+
+    # aligned tiles, ragged M and N (odd N: scalar stores), one row
+    @pytest.mark.parametrize("M,K,N,bias", [
+        (256, 64, 128, True), (37, 40, 13, False), (130, 96, 130, True),
+        (1, 8, 3, True)])
+    @pytest.mark.parametrize("act", sorted(fused_linear.ACTIVATIONS))
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_kernel_matches_plain(self, cuda_device, M, K, N, bias, act,
+                                  dtype):
+        x, w, b = self._operands(M, K, N, bias, dtype)
+        want = fused_linear.fused_linear_plain(x, w, b, act).float()
+        launches.reset()
+        got = fused_linear.fused_linear(
+            x.to(cuda_device), w.to(cuda_device),
+            None if b is None else b.to(cuda_device), act)
+        assert launches.snapshot() == {fused_linear.KERNEL: 1}
+        assert got.dtype == dtype and got.shape == (M, N)
+        if dtype == torch.float32:
+            close(got.cpu(), want)
+        else:
+            assert float((got.cpu().float() - want).abs().max()) <= \
+                float(want.abs().max()) * 2.0 ** -7
+
+    def test_leading_dims_and_zero_rows(self, cuda_device):
+        x, w, b = (a.to(cuda_device) for a in self._operands(
+            5, 64, 48, True, torch.float32, lead=(3,)))
+        out = fused_linear.fused_linear(x, w, b, "gelu")
+        assert out.shape == (3, 5, 48)
+        close(out.cpu(), fused_linear.fused_linear(x.cpu(), w.cpu(), b.cpu(),
+                                                   "gelu"))
+        launches.reset()
+        empty = fused_linear.fused_linear(x[:0], w, b, "gelu")
+        assert empty.shape == (0, 5, 48) and launches.snapshot() == {}
+
+    def test_strided_weight_and_bias(self, cuda_device):
+        # w as the transpose of an [in, out] tensor, b a strided slice
+        x, w, b = (a.to(cuda_device) for a in self._operands(
+            9, 64, 48, True, torch.float32))
+        wt = w.t().contiguous().t()
+        bs = torch.stack([b, -b], 1)[:, 0]
+        assert not wt.is_contiguous() and not bs.is_contiguous()
+        close(fused_linear.fused_linear(x, wt, bs, "relu").cpu(),
+              fused_linear.fused_linear_plain(x.cpu(), w.cpu(), b.cpu(),
+                                              "relu"))
+
+    @pytest.mark.parametrize("act", ["gelu", "silu", "none"])
+    def test_backward_matches_cpu(self, cuda_device, act):
+        x, w, b = self._operands(70, 64, 40, True, torch.float32)
+        cot = torch.randn(70, 40, generator=torch.Generator().manual_seed(1))
+        grads = []
+        for dev in ("cpu", cuda_device):
+            ts = [a.detach().to(dev).requires_grad_() for a in (x, w, b)]
+            (fused_linear.fused_linear(*ts, act) * cot.to(dev)).sum() \
+                .backward()
+            grads.append([a.grad.cpu() for a in ts])
+        for got, want in zip(grads[1], grads[0]):
+            close(got, want, 1e-5 * float(want.abs().max()))
+
+    def test_rejects_what_it_does_not_take(self, cuda_device):
+        x, w, b = (a.to(cuda_device) for a in self._operands(
+            4, 12, 8, True, torch.float32))
+        launches.reset()
+        with pytest.raises(ValueError, match="multiple of 8"):
+            fused_linear.fused_linear(x, w, b, "gelu")
+        x, w, b = (a.to(cuda_device) for a in self._operands(
+            4, 16, 8, True, torch.float16))
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            fused_linear.fused_linear(x, w, b, "gelu")
+        with pytest.raises(ValueError, match="do not fit"):
+            fused_linear.fused_linear(x.float(), w.float(), b, "gelu")
+        assert launches.snapshot() == {}
+
+
+def _tiny_static_bert(device, state, steps=5):
+    """BertConfig.tiny() (f32, dropout 0) with the weights ``state``,
+    recorded as a static Program, AdamW.minimize, then the build
+    strategy: the losses of ``steps`` steps on one batch and the
+    launches of each step."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = BertConfig.tiny(hidden_dropout_prob=0.0,
+                          attention_probs_dropout_prob=0.0)
+    model = BertForPretraining(cfg, device=device, seed=None)
+    model.load_state_dict(state)
+    rng = np.random.RandomState(0)
+    feed = {"ids": rng.randint(0, 256, (2, 32)),
+            "labels": np.where(rng.rand(2, 32) < 0.15,
+                               rng.randint(0, 256, (2, 32)), -100)}
+    static.enable_static()
+    try:
+        main = static.Program()
+        with static.program_guard(main):
+            ids = static.data("ids", [2, 32], "int64")
+            labels = static.data("labels", [2, 32], "int64")
+            loss, _, _ = model(ids, masked_lm_labels=labels)
+            AdamW(1e-3, parameters=model.named_parameters()).minimize(loss)
+        static.apply_build_strategy(main, keep=[loss.name])
+    finally:
+        static.disable_static()
+    exe = static.Executor(device)
+    losses, counts = [], []
+    for _ in range(steps):
+        launches.reset()
+        losses.append(float(exe.run(main, feed=feed, fetch_list=[loss])[0]))
+        counts.append(launches.snapshot())
+    return losses, counts
+
+
+@pytest.mark.cuda
+class TestCudaStatic:
+    def test_tiny_static_bert_matches_cpu(self, cuda_device):
+        from paddle_tpu_torch.models import BertConfig, BertForPretraining
+
+        state = BertForPretraining(BertConfig.tiny(), device="cpu",
+                                   seed=0).state_dict()
+        cpu_losses, cpu_counts = _tiny_static_bert("cpu", state)
+        losses, counts = _tiny_static_bert(cuda_device, state)
+        assert cpu_counts == [{}] * 5
+        assert counts == [{fused_linear.KERNEL: 3}] * 5
+        np.testing.assert_allclose(losses, cpu_losses, rtol=1e-4, atol=1e-4)
+        assert losses[-1] < losses[0]

@@ -1,7 +1,9 @@
 """Guards of the PyTorch port (paddle_tpu_torch).
 
-- importing the package and every module in it loads no ``jax*`` module
-  and nothing of the JAX package (``paddle_tpu`` / ``paddle_tpu.*``);
+- importing the package and every module in it (the static-graph
+  frontend ``static`` and the ``nn`` layers included) loads no ``jax*``
+  module and nothing of the JAX package (``paddle_tpu`` /
+  ``paddle_tpu.*``), and no source file names one;
 - its entry points run on ``cuda`` unless told otherwise, and raise
   where there is no GPU instead of falling back to the CPU;
 - options of later slices raise ``NotImplementedError``;
@@ -18,8 +20,12 @@ import numpy as np
 import pytest
 import torch
 
-from paddle_tpu_torch import resolve_device
+from paddle_tpu_torch import resolve_device, static
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+from paddle_tpu_torch.nn.layer import EMPTY, Embedding, LayerNorm, Linear
+from paddle_tpu_torch.nn.transformer import (MultiHeadAttention,
+                                             TransformerEncoderLayer)
 from paddle_tpu_torch.serving import Engine, ServingConfig
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -32,9 +38,12 @@ for m in pkgutil.walk_packages(paddle_tpu_torch.__path__, "paddle_tpu_torch."):
     importlib.import_module(m.name)
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
-print(json.dumps({"bad": bad, "n": sum(n.startswith("paddle_tpu_torch")
-                                       for n in sys.modules)}))
+print(json.dumps({"bad": bad, "ours": sorted(
+    n for n in sys.modules if n.startswith("paddle_tpu_torch"))}))
 """
+# the subpackages the walk must reach (each with at least one module)
+SUBPACKAGES = ("kernels", "models", "nn", "optimizer", "quantization",
+               "serving", "static")
 
 
 def _is_forbidden(module: str) -> bool:
@@ -48,7 +57,19 @@ class TestNoJax:
                              check=True)
         res = json.loads(out.stdout.strip().splitlines()[-1])
         assert res["bad"] == []
-        assert res["n"] >= 15          # every module was imported
+        # every module was imported, the static frontend and nn included
+        want = {"paddle_tpu_torch." + ".".join(
+            p.relative_to(PACKAGE).with_suffix("").parts)
+            for p in PACKAGE.rglob("*.py") if p.name != "__init__.py"}
+        assert want <= set(res["ours"])
+        for sub in SUBPACKAGES:
+            assert any(n.startswith(f"paddle_tpu_torch.{sub}.")
+                       for n in res["ours"]), sub
+
+    def test_source_walk_covers_every_subpackage(self):
+        walked = {p.relative_to(PACKAGE).parts[0]
+                  for p in PACKAGE.rglob("*.py") if p.parent != PACKAGE}
+        assert set(SUBPACKAGES) <= walked
 
     @pytest.mark.parametrize("path", sorted(
         str(p.relative_to(ROOT)) for p in PACKAGE.rglob("*.py")))
@@ -78,12 +99,37 @@ class TestDevice:
             resolve_device("cuda:0")
         with pytest.raises(RuntimeError, match="device='cpu'"):
             LlamaForCausalLM(LlamaConfig.tiny())
+        for build in (lambda: Linear(8, 4), lambda: Embedding(16, 8),
+                      lambda: LayerNorm(8),
+                      lambda: MultiHeadAttention(8, 2),
+                      lambda: TransformerEncoderLayer(8, 2, 16),
+                      lambda: BertForPretraining(BertConfig.tiny()),
+                      lambda: static.create_parameter([4], "float32")):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                build()
 
     def test_cpu_only_when_asked(self, no_gpu):
         assert resolve_device("cpu") == torch.device("cpu")
         model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
         assert model.lm_head.weight.device.type == "cpu"
         assert Engine(model).pool.layers[0][0].device.type == "cpu"
+
+    @pytest.mark.parametrize("build", [
+        lambda: Linear(64, 32, device="cpu"),
+        lambda: Embedding(64, 32, device="cpu")])
+    def test_layer_weights_drawn_by_default(self, build):
+        # nothing left uninitialized unless asked for (init=EMPTY)
+        w = build().weight.detach()
+        assert torch.isfinite(w).all()
+        assert 0.01 < float(w.std()) < 0.03              # init_std 0.02
+        gen = torch.Generator().manual_seed(0)
+        a = Linear(64, 32, device="cpu", init=gen).weight
+        b = Linear(64, 32, device="cpu",
+                   init=torch.Generator().manual_seed(0)).weight
+        assert torch.equal(a, b)
+        with pytest.raises(ValueError, match="init"):
+            Linear(4, 4, device="cpu", init="zeros")
+        assert Linear(4, 4, device="cpu", init=EMPTY).weight.shape == (4, 4)
 
     def test_unknown_device_type_rejected(self):
         with pytest.raises(ValueError, match="unsupported device"):

@@ -166,13 +166,13 @@ class TestLossPrecision:
         (torch.bfloat16, True), (torch.float16, True),
         (torch.float32, False)])
     def test_tf32_only_for_exact_operands(self, dtype, inside):
-        from paddle_tpu_torch.models.llama import _tf32_if_exact
+        from paddle_tpu_torch.device import tf32_if_exact
 
         mm = torch.backends.cuda.matmul
         before = mm.allow_tf32
         try:
             mm.allow_tf32 = False
-            with _tf32_if_exact(dtype):
+            with tf32_if_exact(dtype):
                 assert mm.allow_tf32 is inside
             assert mm.allow_tf32 is False
         finally:
