@@ -23,21 +23,31 @@
 //
 // Bound on the H100: operations (forward 2 products of Tq*Tk*D per head,
 // dQ 3, dK/dV 4, halved by the causal mask), at Llama-3-8B's T = 8192.
-// - bf16 (the trained model): FlashAttention-2 on the tensor cores with
-//   mma.sync m16n8k16 (bf16 in, f32 out), 4 warps a block, 16 rows a
-//   warp, operand tiles staged in shared memory without copy/compute
-//   overlap.  S, P and dS are f32 in registers; P and dS are rounded to
-//   bf16 as the A operand of the second product, as FlashAttention-2
-//   does (the plain version keeps them in f32, as the TPU kernels do).
-//   Forward and dQ own 64 query rows a block (dQ: keys 32 at a time, to
-//   keep S, dP and dQ in registers); dK/dV own 64 key rows of one kv
+// - bf16 (the trained model), forward: a warp-specialized Hopper kernel
+//   (fa_fwd_wgmma, below: TMA loads of Q once and of K/V tiles of 128
+//   keys into a 2-stage mbarrier ring, wgmma for both products, two
+//   consumer warpgroups of 64 query rows); at T = 8192, 32/8 heads,
+//   D = 128 its bound is 0.556 ms of operations.  The mma.sync kernel it
+//   replaces copied each 64-key tile with all threads between two
+//   barriers, without overlap, on 4 warps and 64 rows a block, and ran
+//   at 9.7 % of that bound (5.7 ms against SDPA's 0.88).  P is rounded
+//   to bf16 as the A operand of the second product, as FlashAttention-2
+//   does (the plain version keeps it in f32, as the TPU kernels do).
+// - bf16 backward: FlashAttention-2 on the tensor cores with mma.sync
+//   m16n8k16 (bf16 in, f32 out), 4 warps a block, 16 rows a warp,
+//   operand tiles staged in shared memory without copy/compute overlap;
+//   S, P and dS are f32 in registers, P and dS rounded to bf16 for the
+//   second products.  dQ owns 64 query rows a block (keys 32 at a time,
+//   to keep S, dP and dQ in registers); dK/dV own 64 key rows of one kv
 //   head and walk every query head of its group, 32 query rows at a
 //   time, with K and V read from shared memory (dynamic, 52 KB).
 // - f32 (the CPU-scale check configuration): CUDA cores, 16 rows and 16
 //   columns a tile, 8 threads a row.
+#include <cmath>
 #include <cstdint>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 struct FAParams {
   const void* q;
@@ -349,7 +359,6 @@ __global__ void __launch_bounds__(F_THREADS) fa_bwd_dkv_f32(FAParams p) {
 // ------------------------------------------------ bf16, tensor cores
 constexpr int T_THREADS = 128;   // 4 warps, 16 rows each
 constexpr int T_ROWS = 64;       // rows a block
-constexpr int FWD_KEYS = 64;     // key tile of the forward
 constexpr int DQ_KEYS = 32;      // key tile of dQ
 constexpr int DKV_QROWS = 32;    // query tile of dK/dV
 
@@ -385,121 +394,217 @@ __device__ __forceinline__ void stage(bf16 (*dst)[D + 8], const bf16* src,
   }
 }
 
+// --------------------------------------- bf16 forward (wgmma + TMA)
+// A block owns 128 query rows of one (batch, head): warpgroups 0 and 1
+// consume 64 rows each, warpgroup 2 produces.  One producer thread loads
+// the Q tile once, then K and V tiles of 128 keys into a 2-stage ring,
+// by TMA from 4-D tensor maps over the [B, H, T, D] strides, 128-byte
+// swizzled (D / 64 boxes of [128 rows][64] a tile), with a full barrier
+// for K and one for V (S can start before V lands) and an empty barrier
+// a stage.  A consumer computes S = Q K^T with wgmma m64n128k16 from
+// shared memory (both K-major), the online softmax in f32 on its
+// registers with exp2 and scale * log2(e) folded into one multiply-add
+// (only tiles that reach past the diagonal, a ragged end or rows past Tq
+// are masked; tiles above the diagonal are never loaded), rescales O,
+// rounds P to bf16 in the A-fragment layout, and issues O += P V with P
+// from registers and V, MN-major, from shared memory.  Blocks run the
+// longest causal query tiles first, the query heads of one kv head
+// adjacent, so their K and V tiles come from L2.
+constexpr int FA_BM = 128, FA_BN = 128, FA_THREADS = 384;
+constexpr int FA_BOX = 128 * 64 * 2;            // [128 rows][64] bf16
+
+struct FAMaps {
+  CUtensorMap q, k, v;   // [B, H, T, D] as (D, T, H, B), box (64, 128, 1, 1)
+};
+
+template <int D>
+constexpr int fa_fwd_smem() {
+  return 5 * (D / 64) * FA_BOX + 1024 + 7 * 8;   // Q, 2 K and 2 V stages
+}
+
 template <int D, bool WRITE_LSE>
-__global__ void __launch_bounds__(T_THREADS) fa_fwd_bf16(FAParams p) {
-  __shared__ __align__(16) bf16 Ks[FWD_KEYS][D + 8];
-  __shared__ __align__(16) bf16 Vs[FWD_KEYS][D + 8];
-  const int b = blockIdx.z, h = blockIdx.y, kh = h / (p.H / p.KVH);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, tg = lane % 4;
-  const int q0 = blockIdx.x * T_ROWS, wrow = q0 + warp * 16;
-  int row[2], lim[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    row[i] = wrow + g + 8 * i;
-    lim[i] = row[i] < p.Tq ? key_limit(p, row[i]) : 0;
+__global__ void __launch_bounds__(FA_THREADS, 1)
+    fa_fwd_wgmma(const __grid_constant__ FAMaps maps, FAParams p) {
+  using namespace hopper;
+  constexpr int TILE = (D / 64) * FA_BOX;       // one Q, K or V tile
+  extern __shared__ uint8_t fwd_smem[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(fwd_smem) + 1023) & ~uintptr_t(1023));
+  uint8_t* qs = smem;
+  uint8_t* ks = qs + TILE;                      // 2 stages
+  uint8_t* vs = ks + 2 * TILE;                  // 2 stages
+  uint64_t* bars = reinterpret_cast<uint64_t*>(vs + 2 * TILE);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = bars + 3;
+  uint64_t* empty = bars + 5;
+
+  const int n_qt = (p.Tq + FA_BM - 1) / FA_BM;
+  const int h = blockIdx.x % p.H, rest = blockIdx.x / p.H;
+  const int b = rest % p.B, rank = rest / p.B;
+  const int qt = p.causal ? n_qt - 1 - rank : rank;
+  const int kh = h / (p.H / p.KVH), q0 = qt * FA_BM;
+  const int kend = key_limit(p, min(q0 + FA_BM, p.Tq) - 1);
+  const int n_kt = (kend + FA_BN - 1) / FA_BN;
+  // tiles from here on need the mask: keys some row of the block may not
+  // see (rows past Tq see none)
+  const int mask_from = q0 + FA_BM > p.Tq ? 0 : key_limit(p, q0);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], 8);   // one arrival per consumer warp
+    }
+    fence_barrier_init();
   }
-  const bf16* q = (const bf16*)p.q + q_off(p, b, h, wrow);
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks)
-    load_a(qf[ks], q + ks * 16, p.qst, g, tg, row[0] < p.Tq, row[1] < p.Tq);
-  float o[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) o[nd][c] = 0.f;
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  __syncthreads();
 
-  const bf16* kp = (const bf16*)p.k + k_off(p, b, kh, 0);
-  const bf16* vp = (const bf16*)p.v + k_off(p, b, kh, 0);
-  const int kend = key_limit(p, min(q0 + T_ROWS, p.Tq) - 1);
-  for (int kb = 0; kb < kend; kb += FWD_KEYS) {
-    stage<D>(Ks, kp, p.kst, kb, FWD_KEYS, p.Tk);
-    stage<D>(Vs, vp, p.kst, kb, FWD_KEYS, p.Tk);
-    __syncthreads();
-
-    float s[FWD_KEYS / 8][4];
+  if (threadIdx.x >= 256) {
+    // ------------------------------------------------------ producer
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(q_full, TILE);
 #pragma unroll
-    for (int j = 0; j < FWD_KEYS / 8; ++j)
+      for (int x = 0; x < D / 64; ++x)
+        tma_load_4d(qs + x * FA_BOX, &maps.q, q_full, x * 64, q0, h, b);
+      for (int it = 0; it < n_kt; ++it) {
+        const int s = it & 1;
+        if (it >= 2) mbar_wait(&empty[s], ((it >> 1) - 1) & 1);
+        mbar_expect_tx(&k_full[s], TILE);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
+        for (int x = 0; x < D / 64; ++x)
+          tma_load_4d(ks + s * TILE + x * FA_BOX, &maps.k, &k_full[s],
+                      x * 64, it * FA_BN, kh, b);
+        mbar_expect_tx(&v_full[s], TILE);
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks)
-#pragma unroll
-      for (int j = 0; j < FWD_KEYS / 8; ++j) {
-        const uint32_t kf[2] = {ld_pair(&Ks[j * 8 + g][ks * 16 + 2 * tg]),
-                                ld_pair(&Ks[j * 8 + g][ks * 16 + 2 * tg + 8])};
-        mma_bf16(s[j], qf[ks], kf);
+        for (int x = 0; x < D / 64; ++x)
+          tma_load_4d(vs + s * TILE + x * FA_BOX, &maps.v, &v_full[s],
+                      x * 64, it * FA_BN, kh, b);
       }
-    // scale and mask in f32, then the online softmax of rows g, g + 8
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int j = 0; j < FWD_KEYS / 8; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int key = kb + j * 8 + 2 * tg + (c & 1);
-        s[j][c] = key < lim[c / 2] ? s[j][c] * p.scale : NEG_INF;
-        mx[c / 2] = fmaxf(mx[c / 2], s[j][c]);
-      }
-    float alpha[2], lsum[2] = {0.f, 0.f};
+    }
+  } else {
+    // ------------------------------------------------------ consumers
+    setmaxnreg_inc<232>();
+    const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32;
+    const int lane = threadIdx.x % 32, g = lane / 4, tg = lane % 4;
+    int row[2], lim[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      alpha[i] = expf(m[i] - mx[i]);
-      m[i] = mx[i];
+      row[i] = q0 + wg * 64 + warp * 16 + g + 8 * i;
+      lim[i] = row[i] < p.Tq ? key_limit(p, row[i]) : 0;
     }
+    const float scale_log2 = p.scale * 1.4426950408889634f;
+    float o[D / 2];
 #pragma unroll
-    for (int j = 0; j < FWD_KEYS / 8; ++j)
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // m in log2 units
+    const uint32_t qa = smem_u32(qs) + wg * 64 * 128;
+    mbar_wait(q_full, 0);
+
+    for (int it = 0; it < n_kt; ++it) {
+      const int s = it & 1, kb = it * FA_BN;
+      const uint32_t parity = (it >> 1) & 1;
+      const uint32_t ka = smem_u32(ks + s * TILE);
+      const uint32_t va = smem_u32(vs + s * TILE);
+      float sc[FA_BN / 2];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int key = kb + j * 8 + 2 * tg + (c & 1);
-        const float e = key < lim[c / 2] ? expf(s[j][c] - m[c / 2]) : 0.f;
-        s[j][c] = e;
-        lsum[c / 2] += e;
+      for (int i = 0; i < FA_BN / 2; ++i) sc[i] = 0.f;
+      mbar_wait(&k_full[s], parity);
+      wgmma_fence();
+      fence_regs<FA_BN / 2>(sc);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk / 4) * FA_BOX + (kk % 4) * 32;
+        wgmma_ss_n128<0>(sc, desc_sw128(qa + off, 16, 1024),
+                         desc_sw128(ka + off, 16, 1024), 1);
       }
-    // this lane's share of each row sum; the 4 lanes meet at the end
-    l[0] = l[0] * alpha[0] + lsum[0];
-    l[1] = l[1] * alpha[1] + lsum[1];
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<FA_BN / 2>(sc);
+
+      // sc[4 j + 2 i + c]: row g + 8 i, key kb + 8 j + 2 tg + c
+      if (kb + FA_BN > mask_from) {
 #pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd)
+        for (int j = 0; j < FA_BN / 8; ++j)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) o[nd][c] *= alpha[c / 2];
-#pragma unroll
-    for (int kk = 0; kk < FWD_KEYS / 16; ++kk) {
-      const uint32_t pf[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int nd = 0; nd < D / 8; ++nd) {
-        uint32_t vf[2];
-        ldsm_x2_trans(vf, &Vs[kk * 16 + lane % 16][nd * 8]);
-        mma_bf16(o[nd], pf, vf);
+          for (int c = 0; c < 4; ++c)
+            if (kb + 8 * j + 2 * tg + (c & 1) >= lim[c >> 1])
+              sc[4 * j + c] = -INFINITY;
       }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < FA_BN / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          mx[c >> 1] = fmaxf(mx[c >> 1], sc[4 * j + c]);
+      float alpha[2], lsum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float mn = fmaxf(m[i], mx[i] * scale_log2);
+        alpha[i] = exp2f(m[i] - mn);
+        m[i] = mn;
+      }
+#pragma unroll
+      for (int j = 0; j < FA_BN / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float e = exp2f(fmaf(sc[4 * j + c], scale_log2, -m[c >> 1]));
+          sc[4 * j + c] = e;
+          lsum[c >> 1] += e;
+        }
+      // this lane's share of each row sum; the 4 lanes meet at the end
+      l[0] = l[0] * alpha[0] + lsum[0];
+      l[1] = l[1] * alpha[1] + lsum[1];
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) o[4 * j + c] *= alpha[c >> 1];
+      uint32_t pa[FA_BN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < FA_BN / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+
+      mbar_wait(&v_full[s], parity);
+      wgmma_fence();
+      fence_regs<D / 2>(o);
+#pragma unroll
+      for (int kk = 0; kk < FA_BN / 16; ++kk) {
+        const uint64_t dv = desc_sw128(va + kk * 16 * 128, FA_BOX, 1024);
+        if constexpr (D == 128)
+          wgmma_rs_n128<1>(o, pa[kk], dv, 1);
+        else
+          wgmma_rs_n64<1>(o, pa[kk], dv, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<D / 2>(o);
+      if (lane == 0) mbar_arrive(&empty[s]);
     }
-    __syncthreads();
-  }
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-  }
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    }
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (row[i] >= p.Tq) continue;
-    const float inv_l = 1.f / fmaxf(l[i], 1e-30f);
-    bf16* orow = (bf16*)p.out + q_off(p, b, h, row[i]);
+    for (int i = 0; i < 2; ++i) {
+      if (row[i] >= p.Tq) continue;
+      const float inv_l = 1.f / fmaxf(l[i], 1e-30f);
+      bf16* orow = (bf16*)p.out + q_off(p, b, h, row[i]);
 #pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd)
-      *reinterpret_cast<__nv_bfloat162*>(orow + nd * 8 + 2 * tg) =
-          __floats2bfloat162_rn(o[nd][2 * i] * inv_l,
-                                o[nd][2 * i + 1] * inv_l);
-    if (WRITE_LSE && tg == 0)
-      p.lse[((size_t)b * p.H + h) * p.Tq + row[i]] =
-          m[i] + logf(fmaxf(l[i], 1e-30f));
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * tg) =
+            pack_bf16(o[4 * j + 2 * i] * inv_l, o[4 * j + 2 * i + 1] * inv_l);
+      if (WRITE_LSE && tg == 0)
+        p.lse[((size_t)b * p.H + h) * p.Tq + row[i]] =
+            (m[i] + log2f(fmaxf(l[i], 1e-30f))) * 0.6931471805599453f;
+    }
   }
 }
 
@@ -770,6 +875,39 @@ static bool bad_shape(int H, int KVH, int Tq, int Tk, int D, int causal,
       int64_t qst, int64_t ksb, int64_t ksh, int64_t kst, int causal,     \
       float scale, int dtype, void* stream
 
+// the three tensor maps of q [B, H, Tq, D] and k, v [B, KVH, Tk, D]
+// from the strides in p (elements; each a multiple of 8, checked by the
+// wrapper and refused here by cuTensorMapEncodeTiled otherwise)
+static bool fa_maps(FAMaps* maps, const FAParams& p) {
+  const cuuint32_t box[4] = {64, 128, 1, 1};
+  const cuuint64_t qd[4] = {(cuuint64_t)p.D, (cuuint64_t)p.Tq,
+                            (cuuint64_t)p.H, (cuuint64_t)p.B};
+  const cuuint64_t qs[3] = {(cuuint64_t)p.qst * 2, (cuuint64_t)p.qsh * 2,
+                            (cuuint64_t)p.qsb * 2};
+  const cuuint64_t kd[4] = {(cuuint64_t)p.D, (cuuint64_t)p.Tk,
+                            (cuuint64_t)p.KVH, (cuuint64_t)p.B};
+  const cuuint64_t ks[3] = {(cuuint64_t)p.kst * 2, (cuuint64_t)p.ksh * 2,
+                            (cuuint64_t)p.ksb * 2};
+  return hopper::make_map_bf16(&maps->q, p.q, 4, qd, qs, box) &&
+         hopper::make_map_bf16(&maps->k, p.k, 4, kd, ks, box) &&
+         hopper::make_map_bf16(&maps->v, p.v, 4, kd, ks, box);
+}
+
+template <int D, bool WRITE_LSE>
+static int launch_fwd_wgmma(const FAParams& p, cudaStream_t st) {
+  FAMaps maps;
+  if (!fa_maps(&maps, p)) return (int)cudaErrorInvalidValue;
+  constexpr int smem = fa_fwd_smem<D>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      fa_fwd_wgmma<D, WRITE_LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  const int n_qt = (p.Tq + FA_BM - 1) / FA_BM;
+  fa_fwd_wgmma<D, WRITE_LSE><<<n_qt * p.B * p.H, FA_THREADS, smem, st>>>(
+      maps, p);
+  return (int)cudaGetLastError();
+}
+
 // O (and, with lse != nullptr, the f32 LSE rows)
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* out, float* lse, FA_ARGS) {
@@ -788,11 +926,12 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
       fa_fwd_f32<true><<<grid, F_THREADS, smem, st>>>(p);
     else
       fa_fwd_f32<false><<<grid, F_THREADS, smem, st>>>(p);
+  } else if (D == 64) {
+    return lse ? launch_fwd_wgmma<64, true>(p, st)
+               : launch_fwd_wgmma<64, false>(p, st);
   } else {
-    const dim3 grid((Tq + T_ROWS - 1) / T_ROWS, H, B);
-    auto kernel = D == 64 ? (lse ? fa_fwd_bf16<64, true> : fa_fwd_bf16<64, false>)
-                          : (lse ? fa_fwd_bf16<128, true> : fa_fwd_bf16<128, false>);
-    kernel<<<grid, T_THREADS, 0, st>>>(p);
+    return lse ? launch_fwd_wgmma<128, true>(p, st)
+               : launch_fwd_wgmma<128, false>(p, st);
   }
   return (int)cudaGetLastError();
 }

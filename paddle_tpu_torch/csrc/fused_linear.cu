@@ -22,7 +22,9 @@
 // from the plain version), 8 warps as 2 (rows) x 4 (columns), each warp
 // 64 x 32 = 4 x 4 mma tiles; the next k-tile's global loads wait in
 // registers while the current one is multiplied (double-buffered shared
-// memory).  Both operands are staged as they lie, [row][k], with a pitch
+// memory).  Rows of x and w are loaded 16 bytes at a time where K % 8 == 0
+// and both bases are aligned, else element by element with zeros past K
+// (a second instance of the kernel), so every K runs.  Both operands are staged as they lie, [row][k], with a pitch
 // of 40 bf16 (20 words), which puts the 8 row groups x 4 lanes of a
 // fragment load on 32 distinct banks, so every fragment is one 32-bit
 // shared load.  wgmma with TMA, and a persistent schedule, are later
@@ -114,8 +116,25 @@ struct Tile {
   uint4 a[MM_LOADS], b[MM_LOADS];
 };
 
-// rows past M (or N) and k past K load zeros; K % 8 == 0 (the wrapper
-// checks it), so a piece is all in or all out
+// 8 neighbouring k of one row from k on, zeros at and past K: one
+// 16-byte load where the row is aligned (VEC: K % 8 == 0 and an aligned
+// base, so a piece is all in or all out), else 8 predicated loads
+template <bool VEC>
+__device__ __forceinline__ uint4 load_piece(const bf16* row, int k, int K) {
+  if constexpr (VEC) {
+    return k < K ? *reinterpret_cast<const uint4*>(row + k) : zero4();
+  } else {
+    uint4 v = zero4();
+    bf16* e = reinterpret_cast<bf16*>(&v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (k + i < K) e[i] = row[k + i];
+    return v;
+  }
+}
+
+// rows past M (or N) load zeros
+template <bool VEC>
 __device__ __forceinline__ void tile_load(Tile& r, const bf16* x,
                                           const bf16* w, int M, int N, int K,
                                           int m0, int n0, int k0) {
@@ -124,12 +143,8 @@ __device__ __forceinline__ void tile_load(Tile& r, const bf16* x,
     const int p = threadIdx.x + j * MM_THREADS;
     const int row = p / MM_PIECES, k = k0 + (p % MM_PIECES) * 8;
     const int m = m0 + row, n = n0 + row;
-    r.a[j] = (m < M && k < K)
-                 ? *reinterpret_cast<const uint4*>(x + (size_t)m * K + k)
-                 : zero4();
-    r.b[j] = (n < N && k < K)
-                 ? *reinterpret_cast<const uint4*>(w + (size_t)n * K + k)
-                 : zero4();
+    r.a[j] = m < M ? load_piece<VEC>(x + (size_t)m * K, k, K) : zero4();
+    r.b[j] = n < N ? load_piece<VEC>(w + (size_t)n * K, k, K) : zero4();
   }
 }
 
@@ -146,7 +161,7 @@ __device__ __forceinline__ void tile_store(const Tile& r, bf16 (*As)[MM_LD],
   }
 }
 
-template <int ACT>
+template <int ACT, bool VEC>
 __global__ void __launch_bounds__(MM_THREADS)
     fused_linear_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w,
                       const bf16* __restrict__ b, bf16* __restrict__ out,
@@ -166,14 +181,14 @@ __global__ void __launch_bounds__(MM_THREADS)
       for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
 
   Tile regs;
-  tile_load(regs, x, w, M, N, K, m0, n0, 0);
+  tile_load<VEC>(regs, x, w, M, N, K, m0, n0, 0);
   tile_store(regs, As[0], Bs[0]);
   __syncthreads();
   const int tiles = (K + MM_BK - 1) / MM_BK;
   for (int kt = 0; kt < tiles; ++kt) {
     const int cur = kt & 1;
     if (kt + 1 < tiles)
-      tile_load(regs, x, w, M, N, K, m0, n0, (kt + 1) * MM_BK);
+      tile_load<VEC>(regs, x, w, M, N, K, m0, n0, (kt + 1) * MM_BK);
 #pragma unroll
     for (int ks = 0; ks < MM_BK; ks += 16) {
       uint32_t a[4][4], c[4][2];
@@ -237,8 +252,15 @@ static int launch(const T* x, const T* w, const T* b, T* out, int M, int N,
                   int K, cudaStream_t s) {
   if constexpr (sizeof(T) == 2) {
     const dim3 grid((N + MM_BN - 1) / MM_BN, (M + MM_BM - 1) / MM_BM);
-    fused_linear_bf16<ACT><<<grid, MM_THREADS, 0, s>>>(x, w, b, out, M, N,
-                                                        K);
+    const bool vec = K % 8 == 0 &&
+                     (reinterpret_cast<uintptr_t>(x) |
+                      reinterpret_cast<uintptr_t>(w)) % 16 == 0;
+    if (vec)
+      fused_linear_bf16<ACT, true><<<grid, MM_THREADS, 0, s>>>(x, w, b, out,
+                                                                M, N, K);
+    else
+      fused_linear_bf16<ACT, false><<<grid, MM_THREADS, 0, s>>>(x, w, b, out,
+                                                                 M, N, K);
   } else {
     const dim3 grid((N + TB_N - 1) / TB_N, (M + TB_M - 1) / TB_M);
     fused_linear_f32<ACT><<<grid, TB_THREADS, 0, s>>>(x, w, b, out, M, N, K);
@@ -259,8 +281,8 @@ static int launch_act(int act, const T* x, const T* w, const T* b, T* out,
   }
 }
 
-// b may be null (no bias); K % 8 == 0 and x, w 16-byte aligned (checked
-// by kernels/fused_linear.py)
+// b may be null (no bias); any K: rows that are not 16-byte aligned take
+// the predicated loads
 extern "C" int fused_linear(const void* x, const void* w, const void* b,
                             void* out, int M, int N, int K, int act,
                             int dtype, void* stream) {

@@ -21,17 +21,26 @@
 //   the splits in a fixed order, applies silu and casts.  The warps'
 //   sums meet in a fixed tree in shared memory: no atomics, the result
 //   does not change from run to run.
-// - tiled (M > 8, the prefill chunk): bound by operations.  For bf16 a
-//   64x128 block tile runs on the tensor cores (mma.sync m16n8k16,
-//   bf16 in, f32 accumulate; a bf16 product is exact in f32, so only
-//   the order of the f32 sums differs from the plain version), with the
-//   next k-tile's global loads in registers while the current one is
-//   multiplied (double-buffered shared memory).  f32 runs on the CUDA
-//   cores (64x64 tiles, 4x4 outputs per thread): the tensor cores would
-//   round it to TF32.
+// - tiled (M > 8, the prefill chunk).  At Llama-3-8B's q/k/v/gate/up
+//   with M = 256 the bytes bound it (w's 285 MB once, x and the outputs:
+//   0.091 ms at 3.35 TB/s) just ahead of the operations (0.074 ms at 989
+//   TFLOP/s).  For bf16, a warp-specialized Hopper kernel (below): TMA
+//   keeps four 64-deep k-tiles of x and w in flight a block, wgmma
+//   m64n256k16 (or m64n128k16) takes the normalized x from registers,
+//   and one launch covers q/k/v (or gate/up) with the M-tiles of each w
+//   tile adjacent, so w leaves HBM once and the narrow k and v ride with
+//   q.  The mma.sync kernel it
+//   replaces read each w tile up to four times, kept one 32-deep tile in
+//   flight and left 100 of 132 SMs idle on k and v: 1.060 ms for the five
+//   projections against cuBLAS's 0.139.  A bf16 product is exact in f32,
+//   so only the order of the f32 sums differs from the plain version,
+//   and it is fixed: the result does not change from run to run.  f32
+//   runs on the CUDA cores (64x64 tiles, 4x4 outputs per thread): the
+//   tensor cores would round it to TF32.
 #include <cstdint>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 __device__ __forceinline__ float silu(float z) { return z / (1.f + expf(-z)); }
 
@@ -214,152 +223,287 @@ __global__ void __launch_bounds__(TB_THREADS)
   }
 }
 
-// --------------------------------------------- tiled, bf16 (tensor cores)
-// Block tile 64 x 128 x 32, 8 warps as 2 (rows) x 4 (columns), each warp
-// 32 x 32 = 2 x 4 mma tiles of 16 x 8.  A (normalized x) is staged
-// row-major [m][k], its fragments are pairs of neighbouring k (one
-// 32-bit shared load each); the pitch of 40 bf16 (20 words) puts the 8
-// row groups x 4 lanes of a fragment load on 32 distinct banks.  B (w)
-// is staged as it lies, [k][n], and ldmatrix.trans hands each lane its
-// k-pairs; the pitch of 136 bf16 (68 words) puts its 8 rows on distinct
-// banks.
-constexpr int MM_BM = 64, MM_BN = 128, MM_BK = 32, MM_THREADS = 256;
-constexpr int MM_LDA = MM_BK + 8;
-constexpr int MM_LDB = MM_BN + 8;
+// ------------------------------------------ tiled, bf16 (wgmma + TMA)
+// A block owns a 128 x BN output tile of one weight (BN = 256, or 128
+// where that fills more SMs).  Warpgroups 0 and 1 consume (64 rows
+// each), warpgroup 2 produces: one of its threads keeps a ring of
+// WG_STAGES 64-deep k-tiles in flight by TMA, each stage
+// the raw x tile [128 rows][64 k] and w's [64 k][BN n] as BN / 64 boxes
+// of 64 columns, all 128-byte swizzled, with one full and one empty
+// mbarrier a stage.  A consumer takes its x rows out of shared memory
+// with ldmatrix in the wgmma A-fragment layout, normalizes them there
+// (two rows of rs and four pairs of nw a thread per 16-deep step, the
+// reference's two roundings), and issues wgmma m64nBNk16 with A from
+// registers and w, MN-major, from shared memory; it normalizes the next
+// k-tile while the tensor cores multiply this one.  The normalized tile
+// exists only in registers.
+//
+// One launch covers every weight that shares x and rs (q/k/v, or
+// gate/up): blocks walk a tile table, the M-tiles of one N-tile adjacent
+// in launch order, so each w tile leaves HBM once and the second M-tile
+// reads it from L2; k and v (N = 1024) ride with q.  What bounds it at
+// M = 256 is the L2: every block reads its whole x rows again, so the
+// 256-wide N tile (half the blocks of a 128-wide one) moves a quarter
+// fewer bytes from L2 (0.84 GB against 1.11 for the five projections).
+constexpr int WG_BM = 128, WG_BK = 64, WG_STAGES = 4;
+constexpr int WG_THREADS = 384;          // 2 consumer warpgroups + producer
+constexpr int WG_MAX_W = 3;              // weights a launch (q, k, v)
+constexpr int WG_X_BYTES = WG_BM * WG_BK * 2;     // 16 KB
+constexpr int WG_W_BOX = WG_BK * 64 * 2;          // 8 KB: 64 k x 64 n
+// a stage and the dynamic shared memory of a BN-wide tile (BN / 64 boxes
+// of w; 48 KB a stage at BN = 256)
+template <int BN>
+__host__ __device__ constexpr int wg_stage() {
+  return WG_X_BYTES + BN / 64 * WG_W_BOX;
+}
+template <int BN>
+__host__ __device__ constexpr int wg_smem() {
+  return WG_STAGES * wg_stage<BN>() + 1024 + 2 * WG_STAGES * 8;
+}
 
-// global -> registers for one k-tile: each thread one 8-wide row piece
-// of A (64 x 32 = 256 pieces) and two of B (32 x 128 = 512 pieces);
-// needs K % 8 == 0 and N % 8 == 0 (checked by the wrapper)
-struct MmaRegs {
-  uint4 a, b[2];
+struct NormLinearGroup {
+  CUtensorMap x;                 // [M, K], box 64 k x 128 rows
+  CUtensorMap w[WG_MAX_W];       // [K, N_i], box 64 n x 64 k
+  const float* rs;
+  const bf16* nw;
+  bf16* out[WG_MAX_W];
+  int n[WG_MAX_W];
+  int silu[WG_MAX_W];
+  int tiles_end[WG_MAX_W];       // N-tiles of weights 0..i together
+  int count, M, K, m_tiles;
 };
 
-__device__ __forceinline__ void mma_load(MmaRegs& r, const bf16* x,
-                                         const float* rs, const bf16* nw,
-                                         const bf16* w, int M, int N, int K,
-                                         int m0, int n0, int k0) {
-  const int t = threadIdx.x;
-  {
-    const int mm = t / (MM_BK / 8), kk = (t % (MM_BK / 8)) * 8;
-    const int m = m0 + mm, k = k0 + kk;
-    r.a = zero4();
-    if (m < M && k < K) {
-      const uint4 xv = *reinterpret_cast<const uint4*>(x + (size_t)m * K + k);
-      const uint4 wv = *reinterpret_cast<const uint4*>(nw + k);
-      const bf16* xe = reinterpret_cast<const bf16*>(&xv);
-      const bf16* we = reinterpret_cast<const bf16*>(&wv);
-      bf16* oe = reinterpret_cast<bf16*>(&r.a);
-      const float s = rs[m];
+// ((x * rs).to(bf16) * nw).to(bf16) of a packed pair of x: the first
+// product in f32 and one rounding of the pair, the second a bf16x2
+// multiply (a product of two bf16 is exact in f32, so its one rounding
+// is the reference's)
+__device__ __forceinline__ uint32_t norm_pair(uint32_t xv, float rs,
+                                              uint32_t wv) {
+  const float x0 = __uint_as_float(xv << 16);
+  const float x1 = __uint_as_float(xv & 0xffff0000u);
+  const __nv_bfloat162 v = __floats2bfloat162_rn(x0 * rs, x1 * rs);
+  const __nv_bfloat162 y =
+      __hmul2(v, *reinterpret_cast<const __nv_bfloat162*>(&wv));
+  return *reinterpret_cast<const uint32_t*>(&y);
+}
+
+// nw pairs at k = 2 tg and 2 tg + 8 of each 16-deep step of the k-tile
+// at k0 (K % 8 == 0, so a pair is all in or all out)
+__device__ __forceinline__ void load_nw(uint32_t (*nwp)[2], const bf16* nw,
+                                        int k0, int K, int tg) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float v = round_to<bf16>(__bfloat162float(xe[i]) * s);
-        oe[i] = __float2bfloat16_rn(v * __bfloat162float(we[i]));
-      }
+  for (int ks = 0; ks < WG_BK / 16; ++ks)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = k0 + ks * 16 + 2 * tg + 8 * h;
+      nwp[ks][h] = k < K ? ld_pair(nw + k) : 0u;
     }
-  }
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int p = t + j * MM_THREADS;
-    const int kk = p / (MM_BN / 8), nn = (p % (MM_BN / 8)) * 8;
-    const int k = k0 + kk, n = n0 + nn;
-    r.b[j] = (k < K && n < N)
-                 ? *reinterpret_cast<const uint4*>(w + (size_t)k * N + n)
-                 : zero4();
-  }
 }
 
-// 16-byte stores: the pitches (80 and 272 bytes) and the piece offsets
-// are multiples of 16 bytes
-__device__ __forceinline__ void mma_store(const MmaRegs& r,
-                                          bf16 (*As)[MM_LDA],
-                                          bf16 (*Bs)[MM_LDB]) {
-  const int t = threadIdx.x;
-  *reinterpret_cast<uint4*>(&As[t / (MM_BK / 8)][(t % (MM_BK / 8)) * 8]) =
-      r.a;
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int p = t + j * MM_THREADS;
-    *reinterpret_cast<uint4*>(&Bs[p / (MM_BN / 8)][(p % (MM_BN / 8)) * 8]) =
-        r.b[j];
+template <int BN>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    norm_linear_wgmma(const __grid_constant__ NormLinearGroup p) {
+  constexpr int WG_STAGE = wg_stage<BN>();
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + WG_STAGES * WG_STAGE);
+  uint64_t* empty = full + WG_STAGES;
+
+  const int mt = blockIdx.x % p.m_tiles, nt_all = blockIdx.x / p.m_tiles;
+  int wi = 0;
+  while (wi + 1 < p.count && nt_all >= p.tiles_end[wi]) ++wi;
+  const int m0 = mt * WG_BM;
+  const int n0 = (nt_all - (wi ? p.tiles_end[wi - 1] : 0)) * BN;
+  const int N = p.n[wi];
+  const int k_tiles = (p.K + WG_BK - 1) / WG_BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);   // one arrival per consumer warp
+    }
+    fence_barrier_init();
   }
-}
-
-template <bool SILU>
-__global__ void __launch_bounds__(MM_THREADS)
-    norm_linear_tiled_bf16(const bf16* __restrict__ x,
-                           const float* __restrict__ rs,
-                           const bf16* __restrict__ nw,
-                           const bf16* __restrict__ w, bf16* __restrict__ out,
-                           int M, int N, int K) {
-  __shared__ __align__(16) bf16 As[2][MM_BM][MM_LDA];
-  __shared__ __align__(16) bf16 Bs[2][MM_BK][MM_LDB];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / 4, wn = warp % 4;
-  const int g = lane / 4, tg = lane % 4;
-  const int m0 = blockIdx.y * MM_BM, n0 = blockIdx.x * MM_BN;
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
-
-  MmaRegs regs;
-  mma_load(regs, x, rs, nw, w, M, N, K, m0, n0, 0);
-  mma_store(regs, As[0], Bs[0]);
   __syncthreads();
-  const int tiles = (K + MM_BK - 1) / MM_BK;
-  for (int kt = 0; kt < tiles; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < tiles)
-      mma_load(regs, x, rs, nw, w, M, N, K, m0, n0, (kt + 1) * MM_BK);
-#pragma unroll
-    for (int ks = 0; ks < MM_BK; ks += 16) {
-      uint32_t a[2][4], b[4][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = wm * 32 + i * 16 + g;
-        a[i][0] = ld_pair(&As[cur][r][ks + 2 * tg]);
-        a[i][1] = ld_pair(&As[cur][r + 8][ks + 2 * tg]);
-        a[i][2] = ld_pair(&As[cur][r][ks + 2 * tg + 8]);
-        a[i][3] = ld_pair(&As[cur][r + 8][ks + 2 * tg + 8]);
+
+  if (threadIdx.x >= 256) {
+    // ------------------------------------------------------ producer
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      const CUtensorMap* wmap = &p.w[wi];
+      // a box wholly past N is not loaded: its columns are never stored
+      const int boxes = min(BN / 64, (N - n0 + 63) / 64);
+      const uint32_t bytes = WG_X_BYTES + boxes * WG_W_BOX;
+      for (int kt = 0; kt < k_tiles; ++kt) {
+        const int s = kt % WG_STAGES;
+        if (kt >= WG_STAGES) mbar_wait(&empty[s], (kt / WG_STAGES - 1) & 1);
+        uint8_t* st = smem + s * WG_STAGE;
+        mbar_expect_tx(&full[s], bytes);
+        tma_load_2d(st, &p.x, &full[s], kt * WG_BK, m0);
+        for (int x = 0; x < boxes; ++x)
+          tma_load_2d(st + WG_X_BYTES + x * WG_W_BOX, wmap, &full[s],
+                      n0 + 64 * x, kt * WG_BK);
       }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        ldsm_x2_trans(b[j], &Bs[cur][ks + lane % 16][wn * 32 + j * 8]);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a[i], b[j]);
     }
-    // the other buffer was last read in iteration kt - 1, before the
-    // barrier that ended it, so it can be refilled without one
-    if (kt + 1 < tiles) mma_store(regs, As[cur ^ 1], Bs[cur ^ 1]);
-    __syncthreads();
-  }
-  // c0, c1: row g, columns 2 tg, 2 tg + 1; c2, c3: row g + 8
+  } else {
+    // ------------------------------------------------------ consumers
+    setmaxnreg_inc<232>();
+    const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32;
+    const int lane = threadIdx.x % 32, g = lane / 4, tg = lane % 4;
+    const int r0 = wg * 64 + warp * 16;     // this warp's rows in the tile
+    float rsv[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + r0 + g + 8 * h;
+      rsv[h] = m < p.M ? p.rs[m] : 0.f;
+    }
+    // ldmatrix.x4 addresses: rows r0 + lane % 16, k chunk + lane / 16
+    const int lrow = r0 + (lane & 15), lchunk = lane >> 4;
+    float acc[BN / 2];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + wn * 32 + j * 8 + 2 * tg;
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+
+    // A fragments of one k-tile: wait for its stage, then ldmatrix the
+    // raw x rows (rows g / g + 8 by bit 0 of i, k 2 tg / 2 tg + 8 by bit
+    // 1) and normalize them in registers
+    auto normalize = [&](uint32_t (&a)[WG_BK / 16][4], int kt) {
+      uint32_t nwp[WG_BK / 16][2];
+      load_nw(nwp, p.nw, kt * WG_BK, p.K, tg);
+      const int s = kt % WG_STAGES;
+      mbar_wait(&full[s], (kt / WG_STAGES) & 1);
+      const uint32_t xs = smem_u32(smem + s * WG_STAGE);
+#pragma unroll
+      for (int ks = 0; ks < WG_BK / 16; ++ks) {
+        uint32_t raw[4];
+        ldsm_x4(raw, xs + swz128(lrow, 2 * ks + lchunk));
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          a[ks][i] = norm_pair(raw[i], rsv[i & 1], nwp[ks][i >> 1]);
+      }
+    };
+    auto issue = [&](uint32_t (&a)[WG_BK / 16][4], int kt) {
+      const uint32_t ws =
+          smem_u32(smem + (kt % WG_STAGES) * WG_STAGE + WG_X_BYTES);
+      wgmma_fence();
+      fence_regs<BN / 2>(acc);
+#pragma unroll
+      for (int ks = 0; ks < WG_BK / 16; ++ks) {
+        const uint64_t dw = desc_sw128(ws + ks * 16 * 128, WG_W_BOX, 1024);
+        if constexpr (BN == 256)
+          wgmma_rs_n256<1>(acc, a[ks], dw, 1);
+        else
+          wgmma_rs_n128<1>(acc, a[ks], dw, 1);
+      }
+      wgmma_commit();
+    };
+    // wait for k-tile kt's products; its A registers stay live until
+    // then (the next tile's fragments must not take them while the
+    // asynchronous wgmma reads them), and its stage goes back
+    auto finish = [&](uint32_t (&a)[WG_BK / 16][4], int kt) {
+      wgmma_wait<0>();
+      fence_regs<BN / 2>(acc);
+#pragma unroll
+      for (int ks = 0; ks < WG_BK / 16; ++ks)
+        asm volatile("" ::"r"(a[ks][0]), "r"(a[ks][1]), "r"(a[ks][2]),
+                     "r"(a[ks][3]));
+      if (lane == 0) mbar_arrive(&empty[kt % WG_STAGES]);
+    };
+    // two k-tiles in registers: the next one is normalized while the
+    // tensor cores multiply this one
+    uint32_t a0[WG_BK / 16][4], a1[WG_BK / 16][4];
+    normalize(a0, 0);
+    for (int kt = 0; kt < k_tiles; kt += 2) {
+      issue(a0, kt);
+      if (kt + 1 < k_tiles) normalize(a1, kt + 1);
+      finish(a0, kt);
+      if (kt + 1 == k_tiles) break;
+      issue(a1, kt + 1);
+      if (kt + 2 < k_tiles) normalize(a0, kt + 2);
+      finish(a1, kt + 1);
+    }
+
+    // epilogue: silu on the f32 sums, one rounding, masked pair stores
+    // (N % 8 == 0 keeps a pair inside the row)
+    bf16* out = p.out[wi];
+    const bool silu_on = p.silu[wi] != 0;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int n = n0 + 8 * j + 2 * tg;
+      if (n >= N) continue;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int m = m0 + wm * 32 + i * 16 + g + 8 * h;
-        if (m >= M || n >= N) continue;   // N % 8 == 0: n + 1 < N too
-        float z0 = acc[i][j][2 * h], z1 = acc[i][j][2 * h + 1];
-        if (SILU) {
+        const int m = m0 + r0 + g + 8 * h;
+        if (m >= p.M) continue;
+        float z0 = acc[4 * j + 2 * h], z1 = acc[4 * j + 2 * h + 1];
+        if (silu_on) {
           z0 = silu(z0);
           z1 = silu(z1);
         }
-        __nv_bfloat162 o;
-        o.x = __float2bfloat16_rn(z0);
-        o.y = __float2bfloat16_rn(z1);
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)m * N + n) = o;
+        *reinterpret_cast<uint32_t*>(out + (size_t)m * N + n) =
+            pack_bf16(z0, z1);
       }
     }
   }
+}
+
+template <int BN>
+static int launch_tiles(NormLinearGroup& p, const int* n, cudaStream_t s) {
+  int tiles = 0;
+  for (int i = 0; i < p.count; ++i) {
+    tiles += (n[i] + BN - 1) / BN;
+    p.tiles_end[i] = tiles;
+  }
+  constexpr int smem = wg_smem<BN>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      norm_linear_wgmma<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  norm_linear_wgmma<BN><<<tiles * p.m_tiles, WG_THREADS, smem, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// the tile table and tensor maps of up to WG_MAX_W weights [K, n_i]
+// sharing x [M, K]; one block per output tile, 256 columns wide, or 128
+// where 256-wide tiles would leave SMs idle (q/k/v of a 256-token chunk:
+// 48 tiles on 132 SMs)
+static int launch_wgmma(const bf16* x, const float* rs, const bf16* nw,
+                        const bf16* const* w, bf16* const* out, const int* n,
+                        int silu_mask, int count, int M, int K,
+                        cudaStream_t s) {
+  if (count < 1 || count > WG_MAX_W) return (int)cudaErrorInvalidValue;
+  NormLinearGroup p{};
+  const cuuint64_t xd[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  const cuuint64_t xst[1] = {(cuuint64_t)K * 2};
+  const cuuint32_t xb[2] = {WG_BK, WG_BM};
+  if (!hopper::make_map_bf16(&p.x, x, 2, xd, xst, xb))
+    return (int)cudaErrorInvalidValue;
+  int wide = 0;
+  for (int i = 0; i < count; ++i) {
+    const cuuint64_t wd[2] = {(cuuint64_t)n[i], (cuuint64_t)K};
+    const cuuint64_t wst[1] = {(cuuint64_t)n[i] * 2};
+    const cuuint32_t wb[2] = {64, WG_BK};
+    if (!hopper::make_map_bf16(&p.w[i], w[i], 2, wd, wst, wb))
+      return (int)cudaErrorInvalidValue;
+    p.out[i] = out[i];
+    p.n[i] = n[i];
+    p.silu[i] = (silu_mask >> i) & 1;
+    wide += (n[i] + 255) / 256;
+  }
+  p.rs = rs;
+  p.nw = nw;
+  p.count = count;
+  p.M = M;
+  p.K = K;
+  p.m_tiles = (M + WG_BM - 1) / WG_BM;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  return wide * p.m_tiles < sms ? launch_tiles<128>(p, n, s)
+                                : launch_tiles<256>(p, n, s);
 }
 
 // ---------------------------------------------------------- C entry
@@ -380,9 +524,7 @@ static int launch(const T* x, const float* rs, const T* nw, const T* w,
           part, out, MN, splits);
     }
   } else if constexpr (sizeof(T) == 2) {
-    const dim3 grid((N + MM_BN - 1) / MM_BN, (M + MM_BM - 1) / MM_BM);
-    norm_linear_tiled_bf16<SILU><<<grid, MM_THREADS, 0, s>>>(
-        x, rs, nw, w, out, M, N, K);
+    return launch_wgmma(x, rs, nw, &w, &out, &N, SILU ? 1 : 0, 1, M, K, s);
   } else {
     const dim3 grid((N + TB_N - 1) / TB_N, (M + TB_M - 1) / TB_M);
     norm_linear_tiled_f32<SILU><<<grid, TB_THREADS, 0, s>>>(
@@ -411,4 +553,21 @@ extern "C" int fused_norm_linear(const void* x, const void* rs,
                     : launch<T, false>(xp, r, nwp, wp, op, p, M, N, K, splits,
                                        s);
   });
+}
+
+// up to three bf16 weights [K, n_i] that share x [M, K] (M > SK_MR), rs
+// and nw, in one launch: q/k/v, or gate/up; bit i of silu_mask applies
+// silu to out_i
+extern "C" int fused_norm_linear_group(
+    const void* x, const void* rs, const void* nw, const void* w0,
+    const void* w1, const void* w2, void* out0, void* out1, void* out2,
+    int n0, int n1, int n2, int silu_mask, int count, int M, int K,
+    void* stream) {
+  if (M == 0) return 0;
+  if (M <= SK_MR) return (int)cudaErrorInvalidValue;
+  const bf16* w[3] = {(const bf16*)w0, (const bf16*)w1, (const bf16*)w2};
+  bf16* out[3] = {(bf16*)out0, (bf16*)out1, (bf16*)out2};
+  const int n[3] = {n0, n1, n2};
+  return launch_wgmma((const bf16*)x, (const float*)rs, (const bf16*)nw, w,
+                      out, n, silu_mask, count, M, K, (cudaStream_t)stream);
 }

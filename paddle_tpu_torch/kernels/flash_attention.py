@@ -138,6 +138,27 @@ def _like(t, ref):
     return t if t.stride() == ref.stride() else torch.empty_like(ref).copy_(t)
 
 
+def _strides(t):
+    """The strides of a [B, H, T, D] view's first three axes as the
+    kernels take them: an axis of extent 1, whose stride never matters,
+    gets the view's element count (a multiple of D)."""
+    return [s if n != 1 else t.numel()
+            for n, s in zip(t.shape[:3], t.stride()[:3])]
+
+
+def tma_strides(t):
+    """:func:`_strides`, each a multiple of 16 bytes, or raise: the bf16
+    forward loads its tiles by TMA, whose tensor maps take no other
+    stride."""
+    st = _strides(t)
+    if any(s * t.element_size() % 16 for s in st):
+        raise ValueError(f"flash_attention: the bf16 forward's tensor maps "
+                         f"need strides that are multiples of 16 bytes; "
+                         f"got {t.stride()[:3]} elements of "
+                         f"{t.element_size()} bytes")
+    return st
+
+
 def _common_args(q, k, causal, scale):
     B, H, Tq, D = q.shape
     KVH, Tk = k.shape[1], k.shape[2]
@@ -147,7 +168,7 @@ def _common_args(q, k, causal, scale):
         raise ValueError(f"flash_attention: head_dim {D} in {q.dtype} has "
                          f"no kernel (bf16: {BF16_HEAD_DIMS}, f32: <= "
                          f"{MAX_HEAD_DIM})")
-    return [B, H, KVH, Tq, Tk, D, *q.stride()[:3], *k.stride()[:3],
+    return [B, H, KVH, Tq, Tk, D, *_strides(q), *_strides(k),
             int(causal), float(scale), _build.dtype_code(q),
             _build.stream_ptr(q)]
 
@@ -156,6 +177,8 @@ def _fwd_kernel(q, k, v, causal, scale, with_lse):
     _build.require_cuda(FWD, q, k, v, contiguous=False)
     q, k = _kernel_view(q), _kernel_view(k)
     v = _like(_kernel_view(v), k)
+    if q.dtype == torch.bfloat16:
+        tma_strides(q), tma_strides(k)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device) \
         if with_lse else None

@@ -80,10 +80,6 @@ def _forward(x2d, w, b, activation):
     operands = (x2d, w) if b is None else (x2d, w, b)
     _build.require_cuda(KERNEL, *operands)
     code = _build.dtype_code(x2d)
-    if K % 8 or any(t.data_ptr() % 16 for t in (x2d, w)):
-        raise ValueError(f"fused_linear: the kernel loads rows of x and w 16 "
-                         f"bytes at a time; K={K} must be a multiple of 8 "
-                         f"and both operands 16-byte aligned")
     out = torch.empty((M, N), dtype=x2d.dtype, device=x2d.device)
     if M == 0 or N == 0:
         return out
@@ -129,7 +125,7 @@ def fused_linear(x, w, bias=None, activation="none"):
     product.  x: [..., K]; w: [N, K]; bias: [N] or None.  Returns
     [..., N] in x's dtype; differentiable in x, w and bias.  CPU tensors
     take the plain version; CUDA tensors launch the kernel (f32 or bf16,
-    K a multiple of 8) or raise."""
+    any shape) or raise."""
     if activation not in ACTIVATIONS:
         raise ValueError(f"unsupported activation {activation!r}; have "
                          f"{sorted(ACTIVATIONS)}")

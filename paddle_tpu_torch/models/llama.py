@@ -46,7 +46,7 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve_device, tf32_if_exact
 from ..kernels.chunked_prefill import chunked_attention
 from ..kernels.flash_attention import flash_attention_bthd
-from ..kernels.fused_norm_linear import fused_norm_linear, rms_scale
+from ..kernels.fused_norm_linear import fused_norm_linear_group, rms_scale
 from ..kernels.kv_quant import quantize_scatter
 from ..kernels.moe_dispatch import moe_capacity, moe_combine, moe_dispatch
 from ..kernels.paged_attention import fused_paged_decode
@@ -212,8 +212,10 @@ class LlamaAttention(nn.Module):
                                            self.v_proj))
         else:
             rs = rms_scale(hidden, norm_eps)
-            q, k, v = (fused_norm_linear(hidden, rs, norm_weight, p.weight)
-                       for p in (self.q_proj, self.k_proj, self.v_proj))
+            q, k, v = fused_norm_linear_group(
+                hidden, rs, norm_weight,
+                [p.weight for p in (self.q_proj, self.k_proj, self.v_proj)],
+                ["none"] * 3)
         q = q.reshape(B, T, -1, self.head_dim)
         k = k.reshape(B, T, -1, self.head_dim)
         v = v.reshape(B, T, -1, self.head_dim)
@@ -275,9 +277,9 @@ class LlamaMLP(nn.Module):
         if norm_weight is None:
             return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
         rs = rms_scale(x, norm_eps)
-        g = fused_norm_linear(x, rs, norm_weight, self.gate_proj.weight,
-                              activation="silu")
-        u = fused_norm_linear(x, rs, norm_weight, self.up_proj.weight)
+        g, u = fused_norm_linear_group(
+            x, rs, norm_weight, [self.gate_proj.weight, self.up_proj.weight],
+            ["silu", "none"])
         return (g * u) @ self.down_proj.weight
 
 

@@ -85,6 +85,66 @@ class TestCudaKernels:
         assert float((got.float() - want.float()).abs().max()) <= \
             float(want.float().abs().max()) / 128
 
+    @pytest.mark.parametrize("K", [64, 1000, 4096])
+    @pytest.mark.parametrize("N", [136, 1024, 4096])
+    @pytest.mark.parametrize("M", [9, 70, 256, 1000])
+    def test_fused_norm_linear_tiled_bf16(self, cuda_device, M, N, K):
+        # the wgmma kernel: ragged M, N and K tiles from TMA's zero fill
+        # (K = 64 is fewer k-tiles than ring stages); twice, bit for bit.
+        # These shapes fill fewer than 132 SMs with 256-wide tiles, so
+        # they take 128-wide ones; the cases below take 256-wide ones
+        self._hold_tiled(cuda_device, M, N, K)
+
+    @pytest.mark.parametrize("M,N,K", [(1000, 14336, 1000),
+                                       (300, 14328, 64), (600, 8192, 4096)])
+    def test_fused_norm_linear_tiled_wide_bf16(self, cuda_device, M, N, K):
+        self._hold_tiled(cuda_device, M, N, K)
+
+    @staticmethod
+    def _hold_tiled(cuda_device, M, N, K):
+        g = torch.Generator(device=cuda_device).manual_seed(M + N + K)
+        x = torch.randn(M, K, generator=g, device=cuda_device).bfloat16()
+        nw = (1 + 0.1 * torch.randn(K, generator=g,
+                                    device=cuda_device)).bfloat16()
+        w = (torch.randn(K, N, generator=g, device=cuda_device)
+             / K ** 0.5).bfloat16()
+        rs = fused_norm_linear.rms_scale(x, 1e-5)
+        act = "silu" if (M + N + K // 8) % 2 else "none"
+        launches.reset()
+        got = fused_norm_linear.fused_norm_linear(x, rs, nw, w, act)
+        again = fused_norm_linear.fused_norm_linear(x, rs, nw, w, act)
+        assert launches.snapshot() == {"fused_norm_linear_tiled": 2}
+        want = fused_norm_linear.fused_norm_linear_plain(x, rs, nw, w, act)
+        assert torch.equal(got, again)
+        assert float((got.float() - want.float()).abs().max()) <= \
+            float(want.float().abs().max()) / 128
+
+    @pytest.mark.parametrize("M", [4, 70, 256])
+    def test_fused_norm_linear_group(self, cuda_device, M):
+        # one launch for q/k/v-like and gate/up-like groups above 8 rows,
+        # each output bit-identical to its single-weight call
+        g = torch.Generator(device=cuda_device).manual_seed(M)
+        K = 512
+        x = torch.randn(M, K, generator=g, device=cuda_device).bfloat16()
+        nw = torch.randn(K, generator=g, device=cuda_device).bfloat16()
+        rs = fused_norm_linear.rms_scale(x, 1e-5)
+        for ns, acts in (([512, 128, 136], ["none"] * 3),
+                         ([1000, 1000], ["silu", "none"]), ([264], ["silu"])):
+            ws = [(torch.randn(K, n, generator=g, device=cuda_device)
+                   / 32).bfloat16() for n in ns]
+            launches.reset()
+            outs = fused_norm_linear.fused_norm_linear_group(x, rs, nw, ws,
+                                                             acts)
+            counts = launches.snapshot()
+            singles = [fused_norm_linear.fused_norm_linear(x, rs, nw, w, a)
+                       for w, a in zip(ws, acts)]
+            if M > fused_norm_linear.SKINNY_MAX_ROWS:
+                assert counts == {"fused_norm_linear_tiled": 1}
+            else:
+                assert counts == {"fused_norm_linear_skinny": len(ws)}
+            for got, want in zip(outs, singles):
+                assert torch.equal(got, want)
+
     def test_fused_norm_linear_rejects_unaligned_widths(self, cuda_device):
         x = torch.randn(4, 64, device=cuda_device)
         with pytest.raises(ValueError, match="16 bytes"):
@@ -368,6 +428,47 @@ class TestCudaTrainingKernels:
         for a, b, r in zip(got, plain, ref):
             _hold_bf16_attention(a, b, r)
 
+    @pytest.mark.parametrize("layout", ["bhtd", "bthd"])
+    @pytest.mark.parametrize("D", [64, 128])
+    @pytest.mark.parametrize("causal", [False, True])
+    @pytest.mark.parametrize("H,KVH,Tq,Tk", [
+        (4, 4, 1, 1), (4, 1, 100, 100), (8, 2, 1000, 1000), (4, 1, 100, 333),
+        (2, 2, 1, 257)])
+    def test_flash_attention_forward(self, cuda_device, H, KVH, Tq, Tk,
+                                     causal, D, layout):
+        # the wgmma forward: ragged T, Tq < Tk, GQA groups 1 and 4, the
+        # model's [B, T, H, D] views; O and LSE, twice, bit for bit
+        ops = _attn_inputs(2, H, KVH, Tq, Tk, D, torch.bfloat16,
+                           cuda_device, seed=Tq + D)[:3]
+        if layout == "bthd":
+            ops = [x.transpose(1, 2).contiguous().transpose(1, 2)
+                   for x in ops]
+        scale = 1 / math.sqrt(D)
+        launches.reset()
+        o, lse = fa._fwd_kernel(*ops, causal, scale, True)
+        o2, lse2 = fa._fwd_kernel(*ops, causal, scale, True)
+        o3, _ = fa._fwd_kernel(*ops, causal, scale, False)
+        assert launches.snapshot() == {fa.FWD_LSE: 2, fa.FWD: 1}
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
+        assert torch.equal(o, o3) and o.stride() == ops[0].stride()
+        plain, _ = fa.flash_fwd_plain(*ops, causal, scale)
+        ro, rlse = fa.flash_fwd_plain(*[x.float() for x in ops], causal,
+                                      scale)
+        _hold_bf16_attention(o, plain, ro)
+        close(lse.cpu(), rlse.cpu())
+
+    def test_flash_attention_tma_strides(self, cuda_device):
+        # a view whose time stride is not a multiple of 16 bytes has no
+        # tensor map: the wrapper copies it to a dense layout first
+        base = torch.randn(1, 2, 40, 68, device=cuda_device).bfloat16()
+        q = base[..., :64]
+        assert fa._kernel_view(q).stride()[2] == 64
+        k = torch.randn(1, 1, 40, 64, device=cuda_device).bfloat16()
+        with torch.no_grad():
+            got = fa.flash_attention_bhtd(q, k, k, causal=True)
+        assert torch.equal(got, fa.flash_attention_bhtd(
+            q.contiguous(), k, k, causal=True))
+
     def test_flash_attention_bthd_views(self, cuda_device):
         # the model's [B, T, H, D] layout goes in as strided views and
         # comes out in the same memory order, no copy
@@ -625,12 +726,44 @@ class TestCudaFusedLinear:
         for got, want in zip(grads[1], grads[0]):
             close(got, want, 1e-5 * float(want.abs().max()))
 
-    def test_rejects_what_it_does_not_take(self, cuda_device):
-        x, w, b = (a.to(cuda_device) for a in self._operands(
-            4, 12, 8, True, torch.float32))
+    @pytest.mark.parametrize("K", [3, 5, 771])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_any_k(self, cuda_device, K, dtype):
+        # K % 8 != 0 takes the predicated loads; twice, bit for bit
+        x, w, b = self._operands(130, K, 72, True, dtype)
+        want = fused_linear.fused_linear_plain(x, w, b, "relu").float()
+        xd, wd, bd = (a.to(cuda_device) for a in (x, w, b))
         launches.reset()
-        with pytest.raises(ValueError, match="multiple of 8"):
-            fused_linear.fused_linear(x, w, b, "gelu")
+        got = fused_linear.fused_linear(xd, wd, bd, "relu")
+        assert torch.equal(got, fused_linear.fused_linear(xd, wd, bd,
+                                                          "relu"))
+        assert launches.snapshot() == {fused_linear.KERNEL: 2}
+        tol = TOL if dtype == torch.float32 else 2.0 ** -7
+        assert float((got.cpu().float() - want).abs().max()) <= \
+            tol * max(1.0, float(want.abs().max()))
+
+    def test_unaligned_rows(self, cuda_device):
+        # K % 8 == 0, but x starts 2 bytes past a 16-byte boundary
+        x, w, _ = self._operands(33, 64, 40, False, torch.bfloat16)
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda_device)
+        xs = buf[1:].view(33, 64)
+        xs.copy_(x)
+        assert xs.is_contiguous() and xs.data_ptr() % 16
+        got = fused_linear.fused_linear(xs, w.to(cuda_device), None)
+        want = fused_linear.fused_linear_plain(x, w, None, "none").float()
+        assert float((got.cpu().float() - want).abs().max()) <= \
+            float(want.abs().max()) * 2.0 ** -7
+
+    def test_rejects_what_it_does_not_take(self, cuda_device):
+        # K = 12 runs (any K does); other dtypes and shapes raise
+        x, w, b = self._operands(4, 12, 8, True, torch.float32)
+        want = fused_linear.fused_linear_plain(x, w, b, "gelu")
+        launches.reset()
+        close(fused_linear.fused_linear(x.to(cuda_device), w.to(cuda_device),
+                                        b.to(cuda_device), "gelu").cpu(),
+              want)
+        assert launches.snapshot() == {fused_linear.KERNEL: 1}
+        launches.reset()
         x, w, b = (a.to(cuda_device) for a in self._operands(
             4, 16, 8, True, torch.float16))
         with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -677,8 +810,46 @@ def _tiny_static_bert(device, state, steps=5):
     return losses, counts
 
 
+def _fc_program(device, w, b):
+    """``static.nn.fc(x [None, 3], 5, activation="relu")`` with the
+    weights w [5, 3] and b [5], fused by the build strategy."""
+    from paddle_tpu_torch import static
+
+    static.enable_static()
+    try:
+        main = static.Program()
+        with static.program_guard(main):
+            x = static.data("x", [None, 3], "float32")
+            y = static.nn.fc(x, 5, weight_attr=w, bias_attr=b,
+                             activation="relu", device=device)
+        static.apply_build_strategy(main, keep=[y.name])
+    finally:
+        static.disable_static()
+    return main, y
+
+
 @pytest.mark.cuda
 class TestCudaStatic:
+    def test_fused_fc_with_k_3_matches_cpu(self, cuda_device):
+        # the fused linear -> relu pair with K = 3 runs on the card
+        from paddle_tpu_torch import static
+
+        rng = np.random.RandomState(0)
+        feed = {"x": rng.randn(7, 3).astype(np.float32)}
+        w, b = rng.randn(5, 3).astype(np.float32), rng.randn(5).astype(
+            np.float32)
+        outs = []
+        for device in ("cpu", cuda_device):
+            main, y = _fc_program(device, w, b)
+            assert [op.type for op in main.global_block().ops] == \
+                ["fused_linear"]
+            launches.reset()
+            outs.append(static.Executor(device).run(main, feed=feed,
+                                                    fetch_list=[y])[0])
+            want = {fused_linear.KERNEL: 1} if device != "cpu" else {}
+            assert launches.snapshot() == want
+        close(outs[1], outs[0])
+
     def test_tiny_static_bert_matches_cpu(self, cuda_device):
         from paddle_tpu_torch.models import BertConfig, BertForPretraining
 
