@@ -10,17 +10,34 @@
 // device memory: each block normalizes the x tile it stages in shared
 // memory, with the reference's two cast points.
 //
-// Two kernels, chosen by the number of rows M:
-// - skinny (M <= 8, the decode step): bound by bytes, the one read of w.
-//   Each lane loads 16 bytes of a row of w at a time (8 bf16 or 4 f32
-//   columns), so a warp streams one contiguous 512-byte row segment; a
-//   block's 8 warps take interleaved rows of its K range.  A narrow
-//   projection (N = 1024 is only 4 column strips) is also split along K
-//   over the grid (gridDim.y), so that enough blocks stream w to fill
-//   the card; each split writes an f32 partial and a second pass sums
-//   the splits in a fixed order, applies silu and casts.  The warps'
-//   sums meet in a fixed tree in shared memory: no atomics, the result
-//   does not change from run to run.
+// Kernels chosen by the number of rows M and the type:
+// - skinny (M <= 8, the decode step): bound by bytes, the one read of w
+//   (Llama-3-8B's q/k/v/gate/up: 285 MB, 0.085 ms at 3.35 TB/s).  For
+//   bf16, norm_linear_skinny_mma: one launch covers every weight that
+//   shares x (q/k/v, or gate/up), a block owns 64 columns of one weight
+//   and a 1/S share of K, and the S blocks of one column strip form a
+//   thread block cluster.  A producer warp streams the block's w rows by
+//   TMA through a ring of SKM_STAGES 8 KB stages (32 KB in flight a
+//   block, four blocks a SM); the block normalizes its K range of x once
+//   into shared memory, with the reference's two cast points; four warps
+//   take 16
+//   columns each and run the product on the tensor cores with the
+//   operands swapped, out^T = w^T . xn^T: mma.sync m16n8k16 with a
+//   16 x 16 tile of w as A (ldmatrix.trans out of the swizzled stage)
+//   and the <= 8 rows of xn as the n8 B operand, f32 accumulation.  The
+//   S partial tiles are summed through distributed shared memory in rank
+//   order, then silu and the cast: no partials in device memory, no
+//   second launch, the same bits from run to run.  The split S and the
+//   rows a rank takes come from the wrapper (skinny_plan) and depend on
+//   K alone, so each output equals its single-weight call bit for bit.
+//   f32 keeps norm_linear_skinny on the CUDA cores (the tensor cores
+//   would round it to TF32): each lane loads 16 bytes of a row of w at
+//   a time (4 columns), a warp streams one contiguous 512-byte row
+//   segment, a block's 8 warps take interleaved rows of its K range, a
+//   narrow projection is also split along K over the grid (gridDim.y),
+//   each split writes an f32 partial and a second pass sums the splits
+//   in a fixed order, applies silu and casts.  The warps' sums meet in
+//   a fixed tree in shared memory.
 // - tiled (M > 8, the prefill chunk).  At Llama-3-8B's q/k/v/gate/up
 //   with M = 256 the bytes bound it (w's 285 MB once, x and the outputs:
 //   0.091 ms at 3.35 TB/s) just ahead of the operations (0.074 ms at 989
@@ -408,6 +425,11 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       for (int ks = 0; ks < WG_BK / 16; ++ks)
         asm volatile("" ::"r"(a[ks][0]), "r"(a[ks][1]), "r"(a[ks][2]),
                      "r"(a[ks][3]));
+      // the stage's ldmatrix reads of x (generic proxy) before TMA's
+      // next write to it (async proxy), every lane's before lane 0 frees
+      // it: as in norm_linear_skinny_mma
+      fence_proxy_async();
+      __syncwarp();
       if (lane == 0) mbar_arrive(&empty[kt % WG_STAGES]);
     };
     // two k-tiles in registers: the next one is normalized while the
@@ -506,25 +528,249 @@ static int launch_wgmma(const bf16* x, const float* rs, const bf16* nw,
                                 : launch_tiles<256>(p, n, s);
 }
 
+// ------------------------------------------ skinny, bf16 (mma.sync + TMA)
+constexpr int SKM_BN = 64;               // columns a block: one TMA box
+constexpr int SKM_BK = 64;               // k rows a stage
+constexpr int SKM_STAGES = 4;
+constexpr int SKM_WARPS = SKM_BN / 16;   // consumer warps, 16 columns each
+constexpr int SKM_THREADS = 32 * (SKM_WARPS + 1);   // + the producer warp
+constexpr int SKM_BOX = SKM_BK * SKM_BN * 2;        // 8 KB
+constexpr int SKM_MAX_SPLIT = 8;         // a portable cluster
+
+struct SkinnyGroup {
+  CUtensorMap w[WG_MAX_W];       // [K, N_i], box 64 n x 64 k
+  const bf16* x;
+  const float* rs;
+  const bf16* nw;
+  bf16* out[WG_MAX_W];
+  int n[WG_MAX_W];
+  int silu[WG_MAX_W];
+  int tiles_end[WG_MAX_W];       // column strips of weights 0..i together
+  int count, M, K, kc;           // kc: k rows a rank, a multiple of SKM_BK
+};
+
+__host__ __device__ constexpr int skm_smem(int kc) {
+  return 1024 + SKM_STAGES * SKM_BOX + SK_MR * (kc + 8) * 2 +
+         SKM_BN * SK_MR * 4 + 2 * SKM_STAGES * 8;
+}
+
+__global__ void __launch_bounds__(SKM_THREADS)
+    norm_linear_skinny_mma(const __grid_constant__ SkinnyGroup p) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int xstride = p.kc + 8;  // bf16; 8 more keeps the B loads apart
+  bf16* xs = reinterpret_cast<bf16*>(smem + SKM_STAGES * SKM_BOX);
+  float* part = reinterpret_cast<float*>(xs + SK_MR * xstride);  // [64][8]
+  uint64_t* full = reinterpret_cast<uint64_t*>(part + SKM_BN * SK_MR);
+  uint64_t* empty = full + SKM_STAGES;
+
+  const int rank = (int)cluster_ctarank(), ranks = (int)cluster_nctarank();
+  const int tile = blockIdx.x / ranks;
+  int wi = 0;
+  while (wi + 1 < p.count && tile >= p.tiles_end[wi]) ++wi;
+  const int n0 = (tile - (wi ? p.tiles_end[wi - 1] : 0)) * SKM_BN;
+  const int N = p.n[wi];
+  const int kb = rank * p.kc, ke = min(p.K, kb + p.kc);
+  const int k_tiles = ke > kb ? (ke - kb + SKM_BK - 1) / SKM_BK : 0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < SKM_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], SKM_WARPS);   // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == SKM_WARPS) {
+    // ------------------------------------------------------ producer
+    if (lane == 0) {
+      for (int kt = 0; kt < k_tiles; ++kt) {
+        const int s = kt % SKM_STAGES;
+        if (kt >= SKM_STAGES) mbar_wait(&empty[s], (kt / SKM_STAGES - 1) & 1);
+        mbar_expect_tx(&full[s], SKM_BOX);
+        tma_load_2d(smem + s * SKM_BOX, &p.w[wi], &full[s], n0,
+                    kb + kt * SKM_BK);
+      }
+    }
+    __syncwarp();
+  } else {
+    // ------------------------------------------------------ consumers
+    // this rank's K range of x, normalized once (zeros past it and past
+    // M) while the first stages are in flight: 8 k a vector, each
+    // thread's loads issued together (x's rows are 16-byte aligned when
+    // K % 8 == 0, else element by element)
+    {
+      constexpr int NV = 4;
+      const int row_vecs = p.kc / 8, vecs = SK_MR * row_vecs;
+      const bool vec_rows = p.K % 8 == 0;
+      for (int v0 = threadIdx.x; v0 < vecs; v0 += NV * 32 * SKM_WARPS) {
+        uint4 xv[NV], wv[NV];
+#pragma unroll
+        for (int j = 0; j < NV; ++j) {
+          const int v = v0 + j * 32 * SKM_WARPS;
+          const int m = v / row_vecs, k = kb + (v % row_vecs) * 8;
+          xv[j] = wv[j] = zero4();
+          if (v < vecs && m < p.M && vec_rows && k + 8 <= ke) {
+            xv[j] = __ldg(reinterpret_cast<const uint4*>(
+                p.x + (size_t)m * p.K + k));
+            wv[j] = __ldg(reinterpret_cast<const uint4*>(p.nw + k));
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NV; ++j) {
+          const int v = v0 + j * 32 * SKM_WARPS;
+          if (v >= vecs) break;
+          const int m = v / row_vecs, kl = (v % row_vecs) * 8, k = kb + kl;
+          uint4 o = zero4();
+          if (m < p.M && vec_rows && k + 8 <= ke) {
+            const float r = p.rs[m];
+            o.x = norm_pair(xv[j].x, r, wv[j].x);
+            o.y = norm_pair(xv[j].y, r, wv[j].y);
+            o.z = norm_pair(xv[j].z, r, wv[j].z);
+            o.w = norm_pair(xv[j].w, r, wv[j].w);
+          } else if (m < p.M) {
+            bf16* e = reinterpret_cast<bf16*>(&o);
+            for (int i = 0; i < 8 && k + i < ke; ++i)
+              e[i] = __float2bfloat16_rn(
+                  norm_elem(p.x, p.rs, p.nw, m, k + i, p.K));
+          }
+          *reinterpret_cast<uint4*>(xs + m * xstride + kl) = o;
+        }
+      }
+    }
+    asm volatile("bar.sync 1, %0;\n" ::"n"(32 * SKM_WARPS) : "memory");
+
+    const int g = lane / 4, tg = lane % 4;
+    // ldmatrix.x4.trans row addresses: matrix lane / 8 is (columns 0-7
+    // or 8-15 of the warp's 16 by bit 0, k 0-7 or 8-15 by bit 1): a0..a3
+    const int lk = ((lane >> 4) & 1) * 8 + (lane & 7);
+    const int lchunk = warp * 2 + ((lane >> 3) & 1);
+    const bf16* xrow = xs + g * xstride + 2 * tg;
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int kt = 0; kt < k_tiles; ++kt) {
+      const int s = kt % SKM_STAGES;
+      mbar_wait(&full[s], (kt / SKM_STAGES) & 1);
+      const uint32_t ws = smem_u32(smem + s * SKM_BOX);
+#pragma unroll
+      for (int ks = 0; ks < SKM_BK / 16; ++ks) {
+        uint32_t a[4], b[2];
+        ldsm_x4_trans(a, ws + swz128(ks * 16 + lk, lchunk));
+        const int k = kt * SKM_BK + ks * 16;
+        b[0] = ld_pair(xrow + k);
+        b[1] = ld_pair(xrow + k + 8);
+        mma_bf16(c, a, b);
+      }
+      // the stage's reads (generic proxy) before TMA's next write to it
+      // (async proxy), every lane's before lane 0 frees it
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+    // C: columns g and g + 8 of the warp's 16, rows 2 tg and 2 tg + 1
+    const int nl = warp * 16 + g;
+    *reinterpret_cast<float2*>(part + nl * SK_MR + 2 * tg) =
+        make_float2(c[0], c[1]);
+    *reinterpret_cast<float2*>(part + (nl + 8) * SK_MR + 2 * tg) =
+        make_float2(c[2], c[3]);
+  }
+
+  // the ranks' partial tiles summed in rank order: rank r finishes the
+  // outputs i of the 64 x 8 tile with i % ranks == r
+  cluster_sync();
+  bf16* out = p.out[wi];
+  const bool silu_on = p.silu[wi] != 0;
+  const uint32_t part_s = smem_u32(part);
+  for (int j = threadIdx.x; j * ranks + rank < SKM_BN * SK_MR;
+       j += SKM_THREADS) {
+    const int i = j * ranks + rank, nl = i / SK_MR, m = i % SK_MR;
+    if (m >= p.M || n0 + nl >= N) continue;
+    float v[SKM_MAX_SPLIT];
+#pragma unroll
+    for (int r = 0; r < SKM_MAX_SPLIT; ++r)
+      v[r] = r < ranks ? ld_dsmem_f32(part_s + 4 * i, r) : 0.f;
+    float z = 0.f;
+#pragma unroll
+    for (int r = 0; r < SKM_MAX_SPLIT; ++r) z += v[r];
+    if (silu_on) z = silu(z);
+    out[(size_t)m * N + n0 + nl] = __float2bfloat16_rn(z);
+  }
+  cluster_sync();   // no block leaves while another reads its tile
+}
+
+// up to WG_MAX_W weights [K, n_i] sharing x [M <= SK_MR, K]: one block
+// per 64-column strip of each weight and rank of the K split, the
+// `splits` ranks of a strip one cluster
+static int launch_skinny_mma(const bf16* x, const float* rs, const bf16* nw,
+                             const bf16* const* w, bf16* const* out,
+                             const int* n, int silu_mask, int count, int M,
+                             int K, int splits, int kc, cudaStream_t s) {
+  if (count < 1 || count > WG_MAX_W || M > SK_MR || splits < 1 ||
+      splits > SKM_MAX_SPLIT || kc % SKM_BK || (long)splits * kc < K)
+    return (int)cudaErrorInvalidValue;
+  SkinnyGroup p{};
+  int tiles = 0;
+  for (int i = 0; i < count; ++i) {
+    const cuuint64_t wd[2] = {(cuuint64_t)n[i], (cuuint64_t)K};
+    const cuuint64_t wst[1] = {(cuuint64_t)n[i] * 2};
+    const cuuint32_t wb[2] = {SKM_BN, SKM_BK};
+    if (!hopper::make_map_bf16(&p.w[i], w[i], 2, wd, wst, wb))
+      return (int)cudaErrorInvalidValue;
+    p.out[i] = out[i];
+    p.n[i] = n[i];
+    p.silu[i] = (silu_mask >> i) & 1;
+    tiles += (n[i] + SKM_BN - 1) / SKM_BN;
+    p.tiles_end[i] = tiles;
+  }
+  p.x = x;
+  p.rs = rs;
+  p.nw = nw;
+  p.count = count;
+  p.M = M;
+  p.K = K;
+  p.kc = kc;
+  const int smem = skm_smem(kc);
+  cudaError_t e = cudaFuncSetAttribute(
+      norm_linear_skinny_mma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * splits);
+  cfg.blockDim = dim3(SKM_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, norm_linear_skinny_mma, p);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 // ---------------------------------------------------------- C entry
-template <typename T, bool SILU>
-static int launch(const T* x, const float* rs, const T* nw, const T* w,
-                  T* out, float* part, int M, int N, int K, int splits,
-                  cudaStream_t s) {
+template <bool SILU>
+static int launch(const float* x, const float* rs, const float* nw,
+                  const float* w, float* out, float* part, int M, int N,
+                  int K, int splits, cudaStream_t s) {
   if (M <= SK_MR) {
-    constexpr int STRIP = 32 * Vec<T>::N;
+    constexpr int STRIP = 32 * Vec<float>::N;
     const dim3 grid((N + STRIP - 1) / STRIP, splits);
-    norm_linear_skinny<T, SILU><<<grid, SK_THREADS, 0, s>>>(
+    norm_linear_skinny<float, SILU><<<grid, SK_THREADS, 0, s>>>(
         x, rs, nw, w, out, part, M, N, K);
     if (splits > 1) {
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
       const int MN = M * N;
-      norm_linear_skinny_sum<T, SILU><<<(MN + 255) / 256, 256, 0, s>>>(
+      norm_linear_skinny_sum<float, SILU><<<(MN + 255) / 256, 256, 0, s>>>(
           part, out, MN, splits);
     }
-  } else if constexpr (sizeof(T) == 2) {
-    return launch_wgmma(x, rs, nw, &w, &out, &N, SILU ? 1 : 0, 1, M, K, s);
   } else {
     const dim3 grid((N + TB_N - 1) / TB_N, (M + TB_M - 1) / TB_M);
     norm_linear_tiled_f32<SILU><<<grid, TB_THREADS, 0, s>>>(
@@ -533,41 +779,46 @@ static int launch(const T* x, const float* rs, const T* nw, const T* w,
   return (int)cudaGetLastError();
 }
 
-// M <= SK_MR takes the skinny kernel (kernels/fused_norm_linear.py
-// SKINNY_MAX_ROWS mirrors it, to count the launch under the right name);
-// part is the [splits, M, N] f32 scratch of a skinny call split along K
+// one f32 weight (dtype 0; bf16 goes through fused_norm_linear_group and
+// is refused here).  M <= SK_MR takes the skinny kernel
+// (kernels/fused_norm_linear.py SKINNY_MAX_ROWS mirrors it, to count the
+// launch under the right name), where part is the [splits, M, N] f32
+// scratch of a call split along K; larger M the tiled f32 kernel
 extern "C" int fused_norm_linear(const void* x, const void* rs,
                                  const void* nw, const void* w, void* out,
                                  void* part, int M, int N, int K, int splits,
                                  int act_silu, int dtype, void* stream) {
   if (M == 0 || N == 0) return 0;
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const float* xp = (const float*)x;
   const float* r = (const float*)rs;
+  const float* nwp = (const float*)nw;
+  const float* wp = (const float*)w;
+  float* op = (float*)out;
   float* p = (float*)part;
-  DISPATCH_DTYPE(dtype, T, {
-    const T* xp = (const T*)x;
-    const T* nwp = (const T*)nw;
-    const T* wp = (const T*)w;
-    T* op = (T*)out;
-    return act_silu ? launch<T, true>(xp, r, nwp, wp, op, p, M, N, K, splits, s)
-                    : launch<T, false>(xp, r, nwp, wp, op, p, M, N, K, splits,
-                                       s);
-  });
+  return act_silu ? launch<true>(xp, r, nwp, wp, op, p, M, N, K, splits, s)
+                  : launch<false>(xp, r, nwp, wp, op, p, M, N, K, splits, s);
 }
 
-// up to three bf16 weights [K, n_i] that share x [M, K] (M > SK_MR), rs
-// and nw, in one launch: q/k/v, or gate/up; bit i of silu_mask applies
-// silu to out_i
+// up to three bf16 weights [K, n_i] that share x [M, K], rs and nw, in
+// one launch: q/k/v, or gate/up; bit i of silu_mask applies silu to
+// out_i.  M <= SK_MR takes norm_linear_skinny_mma with the K split
+// `splits` and `kc` rows a rank (the wrapper's skinny_plan), larger M the
+// wgmma kernel (splits and kc unused)
 extern "C" int fused_norm_linear_group(
     const void* x, const void* rs, const void* nw, const void* w0,
     const void* w1, const void* w2, void* out0, void* out1, void* out2,
     int n0, int n1, int n2, int silu_mask, int count, int M, int K,
-    void* stream) {
+    int splits, int kc, void* stream) {
   if (M == 0) return 0;
-  if (M <= SK_MR) return (int)cudaErrorInvalidValue;
   const bf16* w[3] = {(const bf16*)w0, (const bf16*)w1, (const bf16*)w2};
   bf16* out[3] = {(bf16*)out0, (bf16*)out1, (bf16*)out2};
   const int n[3] = {n0, n1, n2};
+  if (M <= SK_MR)
+    return launch_skinny_mma((const bf16*)x, (const float*)rs,
+                             (const bf16*)nw, w, out, n, silu_mask, count, M,
+                             K, splits, kc, (cudaStream_t)stream);
   return launch_wgmma((const bf16*)x, (const float*)rs, (const bf16*)nw, w,
                       out, n, silu_mask, count, M, K, (cudaStream_t)stream);
 }

@@ -1,9 +1,10 @@
-// Hopper (sm_90a) building blocks shared by the wgmma kernels
-// (fused_norm_linear.cu's tiled bf16 kernel, flash_attention.cu's bf16
-// forward): mbarriers, TMA tensor loads into 128-byte-swizzled shared
-// memory, wgmma descriptors and instructions, setmaxnreg, and the host
-// side of a tensor map.  Raw PTX, no CUTLASS, so a source builds in
-// seconds.
+// Hopper (sm_90a) building blocks shared by the TMA kernels
+// (fused_norm_linear.cu's tiled and skinny bf16 kernels,
+// flash_attention.cu's bf16 forward): mbarriers, TMA tensor loads into
+// 128-byte-swizzled shared memory, ldmatrix over them, thread block
+// clusters and their distributed shared memory, wgmma descriptors and
+// instructions, setmaxnreg, and the host side of a tensor map.  Raw
+// PTX, no CUTLASS, so a source builds in seconds.
 //
 // The layout every tile here uses: TMA loads a box whose inner extent is
 // 64 bf16 (128 bytes, the widest a 128-byte swizzle takes) into shared
@@ -75,6 +76,13 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// order this thread's generic-proxy accesses to shared memory (ldmatrix,
+// ld.shared) before later async-proxy ones (TMA writes into the same
+// bytes): a consumer fences before it releases a ring stage
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ---------------------------------------------------------------- TMA
 // box at coordinates (innermost first) of the tensor map into dst; the
 // bytes complete a transaction of `bar`.  Coordinates past the tensor's
@@ -113,6 +121,53 @@ __device__ __forceinline__ void ldsm_x4(uint32_t* r, uint32_t addr) {
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
+}
+
+// the same, transposed: lane t gets rows 2 (t % 4) and 2 (t % 4) + 1 of
+// column t / 4 of each matrix (the mma.sync A fragment of a tile stored
+// k-major, as w's [k][n] rows)
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// ----------------------------------------------------- thread block clusters
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_nctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster: writes to shared memory
+// before it are visible to the cluster's reads after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+// the f32 at shared address `addr` of block `rank` of the cluster (the
+// same offset in its shared memory as `addr` in this block's)
+__device__ __forceinline__ float ld_dsmem_f32(uint32_t addr, uint32_t rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(addr), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(remote)
+               : "memory");
+  return v;
 }
 
 // -------------------------------------------------------------- wgmma

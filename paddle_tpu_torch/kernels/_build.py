@@ -18,6 +18,7 @@ launch on PyTorch's current stream; every C entry point returns
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
@@ -133,6 +134,14 @@ def stream_ptr(t) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """Streaming multiprocessors of ``device`` (the kernels' grid plans)."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def ptr(t) -> ctypes.c_void_p:

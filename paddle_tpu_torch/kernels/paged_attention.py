@@ -21,8 +21,18 @@ Quantized pools (``kv_cache_dtype`` ``"int8"``/``"fp8"``, the
 reference's ``kv_dtype`` variant of ``_decode_kernel``) hold int8 codes
 with a [nb, bs] f32 scale per side: the new token is quantized as it is
 written (``kv_quant.quantize_scatter``, one launch for k and v) and the
-kernel dequantizes each page as it stages it.  Each scheme counts its
-own launches (``paged_decode_int8``, ``paged_decode_fp8``).
+kernel dequantizes each row in registers.  Each scheme counts its own
+launches (``paged_decode_int8``, ``paged_decode_fp8``).
+
+Which CUDA kernel runs follows q's type.  bf16 q takes
+``paged_decode_hopper``, one launch whose blocks split each sequence's
+live keys into chunks of ``CHUNK_KEYS`` (:func:`decode_plan` sizes the
+grid and the scratch) and whose last block per (sequence, kv head)
+merges their shares; it reads bf16 or f32 cos/sin as given, and
+refuses operands outside its shapes (:func:`hopper_path`).  f32, which
+only the tests serve, takes ``paged_decode_partials`` with
+``num_splits`` splits and a combine kernel.  Both agree with the plain
+version up to the order of f32 sums (and the Hopper kernel's exp2).
 """
 from __future__ import annotations
 
@@ -36,7 +46,12 @@ from . import _build, kv_quant
 KERNEL = "paged_decode"
 LIB = "paged_attention"   # csrc/paged_attention.cu
 NEG_INF = -1e30
-SMEM_LIMIT = 48 * 1024     # the kernel uses default (non-opt-in) smem
+SMEM_LIMIT = 48 * 1024     # paged_decode_partials: default smem
+CHUNK_KEYS = 64            # csrc/paged_attention.cu PF_CHUNK
+HOPPER_REPS = (1, 2, 4, 8)
+HOPPER_DIMS = (64, 128)
+BLOCKS_PER_SM = 3          # csrc/paged_attention.cu PF_MIN_BLOCKS
+MAX_SPLITS = 64            # csrc/paged_attention.cu PF_MAX_SPLITS
 
 
 def _rotate_half(x, c, s):
@@ -76,6 +91,42 @@ def _default_splits(nbs):
         if s <= max(1, nbs // 2) and s <= 4:
             best = s
     return best
+
+
+def decode_plan(B, KVH, nbs, bs, sm_count):
+    """Splits of ``paged_decode_hopper``: how many blocks share one
+    (sequence, kv head)'s live keys.  Enough for BLOCKS_PER_SM blocks a
+    SM, as many as its registers let reside at once, so that the live
+    blocks run in one wave when every sequence is long; no more than a
+    full table has chunks of CHUNK_KEYS, nor MAX_SPLITS (the last
+    block's merge keeps a weight of each in shared memory).  The
+    kernel's own partition follows each sequence's frontier (block s
+    takes the s-th run of ceil(chunks / S) chunks), so the scratch of
+    [B, S, H, D] partials is an upper bound known
+    without a host sync."""
+    max_chunks = -(-nbs * bs // CHUNK_KEYS)
+    want = -(-BLOCKS_PER_SM * sm_count // max(1, B * KVH))
+    return max(1, min(max_chunks, want, MAX_SPLITS))
+
+
+def hopper_path(q, k_pool, v_pool, rep):
+    """Whether these operands go to ``paged_decode_hopper``: True for bf16
+    q, False for f32 (the general kernel).  bf16 operands it does not
+    take raise ValueError: rep and D it is not built for, a block size
+    that is not a power of two (its row index is a shift and a mask),
+    pools not 16-byte aligned (its row loads)."""
+    if q.dtype != torch.bfloat16:
+        return False
+    bs = k_pool.shape[1]
+    if not (rep in HOPPER_REPS and q.shape[-1] in HOPPER_DIMS and bs > 0
+            and bs & (bs - 1) == 0 and k_pool.data_ptr() % 16 == 0
+            and v_pool.data_ptr() % 16 == 0):
+        raise ValueError(
+            f"paged_decode_attention: the bf16 kernel takes rep in "
+            f"{HOPPER_REPS}, D in {HOPPER_DIMS}, a power-of-two block size "
+            f"and 16-byte aligned pools; got rep={rep}, D={q.shape[-1]}, "
+            f"block_size={bs}")
+    return True
 
 
 def _plain_partials(q_rot, k_pool, v_pool, block_table, positions,
@@ -158,31 +209,41 @@ def paged_decode_attention(q, c, s, k_pool, v_pool, block_table, positions,
                          f"q {tuple(q.shape)} {q.dtype}, pool "
                          f"{tuple(k_pool.shape)} {k_pool.dtype}")
     fn = _build.bind(LIB, "paged_decode",
-                     [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
-                     + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                        ctypes.c_void_p])
-    smem = _build.bind(LIB, "paged_decode_smem_bytes",
-                       [ctypes.c_int] * 3)(rep, D, bs)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"paged_decode_attention: rep={rep}, D={D}, "
-                         f"block_size={bs} needs {smem} B of shared memory")
+                     [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
+                     + [ctypes.c_float] + [ctypes.c_int] * 3
+                     + [ctypes.c_void_p])
+    hopper = hopper_path(q, k_pool, v_pool, rep)
+    if hopper:
+        splits = decode_plan(B, KVH, nbs, bs, _build.sm_count(q.device))
+    else:
+        splits = num_splits
+        smem = _build.bind(LIB, "paged_decode_smem_bytes",
+                           [ctypes.c_int] * 3)(rep, D, bs)
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"paged_decode_attention: rep={rep}, D={D}, "
+                             f"block_size={bs} needs {smem} B of shared "
+                             "memory")
     name = kv_quant.counter_name(KERNEL, kv_cache_dtype)
     q = q.contiguous()
-    c, s = c.float().contiguous(), s.float().contiguous()
+    if not (hopper and c.dtype == s.dtype == torch.bfloat16):
+        c, s = c.float(), s.float()
+    c, s = c.contiguous(), s.contiguous()
     scales = () if kv_cache_dtype is None else (k_scale, v_scale)
     _build.require_cuda(name, q, c, s, k_pool, v_pool, block_table,
                         positions, *scales)
     f32 = dict(dtype=torch.float32, device=q.device)
-    acc = torch.empty((B, num_splits, H, D), **f32)
-    m = torch.empty((B, num_splits, H), **f32)
-    l = torch.empty((B, num_splits, H), **f32)
+    acc = torch.empty((B, splits, H, D), **f32)
+    m = torch.empty((B, splits, H), **f32)
+    l = torch.empty((B, splits, H), **f32)
     out = torch.empty_like(q)
     p = _build.ptr
     ks, vs = (p(t) for t in scales) if scales else (None, None)
+    tickets = p(_tickets(q.device, B * KVH)) if hopper else None
     _build.check(fn(p(q), p(c), p(s), p(k_pool), p(v_pool), ks, vs,
-                    p(block_table), p(positions), p(acc), p(m), p(l), p(out),
-                    B, KVH, rep, D, bs, nbs, num_splits, 1.0 / math.sqrt(D),
-                    _build.dtype_code(q),
+                    p(block_table), p(positions), p(acc), p(m), p(l),
+                    tickets, p(out), B, KVH, rep, D, bs, nbs, splits,
+                    1.0 / math.sqrt(D), _build.dtype_code(q),
+                    _build.dtype_code(c),
                     kv_quant.KV_DTYPE_CODES[kv_cache_dtype],
                     _build.stream_ptr(q)), name)
     _build.launches.add(name)
@@ -230,3 +291,21 @@ def fused_paged_decode(q, k_new, v_new, k_pool, v_pool, block_table,
     if kv_cache_dtype is None:
         return out, k_pool, v_pool
     return out, k_pool, v_pool, k_scale, v_scale
+
+
+_ticket_buffers: dict = {}
+
+
+def _tickets(device, n):
+    """The int32 tickets of ``paged_decode_hopper``, one per (sequence, kv
+    head), at least ``n``, one buffer per device and stream.  Zero when
+    made; each launch leaves them at zero again (the last block of a
+    (sequence, kv head) resets its own), so the launches of one stream,
+    which run one after another, share them; launches on two streams at
+    once would mix their tickets, hence a buffer each."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _ticket_buffers.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _ticket_buffers[key] = buf
+    return buf

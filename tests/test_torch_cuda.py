@@ -13,7 +13,9 @@ MoE dispatch and combine bit-identical where every slot has one choice
 of weight 1, else 1e-6 in f32 and one bf16 ulp of each output;
 fused_linear f32 1e-4, bf16 one bf16 ulp (2^-7) of the largest output,
 its backward (plain PyTorch on both devices) 1e-5 of the largest entry;
-the tiny static BERT's losses 1e-4.
+the tiny static BERT's losses 1e-4; the Hopper paged decode and the
+skinny fused_norm_linear group one bf16 rounding of the largest output,
+two runs bit-identical.
 The Llama-3-8B, Mixtral and BERT-base shapes are held in chip_smoke.py.
 """
 import math
@@ -121,8 +123,9 @@ class TestCudaKernels:
 
     @pytest.mark.parametrize("M", [4, 70, 256])
     def test_fused_norm_linear_group(self, cuda_device, M):
-        # one launch for q/k/v-like and gate/up-like groups above 8 rows,
-        # each output bit-identical to its single-weight call
+        # one launch for q/k/v-like and gate/up-like groups (the skinny
+        # kernel at most 8 rows, the tiled one above), each output
+        # bit-identical to its single-weight call
         g = torch.Generator(device=cuda_device).manual_seed(M)
         K = 512
         x = torch.randn(M, K, generator=g, device=cuda_device).bfloat16()
@@ -138,10 +141,7 @@ class TestCudaKernels:
             counts = launches.snapshot()
             singles = [fused_norm_linear.fused_norm_linear(x, rs, nw, w, a)
                        for w, a in zip(ws, acts)]
-            if M > fused_norm_linear.SKINNY_MAX_ROWS:
-                assert counts == {"fused_norm_linear_tiled": 1}
-            else:
-                assert counts == {"fused_norm_linear_skinny": len(ws)}
+            assert counts == {fused_norm_linear.kernel_name(M): 1}
             for got, want in zip(outs, singles):
                 assert torch.equal(got, want)
 
@@ -277,6 +277,177 @@ def _quantized_ops(args, scheme):
     ops = [t(a) for a in args]
     ops[3:5] = [kc, vc]
     return ops + [ks, vs]
+
+
+def _bf16_decode_operands(B, KVH, rep, D, nbs, positions, scheme, seed):
+    """bf16 q and pools (codes and scales for a quantized ``scheme``) on
+    the CPU, as paged_decode_attention takes them: bs = 16, a poisoned
+    block 0 that only an idle slot (frontier 0, its table all 0) reads,
+    the other sequences on distinct shuffled blocks."""
+    g = torch.Generator().manual_seed(seed)
+    bs, H = 16, KVH * rep
+    nb = 1 + B * nbs
+    kp = torch.randn(nb, bs, KVH, D, generator=g).bfloat16()
+    vp = torch.randn(nb, bs, KVH, D, generator=g).bfloat16()
+    kp[0], vp[0] = 1e3, -1e3
+    bt = (1 + torch.randperm(B * nbs, generator=g)).int().reshape(B, nbs)
+    pos = torch.tensor(positions, dtype=torch.int32)
+    bt[pos == 0] = 0
+    ang = torch.rand(B, D // 2, generator=g) * 6
+    ks = vs = None
+    if scheme is not None:
+        (kp, ks), (vp, vs) = (kv_quant.quantize_kv(p, scheme)
+                              for p in (kp, vp))
+    q = torch.randn(B, H, D, generator=g).bfloat16()
+    return (q, ang.cos(), ang.sin(), kp, vp, bt, pos,
+            paged_attention._default_splits(nbs), ks, vs, scheme)
+
+
+def _hold_decode(ops, cuda_device):
+    """The Hopper decode kernel on ``ops`` twice (the same bits), one
+    launch each, against the plain version on the CPU: one bf16
+    rounding of the largest output (the two differ in the order of f32
+    sums and the kernel's exp2)."""
+    dev = [None if o is None or isinstance(o, (int, str)) else
+           o.to(cuda_device) for o in ops]
+    dev[7], dev[10] = ops[7], ops[10]
+    launches.reset()
+    got = paged_attention.paged_decode_attention(*dev)
+    again = paged_attention.paged_decode_attention(*dev)
+    assert launches.snapshot() == {
+        kv_quant.counter_name(paged_attention.KERNEL, ops[10]): 2}
+    assert torch.equal(got, again)
+    want = paged_attention.paged_decode_attention_plain(*ops).float()
+    assert float((got.cpu().float() - want).abs().max()) <= \
+        float(want.abs().max()) / 128
+    return got.cpu()
+
+
+@pytest.mark.cuda
+class TestCudaHopperDecode:
+    """paged_decode_hopper (bf16 q over bf16, int8 and fp8 pools)."""
+
+    @pytest.mark.parametrize("scheme", [None, "int8", "fp8"])
+    def test_frontiers(self, cuda_device, scheme):
+        # 0, a page edge and its neighbour, a 64-key chunk edge +- 1 and
+        # the table's last key (nbs * bs - 1 = 127)
+        positions = [0, 15, 16, 63, 64, 65, 100, 127]
+        ops = _bf16_decode_operands(8, 2, 4, 128, 8, positions, scheme, 1)
+        assert paged_attention.hopper_path(ops[0], ops[3], ops[4], 4)
+        out = _hold_decode(ops, cuda_device)
+        assert float(out[1:].float().abs().max()) < 50.0   # no poison
+
+    @pytest.mark.parametrize("B", [1, 3, 8])
+    @pytest.mark.parametrize("D", [64, 128])
+    @pytest.mark.parametrize("rep", [1, 4, 8])
+    @pytest.mark.parametrize("scheme", [None, "int8", "fp8"])
+    def test_shapes_and_idle_slot(self, cuda_device, scheme, rep, D, B):
+        # slot 0 idle on the poisoned block 0; the others up to 4 chunks
+        positions = [0, 255, 130, 64, 31, 200, 77, 1][:B]
+        ops = _bf16_decode_operands(B, 2, rep, D, 16, positions, scheme,
+                                    rep * D + B)
+        _hold_decode(ops, cuda_device)
+
+    @pytest.mark.parametrize("rep,D,bs", [(3, 128, 16), (4, 96, 16),
+                                          (4, 128, 12)])
+    def test_refuses_shapes_it_does_not_take(self, cuda_device, rep, D, bs):
+        # bf16 outside the kernel's rep, D and power-of-two block sizes
+        # raises; no other kernel takes it
+        g = torch.Generator().manual_seed(rep * D + bs)
+        q = torch.randn(2, 2 * rep, D, generator=g).bfloat16()
+        pool = torch.randn(5, bs, 2, D, generator=g).bfloat16()
+        ang = torch.rand(2, D // 2, generator=g)
+        ops = [q, ang.cos(), ang.sin(), pool, pool.clone(),
+               torch.tensor([[1, 2], [3, 4]], dtype=torch.int32),
+               torch.tensor([5, 20], dtype=torch.int32)]
+        launches.reset()
+        with pytest.raises(ValueError, match="bf16 kernel takes"):
+            paged_attention.paged_decode_attention(
+                *[o.to(cuda_device) for o in ops], 1)
+        assert launches.snapshot() == {}
+
+    def test_long_context_uses_many_blocks(self, cuda_device):
+        # one sequence at the end of an 8192-key table: 128 chunks over
+        # decode_plan's splits
+        ops = _bf16_decode_operands(1, 8, 4, 128, 512, [8191], "fp8", 7)
+        _hold_decode(ops, cuda_device)
+
+
+@pytest.mark.cuda
+class TestCudaSkinnyGroup:
+    """norm_linear_skinny_mma: one launch a group at M <= 8, each output
+    bit-identical to its single call, within one bf16 rounding of the
+    plain version."""
+
+    @pytest.mark.parametrize("K", [64, 1000, 3000, 4096])
+    @pytest.mark.parametrize("M", [1, 3, 8])
+    def test_group_matches_single_calls(self, cuda_device, M, K):
+        # K = 64 and 1000: one rank; 3000: a cluster of 3; 4096: of 4
+        g = torch.Generator(device=cuda_device).manual_seed(M * K)
+        x = (3 * torch.randn(M, K, generator=g, device=cuda_device)
+             ).bfloat16()
+        nw = (1 + 0.1 * torch.randn(K, generator=g, device=cuda_device)
+              ).bfloat16()
+        rs = fused_norm_linear.rms_scale(x, 1e-5)
+        # q/k/v-like and gate/up-like widths (with a ragged strip)
+        for ns, acts in (([1024, 256, 256], ["none"] * 3),
+                         ([2056, 2056], ["silu", "none"])):
+            ws = [(torch.randn(K, n, generator=g, device=cuda_device)
+                   / K ** 0.5).bfloat16() for n in ns]
+            launches.reset()
+            outs = fused_norm_linear.fused_norm_linear_group(x, rs, nw, ws,
+                                                             acts)
+            assert launches.snapshot() == {"fused_norm_linear_skinny": 1}
+            again = fused_norm_linear.fused_norm_linear_group(x, rs, nw, ws,
+                                                              acts)
+            for o, a2, w, act in zip(outs, again, ws, acts):
+                assert torch.equal(o, a2)
+                assert torch.equal(o, fused_norm_linear.fused_norm_linear(
+                    x, rs, nw, w, act))
+                want = fused_norm_linear.fused_norm_linear_plain(x, rs, nw,
+                                                                 w, act)
+                assert float((o.float() - want.float()).abs().max()) <= \
+                    float(want.float().abs().max()) / 128
+
+    def test_ring_reuse_gives_the_same_bits(self, cuda_device):
+        # Llama-3-8B's gate/up at M = 8, 100 times: every rank's w rows
+        # pass through the TMA ring four times, the reuse the proxy fence
+        # guards
+        g = torch.Generator(device=cuda_device).manual_seed(0)
+        x = torch.randn(8, 4096, generator=g, device=cuda_device).bfloat16()
+        nw = torch.ones(4096, device=cuda_device).bfloat16()
+        rs = fused_norm_linear.rms_scale(x, 1e-5)
+        ws = [(torch.randn(4096, 14336, generator=g, device=cuda_device)
+               / 64).bfloat16() for _ in range(2)]
+        first = fused_norm_linear.fused_norm_linear_group(
+            x, rs, nw, ws, ["silu", "none"])
+        for _ in range(100):
+            outs = fused_norm_linear.fused_norm_linear_group(
+                x, rs, nw, ws, ["silu", "none"])
+            assert all(torch.equal(a, b) for a, b in zip(outs, first))
+
+
+@pytest.mark.cuda
+class TestCudaTiledGroup:
+    """norm_linear_wgmma: the same TMA ring reuse as the skinny kernel's,
+    at a prefill chunk's rows."""
+
+    def test_ring_reuse_gives_the_same_bits(self, cuda_device):
+        # Llama-3-8B's gate/up at M = 256, 100 times: 64 k-tiles pass
+        # through each block's 4-stage ring
+        g = torch.Generator(device=cuda_device).manual_seed(1)
+        x = torch.randn(256, 4096, generator=g,
+                        device=cuda_device).bfloat16()
+        nw = torch.ones(4096, device=cuda_device).bfloat16()
+        rs = fused_norm_linear.rms_scale(x, 1e-5)
+        ws = [(torch.randn(4096, 14336, generator=g, device=cuda_device)
+               / 64).bfloat16() for _ in range(2)]
+        first = fused_norm_linear.fused_norm_linear_group(
+            x, rs, nw, ws, ["silu", "none"])
+        for _ in range(100):
+            outs = fused_norm_linear.fused_norm_linear_group(
+                x, rs, nw, ws, ["silu", "none"])
+            assert all(torch.equal(a, b) for a, b in zip(outs, first))
 
 
 @pytest.mark.cuda

@@ -8,7 +8,10 @@ On the CPU the wrappers run their plain PyTorch versions; the JAX
 functions run their XLA fallback or their Pallas kernel in interpret
 mode.  f32 tolerance 1e-5 (the two frameworks sum in different orders).
 The CUDA kernels are held against the plain versions on the card in
-tests/test_torch_cuda.py and chip_smoke.py.
+tests/test_torch_cuda.py and chip_smoke.py; the pure-Python plans of
+the skinny fused_norm_linear (its K split) and of the paged decode
+(its splits, which kernel takes the operands) are held here case by
+case.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +25,8 @@ from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import fused_linear as fl
 from paddle_tpu_torch.kernels import fused_norm_linear as fnl
 from paddle_tpu_torch.kernels import launches
+from paddle_tpu_torch.kernels import paged_attention as pa
+from paddle_tpu_torch.tools import ring_stress
 
 TOL = 1e-5
 
@@ -39,8 +44,10 @@ def t(a):
 # ----------------------------------------------------- fused_norm_linear
 @pytest.mark.parametrize("acts", [["none"], ["none"] * 3, ["silu", "none"],
                                   ["none", "silu", "silu"]])
-@pytest.mark.parametrize("lead", [(4,), (2, 10)])
+@pytest.mark.parametrize("lead", [(1,), (3,), (4,), (8,), (2, 10)])
 def test_group_matches_jax_and_single_calls(lead, acts):
+    # at most 8 rows the card runs the group as one skinny launch, above
+    # as one tiled launch; on the CPU both are the plain single calls
     rng = np.random.RandomState(len(acts) + len(lead))
     K = 24
     x = rng.randn(*lead, K).astype(np.float32)
@@ -72,6 +79,47 @@ def test_group_rejects_what_it_does_not_take(n, acts):
     with pytest.raises(ValueError, match="fused_norm_linear_group"):
         fnl.fused_norm_linear_group(x, torch.ones(4, 1), torch.ones(8),
                                     [torch.zeros(8, 8)] * n, acts)
+
+
+@pytest.mark.parametrize("K,plan", [
+    (4096, (4, 1024)),    # Llama's hidden: 4 ranks of 1024 rows
+    (1000, (1, 1024)), (64, (1, 64)), (24, (1, 64)),
+    (1100, (2, 576)),     # 550 rows a rank, rounded up to whole k-tiles
+    (3000, (3, 1024)), (8192, (8, 1024)),
+    (14336, (8, 1792))])  # the down projection's K: the cluster is full
+def test_skinny_plan(K, plan):
+    splits, rows = fnl.skinny_plan(K)
+    assert (splits, rows) == plan
+    assert rows % fnl.SKINNY_BK == 0 and splits * rows >= K
+    assert (splits - 1) * rows < K          # every rank has rows of w
+    assert fnl.skinny_smem_bytes(rows) <= fnl.SMEM_OPT_IN
+
+
+def test_skinny_smem_bytes():
+    # 4 stages of 8 KB, 8 rows of 1032 bf16, the 64 x 8 f32 tile, 8
+    # barriers, 1 KB of alignment: four blocks fit a SM's 228 KB
+    assert fnl.skinny_smem_bytes(1024) == 1024 + 32768 + 16512 + 2048 + 64
+    assert 4 * (fnl.skinny_smem_bytes(1024) + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("variant,fences,syncs", [
+    ("as_is", 2, 2), ("fence_only", 2, 0), ("syncwarp_only", 0, 2),
+    ("neither", 0, 0)])
+def test_ring_stress_variants(variant, fences, syncs):
+    # the stress script's copies of csrc/fused_norm_linear.cu take the
+    # fence and/or the __syncwarp out of both kernels' stage releases
+    # and change nothing else
+    src = (ring_stress._build.CSRC / "fused_norm_linear.cu").read_text()
+    out = ring_stress.variant_source(src, ring_stress.VARIANTS[variant])
+    releases = [i for i, ln in enumerate(out.split("\n"))
+                if "mbar_arrive(&empty[" in ln and "lane == 0" in ln]
+    assert len(releases) == 2
+    before = [ln.strip() for i in releases
+              for ln in out.split("\n")[i - 2:i]]
+    assert before.count(ring_stress.FENCE) == fences
+    assert before.count(ring_stress.SYNC) == syncs
+    assert len(src.split("\n")) - len(out.split("\n")) == \
+        4 - fences - syncs
 
 
 # ------------------------------------------------------- flash attention
@@ -134,3 +182,44 @@ def test_fused_linear_any_k_matches_jax(K, act):
                             activation=act, bm=32, bn=24, bk=K,
                             interpret=True)
     close(got.numpy(), np.asarray(want))
+
+
+# ---------------------------------------------------------- paged decode
+@pytest.mark.parametrize("B,KVH,nbs,bs,splits", [
+    (8, 8, 512, 16, 7),     # the serving path: 3 blocks a SM
+    (1, 8, 512, 16, 50),    # one sequence: 50 of its 128 chunks' worth
+    (1, 2, 512, 16, 64),    # capped at MAX_SPLITS
+    (64, 8, 512, 16, 1),    # a wide batch fills the card alone
+    (8, 8, 8, 16, 2),       # a short table: no more splits than chunks
+    (2, 2, 4, 4, 1)])       # the tests' tiny tables: one chunk
+def test_decode_plan(B, KVH, nbs, bs, splits):
+    assert pa.decode_plan(B, KVH, nbs, bs, 132) == splits
+
+
+@pytest.mark.parametrize("dtype,rep,D,bs,want", [
+    (torch.bfloat16, 4, 128, 16, True), (torch.bfloat16, 1, 64, 8, True),
+    (torch.bfloat16, 8, 128, 32, True),
+    (torch.float32, 4, 128, 16, False),     # f32 keeps the general kernel
+    # bf16 outside the Hopper kernel's shapes is refused, not rerouted
+    (torch.bfloat16, 3, 128, 16, ValueError),
+    (torch.bfloat16, 4, 96, 16, ValueError),
+    (torch.bfloat16, 4, 128, 12, ValueError)])   # not a power of two
+def test_hopper_path(dtype, rep, D, bs, want):
+    q = torch.zeros(2, 2 * rep, D, dtype=dtype)
+    pool = torch.zeros(3, bs, 2, D, dtype=dtype)
+    if want is ValueError:
+        with pytest.raises(ValueError, match="bf16 kernel takes"):
+            pa.hopper_path(q, pool, pool, rep)
+    else:
+        assert pa.hopper_path(q, pool, pool, rep) == want
+
+
+def test_hopper_path_refuses_unaligned_pools():
+    # a pool view that starts 8 bytes into its storage: the kernel's
+    # 16-byte row loads cannot take it
+    q = torch.zeros(2, 8, 128, dtype=torch.bfloat16)
+    flat = torch.zeros(3 * 16 * 2 * 128 + 4, dtype=torch.bfloat16)
+    pool = flat[4:].view(3, 16, 2, 128)
+    assert pool.data_ptr() % 16 == 8
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        pa.hopper_path(q, pool, pool, 4)

@@ -174,6 +174,15 @@ class TestPagedDecode:
         for s in (4, 8):
             _check_decode(args, s)
 
+    @pytest.mark.parametrize("positions", [[63, 64], [65, 127], [0, 100]])
+    def test_frontiers_straddling_the_cuda_chunks_match_jax(self, positions):
+        # the CUDA kernel cuts each sequence's live keys into chunks of
+        # CHUNK_KEYS (64); the plain version, which the card's tests hold
+        # it to, is held to the JAX kernels at those edges
+        args = decode_operands(bs=16, nbs=8, seed=6)
+        args[6] = np.array(positions, np.int32)
+        _check_decode(args, 2)
+
     def test_garbage_block_zero_never_leaks(self):
         out = _check_decode(decode_operands(seed=1), 2)
         assert float(out.abs().max()) < 50.0

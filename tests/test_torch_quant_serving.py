@@ -307,6 +307,15 @@ class TestQuantizedDecode:
         args[6] = np.array([1, 2], np.int32)
         _check_decode(args, scheme, 8)
 
+    @pytest.mark.parametrize("positions", [[63, 64], [65, 127]])
+    @pytest.mark.parametrize("scheme", SCHEMES)
+    def test_frontiers_straddling_the_cuda_chunks_match_jax(self, scheme,
+                                                            positions):
+        # the edges of the CUDA kernel's 64-key chunks (CHUNK_KEYS)
+        args = decode_operands(bs=16, nbs=8, seed=6)
+        args[6] = np.array(positions, np.int32)
+        _check_decode(args, scheme, 2)
+
     @pytest.mark.parametrize("scheme", SCHEMES)
     def test_idle_slot_decodes_against_block_zero(self, scheme):
         args = decode_operands(seed=5)
