@@ -5,8 +5,8 @@
 //
 // Replaces paddle_tpu/kernels/chunked_prefill.py _chunk_kernel
 // (pallas_call in _pallas_chunked).  GQA is packed as there: the rep*T
-// query rows of one kv head (row r*T + t is head kvh*rep + r, token t)
-// share each K/V page, so the repeat to H heads never exists.
+// query rows of one kv head (head kvh*rep + r, token t) share each K/V
+// page, so the repeat to H heads never exists.
 //
 // On the TPU one grid cell walked every page in order for all rep*T
 // rows, and page 0 anchored the running max.  Here a block owns a tile
@@ -17,19 +17,21 @@
 //
 // Bound on the H100: operations (4*D flops per key per row, rep*T rows
 // per K/V row read).  Two kernels:
-// - bf16 (the served model): FlashAttention-2 on the tensor cores.  A
-//   block of 4 warps owns 64 rows, 16 a warp, with q's fragments held in
-//   registers; per 64 keys it stages K and V from their pages in shared
-//   memory, S = q k^T runs as mma.sync m16n8k16 (bf16 in, f32 out), the
-//   1/sqrt(D) scale and the mask are applied to S in f32, the online
-//   softmax keeps each row's max and sum in the 4 lanes that hold it,
-//   and P, rounded to bf16 as FlashAttention-2 does, multiplies V (read
-//   with ldmatrix.trans) into f32 accumulators.  The plain version keeps
-//   P in f32: the two differ by less than one bf16 rounding of the
+// - bf16 (the served model): chunked_prefill_wgmma, below.  Its
+//   mma.sync predecessor ran 128 blocks of 4 warps (one block a SM, no
+//   latency hidden), loaded each 64-key tile with all threads between
+//   two barriers, re-read K/V once per query head of a group, and ran at
+//   4 % of its bound, 2.6x SDPA's time.  Here the rows of a tile are
+//   packed over the GQA group, so a K/V tile is read once for all rep
+//   heads; a producer warpgroup keeps 4 tiles in flight while a consumer
+//   warpgroup runs wgmma.  P is rounded to bf16 as the A operand of the
+//   second product, as FlashAttention-2 does; the plain version keeps P
+//   in f32, and the two differ by less than one bf16 rounding of the
 //   output.
 // - f32 (the CPU-scale check configuration): CUDA cores, a block owns 32
-//   rows and stages one page at a time; q is scaled by 1/sqrt(D) in f32
-//   as it is staged, exactly the multiply the reference's caller does.
+//   rows (r * T + t order) and stages one page at a time; q is scaled
+//   by 1/sqrt(D) in f32 as it is staged, exactly the multiply the
+//   reference's caller does.
 //
 // Quantized pools (Q = 1 int8, Q = 2 fp8: the kv_dtype variant of
 // _chunk_kernel) hold int8 codes with one f32 scale per (block, token)
@@ -45,6 +47,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 constexpr int CP_THREADS = 128;
 constexpr int CP_ROWS = 32;                        // query rows per block
@@ -169,207 +172,445 @@ __global__ void __launch_bounds__(CP_THREADS) chunked_prefill_kernel(
   }
 }
 
-// ------------------------------------------------ bf16, tensor cores
-constexpr int FA_ROWS = 64, FA_KEYS = 64, FA_THREADS = 128;
+// ------------------------------------------------ bf16, wgmma
+// A block owns a tile of CW_ROWS = 64 consecutive query rows of one
+// (batch, kv head) in the packed order row = t * rep + r (token t, query
+// head kvh * rep + r), so one K/V tile feeds every head of the group:
+// at rep 4 a tile is 16 tokens x 4 heads.  Warpgroup 0 produces the
+// next 64 keys of K and V into a 4-stage ring of 128-byte-swizzled bf16
+// tiles.  bf16 pools: one thread loads them by TMA, one box of R =
+// min(bs, 64) rows a page (the page's block-table entry read by a lane
+// of its warp), from 2-D tensor maps over the pool viewed as
+// [nb * bs, KVH * D]; block sizes 8, 16, 32 or a multiple of 64 (whole
+// boxes a tile, each 1024-byte aligned in the swizzle).  Copies of 16
+// bytes a thread (cp.async) were slower for bf16: the loads an SM keeps
+// in flight bound them, and TMA's are not counted there.  Code pools
+// (any block size): each thread copies its own 16-byte chunks (and one
+// key's scale) into one of 3 staging buffers by cp.async, and decodes
+// them to bf16 (exactly) into the ring two tiles later, when they have
+// landed; decoding from TMA boxes was slower (every thread waited for
+// a whole tile).  Warpgroup 1 consumes: S = Q K^T by wgmma m64n64k16
+// from shared memory (both K-major), the k scale on S, the online
+// softmax in f32 registers with exp2 and log2(e) folded into the scale
+// (the mask only on the tiles that reach past the lowest row's
+// frontier), the v scale on P after the row sum took the unscaled P,
+// then O += P V with P from registers and V read MN-major (bf16: its
+// rows past the last key zeroed first, as a page's unwritten slots may
+// hold anything).  Tiles with the most keys launch first.
+constexpr int CW_ROWS = 64, CW_KEYS = 64, CW_THREADS = 256, CW_STAGES = 4;
+constexpr int CW_BOX = 64 * 128;   // [64 rows][64 bf16] swizzled, 8 KB
+constexpr int CW_STAGING = 3;      // codes: tiles in flight a thread
 
-// eight codes (8 bytes) as eight bf16 values, exactly
-template <int Q>
-__device__ __forceinline__ uint4 codes_to_bf16x8(uint2 c) {
-  const int8_t* b = reinterpret_cast<const int8_t*>(&c);
-  uint4 r;
-  uint32_t* w = reinterpret_cast<uint32_t*>(&r);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    w[i] = pack_bf16(decode_code<Q>(b[2 * i]), decode_code<Q>(b[2 * i + 1]));
-  return r;
+struct CWMaps {
+  CUtensorMap k, v;   // bf16 pools as [nb * bs, KVH * D]: box (64, R),
+                      // 128-byte swizzle
+};
+
+// a staging buffer: K codes [64][D], V codes [64][D], k and v scales
+template <int D>
+__host__ __device__ constexpr int cw_staging_bytes() {
+  return 2 * CW_KEYS * D + 2 * CW_KEYS * 4;
 }
 
-// Fragment layouts (m16n8k16): lane = 4 g + tg holds rows g and g + 8;
-// A pairs of k at 2 tg (and + 8), B pairs of k at 2 tg for column g, C
-// columns 2 tg and 2 tg + 1.  K and V rows are padded to D + 8 bf16,
-// which puts the 8 rows of a fragment load on distinct banks.  With
-// Q > 0, Ks / Vs hold the codes and KSc / VSc each key's scale.
 template <int D, int Q>
-__global__ void __launch_bounds__(FA_THREADS) chunked_prefill_bf16(
-    const bf16* __restrict__ q, const void* __restrict__ k_pool,
-    const void* __restrict__ v_pool, const float* __restrict__ k_scale,
-    const float* __restrict__ v_scale, const int* __restrict__ bt,
-    const int* __restrict__ pos, bf16* __restrict__ out, int Tc, int KVH,
-    int rep, int bs, int nbs, float scale) {
-  constexpr int LD = D + 8;
-  __shared__ __align__(16) bf16 Ks[FA_KEYS][LD];
-  __shared__ __align__(16) bf16 Vs[FA_KEYS][LD];
-  __shared__ float KSc[FA_KEYS], VSc[FA_KEYS];
-  const int b = blockIdx.x, kvh = blockIdx.y, tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32, g = lane / 4, tg = lane % 4;
-  const int H = KVH * rep, RT = rep * Tc;
-  const int row0 = blockIdx.z * FA_ROWS;
+constexpr int cw_smem_bytes() {
+  // alignment, Q, K and V per stage, the stages' key scales, the codes'
+  // staging buffers, a full and an empty barrier a stage
+  return 1024 + (1 + 2 * CW_STAGES) * (D / 64) * CW_BOX +
+         CW_STAGES * 2 * CW_KEYS * 4 +
+         (Q == 0 ? 0 : CW_STAGING * cw_staging_bytes<D>()) +
+         2 * CW_STAGES * 8;
+}
+
+// sixteen codes (16 bytes) as sixteen bf16 values, exactly (the values
+// of decode_code): int8 through the f32 magic number 1.5 * 2^23, whose
+// unit-spaced mantissa takes the code as an integer add and keeps it
+// exact, then the f32's top half (a code has at most 8 significant
+// bits); e4m3 two at a time through f16, which holds it exactly
+template <int Q>
+__device__ __forceinline__ void codes_to_bf16x16(uint4 c, uint4* lo,
+                                                 uint4* hi) {
+  const uint32_t* in = reinterpret_cast<const uint32_t*>(&c);
+  uint32_t w[8];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if constexpr (Q == 1) {
+      uint32_t u[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int v = static_cast<int>(in[k] << (24 - 8 * i)) >> 24;
+        u[i] = __float_as_uint(__int_as_float(0x4B400000 + v) -
+                               12582912.f);
+      }
+      w[2 * k] = __byte_perm(u[0], u[1], 0x7632);
+      w[2 * k + 1] = __byte_perm(u[2], u[3], 0x7632);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+            static_cast<__nv_fp8x2_storage_t>(in[k] >> (16 * i)), __NV_E4M3);
+        const float2 f = __half22float2(__half2(h));
+        w[2 * k + i] = pack_bf16(f.x, f.y);
+      }
+    }
+  }
+  *lo = make_uint4(w[0], w[1], w[2], w[3]);
+  *hi = make_uint4(w[4], w[5], w[6], w[7]);
+}
+
+template <int D, int Q>
+__global__ void __launch_bounds__(CW_THREADS, 1) chunked_prefill_wgmma(
+    const __grid_constant__ CWMaps maps, const bf16* __restrict__ q,
+    const void* __restrict__ k_pool, const void* __restrict__ v_pool,
+    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+    const int* __restrict__ bt, const int* __restrict__ pos,
+    bf16* __restrict__ out, int B, int Tc, int KVH, int rep, int bs, int nbs,
+    float scale) {
+  using namespace hopper;
+  constexpr int TILE = (D / 64) * CW_BOX;   // one Q, K or V tile
+  constexpr int STG = cw_staging_bytes<D>();
+  extern __shared__ uint8_t cw_smem[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(cw_smem) + 1023) & ~uintptr_t(1023));
+  uint8_t* qs = smem;
+  uint8_t* ks = qs + TILE;                          // CW_STAGES tiles
+  uint8_t* vs = ks + CW_STAGES * TILE;              // CW_STAGES tiles
+  float* ksc = reinterpret_cast<float*>(vs + CW_STAGES * TILE);
+  float* vsc = ksc + CW_STAGES * CW_KEYS;
+  uint8_t* stg = reinterpret_cast<uint8_t*>(vsc + CW_STAGES * CW_KEYS);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      stg + (Q == 0 ? 0 : CW_STAGING * STG));
+  uint64_t* empty = full + CW_STAGES;
+
+  const int RT = rep * Tc, H = KVH * rep;
+  const int n_rt = (RT + CW_ROWS - 1) / CW_ROWS;
+  const int rank = blockIdx.x / (B * KVH), rest = blockIdx.x % (B * KVH);
+  const int b = rest / KVH, kvh = rest % KVH;
+  const int row0 = (n_rt - 1 - rank) * CW_ROWS;
   const int start = pos[b];
+  const int n_keys = nbs * bs;                      // the table's keys
+  const int t_last = (min(row0 + CW_ROWS, RT) - 1) / rep;
+  const int last_key = min(start + t_last, n_keys - 1);
+  const int n_kt = last_key / CW_KEYS + 1;
+  // tiles that reach this key need the mask: the lowest row sees fewer
+  const int mask_from = min(start + row0 / rep, n_keys - 1) + 1;
+  const int R = min(bs, CW_KEYS);                   // rows a box
 
-  // this lane's two rows: g and g + 8 of its warp's 16
-  bool live[2];
-  int qpos[2];
-  size_t qoff[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int rr = row0 + warp * 16 + g + 8 * h;
-    const int r = rr / Tc, t = rr % Tc;
-    live[h] = rr < RT;
-    qpos[h] = start + t;
-    qoff[h] = (((size_t)b * Tc + t) * H + kvh * rep + r) * D;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < CW_STAGES; ++s) {
+      // bf16: the TMA's expect_tx; codes: every producer thread
+      mbar_init(&full[s], Q == 0 ? 1 : 128);
+      mbar_init(&empty[s], 4);    // one arrival per consumer warp
+    }
+    fence_barrier_init();
   }
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    const int d = ks * 16 + 2 * tg;
-    qf[ks][0] = live[0] ? ld_pair(q + qoff[0] + d) : 0u;
-    qf[ks][1] = live[1] ? ld_pair(q + qoff[1] + d) : 0u;
-    qf[ks][2] = live[0] ? ld_pair(q + qoff[0] + d + 8) : 0u;
-    qf[ks][3] = live[1] ? ld_pair(q + qoff[1] + d + 8) : 0u;
-  }
-  float o[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) o[nd][c] = 0.f;
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  __syncthreads();
 
-  // the tile's deepest query position bounds the keys it needs
-  const int row_last = min(row0 + FA_ROWS, RT) - 1;
-  const int t_max = row0 / Tc == row_last / Tc ? row_last % Tc : Tc - 1;
-  const int last_key = min(start + t_max, nbs * bs - 1);
-  const size_t row_stride = (size_t)KVH * D;
-
-  for (int kbase = 0; kbase <= last_key; kbase += FA_KEYS) {
-    for (int i = tid; i < FA_KEYS * (D / 8); i += FA_THREADS) {
-      const int j = i / (D / 8), d = (i % (D / 8)) * 8, kp = kbase + j;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = kv;
-      if (kp <= last_key) {
-        const size_t off =
-            ((size_t)bt[b * nbs + kp / bs] * bs + kp % bs) * row_stride +
-            (size_t)kvh * D + d;
-        if constexpr (Q == 0) {
-          kv = *reinterpret_cast<const uint4*>(
-              static_cast<const bf16*>(k_pool) + off);
-          vv = *reinterpret_cast<const uint4*>(
-              static_cast<const bf16*>(v_pool) + off);
-        } else {
-          kv = codes_to_bf16x8<Q>(*reinterpret_cast<const uint2*>(
-              static_cast<const int8_t*>(k_pool) + off));
-          vv = codes_to_bf16x8<Q>(*reinterpret_cast<const uint2*>(
-              static_cast<const int8_t*>(v_pool) + off));
+  if (threadIdx.x < 128) {
+    // ------------------------------------------------------ producer
+    const int tid = threadIdx.x, lane = tid % 32;
+    const int* btb = bt + (size_t)b * nbs;
+    // bf16: warp 0 loads key tile `it` into ring stage s, one TMA box a
+    // page (lane p reads page p's table entry)
+    auto load_tile = [&](int it, int s) {
+      const int kbase = it * CW_KEYS;
+      const int n_box = min(CW_KEYS / R, (last_key - kbase) / R + 1);
+      const int kp = kbase + lane * R;
+      const int prow =
+          lane < n_box ? __ldg(btb + kp / bs) * bs + kp % bs : 0;
+      if (lane == 0) mbar_expect_tx(&full[s], n_box * R * 4 * D);
+      for (int p = 0; p < n_box; ++p) {
+        const int row = __shfl_sync(0xffffffffu, prow, p);
+        if (lane != 0) continue;
+#pragma unroll
+        for (int x = 0; x < D / 64; ++x) {
+          const uint32_t at = s * TILE + x * CW_BOX + p * R * 128;
+          tma_load_2d(ks + at, &maps.k, &full[s], kvh * D + x * 64, row);
+          tma_load_2d(vs + at, &maps.v, &full[s], kvh * D + x * 64, row);
         }
       }
-      *reinterpret_cast<uint4*>(&Ks[j][d]) = kv;
-      *reinterpret_cast<uint4*>(&Vs[j][d]) = vv;
-    }
-    if constexpr (Q != 0) {
-      for (int j = tid; j < FA_KEYS; j += FA_THREADS) {
-        const int kp = kbase + j;
-        float ks = 0.f, vs = 0.f;
-        if (kp <= last_key) {
-          const size_t row = (size_t)bt[b * nbs + kp / bs] * bs + kp % bs;
-          ks = k_scale[row];
-          vs = v_scale[row];
+    };
+    if constexpr (Q == 0) {
+      // bf16: straight into the ring
+      if (tid < 32)
+        for (int it = 0; it < n_kt; ++it) {
+          const int s = it % CW_STAGES;
+          if (it >= CW_STAGES)
+            mbar_wait(&empty[s], ((it / CW_STAGES) - 1) & 1);
+          load_tile(it, s);
         }
-        KSc[j] = ks;
-        VSc[j] = vs;
+    } else {
+      // codes: each thread copies its own 16-code chunks of a tile's rows
+      // (a block-table lookup a row, made a tile ahead) and one key's k
+      // or v scale into a staging buffer by cp.async (zeros past the
+      // last key), and decodes them to bf16 (exactly) into the ring
+      // CW_STAGING - 1 tiles later, when they have landed
+      constexpr int CPR = D / 16;                   // 16-code chunks a row
+      constexpr int N = CW_KEYS * CPR / 128;        // a thread's chunks
+      constexpr int RSTEP = 128 / CPR;              // rows between them
+      const int c = tid % CPR, j0 = tid / CPR;
+      const uint8_t* kpool = static_cast<const uint8_t*>(k_pool);
+      const uint8_t* vpool = static_cast<const uint8_t*>(v_pool);
+      int pr[N], sr;
+      auto rows_of = [&](int kbase) {
+#pragma unroll
+        for (int n = 0; n < N; ++n) {
+          const int kp = kbase + j0 + RSTEP * n;
+          pr[n] = kp <= last_key ? __ldg(btb + kp / bs) * bs + kp % bs : -1;
+        }
+        const int kp = kbase + tid % CW_KEYS;
+        sr = kp <= last_key ? __ldg(btb + kp / bs) * bs + kp % bs : -1;
+      };
+      auto decode = [&](int i) {
+        const int s = i % CW_STAGES;
+        const uint8_t* kc = stg + (i % CW_STAGING) * STG;
+        const uint8_t* vc = kc + CW_KEYS * D;
+        const float* sc = reinterpret_cast<const float*>(vc + CW_KEYS * D);
+        if (i >= CW_STAGES) mbar_wait(&empty[s], ((i / CW_STAGES) - 1) & 1);
+#pragma unroll
+        for (int n = 0; n < N; ++n) {
+          const int j = j0 + RSTEP * n, cc = 2 * c;
+          const uint32_t at = (cc / 8) * CW_BOX + swz128(j, cc % 8);
+          const uint32_t at1 = (cc / 8) * CW_BOX + swz128(j, cc % 8 + 1);
+          uint4 lo, hi;
+          codes_to_bf16x16<Q>(
+              *reinterpret_cast<const uint4*>(kc + j * D + c * 16), &lo, &hi);
+          *reinterpret_cast<uint4*>(ks + s * TILE + at) = lo;
+          *reinterpret_cast<uint4*>(ks + s * TILE + at1) = hi;
+          codes_to_bf16x16<Q>(
+              *reinterpret_cast<const uint4*>(vc + j * D + c * 16), &lo, &hi);
+          *reinterpret_cast<uint4*>(vs + s * TILE + at) = lo;
+          *reinterpret_cast<uint4*>(vs + s * TILE + at1) = hi;
+        }
+        (tid < CW_KEYS ? ksc : vsc)[s * CW_KEYS + tid % CW_KEYS] = sc[tid];
+        fence_proxy_async();   // the stores, before wgmma reads them
+        mbar_arrive(&full[s]);
+      };
+      rows_of(0);
+      for (int it = 0; it < n_kt; ++it) {
+        uint8_t* kd = stg + (it % CW_STAGING) * STG;
+        uint8_t* vd = kd + CW_KEYS * D;
+#pragma unroll
+        for (int n = 0; n < N; ++n) {
+          const int j = j0 + RSTEP * n;
+          const size_t off = ((size_t)max(pr[n], 0) * KVH + kvh) * D + c * 16;
+          cp_async_16(smem_u32(kd + j * D + c * 16), kpool + off, pr[n] >= 0);
+          cp_async_16(smem_u32(vd + j * D + c * 16), vpool + off, pr[n] >= 0);
+        }
+        cp_async_4(smem_u32(vd + CW_KEYS * D + tid * 4),
+                   (tid < CW_KEYS ? k_scale : v_scale) + max(sr, 0),
+                   sr >= 0);
+        cp_async_commit();
+        if (it >= CW_STAGING - 1) {   // that tile's copies have landed
+          cp_async_wait<CW_STAGING - 1>();
+          decode(it - (CW_STAGING - 1));
+        }
+        if (it + 1 < n_kt) rows_of((it + 1) * CW_KEYS);
       }
+      cp_async_wait<0>();
+      for (int i = max(n_kt - (CW_STAGING - 1), 0); i < n_kt; ++i) decode(i);
     }
-    __syncthreads();
+  } else {
+    // ------------------------------------------------------ consumer
+    const int ct = threadIdx.x - 128;
+    const int warp = ct / 32, lane = ct % 32, g = lane / 4, tg = lane % 4;
+    // stage the tile's q rows (rows past rep * T are zeros)
+    {
+      constexpr int CPR = D / 8;
+#pragma unroll
+      for (int n = 0; n < CW_ROWS * CPR / 128; ++n) {
+        const int i = ct + 128 * n, j = i / CPR, c = i % CPR;
+        const int row = row0 + j;
+        uint4 v = zero4();
+        if (row < RT)
+          v = __ldg(reinterpret_cast<const uint4*>(
+              q + (((size_t)b * Tc + row / rep) * H + kvh * rep + row % rep) *
+                      D + c * 8));
+        *reinterpret_cast<uint4*>(qs + (c / 8) * CW_BOX + swz128(j, c % 8)) =
+            v;
+      }
+      fence_proxy_async();
+      named_bar_sync(1, 128);
+    }
+    int row[2], lim[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      row[i] = row0 + warp * 16 + g + 8 * i;
+      lim[i] = min(start + row[i] / rep, n_keys - 1) + 1;
+    }
+    const float scale_log2 = scale * 1.4426950408889634f;
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // m in log2 units
+    const uint32_t qa = smem_u32(qs);
 
-    float s[FA_KEYS / 8][4];
+    for (int it = 0; it < n_kt; ++it) {
+      const int s = it % CW_STAGES, kbase = it * CW_KEYS;
+      const uint32_t ka = smem_u32(ks + s * TILE);
+      const uint32_t va = smem_u32(vs + s * TILE);
+      float sc[CW_KEYS / 2];
 #pragma unroll
-    for (int j = 0; j < FA_KEYS / 8; ++j)
+      for (int i = 0; i < CW_KEYS / 2; ++i) sc[i] = 0.f;
+      mbar_wait(&full[s], (it / CW_STAGES) & 1);
+      wgmma_fence();
+      fence_regs<CW_KEYS / 2>(sc);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-#pragma unroll
-      for (int j = 0; j < FA_KEYS / 8; ++j) {
-        uint32_t kf[2];
-        kf[0] = ld_pair(&Ks[j * 8 + g][ks * 16 + 2 * tg]);
-        kf[1] = ld_pair(&Ks[j * 8 + g][ks * 16 + 2 * tg + 8]);
-        mma_bf16(s[j], qf[ks], kf);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk / 4) * CW_BOX + (kk % 4) * 32;
+        wgmma_ss_n64<0>(sc, desc_sw128(qa + off, 16, 1024),
+                        desc_sw128(ka + off, 16, 1024), 1);
       }
-    }
-    // scale and mask in f32, then the online softmax of rows g, g + 8
-    float mx[2] = {m[0], m[1]};
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<CW_KEYS / 2>(sc);
+
+      // sc[4 j + 2 i + c]: row g + 8 i, key kbase + 8 j + 2 tg + c
+      if constexpr (Q != 0) {
 #pragma unroll
-    for (int j = 0; j < FA_KEYS / 8; ++j)
+        for (int j = 0; j < CW_KEYS / 8; ++j)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int kj = j * 8 + 2 * tg + (c & 1), kp = kbase + kj;
-        float sv = s[j][c];
-        if constexpr (Q != 0) sv *= KSc[kj];
-        s[j][c] = kp <= qpos[c / 2] ? sv * scale : NEG_INF;
-        mx[c / 2] = fmaxf(mx[c / 2], s[j][c]);
+          for (int c = 0; c < 4; ++c)
+            sc[4 * j + c] *= ksc[s * CW_KEYS + 8 * j + 2 * tg + (c & 1)];
       }
-    float alpha[2], lsum[2] = {0.f, 0.f};
+      if (kbase + CW_KEYS > mask_from) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      alpha[h] = expf(m[h] - mx[h]);
-      m[h] = mx[h];
-    }
+        for (int j = 0; j < CW_KEYS / 8; ++j)
 #pragma unroll
-    for (int j = 0; j < FA_KEYS / 8; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int kp = kbase + j * 8 + 2 * tg + (c & 1);
-        const float p = kp <= qpos[c / 2] ? expf(s[j][c] - m[c / 2]) : 0.f;
-        s[j][c] = p;
-        lsum[c / 2] += p;
+          for (int c = 0; c < 4; ++c)
+            if (kbase + 8 * j + 2 * tg + (c & 1) >= lim[c >> 1])
+              sc[4 * j + c] = -INFINITY;
       }
-    // this lane's share of each row sum; the 4 lanes meet at the end
-    l[0] = l[0] * alpha[0] + lsum[0];
-    l[1] = l[1] * alpha[1] + lsum[1];
-    if constexpr (Q != 0) {
-      // V's scale rides on P, after the sum took the unscaled P
+      float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-      for (int j = 0; j < FA_KEYS / 8; ++j)
+      for (int j = 0; j < CW_KEYS / 8; ++j)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) s[j][c] *= VSc[j * 8 + 2 * tg + (c & 1)];
-    }
+        for (int c = 0; c < 4; ++c)
+          mx[c >> 1] = fmaxf(mx[c >> 1], sc[4 * j + c]);
+      float alpha[2], lsum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) o[nd][c] *= alpha[c / 2];
-    // O += P V: the C fragments of two neighbouring key tiles are the A
-    // fragment of one 16-key step
-#pragma unroll
-    for (int kk = 0; kk < FA_KEYS / 16; ++kk) {
-      const uint32_t pf[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int nd = 0; nd < D / 8; ++nd) {
-        uint32_t vf[2];
-        ldsm_x2_trans(vf, &Vs[kk * 16 + lane % 16][nd * 8]);
-        mma_bf16(o[nd], pf, vf);
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float mn = fmaxf(m[i], mx[i] * scale_log2);
+        alpha[i] = exp2f(m[i] - mn);
+        m[i] = mn;
       }
+#pragma unroll
+      for (int j = 0; j < CW_KEYS / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float e = exp2f(fmaf(sc[4 * j + c], scale_log2, -m[c >> 1]));
+          sc[4 * j + c] = e;
+          lsum[c >> 1] += e;
+        }
+      // this lane's share of each row sum; the 4 lanes meet at the end
+      l[0] = l[0] * alpha[0] + lsum[0];
+      l[1] = l[1] * alpha[1] + lsum[1];
+      if constexpr (Q != 0) {
+        // V's scale rides on P, after the sum took the unscaled P
+#pragma unroll
+        for (int j = 0; j < CW_KEYS / 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            sc[4 * j + c] *= vsc[s * CW_KEYS + 8 * j + 2 * tg + (c & 1)];
+      }
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) o[4 * j + c] *= alpha[c >> 1];
+      uint32_t pa[CW_KEYS / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < CW_KEYS / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+      if (Q == 0 && kbase + CW_KEYS > last_key + 1) {
+        // V rows past the last key: whatever the page's unwritten slots
+        // (or an earlier tile) left there, zeros, since 0 * NaN is NaN
+        const int z0 = last_key + 1 - kbase;
+        for (int i = ct; i < (CW_KEYS - z0) * 8 * (D / 64); i += 128) {
+          const int j = z0 + i / (8 * (D / 64)), r = i % (8 * (D / 64));
+          *reinterpret_cast<uint4*>(vs + s * TILE + (r / 8) * CW_BOX +
+                                    j * 128 + (r % 8) * 16) = zero4();
+        }
+        fence_proxy_async();   // before wgmma reads them
+        named_bar_sync(1, 128);
+      }
+
+      wgmma_fence();
+      fence_regs<D / 2>(o);
+#pragma unroll
+      for (int kk = 0; kk < CW_KEYS / 16; ++kk) {
+        const uint64_t dv = desc_sw128(va + kk * 16 * 128, CW_BOX, 1024);
+        if constexpr (D == 128)
+          wgmma_rs_n128<1>(o, pa[kk], dv, 1);
+        else
+          wgmma_rs_n64<1>(o, pa[kk], dv, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<D / 2>(o);
+      keep_regs<4 * (CW_KEYS / 16)>(&pa[0][0]);
+      // every lane's reads of the stage (its scales with ld.shared),
+      // then lane 0 frees it for the producer's next copy
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
     }
-    __syncthreads();
-  }
 
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-  }
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    }
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (!live[h]) continue;
-    const float inv_l = 1.f / fmaxf(l[h], 1e-30f);
+    for (int i = 0; i < 2; ++i) {
+      if (row[i] >= RT) continue;
+      const float inv_l = 1.f / fmaxf(l[i], 1e-30f);
+      const int t = row[i] / rep, r = row[i] % rep;
+      bf16* orow = out + (((size_t)b * Tc + t) * H + kvh * rep + r) * D;
 #pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      *reinterpret_cast<__nv_bfloat162*>(out + qoff[h] + nd * 8 + 2 * tg) =
-          __floats2bfloat162_rn(o[nd][2 * h] * inv_l,
-                                o[nd][2 * h + 1] * inv_l);
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * tg) =
+            pack_bf16(o[4 * j + 2 * i] * inv_l, o[4 * j + 2 * i + 1] * inv_l);
     }
   }
+}
+
+template <int D, int Q>
+static int launch_chunk_wgmma(const bf16* q, const void* k_pool,
+                              const void* v_pool, const float* k_scale,
+                              const float* v_scale, const int* bt,
+                              const int* pos, bf16* out, int B, int Tc,
+                              int KVH, int rep, int bs, int nb, int nbs,
+                              float scale, cudaStream_t st) {
+  // bf16 pools as [nb * bs, KVH * D]; a box is R rows of one kv head
+  CWMaps maps{};
+  if (Q == 0) {
+    const cuuint64_t dims[2] = {(cuuint64_t)KVH * D, (cuuint64_t)nb * bs};
+    const cuuint64_t strides[1] = {(cuuint64_t)KVH * D * 2};
+    const cuuint32_t box[2] = {64, (cuuint32_t)(bs < CW_KEYS ? bs : CW_KEYS)};
+    if (!(hopper::make_map_bf16(&maps.k, k_pool, 2, dims, strides, box) &&
+          hopper::make_map_bf16(&maps.v, v_pool, 2, dims, strides, box)))
+      return (int)cudaErrorInvalidValue;
+  }
+  constexpr int smem = cw_smem_bytes<D, Q>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      chunked_prefill_wgmma<D, Q>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int n_rt = (rep * Tc + CW_ROWS - 1) / CW_ROWS;
+  chunked_prefill_wgmma<D, Q><<<n_rt * B * KVH, CW_THREADS, smem, st>>>(
+      maps, q, k_pool, v_pool, k_scale, v_scale, bt, pos, out, B, Tc, KVH,
+      rep, bs, nbs, scale);
+  return (int)cudaGetLastError();
+}
+
+// the block sizes the bf16 kernel takes over bf16 pools: whole TMA boxes
+// of 8 to 64 rows a 64-key tile (the wrapper refuses the rest)
+static bool cw_block_size_ok(int bs) {
+  return bs % CW_KEYS == 0 || (bs >= 8 && CW_KEYS % bs == 0);
 }
 
 extern "C" int chunked_prefill_smem_bytes(int D, int bs) {
@@ -378,14 +619,16 @@ extern "C" int chunked_prefill_smem_bytes(int D, int bs) {
 }
 
 // dtype 0 (f32): the CUDA-core kernel, any D <= CP_MAXD with D % 4 == 0;
-// dtype 1 (bf16): the tensor-core kernel, D 64 or 128.  kv: what the
-// pools hold (0 q's type, 1 int8 codes, 2 fp8 codes, with the scales)
+// dtype 1 (bf16): the wgmma kernel, D 64 or 128, over bf16 pools of the
+// block sizes of cw_block_size_ok or code pools of any (q, the pools and
+// the scales 16-byte aligned: the wrapper checks).  kv: what the pools
+// hold (0 q's type, 1 int8 codes, 2 fp8 codes, with the scales)
 extern "C" int chunked_prefill(const void* q, const void* k_pool,
                                const void* v_pool, const void* k_scale,
                                const void* v_scale, const void* bt,
                                const void* pos, void* out, int B, int Tc,
-                               int KVH, int rep, int D, int bs, int nbs,
-                               float scale, int dtype, int kv,
+                               int KVH, int rep, int D, int bs, int nb,
+                               int nbs, float scale, int dtype, int kv,
                                void* stream) {
   if (B == 0 || Tc == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
@@ -400,13 +643,12 @@ extern "C" int chunked_prefill(const void* q, const void* k_pool,
       chunked_prefill_kernel<float, Q><<<grid, CP_THREADS, smem, st>>>(
           (const float*)q, k_pool, v_pool, ksp, vsp, btp, posp,
           (float*)out, Tc, KVH, rep, D, bs, nbs, scale);
-    } else if (dtype == 1 && (D == 64 || D == 128)) {
-      const dim3 grid(B, KVH, (rep * Tc + FA_ROWS - 1) / FA_ROWS);
-      auto kernel = D == 64 ? chunked_prefill_bf16<64, Q>
-                            : chunked_prefill_bf16<128, Q>;
-      kernel<<<grid, FA_THREADS, 0, st>>>(
-          (const bf16*)q, k_pool, v_pool, ksp, vsp, btp, posp, (bf16*)out,
-          Tc, KVH, rep, bs, nbs, scale);
+    } else if (dtype == 1 && (D == 64 || D == 128) &&
+               (Q != 0 || cw_block_size_ok(bs))) {
+      auto launch = D == 64 ? launch_chunk_wgmma<64, Q>
+                            : launch_chunk_wgmma<128, Q>;
+      return launch((const bf16*)q, k_pool, v_pool, ksp, vsp, btp, posp,
+                    (bf16*)out, B, Tc, KVH, rep, bs, nb, nbs, scale, st);
     } else {
       return (int)cudaErrorInvalidValue;
     }

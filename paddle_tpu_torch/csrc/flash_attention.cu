@@ -12,6 +12,7 @@
 //   flash_fwd<WRITE_LSE=true>   _fwd_kernel_lse  (pallas_call :254)
 //   flash_bwd_dq                _bwd_dq_kernel   (pallas_call :306)
 //   flash_bwd_dkv               _bwd_dkv_kernel  (pallas_call :324)
+// (bf16: fa_fwd_wgmma, fa_bwd_dq_bf16, fa_bwd_dkv_wgmma; f32: fa_*_f32)
 // The TPU grid carried the softmax state (and the dQ / dK / dV sums)
 // from one sequential grid step to the next; here a block owns a tile of
 // rows and loops over the other axis itself.  Tiles wholly above the
@@ -33,14 +34,19 @@
 //   at 9.7 % of that bound (5.7 ms against SDPA's 0.88).  P is rounded
 //   to bf16 as the A operand of the second product, as FlashAttention-2
 //   does (the plain version keeps it in f32, as the TPU kernels do).
-// - bf16 backward: FlashAttention-2 on the tensor cores with mma.sync
-//   m16n8k16 (bf16 in, f32 out), 4 warps a block, 16 rows a warp,
-//   operand tiles staged in shared memory without copy/compute overlap;
-//   S, P and dS are f32 in registers, P and dS rounded to bf16 for the
-//   second products.  dQ owns 64 query rows a block (keys 32 at a time,
-//   to keep S, dP and dQ in registers); dK/dV own 64 key rows of one kv
-//   head and walk every query head of its group, 32 query rows at a
-//   time, with K and V read from shared memory (dynamic, 52 KB).
+// - bf16 backward, dQ: FlashAttention-2 with mma.sync m16n8k16 (bf16
+//   in, f32 out), 4 warps a block, 16 rows a warp, K/V tiles staged in
+//   shared memory without copy/compute overlap; 64 query rows a block,
+//   keys 32 at a time, S, dP and dQ in registers.
+// - bf16 backward, dK/dV: a warp-specialized Hopper kernel
+//   (fa_bwd_dkv_wgmma, below: 128 keys a block held in shared memory,
+//   Q/dO tiles by TMA through a 3-stage ring, wgmma for all four
+//   products, dK and dV in registers to the end, so no atomics).  At T =
+//   8192, 32/8 heads, D = 128 its bound is 1.112 ms of operations; the
+//   mma.sync kernel it replaces (4 warps, 64 keys, 32-query tiles staged
+//   between two barriers, the mask on every tile) ran at 14 % of it.
+//   In both, P and dS are f32 in registers and rounded to bf16 for the
+//   second products, as FlashAttention-2 does.
 // - f32 (the CPU-scale check configuration): CUDA cores, 16 rows and 16
 //   columns a tile, 8 threads a row.
 #include <cmath>
@@ -360,7 +366,6 @@ __global__ void __launch_bounds__(F_THREADS) fa_bwd_dkv_f32(FAParams p) {
 constexpr int T_THREADS = 128;   // 4 warps, 16 rows each
 constexpr int T_ROWS = 64;       // rows a block
 constexpr int DQ_KEYS = 32;      // key tile of dQ
-constexpr int DKV_QROWS = 32;    // query tile of dK/dV
 
 // Fragment layouts (m16n8k16): lane = 4 g + tg holds rows g and g + 8;
 // A pairs of k at 2 tg (and + 8), B pairs of k at 2 tg for column g, C
@@ -701,126 +706,243 @@ __global__ void __launch_bounds__(T_THREADS) fa_bwd_dq_bf16(FAParams p) {
   }
 }
 
+// --------------------------------------- bf16 dK/dV (wgmma + TMA)
+// A block owns 128 keys of one (batch, kv head): warpgroups 0 and 1
+// hold 64 keys each and their dK and dV sums in f32 registers to the
+// end (no atomics: the result's bits do not depend on timing), and
+// warpgroup 2 produces.  One producer thread loads the block's K and V
+// once, then, for each query head of the group, 64-row tiles of Q and
+// dO into a 3-stage ring, by TMA from 4-D tensor maps over the
+// [B, H, T, D] strides (128-byte swizzled, D / 64 boxes a tile); the
+// producer warp's lanes copy the tile's lse (times log2 e) and delta
+// rows beside them.  A consumer warpgroup computes S^T = K Q^T and
+// dP^T = V dO^T by wgmma m64n64k16 from shared memory (all K-major),
+// P^T = exp2(S^T scale log2 e - lse log2 e) and dS^T = P^T (dP^T -
+// delta) scale in f32 registers (the mask only on tiles that straddle
+// the diagonal or the ragged end; tiles wholly above the diagonal are
+// skipped), rounds P^T and dS^T to bf16 in the A-fragment layout, and
+// issues dV += P^T dO and dK += dS^T Q with Q and dO read MN-major.
+// Blocks of the first keys, which see the most queries, launch first.
+constexpr int DKV_BN = 128, DKV_BM = 64, DKV_THREADS = 384, DKV_STAGES = 3;
+constexpr int DKV_KBOX = 128 * 128;   // [128 rows][64] bf16
+constexpr int DKV_QBOX = 64 * 128;    // [64 rows][64] bf16
+
+struct DKVMaps {
+  CUtensorMap q, dout;   // [B, H, Tq, D] as (D, T, H, B), box (64, 64, 1, 1)
+  CUtensorMap k, v;      // [B, KVH, Tk, D], box (64, 128, 1, 1)
+};
+
 template <int D>
-constexpr int dkv_smem_bytes() {
-  return (2 * T_ROWS + 2 * DKV_QROWS) * (D + 8) * 2 + 2 * DKV_QROWS * 4;
+constexpr int fa_dkv_smem() {
+  // alignment; K, V; per stage Q, dO and 64 lse + 64 delta; barriers
+  return 1024 + 2 * (D / 64) * DKV_KBOX +
+         DKV_STAGES * (2 * (D / 64) * DKV_QBOX + 2 * DKV_BM * 4) +
+         (1 + 2 * DKV_STAGES) * 8;
 }
 
 template <int D>
-__global__ void __launch_bounds__(T_THREADS) fa_bwd_dkv_bf16(FAParams p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  typedef bf16 Row[D + 8];
-  Row* Ks = reinterpret_cast<Row*>(smem_raw);     // [T_ROWS] this block's keys
-  Row* Vs = Ks + T_ROWS;                          // [T_ROWS]
-  Row* Qs = Vs + T_ROWS;                          // [DKV_QROWS] a query tile
-  Row* Ds = Qs + DKV_QROWS;                       // [DKV_QROWS] its dO rows
-  float* lse_s = reinterpret_cast<float*>(Ds + DKV_QROWS);
-  float* dl_s = lse_s + DKV_QROWS;
-  const int b = blockIdx.z, kh = blockIdx.y, rep = p.H / p.KVH;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, tg = lane % 4;
-  const int k0 = blockIdx.x * T_ROWS, off = p.Tk - p.Tq;
-  const int wkey = warp * 16;           // this warp's keys within the block
-  int key[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) key[i] = k0 + wkey + g + 8 * i;
+__global__ void __launch_bounds__(DKV_THREADS, 1)
+    fa_bwd_dkv_wgmma(const __grid_constant__ DKVMaps maps, FAParams p) {
+  using namespace hopper;
+  constexpr int KT = (D / 64) * DKV_KBOX;       // the K (or V) tile
+  constexpr int QT = (D / 64) * DKV_QBOX;       // one Q (or dO) tile
+  extern __shared__ uint8_t dkv_smem[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(dkv_smem) + 1023) & ~uintptr_t(1023));
+  uint8_t* ks = smem;
+  uint8_t* vs = ks + KT;
+  uint8_t* qs = vs + KT;                        // DKV_STAGES tiles
+  uint8_t* dos = qs + DKV_STAGES * QT;          // DKV_STAGES tiles
+  float* rows = reinterpret_cast<float*>(dos + DKV_STAGES * QT);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(rows + DKV_STAGES * 2 * DKV_BM);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + DKV_STAGES;
 
-  stage<D>(Ks, (const bf16*)p.k + k_off(p, b, kh, 0), p.kst, k0, T_ROWS,
-           p.Tk);
-  stage<D>(Vs, (const bf16*)p.v + k_off(p, b, kh, 0), p.kst, k0, T_ROWS,
-           p.Tk);
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) dk[nd][c] = dv[nd][c] = 0.f;
-  // the first query row that sees any of this block's keys
-  const int qstart =
-      p.causal ? max(0, k0 - off) / DKV_QROWS * DKV_QROWS : 0;
+  const int rep = p.H / p.KVH, off = p.Tk - p.Tq;
+  const int kb = blockIdx.x / (p.B * p.KVH), rest = blockIdx.x % (p.B * p.KVH);
+  const int b = rest / p.KVH, kh = rest % p.KVH, k0 = kb * DKV_BN;
+  // the first query tile that sees any of this block's keys
+  const int qstart = p.causal ? max(0, k0 - off) / DKV_BM * DKV_BM : 0;
+  const int n_qt = (p.Tq - qstart + DKV_BM - 1) / DKV_BM;
+  const int n_it = rep * n_qt;
 
-  for (int r = 0; r < rep; ++r) {
-    const int h = kh * rep + r;
-    const bf16* qh = (const bf16*)p.q + q_off(p, b, h, 0);
-    const bf16* dh = (const bf16*)p.dout + q_off(p, b, h, 0);
-    const size_t rows_at = ((size_t)b * p.H + h) * p.Tq;
-    for (int qb = qstart; qb < p.Tq; qb += DKV_QROWS) {
-      __syncthreads();
-      stage<D>(Qs, qh, p.qst, qb, DKV_QROWS, p.Tq);
-      stage<D>(Ds, dh, p.qst, qb, DKV_QROWS, p.Tq);
-      if (threadIdx.x < DKV_QROWS) {
-        const int qr = qb + threadIdx.x;
-        lse_s[threadIdx.x] = qr < p.Tq ? p.lse[rows_at + qr] : 0.f;
-        dl_s[threadIdx.x] = qr < p.Tq ? p.delta[rows_at + qr] : 0.f;
-      }
-      __syncthreads();
-      // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys
-      float st[DKV_QROWS / 8][4], dpt[DKV_QROWS / 8][4];
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < DKV_STAGES; ++s) {
+      mbar_init(&full[s], 33);    // the TMA's expect_tx, then each lane
+      mbar_init(&empty[s], 8);    // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // ------------------------------------------------------ producer
+    setmaxnreg_dec<40>();
+    if (threadIdx.x < 288) {
+      const int lane = threadIdx.x - 256;
+      if (lane == 0) {
+        mbar_expect_tx(kv_full, 2 * KT);
 #pragma unroll
-      for (int j = 0; j < DKV_QROWS / 8; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) st[j][c] = dpt[j][c] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks) {
-        uint32_t kf[4], vf[4];
-        load_a(kf, &Ks[wkey][ks * 16], D + 8, g, tg, true, true);
-        load_a(vf, &Vs[wkey][ks * 16], D + 8, g, tg, true, true);
-#pragma unroll
-        for (int j = 0; j < DKV_QROWS / 8; ++j) {
-          const uint32_t qf[2] = {ld_pair(&Qs[j * 8 + g][ks * 16 + 2 * tg]),
-                                  ld_pair(&Qs[j * 8 + g][ks * 16 + 2 * tg + 8])};
-          const uint32_t df[2] = {ld_pair(&Ds[j * 8 + g][ks * 16 + 2 * tg]),
-                                  ld_pair(&Ds[j * 8 + g][ks * 16 + 2 * tg + 8])};
-          mma_bf16(st[j], kf, qf);
-          mma_bf16(dpt[j], vf, df);
+        for (int x = 0; x < D / 64; ++x) {
+          tma_load_4d(ks + x * DKV_KBOX, &maps.k, kv_full, x * 64, k0, kh, b);
+          tma_load_4d(vs + x * DKV_KBOX, &maps.v, kv_full, x * 64, k0, kh, b);
         }
       }
-      // P^T and dS^T; column c of tile j is query qb + j * 8 + 2 tg + (c & 1)
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % DKV_STAGES;
+        const int h = kh * rep + it / n_qt;
+        const int q0 = qstart + (it % n_qt) * DKV_BM;
+        if (it >= DKV_STAGES)
+          mbar_wait(&empty[s], ((it / DKV_STAGES) - 1) & 1);
+        if (lane == 0) {
+          mbar_expect_tx(&full[s], 2 * QT);
 #pragma unroll
-      for (int j = 0; j < DKV_QROWS / 8; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int qc = j * 8 + 2 * tg + (c & 1), qr = qb + qc;
-          const int kr = key[c / 2];
-          const bool live = qr < p.Tq && kr < p.Tk && kr < key_limit(p, qr);
-          const float pr =
-              live ? expf(st[j][c] * p.scale - lse_s[qc]) : 0.f;
-          st[j][c] = pr;
-          dpt[j][c] = pr * (dpt[j][c] - dl_s[qc]) * p.scale;
+          for (int x = 0; x < D / 64; ++x) {
+            tma_load_4d(qs + s * QT + x * DKV_QBOX, &maps.q, &full[s],
+                        x * 64, q0, h, b);
+            tma_load_4d(dos + s * QT + x * DKV_QBOX, &maps.dout, &full[s],
+                        x * 64, q0, h, b);
+          }
         }
-      // dV += P^T dO and dK += dS^T Q, 16 queries a k step
+        const size_t at = ((size_t)b * p.H + h) * p.Tq;
+        float* lse_s = rows + s * 2 * DKV_BM;
 #pragma unroll
-      for (int kk = 0; kk < DKV_QROWS / 16; ++kk) {
-        const uint32_t pf[4] = {pack_bf16(st[2 * kk][0], st[2 * kk][1]),
-                                pack_bf16(st[2 * kk][2], st[2 * kk][3]),
-                                pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]),
-                                pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3])};
-        const uint32_t sf[4] = {
-            pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]),
-            pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]),
-            pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]),
-            pack_bf16(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3])};
-#pragma unroll
-        for (int nd = 0; nd < D / 8; ++nd) {
-          uint32_t bfr[2];
-          ldsm_x2_trans(bfr, &Ds[kk * 16 + lane % 16][nd * 8]);
-          mma_bf16(dv[nd], pf, bfr);
-          ldsm_x2_trans(bfr, &Qs[kk * 16 + lane % 16][nd * 8]);
-          mma_bf16(dk[nd], sf, bfr);
+        for (int i = lane; i < DKV_BM; i += 32) {
+          const int qr = q0 + i;
+          lse_s[i] = qr < p.Tq ? p.lse[at + qr] * 1.4426950408889634f : 0.f;
+          lse_s[DKV_BM + i] = qr < p.Tq ? p.delta[at + qr] : 0.f;
         }
+        mbar_arrive(&full[s]);
       }
     }
-  }
+  } else {
+    // ------------------------------------------------------ consumers
+    setmaxnreg_inc<232>();
+    const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32;
+    const int lane = threadIdx.x % 32, g = lane / 4, tg = lane % 4;
+    const int kw0 = k0 + wg * 64;                 // this warpgroup's keys
+    int key[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (key[i] >= p.Tk) continue;
-    bf16* dkr = (bf16*)p.dk + k_off(p, b, kh, key[i]);
-    bf16* dvr = (bf16*)p.dv + k_off(p, b, kh, key[i]);
+    for (int i = 0; i < 2; ++i) key[i] = kw0 + warp * 16 + g + 8 * i;
+    const float scale_log2 = p.scale * 1.4426950408889634f;
+    float dk[D / 2], dv[D / 2];
 #pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      *reinterpret_cast<__nv_bfloat162*>(dkr + nd * 8 + 2 * tg) =
-          __floats2bfloat162_rn(dk[nd][2 * i], dk[nd][2 * i + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dvr + nd * 8 + 2 * tg) =
-          __floats2bfloat162_rn(dv[nd][2 * i], dv[nd][2 * i + 1]);
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    const uint32_t ka = smem_u32(ks) + wg * 64 * 128;
+    const uint32_t va = smem_u32(vs) + wg * 64 * 128;
+    mbar_wait(kv_full, 0);
+
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % DKV_STAGES;
+      const int q0 = qstart + (it % n_qt) * DKV_BM;
+      mbar_wait(&full[s], (it / DKV_STAGES) & 1);
+      // tiles whose every query is above this warpgroup's keys add 0
+      if (!(p.causal && q0 + DKV_BM - 1 + off < kw0)) {
+        const uint32_t qa = smem_u32(qs + s * QT);
+        const uint32_t da = smem_u32(dos + s * QT);
+        const float* lse_s = rows + s * 2 * DKV_BM;
+        const float* dl_s = lse_s + DKV_BM;
+        float st[DKV_BM / 2], dpt[DKV_BM / 2];
+#pragma unroll
+        for (int i = 0; i < DKV_BM / 2; ++i) st[i] = dpt[i] = 0.f;
+        wgmma_fence();
+        fence_regs<DKV_BM / 2>(st);
+        fence_regs<DKV_BM / 2>(dpt);
+        // the k step kk: 32 bytes into a box, boxes of 64 columns
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t ko = (kk / 4) * DKV_KBOX + (kk % 4) * 32;
+          const uint32_t qo = (kk / 4) * DKV_QBOX + (kk % 4) * 32;
+          wgmma_ss_n64<0>(st, desc_sw128(ka + ko, 16, 1024),
+                          desc_sw128(qa + qo, 16, 1024), 1);
+        }
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t ko = (kk / 4) * DKV_KBOX + (kk % 4) * 32;
+          const uint32_t qo = (kk / 4) * DKV_QBOX + (kk % 4) * 32;
+          wgmma_ss_n64<0>(dpt, desc_sw128(va + ko, 16, 1024),
+                          desc_sw128(da + qo, 16, 1024), 1);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs<DKV_BM / 2>(st);
+
+        // st[4 j + 2 i + c]: key key[i], query q0 + 8 j + 2 tg + c
+        const bool masked =
+            q0 + DKV_BM > p.Tq || (p.causal && kw0 + 63 > q0 + off);
+#pragma unroll
+        for (int j = 0; j < DKV_BM / 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int qc = 8 * j + 2 * tg + (c & 1), qr = q0 + qc;
+            float e = exp2f(fmaf(st[4 * j + c], scale_log2, -lse_s[qc]));
+            if (masked && (qr >= p.Tq || (p.causal && key[c >> 1] > qr + off)))
+              e = 0.f;
+            st[4 * j + c] = e;
+          }
+        wgmma_wait<0>();
+        fence_regs<DKV_BM / 2>(dpt);
+#pragma unroll
+        for (int j = 0; j < DKV_BM / 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int qc = 8 * j + 2 * tg + (c & 1);
+            dpt[4 * j + c] = st[4 * j + c] * (dpt[4 * j + c] - dl_s[qc]) *
+                             p.scale;
+          }
+        uint32_t pa[DKV_BM / 16][4], sa[DKV_BM / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < DKV_BM / 16; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            pa[kk][r] = pack_bf16(st[8 * kk + 2 * r], st[8 * kk + 2 * r + 1]);
+            sa[kk][r] =
+                pack_bf16(dpt[8 * kk + 2 * r], dpt[8 * kk + 2 * r + 1]);
+          }
+        wgmma_fence();
+        fence_regs<D / 2>(dv);
+        fence_regs<D / 2>(dk);
+#pragma unroll
+        for (int kk = 0; kk < DKV_BM / 16; ++kk) {
+          const uint64_t dd = desc_sw128(da + kk * 16 * 128, DKV_QBOX, 1024);
+          const uint64_t dq = desc_sw128(qa + kk * 16 * 128, DKV_QBOX, 1024);
+          if constexpr (D == 128) {
+            wgmma_rs_n128<1>(dv, pa[kk], dd, 1);
+            wgmma_rs_n128<1>(dk, sa[kk], dq, 1);
+          } else {
+            wgmma_rs_n64<1>(dv, pa[kk], dd, 1);
+            wgmma_rs_n64<1>(dk, sa[kk], dq, 1);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<D / 2>(dv);
+        fence_regs<D / 2>(dk);
+        keep_regs<4 * (DKV_BM / 16)>(&pa[0][0]);
+        keep_regs<4 * (DKV_BM / 16)>(&sa[0][0]);
+      }
+      // every lane's reads of the stage (lse and delta with ld.shared),
+      // then lane 0 frees it for the producer's next copy
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (key[i] >= p.Tk) continue;
+      bf16* dkr = (bf16*)p.dk + k_off(p, b, kh, key[i]);
+      bf16* dvr = (bf16*)p.dv + k_off(p, b, kh, key[i]);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(dkr + 8 * j + 2 * tg) =
+            pack_bf16(dk[4 * j + 2 * i], dk[4 * j + 2 * i + 1]);
+        *reinterpret_cast<uint32_t*>(dvr + 8 * j + 2 * tg) =
+            pack_bf16(dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
+      }
     }
   }
 }
@@ -963,13 +1085,30 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
 }
 
 template <int D>
-static int launch_dkv_bf16(const FAParams& p, cudaStream_t st) {
-  constexpr int smem = dkv_smem_bytes<D>();
+static int launch_dkv_wgmma(const FAParams& p, cudaStream_t st) {
+  DKVMaps maps;
+  const cuuint32_t qbox[4] = {64, DKV_BM, 1, 1};
+  const cuuint32_t kbox[4] = {64, DKV_BN, 1, 1};
+  const cuuint64_t qd[4] = {(cuuint64_t)p.D, (cuuint64_t)p.Tq,
+                            (cuuint64_t)p.H, (cuuint64_t)p.B};
+  const cuuint64_t qs[3] = {(cuuint64_t)p.qst * 2, (cuuint64_t)p.qsh * 2,
+                            (cuuint64_t)p.qsb * 2};
+  const cuuint64_t kd[4] = {(cuuint64_t)p.D, (cuuint64_t)p.Tk,
+                            (cuuint64_t)p.KVH, (cuuint64_t)p.B};
+  const cuuint64_t ks[3] = {(cuuint64_t)p.kst * 2, (cuuint64_t)p.ksh * 2,
+                            (cuuint64_t)p.ksb * 2};
+  if (!(hopper::make_map_bf16(&maps.q, p.q, 4, qd, qs, qbox) &&
+        hopper::make_map_bf16(&maps.dout, p.dout, 4, qd, qs, qbox) &&
+        hopper::make_map_bf16(&maps.k, p.k, 4, kd, ks, kbox) &&
+        hopper::make_map_bf16(&maps.v, p.v, 4, kd, ks, kbox)))
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = fa_dkv_smem<D>();
   const cudaError_t e = cudaFuncSetAttribute(
-      fa_bwd_dkv_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fa_bwd_dkv_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((p.Tk + T_ROWS - 1) / T_ROWS, p.KVH, p.B);
-  fa_bwd_dkv_bf16<D><<<grid, T_THREADS, smem, st>>>(p);
+  const int n_kb = (p.Tk + DKV_BN - 1) / DKV_BN;
+  fa_bwd_dkv_wgmma<D><<<n_kb * p.B * p.KVH, DKV_THREADS, smem, st>>>(maps,
+                                                                     p);
   return 0;
 }
 
@@ -992,8 +1131,15 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
     const dim3 grid((Tk + F_ROWS - 1) / F_ROWS, KVH, B);
     fa_bwd_dkv_f32<<<grid, F_THREADS, f32_smem(D, 2), st>>>(p);
   } else {
-    const int err = D == 64 ? launch_dkv_bf16<64>(p, st)
-                            : launch_dkv_bf16<128>(p, st);
+    // no query rows: zero sums (dK, dV are dense, from empty_like(k));
+    // the tensor maps take no zero extent
+    if (Tq == 0) {
+      const size_t bytes = (size_t)B * KVH * Tk * D * 2;
+      const cudaError_t e = cudaMemsetAsync(dk, 0, bytes, st);
+      return (int)(e != cudaSuccess ? e : cudaMemsetAsync(dv, 0, bytes, st));
+    }
+    const int err = D == 64 ? launch_dkv_wgmma<64>(p, st)
+                            : launch_dkv_wgmma<128>(p, st);
     if (err) return err;
   }
   return (int)cudaGetLastError();

@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the TMA kernels
 // (fused_norm_linear.cu's tiled and skinny bf16 kernels,
-// flash_attention.cu's bf16 forward): mbarriers, TMA tensor loads into
-// 128-byte-swizzled shared memory, ldmatrix over them, thread block
-// clusters and their distributed shared memory, wgmma descriptors and
-// instructions, setmaxnreg, and the host side of a tensor map.  Raw
-// PTX, no CUTLASS, so a source builds in seconds.
+// flash_attention.cu's bf16 forward and dK/dV, chunked_prefill.cu's bf16
+// kernel): mbarriers, cp.async, TMA tensor loads into 128-byte-swizzled
+// shared memory, ldmatrix over them, thread block clusters and their
+// distributed shared memory, wgmma descriptors and instructions, named
+// barriers, setmaxnreg, and the host side of a tensor map.  Raw PTX, no
+// CUTLASS, so a source builds in seconds.
 //
 // The layout every tile here uses: TMA loads a box whose inner extent is
 // 64 bf16 (128 bytes, the widest a 128-byte swizzle takes) into shared
@@ -81,6 +82,30 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // bytes): a consumer fences before it releases a ring stage
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ----------------------------------------------------------- cp.async
+// `bytes` (4 or 16) from global `src` to shared `dst` without a register
+// (zeros instead when !full, and nothing is read)
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
+                                            bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(__cvta_generic_to_global(src)), "r"(full ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(__cvta_generic_to_global(src)), "r"(full ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---------------------------------------------------------------- TMA
@@ -238,6 +263,43 @@ __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+}
+
+// D[64 x 64] (+)= A[64 x 16] . B[16 x 64], both operands in shared
+// memory (descriptors); TRANS_B 1 reads B MN-major
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+}
+
+// keep a register A operand alive until the wgmma that reads it has
+// retired (ptxas does not see the asynchronous read): call it after
+// wgmma_wait
+template <int N>
+__device__ __forceinline__ void keep_regs(const uint32_t* a) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" ::"r"(a[i]) : "memory");
+}
+
+// barrier `id` (1..15) over `threads` threads, a warpgroup's own
+// __syncthreads
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // D[64 x 128] (+)= A[64 x 16] . B[16 x 128], A from registers (each

@@ -4,8 +4,12 @@ PyTorch version.
 Replaces ``paddle_tpu/kernels/chunked_prefill.py`` ``_chunk_kernel``
 (the ``pallas_call`` in ``_pallas_chunked``); the kernel is
 ``csrc/chunked_prefill.cu``, whose header says what bounds it on the
-H100 and how its blocks split the rep*T query rows: bf16 runs on the
-tensor cores (head_dim 64 or 128), f32 on the CUDA cores.
+H100 and how its blocks split the rep*T query rows: bf16 runs the
+wgmma kernel (head_dim 64 or 128; any rep, chunk length and batch;
+bf16 pools of block sizes 8, 16, 32 or a multiple of 64,
+:func:`wgmma_block_size_ok`, code pools of any; q, the pools and the
+scales 16-byte aligned; else ``ValueError``), f32 the CUDA-core
+kernel.
 
 The caller has rotated q and k (``apply_rope``) and scattered the
 chunk's k/v into the pools; padded chunk positions went to the garbage
@@ -17,8 +21,8 @@ Quantized pools (``kv_cache_dtype`` ``"int8"``/``"fp8"``, the
 reference's ``kv_dtype`` variant of ``_chunk_kernel``) hold int8 codes
 with [nb, bs] f32 row scales, which the caller filled with
 ``kv_quant.quantize_scatter``; the kernels dequantize as they stage the
-pages (f32), or stage the codes and apply the scales per key (bf16; see
-the source).  Each scheme counts its own launches
+pages (f32), or decode the codes to bf16 exactly and apply the scales
+per key (bf16; see the source).  Each scheme counts its own launches
 (``chunked_prefill_int8``, ``chunked_prefill_fp8``).
 """
 from __future__ import annotations
@@ -34,8 +38,17 @@ KERNEL = "chunked_prefill"
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128         # csrc/chunked_prefill.cu CP_MAXD (f32 kernel)
 COL_PARTS = 4              # csrc/chunked_prefill.cu CP_PARTS (f32 kernel)
-BF16_HEAD_DIMS = (64, 128)  # the bf16 tensor-core kernel's instances
+BF16_HEAD_DIMS = (64, 128)  # the bf16 wgmma kernel's instances
 SMEM_LIMIT = 48 * 1024
+WGMMA_KEYS = 64            # csrc/chunked_prefill.cu CW_KEYS: a key tile
+
+
+def wgmma_block_size_ok(bs):
+    """csrc/chunked_prefill.cu ``cw_block_size_ok``: over bf16 pools the
+    bf16 kernel loads a 64-key tile as whole TMA boxes of one page's
+    rows, 8 to 64 of them (a box is 1024-byte aligned in the 128-byte
+    swizzle only from 8 rows up); code pools take any block size."""
+    return bs % WGMMA_KEYS == 0 or (bs >= 8 and WGMMA_KEYS % bs == 0)
 
 
 def chunked_attention_plain(q, k_pool, v_pool, block_table, positions,
@@ -83,6 +96,7 @@ def chunked_attention(q, k_pool, v_pool, block_table, positions,
         return chunked_attention_plain(q, k_pool, v_pool, block_table,
                                        positions, k_scale, v_scale,
                                        kv_cache_dtype)
+    q = q.contiguous()
     B, T, H, D = q.shape
     nb, bs, KVH, Dk = k_pool.shape
     nbs = block_table.shape[1]
@@ -96,6 +110,16 @@ def chunked_attention(q, k_pool, v_pool, block_table, positions,
         raise ValueError("chunked_attention: operands do not fit "
                          f"q {tuple(q.shape)} {q.dtype}, pool "
                          f"{tuple(k_pool.shape)} {k_pool.dtype}")
+    scales = () if kv_cache_dtype is None else (k_scale, v_scale)
+    if q.dtype == torch.bfloat16:
+        if kv_cache_dtype is None and not wgmma_block_size_ok(bs):
+            raise ValueError(f"chunked_attention: the bf16 kernel takes "
+                             f"bf16 pools of block sizes 8, 16, 32 or a "
+                             f"multiple of 64, not {bs}")
+        if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool, *scales)):
+            raise ValueError("chunked_attention: the bf16 kernel's 16-byte "
+                             "loads and TMA copies need q, the pools and "
+                             "the scales 16-byte aligned")
     if q.dtype == torch.float32:
         smem = _build.bind(KERNEL, "chunked_prefill_smem_bytes",
                            [ctypes.c_int] * 2)(D, bs)
@@ -103,20 +127,18 @@ def chunked_attention(q, k_pool, v_pool, block_table, positions,
             raise ValueError(f"chunked_attention: D={D}, block_size={bs} "
                              f"needs {smem} B of shared memory")
     fn = _build.bind(KERNEL, "chunked_prefill",
-                     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                      + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                         ctypes.c_void_p])
     name = kv_quant.counter_name(KERNEL, kv_cache_dtype)
-    q = q.contiguous()
-    scales = () if kv_cache_dtype is None else (k_scale, v_scale)
     _build.require_cuda(name, q, k_pool, v_pool, block_table, positions,
                         *scales)
     out = torch.empty_like(q)
     p = _build.ptr
     ks, vs = (p(t) for t in scales) if scales else (None, None)
     _build.check(fn(p(q), p(k_pool), p(v_pool), ks, vs, p(block_table),
-                    p(positions), p(out), B, T, KVH, H // KVH, D, bs, nbs,
-                    1.0 / math.sqrt(D), _build.dtype_code(q),
+                    p(positions), p(out), B, T, KVH, H // KVH, D, bs, nb,
+                    nbs, 1.0 / math.sqrt(D), _build.dtype_code(q),
                     kv_quant.KV_DTYPE_CODES[kv_cache_dtype],
                     _build.stream_ptr(q)), name)
     _build.launches.add(name)

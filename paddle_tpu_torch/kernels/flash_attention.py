@@ -148,11 +148,11 @@ def _strides(t):
 
 def tma_strides(t):
     """:func:`_strides`, each a multiple of 16 bytes, or raise: the bf16
-    forward loads its tiles by TMA, whose tensor maps take no other
-    stride."""
+    forward and dK/dV load their tiles by TMA, whose tensor maps take no
+    other stride."""
     st = _strides(t)
     if any(s * t.element_size() % 16 for s in st):
-        raise ValueError(f"flash_attention: the bf16 forward's tensor maps "
+        raise ValueError(f"flash_attention: the bf16 kernels' tensor maps "
                          f"need strides that are multiples of 16 bytes; "
                          f"got {t.stride()[:3]} elements of "
                          f"{t.element_size()} bytes")
@@ -194,6 +194,8 @@ def _bwd_operands(q, k, v, do, lse, delta):
     """The backward kernels' operands, checked and laid out for them."""
     _build.require_cuda(BWD_DQ, q, k, v, do, lse, delta, contiguous=False)
     q, k = _kernel_view(q), _kernel_view(k)
+    if q.dtype == torch.bfloat16:      # dK/dV's tensor maps (dO and v
+        tma_strides(q), tma_strides(k)  # take q's and k's strides)
     return (q, k, _like(_kernel_view(v), k), _like(do, q), lse.contiguous(),
             delta.contiguous())
 

@@ -13,9 +13,10 @@ MoE dispatch and combine bit-identical where every slot has one choice
 of weight 1, else 1e-6 in f32 and one bf16 ulp of each output;
 fused_linear f32 1e-4, bf16 one bf16 ulp (2^-7) of the largest output,
 its backward (plain PyTorch on both devices) 1e-5 of the largest entry;
-the tiny static BERT's losses 1e-4; the Hopper paged decode and the
-skinny fused_norm_linear group one bf16 rounding of the largest output,
-two runs bit-identical.
+the tiny static BERT's losses 1e-4; the Hopper paged decode, the wgmma
+chunked prefill and the skinny fused_norm_linear group one bf16 rounding
+of the largest output, two runs bit-identical; the wgmma dK/dV by
+``_hold_bf16_attention``'s rule, two runs bit-identical.
 The Llama-3-8B, Mixtral and BERT-base shapes are held in chip_smoke.py.
 """
 import math
@@ -371,6 +372,199 @@ class TestCudaHopperDecode:
         # decode_plan's splits
         ops = _bf16_decode_operands(1, 8, 4, 128, 512, [8191], "fp8", 7)
         _hold_decode(ops, cuda_device)
+
+
+def _bf16_chunk_operands(B, T, KVH, rep, D, bs, positions, scheme, seed):
+    """bf16 q and pools (codes and scales for a quantized ``scheme``) on
+    the CPU, as chunked_attention takes them: a poisoned block 0 that
+    every table entry past a sequence's pages points at, as the engine
+    leaves them, the sequences' pages on distinct shuffled blocks."""
+    g = torch.Generator().manual_seed(seed)
+    H = KVH * rep
+    pages = [(p + T + bs - 1) // bs for p in positions]
+    nbs = max(pages) + 1
+    nb = 1 + sum(pages)
+    kp = torch.randn(nb, bs, KVH, D, generator=g).bfloat16()
+    vp = torch.randn(nb, bs, KVH, D, generator=g).bfloat16()
+    kp[0], vp[0] = 1e3, -1e3
+    perm = (1 + torch.randperm(nb - 1, generator=g)).int()
+    bt = torch.zeros(B, nbs, dtype=torch.int32)
+    at = 0
+    for b, n in enumerate(pages):
+        bt[b, :n] = perm[at:at + n]
+        at += n
+    ks = vs = None
+    if scheme is not None:
+        (kp, ks), (vp, vs) = (kv_quant.quantize_kv(x, scheme)
+                              for x in (kp, vp))
+    q = torch.randn(B, T, H, D, generator=g).bfloat16()
+    return (q, kp, vp, bt, torch.tensor(positions, dtype=torch.int32), ks,
+            vs, scheme)
+
+
+def _hold_chunk(ops, cuda_device):
+    """The wgmma chunk kernel on ``ops`` twice (the same bits), one launch
+    each, against the plain version on the CPU: one bf16 rounding of the
+    largest output (the two differ in the order of f32 sums, exp2 and
+    the rounding of P to bf16)."""
+    dev = [o.to(cuda_device) if isinstance(o, torch.Tensor) else o
+           for o in ops]
+    launches.reset()
+    got = chunked_prefill.chunked_attention(*dev)
+    again = chunked_prefill.chunked_attention(*dev)
+    assert launches.snapshot() == {
+        kv_quant.counter_name(chunked_prefill.KERNEL, ops[7]): 2}
+    assert torch.equal(got, again)
+    want = chunked_prefill.chunked_attention_plain(*ops).float()
+    got = got.cpu().float()
+    assert float((got - want).abs().max()) <= float(want.abs().max()) / 128
+    return got
+
+
+@pytest.mark.cuda
+class TestCudaHopperChunk:
+    """chunked_prefill_wgmma (bf16 q over bf16, int8 and fp8 pools)."""
+
+    @pytest.mark.parametrize("scheme", [None, "int8", "fp8"])
+    def test_frontiers(self, cuda_device, scheme):
+        # starts at 0, mid-page, a page edge +- 1 and a 64-key tile edge
+        # +- 1, past the poisoned block 0
+        positions = [0, 37, 15, 16, 17, 63, 64, 65]
+        ops = _bf16_chunk_operands(8, 40, 2, 4, 128, 16, positions, scheme,
+                                   1)
+        got = _hold_chunk(ops, cuda_device)
+        assert float(got.abs().max()) < 50.0      # no poison
+
+    @pytest.mark.parametrize("B", [1, 3])
+    @pytest.mark.parametrize("D", [64, 128])
+    @pytest.mark.parametrize("rep", [1, 2, 4, 8])
+    @pytest.mark.parametrize("T", [1, 40, 256, 257])
+    @pytest.mark.parametrize("scheme", [None, "int8", "fp8"])
+    def test_shapes(self, cuda_device, scheme, T, rep, D, B):
+        positions = [0, 130, 57][:B]
+        ops = _bf16_chunk_operands(B, T, 2, rep, D, 16, positions, scheme,
+                                   T + rep + D + B)
+        _hold_chunk(ops, cuda_device)
+
+    @pytest.mark.parametrize("rep,bs", [(3, 16), (5, 32), (16, 8), (4, 64),
+                                        (4, 128)])
+    def test_any_group_and_block_sizes(self, cuda_device, rep, bs):
+        # groups that do not divide the 64-row tile, pages of 8 to 128
+        # keys (several a key tile, or several key tiles a page)
+        for scheme in (None, "fp8"):
+            ops = _bf16_chunk_operands(2, 70, 1, rep, 64, bs, [0, 91],
+                                       scheme, rep * bs)
+            _hold_chunk(ops, cuda_device)
+
+    @pytest.mark.parametrize("bs", [1, 4, 12, 96])
+    @pytest.mark.parametrize("scheme", ["int8", "fp8"])
+    def test_code_pools_take_any_block_size(self, cuda_device, scheme, bs):
+        ops = _bf16_chunk_operands(2, 40, 2, 4, 128, bs, [0, 37], scheme,
+                                   bs)
+        _hold_chunk(ops, cuda_device)
+
+    @pytest.mark.parametrize("bs", [1, 4, 12, 96])
+    def test_refuses_block_sizes(self, cuda_device, bs):
+        # bf16 pages that are not whole TMA boxes of 8 to 64 rows:
+        # ValueError, nothing launched
+        ops = _bf16_chunk_operands(1, 8, 2, 4, 64, bs, [3], None, bs)
+        launches.reset()
+        with pytest.raises(ValueError, match="of block sizes 8, 16, 32"):
+            chunked_prefill.chunked_attention(
+                *[o.to(cuda_device) if isinstance(o, torch.Tensor) else o
+                  for o in ops])
+        assert launches.snapshot() == {}
+
+    @pytest.mark.parametrize("scheme", [None, "int8"])
+    def test_ring_reuse_gives_the_same_bits(self, cuda_device, scheme):
+        # the served shape (a 256-token chunk at 768, 8 kv heads, rep 4,
+        # D = 128), 100 launches: every output equal to the first's bits
+        # (a stage refilled under its readers would show as a change)
+        ops = _bf16_chunk_operands(1, 256, 8, 4, 128, 16, [768], scheme, 9)
+        dev = [o.to(cuda_device) if isinstance(o, torch.Tensor) else o
+               for o in ops]
+        first = _hold_chunk(ops, cuda_device)
+        outs = [chunked_prefill.chunked_attention(*dev) for _ in range(100)]
+        assert sum(not torch.equal(o.cpu().float(), first)
+                   for o in outs) == 0
+
+    def test_refuses_unaligned_pools(self, cuda_device):
+        # a pool view that starts 8 bytes into its storage: the kernel's
+        # 16-byte loads cannot take it, and nothing is launched
+        ops = _bf16_chunk_operands(1, 8, 2, 4, 64, 16, [3], None, 2)
+        flat = torch.zeros(ops[1].numel() + 4, dtype=torch.bfloat16,
+                           device=cuda_device)
+        pool = flat[4:].view(ops[1].shape)
+        dev = [o.to(cuda_device) for o in ops[:5]]
+        launches.reset()
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            chunked_prefill.chunked_attention(dev[0], pool, dev[2], *dev[3:])
+        assert launches.snapshot() == {}
+
+
+def _hold_dkv(q, k, v, do, causal, plain_on):
+    """fa_bwd_dkv_wgmma twice on the kernel forward's O and LSE (the same
+    bits, one launch each), dK and dV against the f32 plain version of
+    the same bf16 inputs by the rule of ``_hold_bf16_attention``; the
+    plain versions run on ``plain_on``."""
+    scale = 1 / math.sqrt(q.shape[-1])
+    o, lse = fa._fwd_kernel(q, k, v, causal, scale, True)
+    ops = fa._bwd_operands(q, k, v, do, lse, fa._delta(o, do))
+    launches.reset()
+    got = fa._dkv_kernel(*ops, causal, scale)
+    again = fa._dkv_kernel(*ops, causal, scale)
+    assert launches.snapshot() == {fa.BWD_DKV: 2}
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert got[0].stride() == ops[1].stride()
+    x = [t.to(plain_on) for t in (q, k, v, do, o, lse)]
+    plain = fa.flash_bwd_plain(*x[:3], x[4], x[5], x[3], causal, scale)[1:]
+    f = [t.float() for t in x[:5]]
+    ref = fa.flash_bwd_plain(*f[:3], f[4], x[5], f[3], causal, scale)[1:]
+    for a, b, r in zip(got, plain, ref):
+        _hold_bf16_attention(a.to(plain_on), b, r)
+
+
+@pytest.mark.cuda
+class TestCudaHopperDkv:
+    """fa_bwd_dkv_wgmma: dK and dV of bf16 attention."""
+
+    @pytest.mark.parametrize("layout", ["bhtd", "bthd"])
+    @pytest.mark.parametrize("D", [64, 128])
+    @pytest.mark.parametrize("causal", [False, True])
+    @pytest.mark.parametrize("H,KVH,Tq,Tk", [
+        (4, 4, 1, 2), (4, 1, 100, 100), (8, 1, 1000, 1000),
+        (4, 1, 100, 333), (8, 2, 200, 1000), (2, 2, 1, 257)])
+    def test_shapes(self, cuda_device, H, KVH, Tq, Tk, causal, D, layout):
+        # ragged T, Tq < Tk, GQA groups 1, 4 and 8, the model's
+        # [B, T, H, D] views.  One query takes two keys or more: over a
+        # single key P = 1 and dP - delta cancels, so dK is exactly 0 and
+        # only the f32 roundoff of that difference is left to compare
+        ops = _attn_inputs(2, H, KVH, Tq, Tk, D, torch.bfloat16,
+                           cuda_device, seed=Tq + Tk + D)
+        if layout == "bthd":
+            ops = [x.transpose(1, 2).contiguous().transpose(1, 2)
+                   for x in ops]
+        _hold_dkv(*ops, causal, "cpu")
+
+    def test_llama_layer(self, cuda_device):
+        # one kv group of Llama-3-8B's training layer: T = 8192, 4 query
+        # heads over 1 kv head, D = 128, causal, [B, T, H, D] views (the
+        # plain versions on the card: [4, 8192, 8192] f32 scores)
+        ops = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in
+               _attn_inputs(1, 4, 1, 8192, 8192, 128, torch.bfloat16,
+                            cuda_device, seed=8192)]
+        _hold_dkv(*ops, True, cuda_device)
+
+    def test_refuses_strides_tma_cannot_take(self, cuda_device):
+        # rows of 68 bf16 (136 bytes apart) have no tensor map: the
+        # backward raises before anything is launched
+        q, k, v, do = _attn_inputs(1, 2, 1, 20, 20, 68, torch.bfloat16,
+                                   cuda_device)
+        lse = torch.zeros(1, 2, 20, device=cuda_device)
+        launches.reset()
+        with pytest.raises(ValueError, match="multiples of 16 bytes"):
+            fa._bwd_kernels(q, k, v, do, lse, lse.clone(), True, 0.1)
+        assert launches.snapshot() == {}
 
 
 @pytest.mark.cuda

@@ -1,8 +1,9 @@
 """The Python side of the port's Hopper (wgmma + TMA) kernels, on the CPU:
 the grouped fused_norm_linear against the JAX package and against its
 single-weight calls and the groups it refuses, the strides the
-FlashAttention forward's tensor maps take, and fused_linear at widths
-that are not a multiple of 8 against the JAX kernel.
+FlashAttention forward's and dK/dV's tensor maps take, the block sizes
+the bf16 chunked-prefill kernel takes, and fused_linear at widths that
+are not a multiple of 8 against the JAX kernel.
 
 On the CPU the wrappers run their plain PyTorch versions; the JAX
 functions run their XLA fallback or their Pallas kernel in interpret
@@ -21,6 +22,7 @@ import torch
 from paddle_tpu.kernels.fused_linear import fused_linear as jax_fused_linear
 from paddle_tpu.kernels.fused_norm_linear import (fused_norm_linear as
                                                   jax_fused_norm_linear)
+from paddle_tpu_torch.kernels import _build, chunked_prefill as cp
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import fused_linear as fl
 from paddle_tpu_torch.kernels import fused_norm_linear as fnl
@@ -165,6 +167,50 @@ def test_strides_of_unit_axes_never_matter(shape):
             for n, s in zip(shape[:3], q.stride()[:3])]
     assert fa._strides(odd) == want
     assert fa.tma_strides(odd) == want
+
+
+def _bwd_inputs(D, layout):
+    q, do = _view(1, 4, 33, D, layout), _view(1, 4, 33, D, layout)
+    k = _view(1, 2, 40, D, layout)
+    lse, delta = torch.zeros(1, 4, 33), torch.zeros(1, 4, 33)
+    return q, k, k.clone(), do, lse, delta
+
+
+@pytest.mark.parametrize("layout", ["bhtd", "bthd"])
+def test_backward_checks_tma_strides(monkeypatch, layout):
+    # dK/dV loads q, dO, k and v by TMA: the backward's operands go
+    # through tma_strides (here on the CPU, the device check left out)
+    monkeypatch.setattr(_build, "require_cuda", lambda *a, **k: None)
+    ops = fa._bwd_operands(*_bwd_inputs(64, layout))
+    assert fa.tma_strides(ops[0]) == fa._strides(ops[0])
+    assert ops[3].stride() == ops[0].stride()     # dO takes q's strides
+    # rows of 68 bf16 (136 bytes) are not a multiple of 16 bytes apart
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        fa._bwd_operands(*_bwd_inputs(68, layout))
+
+
+# ------------------------------------------------------- chunked prefill
+@pytest.mark.parametrize("bs,ok", [
+    (8, True), (16, True), (32, True), (64, True), (128, True), (192, True),
+    (1, False), (4, False), (12, False), (24, False), (96, False)])
+def test_chunk_wgmma_block_sizes(bs, ok):
+    # bf16 pools: whole TMA boxes of 8 to 64 rows of one page a key tile
+    assert cp.wgmma_block_size_ok(bs) == ok
+
+
+def test_chunk_refuses_block_sizes_before_launching(monkeypatch):
+    # a bf16 call over bf16 pools of a block size the kernel does not
+    # take raises
+    # ValueError before anything is bound or launched (here on a meta
+    # tensor, which takes the kernel path)
+    monkeypatch.setattr(_build, "bind", lambda *a, **k: pytest.fail("bound"))
+    q = torch.empty(1, 4, 8, 64, dtype=torch.bfloat16, device="meta")
+    pool = torch.empty(3, 12, 2, 64, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="of block sizes 8, 16, 32"):
+        cp.chunked_attention(q, pool, pool,
+                             torch.zeros(1, 2, dtype=torch.int32,
+                                         device="meta"),
+                             torch.zeros(1, dtype=torch.int32, device="meta"))
 
 
 # ----------------------------------------------------------- fused_linear

@@ -339,6 +339,15 @@ class TestQuantizedChunk:
         got = _check_chunk(args, scheme)
         assert np.abs(got[0, :7]).max() < 50.0
 
+    @pytest.mark.parametrize("positions", [[63, 64], [65, 15]])
+    @pytest.mark.parametrize("scheme", SCHEMES)
+    def test_frontiers_straddling_the_cuda_tiles_match_jax(self, scheme,
+                                                           positions):
+        # the edges of the bf16 CUDA kernel's 64-key and 64-row tiles
+        args = chunk_operands(T=40, bs=16, nbs=12, seed=7)
+        args[4] = np.array(positions, np.int32)
+        _check_chunk(args, scheme)
+
 
 # ---------------------------------------------------------------------------
 # the pool
