@@ -19,7 +19,8 @@ Phases, each of which must pass (nothing is caught):
   3. training kernels: RMSNorm, RoPE (forward and backward) and
      FlashAttention (forward, forward with LSE, dQ, dK/dV) at the
      training path's shapes (T = 8192, hidden 4096, 32 q / 8 kv heads,
-     head_dim 128, bf16, causal), with the same numbers;
+     head_dim 128, bf16, causal), with the same numbers; the attention
+     kernels run twice (dQ ATTN_STRESS more times), the bits compared;
   4. tiny: LlamaConfig.tiny() in f32, the same seeded weights served on
      cuda (kernels) and on cpu (plain versions), from f32, int8 and fp8
      KV pools and from fp8 pools with int8 weights: greedy tokens must be
@@ -54,10 +55,13 @@ Mixture of experts (Mixtral-8x7B's shape, mixtral_config):
 Static graph (BERT-base, Google's published bert_config.json):
   2s. static kernels: fused_linear against its plain version at
      BERT-base's shapes (M = 32 x 512 tokens, hidden 768, FFN 3072),
-     bf16: the FFN's gelu with bias, the MLM transform, each other
-     activation, no bias, a ragged M and N, a ragged K (771), and f32;
-     its backward's dx, dw and db against autograd through the plain
-     version;
+     bf16: the FFN's gelu with bias, the MLM transform (then
+     RING_STRESS more launches, the bits compared), each other
+     activation, no bias, a ragged M and N (N odd, and N % 8 == 0), a
+     ragged K (771), and f32,
+     each line naming the instance the route (fused_linear.tma_ok)
+     took: the wgmma one (TMA) or the predicated one; its backward's
+     dx, dw and db against autograd through the plain version;
   4s. tiny static: BertConfig.tiny() in f32, dropout 0, recorded as a
      static Program, AdamW.minimize, then the build strategy (which
      fuses linear -> gelu into fused_linear), run from the same seeded
@@ -115,6 +119,8 @@ BERT_B, BERT_T = 32, 512       # the static phase's batch: BERT's sequence
 BERT_LAYERS = 12               # its depth (full: 12)
 BERT_WARMUP, BERT_STEPS = 2, 5
 RING_STRESS = 2000             # launches of each fused_norm_linear group
+                               # and of fused_linear at the MLM shape
+ATTN_STRESS = 20               # runs of the attention backward's dQ
                                # compared bit for bit (its TMA rings' reuse)
 SLEEP_CYCLES = 50_000_000      # ~30 ms at the H100's clock: time to enqueue
 COLD_BYTES = 100e6             # twice the H100's 50 MB L2: what the other
@@ -241,7 +247,8 @@ def phase_build():
 REDESIGNED = {"paged_attention": ("hopper",),
               "fused_norm_linear": ("skinny_mma", "wgmma"),
               "chunked_prefill": ("wgmma",),
-              "flash_attention": ("wgmma",)}
+              "flash_attention": ("wgmma",),
+              "fused_linear": ("wgmma",)}
 
 
 def ptxas_kernels(log):
@@ -717,7 +724,16 @@ def phase_train_kernels(dev):
         raise AssertionError("flash_attention_fwd_lse: two runs differ")
     del o2, lse2
     ops = fa._bwd_operands(q, k, v, do, lse, fa._delta(o, do))
+    # the dQ kernel's K/V ring is freed without a proxy fence (the
+    # tensor cores are its only readers): ATTN_STRESS runs, every bit
+    # compared
     dq = fa._dq_kernel(*ops, True, scale)
+    bad = sum(not torch.equal(dq, fa._dq_kernel(*ops, True, scale))
+              for _ in range(ATTN_STRESS))
+    print(f"  flash_attention_bwd_dq: {ATTN_STRESS} more runs, {bad} "
+          "differ from the first", flush=True)
+    if bad:
+        raise AssertionError("flash_attention_bwd_dq: runs differ")
     dk, dv = fa._dkv_kernel(*ops, True, scale)
     dk2, dv2 = fa._dkv_kernel(*ops, True, scale)
     if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
@@ -1570,6 +1586,7 @@ def fl_cases():
             ("gelu_tanh", M, H, FFN, "gelu_tanh", True, bf),
             ("no bias", M, H, FFN, "gelu", False, bf),
             ("ragged", M - 3, H, FFN - 5, "gelu", True, bf),
+            ("ragged8", M - 3, H, FFN - 8, "gelu", True, bf),
             ("k771", M, 771, FFN, "gelu", True, bf),
             ("f32", 4096, H, FFN, "gelu", True, torch.float32))
 
@@ -1602,8 +1619,11 @@ def phase_static_kernels(dev):
         ref = fl.fused_linear_plain(x, w, b, act)
         tol = bf16_tol(ref) if dtype == torch.bfloat16 \
             else F32_TOL * max(1.0, float(ref.abs().max()))
+        instance = "f32" if dtype == torch.float32 \
+            else "wgmma" if fl.tma_ok(x, w) else "predicated"
         work = (f"[{m}, {k}] x [{n}, {k}]^T, {act}"
-                f"{' + bias' if bias else ''}, {str(dtype)[6:]}")
+                f"{' + bias' if bias else ''}, {str(dtype)[6:]}, "
+                f"{instance} instance")
         err = check_close(f"fused_linear {tag}: {work}", got, ref, tol)
         peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
         nbytes = x.element_size() * (m * k + n * k + m * n
@@ -1620,6 +1640,18 @@ def phase_static_kernels(dev):
             bound=bound_ms(nbytes, 2.0 * m * n * k, peak), work=work)
         if tag in ("ffn", "mlm"):
             json_entries[name] = entries[name]
+        if tag == "mlm":
+            # the wgmma instance frees its ring stages without a proxy
+            # fence and reuses its output staging after each TMA store:
+            # RING_STRESS launches, every bit compared with the first
+            bad = torch.zeros((), dtype=torch.int64, device=dev)
+            for _ in range(RING_STRESS):
+                bad += (fl.fused_linear(x, w, b, act) != got).any()
+            print(f"  fused_linear {tag}: {RING_STRESS} more launches, "
+                  f"{int(bad)} differ from the first", flush=True)
+            if int(bad):
+                raise AssertionError("fused_linear: the ring stress found "
+                                     f"{int(bad)}")
         del got, ref
     # the backward (plain PyTorch on both paths: the reference's is XLA)
     # at the FFN shape: the kernel path's autograd.Function against

@@ -75,17 +75,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// two 8x8 b16 matrices, transposed: lanes 0-7 address the rows of the
-// first, lanes 8-15 of the second; lane t gets rows 2 (t % 4) and
-// 2 (t % 4) + 1 of column t / 4 of each (the B fragment of a [k, n]
-// tile stored row-major)
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t* r, const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(a));
-}
-
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
                                          const uint32_t* b) {
   asm volatile(

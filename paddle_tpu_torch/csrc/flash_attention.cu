@@ -12,7 +12,7 @@
 //   flash_fwd<WRITE_LSE=true>   _fwd_kernel_lse  (pallas_call :254)
 //   flash_bwd_dq                _bwd_dq_kernel   (pallas_call :306)
 //   flash_bwd_dkv               _bwd_dkv_kernel  (pallas_call :324)
-// (bf16: fa_fwd_wgmma, fa_bwd_dq_bf16, fa_bwd_dkv_wgmma; f32: fa_*_f32)
+// (bf16: fa_fwd_wgmma, fa_bwd_dq_wgmma, fa_bwd_dkv_wgmma; f32: fa_*_f32)
 // The TPU grid carried the softmax state (and the dQ / dK / dV sums)
 // from one sequential grid step to the next; here a block owns a tile of
 // rows and loops over the other axis itself.  Tiles wholly above the
@@ -34,10 +34,14 @@
 //   at 9.7 % of that bound (5.7 ms against SDPA's 0.88).  P is rounded
 //   to bf16 as the A operand of the second product, as FlashAttention-2
 //   does (the plain version keeps it in f32, as the TPU kernels do).
-// - bf16 backward, dQ: FlashAttention-2 with mma.sync m16n8k16 (bf16
-//   in, f32 out), 4 warps a block, 16 rows a warp, K/V tiles staged in
-//   shared memory without copy/compute overlap; 64 query rows a block,
-//   keys 32 at a time, S, dP and dQ in registers.
+// - bf16 backward, dQ: a warp-specialized Hopper kernel
+//   (fa_bwd_dq_wgmma, below: 128 query rows a block with Q and dO held
+//   in shared memory, K/V tiles of 64 keys by TMA through a 3-stage
+//   ring, wgmma for all three products, dQ in registers to the end, so
+//   no atomics).  At T = 8192, 32/8 heads, D = 128 its bound is 0.834
+//   ms of operations; the mma.sync kernel it replaces (4 warps, 64 rows
+//   a block, Q and dO fragments from device memory, 32-key tiles staged
+//   between two barriers) ran at 16 % of it.
 // - bf16 backward, dK/dV: a warp-specialized Hopper kernel
 //   (fa_bwd_dkv_wgmma, below: 128 keys a block held in shared memory,
 //   Q/dO tiles by TMA through a 3-stage ring, wgmma for all four
@@ -45,8 +49,8 @@
 //   8192, 32/8 heads, D = 128 its bound is 1.112 ms of operations; the
 //   mma.sync kernel it replaces (4 warps, 64 keys, 32-query tiles staged
 //   between two barriers, the mask on every tile) ran at 14 % of it.
-//   In both, P and dS are f32 in registers and rounded to bf16 for the
-//   second products, as FlashAttention-2 does.
+//   In the backward kernels, P and dS are f32 in registers and rounded
+//   to bf16 where they feed a second product, as FlashAttention-2 does.
 // - f32 (the CPU-scale check configuration): CUDA cores, 16 rows and 16
 //   columns a tile, 8 threads a row.
 #include <cmath>
@@ -362,43 +366,6 @@ __global__ void __launch_bounds__(F_THREADS) fa_bwd_dkv_f32(FAParams p) {
   }
 }
 
-// ------------------------------------------------ bf16, tensor cores
-constexpr int T_THREADS = 128;   // 4 warps, 16 rows each
-constexpr int T_ROWS = 64;       // rows a block
-constexpr int DQ_KEYS = 32;      // key tile of dQ
-
-// Fragment layouts (m16n8k16): lane = 4 g + tg holds rows g and g + 8;
-// A pairs of k at 2 tg (and + 8), B pairs of k at 2 tg for column g, C
-// columns 2 tg and 2 tg + 1.  The C fragments of two neighbouring n-tiles
-// are the A fragment of one 16-deep k step (P and dS feed the second
-// product that way).  Shared rows are padded to D + 8 bf16, which puts
-// the 8 rows of a fragment load on distinct banks.
-
-// A fragment of 16 rows x 16 columns at (row0, col0) of a row-major bf16
-// array with leading dimension ld (global or shared)
-__device__ __forceinline__ void load_a(uint32_t* a, const bf16* base,
-                                       int64_t ld, int g, int tg,
-                                       bool live0, bool live1) {
-  a[0] = live0 ? ld_pair(base + g * ld + 2 * tg) : 0u;
-  a[1] = live1 ? ld_pair(base + (g + 8) * ld + 2 * tg) : 0u;
-  a[2] = live0 ? ld_pair(base + g * ld + 2 * tg + 8) : 0u;
-  a[3] = live1 ? ld_pair(base + (g + 8) * ld + 2 * tg + 8) : 0u;
-}
-
-// stage rows [r0, r0 + n) of a [T, D] bf16 operand (row stride st) into
-// shared rows of D + 8; rows at or past T are zero
-template <int D>
-__device__ __forceinline__ void stage(bf16 (*dst)[D + 8], const bf16* src,
-                                      int64_t st, int r0, int n, int T) {
-  for (int i = threadIdx.x; i < n * (D / 8); i += T_THREADS) {
-    const int j = i / (D / 8), d = (i % (D / 8)) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + j < T)
-      val = *reinterpret_cast<const uint4*>(src + (r0 + j) * st + d);
-    *reinterpret_cast<uint4*>(&dst[j][d]) = val;
-  }
-}
-
 // --------------------------------------- bf16 forward (wgmma + TMA)
 // A block owns 128 query rows of one (batch, head): warpgroups 0 and 1
 // consume 64 rows each, warpgroup 2 produces.  One producer thread loads
@@ -613,99 +580,6 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(T_THREADS) fa_bwd_dq_bf16(FAParams p) {
-  __shared__ __align__(16) bf16 Ks[DQ_KEYS][D + 8];
-  __shared__ __align__(16) bf16 Vs[DQ_KEYS][D + 8];
-  const int b = blockIdx.z, h = blockIdx.y, kh = h / (p.H / p.KVH);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, tg = lane % 4;
-  const int q0 = blockIdx.x * T_ROWS, wrow = q0 + warp * 16;
-  int row[2], lim[2];
-  float lse[2], dl[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    row[i] = wrow + g + 8 * i;
-    const bool in = row[i] < p.Tq;
-    const size_t at = ((size_t)b * p.H + h) * p.Tq + row[i];
-    lim[i] = in ? key_limit(p, row[i]) : 0;
-    lse[i] = in ? p.lse[at] : 0.f;
-    dl[i] = in ? p.delta[at] : 0.f;
-  }
-  const bool in0 = row[0] < p.Tq, in1 = row[1] < p.Tq;
-  const bf16* q = (const bf16*)p.q + q_off(p, b, h, wrow);
-  const bf16* dout = (const bf16*)p.dout + q_off(p, b, h, wrow);
-  uint32_t qf[D / 16][4], df[D / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    load_a(qf[ks], q + ks * 16, p.qst, g, tg, in0, in1);
-    load_a(df[ks], dout + ks * 16, p.qst, g, tg, in0, in1);
-  }
-  float acc[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[nd][c] = 0.f;
-
-  const bf16* kp = (const bf16*)p.k + k_off(p, b, kh, 0);
-  const bf16* vp = (const bf16*)p.v + k_off(p, b, kh, 0);
-  const int kend = key_limit(p, min(q0 + T_ROWS, p.Tq) - 1);
-  for (int kb = 0; kb < kend; kb += DQ_KEYS) {
-    stage<D>(Ks, kp, p.kst, kb, DQ_KEYS, p.Tk);
-    stage<D>(Vs, vp, p.kst, kb, DQ_KEYS, p.Tk);
-    __syncthreads();
-    float s[DQ_KEYS / 8][4], dp[DQ_KEYS / 8][4];
-#pragma unroll
-    for (int j = 0; j < DQ_KEYS / 8; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[j][c] = dp[j][c] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks)
-#pragma unroll
-      for (int j = 0; j < DQ_KEYS / 8; ++j) {
-        const uint32_t kf[2] = {ld_pair(&Ks[j * 8 + g][ks * 16 + 2 * tg]),
-                                ld_pair(&Ks[j * 8 + g][ks * 16 + 2 * tg + 8])};
-        const uint32_t vf[2] = {ld_pair(&Vs[j * 8 + g][ks * 16 + 2 * tg]),
-                                ld_pair(&Vs[j * 8 + g][ks * 16 + 2 * tg + 8])};
-        mma_bf16(s[j], qf[ks], kf);
-        mma_bf16(dp[j], df[ks], vf);
-      }
-    // dS = P * (dP - delta) * scale with P = exp(S * scale - lse)
-#pragma unroll
-    for (int j = 0; j < DQ_KEYS / 8; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int key = kb + j * 8 + 2 * tg + (c & 1), i = c / 2;
-        const float pr = key < lim[i] ? expf(s[j][c] * p.scale - lse[i]) : 0.f;
-        s[j][c] = pr * (dp[j][c] - dl[i]) * p.scale;
-      }
-    // dQ += dS K
-#pragma unroll
-    for (int kk = 0; kk < DQ_KEYS / 16; ++kk) {
-      const uint32_t af[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int nd = 0; nd < D / 8; ++nd) {
-        uint32_t bfr[2];
-        ldsm_x2_trans(bfr, &Ks[kk * 16 + lane % 16][nd * 8]);
-        mma_bf16(acc[nd], af, bfr);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (row[i] >= p.Tq) continue;
-    bf16* dq = (bf16*)p.dq + q_off(p, b, h, row[i]);
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd)
-      *reinterpret_cast<__nv_bfloat162*>(dq + nd * 8 + 2 * tg) =
-          __floats2bfloat162_rn(acc[nd][2 * i], acc[nd][2 * i + 1]);
-  }
-}
-
 // --------------------------------------- bf16 dK/dV (wgmma + TMA)
 // A block owns 128 keys of one (batch, kv head): warpgroups 0 and 1
 // hold 64 keys each and their dK and dV sums in f32 registers to the
@@ -727,9 +601,11 @@ constexpr int DKV_BN = 128, DKV_BM = 64, DKV_THREADS = 384, DKV_STAGES = 3;
 constexpr int DKV_KBOX = 128 * 128;   // [128 rows][64] bf16
 constexpr int DKV_QBOX = 64 * 128;    // [64 rows][64] bf16
 
+// the backward's tensor maps (bwd_maps): dK/dV's boxes are (64, 64, 1,
+// 1) for q and dO and (64, 128, 1, 1) for k and v; dQ's the other way
 struct DKVMaps {
-  CUtensorMap q, dout;   // [B, H, Tq, D] as (D, T, H, B), box (64, 64, 1, 1)
-  CUtensorMap k, v;      // [B, KVH, Tk, D], box (64, 128, 1, 1)
+  CUtensorMap q, dout;   // [B, H, Tq, D] as (D, T, H, B)
+  CUtensorMap k, v;      // [B, KVH, Tk, D]
 };
 
 template <int D>
@@ -947,6 +823,215 @@ __global__ void __launch_bounds__(DKV_THREADS, 1)
   }
 }
 
+// --------------------------------------------- bf16 dQ (wgmma + TMA)
+// dK/dV's design with the roles of queries and keys swapped.  A block
+// owns 128 query rows of one (batch, head): warpgroups 0 and 1 hold 64
+// rows each and their dQ sums in f32 registers to the end (no atomics:
+// the result's bits do not depend on timing), and warpgroup 2 produces.
+// One producer thread loads the block's Q and dO once, then K and V
+// tiles of 64 keys of the head's kv head into a 3-stage ring, by TMA
+// from the 4-D tensor maps of dK/dV with the boxes swapped (Q, dO 128
+// rows; K, V 64), 128-byte swizzled, D / 64 boxes a tile.  Each thread
+// reads its two rows' lse (times log2 e) and delta once into registers.
+// A consumer warpgroup computes S = Q K^T and dP = dO V^T by wgmma
+// m64n64k16 from shared memory (all K-major), P = exp2(S scale log2 e -
+// lse log2 e) and dS = P (dP - delta) scale in f32 registers (the mask
+// only on tiles that reach past its first row's diagonal, a ragged end
+// or rows past Tq; tiles past its last row's diagonal are skipped, and
+// tiles past the block's are never loaded), rounds dS to bf16 in the
+// A-fragment layout and issues dQ += dS K with K read MN-major.  Every
+// read of a ring stage is the tensor cores' (the async proxy, as TMA's
+// writes), so a stage is freed once wgmma_wait has retired its products,
+// with no proxy fence.  Blocks run the longest causal query tiles first,
+// the query heads of one kv head adjacent, so their K and V tiles come
+// from L2.
+constexpr int DQ_BM = 128, DQ_BN = 64, DQ_THREADS = 384, DQ_STAGES = 3;
+constexpr int DQ_QBOX = 128 * 128;    // [128 rows][64] bf16
+constexpr int DQ_KBOX = 64 * 128;     // [64 rows][64] bf16
+
+template <int D>
+constexpr int fa_dq_smem() {
+  // alignment; Q, dO; per stage K and V; barriers
+  return 1024 + 2 * (D / 64) * DQ_QBOX + DQ_STAGES * 2 * (D / 64) * DQ_KBOX +
+         (1 + 2 * DQ_STAGES) * 8;
+}
+
+template <int D>
+__global__ void __launch_bounds__(DQ_THREADS, 1)
+    fa_bwd_dq_wgmma(const __grid_constant__ DKVMaps maps, FAParams p) {
+  using namespace hopper;
+  constexpr int QT = (D / 64) * DQ_QBOX;        // the Q (or dO) tile
+  constexpr int KT = (D / 64) * DQ_KBOX;        // one K (or V) tile
+  extern __shared__ uint8_t dq_smem[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(dq_smem) + 1023) & ~uintptr_t(1023));
+  uint8_t* qs = smem;
+  uint8_t* dos = qs + QT;
+  uint8_t* ks = dos + QT;                       // DQ_STAGES tiles
+  uint8_t* vs = ks + DQ_STAGES * KT;            // DQ_STAGES tiles
+  uint64_t* bars = reinterpret_cast<uint64_t*>(vs + DQ_STAGES * KT);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + DQ_STAGES;
+
+  const int n_qt = (p.Tq + DQ_BM - 1) / DQ_BM;
+  const int h = blockIdx.x % p.H, rest = blockIdx.x / p.H;
+  const int b = rest % p.B, rank = rest / p.B;
+  const int qt = p.causal ? n_qt - 1 - rank : rank;
+  const int kh = h / (p.H / p.KVH), q0 = qt * DQ_BM;
+  const int n_kt =
+      (key_limit(p, min(q0 + DQ_BM, p.Tq) - 1) + DQ_BN - 1) / DQ_BN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);   // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // ------------------------------------------------------ producer
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(q_full, 2 * QT);
+#pragma unroll
+      for (int x = 0; x < D / 64; ++x) {
+        tma_load_4d(qs + x * DQ_QBOX, &maps.q, q_full, x * 64, q0, h, b);
+        tma_load_4d(dos + x * DQ_QBOX, &maps.dout, q_full, x * 64, q0, h, b);
+      }
+      for (int it = 0; it < n_kt; ++it) {
+        const int s = it % DQ_STAGES;
+        if (it >= DQ_STAGES) mbar_wait(&empty[s], ((it / DQ_STAGES) - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * KT);
+#pragma unroll
+        for (int x = 0; x < D / 64; ++x) {
+          tma_load_4d(ks + s * KT + x * DQ_KBOX, &maps.k, &full[s], x * 64,
+                      it * DQ_BN, kh, b);
+          tma_load_4d(vs + s * KT + x * DQ_KBOX, &maps.v, &full[s], x * 64,
+                      it * DQ_BN, kh, b);
+        }
+      }
+    }
+  } else {
+    // ------------------------------------------------------ consumers
+    setmaxnreg_inc<232>();
+    const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32;
+    const int lane = threadIdx.x % 32, g = lane / 4, tg = lane % 4;
+    const int r0 = q0 + wg * 64;                  // this warpgroup's rows
+    int row[2], lim[2];
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      row[i] = r0 + warp * 16 + g + 8 * i;
+      const bool in = row[i] < p.Tq;
+      const size_t at = ((size_t)b * p.H + h) * p.Tq + row[i];
+      lim[i] = in ? key_limit(p, row[i]) : 0;
+      lse2[i] = in ? p.lse[at] * 1.4426950408889634f : 0.f;
+      dl[i] = in ? p.delta[at] : 0.f;
+    }
+    // keys this warpgroup's rows see, and the first one some row of it
+    // (or a row past Tq) does not
+    const int kend = r0 < p.Tq ? key_limit(p, min(r0 + 64, p.Tq) - 1) : 0;
+    const int mask_from = r0 + 64 > p.Tq ? 0 : key_limit(p, r0);
+    const float scale_log2 = p.scale * 1.4426950408889634f;
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    const uint32_t qa = smem_u32(qs) + wg * 64 * 128;
+    const uint32_t da = smem_u32(dos) + wg * 64 * 128;
+    mbar_wait(q_full, 0);
+
+    for (int it = 0; it < n_kt; ++it) {
+      const int s = it % DQ_STAGES, kb = it * DQ_BN;
+      mbar_wait(&full[s], (it / DQ_STAGES) & 1);
+      if (kb < kend) {
+        const uint32_t ka = smem_u32(ks + s * KT);
+        const uint32_t va = smem_u32(vs + s * KT);
+        float st[DQ_BN / 2], dpt[DQ_BN / 2];
+#pragma unroll
+        for (int i = 0; i < DQ_BN / 2; ++i) st[i] = dpt[i] = 0.f;
+        wgmma_fence();
+        fence_regs<DQ_BN / 2>(st);
+        fence_regs<DQ_BN / 2>(dpt);
+        // the k step kk: 32 bytes into a box, boxes of 64 columns
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t qo = (kk / 4) * DQ_QBOX + (kk % 4) * 32;
+          const uint32_t ko = (kk / 4) * DQ_KBOX + (kk % 4) * 32;
+          wgmma_ss_n64<0>(st, desc_sw128(qa + qo, 16, 1024),
+                          desc_sw128(ka + ko, 16, 1024), 1);
+        }
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t qo = (kk / 4) * DQ_QBOX + (kk % 4) * 32;
+          const uint32_t ko = (kk / 4) * DQ_KBOX + (kk % 4) * 32;
+          wgmma_ss_n64<0>(dpt, desc_sw128(da + qo, 16, 1024),
+                          desc_sw128(va + ko, 16, 1024), 1);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs<DQ_BN / 2>(st);
+
+        // st[4 j + 2 i + c]: row row[i], key kb + 8 j + 2 tg + c; a
+        // masked key gets P = 0 exactly (a select, so nothing that is
+        // not finite flows into dS K)
+        const bool masked = kb + DQ_BN > mask_from;
+#pragma unroll
+        for (int j = 0; j < DQ_BN / 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float e =
+                exp2f(fmaf(st[4 * j + c], scale_log2, -lse2[c >> 1]));
+            st[4 * j + c] =
+                masked && kb + 8 * j + 2 * tg + (c & 1) >= lim[c >> 1] ? 0.f
+                                                                       : e;
+          }
+        wgmma_wait<0>();
+        fence_regs<DQ_BN / 2>(dpt);
+        uint32_t sa[DQ_BN / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < DQ_BN / 16; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int c0 = 8 * kk + 2 * r, i = r & 1;
+            sa[kk][r] = pack_bf16(
+                st[c0] * (dpt[c0] - dl[i]) * p.scale,
+                st[c0 + 1] * (dpt[c0 + 1] - dl[i]) * p.scale);
+          }
+        wgmma_fence();
+        fence_regs<D / 2>(dq);
+#pragma unroll
+        for (int kk = 0; kk < DQ_BN / 16; ++kk) {
+          const uint64_t dk = desc_sw128(ka + kk * 16 * 128, DQ_KBOX, 1024);
+          if constexpr (D == 128)
+            wgmma_rs_n128<1>(dq, sa[kk], dk, 1);
+          else
+            wgmma_rs_n64<1>(dq, sa[kk], dk, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<D / 2>(dq);
+        keep_regs<4 * (DQ_BN / 16)>(&sa[0][0]);
+      }
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (row[i] >= p.Tq) continue;
+      bf16* dqr = (bf16*)p.dq + q_off(p, b, h, row[i]);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(dqr + 8 * j + 2 * tg) =
+            pack_bf16(dq[4 * j + 2 * i], dq[4 * j + 2 * i + 1]);
+    }
+  }
+}
+
 // ------------------------------------------------------------ C entry
 static int f32_smem(int D, int kind) {
   const int LD = D + 1;
@@ -1058,6 +1143,40 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// the tensor maps of the backward: q and dO [B, H, Tq, D] with boxes of
+// q_rows rows, k and v [B, KVH, Tk, D] with boxes of k_rows (dK/dV: 64
+// and 128; dQ: 128 and 64)
+static bool bwd_maps(DKVMaps* maps, const FAParams& p, int q_rows,
+                     int k_rows) {
+  const cuuint32_t qbox[4] = {64, (cuuint32_t)q_rows, 1, 1};
+  const cuuint32_t kbox[4] = {64, (cuuint32_t)k_rows, 1, 1};
+  const cuuint64_t qd[4] = {(cuuint64_t)p.D, (cuuint64_t)p.Tq,
+                            (cuuint64_t)p.H, (cuuint64_t)p.B};
+  const cuuint64_t qs[3] = {(cuuint64_t)p.qst * 2, (cuuint64_t)p.qsh * 2,
+                            (cuuint64_t)p.qsb * 2};
+  const cuuint64_t kd[4] = {(cuuint64_t)p.D, (cuuint64_t)p.Tk,
+                            (cuuint64_t)p.KVH, (cuuint64_t)p.B};
+  const cuuint64_t ks[3] = {(cuuint64_t)p.kst * 2, (cuuint64_t)p.ksh * 2,
+                            (cuuint64_t)p.ksb * 2};
+  return hopper::make_map_bf16(&maps->q, p.q, 4, qd, qs, qbox) &&
+         hopper::make_map_bf16(&maps->dout, p.dout, 4, qd, qs, qbox) &&
+         hopper::make_map_bf16(&maps->k, p.k, 4, kd, ks, kbox) &&
+         hopper::make_map_bf16(&maps->v, p.v, 4, kd, ks, kbox);
+}
+
+template <int D>
+static int launch_dq_wgmma(const FAParams& p, cudaStream_t st) {
+  DKVMaps maps;
+  if (!bwd_maps(&maps, p, DQ_BM, DQ_BN)) return (int)cudaErrorInvalidValue;
+  constexpr int smem = fa_dq_smem<D>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      fa_bwd_dq_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int n_qt = (p.Tq + DQ_BM - 1) / DQ_BM;
+  fa_bwd_dq_wgmma<D><<<n_qt * p.B * p.H, DQ_THREADS, smem, st>>>(maps, p);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,
                             const float* delta, void* dq, FA_ARGS) {
@@ -1074,34 +1193,15 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
   if (dtype == 0) {
     const dim3 grid((Tq + F_ROWS - 1) / F_ROWS, H, B);
     fa_bwd_dq_f32<<<grid, F_THREADS, f32_smem(D, 1), st>>>(p);
-  } else {
-    const dim3 grid((Tq + T_ROWS - 1) / T_ROWS, H, B);
-    if (D == 64)
-      fa_bwd_dq_bf16<64><<<grid, T_THREADS, 0, st>>>(p);
-    else
-      fa_bwd_dq_bf16<128><<<grid, T_THREADS, 0, st>>>(p);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  return D == 64 ? launch_dq_wgmma<64>(p, st) : launch_dq_wgmma<128>(p, st);
 }
 
 template <int D>
 static int launch_dkv_wgmma(const FAParams& p, cudaStream_t st) {
   DKVMaps maps;
-  const cuuint32_t qbox[4] = {64, DKV_BM, 1, 1};
-  const cuuint32_t kbox[4] = {64, DKV_BN, 1, 1};
-  const cuuint64_t qd[4] = {(cuuint64_t)p.D, (cuuint64_t)p.Tq,
-                            (cuuint64_t)p.H, (cuuint64_t)p.B};
-  const cuuint64_t qs[3] = {(cuuint64_t)p.qst * 2, (cuuint64_t)p.qsh * 2,
-                            (cuuint64_t)p.qsb * 2};
-  const cuuint64_t kd[4] = {(cuuint64_t)p.D, (cuuint64_t)p.Tk,
-                            (cuuint64_t)p.KVH, (cuuint64_t)p.B};
-  const cuuint64_t ks[3] = {(cuuint64_t)p.kst * 2, (cuuint64_t)p.ksh * 2,
-                            (cuuint64_t)p.ksb * 2};
-  if (!(hopper::make_map_bf16(&maps.q, p.q, 4, qd, qs, qbox) &&
-        hopper::make_map_bf16(&maps.dout, p.dout, 4, qd, qs, qbox) &&
-        hopper::make_map_bf16(&maps.k, p.k, 4, kd, ks, kbox) &&
-        hopper::make_map_bf16(&maps.v, p.v, 4, kd, ks, kbox)))
-    return (int)cudaErrorInvalidValue;
+  if (!bwd_maps(&maps, p, DKV_BM, DKV_BN)) return (int)cudaErrorInvalidValue;
   constexpr int smem = fa_dkv_smem<D>();
   const cudaError_t e = cudaFuncSetAttribute(
       fa_bwd_dkv_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

@@ -89,6 +89,40 @@ def build_all(names=None) -> dict:
     return took
 
 
+def build_copies(name: str, texts: dict, root: Path) -> dict:
+    """Compile copies of ``csrc/<name>.cu`` for scripts that time or
+    stress a kernel's variants: ``texts`` is {variant: source text}; each
+    builds with the flags above beside copies of the headers in
+    ``root/<variant>/``, all at once.  Returns {variant: library path};
+    raises with the compiler's output on failure."""
+    procs = {}
+    for variant, text in texts.items():
+        d = root / variant
+        d.mkdir(parents=True, exist_ok=True)
+        for header in CSRC.glob("*.cuh"):
+            (d / header.name).write_bytes(header.read_bytes())
+        (d / f"{name}.cu").write_text(text)
+        out = d / f"lib{name}.so"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(d / f"{name}.cu")]
+        procs[variant] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True), out)
+    paths = {}
+    for variant, (proc, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {variant}:\n{log}")
+        paths[variant] = out
+    return paths
+
+
+def use_library(name: str, path):
+    """Route the wrappers' calls of ``csrc/<name>.cu`` to the library at
+    ``path`` (a copy from :func:`build_copies`)."""
+    with _lock:
+        _libs[name] = ctypes.CDLL(str(path))
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if stale."""
     with _lock:

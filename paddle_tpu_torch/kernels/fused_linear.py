@@ -5,7 +5,11 @@ recomputes the pre-activation.
 Replaces ``paddle_tpu/kernels/fused_linear.py`` ``_kernel`` (the
 ``pallas_call`` in ``_fused_linear_fwd``); the kernel is
 ``csrc/fused_linear.cu``, whose header says what bounds it on the H100
-and what its design does about it.  The static-graph pass
+and what its design does about it.  A bf16 call takes one of two
+instances, chosen from its shapes and addresses before the launch by
+:func:`tma_ok`: the wgmma kernel fed by TMA where a tensor map can hold
+x and w, the predicated mma.sync kernel everywhere else.  The
+static-graph pass
 ``static.passes.fuse_linear_act`` rewrites a ``linear`` followed by its
 activation into one call of :func:`fused_linear`.
 
@@ -64,6 +68,19 @@ def fused_linear_plain(x2d, w, b, activation):
     return activate(_pre_activation(x2d, w, b), activation).to(x2d.dtype)
 
 
+def tma_ok(x2d, w):
+    """True where the bf16 wgmma instance takes ``x2d`` [M, K] and ``w``
+    [N, K] (dense, row-major): TMA's tensor maps of x, w and the output
+    [M, N] need row strides (K and N bf16) and bases that are multiples
+    of 16 bytes (the output is allocated here, aligned).  Every other
+    bf16 call, and K = 0, takes the predicated instance; f32 has its own
+    kernel.  Decided from the operands alone, before any launch."""
+    K, N = x2d.shape[-1], w.shape[0]
+    return (x2d.dtype == torch.bfloat16 and K > 0 and K % 8 == 0
+            and N % 8 == 0 and x2d.data_ptr() % 16 == 0
+            and w.data_ptr() % 16 == 0)
+
+
 def _forward(x2d, w, b, activation):
     """The plain version for a CPU tensor, the kernel for a CUDA one."""
     if x2d.device.type == "cpu":
@@ -84,11 +101,11 @@ def _forward(x2d, w, b, activation):
     if M == 0 or N == 0:
         return out
     fn = _build.bind(KERNEL, "fused_linear", [ctypes.c_void_p] * 4
-                     + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                     + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     p = _build.ptr
     _build.check(fn(p(x2d), p(w), None if b is None else p(b), p(out), M, N,
-                    K, ACTIVATIONS[activation], code, _build.stream_ptr(x2d)),
-                 KERNEL)
+                    K, ACTIVATIONS[activation], code, int(tma_ok(x2d, w)),
+                    _build.stream_ptr(x2d)), KERNEL)
     _build.launches.add(KERNEL)
     return out
 

@@ -30,10 +30,7 @@ Needs one card and ``nvcc``.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import shutil
-import subprocess
 import sys
 
 import torch
@@ -72,34 +69,16 @@ def variant_source(src: str, drop) -> str:
 
 def build_variants() -> dict:
     """{variant: path of its library}, all built at once."""
-    root = _build.BUILD_DIR.parent / "ring_stress"
     src = (_build.CSRC / f"{LIB}.cu").read_text()
-    procs = {}
-    for name, drop in VARIANTS.items():
-        d = root / name
-        d.mkdir(parents=True, exist_ok=True)
-        for h in _build.CSRC.glob("*.cuh"):
-            shutil.copy(h, d / h.name)
-        (d / f"{LIB}.cu").write_text(variant_source(src, drop))
-        out = d / f"lib{LIB}.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
-               str(d / f"{LIB}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       out)
-    libs = {}
-    for name, (proc, out) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {name}:\n{log}")
-        libs[name] = out
-    return libs
+    return _build.build_copies(
+        LIB, {name: variant_source(src, drop)
+              for name, drop in VARIANTS.items()},
+        _build.BUILD_DIR.parent / "ring_stress")
 
 
 def use_library(path):
     """Route the wrappers' fused_norm_linear calls to ``path``."""
-    with _build._lock:
-        _build._libs[LIB] = ctypes.CDLL(str(path))
+    _build.use_library(LIB, path)
 
 
 def main(argv=None) -> int:

@@ -11,12 +11,13 @@ of the largest output, except FlashAttention in bf16 (see
 ``_hold_bf16_attention``); the quantize-at-write scatter bit-identical;
 MoE dispatch and combine bit-identical where every slot has one choice
 of weight 1, else 1e-6 in f32 and one bf16 ulp of each output;
-fused_linear f32 1e-4, bf16 one bf16 ulp (2^-7) of the largest output,
+fused_linear f32 1e-4, bf16 one bf16 ulp (2^-7) of the largest output
+(both instances, the wgmma one's bits the same over 100 launches),
 its backward (plain PyTorch on both devices) 1e-5 of the largest entry;
 the tiny static BERT's losses 1e-4; the Hopper paged decode, the wgmma
 chunked prefill and the skinny fused_norm_linear group one bf16 rounding
-of the largest output, two runs bit-identical; the wgmma dK/dV by
-``_hold_bf16_attention``'s rule, two runs bit-identical.
+of the largest output, two runs bit-identical; the wgmma dQ and dK/dV
+by ``_hold_bf16_attention``'s rule, two runs bit-identical.
 The Llama-3-8B, Mixtral and BERT-base shapes are held in chip_smoke.py.
 """
 import math
@@ -565,6 +566,59 @@ class TestCudaHopperDkv:
         with pytest.raises(ValueError, match="multiples of 16 bytes"):
             fa._bwd_kernels(q, k, v, do, lse, lse.clone(), True, 0.1)
         assert launches.snapshot() == {}
+
+
+def _hold_dq(q, k, v, do, causal, plain_on):
+    """fa_bwd_dq_wgmma twice on the kernel forward's O and LSE (the same
+    bits, one launch each), dQ against the f32 plain version of the same
+    bf16 inputs by the rule of ``_hold_bf16_attention``; the plain
+    versions run on ``plain_on``."""
+    scale = 1 / math.sqrt(q.shape[-1])
+    o, lse = fa._fwd_kernel(q, k, v, causal, scale, True)
+    ops = fa._bwd_operands(q, k, v, do, lse, fa._delta(o, do))
+    launches.reset()
+    got = fa._dq_kernel(*ops, causal, scale)
+    again = fa._dq_kernel(*ops, causal, scale)
+    assert launches.snapshot() == {fa.BWD_DQ: 2}
+    assert torch.equal(got, again)
+    assert got.stride() == ops[0].stride()
+    x = [t.to(plain_on) for t in (q, k, v, do, o, lse)]
+    plain = fa.flash_bwd_plain(*x[:3], x[4], x[5], x[3], causal, scale)[0]
+    f = [t.float() for t in x[:5]]
+    ref = fa.flash_bwd_plain(*f[:3], f[4], x[5], f[3], causal, scale)[0]
+    _hold_bf16_attention(got.to(plain_on), plain, ref)
+
+
+@pytest.mark.cuda
+class TestCudaHopperDq:
+    """fa_bwd_dq_wgmma: dQ of bf16 attention."""
+
+    @pytest.mark.parametrize("layout", ["bhtd", "bthd"])
+    @pytest.mark.parametrize("D", [64, 128])
+    @pytest.mark.parametrize("causal", [False, True])
+    @pytest.mark.parametrize("H,KVH,Tq,Tk", [
+        (4, 4, 1, 2), (4, 1, 100, 100), (8, 1, 1000, 1000),
+        (4, 1, 100, 333), (8, 2, 200, 1000), (2, 2, 1, 257)])
+    def test_shapes(self, cuda_device, H, KVH, Tq, Tk, causal, D, layout):
+        # ragged T (query tiles of 128, key tiles of 64), Tq < Tk (the
+        # causal diagonal moved by Tk - Tq), GQA groups 1, 4 and 8, the
+        # model's [B, T, H, D] views.  One query takes two keys or more:
+        # over a single key dP - delta cancels and dQ is exactly 0
+        ops = _attn_inputs(2, H, KVH, Tq, Tk, D, torch.bfloat16,
+                           cuda_device, seed=Tq + Tk + D)
+        if layout == "bthd":
+            ops = [x.transpose(1, 2).contiguous().transpose(1, 2)
+                   for x in ops]
+        _hold_dq(*ops, causal, "cpu")
+
+    def test_llama_layer(self, cuda_device):
+        # one kv group of Llama-3-8B's training layer: T = 8192, 4 query
+        # heads over 1 kv head, D = 128, causal, [B, T, H, D] views (the
+        # plain versions on the card: [4, 8192, 8192] f32 scores)
+        ops = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in
+               _attn_inputs(1, 4, 1, 8192, 8192, 128, torch.bfloat16,
+                            cuda_device, seed=8192)]
+        _hold_dq(*ops, True, cuda_device)
 
 
 @pytest.mark.cuda
@@ -1118,6 +1172,61 @@ class TestCudaFusedLinear:
         want = fused_linear.fused_linear_plain(x, w, None, "none").float()
         assert float((got.cpu().float() - want).abs().max()) <= \
             float(want.abs().max()) * 2.0 ** -7
+
+    @pytest.mark.parametrize("K", [72, 776])
+    @pytest.mark.parametrize("N", [1, 72, 3080, 768])
+    @pytest.mark.parametrize("M", [1, 130, 16384])
+    def test_shapes_past_the_tile(self, cuda_device, M, N, K):
+        # M and N that are no multiple of the 128 x 256 tile, K of 64-deep
+        # k-tiles and a part; N % 8 == 0 takes the wgmma instance (its
+        # output by TMA), N = 1 the predicated one; the plain version on
+        # the card
+        g = torch.Generator(device=cuda_device).manual_seed(M + N + K)
+        x = torch.randn(M, K, generator=g, device=cuda_device).bfloat16()
+        w = (torch.randn(N, K, generator=g, device=cuda_device)
+             / K ** 0.5).bfloat16()
+        b = torch.randn(N, generator=g, device=cuda_device).bfloat16()
+        assert fused_linear.tma_ok(x, w) == (N % 8 == 0)
+        launches.reset()
+        got = fused_linear.fused_linear(x, w, b, "gelu")
+        assert launches.snapshot() == {fused_linear.KERNEL: 1}
+        want = fused_linear.fused_linear_plain(x, w, b, "gelu").float()
+        assert float((got.float() - want).abs().max()) <= \
+            float(want.abs().max()) * 2.0 ** -7
+
+    def test_misaligned_base_takes_the_predicated_instance(self,
+                                                           cuda_device):
+        # K and N are multiples of 8, but x starts 2 bytes past a 16-byte
+        # boundary: no tensor map takes it, so the route (chosen before
+        # the launch) is the predicated instance, with the same result
+        x, w, b = self._operands(300, 768, 1024, True, torch.bfloat16)
+        xd, wd, bd = (a.to(cuda_device) for a in (x, w, b))
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda_device)
+        xs = buf[1:].view(300, 768)
+        xs.copy_(xd)
+        assert fused_linear.tma_ok(xd, wd)
+        assert not fused_linear.tma_ok(xs, wd)
+        want = fused_linear.fused_linear_plain(x, w, b, "gelu").float()
+        for xin in (xd, xs):
+            got = fused_linear.fused_linear(xin, wd, bd, "gelu")
+            assert float((got.cpu().float() - want).abs().max()) <= \
+                float(want.abs().max()) * 2.0 ** -7
+
+    def test_ring_reuse_gives_the_same_bits(self, cuda_device):
+        # BERT-base's FFN shape, 100 launches: every stage of the TMA ring
+        # and every staging buffer of the TMA stores is reused many times
+        g = torch.Generator(device=cuda_device).manual_seed(3)
+        x = torch.randn(16384, 768, generator=g, device=cuda_device).bfloat16()
+        w = (torch.randn(3072, 768, generator=g, device=cuda_device)
+             / 768 ** 0.5).bfloat16()
+        b = torch.randn(3072, generator=g, device=cuda_device).bfloat16()
+        assert fused_linear.tma_ok(x, w)
+        launches.reset()
+        first = fused_linear.fused_linear(x, w, b, "gelu")
+        differ = sum(not torch.equal(first, fused_linear.fused_linear(
+            x, w, b, "gelu")) for _ in range(100))
+        assert differ == 0
+        assert launches.snapshot() == {fused_linear.KERNEL: 101}
 
     def test_rejects_what_it_does_not_take(self, cuda_device):
         # K = 12 runs (any K does); other dtypes and shapes raise

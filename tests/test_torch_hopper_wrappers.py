@@ -2,8 +2,9 @@
 the grouped fused_norm_linear against the JAX package and against its
 single-weight calls and the groups it refuses, the strides the
 FlashAttention forward's and dK/dV's tensor maps take, the block sizes
-the bf16 chunked-prefill kernel takes, and fused_linear at widths that
-are not a multiple of 8 against the JAX kernel.
+the bf16 chunked-prefill kernel takes, fused_linear at widths that are
+not a multiple of 8 against the JAX kernel, and the route between
+fused_linear's two bf16 instances (``tma_ok``).
 
 On the CPU the wrappers run their plain PyTorch versions; the JAX
 functions run their XLA fallback or their Pallas kernel in interpret
@@ -28,6 +29,7 @@ from paddle_tpu_torch.kernels import fused_linear as fl
 from paddle_tpu_torch.kernels import fused_norm_linear as fnl
 from paddle_tpu_torch.kernels import launches
 from paddle_tpu_torch.kernels import paged_attention as pa
+from paddle_tpu_torch.tools import fused_linear_parts as fl_parts
 from paddle_tpu_torch.tools import ring_stress
 
 TOL = 1e-5
@@ -122,6 +124,23 @@ def test_ring_stress_variants(variant, fences, syncs):
     assert before.count(ring_stress.SYNC) == syncs
     assert len(src.split("\n")) - len(out.split("\n")) == \
         4 - fences - syncs
+
+
+@pytest.mark.parametrize("variant,changed", [
+    ("as_is", 0), ("no_store", 1), ("no_epilogue", 1), ("no_products", 2)])
+def test_fused_linear_parts_variants(variant, changed):
+    # the timing script's copies of csrc/fused_linear.cu change only the
+    # lines they name, each found once in the source
+    src = (_build.CSRC / "fused_linear.cu").read_text()
+    out = fl_parts.variant_source(src, fl_parts.VARIANTS[variant])
+    a, b = src.split("\n"), out.split("\n")
+    assert len(a) == len(b)
+    assert sum(x != y for x, y in zip(a, b)) == changed
+
+
+def test_fused_linear_parts_refuses_a_missing_line():
+    with pytest.raises(RuntimeError, match="found 0 times"):
+        fl_parts.variant_source("no such line", (("tma_store_2d(", ""),))
 
 
 # ------------------------------------------------------- flash attention
@@ -228,6 +247,74 @@ def test_fused_linear_any_k_matches_jax(K, act):
                             activation=act, bm=32, bn=24, bk=K,
                             interpret=True)
     close(got.numpy(), np.asarray(want))
+
+
+# The route between fused_linear's two bf16 instances, decided from the
+# operands before any launch: the wgmma instance where TMA's tensor maps
+# take x [M, K], w [N, K] and out [M, N] (K and N multiples of 8, bases
+# 16-byte aligned), the predicated instance for every other bf16 call.
+@pytest.mark.parametrize("M,K,N,want", [
+    (16384, 768, 3072, True),     # BERT-base's FFN
+    (16384, 768, 768, True),      # its MLM transform
+    (1, 72, 3080, True),          # K % 64 != 0, N % 128 != 0
+    (130, 776, 8, True),
+    (16384, 771, 3072, False),    # K % 8 != 0
+    (32, 3, 24, False),
+    (32, 5, 24, False),
+    (4, 0, 8, False),             # K = 0: no map of extent 0
+    (130, 72, 1, False),          # N % 8 != 0: the output's row stride
+    (130, 72, 130, False),
+    (37, 40, 13, False)])
+def test_fused_linear_tma_route_by_shape(M, K, N, want):
+    x = torch.zeros(M, K, dtype=torch.bfloat16)
+    w = torch.zeros(N, K, dtype=torch.bfloat16)
+    assert fl.tma_ok(x, w) is want
+
+
+@pytest.mark.parametrize("which", ["x", "w"])
+def test_fused_linear_tma_route_by_alignment(which):
+    # a view 2 bytes past a 16-byte boundary takes the predicated
+    # instance, the same operands aligned the wgmma one
+    x = torch.zeros(64, 64, dtype=torch.bfloat16)
+    w = torch.zeros(32, 64, dtype=torch.bfloat16)
+    assert fl.tma_ok(x, w)
+    t = x if which == "x" else w
+    buf = torch.zeros(t.numel() + 8, dtype=torch.bfloat16)
+    view = buf[1:t.numel() + 1].view(t.shape)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 2
+    assert not fl.tma_ok(*((view, w) if which == "x" else (x, view)))
+
+
+def test_fused_linear_tma_route_by_dtype():
+    # f32 has its own kernel: never the bf16 wgmma instance
+    assert not fl.tma_ok(torch.zeros(64, 64), torch.zeros(32, 64))
+
+
+@pytest.mark.parametrize("K,N,dtype,flag", [
+    (768, 3072, torch.bfloat16, 1), (771, 3072, torch.bfloat16, 0),
+    (768, 130, torch.bfloat16, 0), (768, 3072, torch.float32, 0)])
+def test_fused_linear_passes_the_route_to_the_launch(monkeypatch, K, N,
+                                                     dtype, flag):
+    # the C entry gets tma_ok's answer as its tma argument, before the
+    # launch (meta tensors stand in for CUDA ones: nothing is computed)
+    calls = []
+
+    def entry(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(_build, "require_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(_build, "bind", lambda *a, **k: entry)
+    monkeypatch.setattr(_build, "stream_ptr", lambda t: None)
+    launches.reset()
+    x = torch.empty(64, K, dtype=dtype, device="meta")
+    w = torch.empty(N, K, dtype=dtype, device="meta")
+    out = fl.fused_linear(x, w, None, "gelu")
+    assert out.shape == (64, N) and launches.snapshot() == {fl.KERNEL: 1}
+    (args,) = calls
+    assert args[4:9] == (64, N, K, fl.ACTIVATIONS["gelu"],
+                         _build.dtype_code(x))
+    assert args[9] == flag
 
 
 # ---------------------------------------------------------- paged decode
