@@ -13,8 +13,10 @@ Phases, each of which must pass (nothing is caught):
      (the JSON line adds the bound's share of the time and the factor
      by which the kernel loses to the library call);
      the paged-decode and chunked-prefill kernels also on int8 and fp8
-     KV pools, and the quantize-at-write scatter, bit-identical; the
-     fused_norm_linear groups (skinny and tiled) launched RING_STRESS
+     KV pools; the KV write (row lookup, a decode step's k rotation,
+     quantization) at a decode step's and a chunk's rows into f32, bf16,
+     int8 and fp8 pools, bit-identical, timed into fp8 and bf16 pools;
+     the fused_norm_linear groups (skinny and tiled) launched RING_STRESS
      times each, every output equal to the first run's bit for bit;
   3. training kernels: RMSNorm, RoPE (forward and backward) and
      FlashAttention (forward, forward with LSE, dQ, dK/dV) at the
@@ -43,7 +45,10 @@ Mixture of experts (Mixtral-8x7B's shape, mixtral_config):
   2m. MoE kernels: dispatch and combine against their plain versions at
      hidden 4096, 8 experts, top-2, bf16, at a decode step's, a prefill
      chunk's and a training batch's shapes, a dropping capacity and the
-     duplicate-slot form a backward pass feeds dispatch;
+     duplicate-slot form a backward pass feeds dispatch; dispatch (one
+     launch a call) DISPATCH_STRESS more times at the decode shape, the
+     bits compared, and the choices its index stage re-reads at the
+     training shape;
   4m. tiny MoE: LlamaConfig.tiny with 4 experts, top-2, capacity factor
      2.0 (dropless), served on cuda and cpu from f32 and fp8 pools as in
      phase 4, and trained 5 AdamW steps on both as in phase 5;
@@ -78,7 +83,8 @@ Static graph (BERT-base, Google's published bert_config.json):
      last.
 The launch counts of phases 6, 7, 6m, 7m and 7s, reset just before each
 run and read just after it, show that each path went through every
-kernel of its own.
+kernel of its own.  Each serving run also prints its profiled decode
+step's and prefill chunk's kernel time and count (torch.profiler).
 
 Prints the card's name and power limit, then one JSON line of the
 kernels' numbers, then as its last line
@@ -88,6 +94,7 @@ Exits non-zero, printing no result, without a CUDA device.
 from __future__ import annotations
 
 import gc
+import hashlib
 import itertools
 import json
 import math
@@ -120,6 +127,8 @@ BERT_LAYERS = 12               # its depth (full: 12)
 BERT_WARMUP, BERT_STEPS = 2, 5
 RING_STRESS = 2000             # launches of each fused_norm_linear group
                                # and of fused_linear at the MLM shape
+DISPATCH_STRESS = 2000         # more launches of the MoE dispatch's decode
+                               # form, compared bit for bit
 ATTN_STRESS = 20               # runs of the attention backward's dQ
                                # compared bit for bit (its TMA rings' reuse)
 SLEEP_CYCLES = 50_000_000      # ~30 ms at the H100's clock: time to enqueue
@@ -248,7 +257,9 @@ REDESIGNED = {"paged_attention": ("hopper",),
               "fused_norm_linear": ("skinny_mma", "wgmma"),
               "chunked_prefill": ("wgmma",),
               "flash_attention": ("wgmma",),
-              "fused_linear": ("wgmma",)}
+              "fused_linear": ("wgmma",),
+              "moe_dispatch": ("dispatch_kernel",),
+              "kv_quant": ("kv_write",)}
 
 
 def ptxas_kernels(log):
@@ -277,7 +288,7 @@ def phase_kernels(dev):
     from paddle_tpu_torch.kernels import (chunked_prefill,
                                           fused_norm_linear as fnl,
                                           kv_quant, launches,
-                                          paged_attention, rms_norm)
+                                          paged_attention, rms_norm, rope)
 
     g = torch.Generator(device=dev).manual_seed(1)
     bf = torch.bfloat16
@@ -392,7 +403,7 @@ def phase_kernels(dev):
     splits = paged_attention._default_splits(nbs)
     dkeys = float((positions + 1).sum())
     Lmax = int(positions.max()) + 1
-    q_rot = paged_attention._rotate_half(
+    q_rot = rope.rotate_half(
         q.float(), c[:, None, :].float(),
         s[:, None, :].float()).to(bf)[:, :, None, :]
     mask = (torch.arange(Lmax, device=dev)[None, :]
@@ -527,7 +538,7 @@ def phase_kernels(dev):
                  f"L2-cold over {len(cold)} copies (library over "
                  f"{len(gathered)})")
         del kg, vg, cold, gathered
-    entries.update(scatter_entries(g, nb, bs, KVH, D, B, T))
+    entries.update(write_entries(g, nb, bt, positions, c, s, bt1, pos1, T))
     print_entries(entries)
     return entries
 
@@ -541,48 +552,144 @@ def _gathered(pool, bt, n_keys):
         .transpose(1, 2).contiguous()
 
 
-def scatter_entries(g, nb, bs, KVH, D, B, T):
-    """The quantize-at-write scatter at a decode step's [B, KVH, D] and a
-    prefill chunk's [T, KVH, D] new k and v rows of one layer, into
-    distinct rows of [nb, bs] int8 pools (rows that several tokens share,
-    the garbage block's row 0, take any one of them in both versions):
-    bit-identical to its plain version for both schemes, timed in fp8."""
+# (entry, form, pools, main phase) of the KV write's timed cases
+WRITE_CASES = (("kv_write", "decode", "fp8", "quant"),
+               ("kv_write_chunk", "chunk", "fp8", "quant"),
+               ("kv_write_bf16", "decode", "bf16", "serve"),
+               ("kv_write_chunk_bf16", "chunk", "bf16", "serve"))
+
+
+def _write_operands(g, form, pool, nb, bt, positions, c, s, bt1, pos1, T,
+                    KVH=8, D=128):
+    """(args, keywords, masked tokens) of kv_quant.kv_write for one layer:
+    a decode step of phase 2's 8 sequences (k unrotated, with the RoPE
+    rows c/s at their positions) or phase 2's 256-token chunk at 768
+    (its last 16 tokens masked, as a padded tail), into fresh pools of
+    phase 2's size of ``pool`` ("f32", "bf16", "int8" or "fp8")."""
     from paddle_tpu_torch.kernels import kv_quant
 
-    dev, entries = g.device, {}
-    for N, name in ((B, "kv_quant_scatter"), (T, "kv_quant_scatter_chunk")):
-        new = [(torch.randn((N, KVH, D), generator=g, device=dev)
-                * torch.logspace(-2, 2, N, device=dev)[:, None, None])
-               .to(torch.bfloat16) for _ in range(2)]
-        rows = torch.randperm(nb * bs, generator=g, device=dev)[:N]
-        for scheme in ("int8", "fp8"):
-            pools = [torch.zeros((nb, bs, KVH, D), dtype=torch.int8,
-                                 device=dev) for _ in range(2)] + \
-                [torch.ones((nb, bs), device=dev) for _ in range(2)]
-            want = [x.clone() for x in pools]
-            kv_quant.quantize_scatter(*pools, *new, rows, scheme)
-            kv_quant.quantize_scatter_plain(*want, *new, rows, scheme)
-            same = all(torch.equal(a, b) for a, b in zip(pools, want))
-            print(f"  {name} [{N}, {KVH}, {D}] {scheme}: "
-                  f"{'bit-identical' if same else 'FAIL'}", flush=True)
-            if not same:
-                raise AssertionError(f"{name} {scheme}: the kernel's codes "
-                                     "or scales differ from the plain "
-                                     "version's")
-        args = (*pools, *new, rows, "fp8")
+    dev = g.device
+    dtype = torch.float32 if pool == "f32" else torch.bfloat16
+    scheme = pool if pool in ("int8", "fp8") else None
+    bs = 16
+    table, pos, n = (bt, positions, 1) if form == "decode" else \
+        (bt1, pos1, T)
+    B = table.shape[0]
+    k, v = ((torch.randn((B, n, KVH, D), generator=g, device=dev)
+             * torch.logspace(-2, 2, B * n, device=dev).view(B, n, 1, 1))
+            .to(dtype) for _ in range(2))
+    kw = dict(scheme=scheme)
+    masked = []
+    if form == "decode":
+        kw.update(c=c.to(dtype), s=s.to(dtype))
+    else:
+        mask = torch.ones((B, n), dtype=torch.bool, device=dev)
+        mask[:, n - 16:] = False
+        kw["write_mask"] = mask
+        masked = [(0, j) for j in range(n - 16, n)]
+    if scheme is None:
+        pools = [torch.zeros((nb, bs, KVH, D), dtype=dtype, device=dev)
+                 for _ in range(2)]
+    else:
+        pools = [torch.zeros((nb, bs, KVH, D), dtype=torch.int8,
+                             device=dev) for _ in range(2)]
+        kw.update(k_scale=torch.ones((nb, bs), device=dev),
+                  v_scale=torch.ones((nb, bs), device=dev))
+    return [*pools, k, v, table, pos], kw, masked
+
+
+def hold_write(name, ops, kw, want_ops, want_kw, masked):
+    """The kernel's pools (and scales) against the plain version's: every
+    row bit for bit but the garbage block's row 0, which several masked
+    tokens share: it must hold one of them (codes with their scale)."""
+    from paddle_tpu_torch.kernels import kv_quant
+
+    scheme = kw["scheme"]
+    got, want = list(ops[:2]), list(want_ops[:2])
+    if scheme is not None:
+        got += [kw["k_scale"], kw["v_scale"]]
+        want += [want_kw["k_scale"], want_kw["v_scale"]]
+    same = all(torch.equal(a.flatten(0, 1)[1:], b.flatten(0, 1)[1:])
+               for a, b in zip(got, want))
+    for side in range(2):
+        cands = [ops[2 + side][b, j] for b, j in masked] or \
+            [want[side][0, 0]]
+        if scheme is None:
+            same &= any(torch.equal(got[side][0, 0], x) for x in cands)
+        else:
+            if masked:
+                cands = [kv_quant.quantize_kv(x, scheme) for x in cands]
+            else:
+                cands = [(want[side][0, 0], want[2 + side][0, 0])]
+            same &= any(torch.equal(got[side][0, 0], x) and
+                        torch.equal(got[2 + side][0, 0], sc)
+                        for x, sc in cands)
+    print(f"  {name}: {'bit-identical' if same else 'FAIL'}", flush=True)
+    if not same:
+        raise AssertionError(f"{name}: the kernel's pools differ from the "
+                             "plain version's")
+
+
+def write_entries(g, nb, bt, positions, c, s, bt1, pos1, T):
+    """The KV write (kv_quant.kv_write, one launch a layer) at a decode
+    step's shapes (8 sequences, k rotated in the kernel) and a prefill
+    chunk's (256 tokens, a masked tail) of one Llama-3-8B layer, into
+    f32, bf16, int8 and fp8 pools: bit-identical to its plain version in
+    each; timed into fp8 and bf16 pools, the row lookup and the
+    rotation included."""
+    from paddle_tpu_torch.kernels import kv_quant
+
+    entries = {}
+    for form in ("decode", "chunk"):
+        for pool in ("f32", "bf16", "int8", "fp8"):
+            ops, kw, masked = _write_operands(g, form, pool, nb, bt,
+                                              positions, c, s, bt1, pos1, T)
+            want_ops = [x.clone() for x in ops]
+            want_kw = {k: x.clone() if isinstance(x, torch.Tensor) else x
+                       for k, x in kw.items()}
+            kv_quant.kv_write(*ops, **kw)
+            kv_quant.kv_write_plain(*want_ops, **want_kw)
+            hold_write(f"kv_write, {form} rows {list(ops[2].shape)} into "
+                       f"{pool} pools", ops, kw, want_ops, want_kw, masked)
+    for name, form, pool, path in WRITE_CASES:
+        ops, kw, masked = _write_operands(g, form, pool, nb, bt, positions,
+                                          c, s, bt1, pos1, T)
+        B, n, KVH, D = ops[2].shape
+        N, E = B * n, KVH * D
+        code = 1 if kw["scheme"] else 2
+        # the rows the write leaves: one a kept token, and one for all
+        # the masked tokens (the garbage row holds one of them); the
+        # block table's entries the kept tokens look up, one a page
+        rows = N - len(masked) + bool(masked)
+        table, pos = ops[4].tolist(), ops[5].tolist()
+        gone = set(masked)
+        pages = len({(b, min((pos[b] + j) // 16, len(table[b]) - 1))
+                     for b in range(B) for j in range(n)
+                     if (b, j) not in gone})
+        # each of those rows' new elements read once (bf16) and written
+        # once (a code or bf16) with its scale, the table entries,
+        # positions, c/s rows and mask read once
+        nbytes = 2 * rows * E * (2 + code) + pages * 4 + B * 4 + \
+            (2 * 2 * B * D // 2 if form == "decode" else N) + \
+            (2 * 4 * rows if kw["scheme"] else 0)
+        flops = (2 * 3.0 * rows * E if kw["scheme"] else 0) + \
+            (3.0 * N * E if form == "decode" else 0)
         entries[name] = dict(
-            path="quant", counter=kv_quant.KERNEL,
-            replaces="paddle_tpu/kernels/paged_attention.py:80" if N == B
-            else "paddle_tpu/models/llama.py:390",
+            path=path, counter=kv_quant.KERNEL,
+            replaces=("paddle_tpu/kernels/paged_attention.py:"
+                      + ("80" if kw["scheme"] else "66")) if form == "decode"
+            else "paddle_tpu/models/llama.py:"
+            + ("390" if kw["scheme"] else "367"),
             source="paddle_tpu_torch/csrc/kv_quant.cu", max_abs_err=0.0,
-            ms=time_ms(lambda: kv_quant.quantize_scatter(*args)),
-            plain_ms=time_ms(lambda: kv_quant.quantize_scatter_plain(*args)),
+            ms=time_ms(lambda: kv_quant.kv_write(*ops, **kw)),
+            plain_ms=time_ms(lambda: kv_quant.kv_write_plain(*ops, **kw),
+                             iters=5),
             library_ms=None,
-            # each element read once in bf16 and written once as a code,
-            # each row's scale written, each row index read
-            bound=bound_ms(2 * N * KVH * D * (2 + 1) + 2 * 4 * N + 8 * N,
-                           2 * 3.0 * N * KVH * D, F32_FLOPS),
-            work=f"k and v rows [{N}, {KVH}, {D}] of one layer, fp8")
+            bound=bound_ms(nbytes, flops, F32_FLOPS),
+            work=f"k and v rows [{B}, {n}, {KVH}, {D}] of one layer, "
+                 f"{pool} pools, {pages} table entries, "
+                 + ("k rotated" if form == "decode"
+                    else f"{len(masked)} tokens masked"))
     return entries
 
 
@@ -896,9 +1003,29 @@ def phase_moe_kernels(dev):
         if (tag == "drop") == (n_kept == T * K):
             raise AssertionError(f"moe {tag}: {T * K - n_kept} dropped")
         work = f"T={T}, C={C}, {T * K - n_kept} of {T * K} choices dropped"
-        err = check_exact(f"moe_dispatch {work}",
-                          md.moe_dispatch(tok, eidx, sidx, ones, E, C),
+        got = md.moe_dispatch(tok, eidx, sidx, ones, E, C)
+        err = check_exact(f"moe_dispatch {work}", got,
                           md.dispatch_plain(tok, eidx, sidx, ones, E, C))
+        blocks, per = md.dispatch_plan(E * C, T * K, HID,
+                                       torch.cuda.get_device_properties(
+                                           dev).multi_processor_count)
+        print(f"    one launch of {blocks} blocks of {per} slots", flush=True)
+        if tag == "decode":
+            # the bits of DISPATCH_STRESS more launches against the first
+            same = sum(torch.equal(md.moe_dispatch(tok, eidx, sidx, ones, E,
+                                                   C), got)
+                       for _ in range(DISPATCH_STRESS))
+            print(f"    {same} of {DISPATCH_STRESS} more launches "
+                  "bit-identical to the first", flush=True)
+            if same != DISPATCH_STRESS:
+                raise AssertionError("moe_dispatch: launches differ")
+        if tag == "train":
+            # every block re-reads all T * K choices (eidx, sidx and a
+            # bf16 weight); the index stage's time alone is the no_rows
+            # variant of python -m paddle_tpu_torch.tools.dispatch_parts
+            print(f"    index stage: {blocks} blocks re-read "
+                  f"{blocks * T * K * 10 / 1e6:.1f} MB of choices from the "
+                  "L2", flush=True)
         flat = eidx.long() * C + sidx.long().clamp(max=C - 1)
         rows = tok.repeat_interleave(K, 0)[kept.reshape(-1)]
         dst = flat.reshape(-1)[kept.reshape(-1)]
@@ -1165,11 +1292,12 @@ def _serve_main(model, prompts, tag, kv_cache_dtype=None, weight_dtype=None,
     ``serving.Engine`` with the launch counts set to 0 just before and
     read just after, held to exact counts, no leak, and the 128-token
     request's first token equal to a fresh prefill's through a pool of
-    the same KV dtype.  Prints the run's numbers and one profiled decode
-    and prefill step.  Returns (numbers, launch counts, engine)."""
+    the same KV dtype.  Prints the run's numbers, a digest of its greedy
+    tokens (to compare runs of two versions) and one profiled decode and
+    prefill step.  Returns (numbers, launch counts, engine)."""
     from paddle_tpu_torch.kernels import (chunked_prefill, launches,
                                           paged_attention)
-    from paddle_tpu_torch.kernels.kv_quant import KERNEL as SCATTER
+    from paddle_tpu_torch.kernels.kv_quant import KERNEL as WRITE
     from paddle_tpu_torch.kernels.kv_quant import counter_name
     from paddle_tpu_torch.serving import Engine, ServingConfig
 
@@ -1201,6 +1329,9 @@ def _serve_main(model, prompts, tag, kv_cache_dtype=None, weight_dtype=None,
                 not all(0 <= t < V for t in r.generated):
             raise AssertionError(f"{tag} {r.request_id}: {r.finish_reason}, "
                                  f"{len(r.generated)} tokens")
+    digest = hashlib.sha1(json.dumps(
+        [[int(t) for t in r.generated] for r in reqs]).encode()).hexdigest()
+    print(f"  {tag}: greedy tokens {digest[:16]}", flush=True)
     ctr = st["counters"]
     L = cfg.num_hidden_layers
     chunks, decodes = ctr["prefill_chunks"], ctr["decode_iterations"]
@@ -1216,8 +1347,8 @@ def _serve_main(model, prompts, tag, kv_cache_dtype=None, weight_dtype=None,
         per_chunk = {"rms_norm": 1, "fused_norm_linear_tiled": 2 * L}
     per_decode[counter_name(paged_attention.KERNEL, kv_cache_dtype)] = L
     per_chunk[counter_name(chunked_prefill.KERNEL, kv_cache_dtype)] = L
-    if kv_cache_dtype is not None:
-        per_decode[SCATTER] = per_chunk[SCATTER] = L
+    # the KV write, one launch a layer into every kind of pool
+    per_decode[WRITE] = per_chunk[WRITE] = L
     expect = {k: per_decode.get(k, 0) * decodes + per_chunk.get(k, 0) * chunks
               for k in {**per_decode, **per_chunk}}
     print(f"  launches {counts} over {chunks} prefill chunks and {decodes} "
@@ -1239,6 +1370,7 @@ def _serve_main(model, prompts, tag, kv_cache_dtype=None, weight_dtype=None,
                mean_ttft_s=float(np.mean(ttft)),
                mean_tpot_s=float(np.mean(tpot)), tokens=tok,
                prompt_tokens=int(sum(len(p) for p in prompts)),
+               greedy_tokens=digest[:16],
                prefix_cache_hits=ctr["prefix_cache_hits"],
                prefill_chunks=chunks, decode_iterations=decodes,
                layers=L, kv_dtype=st["pool"]["kv_dtype"],
@@ -1248,15 +1380,16 @@ def _serve_main(model, prompts, tag, kv_cache_dtype=None, weight_dtype=None,
     for what, unit in (("decode", "slots running"),
                        ("prefill", "tokens a chunk")):
         n, fn, args = captured[what]
-        wall, dev_ms, top = _step_profile(fn, args)
+        wall, dev_ms, top, kernels = _step_profile(fn, args)
         busy = f"busy {dev_ms / wall:.1%}" if dev_ms else "not measured"
         print(f"  {what} step ({n} {unit}): {wall:.3f} ms on the host's "
-              f"clock, {dev_ms:.3f} ms of kernels on the device ({busy})",
-              flush=True)
+              f"clock, {dev_ms:.3f} ms of kernels on the device ({busy}), "
+              f"{kernels} kernels", flush=True)
         for name, ms, count in top:
             print(f"    {ms:8.3f} ms  {count:5d}x  {name[:90]}")
         out[f"{what}_step_host_ms"] = wall
         out[f"{what}_step_device_ms"] = dev_ms
+        out[f"{what}_step_kernels"] = kernels
     return out, counts, eng
 
 
@@ -1411,11 +1544,12 @@ def _capture_steps(eng):
 
 
 def _step_profile(fn, args, reps=5, top=8):
-    """(host-clock ms, device ms, top kernels) of one step: the first as
-    the engine sees it (the step, then a synchronize); the second the sum
-    of the step's kernel times in a torch.profiler trace of one more
-    call (0 when the trace shows no device time); the third the ``top``
-    kernels by device time as (name, ms, launches)."""
+    """(host-clock ms, device ms, top kernels, kernel count) of one step:
+    the first as the engine sees it (the step, then a synchronize); the
+    second the sum of the step's kernel times in a torch.profiler trace
+    of one more call (0 when the trace shows no device time); the third
+    the ``top`` kernels by device time as (name, ms, launches); the last
+    the launches of every kernel in that trace."""
     fn(*args)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1424,7 +1558,7 @@ def _step_profile(fn, args, reps=5, top=8):
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / reps
     dev_ms, rows = _profile_once(fn, args)
-    return wall, dev_ms, rows[:top]
+    return wall, dev_ms, rows[:top], sum(r[2] for r in rows)
 
 
 def _profile_once(fn, args):

@@ -7,7 +7,8 @@ PyTorch version (which runs only for CPU tensors).
   int8 and fp8 KV pools)
 - :mod:`chunked_prefill`    — ``csrc/chunked_prefill.cu`` (the same)
 - :mod:`kv_quant`           — ``csrc/kv_quant.cu``, the int8 / fp8 KV
-  codec and its quantize-at-write scatter
+  codec and the KV write (row lookup, a decode step's k rotation,
+  quantization) into every kind of pool
 - :mod:`rope`               — ``csrc/rope.cu``
 - :mod:`flash_attention`    — ``csrc/flash_attention.cu``
 - :mod:`moe_dispatch`       — ``csrc/moe_dispatch.cu``, MoE dispatch and

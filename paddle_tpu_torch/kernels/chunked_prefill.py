@@ -20,7 +20,7 @@ positions[b] + t``.  GQA head ``h = kvh * rep + r``.
 Quantized pools (``kv_cache_dtype`` ``"int8"``/``"fp8"``, the
 reference's ``kv_dtype`` variant of ``_chunk_kernel``) hold int8 codes
 with [nb, bs] f32 row scales, which the caller filled with
-``kv_quant.quantize_scatter``; the kernels dequantize as they stage the
+``kv_quant.kv_write``; the kernels dequantize as they stage the
 pages (f32), or decode the codes to bf16 exactly and apply the scales
 per key (bf16; see the source).  Each scheme counts its own launches
 (``chunked_prefill_int8``, ``chunked_prefill_fp8``).

@@ -1,5 +1,5 @@
-"""Quantized paged-KV storage: the codec, and the quantize-at-write
-scatter (CUDA kernel + plain PyTorch version).
+"""Paged-KV storage: the int8 / fp8 codec, and the write of a step's new
+k and v rows into the pools (CUDA kernel + plain PyTorch version).
 
 The port's own copy of ``paddle_tpu/kernels/kv_quant.py``.  The block
 pools store KV as int8 CODES plus one float32 absmax scale per (block,
@@ -19,11 +19,13 @@ codes and scales are bit-identical to the JAX package's.  A divisor is
 never a Python number: PyTorch's CUDA division multiplies by the
 reciprocal of a host scalar, which is not a correctly rounded division.
 
-:func:`quantize_scatter` replaces the reference's quantize-and-scatter
-writes, which are XLA code and not Pallas (``paged_attention.py``
-``_scatter_token_quant`` for a decode token, ``models/llama.py``
-``_scatter_q`` for a prefill chunk): one launch writes the k and the v
-rows of a step's tokens, codes and scales (``csrc/kv_quant.cu``).
+:func:`kv_write` replaces the reference's writes, which are XLA code and
+not Pallas (``paged_attention.py`` ``fused_paged_decode``'s k rotation
+and ``_scatter_token`` / ``_scatter_token_quant`` for a decode token,
+``models/llama.py`` ``_scatter`` / ``_scatter_q`` for a prefill chunk):
+one launch (``csrc/kv_quant.cu``) looks up every token's row, rotates a
+decode step's k, and writes k and v, into pools of the model's dtype or
+as codes and scales.
 """
 from __future__ import annotations
 
@@ -32,8 +34,9 @@ import ctypes
 import torch
 
 from . import _build
+from .rope import rotate_half
 
-KERNEL = "kv_quant_scatter"
+KERNEL = "kv_write"
 LIB = "kv_quant"          # csrc/kv_quant.cu
 
 #: canonical scheme names (``None`` = a full-precision pool)
@@ -132,6 +135,7 @@ def pools_fit(dtype, k_pool, v_pool, k_scale, v_scale, scheme):
     if scheme is None:
         return k_pool.dtype == dtype and v_pool.dtype == dtype
     return (k_pool.dtype == torch.int8 and v_pool.dtype == torch.int8
+            and k_scale is not None and v_scale is not None
             and k_scale.shape == k_pool.shape[:2]
             and v_scale.shape == k_pool.shape[:2]
             and k_scale.dtype == torch.float32
@@ -155,38 +159,102 @@ def quantize_scatter_plain(k_pool, v_pool, k_scale, v_scale, k_new, v_new,
         scales.view(nb * bs).index_copy_(0, rows, sc)
 
 
-def quantize_scatter(k_pool, v_pool, k_scale, v_scale, k_new, v_new, rows,
-                     scheme):
-    """Quantize the rows ``k_new``/``v_new`` [N, KVH, D] (model dtype)
-    and write them IN PLACE at the flat pool rows ``rows`` [N] int64
-    (``block * block_size + offset``): codes into the int8 pools
-    [nb, bs, KVH, D], scales into the [nb, bs] f32 sidecars.  Rows that
-    several tokens share (the garbage block's row 0) get one of them.
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
-    if k_new.device.type == "cpu":
-        return quantize_scatter_plain(k_pool, v_pool, k_scale, v_scale,
-                                      k_new, v_new, rows, scheme)
-    N, KVH, D = k_new.shape
-    nb, bs = k_pool.shape[0], k_pool.shape[1]
-    if (k_pool.shape[2:] != (KVH, D) or v_pool.shape != k_pool.shape
-            or v_new.shape != k_new.shape or v_new.dtype != k_new.dtype
-            or k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8
-            or k_scale.shape != (nb, bs) or v_scale.shape != (nb, bs)
-            or k_scale.dtype != torch.float32
-            or v_scale.dtype != torch.float32
-            or rows.shape != (N,) or rows.dtype != torch.int64):
-        raise ValueError("quantize_scatter: operands do not fit new rows "
-                         f"{tuple(k_new.shape)} {k_new.dtype}, pool "
+def token_rows(block_table, positions, T, bs, write_mask=None):
+    """Flat pool row [B * T] (int64) of token t of sequence b, at position
+    ``positions[b] + t``: ``block_table[b, min(pos // bs, nbs - 1)] * bs +
+    pos % bs``, the reference's index math and column clamp; a token that
+    ``write_mask`` [B, T] leaves out goes to row 0, the garbage block."""
+    B, nbs = block_table.shape
+    pos = positions.long()[:, None] + torch.arange(T, device=positions.device)
+    rows = torch.arange(B, device=positions.device)[:, None]
+    col = torch.clamp(pos // bs, max=nbs - 1)
+    idx = block_table[rows, col].long() * bs + pos % bs
+    if write_mask is not None:
+        idx = torch.where(write_mask, idx, 0)
+    return idx.reshape(-1)
+
+
+def kv_write_plain(k_pool, v_pool, k, v, block_table, positions, c=None,
+                   s=None, write_mask=None, k_scale=None, v_scale=None,
+                   scheme=None):
+    B, T, KVH, D = k.shape
+    if c is not None:           # k in f32, rounded once to its dtype
+        k = rotate_half(k.float(), c[:, None, None, :],
+                        s[:, None, None, :]).to(k.dtype)
+    rows = token_rows(block_table, positions, T, k_pool.shape[1], write_mask)
+    k, v = (x.reshape(B * T, KVH, D) for x in (k, v))
+    if scheme is not None:
+        quantize_scatter_plain(k_pool, v_pool, k_scale, v_scale, k, v, rows,
+                               scheme)
+        return
+    for pool, new in ((k_pool, k), (v_pool, v)):
+        nb, bs = pool.shape[0], pool.shape[1]
+        pool.view(nb * bs, KVH, D).index_copy_(0, rows, new.to(pool.dtype))
+
+
+def kv_write(k_pool, v_pool, k, v, block_table, positions, *, c=None,
+             s=None, write_mask=None, k_scale=None, v_scale=None,
+             scheme=None):
+    """Write the new rows ``k``/``v`` [B, T, KVH, D] (model dtype) IN
+    PLACE into the pools [nb, bs, KVH, D]: token t of sequence b at
+    ``positions[b] + t`` through ``block_table`` [B, nbs] int32
+    (:func:`token_rows`; ``positions`` [B] int32).  Two forms:
+
+    - a decode step (T == 1): ``c``/``s`` [B, D/2] are the RoPE rows at
+      ``positions`` and k comes unrotated; it is rotated in f32 and
+      rounded once to its dtype before the write;
+    - a prefill chunk: k comes rotated; ``write_mask`` [B, T] bool sends
+      the padded tokens to row 0 of the garbage block.
+
+    Pools of the rows' dtype take them as they are (``scheme`` None);
+    int8 pools take the codes of ``scheme`` ("int8" / "fp8") and the
+    [nb, bs] f32 ``k_scale``/``v_scale`` their row scales.  A row of
+    the garbage block that several tokens share gets one of them whole
+    (the kernel: the last).  CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    if k.device.type == "cpu":
+        return kv_write_plain(k_pool, v_pool, k, v, block_table, positions,
+                              c, s, write_mask, k_scale, v_scale, scheme)
+    B, T, KVH, D = k.shape
+    nbs = block_table.shape[1]
+    rot = c is not None
+    if (v.shape != k.shape or v.dtype != k.dtype or D % 2
+            or k_pool.shape[2:] != (KVH, D)
+            or not pools_fit(k.dtype, k_pool, v_pool, k_scale, v_scale,
+                             scheme)
+            or block_table.shape[0] != B or block_table.dtype != torch.int32
+            or positions.shape != (B,) or positions.dtype != torch.int32
+            or (s is None) == rot
+            or (rot and (T != 1 or c.shape != (B, D // 2)
+                         or s.shape != c.shape or s.dtype != c.dtype))
+            or (write_mask is not None
+                and (write_mask.shape != (B, T)
+                     or write_mask.dtype != torch.bool))):
+        raise ValueError("kv_write: operands do not fit new rows "
+                         f"{tuple(k.shape)} {k.dtype}, pool "
                          f"{tuple(k_pool.shape)} {k_pool.dtype}")
-    k_new, v_new = k_new.contiguous(), v_new.contiguous()
-    _build.require_cuda(KERNEL, k_new, v_new, k_pool, v_pool, k_scale,
-                        v_scale, rows)
-    fn = _build.bind(LIB, "kv_quant_scatter",
-                     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                     + [ctypes.c_void_p])
+    if B * T == 0:
+        return
+    ops = [x.contiguous() if x is not None else None
+           for x in (k, v, c, s, write_mask)]
+    scales = () if scheme is None else (k_scale, v_scale)
+    _build.require_cuda(KERNEL, *(x for x in ops if x is not None), k_pool,
+                        v_pool, block_table, positions, *scales)
+    vec = (D // 2) % (16 // k.element_size()) == 0 and all(
+        x.data_ptr() % 16 == 0 for x in (*ops[:4], k_pool, v_pool)
+        if x is not None)
+    fn = _build.bind(LIB, "kv_write", [ctypes.c_void_p] * 11
+                     + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     p = _build.ptr
-    _build.check(fn(p(k_new), p(v_new), p(rows), p(k_pool), p(v_pool),
-                    p(k_scale), p(v_scale), N, KVH * D,
-                    _build.dtype_code(k_new), KV_DTYPE_CODES[scheme],
-                    _build.stream_ptr(k_new)), KERNEL)
+
+    def ptr(x):
+        return None if x is None else p(x)
+
+    _build.check(fn(*(ptr(x) for x in ops[:4]), p(block_table),
+                    p(positions), ptr(ops[4]), p(k_pool), p(v_pool),
+                    *(ptr(x) for x in (k_scale, v_scale)), B, T, KVH, D,
+                    k_pool.shape[1], nbs, _build.dtype_code(k),
+                    _build.dtype_code(c) if rot else 0,
+                    KV_DTYPE_CODES[scheme], int(vec),
+                    _build.stream_ptr(k)), KERNEL)
     _build.launches.add(KERNEL)

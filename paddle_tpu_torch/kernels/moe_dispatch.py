@@ -22,7 +22,9 @@ weights the f32 dot of each routed row with its cotangent row, in plain
 PyTorch (XLA in the reference).
 
 Indices are int32 [T, K]; weights [T, K] f32 or the tokens' dtype.  The
-kernels take any T, C and M.
+kernels take any T, C and M.  Dispatch is one launch in every form
+(decode, prefill chunk, training, dropping, backward): persistent blocks
+that each own every G-th slot, sized by :func:`dispatch_plan`.
 """
 from __future__ import annotations
 
@@ -35,6 +37,10 @@ from . import _build
 LIB = "moe_dispatch"
 DISPATCH = "moe_dispatch"       # launch counters
 COMBINE = "moe_combine"
+BLOCKS_PER_SM = 2               # csrc/moe_dispatch.cu DP_MIN_BLOCKS
+MAX_SLOTS = 3000                # slots a block: 4 ints each in its 48 KB
+                                # of shared memory
+MIN_WRITE = 16                  # elements a block writes per choice it reads
 
 
 def moe_capacity(tokens: int, experts: int, top_k: int,
@@ -70,9 +76,29 @@ def combine_plain(expert_out, eidx, sidx, weights):
     return (gathered * w[..., None]).sum(1).to(expert_out.dtype)
 
 
+def dispatch_plan(slots, n, M, sm_count):
+    """(blocks, slots a block) of the dispatch kernel for ``slots`` = E*C
+    rows of ``M`` elements and ``n`` = T*K choices: a power of two (the
+    kernel finds a slot's block with a mask), at most BLOCKS_PER_SM a SM,
+    fewer where there are fewer slots or where a block would write fewer
+    than MIN_WRITE elements per choice it reads (each block re-reads all
+    n), more where a block would own more than MAX_SLOTS (its shared
+    memory).  Block b owns the slots b, b + blocks, ..., at least one and
+    at most ``per``.  (0, 0), no launch, when there is nothing to
+    write."""
+    if slots <= 0 or M <= 0:
+        return 0, 0
+    want = min(slots, BLOCKS_PER_SM * sm_count,
+               max(1, slots * M // (MIN_WRITE * max(n, 1))))
+    blocks = 1 << (want.bit_length() - 1)
+    while -(-slots // blocks) > MAX_SLOTS:
+        blocks *= 2
+    return blocks, -(-slots // blocks)
+
+
 def _operands(what, T, dtype, eidx, sidx, weights):
     """Check the CUDA kernels' routing operands for T tokens of
-    ``dtype``; returns f32 weights."""
+    ``dtype``."""
     K = eidx.shape[-1]
     if eidx.shape != (T, K) or sidx.shape != (T, K) or \
             weights.shape != (T, K):
@@ -85,7 +111,6 @@ def _operands(what, T, dtype, eidx, sidx, weights):
     if weights.dtype not in (torch.float32, dtype):
         raise TypeError(f"{what}: weights must be float32 or {dtype}, got "
                         f"{weights.dtype}")
-    return weights.float().contiguous()
 
 
 def _vec(M, *tensors) -> int:
@@ -97,29 +122,29 @@ def _vec(M, *tensors) -> int:
 
 
 def _dispatch(tokens, eidx, sidx, weights, E, C):
-    """The plain version for a CPU tensor, the kernel for a CUDA one."""
+    """The plain version for a CPU tensor, the kernel for a CUDA one
+    (weights read as given, f32 or the tokens' dtype)."""
     if tokens.device.type == "cpu":
         return dispatch_plain(tokens, eidx, sidx, weights, E, C)
     code = _build.dtype_code(tokens)
-    tokens = tokens.contiguous()
-    w = _operands(DISPATCH, tokens.shape[0], tokens.dtype, eidx, sidx,
-                  weights)
-    eidx, sidx = eidx.contiguous(), sidx.contiguous()
+    _operands(DISPATCH, tokens.shape[0], tokens.dtype, eidx, sidx, weights)
+    tokens, eidx, sidx, w = (x.contiguous()
+                             for x in (tokens, eidx, sidx, weights))
     _build.require_cuda(DISPATCH, tokens, eidx, sidx, w)
     T, M = tokens.shape
     K = eidx.shape[1]
-    dev = tokens.device
-    out = torch.empty((E, C, M), dtype=tokens.dtype, device=dev)
-    count = torch.empty(E * C, dtype=torch.int32, device=dev)
-    start = torch.empty(E * C + 1, dtype=torch.int32, device=dev)
-    lst = torch.empty(max(1, T * K), dtype=torch.int32, device=dev)
-    fn = _build.bind(LIB, "moe_dispatch", [ctypes.c_void_p] * 8
-                     + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    out = torch.empty((E, C, M), dtype=tokens.dtype, device=tokens.device)
+    blocks, per = dispatch_plan(E * C, T * K, M,
+                                _build.sm_count(tokens.device))
+    if blocks == 0:
+        return out
+    fn = _build.bind(LIB, "moe_dispatch", [ctypes.c_void_p] * 5
+                     + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     p = _build.ptr
-    _build.check(fn(p(tokens), p(eidx), p(sidx), p(w), p(out), p(count),
-                    p(start), p(lst), T, K, M, E, C, code,
-                    _vec(M, tokens, out), _build.stream_ptr(tokens)),
-                 DISPATCH)
+    _build.check(fn(p(tokens), p(eidx), p(sidx), p(w), p(out), T, K, M, E,
+                    C, code, int(w.dtype == torch.float32),
+                    _vec(M, tokens, out), blocks, per,
+                    _build.stream_ptr(tokens)), DISPATCH)
     _build.launches.add(DISPATCH)
     return out
 
@@ -130,8 +155,8 @@ def _combine(expert_out, eidx, sidx, weights):
     code = _build.dtype_code(expert_out)
     E, C, M = expert_out.shape
     expert_out = expert_out.contiguous()
-    w = _operands(COMBINE, eidx.shape[0], expert_out.dtype, eidx, sidx,
-                  weights)
+    _operands(COMBINE, eidx.shape[0], expert_out.dtype, eidx, sidx, weights)
+    w = weights.float().contiguous()
     eidx, sidx = eidx.contiguous(), sidx.contiguous()
     _build.require_cuda(COMBINE, expert_out, eidx, sidx, w)
     T, K = eidx.shape

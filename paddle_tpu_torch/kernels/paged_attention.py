@@ -7,20 +7,21 @@ whose header says what bounds them on the H100 and how the split-K grid
 became parallel blocks.
 
 One decode step per sequence of the bucket: the new token's k is
-rotated (RoPE at ``positions[b]``) and k/v are scattered into the block
-pools by plain PyTorch ops, then :func:`paged_decode_attention` attends
+rotated (RoPE at ``positions[b]``) and k/v are written into the block
+pools by one launch (``kv_quant.kv_write``), then
+:func:`paged_decode_attention` attends
 q (rotated and scaled by 1/sqrt(D) inside the kernel) over each
 sequence's pages through the block table, masking ``k_pos <=
 positions[b]``.  GQA head ``h = kvh * rep + r``.
 
-Unlike the JAX function, which returns new pools, the scatter here
-updates the pools IN PLACE (``index_copy_``); :func:`fused_paged_decode`
-returns them anyway, so its signature matches the reference's.
+Unlike the JAX function, which returns new pools, the write here
+updates the pools IN PLACE; :func:`fused_paged_decode` returns them
+anyway, so its signature matches the reference's.
 
 Quantized pools (``kv_cache_dtype`` ``"int8"``/``"fp8"``, the
 reference's ``kv_dtype`` variant of ``_decode_kernel``) hold int8 codes
 with a [nb, bs] f32 scale per side: the new token is quantized as it is
-written (``kv_quant.quantize_scatter``, one launch for k and v) and the
+written (the same ``kv_quant.kv_write`` launch) and the
 kernel dequantizes each row in registers.  Each scheme counts its own
 launches (``paged_decode_int8``, ``paged_decode_fp8``).
 
@@ -42,6 +43,7 @@ import math
 import torch
 
 from . import _build, kv_quant
+from .rope import rotate_half
 
 KERNEL = "paged_decode"
 LIB = "paged_attention"   # csrc/paged_attention.cu
@@ -52,31 +54,6 @@ HOPPER_REPS = (1, 2, 4, 8)
 HOPPER_DIMS = (64, 128)
 BLOCKS_PER_SM = 3          # csrc/paged_attention.cu PF_MIN_BLOCKS
 MAX_SPLITS = 64            # csrc/paged_attention.cu PF_MAX_SPLITS
-
-
-def _rotate_half(x, c, s):
-    """Rotate-half RoPE; c/s broadcast against x's last dim (halves)."""
-    half = x.shape[-1] // 2
-    x1, x2 = x[..., :half], x[..., half:]
-    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
-
-
-def _token_rows(block_table, positions, bs):
-    """Flat pool row of each sequence's token at ``positions`` [B] (int64):
-    the reference's index math and column clamp."""
-    nbs = block_table.shape[1]
-    rows = torch.arange(block_table.shape[0], device=block_table.device)
-    col = torch.clamp(positions // bs, max=nbs - 1)
-    return block_table[rows, col].long() * bs + positions % bs
-
-
-def _scatter_token(pool, new, block_table, positions):
-    """Write one token per sequence into its pool slot, in place."""
-    nb, bs = pool.shape[0], pool.shape[1]
-    idx = _token_rows(block_table, positions, bs)
-    pool.view(nb * bs, pool.shape[2], pool.shape[3]).index_copy_(
-        0, idx, new.to(pool.dtype))
-    return pool
 
 
 def _split_candidates(nbs):
@@ -172,7 +149,7 @@ def paged_decode_attention_plain(q, c, s, k_pool, v_pool, block_table,
     KVH = k_pool.shape[2]
     rep = H // KVH
     q_g = q.reshape(B, KVH, rep, D)
-    q_rot = _rotate_half(q_g.float(), c[:, None, None, :],
+    q_rot = rotate_half(q_g.float(), c[:, None, None, :],
                          s[:, None, None, :]) * (1.0 / math.sqrt(D))
     acc, m, l = _plain_partials(q_rot, k_pool, v_pool, block_table,
                                 positions, num_splits, k_scale, v_scale,
@@ -259,7 +236,8 @@ def fused_paged_decode(q, k_new, v_new, k_pool, v_pool, block_table,
     unrotated new-token key/value; k_pool/v_pool: [nb, bs, KVH, D];
     block_table: [B, nbs] int32; positions: [B] int32 write frontiers;
     cos/sin: [max_pos, D/2] RoPE tables.  Rotates k_new (in f32, rounded
-    to its dtype), scatters k/v into the pools in place, then attends.
+    to its dtype) and writes k/v into the pools in place
+    (``kv_quant.kv_write``, one launch on the card), then attends.
     Returns (attn_out [B, 1, H, D], k_pool, v_pool).
 
     With ``kv_cache_dtype`` the pools hold int8 codes and
@@ -275,15 +253,9 @@ def fused_paged_decode(q, k_new, v_new, k_pool, v_pool, block_table,
         num_splits = _default_splits(nbs)
     pos = positions.long()
     c, s = cos[pos], sin[pos]                            # [B, half]
-    k_rot = _rotate_half(k_new[:, 0].float(), c[:, None, :],
-                         s[:, None, :]).to(k_new.dtype)
-    if kv_cache_dtype is None:
-        _scatter_token(k_pool, k_rot, block_table, pos)
-        _scatter_token(v_pool, v_new[:, 0], block_table, pos)
-    else:
-        kv_quant.quantize_scatter(
-            k_pool, v_pool, k_scale, v_scale, k_rot, v_new[:, 0],
-            _token_rows(block_table, pos, k_pool.shape[1]), kv_cache_dtype)
+    kv_quant.kv_write(k_pool, v_pool, k_new, v_new, block_table, positions,
+                      c=c, s=s, k_scale=k_scale, v_scale=v_scale,
+                      scheme=kv_cache_dtype)
     out = paged_decode_attention(q[:, 0], c, s, k_pool, v_pool, block_table,
                                  positions, num_splits, k_scale, v_scale,
                                  kv_cache_dtype)

@@ -24,13 +24,17 @@ from . import _build
 KERNEL = "rope"
 
 
+def rotate_half(x, c, s):
+    """Rotate-half RoPE; c/s broadcast against x's last dim (halves)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
 def rope_plain(x, cos, sin):
     """x [B, T, H, D]; cos/sin [T, D/2], already at the offset."""
-    xf = x.float()
-    c = cos.float()[None, :, None, :]
-    s = sin.float()[None, :, None, :]
-    x1, x2 = xf.chunk(2, dim=-1)
-    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+    return rotate_half(x.float(), cos.float()[None, :, None, :],
+                       sin.float()[None, :, None, :]).to(x.dtype)
 
 
 def _rope(x, cos, sin, sign):

@@ -7,8 +7,9 @@ The port of ``paddle_tpu/models/llama.py`` in two modes.
   layer folds its two RMSNorms into the projections that follow
   (``kernels.fused_norm_linear``), a decode step (one token per
   sequence) takes the fused paged-decode kernel and a prefill chunk the
-  chunked-prefill kernel; with an int8 or fp8 cache the new k/v rows
-  are quantized as they are written (``kernels.kv_quant``).
+  chunked-prefill kernel; the new k/v rows go into the pools through
+  ``kernels.kv_quant.kv_write``, quantized as they are written with an
+  int8 or fp8 cache.
 - Training (no cache): ``kernels.rms_norm`` before the unfused q/k/v
   and gate/up projections, ``kernels.rope.fused_rope`` on q and k,
   causal ``kernels.flash_attention.flash_attention_bthd``, and with
@@ -47,7 +48,7 @@ from ..device import resolve_device, tf32_if_exact
 from ..kernels.chunked_prefill import chunked_attention
 from ..kernels.flash_attention import flash_attention_bthd
 from ..kernels.fused_norm_linear import fused_norm_linear_group, rms_scale
-from ..kernels.kv_quant import quantize_scatter
+from ..kernels.kv_quant import kv_write
 from ..kernels.moe_dispatch import moe_capacity, moe_combine, moe_dispatch
 from ..kernels.paged_attention import fused_paged_decode
 from ..kernels.rms_norm import rms_norm
@@ -241,25 +242,12 @@ def _scatter_chunk(cache: PagedKVCache, k, v, positions, write_mask):
     """Write a chunk's k/v [B, T, KVH, D] into the pools in place: row
     ``block_table[b, pos // bs] * bs + pos % bs`` per position, the
     column clamped to the table, padded positions sent to row 0 (the
-    garbage block).  A quantized pool gets the rows' codes and scales
-    (``kv_quant.quantize_scatter``, the reference's ``_scatter_q``)."""
-    pool = cache.k
-    nb, bs = pool.shape[0], pool.shape[1]
-    bt = cache.block_table
-    T = k.shape[1]
-    pos = positions.long()[:, None] + torch.arange(T, device=k.device)
-    rows = torch.arange(bt.shape[0], device=k.device)[:, None]
-    col = torch.clamp(pos // bs, max=bt.shape[1] - 1)
-    idx = bt[rows, col].long() * bs + pos % bs
-    idx = torch.where(write_mask, idx, 0).reshape(-1)
-    k, v = (x.reshape(-1, x.shape[2], x.shape[3]) for x in (k, v))
-    if cache.kv_dtype is not None:
-        quantize_scatter(cache.k, cache.v, cache.k_scale, cache.v_scale, k,
-                         v, idx, cache.kv_dtype)
-        return
-    for p, new in ((cache.k, k), (cache.v, v)):
-        p.view(nb * bs, p.shape[2], p.shape[3]).index_copy_(
-            0, idx, new.to(p.dtype))
+    garbage block); a quantized pool gets the rows' codes and scales
+    (the reference's ``_scatter`` / ``_scatter_q``; ``kv_quant.kv_write``,
+    one launch on the card)."""
+    kv_write(cache.k, cache.v, k, v, cache.block_table, positions,
+             write_mask=write_mask, k_scale=cache.k_scale,
+             v_scale=cache.v_scale, scheme=cache.kv_dtype)
 
 
 class LlamaMLP(nn.Module):

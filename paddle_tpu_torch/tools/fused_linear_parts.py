@@ -57,8 +57,8 @@ def variant_source(src: str, changes) -> str:
     must be in the source exactly once."""
     for old, new in changes:
         if src.count(old) != 1:
-            raise RuntimeError(f"{LIB}.cu: {old!r} found "
-                               f"{src.count(old)} times, not once")
+            raise RuntimeError(f"{old!r} found {src.count(old)} times in "
+                               "the source, not once")
         src = src.replace(old, new)
     return src
 

@@ -8,9 +8,14 @@ that has only PyTorch:
 (``--noconftest``: the repository's conftest sets JAX up.)  Tolerances:
 f32 1e-4 (same cast points, sums in another order); bf16 one rounding
 of the largest output, except FlashAttention in bf16 (see
-``_hold_bf16_attention``); the quantize-at-write scatter bit-identical;
-MoE dispatch and combine bit-identical where every slot has one choice
-of weight 1, else 1e-6 in f32 and one bf16 ulp of each output;
+``_hold_bf16_attention``); the KV write (a decode step's, with the k
+rotation, and a prefill chunk's, into f32, bf16, int8 and fp8 pools)
+bit-identical, but for the garbage row that several padded tokens
+share, which must hold one of them; MoE dispatch bit-identical in every
+form (one contributor a slot, or several summed in ascending order),
+two runs the same bits, one kernel a call; combine bit-identical where
+every slot has one choice of weight 1, else 1e-6 in f32 and one bf16
+ulp of each output;
 fused_linear f32 1e-4, bf16 one bf16 ulp (2^-7) of the largest output
 (both instances, the wgmma one's bits the same over 100 launches),
 its backward (plain PyTorch on both devices) 1e-5 of the largest entry;
@@ -31,7 +36,8 @@ from paddle_tpu_torch.kernels import (chunked_prefill, fused_linear,
                                       moe_dispatch, paged_attention,
                                       rms_norm, rope)
 from paddle_tpu_torch.kernels import flash_attention as fa
-from torch_operands import chunk_operands, decode_operands, moe_routing
+from torch_operands import (chunk_operands, decode_operands, moe_routing,
+                            running_slots)
 
 TOL = 1e-4
 
@@ -204,23 +210,30 @@ class TestCudaQuantizedKernels:
     @pytest.mark.parametrize("N", [8, 256])
     def test_quantize_scatter_is_bit_identical(self, cuda_device, scheme,
                                                dtype, N):
-        # rows of very different sizes, a zero row, distinct destinations
+        # the quantized KV write of N tokens of one sequence (a chunk,
+        # no rotation) into distinct rows: rows of very different sizes
+        # and a zero row
         g = torch.Generator().manual_seed(N)
-        new = [(torch.randn(N, 8, 128, generator=g)
-                * torch.logspace(-3, 3, N)[:, None, None]).to(dtype)
+        new = [(torch.randn(1, N, 8, 128, generator=g)
+                * torch.logspace(-3, 3, N)[None, :, None, None]).to(dtype)
                for _ in range(2)]
-        new[0][3] = 0
-        nb, bs = N // 4 + 3, 16
-        rows = torch.randperm(nb * bs, generator=g)[:N]
+        new[0][0, 3] = 0
+        bs = 16
+        nbs = -(-N // bs)
+        nb = nbs + 3
+        bt = (1 + torch.randperm(nb - 1, generator=g)[:nbs]).int()[None]
+        pos = torch.zeros(1, dtype=torch.int32)
         pools = [torch.zeros(nb, bs, 8, 128, dtype=torch.int8)
                  for _ in range(2)] + [torch.ones(nb, bs) for _ in range(2)]
         want = [x.clone() for x in pools]
-        kv_quant.quantize_scatter(*want, *new, rows, scheme)
+        kv_quant.kv_write(*want[:2], *new, bt, pos, k_scale=want[2],
+                          v_scale=want[3], scheme=scheme)
         got = [x.to(cuda_device) for x in pools]
         launches.reset()
-        kv_quant.quantize_scatter(*got, *[x.to(cuda_device) for x in new],
-                                  rows.to(cuda_device), scheme)
-        assert launches.snapshot() == {"kv_quant_scatter": 1}
+        kv_quant.kv_write(*got[:2], *[x.to(cuda_device) for x in new],
+                          bt.to(cuda_device), pos.to(cuda_device),
+                          k_scale=got[2], v_scale=got[3], scheme=scheme)
+        assert launches.snapshot() == {kv_quant.KERNEL: 1}
         for a, b in zip(got, want):
             assert torch.equal(a.cpu(), b)
 
@@ -235,7 +248,7 @@ class TestCudaQuantizedKernels:
         launches.reset()
         got = paged_attention.fused_paged_decode(
             *dev[:9], k_scale=dev[9], v_scale=dev[10], **kw)
-        assert launches.snapshot() == {"kv_quant_scatter": 1,
+        assert launches.snapshot() == {kv_quant.KERNEL: 1,
                                        f"paged_decode_{scheme}": 1}
         close(got[0].cpu(), want[0])
         for a, b in zip(got[1:], want[1:]):
@@ -720,7 +733,7 @@ class TestCudaEngine:
         counts = launches.snapshot()
         for name in ("rms_norm", "fused_norm_linear_skinny",
                      "fused_norm_linear_tiled", "paged_decode",
-                     "chunked_prefill"):
+                     "chunked_prefill", kv_quant.KERNEL):
             assert counts.get(name, 0) > 0, name
         for a, b in zip(*outs):
             np.testing.assert_array_equal(a, b)
@@ -747,7 +760,7 @@ class TestCudaEngine:
             eng.pool.check_leaks()
         counts = launches.snapshot()
         for name in (f"paged_decode_{scheme}", f"chunked_prefill_{scheme}",
-                     "kv_quant_scatter"):
+                     kv_quant.KERNEL):
             assert counts.get(name, 0) > 0, name
         assert "paged_decode" not in counts
         for a, b in zip(*outs):
@@ -1335,3 +1348,163 @@ class TestCudaStatic:
         assert counts == [{fused_linear.KERNEL: 3}] * 5
         np.testing.assert_allclose(losses, cpu_losses, rtol=1e-4, atol=1e-4)
         assert losses[-1] < losses[0]
+
+
+def _kernels_of(fn, traces=3):
+    """(result, {kernel name: launches}) of ``fn()`` in a torch.profiler
+    trace: every kernel and memset the call ran on the device.  The
+    launch counters are set to 0 before the call, so they read the
+    traced call's.  A trace that holds no device event at all missed
+    them (the card's tracer now and then drops a whole trace): the call
+    is traced again, up to ``traces`` times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(traces):
+        torch.cuda.synchronize()
+        launches.reset()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        kernels = {e.key: e.count for e in prof.key_averages()
+                   if e.self_device_time_total > 0}
+        if kernels:
+            break
+    return out, kernels
+
+
+# (tokens, capacity) of each form of the dispatch, at 8 experts, top-2
+DISPATCH_FORMS = {"decode": (8, 8), "chunk": (256, 256),
+                  "training": (512, 512), "dropping": (512, 64),
+                  "backward": (512, 64), "several": (256, 16)}
+
+
+def _dispatch_case(form, dtype, M, dev):
+    """(tokens, eidx, sidx, weights, E, C) of one dispatch form: the
+    model's forward (running-count slots, weight 1 in the tokens' dtype,
+    dropped past C), the backward's (slots clamped to C - 1, the dropped
+    choices at weight 0, f32), or random slots named by several choices
+    of nonzero f32 weight ("several")."""
+    T, C = DISPATCH_FORMS[form]
+    E = 8
+    rng = np.random.RandomState(T + C + M)
+    eidx = np.stack([rng.choice(E, 2, replace=False)
+                     for _ in range(T)]).astype(np.int32)
+    sidx = running_slots(eidx, E)
+    w = np.ones((T, 2), np.float32)
+    if form == "backward":
+        w = (rng.rand(T, 2) + 0.25) * (sidx < C)
+        sidx = np.minimum(sidx, C - 1)
+    elif form == "several":
+        sidx = rng.randint(0, C + 2, (T, 2))
+        w = rng.rand(T, 2) + 0.25
+    tok = t(rng.randn(T, M).astype(np.float32)).to(dev, dtype)
+    w = t(w.astype(np.float32)).to(dev)
+    if form not in ("backward", "several"):
+        w = w.to(dtype)
+    return (tok, t(eidx).to(dev), t(sidx.astype(np.int32)).to(dev), w, E, C)
+
+
+@pytest.mark.cuda
+class TestCudaDispatchForms:
+    @pytest.mark.parametrize("M", [4096, 100])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("form", list(DISPATCH_FORMS))
+    def test_one_kernel_the_plain_bits_twice(self, cuda_device, form,
+                                             dtype, M):
+        # M = 100: rows that are not a multiple of 16 bytes in bf16 (the
+        # scalar instance); f32 rows of 400 bytes take the vector one
+        ops = _dispatch_case(form, dtype, M, cuda_device)
+        if form == "several":
+            named = np.bincount((ops[1] * ops[4] + ops[2]).reshape(-1)
+                                .cpu().numpy())
+            assert named.max() >= 3
+        got, kernels = _kernels_of(lambda: moe_dispatch.moe_dispatch(*ops))
+        again = moe_dispatch.moe_dispatch(*ops)
+        assert launches.snapshot() == {"moe_dispatch": 2}
+        assert list(kernels.values()) == [1] and \
+            "moe_dispatch_kernel" in next(iter(kernels))
+        assert torch.equal(got, again)
+        cpu = [x.cpu() if isinstance(x, torch.Tensor) else x for x in ops]
+        assert torch.equal(got.cpu(), moe_dispatch.dispatch_plain(*cpu))
+
+
+def _write_case(form, pool, dev):
+    """kv_write operands of one form ("decode": a step of 4 sequences,
+    k unrotated with its RoPE rows, at page edges and past the table's
+    width; "chunk": 40 tokens of 4 sequences across page edges, padded
+    tails masked, some of them past the table's width) over f32, bf16,
+    int8 or fp8 pools, on ``dev``; and the masked tokens' (b, t)."""
+    dtype = torch.float32 if pool == "f32" else torch.bfloat16
+    scheme = pool if pool in ("int8", "fp8") else None
+    B, KVH, D, bs, nbs = 4, 8, 128, 16, 6
+    T = 1 if form == "decode" else 40
+    nb = 1 + B * nbs
+    g = torch.Generator().manual_seed(len(form) + len(pool))
+    k, v = ((torch.randn(B, T, KVH, D, generator=g)
+             * torch.logspace(-2, 2, B * T).view(B, T, 1, 1)).to(dtype)
+            for _ in range(2))
+    k[1, 0] = 0
+    bt = (1 + torch.randperm(nb - 1, generator=g)).view(B, nbs).int()
+    kw = dict(scheme=scheme)
+    masked = []
+    if form == "decode":
+        pos = torch.tensor([15, 16, 17, 96], dtype=torch.int32)
+        ang = pos[:, None].double() * 0.37 ** torch.arange(D // 2)
+        kw.update(c=ang.cos().to(dtype), s=ang.sin().to(dtype))
+    else:
+        pos = torch.tensor([0, 15, 31, 60], dtype=torch.int32)
+        mask = torch.ones(B, T, dtype=torch.bool)
+        mask[1, 35:] = False
+        mask[3, 30:] = False            # positions 90..99, past 96 too
+        masked = [(b, j) for b in range(B) for j in range(T)
+                  if not mask[b, j]]
+        kw["write_mask"] = mask
+    if scheme is None:
+        pools = [torch.randn(nb, bs, KVH, D, generator=g).to(dtype)
+                 for _ in range(2)]
+    else:
+        pools = [torch.zeros(nb, bs, KVH, D, dtype=torch.int8)
+                 for _ in range(2)]
+        kw.update(k_scale=torch.ones(nb, bs), v_scale=torch.ones(nb, bs))
+    ops = [*pools, k, v, bt, pos]
+    move = (lambda x: x.to(dev)) if dev != "cpu" else (lambda x: x.clone())
+    return [move(x) for x in ops], {
+        key: move(x) if isinstance(x, torch.Tensor) else x
+        for key, x in kw.items()}, masked
+
+
+@pytest.mark.cuda
+class TestCudaKVWrite:
+    @pytest.mark.parametrize("pool", ["f32", "bf16", "int8", "fp8"])
+    @pytest.mark.parametrize("form", ["decode", "chunk"])
+    def test_bit_identical_to_plain(self, cuda_device, form, pool):
+        ops, kw, masked = _write_case(form, pool, "cpu")
+        kv_quant.kv_write(*ops, **kw)
+        dops, dkw, _ = _write_case(form, pool, cuda_device)
+        _, kernels = _kernels_of(lambda: kv_quant.kv_write(*dops, **dkw))
+        assert launches.snapshot() == {kv_quant.KERNEL: 1}
+        assert list(kernels.values()) == [1]
+        quant = kw["scheme"] is not None
+        got = [x.cpu() for x in dops[:2]]
+        want = ops[:2]
+        if quant:
+            got += [dkw["k_scale"].cpu(), dkw["v_scale"].cpu()]
+            want += [kw["k_scale"], kw["v_scale"]]
+        for side, (a, b) in enumerate(zip(got, want)):
+            # every row but the garbage block's row 0 bit for bit
+            assert torch.equal(a.flatten(0, 1)[1:], b.flatten(0, 1)[1:])
+            if not masked:
+                assert torch.equal(a.flatten(0, 1)[0], b.flatten(0, 1)[0])
+        for side in range(2):
+            # row 0 holds one of the padded tokens that share it (with
+            # its own scale), as the plain version's does
+            new = ops[2 + side]
+            cands = [new[b, j] for b, j in masked]
+            if quant:
+                cands = [kv_quant.quantize_kv(x, kw["scheme"]) for x in cands]
+                row = (got[side][0, 0], got[2 + side][0, 0])
+                assert any(torch.equal(row[0], c) and torch.equal(row[1], s)
+                           for c, s in cands) or not masked
+            else:
+                assert any(torch.equal(got[side][0, 0], c)
+                           for c in cands) or not masked

@@ -11,9 +11,12 @@ functions run their XLA fallback or their Pallas kernel in interpret
 mode.  f32 tolerance 1e-5 (the two frameworks sum in different orders).
 The CUDA kernels are held against the plain versions on the card in
 tests/test_torch_cuda.py and chip_smoke.py; the pure-Python plans of
-the skinny fused_norm_linear (its K split) and of the paged decode
-(its splits, which kernel takes the operands) are held here case by
-case.
+the skinny fused_norm_linear (its K split), of the paged decode (its
+splits, which kernel takes the operands) and of the MoE dispatch (its
+persistent blocks, ``dispatch_plan``) are held here case by case, and
+the MoE dispatch's and the KV write's wrappers shown to refuse what
+their kernels do not take before any launch and to pass their
+arguments to the C entry (a fake binding over meta tensors).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -27,9 +30,13 @@ from paddle_tpu_torch.kernels import _build, chunked_prefill as cp
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import fused_linear as fl
 from paddle_tpu_torch.kernels import fused_norm_linear as fnl
+from paddle_tpu_torch.kernels import kv_quant as kvq
 from paddle_tpu_torch.kernels import launches
+from paddle_tpu_torch.kernels import moe_dispatch as md
 from paddle_tpu_torch.kernels import paged_attention as pa
+from paddle_tpu_torch.tools import dispatch_parts
 from paddle_tpu_torch.tools import fused_linear_parts as fl_parts
+from paddle_tpu_torch.tools import kv_write_parts
 from paddle_tpu_torch.tools import ring_stress
 
 TOL = 1e-5
@@ -133,6 +140,22 @@ def test_fused_linear_parts_variants(variant, changed):
     # lines they name, each found once in the source
     src = (_build.CSRC / "fused_linear.cu").read_text()
     out = fl_parts.variant_source(src, fl_parts.VARIANTS[variant])
+    a, b = src.split("\n"), out.split("\n")
+    assert len(a) == len(b)
+    assert sum(x != y for x, y in zip(a, b)) == changed
+
+
+@pytest.mark.parametrize("tool,variant,changed", [
+    (dispatch_parts, "as_is", 0), (dispatch_parts, "no_index", 1),
+    (dispatch_parts, "no_rows", 2), (dispatch_parts, "slot_order", 1),
+    (dispatch_parts, "no_stream", 1), (kv_write_parts, "as_is", 0),
+    (kv_write_parts, "no_max", 1), (kv_write_parts, "no_div", 1),
+    (kv_write_parts, "no_encode", 1)])
+def test_parts_tools_variants(tool, variant, changed):
+    # the MoE dispatch's and the KV write's timing copies change only the
+    # lines they name, each found once in the source
+    src = (_build.CSRC / f"{tool.LIB}.cu").read_text()
+    out = fl_parts.variant_source(src, tool.VARIANTS[variant])
     a, b = src.split("\n"), out.split("\n")
     assert len(a) == len(b)
     assert sum(x != y for x, y in zip(a, b)) == changed
@@ -356,3 +379,180 @@ def test_hopper_path_refuses_unaligned_pools():
     assert pool.data_ptr() % 16 == 8
     with pytest.raises(ValueError, match="16-byte aligned"):
         pa.hopper_path(q, pool, pool, 4)
+
+
+# ------------------------------------------------------------ MoE dispatch
+@pytest.mark.parametrize("slots,n,M,plan", [
+    (64, 16, 4096, (64, 1)),         # decode: a slot a block
+    (2048, 512, 4096, (256, 8)),     # prefill chunk: 2 blocks a SM, 256
+    (32768, 8192, 4096, (256, 128)),  # training
+    (8192, 8192, 4096, (256, 32)),   # dropping: the choices cap the blocks
+    (100, 16, 4096, (64, 2)),        # a power of two below the slots
+    (1, 16, 4096, (1, 1)),
+    (64, 0, 4096, (64, 1)),          # no choices: all rows zero
+    (64, 16, 64, (16, 4)),           # narrow rows: fewer blocks
+    (64, 16, 1, (1, 64)),
+    (64, 1 << 20, 8, (1, 64)),       # many choices: one block reads them
+    (2_000_000, 16, 4096, (1024, 1954)),  # MAX_SLOTS: more blocks
+    (0, 16, 4096, (0, 0)),           # nothing to write: no launch
+    (64, 16, 0, (0, 0))])
+def test_dispatch_plan(slots, n, M, plan):
+    blocks, per = md.dispatch_plan(slots, n, M, 132)
+    assert (blocks, per) == plan
+    if blocks:
+        # a power of two; block b owns the slots b, b + blocks, ...: at
+        # least one each, all of them covered, and a block's counts fit
+        # its shared memory
+        assert blocks & (blocks - 1) == 0
+        assert blocks <= slots <= blocks * per
+        assert -(-slots // blocks) == per     # block 0's slots
+        assert per <= md.MAX_SLOTS
+
+
+def _fake_entry(monkeypatch):
+    """A stand-in for the C entry that records its arguments: meta
+    tensors take the kernel path and nothing is computed."""
+    calls = []
+
+    def entry(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(_build, "require_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(_build, "bind", lambda *a, **k: entry)
+    monkeypatch.setattr(_build, "stream_ptr", lambda t: None)
+    monkeypatch.setattr(_build, "sm_count", lambda d: 132)
+    launches.reset()
+    return calls
+
+
+@pytest.mark.parametrize("wdtype,M,vec", [
+    (torch.bfloat16, 4096, 1), (torch.float32, 4096, 1),
+    (torch.bfloat16, 100, 0)])      # 200-byte rows: the scalar instance
+def test_dispatch_passes_its_plan_to_the_launch(monkeypatch, wdtype, M, vec):
+    # weights reach the kernel as given (no cast launch); the plan and
+    # the vector flag reach the C entry; one launch counted
+    calls = _fake_entry(monkeypatch)
+    T, K, E, C = 256, 2, 8, 64
+    tok = torch.empty(T, M, dtype=torch.bfloat16, device="meta")
+    idx = torch.empty(T, K, dtype=torch.int32, device="meta")
+    w = torch.empty(T, K, dtype=wdtype, device="meta")
+    out = md.moe_dispatch(tok, idx, idx, w, E, C)
+    assert out.shape == (E, C, M) and out.dtype == torch.bfloat16
+    assert launches.snapshot() == {md.DISPATCH: 1}
+    (args,) = calls
+    assert args[5:] == (T, K, M, E, C, 1, int(wdtype == torch.float32), vec,
+                        *md.dispatch_plan(E * C, T * K, M, 132), None)
+
+
+def test_dispatch_launches_nothing_for_empty_buffers(monkeypatch):
+    calls = _fake_entry(monkeypatch)
+    tok = torch.empty(4, 64, dtype=torch.bfloat16, device="meta")
+    idx = torch.empty(4, 2, dtype=torch.int32, device="meta")
+    w = torch.empty(4, 2, device="meta")
+    assert md.moe_dispatch(tok, idx, idx, w, 8, 0).shape == (8, 0, 64)
+    assert calls == [] and launches.snapshot() == {}
+
+
+@pytest.mark.parametrize("bad,err", [
+    ("int64 indices", TypeError), ("f16 weights", TypeError),
+    ("f16 tokens", TypeError), ("short weights", ValueError)])
+def test_dispatch_refuses_before_any_launch(monkeypatch, bad, err):
+    calls = _fake_entry(monkeypatch)
+    ops = dict(tok=torch.empty(8, 64, dtype=torch.bfloat16, device="meta"),
+               idx=torch.empty(8, 2, dtype=torch.int32, device="meta"),
+               w=torch.empty(8, 2, device="meta"))
+    if bad == "int64 indices":
+        ops["idx"] = ops["idx"].long()
+    elif bad == "f16 weights":
+        ops["w"] = ops["w"].half()
+    elif bad == "f16 tokens":
+        ops["tok"] = ops["tok"].half()
+    else:
+        ops["w"] = ops["w"][:4]
+    with pytest.raises(err):
+        md.moe_dispatch(ops["tok"], ops["idx"], ops["idx"], ops["w"], 8, 4)
+    assert calls == [] and launches.snapshot() == {}
+
+
+# ---------------------------------------------------------------- KV write
+def _write_ops(form, pool, T=1, D=128, dtype=torch.bfloat16):
+    """Meta operands of kv_write: (k_pool, v_pool, k, v, block_table,
+    positions) and its keywords, for a decode step (``form`` "decode":
+    c/s rows) or a prefill chunk ("chunk": a write mask) over pools of
+    the rows' dtype (``pool`` None) or int8 codes of ``pool``."""
+    B, KVH, nb, bs, nbs = 8, 8, 40, 16, 5
+
+    def m(*shape, dt=dtype):
+        return torch.empty(*shape, dtype=dt, device="meta")
+
+    pdt = dtype if pool is None else torch.int8
+    ops = [m(nb, bs, KVH, D, dt=pdt), m(nb, bs, KVH, D, dt=pdt),
+           m(B, T, KVH, D), m(B, T, KVH, D), m(B, nbs, dt=torch.int32),
+           m(B, dt=torch.int32)]
+    kw = dict(scheme=pool)
+    if pool is not None:
+        kw.update(k_scale=m(nb, bs, dt=torch.float32),
+                  v_scale=m(nb, bs, dt=torch.float32))
+    if form == "decode":
+        kw.update(c=m(B, D // 2), s=m(B, D // 2))
+    else:
+        kw.update(write_mask=m(B, T, dt=torch.bool))
+    return ops, kw
+
+
+@pytest.mark.parametrize("form,T", [("decode", 1), ("chunk", 256)])
+@pytest.mark.parametrize("pool", [None, "int8", "fp8"])
+@pytest.mark.parametrize("D,vec", [(128, 1), (72, 0)])
+def test_kv_write_passes_its_operands_to_the_launch(monkeypatch, form, T,
+                                                    pool, D, vec):
+    # one launch; the shapes, the dtype codes (rows, c/s, pool scheme),
+    # the c/s and mask pointers (absent in the other form) and the vector
+    # flag (D / 2 a multiple of 8 bf16 elements) reach the C entry
+    calls = _fake_entry(monkeypatch)
+    ops, kw = _write_ops(form, pool, T, D)
+    kvq.kv_write(*ops, **kw)
+    assert launches.snapshot() == {kvq.KERNEL: 1}
+    (args,) = calls
+    decode = form == "decode"
+    assert (args[2] is None, args[3] is None, args[6] is None) == \
+        (not decode, not decode, decode)
+    assert (args[9] is None) == (pool is None)
+    assert args[11:21] == (8, T, 8, D, 16, 5, 1, int(decode),
+                           kvq.KV_DTYPE_CODES[pool], vec)
+
+
+@pytest.mark.parametrize("bad", [
+    "c without s", "rotation of a chunk", "c rows", "int64 positions",
+    "int64 table", "f32 pools for bf16 rows", "no scales", "mask shape",
+    "odd head_dim", "v shape"])
+def test_kv_write_refuses_before_any_launch(monkeypatch, bad):
+    calls = _fake_entry(monkeypatch)
+    form = "chunk" if bad in ("rotation of a chunk", "mask shape") \
+        else "decode"
+    ops, kw = _write_ops(form, "int8" if bad == "no scales" else None,
+                         T=4 if form == "chunk" else 1,
+                         D=7 if bad == "odd head_dim" else 128)
+    if bad == "c without s":
+        kw.pop("s")
+    elif bad == "rotation of a chunk":
+        kw.update(c=torch.empty(8, 64, dtype=torch.bfloat16, device="meta"),
+                  s=torch.empty(8, 64, dtype=torch.bfloat16, device="meta"))
+    elif bad == "c rows":
+        kw["c"] = kw["s"] = torch.empty(8, 32, dtype=torch.bfloat16,
+                                        device="meta")
+    elif bad == "int64 positions":
+        ops[5] = ops[5].long()
+    elif bad == "int64 table":
+        ops[4] = ops[4].long()
+    elif bad == "f32 pools for bf16 rows":
+        ops[0], ops[1] = ops[0].float(), ops[1].float()
+    elif bad == "no scales":
+        kw.pop("k_scale")
+    elif bad == "mask shape":
+        kw["write_mask"] = kw["write_mask"][:, :2]
+    elif bad == "v shape":
+        ops[3] = ops[3][:4]
+    with pytest.raises(ValueError, match="kv_write"):
+        kvq.kv_write(*ops, **kw)
+    assert calls == [] and launches.snapshot() == {}

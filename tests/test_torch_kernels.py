@@ -10,6 +10,7 @@ Each CUDA kernel is held against its plain version on the card in
 tests/test_torch_cuda.py.
 """
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -25,6 +26,8 @@ from paddle_tpu.kernels.rms_norm import rms_norm as jax_rms_norm
 from paddle_tpu_torch.kernels import (_build, chunked_prefill,
                                       fused_norm_linear, paged_attention,
                                       rms_norm)
+from paddle_tpu_torch.models.llama import PagedKVCache, _scatter_chunk
+from torch_jax_steps import jax_chunk_write
 from torch_operands import chunk_operands, decode_operands
 
 TOL = 1e-5      # f32, same math, different summation order
@@ -249,6 +252,87 @@ class TestChunkedPrefill:
         args = chunk_operands(T=40, bs=16, nbs=12, seed=7)
         args[4] = np.array(positions, np.int32)
         _check_chunk(args)
+
+
+# ---------------------------------------------------------------------------
+# the KV write into f32 and bf16 pools (kv_quant.kv_write)
+# ---------------------------------------------------------------------------
+
+def _as(a, dtype):
+    """numpy f32 -> (numpy of dtype, torch tensor of the same bits)."""
+    if dtype == "float32":
+        return a, t(a)
+    b = a.astype(ml_dtypes.bfloat16)
+    return b, torch.from_numpy(b.view(np.int16).copy()).view(torch.bfloat16)
+
+
+def _bits(x):
+    x = np.asarray(x)
+    return x.view(np.int16 if x.dtype == ml_dtypes.bfloat16 else np.int32)
+
+
+def _torch_bits(x):
+    return x.view(torch.int16 if x.dtype == torch.bfloat16 else torch.int32) \
+        .numpy()
+
+
+class TestKVWrite:
+    @pytest.mark.parametrize("positions", [[3, 4], [5, 7], [8, 16],
+                                           [0, 17]])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_decode_pools_match_jax(self, dtype, positions):
+        # fused_paged_decode's write (k rotated in f32 and rounded once,
+        # then v and k at their rows) bit for bit against the JAX
+        # function's returned pools; block size 4, 4 blocks a table:
+        # page edges -1, 0 and +1, and positions 16 and 17, past the
+        # table's width (the column clamp)
+        args = decode_operands(nbs=4, seed=9)
+        args[6] = np.array(positions, np.int32)
+        args[7] = np.concatenate([args[7], args[7][-1:]])   # row 17
+        args[8] = np.concatenate([args[8], args[8][-1:]])
+        ops = [args[i] if i in (5, 6) else _as(args[i], dtype)[0]
+               for i in range(9)]
+        got = paged_attention.fused_paged_decode(
+            *[t(a) if i in (5, 6) else _as(args[i], dtype)[1]
+              for i, a in enumerate(args)], num_splits=2)
+        want = jax_fused_paged_decode(*[jnp.asarray(a) for a in ops],
+                                      num_splits=2, use_pallas=False)
+        for g, w in zip(got[1:], want[1:]):
+            np.testing.assert_array_equal(_torch_bits(g), _bits(w))
+
+    @pytest.mark.parametrize("positions", [[0, 15], [3, 12]])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_chunk_pools_match_jax(self, dtype, positions):
+        """``_scatter_chunk`` of f32 / bf16 pools against the pools a JAX
+        prefill chunk step returns (the reference's ``LlamaAttention``
+        forward with a paged cache and a write mask, which writes through
+        ``_scatter``): chunks across page edges, a padded tail, masked
+        positions past the table's width."""
+        rng = np.random.RandomState(10)
+        B, T, KVH, D, bs, nbs = 2, 6, 2, 8, 4, 5
+        nb = 1 + B * nbs
+        pools = [_as(rng.randn(nb, bs, KVH, D).astype(np.float32), dtype)
+                 for _ in range(2)]
+        new = [_as(rng.randn(B, T, KVH, D).astype(np.float32), dtype)
+               for _ in range(2)]
+        bt = (1 + np.arange(B * nbs)).reshape(B, nbs).astype(np.int32)
+        positions = np.array(positions, np.int32)
+        wmask = np.ones((B, T), bool)
+        wmask[1, 4:] = False
+
+        cache = PagedKVCache(pools[0][1].clone(), pools[1][1].clone(),
+                             t(bt))
+        _scatter_chunk(cache, new[0][1], new[1][1], t(positions), t(wmask))
+        want = jax_chunk_write(pools[0][0], pools[1][0], new[0][0],
+                               new[1][0], bt, positions, wmask)
+        for got, w, (x, _) in zip((cache.k, cache.v), want, new):
+            w = _bits(w)
+            # row 0 of the garbage block takes both padded writes: which
+            # one lands there is unspecified in both frameworks
+            np.testing.assert_array_equal(_torch_bits(got)[1:], w[1:])
+            np.testing.assert_array_equal(_torch_bits(got)[0, 1:], w[0, 1:])
+            assert any(np.array_equal(_torch_bits(got)[0, 0],
+                                      _bits(x)[1, j]) for j in (4, 5))
 
 
 # ---------------------------------------------------------------------------

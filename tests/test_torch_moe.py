@@ -132,6 +132,33 @@ class TestPlainMatchesPallas:
         hold(as_np(got), np.asarray(want), dtype, case == "unique")
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dispatch_sums_several_choices_in_ascending_order(dtype):
+    """Slots named by up to 5 choices of nonzero weight: the plain
+    dispatch (which the card's kernel is held to bit for bit) is the f32
+    sum from 0 in ascending (t, k) order, each product and sum rounded
+    once, then one rounding to the tokens' dtype; and it agrees with the
+    JAX kernel in interpret mode as the other random cases do."""
+    rng = np.random.RandomState(11)
+    tok = rng.randn(T, M).astype(np.float32).astype(DTYPES[dtype])
+    eidx = rng.randint(0, 2, (T, K)).astype(np.int32)   # 2 of the 4 experts
+    sidx = rng.randint(0, 3, (T, K)).astype(np.int32)   # 3 of the C slots
+    w = (rng.rand(T, K) + 0.25).astype(np.float32)
+    got = tmoe.dispatch_plain(t(tok), t(eidx), t(sidx), t(w), E, C)
+    want = np.zeros((E, C, M), np.float32)
+    for i in range(T * K):
+        e, c = eidx.flat[i], sidx.flat[i]
+        want[e, c] += np.float32(w.flat[i]) * tok[i // K].astype(np.float32)
+    assert np.bincount(eidx.reshape(-1) * C + sidx.reshape(-1)).max() >= 5
+    np.testing.assert_array_equal(
+        np.asarray(as_np(got), np.float32),
+        np.asarray(want.astype(DTYPES[dtype]), np.float32))
+    jax_out = jmoe.moe_dispatch(jnp.asarray(tok), jnp.asarray(eidx),
+                                jnp.asarray(sidx), jnp.asarray(w), E, C,
+                                jmoe.DEFAULT_BT, jmoe.DEFAULT_BC, True)
+    hold(as_np(got), np.asarray(jax_out), dtype, False)
+
+
 class TestAutograd:
     def test_gradients_match_jax_grad(self):
         """loss = sum(combine(dispatch(tok, wd) * Q, wc) * R): gradients

@@ -4,8 +4,10 @@ against the JAX package, on the CPU.
 - the codec (``kernels/kv_quant``): codes and scales bit-identical to the
   JAX ``kv_quant`` for both schemes, zero rows, +-qmax and rounding ties
   included;
-- the quantize-at-write scatter bit-identical to the JAX writes
-  (``_scatter_token_quant``, and ``_scatter_q`` of a padded chunk);
+- the KV write into quantized pools (``kv_quant.kv_write``) bit-identical
+  to the JAX writes: a decode step's (the k rotation, then
+  ``_scatter_token_quant``) and a padded chunk's (``_scatter_q``), at
+  page edges, past the block table's width and at masked positions;
 - the plain quantized decode and chunk attention against the JAX
   ``fused_paged_decode`` / ``fused_chunked_attention`` with
   ``kv_cache_dtype``, through their XLA versions and their Pallas kernels
@@ -30,7 +32,8 @@ import torch
 import paddle_tpu as paddle
 from paddle_tpu.kernels import kv_quant as jkv
 from paddle_tpu.kernels.chunked_prefill import fused_chunked_attention
-from paddle_tpu.kernels.paged_attention import (_scatter_token_quant,
+from paddle_tpu.kernels.paged_attention import (_rotate_half,
+                                                _scatter_token_quant,
                                                 fused_paged_decode as
                                                 jax_fused_paged_decode)
 from paddle_tpu.models import LlamaConfig as JaxLlamaConfig
@@ -49,6 +52,7 @@ from paddle_tpu_torch.models.llama import PagedKVCache, _scatter_chunk
 from paddle_tpu_torch.quantization import serving as tqs
 from paddle_tpu_torch.serving import Engine, ServingConfig
 from paddle_tpu_torch.serving.cache import BlockKVPool
+from torch_jax_steps import jax_chunk_write
 from torch_operands import chunk_operands, decode_operands
 
 TOL = 1e-5
@@ -195,31 +199,45 @@ def _quant_pools(k_pool, v_pool, scheme):
 
 
 class TestScatter:
+    @pytest.mark.parametrize("positions", [[5, 0, 14], [3, 4, 15],
+                                           [7, 8, 16]])
     @pytest.mark.parametrize("scheme", SCHEMES)
-    def test_decode_token_matches_scatter_token_quant(self, scheme):
+    def test_decode_token_matches_scatter_token_quant(self, scheme,
+                                                      positions):
+        # a decode step's write (kv_write with the RoPE rows: k rotated,
+        # then quantized) against the reference's rotation and
+        # _scatter_token_quant; block size 4, 4 blocks a table: page
+        # edges -1, 0 and +1, and position 16, past the table's width
+        # (the column clamp)
         args = decode_operands(B=3, nbs=4, seed=8)
-        args[6] = np.array([5, 0, 14], np.int32)
+        args[6] = np.array(positions, np.int32)
         kc, vc, ks, vs = _quant_pools(args[3], args[4], scheme)
-        k_new, v_new = args[1][:, 0], args[2][:, 0]
-        bt, pos = args[5], args[6]
+        k_new, v_new = args[1], args[2]
+        bt, pos, cos, sin = args[5], args[6], args[7], args[8]
         tpools = [t(a) for a in (kc, vc, ks, vs)]
-        rows = paged_attention._token_rows(t(bt), t(pos).long(),
-                                           kc.shape[1])
-        tkv.quantize_scatter(*tpools, t(k_new), t(v_new), rows, scheme)
+        tkv.kv_write(tpools[0], tpools[1], t(k_new), t(v_new), t(bt),
+                     t(pos), c=t(cos[pos]), s=t(sin[pos]),
+                     k_scale=tpools[2], v_scale=tpools[3], scheme=scheme)
+        k_rot = _rotate_half(jnp.asarray(k_new[:, 0]),
+                             jnp.asarray(cos[pos])[:, None, :],
+                             jnp.asarray(sin[pos])[:, None, :])
         for pool, sc, new, got_pool, got_sc in (
-                (kc, ks, k_new, tpools[0], tpools[2]),
-                (vc, vs, v_new, tpools[1], tpools[3])):
+                (kc, ks, k_rot, tpools[0], tpools[2]),
+                (vc, vs, v_new[:, 0], tpools[1], tpools[3])):
             want_pool, want_sc = _scatter_token_quant(
                 jnp.asarray(pool), jnp.asarray(sc), jnp.asarray(new),
                 jnp.asarray(bt), jnp.asarray(pos), scheme)
             same(got_pool.numpy(), want_pool)
             same(got_sc.numpy(), want_sc)
 
+    @pytest.mark.parametrize("positions", [[0, 15], [3, 12]])
     @pytest.mark.parametrize("scheme", SCHEMES)
-    def test_padded_chunk_matches_scatter_q(self, scheme):
-        """``_scatter_chunk`` of a quantized cache against the reference's
-        chunk write (``models/llama.py`` ``_scatter_q``, restated here
-        line for line: it is a closure inside the JAX forward)."""
+    def test_padded_chunk_matches_scatter_q(self, scheme, positions):
+        """``_scatter_chunk`` of a quantized cache against the codes and
+        scales a JAX prefill chunk step returns (the reference's
+        ``LlamaAttention`` forward with a paged cache and a write mask,
+        which writes through ``_scatter_q``); chunks that cross page
+        edges, a padded tail running past the table's width."""
         rng = np.random.RandomState(9)
         B, T, KVH, D, bs, nbs = 2, 6, 2, 8, 4, 5
         nb = 1 + B * nbs
@@ -229,34 +247,22 @@ class TestScatter:
         k = rng.randn(B, T, KVH, D).astype(np.float32)
         v = rng.randn(B, T, KVH, D).astype(np.float32)
         bt = (1 + np.arange(B * nbs)).reshape(B, nbs).astype(np.int32)
-        positions = np.array([0, 15], np.int32)
+        positions = np.array(positions, np.int32)
         wmask = np.ones((B, T), bool)
         wmask[1, 4:] = False            # a padded tail
 
-        def scatter_q(pool, scales, new):
-            pos = jnp.asarray(positions)[:, None] + jnp.arange(T)
-            rows = jnp.arange(B)[:, None]
-            col = jnp.minimum(pos // bs, nbs - 1)
-            idx = jnp.asarray(bt)[rows, col] * bs + pos % bs
-            idx = jnp.where(jnp.asarray(wmask), idx, 0)
-            codes, sc = jkv.quantize_kv(jnp.asarray(new), scheme)
-            flat = jnp.asarray(pool).reshape(nb * bs, KVH, D)
-            flat = flat.at[idx.reshape(-1)].set(codes.reshape(-1, KVH, D))
-            sflat = jnp.asarray(scales).reshape(nb * bs).at[
-                idx.reshape(-1)].set(sc.reshape(-1))
-            return flat.reshape(pool.shape), sflat.reshape(scales.shape)
-
         cache = PagedKVCache(t(kc), t(vc), t(bt), t(ks), t(vs), scheme)
         _scatter_chunk(cache, t(k), t(v), t(positions), t(wmask))
-        for got_pool, got_sc, pool, sc, new in (
-                (cache.k, cache.k_scale, kc, ks, k),
-                (cache.v, cache.v_scale, vc, vs, v)):
-            want_pool, want_sc = scatter_q(pool, sc, new)
+        want = jax_chunk_write(kc, vc, k, v, bt, positions, wmask, ks, vs,
+                               scheme)
+        for got_pool, got_sc, want_pool, want_sc in (
+                (cache.k, cache.k_scale, want[0], want[2]),
+                (cache.v, cache.v_scale, want[1], want[3])):
             # row 0 of the garbage block takes both padded writes: which
             # one lands there is unspecified in both frameworks
-            same(got_pool[1:].numpy(), np.asarray(want_pool)[1:])
-            same(got_sc[1:].numpy(), np.asarray(want_sc)[1:])
-            same(got_pool[0, 1:].numpy(), np.asarray(want_pool)[0, 1:])
+            same(got_pool[1:].numpy(), want_pool[1:])
+            same(got_sc[1:].numpy(), want_sc[1:])
+            same(got_pool[0, 1:].numpy(), want_pool[0, 1:])
 
 
 # ---------------------------------------------------------------------------
