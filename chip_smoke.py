@@ -11,7 +11,8 @@ Phases, each of which must pass (nothing is caught):
      tolerance, its time, the plain version's time, one library call's
      time (a yardstick the port never calls) and its bound on the card
      (the JSON line adds the bound's share of the time and the factor
-     by which the kernel loses to the library call);
+     by which the kernel loses to the library call); rms_scale, the
+     row scale of the fused_norm_linear groups, at 8 and 256 rows;
      the paged-decode and chunked-prefill kernels also on int8 and fp8
      KV pools; the KV write (row lookup, a decode step's k rotation,
      quantization) at a decode step's and a chunk's rows into f32, bf16,
@@ -57,6 +58,22 @@ Mixture of experts (Mixtral-8x7B's shape, mixtral_config):
      factor 4.0 = E / K, as Mixtral routes);
   7m. main MoE training: Mixtral width, 2 layers, one [1, 4096] batch,
      as phase 7.
+The shapes only the general bf16 instances take (fault C1 of ROADMAP.md):
+  2c. C1 kernels: paged decode and chunked prefill at Qwen2-7B's heads
+     (28 q over 4 kv heads, rep 7, head_dim 128) over pages of 12 tokens
+     (decode also over int8 and fp8 pools), FlashAttention (forward,
+     forward with LSE, dQ, dK/dV) at head_dim 80 and 96, T = 2048, 32
+     heads, causal, and the fused_norm_linear q/k/v group at N and K = 4
+     mod 8 (8 and 256 rows), each against its plain version, one launch
+     under its own counter;
+  4c. tiny C1: LlamaConfig.tiny in bf16 with hidden 140, 7 q heads over
+     1 kv head (head_dim 20), intermediate 92, pages of 12: served on
+     cuda and cpu (tokens as in phase 4, the margin BF16_MARGIN), one
+     training step on both held against the same step in f32, an eval
+     forward; every general instance must launch;
+  6c. main C1 serving: Qwen2-7B's widths (qwen2_7b_config), 4 of its 28
+     layers, bf16, pages of 12, phase 6's 8 requests: the general paged
+     decode and chunked prefill in every step.
 Static graph (BERT-base, Google's published bert_config.json):
   2s. static kernels: fused_linear against its plain version at
      BERT-base's shapes (M = 32 x 512 tokens, hidden 768, FFN 3072),
@@ -81,10 +98,13 @@ Static graph (BERT-base, Google's published bert_config.json):
      and fused as in 4s: 2 warm-up, 5 timed and one profiled step; 13
      fused_linear ops in the Program and 13 launches a step; it runs
      last.
-The launch counts of phases 6, 7, 6m, 7m and 7s, reset just before each
-run and read just after it, show that each path went through every
-kernel of its own.  Each serving run also prints its profiled decode
-step's and prefill chunk's kernel time and count (torch.profiler).
+The launch counts of phases 4c, 6, 6c, 7, 6m, 7m and 7s, reset just
+before each run and read just after it, show that each path went
+through every kernel of its own (and the Llama-3-8B, Mixtral and BERT
+phases through no general instance); a kernel of the JSON line that its
+path launched no time fails the run.  Each serving run also prints the
+kernel time and count of three profiles of its decode step and of its
+prefill chunk (torch.profiler).
 
 Prints the card's name and power limit, then one JSON line of the
 kernels' numbers, then as its last line
@@ -115,6 +135,7 @@ TRAIN_T = 8192                 # its sequence: Llama-3's pretraining context
 TRAIN_WARMUP, TRAIN_STEPS = 2, 5
 MOE_LAYERS = 16                # depth of the main MoE serving phase (of 32)
 MOE_TRAIN_LAYERS = 2           # depth of the main MoE training phase
+C1_LAYERS = 4                  # depth of the Qwen2-7B-width phase (of 28)
 MOE_TRAIN_T = 4096             # its sequence: the dropless [E, C, M]
                                # buffers grow with T (C = T at factor 4)
 MOE_HID = 4096                 # the MoE kernel phase: Mixtral's hidden,
@@ -254,11 +275,12 @@ def phase_build():
 
 # the kernels whose -Xptxas -v lines phase 1 prints one by one
 REDESIGNED = {"paged_attention": ("hopper",),
+              "rms_norm": ("rms_rows",),
               "fused_norm_linear": ("skinny_mma", "wgmma"),
               "chunked_prefill": ("wgmma",),
               "flash_attention": ("wgmma",),
               "fused_linear": ("wgmma",),
-              "moe_dispatch": ("dispatch_kernel",),
+              "moe_dispatch": ("dispatch_kernel", "combine_kernel"),
               "kv_quant": ("kv_write",)}
 
 
@@ -315,6 +337,27 @@ def phase_kernels(dev):
         library_ms=time_ms(lambda: F.rms_norm(x, (HID,), w, eps)),
         bound=bound_ms(nbytes, 4.0 * x.numel(), F32_FLOPS),
         work="one [8, 4096] row block")
+
+    # rms_scale: the f32 row scale in front of every fused_norm_linear
+    # group, at a decode step's 8 rows and a prefill chunk's 256; the
+    # library yardstick is F.rms_norm (the same reduction, writing the
+    # normalized rows)
+    for M, tag in ((8, ""), (256, "_chunk")):
+        x = randn(M, HID) * 3
+        got, ref = rms_norm.rms_scale(x, eps), rms_norm.rms_scale_plain(x, eps)
+        err = check_close(f"rms_scale [{M}, {HID}]", got, ref,
+                          float(ref.abs().max()) * 2.0 ** -21)
+        entries["rms_scale" + tag] = dict(
+            counter=rms_norm.SCALE,
+            replaces="paddle_tpu/kernels/fused_norm_linear.py:45",
+            source="paddle_tpu_torch/csrc/rms_norm.cu", max_abs_err=err,
+            ms=time_ms(lambda: rms_norm.rms_scale(x, eps)),
+            plain_ms=time_ms(lambda: rms_norm.rms_scale_plain(x, eps)),
+            library_ms=time_ms(lambda: F.rms_norm(x, (HID,), w, eps)),
+            bound=bound_ms(2 * x.numel() + 4 * M, 2.0 * x.numel(),
+                           F32_FLOPS),
+            work=f"the row scale of [{M}, {HID}] (XLA glue in the "
+                 "reference)")
 
     # fused_norm_linear: the 5 projections of one layer (q, k, v, gate
     # with silu, up), skinny at decode M = 8 and tiled at prefill M = 256,
@@ -1091,6 +1134,331 @@ def phase_moe_kernels(dev):
     return entries
 
 
+# --------------------------------------------------------------- phase 2c
+C1_BS = 12                     # the C1 phases' pages: not a power of two
+C1_FLASH_T = 2048              # phase 2c's attention: T, heads
+C1_FLASH_H = 32
+C1_FLASH_DIMS = (80, 96)       # Phi-2's and Phi-3-mini's head_dim
+C1_FNL_K = 3588                # phase 2c's fused_norm_linear: K and the
+C1_FNL_N = (3588, 516, 516)    # q/k/v widths, each = 4 (mod 8)
+
+
+def qwen2_7b_config(**overrides):
+    """Qwen2-7B's widths from its published config.json (Qwen/Qwen2-7B):
+    vocab 152064, hidden 3584, intermediate 18944, 28 layers, 28 q / 4 kv
+    heads (head_dim 128, GQA rep 7), rope_theta 1e6, rms_norm_eps 1e-6,
+    max_position 32768, untied embeddings; without its q/k/v biases,
+    which the port's Llama has no place for."""
+    import dataclasses
+
+    from paddle_tpu_torch.models import LlamaConfig
+
+    return dataclasses.replace(LlamaConfig(
+        vocab_size=152064, hidden_size=3584, intermediate_size=18944,
+        num_hidden_layers=28, num_attention_heads=28, num_key_value_heads=4,
+        max_position_embeddings=32768, rms_norm_eps=1e-6, rope_theta=1e6),
+        **overrides)
+
+
+def phase_c1_kernels(dev):
+    """The general bf16 instances (fault C1: shapes the fast kernels are
+    not built for) against their plain versions: paged decode and
+    chunked prefill at Qwen2-7B's heads (28 q over 4 kv heads, rep 7,
+    head_dim 128) over pages of C1_BS tokens, decode also over int8 and
+    fp8 pools; FlashAttention (forward without and with the LSE, dQ,
+    dK/dV) at head_dim 80 and 96, T = C1_FLASH_T, 32 heads, causal; the
+    fused_norm_linear q/k/v group at N and K = 4 (mod 8), at a decode
+    step's 8 rows and a chunk's 256.  Same tolerances and numbers as
+    phase 2 (decode and chunk L2-cold); one launch a call under each
+    instance's own counter."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import chunked_prefill
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_norm_linear as fnl
+    from paddle_tpu_torch.kernels import (kv_quant, launches,
+                                          paged_attention, rope)
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    bf = torch.bfloat16
+
+    def randn(*shape, std=1.0, dtype=bf):
+        return (torch.randn(shape, generator=g, device=dev,
+                            dtype=torch.float32) * std).to(dtype)
+
+    def one_launch(name, fn):
+        launches.reset()
+        out = fn()
+        if launches.snapshot() != {name: 1}:
+            raise AssertionError(f"{name}: launches {launches.snapshot()}")
+        return out
+
+    cfg = qwen2_7b_config()
+    H, KVH, D = cfg.num_attention_heads, cfg.num_key_value_heads, \
+        cfg.head_dim
+    entries = {}
+    print(f"[c1 kernels] the general instances: Qwen2-7B heads ({H} over "
+          f"{KVH}, D={D}) on pages of {C1_BS}; attention at D = "
+          f"{C1_FLASH_DIMS}; fused_norm_linear at K={C1_FNL_K}, N="
+          f"{C1_FNL_N}; bf16", flush=True)
+
+    # paged decode: B=8 at phase 2's frontiers, the engine's table width
+    # for max_model_len 32768
+    B, bs = 8, C1_BS
+    nbs = -(-cfg.max_position_embeddings // bs)
+    positions = torch.tensor([130, 260, 390, 520, 650, 780, 910, 1055],
+                             dtype=torch.int32, device=dev)
+    per_seq = [(int(p) + bs) // bs for p in positions]
+    nb = 1 + sum(per_seq)
+    perm = (1 + torch.randperm(nb - 1, generator=g, device=dev)).int()
+    bt = torch.zeros((B, nbs), dtype=torch.int32, device=dev)
+    off = 0
+    for b, n in enumerate(per_seq):
+        bt[b, :n] = perm[off:off + n]
+        off += n
+    k_pool, v_pool = randn(nb, bs, KVH, D), randn(nb, bs, KVH, D)
+    cos, sin = _rope_tables(D, cfg.max_position_embeddings, cfg.rope_theta,
+                            dev)
+    pos_l = positions.long()
+    c, s = cos[pos_l].to(bf), sin[pos_l].to(bf)
+    q = randn(B, H, D)
+    dkeys = float((positions + 1).sum())
+    Lmax = int(positions.max()) + 1
+    q_rot = rope.rotate_half(
+        q.float(), c[:, None, :].float(),
+        s[:, None, :].float()).to(bf)[:, :, None, :]
+    mask = (torch.arange(Lmax, device=dev)[None, :]
+            <= positions[:, None])[:, None, None, :]
+    for scheme in (None, "int8", "fp8"):
+        if scheme is None:
+            kp, vp, ks, vs, kd, vd = k_pool, v_pool, None, None, k_pool, \
+                v_pool
+        else:
+            (kp, ks), (vp, vs) = (kv_quant.quantize_kv(p, scheme)
+                                  for p in (k_pool, v_pool))
+        args = (q, c, s, kp, vp, bt, positions, 1, ks, vs, scheme)
+        name = kv_quant.counter_name(paged_attention.GENERAL, scheme)
+        got = one_launch(name, lambda: paged_attention.paged_decode_attention(
+            *args))
+        if not torch.equal(got, paged_attention.paged_decode_attention(
+                *args)):
+            raise AssertionError(f"{name}: two runs differ")
+        ref = paged_attention.paged_decode_attention_plain(*args)
+        err = check_close(f"{name} B={B} rep={H // KVH} bs={bs} nbs={nbs} "
+                          "(two runs bit-identical)", got, ref,
+                          bf16_tol(ref))
+        if scheme is not None:
+            continue
+        kg, vg = _gathered(kd, bt, Lmax), _gathered(vd, bt, Lmax)
+
+        def sdpa(kg, vg):
+            return F.scaled_dot_product_attention(q_rot, kg, vg,
+                                                  attn_mask=mask,
+                                                  enable_gqa=True)
+
+        pool_bytes = sum(t.numel() * t.element_size() for t in (kp, vp, bt))
+        cold = [(q, c, s, kp.clone(), vp.clone(), bt.clone(), positions, 1,
+                 None, None, None) for _ in range(cold_copies(pool_bytes))]
+        gathered = [(kg.clone(), vg.clone()) for _ in
+                    range(cold_copies(2 * kg.numel() * kg.element_size()))]
+        splits = paged_attention.general_plan(
+            B, KVH, nbs, torch.cuda.get_device_properties(
+                dev).multi_processor_count)
+        entries[name] = dict(
+            path="c1_serve", replaces="paddle_tpu/kernels/paged_attention.py:102",
+            source="paddle_tpu_torch/csrc/paged_attention.cu",
+            max_abs_err=err,
+            ms=time_ms_rotating([
+                lambda a=a: paged_attention.paged_decode_attention(*a)
+                for a in cold]),
+            hot_ms=time_ms(
+                lambda: paged_attention.paged_decode_attention(*args)),
+            plain_ms=time_ms(
+                lambda: paged_attention.paged_decode_attention_plain(*args),
+                iters=5),
+            library_ms=time_ms_rotating([lambda kv=kv: sdpa(*kv)
+                                         for kv in gathered]),
+            library_hot_ms=time_ms(lambda: sdpa(kg, vg)),
+            bound=bound_ms(2 * dkeys * 2 * KVH * D + 2 * 2 * B * H * D
+                           + 4 * B * (nbs + 1 + D), 4.0 * dkeys * H * D),
+            work=f"one layer's decode step, B={B}, {int(dkeys)} context "
+                 f"keys, {H}/{KVH} heads, pages of {bs}, {splits} splits, "
+                 f"L2-cold over {len(cold)} copies (library over "
+                 f"{len(gathered)})")
+        del cold, gathered, kg, vg
+
+    # chunked prefill: a 256-token chunk at 768 over bf16 pools of pages
+    # of 12 (code pools of any block size take the wgmma kernel)
+    T, start = 256, 768
+    ctx = start + T
+    n = -(-ctx // bs)
+    bt1 = torch.zeros((1, nbs), dtype=torch.int32, device=dev)
+    bt1[0, :n] = 1 + torch.randperm(nb - 1, generator=g, device=dev)[:n].int()
+    pos1 = torch.tensor([start], dtype=torch.int32, device=dev)
+    qc = randn(1, T, H, D)
+    ckeys = float(sum(start + t + 1 for t in range(T)))
+    cmask = (torch.arange(ctx, device=dev)[None, :]
+             <= start + torch.arange(T, device=dev)[:, None])[None, None]
+    qt = qc.transpose(1, 2).contiguous()
+    cargs = (qc, k_pool, v_pool, bt1, pos1, None, None, None)
+    name = chunked_prefill.GENERAL
+    got = one_launch(name, lambda: chunked_prefill.chunked_attention(*cargs))
+    if not torch.equal(got, chunked_prefill.chunked_attention(*cargs)):
+        raise AssertionError(f"{name}: two runs differ")
+    ref = chunked_prefill.chunked_attention_plain(*cargs)
+    err = check_close(f"{name} T={T} start={start} rep={H // KVH} bs={bs} "
+                      "(two runs bit-identical)", got, ref, bf16_tol(ref))
+    kg, vg = _gathered(k_pool, bt1, ctx), _gathered(v_pool, bt1, ctx)
+
+    def chunk_sdpa(q, kg, vg):
+        return F.scaled_dot_product_attention(q, kg, vg, attn_mask=cmask,
+                                              enable_gqa=True)
+
+    chunk_bytes = sum(t.numel() * t.element_size()
+                      for t in (qc, k_pool, v_pool, bt1))
+    cold = [(qc.clone(), k_pool.clone(), v_pool.clone(), bt1.clone(), pos1,
+             None, None, None) for _ in range(cold_copies(chunk_bytes))]
+    gathered = [(qt.clone(), kg.clone(), vg.clone()) for _ in range(
+        cold_copies(2 * (qt.numel() + 2 * kg.numel())))]
+    entries[name] = dict(
+        path="c1_serve", replaces="paddle_tpu/kernels/chunked_prefill.py:51",
+        source="paddle_tpu_torch/csrc/chunked_prefill.cu", max_abs_err=err,
+        ms=time_ms_rotating([lambda a=a: chunked_prefill.chunked_attention(*a)
+                             for a in cold]),
+        hot_ms=time_ms(lambda: chunked_prefill.chunked_attention(*cargs)),
+        plain_ms=time_ms(
+            lambda: chunked_prefill.chunked_attention_plain(*cargs), iters=5),
+        library_ms=time_ms_rotating([lambda a=a: chunk_sdpa(*a)
+                                     for a in gathered]),
+        library_hot_ms=time_ms(lambda: chunk_sdpa(qt, kg, vg)),
+        bound=bound_ms(2 * ctx * 2 * KVH * D + 2 * 2 * T * H * D
+                       + 4 * (nbs + 1), 4.0 * ckeys * H * D),
+        work=f"one layer's prefill chunk, T={T}, context {ctx}, {H}/{KVH} "
+             f"heads, pages of {bs}, L2-cold over {len(cold)} copies "
+             f"(library over {len(gathered)})")
+    del cold, gathered, kg, vg, k_pool, v_pool
+
+    # FlashAttention at head_dims the wgmma kernels are not built for
+    Tf, Hf = C1_FLASH_T, C1_FLASH_H
+    for Df in C1_FLASH_DIMS:
+        q, k, v, do = (randn(1, Tf, Hf, Df).transpose(1, 2)
+                       for _ in range(4))
+        scale = Df ** -0.5
+        if not fa.general_route(q, k):
+            raise AssertionError(f"D={Df}: not the general route")
+        names = [n + fa.GENERAL for n in (fa.FWD, fa.FWD_LSE, fa.BWD_DQ,
+                                          fa.BWD_DKV)]
+        o_nolse, _ = one_launch(names[0], lambda: fa._fwd_kernel(
+            q, k, v, True, scale, False))
+        o, lse = one_launch(names[1], lambda: fa._fwd_kernel(
+            q, k, v, True, scale, True))
+        ops = fa._bwd_operands(q, k, v, do, lse, fa._delta(o, do))
+        dq = one_launch(names[2], lambda: fa._dq_kernel(*ops, True, scale))
+        dk, dv = one_launch(names[3], lambda: fa._dkv_kernel(*ops, True,
+                                                             scale))
+        if not (torch.equal(o, o_nolse) and torch.equal(
+                dq, fa._dq_kernel(*ops, True, scale))):
+            raise AssertionError(f"flash general D={Df}: runs differ")
+        x = (q, k, v, do)
+        f = [t.float() for t in x]
+        po = fa.flash_fwd_plain(*x[:3], True, scale)[0]
+        ro, rlse = fa.flash_fwd_plain(*f[:3], True, scale)
+        pg = fa.flash_bwd_plain(*x[:3], o, lse, do, True, scale)
+        rg = fa.flash_bwd_plain(*f[:3], o.float(), lse, f[3], True, scale)
+        err = {"o": hold_bf16_attention(f"{names[0]} D={Df} o", o, po, ro)}
+        check_close(f"{names[1]} D={Df} lse", lse, rlse, F32_TOL)
+        for key, got_t, p_t, r_t in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                        pg, rg):
+            err[key] = hold_bf16_attention(f"{names[2] if key == 'dq' else names[3]} "
+                                           f"D={Df} {key}", got_t, p_t, r_t,
+                                           key == "dq")
+        del pg, rg, po, ro
+
+        def sdpa(*a):
+            return F.scaled_dot_product_attention(*a, is_causal=True)
+
+        with torch.no_grad():
+            sdpa_ms = time_ms(lambda: sdpa(q, k, v), iters=10)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        sdpa_grad_ms = time_ms(lambda: sdpa(qg, kg, vg), iters=10)
+        sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(
+            sdpa(qg, kg, vg), (qg, kg, vg), do), iters=10) - sdpa_grad_ms
+        plain_fwd_ms = time_ms(lambda: fa.flash_fwd_plain(q, k, v, True,
+                                                          scale),
+                               iters=2, warmup=1)
+        plain_bwd_ms = time_ms(lambda: fa.flash_bwd_plain(q, k, v, o, lse,
+                                                          do, True, scale),
+                               iters=2, warmup=1)
+        pairs = Tf * (Tf + 1) / 2
+        prod = 2.0 * pairs * Df * Hf
+        qb, rb = 2 * Tf * Hf * Df, 4 * Hf * Tf
+        tag = "" if Df == C1_FLASH_DIMS[0] else f"_d{Df}"
+        where = "paddle_tpu/kernels/flash_attention.py"
+        src = "paddle_tpu_torch/csrc/flash_attention.cu"
+        work = f"B=1, T={Tf}, {Hf} heads, D={Df}, causal"
+        for nm, line, key, fn, plain_ms, lib, nbytes, ops_n in (
+                (names[0], 54, "o",
+                 lambda: fa._fwd_kernel(q, k, v, True, scale, False),
+                 plain_fwd_ms, sdpa_ms, 4 * qb, 2 * prod),
+                (names[1], 97, "o",
+                 lambda: fa._fwd_kernel(q, k, v, True, scale, True),
+                 plain_fwd_ms, sdpa_grad_ms, 4 * qb + rb, 2 * prod),
+                (names[2], 113, "dq",
+                 lambda: fa._dq_kernel(*ops, True, scale), plain_bwd_ms,
+                 sdpa_bwd_ms, 5 * qb + 2 * rb, 3 * prod),
+                (names[3], 151, "dk",
+                 lambda: fa._dkv_kernel(*ops, True, scale), plain_bwd_ms,
+                 sdpa_bwd_ms, 6 * qb + 2 * rb, 4 * prod)):
+            entries[nm + tag] = dict(
+                path="c1_tiny", counter=nm, replaces=f"{where}:{line}",
+                source=src,
+                max_abs_err=max(err[key], err["dv"]) if key == "dk"
+                else err[key],
+                ms=time_ms(fn, iters=5), plain_ms=plain_ms, library_ms=lib,
+                bound=bound_ms(nbytes, ops_n), work=work)
+        del q, k, v, do, o, lse, ops, dq, dk, dv, qg, kg, vg
+
+    # fused_norm_linear: a q/k/v group at N and K = 4 (mod 8)
+    K = C1_FNL_K
+    ws = [randn(K, n, std=K ** -0.5) for n in C1_FNL_N]
+    nw = (1 + 0.1 * randn(K, dtype=torch.float32)).to(bf)
+    for M, tag in ((8, ""), (256, "_chunk")):
+        x = randn(M, K) * 3
+        rs = fnl.rms_scale(x, 1e-6)
+
+        def run_kernel():
+            return fnl.fused_norm_linear_group(x, rs, nw, ws,
+                                               ["none"] * len(ws))
+
+        got = one_launch(fnl.GENERAL, run_kernel)
+        if not all(torch.equal(a, b) for a, b in zip(got, run_kernel())):
+            raise AssertionError("fused_norm_linear_general: runs differ")
+        errs = []
+        for n, w, o in zip(C1_FNL_N, ws, got):
+            ref = fnl.fused_norm_linear_plain(x, rs, nw, w)
+            errs.append(check_close(f"{fnl.GENERAL} [{M}, {K}] x [{K}, {n}]",
+                                    o, ref, bf16_tol(ref)))
+        xn = (x.float() * rs).to(bf) * nw
+        N_all = sum(C1_FNL_N)
+        entries[fnl.GENERAL + tag] = dict(
+            path="c1_tiny", counter=fnl.GENERAL,
+            replaces="paddle_tpu/kernels/fused_norm_linear.py:60",
+            source="paddle_tpu_torch/csrc/fused_norm_linear.cu",
+            max_abs_err=max(errs), ms=time_ms(run_kernel, iters=10),
+            plain_ms=time_ms(lambda: [fnl.fused_norm_linear_plain(
+                x, rs, nw, w) for w in ws], iters=5),
+            library_ms=time_ms(lambda: [torch.matmul(xn, w) for w in ws],
+                               iters=10),
+            bound=bound_ms(2 * (M * K + K + K * N_all + M * N_all) + 4 * M,
+                           2.0 * M * K * N_all),
+            work=f"a q/k/v group at M={M}, K={K}, N={C1_FNL_N}")
+    print("  library: SDPA over gathered K/V (decode, chunk), SDPA forward "
+          "and backward (attention), torch.matmul of the normalized rows "
+          "(fused_norm_linear)")
+    print_entries(entries)
+    return entries
+
+
 # ---------------------------------------------------------------- phase 4
 def _prefix_logits(model, tokens, block_size, chunk, kv_cache_dtype=None):
     """f32 last-token logits of ``tokens`` through a fresh one-sequence
@@ -1148,7 +1516,12 @@ def phase_tiny_moe(dev):
                                            lm_loss_chunk=32, **TINY_MOE))
 
 
-def _tiny_run(dev, kv_cache_dtype, weight_dtype, cfg=None):
+def _tiny_run(dev, kv_cache_dtype, weight_dtype, cfg=None, block_size=8,
+              tol=F32_TOL):
+    """The same seeded weights served on cuda and on cpu: 6 requests, a
+    shared prefix and forced preemption (a pool of 19 blocks' worth of
+    8-token pages); a differing greedy token is excused only where the
+    cpu logits' top-2 margin is below ``tol``."""
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.serving import Engine, ServingConfig
 
@@ -1165,7 +1538,8 @@ def _tiny_run(dev, kv_cache_dtype, weight_dtype, cfg=None):
     outs, stats = {}, {}
     for name, model in (("cpu", cpu_model), ("cuda", cuda_model)):
         eng = Engine(model, ServingConfig(
-            max_batch_size=4, block_size=8, num_blocks=20, chunk_tokens=16,
+            max_batch_size=4, block_size=block_size,
+            num_blocks=1 + -(-19 * 8 // block_size), chunk_tokens=16,
             kv_cache_dtype=kv_cache_dtype, weight_dtype=weight_dtype))
         reqs = [eng.submit(p, max_new_tokens=24) for p in prompts]
         eng.run_until_complete()
@@ -1174,11 +1548,11 @@ def _tiny_run(dev, kv_cache_dtype, weight_dtype, cfg=None):
         stats[name] = eng.stats()["counters"]
     c = stats["cuda"]
     moe = f", {cfg.moe_num_experts} experts" if cfg.moe_num_experts else ""
-    print(f"[tiny{moe and ' moe'}] f32{moe}, KV {kv_cache_dtype or 'f32'}, "
-          f"weights "
-          f"{weight_dtype or 'f32'}, {len(prompts)} requests: preemptions "
-          f"{c['preemptions']}, prefix-cache hits {c['prefix_cache_hits']}",
-          flush=True)
+    dt = "f32" if cfg.dtype == "float32" else "bf16"
+    print(f"[tiny{moe and ' moe'}] {dt}{moe}, KV {kv_cache_dtype or dt}, "
+          f"weights {weight_dtype or dt}, pages of {block_size}, "
+          f"{len(prompts)} requests: preemptions {c['preemptions']}, "
+          f"prefix-cache hits {c['prefix_cache_hits']}", flush=True)
     if c["preemptions"] == 0 or c["prefix_cache_hits"] == 0:
         raise AssertionError("the tiny phase must preempt and hit the "
                              f"prefix cache: {c}")
@@ -1187,31 +1561,34 @@ def _tiny_run(dev, kv_cache_dtype, weight_dtype, cfg=None):
             continue
         j = next(k for k, (x, y) in enumerate(zip(a, b)) if x != y)
         top2 = torch.topk(_prefix_logits(cpu_model, np.concatenate(
-            [prompts[i], a[:j]]), 8, 16, kv_cache_dtype), 2).values
+            [prompts[i], a[:j]]), block_size, 16, kv_cache_dtype).float(),
+            2).values
         margin = float(top2[0] - top2[1])
         print(f"  request {i}: token {j} differs (cpu {a[j]}, cuda {b[j]}), "
               f"cpu top-2 margin {margin:.3e}")
-        if margin >= F32_TOL:
+        if margin >= tol:
             raise AssertionError(f"tiny: request {i} token {j} differs "
-                                 f"with margin {margin} >= {F32_TOL}")
+                                 f"with margin {margin} >= {tol}")
     print("  cuda tokens == cpu tokens", flush=True)
 
 
 # ---------------------------------------------------------------- phase 5
-def train_launches(L, grad=True, moe=False):
+def train_launches(L, grad=True, moe=False, general=False):
     """Kernel launches of one training step (``grad``) or one forward
     without grad of an L-layer model: two RMSNorms a layer and the final
     one (forward only: their backward is plain PyTorch); RoPE on q and
-    k, forward and backward; one attention forward, dQ and dK/dV; with
-    ``moe``, one dispatch and one combine a layer, and in the backward
-    each again as the other's gradient."""
+    k, forward and backward; one attention forward, dQ and dK/dV (the
+    general instances' counters with ``general``: a bf16 head_dim other
+    than 64 and 128); with ``moe``, one dispatch and one combine a
+    layer, and in the backward each again as the other's gradient."""
     from paddle_tpu_torch.kernels import flash_attention as fa
 
+    g = fa.GENERAL if general else ""
     if not grad:
-        out = {"rms_norm": 2 * L + 1, "rope": 2 * L, fa.FWD: L}
+        out = {"rms_norm": 2 * L + 1, "rope": 2 * L, fa.FWD + g: L}
     else:
-        out = {"rms_norm": 2 * L + 1, "rope": 4 * L, fa.FWD_LSE: L,
-               fa.BWD_DQ: L, fa.BWD_DKV: L}
+        out = {"rms_norm": 2 * L + 1, "rope": 4 * L, fa.FWD_LSE + g: L,
+               fa.BWD_DQ + g: L, fa.BWD_DKV + g: L}
     if moe:
         out.update(moe_dispatch=L * (1 + grad), moe_combine=L * (1 + grad))
     return out
@@ -1271,6 +1648,128 @@ def phase_tiny_train(dev, cfg=None):
         raise AssertionError(f"tiny train: losses {losses}")
 
 
+# --------------------------------------------------------------- phase 4c
+# the tiny C1 model: LlamaConfig.tiny in bf16 with hidden 140 and 7 query
+# heads over 1 kv head (rep 7, head_dim 20), intermediate 92 (N and K = 4
+# mod 8), served from pages of C1_BS tokens: every general instance
+C1_TINY = dict(dtype="bfloat16", hidden_size=140, num_attention_heads=7,
+               num_key_value_heads=1, intermediate_size=92)
+# a greedy token of the bf16 tiny model may differ between cuda and cpu
+# only where the cpu logits' top-2 margin is below 3 bf16 ulps of logits
+# of magnitude 2 to 4 (2^-6 each): the two round at other places
+BF16_MARGIN = 3 * 2.0 ** -6
+C1_GENERAL = ("fused_norm_linear_general", "paged_decode_general",
+              "chunked_prefill_general", "flash_attention_fwd_general",
+              "flash_attention_fwd_lse_general",
+              "flash_attention_bwd_dq_general",
+              "flash_attention_bwd_dkv_general")
+
+
+def phase_tiny_c1(dev):
+    """The tiny C1 model (C1_TINY) served on cuda and on cpu from the same
+    seeded weights (tokens as in phase 4, the margin BF16_MARGIN), then
+    one training step on both (with the fused chunked loss): the loss and
+    every gradient held, against the same step in f32 on the cpu, to
+    twice the bf16 cpu step's error plus one bf16 rounding (2^-9) of the
+    largest entry; then an eval forward without grad on cuda.  The launch counts, set to 0 before and read after,
+    must show every general instance.  Returns them."""
+    from paddle_tpu_torch.kernels import launches
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.tiny(**C1_TINY)
+    launches.reset()
+    _tiny_run(dev, None, None, cfg, block_size=C1_BS, tol=BF16_MARGIN)
+
+    tcfg = LlamaConfig.tiny(fused_lm_loss=True, lm_loss_chunk=32, **C1_TINY)
+    f32cfg = LlamaConfig.tiny(fused_lm_loss=True, lm_loss_chunk=32,
+                              **{**C1_TINY, "dtype": "float32"})
+    cpu = LlamaForCausalLM(tcfg, device="cpu", seed=0)
+    models = {"cpu": cpu,
+              "cuda": LlamaForCausalLM(tcfg, device=dev, seed=None),
+              "f32": LlamaForCausalLM(f32cfg, device="cpu", seed=None)}
+    models["cuda"].load_state_dict(cpu.state_dict())
+    models["f32"].load_state_dict({k: v.float()
+                                   for k, v in cpu.state_dict().items()})
+    tokens = torch.from_numpy(np.random.RandomState(1).randint(
+        0, tcfg.vocab_size, (2, 40)))
+    before = launches.snapshot()
+    out = {}
+    for name, model in models.items():
+        loss, _ = model(tokens.to(model.device), labels=tokens.to(
+            model.device))
+        loss.backward()
+        out[name] = {"loss": loss.detach().float().cpu().reshape(1), **{
+            n: p.grad.float().cpu() for n, p in model.named_parameters()}}
+        if name == "cuda":
+            step = {k: n - before.get(k, 0) for k, n in
+                    launches.snapshot().items() if n != before.get(k, 0)}
+            want = train_launches(cfg.num_hidden_layers, general=True)
+            if step != want:
+                raise AssertionError(f"tiny c1 train: launches {step} != "
+                                     f"{want}")
+            # an eval forward without grad: the forward without the LSE
+            with torch.no_grad():
+                eval_loss = float(model(tokens.to(dev), labels=tokens.to(
+                    dev))[0])
+            if not math.isfinite(eval_loss):
+                raise AssertionError(f"tiny c1 eval: loss {eval_loss}")
+    worst = 0.0
+    for key, ref in out["f32"].items():
+        err = float((out["cuda"][key] - ref).abs().max())
+        cpu_err = float((out["cpu"][key] - ref).abs().max())
+        tol = 2 * cpu_err + float(ref.abs().max()) * 2.0 ** -9
+        worst = max(worst, err / tol if tol else 0.0)
+        if not (math.isfinite(err) and err <= tol):
+            raise AssertionError(f"tiny c1 train: {key} off the f32 step by "
+                                 f"{err} (bf16 cpu {cpu_err}; tolerance "
+                                 f"{tol})")
+    counts = launches.snapshot()
+    print(f"[tiny c1 train] bf16, rep 7, D=20: loss cuda "
+          f"{float(out['cuda']['loss']):.5f}, cpu "
+          f"{float(out['cpu']['loss']):.5f}, f32 "
+          f"{float(out['f32']['loss']):.5f}; the loss and {len(out['f32']) - 1} "
+          f"gradients within their tolerances (worst at {worst:.3f} of "
+          f"it); launches {counts}", flush=True)
+    missing = [k for k in C1_GENERAL if not counts.get(k)]
+    if missing:
+        raise AssertionError(f"tiny c1: no launch of {missing}")
+    return counts
+
+
+def phase_c1_main(dev):
+    """Serving at Qwen2-7B's widths (qwen2_7b_config: 28 q over 4 kv
+    heads, rep 7), bf16, 4 of its 28 layers, random weights from seed 0,
+    behind serving.Engine with pages of C1_BS tokens and phase 6's 8
+    requests: its decode steps take the general paged decode and its
+    prefill chunks the general chunked prefill.  Returns the launch
+    counts."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+
+    cfg = qwen2_7b_config(num_hidden_layers=C1_LAYERS)
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[main c1] Qwen2-7B width, bf16, {cfg.num_hidden_layers} of 28 "
+          f"layers, {n_params / 1e9:.3f} B parameters, {cfg.num_attention_heads}"
+          f" q over {cfg.num_key_value_heads} kv heads, pages of {C1_BS}, "
+          f"random weights (seed 0) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    prompts = _main_prompts(cfg.vocab_size)
+    num_blocks = 1 + sum(-(-(len(p) + MAIN_NEW) // C1_BS)
+                         for p in prompts) + 8
+    out, counts, _ = _serve_main(model, prompts, "main c1",
+                                 block_size=C1_BS, num_blocks=num_blocks)
+    out["n_params"] = n_params
+    print(f"  {out['tokens_per_s']:.1f} tokens/s, mean TTFT "
+          f"{out['mean_ttft_s']:.3f} s, mean TPOT "
+          f"{out['mean_tpot_s'] * 1e3:.1f} ms; peak "
+          f"{out['peak_mem_gb']:.1f} GB; counters that ran: "
+          f"{sorted(counts)}", flush=True)
+    print(f"  {json.dumps(out)}", flush=True)
+    return counts
+
+
 # ---------------------------------------------------------------- phase 6
 MAIN_BS, MAIN_NEW = 16, 32      # block size, new tokens a request
 
@@ -1287,7 +1786,7 @@ def _main_prompts(V):
 
 
 def _serve_main(model, prompts, tag, kv_cache_dtype=None, weight_dtype=None,
-                **pool_size):
+                block_size=MAIN_BS, **pool_size):
     """One run of the main serving path: the 8 requests through
     ``serving.Engine`` with the launch counts set to 0 just before and
     read just after, held to exact counts, no leak, and the 128-token
@@ -1301,7 +1800,7 @@ def _serve_main(model, prompts, tag, kv_cache_dtype=None, weight_dtype=None,
     from paddle_tpu_torch.kernels.kv_quant import counter_name
     from paddle_tpu_torch.serving import Engine, ServingConfig
 
-    cfg, V, bs, new = model.config, model.config.vocab_size, MAIN_BS, \
+    cfg, V, bs, new = model.config, model.config.vocab_size, block_size, \
         MAIN_NEW
     torch.cuda.reset_peak_memory_stats()
     eng = Engine(model, ServingConfig(
@@ -1335,18 +1834,35 @@ def _serve_main(model, prompts, tag, kv_cache_dtype=None, weight_dtype=None,
     ctr = st["counters"]
     L = cfg.num_hidden_layers
     chunks, decodes = ctr["prefill_chunks"], ctr["decode_iterations"]
+    # which kernel of each family the model's shapes take (the wrappers'
+    # routes; a *_general one only where the fast kernel is not built for
+    # them: the C1 phase's)
+    H, KVH, D = cfg.num_attention_heads, cfg.num_key_value_heads, \
+        cfg.head_dim
+    hopper = (H // KVH in paged_attention.HOPPER_REPS
+              and D in paged_attention.HOPPER_DIMS and bs & (bs - 1) == 0)
+    wgmma = D in chunked_prefill.BF16_HEAD_DIMS and (
+        kv_cache_dtype is not None or chunked_prefill.wgmma_block_size_ok(bs))
+    fast = all(n % 8 == 0 for n in (cfg.hidden_size, H * D, KVH * D,
+                                    cfg.intermediate_size))
+    fnl_decode = "fused_norm_linear_skinny" if fast \
+        else "fused_norm_linear_general"
+    fnl_chunk = "fused_norm_linear_tiled" if fast \
+        else "fused_norm_linear_general"
+    # the input norm's row scale and one launch for q/k/v in every layer;
+    # a dense layer's post-attention row scale and one launch for gate/up,
+    # a MoE layer's post-attention rms_norm (dispatch reads the normed
+    # rows), one dispatch and one combine; the final norm
+    n_fnl = L if cfg.moe_num_experts else 2 * L
+    per_decode = {"rms_norm": 1, "rms_scale": n_fnl, fnl_decode: n_fnl}
+    per_chunk = {"rms_norm": 1, "rms_scale": n_fnl, fnl_chunk: n_fnl}
     if cfg.moe_num_experts:
-        # a MoE layer serves unfused: its two norms, then one dispatch
-        # and one combine
-        per_layer = {"rms_norm": 2 * L + 1, "moe_dispatch": L,
-                     "moe_combine": L}
-        per_decode, per_chunk = dict(per_layer), dict(per_layer)
-    else:
-        # q/k/v in one launch, gate/up in another, in both steps
-        per_decode = {"rms_norm": 1, "fused_norm_linear_skinny": 2 * L}
-        per_chunk = {"rms_norm": 1, "fused_norm_linear_tiled": 2 * L}
-    per_decode[counter_name(paged_attention.KERNEL, kv_cache_dtype)] = L
-    per_chunk[counter_name(chunked_prefill.KERNEL, kv_cache_dtype)] = L
+        for per in (per_decode, per_chunk):
+            per.update(rms_norm=L + 1, moe_dispatch=L, moe_combine=L)
+    per_decode[counter_name(paged_attention.KERNEL if hopper
+                            else paged_attention.GENERAL, kv_cache_dtype)] = L
+    per_chunk[counter_name(chunked_prefill.KERNEL if wgmma
+                           else chunked_prefill.GENERAL, kv_cache_dtype)] = L
     # the KV write, one launch a layer into every kind of pool
     per_decode[WRITE] = per_chunk[WRITE] = L
     expect = {k: per_decode.get(k, 0) * decodes + per_chunk.get(k, 0) * chunks
@@ -1356,6 +1872,8 @@ def _serve_main(model, prompts, tag, kv_cache_dtype=None, weight_dtype=None,
           f"prefill chunk {per_chunk}", flush=True)
     if counts != expect:
         raise AssertionError(f"{tag}: launch counts {counts} != {expect}")
+    general = sorted(k for k in counts if "_general" in k)
+    print(f"  general instances launched: {general or 'none'}", flush=True)
     # the 128-token request's first token again, through a fresh pool
     ref = _prefix_logits(model, prompts[1], bs, 256, kv_cache_dtype)
     if not torch.isfinite(ref).all() or int(ref.argmax()) != \
@@ -1381,10 +1899,13 @@ def _serve_main(model, prompts, tag, kv_cache_dtype=None, weight_dtype=None,
                        ("prefill", "tokens a chunk")):
         n, fn, args = captured[what]
         wall, dev_ms, top, kernels = _step_profile(fn, args)
-        busy = f"busy {dev_ms / wall:.1%}" if dev_ms else "not measured"
+        mid = float(np.median(dev_ms))
+        busy = f"busy {mid / wall:.1%}" if mid else "not measured"
+        each = ", ".join(f"{ms:.3f} ms in {k}" for ms, k in
+                         zip(dev_ms, kernels))
         print(f"  {what} step ({n} {unit}): {wall:.3f} ms on the host's "
-              f"clock, {dev_ms:.3f} ms of kernels on the device ({busy}), "
-              f"{kernels} kernels", flush=True)
+              f"clock; kernels of {len(dev_ms)} profiled steps: {each} "
+              f"({busy})", flush=True)
         for name, ms, count in top:
             print(f"    {ms:8.3f} ms  {count:5d}x  {name[:90]}")
         out[f"{what}_step_host_ms"] = wall
@@ -1543,13 +2064,15 @@ def _capture_steps(eng):
     return captured
 
 
-def _step_profile(fn, args, reps=5, top=8):
-    """(host-clock ms, device ms, top kernels, kernel count) of one step:
-    the first as the engine sees it (the step, then a synchronize); the
-    second the sum of the step's kernel times in a torch.profiler trace
-    of one more call (0 when the trace shows no device time); the third
-    the ``top`` kernels by device time as (name, ms, launches); the last
-    the launches of every kernel in that trace."""
+def _step_profile(fn, args, reps=5, top=8, profiles=3):
+    """(host-clock ms, [device ms], top kernels, [kernel count]) of one
+    step: the first as the engine sees it (the step, then a
+    synchronize); the second the sum of the step's kernel times in a
+    torch.profiler trace of each of ``profiles`` more calls (0 where the
+    trace shows no device time; one trace has missed kernels before);
+    the third the ``top`` kernels by device time of the last trace as
+    (name, ms, launches); the last the launches of every kernel in each
+    trace."""
     fn(*args)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1557,8 +2080,9 @@ def _step_profile(fn, args, reps=5, top=8):
         fn(*args)
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / reps
-    dev_ms, rows = _profile_once(fn, args)
-    return wall, dev_ms, rows[:top], sum(r[2] for r in rows)
+    traces = [_profile_once(fn, args) for _ in range(profiles)]
+    return (wall, [ms for ms, _ in traces], traces[-1][1][:top],
+            [sum(r[2] for r in rows) for _, rows in traces])
 
 
 def _profile_once(fn, args):
@@ -2076,16 +2600,22 @@ def main() -> int:
     entries = phase_kernels(dev)
     train_entries = phase_train_kernels(dev)
     moe_entries = phase_moe_kernels(dev)
+    free()
+    c1_entries = phase_c1_kernels(dev)
+    free()
     static_entries = phase_static_kernels(dev)
     free()
     launches.reset()
     phase_tiny(dev)
     phase_tiny_train(dev)
     phase_tiny_moe(dev)
+    c1_tiny_counts = phase_tiny_c1(dev)
     phase_tiny_static(dev)
     counts, bf16_blocks = phase_main(dev)
     free()                        # each serving model's 16 GB go first
     quant_counts = phase_main_quant(dev, bf16_blocks)
+    free()
+    c1_counts = phase_c1_main(dev)
     free()
     moe_counts = phase_moe_main(dev)
     free()                        # the MoE model's 47 GB
@@ -2100,15 +2630,20 @@ def main() -> int:
     static_counts = phase_static_train(dev)
     runs = {"serve": counts, "quant": quant_counts, "train": train_counts,
             "moe_serve": moe_counts, "moe_train": moe_train_counts,
-            "static_train": static_counts}
+            "static_train": static_counts, "c1_tiny": c1_tiny_counts,
+            "c1_serve": c1_counts}
     kernels = []
     for name, e in [*entries.items(), *train_entries.items(),
-                    *moe_entries.items(), *static_entries.items()]:
+                    *moe_entries.items(), *c1_entries.items(),
+                    *static_entries.items()]:
         # launches: from the main phase of the kernel's own path (bf16
         # serving, quantized serving or training), under the name of the
         # kernel's counter
         path = e.get("path", "serve" if name in entries else "train")
         n = runs[path].get(e.get("counter", name), 0)
+        if n == 0:
+            raise AssertionError(f"{name}: no launch on its main path "
+                                 f"({path})")
         kernels.append({
             "name": name, "route": "cuda", "source": e["source"],
             "replaces": e["replaces"], "launches": n,

@@ -28,10 +28,15 @@
 //   second product, as FlashAttention-2 does; the plain version keeps P
 //   in f32, and the two differ by less than one bf16 rounding of the
 //   output.
-// - f32 (the CPU-scale check configuration): CUDA cores, a block owns 32
-//   rows (r * T + t order) and stages one page at a time; q is scaled
-//   by 1/sqrt(D) in f32 as it is staged, exactly the multiply the
-//   reference's caller does.
+// - the general instance, chunked_prefill_kernel<T, Q> (f32, the
+//   CPU-scale check configuration; and bf16 where the wgmma kernel does
+//   not fit: head_dim other than 64 or 128, bf16 pools of block sizes
+//   that are not whole TMA boxes, such as 12, or unaligned operands):
+//   CUDA cores, a block owns 32 rows (r * T + t order) and stages each
+//   page's keys CP_KEYS at a time, converted to f32 on load; q is
+//   scaled by 1/sqrt(D) in f32 as it is staged, exactly the multiply
+//   the reference's caller does, and the output rounded once to T.
+//   Simple rather than fast.
 //
 // Quantized pools (Q = 1 int8, Q = 2 fp8: the kv_dtype variant of
 // _chunk_kernel) hold int8 codes with one f32 scale per (block, token)
@@ -54,7 +59,10 @@ constexpr int CP_ROWS = 32;                        // query rows per block
 constexpr int CP_PARTS = CP_THREADS / CP_ROWS;     // threads per row
 constexpr int CP_MAXD = 128;                      // MAX_HEAD_DIM in the wrapper
 constexpr int CP_COLS = CP_MAXD / CP_PARTS;        // columns per thread
+constexpr int CP_KEYS = 32;                        // a page's keys at once
 
+// T: q's, the output's and (Q == 0) the pools' type; every sum in f32,
+// one rounding at the store
 template <typename T, int Q>
 __global__ void __launch_bounds__(CP_THREADS) chunked_prefill_kernel(
     const T* __restrict__ q,        // [B, Tc, H, D] rotated
@@ -70,11 +78,12 @@ __global__ void __launch_bounds__(CP_THREADS) chunked_prefill_kernel(
   const int b = blockIdx.x, kvh = blockIdx.y, tid = threadIdx.x;
   const int H = KVH * rep, RT = rep * Tc;
   const int row0 = blockIdx.z * CP_ROWS;
+  const int kt = min(bs, CP_KEYS);
   float* q_s = sm;                          // [CP_ROWS, D + 1]
-  float* k_s = q_s + CP_ROWS * (D + 1);     // [bs, D + 1]
-  float* v_s = k_s + bs * (D + 1);          // [bs, D]
-  float* p_s = v_s + bs * D;                // [CP_ROWS, bs + 1]
-  float* m_s = p_s + CP_ROWS * (bs + 1);    // [CP_ROWS]
+  float* k_s = q_s + CP_ROWS * (D + 1);     // [kt, D + 1]
+  float* v_s = k_s + kt * (D + 1);          // [kt, D]
+  float* p_s = v_s + kt * D;                // [CP_ROWS, kt + 1]
+  float* m_s = p_s + CP_ROWS * (kt + 1);    // [CP_ROWS]
   float* l_s = m_s + CP_ROWS;
   float* a_s = l_s + CP_ROWS;
   const int start = pos[b];
@@ -94,13 +103,13 @@ __global__ void __launch_bounds__(CP_THREADS) chunked_prefill_kernel(
     m_s[tid] = NEG_INF;
     l_s[tid] = 0.f;
   }
-  // the tile's deepest query position bounds the pages it needs
+  // the tile's deepest query position bounds the keys it needs
   const int row_last = min(row0 + CP_ROWS, RT) - 1;
   const int t_max = row0 / Tc == row_last / Tc ? row_last % Tc : Tc - 1;
-  const int last_page = min((start + t_max) / bs, nbs - 1);
+  const int key_end = min(start + t_max + 1, nbs * bs);
+  const int last_page = (key_end - 1) / bs;
 
   const int my_row = tid / CP_PARTS, part = tid % CP_PARTS;
-  const int ncols = D / CP_PARTS;
   float acc[CP_COLS];
 #pragma unroll
   for (int j = 0; j < CP_COLS; ++j) acc[j] = 0.f;
@@ -110,55 +119,59 @@ __global__ void __launch_bounds__(CP_THREADS) chunked_prefill_kernel(
   for (int page = 0; page <= last_page; ++page) {
     const size_t prow = (size_t)bt[b * nbs + page] * bs;
     const size_t base = (prow * KVH + kvh) * D;
-    for (int i = tid; i < bs * D; i += CP_THREADS) {
-      const int t = i / D, d = i % D;
-      const size_t off = base + t * row_stride + d;
-      k_s[t * (D + 1) + d] = load_kv<T, Q>(k_pool, k_scale, off, prow + t);
-      v_s[i] = load_kv<T, Q>(v_pool, v_scale, off, prow + t);
-    }
-    __syncthreads();
-    for (int i = tid; i < CP_ROWS * bs; i += CP_THREADS) {
-      const int rr = i / bs, t = i % bs;
-      const float* qr = q_s + rr * (D + 1);
-      const float* kr = k_s + t * (D + 1);
-      float sc = 0.f;
-      for (int d = 0; d < D; ++d) sc = fmaf(qr[d], kr[d], sc);
-      const int q_pos = start + (row0 + rr) % Tc;
-      p_s[rr * (bs + 1) + t] = page * bs + t <= q_pos ? sc : NEG_INF;
-    }
-    __syncthreads();
-    if (tid < CP_ROWS) {
-      float* pr = p_s + tid * (bs + 1);
-      const int q_pos = start + (row0 + tid) % Tc;
-      float mc = NEG_INF;
-      for (int t = 0; t < bs; ++t) mc = fmaxf(mc, pr[t]);
-      const float mn = fmaxf(m_s[tid], mc);
-      const float alpha = expf(m_s[tid] - mn);
-      float sum = 0.f;
-      for (int t = 0; t < bs; ++t) {
-        const float e = page * bs + t <= q_pos ? expf(pr[t] - mn) : 0.f;
-        pr[t] = e;
-        sum += e;
+    for (int t0 = 0; t0 < bs && page * bs + t0 < key_end; t0 += kt) {
+      const int nt = min(kt, bs - t0), key0 = page * bs + t0;
+      for (int i = tid; i < nt * D; i += CP_THREADS) {
+        const int t = i / D, d = i % D;
+        const size_t off = base + (t0 + t) * row_stride + d;
+        k_s[t * (D + 1) + d] =
+            load_kv<T, Q>(k_pool, k_scale, off, prow + t0 + t);
+        v_s[i] = load_kv<T, Q>(v_pool, v_scale, off, prow + t0 + t);
       }
-      l_s[tid] = l_s[tid] * alpha + sum;
-      m_s[tid] = mn;
-      a_s[tid] = alpha;
-    }
-    __syncthreads();
-    {
-      const float alpha = a_s[my_row];
-      const float* pr = p_s + my_row * (bs + 1);
+      __syncthreads();
+      for (int i = tid; i < CP_ROWS * nt; i += CP_THREADS) {
+        const int rr = i / nt, t = i % nt;
+        const float* qr = q_s + rr * (D + 1);
+        const float* kr = k_s + t * (D + 1);
+        float sc = 0.f;
+        for (int d = 0; d < D; ++d) sc = fmaf(qr[d], kr[d], sc);
+        const int q_pos = start + (row0 + rr) % Tc;
+        p_s[rr * (kt + 1) + t] = key0 + t <= q_pos ? sc : NEG_INF;
+      }
+      __syncthreads();
+      if (tid < CP_ROWS) {
+        float* pr = p_s + tid * (kt + 1);
+        const int q_pos = start + (row0 + tid) % Tc;
+        float mc = NEG_INF;
+        for (int t = 0; t < nt; ++t) mc = fmaxf(mc, pr[t]);
+        const float mn = fmaxf(m_s[tid], mc);
+        const float alpha = expf(m_s[tid] - mn);
+        float sum = 0.f;
+        for (int t = 0; t < nt; ++t) {
+          const float e = key0 + t <= q_pos ? expf(pr[t] - mn) : 0.f;
+          pr[t] = e;
+          sum += e;
+        }
+        l_s[tid] = l_s[tid] * alpha + sum;
+        m_s[tid] = mn;
+        a_s[tid] = alpha;
+      }
+      __syncthreads();
+      {
+        const float alpha = a_s[my_row];
+        const float* pr = p_s + my_row * (kt + 1);
 #pragma unroll
-      for (int j = 0; j < CP_COLS; ++j) {
-        if (j < ncols) {
+        for (int j = 0; j < CP_COLS; ++j) {
           const int d = j * CP_PARTS + part;
-          float a = acc[j] * alpha;
-          for (int t = 0; t < bs; ++t) a = fmaf(pr[t], v_s[t * D + d], a);
-          acc[j] = a;
+          if (d < D) {
+            float a = acc[j] * alpha;
+            for (int t = 0; t < nt; ++t) a = fmaf(pr[t], v_s[t * D + d], a);
+            acc[j] = a;
+          }
         }
       }
+      __syncthreads();
     }
-    __syncthreads();
   }
 
   const int row = row0 + my_row;
@@ -167,8 +180,10 @@ __global__ void __launch_bounds__(CP_THREADS) chunked_prefill_kernel(
     const float inv_l = 1.f / fmaxf(l_s[my_row], 1e-30f);
     T* orow = out + (((size_t)b * Tc + t) * H + kvh * rep + r) * D;
 #pragma unroll
-    for (int j = 0; j < CP_COLS; ++j)
-      if (j < ncols) orow[j * CP_PARTS + part] = from_f32<T>(acc[j] * inv_l);
+    for (int j = 0; j < CP_COLS; ++j) {
+      const int d = j * CP_PARTS + part;
+      if (d < D) orow[d] = from_f32<T>(acc[j] * inv_l);
+    }
   }
 }
 
@@ -614,44 +629,67 @@ static bool cw_block_size_ok(int bs) {
 }
 
 extern "C" int chunked_prefill_smem_bytes(int D, int bs) {
-  return (int)sizeof(float) * (CP_ROWS * (D + 1) + bs * (2 * D + 1) +
-                               CP_ROWS * (bs + 1) + 3 * CP_ROWS);
+  const int kt = bs < CP_KEYS ? bs : CP_KEYS;
+  return (int)sizeof(float) * (CP_ROWS * (D + 1) + kt * (2 * D + 1) +
+                               CP_ROWS * (kt + 1) + 3 * CP_ROWS);
 }
 
-// dtype 0 (f32): the CUDA-core kernel, any D <= CP_MAXD with D % 4 == 0;
-// dtype 1 (bf16): the wgmma kernel, D 64 or 128, over bf16 pools of the
-// block sizes of cw_block_size_ok or code pools of any (q, the pools and
-// the scales 16-byte aligned: the wrapper checks).  kv: what the pools
-// hold (0 q's type, 1 int8 codes, 2 fp8 codes, with the scales)
+template <typename T, int Q>
+static int launch_chunk_general(const void* q, const void* k_pool,
+                                const void* v_pool, const float* k_scale,
+                                const float* v_scale, const int* bt,
+                                const int* pos, void* out, int B, int Tc,
+                                int KVH, int rep, int D, int bs, int nbs,
+                                float scale, cudaStream_t st) {
+  const int smem = chunked_prefill_smem_bytes(D, bs);
+  const cudaError_t e = cudaFuncSetAttribute(
+      chunked_prefill_kernel<T, Q>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(B, KVH, (rep * Tc + CP_ROWS - 1) / CP_ROWS);
+  chunked_prefill_kernel<T, Q><<<grid, CP_THREADS, smem, st>>>(
+      (const T*)q, k_pool, v_pool, k_scale, v_scale, bt, pos, (T*)out, Tc,
+      KVH, rep, D, bs, nbs, scale);
+  return (int)cudaGetLastError();
+}
+
+// wgmma (the wrapper's route, kernels/chunked_prefill.py wgmma_ok): the
+// bf16 wgmma kernel, D 64 or 128, over bf16 pools of the block sizes of
+// cw_block_size_ok or code pools of any, q, the pools and the scales
+// 16-byte aligned.  Otherwise the general CUDA-core instance of q's
+// type (dtype 0 f32, 1 bf16): any D <= CP_MAXD and block size.  kv:
+// what the pools hold (0 q's type, 1 int8 codes, 2 fp8 codes, with the
+// scales)
 extern "C" int chunked_prefill(const void* q, const void* k_pool,
                                const void* v_pool, const void* k_scale,
                                const void* v_scale, const void* bt,
                                const void* pos, void* out, int B, int Tc,
                                int KVH, int rep, int D, int bs, int nb,
                                int nbs, float scale, int dtype, int kv,
-                               void* stream) {
+                               int wgmma, void* stream) {
   if (B == 0 || Tc == 0) return 0;
+  if (D > CP_MAXD || bs <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int* btp = (const int*)bt;
   const int* posp = (const int*)pos;
   const float* ksp = (const float*)k_scale;
   const float* vsp = (const float*)v_scale;
+  int err = 0;
   DISPATCH_KV(kv, Q, {
-    if (dtype == 0) {
-      const int smem = chunked_prefill_smem_bytes(D, bs);
-      const dim3 grid(B, KVH, (rep * Tc + CP_ROWS - 1) / CP_ROWS);
-      chunked_prefill_kernel<float, Q><<<grid, CP_THREADS, smem, st>>>(
-          (const float*)q, k_pool, v_pool, ksp, vsp, btp, posp,
-          (float*)out, Tc, KVH, rep, D, bs, nbs, scale);
-    } else if (dtype == 1 && (D == 64 || D == 128) &&
-               (Q != 0 || cw_block_size_ok(bs))) {
+    if (wgmma) {
+      if (dtype != 1 || !(D == 64 || D == 128) ||
+          !(Q != 0 || cw_block_size_ok(bs)))
+        return (int)cudaErrorInvalidValue;
       auto launch = D == 64 ? launch_chunk_wgmma<64, Q>
                             : launch_chunk_wgmma<128, Q>;
       return launch((const bf16*)q, k_pool, v_pool, ksp, vsp, btp, posp,
                     (bf16*)out, B, Tc, KVH, rep, bs, nb, nbs, scale, st);
-    } else {
-      return (int)cudaErrorInvalidValue;
     }
+    DISPATCH_DTYPE(dtype, T, {
+      err = launch_chunk_general<T, Q>(q, k_pool, v_pool, ksp, vsp, btp,
+                                       posp, out, B, Tc, KVH, rep, D, bs,
+                                       nbs, scale, st);
+    });
   });
-  return (int)cudaGetLastError();
+  return err;
 }

@@ -12,7 +12,9 @@
 //   flash_fwd<WRITE_LSE=true>   _fwd_kernel_lse  (pallas_call :254)
 //   flash_bwd_dq                _bwd_dq_kernel   (pallas_call :306)
 //   flash_bwd_dkv               _bwd_dkv_kernel  (pallas_call :324)
-// (bf16: fa_fwd_wgmma, fa_bwd_dq_wgmma, fa_bwd_dkv_wgmma; f32: fa_*_f32)
+// (bf16: fa_fwd_wgmma, fa_bwd_dq_wgmma, fa_bwd_dkv_wgmma; the general
+// instances, f32 and bf16 head dims other than 64 and 128:
+// fa_*_general<T>)
 // The TPU grid carried the softmax state (and the dQ / dK / dV sums)
 // from one sequential grid step to the next; here a block owns a tile of
 // rows and loops over the other axis itself.  Tiles wholly above the
@@ -51,8 +53,13 @@
 //   between two barriers, the mask on every tile) ran at 14 % of it.
 //   In the backward kernels, P and dS are f32 in registers and rounded
 //   to bf16 where they feed a second product, as FlashAttention-2 does.
-// - f32 (the CPU-scale check configuration): CUDA cores, 16 rows and 16
-//   columns a tile, 8 threads a row.
+// - the general instances, fa_fwd_general<T, WRITE_LSE>,
+//   fa_bwd_dq_general<T> and fa_bwd_dkv_general<T>: f32 (the CPU-scale
+//   check configuration), and bf16 at head dims the wgmma kernels are
+//   not built for (80, 96, 20, ... up to F_MAXD) or strides TMA cannot
+//   take.  CUDA cores, 16 rows and 16 columns a tile, 8 threads a row,
+//   the tiles staged in shared memory as f32 (converted on load), every
+//   sum in f32 and one rounding at the store.  Simple rather than fast.
 #include <cmath>
 #include <cstdint>
 
@@ -98,8 +105,8 @@ constexpr int F_PARTS = F_THREADS / F_ROWS;    // threads a row
 constexpr int F_MAXD = 128;
 constexpr int F_DPT = F_MAXD / F_PARTS;        // head-dim columns a thread
 
-template <bool WRITE_LSE>
-__global__ void __launch_bounds__(F_THREADS) fa_fwd_f32(FAParams p) {
+template <typename T, bool WRITE_LSE>
+__global__ void __launch_bounds__(F_THREADS) fa_fwd_general(FAParams p) {
   extern __shared__ float sm[];
   const int D = p.D, LD = D + 1, tid = threadIdx.x;
   const int b = blockIdx.z, h = blockIdx.y, kh = h / (p.H / p.KVH);
@@ -111,13 +118,13 @@ __global__ void __launch_bounds__(F_THREADS) fa_fwd_f32(FAParams p) {
   float* m_s = p_s + F_ROWS * (F_COLS + 1);
   float* l_s = m_s + F_ROWS;
   float* a_s = l_s + F_ROWS;
-  const float* q = (const float*)p.q;
-  const float* k = (const float*)p.k;
-  const float* v = (const float*)p.v;
+  const T* q = (const T*)p.q;
+  const T* k = (const T*)p.k;
+  const T* v = (const T*)p.v;
 
   for (int i = tid; i < F_ROWS * D; i += F_THREADS) {
     const int r = i / D, d = i % D, row = q0 + r;
-    q_s[r * LD + d] = row < p.Tq ? q[q_off(p, b, h, row) + d] : 0.f;
+    q_s[r * LD + d] = row < p.Tq ? to_f32(q[q_off(p, b, h, row) + d]) : 0.f;
   }
   if (tid < F_ROWS) {
     m_s[tid] = NEG_INF;
@@ -134,8 +141,8 @@ __global__ void __launch_bounds__(F_THREADS) fa_fwd_f32(FAParams p) {
     for (int i = tid; i < F_COLS * D; i += F_THREADS) {
       const int c = i / D, d = i % D, key = kb + c;
       const bool in = key < p.Tk;
-      k_s[c * LD + d] = in ? k[k_off(p, b, kh, key) + d] : 0.f;
-      v_s[c * LD + d] = in ? v[k_off(p, b, kh, key) + d] : 0.f;
+      k_s[c * LD + d] = in ? to_f32(k[k_off(p, b, kh, key) + d]) : 0.f;
+      v_s[c * LD + d] = in ? to_f32(v[k_off(p, b, kh, key) + d]) : 0.f;
     }
     __syncthreads();
     for (int i = tid; i < F_ROWS * F_COLS; i += F_THREADS) {
@@ -180,11 +187,11 @@ __global__ void __launch_bounds__(F_THREADS) fa_fwd_f32(FAParams p) {
   const int row = q0 + my_row;
   if (row < p.Tq) {
     const float l = l_s[my_row];
-    float* o = (float*)p.out + q_off(p, b, h, row);
+    T* o = (T*)p.out + q_off(p, b, h, row);
 #pragma unroll
     for (int j = 0; j < F_DPT; ++j) {
       const int d = j * F_PARTS + part;
-      if (d < D) o[d] = acc[j] / fmaxf(l, 1e-30f);
+      if (d < D) o[d] = from_f32<T>(acc[j] / fmaxf(l, 1e-30f));
     }
     if (WRITE_LSE && part == 0)
       p.lse[((size_t)b * p.H + h) * p.Tq + row] =
@@ -192,7 +199,8 @@ __global__ void __launch_bounds__(F_THREADS) fa_fwd_f32(FAParams p) {
   }
 }
 
-__global__ void __launch_bounds__(F_THREADS) fa_bwd_dq_f32(FAParams p) {
+template <typename T>
+__global__ void __launch_bounds__(F_THREADS) fa_bwd_dq_general(FAParams p) {
   extern __shared__ float sm[];
   const int D = p.D, LD = D + 1, tid = threadIdx.x;
   const int b = blockIdx.z, h = blockIdx.y, kh = h / (p.H / p.KVH);
@@ -204,16 +212,16 @@ __global__ void __launch_bounds__(F_THREADS) fa_bwd_dq_f32(FAParams p) {
   float* ds_s = v_s + F_COLS * LD;        // [F_ROWS, F_COLS + 1]
   float* lse_s = ds_s + F_ROWS * (F_COLS + 1);
   float* dl_s = lse_s + F_ROWS;
-  const float* q = (const float*)p.q;
-  const float* k = (const float*)p.k;
-  const float* v = (const float*)p.v;
-  const float* dout = (const float*)p.dout;
+  const T* q = (const T*)p.q;
+  const T* k = (const T*)p.k;
+  const T* v = (const T*)p.v;
+  const T* dout = (const T*)p.dout;
 
   for (int i = tid; i < F_ROWS * D; i += F_THREADS) {
     const int r = i / D, d = i % D, row = q0 + r;
     const bool in = row < p.Tq;
-    q_s[r * LD + d] = in ? q[q_off(p, b, h, row) + d] : 0.f;
-    do_s[r * LD + d] = in ? dout[q_off(p, b, h, row) + d] : 0.f;
+    q_s[r * LD + d] = in ? to_f32(q[q_off(p, b, h, row) + d]) : 0.f;
+    do_s[r * LD + d] = in ? to_f32(dout[q_off(p, b, h, row) + d]) : 0.f;
   }
   if (tid < F_ROWS) {
     const int row = q0 + tid;
@@ -232,8 +240,8 @@ __global__ void __launch_bounds__(F_THREADS) fa_bwd_dq_f32(FAParams p) {
     for (int i = tid; i < F_COLS * D; i += F_THREADS) {
       const int c = i / D, d = i % D, key = kb + c;
       const bool in = key < p.Tk;
-      k_s[c * LD + d] = in ? k[k_off(p, b, kh, key) + d] : 0.f;
-      v_s[c * LD + d] = in ? v[k_off(p, b, kh, key) + d] : 0.f;
+      k_s[c * LD + d] = in ? to_f32(k[k_off(p, b, kh, key) + d]) : 0.f;
+      v_s[c * LD + d] = in ? to_f32(v[k_off(p, b, kh, key) + d]) : 0.f;
     }
     __syncthreads();
     for (int i = tid; i < F_ROWS * F_COLS; i += F_THREADS) {
@@ -262,16 +270,17 @@ __global__ void __launch_bounds__(F_THREADS) fa_bwd_dq_f32(FAParams p) {
   }
   const int row = q0 + my_row;
   if (row < p.Tq) {
-    float* dq = (float*)p.dq + q_off(p, b, h, row);
+    T* dq = (T*)p.dq + q_off(p, b, h, row);
 #pragma unroll
     for (int j = 0; j < F_DPT; ++j) {
       const int d = j * F_PARTS + part;
-      if (d < D) dq[d] = acc[j];
+      if (d < D) dq[d] = from_f32<T>(acc[j]);
     }
   }
 }
 
-__global__ void __launch_bounds__(F_THREADS) fa_bwd_dkv_f32(FAParams p) {
+template <typename T>
+__global__ void __launch_bounds__(F_THREADS) fa_bwd_dkv_general(FAParams p) {
   extern __shared__ float sm[];
   const int D = p.D, LD = D + 1, tid = threadIdx.x;
   const int b = blockIdx.z, kh = blockIdx.y, rep = p.H / p.KVH;
@@ -284,16 +293,16 @@ __global__ void __launch_bounds__(F_THREADS) fa_bwd_dkv_f32(FAParams p) {
   float* ds_s = p_s + F_ROWS * (F_COLS + 1);
   float* lse_s = ds_s + F_ROWS * (F_COLS + 1);
   float* dl_s = lse_s + F_COLS;
-  const float* q = (const float*)p.q;
-  const float* k = (const float*)p.k;
-  const float* v = (const float*)p.v;
-  const float* dout = (const float*)p.dout;
+  const T* q = (const T*)p.q;
+  const T* k = (const T*)p.k;
+  const T* v = (const T*)p.v;
+  const T* dout = (const T*)p.dout;
 
   for (int i = tid; i < F_ROWS * D; i += F_THREADS) {
     const int r = i / D, d = i % D, key = k0 + r;
     const bool in = key < p.Tk;
-    k_s[r * LD + d] = in ? k[k_off(p, b, kh, key) + d] : 0.f;
-    v_s[r * LD + d] = in ? v[k_off(p, b, kh, key) + d] : 0.f;
+    k_s[r * LD + d] = in ? to_f32(k[k_off(p, b, kh, key) + d]) : 0.f;
+    v_s[r * LD + d] = in ? to_f32(v[k_off(p, b, kh, key) + d]) : 0.f;
   }
   const int my_row = tid / F_PARTS, part = tid % F_PARTS;
   float dk[F_DPT], dv[F_DPT];
@@ -309,8 +318,8 @@ __global__ void __launch_bounds__(F_THREADS) fa_bwd_dkv_f32(FAParams p) {
       for (int i = tid; i < F_COLS * D; i += F_THREADS) {
         const int c = i / D, d = i % D, row = qb + c;
         const bool in = row < p.Tq;
-        q_s[c * LD + d] = in ? q[q_off(p, b, h, row) + d] : 0.f;
-        do_s[c * LD + d] = in ? dout[q_off(p, b, h, row) + d] : 0.f;
+        q_s[c * LD + d] = in ? to_f32(q[q_off(p, b, h, row) + d]) : 0.f;
+        do_s[c * LD + d] = in ? to_f32(dout[q_off(p, b, h, row) + d]) : 0.f;
       }
       if (tid < F_COLS) {
         const int row = qb + tid;
@@ -353,14 +362,14 @@ __global__ void __launch_bounds__(F_THREADS) fa_bwd_dkv_f32(FAParams p) {
   }
   const int key = k0 + my_row;
   if (key < p.Tk) {
-    float* dkr = (float*)p.dk + k_off(p, b, kh, key);
-    float* dvr = (float*)p.dv + k_off(p, b, kh, key);
+    T* dkr = (T*)p.dk + k_off(p, b, kh, key);
+    T* dvr = (T*)p.dv + k_off(p, b, kh, key);
 #pragma unroll
     for (int j = 0; j < F_DPT; ++j) {
       const int d = j * F_PARTS + part;
       if (d < D) {
-        dkr[d] = dk[j];
-        dvr[d] = dv[j];
+        dkr[d] = from_f32<T>(dk[j]);
+        dvr[d] = from_f32<T>(dv[j]);
       }
     }
   }
@@ -1068,19 +1077,21 @@ static FAParams make_params(const void* q, const void* k, const void* v,
   return p;
 }
 
-// the operands every entry point refuses: the wrapper checks them too
+// the operands every entry point refuses: the wrapper checks them too.
+// general: the CUDA-core instance of the dtype (f32 always), D <= F_MAXD;
+// else the bf16 wgmma kernels, D 64 or 128
 static bool bad_shape(int H, int KVH, int Tq, int Tk, int D, int causal,
-                      int dtype) {
+                      int dtype, int general) {
   if (KVH <= 0 || H % KVH || (causal && Tq > Tk)) return true;
   if (dtype != 0 && dtype != 1) return true;
-  if (dtype == 0) return D > F_MAXD;
+  if (general || dtype == 0) return D > F_MAXD;
   return !(D == 64 || D == 128);
 }
 
 #define FA_ARGS                                                         \
   int B, int H, int KVH, int Tq, int Tk, int D, int64_t qsb, int64_t qsh, \
       int64_t qst, int64_t ksb, int64_t ksh, int64_t kst, int causal,     \
-      float scale, int dtype, void* stream
+      float scale, int dtype, int general, void* stream
 
 // the three tensor maps of q [B, H, Tq, D] and k, v [B, KVH, Tk, D]
 // from the strides in p (elements; each a multiple of 8, checked by the
@@ -1119,20 +1130,22 @@ static int launch_fwd_wgmma(const FAParams& p, cudaStream_t st) {
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* out, float* lse, FA_ARGS) {
   if (B == 0 || H == 0 || Tq == 0) return 0;
-  if (bad_shape(H, KVH, Tq, Tk, D, causal, dtype) || Tk == 0)
+  if (bad_shape(H, KVH, Tq, Tk, D, causal, dtype, general) || Tk == 0)
     return (int)cudaErrorInvalidValue;
   FAParams p = make_params(q, k, v, B, H, KVH, Tq, Tk, D, qsb, qsh, qst, ksb,
                            ksh, kst, causal, scale);
   p.out = out;
   p.lse = lse;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) {
+  if (general || dtype == 0) {
     const dim3 grid((Tq + F_ROWS - 1) / F_ROWS, H, B);
     const int smem = f32_smem(D, 0);
-    if (lse)
-      fa_fwd_f32<true><<<grid, F_THREADS, smem, st>>>(p);
-    else
-      fa_fwd_f32<false><<<grid, F_THREADS, smem, st>>>(p);
+    DISPATCH_DTYPE(dtype, T, {
+      if (lse)
+        fa_fwd_general<T, true><<<grid, F_THREADS, smem, st>>>(p);
+      else
+        fa_fwd_general<T, false><<<grid, F_THREADS, smem, st>>>(p);
+    });
   } else if (D == 64) {
     return lse ? launch_fwd_wgmma<64, true>(p, st)
                : launch_fwd_wgmma<64, false>(p, st);
@@ -1181,7 +1194,7 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,
                             const float* delta, void* dq, FA_ARGS) {
   if (B == 0 || H == 0 || Tq == 0) return 0;
-  if (bad_shape(H, KVH, Tq, Tk, D, causal, dtype) || Tk == 0)
+  if (bad_shape(H, KVH, Tq, Tk, D, causal, dtype, general) || Tk == 0)
     return (int)cudaErrorInvalidValue;
   FAParams p = make_params(q, k, v, B, H, KVH, Tq, Tk, D, qsb, qsh, qst, ksb,
                            ksh, kst, causal, scale);
@@ -1190,9 +1203,11 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
   p.delta = delta;
   p.dq = dq;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) {
+  if (general || dtype == 0) {
     const dim3 grid((Tq + F_ROWS - 1) / F_ROWS, H, B);
-    fa_bwd_dq_f32<<<grid, F_THREADS, f32_smem(D, 1), st>>>(p);
+    DISPATCH_DTYPE(dtype, T, {
+      fa_bwd_dq_general<T><<<grid, F_THREADS, f32_smem(D, 1), st>>>(p);
+    });
     return (int)cudaGetLastError();
   }
   return D == 64 ? launch_dq_wgmma<64>(p, st) : launch_dq_wgmma<128>(p, st);
@@ -1217,7 +1232,7 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const float* delta, void* dk, void* dv,
                              FA_ARGS) {
   if (B == 0 || KVH == 0 || Tk == 0) return 0;
-  if (bad_shape(H, KVH, Tq, Tk, D, causal, dtype))
+  if (bad_shape(H, KVH, Tq, Tk, D, causal, dtype, general))
     return (int)cudaErrorInvalidValue;
   FAParams p = make_params(q, k, v, B, H, KVH, Tq, Tk, D, qsb, qsh, qst, ksb,
                            ksh, kst, causal, scale);
@@ -1227,9 +1242,11 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
   p.dk = dk;
   p.dv = dv;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) {
+  if (general || dtype == 0) {
     const dim3 grid((Tk + F_ROWS - 1) / F_ROWS, KVH, B);
-    fa_bwd_dkv_f32<<<grid, F_THREADS, f32_smem(D, 2), st>>>(p);
+    DISPATCH_DTYPE(dtype, T, {
+      fa_bwd_dkv_general<T><<<grid, F_THREADS, f32_smem(D, 2), st>>>(p);
+    });
   } else {
     // no query rows: zero sums (dK, dV are dense, from empty_like(k));
     // the tensor maps take no zero extent

@@ -54,6 +54,12 @@
 //   and it is fixed: the result does not change from run to run.  f32
 //   runs on the CUDA cores (64x64 tiles, 4x4 outputs per thread): the
 //   tensor cores would round it to TF32.
+// - general (norm_linear_tiled<T>, the same CUDA-core tiles): the bf16
+//   shapes the Hopper kernels are not built for, at any M: N not a
+//   multiple of 8 (their TMA boxes and paired stores), K not a multiple
+//   of 8 above SK_MR rows, operands not 16-byte aligned.  Every load is
+//   bounds-checked; one launch covers the group.  Simple rather than
+//   fast.
 #include <cstdint>
 
 #include "common.cuh"
@@ -179,20 +185,43 @@ __global__ void norm_linear_skinny_sum(const float* __restrict__ part,
   out[i] = from_f32<T>(z);
 }
 
-// ------------------------------------------------- tiled, f32 (CUDA cores)
+// ------------------------------- tiled, general (CUDA cores, any shape)
+// f32 above SK_MR rows, and every bf16 shape the Hopper kernels are not
+// built for (N or, above SK_MR rows, K not a multiple of 8; operands not
+// 16-byte aligned): 64 x 64 output tiles, 4 x 4 a thread, x normalized
+// and w staged 16 k at a time in shared memory as f32, every load
+// bounds-checked, one rounding at the store.  One launch covers every
+// weight of a group (blocks walk the weights' N-tiles; grid.y the
+// M-tiles), and a weight's outputs do not depend on the group.
 constexpr int TB_M = 64, TB_N = 64, TB_K = 16, TB_THREADS = 256;
+constexpr int WG_MAX_W = 3;              // weights a launch (q, k, v)
 
-template <bool SILU>
+struct TiledGroup {
+  const void* x;                 // [M, K]
+  const float* rs;
+  const void* nw;
+  const void* w[WG_MAX_W];       // [K, N_i]
+  void* out[WG_MAX_W];
+  int n[WG_MAX_W];
+  int silu[WG_MAX_W];
+  int tiles_end[WG_MAX_W];       // N-tiles of weights 0..i together
+  int count, M, K;
+};
+
+template <typename T>
 __global__ void __launch_bounds__(TB_THREADS)
-    norm_linear_tiled_f32(const float* __restrict__ x,
-                          const float* __restrict__ rs,
-                          const float* __restrict__ nw,
-                          const float* __restrict__ w, float* __restrict__ out,
-                          int M, int N, int K) {
+    norm_linear_tiled(const __grid_constant__ TiledGroup p) {
   __shared__ float As[TB_K][TB_M + 4];
   __shared__ float Bs[TB_K][TB_N + 4];
+  int wi = 0;
+  while (wi + 1 < p.count && (int)blockIdx.x >= p.tiles_end[wi]) ++wi;
+  const T* x = static_cast<const T*>(p.x);
+  const T* nw = static_cast<const T*>(p.nw);
+  const T* w = static_cast<const T*>(p.w[wi]);
+  const int M = p.M, N = p.n[wi], K = p.K;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int m0 = blockIdx.y * TB_M, n0 = blockIdx.x * TB_N;
+  const int m0 = blockIdx.y * TB_M;
+  const int n0 = (blockIdx.x - (wi ? p.tiles_end[wi - 1] : 0)) * TB_N;
   float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -203,12 +232,12 @@ __global__ void __launch_bounds__(TB_THREADS)
     for (int i = threadIdx.x; i < TB_M * TB_K; i += TB_THREADS) {
       const int mm = i / TB_K, kk = i % TB_K;
       const int m = m0 + mm, k = k0 + kk;
-      As[kk][mm] = (m < M && k < K) ? norm_elem(x, rs, nw, m, k, K) : 0.f;
+      As[kk][mm] = (m < M && k < K) ? norm_elem(x, p.rs, nw, m, k, K) : 0.f;
     }
     for (int i = threadIdx.x; i < TB_K * TB_N; i += TB_THREADS) {
       const int kk = i / TB_N, nn = i % TB_N;
       const int k = k0 + kk, n = n0 + nn;
-      Bs[kk][nn] = (k < K && n < N) ? w[(size_t)k * N + n] : 0.f;
+      Bs[kk][nn] = (k < K && n < N) ? to_f32(w[(size_t)k * N + n]) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -225,6 +254,8 @@ __global__ void __launch_bounds__(TB_THREADS)
     }
     __syncthreads();
   }
+  T* out = static_cast<T*>(p.out[wi]);
+  const bool silu_on = p.silu[wi] != 0;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int m = m0 + ty * 4 + i;
@@ -233,11 +264,39 @@ __global__ void __launch_bounds__(TB_THREADS)
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx * 4 + j;
       if (n >= N) continue;
-      float z = acc[i][j];
-      if (SILU) z = silu(z);
-      out[(size_t)m * N + n] = z;
+      const float z = silu_on ? silu(acc[i][j]) : acc[i][j];
+      out[(size_t)m * N + n] = from_f32<T>(z);
     }
   }
+}
+
+// up to WG_MAX_W weights [K, n_i] of T sharing x [M, K], rs and nw
+template <typename T>
+static int launch_tiled(const void* x, const float* rs, const void* nw,
+                        const void* const* w, void* const* out, const int* n,
+                        int silu_mask, int count, int M, int K,
+                        cudaStream_t s) {
+  if (count < 1 || count > WG_MAX_W) return (int)cudaErrorInvalidValue;
+  TiledGroup p{};
+  int tiles = 0;
+  for (int i = 0; i < count; ++i) {
+    p.w[i] = w[i];
+    p.out[i] = out[i];
+    p.n[i] = n[i];
+    p.silu[i] = (silu_mask >> i) & 1;
+    tiles += (n[i] + TB_N - 1) / TB_N;
+    p.tiles_end[i] = tiles;
+  }
+  p.x = x;
+  p.rs = rs;
+  p.nw = nw;
+  p.count = count;
+  p.M = M;
+  p.K = K;
+  if (tiles == 0) return 0;
+  norm_linear_tiled<T><<<dim3(tiles, (M + TB_M - 1) / TB_M), TB_THREADS, 0,
+                         s>>>(p);
+  return (int)cudaGetLastError();
 }
 
 // ------------------------------------------ tiled, bf16 (wgmma + TMA)
@@ -264,7 +323,6 @@ __global__ void __launch_bounds__(TB_THREADS)
 // fewer bytes from L2 (0.84 GB against 1.11 for the five projections).
 constexpr int WG_BM = 128, WG_BK = 64, WG_STAGES = 4;
 constexpr int WG_THREADS = 384;          // 2 consumer warpgroups + producer
-constexpr int WG_MAX_W = 3;              // weights a launch (q, k, v)
 constexpr int WG_X_BYTES = WG_BM * WG_BK * 2;     // 16 KB
 constexpr int WG_W_BOX = WG_BK * 64 * 2;          // 8 KB: 64 k x 64 n
 // a stage and the dynamic shared memory of a BN-wide tile (BN / 64 boxes
@@ -772,9 +830,10 @@ static int launch(const float* x, const float* rs, const float* nw,
           part, out, MN, splits);
     }
   } else {
-    const dim3 grid((N + TB_N - 1) / TB_N, (M + TB_M - 1) / TB_M);
-    norm_linear_tiled_f32<SILU><<<grid, TB_THREADS, 0, s>>>(
-        x, rs, nw, w, out, M, N, K);
+    const void* ws[1] = {w};
+    void* outs[1] = {out};
+    return launch_tiled<float>(x, rs, nw, ws, outs, &N, SILU ? 1 : 0, 1, M,
+                               K, s);
   }
   return (int)cudaGetLastError();
 }
@@ -821,4 +880,25 @@ extern "C" int fused_norm_linear_group(
                              K, splits, kc, (cudaStream_t)stream);
   return launch_wgmma((const bf16*)x, (const float*)rs, (const bf16*)nw, w,
                       out, n, silu_mask, count, M, K, (cudaStream_t)stream);
+}
+
+// the same group on the general tiled kernel, of the dtype (0 f32, 1
+// bf16), for any M, N and K and any alignment: the bf16 shapes the
+// Hopper kernels are not built for (the wrapper's route,
+// kernels/fused_norm_linear.py hopper_ok)
+extern "C" int fused_norm_linear_general(
+    const void* x, const void* rs, const void* nw, const void* w0,
+    const void* w1, const void* w2, void* out0, void* out1, void* out2,
+    int n0, int n1, int n2, int silu_mask, int count, int M, int K,
+    int dtype, void* stream) {
+  if (M == 0) return 0;
+  const void* w[3] = {w0, w1, w2};
+  void* out[3] = {out0, out1, out2};
+  const int n[3] = {n0, n1, n2};
+  int err = 0;
+  DISPATCH_DTYPE(dtype, T, {
+    err = launch_tiled<T>(x, (const float*)rs, nw, w, out, n, silu_mask,
+                          count, M, K, (cudaStream_t)stream);
+  });
+  return err;
 }

@@ -14,8 +14,21 @@
 // E*C*T*K multiply-adds here; both kernels below are gathers instead.
 //
 // Bound on the H100: bytes.  Combine reads each routed row once and
-// writes each token row once: one block per (token, column tile), K
-// 16-byte loads a thread.
+// writes each token row once.  At a decode step's 8 tokens its time is a
+// launch and the chain indices -> rows -> store, so a warp owns one
+// (token, column chunk): its lanes load the indices and gates of up to
+// CB_KB choices at once, the gates as given (f32, or the tokens' type,
+// as the model passes them: no cast launch), then every routed row's
+// CB_UNROLL 16-byte vectors a lane before the first add, and sum in
+// ascending k, each product and sum rounded once (the bits of the
+// predecessor, one 256-thread block per (token, column tile) whose
+// threads walked the choices one load after another, 0.0049 ms at the
+// decode form on an H100 at 700 W, PERF.md row 8b).  The grid is the
+// (token, chunk) pairs over CB_WARPS warps a block: 512 blocks at a
+// prefill chunk's 256 tokens.  Two choices and two vectors a lane (four
+// of each took 235 registers a thread, and the training form's 4096
+// tokens ran slower than the predecessor); streaming stores gave
+// nothing.
 //
 // Dispatch writes every one of the E*C rows exactly once (zeros where no
 // choice lands) and reads each routed token row, in ONE launch with no
@@ -51,7 +64,9 @@
 
 #include "common.cuh"
 
-constexpr int MD_THREADS = 256;    // combine
+constexpr int CB_WARPS = 4;        // combine: warps a block
+constexpr int CB_UNROLL = 2;       // vectors a lane loads of each row
+constexpr int CB_KB = 2;           // choices whose rows are loaded at once
 constexpr int DP_THREADS = 512;    // dispatch
 constexpr int DP_WARPS = DP_THREADS / 32;
 constexpr int DP_MIN_BLOCKS = 2;   // kernels/moe_dispatch.py BLOCKS_PER_SM
@@ -260,32 +275,65 @@ __global__ void __launch_bounds__(DP_THREADS, DP_MIN_BLOCKS)
     if (count[item / chunks] == 0) write(item / chunks, item % chunks);
 }
 
-// one block per (token, column tile)
-template <typename T, int VEC>
-__global__ void __launch_bounds__(MD_THREADS)
+// A warp per (token, column chunk of 32 * VEC * CB_UNROLL), CB_WARPS
+// warps a block: each lane loads the indices and gates of CB_KB choices
+// at once, then issues all their rows' loads (CB_UNROLL vectors a row)
+// before the first add, and sums in ascending k
+template <typename T, typename WT, int VEC>
+__global__ void __launch_bounds__(32 * CB_WARPS)
     moe_combine_kernel(const T* __restrict__ eo, const int* __restrict__ eidx,
-                       const int* __restrict__ sidx,
-                       const float* __restrict__ w, T* __restrict__ out,
-                       int M, int K, int E, int C) {
-  const int t = blockIdx.x;
-  const int col = (blockIdx.y * MD_THREADS + threadIdx.x) * VEC;
-  if (col >= M) return;
-  float acc[VEC];
+                       const int* __restrict__ sidx, const WT* __restrict__ w,
+                       T* __restrict__ out, int n_tok, int M, int K, int E,
+                       int C) {
+  using P = Pack<T, VEC>;
+  constexpr int CHUNK = 32 * VEC * CB_UNROLL;
+  const int chunks = (M + CHUNK - 1) / CHUNK;
+  const int item = blockIdx.x * CB_WARPS + threadIdx.x / 32;
+  if (item >= n_tok * chunks) return;
+  const int t = item / chunks;
+  const int col = (item % chunks) * CHUNK + (threadIdx.x % 32) * VEC;
+  float acc[CB_UNROLL][VEC];
 #pragma unroll
-  for (int v = 0; v < VEC; ++v) acc[v] = 0.f;
-  for (int k = 0; k < K; ++k) {
-    const int i = t * K + k;
-    const int e = eidx[i], s = sidx[i];
-    const float wk = w[i];
-    if (!routed(e, s, wk, E, C)) continue;
-    add_row<T, VEC>(acc, wk, eo + ((size_t)e * C + s) * M + col);
+  for (int u = 0; u < CB_UNROLL; ++u)
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) acc[u][v] = 0.f;
+  for (int k0 = 0; k0 < K; k0 += CB_KB) {
+    int e[CB_KB], s[CB_KB];
+    float wk[CB_KB];
+#pragma unroll
+    for (int j = 0; j < CB_KB; ++j) {
+      const int i = t * K + k0 + j;
+      const bool in = k0 + j < K;
+      e[j] = in ? eidx[i] : -1;
+      s[j] = in ? sidx[i] : 0;
+      wk[j] = in ? to_f32(w[i]) : 0.f;   // bf16 -> f32 is exact
+    }
+    P p[CB_KB][CB_UNROLL];
+#pragma unroll
+    for (int j = 0; j < CB_KB; ++j) {
+      if (!routed(e[j], s[j], wk[j], E, C)) continue;
+      const T* row = eo + ((size_t)e[j] * C + s[j]) * M + col;
+#pragma unroll
+      for (int u = 0; u < CB_UNROLL; ++u)
+        if (col + u * 32 * VEC < M)
+          p[j][u] = *reinterpret_cast<const P*>(row + u * 32 * VEC);
+    }
+#pragma unroll
+    for (int j = 0; j < CB_KB; ++j) {
+      if (!routed(e[j], s[j], wk[j], E, C)) continue;
+#pragma unroll
+      for (int u = 0; u < CB_UNROLL; ++u)
+#pragma unroll
+        for (int v = 0; v < VEC; ++v)
+          acc[u][v] = __fadd_rn(acc[u][v],
+                                __fmul_rn(wk[j], to_f32(p[j][u].v[v])));
+    }
   }
-  store_row<T, VEC>(out + (size_t)t * M + col, acc);
-}
-
-template <int VEC>
-static dim3 row_grid(int rows, int M) {
-  return dim3(rows, (M + MD_THREADS * VEC - 1) / (MD_THREADS * VEC));
+  T* dst = out + (size_t)t * M + col;
+#pragma unroll
+  for (int u = 0; u < CB_UNROLL; ++u)
+    if (col + u * 32 * VEC < M)
+      store_row<T, VEC>(dst + u * 32 * VEC, acc[u]);
 }
 
 template <typename T, typename WT>
@@ -305,23 +353,24 @@ static void launch_dispatch(const void* tok, const void* eidx,
         (T*)out, n, K, M, E, C, per);
 }
 
-template <typename T>
+template <typename T, typename WT>
 static void launch_combine(const void* eo, const void* eidx,
                            const void* sidx, const void* w, void* out, int T_,
                            int K, int M, int E, int C, int vec,
                            cudaStream_t st) {
   constexpr int V = 16 / sizeof(T);
-  if (vec) {
-    const dim3 grid = row_grid<V>(T_, M);
-    moe_combine_kernel<T, V><<<grid, MD_THREADS, 0, st>>>(
-        (const T*)eo, (const int*)eidx, (const int*)sidx, (const float*)w,
-        (T*)out, M, K, E, C);
-  } else {
-    const dim3 grid = row_grid<1>(T_, M);
-    moe_combine_kernel<T, 1><<<grid, MD_THREADS, 0, st>>>(
-        (const T*)eo, (const int*)eidx, (const int*)sidx, (const float*)w,
-        (T*)out, M, K, E, C);
-  }
+  const int VEC = vec ? V : 1;
+  const long long items =
+      (long long)T_ * ((M + 32 * VEC * CB_UNROLL - 1) / (32 * VEC * CB_UNROLL));
+  const int blocks = (int)((items + CB_WARPS - 1) / CB_WARPS);
+  if (vec)
+    moe_combine_kernel<T, WT, V><<<blocks, 32 * CB_WARPS, 0, st>>>(
+        (const T*)eo, (const int*)eidx, (const int*)sidx, (const WT*)w,
+        (T*)out, T_, M, K, E, C);
+  else
+    moe_combine_kernel<T, WT, 1><<<blocks, 32 * CB_WARPS, 0, st>>>(
+        (const T*)eo, (const int*)eidx, (const int*)sidx, (const WT*)w,
+        (T*)out, T_, M, K, E, C);
 }
 
 // tok [T, M], eidx / sidx int32 [T, K], w [T, K] f32 (w_f32) or the
@@ -350,15 +399,20 @@ extern "C" int moe_dispatch(const void* tok, const void* eidx,
   return (int)cudaGetLastError();
 }
 
-// eo [E, C, M], eidx / sidx int32 [T, K], w f32 [T, K] -> out [T, M]
+// eo [E, C, M], eidx / sidx int32 [T, K], w [T, K] f32 (w_f32) or the
+// tokens' type -> out [T, M]; vec as for dispatch (eo and out)
 extern "C" int moe_combine(const void* eo, const void* eidx,
                            const void* sidx, const void* w, void* out, int T,
-                           int K, int M, int E, int C, int dtype, int vec,
-                           void* stream) {
+                           int K, int M, int E, int C, int dtype, int w_f32,
+                           int vec, void* stream) {
   if (T == 0 || M == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  DISPATCH_DTYPE(dtype, Tp,
-                 launch_combine<Tp>(eo, eidx, sidx, w, out, T, K, M, E, C,
-                                    vec, st));
+  DISPATCH_DTYPE(dtype, Tp, {
+    if (w_f32)
+      launch_combine<Tp, float>(eo, eidx, sidx, w, out, T, K, M, E, C, vec,
+                                st);
+    else
+      launch_combine<Tp, Tp>(eo, eidx, sidx, w, out, T, K, M, E, C, vec, st);
+  });
   return (int)cudaGetLastError();
 }

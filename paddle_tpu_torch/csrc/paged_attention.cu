@@ -47,22 +47,30 @@
 //   (batch, kv head) to finish, counted by an atomic ticket, merges the
 //   blocks' shares in block order and writes the output: one launch,
 //   and two runs give the same bits.
-//   bf16 operands outside its shapes are refused.
-// - paged_decode_partials (f32, which only the tests serve) and
-//   paged_decode_combine, two launches: a block owns one
-//   (batch, kv head, split) of the wrapper's num_splits, takes pages
+// - paged_decode_partials<T, CS, Q> and paged_decode_combine<T>, the
+//   general instance (every shape the Hopper kernel is not built for:
+//   any GQA rep, block size and head_dim, unaligned pools; f32, which
+//   only the tests serve; bf16 models such as Qwen2-7B's 28 query heads
+//   over 4 kv heads, or pages of 12 tokens), two launches: a block owns
+//   one (batch, kv head, split) of the wrapper's general_plan, takes pages
 //   round-robin (page p to split p % S) up to the frontier, stages each
-//   page in shared memory as f32 and scores it against the group's q
-//   heads; a second kernel merges the splits.
+//   page's keys PD_KEYS at a time in shared memory as f32 (converted on
+//   load: the staging's size does not depend on T) and scores them
+//   against the group's q heads; a second kernel merges the splits and
+//   rounds once to T.  Simple rather than fast: it serves the shapes
+//   that the fast kernel does not.
 #include "common.cuh"
 
 constexpr int PD_THREADS = 128;
+constexpr int PD_KEYS = 32;    // keys of a page staged at once
 
-template <int Q>
+// T: q's, the output's and (Q == 0) the pools' type; CS: cos/sin's.
+// Every sum in f32; the partials stay f32 for the combine's one rounding
+template <typename T, typename CS, int Q>
 __global__ void __launch_bounds__(PD_THREADS) paged_decode_partials(
-    const float* __restrict__ q,    // [B, H, D] unrotated, H = KVH * rep
-    const float* __restrict__ cs,   // [B, D/2] cos at each frontier
-    const float* __restrict__ sn,   // [B, D/2] sin at each frontier
+    const T* __restrict__ q,        // [B, H, D] unrotated, H = KVH * rep
+    const CS* __restrict__ cs,      // [B, D/2] cos at each frontier
+    const CS* __restrict__ sn,      // [B, D/2] sin at each frontier
     const void* __restrict__ k_pool,  // [nb, bs, KVH, D] T, or int8 codes
     const void* __restrict__ v_pool,
     const float* __restrict__ k_scale,  // [nb, bs] (Q > 0)
@@ -76,11 +84,12 @@ __global__ void __launch_bounds__(PD_THREADS) paged_decode_partials(
   extern __shared__ float sm[];
   const int b = blockIdx.x, kvh = blockIdx.y, s = blockIdx.z;
   const int tid = threadIdx.x, H = KVH * rep, half = D / 2;
+  const int kt = min(bs, PD_KEYS);
   float* q_s = sm;                     // [rep, D]
-  float* k_s = q_s + rep * D;          // [bs, D + 1]
-  float* v_s = k_s + bs * (D + 1);     // [bs, D]
-  float* p_s = v_s + bs * D;           // [rep, bs]
-  float* acc_s = p_s + rep * bs;       // [rep, D]
+  float* k_s = q_s + rep * D;          // [kt, D + 1]
+  float* v_s = k_s + kt * (D + 1);     // [kt, D]
+  float* p_s = v_s + kt * D;           // [rep, kt]
+  float* acc_s = p_s + rep * kt;       // [rep, D]
   float* m_s = acc_s + rep * D;        // [rep]
   float* l_s = m_s + rep;              // [rep]
   float* a_s = l_s + rep;              // [rep]
@@ -89,9 +98,9 @@ __global__ void __launch_bounds__(PD_THREADS) paged_decode_partials(
   // rotate-half RoPE on the group's q heads in f32, then the 1/sqrt(D)
   for (int i = tid; i < rep * D; i += PD_THREADS) {
     const int r = i / D, d = i % D, j = d < half ? d : d - half;
-    const float* qr = q + ((size_t)b * H + kvh * rep + r) * D;
-    const float x1 = qr[j], x2 = qr[j + half];
-    const float c = cs[b * half + j], sv = sn[b * half + j];
+    const T* qr = q + ((size_t)b * H + kvh * rep + r) * D;
+    const float x1 = to_f32(qr[j]), x2 = to_f32(qr[j + half]);
+    const float c = to_f32(cs[b * half + j]), sv = to_f32(sn[b * half + j]);
     q_s[i] = (d < half ? x1 * c - x2 * sv : x2 * c + x1 * sv) * scale;
     acc_s[i] = 0.f;
   }
@@ -101,53 +110,59 @@ __global__ void __launch_bounds__(PD_THREADS) paged_decode_partials(
   }
   __syncthreads();
 
+  // pages round-robin (page p to split p % S), each in tiles of kt keys
+  // up to the frontier
   const int last_page = min(frontier / bs, nbs - 1);
   const size_t row_stride = (size_t)KVH * D;
   for (int page = s; page <= last_page; page += S) {
     const size_t row0 = (size_t)bt[b * nbs + page] * bs;
     const size_t base = (row0 * KVH + kvh) * D;
-    for (int i = tid; i < bs * D; i += PD_THREADS) {
-      const int t = i / D, d = i % D;
-      const size_t off = base + t * row_stride + d;
-      k_s[t * (D + 1) + d] =
-          load_kv<float, Q>(k_pool, k_scale, off, row0 + t);
-      v_s[i] = load_kv<float, Q>(v_pool, v_scale, off, row0 + t);
-    }
-    __syncthreads();
-    for (int i = tid; i < rep * bs; i += PD_THREADS) {
-      const int r = i / bs, t = i % bs;
-      const float* qr = q_s + r * D;
-      const float* kr = k_s + t * (D + 1);
-      float sc = 0.f;
-      for (int d = 0; d < D; ++d) sc = fmaf(qr[d], kr[d], sc);
-      p_s[i] = page * bs + t <= frontier ? sc : NEG_INF;
-    }
-    __syncthreads();
-    if (tid < rep) {
-      float* pr = p_s + tid * bs;
-      float mc = NEG_INF;
-      for (int t = 0; t < bs; ++t) mc = fmaxf(mc, pr[t]);
-      const float mn = fmaxf(m_s[tid], mc);
-      const float alpha = expf(m_s[tid] - mn);
-      float sum = 0.f;
-      for (int t = 0; t < bs; ++t) {
-        const float e = page * bs + t <= frontier ? expf(pr[t] - mn) : 0.f;
-        pr[t] = e;
-        sum += e;
+    for (int t0 = 0; t0 < bs && page * bs + t0 <= frontier; t0 += kt) {
+      const int nt = min(kt, bs - t0);
+      for (int i = tid; i < nt * D; i += PD_THREADS) {
+        const int t = i / D, d = i % D;
+        const size_t off = base + (t0 + t) * row_stride + d;
+        k_s[t * (D + 1) + d] =
+            load_kv<T, Q>(k_pool, k_scale, off, row0 + t0 + t);
+        v_s[i] = load_kv<T, Q>(v_pool, v_scale, off, row0 + t0 + t);
       }
-      l_s[tid] = l_s[tid] * alpha + sum;
-      m_s[tid] = mn;
-      a_s[tid] = alpha;
+      __syncthreads();
+      const int key0 = page * bs + t0;
+      for (int i = tid; i < rep * nt; i += PD_THREADS) {
+        const int r = i / nt, t = i % nt;
+        const float* qr = q_s + r * D;
+        const float* kr = k_s + t * (D + 1);
+        float sc = 0.f;
+        for (int d = 0; d < D; ++d) sc = fmaf(qr[d], kr[d], sc);
+        p_s[r * kt + t] = key0 + t <= frontier ? sc : NEG_INF;
+      }
+      __syncthreads();
+      if (tid < rep) {
+        float* pr = p_s + tid * kt;
+        float mc = NEG_INF;
+        for (int t = 0; t < nt; ++t) mc = fmaxf(mc, pr[t]);
+        const float mn = fmaxf(m_s[tid], mc);
+        const float alpha = expf(m_s[tid] - mn);
+        float sum = 0.f;
+        for (int t = 0; t < nt; ++t) {
+          const float e = key0 + t <= frontier ? expf(pr[t] - mn) : 0.f;
+          pr[t] = e;
+          sum += e;
+        }
+        l_s[tid] = l_s[tid] * alpha + sum;
+        m_s[tid] = mn;
+        a_s[tid] = alpha;
+      }
+      __syncthreads();
+      for (int i = tid; i < rep * D; i += PD_THREADS) {
+        const int r = i / D, d = i % D;
+        const float* pr = p_s + r * kt;
+        float a = acc_s[i] * a_s[r];
+        for (int t = 0; t < nt; ++t) a = fmaf(pr[t], v_s[t * D + d], a);
+        acc_s[i] = a;
+      }
+      __syncthreads();
     }
-    __syncthreads();
-    for (int i = tid; i < rep * D; i += PD_THREADS) {
-      const int r = i / D, d = i % D;
-      const float* pr = p_s + r * bs;
-      float a = acc_s[i] * a_s[r];
-      for (int t = 0; t < bs; ++t) a = fmaf(pr[t], v_s[t * D + d], a);
-      acc_s[i] = a;
-    }
-    __syncthreads();
   }
 
   const size_t head0 = ((size_t)b * S + s) * H + kvh * rep;
@@ -159,11 +174,12 @@ __global__ void __launch_bounds__(PD_THREADS) paged_decode_partials(
   }
 }
 
-// log-sum-exp merge of the S split partials; one block per (b, head)
+// log-sum-exp merge of the S split partials, one rounding to T; one
+// block per (b, head)
+template <typename T>
 __global__ void __launch_bounds__(PD_THREADS) paged_decode_combine(
     const float* __restrict__ acc, const float* __restrict__ m,
-    const float* __restrict__ l, float* __restrict__ out, int S, int H,
-    int D) {
+    const float* __restrict__ l, T* __restrict__ out, int S, int H, int D) {
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   float mg = NEG_INF;
   for (int s = 0; s < S; ++s) mg = fmaxf(mg, m[((size_t)b * S + s) * H + h]);
@@ -179,7 +195,7 @@ __global__ void __launch_bounds__(PD_THREADS) paged_decode_combine(
       const size_t i = ((size_t)b * S + s) * H + h;
       o += expf(m[i] - mg) * acc[i * D + d];
     }
-    out[(size_t)blockIdx.x * D + d] = o * inv_l;
+    out[(size_t)blockIdx.x * D + d] = from_f32<T>(o * inv_l);
   }
 }
 
@@ -570,19 +586,50 @@ static int launch_hopper(const void* q, const void* cs, const void* sn,
 }
 
 extern "C" int paged_decode_smem_bytes(int rep, int D, int bs) {
+  const int kt = bs < PD_KEYS ? bs : PD_KEYS;
   return (int)sizeof(float) *
-         (2 * rep * D + bs * (2 * D + 1) + rep * bs + 3 * rep);
+         (2 * rep * D + kt * (2 * D + 1) + rep * kt + 3 * rep);
+}
+
+template <typename T, typename CS>
+static int launch_general(const void* q, const void* cs, const void* sn,
+                          const void* k_pool, const void* v_pool,
+                          const void* k_scale, const void* v_scale,
+                          const void* bt, const void* pos, void* acc,
+                          void* m, void* l, void* out, int B, int KVH,
+                          int rep, int D, int bs, int nbs, int S, float scale,
+                          int kv, cudaStream_t st) {
+  const int smem = paged_decode_smem_bytes(rep, D, bs);
+  DISPATCH_KV(kv, Q, {
+    auto kernel = paged_decode_partials<T, CS, Q>;
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<dim3(B, KVH, S), PD_THREADS, smem, st>>>(
+        (const T*)q, (const CS*)cs, (const CS*)sn, k_pool, v_pool,
+        (const float*)k_scale, (const float*)v_scale, (const int*)bt,
+        (const int*)pos, (float*)acc, (float*)m, (float*)l, KVH, rep, D, bs,
+        nbs, S, scale);
+  });
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  paged_decode_combine<T><<<B * KVH * rep, PD_THREADS, 0, st>>>(
+      (const float*)acc, (const float*)m, (const float*)l, (T*)out, S,
+      KVH * rep, D);
+  return (int)cudaGetLastError();
 }
 
 // dtype: q's and the output's type (0 f32, 1 bf16); cs_dtype: cs's and
 // sn's (the same codes); kv: what the pools hold (0 q's type, 1 int8
-// codes, 2 fp8 codes, with the scales).
-// bf16 takes paged_decode_hopper: rep in {1, 2, 4, 8}, D in {64, 128},
-// a power-of-two bs, 16-byte aligned pools, cs f32 or bf16, 1 <= S <=
-// PF_MAX_SPLITS (the wrapper's decode_plan), tickets: B * KVH ints, 0
-// before the launch and after it, used by one stream at a time.  f32
-// takes paged_decode_partials with S = num_splits, cs f32, and the
-// combine kernel (tickets unused).  Anything else is refused.
+// codes, 2 fp8 codes, with the scales).  hopper (the wrapper's route,
+// kernels/paged_attention.py hopper_path) takes paged_decode_hopper:
+// bf16, rep in {1, 2, 4, 8}, D in {64, 128}, a power-of-two bs, 16-byte
+// aligned pools, 1 <= S <= PF_MAX_SPLITS (the wrapper's decode_plan),
+// tickets: B * KVH ints, 0 before the launch and after it, used by one
+// stream at a time.  Otherwise the general instance: any type, rep, bs
+// and D (the shared memory of paged_decode_smem_bytes, at most what a
+// block can have), any S (the wrapper's general_plan), and the combine
+// kernel (tickets unused).
 extern "C" int paged_decode(const void* q, const void* cs, const void* sn,
                             const void* k_pool, const void* v_pool,
                             const void* k_scale, const void* v_scale,
@@ -590,17 +637,16 @@ extern "C" int paged_decode(const void* q, const void* cs, const void* sn,
                             void* m, void* l, void* tickets, void* out,
                             int B, int KVH, int rep, int D, int bs, int nbs,
                             int S, float scale, int dtype, int cs_dtype,
-                            int kv, void* stream) {
+                            int kv, int hopper, void* stream) {
   if (B == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  const int H = KVH * rep;
-  if (dtype == 1) {
-    if (tickets == nullptr || bs <= 0 || (bs & (bs - 1)) || S < 1 ||
-        S > PF_MAX_SPLITS)
+  int err = 0;
+  if (hopper) {
+    if (dtype != 1 || tickets == nullptr || bs <= 0 || (bs & (bs - 1)) ||
+        S < 1 || S > PF_MAX_SPLITS)
       return (int)cudaErrorInvalidValue;
     int bs_shift = 0;
     while ((1 << bs_shift) < bs) ++bs_shift;
-    int err = 0;
     DISPATCH_DTYPE(cs_dtype, CS, {
       DISPATCH_KV(kv, Q, {
         err = launch_hopper<Q, CS>(q, cs, sn, k_pool, v_pool, k_scale,
@@ -611,19 +657,13 @@ extern "C" int paged_decode(const void* q, const void* cs, const void* sn,
     });
     return err;
   }
-  if (dtype != 0 || cs_dtype != 0) return (int)cudaErrorInvalidValue;
-  const int smem = paged_decode_smem_bytes(rep, D, bs);
-  DISPATCH_KV(kv, Q, {
-    paged_decode_partials<Q><<<dim3(B, KVH, S), PD_THREADS, smem, st>>>(
-        (const float*)q, (const float*)cs, (const float*)sn, k_pool, v_pool,
-        (const float*)k_scale, (const float*)v_scale, (const int*)bt,
-        (const int*)pos, (float*)acc, (float*)m, (float*)l, KVH, rep, D, bs,
-        nbs, S, scale);
+  if (bs <= 0 || S < 1) return (int)cudaErrorInvalidValue;
+  DISPATCH_DTYPE(dtype, T, {
+    DISPATCH_DTYPE(cs_dtype, CS, {
+      err = launch_general<T, CS>(q, cs, sn, k_pool, v_pool, k_scale,
+                                  v_scale, bt, pos, acc, m, l, out, B, KVH,
+                                  rep, D, bs, nbs, S, scale, kv, st);
+    });
   });
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  paged_decode_combine<<<B * H, PD_THREADS, 0, st>>>(
-      (const float*)acc, (const float*)m, (const float*)l, (float*)out, S, H,
-      D);
-  return (int)cudaGetLastError();
+  return err;
 }

@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels of the port, each beside its plain
 PyTorch version (which runs only for CPU tensors).
 
-- :mod:`rms_norm`           — ``csrc/rms_norm.cu``
+- :mod:`rms_norm`           — ``csrc/rms_norm.cu``, the norm and the f32
+  row scale (``rms_scale``) every fused_norm_linear group takes
 - :mod:`fused_norm_linear`  — ``csrc/fused_norm_linear.cu``
 - :mod:`paged_attention`    — ``csrc/paged_attention.cu`` (f32, bf16,
   int8 and fp8 KV pools)

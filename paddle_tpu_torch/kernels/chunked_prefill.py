@@ -4,12 +4,14 @@ PyTorch version.
 Replaces ``paddle_tpu/kernels/chunked_prefill.py`` ``_chunk_kernel``
 (the ``pallas_call`` in ``_pallas_chunked``); the kernel is
 ``csrc/chunked_prefill.cu``, whose header says what bounds it on the
-H100 and how its blocks split the rep*T query rows: bf16 runs the
-wgmma kernel (head_dim 64 or 128; any rep, chunk length and batch;
-bf16 pools of block sizes 8, 16, 32 or a multiple of 64,
-:func:`wgmma_block_size_ok`, code pools of any; q, the pools and the
-scales 16-byte aligned; else ``ValueError``), f32 the CUDA-core
-kernel.
+H100 and how its blocks split the rep*T query rows.  The kernel is
+chosen from the operands before the launch (:func:`wgmma_ok`): bf16 at
+head_dim 64 or 128 (any rep, chunk length and batch) over bf16 pools of
+block sizes 8, 16, 32 or a multiple of 64 (:func:`wgmma_block_size_ok`)
+or code pools of any, with q, the pools and the scales 16-byte aligned,
+runs the wgmma kernel; every other shape up to head_dim 128, bf16 or
+f32, the general CUDA-core instance, counted as
+``chunked_prefill_general`` for bf16 (f32 keeps ``chunked_prefill``).
 
 The caller has rotated q and k (``apply_rope``) and scattered the
 chunk's k/v into the pools; padded chunk positions went to the garbage
@@ -35,11 +37,11 @@ import torch
 from . import _build, kv_quant
 
 KERNEL = "chunked_prefill"
+GENERAL = "chunked_prefill_general"   # bf16 on the general instance
 NEG_INF = -1e30
-MAX_HEAD_DIM = 128         # csrc/chunked_prefill.cu CP_MAXD (f32 kernel)
-COL_PARTS = 4              # csrc/chunked_prefill.cu CP_PARTS (f32 kernel)
+MAX_HEAD_DIM = 128         # csrc/chunked_prefill.cu CP_MAXD
 BF16_HEAD_DIMS = (64, 128)  # the bf16 wgmma kernel's instances
-SMEM_LIMIT = 48 * 1024
+SMEM_LIMIT = 227 * 1024    # the general instance: a block's opt-in smem
 WGMMA_KEYS = 64            # csrc/chunked_prefill.cu CW_KEYS: a key tile
 
 
@@ -49,6 +51,19 @@ def wgmma_block_size_ok(bs):
     rows, 8 to 64 of them (a box is 1024-byte aligned in the 128-byte
     swizzle only from 8 rows up); code pools take any block size."""
     return bs % WGMMA_KEYS == 0 or (bs >= 8 and WGMMA_KEYS % bs == 0)
+
+
+def wgmma_ok(q, k_pool, v_pool, scales=(), kv_cache_dtype=None):
+    """Whether these operands go to the bf16 wgmma kernel: bf16 q at
+    head_dim 64 or 128, bf16 pools of a block size it takes (code pools
+    of any), and q, the pools and the scales 16-byte aligned (its 16-byte
+    loads and TMA copies).  Every other shape takes the general
+    instance."""
+    return (q.dtype == torch.bfloat16 and q.shape[-1] in BF16_HEAD_DIMS
+            and (kv_cache_dtype is not None
+                 or wgmma_block_size_ok(k_pool.shape[1]))
+            and all(t.data_ptr() % 16 == 0
+                    for t in (q, k_pool, v_pool, *scales)))
 
 
 def chunked_attention_plain(q, k_pool, v_pool, block_table, positions,
@@ -100,9 +115,7 @@ def chunked_attention(q, k_pool, v_pool, block_table, positions,
     B, T, H, D = q.shape
     nb, bs, KVH, Dk = k_pool.shape
     nbs = block_table.shape[1]
-    head_dim_ok = (D in BF16_HEAD_DIMS if q.dtype == torch.bfloat16
-                   else D <= MAX_HEAD_DIM and D % COL_PARTS == 0)
-    if (Dk != D or H % KVH or not head_dim_ok
+    if (Dk != D or H % KVH or D > MAX_HEAD_DIM
             or not kv_quant.pools_fit(q.dtype, k_pool, v_pool, k_scale,
                                       v_scale, kv_cache_dtype)
             or block_table.dtype != torch.int32
@@ -111,16 +124,8 @@ def chunked_attention(q, k_pool, v_pool, block_table, positions,
                          f"q {tuple(q.shape)} {q.dtype}, pool "
                          f"{tuple(k_pool.shape)} {k_pool.dtype}")
     scales = () if kv_cache_dtype is None else (k_scale, v_scale)
-    if q.dtype == torch.bfloat16:
-        if kv_cache_dtype is None and not wgmma_block_size_ok(bs):
-            raise ValueError(f"chunked_attention: the bf16 kernel takes "
-                             f"bf16 pools of block sizes 8, 16, 32 or a "
-                             f"multiple of 64, not {bs}")
-        if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool, *scales)):
-            raise ValueError("chunked_attention: the bf16 kernel's 16-byte "
-                             "loads and TMA copies need q, the pools and "
-                             "the scales 16-byte aligned")
-    if q.dtype == torch.float32:
+    wgmma = wgmma_ok(q, k_pool, v_pool, scales, kv_cache_dtype)
+    if not wgmma:
         smem = _build.bind(KERNEL, "chunked_prefill_smem_bytes",
                            [ctypes.c_int] * 2)(D, bs)
         if smem > SMEM_LIMIT:
@@ -129,8 +134,10 @@ def chunked_attention(q, k_pool, v_pool, block_table, positions,
     fn = _build.bind(KERNEL, "chunked_prefill",
                      [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                      + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                        ctypes.c_void_p])
-    name = kv_quant.counter_name(KERNEL, kv_cache_dtype)
+                        ctypes.c_int, ctypes.c_void_p])
+    general = not wgmma and q.dtype == torch.bfloat16
+    name = kv_quant.counter_name(GENERAL if general else KERNEL,
+                                 kv_cache_dtype)
     _build.require_cuda(name, q, k_pool, v_pool, block_table, positions,
                         *scales)
     out = torch.empty_like(q)
@@ -139,7 +146,7 @@ def chunked_attention(q, k_pool, v_pool, block_table, positions,
     _build.check(fn(p(q), p(k_pool), p(v_pool), ks, vs, p(block_table),
                     p(positions), p(out), B, T, KVH, H // KVH, D, bs, nb,
                     nbs, 1.0 / math.sqrt(D), _build.dtype_code(q),
-                    kv_quant.KV_DTYPE_CODES[kv_cache_dtype],
+                    kv_quant.KV_DTYPE_CODES[kv_cache_dtype], int(wgmma),
                     _build.stream_ptr(q)), name)
     _build.launches.add(name)
     return out

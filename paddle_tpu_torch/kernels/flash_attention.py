@@ -24,9 +24,15 @@ views with any strides on the first three axes, so
 :func:`flash_attention_bthd` hands the model's [B, T, H, D] tensors over
 as transposed views, without a copy.
 
-There are no block-size flags and no autotune: the TPU kernel's tiling
-knobs are not function.  CPU tensors take the plain versions; CUDA
-tensors launch the kernels or raise.
+Which kernels run is chosen from the operands before the launch
+(:func:`general_route`): bf16 at head_dim 64 or 128 with strides TMA
+takes runs the wgmma kernels; f32, and bf16 at any other head_dim up to
+128 (80 and 96, as Phi-2 and Phi-3 use, or the tests' 20) or other
+strides, the general CUDA-core instances, each bf16 launch of them
+counted under its kernel's name with ``_general`` (f32 keeps the plain
+names).  There are no block-size flags and no autotune: the TPU
+kernel's tiling knobs are not function.  CPU tensors take the plain
+versions; CUDA tensors launch the kernels or raise.
 """
 from __future__ import annotations
 
@@ -43,8 +49,9 @@ FWD_LSE = "flash_attention_fwd_lse"
 BWD_DQ = "flash_attention_bwd_dq"
 BWD_DKV = "flash_attention_bwd_dkv"
 NEG_INF = -1e30
-MAX_HEAD_DIM = 128          # csrc/flash_attention.cu F_MAXD (f32 kernels)
+MAX_HEAD_DIM = 128          # csrc/flash_attention.cu F_MAXD
 BF16_HEAD_DIMS = (64, 128)  # the bf16 tensor-core kernels' instances
+GENERAL = "_general"        # suffix of a bf16 launch of a general kernel
 
 
 # ------------------------------------------------------------ plain versions
@@ -119,7 +126,8 @@ def flash_bwd_plain(q, k, v, o, lse, do, causal, scale):
 
 # ------------------------------------------------------------------ kernels
 _ARGS = [ctypes.c_int] * 6 + [ctypes.c_int64] * 6 + [
-    ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p]
 
 
 def _kernel_view(t):
@@ -159,26 +167,44 @@ def tma_strides(t):
     return st
 
 
+def general_route(q, k):
+    """Whether the general instances take these [B, H, T, D] views (else
+    the bf16 wgmma kernels): f32; bf16 at a head_dim other than 64 and
+    128, or with strides the wgmma kernels' tensor maps cannot take
+    (:func:`tma_strides`).  Raises for head_dim above 128, which no
+    kernel takes."""
+    D = q.shape[-1]
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head_dim {D} has no kernel "
+                         f"(at most {MAX_HEAD_DIM})")
+    if q.dtype != torch.bfloat16 or D not in BF16_HEAD_DIMS:
+        return True
+    try:
+        tma_strides(q), tma_strides(k)
+    except ValueError:
+        return True
+    return False
+
+
+def _launch_name(base, q, k):
+    """``base``, or ``base`` + ``_general`` for a bf16 launch of a
+    general kernel."""
+    general = q.dtype == torch.bfloat16 and general_route(q, k)
+    return base + GENERAL if general else base
+
+
 def _common_args(q, k, causal, scale):
     B, H, Tq, D = q.shape
     KVH, Tk = k.shape[1], k.shape[2]
-    ok = D in BF16_HEAD_DIMS if q.dtype == torch.bfloat16 \
-        else D <= MAX_HEAD_DIM
-    if not ok:
-        raise ValueError(f"flash_attention: head_dim {D} in {q.dtype} has "
-                         f"no kernel (bf16: {BF16_HEAD_DIMS}, f32: <= "
-                         f"{MAX_HEAD_DIM})")
     return [B, H, KVH, Tq, Tk, D, *_strides(q), *_strides(k),
             int(causal), float(scale), _build.dtype_code(q),
-            _build.stream_ptr(q)]
+            int(general_route(q, k)), _build.stream_ptr(q)]
 
 
 def _fwd_kernel(q, k, v, causal, scale, with_lse):
     _build.require_cuda(FWD, q, k, v, contiguous=False)
     q, k = _kernel_view(q), _kernel_view(k)
     v = _like(_kernel_view(v), k)
-    if q.dtype == torch.bfloat16:
-        tma_strides(q), tma_strides(k)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device) \
         if with_lse else None
@@ -186,7 +212,7 @@ def _fwd_kernel(q, k, v, causal, scale, with_lse):
     p = _build.ptr
     _build.check(fn(p(q), p(k), p(v), p(o), p(lse) if with_lse else None,
                     *_common_args(q, k, causal, scale)), SOURCE)
-    _build.launches.add(FWD_LSE if with_lse else FWD)
+    _build.launches.add(_launch_name(FWD_LSE if with_lse else FWD, q, k))
     return o, lse
 
 
@@ -194,8 +220,7 @@ def _bwd_operands(q, k, v, do, lse, delta):
     """The backward kernels' operands, checked and laid out for them."""
     _build.require_cuda(BWD_DQ, q, k, v, do, lse, delta, contiguous=False)
     q, k = _kernel_view(q), _kernel_view(k)
-    if q.dtype == torch.bfloat16:      # dK/dV's tensor maps (dO and v
-        tma_strides(q), tma_strides(k)  # take q's and k's strides)
+    # dO and v take q's and k's strides, which the route checked
     return (q, k, _like(_kernel_view(v), k), _like(do, q), lse.contiguous(),
             delta.contiguous())
 
@@ -206,7 +231,7 @@ def _dq_kernel(q, k, v, do, lse, delta, causal, scale):
     p = _build.ptr
     _build.check(fn(p(q), p(k), p(v), p(do), p(lse), p(delta), p(dq),
                     *_common_args(q, k, causal, scale)), SOURCE)
-    _build.launches.add(BWD_DQ)
+    _build.launches.add(_launch_name(BWD_DQ, q, k))
     return dq
 
 
@@ -216,7 +241,7 @@ def _dkv_kernel(q, k, v, do, lse, delta, causal, scale):
     p = _build.ptr
     _build.check(fn(p(q), p(k), p(v), p(do), p(lse), p(delta), p(dk), p(dv),
                     *_common_args(q, k, causal, scale)), SOURCE)
-    _build.launches.add(BWD_DKV)
+    _build.launches.add(_launch_name(BWD_DKV, q, k))
     return dk, dv
 
 

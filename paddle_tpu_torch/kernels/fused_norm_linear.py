@@ -11,22 +11,27 @@ H100.  The math contract is the reference's, cast points included:
 
 ``rs = rms_scale(x, eps)`` is computed once per activation and shared by
 every projection of it (q/k/v, gate/up): the [M, 1] row scale is the
-only intermediate, the normalized [M, K] activation never exists.
+only intermediate, the normalized [M, K] activation never exists.  On
+the card it is one launch of ``csrc/rms_norm.cu`` (``rms_scale``).
 
 The kernels share one wrapper and are counted by the rows they take:
 ``fused_norm_linear_skinny`` for M <= 8 rows (a decode step's bucket)
-and ``fused_norm_linear_tiled`` above (a prefill chunk).  The kernels
-take N a multiple of 16 bytes' worth of elements and, for bf16 above 8
-rows (whose x tiles TMA loads), K a multiple of 8 (every Llama width
-is).
+and ``fused_norm_linear_tiled`` above (a prefill chunk).  The bf16
+Hopper kernels take N a multiple of 8, K a multiple of 8 above 8 rows
+(whose x tiles TMA loads) and 16-byte aligned operands
+(:func:`hopper_ok`; every Llama width is); every other bf16 shape takes
+the general tiled kernel, counted as ``fused_norm_linear_general``.  The
+f32 kernels take N a multiple of 4 and 16-byte aligned operands.
 
 :func:`fused_norm_linear_group` takes every weight that shares one
 activation and row scale (q/k/v, gate/up; at most ``MAX_GROUP``): in
 bf16 one launch covers all of them, the skinny kernel at most 8 rows
 (a thread block cluster per column strip, split along K by
 :func:`skinny_plan`), the tiled one above, so the narrow k and v fill
-the card together with q.  A bf16 single call is a group of one, so
-each output of a group equals its single call bit for bit.  f32 is one
+the card together with q; the weights the Hopper kernels do not take
+go to the general kernel, one more launch for all of them.  A bf16
+single call is a group of one, so each output of a group equals its
+single call bit for bit.  f32 is one
 :func:`fused_norm_linear` a weight (the skinny f32 kernel split along K
 by :func:`skinny_splits`).
 """
@@ -38,8 +43,10 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .rms_norm import rms_scale  # noqa: F401 (the models' row scale)
 
 ACTIVATIONS = ("none", "silu")
+GENERAL = "fused_norm_linear_general"   # bf16 on the general kernel
 SKINNY_MAX_ROWS = 8       # csrc/fused_norm_linear.cu SK_MR
 MAX_GROUP = 3             # csrc/fused_norm_linear.cu WG_MAX_W
 SKINNY_MIN_ROWS_PER_SPLIT = 64
@@ -48,12 +55,6 @@ SKINNY_MAX_SPLIT = 8        # csrc/fused_norm_linear.cu SKM_MAX_SPLIT
 SKINNY_BK = 64              # csrc/fused_norm_linear.cu SKM_BK
 SKINNY_STAGES = 4           # csrc/fused_norm_linear.cu SKM_STAGES
 SMEM_OPT_IN = 227 * 1024    # the H100's dynamic shared memory a block
-
-
-def rms_scale(x, eps):
-    """Per-row RMSNorm scale in f32, ``rsqrt(mean(x^2) + eps)``, [..., 1]."""
-    var = x.float().square().mean(-1, keepdim=True)
-    return torch.rsqrt(var + eps)
 
 
 def fused_norm_linear_plain(x2d, rs, nw, w, activation="none"):
@@ -103,7 +104,8 @@ def skinny_splits(N, K, elem_bytes, sm_count):
 
 def _checked(x, row_scale, norm_weight, w):
     """x as [M, K] and rs as [M, 1], contiguous, after the checks every
-    CUDA call makes."""
+    CUDA call makes: operands that fit each other (f32: also the widths
+    and alignment its kernels load 16 bytes at a time)."""
     K, N = x.shape[-1], w.shape[1]
     x2d = x.reshape(-1, K)
     rs = row_scale.reshape(-1, 1)
@@ -114,16 +116,28 @@ def _checked(x, row_scale, norm_weight, w):
                          f"x {tuple(x.shape)} {x.dtype}")
     x2d, rs = x2d.contiguous(), rs.contiguous()
     _build.require_cuda("fused_norm_linear", x2d, rs, norm_weight, w)
-    vec = 16 // x.element_size()
-    tensor_cores = (x2d.shape[0] > SKINNY_MAX_ROWS
-                    and x.dtype == torch.bfloat16)
-    if (N % vec or (tensor_cores and K % 8)
-            or any(t.data_ptr() % 16 for t in (x2d, norm_weight, w))):
-        raise ValueError(f"fused_norm_linear: the kernels load 16 bytes at "
-                         f"a time; N={N} (and K={K} for bf16 rows > "
-                         f"{SKINNY_MAX_ROWS}) must be multiples of {vec} "
-                         f"and the operands 16-byte aligned")
+    if x.dtype != torch.bfloat16 and (
+            N % 4 or any(t.data_ptr() % 16 for t in (x2d, norm_weight, w))):
+        raise ValueError(f"fused_norm_linear: the f32 kernels load 16 bytes "
+                         f"at a time; N={N} must be a multiple of 4 and the "
+                         f"operands 16-byte aligned")
     return x2d, rs
+
+
+def hopper_ok(x2d, norm_weight, w):
+    """Whether the bf16 Hopper kernels take weight ``w`` [K, N] of x
+    [M, K]: N a multiple of 8 (their TMA boxes of w, paired stores), K
+    a multiple of 8 above ``SKINNY_MAX_ROWS`` rows (the wgmma kernel's
+    TMA boxes of x), x, the norm weight and w 16-byte aligned, and at
+    most ``SKINNY_MAX_ROWS`` rows the skinny block's shared memory
+    within a block's.  Else the general kernel takes it."""
+    M, K = x2d.shape
+    if M <= SKINNY_MAX_ROWS:
+        fits = skinny_smem_bytes(skinny_plan(K)[1]) <= SMEM_OPT_IN
+    else:
+        fits = K % 8 == 0
+    return (fits and w.shape[1] % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (x2d, norm_weight, w)))
 
 
 def fused_norm_linear(x, row_scale, norm_weight, w, activation="none"):
@@ -168,9 +182,11 @@ def fused_norm_linear(x, row_scale, norm_weight, w, activation="none"):
 def fused_norm_linear_group(x, row_scale, norm_weight, ws, activations):
     """``[fused_norm_linear(x, row_scale, norm_weight, w, act) for w, act
     in zip(ws, activations)]`` for 1 to ``MAX_GROUP`` weights, each output
-    equal to its single call.  In bf16 on the card one launch covers them
-    all, counted once as ``fused_norm_linear_skinny`` (at most
-    ``SKINNY_MAX_ROWS`` rows) or ``fused_norm_linear_tiled``."""
+    equal to its single call.  In bf16 on the card one launch covers the
+    weights the Hopper kernels take (:func:`hopper_ok`), counted once as
+    ``fused_norm_linear_skinny`` (at most ``SKINNY_MAX_ROWS`` rows) or
+    ``fused_norm_linear_tiled``, and one more the rest, counted as
+    ``fused_norm_linear_general``."""
     if not (0 < len(ws) <= MAX_GROUP and len(ws) == len(activations)
             and all(a in ACTIVATIONS for a in activations)):
         raise ValueError(f"fused_norm_linear_group: {len(ws)} weights "
@@ -183,25 +199,52 @@ def fused_norm_linear_group(x, row_scale, norm_weight, ws, activations):
                 for w, a in zip(ws, activations)]
     for w in ws:
         x2d, rs = _checked(x, row_scale, norm_weight, w)
-    name = kernel_name(M)
-    splits, rows = skinny_plan(K) if name.endswith("skinny") else (1, 0)
-    if rows and skinny_smem_bytes(rows) > SMEM_OPT_IN:
-        raise ValueError(f"fused_norm_linear_group: K={K} needs "
-                         f"{skinny_smem_bytes(rows)} B of shared memory a "
-                         f"block at {M} rows")
+    fast = [hopper_ok(x2d, norm_weight, w) for w in ws]
     outs = [torch.empty((M, w.shape[1]), dtype=x.dtype, device=x.device)
             for w in ws]
-    # the C entry takes MAX_GROUP slots; the unused ones repeat weight 0
+    for hopper in (True, False):
+        idx = [i for i, f in enumerate(fast) if f == hopper]
+        if idx:
+            (_launch_hopper if hopper else _launch_general)(
+                x2d, rs, norm_weight, [ws[i] for i in idx],
+                [outs[i] for i in idx], [activations[i] for i in idx])
+    return [o.reshape(*lead, o.shape[1]) for o in outs]
+
+
+def _group_args(x2d, rs, norm_weight, ws, outs, activations):
+    """The arguments both group entries of the C source begin with: x, rs,
+    nw, MAX_GROUP weight and output slots (the unused ones repeat weight
+    0), their widths, the silu bit mask, the count, M and K."""
     idx = list(range(len(ws))) + [0] * (MAX_GROUP - len(ws))
     silu = sum(1 << i for i, a in enumerate(activations) if a == "silu")
+    p = _build.ptr
+    return [p(x2d), p(rs), p(norm_weight), *[p(ws[i]) for i in idx],
+            *[p(outs[i]) for i in idx], *[ws[i].shape[1] for i in idx],
+            silu, len(ws), *x2d.shape]
+
+
+def _launch_hopper(x2d, rs, norm_weight, ws, outs, activations):
+    """One launch of the skinny (at most 8 rows) or the wgmma kernel for
+    1 to MAX_GROUP bf16 weights that share x."""
+    name = kernel_name(x2d.shape[0])
+    splits, rows = skinny_plan(x2d.shape[1]) if name.endswith("skinny") \
+        else (1, 0)
     fn = _build.bind("fused_norm_linear", "fused_norm_linear_group",
                      [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
                      + [ctypes.c_void_p])
-    p = _build.ptr
-    _build.check(fn(p(x2d), p(rs), p(norm_weight), *[p(ws[i]) for i in idx],
-                    *[p(outs[i]) for i in idx],
-                    *[ws[i].shape[1] for i in idx], silu, len(ws), M, K,
-                    splits, rows, _build.stream_ptr(x)),
+    _build.check(fn(*_group_args(x2d, rs, norm_weight, ws, outs, activations),
+                    splits, rows, _build.stream_ptr(x2d)),
                  "fused_norm_linear_group")
     _build.launches.add(name)
-    return [o.reshape(*lead, o.shape[1]) for o in outs]
+
+
+def _launch_general(x2d, rs, norm_weight, ws, outs, activations):
+    """One launch of the general tiled kernel for 1 to MAX_GROUP weights
+    that share x, at any shape and alignment."""
+    fn = _build.bind("fused_norm_linear", "fused_norm_linear_general",
+                     [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+                     + [ctypes.c_void_p])
+    _build.check(fn(*_group_args(x2d, rs, norm_weight, ws, outs, activations),
+                    _build.dtype_code(x2d), _build.stream_ptr(x2d)),
+                 "fused_norm_linear_general")
+    _build.launches.add(GENERAL)

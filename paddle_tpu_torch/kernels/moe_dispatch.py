@@ -150,23 +150,25 @@ def _dispatch(tokens, eidx, sidx, weights, E, C):
 
 
 def _combine(expert_out, eidx, sidx, weights):
+    """The plain version for a CPU tensor, the kernel for a CUDA one
+    (weights read as given, f32 or the tokens' dtype)."""
     if expert_out.device.type == "cpu":
         return combine_plain(expert_out, eidx, sidx, weights)
     code = _build.dtype_code(expert_out)
     E, C, M = expert_out.shape
-    expert_out = expert_out.contiguous()
     _operands(COMBINE, eidx.shape[0], expert_out.dtype, eidx, sidx, weights)
-    w = weights.float().contiguous()
-    eidx, sidx = eidx.contiguous(), sidx.contiguous()
+    expert_out, eidx, sidx, w = (x.contiguous() for x in
+                                 (expert_out, eidx, sidx, weights))
     _build.require_cuda(COMBINE, expert_out, eidx, sidx, w)
     T, K = eidx.shape
     out = torch.empty((T, M), dtype=expert_out.dtype,
                       device=expert_out.device)
     fn = _build.bind(LIB, "moe_combine", [ctypes.c_void_p] * 5
-                     + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                     + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     p = _build.ptr
     _build.check(fn(p(expert_out), p(eidx), p(sidx), p(w), p(out), T, K, M,
-                    E, C, code, _vec(M, expert_out, out),
+                    E, C, code, int(w.dtype == torch.float32),
+                    _vec(M, expert_out, out),
                     _build.stream_ptr(expert_out)), COMBINE)
     _build.launches.add(COMBINE)
     return out

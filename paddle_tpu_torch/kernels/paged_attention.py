@@ -25,15 +25,21 @@ written (the same ``kv_quant.kv_write`` launch) and the
 kernel dequantizes each row in registers.  Each scheme counts its own
 launches (``paged_decode_int8``, ``paged_decode_fp8``).
 
-Which CUDA kernel runs follows q's type.  bf16 q takes
-``paged_decode_hopper``, one launch whose blocks split each sequence's
-live keys into chunks of ``CHUNK_KEYS`` (:func:`decode_plan` sizes the
-grid and the scratch) and whose last block per (sequence, kv head)
-merges their shares; it reads bf16 or f32 cos/sin as given, and
-refuses operands outside its shapes (:func:`hopper_path`).  f32, which
-only the tests serve, takes ``paged_decode_partials`` with
-``num_splits`` splits and a combine kernel.  Both agree with the plain
-version up to the order of f32 sums (and the Hopper kernel's exp2).
+Which CUDA kernel runs is chosen from the operands before the launch
+(:func:`hopper_path`).  bf16 q at the serving shapes (GQA rep 1, 2, 4
+or 8, head_dim 64 or 128, a power-of-two block size, 16-byte aligned
+pools) takes ``paged_decode_hopper``, one launch whose blocks split
+each sequence's live keys into chunks of ``CHUNK_KEYS``
+(:func:`decode_plan` sizes the grid and the scratch) and whose last
+block per (sequence, kv head) merges their shares; it reads bf16 or f32
+cos/sin as given.  Every other shape, bf16 or f32 (which only the tests
+serve), takes the general instance ``paged_decode_partials`` with the
+splits of :func:`general_plan` and a combine kernel: any rep, block size
+and head_dim whose staging fits a block's shared memory, in f32 inside
+and one rounding at the store.  A bf16 call that takes it counts as
+``paged_decode_general`` (``_int8``/``_fp8`` over code pools).  Both
+agree with the plain version up to the order of f32 sums (and the
+Hopper kernel's exp2).
 """
 from __future__ import annotations
 
@@ -46,9 +52,10 @@ from . import _build, kv_quant
 from .rope import rotate_half
 
 KERNEL = "paged_decode"
+GENERAL = "paged_decode_general"   # bf16 on the general instance
 LIB = "paged_attention"   # csrc/paged_attention.cu
 NEG_INF = -1e30
-SMEM_LIMIT = 48 * 1024     # paged_decode_partials: default smem
+SMEM_LIMIT = 227 * 1024    # paged_decode_partials: a block's opt-in smem
 CHUNK_KEYS = 64            # csrc/paged_attention.cu PF_CHUNK
 HOPPER_REPS = (1, 2, 4, 8)
 HOPPER_DIMS = (64, 128)
@@ -86,24 +93,34 @@ def decode_plan(B, KVH, nbs, bs, sm_count):
     return max(1, min(max_chunks, want, MAX_SPLITS))
 
 
+def general_plan(B, KVH, nbs, sm_count):
+    """Splits of the general instance: it deals the pages of a sequence
+    round-robin over them (page p to split p % S), so any S takes any
+    table; enough for two blocks a SM, no more than the table has pages
+    or MAX_SPLITS.  ``num_splits``, which the plain version takes, does
+    not shape it: the two agree up to the order of f32 sums."""
+    want = -(-2 * sm_count // max(1, B * KVH))
+    return max(1, min(nbs, want, MAX_SPLITS))
+
+
 def hopper_path(q, k_pool, v_pool, rep):
-    """Whether these operands go to ``paged_decode_hopper``: True for bf16
-    q, False for f32 (the general kernel).  bf16 operands it does not
-    take raise ValueError: rep and D it is not built for, a block size
-    that is not a power of two (its row index is a shift and a mask),
-    pools not 16-byte aligned (its row loads)."""
-    if q.dtype != torch.bfloat16:
-        return False
+    """Whether these operands go to ``paged_decode_hopper``: bf16 q at
+    the rep and D it is built for, a power-of-two block size (its row
+    index is a shift and a mask) and pools 16-byte aligned (its row
+    loads).  Every other shape takes the general instance."""
     bs = k_pool.shape[1]
-    if not (rep in HOPPER_REPS and q.shape[-1] in HOPPER_DIMS and bs > 0
-            and bs & (bs - 1) == 0 and k_pool.data_ptr() % 16 == 0
-            and v_pool.data_ptr() % 16 == 0):
-        raise ValueError(
-            f"paged_decode_attention: the bf16 kernel takes rep in "
-            f"{HOPPER_REPS}, D in {HOPPER_DIMS}, a power-of-two block size "
-            f"and 16-byte aligned pools; got rep={rep}, D={q.shape[-1]}, "
-            f"block_size={bs}")
-    return True
+    return (q.dtype == torch.bfloat16 and rep in HOPPER_REPS
+            and q.shape[-1] in HOPPER_DIMS and bs > 0 and bs & (bs - 1) == 0
+            and k_pool.data_ptr() % 16 == 0 and v_pool.data_ptr() % 16 == 0)
+
+
+def counter_name(q, hopper, kv_cache_dtype):
+    """The launch counter of a call: ``paged_decode`` for the Hopper
+    kernel and for f32, ``paged_decode_general`` for bf16 on the general
+    instance, each with the scheme's suffix over code pools."""
+    general = not hopper and q.dtype == torch.bfloat16
+    return kv_quant.counter_name(GENERAL if general else KERNEL,
+                                 kv_cache_dtype)
 
 
 def _plain_partials(q_rot, k_pool, v_pool, block_table, positions,
@@ -187,22 +204,22 @@ def paged_decode_attention(q, c, s, k_pool, v_pool, block_table, positions,
                          f"{tuple(k_pool.shape)} {k_pool.dtype}")
     fn = _build.bind(LIB, "paged_decode",
                      [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
-                     + [ctypes.c_float] + [ctypes.c_int] * 3
+                     + [ctypes.c_float] + [ctypes.c_int] * 4
                      + [ctypes.c_void_p])
     hopper = hopper_path(q, k_pool, v_pool, rep)
     if hopper:
         splits = decode_plan(B, KVH, nbs, bs, _build.sm_count(q.device))
     else:
-        splits = num_splits
+        splits = general_plan(B, KVH, nbs, _build.sm_count(q.device))
         smem = _build.bind(LIB, "paged_decode_smem_bytes",
                            [ctypes.c_int] * 3)(rep, D, bs)
         if smem > SMEM_LIMIT:
             raise ValueError(f"paged_decode_attention: rep={rep}, D={D}, "
                              f"block_size={bs} needs {smem} B of shared "
                              "memory")
-    name = kv_quant.counter_name(KERNEL, kv_cache_dtype)
+    name = counter_name(q, hopper, kv_cache_dtype)
     q = q.contiguous()
-    if not (hopper and c.dtype == s.dtype == torch.bfloat16):
+    if c.dtype not in (torch.float32, torch.bfloat16):
         c, s = c.float(), s.float()
     c, s = c.contiguous(), s.contiguous()
     scales = () if kv_cache_dtype is None else (k_scale, v_scale)
@@ -221,7 +238,7 @@ def paged_decode_attention(q, c, s, k_pool, v_pool, block_table, positions,
                     tickets, p(out), B, KVH, rep, D, bs, nbs, splits,
                     1.0 / math.sqrt(D), _build.dtype_code(q),
                     _build.dtype_code(c),
-                    kv_quant.KV_DTYPE_CODES[kv_cache_dtype],
+                    kv_quant.KV_DTYPE_CODES[kv_cache_dtype], int(hopper),
                     _build.stream_ptr(q)), name)
     _build.launches.add(name)
     return out

@@ -19,10 +19,11 @@ The port of ``paddle_tpu/models/llama.py`` in two modes.
   whose backward runs the backward kernels).
 - Mixture of experts (``moe_num_experts > 0``): each layer's MLP is
   :class:`LlamaMoEMLP`, top-k routing through ``kernels.moe_dispatch``.
-  As in the JAX package, such a layer serves unfused: the two RMSNorms
-  run as ``kernels.rms_norm`` before plain q/k/v products and the MoE
-  MLP, while decode and prefill still take the paged-decode and
-  chunked-prefill kernels.
+  In serving, such a layer folds its input RMSNorm into its q/k/v as a
+  dense layer does (the JAX layer runs the norm and then plain
+  products: the same numbers in f32, ``LlamaRMSNorm``'s cast points);
+  its post-attention RMSNorm stays ``kernels.rms_norm``, because
+  dispatch reads the normalized rows.
 The final norm is ``kernels.rms_norm``.  The embedding, the
 projections that no kernel fuses and ``lm_head`` are plain matrix
 products, as the JAX package leaves them to XLA.
@@ -193,11 +194,10 @@ class LlamaAttention(nn.Module):
                 write_mask=None):
         """Without a cache, the training forward of the NORMALIZED
         ``hidden`` [B, T, h]: unfused q/k/v, RoPE from position 0, causal
-        attention.  With one, the serving forward: with ``norm_weight``,
-        ``hidden`` is the UNNORMALIZED residual stream and the input
-        RMSNorm folds into q/k/v, which share one row scale; without it
-        (a MoE layer), ``hidden`` is normalized and q/k/v are plain
-        products.  ``write_mask`` None means a decode step (T == 1); else
+        attention.  With one, the serving forward: ``hidden`` is the
+        UNNORMALIZED residual stream and the input RMSNorm of
+        ``norm_weight`` folds into q/k/v, which share one row scale.
+        ``write_mask`` None means a decode step (T == 1); else
         it is the [B, T] validity mask of a prefill chunk, whose padded
         positions write into the garbage block 0."""
         B, T = hidden.shape[0], hidden.shape[1]
@@ -208,15 +208,11 @@ class LlamaAttention(nn.Module):
             q, k = fused_rope(q, cos, sin), fused_rope(k, cos, sin)
             out = flash_attention_bthd(q, k, v, causal=True)
             return self.o_proj(out.reshape(B, T, -1))
-        if norm_weight is None:
-            q, k, v = (p(hidden) for p in (self.q_proj, self.k_proj,
-                                           self.v_proj))
-        else:
-            rs = rms_scale(hidden, norm_eps)
-            q, k, v = fused_norm_linear_group(
-                hidden, rs, norm_weight,
-                [p.weight for p in (self.q_proj, self.k_proj, self.v_proj)],
-                ["none"] * 3)
+        rs = rms_scale(hidden, norm_eps)
+        q, k, v = fused_norm_linear_group(
+            hidden, rs, norm_weight,
+            [p.weight for p in (self.q_proj, self.k_proj, self.v_proj)],
+            ["none"] * 3)
         q = q.reshape(B, T, -1, self.head_dim)
         k = k.reshape(B, T, -1, self.head_dim)
         v = v.reshape(B, T, -1, self.head_dim)
@@ -348,19 +344,16 @@ class LlamaDecoderLayer(nn.Module):
 
     def forward(self, hidden, cos, sin, cache=None, positions=None,
                 write_mask=None):
-        if cache is None or self.moe:
-            # the training forward; and a MoE layer's serving forward,
-            # which the JAX layer leaves unfused (its norms fold only into
-            # a dense MLP's projections)
+        if cache is None:      # the training forward
             normed = self.input_layernorm(hidden)
-            hidden = hidden + self.self_attn(normed, cos, sin, cache,
-                                             positions,
-                                             write_mask=write_mask)
+            hidden = hidden + self.self_attn(normed, cos, sin)
             return hidden + self.mlp(self.post_attention_layernorm(hidden))
         ln = self.input_layernorm
         hidden = hidden + self.self_attn(hidden, cos, sin, cache, positions,
                                          ln.weight, ln.eps, write_mask)
         ln = self.post_attention_layernorm
+        if self.moe:           # dispatch reads the normalized rows
+            return hidden + self.mlp(ln(hidden))
         return hidden + self.mlp(hidden, ln.weight, ln.eps)
 
 

@@ -22,8 +22,17 @@ its backward (plain PyTorch on both devices) 1e-5 of the largest entry;
 the tiny static BERT's losses 1e-4; the Hopper paged decode, the wgmma
 chunked prefill and the skinny fused_norm_linear group one bf16 rounding
 of the largest output, two runs bit-identical; the wgmma dQ and dK/dV
-by ``_hold_bf16_attention``'s rule, two runs bit-identical.
-The Llama-3-8B, Mixtral and BERT-base shapes are held in chip_smoke.py.
+by ``_hold_bf16_attention``'s rule, two runs bit-identical.  The
+general bf16 instances (GQA rep 7, pages of 12 tokens, head_dim 20, 80
+and 96, N and K = 4 mod 8, unaligned operands: ``TestCudaGeneral`` and
+the former refusals) by the same rules, each under its own counter;
+rms_norm one rounding of the largest output and rms_scale 4 f32 ulps
+(``TestCudaNorms``); combine with gates in the tokens' dtype and in f32
+bit-identical to the plain version in every form
+(``TestCudaCombineForms``); a tiny bf16 decode step's exact launches
+(``TestCudaStepLaunches``).
+The Llama-3-8B, Mixtral, Qwen2-7B-width and BERT-base shapes are held
+in chip_smoke.py.
 """
 import math
 
@@ -294,13 +303,14 @@ def _quantized_ops(args, scheme):
     return ops + [ks, vs]
 
 
-def _bf16_decode_operands(B, KVH, rep, D, nbs, positions, scheme, seed):
+def _bf16_decode_operands(B, KVH, rep, D, nbs, positions, scheme, seed,
+                          bs=16):
     """bf16 q and pools (codes and scales for a quantized ``scheme``) on
-    the CPU, as paged_decode_attention takes them: bs = 16, a poisoned
-    block 0 that only an idle slot (frontier 0, its table all 0) reads,
-    the other sequences on distinct shuffled blocks."""
+    the CPU, as paged_decode_attention takes them: bs = 16 unless given, a
+    poisoned block 0 that only an idle slot (frontier 0, its table all 0)
+    reads, the other sequences on distinct shuffled blocks."""
     g = torch.Generator().manual_seed(seed)
-    bs, H = 16, KVH * rep
+    H = KVH * rep
     nb = 1 + B * nbs
     kp = torch.randn(nb, bs, KVH, D, generator=g).bfloat16()
     vp = torch.randn(nb, bs, KVH, D, generator=g).bfloat16()
@@ -318,19 +328,18 @@ def _bf16_decode_operands(B, KVH, rep, D, nbs, positions, scheme, seed):
             paged_attention._default_splits(nbs), ks, vs, scheme)
 
 
-def _hold_decode(ops, cuda_device):
-    """The Hopper decode kernel on ``ops`` twice (the same bits), one
-    launch each, against the plain version on the CPU: one bf16
-    rounding of the largest output (the two differ in the order of f32
-    sums and the kernel's exp2)."""
+def _hold_decode(ops, cuda_device, kernel=paged_attention.KERNEL):
+    """The Hopper decode kernel (or ``kernel``, the general instance) on
+    ``ops`` twice (the same bits), one launch each, against the plain
+    version on the CPU: one bf16 rounding of the largest output (the two
+    differ in the order of f32 sums and the kernel's exp2)."""
     dev = [None if o is None or isinstance(o, (int, str)) else
            o.to(cuda_device) for o in ops]
     dev[7], dev[10] = ops[7], ops[10]
     launches.reset()
     got = paged_attention.paged_decode_attention(*dev)
     again = paged_attention.paged_decode_attention(*dev)
-    assert launches.snapshot() == {
-        kv_quant.counter_name(paged_attention.KERNEL, ops[10]): 2}
+    assert launches.snapshot() == {kv_quant.counter_name(kernel, ops[10]): 2}
     assert torch.equal(got, again)
     want = paged_attention.paged_decode_attention_plain(*ops).float()
     assert float((got.cpu().float() - want).abs().max()) <= \
@@ -367,19 +376,17 @@ class TestCudaHopperDecode:
                                           (4, 128, 12)])
     def test_refuses_shapes_it_does_not_take(self, cuda_device, rep, D, bs):
         # bf16 outside the kernel's rep, D and power-of-two block sizes
-        # raises; no other kernel takes it
+        # is not the Hopper kernel's: the general instance takes it,
+        # under its own counter, and agrees with the plain version
         g = torch.Generator().manual_seed(rep * D + bs)
         q = torch.randn(2, 2 * rep, D, generator=g).bfloat16()
         pool = torch.randn(5, bs, 2, D, generator=g).bfloat16()
         ang = torch.rand(2, D // 2, generator=g)
         ops = [q, ang.cos(), ang.sin(), pool, pool.clone(),
                torch.tensor([[1, 2], [3, 4]], dtype=torch.int32),
-               torch.tensor([5, 20], dtype=torch.int32)]
-        launches.reset()
-        with pytest.raises(ValueError, match="bf16 kernel takes"):
-            paged_attention.paged_decode_attention(
-                *[o.to(cuda_device) for o in ops], 1)
-        assert launches.snapshot() == {}
+               torch.tensor([5, 20], dtype=torch.int32), 1, None, None, None]
+        assert not paged_attention.hopper_path(q, pool, pool, rep)
+        _hold_decode(ops, cuda_device, paged_attention.GENERAL)
 
     def test_long_context_uses_many_blocks(self, cuda_device):
         # one sequence at the end of an 8192-key table: 128 chunks over
@@ -416,18 +423,18 @@ def _bf16_chunk_operands(B, T, KVH, rep, D, bs, positions, scheme, seed):
             vs, scheme)
 
 
-def _hold_chunk(ops, cuda_device):
-    """The wgmma chunk kernel on ``ops`` twice (the same bits), one launch
-    each, against the plain version on the CPU: one bf16 rounding of the
-    largest output (the two differ in the order of f32 sums, exp2 and
-    the rounding of P to bf16)."""
+def _hold_chunk(ops, cuda_device, kernel=chunked_prefill.KERNEL):
+    """The wgmma chunk kernel (or ``kernel``, the general instance) on
+    ``ops`` twice (the same bits), one launch each, against the plain
+    version on the CPU: one bf16 rounding of the largest output (the two
+    differ in the order of f32 sums, exp2 and the rounding of P to
+    bf16)."""
     dev = [o.to(cuda_device) if isinstance(o, torch.Tensor) else o
            for o in ops]
     launches.reset()
     got = chunked_prefill.chunked_attention(*dev)
     again = chunked_prefill.chunked_attention(*dev)
-    assert launches.snapshot() == {
-        kv_quant.counter_name(chunked_prefill.KERNEL, ops[7]): 2}
+    assert launches.snapshot() == {kv_quant.counter_name(kernel, ops[7]): 2}
     assert torch.equal(got, again)
     want = chunked_prefill.chunked_attention_plain(*ops).float()
     got = got.cpu().float()
@@ -479,15 +486,12 @@ class TestCudaHopperChunk:
 
     @pytest.mark.parametrize("bs", [1, 4, 12, 96])
     def test_refuses_block_sizes(self, cuda_device, bs):
-        # bf16 pages that are not whole TMA boxes of 8 to 64 rows:
-        # ValueError, nothing launched
+        # bf16 pages that are not whole TMA boxes of 8 to 64 rows are not
+        # the wgmma kernel's: the general instance takes them, under its
+        # own counter, and agrees with the plain version
         ops = _bf16_chunk_operands(1, 8, 2, 4, 64, bs, [3], None, bs)
-        launches.reset()
-        with pytest.raises(ValueError, match="of block sizes 8, 16, 32"):
-            chunked_prefill.chunked_attention(
-                *[o.to(cuda_device) if isinstance(o, torch.Tensor) else o
-                  for o in ops])
-        assert launches.snapshot() == {}
+        assert not chunked_prefill.wgmma_ok(ops[0], ops[1], ops[2])
+        _hold_chunk(ops, cuda_device, chunked_prefill.GENERAL)
 
     @pytest.mark.parametrize("scheme", [None, "int8"])
     def test_ring_reuse_gives_the_same_bits(self, cuda_device, scheme):
@@ -503,17 +507,21 @@ class TestCudaHopperChunk:
                    for o in outs) == 0
 
     def test_refuses_unaligned_pools(self, cuda_device):
-        # a pool view that starts 8 bytes into its storage: the kernel's
-        # 16-byte loads cannot take it, and nothing is launched
+        # a pool view that starts 8 bytes into its storage: the wgmma
+        # kernel's 16-byte loads cannot take it, so the general instance
+        # does, one launch, and agrees with the plain version
         ops = _bf16_chunk_operands(1, 8, 2, 4, 64, 16, [3], None, 2)
         flat = torch.zeros(ops[1].numel() + 4, dtype=torch.bfloat16,
                            device=cuda_device)
         pool = flat[4:].view(ops[1].shape)
+        pool.copy_(ops[1])
         dev = [o.to(cuda_device) for o in ops[:5]]
         launches.reset()
-        with pytest.raises(ValueError, match="16-byte aligned"):
-            chunked_prefill.chunked_attention(dev[0], pool, dev[2], *dev[3:])
-        assert launches.snapshot() == {}
+        got = chunked_prefill.chunked_attention(dev[0], pool, *dev[2:])
+        assert launches.snapshot() == {chunked_prefill.GENERAL: 1}
+        want = chunked_prefill.chunked_attention_plain(*ops[:5]).float()
+        assert float((got.cpu().float() - want).abs().max()) <= \
+            float(want.abs().max()) / 128
 
 
 def _hold_dkv(q, k, v, do, causal, plain_on):
@@ -571,14 +579,10 @@ class TestCudaHopperDkv:
 
     def test_refuses_strides_tma_cannot_take(self, cuda_device):
         # rows of 68 bf16 (136 bytes apart) have no tensor map: the
-        # backward raises before anything is launched
-        q, k, v, do = _attn_inputs(1, 2, 1, 20, 20, 68, torch.bfloat16,
-                                   cuda_device)
-        lse = torch.zeros(1, 2, 20, device=cuda_device)
-        launches.reset()
-        with pytest.raises(ValueError, match="multiples of 16 bytes"):
-            fa._bwd_kernels(q, k, v, do, lse, lse.clone(), True, 0.1)
-        assert launches.snapshot() == {}
+        # general instances take the backward, under their own counters,
+        # and agree with the plain version
+        ops = _attn_inputs(1, 2, 1, 20, 20, 68, torch.bfloat16, cuda_device)
+        _hold_general_attention(*ops, True)
 
 
 def _hold_dq(q, k, v, do, causal, plain_on):
@@ -1508,3 +1512,297 @@ class TestCudaKVWrite:
             else:
                 assert any(torch.equal(got[side][0, 0], c)
                            for c in cands) or not masked
+
+
+def _hold_general_attention(q, k, v, do, causal):
+    """The general attention instances on bf16 ``q, k, v`` [B, H, T, D]
+    (a head_dim or strides the wgmma kernels do not take): the forward
+    with and without the LSE, dQ and dK/dV, each one launch under its
+    ``_general`` counter, two runs the same bits, each output by the rule
+    of ``_hold_bf16_attention`` against the f32 plain version of the same
+    inputs."""
+    assert fa.general_route(q, k)
+    scale = 1 / math.sqrt(q.shape[-1])
+    launches.reset()
+    o, lse = fa._fwd_kernel(q, k, v, causal, scale, True)
+    o2, _ = fa._fwd_kernel(q, k, v, causal, scale, False)
+    ops = fa._bwd_operands(q, k, v, do, lse, fa._delta(o, do))
+    grads = fa._bwd_kernels(*ops, causal, scale)
+    again = fa._bwd_kernels(*ops, causal, scale)
+    g = fa.GENERAL
+    assert launches.snapshot() == {fa.FWD_LSE + g: 1, fa.FWD + g: 1,
+                                   fa.BWD_DQ + g: 2, fa.BWD_DKV + g: 2}
+    assert torch.equal(o, o2)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    x = [t.cpu() for t in (q, k, v, do)]
+    f = [t.float() for t in x]
+    o_plain = fa.flash_fwd_plain(*x[:3], causal, scale)[0]
+    o_ref, lse_ref = fa.flash_fwd_plain(*f[:3], causal, scale)
+    _hold_bf16_attention(o.cpu(), o_plain, o_ref)
+    close(lse.cpu(), lse_ref, 1e-3)
+    plain = fa.flash_bwd_plain(*x[:3], o.cpu(), lse.cpu(), x[3], causal,
+                               scale)
+    ref = fa.flash_bwd_plain(*f[:3], o.cpu().float(), lse.cpu(), f[3],
+                             causal, scale)
+    for a, b, r in zip(grads, plain, ref):
+        _hold_bf16_attention(a.cpu(), b, r)
+
+
+@pytest.mark.cuda
+class TestCudaGeneral:
+    """The general bf16 instances: the shapes the fast kernels are not
+    built for (GQA rep 7, pages of 12 tokens, head_dim 20, 80 and 96, N
+    and K = 4 mod 8), as Qwen2-7B's heads or ServingConfig(block_size=12)
+    give them, each against its plain version."""
+
+    @pytest.mark.parametrize("scheme", [None, "int8", "fp8"])
+    @pytest.mark.parametrize("rep,D,bs", [(7, 128, 12), (7, 20, 16),
+                                          (3, 80, 12), (4, 96, 64),
+                                          (1, 128, 100)])
+    def test_paged_decode(self, cuda_device, scheme, rep, D, bs):
+        # slot 0 idle on the poisoned block 0; page and table edges
+        positions = [0, bs - 1, bs, 3 * bs + 1, 8 * bs - 1]
+        ops = _bf16_decode_operands(5, 2, rep, D, 8, positions, scheme,
+                                    rep * D + bs, bs=bs)
+        assert not paged_attention.hopper_path(ops[0], ops[3], ops[4], rep)
+        out = _hold_decode(ops, cuda_device, paged_attention.GENERAL)
+        assert float(out[1:].float().abs().max()) < 50.0   # no poison
+
+    def test_paged_decode_bf16_tables(self, cuda_device):
+        # the model's bf16 RoPE rows are read as given, the same as their
+        # f32 values
+        ops = list(_bf16_decode_operands(3, 4, 7, 128, 6, [0, 40, 71],
+                                         None, 11, bs=12))
+        ops[1], ops[2] = ops[1].bfloat16(), ops[2].bfloat16()
+        got = _hold_decode(ops, cuda_device, paged_attention.GENERAL)
+        ops[1], ops[2] = ops[1].float(), ops[2].float()
+        assert torch.equal(got, _hold_decode(ops, cuda_device,
+                                             paged_attention.GENERAL))
+
+    @pytest.mark.parametrize("scheme", [None, "int8", "fp8"])
+    @pytest.mark.parametrize("T,rep,D,bs", [(40, 7, 128, 12), (257, 7, 20, 12),
+                                            (70, 3, 80, 16), (1, 4, 96, 8),
+                                            (40, 2, 128, 96)])
+    def test_chunked_prefill(self, cuda_device, scheme, T, rep, D, bs):
+        # head_dim 20, 80, 96 take the general instance over every pool;
+        # pages of 12 or 96 tokens only over bf16 pools (the wgmma kernel
+        # takes code pools of any block size)
+        ops = _bf16_chunk_operands(2, T, 2, rep, D, bs, [0, 37], scheme,
+                                   T + rep + D + bs)
+        wgmma = chunked_prefill.wgmma_ok(
+            ops[0], ops[1], ops[2],
+            () if scheme is None else (ops[5], ops[6]), scheme)
+        assert wgmma == (D == 128 and scheme is not None)
+        got = _hold_chunk(ops, cuda_device, chunked_prefill.KERNEL if wgmma
+                          else chunked_prefill.GENERAL)
+        assert float(got.abs().max()) < 50.0      # no poison
+
+    @pytest.mark.parametrize("D", [20, 80, 96])
+    @pytest.mark.parametrize("causal", [False, True])
+    @pytest.mark.parametrize("B,H,KVH,Tq,Tk", [(2, 7, 1, 37, 37),
+                                               (1, 4, 2, 100, 130)])
+    def test_flash_attention(self, cuda_device, B, H, KVH, Tq, Tk, causal,
+                             D):
+        ops = _attn_inputs(B, H, KVH, Tq, Tk, D, torch.bfloat16, cuda_device,
+                           seed=Tq + D)
+        _hold_general_attention(*ops, causal)
+
+    def test_flash_attention_autograd_bthd(self, cuda_device):
+        # the model's [B, T, H, D] views through autograd, D = 20
+        ops = _attn_inputs(1, 7, 1, 50, 50, 20, torch.bfloat16, cuda_device)
+        views = [x.transpose(1, 2).contiguous().transpose(1, 2)
+                 for x in ops]
+        launches.reset()
+        got = _grads(*views, True)
+        assert launches.snapshot() == {
+            fa.FWD_LSE + fa.GENERAL: 1, fa.BWD_DQ + fa.GENERAL: 1,
+            fa.BWD_DKV + fa.GENERAL: 1}
+        want = _grads(*[x.cpu().float() for x in ops], True)
+        plain = _grads(*[x.cpu() for x in ops], True)
+        for a, b, r in zip(got, plain, want):
+            _hold_bf16_attention(a.cpu(), b, r)
+
+    @pytest.mark.parametrize("M", [1, 8, 9, 70, 256])
+    @pytest.mark.parametrize("K", [140, 1028])
+    def test_fused_norm_linear(self, cuda_device, M, K):
+        # N and K = 4 mod 8: one launch of the general kernel for a
+        # q/k/v-like group, each output its single call's bits and one
+        # bf16 rounding of the plain version's largest output
+        g = torch.Generator(device=cuda_device).manual_seed(M + K)
+        x = torch.randn(M, K, generator=g, device=cuda_device).bfloat16()
+        nw = (1 + 0.1 * torch.randn(K, generator=g,
+                                    device=cuda_device)).bfloat16()
+        rs = fused_norm_linear.rms_scale(x, 1e-5)
+        ws = [(torch.randn(K, n, generator=g, device=cuda_device)
+               / K ** 0.5).bfloat16() for n in (140, 20, 20)]
+        acts = ["none", "silu", "none"]
+        assert not any(fused_norm_linear.hopper_ok(x, nw, w) for w in ws)
+        launches.reset()
+        outs = fused_norm_linear.fused_norm_linear_group(x, rs, nw, ws, acts)
+        assert launches.snapshot() == {fused_norm_linear.GENERAL: 1}
+        for w, a, got in zip(ws, acts, outs):
+            assert torch.equal(got, fused_norm_linear.fused_norm_linear(
+                x, rs, nw, w, a))
+            want = fused_norm_linear.fused_norm_linear_plain(x, rs, nw, w, a)
+            assert float((got.float() - want.float()).abs().max()) <= \
+                float(want.float().abs().max()) / 128
+
+    @pytest.mark.parametrize("M", [4, 256])
+    def test_fused_norm_linear_mixed_group(self, cuda_device, M):
+        # an unaligned weight beside aligned ones: the Hopper launch for
+        # the aligned two, the general one for the third, each output its
+        # single call's bits
+        g = torch.Generator(device=cuda_device).manual_seed(M)
+        K = 512
+        x = torch.randn(M, K, generator=g, device=cuda_device).bfloat16()
+        nw = torch.randn(K, generator=g, device=cuda_device).bfloat16()
+        rs = fused_norm_linear.rms_scale(x, 1e-5)
+        flat = (torch.randn(K * 128 + 4, generator=g, device=cuda_device)
+                / 32).bfloat16()
+        ws = [(torch.randn(K, 256, generator=g, device=cuda_device)
+               / 32).bfloat16(), flat[4:].view(K, 128),
+              (torch.randn(K, 128, generator=g, device=cuda_device)
+               / 32).bfloat16()]
+        launches.reset()
+        outs = fused_norm_linear.fused_norm_linear_group(x, rs, nw, ws,
+                                                         ["none"] * 3)
+        assert launches.snapshot() == {
+            fused_norm_linear.kernel_name(M): 1, fused_norm_linear.GENERAL: 1}
+        for w, got in zip(ws, outs):
+            assert torch.equal(got, fused_norm_linear.fused_norm_linear(
+                x, rs, nw, w))
+
+
+NORM_SHAPES = [((8, 4096), torch.bfloat16), ((256, 4096), torch.bfloat16),
+               ((8192, 4096), torch.bfloat16), ((37, 64), torch.float32),
+               ((5, 8192), torch.bfloat16), ((3, 70000), torch.bfloat16),
+               ((9, 4100), torch.bfloat16), ((6, 1000), torch.float32)]
+
+
+@pytest.mark.cuda
+class TestCudaNorms:
+    """rms_norm and rms_scale (csrc/rms_norm.cu): a decode step's and a
+    prefill chunk's rows, the training step's, the tiny configs' f32 d =
+    64, rows wider than the registers hold, rows that are not 16 bytes'
+    worth (d = 4100 bf16, 1000 f32 are; an offset view is not aligned).
+    rms_scale within 4 f32 ulps of the plain version (another order of
+    the f32 sum); rms_norm within one rounding of the largest output."""
+
+    @staticmethod
+    def _x(shape, dtype, dev, offset):
+        g = torch.Generator(device=dev).manual_seed(shape[-1] + offset)
+        n = math.prod(shape)
+        flat = torch.randn(n + offset, generator=g, device=dev) * 3
+        return flat.to(dtype)[offset:].view(shape)
+
+    @pytest.mark.parametrize("offset", [0, 1])
+    @pytest.mark.parametrize("shape,dtype", NORM_SHAPES)
+    def test_rms_scale(self, cuda_device, shape, dtype, offset):
+        x = self._x(shape, dtype, cuda_device, offset)
+        launches.reset()
+        got = rms_norm.rms_scale(x, 1e-5)
+        assert launches.snapshot() == {"rms_scale": 1}
+        assert got.shape == (*shape[:-1], 1) and got.dtype == torch.float32
+        assert fused_norm_linear.rms_scale is rms_norm.rms_scale
+        want = rms_norm.rms_scale_plain(x, 1e-5)
+        np.testing.assert_array_max_ulp(got.cpu().numpy(),
+                                        want.cpu().numpy(), maxulp=4)
+
+    @pytest.mark.parametrize("offset", [0, 1])
+    @pytest.mark.parametrize("shape,dtype", NORM_SHAPES)
+    def test_rms_norm(self, cuda_device, shape, dtype, offset):
+        x = self._x(shape, dtype, cuda_device, offset)
+        w = (1 + 0.1 * torch.randn(shape[-1], device=cuda_device)).to(dtype)
+        launches.reset()
+        got = rms_norm.rms_norm(x, w, 1e-5)
+        again = rms_norm.rms_norm(x, w, 1e-5)
+        assert launches.snapshot() == {"rms_norm": 2}
+        assert torch.equal(got, again)
+        want = rms_norm.rms_norm_plain(x, w, 1e-5)
+        tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+        assert float((got.float() - want.float()).abs().max()) <= \
+            float(want.float().abs().max()) * tol
+
+
+COMBINE_FORMS = {"decode": (8, 8), "chunk": (256, 256),
+                 "training": (512, 512), "dropping": (512, 64)}
+
+
+@pytest.mark.cuda
+class TestCudaCombineForms:
+    @pytest.mark.parametrize("M", [4096, 100])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("form", list(COMBINE_FORMS))
+    def test_gates_as_given_the_plain_bits(self, cuda_device, form, dtype,
+                                           M):
+        # the model's routing at each form's capacity, random gates in the
+        # tokens' dtype (as the model passes them) and in f32: one launch
+        # each, the plain version's bits (two choices: one f32 product
+        # each, one sum), and the tokens'-dtype gates give the bits of
+        # their f32 cast
+        T, C = COMBINE_FORMS[form]
+        E = 8
+        rng = np.random.RandomState(T + C + M)
+        eidx = np.stack([rng.choice(E, 2, replace=False)
+                         for _ in range(T)]).astype(np.int32)
+        sidx = running_slots(eidx, E)
+        gate = rng.rand(T, 2).astype(np.float32) + 0.25
+        eo = t(rng.randn(E, C, M).astype(np.float32)).to(cuda_device, dtype)
+        idx = [t(eidx).to(cuda_device), t(sidx).to(cuda_device)]
+        g_dt = t(gate).to(cuda_device, dtype)
+        launches.reset()
+        got = moe_dispatch.moe_combine(eo, *idx, g_dt)
+        got_f32 = moe_dispatch.moe_combine(eo, *idx, g_dt.float())
+        assert launches.snapshot() == {"moe_combine": 2}
+        assert torch.equal(got, got_f32)
+        want = moe_dispatch.combine_plain(eo.cpu(), *[x.cpu() for x in idx],
+                                          g_dt.cpu())
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+class TestCudaStepLaunches:
+    @pytest.mark.parametrize("moe", [False, True])
+    def test_tiny_decode_step(self, cuda_device, moe):
+        # every decode step of a bf16 tiny model (D = 64, rep 2: the fast
+        # kernels' shapes): per layer one rms_scale and one skinny
+        # fused_norm_linear group in front of q/k/v (the MoE layer's
+        # too), one KV write, one paged decode; a dense layer a second
+        # rms_scale and group for gate/up, a MoE layer rms_norm, dispatch
+        # and combine; and the final norm.  Nothing else is a kernel
+        from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+        from paddle_tpu_torch.serving import Engine, ServingConfig
+
+        extra = dict(moe_num_experts=4, moe_top_k=2,
+                     moe_capacity_factor=2.0) if moe else {}
+        cfg = LlamaConfig.tiny(dtype="bfloat16", hidden_size=128,
+                               num_attention_heads=2, num_key_value_heads=1,
+                               **extra)
+        model = LlamaForCausalLM(cfg, device=cuda_device, seed=0)
+        eng = Engine(model, ServingConfig(max_batch_size=2, block_size=16,
+                                          num_blocks=16, chunk_tokens=16))
+        steps, decode = [], eng._decode_step
+
+        def counted(*args, **kwargs):
+            before = launches.snapshot()
+            out = decode(*args, **kwargs)
+            after = launches.snapshot()
+            steps.append({k: n - before.get(k, 0) for k, n in after.items()
+                          if n != before.get(k, 0)})
+            return out
+
+        eng._decode_step = counted
+        rng = np.random.RandomState(0)
+        eng.generate([rng.randint(1, 256, size=n) for n in (5, 19)],
+                     max_new_tokens=4)
+        L = cfg.num_hidden_layers
+        want = {"rms_scale": L, "fused_norm_linear_skinny": L,
+                kv_quant.KERNEL: L, "paged_decode": L, "rms_norm": 1}
+        if moe:
+            want.update({"rms_norm": L + 1, "moe_dispatch": L,
+                         "moe_combine": L})
+        else:
+            want.update({"rms_scale": 2 * L,
+                         "fused_norm_linear_skinny": 2 * L})
+        assert len(steps) >= 3
+        assert all(step == want for step in steps), (steps, want)

@@ -221,14 +221,29 @@ def _bwd_inputs(D, layout):
 @pytest.mark.parametrize("layout", ["bhtd", "bthd"])
 def test_backward_checks_tma_strides(monkeypatch, layout):
     # dK/dV loads q, dO, k and v by TMA: the backward's operands go
-    # through tma_strides (here on the CPU, the device check left out)
+    # through tma_strides in the route (here on the CPU, the device check
+    # left out), and strides TMA cannot take go to the general kernels
     monkeypatch.setattr(_build, "require_cuda", lambda *a, **k: None)
     ops = fa._bwd_operands(*_bwd_inputs(64, layout))
     assert fa.tma_strides(ops[0]) == fa._strides(ops[0])
     assert ops[3].stride() == ops[0].stride()     # dO takes q's strides
-    # rows of 68 bf16 (136 bytes) are not a multiple of 16 bytes apart
+    assert not fa.general_route(ops[0], ops[1])
+    assert fa._launch_name(fa.BWD_DKV, ops[0], ops[1]) == fa.BWD_DKV
+    # rows of 68 bf16 (136 bytes) are not a multiple of 16 bytes apart:
+    # the general instances take them, under their own counters
+    ops = fa._bwd_operands(*_bwd_inputs(68, layout))
     with pytest.raises(ValueError, match="multiples of 16 bytes"):
-        fa._bwd_operands(*_bwd_inputs(68, layout))
+        fa.tma_strides(ops[0])
+    assert fa.general_route(ops[0], ops[1])
+    assert fa._launch_name(fa.BWD_DKV, ops[0], ops[1]) == \
+        fa.BWD_DKV + "_general"
+    # f32 always takes them, under the plain names; above 128 nothing
+    f32 = [x.float() for x in ops[:2]]
+    assert fa.general_route(*f32)
+    assert fa._launch_name(fa.BWD_DQ, *f32) == fa.BWD_DQ
+    wide = _view(1, 2, 8, 160, layout)
+    with pytest.raises(ValueError, match="at most 128"):
+        fa.general_route(wide, wide)
 
 
 # ------------------------------------------------------- chunked prefill
@@ -240,19 +255,36 @@ def test_chunk_wgmma_block_sizes(bs, ok):
     assert cp.wgmma_block_size_ok(bs) == ok
 
 
-def test_chunk_refuses_block_sizes_before_launching(monkeypatch):
-    # a bf16 call over bf16 pools of a block size the kernel does not
-    # take raises
-    # ValueError before anything is bound or launched (here on a meta
-    # tensor, which takes the kernel path)
-    monkeypatch.setattr(_build, "bind", lambda *a, **k: pytest.fail("bound"))
-    q = torch.empty(1, 4, 8, 64, dtype=torch.bfloat16, device="meta")
-    pool = torch.empty(3, 12, 2, 64, dtype=torch.bfloat16, device="meta")
-    with pytest.raises(ValueError, match="of block sizes 8, 16, 32"):
-        cp.chunked_attention(q, pool, pool,
-                             torch.zeros(1, 2, dtype=torch.int32,
-                                         device="meta"),
-                             torch.zeros(1, dtype=torch.int32, device="meta"))
+@pytest.mark.parametrize("bs,D,wgmma", [(12, 64, 0), (16, 64, 1),
+                                        (16, 80, 0), (96, 128, 0)])
+def test_chunk_refuses_block_sizes_before_launching(monkeypatch, bs, D,
+                                                    wgmma):
+    # a bf16 call over bf16 pools of a block size (or head_dim) the wgmma
+    # kernel does not take goes to the general instance, chosen before
+    # the launch: the flag reaches the C entry, and the launch counts as
+    # chunked_prefill_general (here on meta tensors, which take the
+    # kernel path, through a fake binding)
+    calls = []
+
+    def bind(lib, fn, argtypes):
+        if fn == "chunked_prefill_smem_bytes":
+            return lambda *a: 1024
+        return lambda *a: calls.append(a) or 0
+
+    monkeypatch.setattr(_build, "bind", bind)
+    monkeypatch.setattr(_build, "require_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(_build, "stream_ptr", lambda t: None)
+    q = torch.empty(1, 4, 8, D, dtype=torch.bfloat16, device="meta")
+    pool = torch.empty(3, bs, 2, D, dtype=torch.bfloat16, device="meta")
+    assert cp.wgmma_ok(q, pool, pool) == bool(wgmma)
+    launches.reset()
+    cp.chunked_attention(q, pool, pool,
+                         torch.zeros(1, 2, dtype=torch.int32, device="meta"),
+                         torch.zeros(1, dtype=torch.int32, device="meta"))
+    (args,) = calls
+    assert args[-2] == wgmma
+    assert launches.snapshot() == {
+        cp.KERNEL if wgmma else cp.GENERAL: 1}
 
 
 # ----------------------------------------------------------- fused_linear
@@ -356,18 +388,18 @@ def test_decode_plan(B, KVH, nbs, bs, splits):
     (torch.bfloat16, 4, 128, 16, True), (torch.bfloat16, 1, 64, 8, True),
     (torch.bfloat16, 8, 128, 32, True),
     (torch.float32, 4, 128, 16, False),     # f32 keeps the general kernel
-    # bf16 outside the Hopper kernel's shapes is refused, not rerouted
-    (torch.bfloat16, 3, 128, 16, ValueError),
-    (torch.bfloat16, 4, 96, 16, ValueError),
-    (torch.bfloat16, 4, 128, 12, ValueError)])   # not a power of two
+    # bf16 outside the Hopper kernel's shapes takes the general instance
+    (torch.bfloat16, 3, 128, 16, False),
+    (torch.bfloat16, 4, 96, 16, False),
+    (torch.bfloat16, 4, 128, 12, False)])   # not a power of two
 def test_hopper_path(dtype, rep, D, bs, want):
     q = torch.zeros(2, 2 * rep, D, dtype=dtype)
     pool = torch.zeros(3, bs, 2, D, dtype=dtype)
-    if want is ValueError:
-        with pytest.raises(ValueError, match="bf16 kernel takes"):
-            pa.hopper_path(q, pool, pool, rep)
-    else:
-        assert pa.hopper_path(q, pool, pool, rep) == want
+    assert pa.hopper_path(q, pool, pool, rep) == want
+    general = "paged_decode_general" if dtype == torch.bfloat16 and not want \
+        else "paged_decode"
+    assert pa.counter_name(q, want, None) == general
+    assert pa.counter_name(q, want, "fp8") == general + "_fp8"
 
 
 def test_hopper_path_refuses_unaligned_pools():
@@ -377,8 +409,9 @@ def test_hopper_path_refuses_unaligned_pools():
     flat = torch.zeros(3 * 16 * 2 * 128 + 4, dtype=torch.bfloat16)
     pool = flat[4:].view(3, 16, 2, 128)
     assert pool.data_ptr() % 16 == 8
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        pa.hopper_path(q, pool, pool, 4)
+    assert not pa.hopper_path(q, pool, pool, 4)   # the general instance
+    aligned = flat[:-4].view(3, 16, 2, 128)
+    assert pa.hopper_path(q, aligned, aligned, 4)
 
 
 # ------------------------------------------------------------ MoE dispatch
