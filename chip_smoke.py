@@ -58,22 +58,30 @@ Mixture of experts (Mixtral-8x7B's shape, mixtral_config):
      factor 4.0 = E / K, as Mixtral routes);
   7m. main MoE training: Mixtral width, 2 layers, one [1, 4096] batch,
      as phase 7.
-The shapes only the general bf16 instances take (fault C1 of ROADMAP.md):
-  2c. C1 kernels: paged decode and chunked prefill at Qwen2-7B's heads
-     (28 q over 4 kv heads, rep 7, head_dim 128) over pages of 12 tokens
-     (decode also over int8 and fp8 pools), FlashAttention (forward,
-     forward with LSE, dQ, dK/dV) at head_dim 80 and 96, T = 2048, 32
-     heads, causal, and the fused_norm_linear q/k/v group at N and K = 4
-     mod 8 (8 and 256 rows), each against its plain version, one launch
-     under its own counter;
+The shapes the fast kernels once refused (fault C1 of ROADMAP.md):
+  2c. C1 kernels: the Hopper paged decode (bf16, int8 and fp8 pools) and
+     the wgmma chunked prefill (its copy producer) at Qwen2-7B's heads
+     (28 q over 4 kv heads, rep 7, head_dim 128) over pages of 12
+     tokens; pages of 12 and of 16 holding the same keys give the same
+     bits through both, and the copy producer RING_STRESS more times
+     the first run's bits; the general paged decode and chunked prefill
+     at Phi-3-mini's head_dim 96 (32 heads, pages of 16), the general
+     chunked prefill at Gemma-7B's head_dim 256 (16 heads);
+     FlashAttention's general instances (forward, forward with LSE, dQ,
+     dK/dV) at head_dim 80, 96 and 256, T = 2048, causal; the general
+     fused_norm_linear q/k/v group at N and K = 4 mod 8 (8 and 256
+     rows); each against its plain version, one launch under its own
+     counter;
   4c. tiny C1: LlamaConfig.tiny in bf16 with hidden 140, 7 q heads over
-     1 kv head (head_dim 20), intermediate 92, pages of 12: served on
+     1 kv head (head_dim 20), intermediate 92, and with hidden 512, 2 q
+     heads over 1 kv head (head_dim 256), pages of 12: each served on
      cuda and cpu (tokens as in phase 4, the margin BF16_MARGIN), one
      training step on both held against the same step in f32, an eval
      forward; every general instance must launch;
   6c. main C1 serving: Qwen2-7B's widths (qwen2_7b_config), 4 of its 28
-     layers, bf16, pages of 12, phase 6's 8 requests: the general paged
-     decode and chunked prefill in every step.
+     layers, bf16, pages of 12, phase 6's 8 requests: the Hopper paged
+     decode and the wgmma chunked prefill in every step, no general
+     instance.
 Static graph (BERT-base, Google's published bert_config.json):
   2s. static kernels: fused_linear against its plain version at
      BERT-base's shapes (M = 32 x 512 tokens, hidden 768, FFN 3072),
@@ -100,9 +108,9 @@ Static graph (BERT-base, Google's published bert_config.json):
      last.
 The launch counts of phases 4c, 6, 6c, 7, 6m, 7m and 7s, reset just
 before each run and read just after it, show that each path went
-through every kernel of its own (and the Llama-3-8B, Mixtral and BERT
-phases through no general instance); a kernel of the JSON line that its
-path launched no time fails the run.  Each serving run also prints the
+through every kernel of its own (and the Llama-3-8B, Mixtral, Qwen2-7B
+and BERT phases through no general instance); a kernel of the JSON line
+that its path launched no time fails the run.  Each serving run also prints the
 kernel time and count of three profiles of its decode step and of its
 prefill chunk (torch.profiler).
 
@@ -1136,11 +1144,12 @@ def phase_moe_kernels(dev):
 
 # --------------------------------------------------------------- phase 2c
 C1_BS = 12                     # the C1 phases' pages: not a power of two
-C1_FLASH_T = 2048              # phase 2c's attention: T, heads
-C1_FLASH_H = 32
-C1_FLASH_DIMS = (80, 96)       # Phi-2's and Phi-3-mini's head_dim
+C1_FLASH_T = 2048              # phase 2c's attention: T, and its (head_dim,
+C1_FLASH = ((80, 32), (96, 32), (256, 16))   # heads): Phi-2's, Phi-3-mini's
+                               # and Gemma-7B's
 C1_FNL_K = 3588                # phase 2c's fused_norm_linear: K and the
 C1_FNL_N = (3588, 516, 516)    # q/k/v widths, each = 4 (mod 8)
+C1_FRONTIERS = (130, 260, 390, 520, 650, 780, 910, 1055)   # phase 2's
 
 
 def qwen2_7b_config(**overrides):
@@ -1160,55 +1169,42 @@ def qwen2_7b_config(**overrides):
         **overrides)
 
 
-def phase_c1_kernels(dev):
-    """The general bf16 instances (fault C1: shapes the fast kernels are
-    not built for) against their plain versions: paged decode and
-    chunked prefill at Qwen2-7B's heads (28 q over 4 kv heads, rep 7,
-    head_dim 128) over pages of C1_BS tokens, decode also over int8 and
-    fp8 pools; FlashAttention (forward without and with the LSE, dQ,
-    dK/dV) at head_dim 80 and 96, T = C1_FLASH_T, 32 heads, causal; the
-    fused_norm_linear q/k/v group at N and K = 4 (mod 8), at a decode
-    step's 8 rows and a chunk's 256.  Same tolerances and numbers as
-    phase 2 (decode and chunk L2-cold); one launch a call under each
-    instance's own counter."""
-    import torch.nn.functional as F
+# (tag, H, KVH, D, page size, max_position, rope_theta, source) of the
+# attention shapes of phase 2c; Phi-3-mini's (microsoft/Phi-3-mini-4k-
+# instruct config.json: 32 heads of 96, no GQA, 4096 positions) and
+# Gemma-7B's (google/gemma-7b config.json: 16 heads of 256, 8192
+# positions) are the general instances'
+C1_QWEN2 = ("qwen2", 28, 4, 128, C1_BS, 32768, 1e6)
+C1_PHI3 = ("phi3", 32, 32, 96, 16, 4096, 1e4)
+C1_GEMMA = ("gemma7b", 16, 16, 256, 16, 8192, 1e4)
 
-    from paddle_tpu_torch.kernels import chunked_prefill
-    from paddle_tpu_torch.kernels import flash_attention as fa
-    from paddle_tpu_torch.kernels import fused_norm_linear as fnl
-    from paddle_tpu_torch.kernels import (kv_quant, launches,
-                                          paged_attention, rope)
 
-    g = torch.Generator(device=dev).manual_seed(4)
+def _one_launch(name, fn):
+    from paddle_tpu_torch.kernels import launches
+
+    launches.reset()
+    out = fn()
+    if launches.snapshot() != {name: 1}:
+        raise AssertionError(f"{name}: launches {launches.snapshot()}")
+    return out
+
+
+def _attn_operands(g, dev, shape, T=1, start=None):
+    """A decode step's (T = 1: 8 sequences at C1_FRONTIERS) or a prefill
+    chunk's (T tokens at ``start``) operands at ``shape`` (C1_QWEN2 ...):
+    a dict of q, its RoPE rows (decode), bf16 pools over shuffled pages
+    of the shape's size, the table at the engine's width for the shape's
+    max_position, the positions, and what the library yardstick needs."""
+    _, H, KVH, D, bs, max_pos, theta = shape
     bf = torch.bfloat16
 
-    def randn(*shape, std=1.0, dtype=bf):
-        return (torch.randn(shape, generator=g, device=dev,
-                            dtype=torch.float32) * std).to(dtype)
+    def randn(*s):
+        return torch.randn(s, generator=g, device=dev).to(bf)
 
-    def one_launch(name, fn):
-        launches.reset()
-        out = fn()
-        if launches.snapshot() != {name: 1}:
-            raise AssertionError(f"{name}: launches {launches.snapshot()}")
-        return out
-
-    cfg = qwen2_7b_config()
-    H, KVH, D = cfg.num_attention_heads, cfg.num_key_value_heads, \
-        cfg.head_dim
-    entries = {}
-    print(f"[c1 kernels] the general instances: Qwen2-7B heads ({H} over "
-          f"{KVH}, D={D}) on pages of {C1_BS}; attention at D = "
-          f"{C1_FLASH_DIMS}; fused_norm_linear at K={C1_FNL_K}, N="
-          f"{C1_FNL_N}; bf16", flush=True)
-
-    # paged decode: B=8 at phase 2's frontiers, the engine's table width
-    # for max_model_len 32768
-    B, bs = 8, C1_BS
-    nbs = -(-cfg.max_position_embeddings // bs)
-    positions = torch.tensor([130, 260, 390, 520, 650, 780, 910, 1055],
-                             dtype=torch.int32, device=dev)
-    per_seq = [(int(p) + bs) // bs for p in positions]
+    nbs = -(-max_pos // bs)
+    ends = [p + 1 for p in C1_FRONTIERS] if start is None else [start + T]
+    B = len(ends)
+    per_seq = [-(-e // bs) for e in ends]
     nb = 1 + sum(per_seq)
     perm = (1 + torch.randperm(nb - 1, generator=g, device=dev)).int()
     bt = torch.zeros((B, nbs), dtype=torch.int32, device=dev)
@@ -1216,131 +1212,286 @@ def phase_c1_kernels(dev):
     for b, n in enumerate(per_seq):
         bt[b, :n] = perm[off:off + n]
         off += n
-    k_pool, v_pool = randn(nb, bs, KVH, D), randn(nb, bs, KVH, D)
-    cos, sin = _rope_tables(D, cfg.max_position_embeddings, cfg.rope_theta,
-                            dev)
-    pos_l = positions.long()
-    c, s = cos[pos_l].to(bf), sin[pos_l].to(bf)
-    q = randn(B, H, D)
-    dkeys = float((positions + 1).sum())
-    Lmax = int(positions.max()) + 1
-    q_rot = rope.rotate_half(
-        q.float(), c[:, None, :].float(),
-        s[:, None, :].float()).to(bf)[:, :, None, :]
-    mask = (torch.arange(Lmax, device=dev)[None, :]
-            <= positions[:, None])[:, None, None, :]
-    for scheme in (None, "int8", "fp8"):
-        if scheme is None:
-            kp, vp, ks, vs, kd, vd = k_pool, v_pool, None, None, k_pool, \
-                v_pool
-        else:
-            (kp, ks), (vp, vs) = (kv_quant.quantize_kv(p, scheme)
-                                  for p in (k_pool, v_pool))
-        args = (q, c, s, kp, vp, bt, positions, 1, ks, vs, scheme)
-        name = kv_quant.counter_name(paged_attention.GENERAL, scheme)
-        got = one_launch(name, lambda: paged_attention.paged_decode_attention(
-            *args))
-        if not torch.equal(got, paged_attention.paged_decode_attention(
-                *args)):
-            raise AssertionError(f"{name}: two runs differ")
-        ref = paged_attention.paged_decode_attention_plain(*args)
-        err = check_close(f"{name} B={B} rep={H // KVH} bs={bs} nbs={nbs} "
-                          "(two runs bit-identical)", got, ref,
-                          bf16_tol(ref))
-        if scheme is not None:
-            continue
-        kg, vg = _gathered(kd, bt, Lmax), _gathered(vd, bt, Lmax)
+    ops = dict(k=randn(nb, bs, KVH, D), v=randn(nb, bs, KVH, D), bt=bt,
+               nbs=nbs, ends=ends, shape=shape)
+    if start is None:
+        from paddle_tpu_torch.kernels import rope
 
-        def sdpa(kg, vg):
-            return F.scaled_dot_product_attention(q_rot, kg, vg,
-                                                  attn_mask=mask,
-                                                  enable_gqa=True)
+        pos = torch.tensor(C1_FRONTIERS, dtype=torch.int32, device=dev)
+        cos, sin = _rope_tables(D, max_pos, theta, dev)
+        ops["c"], ops["s"] = cos[pos.long()].to(bf), sin[pos.long()].to(bf)
+        ops["q"] = randn(B, H, D)
+        ops["q_sdpa"] = rope.rotate_half(
+            ops["q"].float(), ops["c"][:, None, :].float(),
+            ops["s"][:, None, :].float()).to(bf)[:, :, None, :]
+        L = max(ends)
+        ops["mask"] = (torch.arange(L, device=dev)[None, :]
+                       <= pos[:, None])[:, None, None, :]
+    else:
+        pos = torch.tensor([start], dtype=torch.int32, device=dev)
+        ops["q"] = randn(1, T, H, D)
+        ops["q_sdpa"] = ops["q"].transpose(1, 2).contiguous()
+        ops["mask"] = (torch.arange(start + T, device=dev)[None, :]
+                       <= start + torch.arange(T, device=dev)[:, None]
+                       )[None, None]
+    ops["pos"] = pos
+    return ops
 
-        pool_bytes = sum(t.numel() * t.element_size() for t in (kp, vp, bt))
-        cold = [(q, c, s, kp.clone(), vp.clone(), bt.clone(), positions, 1,
-                 None, None, None) for _ in range(cold_copies(pool_bytes))]
-        gathered = [(kg.clone(), vg.clone()) for _ in
-                    range(cold_copies(2 * kg.numel() * kg.element_size()))]
-        splits = paged_attention.general_plan(
-            B, KVH, nbs, torch.cuda.get_device_properties(
-                dev).multi_processor_count)
-        entries[name] = dict(
-            path="c1_serve", replaces="paddle_tpu/kernels/paged_attention.py:102",
-            source="paddle_tpu_torch/csrc/paged_attention.cu",
-            max_abs_err=err,
-            ms=time_ms_rotating([
-                lambda a=a: paged_attention.paged_decode_attention(*a)
-                for a in cold]),
-            hot_ms=time_ms(
-                lambda: paged_attention.paged_decode_attention(*args)),
-            plain_ms=time_ms(
-                lambda: paged_attention.paged_decode_attention_plain(*args),
-                iters=5),
-            library_ms=time_ms_rotating([lambda kv=kv: sdpa(*kv)
-                                         for kv in gathered]),
-            library_hot_ms=time_ms(lambda: sdpa(kg, vg)),
-            bound=bound_ms(2 * dkeys * 2 * KVH * D + 2 * 2 * B * H * D
-                           + 4 * B * (nbs + 1 + D), 4.0 * dkeys * H * D),
-            work=f"one layer's decode step, B={B}, {int(dkeys)} context "
-                 f"keys, {H}/{KVH} heads, pages of {bs}, {splits} splits, "
-                 f"L2-cold over {len(cold)} copies (library over "
-                 f"{len(gathered)})")
-        del cold, gathered, kg, vg
 
-    # chunked prefill: a 256-token chunk at 768 over bf16 pools of pages
-    # of 12 (code pools of any block size take the wgmma kernel)
-    T, start = 256, 768
-    ctx = start + T
-    n = -(-ctx // bs)
-    bt1 = torch.zeros((1, nbs), dtype=torch.int32, device=dev)
-    bt1[0, :n] = 1 + torch.randperm(nb - 1, generator=g, device=dev)[:n].int()
-    pos1 = torch.tensor([start], dtype=torch.int32, device=dev)
-    qc = randn(1, T, H, D)
-    ckeys = float(sum(start + t + 1 for t in range(T)))
-    cmask = (torch.arange(ctx, device=dev)[None, :]
-             <= start + torch.arange(T, device=dev)[:, None])[None, None]
-    qt = qc.transpose(1, 2).contiguous()
-    cargs = (qc, k_pool, v_pool, bt1, pos1, None, None, None)
-    name = chunked_prefill.GENERAL
-    got = one_launch(name, lambda: chunked_prefill.chunked_attention(*cargs))
-    if not torch.equal(got, chunked_prefill.chunked_attention(*cargs)):
+def _same_keys(bs_pair, n_keys, B, KVH, D, g, dev):
+    """Pools of ``B`` sequences' ``n_keys`` keys each, the same keys in
+    pages of each size of ``bs_pair`` (block 1 + b * n_keys / bs + p
+    holds sequence b's keys p * bs ..., block 0 zeros), with their
+    tables: {bs: (k_pool, v_pool, table)}."""
+    keys = [torch.randn((B * n_keys, KVH, D), generator=g, device=dev)
+            .bfloat16() for _ in range(2)]
+    out = {}
+    for bs in bs_pair:
+        zero = torch.zeros((bs, KVH, D), dtype=torch.bfloat16, device=dev)
+        k, v = (torch.cat([zero, x]).reshape(-1, bs, KVH, D) for x in keys)
+        out[bs] = (k, v, (1 + torch.arange(
+            B * n_keys // bs, dtype=torch.int32, device=dev)).reshape(B, -1))
+    return out
+
+
+def _decode_entry(ops, scheme, name, path, splits):
+    """Paged decode over ``ops`` (``_attn_operands``, quantized to
+    ``scheme``): one launch under ``name``, two runs bit-identical, the
+    plain version within two bf16 ulps; timed L2-cold over rotating
+    copies of the pools and table (SDPA over copies of the gathered,
+    dequantized K/V) and hot.  Returns its entry."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import kv_quant, paged_attention
+
+    tag, H, KVH, D, bs = ops["shape"][:5]
+    if scheme is None:
+        kp, vp, ks, vs, kd, vd = ops["k"], ops["v"], None, None, ops["k"], \
+            ops["v"]
+    else:
+        (kp, ks), (vp, vs) = (kv_quant.quantize_kv(ops[x], scheme)
+                              for x in "kv")
+        kd, vd = (kv_quant.dequantize_kv(x, sc, scheme).to(torch.bfloat16)
+                  for x, sc in ((kp, ks), (vp, vs)))
+    args = (ops["q"], ops["c"], ops["s"], kp, vp, ops["bt"], ops["pos"], 1,
+            ks, vs, scheme)
+    got = _one_launch(name, lambda: paged_attention.paged_decode_attention(
+        *args))
+    if not torch.equal(got, paged_attention.paged_decode_attention(*args)):
         raise AssertionError(f"{name}: two runs differ")
-    ref = chunked_prefill.chunked_attention_plain(*cargs)
-    err = check_close(f"{name} T={T} start={start} rep={H // KVH} bs={bs} "
-                      "(two runs bit-identical)", got, ref, bf16_tol(ref))
-    kg, vg = _gathered(k_pool, bt1, ctx), _gathered(v_pool, bt1, ctx)
+    ref = paged_attention.paged_decode_attention_plain(*args)
+    B, nbs = ops["bt"].shape
+    err = check_close(f"{name} {tag} B={B} {H}/{KVH} heads D={D} bs={bs} "
+                      f"nbs={nbs} (two runs bit-identical)", got, ref,
+                      bf16_tol(ref))
+    L = max(ops["ends"])
+    kg, vg = _gathered(kd, ops["bt"], L), _gathered(vd, ops["bt"], L)
 
-    def chunk_sdpa(q, kg, vg):
-        return F.scaled_dot_product_attention(q, kg, vg, attn_mask=cmask,
+    def sdpa(kg, vg):
+        return F.scaled_dot_product_attention(
+            ops["q_sdpa"], kg, vg, attn_mask=ops["mask"], enable_gqa=True)
+
+    tensors = [t for t in (kp, vp, ops["bt"], ks, vs) if t is not None]
+    cold = [(*args[:3], *(None if t is None else t.clone() for t in
+                          (kp, vp, ops["bt"])), ops["pos"], 1,
+             *(None if t is None else t.clone() for t in (ks, vs)), scheme)
+            for _ in range(cold_copies(sum(t.numel() * t.element_size()
+                                           for t in tensors)))]
+    gathered = [(kg.clone(), vg.clone()) for _ in
+                range(cold_copies(2 * kg.numel() * kg.element_size()))]
+    dkeys = float(sum(ops["ends"]))
+    row = 2 * KVH * D if scheme is None else KVH * D + 4
+    out = dict(
+        path=path, counter=name,
+        replaces="paddle_tpu/kernels/paged_attention.py:102",
+        source="paddle_tpu_torch/csrc/paged_attention.cu", max_abs_err=err,
+        ms=time_ms_rotating([
+            lambda a=a: paged_attention.paged_decode_attention(*a)
+            for a in cold]),
+        hot_ms=time_ms(lambda: paged_attention.paged_decode_attention(*args)),
+        plain_ms=time_ms(
+            lambda: paged_attention.paged_decode_attention_plain(*args),
+            iters=5),
+        library_ms=time_ms_rotating([lambda kv=kv: sdpa(*kv)
+                                     for kv in gathered]),
+        library_hot_ms=time_ms(lambda: sdpa(kg, vg)),
+        bound=bound_ms(2 * dkeys * row + 2 * 2 * B * H * D
+                       + 4 * B * (nbs + 1 + D), 4.0 * dkeys * H * D),
+        work=f"one layer's decode step, {tag}: B={B}, {int(dkeys)} keys, "
+             f"{H}/{KVH} heads, D={D}, pages of {bs}"
+             f"{'' if scheme is None else ', ' + scheme + ' pools'}, "
+             f"{splits} splits, L2-cold over {len(cold)} copies (library "
+             f"over {len(gathered)})")
+    del cold, gathered
+    return out
+
+
+def _chunk_entry(ops, name, path):
+    """Chunked prefill over ``ops`` (``_attn_operands`` of a chunk, bf16
+    pools): one launch under ``name``, two runs bit-identical, the plain
+    version within two bf16 ulps; timed L2-cold over rotating copies of
+    q, the pools and the table (SDPA over copies of q and the gathered
+    K/V) and hot.  Returns its entry."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import chunked_prefill
+
+    tag, H, KVH, D, bs = ops["shape"][:5]
+    args = (ops["q"], ops["k"], ops["v"], ops["bt"], ops["pos"], None, None,
+            None)
+    got = _one_launch(name, lambda: chunked_prefill.chunked_attention(*args))
+    if not torch.equal(got, chunked_prefill.chunked_attention(*args)):
+        raise AssertionError(f"{name}: two runs differ")
+    ref = chunked_prefill.chunked_attention_plain(*args)
+    T, start, ctx = ops["q"].shape[1], int(ops["pos"][0]), ops["ends"][0]
+    err = check_close(f"{name} {tag} T={T} start={start} {H}/{KVH} heads "
+                      f"D={D} bs={bs} (two runs bit-identical)", got, ref,
+                      bf16_tol(ref))
+    kg, vg = (_gathered(ops[x], ops["bt"], ctx) for x in "kv")
+
+    def sdpa(q, kg, vg):
+        return F.scaled_dot_product_attention(q, kg, vg,
+                                              attn_mask=ops["mask"],
                                               enable_gqa=True)
 
-    chunk_bytes = sum(t.numel() * t.element_size()
-                      for t in (qc, k_pool, v_pool, bt1))
-    cold = [(qc.clone(), k_pool.clone(), v_pool.clone(), bt1.clone(), pos1,
-             None, None, None) for _ in range(cold_copies(chunk_bytes))]
-    gathered = [(qt.clone(), kg.clone(), vg.clone()) for _ in range(
-        cold_copies(2 * (qt.numel() + 2 * kg.numel())))]
-    entries[name] = dict(
-        path="c1_serve", replaces="paddle_tpu/kernels/chunked_prefill.py:51",
+    cold = [(*(t.clone() for t in args[:4]), ops["pos"], None, None, None)
+            for _ in range(cold_copies(sum(t.numel() * t.element_size()
+                                           for t in args[:4])))]
+    gathered = [(ops["q_sdpa"].clone(), kg.clone(), vg.clone()) for _ in
+                range(cold_copies(2 * (ops["q"].numel() + 2 * kg.numel())))]
+    nbs = ops["nbs"]
+    ckeys = float(sum(start + t + 1 for t in range(T)))
+    out = dict(
+        path=path, counter=name,
+        replaces="paddle_tpu/kernels/chunked_prefill.py:51",
         source="paddle_tpu_torch/csrc/chunked_prefill.cu", max_abs_err=err,
         ms=time_ms_rotating([lambda a=a: chunked_prefill.chunked_attention(*a)
                              for a in cold]),
-        hot_ms=time_ms(lambda: chunked_prefill.chunked_attention(*cargs)),
+        hot_ms=time_ms(lambda: chunked_prefill.chunked_attention(*args)),
         plain_ms=time_ms(
-            lambda: chunked_prefill.chunked_attention_plain(*cargs), iters=5),
-        library_ms=time_ms_rotating([lambda a=a: chunk_sdpa(*a)
+            lambda: chunked_prefill.chunked_attention_plain(*args), iters=5),
+        library_ms=time_ms_rotating([lambda a=a: sdpa(*a)
                                      for a in gathered]),
-        library_hot_ms=time_ms(lambda: chunk_sdpa(qt, kg, vg)),
+        library_hot_ms=time_ms(lambda: sdpa(ops["q_sdpa"], kg, vg)),
         bound=bound_ms(2 * ctx * 2 * KVH * D + 2 * 2 * T * H * D
                        + 4 * (nbs + 1), 4.0 * ckeys * H * D),
-        work=f"one layer's prefill chunk, T={T}, context {ctx}, {H}/{KVH} "
-             f"heads, pages of {bs}, L2-cold over {len(cold)} copies "
-             f"(library over {len(gathered)})")
-    del cold, gathered, kg, vg, k_pool, v_pool
+        work=f"one layer's prefill chunk, {tag}: T={T}, context {ctx}, "
+             f"{H}/{KVH} heads, D={D}, pages of {bs}, L2-cold over "
+             f"{len(cold)} copies (library over {len(gathered)})")
+    del cold, gathered
+    return out
+
+
+def phase_c1_kernels(dev):
+    """Attention at the shapes the general bf16 instances took (fault C1)
+    and at those they still take, and the other general instances, each
+    against its plain version (the tolerances of phase 2; decode and
+    chunk L2-cold with SDPA beside) under its own counter, one launch a
+    call:
+    - Qwen2-7B's heads (28 q over 4 kv, GQA rep 7, head_dim 128) over
+      pages of C1_BS: the Hopper paged decode (bf16, int8 and fp8 pools)
+      and the wgmma chunked prefill with its copy producer, which phase
+      6c serves; pages of 12 and of 16 holding the same keys give the
+      same bits through both, and the copy producer runs RING_STRESS more
+      times, every output's bits compared;
+    - the general paged decode and chunked prefill at Phi-3-mini's
+      head_dim 96 (32 heads, pages of 16), the general chunked prefill at
+      Gemma-7B's head_dim 256 (16 heads);
+    - FlashAttention (forward without and with the LSE, dQ, dK/dV) at
+      head_dim 80, 96 and 256 (C1_FLASH), T = C1_FLASH_T, causal;
+    - the fused_norm_linear q/k/v group at N and K = 4 (mod 8), at a
+      decode step's 8 rows and a chunk's 256."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import chunked_prefill
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_norm_linear as fnl
+    from paddle_tpu_torch.kernels import kv_quant, paged_attention
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    bf = torch.bfloat16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def randn(*shape, std=1.0, dtype=bf):
+        return (torch.randn(shape, generator=g, device=dev,
+                            dtype=torch.float32) * std).to(dtype)
+
+    entries = {}
+    print(f"[c1 kernels] Qwen2-7B heads on pages of {C1_BS} (Hopper decode, "
+          f"wgmma chunk); general instances at Phi-3-mini's and Gemma-7B's "
+          f"head_dims, attention at {C1_FLASH}, fused_norm_linear at K="
+          f"{C1_FNL_K}, N={C1_FNL_N}; bf16", flush=True)
+
+    # Qwen2-7B's heads: the Hopper decode and the wgmma chunk
+    ops = _attn_operands(g, dev, C1_QWEN2)
+    groups = paged_attention.hopper_group(28 // 4)[1]
+    splits = paged_attention.decode_plan(8, 4, ops["nbs"], C1_BS, sms, groups)
+    for scheme, path in ((None, "c1_serve"), ("int8", "quant"),
+                         ("fp8", "quant")):
+        name = kv_quant.counter_name(paged_attention.KERNEL, scheme)
+        entries[name + "_qwen2"] = _decode_entry(ops, scheme, name, path,
+                                                 splits)
+    ops = _attn_operands(g, dev, C1_QWEN2, T=256, start=768)
+    if not chunked_prefill.copy_producer(C1_BS):
+        raise AssertionError("pages of 12: not the copy producer")
+    entries["chunked_prefill_qwen2"] = _chunk_entry(
+        ops, chunked_prefill.KERNEL, "c1_serve")
+    args = (ops["q"], ops["k"], ops["v"], ops["bt"], ops["pos"])
+    first = chunked_prefill.chunked_attention(*args)
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    for _ in range(RING_STRESS):
+        bad += (chunked_prefill.chunked_attention(*args) != first).any()
+    print(f"  chunked_prefill (copy producer): {RING_STRESS} launches, "
+          f"outputs that differ from the first run's: {int(bad)}",
+          flush=True)
+    if int(bad):
+        raise AssertionError(f"copy producer: the ring stress found {bad}")
+    del ops, args, first
+
+    # the same keys in pages of 12 (division, copy producer) and of 16
+    # (shift, TMA boxes), tables of 1056 keys each: the same bits
+    H, KVH, D = C1_QWEN2[1:4]
+    pools = _same_keys((12, 16), 1056, 8, KVH, D, g, dev)
+    dec = _attn_operands(g, dev, C1_QWEN2)
+    q = randn(1, 256, H, D)
+    outs = {}
+    for bs, (k, v, bt) in pools.items():
+        outs[bs] = (
+            _one_launch(paged_attention.KERNEL,
+                        lambda: paged_attention.paged_decode_attention(
+                            dec["q"], dec["c"], dec["s"], k, v, bt,
+                            dec["pos"], 1)),
+            _one_launch(chunked_prefill.KERNEL,
+                        lambda: chunked_prefill.chunked_attention(
+                            q, k, v, bt[:1], torch.tensor(
+                                [768], dtype=torch.int32, device=dev))))
+    same = [torch.equal(a, b) for a, b in zip(outs[12], outs[16])]
+    print(f"  pages of 12 and of 16 holding the same 1056 keys a sequence: "
+          f"decode ({paged_attention.decode_plan(8, KVH, 88, 12, sms, 1)} "
+          f"and {paged_attention.decode_plan(8, KVH, 66, 16, sms, 1)} "
+          f"splits) and chunk bit-identical: {same}", flush=True)
+    if not all(same):
+        raise AssertionError(f"pages of 12 and 16 differ: {same}")
+    del pools, dec, q, outs
+
+    # the general decode and chunk at Phi-3-mini's head_dim 96, the
+    # general chunk at Gemma-7B's 256
+    ops = _attn_operands(g, dev, C1_PHI3)
+    splits = paged_attention.general_plan(8, 32, ops["nbs"], sms)
+    for scheme in (None, "int8", "fp8"):
+        name = kv_quant.counter_name(paged_attention.GENERAL, scheme)
+        e = _decode_entry(ops, scheme, name, "c1_tiny", splits)
+        if scheme is None:
+            entries[name] = e
+    for shape, tag in ((C1_PHI3, ""), (C1_GEMMA, "_d256")):
+        ops = _attn_operands(g, dev, shape, T=256, start=768)
+        entries[chunked_prefill.GENERAL + tag] = _chunk_entry(
+            ops, chunked_prefill.GENERAL, "c1_tiny")
+    del ops
 
     # FlashAttention at head_dims the wgmma kernels are not built for
-    Tf, Hf = C1_FLASH_T, C1_FLASH_H
-    for Df in C1_FLASH_DIMS:
+    Tf = C1_FLASH_T
+    for Df, Hf in C1_FLASH:
         q, k, v, do = (randn(1, Tf, Hf, Df).transpose(1, 2)
                        for _ in range(4))
         scale = Df ** -0.5
@@ -1348,14 +1499,14 @@ def phase_c1_kernels(dev):
             raise AssertionError(f"D={Df}: not the general route")
         names = [n + fa.GENERAL for n in (fa.FWD, fa.FWD_LSE, fa.BWD_DQ,
                                           fa.BWD_DKV)]
-        o_nolse, _ = one_launch(names[0], lambda: fa._fwd_kernel(
+        o_nolse, _ = _one_launch(names[0], lambda: fa._fwd_kernel(
             q, k, v, True, scale, False))
-        o, lse = one_launch(names[1], lambda: fa._fwd_kernel(
+        o, lse = _one_launch(names[1], lambda: fa._fwd_kernel(
             q, k, v, True, scale, True))
         ops = fa._bwd_operands(q, k, v, do, lse, fa._delta(o, do))
-        dq = one_launch(names[2], lambda: fa._dq_kernel(*ops, True, scale))
-        dk, dv = one_launch(names[3], lambda: fa._dkv_kernel(*ops, True,
-                                                             scale))
+        dq = _one_launch(names[2], lambda: fa._dq_kernel(*ops, True, scale))
+        dk, dv = _one_launch(names[3], lambda: fa._dkv_kernel(*ops, True,
+                                                              scale))
         if not (torch.equal(o, o_nolse) and torch.equal(
                 dq, fa._dq_kernel(*ops, True, scale))):
             raise AssertionError(f"flash general D={Df}: runs differ")
@@ -1369,9 +1520,9 @@ def phase_c1_kernels(dev):
         check_close(f"{names[1]} D={Df} lse", lse, rlse, F32_TOL)
         for key, got_t, p_t, r_t in zip(("dq", "dk", "dv"), (dq, dk, dv),
                                         pg, rg):
-            err[key] = hold_bf16_attention(f"{names[2] if key == 'dq' else names[3]} "
-                                           f"D={Df} {key}", got_t, p_t, r_t,
-                                           key == "dq")
+            err[key] = hold_bf16_attention(
+                f"{names[2] if key == 'dq' else names[3]} D={Df} {key}",
+                got_t, p_t, r_t, key == "dq")
         del pg, rg, po, ro
 
         def sdpa(*a):
@@ -1392,7 +1543,7 @@ def phase_c1_kernels(dev):
         pairs = Tf * (Tf + 1) / 2
         prod = 2.0 * pairs * Df * Hf
         qb, rb = 2 * Tf * Hf * Df, 4 * Hf * Tf
-        tag = "" if Df == C1_FLASH_DIMS[0] else f"_d{Df}"
+        tag = "" if Df == C1_FLASH[0][0] else f"_d{Df}"
         where = "paddle_tpu/kernels/flash_attention.py"
         src = "paddle_tpu_torch/csrc/flash_attention.cu"
         work = f"B=1, T={Tf}, {Hf} heads, D={Df}, causal"
@@ -1430,7 +1581,7 @@ def phase_c1_kernels(dev):
             return fnl.fused_norm_linear_group(x, rs, nw, ws,
                                                ["none"] * len(ws))
 
-        got = one_launch(fnl.GENERAL, run_kernel)
+        got = _one_launch(fnl.GENERAL, run_kernel)
         if not all(torch.equal(a, b) for a, b in zip(got, run_kernel())):
             raise AssertionError("fused_norm_linear_general: runs differ")
         errs = []
@@ -1649,11 +1800,14 @@ def phase_tiny_train(dev, cfg=None):
 
 
 # --------------------------------------------------------------- phase 4c
-# the tiny C1 model: LlamaConfig.tiny in bf16 with hidden 140 and 7 query
-# heads over 1 kv head (rep 7, head_dim 20), intermediate 92 (N and K = 4
-# mod 8), served from pages of C1_BS tokens: every general instance
+# the tiny C1 models in bf16: hidden 140 and 7 query heads over 1 kv head
+# (rep 7, head_dim 20), intermediate 92 (N and K = 4 mod 8); hidden 512
+# and 2 query heads over 1 kv head (head_dim 256, Gemma's width); both
+# served from pages of C1_BS tokens: every general instance
 C1_TINY = dict(dtype="bfloat16", hidden_size=140, num_attention_heads=7,
                num_key_value_heads=1, intermediate_size=92)
+C1_TINY_D256 = dict(dtype="bfloat16", hidden_size=512, num_attention_heads=2,
+                    num_key_value_heads=1)
 # a greedy token of the bf16 tiny model may differ between cuda and cpu
 # only where the cpu logits' top-2 margin is below 3 bf16 ulps of logits
 # of magnitude 2 to 4 (2^-6 each): the two round at other places
@@ -1666,23 +1820,41 @@ C1_GENERAL = ("fused_norm_linear_general", "paged_decode_general",
 
 
 def phase_tiny_c1(dev):
-    """The tiny C1 model (C1_TINY) served on cuda and on cpu from the same
-    seeded weights (tokens as in phase 4, the margin BF16_MARGIN), then
-    one training step on both (with the fused chunked loss): the loss and
-    every gradient held, against the same step in f32 on the cpu, to
-    twice the bf16 cpu step's error plus one bf16 rounding (2^-9) of the
-    largest entry; then an eval forward without grad on cuda.  The launch counts, set to 0 before and read after,
-    must show every general instance.  Returns them."""
+    """The tiny C1 models (C1_TINY, C1_TINY_D256) each served on cuda and
+    on cpu from the same seeded weights (tokens as in phase 4, the margin
+    BF16_MARGIN), then one training step on both (with the fused chunked
+    loss): the loss and every gradient held, against the same step in f32
+    on the cpu, to twice the bf16 cpu step's error plus one bf16 rounding
+    (2^-9) of the largest entry; then an eval forward without grad on
+    cuda.  The launch counts, set to 0 before and read after, must show
+    every general instance.  Returns them."""
+    from paddle_tpu_torch.kernels import launches
+    from paddle_tpu_torch.models import LlamaConfig
+
+    launches.reset()
+    for kw in (C1_TINY, C1_TINY_D256):
+        _tiny_run(dev, None, None, LlamaConfig.tiny(**kw), block_size=C1_BS,
+                  tol=BF16_MARGIN)
+        _tiny_c1_train(dev, kw)
+    counts = launches.snapshot()
+    print(f"[tiny c1] launches {counts}", flush=True)
+    missing = [k for k in C1_GENERAL if not counts.get(k)]
+    if missing:
+        raise AssertionError(f"tiny c1: no launch of {missing}")
+    return counts
+
+
+def _tiny_c1_train(dev, kw):
+    """One training step of the tiny bf16 model of ``kw`` on cuda and cpu
+    against the same step in f32 on the cpu (phase_tiny_c1), its launches
+    a step those of the general attention kernels, then an eval
+    forward."""
     from paddle_tpu_torch.kernels import launches
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
-    cfg = LlamaConfig.tiny(**C1_TINY)
-    launches.reset()
-    _tiny_run(dev, None, None, cfg, block_size=C1_BS, tol=BF16_MARGIN)
-
-    tcfg = LlamaConfig.tiny(fused_lm_loss=True, lm_loss_chunk=32, **C1_TINY)
+    tcfg = LlamaConfig.tiny(fused_lm_loss=True, lm_loss_chunk=32, **kw)
     f32cfg = LlamaConfig.tiny(fused_lm_loss=True, lm_loss_chunk=32,
-                              **{**C1_TINY, "dtype": "float32"})
+                              **{**kw, "dtype": "float32"})
     cpu = LlamaForCausalLM(tcfg, device="cpu", seed=0)
     models = {"cpu": cpu,
               "cuda": LlamaForCausalLM(tcfg, device=dev, seed=None),
@@ -1703,7 +1875,7 @@ def phase_tiny_c1(dev):
         if name == "cuda":
             step = {k: n - before.get(k, 0) for k, n in
                     launches.snapshot().items() if n != before.get(k, 0)}
-            want = train_launches(cfg.num_hidden_layers, general=True)
+            want = train_launches(tcfg.num_hidden_layers, general=True)
             if step != want:
                 raise AssertionError(f"tiny c1 train: launches {step} != "
                                      f"{want}")
@@ -1723,26 +1895,23 @@ def phase_tiny_c1(dev):
             raise AssertionError(f"tiny c1 train: {key} off the f32 step by "
                                  f"{err} (bf16 cpu {cpu_err}; tolerance "
                                  f"{tol})")
-    counts = launches.snapshot()
-    print(f"[tiny c1 train] bf16, rep 7, D=20: loss cuda "
-          f"{float(out['cuda']['loss']):.5f}, cpu "
+    print(f"[tiny c1 train] bf16, {tcfg.num_attention_heads} q over "
+          f"{tcfg.num_key_value_heads} kv heads, D={tcfg.head_dim}: loss "
+          f"cuda {float(out['cuda']['loss']):.5f}, cpu "
           f"{float(out['cpu']['loss']):.5f}, f32 "
-          f"{float(out['f32']['loss']):.5f}; the loss and {len(out['f32']) - 1} "
-          f"gradients within their tolerances (worst at {worst:.3f} of "
-          f"it); launches {counts}", flush=True)
-    missing = [k for k in C1_GENERAL if not counts.get(k)]
-    if missing:
-        raise AssertionError(f"tiny c1: no launch of {missing}")
-    return counts
+          f"{float(out['f32']['loss']):.5f}; the loss and "
+          f"{len(out['f32']) - 1} gradients within their tolerances (worst "
+          f"at {worst:.3f} of it)", flush=True)
 
 
 def phase_c1_main(dev):
     """Serving at Qwen2-7B's widths (qwen2_7b_config: 28 q over 4 kv
     heads, rep 7), bf16, 4 of its 28 layers, random weights from seed 0,
     behind serving.Engine with pages of C1_BS tokens and phase 6's 8
-    requests: its decode steps take the general paged decode and its
-    prefill chunks the general chunked prefill.  Returns the launch
-    counts."""
+    requests: its decode steps take the Hopper paged decode (rep 7 as
+    blocks of 4 and 3 heads, pages found by division) and its prefill
+    chunks the wgmma chunked prefill (pages of 12 by the copy producer);
+    no general instance may launch.  Returns the launch counts."""
     from paddle_tpu_torch.models import LlamaForCausalLM
 
     cfg = qwen2_7b_config(num_hidden_layers=C1_LAYERS)
@@ -1761,6 +1930,10 @@ def phase_c1_main(dev):
     out, counts, _ = _serve_main(model, prompts, "main c1",
                                  block_size=C1_BS, num_blocks=num_blocks)
     out["n_params"] = n_params
+    general = sorted(k for k in counts if "_general" in k)
+    if general:
+        raise AssertionError(f"main c1: general instances launched: "
+                             f"{general}")
     print(f"  {out['tokens_per_s']:.1f} tokens/s, mean TTFT "
           f"{out['mean_ttft_s']:.3f} s, mean TPOT "
           f"{out['mean_tpot_s'] * 1e3:.1f} ms; peak "
@@ -1839,10 +2012,10 @@ def _serve_main(model, prompts, tag, kv_cache_dtype=None, weight_dtype=None,
     # them: the C1 phase's)
     H, KVH, D = cfg.num_attention_heads, cfg.num_key_value_heads, \
         cfg.head_dim
-    hopper = (H // KVH in paged_attention.HOPPER_REPS
-              and D in paged_attention.HOPPER_DIMS and bs & (bs - 1) == 0)
-    wgmma = D in chunked_prefill.BF16_HEAD_DIMS and (
-        kv_cache_dtype is not None or chunked_prefill.wgmma_block_size_ok(bs))
+    q = torch.empty((1, 1, H, D), dtype=cfg.torch_dtype, device="meta")
+    pool = torch.empty((1, bs, KVH, D), dtype=cfg.torch_dtype, device="meta")
+    hopper = paged_attention.hopper_path(q[0], pool, pool, H // KVH)
+    wgmma = chunked_prefill.wgmma_ok(q, pool, pool)
     fast = all(n % 8 == 0 for n in (cfg.hidden_size, H * D, KVH * D,
                                     cfg.intermediate_size))
     fnl_decode = "fused_norm_linear_skinny" if fast \

@@ -28,15 +28,17 @@
 //   second product, as FlashAttention-2 does; the plain version keeps P
 //   in f32, and the two differ by less than one bf16 rounding of the
 //   output.
-// - the general instance, chunked_prefill_kernel<T, Q> (f32, the
+// - the general instance, chunked_prefill_kernel<T, Q, MAXD> (f32, the
 //   CPU-scale check configuration; and bf16 where the wgmma kernel does
-//   not fit: head_dim other than 64 or 128, bf16 pools of block sizes
-//   that are not whole TMA boxes, such as 12, or unaligned operands):
-//   CUDA cores, a block owns 32 rows (r * T + t order) and stages each
-//   page's keys CP_KEYS at a time, converted to f32 on load; q is
-//   scaled by 1/sqrt(D) in f32 as it is staged, exactly the multiply
-//   the reference's caller does, and the output rounded once to T.
-//   Simple rather than fast.
+//   not fit: head_dim other than 64 or 128, up to 256 as Gemma's, or
+//   unaligned operands): CUDA cores, a block owns 32 rows (r * T + t
+//   order) and stages each page's keys CP_KEYS at a time, converted to
+//   f32 on load; q is scaled by 1/sqrt(D) in f32 as it is staged,
+//   exactly the multiply the reference's caller does, and the output
+//   rounded once to T.  A thread keeps MAXD / 4 columns of its row in
+//   registers: the instance of MAXD 128 serves D <= 128 with the
+//   registers it always had, that of 256 the wider heads.  Simple
+//   rather than fast.
 //
 // Quantized pools (Q = 1 int8, Q = 2 fp8: the kv_dtype variant of
 // _chunk_kernel) hold int8 codes with one f32 scale per (block, token)
@@ -57,13 +59,12 @@
 constexpr int CP_THREADS = 128;
 constexpr int CP_ROWS = 32;                        // query rows per block
 constexpr int CP_PARTS = CP_THREADS / CP_ROWS;     // threads per row
-constexpr int CP_MAXD = 128;                      // MAX_HEAD_DIM in the wrapper
-constexpr int CP_COLS = CP_MAXD / CP_PARTS;        // columns per thread
+constexpr int CP_MAXD = 256;                      // MAX_HEAD_DIM in the wrapper
 constexpr int CP_KEYS = 32;                        // a page's keys at once
 
 // T: q's, the output's and (Q == 0) the pools' type; every sum in f32,
-// one rounding at the store
-template <typename T, int Q>
+// one rounding at the store; D <= MAXD
+template <typename T, int Q, int MAXD>
 __global__ void __launch_bounds__(CP_THREADS) chunked_prefill_kernel(
     const T* __restrict__ q,        // [B, Tc, H, D] rotated
     const void* __restrict__ k_pool,  // [nb, bs, KVH, D] T, or int8 codes
@@ -109,6 +110,7 @@ __global__ void __launch_bounds__(CP_THREADS) chunked_prefill_kernel(
   const int key_end = min(start + t_max + 1, nbs * bs);
   const int last_page = (key_end - 1) / bs;
 
+  constexpr int CP_COLS = MAXD / CP_PARTS;          // columns per thread
   const int my_row = tid / CP_PARTS, part = tid % CP_PARTS;
   float acc[CP_COLS];
 #pragma unroll
@@ -199,7 +201,15 @@ __global__ void __launch_bounds__(CP_THREADS) chunked_prefill_kernel(
 // [nb * bs, KVH * D]; block sizes 8, 16, 32 or a multiple of 64 (whole
 // boxes a tile, each 1024-byte aligned in the swizzle).  Copies of 16
 // bytes a thread (cp.async) were slower for bf16: the loads an SM keeps
-// in flight bound them, and TMA's are not counted there.  Code pools
+// in flight bound them, and TMA's are not counted there.  bf16 pages
+// that are not whole boxes (COPY: pages below 8 rows, or that neither
+// divide 64 nor are a multiple of it, such as 12): the producer's 128
+// threads copy each tile row's 16-byte chunks by cp.async straight into
+// the stage's swizzled place (the same address the code path stores
+// to, so nothing is staged), a block-table lookup a row made a tile
+// ahead, zeros past the last key, CW_STAGES - 1 tiles in flight; once a
+// tile's copies have landed each thread fences them for wgmma (the
+// async proxy) and arrives on the stage's full barrier.  Code pools
 // (any block size): each thread copies its own 16-byte chunks (and one
 // key's scale) into one of 3 staging buffers by cp.async, and decodes
 // them to bf16 (exactly) into the ring two tiles later, when they have
@@ -273,7 +283,7 @@ __device__ __forceinline__ void codes_to_bf16x16(uint4 c, uint4* lo,
   *hi = make_uint4(w[4], w[5], w[6], w[7]);
 }
 
-template <int D, int Q>
+template <int D, int Q, bool COPY>
 __global__ void __launch_bounds__(CW_THREADS, 1) chunked_prefill_wgmma(
     const __grid_constant__ CWMaps maps, const bf16* __restrict__ q,
     const void* __restrict__ k_pool, const void* __restrict__ v_pool,
@@ -313,8 +323,9 @@ __global__ void __launch_bounds__(CW_THREADS, 1) chunked_prefill_wgmma(
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < CW_STAGES; ++s) {
-      // bf16: the TMA's expect_tx; codes: every producer thread
-      mbar_init(&full[s], Q == 0 ? 1 : 128);
+      // bf16 boxes: the TMA's expect_tx; copies, codes: every producer
+      // thread
+      mbar_init(&full[s], Q == 0 && !COPY ? 1 : 128);
       mbar_init(&empty[s], 4);    // one arrival per consumer warp
     }
     fence_barrier_init();
@@ -345,7 +356,7 @@ __global__ void __launch_bounds__(CW_THREADS, 1) chunked_prefill_wgmma(
         }
       }
     };
-    if constexpr (Q == 0) {
+    if constexpr (Q == 0 && !COPY) {
       // bf16: straight into the ring
       if (tid < 32)
         for (int it = 0; it < n_kt; ++it) {
@@ -354,6 +365,52 @@ __global__ void __launch_bounds__(CW_THREADS, 1) chunked_prefill_wgmma(
             mbar_wait(&empty[s], ((it / CW_STAGES) - 1) & 1);
           load_tile(it, s);
         }
+    } else if constexpr (Q == 0) {
+      // bf16 pages of any size: each thread copies its own 16-byte chunks
+      // (8 bf16) of a tile's rows straight into the ring stage, a
+      // block-table lookup a row made a tile ahead, zeros past the last
+      // key; tile it - (AHEAD - 1) has landed once tile it is issued
+      constexpr int CPR = D / 8;                    // 16-byte chunks a row
+      constexpr int N = CW_KEYS * CPR / 128;        // a thread's chunks
+      constexpr int RSTEP = 128 / CPR;              // rows between them
+      constexpr int AHEAD = CW_STAGES - 1;          // tiles in flight
+      const int c = tid % CPR, j0 = tid / CPR;
+      const uint32_t col = (c / 8) * CW_BOX;
+      const bf16* kpool = static_cast<const bf16*>(k_pool);
+      const bf16* vpool = static_cast<const bf16*>(v_pool);
+      int pr[N];
+      auto rows_of = [&](int kbase) {
+#pragma unroll
+        for (int n = 0; n < N; ++n) {
+          const int kp = kbase + j0 + RSTEP * n;
+          pr[n] = kp <= last_key ? __ldg(btb + kp / bs) * bs + kp % bs : -1;
+        }
+      };
+      auto land = [&](int i) {   // this thread's copies of tile i landed
+        fence_proxy_async();     // before wgmma reads them
+        mbar_arrive(&full[i % CW_STAGES]);
+      };
+      rows_of(0);
+      for (int it = 0; it < n_kt; ++it) {
+        const int s = it % CW_STAGES;
+        if (it >= CW_STAGES) mbar_wait(&empty[s], ((it / CW_STAGES) - 1) & 1);
+#pragma unroll
+        for (int n = 0; n < N; ++n) {
+          const uint32_t at =
+              s * TILE + col + swz128(j0 + RSTEP * n, c % 8);
+          const size_t off = ((size_t)max(pr[n], 0) * KVH + kvh) * D + c * 8;
+          cp_async_16(smem_u32(ks + at), kpool + off, pr[n] >= 0);
+          cp_async_16(smem_u32(vs + at), vpool + off, pr[n] >= 0);
+        }
+        cp_async_commit();
+        if (it + 1 < n_kt) rows_of((it + 1) * CW_KEYS);
+        if (it >= AHEAD - 1) {
+          cp_async_wait<AHEAD - 1>();
+          land(it - (AHEAD - 1));
+        }
+      }
+      cp_async_wait<0>();
+      for (int i = max(n_kt - (AHEAD - 1), 0); i < n_kt; ++i) land(i);
     } else {
       // codes: each thread copies its own 16-code chunks of a tile's rows
       // (a block-table lookup a row, made a tile ahead) and one key's k
@@ -593,7 +650,7 @@ __global__ void __launch_bounds__(CW_THREADS, 1) chunked_prefill_wgmma(
   }
 }
 
-template <int D, int Q>
+template <int D, int Q, bool COPY>
 static int launch_chunk_wgmma(const bf16* q, const void* k_pool,
                               const void* v_pool, const float* k_scale,
                               const float* v_scale, const int* bt,
@@ -602,7 +659,7 @@ static int launch_chunk_wgmma(const bf16* q, const void* k_pool,
                               float scale, cudaStream_t st) {
   // bf16 pools as [nb * bs, KVH * D]; a box is R rows of one kv head
   CWMaps maps{};
-  if (Q == 0) {
+  if (Q == 0 && !COPY) {
     const cuuint64_t dims[2] = {(cuuint64_t)KVH * D, (cuuint64_t)nb * bs};
     const cuuint64_t strides[1] = {(cuuint64_t)KVH * D * 2};
     const cuuint32_t box[2] = {64, (cuuint32_t)(bs < CW_KEYS ? bs : CW_KEYS)};
@@ -612,18 +669,19 @@ static int launch_chunk_wgmma(const bf16* q, const void* k_pool,
   }
   constexpr int smem = cw_smem_bytes<D, Q>();
   const cudaError_t e = cudaFuncSetAttribute(
-      chunked_prefill_wgmma<D, Q>,
+      chunked_prefill_wgmma<D, Q, COPY>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const int n_rt = (rep * Tc + CW_ROWS - 1) / CW_ROWS;
-  chunked_prefill_wgmma<D, Q><<<n_rt * B * KVH, CW_THREADS, smem, st>>>(
+  chunked_prefill_wgmma<D, Q, COPY>
+      <<<n_rt * B * KVH, CW_THREADS, smem, st>>>(
       maps, q, k_pool, v_pool, k_scale, v_scale, bt, pos, out, B, Tc, KVH,
       rep, bs, nbs, scale);
   return (int)cudaGetLastError();
 }
 
-// the block sizes the bf16 kernel takes over bf16 pools: whole TMA boxes
-// of 8 to 64 rows a 64-key tile (the wrapper refuses the rest)
+// the block sizes the bf16 kernel loads from bf16 pools by TMA: whole
+// boxes of 8 to 64 rows a 64-key tile (the rest take the copy producer)
 static bool cw_block_size_ok(int bs) {
   return bs % CW_KEYS == 0 || (bs >= 8 && CW_KEYS % bs == 0);
 }
@@ -634,7 +692,7 @@ extern "C" int chunked_prefill_smem_bytes(int D, int bs) {
                                CP_ROWS * (kt + 1) + 3 * CP_ROWS);
 }
 
-template <typename T, int Q>
+template <typename T, int Q, int MAXD>
 static int launch_chunk_general(const void* q, const void* k_pool,
                                 const void* v_pool, const float* k_scale,
                                 const float* v_scale, const int* bt,
@@ -643,30 +701,31 @@ static int launch_chunk_general(const void* q, const void* k_pool,
                                 float scale, cudaStream_t st) {
   const int smem = chunked_prefill_smem_bytes(D, bs);
   const cudaError_t e = cudaFuncSetAttribute(
-      chunked_prefill_kernel<T, Q>,
+      chunked_prefill_kernel<T, Q, MAXD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(B, KVH, (rep * Tc + CP_ROWS - 1) / CP_ROWS);
-  chunked_prefill_kernel<T, Q><<<grid, CP_THREADS, smem, st>>>(
+  chunked_prefill_kernel<T, Q, MAXD><<<grid, CP_THREADS, smem, st>>>(
       (const T*)q, k_pool, v_pool, k_scale, v_scale, bt, pos, (T*)out, Tc,
       KVH, rep, D, bs, nbs, scale);
   return (int)cudaGetLastError();
 }
 
 // wgmma (the wrapper's route, kernels/chunked_prefill.py wgmma_ok): the
-// bf16 wgmma kernel, D 64 or 128, over bf16 pools of the block sizes of
-// cw_block_size_ok or code pools of any, q, the pools and the scales
-// 16-byte aligned.  Otherwise the general CUDA-core instance of q's
-// type (dtype 0 f32, 1 bf16): any D <= CP_MAXD and block size.  kv:
-// what the pools hold (0 q's type, 1 int8 codes, 2 fp8 codes, with the
-// scales)
+// bf16 wgmma kernel, D 64 or 128, over bf16 or code pools of any block
+// size, q, the pools and the scales 16-byte aligned; copy (the
+// wrapper's copy_producer): bf16 pools whose block size is not whole TMA
+// boxes (cw_block_size_ok), loaded by cp.async.  Otherwise the general
+// CUDA-core instance of q's type (dtype 0 f32, 1 bf16): any D <= CP_MAXD
+// and block size.  kv: what the pools hold (0 q's type, 1 int8 codes, 2
+// fp8 codes, with the scales)
 extern "C" int chunked_prefill(const void* q, const void* k_pool,
                                const void* v_pool, const void* k_scale,
                                const void* v_scale, const void* bt,
                                const void* pos, void* out, int B, int Tc,
                                int KVH, int rep, int D, int bs, int nb,
                                int nbs, float scale, int dtype, int kv,
-                               int wgmma, void* stream) {
+                               int wgmma, int copy, void* stream) {
   if (B == 0 || Tc == 0) return 0;
   if (D > CP_MAXD || bs <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
@@ -678,17 +737,20 @@ extern "C" int chunked_prefill(const void* q, const void* k_pool,
   DISPATCH_KV(kv, Q, {
     if (wgmma) {
       if (dtype != 1 || !(D == 64 || D == 128) ||
-          !(Q != 0 || cw_block_size_ok(bs)))
+          copy != (Q == 0 && !cw_block_size_ok(bs)))
         return (int)cudaErrorInvalidValue;
-      auto launch = D == 64 ? launch_chunk_wgmma<64, Q>
-                            : launch_chunk_wgmma<128, Q>;
+      auto launch = D == 64 ? (copy ? launch_chunk_wgmma<64, Q, Q == 0>
+                                    : launch_chunk_wgmma<64, Q, false>)
+                            : (copy ? launch_chunk_wgmma<128, Q, Q == 0>
+                                    : launch_chunk_wgmma<128, Q, false>);
       return launch((const bf16*)q, k_pool, v_pool, ksp, vsp, btp, posp,
                     (bf16*)out, B, Tc, KVH, rep, bs, nb, nbs, scale, st);
     }
     DISPATCH_DTYPE(dtype, T, {
-      err = launch_chunk_general<T, Q>(q, k_pool, v_pool, ksp, vsp, btp,
-                                       posp, out, B, Tc, KVH, rep, D, bs,
-                                       nbs, scale, st);
+      auto launch = D <= 128 ? launch_chunk_general<T, Q, 128>
+                             : launch_chunk_general<T, Q, CP_MAXD>;
+      err = launch(q, k_pool, v_pool, ksp, vsp, btp, posp, out, B, Tc, KVH,
+                   rep, D, bs, nbs, scale, st);
     });
   });
   return err;

@@ -14,7 +14,7 @@
 //   flash_bwd_dkv               _bwd_dkv_kernel  (pallas_call :324)
 // (bf16: fa_fwd_wgmma, fa_bwd_dq_wgmma, fa_bwd_dkv_wgmma; the general
 // instances, f32 and bf16 head dims other than 64 and 128:
-// fa_*_general<T>)
+// fa_*_general<T, ..., MAXD>)
 // The TPU grid carried the softmax state (and the dQ / dK / dV sums)
 // from one sequential grid step to the next; here a block owns a tile of
 // rows and loops over the other axis itself.  Tiles wholly above the
@@ -53,13 +53,17 @@
 //   between two barriers, the mask on every tile) ran at 14 % of it.
 //   In the backward kernels, P and dS are f32 in registers and rounded
 //   to bf16 where they feed a second product, as FlashAttention-2 does.
-// - the general instances, fa_fwd_general<T, WRITE_LSE>,
-//   fa_bwd_dq_general<T> and fa_bwd_dkv_general<T>: f32 (the CPU-scale
-//   check configuration), and bf16 at head dims the wgmma kernels are
-//   not built for (80, 96, 20, ... up to F_MAXD) or strides TMA cannot
-//   take.  CUDA cores, 16 rows and 16 columns a tile, 8 threads a row,
-//   the tiles staged in shared memory as f32 (converted on load), every
-//   sum in f32 and one rounding at the store.  Simple rather than fast.
+// - the general instances, fa_fwd_general<T, WRITE_LSE, MAXD>,
+//   fa_bwd_dq_general<T, MAXD> and fa_bwd_dkv_general<T, MAXD>: f32 (the
+//   CPU-scale check configuration), and bf16 at head dims the wgmma
+//   kernels are not built for (80, 96, 20, 256, ... up to F_MAXD) or
+//   strides TMA cannot take.  CUDA cores, 16 rows and 16 columns a tile,
+//   8 threads a row, the tiles staged in shared memory as f32 (converted
+//   on load), every sum in f32 and one rounding at the store.  A thread
+//   keeps MAXD / 8 columns of its row in registers: the instances of
+//   MAXD 128 serve D <= 128 with the registers they always had, those of
+//   256 the wider heads (Gemma's), whose tiles need more than 48 KB of
+//   shared memory.  Simple rather than fast.
 #include <cmath>
 #include <cstdint>
 
@@ -102,11 +106,12 @@ constexpr int F_THREADS = 128;
 constexpr int F_ROWS = 16;                     // rows a tile
 constexpr int F_COLS = 16;                     // columns (keys / queries)
 constexpr int F_PARTS = F_THREADS / F_ROWS;    // threads a row
-constexpr int F_MAXD = 128;
-constexpr int F_DPT = F_MAXD / F_PARTS;        // head-dim columns a thread
+constexpr int F_MAXD = 256;                    // the wrapper's MAX_HEAD_DIM
 
-template <typename T, bool WRITE_LSE>
+// MAXD / F_PARTS: the head-dim columns a thread keeps (D <= MAXD)
+template <typename T, bool WRITE_LSE, int MAXD>
 __global__ void __launch_bounds__(F_THREADS) fa_fwd_general(FAParams p) {
+  constexpr int F_DPT = MAXD / F_PARTS;
   extern __shared__ float sm[];
   const int D = p.D, LD = D + 1, tid = threadIdx.x;
   const int b = blockIdx.z, h = blockIdx.y, kh = h / (p.H / p.KVH);
@@ -199,8 +204,9 @@ __global__ void __launch_bounds__(F_THREADS) fa_fwd_general(FAParams p) {
   }
 }
 
-template <typename T>
+template <typename T, int MAXD>
 __global__ void __launch_bounds__(F_THREADS) fa_bwd_dq_general(FAParams p) {
+  constexpr int F_DPT = MAXD / F_PARTS;
   extern __shared__ float sm[];
   const int D = p.D, LD = D + 1, tid = threadIdx.x;
   const int b = blockIdx.z, h = blockIdx.y, kh = h / (p.H / p.KVH);
@@ -279,8 +285,9 @@ __global__ void __launch_bounds__(F_THREADS) fa_bwd_dq_general(FAParams p) {
   }
 }
 
-template <typename T>
+template <typename T, int MAXD>
 __global__ void __launch_bounds__(F_THREADS) fa_bwd_dkv_general(FAParams p) {
+  constexpr int F_DPT = MAXD / F_PARTS;
   extern __shared__ float sm[];
   const int D = p.D, LD = D + 1, tid = threadIdx.x;
   const int b = blockIdx.z, kh = blockIdx.y, rep = p.H / p.KVH;
@@ -1042,6 +1049,8 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
 }
 
 // ------------------------------------------------------------ C entry
+// the general instances' shared memory (kind 0 forward, 1 dQ, 2 dK/dV):
+// 26 to 35 KB at D = 128, 50 to 68 KB at D = 256
 static int f32_smem(int D, int kind) {
   const int LD = D + 1;
   const int tile = F_ROWS * (F_COLS + 1);
@@ -1049,6 +1058,21 @@ static int f32_smem(int D, int kind) {
   if (kind == 1)
     return 4 * ((2 * F_ROWS + 2 * F_COLS) * LD + tile + 2 * F_ROWS);
   return 4 * ((2 * F_ROWS + 2 * F_COLS) * LD + 2 * tile + 2 * F_COLS);
+}
+
+// a general instance over `grid` with the shared memory of `kind`, above
+// the default 48 KB after opting in
+template <typename Kernel>
+static int launch_general(Kernel kernel, dim3 grid, int kind,
+                          const FAParams& p, cudaStream_t st) {
+  const int smem = f32_smem(p.D, kind);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<grid, F_THREADS, smem, st>>>(p);
+  return (int)cudaGetLastError();
 }
 
 static FAParams make_params(const void* q, const void* k, const void* v,
@@ -1139,12 +1163,14 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   cudaStream_t st = (cudaStream_t)stream;
   if (general || dtype == 0) {
     const dim3 grid((Tq + F_ROWS - 1) / F_ROWS, H, B);
-    const int smem = f32_smem(D, 0);
     DISPATCH_DTYPE(dtype, T, {
-      if (lse)
-        fa_fwd_general<T, true><<<grid, F_THREADS, smem, st>>>(p);
-      else
-        fa_fwd_general<T, false><<<grid, F_THREADS, smem, st>>>(p);
+      if (D <= 128)
+        return launch_general(lse ? fa_fwd_general<T, true, 128>
+                                  : fa_fwd_general<T, false, 128>,
+                              grid, 0, p, st);
+      return launch_general(lse ? fa_fwd_general<T, true, F_MAXD>
+                                : fa_fwd_general<T, false, F_MAXD>,
+                            grid, 0, p, st);
     });
   } else if (D == 64) {
     return lse ? launch_fwd_wgmma<64, true>(p, st)
@@ -1206,9 +1232,11 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
   if (general || dtype == 0) {
     const dim3 grid((Tq + F_ROWS - 1) / F_ROWS, H, B);
     DISPATCH_DTYPE(dtype, T, {
-      fa_bwd_dq_general<T><<<grid, F_THREADS, f32_smem(D, 1), st>>>(p);
+      return launch_general(D <= 128 ? fa_bwd_dq_general<T, 128>
+                                     : fa_bwd_dq_general<T, F_MAXD>,
+                            grid, 1, p, st);
     });
-    return (int)cudaGetLastError();
+    return (int)cudaErrorInvalidValue;
   }
   return D == 64 ? launch_dq_wgmma<64>(p, st) : launch_dq_wgmma<128>(p, st);
 }
@@ -1245,8 +1273,11 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (general || dtype == 0) {
     const dim3 grid((Tk + F_ROWS - 1) / F_ROWS, KVH, B);
     DISPATCH_DTYPE(dtype, T, {
-      fa_bwd_dkv_general<T><<<grid, F_THREADS, f32_smem(D, 2), st>>>(p);
+      return launch_general(D <= 128 ? fa_bwd_dkv_general<T, 128>
+                                     : fa_bwd_dkv_general<T, F_MAXD>,
+                            grid, 2, p, st);
     });
+    return (int)cudaErrorInvalidValue;
   } else {
     // no query rows: zero sums (dK, dV are dense, from empty_like(k));
     // the tensor maps take no zero extent

@@ -21,7 +21,7 @@
 // merge, set the time; the design cuts both:
 //
 // - paged_decode_hopper (bf16 q over bf16, int8 or fp8 pools; the serving
-//   path).  The grid is (S, KVH, B) and the work follows the live
+//   path).  The grid is (S, KVH * G, B) and the work follows the live
 //   context, on the device: sequence b's len = pos[b] + 1 keys are cut
 //   into chunks of PF_CHUNK keys, and block s takes a contiguous run of
 //   ceil(chunks / S) of them; a block past the frontier exits at once.
@@ -47,11 +47,26 @@
 //   (batch, kv head) to finish, counted by an atomic ticket, merges the
 //   blocks' shares in block order and writes the output: one launch,
 //   and two runs give the same bits.
+//   Any GQA rep: the kernel is built for REP in {1, 2, 4} q heads a
+//   block and takes the true rep at run time.  A kv head's rep heads
+//   are cut into G = ceil(rep / 4) sub-groups of ceil(rep / G) heads on
+//   the grid's y axis, each run in the smallest REP that holds it (rep 3
+//   in REP 4, rep 7 in blocks of 4 and 3 heads, rep 16 in four), each
+//   re-reading its kv head's rows (from the L2: a kv head's sub-groups
+//   run together); rows past a sub-group's heads load no q, stay out of
+//   the merges and write nothing.  An instance of 8 heads a block
+//   spilled at the 168 registers of 3 blocks a SM and took 2.1x the
+//   time of two blocks of 4 at Qwen2-7B's shape (an H100 80GB HBM3 at
+//   700 W, PERF.md).  Any page size: a
+//   power of two finds a key's page and row with a shift and a mask
+//   (POW2); any other with a division by the page size through a
+//   multiplier from the host (__umulhi, exact below 2^31 keys), once a
+//   key a step, into the key's pool row, so the loads that follow are
+//   the same.
 // - paged_decode_partials<T, CS, Q> and paged_decode_combine<T>, the
 //   general instance (every shape the Hopper kernel is not built for:
-//   any GQA rep, block size and head_dim, unaligned pools; f32, which
-//   only the tests serve; bf16 models such as Qwen2-7B's 28 query heads
-//   over 4 kv heads, or pages of 12 tokens), two launches: a block owns
+//   head_dims other than 64 and 128, unaligned pools; f32, which only
+//   the tests serve), two launches: a block owns
 //   one (batch, kv head, split) of the wrapper's general_plan, takes pages
 //   round-robin (page p to split p % S) up to the frontier, stages each
 //   page's keys PD_KEYS at a time in shared memory as f32 (converted on
@@ -265,8 +280,19 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-// CS: the type of the cos/sin rows (f32, or bf16 as the model's tables)
-template <int Q, int D, int REP, typename CS>
+// a key's page, n / bs for n < 2^31, from the host's (magic, shift) of
+// bs (kernels/paged_attention.py div_magic)
+__device__ __forceinline__ int fast_div(int n, uint32_t magic, int shift) {
+  return (int)((__umulhi((uint32_t)n, magic) + (uint32_t)n) >> shift);
+}
+
+// CS: the type of the cos/sin rows (f32, or bf16 as the model's tables);
+// POW2: bs = 1 << bs_shift, else bs with its (bs_magic, bs_shift); FULL:
+// rep == REP in one sub-group, every head count and index known at
+// compile time (the Llama-3-8B and Mixtral shapes keep the instructions
+// they had before the runtime rep: without it their decode took 9 %
+// longer on an H100 80GB HBM3 at 700 W, PERF.md)
+template <int Q, int D, int REP, bool POW2, bool FULL, typename CS>
 __global__ void __launch_bounds__(PF_THREADS, PF_MIN_BLOCKS)
     paged_decode_hopper(
     const bf16* __restrict__ q, const CS* __restrict__ cs,
@@ -275,8 +301,9 @@ __global__ void __launch_bounds__(PF_THREADS, PF_MIN_BLOCKS)
     const float* __restrict__ v_scale, const int* __restrict__ bt,
     const int* __restrict__ pos, float* __restrict__ acc_out,
     float* __restrict__ m_out, float* __restrict__ l_out,
-    int* __restrict__ tickets, bf16* __restrict__ out, int KVH, int bs_shift,
-    int nbs, float scale) {
+    int* __restrict__ tickets, bf16* __restrict__ out, int KVH, int rep,
+    int groups, int bs, uint32_t bs_magic, int bs_shift, int nbs,
+    float scale) {
   constexpr int EPL = PF_EPL;
   constexpr int ESZ = Q == 0 ? 2 : 1;        // bytes an element
   constexpr int LPK = D / EPL;               // lanes a key row
@@ -287,11 +314,17 @@ __global__ void __launch_bounds__(PF_THREADS, PF_MIN_BLOCKS)
   __shared__ float wacc[PF_WARPS][REP][D];
   __shared__ float wm[PF_WARPS][REP], wl[PF_WARPS][REP];
 
-  const int s = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int S = gridDim.x, H = KVH * REP;
+  const int s = blockIdx.x, b = blockIdx.z;
+  const int kvh = FULL ? blockIdx.y : blockIdx.y / groups;
+  const int sub = FULL ? 0 : blockIdx.y % groups;
+  // this block's q heads: nr <= REP of the kv head's rep, from hd0 on
+  const int gsize = FULL ? REP : (rep + groups - 1) / groups;
+  const int nr = FULL ? REP : min(gsize, rep - sub * gsize);
+  const int S = gridDim.x, H = KVH * (FULL ? REP : rep);
+  const int hd0 = FULL ? kvh * REP : kvh * rep + sub * gsize;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int grp = lane / LPK, d0 = (lane % LPK) * EPL;
-  const size_t head0 = ((size_t)b * S + s) * H + kvh * REP;
+  const size_t head0 = ((size_t)b * S + s) * H + hd0;
 
   // the group's q heads rotated (rotate-half RoPE) and scaled, in f32,
   // with log2(e) folded in so that the softmax runs on exp2 (its loads
@@ -304,10 +337,14 @@ __global__ void __launch_bounds__(PF_THREADS, PF_MIN_BLOCKS)
     const int j0 = lo ? d0 : d0 - half;
 #pragma unroll
     for (int r = 0; r < REP; ++r) {
-      const bf16* qh = q + ((size_t)b * H + kvh * REP + r) * D;
+      const bf16* qh = q + ((size_t)b * H + hd0 + r) * D;
 #pragma unroll
       for (int e = 0; e < EPL; ++e) {
         const int j = j0 + e;
+        if (r >= nr) {   // a padded row: no q, its sums unused
+          qr[r][e] = 0.f;
+          continue;
+        }
         const float x1 = to_f32(qh[j]), x2 = to_f32(qh[j + half]);
         const float c = to_f32(cs[b * half + j]);
         const float sv = to_f32(sn[b * half + j]);
@@ -317,7 +354,7 @@ __global__ void __launch_bounds__(PF_THREADS, PF_MIN_BLOCKS)
   }
 
   // this block's keys: a contiguous run of whole chunks of the live ones
-  const int len = min(pos[b] + 1, nbs << bs_shift);
+  const int len = min(pos[b] + 1, POW2 ? nbs << bs_shift : nbs * bs);
   const int chunks = (len + PF_CHUNK - 1) / PF_CHUNK;
   const int per = (chunks + S - 1) / S;
   const int live = (chunks + per - 1) / per;   // blocks with keys
@@ -330,11 +367,19 @@ __global__ void __launch_bounds__(PF_THREADS, PF_MIN_BLOCKS)
   // a lane's keys of the step at k0; a key past the block's end is the
   // last live one (its weight is 0 later)
   auto key_of = [&](int k0, int u) { return min(k0 + u * KPW + grp, ke - 1); };
-  // the pool blocks of those keys (read two steps ahead of their rows)
+  // the pool blocks of those keys (read two steps ahead of their rows);
+  // other than POW2, at once the keys' pool rows
   auto pages = [&](int k0, int* pg) {
 #pragma unroll
-    for (int u = 0; u < U; ++u)
-      pg[u] = __ldg(btb + (key_of(k0, u) >> bs_shift));
+    for (int u = 0; u < U; ++u) {
+      const int key = key_of(k0, u);
+      if constexpr (POW2) {
+        pg[u] = __ldg(btb + (key >> bs_shift));
+      } else {
+        const int p = fast_div(key, bs_magic, bs_shift);
+        pg[u] = __ldg(btb + p) * bs + (key - p * bs);
+      }
+    }
   };
   // their K and V rows (and scales); a pool row of all kv heads is
   // row_bytes, this lane's bytes of it start at lane_off
@@ -344,8 +389,10 @@ __global__ void __launch_bounds__(PF_THREADS, PF_MIN_BLOCKS)
                   float* vsc) {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      const uint32_t row = ((uint32_t)pg[u] << bs_shift) +
-                           (key_of(k0, u) & ((1 << bs_shift) - 1));
+      const uint32_t row =
+          POW2 ? ((uint32_t)pg[u] << bs_shift) +
+                     (key_of(k0, u) & ((1 << bs_shift) - 1))
+               : (uint32_t)pg[u];
       const size_t off = (size_t)row * row_bytes + lane_off;
       kr[u] = __ldg(reinterpret_cast<const Raw*>(kp + off));
       vr[u] = __ldg(reinterpret_cast<const Raw*>(vp + off));
@@ -473,8 +520,8 @@ __global__ void __launch_bounds__(PF_THREADS, PF_MIN_BLOCKS)
     }
   }
   __syncthreads();
-  // the warps' shares merged in warp order
-  for (int i = threadIdx.x; i < REP * D; i += PF_THREADS) {
+  // the warps' shares merged in warp order (the block's nr heads)
+  for (int i = threadIdx.x; i < nr * D; i += PF_THREADS) {
     const int r = i / D, d = i % D;
     float mg = NEG_INF;
 #pragma unroll
@@ -493,14 +540,15 @@ __global__ void __launch_bounds__(PF_THREADS, PF_MIN_BLOCKS)
     }
   }
 
-  // the last block of this (b, kv head) to finish merges the live blocks'
+  // the last block of this (b, kv head, sub-group) to finish merges the
+  // live blocks'
   // shares in block order (log-sum-exp) and writes the output; it sets
   // the ticket back to 0 for the next launch
   __shared__ bool last;
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) {
-    int* t = tickets + (size_t)b * KVH + kvh;
+    int* t = tickets + (size_t)b * gridDim.y + blockIdx.y;
     last = atomicAdd(t, 1) == live - 1;
     if (last) *t = 0;
   }
@@ -515,7 +563,7 @@ __global__ void __launch_bounds__(PF_THREADS, PF_MIN_BLOCKS)
   constexpr int JB = IT <= 4 ? 8 : 4;
   __shared__ float sm_w[PF_MAX_SPLITS][REP], sm_l[PF_MAX_SPLITS][REP];
   __shared__ float sm_lg[REP];
-  const size_t g0 = (size_t)b * S * H + kvh * REP;   // split 0's first head
+  const size_t g0 = (size_t)b * S * H + hd0;   // split 0's first head
   const float* a0 = acc_out + g0 * D;
   float av[IT][JB];
 #pragma unroll
@@ -523,16 +571,16 @@ __global__ void __launch_bounds__(PF_THREADS, PF_MIN_BLOCKS)
     const int i = threadIdx.x + it * PF_THREADS;
 #pragma unroll
     for (int j = 0; j < JB; ++j)
-      av[it][j] = i < REP * D && j < live
+      av[it][j] = i < nr * D && j < live
                       ? __ldcg(a0 + (size_t)j * H * D + i) : 0.f;
   }
-  for (int i = threadIdx.x; i < live * REP; i += PF_THREADS) {
-    const size_t h = g0 + (size_t)(i / REP) * H + i % REP;
-    sm_w[i / REP][i % REP] = __ldcg(m_out + h);
-    sm_l[i / REP][i % REP] = __ldcg(l_out + h);
+  for (int i = threadIdx.x; i < live * nr; i += PF_THREADS) {
+    const size_t h = g0 + (size_t)(i / nr) * H + i % nr;
+    sm_w[i / nr][i % nr] = __ldcg(m_out + h);
+    sm_l[i / nr][i % nr] = __ldcg(l_out + h);
   }
   __syncthreads();
-  if (threadIdx.x < REP) {
+  if (threadIdx.x < nr) {
     const int r = threadIdx.x;
     float mg = NEG_INF;
     for (int j = 0; j < live; ++j) mg = fmaxf(mg, sm_w[j][r]);
@@ -548,7 +596,7 @@ __global__ void __launch_bounds__(PF_THREADS, PF_MIN_BLOCKS)
 #pragma unroll
   for (int it = 0; it < IT; ++it) {
     const int i = threadIdx.x + it * PF_THREADS;
-    if (i >= REP * D) break;
+    if (i >= nr * D) break;
     const int r = i / D;
     float o = 0.f;
 #pragma unroll
@@ -556,7 +604,7 @@ __global__ void __launch_bounds__(PF_THREADS, PF_MIN_BLOCKS)
       if (j < live) o += sm_w[j][r] * av[it][j];
     for (int j = JB; j < live; ++j)
       o += sm_w[j][r] * __ldcg(a0 + (size_t)j * H * D + i);
-    out[((size_t)b * H + kvh * REP) * D + i] =
+    out[((size_t)b * H + hd0) * D + i] =
         __float2bfloat16_rn(o / sm_lg[r]);
   }
 }
@@ -567,20 +615,28 @@ static int launch_hopper(const void* q, const void* cs, const void* sn,
                          const void* k_scale, const void* v_scale,
                          const void* bt, const void* pos, void* acc, void* m,
                          void* l, void* tickets, void* out, int B, int KVH,
-                         int rep, int D, int bs_shift, int nbs, int S,
-                         float scale, cudaStream_t st) {
-#define PF_CASE(R, DD)                                                       \
-  if (rep == R && D == DD) {                                                 \
-    paged_decode_hopper<Q, DD, R, CS><<<dim3(S, KVH, B), PF_THREADS, 0,      \
-                                        st>>>(                               \
-        (const bf16*)q, (const CS*)cs, (const CS*)sn, k_pool, v_pool,        \
-        (const float*)k_scale, (const float*)v_scale, (const int*)bt,        \
-        (const int*)pos, (float*)acc, (float*)m, (float*)l, (int*)tickets,   \
-        (bf16*)out, KVH, bs_shift, nbs, scale);                              \
-    return (int)cudaGetLastError();                                          \
+                         int rep, int D, int bs, int nbs, int S, float scale,
+                         int REP, int groups, uint32_t magic, int shift,
+                         cudaStream_t st) {
+#define PF_CASE(R, DD, P2, F)                                                \
+  if (REP == R && D == DD && (magic == 0) == P2 && full == F) {             \
+    paged_decode_hopper<Q, DD, R, P2, F, CS>                                \
+        <<<dim3(S, KVH * groups, B), PF_THREADS, 0, st>>>(                  \
+            (const bf16*)q, (const CS*)cs, (const CS*)sn, k_pool, v_pool,   \
+            (const float*)k_scale, (const float*)v_scale, (const int*)bt,   \
+            (const int*)pos, (float*)acc, (float*)m, (float*)l,             \
+            (int*)tickets, (bf16*)out, KVH, rep, groups, bs, magic, shift,  \
+            nbs, scale);                                                    \
+    return (int)cudaGetLastError();                                         \
   }
-  PF_CASE(1, 64) PF_CASE(2, 64) PF_CASE(4, 64) PF_CASE(8, 64)
-  PF_CASE(1, 128) PF_CASE(2, 128) PF_CASE(4, 128) PF_CASE(8, 128)
+#define PF_REPS(DD, P2, F) \
+  PF_CASE(1, DD, P2, F) PF_CASE(2, DD, P2, F) PF_CASE(4, DD, P2, F)
+  // FULL only with POW2: the shapes whose instructions it keeps
+  const bool full = magic == 0 && rep == REP && groups == 1;
+  PF_REPS(64, true, true) PF_REPS(128, true, true)
+  PF_REPS(64, true, false) PF_REPS(128, true, false)
+  PF_REPS(64, false, false) PF_REPS(128, false, false)
+#undef PF_REPS
 #undef PF_CASE
   return (int)cudaErrorInvalidValue;
 }
@@ -623,13 +679,18 @@ static int launch_general(const void* q, const void* cs, const void* sn,
 // sn's (the same codes); kv: what the pools hold (0 q's type, 1 int8
 // codes, 2 fp8 codes, with the scales).  hopper (the wrapper's route,
 // kernels/paged_attention.py hopper_path) takes paged_decode_hopper:
-// bf16, rep in {1, 2, 4, 8}, D in {64, 128}, a power-of-two bs, 16-byte
-// aligned pools, 1 <= S <= PF_MAX_SPLITS (the wrapper's decode_plan),
-// tickets: B * KVH ints, 0 before the launch and after it, used by one
-// stream at a time.  Otherwise the general instance: any type, rep, bs
-// and D (the shared memory of paged_decode_smem_bytes, at most what a
-// block can have), any S (the wrapper's general_plan), and the combine
-// kernel (tickets unused).
+// bf16 q, D in {64, 128}, any rep and bs, 16-byte aligned pools, 1 <= S
+// <= PF_MAX_SPLITS (the wrapper's decode_plan), tickets: B * KVH *
+// groups ints, 0 before the launch and after it, used by one stream at a
+// time; hopper is the instance's REP (kernels/paged_attention.py
+// hopper_group: 1, 2 or 4, groups sub-groups of ceil(rep / groups) <=
+// REP heads a kv head; one sub-group of rep == REP heads over a
+// power-of-two bs takes the FULL instance), magic 0 for a power-of-two
+// bs = 1 << shift, else bs's division multiplier (div_magic).  hopper
+// 0: the general instance, any type, rep, bs and D (the shared memory
+// of paged_decode_smem_bytes, at most what a block can have), any S
+// (the wrapper's general_plan), and the combine kernel (tickets
+// unused).
 extern "C" int paged_decode(const void* q, const void* cs, const void* sn,
                             const void* k_pool, const void* v_pool,
                             const void* k_scale, const void* v_scale,
@@ -637,22 +698,23 @@ extern "C" int paged_decode(const void* q, const void* cs, const void* sn,
                             void* m, void* l, void* tickets, void* out,
                             int B, int KVH, int rep, int D, int bs, int nbs,
                             int S, float scale, int dtype, int cs_dtype,
-                            int kv, int hopper, void* stream) {
+                            int kv, int hopper, int groups,
+                            unsigned int magic, int shift, void* stream) {
   if (B == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   int err = 0;
   if (hopper) {
-    if (dtype != 1 || tickets == nullptr || bs <= 0 || (bs & (bs - 1)) ||
-        S < 1 || S > PF_MAX_SPLITS)
+    const int per = groups > 0 ? (rep + groups - 1) / groups : 0;
+    if (dtype != 1 || tickets == nullptr || bs <= 0 || rep <= 0 ||
+        per < 1 || per > hopper || (groups - 1) * per >= rep ||
+        (magic == 0 && bs != 1 << shift) || S < 1 || S > PF_MAX_SPLITS)
       return (int)cudaErrorInvalidValue;
-    int bs_shift = 0;
-    while ((1 << bs_shift) < bs) ++bs_shift;
     DISPATCH_DTYPE(cs_dtype, CS, {
       DISPATCH_KV(kv, Q, {
         err = launch_hopper<Q, CS>(q, cs, sn, k_pool, v_pool, k_scale,
                                    v_scale, bt, pos, acc, m, l, tickets, out,
-                                   B, KVH, rep, D, bs_shift, nbs, S, scale,
-                                   st);
+                                   B, KVH, rep, D, bs, nbs, S, scale, hopper,
+                                   groups, magic, shift, st);
       });
     });
     return err;

@@ -6,12 +6,14 @@ Replaces ``paddle_tpu/kernels/chunked_prefill.py`` ``_chunk_kernel``
 ``csrc/chunked_prefill.cu``, whose header says what bounds it on the
 H100 and how its blocks split the rep*T query rows.  The kernel is
 chosen from the operands before the launch (:func:`wgmma_ok`): bf16 at
-head_dim 64 or 128 (any rep, chunk length and batch) over bf16 pools of
-block sizes 8, 16, 32 or a multiple of 64 (:func:`wgmma_block_size_ok`)
-or code pools of any, with q, the pools and the scales 16-byte aligned,
-runs the wgmma kernel; every other shape up to head_dim 128, bf16 or
-f32, the general CUDA-core instance, counted as
+head_dim 64 or 128 (any rep, chunk length, batch and block size) over
+bf16 or code pools, with q, the pools and the scales 16-byte aligned,
+runs the wgmma kernel, whose producer loads bf16 pages of 8, 16, 32 or
+a multiple of 64 keys as TMA boxes and copies every other page size by
+cp.async (:func:`copy_producer`); every other shape up to head_dim 256,
+bf16 or f32, the general CUDA-core instance, counted as
 ``chunked_prefill_general`` for bf16 (f32 keeps ``chunked_prefill``).
+head_dim above 256 raises before any launch.
 
 The caller has rotated q and k (``apply_rope``) and scattered the
 chunk's k/v into the pools; padded chunk positions went to the garbage
@@ -39,29 +41,35 @@ from . import _build, kv_quant
 KERNEL = "chunked_prefill"
 GENERAL = "chunked_prefill_general"   # bf16 on the general instance
 NEG_INF = -1e30
-MAX_HEAD_DIM = 128         # csrc/chunked_prefill.cu CP_MAXD
+MAX_HEAD_DIM = 256         # csrc/chunked_prefill.cu CP_MAXD
 BF16_HEAD_DIMS = (64, 128)  # the bf16 wgmma kernel's instances
 SMEM_LIMIT = 227 * 1024    # the general instance: a block's opt-in smem
 WGMMA_KEYS = 64            # csrc/chunked_prefill.cu CW_KEYS: a key tile
 
 
-def wgmma_block_size_ok(bs):
-    """csrc/chunked_prefill.cu ``cw_block_size_ok``: over bf16 pools the
-    bf16 kernel loads a 64-key tile as whole TMA boxes of one page's
-    rows, 8 to 64 of them (a box is 1024-byte aligned in the 128-byte
-    swizzle only from 8 rows up); code pools take any block size."""
+def tma_block_size_ok(bs):
+    """csrc/chunked_prefill.cu ``cw_block_size_ok``: the bf16 pages the
+    wgmma kernel loads as TMA boxes, a 64-key tile of whole boxes of one
+    page's rows, 8 to 64 of them (a box is 1024-byte aligned in the
+    128-byte swizzle only from 8 rows up)."""
     return bs % WGMMA_KEYS == 0 or (bs >= 8 and WGMMA_KEYS % bs == 0)
 
 
-def wgmma_ok(q, k_pool, v_pool, scales=(), kv_cache_dtype=None):
+def copy_producer(bs, kv_cache_dtype=None):
+    """Whether the wgmma kernel's producer copies a bf16 pool's rows by
+    cp.async into the ring (pages that are not whole TMA boxes: below 8
+    rows, or neither a divisor nor a multiple of 64, such as 12); code
+    pools take their own producer at any block size."""
+    return kv_cache_dtype is None and not tma_block_size_ok(bs)
+
+
+def wgmma_ok(q, k_pool, v_pool, scales=()):
     """Whether these operands go to the bf16 wgmma kernel: bf16 q at
-    head_dim 64 or 128, bf16 pools of a block size it takes (code pools
-    of any), and q, the pools and the scales 16-byte aligned (its 16-byte
-    loads and TMA copies).  Every other shape takes the general
-    instance."""
+    head_dim 64 or 128, bf16 or code pools of any block size, and q, the
+    pools and the scales 16-byte aligned (its 16-byte loads and TMA
+    copies).  Every other shape takes the general instance."""
     return (q.dtype == torch.bfloat16 and q.shape[-1] in BF16_HEAD_DIMS
-            and (kv_cache_dtype is not None
-                 or wgmma_block_size_ok(k_pool.shape[1]))
+            and k_pool.shape[1] > 0
             and all(t.data_ptr() % 16 == 0
                     for t in (q, k_pool, v_pool, *scales)))
 
@@ -115,7 +123,10 @@ def chunked_attention(q, k_pool, v_pool, block_table, positions,
     B, T, H, D = q.shape
     nb, bs, KVH, Dk = k_pool.shape
     nbs = block_table.shape[1]
-    if (Dk != D or H % KVH or D > MAX_HEAD_DIM
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"chunked_attention: head_dim {D} has no kernel "
+                         f"(at most {MAX_HEAD_DIM})")
+    if (Dk != D or H % KVH
             or not kv_quant.pools_fit(q.dtype, k_pool, v_pool, k_scale,
                                       v_scale, kv_cache_dtype)
             or block_table.dtype != torch.int32
@@ -124,7 +135,8 @@ def chunked_attention(q, k_pool, v_pool, block_table, positions,
                          f"q {tuple(q.shape)} {q.dtype}, pool "
                          f"{tuple(k_pool.shape)} {k_pool.dtype}")
     scales = () if kv_cache_dtype is None else (k_scale, v_scale)
-    wgmma = wgmma_ok(q, k_pool, v_pool, scales, kv_cache_dtype)
+    wgmma = wgmma_ok(q, k_pool, v_pool, scales)
+    copy = wgmma and copy_producer(bs, kv_cache_dtype)
     if not wgmma:
         smem = _build.bind(KERNEL, "chunked_prefill_smem_bytes",
                            [ctypes.c_int] * 2)(D, bs)
@@ -133,8 +145,8 @@ def chunked_attention(q, k_pool, v_pool, block_table, positions,
                              f"needs {smem} B of shared memory")
     fn = _build.bind(KERNEL, "chunked_prefill",
                      [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-                     + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                        ctypes.c_int, ctypes.c_void_p])
+                     + [ctypes.c_float] + [ctypes.c_int] * 4
+                     + [ctypes.c_void_p])
     general = not wgmma and q.dtype == torch.bfloat16
     name = kv_quant.counter_name(GENERAL if general else KERNEL,
                                  kv_cache_dtype)
@@ -147,6 +159,6 @@ def chunked_attention(q, k_pool, v_pool, block_table, positions,
                     p(positions), p(out), B, T, KVH, H // KVH, D, bs, nb,
                     nbs, 1.0 / math.sqrt(D), _build.dtype_code(q),
                     kv_quant.KV_DTYPE_CODES[kv_cache_dtype], int(wgmma),
-                    _build.stream_ptr(q)), name)
+                    int(copy), _build.stream_ptr(q)), name)
     _build.launches.add(name)
     return out

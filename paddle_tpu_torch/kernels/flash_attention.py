@@ -27,8 +27,8 @@ as transposed views, without a copy.
 Which kernels run is chosen from the operands before the launch
 (:func:`general_route`): bf16 at head_dim 64 or 128 with strides TMA
 takes runs the wgmma kernels; f32, and bf16 at any other head_dim up to
-128 (80 and 96, as Phi-2 and Phi-3 use, or the tests' 20) or other
-strides, the general CUDA-core instances, each bf16 launch of them
+256 (80 and 96, as Phi-2 and Phi-3 use, 256 as Gemma's, or the tests'
+20) or other strides, the general CUDA-core instances, each bf16 launch of them
 counted under its kernel's name with ``_general`` (f32 keeps the plain
 names).  There are no block-size flags and no autotune: the TPU
 kernel's tiling knobs are not function.  CPU tensors take the plain
@@ -49,7 +49,7 @@ FWD_LSE = "flash_attention_fwd_lse"
 BWD_DQ = "flash_attention_bwd_dq"
 BWD_DKV = "flash_attention_bwd_dkv"
 NEG_INF = -1e30
-MAX_HEAD_DIM = 128          # csrc/flash_attention.cu F_MAXD
+MAX_HEAD_DIM = 256          # csrc/flash_attention.cu F_MAXD
 BF16_HEAD_DIMS = (64, 128)  # the bf16 tensor-core kernels' instances
 GENERAL = "_general"        # suffix of a bf16 launch of a general kernel
 
@@ -171,7 +171,7 @@ def general_route(q, k):
     """Whether the general instances take these [B, H, T, D] views (else
     the bf16 wgmma kernels): f32; bf16 at a head_dim other than 64 and
     128, or with strides the wgmma kernels' tensor maps cannot take
-    (:func:`tma_strides`).  Raises for head_dim above 128, which no
+    (:func:`tma_strides`).  Raises for head_dim above 256, which no
     kernel takes."""
     D = q.shape[-1]
     if D > MAX_HEAD_DIM:

@@ -26,17 +26,20 @@ kernel dequantizes each row in registers.  Each scheme counts its own
 launches (``paged_decode_int8``, ``paged_decode_fp8``).
 
 Which CUDA kernel runs is chosen from the operands before the launch
-(:func:`hopper_path`).  bf16 q at the serving shapes (GQA rep 1, 2, 4
-or 8, head_dim 64 or 128, a power-of-two block size, 16-byte aligned
-pools) takes ``paged_decode_hopper``, one launch whose blocks split
-each sequence's live keys into chunks of ``CHUNK_KEYS``
-(:func:`decode_plan` sizes the grid and the scratch) and whose last
-block per (sequence, kv head) merges their shares; it reads bf16 or f32
-cos/sin as given.  Every other shape, bf16 or f32 (which only the tests
-serve), takes the general instance ``paged_decode_partials`` with the
-splits of :func:`general_plan` and a combine kernel: any rep, block size
-and head_dim whose staging fits a block's shared memory, in f32 inside
-and one rounding at the store.  A bf16 call that takes it counts as
+(:func:`hopper_path`).  bf16 q at head_dim 64 or 128 over 16-byte
+aligned pools, any GQA rep and block size, takes ``paged_decode_hopper``,
+one launch whose blocks split each sequence's live keys into chunks of
+``CHUNK_KEYS`` (:func:`decode_plan` sizes the grid and the scratch) and
+whose last block per (sequence, kv head, sub-group) merges their
+shares; it reads bf16 or f32 cos/sin as given.  Its instance holds 1,
+2 or 4 q heads a block (:func:`hopper_group`: rep 3 runs padded to 4,
+rep 7 as sub-groups of 4 and 3 heads), and a block size that is not a
+power of two finds its pages by a multiplier (:func:`div_magic`).  Every other
+shape, bf16 or f32 (which only the tests serve), takes the general
+instance ``paged_decode_partials`` with the splits of
+:func:`general_plan` and a combine kernel: any rep, block size and
+head_dim whose staging fits a block's shared memory, in f32 inside and
+one rounding at the store.  A bf16 call that takes it counts as
 ``paged_decode_general`` (``_int8``/``_fp8`` over code pools).  Both
 agree with the plain version up to the order of f32 sums (and the
 Hopper kernel's exp2).
@@ -57,7 +60,7 @@ LIB = "paged_attention"   # csrc/paged_attention.cu
 NEG_INF = -1e30
 SMEM_LIMIT = 227 * 1024    # paged_decode_partials: a block's opt-in smem
 CHUNK_KEYS = 64            # csrc/paged_attention.cu PF_CHUNK
-HOPPER_REPS = (1, 2, 4, 8)
+HOPPER_REPS = (1, 2, 4)      # q heads a block of paged_decode_hopper
 HOPPER_DIMS = (64, 128)
 BLOCKS_PER_SM = 3          # csrc/paged_attention.cu PF_MIN_BLOCKS
 MAX_SPLITS = 64            # csrc/paged_attention.cu PF_MAX_SPLITS
@@ -77,9 +80,36 @@ def _default_splits(nbs):
     return best
 
 
-def decode_plan(B, KVH, nbs, bs, sm_count):
+def hopper_group(rep):
+    """(REP, groups) of ``paged_decode_hopper`` for a GQA rep: a kv
+    head's rep q heads run as ``groups`` = ceil(rep / 4) sub-groups of
+    ceil(rep / groups) heads, each in the smallest instance of
+    HOPPER_REPS that holds it; the padded rows load no q and write
+    nothing (rep 3 runs in REP 4, 7 as blocks of 4 and 3 heads, 16 as
+    four blocks of 4, each reading its kv head's keys).  More heads a
+    block need more registers than 3 blocks a SM leave (an instance of
+    8 spilled and was slower than two of 4: ``csrc/paged_attention.cu``)."""
+    groups = -(-rep // HOPPER_REPS[-1])
+    per = -(-rep // groups)
+    return next(r for r in HOPPER_REPS if r >= per), groups
+
+
+def div_magic(bs):
+    """(magic, shift) that find a key's page ``n // bs`` on the card as
+    ``(umulhi(n, magic) + n) >> shift`` for every n < 2^31 (the round-up
+    multiplier of Granlund and Montgomery; the sum stays below 2^32);
+    magic 0 for a power of two, which the kernel's POW2 instances
+    shift."""
+    shift = (bs - 1).bit_length()
+    if bs & (bs - 1) == 0:
+        return 0, shift
+    return ((1 << 32) * ((1 << shift) - bs)) // bs + 1, shift
+
+
+def decode_plan(B, KVH, nbs, bs, sm_count, groups=1):
     """Splits of ``paged_decode_hopper``: how many blocks share one
-    (sequence, kv head)'s live keys.  Enough for BLOCKS_PER_SM blocks a
+    (sequence, kv head, sub-group)'s live keys (``groups`` sub-groups a
+    kv head, :func:`hopper_group`).  Enough for BLOCKS_PER_SM blocks a
     SM, as many as its registers let reside at once, so that the live
     blocks run in one wave when every sequence is long; no more than a
     full table has chunks of CHUNK_KEYS, nor MAX_SPLITS (the last
@@ -89,7 +119,7 @@ def decode_plan(B, KVH, nbs, bs, sm_count):
     [B, S, H, D] partials is an upper bound known
     without a host sync."""
     max_chunks = -(-nbs * bs // CHUNK_KEYS)
-    want = -(-BLOCKS_PER_SM * sm_count // max(1, B * KVH))
+    want = -(-BLOCKS_PER_SM * sm_count // max(1, B * KVH * groups))
     return max(1, min(max_chunks, want, MAX_SPLITS))
 
 
@@ -105,12 +135,11 @@ def general_plan(B, KVH, nbs, sm_count):
 
 def hopper_path(q, k_pool, v_pool, rep):
     """Whether these operands go to ``paged_decode_hopper``: bf16 q at
-    the rep and D it is built for, a power-of-two block size (its row
-    index is a shift and a mask) and pools 16-byte aligned (its row
-    loads).  Every other shape takes the general instance."""
-    bs = k_pool.shape[1]
-    return (q.dtype == torch.bfloat16 and rep in HOPPER_REPS
-            and q.shape[-1] in HOPPER_DIMS and bs > 0 and bs & (bs - 1) == 0
+    the D it is built for, any rep and block size, and pools 16-byte
+    aligned (its row loads).  Every other shape takes the general
+    instance."""
+    return (q.dtype == torch.bfloat16 and rep >= 1
+            and q.shape[-1] in HOPPER_DIMS and k_pool.shape[1] > 0
             and k_pool.data_ptr() % 16 == 0 and v_pool.data_ptr() % 16 == 0)
 
 
@@ -204,11 +233,14 @@ def paged_decode_attention(q, c, s, k_pool, v_pool, block_table, positions,
                          f"{tuple(k_pool.shape)} {k_pool.dtype}")
     fn = _build.bind(LIB, "paged_decode",
                      [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
-                     + [ctypes.c_float] + [ctypes.c_int] * 4
-                     + [ctypes.c_void_p])
+                     + [ctypes.c_float] + [ctypes.c_int] * 5
+                     + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p])
     hopper = hopper_path(q, k_pool, v_pool, rep)
+    REP, groups = hopper_group(rep) if hopper else (0, 1)
+    magic, shift = div_magic(bs) if hopper else (0, 0)
     if hopper:
-        splits = decode_plan(B, KVH, nbs, bs, _build.sm_count(q.device))
+        splits = decode_plan(B, KVH, nbs, bs, _build.sm_count(q.device),
+                             groups)
     else:
         splits = general_plan(B, KVH, nbs, _build.sm_count(q.device))
         smem = _build.bind(LIB, "paged_decode_smem_bytes",
@@ -232,14 +264,14 @@ def paged_decode_attention(q, c, s, k_pool, v_pool, block_table, positions,
     out = torch.empty_like(q)
     p = _build.ptr
     ks, vs = (p(t) for t in scales) if scales else (None, None)
-    tickets = p(_tickets(q.device, B * KVH)) if hopper else None
+    tickets = p(_tickets(q.device, B * KVH * groups)) if hopper else None
     _build.check(fn(p(q), p(c), p(s), p(k_pool), p(v_pool), ks, vs,
                     p(block_table), p(positions), p(acc), p(m), p(l),
                     tickets, p(out), B, KVH, rep, D, bs, nbs, splits,
                     1.0 / math.sqrt(D), _build.dtype_code(q),
                     _build.dtype_code(c),
-                    kv_quant.KV_DTYPE_CODES[kv_cache_dtype], int(hopper),
-                    _build.stream_ptr(q)), name)
+                    kv_quant.KV_DTYPE_CODES[kv_cache_dtype], REP, groups,
+                    magic, shift, _build.stream_ptr(q)), name)
     _build.launches.add(name)
     return out
 
@@ -287,11 +319,12 @@ _ticket_buffers: dict = {}
 
 def _tickets(device, n):
     """The int32 tickets of ``paged_decode_hopper``, one per (sequence, kv
-    head), at least ``n``, one buffer per device and stream.  Zero when
-    made; each launch leaves them at zero again (the last block of a
-    (sequence, kv head) resets its own), so the launches of one stream,
-    which run one after another, share them; launches on two streams at
-    once would mix their tickets, hence a buffer each."""
+    head, sub-group), at least ``n``, one buffer per device and stream.
+    Zero when made; each launch leaves them at zero again (the last
+    block of a (sequence, kv head, sub-group) resets its own), so the
+    launches of one stream, which run one after another, share them;
+    launches on two streams at once would mix their tickets, hence a
+    buffer each."""
     key = (device, torch.cuda.current_stream(device).cuda_stream)
     buf = _ticket_buffers.get(key)
     if buf is None or buf.numel() < n:

@@ -130,21 +130,24 @@ def _meta(*shape, dtype=torch.bfloat16):
     return torch.empty(*shape, dtype=dtype, device="meta")
 
 
-# (tag, H, KVH, D, block size, whether the fast kernels take it)
+# (tag, H, KVH, D, block size, whether the fast kernels take it: any
+# rep and block size at head_dim 64 or 128)
 ATTN_SHAPES = [
     ("llama3_8b", 32, 8, 128, 16, True), ("mixtral", 32, 8, 128, 16, True),
     ("tiny_rep2_d64", 4, 2, 64, 8, True),
-    ("qwen2_7b_pages12", 28, 4, 128, 12, False),
-    ("qwen2_7b_pages16", 28, 4, 128, 16, False),     # rep 7
+    ("qwen2_7b_pages12", 28, 4, 128, 12, True),
+    ("qwen2_7b_pages16", 28, 4, 128, 16, True),     # rep 7
     ("tiny_c1", 7, 1, 20, 12, False), ("phi2", 32, 32, 80, 16, False),
-    ("phi3_mini", 32, 32, 96, 16, False)]
+    ("phi3_mini", 32, 32, 96, 16, False),
+    ("gemma_7b", 16, 16, 256, 16, False), ("gemma_2b", 8, 1, 256, 12, False)]
 
 
 @pytest.mark.parametrize("tag,H,KVH,D,bs,fast", ATTN_SHAPES,
                          ids=[s[0] for s in ATTN_SHAPES])
 def test_decode_route(tag, H, KVH, D, bs, fast):
-    # the Hopper kernel: rep 1, 2, 4 or 8, D 64 or 128, pages a power of
-    # two; every other bf16 shape the general instance, under its name
+    # the Hopper kernel: D 64 or 128, any rep (padded to 1, 2, 4 or 8 q
+    # heads a block) and page size; every other bf16 shape the general
+    # instance, under its name
     q, pool = _meta(8, H, D), _meta(40, bs, KVH, D)
     assert pa.hopper_path(q, pool, pool, H // KVH) == fast
     want = "paged_decode" if fast else "paged_decode_general"
@@ -155,17 +158,19 @@ def test_decode_route(tag, H, KVH, D, bs, fast):
 @pytest.mark.parametrize("tag,H,KVH,D,bs,fast", ATTN_SHAPES,
                          ids=[s[0] for s in ATTN_SHAPES])
 def test_chunk_route(tag, H, KVH, D, bs, fast):
-    # the wgmma kernel: D 64 or 128 over bf16 pages of 8, 16, 32 or a
-    # multiple of 64 (code pools of any); it takes any rep
+    # the wgmma kernel: D 64 or 128 over pools of any page size and rep;
+    # bf16 pages of 8, 16, 32 or a multiple of 64 load as TMA boxes,
+    # others by its copy producer (code pools: their own producer)
     q, pool = _meta(1, 256, H, D), _meta(40, bs, KVH, D)
-    wgmma = D in (64, 128) and bs in (8, 16, 32)
+    wgmma = D in (64, 128)
     assert cp.wgmma_ok(q, pool, pool) == wgmma
+    assert cp.copy_producer(bs) == (bs not in (8, 16, 32))
     codes, scale = _meta(40, bs, KVH, D, dtype=torch.int8), \
         _meta(40, bs, dtype=torch.float32)
-    assert cp.wgmma_ok(q, codes, codes, (scale, scale), "fp8") == \
+    assert cp.wgmma_ok(q, codes, codes, (scale, scale)) == \
         (D in (64, 128))
-    if fast:
-        assert wgmma
+    assert not cp.copy_producer(bs, "fp8")
+    assert wgmma == fast
 
 
 @pytest.mark.parametrize("tag,H,KVH,D,bs,fast", ATTN_SHAPES,
@@ -176,12 +181,30 @@ def test_flash_route(tag, H, KVH, D, bs, fast):
     # f32 always the general ones, under the plain names
     q = _meta(1, 64, H, D).transpose(1, 2)
     k = _meta(1, 64, KVH, D).transpose(1, 2)
-    assert fa.general_route(q, k) == (D not in (64, 128))
+    assert fa.general_route(q, k) == (D not in (64, 128)) == (not fast)
     name = fa._launch_name(fa.FWD_LSE, q, k)
     assert name == (fa.FWD_LSE if D in (64, 128) else
                     fa.FWD_LSE + "_general")
     f32 = [x.float() for x in (q, k)]
     assert fa.general_route(*f32) and fa._launch_name(fa.FWD, *f32) == fa.FWD
+
+
+@pytest.mark.parametrize("D", [257, 384])
+def test_head_dim_above_256_raises_before_launching(monkeypatch, D):
+    # the general chunk and flash instances go to head_dim 256 (Gemma's);
+    # wider raises before any binding or launch, with the limit
+    monkeypatch.setattr(cp._build, "bind", _no_binding)
+    q, pool = _meta(1, 8, 2, D), _meta(4, 12, 1, D)
+    table = torch.zeros(1, 4, dtype=torch.int32, device="meta")
+    pos = torch.zeros(1, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="at most 256"):
+        cp.chunked_attention(q, pool, pool, table, pos)
+    with pytest.raises(ValueError, match="at most 256"):
+        fa.general_route(q.transpose(1, 2), pool[:1].transpose(1, 2))
+
+
+def _no_binding(*args, **kwargs):
+    raise AssertionError("bound a kernel")
 
 
 @pytest.mark.parametrize("M", [8, 256])

@@ -375,9 +375,10 @@ class TestCudaHopperDecode:
     @pytest.mark.parametrize("rep,D,bs", [(3, 128, 16), (4, 96, 16),
                                           (4, 128, 12)])
     def test_refuses_shapes_it_does_not_take(self, cuda_device, rep, D, bs):
-        # bf16 outside the kernel's rep, D and power-of-two block sizes
-        # is not the Hopper kernel's: the general instance takes it,
-        # under its own counter, and agrees with the plain version
+        # the Hopper kernel takes any rep (3 padded to 4 heads a block)
+        # and page size (12: the division by the page size) at D 64 or
+        # 128; bf16 at another D is the general instance's, under its own
+        # counter; each agrees with the plain version
         g = torch.Generator().manual_seed(rep * D + bs)
         q = torch.randn(2, 2 * rep, D, generator=g).bfloat16()
         pool = torch.randn(5, bs, 2, D, generator=g).bfloat16()
@@ -385,14 +386,65 @@ class TestCudaHopperDecode:
         ops = [q, ang.cos(), ang.sin(), pool, pool.clone(),
                torch.tensor([[1, 2], [3, 4]], dtype=torch.int32),
                torch.tensor([5, 20], dtype=torch.int32), 1, None, None, None]
-        assert not paged_attention.hopper_path(q, pool, pool, rep)
-        _hold_decode(ops, cuda_device, paged_attention.GENERAL)
+        hopper = D in (64, 128)
+        assert paged_attention.hopper_path(q, pool, pool, rep) == hopper
+        _hold_decode(ops, cuda_device, paged_attention.KERNEL if hopper
+                     else paged_attention.GENERAL)
 
     def test_long_context_uses_many_blocks(self, cuda_device):
         # one sequence at the end of an 8192-key table: 128 chunks over
         # decode_plan's splits
         ops = _bf16_decode_operands(1, 8, 4, 128, 512, [8191], "fp8", 7)
         _hold_decode(ops, cuda_device)
+
+    @pytest.mark.parametrize("bs", [4, 12, 24, 48])
+    @pytest.mark.parametrize("rep", [3, 5, 6, 7, 16])
+    @pytest.mark.parametrize("scheme", [None, "fp8"])
+    def test_any_rep_and_page_size(self, cuda_device, scheme, rep, bs):
+        # padded groups (3 in 4, 5 to 7 in 8), two sub-groups of 8 (16),
+        # pages found by division; frontiers at page and chunk edges, an
+        # idle slot on the poisoned block 0
+        positions = [0, bs - 1, bs, 63, 64, 6 * bs + 5]
+        ops = _bf16_decode_operands(6, 2, rep, 128, 10, positions, scheme,
+                                    rep * bs)
+        assert paged_attention.hopper_path(ops[0], ops[3], ops[4], rep)
+        out = _hold_decode(ops, cuda_device)
+        assert float(out[1:].float().abs().max()) < 50.0   # no poison
+
+    @pytest.mark.parametrize("rep", [4, 7])
+    @pytest.mark.parametrize("scheme", [None, "int8"])
+    def test_pages_of_12_give_the_bits_of_16(self, cuda_device, scheme, rep):
+        # the same keys in pages of 12 and of 16, tables of 48 keys each:
+        # the same splits, so the same bits
+        g = torch.Generator().manual_seed(rep)
+        q = torch.randn(3, 2 * rep, 64, generator=g).bfloat16()
+        ang = torch.rand(3, 32, generator=g) * 6
+        pos = torch.tensor([5, 30, 47], dtype=torch.int32)
+        got = []
+        for bs in (12, 16):
+            (k, ks), (v, vs), bt = _paged_keys(bs, 64, scheme)
+            got.append(_hold_decode([q, ang.cos(), ang.sin(), k, v, bt, pos,
+                                     1, ks, vs, scheme], cuda_device))
+        assert torch.equal(*got)
+
+
+def _paged_keys(bs, D, scheme=None, B=3, n=48, KVH=2):
+    """((k, k_scale), (v, v_scale), table): B sequences' n keys each in
+    pools of pages of ``bs`` (block 1 + b * n / bs + p holds sequence b's
+    keys p * bs ..., block 0 zeros), as codes of ``scheme`` with their
+    row scales or bf16 (scales None): the same keys and codes, row for
+    row, whatever ``bs``."""
+    g = torch.Generator().manual_seed(n + D)
+    pools = []
+    for _ in range(2):
+        keys = torch.randn(B * n, KVH, D, generator=g).bfloat16()
+        pool = torch.cat([torch.zeros(bs, KVH, D, dtype=torch.bfloat16),
+                          keys]).reshape(-1, bs, KVH, D)
+        pools.append((pool, None) if scheme is None
+                     else kv_quant.quantize_kv(pool, scheme))
+    table = (1 + torch.arange(B * n // bs, dtype=torch.int32)).reshape(
+        B, n // bs)
+    return (*pools, table)
 
 
 def _bf16_chunk_operands(B, T, KVH, rep, D, bs, positions, scheme, seed):
@@ -486,12 +538,39 @@ class TestCudaHopperChunk:
 
     @pytest.mark.parametrize("bs", [1, 4, 12, 96])
     def test_refuses_block_sizes(self, cuda_device, bs):
-        # bf16 pages that are not whole TMA boxes of 8 to 64 rows are not
-        # the wgmma kernel's: the general instance takes them, under its
-        # own counter, and agrees with the plain version
+        # bf16 pages that are not whole TMA boxes of 8 to 64 rows are
+        # loaded by the wgmma kernel's copy producer (no longer refused),
+        # and agree with the plain version
         ops = _bf16_chunk_operands(1, 8, 2, 4, 64, bs, [3], None, bs)
-        assert not chunked_prefill.wgmma_ok(ops[0], ops[1], ops[2])
-        _hold_chunk(ops, cuda_device, chunked_prefill.GENERAL)
+        assert chunked_prefill.wgmma_ok(ops[0], ops[1], ops[2])
+        assert chunked_prefill.copy_producer(bs)
+        _hold_chunk(ops, cuda_device)
+
+    @pytest.mark.parametrize("D", [64, 128])
+    @pytest.mark.parametrize("rep", [1, 4, 7])
+    @pytest.mark.parametrize("bs", [4, 12, 24, 96])
+    def test_copy_producer(self, cuda_device, bs, rep, D):
+        # the copy producer at chunk starts on and off page and tile
+        # edges, several key tiles, keys past the last one zero-filled
+        ops = _bf16_chunk_operands(3, 70, 2, rep, D, bs, [0, 37, 130], None,
+                                   bs + rep + D)
+        assert chunked_prefill.copy_producer(bs)
+        got = _hold_chunk(ops, cuda_device)
+        assert float(got.abs().max()) < 50.0      # no poison
+
+    @pytest.mark.parametrize("rep", [4, 7])
+    def test_pages_of_12_give_the_bits_of_16(self, cuda_device, rep):
+        # the same keys in pages of 12 (copy producer) and of 16 (TMA
+        # boxes), tables of 48 keys each: the same bits
+        g = torch.Generator().manual_seed(rep)
+        q = torch.randn(3, 20, 2 * rep, 128, generator=g).bfloat16()
+        pos = torch.tensor([0, 11, 28], dtype=torch.int32)
+        got = []
+        for bs in (12, 16):
+            (k, _), (v, _), bt = _paged_keys(bs, 128)
+            got.append(_hold_chunk([q, k, v, bt, pos, None, None, None],
+                                   cuda_device))
+        assert torch.equal(*got)
 
     @pytest.mark.parametrize("scheme", [None, "int8"])
     def test_ring_reuse_gives_the_same_bits(self, cuda_device, scheme):
@@ -1551,53 +1630,66 @@ def _hold_general_attention(q, k, v, do, causal):
 @pytest.mark.cuda
 class TestCudaGeneral:
     """The general bf16 instances: the shapes the fast kernels are not
-    built for (GQA rep 7, pages of 12 tokens, head_dim 20, 80 and 96, N
-    and K = 4 mod 8), as Qwen2-7B's heads or ServingConfig(block_size=12)
-    give them, each against its plain version."""
+    built for (head_dim 20, 80, 96 and 256, N and K = 4 mod 8), as
+    Phi-3's or Gemma's heads give them, each against its plain version;
+    and the shapes they took before the Hopper decode and the wgmma chunk
+    took any rep and page size (GQA rep 7, pages of 12 tokens, as
+    Qwen2-7B's heads or ServingConfig(block_size=12) give them)."""
 
     @pytest.mark.parametrize("scheme", [None, "int8", "fp8"])
     @pytest.mark.parametrize("rep,D,bs", [(7, 128, 12), (7, 20, 16),
                                           (3, 80, 12), (4, 96, 64),
-                                          (1, 128, 100)])
+                                          (1, 128, 100), (2, 256, 12)])
     def test_paged_decode(self, cuda_device, scheme, rep, D, bs):
-        # slot 0 idle on the poisoned block 0; page and table edges
+        # slot 0 idle on the poisoned block 0; page and table edges; D 64
+        # and 128 take the Hopper kernel at any rep and page size, the
+        # others (20, 80, 96, 256) the general instance
         positions = [0, bs - 1, bs, 3 * bs + 1, 8 * bs - 1]
         ops = _bf16_decode_operands(5, 2, rep, D, 8, positions, scheme,
                                     rep * D + bs, bs=bs)
-        assert not paged_attention.hopper_path(ops[0], ops[3], ops[4], rep)
-        out = _hold_decode(ops, cuda_device, paged_attention.GENERAL)
+        hopper = D in (64, 128)
+        assert paged_attention.hopper_path(ops[0], ops[3], ops[4],
+                                           rep) == hopper
+        out = _hold_decode(ops, cuda_device, paged_attention.KERNEL if hopper
+                           else paged_attention.GENERAL)
         assert float(out[1:].float().abs().max()) < 50.0   # no poison
 
-    def test_paged_decode_bf16_tables(self, cuda_device):
+    @pytest.mark.parametrize("D", [128, 96])
+    def test_paged_decode_bf16_tables(self, cuda_device, D):
         # the model's bf16 RoPE rows are read as given, the same as their
-        # f32 values
-        ops = list(_bf16_decode_operands(3, 4, 7, 128, 6, [0, 40, 71],
+        # f32 values (the Hopper kernel at rep 7 and pages of 12, the
+        # general one at D 96)
+        kernel = paged_attention.KERNEL if D == 128 \
+            else paged_attention.GENERAL
+        ops = list(_bf16_decode_operands(3, 4, 7, D, 6, [0, 40, 71],
                                          None, 11, bs=12))
         ops[1], ops[2] = ops[1].bfloat16(), ops[2].bfloat16()
-        got = _hold_decode(ops, cuda_device, paged_attention.GENERAL)
+        got = _hold_decode(ops, cuda_device, kernel)
         ops[1], ops[2] = ops[1].float(), ops[2].float()
-        assert torch.equal(got, _hold_decode(ops, cuda_device,
-                                             paged_attention.GENERAL))
+        assert torch.equal(got, _hold_decode(ops, cuda_device, kernel))
 
     @pytest.mark.parametrize("scheme", [None, "int8", "fp8"])
     @pytest.mark.parametrize("T,rep,D,bs", [(40, 7, 128, 12), (257, 7, 20, 12),
                                             (70, 3, 80, 16), (1, 4, 96, 8),
-                                            (40, 2, 128, 96)])
+                                            (40, 2, 128, 96),
+                                            (40, 2, 256, 12),
+                                            (129, 1, 256, 16)])
     def test_chunked_prefill(self, cuda_device, scheme, T, rep, D, bs):
-        # head_dim 20, 80, 96 take the general instance over every pool;
-        # pages of 12 or 96 tokens only over bf16 pools (the wgmma kernel
-        # takes code pools of any block size)
+        # head_dim 20, 80, 96 and 256 take the general instance over
+        # every pool (256: its wide instance); head_dim 128 the wgmma
+        # kernel over every pool and page size (pages of 12 or 96 by its
+        # copy producer)
         ops = _bf16_chunk_operands(2, T, 2, rep, D, bs, [0, 37], scheme,
                                    T + rep + D + bs)
         wgmma = chunked_prefill.wgmma_ok(
             ops[0], ops[1], ops[2],
-            () if scheme is None else (ops[5], ops[6]), scheme)
-        assert wgmma == (D == 128 and scheme is not None)
+            () if scheme is None else (ops[5], ops[6]))
+        assert wgmma == (D == 128)
         got = _hold_chunk(ops, cuda_device, chunked_prefill.KERNEL if wgmma
                           else chunked_prefill.GENERAL)
         assert float(got.abs().max()) < 50.0      # no poison
 
-    @pytest.mark.parametrize("D", [20, 80, 96])
+    @pytest.mark.parametrize("D", [20, 80, 96, 256])
     @pytest.mark.parametrize("causal", [False, True])
     @pytest.mark.parametrize("B,H,KVH,Tq,Tk", [(2, 7, 1, 37, 37),
                                                (1, 4, 2, 100, 130)])

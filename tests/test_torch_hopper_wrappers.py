@@ -2,7 +2,8 @@
 the grouped fused_norm_linear against the JAX package and against its
 single-weight calls and the groups it refuses, the strides the
 FlashAttention forward's and dK/dV's tensor maps take, the block sizes
-the bf16 chunked-prefill kernel takes, fused_linear at widths that are
+the bf16 chunked-prefill kernel loads by TMA (and those its copy
+producer takes), fused_linear at widths that are
 not a multiple of 8 against the JAX kernel, and the route between
 fused_linear's two bf16 instances (``tma_ok``).
 
@@ -12,11 +13,12 @@ mode.  f32 tolerance 1e-5 (the two frameworks sum in different orders).
 The CUDA kernels are held against the plain versions on the card in
 tests/test_torch_cuda.py and chip_smoke.py; the pure-Python plans of
 the skinny fused_norm_linear (its K split), of the paged decode (its
-splits, which kernel takes the operands) and of the MoE dispatch (its
-persistent blocks, ``dispatch_plan``) are held here case by case, and
-the MoE dispatch's and the KV write's wrappers shown to refuse what
-their kernels do not take before any launch and to pass their
-arguments to the C entry (a fake binding over meta tensors).
+splits, which kernel takes the operands, its GQA sub-groups and its
+page division) and of the MoE dispatch (its persistent blocks,
+``dispatch_plan``) are held here case by case, and the paged decode's,
+the chunk's, the MoE dispatch's and the KV write's wrappers shown to
+refuse what their kernels do not take before any launch and to pass
+their arguments to the C entry (a fake binding over meta tensors).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -237,12 +239,17 @@ def test_backward_checks_tma_strides(monkeypatch, layout):
     assert fa.general_route(ops[0], ops[1])
     assert fa._launch_name(fa.BWD_DKV, ops[0], ops[1]) == \
         fa.BWD_DKV + "_general"
-    # f32 always takes them, under the plain names; above 128 nothing
+    # f32 always takes them, under the plain names; head_dim 256 the
+    # general ones too, above 256 nothing
     f32 = [x.float() for x in ops[:2]]
     assert fa.general_route(*f32)
     assert fa._launch_name(fa.BWD_DQ, *f32) == fa.BWD_DQ
-    wide = _view(1, 2, 8, 160, layout)
-    with pytest.raises(ValueError, match="at most 128"):
+    gemma = _view(1, 2, 8, 256, layout)
+    assert fa.general_route(gemma, gemma)
+    assert fa._launch_name(fa.BWD_DKV, gemma, gemma) == \
+        fa.BWD_DKV + "_general"
+    wide = _view(1, 2, 8, 384, layout)
+    with pytest.raises(ValueError, match="at most 256"):
         fa.general_route(wide, wide)
 
 
@@ -251,19 +258,29 @@ def test_backward_checks_tma_strides(monkeypatch, layout):
     (8, True), (16, True), (32, True), (64, True), (128, True), (192, True),
     (1, False), (4, False), (12, False), (24, False), (96, False)])
 def test_chunk_wgmma_block_sizes(bs, ok):
-    # bf16 pools: whole TMA boxes of 8 to 64 rows of one page a key tile
-    assert cp.wgmma_block_size_ok(bs) == ok
+    # the wgmma kernel takes bf16 pools of every page size: whole TMA
+    # boxes of 8 to 64 rows of one page a key tile (ok), every other
+    # size by its copy producer; code pools by their own producer
+    assert cp.tma_block_size_ok(bs) == ok
+    assert cp.copy_producer(bs) == (not ok)
+    assert not cp.copy_producer(bs, "int8")
+    q = torch.empty(1, 4, 8, 128, dtype=torch.bfloat16, device="meta")
+    pool = torch.empty(3, bs, 2, 128, dtype=torch.bfloat16, device="meta")
+    assert cp.wgmma_ok(q, pool, pool)
 
 
-@pytest.mark.parametrize("bs,D,wgmma", [(12, 64, 0), (16, 64, 1),
-                                        (16, 80, 0), (96, 128, 0)])
+@pytest.mark.parametrize("bs,D,tma", [(12, 64, 0), (16, 64, 1),
+                                      (16, 80, 0), (96, 128, 0)])
 def test_chunk_refuses_block_sizes_before_launching(monkeypatch, bs, D,
-                                                    wgmma):
-    # a bf16 call over bf16 pools of a block size (or head_dim) the wgmma
-    # kernel does not take goes to the general instance, chosen before
-    # the launch: the flag reaches the C entry, and the launch counts as
-    # chunked_prefill_general (here on meta tensors, which take the
-    # kernel path, through a fake binding)
+                                                    tma):
+    # a bf16 call over bf16 pools goes to the wgmma kernel at head_dim 64
+    # or 128, by TMA boxes where the page size is whole boxes (tma), else
+    # by its copy producer; another head_dim goes to the general
+    # instance, counted as chunked_prefill_general.  Chosen before the
+    # launch: both flags reach the C entry (here on meta tensors, which
+    # take the kernel path, through a fake binding)
+    wgmma = int(D in (64, 128))
+    copy = int(wgmma and not tma)
     calls = []
 
     def bind(lib, fn, argtypes):
@@ -282,7 +299,7 @@ def test_chunk_refuses_block_sizes_before_launching(monkeypatch, bs, D,
                          torch.zeros(1, 2, dtype=torch.int32, device="meta"),
                          torch.zeros(1, dtype=torch.int32, device="meta"))
     (args,) = calls
-    assert args[-2] == wgmma
+    assert args[-3:-1] == (wgmma, copy)
     assert launches.snapshot() == {
         cp.KERNEL if wgmma else cp.GENERAL: 1}
 
@@ -386,12 +403,12 @@ def test_decode_plan(B, KVH, nbs, bs, splits):
 
 @pytest.mark.parametrize("dtype,rep,D,bs,want", [
     (torch.bfloat16, 4, 128, 16, True), (torch.bfloat16, 1, 64, 8, True),
-    (torch.bfloat16, 8, 128, 32, True),
+    (torch.bfloat16, 8, 128, 32, True),     # two sub-groups of 4
     (torch.float32, 4, 128, 16, False),     # f32 keeps the general kernel
-    # bf16 outside the Hopper kernel's shapes takes the general instance
-    (torch.bfloat16, 3, 128, 16, False),
+    # any rep and page size at D 64 or 128; another D the general one
+    (torch.bfloat16, 3, 128, 16, True),     # padded to 4 heads a block
     (torch.bfloat16, 4, 96, 16, False),
-    (torch.bfloat16, 4, 128, 12, False)])   # not a power of two
+    (torch.bfloat16, 4, 128, 12, True)])    # not a power of two
 def test_hopper_path(dtype, rep, D, bs, want):
     q = torch.zeros(2, 2 * rep, D, dtype=dtype)
     pool = torch.zeros(3, bs, 2, D, dtype=dtype)
@@ -400,6 +417,97 @@ def test_hopper_path(dtype, rep, D, bs, want):
         else "paged_decode"
     assert pa.counter_name(q, want, None) == general
     assert pa.counter_name(q, want, "fp8") == general + "_fp8"
+
+
+@pytest.mark.parametrize("rep,REP,groups", [
+    (1, 1, 1), (2, 2, 1), (3, 4, 1), (4, 4, 1), (5, 4, 2), (6, 4, 2),
+    (7, 4, 2), (8, 4, 2), (9, 4, 3), (12, 4, 3), (16, 4, 4), (17, 4, 5),
+    (32, 4, 8)])
+def test_hopper_group(rep, REP, groups):
+    # the smallest instance that holds a sub-group, sub-groups of at most
+    # 4 heads, none of them empty
+    assert pa.hopper_group(rep) == (REP, groups)
+    per = -(-rep // groups)
+    assert per <= REP and (groups - 1) * per < rep
+
+
+@pytest.mark.parametrize("bs", [1, 2, 3, 4, 5, 7, 12, 16, 24, 48, 96, 100,
+                                1000, 4095])
+def test_div_magic_finds_every_page(bs):
+    # the kernel's (umulhi(n, magic) + n) >> shift, in 32-bit unsigned
+    # arithmetic, against n // bs over every key of a 2^16-key table and
+    # keys up to 2^31 - 1; a power of two takes the shift alone
+    magic, shift = pa.div_magic(bs)
+    assert (magic == 0) == (bs & (bs - 1) == 0)
+    rng = np.random.RandomState(bs)
+    n = np.concatenate([np.arange(1 << 16), rng.randint(0, 2 ** 31, 4096),
+                        [2 ** 31 - 1]]).astype(np.uint64)
+    hi = (n * np.uint64(magic)) >> np.uint64(32)
+    assert (hi + n < 2 ** 32).all()
+    got = ((hi + n) >> np.uint64(shift)) if magic else n >> np.uint64(shift)
+    np.testing.assert_array_equal(got, n // np.uint64(bs))
+
+
+def _fake_decode(monkeypatch):
+    """A fake binding of paged_decode over meta tensors: the C entry's
+    arguments of each call (nothing is launched)."""
+    calls = []
+
+    def bind(lib, fn, argtypes):
+        if fn == "paged_decode_smem_bytes":
+            return lambda *a: 1024
+        return lambda *a: calls.append(a) or 0
+
+    monkeypatch.setattr(_build, "bind", bind)
+    monkeypatch.setattr(_build, "require_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(_build, "stream_ptr", lambda t: None)
+    monkeypatch.setattr(_build, "sm_count", lambda d: 132)
+    monkeypatch.setattr(pa, "_tickets", lambda d, n: torch.empty(
+        n, dtype=torch.int32, device="meta"))
+    return calls
+
+
+@pytest.mark.parametrize("rep,bs", [(4, 16), (7, 12), (3, 16), (16, 12),
+                                    (1, 48), (8, 4)])
+def test_decode_passes_group_and_division_before_launching(monkeypatch, rep,
+                                                           bs):
+    # the true rep, the instance's REP, the sub-groups and the page
+    # division (magic 0 and the shift for a power of two) reach the C
+    # entry; the splits fill the card with B * KVH * groups blocks a split
+    calls = _fake_decode(monkeypatch)
+    B, KVH, D, nbs = 8, 4, 128, 40
+    q = torch.empty(B, KVH * rep, D, dtype=torch.bfloat16, device="meta")
+    pool = torch.empty(60, bs, KVH, D, dtype=torch.bfloat16, device="meta")
+    cs = torch.empty(B, D // 2, device="meta")
+    launches.reset()
+    pa.paged_decode_attention(
+        q, cs, cs, pool, pool,
+        torch.zeros(B, nbs, dtype=torch.int32, device="meta"),
+        torch.zeros(B, dtype=torch.int32, device="meta"), 1)
+    (args,) = calls
+    REP, groups = pa.hopper_group(rep)
+    magic, shift = pa.div_magic(bs)
+    assert args[16] == rep and args[18] == bs
+    assert args[20] == pa.decode_plan(B, KVH, nbs, bs, 132, groups)
+    assert args[-5:-1] == (REP, groups, magic, shift)
+    assert args[12] is not None       # the tickets
+    assert launches.snapshot() == {pa.KERNEL: 1}
+
+
+def test_decode_general_instance_gets_no_group(monkeypatch):
+    # head_dim 96: the general instance, REP 0, no tickets
+    calls = _fake_decode(monkeypatch)
+    q = torch.empty(2, 14, 96, dtype=torch.bfloat16, device="meta")
+    pool = torch.empty(9, 12, 2, 96, dtype=torch.bfloat16, device="meta")
+    cs = torch.empty(2, 48, device="meta")
+    launches.reset()
+    pa.paged_decode_attention(
+        q, cs, cs, pool, pool,
+        torch.zeros(2, 4, dtype=torch.int32, device="meta"),
+        torch.zeros(2, dtype=torch.int32, device="meta"), 1)
+    (args,) = calls
+    assert args[-5] == 0 and args[12] is None
+    assert launches.snapshot() == {pa.GENERAL: 1}
 
 
 def test_hopper_path_refuses_unaligned_pools():
