@@ -67,21 +67,31 @@ The shapes the fast kernels once refused (fault C1 of ROADMAP.md):
      the first run's bits; the general paged decode and chunked prefill
      at Phi-3-mini's head_dim 96 (32 heads, pages of 16), the general
      chunked prefill at Gemma-7B's head_dim 256 (16 heads);
-     FlashAttention's general instances (forward, forward with LSE, dQ,
-     dK/dV) at head_dim 80, 96 and 256, T = 2048, causal; the general
-     fused_norm_linear q/k/v group at N and K = 4 mod 8 (8 and 256
-     rows); each against its plain version, one launch under its own
-     counter;
+     FlashAttention at head_dim 80, 96 and 256 (the forward, forward
+     with LSE and dQ on their wgmma instances of 128 and 256 columns,
+     dK/dV on its general instance) and at 100 (all four on the general
+     instances), T = 2048, causal, each run twice for the same bits; the
+     general fused_norm_linear q/k/v group at N and K = 4 mod 8 (8 and
+     256 rows); each against its plain version, one launch under its own
+     counter, SDPA beside the attention rows;
   4c. tiny C1: LlamaConfig.tiny in bf16 with hidden 140, 7 q heads over
      1 kv head (head_dim 20), intermediate 92, and with hidden 512, 2 q
      heads over 1 kv head (head_dim 256), pages of 12: each served on
      cuda and cpu (tokens as in phase 4, the margin BF16_MARGIN), one
      training step on both held against the same step in f32, an eval
-     forward; every general instance must launch;
+     forward; every general instance must launch (the head_dim-20
+     model's), and the 256-column wgmma forward and dQ (the head_dim-256
+     model's);
   6c. main C1 serving: Qwen2-7B's widths (qwen2_7b_config), 4 of its 28
      layers, bf16, pages of 12, phase 6's 8 requests: the Hopper paged
      decode and the wgmma chunked prefill in every step, no general
-     instance.
+     instance;
+  7c. main training at another head_dim: Phi-3-mini's widths
+     (phi3_mini_config: 32 heads of 96, hidden 3072), 8 of its 32
+     layers, one [1, 4096] batch, as phase 7: a step launches the
+     forward with LSE and dQ on their 128-column wgmma instances and
+     dK/dV on its general one, exactly once a layer, the eval forward
+     the wgmma forward, and no general forward or dQ.
 Static graph (BERT-base, Google's published bert_config.json):
   2s. static kernels: fused_linear against its plain version at
      BERT-base's shapes (M = 32 x 512 tokens, hidden 768, FFN 3072),
@@ -106,7 +116,7 @@ Static graph (BERT-base, Google's published bert_config.json):
      and fused as in 4s: 2 warm-up, 5 timed and one profiled step; 13
      fused_linear ops in the Program and 13 launches a step; it runs
      last.
-The launch counts of phases 4c, 6, 6c, 7, 6m, 7m and 7s, reset just
+The launch counts of phases 4c, 6, 6c, 7, 7c, 6m, 7m and 7s, reset just
 before each run and read just after it, show that each path went
 through every kernel of its own (and the Llama-3-8B, Mixtral, Qwen2-7B
 and BERT phases through no general instance); a kernel of the JSON line
@@ -144,6 +154,9 @@ TRAIN_WARMUP, TRAIN_STEPS = 2, 5
 MOE_LAYERS = 16                # depth of the main MoE serving phase (of 32)
 MOE_TRAIN_LAYERS = 2           # depth of the main MoE training phase
 C1_LAYERS = 4                  # depth of the Qwen2-7B-width phase (of 28)
+PHI3_LAYERS = 8                # depth of the Phi-3-mini-width training
+PHI3_T = 4096                  # phase (of 32) and its sequence: Phi-3-mini-
+                               # 4k's context
 MOE_TRAIN_T = 4096             # its sequence: the dropless [E, C, M]
                                # buffers grow with T (C = T at factor 4)
 MOE_HID = 4096                 # the MoE kernel phase: Mixtral's hidden,
@@ -279,6 +292,9 @@ def phase_build():
             for kernel, used, spill in ptxas_kernels(log):
                 if any(k in kernel for k in REDESIGNED[name]):
                     print(f"    {kernel}: {used}; {spill}")
+                if any(k in kernel for k in NO_SPILL) and \
+                        "0 bytes spill stores, 0 bytes spill loads" not in spill:
+                    raise AssertionError(f"{kernel} spills: {spill}")
 
 
 # the kernels whose -Xptxas -v lines phase 1 prints one by one
@@ -290,6 +306,10 @@ REDESIGNED = {"paged_attention": ("hopper",),
               "fused_linear": ("wgmma",),
               "moe_dispatch": ("dispatch_kernel", "combine_kernel"),
               "kv_quant": ("kv_write",)}
+
+
+# kernels whose registers must hold their work: a spill fails phase 1
+NO_SPILL = ("fa_fwd_wgmma", "fa_bwd_dq_wgmma")
 
 
 def ptxas_kernels(log):
@@ -1145,8 +1165,12 @@ def phase_moe_kernels(dev):
 # --------------------------------------------------------------- phase 2c
 C1_BS = 12                     # the C1 phases' pages: not a power of two
 C1_FLASH_T = 2048              # phase 2c's attention: T, and its (head_dim,
-C1_FLASH = ((80, 32), (96, 32), (256, 16))   # heads): Phi-2's, Phi-3-mini's
-                               # and Gemma-7B's
+C1_FLASH = (                   # heads, the main phase whose launches a row
+    (80, 32, "train_phi3"),    # reports): Phi-2's and Phi-3-mini's on the
+    (96, 32, "train_phi3"),    # 128-column wgmma forward and dQ (phase 7c),
+    (256, 16, "c1_tiny"),      # Gemma-7B's on the 256-column ones (4c's
+    (100, 32, "c1_tiny"))      # head_dim-256 model), 100 on every general
+                               # instance (4c's head_dim-20 model)
 C1_FNL_K = 3588                # phase 2c's fused_norm_linear: K and the
 C1_FNL_N = (3588, 516, 516)    # q/k/v widths, each = 4 (mod 8)
 C1_FRONTIERS = (130, 260, 390, 520, 650, 780, 910, 1055)   # phase 2's
@@ -1166,6 +1190,26 @@ def qwen2_7b_config(**overrides):
         vocab_size=152064, hidden_size=3584, intermediate_size=18944,
         num_hidden_layers=28, num_attention_heads=28, num_key_value_heads=4,
         max_position_embeddings=32768, rms_norm_eps=1e-6, rope_theta=1e6),
+        **overrides)
+
+
+def phi3_mini_config(**overrides):
+    """Phi-3-mini's widths from its published config.json
+    (microsoft/Phi-3-mini-4k-instruct): vocab 32064, hidden 3072,
+    intermediate 8192, 32 layers, 32 q / 32 kv heads (head_dim 96, no
+    GQA), rope_theta 1e4, rms_norm_eps 1e-5, max_position 4096, untied
+    embeddings; its fused qkv_proj and gate_up_proj as the Llama's
+    separate q/k/v and gate/up projections (the same products).  Its
+    2047-token sliding window is not modelled: attention is causal over
+    every position."""
+    import dataclasses
+
+    from paddle_tpu_torch.models import LlamaConfig
+
+    return dataclasses.replace(LlamaConfig(
+        vocab_size=32064, hidden_size=3072, intermediate_size=8192,
+        num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=32,
+        max_position_embeddings=4096, rms_norm_eps=1e-5, rope_theta=1e4),
         **overrides)
 
 
@@ -1382,6 +1426,119 @@ def _chunk_entry(ops, name, path):
     return out
 
 
+def c1_flash_entries(g, dev):
+    """Phase 2c's attention rows (C1_FLASH, T = C1_FLASH_T, causal): each
+    kernel once under the counter of its route, twice the same bits,
+    against its plain version, timed beside SDPA, with its bound from the
+    true head_dim's work."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    entries = {}
+    # FlashAttention at head_dims other than 64 and 128: the forward and
+    # dQ on their wgmma instances where D % 8 == 0, dK/dV on its general
+    # one; every kernel on its general one at D = 100
+    Tf = C1_FLASH_T
+    for Df, Hf, path in C1_FLASH:
+        q, k, v, do = (randn(1, Tf, Hf, Df).transpose(1, 2)
+                       for _ in range(4))
+        scale = Df ** -0.5
+        names = [fa._launch_name(n, q, k) for n in (fa.FWD, fa.FWD_LSE,
+                                                    fa.BWD_DQ, fa.BWD_DKV)]
+        wgmma = Df % 8 == 0
+        want = [n if wgmma and n != fa.BWD_DKV else n + fa.GENERAL
+                for n in (fa.FWD, fa.FWD_LSE, fa.BWD_DQ, fa.BWD_DKV)]
+        if names != want:
+            raise AssertionError(f"D={Df}: routes {names} != {want}")
+        widths = [fa.wgmma_width(q, k, n) for n in (fa.BWD_DQ, fa.BWD_DKV)]
+        print(f"  attention D={Df}: the forward and dQ on the "
+              f"{widths[0] or 'general'}, dK/dV on the "
+              f"{widths[1] or 'general'} instance", flush=True)
+        o_nolse, _ = _one_launch(names[0], lambda: fa._fwd_kernel(
+            q, k, v, True, scale, False))
+        o, lse = _one_launch(names[1], lambda: fa._fwd_kernel(
+            q, k, v, True, scale, True))
+        ops = fa._bwd_operands(q, k, v, do, lse, fa._delta(o, do))
+        dq = _one_launch(names[2], lambda: fa._dq_kernel(*ops, True, scale))
+        dk, dv = _one_launch(names[3], lambda: fa._dkv_kernel(*ops, True,
+                                                              scale))
+        o2, lse2 = fa._fwd_kernel(q, k, v, True, scale, True)
+        same = [torch.equal(o, o_nolse), torch.equal(o, o2),
+                torch.equal(lse, lse2),
+                torch.equal(dq, fa._dq_kernel(*ops, True, scale)),
+                all(map(torch.equal, (dk, dv),
+                        fa._dkv_kernel(*ops, True, scale)))]
+        print(f"  attention D={Df}: a second run's O (without and with the "
+              f"LSE), LSE, dQ, dK/dV bit-identical: {same}", flush=True)
+        if not all(same):
+            raise AssertionError(f"flash D={Df}: runs differ")
+        del o2, lse2
+        x = (q, k, v, do)
+        f = [t.float() for t in x]
+        po = fa.flash_fwd_plain(*x[:3], True, scale)[0]
+        ro, rlse = fa.flash_fwd_plain(*f[:3], True, scale)
+        pg = fa.flash_bwd_plain(*x[:3], o, lse, do, True, scale)
+        rg = fa.flash_bwd_plain(*f[:3], o.float(), lse, f[3], True, scale)
+        err = {"o": hold_bf16_attention(f"{names[0]} D={Df} o", o, po, ro)}
+        check_close(f"{names[1]} D={Df} lse", lse, rlse, F32_TOL)
+        for key, got_t, p_t, r_t in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                        pg, rg):
+            err[key] = hold_bf16_attention(
+                f"{names[2] if key == 'dq' else names[3]} D={Df} {key}",
+                got_t, p_t, r_t, key == "dq")
+        del pg, rg, po, ro
+
+        def sdpa(*a):
+            return F.scaled_dot_product_attention(*a, is_causal=True)
+
+        with torch.no_grad():
+            sdpa_ms = time_ms(lambda: sdpa(q, k, v), iters=10)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        sdpa_grad_ms = time_ms(lambda: sdpa(qg, kg, vg), iters=10)
+        sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(
+            sdpa(qg, kg, vg), (qg, kg, vg), do), iters=10) - sdpa_grad_ms
+        plain_fwd_ms = time_ms(lambda: fa.flash_fwd_plain(q, k, v, True,
+                                                          scale),
+                               iters=2, warmup=1)
+        plain_bwd_ms = time_ms(lambda: fa.flash_bwd_plain(q, k, v, o, lse,
+                                                          do, True, scale),
+                               iters=2, warmup=1)
+        pairs = Tf * (Tf + 1) / 2
+        prod = 2.0 * pairs * Df * Hf
+        qb, rb = 2 * Tf * Hf * Df, 4 * Hf * Tf
+        tag = f"_d{Df}"
+        where = "paddle_tpu/kernels/flash_attention.py"
+        src = "paddle_tpu_torch/csrc/flash_attention.cu"
+        work = f"B=1, T={Tf}, {Hf} heads, D={Df}, causal"
+        for nm, line, key, fn, plain_ms, lib, nbytes, ops_n in (
+                (names[0], 54, "o",
+                 lambda: fa._fwd_kernel(q, k, v, True, scale, False),
+                 plain_fwd_ms, sdpa_ms, 4 * qb, 2 * prod),
+                (names[1], 97, "o",
+                 lambda: fa._fwd_kernel(q, k, v, True, scale, True),
+                 plain_fwd_ms, sdpa_grad_ms, 4 * qb + rb, 2 * prod),
+                (names[2], 113, "dq",
+                 lambda: fa._dq_kernel(*ops, True, scale), plain_bwd_ms,
+                 sdpa_bwd_ms, 5 * qb + 2 * rb, 3 * prod),
+                (names[3], 151, "dk",
+                 lambda: fa._dkv_kernel(*ops, True, scale), plain_bwd_ms,
+                 sdpa_bwd_ms, 6 * qb + 2 * rb, 4 * prod)):
+            entries[nm + tag] = dict(
+                path=path, counter=nm, replaces=f"{where}:{line}",
+                source=src,
+                max_abs_err=max(err[key], err["dv"]) if key == "dk"
+                else err[key],
+                ms=time_ms(fn, iters=5), plain_ms=plain_ms, library_ms=lib,
+                bound=bound_ms(nbytes, ops_n), work=work)
+        del q, k, v, do, o, lse, ops, dq, dk, dv, qg, kg, vg
+
+    return entries
+
+
 def phase_c1_kernels(dev):
     """Attention at the shapes the general bf16 instances took (fault C1)
     and at those they still take, and the other general instances, each
@@ -1398,13 +1555,13 @@ def phase_c1_kernels(dev):
       head_dim 96 (32 heads, pages of 16), the general chunked prefill at
       Gemma-7B's head_dim 256 (16 heads);
     - FlashAttention (forward without and with the LSE, dQ, dK/dV) at
-      head_dim 80, 96 and 256 (C1_FLASH), T = C1_FLASH_T, causal;
+      head_dim 80, 96 and 256 (C1_FLASH: the forward and dQ on their
+      wgmma instances of 128 and 256 columns, dK/dV on its general one)
+      and at 100 (every kernel on its general instance), T = C1_FLASH_T,
+      causal, each kernel twice (the same bits);
     - the fused_norm_linear q/k/v group at N and K = 4 (mod 8), at a
       decode step's 8 rows and a chunk's 256."""
-    import torch.nn.functional as F
-
     from paddle_tpu_torch.kernels import chunked_prefill
-    from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import fused_norm_linear as fnl
     from paddle_tpu_torch.kernels import kv_quant, paged_attention
 
@@ -1419,7 +1576,8 @@ def phase_c1_kernels(dev):
     entries = {}
     print(f"[c1 kernels] Qwen2-7B heads on pages of {C1_BS} (Hopper decode, "
           f"wgmma chunk); general instances at Phi-3-mini's and Gemma-7B's "
-          f"head_dims, attention at {C1_FLASH}, fused_norm_linear at K="
+          f"head_dims, attention at {[c[:2] for c in C1_FLASH]}, "
+          f"fused_norm_linear at K="
           f"{C1_FNL_K}, N={C1_FNL_N}; bf16", flush=True)
 
     # Qwen2-7B's heads: the Hopper decode and the wgmma chunk
@@ -1489,85 +1647,7 @@ def phase_c1_kernels(dev):
             ops, chunked_prefill.GENERAL, "c1_tiny")
     del ops
 
-    # FlashAttention at head_dims the wgmma kernels are not built for
-    Tf = C1_FLASH_T
-    for Df, Hf in C1_FLASH:
-        q, k, v, do = (randn(1, Tf, Hf, Df).transpose(1, 2)
-                       for _ in range(4))
-        scale = Df ** -0.5
-        if not fa.general_route(q, k):
-            raise AssertionError(f"D={Df}: not the general route")
-        names = [n + fa.GENERAL for n in (fa.FWD, fa.FWD_LSE, fa.BWD_DQ,
-                                          fa.BWD_DKV)]
-        o_nolse, _ = _one_launch(names[0], lambda: fa._fwd_kernel(
-            q, k, v, True, scale, False))
-        o, lse = _one_launch(names[1], lambda: fa._fwd_kernel(
-            q, k, v, True, scale, True))
-        ops = fa._bwd_operands(q, k, v, do, lse, fa._delta(o, do))
-        dq = _one_launch(names[2], lambda: fa._dq_kernel(*ops, True, scale))
-        dk, dv = _one_launch(names[3], lambda: fa._dkv_kernel(*ops, True,
-                                                              scale))
-        if not (torch.equal(o, o_nolse) and torch.equal(
-                dq, fa._dq_kernel(*ops, True, scale))):
-            raise AssertionError(f"flash general D={Df}: runs differ")
-        x = (q, k, v, do)
-        f = [t.float() for t in x]
-        po = fa.flash_fwd_plain(*x[:3], True, scale)[0]
-        ro, rlse = fa.flash_fwd_plain(*f[:3], True, scale)
-        pg = fa.flash_bwd_plain(*x[:3], o, lse, do, True, scale)
-        rg = fa.flash_bwd_plain(*f[:3], o.float(), lse, f[3], True, scale)
-        err = {"o": hold_bf16_attention(f"{names[0]} D={Df} o", o, po, ro)}
-        check_close(f"{names[1]} D={Df} lse", lse, rlse, F32_TOL)
-        for key, got_t, p_t, r_t in zip(("dq", "dk", "dv"), (dq, dk, dv),
-                                        pg, rg):
-            err[key] = hold_bf16_attention(
-                f"{names[2] if key == 'dq' else names[3]} D={Df} {key}",
-                got_t, p_t, r_t, key == "dq")
-        del pg, rg, po, ro
-
-        def sdpa(*a):
-            return F.scaled_dot_product_attention(*a, is_causal=True)
-
-        with torch.no_grad():
-            sdpa_ms = time_ms(lambda: sdpa(q, k, v), iters=10)
-        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-        sdpa_grad_ms = time_ms(lambda: sdpa(qg, kg, vg), iters=10)
-        sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(
-            sdpa(qg, kg, vg), (qg, kg, vg), do), iters=10) - sdpa_grad_ms
-        plain_fwd_ms = time_ms(lambda: fa.flash_fwd_plain(q, k, v, True,
-                                                          scale),
-                               iters=2, warmup=1)
-        plain_bwd_ms = time_ms(lambda: fa.flash_bwd_plain(q, k, v, o, lse,
-                                                          do, True, scale),
-                               iters=2, warmup=1)
-        pairs = Tf * (Tf + 1) / 2
-        prod = 2.0 * pairs * Df * Hf
-        qb, rb = 2 * Tf * Hf * Df, 4 * Hf * Tf
-        tag = "" if Df == C1_FLASH[0][0] else f"_d{Df}"
-        where = "paddle_tpu/kernels/flash_attention.py"
-        src = "paddle_tpu_torch/csrc/flash_attention.cu"
-        work = f"B=1, T={Tf}, {Hf} heads, D={Df}, causal"
-        for nm, line, key, fn, plain_ms, lib, nbytes, ops_n in (
-                (names[0], 54, "o",
-                 lambda: fa._fwd_kernel(q, k, v, True, scale, False),
-                 plain_fwd_ms, sdpa_ms, 4 * qb, 2 * prod),
-                (names[1], 97, "o",
-                 lambda: fa._fwd_kernel(q, k, v, True, scale, True),
-                 plain_fwd_ms, sdpa_grad_ms, 4 * qb + rb, 2 * prod),
-                (names[2], 113, "dq",
-                 lambda: fa._dq_kernel(*ops, True, scale), plain_bwd_ms,
-                 sdpa_bwd_ms, 5 * qb + 2 * rb, 3 * prod),
-                (names[3], 151, "dk",
-                 lambda: fa._dkv_kernel(*ops, True, scale), plain_bwd_ms,
-                 sdpa_bwd_ms, 6 * qb + 2 * rb, 4 * prod)):
-            entries[nm + tag] = dict(
-                path="c1_tiny", counter=nm, replaces=f"{where}:{line}",
-                source=src,
-                max_abs_err=max(err[key], err["dv"]) if key == "dk"
-                else err[key],
-                ms=time_ms(fn, iters=5), plain_ms=plain_ms, library_ms=lib,
-                bound=bound_ms(nbytes, ops_n), work=work)
-        del q, k, v, do, o, lse, ops, dq, dk, dv, qg, kg, vg
+    entries.update(c1_flash_entries(g, dev))
 
     # fused_norm_linear: a q/k/v group at N and K = 4 (mod 8)
     K = C1_FNL_K
@@ -1724,22 +1804,38 @@ def _tiny_run(dev, kv_cache_dtype, weight_dtype, cfg=None, block_size=8,
 
 
 # ---------------------------------------------------------------- phase 5
-def train_launches(L, grad=True, moe=False, general=False):
+def attention_counters(cfg, T):
+    """{kernel: counter} of the attention of ``cfg``'s model over a
+    [1, T] batch, as the package routes it: ``_launch_name`` of each
+    kernel on meta tensors laid out as the model's [B, T, H, D] views
+    (``_general`` where a general instance takes the kernel)."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    q, k = (torch.empty(1, T, h, cfg.head_dim, dtype=cfg.torch_dtype,
+                        device="meta").transpose(1, 2)
+            for h in (cfg.num_attention_heads, cfg.num_key_value_heads))
+    return {n: fa._launch_name(n, q, k)
+            for n in (fa.FWD, fa.FWD_LSE, fa.BWD_DQ, fa.BWD_DKV)}
+
+
+def train_launches(L, grad=True, moe=False, attn=None):
     """Kernel launches of one training step (``grad``) or one forward
     without grad of an L-layer model: two RMSNorms a layer and the final
     one (forward only: their backward is plain PyTorch); RoPE on q and
-    k, forward and backward; one attention forward, dQ and dK/dV (the
-    general instances' counters with ``general``: a bf16 head_dim other
-    than 64 and 128); with ``moe``, one dispatch and one combine a
-    layer, and in the backward each again as the other's gradient."""
+    k, forward and backward; one attention forward, dQ and dK/dV, under
+    the counters ``attn`` names for them ({kernel: counter}; by default
+    the kernels' own names: no general instance); with ``moe``, one
+    dispatch and one combine a layer, and in the backward each again as
+    the other's gradient."""
     from paddle_tpu_torch.kernels import flash_attention as fa
 
-    g = fa.GENERAL if general else ""
+    a = {n: n for n in (fa.FWD, fa.FWD_LSE, fa.BWD_DQ, fa.BWD_DKV)}
+    a.update(attn or {})
     if not grad:
-        out = {"rms_norm": 2 * L + 1, "rope": 2 * L, fa.FWD + g: L}
+        out = {"rms_norm": 2 * L + 1, "rope": 2 * L, a[fa.FWD]: L}
     else:
-        out = {"rms_norm": 2 * L + 1, "rope": 4 * L, fa.FWD_LSE + g: L,
-               fa.BWD_DQ + g: L, fa.BWD_DKV + g: L}
+        out = {"rms_norm": 2 * L + 1, "rope": 4 * L, a[fa.FWD_LSE]: L,
+               a[fa.BWD_DQ]: L, a[fa.BWD_DKV]: L}
     if moe:
         out.update(moe_dispatch=L * (1 + grad), moe_combine=L * (1 + grad))
     return out
@@ -1817,6 +1913,10 @@ C1_GENERAL = ("fused_norm_linear_general", "paged_decode_general",
               "flash_attention_fwd_lse_general",
               "flash_attention_bwd_dq_general",
               "flash_attention_bwd_dkv_general")
+# the head_dim-256 model's forward and dQ: the wgmma instances of 256
+# columns, under the kernels' own names
+C1_WGMMA_256 = ("flash_attention_fwd", "flash_attention_fwd_lse",
+                "flash_attention_bwd_dq")
 
 
 def phase_tiny_c1(dev):
@@ -1827,7 +1927,9 @@ def phase_tiny_c1(dev):
     on the cpu, to twice the bf16 cpu step's error plus one bf16 rounding
     (2^-9) of the largest entry; then an eval forward without grad on
     cuda.  The launch counts, set to 0 before and read after, must show
-    every general instance.  Returns them."""
+    every general instance (all of the head_dim-20 model's) and the
+    256-column wgmma forward and dQ (the head_dim-256 model's).  Returns
+    them."""
     from paddle_tpu_torch.kernels import launches
     from paddle_tpu_torch.models import LlamaConfig
 
@@ -1838,7 +1940,7 @@ def phase_tiny_c1(dev):
         _tiny_c1_train(dev, kw)
     counts = launches.snapshot()
     print(f"[tiny c1] launches {counts}", flush=True)
-    missing = [k for k in C1_GENERAL if not counts.get(k)]
+    missing = [k for k in C1_GENERAL + C1_WGMMA_256 if not counts.get(k)]
     if missing:
         raise AssertionError(f"tiny c1: no launch of {missing}")
     return counts
@@ -1846,9 +1948,10 @@ def phase_tiny_c1(dev):
 
 def _tiny_c1_train(dev, kw):
     """One training step of the tiny bf16 model of ``kw`` on cuda and cpu
-    against the same step in f32 on the cpu (phase_tiny_c1), its launches
-    a step those of the general attention kernels, then an eval
-    forward."""
+    against the same step in f32 on the cpu (phase_tiny_c1), its
+    attention launches a step those its head_dim routes to (head_dim 20:
+    every general instance; 256: the wgmma forward and dQ, the general
+    dK/dV), then an eval forward."""
     from paddle_tpu_torch.kernels import launches
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
@@ -1875,7 +1978,8 @@ def _tiny_c1_train(dev, kw):
         if name == "cuda":
             step = {k: n - before.get(k, 0) for k, n in
                     launches.snapshot().items() if n != before.get(k, 0)}
-            want = train_launches(tcfg.num_hidden_layers, general=True)
+            want = train_launches(tcfg.num_hidden_layers, attn=
+                                  attention_counters(tcfg, tokens.shape[1]))
             if step != want:
                 raise AssertionError(f"tiny c1 train: launches {step} != "
                                      f"{want}")
@@ -2302,9 +2406,11 @@ def _families(rows):
 
 
 # ---------------------------------------------------------------- phase 7
-def phase_train(dev, cfg, T, tag, title):
+def phase_train(dev, cfg, T, tag, title, attn=None):
     """The training path of ``cfg`` (bf16, fused loss), one [1, T] batch
-    with labels = tokens, AdamW(1e-4) with its defaults.  Returns the
+    with labels = tokens, AdamW(1e-4) with its defaults; every step and
+    the eval forward launch exactly ``train_launches`` (``attn``: the
+    attention's counters, by default no general instance).  Returns the
     launch counts of the whole phase.  A MoE model's MFU counts its
     active parameters: the experts' weights K / E of them."""
     from paddle_tpu_torch.kernels import launches
@@ -2327,7 +2433,8 @@ def phase_train(dev, cfg, T, tag, title):
           f"parameters ({n_active / 1e9:.3f} B active), random weights "
           f"(seed 0) in {time.perf_counter() - t0:.1f} s; batch [1, {T}]",
           flush=True)
-    per_step = train_launches(L, moe=E > 0)
+    per_step = train_launches(L, moe=E > 0, attn=attn)
+    per_eval = train_launches(L, grad=False, moe=E > 0, attn=attn)
     marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
 
     def step():
@@ -2358,16 +2465,14 @@ def phase_train(dev, cfg, T, tag, title):
                            "profiled train step")
     with torch.no_grad():
         eval_loss = counted(lambda: float(model(tokens, labels=tokens)[0]),
-                            train_launches(L, grad=False, moe=E > 0),
-                            "eval forward")
+                            per_eval, "eval forward")
     counts = launches.snapshot()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     print(f"  losses {[round(x, 4) for x in losses]}, eval after "
           f"{len(losses) + 1} steps {eval_loss:.4f}, ln V {math.log(V):.4f}")
-    print(f"  launches a step {per_step}; eval forward "
-          f"{train_launches(L, grad=False, moe=E > 0)}; phase {counts}",
-          flush=True)
+    print(f"  launches a step {per_step}; eval forward {per_eval}; phase "
+          f"{counts}", flush=True)
     # logits of unit variance (normed rows against std 1/sqrt(hidden)
     # columns) put the first loss at ln V + 1/2 in expectation
     if not all(math.isfinite(x) for x in losses + [eval_loss]) or \
@@ -2401,6 +2506,24 @@ def phase_train(dev, cfg, T, tag, title):
         print(f"    {ms:8.3f} ms  {count:5d}x  {name[:90]}")
     print(f"  {json.dumps(out)}", flush=True)
     return counts
+
+
+def phase_train_phi3(dev, attn=None):
+    """Phase 7c: phase 7's training path at Phi-3-mini's widths
+    (phi3_mini_config: 32 heads of 96), PHI3_LAYERS layers, one [1,
+    PHI3_T] batch.  A step's attention launches ``attn`` (by default the
+    forward and dQ on their 128-column wgmma instances under the
+    kernels' own names, dK/dV on its general instance, and no general
+    forward or dQ; ``tools/turns`` passes an older checkout's routes).
+    Returns the phase's launch counts."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    if attn is None:
+        attn = {fa.FWD: fa.FWD, fa.FWD_LSE: fa.FWD_LSE, fa.BWD_DQ: fa.BWD_DQ,
+                fa.BWD_DKV: fa.BWD_DKV + fa.GENERAL}
+    return phase_train(dev, phi3_mini_config(
+        num_hidden_layers=PHI3_LAYERS, fused_lm_loss=True), PHI3_T,
+        "train phi3", "Phi-3-mini width", attn)
 
 
 # ------------------------------------------------------- static graph
@@ -2796,6 +2919,8 @@ def main() -> int:
         num_hidden_layers=TRAIN_LAYERS, fused_lm_loss=True), TRAIN_T,
         "train", "Llama-3-8B width")
     free()
+    phi3_counts = phase_train_phi3(dev)
+    free()
     moe_train_counts = phase_train(dev, mixtral_config(
         num_hidden_layers=MOE_TRAIN_LAYERS, fused_lm_loss=True),
         MOE_TRAIN_T, "train moe", "Mixtral-8x7B width")
@@ -2804,7 +2929,7 @@ def main() -> int:
     runs = {"serve": counts, "quant": quant_counts, "train": train_counts,
             "moe_serve": moe_counts, "moe_train": moe_train_counts,
             "static_train": static_counts, "c1_tiny": c1_tiny_counts,
-            "c1_serve": c1_counts}
+            "c1_serve": c1_counts, "train_phi3": phi3_counts}
     kernels = []
     for name, e in [*entries.items(), *train_entries.items(),
                     *moe_entries.items(), *c1_entries.items(),

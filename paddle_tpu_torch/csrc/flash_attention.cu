@@ -12,9 +12,9 @@
 //   flash_fwd<WRITE_LSE=true>   _fwd_kernel_lse  (pallas_call :254)
 //   flash_bwd_dq                _bwd_dq_kernel   (pallas_call :306)
 //   flash_bwd_dkv               _bwd_dkv_kernel  (pallas_call :324)
-// (bf16: fa_fwd_wgmma, fa_bwd_dq_wgmma, fa_bwd_dkv_wgmma; the general
-// instances, f32 and bf16 head dims other than 64 and 128:
-// fa_*_general<T, ..., MAXD>)
+// (bf16: fa_fwd_wgmma, fa_bwd_dq_wgmma at every head dim that is a
+// multiple of 8 up to 256, fa_bwd_dkv_wgmma at 64 and 128; the general
+// instances, f32 and the other bf16 shapes: fa_*_general<T, ..., MAXD>)
 // The TPU grid carried the softmax state (and the dQ / dK / dV sums)
 // from one sequential grid step to the next; here a block owns a tile of
 // rows and loops over the other axis itself.  Tiles wholly above the
@@ -29,7 +29,8 @@
 // - bf16 (the trained model), forward: a warp-specialized Hopper kernel
 //   (fa_fwd_wgmma, below: TMA loads of Q once and of K/V tiles of 128
 //   keys into a 2-stage mbarrier ring, wgmma for both products, two
-//   consumer warpgroups of 64 query rows); at T = 8192, 32/8 heads,
+//   consumer warpgroups of 64 query rows; instances of 64, 128 and 256
+//   columns, narrower heads zero-padded by TMA); at T = 8192, 32/8 heads,
 //   D = 128 its bound is 0.556 ms of operations.  The mma.sync kernel it
 //   replaces copied each 64-key tile with all threads between two
 //   barriers, without overlap, on 4 warps and 64 rows a block, and ran
@@ -56,8 +57,9 @@
 // - the general instances, fa_fwd_general<T, WRITE_LSE, MAXD>,
 //   fa_bwd_dq_general<T, MAXD> and fa_bwd_dkv_general<T, MAXD>: f32 (the
 //   CPU-scale check configuration), and bf16 at head dims the wgmma
-//   kernels are not built for (80, 96, 20, 256, ... up to F_MAXD) or
-//   strides TMA cannot take.  CUDA cores, 16 rows and 16 columns a tile,
+//   kernels are not built for (the forward and dQ: not a multiple of 8,
+//   such as 20; dK/dV: also 80, 96, 256, ... up to F_MAXD) or strides TMA
+//   cannot take.  CUDA cores, 16 rows and 16 columns a tile,
 //   8 threads a row, the tiles staged in shared memory as f32 (converted
 //   on load), every sum in f32 and one rounding at the store.  A thread
 //   keeps MAXD / 8 columns of its row in registers: the instances of
@@ -385,43 +387,100 @@ __global__ void __launch_bounds__(F_THREADS) fa_bwd_dkv_general(FAParams p) {
 // --------------------------------------- bf16 forward (wgmma + TMA)
 // A block owns 128 query rows of one (batch, head): warpgroups 0 and 1
 // consume 64 rows each, warpgroup 2 produces.  One producer thread loads
-// the Q tile once, then K and V tiles of 128 keys into a 2-stage ring,
+// the Q tile once, then K and V tiles of BN keys into a 2-stage ring,
 // by TMA from 4-D tensor maps over the [B, H, T, D] strides, 128-byte
-// swizzled (D / 64 boxes of [128 rows][64] a tile), with a full barrier
-// for K and one for V (S can start before V lands) and an empty barrier
-// a stage.  A consumer computes S = Q K^T with wgmma m64n128k16 from
-// shared memory (both K-major), the online softmax in f32 on its
-// registers with exp2 and scale * log2(e) folded into one multiply-add
-// (only tiles that reach past the diagonal, a ragged end or rows past Tq
-// are masked; tiles above the diagonal are never loaded), rescales O,
-// rounds P to bf16 in the A-fragment layout, and issues O += P V with P
-// from registers and V, MN-major, from shared memory.  Blocks run the
-// longest causal query tiles first, the query heads of one kv head
-// adjacent, so their K and V tiles come from L2.
-constexpr int FA_BM = 128, FA_BN = 128, FA_THREADS = 384;
-constexpr int FA_BOX = 128 * 64 * 2;            // [128 rows][64] bf16
+// swizzled (boxes of [rows][64] a tile), with a full barrier for K and
+// one for V (S can start before V lands) and an empty barrier a stage.
+// A consumer computes S = Q K^T with wgmma from shared memory (both
+// K-major), the online softmax in f32 on its registers with exp2 and
+// scale * log2(e) folded into one multiply-add (only tiles that reach
+// past the diagonal, a ragged end or rows past Tq are masked; tiles
+// above the diagonal are never loaded), rescales O, rounds P to bf16 in
+// the A-fragment layout, and issues O += P V with P from registers and
+// V, MN-major, from shared memory.  Blocks run the longest causal query
+// tiles first, the query heads of one kv head adjacent, so their K and
+// V tiles come from L2.
+//
+// The instance W (64, 128 or 256 columns) takes every head_dim D that
+// is a multiple of 8 in (W / 2, W] (any D <= 64 for W = 64).  The tensor
+// maps' innermost extent is the true D, so TMA fills the columns D..W-1
+// of every box with zeros (a box wholly past D, as the fourth of W = 256
+// at D <= 192, too): they add nothing to Q K^T, and the columns of O
+// past D come out 0 and are not stored (in the model's [B, T, H, D]
+// layout they are the next head's).  The instance does the products of
+// its full width: skipping the k steps past D at run time made ptxas
+// serialize the wgmma chain (warpgroup.arrive injected), and dQ at D =
+// 128 a third slower on an H100.  W = 256 (Gemma's heads) takes keys 64
+// at a time so that Q and two stages of K and V fit (192 KB), and its
+// consumers 240 registers (O is 128 a thread).
+constexpr int FA_BM = 128, FA_THREADS = 384;
+constexpr int FA_QBOX = FA_BM * 64 * 2;          // [128 rows][64] bf16
 
-struct FAMaps {
-  CUtensorMap q, k, v;   // [B, H, T, D] as (D, T, H, B), box (64, 128, 1, 1)
-};
-
-template <int D>
-constexpr int fa_fwd_smem() {
-  return 5 * (D / 64) * FA_BOX + 1024 + 7 * 8;   // Q, 2 K and 2 V stages
+template <int W>
+__host__ __device__ constexpr int fa_bn() {
+  return W == 256 ? 64 : 128;                    // keys a K / V tile
 }
 
-template <int D, bool WRITE_LSE>
+struct FAMaps {
+  CUtensorMap q, k, v;   // [B, H, T, D] as (D, T, H, B), boxes (64, rows)
+};
+
+template <int W>
+constexpr int fa_fwd_smem() {
+  // alignment; Q; 2 K and 2 V stages; barriers
+  return 1024 + (W / 64) * (FA_QBOX + 4 * fa_bn<W>() * 128) + 7 * 8;
+}
+
+// the consumers' and the producer's registers (setmaxnreg): 2 x 128 x
+// MMA + 128 x LOAD = 384 x 168, what a block of 384 threads starts with
+template <int W>
+__host__ __device__ constexpr int mma_regs() {
+  return W == 256 ? 240 : 232;
+}
+template <int W>
+__host__ __device__ constexpr int load_regs() {
+  return W == 256 ? 24 : 40;
+}
+
+// D[64 x W] (+)= A[64 x 16] (registers) . B[16 x W] (MN-major)
+template <int W>
+__device__ __forceinline__ void wgmma_rs_w(float* d, const uint32_t* a,
+                                           uint64_t db) {
+  if constexpr (W == 256)
+    hopper::wgmma_rs_n256<1>(d, a, db, 1);
+  else if constexpr (W == 128)
+    hopper::wgmma_rs_n128<1>(d, a, db, 1);
+  else
+    hopper::wgmma_rs_n64<1>(d, a, db, 1);
+}
+
+// D[64 x N] (+)= A[64 x 16] . B[16 x N], both K-major in shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_ss_kk(float* d, uint64_t da,
+                                            uint64_t db, int accumulate) {
+  if constexpr (N == 128)
+    hopper::wgmma_ss_n128<0>(d, da, db, accumulate);
+  else if constexpr (N == 64)
+    hopper::wgmma_ss_n64<0>(d, da, db, accumulate);
+  else
+    hopper::wgmma_ss_n32<0>(d, da, db, accumulate);
+}
+
+template <int W, bool WRITE_LSE>
 __global__ void __launch_bounds__(FA_THREADS, 1)
     fa_fwd_wgmma(const __grid_constant__ FAMaps maps, FAParams p) {
   using namespace hopper;
-  constexpr int TILE = (D / 64) * FA_BOX;       // one Q, K or V tile
+  constexpr int BN = fa_bn<W>();
+  constexpr int KBOX = BN * 64 * 2;             // [BN rows][64] bf16
+  constexpr int QT = (W / 64) * FA_QBOX;        // the Q tile
+  constexpr int KT = (W / 64) * KBOX;           // one K or V tile
   extern __shared__ uint8_t fwd_smem[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(fwd_smem) + 1023) & ~uintptr_t(1023));
   uint8_t* qs = smem;
-  uint8_t* ks = qs + TILE;                      // 2 stages
-  uint8_t* vs = ks + 2 * TILE;                  // 2 stages
-  uint64_t* bars = reinterpret_cast<uint64_t*>(vs + 2 * TILE);
+  uint8_t* ks = qs + QT;                        // 2 stages
+  uint8_t* vs = ks + 2 * KT;                    // 2 stages
+  uint64_t* bars = reinterpret_cast<uint64_t*>(vs + 2 * KT);
   uint64_t* q_full = bars;
   uint64_t* k_full = bars + 1;
   uint64_t* v_full = bars + 3;
@@ -433,7 +492,7 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
   const int qt = p.causal ? n_qt - 1 - rank : rank;
   const int kh = h / (p.H / p.KVH), q0 = qt * FA_BM;
   const int kend = key_limit(p, min(q0 + FA_BM, p.Tq) - 1);
-  const int n_kt = (kend + FA_BN - 1) / FA_BN;
+  const int n_kt = (kend + BN - 1) / BN;
   // tiles from here on need the mask: keys some row of the block may not
   // see (rows past Tq see none)
   const int mask_from = q0 + FA_BM > p.Tq ? 0 : key_limit(p, q0);
@@ -451,30 +510,30 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
 
   if (threadIdx.x >= 256) {
     // ------------------------------------------------------ producer
-    setmaxnreg_dec<40>();
+    setmaxnreg_dec<load_regs<W>()>();
     if (threadIdx.x == 256) {
-      mbar_expect_tx(q_full, TILE);
+      mbar_expect_tx(q_full, QT);
 #pragma unroll
-      for (int x = 0; x < D / 64; ++x)
-        tma_load_4d(qs + x * FA_BOX, &maps.q, q_full, x * 64, q0, h, b);
+      for (int x = 0; x < W / 64; ++x)
+        tma_load_4d(qs + x * FA_QBOX, &maps.q, q_full, x * 64, q0, h, b);
       for (int it = 0; it < n_kt; ++it) {
         const int s = it & 1;
         if (it >= 2) mbar_wait(&empty[s], ((it >> 1) - 1) & 1);
-        mbar_expect_tx(&k_full[s], TILE);
+        mbar_expect_tx(&k_full[s], KT);
 #pragma unroll
-        for (int x = 0; x < D / 64; ++x)
-          tma_load_4d(ks + s * TILE + x * FA_BOX, &maps.k, &k_full[s],
-                      x * 64, it * FA_BN, kh, b);
-        mbar_expect_tx(&v_full[s], TILE);
+        for (int x = 0; x < W / 64; ++x)
+          tma_load_4d(ks + s * KT + x * KBOX, &maps.k, &k_full[s], x * 64,
+                      it * BN, kh, b);
+        mbar_expect_tx(&v_full[s], KT);
 #pragma unroll
-        for (int x = 0; x < D / 64; ++x)
-          tma_load_4d(vs + s * TILE + x * FA_BOX, &maps.v, &v_full[s],
-                      x * 64, it * FA_BN, kh, b);
+        for (int x = 0; x < W / 64; ++x)
+          tma_load_4d(vs + s * KT + x * KBOX, &maps.v, &v_full[s], x * 64,
+                      it * BN, kh, b);
       }
     }
   } else {
     // ------------------------------------------------------ consumers
-    setmaxnreg_inc<232>();
+    setmaxnreg_inc<mma_regs<W>()>();
     const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32;
     const int lane = threadIdx.x % 32, g = lane / 4, tg = lane % 4;
     int row[2], lim[2];
@@ -484,38 +543,39 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
       lim[i] = row[i] < p.Tq ? key_limit(p, row[i]) : 0;
     }
     const float scale_log2 = p.scale * 1.4426950408889634f;
-    float o[D / 2];
+    float o[W / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < W / 2; ++i) o[i] = 0.f;
     float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // m in log2 units
     const uint32_t qa = smem_u32(qs) + wg * 64 * 128;
     mbar_wait(q_full, 0);
 
     for (int it = 0; it < n_kt; ++it) {
-      const int s = it & 1, kb = it * FA_BN;
+      const int s = it & 1, kb = it * BN;
       const uint32_t parity = (it >> 1) & 1;
-      const uint32_t ka = smem_u32(ks + s * TILE);
-      const uint32_t va = smem_u32(vs + s * TILE);
-      float sc[FA_BN / 2];
+      const uint32_t ka = smem_u32(ks + s * KT);
+      const uint32_t va = smem_u32(vs + s * KT);
+      float sc[BN / 2];
 #pragma unroll
-      for (int i = 0; i < FA_BN / 2; ++i) sc[i] = 0.f;
+      for (int i = 0; i < BN / 2; ++i) sc[i] = 0.f;
       mbar_wait(&k_full[s], parity);
       wgmma_fence();
-      fence_regs<FA_BN / 2>(sc);
+      fence_regs<BN / 2>(sc);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t off = (kk / 4) * FA_BOX + (kk % 4) * 32;
-        wgmma_ss_n128<0>(sc, desc_sw128(qa + off, 16, 1024),
-                         desc_sw128(ka + off, 16, 1024), 1);
+      for (int kk = 0; kk < W / 16; ++kk) {
+        const uint32_t qo = (kk / 4) * FA_QBOX + (kk % 4) * 32;
+        const uint32_t ko = (kk / 4) * KBOX + (kk % 4) * 32;
+        wgmma_ss_kk<BN>(sc, desc_sw128(qa + qo, 16, 1024),
+                        desc_sw128(ka + ko, 16, 1024), 1);
       }
       wgmma_commit();
       wgmma_wait<0>();
-      fence_regs<FA_BN / 2>(sc);
+      fence_regs<BN / 2>(sc);
 
       // sc[4 j + 2 i + c]: row g + 8 i, key kb + 8 j + 2 tg + c
-      if (kb + FA_BN > mask_from) {
+      if (kb + BN > mask_from) {
 #pragma unroll
-        for (int j = 0; j < FA_BN / 8; ++j)
+        for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
           for (int c = 0; c < 4; ++c)
             if (kb + 8 * j + 2 * tg + (c & 1) >= lim[c >> 1])
@@ -523,7 +583,7 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
       }
       float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-      for (int j = 0; j < FA_BN / 8; ++j)
+      for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
         for (int c = 0; c < 4; ++c)
           mx[c >> 1] = fmaxf(mx[c >> 1], sc[4 * j + c]);
@@ -537,7 +597,7 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
         m[i] = mn;
       }
 #pragma unroll
-      for (int j = 0; j < FA_BN / 8; ++j)
+      for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const float e = exp2f(fmaf(sc[4 * j + c], scale_log2, -m[c >> 1]));
@@ -548,30 +608,26 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
       l[0] = l[0] * alpha[0] + lsum[0];
       l[1] = l[1] * alpha[1] + lsum[1];
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
+      for (int j = 0; j < W / 8; ++j)
 #pragma unroll
         for (int c = 0; c < 4; ++c) o[4 * j + c] *= alpha[c >> 1];
-      uint32_t pa[FA_BN / 16][4];
+      uint32_t pa[BN / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < FA_BN / 16; ++kk)
+      for (int kk = 0; kk < BN / 16; ++kk)
 #pragma unroll
         for (int r = 0; r < 4; ++r)
           pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
 
       mbar_wait(&v_full[s], parity);
       wgmma_fence();
-      fence_regs<D / 2>(o);
+      fence_regs<W / 2>(o);
 #pragma unroll
-      for (int kk = 0; kk < FA_BN / 16; ++kk) {
-        const uint64_t dv = desc_sw128(va + kk * 16 * 128, FA_BOX, 1024);
-        if constexpr (D == 128)
-          wgmma_rs_n128<1>(o, pa[kk], dv, 1);
-        else
-          wgmma_rs_n64<1>(o, pa[kk], dv, 1);
-      }
+      for (int kk = 0; kk < BN / 16; ++kk)
+        wgmma_rs_w<W>(o, pa[kk], desc_sw128(va + kk * 16 * 128, KBOX, 1024));
       wgmma_commit();
       wgmma_wait<0>();
-      fence_regs<D / 2>(o);
+      fence_regs<W / 2>(o);
+      keep_regs<4 * (BN / 16)>(&pa[0][0]);
       if (lane == 0) mbar_arrive(&empty[s]);
     }
 
@@ -585,10 +641,13 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
       if (row[i] >= p.Tq) continue;
       const float inv_l = 1.f / fmaxf(l[i], 1e-30f);
       bf16* orow = (bf16*)p.out + q_off(p, b, h, row[i]);
+      // columns 8 j .. 8 j + 7 (D is a multiple of 8): past D lie the
+      // next head's columns in the model's [B, T, H, D] layout
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * tg) =
-            pack_bf16(o[4 * j + 2 * i] * inv_l, o[4 * j + 2 * i + 1] * inv_l);
+      for (int j = 0; j < W / 8; ++j)
+        if (8 * j < p.D)
+          *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * tg) = pack_bf16(
+              o[4 * j + 2 * i] * inv_l, o[4 * j + 2 * i + 1] * inv_l);
       if (WRITE_LSE && tg == 0)
         p.lse[((size_t)b * p.H + h) * p.Tq + row[i]] =
             (m[i] + log2f(fmaxf(l[i], 1e-30f))) * 0.6931471805599453f;
@@ -845,39 +904,51 @@ __global__ void __launch_bounds__(DKV_THREADS, 1)
 // rows each and their dQ sums in f32 registers to the end (no atomics:
 // the result's bits do not depend on timing), and warpgroup 2 produces.
 // One producer thread loads the block's Q and dO once, then K and V
-// tiles of 64 keys of the head's kv head into a 3-stage ring, by TMA
+// tiles of BN keys of the head's kv head into a 3-stage ring, by TMA
 // from the 4-D tensor maps of dK/dV with the boxes swapped (Q, dO 128
-// rows; K, V 64), 128-byte swizzled, D / 64 boxes a tile.  Each thread
+// rows; K, V BN), 128-byte swizzled, boxes of 64 columns.  Each thread
 // reads its two rows' lse (times log2 e) and delta once into registers.
-// A consumer warpgroup computes S = Q K^T and dP = dO V^T by wgmma
-// m64n64k16 from shared memory (all K-major), P = exp2(S scale log2 e -
-// lse log2 e) and dS = P (dP - delta) scale in f32 registers (the mask
-// only on tiles that reach past its first row's diagonal, a ragged end
-// or rows past Tq; tiles past its last row's diagonal are skipped, and
-// tiles past the block's are never loaded), rounds dS to bf16 in the
-// A-fragment layout and issues dQ += dS K with K read MN-major.  Every
-// read of a ring stage is the tensor cores' (the async proxy, as TMA's
-// writes), so a stage is freed once wgmma_wait has retired its products,
-// with no proxy fence.  Blocks run the longest causal query tiles first,
-// the query heads of one kv head adjacent, so their K and V tiles come
-// from L2.
-constexpr int DQ_BM = 128, DQ_BN = 64, DQ_THREADS = 384, DQ_STAGES = 3;
-constexpr int DQ_QBOX = 128 * 128;    // [128 rows][64] bf16
-constexpr int DQ_KBOX = 64 * 128;     // [64 rows][64] bf16
+// A consumer warpgroup computes S = Q K^T and dP = dO V^T by wgmma from
+// shared memory (all K-major), P = exp2(S scale log2 e - lse log2 e) and
+// dS = P (dP - delta) scale in f32 registers (the mask only on tiles
+// that reach past its first row's diagonal, a ragged end or rows past
+// Tq; tiles past its last row's diagonal are skipped, and tiles past the
+// block's are never loaded), rounds dS to bf16 in the A-fragment layout
+// and issues dQ += dS K with K read MN-major.  Every read of a ring
+// stage is the tensor cores' (the async proxy, as TMA's writes), so a
+// stage is freed once wgmma_wait has retired its products, with no proxy
+// fence.  Blocks run the longest causal query tiles first, the query
+// heads of one kv head adjacent, so their K and V tiles come from L2.
+//
+// The instances W = 64, 128 and 256 take head dims as the forward's do:
+// zero columns past D from TMA, the products at the instance's width,
+// dQ's columns past D (zeros) not stored.  W = 256 takes keys 32 at a time, so that
+// Q, dO and 3 stages of K and V fit (224 KB), and its consumers 240
+// registers (dQ is 128 a thread, S and dP 16 each).
+constexpr int DQ_BM = 128, DQ_THREADS = 384, DQ_STAGES = 3;
+constexpr int DQ_QBOX = DQ_BM * 64 * 2;   // [128 rows][64] bf16
 
-template <int D>
+template <int W>
+__host__ __device__ constexpr int dq_bn() {
+  return W == 256 ? 32 : 64;              // keys a K / V tile
+}
+
+template <int W>
 constexpr int fa_dq_smem() {
   // alignment; Q, dO; per stage K and V; barriers
-  return 1024 + 2 * (D / 64) * DQ_QBOX + DQ_STAGES * 2 * (D / 64) * DQ_KBOX +
+  return 1024 + 2 * (W / 64) * DQ_QBOX +
+         DQ_STAGES * 2 * (W / 64) * dq_bn<W>() * 128 +
          (1 + 2 * DQ_STAGES) * 8;
 }
 
-template <int D>
+template <int W>
 __global__ void __launch_bounds__(DQ_THREADS, 1)
     fa_bwd_dq_wgmma(const __grid_constant__ DKVMaps maps, FAParams p) {
   using namespace hopper;
-  constexpr int QT = (D / 64) * DQ_QBOX;        // the Q (or dO) tile
-  constexpr int KT = (D / 64) * DQ_KBOX;        // one K (or V) tile
+  constexpr int BN = dq_bn<W>();
+  constexpr int KBOX = BN * 64 * 2;             // [BN rows][64] bf16
+  constexpr int QT = (W / 64) * DQ_QBOX;        // the Q (or dO) tile
+  constexpr int KT = (W / 64) * KBOX;           // one K (or V) tile
   extern __shared__ uint8_t dq_smem[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(dq_smem) + 1023) & ~uintptr_t(1023));
@@ -895,8 +966,7 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
   const int b = rest % p.B, rank = rest / p.B;
   const int qt = p.causal ? n_qt - 1 - rank : rank;
   const int kh = h / (p.H / p.KVH), q0 = qt * DQ_BM;
-  const int n_kt =
-      (key_limit(p, min(q0 + DQ_BM, p.Tq) - 1) + DQ_BN - 1) / DQ_BN;
+  const int n_kt = (key_limit(p, min(q0 + DQ_BM, p.Tq) - 1) + BN - 1) / BN;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -910,11 +980,11 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
 
   if (threadIdx.x >= 256) {
     // ------------------------------------------------------ producer
-    setmaxnreg_dec<40>();
+    setmaxnreg_dec<load_regs<W>()>();
     if (threadIdx.x == 256) {
       mbar_expect_tx(q_full, 2 * QT);
 #pragma unroll
-      for (int x = 0; x < D / 64; ++x) {
+      for (int x = 0; x < W / 64; ++x) {
         tma_load_4d(qs + x * DQ_QBOX, &maps.q, q_full, x * 64, q0, h, b);
         tma_load_4d(dos + x * DQ_QBOX, &maps.dout, q_full, x * 64, q0, h, b);
       }
@@ -923,17 +993,17 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
         if (it >= DQ_STAGES) mbar_wait(&empty[s], ((it / DQ_STAGES) - 1) & 1);
         mbar_expect_tx(&full[s], 2 * KT);
 #pragma unroll
-        for (int x = 0; x < D / 64; ++x) {
-          tma_load_4d(ks + s * KT + x * DQ_KBOX, &maps.k, &full[s], x * 64,
-                      it * DQ_BN, kh, b);
-          tma_load_4d(vs + s * KT + x * DQ_KBOX, &maps.v, &full[s], x * 64,
-                      it * DQ_BN, kh, b);
+        for (int x = 0; x < W / 64; ++x) {
+          tma_load_4d(ks + s * KT + x * KBOX, &maps.k, &full[s], x * 64,
+                      it * BN, kh, b);
+          tma_load_4d(vs + s * KT + x * KBOX, &maps.v, &full[s], x * 64,
+                      it * BN, kh, b);
         }
       }
     }
   } else {
     // ------------------------------------------------------ consumers
-    setmaxnreg_inc<232>();
+    setmaxnreg_inc<mma_regs<W>()>();
     const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32;
     const int lane = threadIdx.x % 32, g = lane / 4, tg = lane % 4;
     const int r0 = q0 + wg * 64;                  // this warpgroup's rows
@@ -953,51 +1023,51 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
     const int kend = r0 < p.Tq ? key_limit(p, min(r0 + 64, p.Tq) - 1) : 0;
     const int mask_from = r0 + 64 > p.Tq ? 0 : key_limit(p, r0);
     const float scale_log2 = p.scale * 1.4426950408889634f;
-    float dq[D / 2];
+    float dq[W / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    for (int i = 0; i < W / 2; ++i) dq[i] = 0.f;
     const uint32_t qa = smem_u32(qs) + wg * 64 * 128;
     const uint32_t da = smem_u32(dos) + wg * 64 * 128;
     mbar_wait(q_full, 0);
 
     for (int it = 0; it < n_kt; ++it) {
-      const int s = it % DQ_STAGES, kb = it * DQ_BN;
+      const int s = it % DQ_STAGES, kb = it * BN;
       mbar_wait(&full[s], (it / DQ_STAGES) & 1);
       if (kb < kend) {
         const uint32_t ka = smem_u32(ks + s * KT);
         const uint32_t va = smem_u32(vs + s * KT);
-        float st[DQ_BN / 2], dpt[DQ_BN / 2];
+        float st[BN / 2], dpt[BN / 2];
 #pragma unroll
-        for (int i = 0; i < DQ_BN / 2; ++i) st[i] = dpt[i] = 0.f;
+        for (int i = 0; i < BN / 2; ++i) st[i] = dpt[i] = 0.f;
         wgmma_fence();
-        fence_regs<DQ_BN / 2>(st);
-        fence_regs<DQ_BN / 2>(dpt);
+        fence_regs<BN / 2>(st);
+        fence_regs<BN / 2>(dpt);
         // the k step kk: 32 bytes into a box, boxes of 64 columns
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
+        for (int kk = 0; kk < W / 16; ++kk) {
           const uint32_t qo = (kk / 4) * DQ_QBOX + (kk % 4) * 32;
-          const uint32_t ko = (kk / 4) * DQ_KBOX + (kk % 4) * 32;
-          wgmma_ss_n64<0>(st, desc_sw128(qa + qo, 16, 1024),
+          const uint32_t ko = (kk / 4) * KBOX + (kk % 4) * 32;
+          wgmma_ss_kk<BN>(st, desc_sw128(qa + qo, 16, 1024),
                           desc_sw128(ka + ko, 16, 1024), 1);
         }
         wgmma_commit();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
+        for (int kk = 0; kk < W / 16; ++kk) {
           const uint32_t qo = (kk / 4) * DQ_QBOX + (kk % 4) * 32;
-          const uint32_t ko = (kk / 4) * DQ_KBOX + (kk % 4) * 32;
-          wgmma_ss_n64<0>(dpt, desc_sw128(da + qo, 16, 1024),
+          const uint32_t ko = (kk / 4) * KBOX + (kk % 4) * 32;
+          wgmma_ss_kk<BN>(dpt, desc_sw128(da + qo, 16, 1024),
                           desc_sw128(va + ko, 16, 1024), 1);
         }
         wgmma_commit();
         wgmma_wait<1>();
-        fence_regs<DQ_BN / 2>(st);
+        fence_regs<BN / 2>(st);
 
         // st[4 j + 2 i + c]: row row[i], key kb + 8 j + 2 tg + c; a
         // masked key gets P = 0 exactly (a select, so nothing that is
         // not finite flows into dS K)
-        const bool masked = kb + DQ_BN > mask_from;
+        const bool masked = kb + BN > mask_from;
 #pragma unroll
-        for (int j = 0; j < DQ_BN / 8; ++j)
+        for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             const float e =
@@ -1007,10 +1077,10 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
                                                                        : e;
           }
         wgmma_wait<0>();
-        fence_regs<DQ_BN / 2>(dpt);
-        uint32_t sa[DQ_BN / 16][4];
+        fence_regs<BN / 2>(dpt);
+        uint32_t sa[BN / 16][4];
 #pragma unroll
-        for (int kk = 0; kk < DQ_BN / 16; ++kk)
+        for (int kk = 0; kk < BN / 16; ++kk)
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
             const int c0 = 8 * kk + 2 * r, i = r & 1;
@@ -1019,19 +1089,15 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
                 st[c0 + 1] * (dpt[c0 + 1] - dl[i]) * p.scale);
           }
         wgmma_fence();
-        fence_regs<D / 2>(dq);
+        fence_regs<W / 2>(dq);
 #pragma unroll
-        for (int kk = 0; kk < DQ_BN / 16; ++kk) {
-          const uint64_t dk = desc_sw128(ka + kk * 16 * 128, DQ_KBOX, 1024);
-          if constexpr (D == 128)
-            wgmma_rs_n128<1>(dq, sa[kk], dk, 1);
-          else
-            wgmma_rs_n64<1>(dq, sa[kk], dk, 1);
-        }
+        for (int kk = 0; kk < BN / 16; ++kk)
+          wgmma_rs_w<W>(dq, sa[kk],
+                        desc_sw128(ka + kk * 16 * 128, KBOX, 1024));
         wgmma_commit();
         wgmma_wait<0>();
-        fence_regs<D / 2>(dq);
-        keep_regs<4 * (DQ_BN / 16)>(&sa[0][0]);
+        fence_regs<W / 2>(dq);
+        keep_regs<4 * (BN / 16)>(&sa[0][0]);
       }
       if (lane == 0) mbar_arrive(&empty[s]);
     }
@@ -1040,10 +1106,12 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
     for (int i = 0; i < 2; ++i) {
       if (row[i] >= p.Tq) continue;
       bf16* dqr = (bf16*)p.dq + q_off(p, b, h, row[i]);
+      // columns past D: the next head's in the [B, T, H, D] layout
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<uint32_t*>(dqr + 8 * j + 2 * tg) =
-            pack_bf16(dq[4 * j + 2 * i], dq[4 * j + 2 * i + 1]);
+      for (int j = 0; j < W / 8; ++j)
+        if (8 * j < p.D)
+          *reinterpret_cast<uint32_t*>(dqr + 8 * j + 2 * tg) =
+              pack_bf16(dq[4 * j + 2 * i], dq[4 * j + 2 * i + 1]);
     }
   }
 }
@@ -1103,13 +1171,15 @@ static FAParams make_params(const void* q, const void* k, const void* v,
 
 // the operands every entry point refuses: the wrapper checks them too.
 // general: the CUDA-core instance of the dtype (f32 always), D <= F_MAXD;
-// else the bf16 wgmma kernels, D 64 or 128
+// else the bf16 wgmma kernels: the forward and dQ (dkv 0) at any D that
+// is a multiple of 8 up to 256, dK/dV (dkv 1) at D 64 or 128
 static bool bad_shape(int H, int KVH, int Tq, int Tk, int D, int causal,
-                      int dtype, int general) {
-  if (KVH <= 0 || H % KVH || (causal && Tq > Tk)) return true;
+                      int dtype, int general, int dkv) {
+  if (KVH <= 0 || H % KVH || (causal && Tq > Tk) || D <= 0) return true;
   if (dtype != 0 && dtype != 1) return true;
   if (general || dtype == 0) return D > F_MAXD;
-  return !(D == 64 || D == 128);
+  if (dkv) return !(D == 64 || D == 128);
+  return D % 8 != 0 || D > 256;
 }
 
 #define FA_ARGS                                                         \
@@ -1119,9 +1189,11 @@ static bool bad_shape(int H, int KVH, int Tq, int Tk, int D, int causal,
 
 // the three tensor maps of q [B, H, Tq, D] and k, v [B, KVH, Tk, D]
 // from the strides in p (elements; each a multiple of 8, checked by the
-// wrapper and refused here by cuTensorMapEncodeTiled otherwise)
-static bool fa_maps(FAMaps* maps, const FAParams& p) {
-  const cuuint32_t box[4] = {64, 128, 1, 1};
+// wrapper and refused here by cuTensorMapEncodeTiled otherwise), boxes
+// of 128 rows of q and k_rows of k and v
+static bool fa_maps(FAMaps* maps, const FAParams& p, int k_rows) {
+  const cuuint32_t box[4] = {64, FA_BM, 1, 1};
+  const cuuint32_t kbox[4] = {64, (cuuint32_t)k_rows, 1, 1};
   const cuuint64_t qd[4] = {(cuuint64_t)p.D, (cuuint64_t)p.Tq,
                             (cuuint64_t)p.H, (cuuint64_t)p.B};
   const cuuint64_t qs[3] = {(cuuint64_t)p.qst * 2, (cuuint64_t)p.qsh * 2,
@@ -1131,30 +1203,37 @@ static bool fa_maps(FAMaps* maps, const FAParams& p) {
   const cuuint64_t ks[3] = {(cuuint64_t)p.kst * 2, (cuuint64_t)p.ksh * 2,
                             (cuuint64_t)p.ksb * 2};
   return hopper::make_map_bf16(&maps->q, p.q, 4, qd, qs, box) &&
-         hopper::make_map_bf16(&maps->k, p.k, 4, kd, ks, box) &&
-         hopper::make_map_bf16(&maps->v, p.v, 4, kd, ks, box);
+         hopper::make_map_bf16(&maps->k, p.k, 4, kd, ks, kbox) &&
+         hopper::make_map_bf16(&maps->v, p.v, 4, kd, ks, kbox);
 }
 
-template <int D, bool WRITE_LSE>
+template <int W, bool WRITE_LSE>
 static int launch_fwd_wgmma(const FAParams& p, cudaStream_t st) {
   FAMaps maps;
-  if (!fa_maps(&maps, p)) return (int)cudaErrorInvalidValue;
-  constexpr int smem = fa_fwd_smem<D>();
+  if (!fa_maps(&maps, p, fa_bn<W>())) return (int)cudaErrorInvalidValue;
+  constexpr int smem = fa_fwd_smem<W>();
   const cudaError_t e = cudaFuncSetAttribute(
-      fa_fwd_wgmma<D, WRITE_LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fa_fwd_wgmma<W, WRITE_LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (e != cudaSuccess) return (int)e;
   const int n_qt = (p.Tq + FA_BM - 1) / FA_BM;
-  fa_fwd_wgmma<D, WRITE_LSE><<<n_qt * p.B * p.H, FA_THREADS, smem, st>>>(
+  fa_fwd_wgmma<W, WRITE_LSE><<<n_qt * p.B * p.H, FA_THREADS, smem, st>>>(
       maps, p);
   return (int)cudaGetLastError();
+}
+
+template <bool WRITE_LSE>
+static int launch_fwd_wgmma(const FAParams& p, cudaStream_t st) {
+  if (p.D <= 64) return launch_fwd_wgmma<64, WRITE_LSE>(p, st);
+  if (p.D <= 128) return launch_fwd_wgmma<128, WRITE_LSE>(p, st);
+  return launch_fwd_wgmma<256, WRITE_LSE>(p, st);
 }
 
 // O (and, with lse != nullptr, the f32 LSE rows)
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* out, float* lse, FA_ARGS) {
   if (B == 0 || H == 0 || Tq == 0) return 0;
-  if (bad_shape(H, KVH, Tq, Tk, D, causal, dtype, general) || Tk == 0)
+  if (bad_shape(H, KVH, Tq, Tk, D, causal, dtype, general, 0) || Tk == 0)
     return (int)cudaErrorInvalidValue;
   FAParams p = make_params(q, k, v, B, H, KVH, Tq, Tk, D, qsb, qsh, qst, ksb,
                            ksh, kst, causal, scale);
@@ -1172,14 +1251,8 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                                 : fa_fwd_general<T, false, F_MAXD>,
                             grid, 0, p, st);
     });
-  } else if (D == 64) {
-    return lse ? launch_fwd_wgmma<64, true>(p, st)
-               : launch_fwd_wgmma<64, false>(p, st);
-  } else {
-    return lse ? launch_fwd_wgmma<128, true>(p, st)
-               : launch_fwd_wgmma<128, false>(p, st);
   }
-  return (int)cudaGetLastError();
+  return lse ? launch_fwd_wgmma<true>(p, st) : launch_fwd_wgmma<false>(p, st);
 }
 
 // the tensor maps of the backward: q and dO [B, H, Tq, D] with boxes of
@@ -1203,16 +1276,17 @@ static bool bwd_maps(DKVMaps* maps, const FAParams& p, int q_rows,
          hopper::make_map_bf16(&maps->v, p.v, 4, kd, ks, kbox);
 }
 
-template <int D>
+template <int W>
 static int launch_dq_wgmma(const FAParams& p, cudaStream_t st) {
   DKVMaps maps;
-  if (!bwd_maps(&maps, p, DQ_BM, DQ_BN)) return (int)cudaErrorInvalidValue;
-  constexpr int smem = fa_dq_smem<D>();
+  if (!bwd_maps(&maps, p, DQ_BM, dq_bn<W>()))
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = fa_dq_smem<W>();
   const cudaError_t e = cudaFuncSetAttribute(
-      fa_bwd_dq_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fa_bwd_dq_wgmma<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const int n_qt = (p.Tq + DQ_BM - 1) / DQ_BM;
-  fa_bwd_dq_wgmma<D><<<n_qt * p.B * p.H, DQ_THREADS, smem, st>>>(maps, p);
+  fa_bwd_dq_wgmma<W><<<n_qt * p.B * p.H, DQ_THREADS, smem, st>>>(maps, p);
   return (int)cudaGetLastError();
 }
 
@@ -1220,7 +1294,7 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,
                             const float* delta, void* dq, FA_ARGS) {
   if (B == 0 || H == 0 || Tq == 0) return 0;
-  if (bad_shape(H, KVH, Tq, Tk, D, causal, dtype, general) || Tk == 0)
+  if (bad_shape(H, KVH, Tq, Tk, D, causal, dtype, general, 0) || Tk == 0)
     return (int)cudaErrorInvalidValue;
   FAParams p = make_params(q, k, v, B, H, KVH, Tq, Tk, D, qsb, qsh, qst, ksb,
                            ksh, kst, causal, scale);
@@ -1238,7 +1312,9 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
     });
     return (int)cudaErrorInvalidValue;
   }
-  return D == 64 ? launch_dq_wgmma<64>(p, st) : launch_dq_wgmma<128>(p, st);
+  if (D <= 64) return launch_dq_wgmma<64>(p, st);
+  if (D <= 128) return launch_dq_wgmma<128>(p, st);
+  return launch_dq_wgmma<256>(p, st);
 }
 
 template <int D>
@@ -1260,7 +1336,7 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const float* delta, void* dk, void* dv,
                              FA_ARGS) {
   if (B == 0 || KVH == 0 || Tk == 0) return 0;
-  if (bad_shape(H, KVH, Tq, Tk, D, causal, dtype, general))
+  if (bad_shape(H, KVH, Tq, Tk, D, causal, dtype, general, 1))
     return (int)cudaErrorInvalidValue;
   FAParams p = make_params(q, k, v, B, H, KVH, Tq, Tk, D, qsb, qsh, qst, ksb,
                            ksh, kst, causal, scale);

@@ -24,15 +24,20 @@ views with any strides on the first three axes, so
 :func:`flash_attention_bthd` hands the model's [B, T, H, D] tensors over
 as transposed views, without a copy.
 
-Which kernels run is chosen from the operands before the launch
-(:func:`general_route`): bf16 at head_dim 64 or 128 with strides TMA
-takes runs the wgmma kernels; f32, and bf16 at any other head_dim up to
-256 (80 and 96, as Phi-2 and Phi-3 use, 256 as Gemma's, or the tests'
-20) or other strides, the general CUDA-core instances, each bf16 launch of them
-counted under its kernel's name with ``_general`` (f32 keeps the plain
-names).  There are no block-size flags and no autotune: the TPU
-kernel's tiling knobs are not function.  CPU tensors take the plain
-versions; CUDA tensors launch the kernels or raise.
+Which kernel runs is chosen for each of the three from the operands
+before the launch (:func:`wgmma_width`, :func:`general_route`): bf16
+with strides TMA takes runs the wgmma kernels, the forward and dQ at
+every head_dim that is a multiple of 8 up to 256 (the instance of 64,
+128 or 256 columns that holds it, the columns past head_dim zeros: 80
+and 96, as Phi-2 and Phi-3 use, on the 128-column one, Gemma's 256 on
+its own), dK/dV at head_dim 64 or 128; f32, and bf16 at any other shape
+up to head_dim 256 (dK/dV at 80, 96 or 256, every kernel at the tests'
+20) or other strides, the general CUDA-core instances, each bf16 launch
+of them counted under its kernel's name with ``_general`` (f32 keeps
+the plain names).  There is no fallback: a wgmma instance whose tensor
+maps or launch fail raises.  There are no block-size flags and no
+autotune: the TPU kernel's tiling knobs are not function.  CPU tensors
+take the plain versions; CUDA tensors launch the kernels or raise.
 """
 from __future__ import annotations
 
@@ -50,7 +55,8 @@ BWD_DQ = "flash_attention_bwd_dq"
 BWD_DKV = "flash_attention_bwd_dkv"
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256          # csrc/flash_attention.cu F_MAXD
-BF16_HEAD_DIMS = (64, 128)  # the bf16 tensor-core kernels' instances
+WGMMA_WIDTHS = (64, 128, 256)   # the bf16 forward's and dQ's instances
+DKV_HEAD_DIMS = (64, 128)   # the bf16 dK/dV kernel's instances
 GENERAL = "_general"        # suffix of a bf16 launch of a general kernel
 
 
@@ -156,8 +162,8 @@ def _strides(t):
 
 def tma_strides(t):
     """:func:`_strides`, each a multiple of 16 bytes, or raise: the bf16
-    forward and dK/dV load their tiles by TMA, whose tensor maps take no
-    other stride."""
+    forward, dQ and dK/dV load their tiles by TMA, whose tensor maps take
+    no other stride."""
     st = _strides(t)
     if any(s * t.element_size() % 16 for s in st):
         raise ValueError(f"flash_attention: the bf16 kernels' tensor maps "
@@ -167,38 +173,53 @@ def tma_strides(t):
     return st
 
 
-def general_route(q, k):
-    """Whether the general instances take these [B, H, T, D] views (else
-    the bf16 wgmma kernels): f32; bf16 at a head_dim other than 64 and
-    128, or with strides the wgmma kernels' tensor maps cannot take
-    (:func:`tma_strides`).  Raises for head_dim above 256, which no
-    kernel takes."""
+def wgmma_width(q, k, kernel):
+    """The columns of the bf16 wgmma instance that runs ``kernel`` (FWD,
+    FWD_LSE, BWD_DQ or BWD_DKV) on these [B, H, T, D] views, or None
+    where the general instances do: the forward and dQ take a head_dim
+    D that is a multiple of 8 on the instance of 64 (D <= 64), 128 or
+    256 columns, dK/dV D = 64 or 128 on its own; f32 and strides the
+    tensor maps cannot take (:func:`tma_strides`) take the general ones.
+    Raises for head_dim above 256, which no kernel takes."""
     D = q.shape[-1]
     if D > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head_dim {D} has no kernel "
                          f"(at most {MAX_HEAD_DIM})")
-    if q.dtype != torch.bfloat16 or D not in BF16_HEAD_DIMS:
-        return True
+    if kernel not in (FWD, FWD_LSE, BWD_DQ, BWD_DKV):
+        raise ValueError(f"flash_attention: no kernel {kernel!r}")
+    if q.dtype != torch.bfloat16:
+        return None
+    if kernel == BWD_DKV:
+        if D not in DKV_HEAD_DIMS:
+            return None
+    elif D % 8:
+        return None
     try:
         tma_strides(q), tma_strides(k)
     except ValueError:
-        return True
-    return False
+        return None
+    return next(w for w in WGMMA_WIDTHS if D <= w)
+
+
+def general_route(q, k, kernel):
+    """Whether the general instances run ``kernel`` on these views (see
+    :func:`wgmma_width`)."""
+    return wgmma_width(q, k, kernel) is None
 
 
 def _launch_name(base, q, k):
-    """``base``, or ``base`` + ``_general`` for a bf16 launch of a
-    general kernel."""
-    general = q.dtype == torch.bfloat16 and general_route(q, k)
+    """The counter of a launch of kernel ``base``: ``base``, or ``base``
+    + ``_general`` for a bf16 launch of a general instance."""
+    general = q.dtype == torch.bfloat16 and general_route(q, k, base)
     return base + GENERAL if general else base
 
 
-def _common_args(q, k, causal, scale):
+def _common_args(q, k, causal, scale, kernel):
     B, H, Tq, D = q.shape
     KVH, Tk = k.shape[1], k.shape[2]
     return [B, H, KVH, Tq, Tk, D, *_strides(q), *_strides(k),
             int(causal), float(scale), _build.dtype_code(q),
-            int(general_route(q, k)), _build.stream_ptr(q)]
+            int(general_route(q, k, kernel)), _build.stream_ptr(q)]
 
 
 def _fwd_kernel(q, k, v, causal, scale, with_lse):
@@ -210,9 +231,10 @@ def _fwd_kernel(q, k, v, causal, scale, with_lse):
         if with_lse else None
     fn = _build.bind(SOURCE, "flash_fwd", [ctypes.c_void_p] * 5 + _ARGS)
     p = _build.ptr
+    name = FWD_LSE if with_lse else FWD
     _build.check(fn(p(q), p(k), p(v), p(o), p(lse) if with_lse else None,
-                    *_common_args(q, k, causal, scale)), SOURCE)
-    _build.launches.add(_launch_name(FWD_LSE if with_lse else FWD, q, k))
+                    *_common_args(q, k, causal, scale, name)), SOURCE)
+    _build.launches.add(_launch_name(name, q, k))
     return o, lse
 
 
@@ -230,7 +252,7 @@ def _dq_kernel(q, k, v, do, lse, delta, causal, scale):
     fn = _build.bind(SOURCE, "flash_bwd_dq", [ctypes.c_void_p] * 7 + _ARGS)
     p = _build.ptr
     _build.check(fn(p(q), p(k), p(v), p(do), p(lse), p(delta), p(dq),
-                    *_common_args(q, k, causal, scale)), SOURCE)
+                    *_common_args(q, k, causal, scale, BWD_DQ)), SOURCE)
     _build.launches.add(_launch_name(BWD_DQ, q, k))
     return dq
 
@@ -240,7 +262,7 @@ def _dkv_kernel(q, k, v, do, lse, delta, causal, scale):
     fn = _build.bind(SOURCE, "flash_bwd_dkv", [ctypes.c_void_p] * 8 + _ARGS)
     p = _build.ptr
     _build.check(fn(p(q), p(k), p(v), p(do), p(lse), p(delta), p(dk), p(dv),
-                    *_common_args(q, k, causal, scale)), SOURCE)
+                    *_common_args(q, k, causal, scale, BWD_DKV)), SOURCE)
     _build.launches.add(_launch_name(BWD_DKV, q, k))
     return dk, dv
 

@@ -13,8 +13,12 @@ kernel (phase 1) and then runs the named phases in order: ``kernels``
 (2), ``train_kernels`` (3), ``moe_kernels`` (2m), ``c1_kernels`` (2c),
 ``static_kernels`` (2s), ``main`` (6, bf16 serving), ``main_quant`` (6
 from quantized pools; runs ``main`` first for its pool size when it is
-not named), ``tiny_c1`` (4c), ``c1_main`` (6c), ``moe_main`` (6m); a
-checkout whose ``chip_smoke.py`` lacks a phase skips it.  Each phase prints what ``chip_smoke.py`` prints:
+not named), ``tiny_c1`` (4c), ``c1_main`` (6c), ``moe_main`` (6m),
+``train_phi3`` (7c); a checkout whose ``chip_smoke.py`` lacks a phase
+skips it, except ``train_phi3``, which such a checkout runs from this
+tool's own ``chip_smoke.py`` over its own package, expecting the
+attention launches its own routes give (``attention_counters``), so
+that the step time of an older package is measured at the same shape.  Each phase prints what ``chip_smoke.py`` prints:
 every profiled step its kernel count and kernel time, every serving run
 a digest of its greedy tokens, to compare the checkouts' tokens (a
 checkout whose ``chip_smoke.py`` predates those lines prints neither).
@@ -36,13 +40,15 @@ import argparse
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 PHASES = ("kernels", "train_kernels", "moe_kernels", "c1_kernels",
           "static_kernels", "main", "main_quant", "tiny_c1", "c1_main",
-          "moe_main")
+          "moe_main", "train_phi3")
 
 CHILD = """
 import hashlib
+import importlib.util
 import json
 import math
 import os
@@ -163,6 +169,13 @@ for phase in phases:
         cs.phase_main_quant(dev, blocks)
     elif hasattr(cs, "phase_" + phase):
         getattr(cs, "phase_" + phase)(dev)
+    elif phase == "train_phi3":
+        spec = importlib.util.spec_from_file_location(
+            "turns_smoke", os.environ["TURNS_SMOKE"])
+        new = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(new)
+        cfg = new.phi3_mini_config(num_hidden_layers=new.PHI3_LAYERS)
+        new.phase_train_phi3(dev, new.attention_counters(cfg, new.PHI3_T))
     else:
         print(f"no phase {phase} in this checkout", flush=True)
     cs.free()
@@ -177,7 +190,9 @@ def main(argv=None) -> int:
     ap.add_argument("roots", nargs="+",
                     help="checkouts to run, in this order")
     args = ap.parse_args(argv)
-    env = dict(os.environ, TURNS_TOKENS=os.path.abspath(args.tokens))
+    env = dict(os.environ, TURNS_TOKENS=os.path.abspath(args.tokens),
+               TURNS_SMOKE=str(Path(__file__).resolve().parents[2] /
+                               "chip_smoke.py"))
     rc = 0
     for turn, root in enumerate(args.roots, 1):
         tag = f"[turn {turn} {root}]"

@@ -176,17 +176,25 @@ def test_chunk_route(tag, H, KVH, D, bs, fast):
 @pytest.mark.parametrize("tag,H,KVH,D,bs,fast", ATTN_SHAPES,
                          ids=[s[0] for s in ATTN_SHAPES])
 def test_flash_route(tag, H, KVH, D, bs, fast):
-    # training's attention: the wgmma kernels at D 64 or 128 with strides
-    # TMA takes (the model's [B, T, H, D] views), the general ones else;
-    # f32 always the general ones, under the plain names
+    # training's attention with strides TMA takes (the model's
+    # [B, T, H, D] views): the forward and dQ on the wgmma kernels at
+    # every head_dim that is a multiple of 8 (Phi's 80 and 96, Gemma's
+    # 256), dK/dV at D 64 or 128 only; the general ones else (D 20); f32
+    # always the general ones, under the plain names
     q = _meta(1, 64, H, D).transpose(1, 2)
     k = _meta(1, 64, KVH, D).transpose(1, 2)
-    assert fa.general_route(q, k) == (D not in (64, 128)) == (not fast)
-    name = fa._launch_name(fa.FWD_LSE, q, k)
-    assert name == (fa.FWD_LSE if D in (64, 128) else
-                    fa.FWD_LSE + "_general")
+    for kernel in (fa.FWD, fa.FWD_LSE, fa.BWD_DQ):
+        assert fa.general_route(q, k, kernel) == (D % 8 != 0)
+        assert fa._launch_name(kernel, q, k) == (
+            kernel + "_general" if D % 8 else kernel)
+    assert fa.general_route(q, k, fa.BWD_DKV) == (D not in (64, 128)) == \
+        (not fast)
+    assert fa._launch_name(fa.BWD_DKV, q, k) == (
+        fa.BWD_DKV if fast else fa.BWD_DKV + "_general")
     f32 = [x.float() for x in (q, k)]
-    assert fa.general_route(*f32) and fa._launch_name(fa.FWD, *f32) == fa.FWD
+    for kernel in (fa.FWD, fa.FWD_LSE, fa.BWD_DQ, fa.BWD_DKV):
+        assert fa.general_route(*f32, kernel)
+        assert fa._launch_name(kernel, *f32) == kernel
 
 
 @pytest.mark.parametrize("D", [257, 384])
@@ -200,7 +208,8 @@ def test_head_dim_above_256_raises_before_launching(monkeypatch, D):
     with pytest.raises(ValueError, match="at most 256"):
         cp.chunked_attention(q, pool, pool, table, pos)
     with pytest.raises(ValueError, match="at most 256"):
-        fa.general_route(q.transpose(1, 2), pool[:1].transpose(1, 2))
+        fa.general_route(q.transpose(1, 2), pool[:1].transpose(1, 2),
+                         fa.FWD)
 
 
 def _no_binding(*args, **kwargs):

@@ -717,6 +717,82 @@ class TestCudaHopperDq:
         _hold_dq(*ops, True, cuda_device)
 
 
+def _hold_fwd(q, k, v, causal):
+    """fa_fwd_wgmma with and without the LSE: O and LSE twice, bit for
+    bit, one launch each, O in q's memory order, against the f32 plain
+    version of the same bf16 inputs by the rule of
+    ``_hold_bf16_attention`` (the plain versions on the CPU)."""
+    scale = 1 / math.sqrt(q.shape[-1])
+    launches.reset()
+    o, lse = fa._fwd_kernel(q, k, v, causal, scale, True)
+    o2, lse2 = fa._fwd_kernel(q, k, v, causal, scale, True)
+    o3, _ = fa._fwd_kernel(q, k, v, causal, scale, False)
+    assert launches.snapshot() == {fa.FWD_LSE: 2, fa.FWD: 1}
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert torch.equal(o, o3) and o.stride() == q.stride()
+    x = [t.cpu() for t in (q, k, v)]
+    plain, _ = fa.flash_fwd_plain(*x, causal, scale)
+    ro, rlse = fa.flash_fwd_plain(*[t.float() for t in x], causal, scale)
+    _hold_bf16_attention(o.cpu(), plain, ro)
+    close(lse.cpu(), rlse)
+
+
+@pytest.mark.cuda
+class TestCudaWgmmaHeadDims:
+    """The bf16 forward and dQ at head_dims other than 64 and 128, on the
+    wgmma instances of 64 (D = 32), 128 (80 and 96: Phi-2's, Phi-3's) and
+    256 columns (160, and Gemma's 256), TMA filling the columns past D
+    with zeros."""
+
+    @pytest.mark.parametrize("layout", ["bhtd", "bthd"])
+    @pytest.mark.parametrize("D", [32, 80, 96, 160, 256])
+    @pytest.mark.parametrize("causal", [False, True])
+    @pytest.mark.parametrize("H,KVH,Tq,Tk", [
+        (4, 4, 1, 2), (8, 1, 130, 130), (4, 1, 100, 333), (8, 2, 200, 1000),
+        (2, 2, 1, 257)])
+    def test_shapes(self, cuda_device, H, KVH, Tq, Tk, causal, D, layout):
+        # ragged T, Tq < Tk, Gemma-2B's 8 q heads over 1 kv head, the
+        # model's [B, T, H, D] views; each kernel's instance from its
+        # route, launched under the plain names
+        ops = _attn_inputs(2, H, KVH, Tq, Tk, D, torch.bfloat16,
+                           cuda_device, seed=Tq + Tk + D)
+        if layout == "bthd":
+            ops = [x.transpose(1, 2).contiguous().transpose(1, 2)
+                   for x in ops]
+        want = 64 if D <= 64 else 128 if D <= 128 else 256
+        for kernel in (fa.FWD, fa.FWD_LSE, fa.BWD_DQ):
+            assert fa.wgmma_width(ops[0], ops[1], kernel) == want
+        _hold_fwd(*ops[:3], causal)
+        _hold_dq(*ops, causal, "cpu")
+
+    @pytest.mark.parametrize("D", [80, 96])
+    def test_heads_side_by_side(self, cuda_device, D):
+        # the model's [B, T, H, D] tensors, each head's D columns beside
+        # the next head's: a store past column D would land in the next
+        # head's columns.  Every head's O and dQ against the plain
+        # version, through autograd, three runs the same bits
+        ops = _attn_inputs(2, 8, 2, 300, 300, D, torch.bfloat16,
+                           cuda_device, seed=D)
+        views = [x.transpose(1, 2).contiguous().transpose(1, 2)
+                 for x in ops]
+        launches.reset()
+        runs = [_grads(*views, True) for _ in range(3)]
+        assert launches.snapshot() == {
+            fa.FWD_LSE: 3, fa.BWD_DQ: 3, fa.BWD_DKV + fa.GENERAL: 3}
+        assert all(torch.equal(a, b) for run in runs[1:]
+                   for a, b in zip(runs[0], run))
+        got = runs[0]
+        assert got[0].transpose(1, 2).is_contiguous()
+        x = [t.cpu() for t in ops]
+        plain = _grads(*x, True)
+        ref = _grads(*[t.float() for t in x], True)
+        for h in range(8):
+            for a, b, r in zip(got[:2], plain[:2], ref[:2]):
+                _hold_bf16_attention(a[:, h].cpu(), b[:, h], r[:, h])
+        for a, b, r in zip(got[2:], plain[2:], ref[2:]):
+            _hold_bf16_attention(a.cpu(), b, r)
+
+
 @pytest.mark.cuda
 class TestCudaSkinnyGroup:
     """norm_linear_skinny_mma: one launch a group at M <= 8, each output
@@ -1594,13 +1670,15 @@ class TestCudaKVWrite:
 
 
 def _hold_general_attention(q, k, v, do, causal):
-    """The general attention instances on bf16 ``q, k, v`` [B, H, T, D]
-    (a head_dim or strides the wgmma kernels do not take): the forward
-    with and without the LSE, dQ and dK/dV, each one launch under its
-    ``_general`` counter, two runs the same bits, each output by the rule
-    of ``_hold_bf16_attention`` against the f32 plain version of the same
-    inputs."""
-    assert fa.general_route(q, k)
+    """The attention kernels on bf16 ``q, k, v`` [B, H, T, D] at a
+    head_dim or strides some wgmma kernel does not take: the forward with
+    and without the LSE, dQ and dK/dV, each one launch under the counter
+    of its own route (``_general`` on a general instance: dK/dV always
+    here, the forward and dQ where head_dim is not a multiple of 8 or the
+    strides have no tensor map), two runs the same bits, each output by
+    the rule of ``_hold_bf16_attention`` against the f32 plain version of
+    the same inputs."""
+    assert fa.general_route(q, k, fa.BWD_DKV)
     scale = 1 / math.sqrt(q.shape[-1])
     launches.reset()
     o, lse = fa._fwd_kernel(q, k, v, causal, scale, True)
@@ -1608,9 +1686,11 @@ def _hold_general_attention(q, k, v, do, causal):
     ops = fa._bwd_operands(q, k, v, do, lse, fa._delta(o, do))
     grads = fa._bwd_kernels(*ops, causal, scale)
     again = fa._bwd_kernels(*ops, causal, scale)
-    g = fa.GENERAL
-    assert launches.snapshot() == {fa.FWD_LSE + g: 1, fa.FWD + g: 1,
-                                   fa.BWD_DQ + g: 2, fa.BWD_DKV + g: 2}
+    name = {n: fa._launch_name(n, q, k)
+            for n in (fa.FWD_LSE, fa.FWD, fa.BWD_DQ, fa.BWD_DKV)}
+    assert name[fa.BWD_DKV] == fa.BWD_DKV + fa.GENERAL
+    assert launches.snapshot() == {name[fa.FWD_LSE]: 1, name[fa.FWD]: 1,
+                                   name[fa.BWD_DQ]: 2, name[fa.BWD_DKV]: 2}
     assert torch.equal(o, o2)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
     x = [t.cpu() for t in (q, k, v, do)]
@@ -1695,8 +1775,12 @@ class TestCudaGeneral:
                                                (1, 4, 2, 100, 130)])
     def test_flash_attention(self, cuda_device, B, H, KVH, Tq, Tk, causal,
                              D):
+        # dK/dV on its general instance at every one of these head_dims;
+        # the forward and dQ too at 20, on their wgmma instances at 80, 96
+        # (128 columns) and 256
         ops = _attn_inputs(B, H, KVH, Tq, Tk, D, torch.bfloat16, cuda_device,
                            seed=Tq + D)
+        assert fa.general_route(ops[0], ops[1], fa.BWD_DQ) == (D == 20)
         _hold_general_attention(*ops, causal)
 
     def test_flash_attention_autograd_bthd(self, cuda_device):

@@ -4,10 +4,11 @@ the JAX model, on a tiny f32 Llama of hidden 512 with 2 query heads over
 1 kv head (head_dim 256) served from pages of 12 tokens.
 
 On the card this shape takes the general paged decode, the general
-chunked prefill and the four general attention kernels at their
-256-column instances (``chip_smoke.py`` phases 2c and 4c,
-``tests/test_torch_cuda.py::TestCudaGeneral``); here the wrappers run
-their plain versions.  Tolerances: greedy tokens and scheduling counters
+chunked prefill, the attention forward and dQ on their wgmma instances
+of 256 columns and dK/dV on its general one (``chip_smoke.py`` phases 2c
+and 4c, ``tests/test_torch_cuda.py::TestCudaGeneral`` and
+``TestCudaWgmmaHeadDims``); here the wrappers run their plain
+versions.  Tolerances: greedy tokens and scheduling counters
 identical; the loss within 1e-5, every gradient within 1e-5 of its
 largest JAX entry, and the losses of 3 AdamW steps within 1e-4, as
 ``tests/test_torch_training.py`` states them (f32, the two frameworks

@@ -229,28 +229,32 @@ def test_backward_checks_tma_strides(monkeypatch, layout):
     ops = fa._bwd_operands(*_bwd_inputs(64, layout))
     assert fa.tma_strides(ops[0]) == fa._strides(ops[0])
     assert ops[3].stride() == ops[0].stride()     # dO takes q's strides
-    assert not fa.general_route(ops[0], ops[1])
-    assert fa._launch_name(fa.BWD_DKV, ops[0], ops[1]) == fa.BWD_DKV
+    for kernel in (fa.BWD_DQ, fa.BWD_DKV):
+        assert not fa.general_route(ops[0], ops[1], kernel)
+        assert fa._launch_name(kernel, ops[0], ops[1]) == kernel
     # rows of 68 bf16 (136 bytes) are not a multiple of 16 bytes apart:
     # the general instances take them, under their own counters
     ops = fa._bwd_operands(*_bwd_inputs(68, layout))
     with pytest.raises(ValueError, match="multiples of 16 bytes"):
         fa.tma_strides(ops[0])
-    assert fa.general_route(ops[0], ops[1])
-    assert fa._launch_name(fa.BWD_DKV, ops[0], ops[1]) == \
-        fa.BWD_DKV + "_general"
-    # f32 always takes them, under the plain names; head_dim 256 the
-    # general ones too, above 256 nothing
+    for kernel in (fa.BWD_DQ, fa.BWD_DKV):
+        assert fa.general_route(ops[0], ops[1], kernel)
+        assert fa._launch_name(kernel, ops[0], ops[1]) == kernel + "_general"
+    # f32 always takes them, under the plain names; head_dim 256 takes
+    # dQ's (and the forward's) wgmma instance of 256 columns and dK/dV's
+    # general one, above 256 nothing
     f32 = [x.float() for x in ops[:2]]
-    assert fa.general_route(*f32)
+    assert fa.general_route(*f32, fa.BWD_DQ)
     assert fa._launch_name(fa.BWD_DQ, *f32) == fa.BWD_DQ
     gemma = _view(1, 2, 8, 256, layout)
-    assert fa.general_route(gemma, gemma)
+    assert fa.general_route(gemma, gemma, fa.BWD_DKV)
     assert fa._launch_name(fa.BWD_DKV, gemma, gemma) == \
         fa.BWD_DKV + "_general"
+    assert fa.wgmma_width(gemma, gemma, fa.BWD_DQ) == 256
+    assert fa._launch_name(fa.BWD_DQ, gemma, gemma) == fa.BWD_DQ
     wide = _view(1, 2, 8, 384, layout)
     with pytest.raises(ValueError, match="at most 256"):
-        fa.general_route(wide, wide)
+        fa.general_route(wide, wide, fa.BWD_DQ)
 
 
 # ------------------------------------------------------- chunked prefill
