@@ -30,8 +30,8 @@
 //   output.
 // - the general instance, chunked_prefill_kernel<T, Q, MAXD> (f32, the
 //   CPU-scale check configuration; and bf16 where the wgmma kernel does
-//   not fit: head_dim other than 64 or 128, up to 256 as Gemma's, or
-//   unaligned operands): CUDA cores, a block owns 32 rows (r * T + t
+//   not fit: head_dim not a multiple of 8, up to 256, or unaligned
+//   operands): CUDA cores, a block owns 32 rows (r * T + t
 //   order) and stages each page's keys CP_KEYS at a time, converted to
 //   f32 on load; q is scaled by 1/sqrt(D) in f32 as it is staged,
 //   exactly the multiply the reference's caller does, and the output
@@ -194,71 +194,97 @@ __global__ void __launch_bounds__(CP_THREADS) chunked_prefill_kernel(
 // (batch, kv head) in the packed order row = t * rep + r (token t, query
 // head kvh * rep + r), so one K/V tile feeds every head of the group:
 // at rep 4 a tile is 16 tokens x 4 heads.  Warpgroup 0 produces the
-// next 64 keys of K and V into a 4-stage ring of 128-byte-swizzled bf16
-// tiles.  bf16 pools: one thread loads them by TMA, one box of R =
-// min(bs, 64) rows a page (the page's block-table entry read by a lane
-// of its warp), from 2-D tensor maps over the pool viewed as
-// [nb * bs, KVH * D]; block sizes 8, 16, 32 or a multiple of 64 (whole
-// boxes a tile, each 1024-byte aligned in the swizzle).  Copies of 16
-// bytes a thread (cp.async) were slower for bf16: the loads an SM keeps
-// in flight bound them, and TMA's are not counted there.  bf16 pages
-// that are not whole boxes (COPY: pages below 8 rows, or that neither
-// divide 64 nor are a multiple of it, such as 12): the producer's 128
-// threads copy each tile row's 16-byte chunks by cp.async straight into
-// the stage's swizzled place (the same address the code path stores
-// to, so nothing is staged), a block-table lookup a row made a tile
-// ahead, zeros past the last key, CW_STAGES - 1 tiles in flight; once a
-// tile's copies have landed each thread fences them for wgmma (the
-// async proxy) and arrives on the stage's full barrier.  Code pools
-// (any block size): each thread copies its own 16-byte chunks (and one
-// key's scale) into one of 3 staging buffers by cp.async, and decodes
-// them to bf16 (exactly) into the ring two tiles later, when they have
-// landed; decoding from TMA boxes was slower (every thread waited for
-// a whole tile).  Warpgroup 1 consumes: S = Q K^T by wgmma m64n64k16
-// from shared memory (both K-major), the k scale on S, the online
-// softmax in f32 registers with exp2 and log2(e) folded into the scale
-// (the mask only on the tiles that reach past the lowest row's
-// frontier), the v scale on P after the row sum took the unscaled P,
-// then O += P V with P from registers and V read MN-major (bf16: its
-// rows past the last key zeroed first, as a page's unwritten slots may
-// hold anything).  Tiles with the most keys launch first.
-constexpr int CW_ROWS = 64, CW_KEYS = 64, CW_THREADS = 256, CW_STAGES = 4;
-constexpr int CW_BOX = 64 * 128;   // [64 rows][64 bf16] swizzled, 8 KB
+// next KEYS keys of K and V into a 4-stage ring of 128-byte-swizzled
+// bf16 tiles, by one of three producers (CwLoad, below).
+// - bf16 pools whose pages are whole boxes (kTma): one thread loads
+//   them by TMA, one box of R = min(bs, KEYS) rows a page (the page's
+//   block-table entry read by a lane of its warp), from 3-D tensor maps
+//   over the pool viewed as (D, KVH, nb * bs) with boxes (64, 1, R):
+//   block sizes 8, 16, 32 or a multiple of 64 (whole boxes a tile, each
+//   1024-byte aligned in the swizzle).  Copies of 16 bytes a thread
+//   (cp.async) were slower for bf16: the loads an SM keeps in flight
+//   bound them, and TMA's are not counted there.
+// - bf16 pages that are not whole boxes (kCopy, the copy producer:
+//   pages below 8 rows, or that neither divide 64 nor are a multiple of
+//   it, such as 12): the producer's 128 threads copy each tile row's
+//   16-byte chunks by cp.async straight into the stage's swizzled place
+//   (the same address the code path stores to, so nothing is staged), a
+//   block-table lookup a row made a tile ahead, zeros past the last key,
+//   CW_STAGES - 1 tiles in flight; once a tile's copies have landed each
+//   thread fences them for wgmma (the async proxy) and arrives on the
+//   stage's full barrier.
+// - code pools (kCodes, any block size; CHUNK = 16 codes a copy, or 8
+//   where a row's codes are 8-byte aligned only, D % 16 == 8): each
+//   thread copies
+//   its own chunks (and one key's scale) into one of 3 staging buffers by
+//   cp.async, and decodes them to bf16 (exactly) into the ring two tiles
+//   later, when they have landed; decoding from TMA boxes was slower
+//   (every thread waited for a whole tile).
+// Warpgroup 1 consumes: S = Q K^T by wgmma from shared memory (both
+// K-major), the k scale on S, the online softmax in f32 registers with
+// exp2 and log2(e) folded into the scale (the mask only on the tiles
+// that reach past the lowest row's frontier), the v scale on P after
+// the row sum took the unscaled P, then O += P V with P from registers
+// and V read MN-major (bf16: its rows past the last key zeroed first, as
+// a page's unwritten slots may hold anything).  Tiles with the most keys
+// launch first.
+//
+// The instance W (64, 128 or 256 columns) takes every head_dim D that is
+// a multiple of 8 in (W / 2, W] (any D <= 64 for W = 64).  The columns
+// D..W-1 of q, K and V are zeros in shared memory: the TMA maps'
+// innermost extent is D, so TMA fills them for every head (a 2-D map
+// over [nb * bs, KVH * D] would read the next head's columns there, and
+// a page's unwritten slots may hold Inf); the copy producers zero-fill
+// the chunks at or past D, and q's staging writes zeros there.  The
+// products run at the instance's full width (no run-time guard around
+// wgmma), so the padding costs W / D of the true products (1.33x at D =
+// 96, 1.6x at 80); O's columns past D come out 0 and are not stored.
+// Shared memory at W = 256 (Gemma's heads): 64-key tiles in 4 stages
+// take 291 KB for bf16 pools and 389 KB with the code pools' staging; in
+// 2 stages 162 KB and 260 KB; so W = 256 takes KEYS = 32 keys a tile
+// (wgmma m64n32k16 for S) in 4 stages: 162 KB and 211 KB, under the
+// 227 KB a block may have.  Its O is 128 f32 registers a consumer thread.
+constexpr int CW_ROWS = 64, CW_THREADS = 256, CW_STAGES = 4;
+constexpr int CW_QBOX = 64 * 128;  // [64 rows][64 bf16] swizzled, 8 KB
 constexpr int CW_STAGING = 3;      // codes: tiles in flight a thread
 
+template <int W>
+__host__ __device__ constexpr int cw_keys() {
+  return W == 256 ? 32 : 64;        // keys a K / V tile
+}
+
 struct CWMaps {
-  CUtensorMap k, v;   // bf16 pools as [nb * bs, KVH * D]: box (64, R),
+  CUtensorMap k, v;   // bf16 pools as (D, KVH, nb * bs): box (64, 1, R),
                       // 128-byte swizzle
 };
 
-// a staging buffer: K codes [64][D], V codes [64][D], k and v scales
-template <int D>
+// a staging buffer: K codes [KEYS][W], V codes [KEYS][W], k and v scales
+template <int W>
 __host__ __device__ constexpr int cw_staging_bytes() {
-  return 2 * CW_KEYS * D + 2 * CW_KEYS * 4;
+  return 2 * cw_keys<W>() * W + 2 * cw_keys<W>() * 4;
 }
 
-template <int D, int Q>
+template <int W, int Q>
 constexpr int cw_smem_bytes() {
   // alignment, Q, K and V per stage, the stages' key scales, the codes'
   // staging buffers, a full and an empty barrier a stage
-  return 1024 + (1 + 2 * CW_STAGES) * (D / 64) * CW_BOX +
-         CW_STAGES * 2 * CW_KEYS * 4 +
-         (Q == 0 ? 0 : CW_STAGING * cw_staging_bytes<D>()) +
+  return 1024 + (W / 64) * (CW_QBOX + 2 * CW_STAGES * cw_keys<W>() * 128) +
+         CW_STAGES * 2 * cw_keys<W>() * 4 +
+         (Q == 0 ? 0 : CW_STAGING * cw_staging_bytes<W>()) +
          2 * CW_STAGES * 8;
 }
 
-// sixteen codes (16 bytes) as sixteen bf16 values, exactly (the values
-// of decode_code): int8 through the f32 magic number 1.5 * 2^23, whose
+// eight codes (8 bytes) as eight bf16 values, exactly (the values of
+// decode_code): int8 through the f32 magic number 1.5 * 2^23, whose
 // unit-spaced mantissa takes the code as an integer add and keeps it
 // exact, then the f32's top half (a code has at most 8 significant
 // bits); e4m3 two at a time through f16, which holds it exactly
 template <int Q>
-__device__ __forceinline__ void codes_to_bf16x16(uint4 c, uint4* lo,
-                                                 uint4* hi) {
-  const uint32_t* in = reinterpret_cast<const uint32_t*>(&c);
-  uint32_t w[8];
+__device__ __forceinline__ uint4 codes_to_bf16x8(uint2 c) {
+  const uint32_t in[2] = {c.x, c.y};
+  uint32_t w[4];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
+  for (int k = 0; k < 2; ++k) {
     if constexpr (Q == 1) {
       uint32_t u[4];
 #pragma unroll
@@ -279,30 +305,41 @@ __device__ __forceinline__ void codes_to_bf16x16(uint4 c, uint4* lo,
       }
     }
   }
-  *lo = make_uint4(w[0], w[1], w[2], w[3]);
-  *hi = make_uint4(w[4], w[5], w[6], w[7]);
+  return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-template <int D, int Q, bool COPY>
+// The producer of the K / V tiles: bf16 pools by TMA boxes or by 16-byte
+// cp.async copies, or code pools (Q != 0) copied CHUNK bytes at a time
+// and decoded.  CHUNK is 16 except for code pools at D % 16 == 8, whose
+// rows are only 8-byte aligned: the CHUNK = 8 instances exist only so
+// that every head_dim that is a multiple of 8 has a wgmma instance (no
+// configuration of the repo has such a head_dim), and can go if none
+// ever needs them.
+enum class CwLoad { kTma, kCopy, kCodes };
+
+template <int W, int Q, CwLoad P, int CHUNK>
 __global__ void __launch_bounds__(CW_THREADS, 1) chunked_prefill_wgmma(
     const __grid_constant__ CWMaps maps, const bf16* __restrict__ q,
     const void* __restrict__ k_pool, const void* __restrict__ v_pool,
     const float* __restrict__ k_scale, const float* __restrict__ v_scale,
     const int* __restrict__ bt, const int* __restrict__ pos,
-    bf16* __restrict__ out, int B, int Tc, int KVH, int rep, int bs, int nbs,
-    float scale) {
+    bf16* __restrict__ out, int B, int Tc, int KVH, int rep, int D, int bs,
+    int nbs, float scale) {
   using namespace hopper;
-  constexpr int TILE = (D / 64) * CW_BOX;   // one Q, K or V tile
-  constexpr int STG = cw_staging_bytes<D>();
+  constexpr int KEYS = cw_keys<W>();
+  constexpr int KBOX = KEYS * 128;          // [KEYS rows][64 bf16]
+  constexpr int QT = (W / 64) * CW_QBOX;    // the Q tile
+  constexpr int KT = (W / 64) * KBOX;       // one K or V tile
+  constexpr int STG = cw_staging_bytes<W>();
   extern __shared__ uint8_t cw_smem[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(cw_smem) + 1023) & ~uintptr_t(1023));
   uint8_t* qs = smem;
-  uint8_t* ks = qs + TILE;                          // CW_STAGES tiles
-  uint8_t* vs = ks + CW_STAGES * TILE;              // CW_STAGES tiles
-  float* ksc = reinterpret_cast<float*>(vs + CW_STAGES * TILE);
-  float* vsc = ksc + CW_STAGES * CW_KEYS;
-  uint8_t* stg = reinterpret_cast<uint8_t*>(vsc + CW_STAGES * CW_KEYS);
+  uint8_t* ks = qs + QT;                            // CW_STAGES tiles
+  uint8_t* vs = ks + CW_STAGES * KT;                // CW_STAGES tiles
+  float* ksc = reinterpret_cast<float*>(vs + CW_STAGES * KT);
+  float* vsc = ksc + CW_STAGES * KEYS;
+  uint8_t* stg = reinterpret_cast<uint8_t*>(vsc + CW_STAGES * KEYS);
   uint64_t* full = reinterpret_cast<uint64_t*>(
       stg + (Q == 0 ? 0 : CW_STAGING * STG));
   uint64_t* empty = full + CW_STAGES;
@@ -316,16 +353,16 @@ __global__ void __launch_bounds__(CW_THREADS, 1) chunked_prefill_wgmma(
   const int n_keys = nbs * bs;                      // the table's keys
   const int t_last = (min(row0 + CW_ROWS, RT) - 1) / rep;
   const int last_key = min(start + t_last, n_keys - 1);
-  const int n_kt = last_key / CW_KEYS + 1;
+  const int n_kt = last_key / KEYS + 1;
   // tiles that reach this key need the mask: the lowest row sees fewer
   const int mask_from = min(start + row0 / rep, n_keys - 1) + 1;
-  const int R = min(bs, CW_KEYS);                   // rows a box
+  const int R = min(bs, KEYS);                      // rows a box
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < CW_STAGES; ++s) {
       // bf16 boxes: the TMA's expect_tx; copies, codes: every producer
       // thread
-      mbar_init(&full[s], Q == 0 && !COPY ? 1 : 128);
+      mbar_init(&full[s], P == CwLoad::kTma ? 1 : 128);
       mbar_init(&empty[s], 4);    // one arrival per consumer warp
     }
     fence_barrier_init();
@@ -336,28 +373,27 @@ __global__ void __launch_bounds__(CW_THREADS, 1) chunked_prefill_wgmma(
     // ------------------------------------------------------ producer
     const int tid = threadIdx.x, lane = tid % 32;
     const int* btb = bt + (size_t)b * nbs;
-    // bf16: warp 0 loads key tile `it` into ring stage s, one TMA box a
-    // page (lane p reads page p's table entry)
-    auto load_tile = [&](int it, int s) {
-      const int kbase = it * CW_KEYS;
-      const int n_box = min(CW_KEYS / R, (last_key - kbase) / R + 1);
-      const int kp = kbase + lane * R;
-      const int prow =
-          lane < n_box ? __ldg(btb + kp / bs) * bs + kp % bs : 0;
-      if (lane == 0) mbar_expect_tx(&full[s], n_box * R * 4 * D);
-      for (int p = 0; p < n_box; ++p) {
-        const int row = __shfl_sync(0xffffffffu, prow, p);
-        if (lane != 0) continue;
+    if constexpr (P == CwLoad::kTma) {
+      // bf16: warp 0 loads key tile `it` straight into ring stage s, one
+      // TMA box a page and 64 columns (lane p reads page p's table entry)
+      auto load_tile = [&](int it, int s) {
+        const int kbase = it * KEYS;
+        const int n_box = min(KEYS / R, (last_key - kbase) / R + 1);
+        const int kp = kbase + lane * R;
+        const int prow =
+            lane < n_box ? __ldg(btb + kp / bs) * bs + kp % bs : 0;
+        if (lane == 0) mbar_expect_tx(&full[s], n_box * R * 4 * W);
+        for (int p = 0; p < n_box; ++p) {
+          const int row = __shfl_sync(0xffffffffu, prow, p);
+          if (lane != 0) continue;
 #pragma unroll
-        for (int x = 0; x < D / 64; ++x) {
-          const uint32_t at = s * TILE + x * CW_BOX + p * R * 128;
-          tma_load_2d(ks + at, &maps.k, &full[s], kvh * D + x * 64, row);
-          tma_load_2d(vs + at, &maps.v, &full[s], kvh * D + x * 64, row);
+          for (int x = 0; x < W / 64; ++x) {
+            const uint32_t at = s * KT + x * KBOX + p * R * 128;
+            tma_load_3d(ks + at, &maps.k, &full[s], x * 64, kvh, row);
+            tma_load_3d(vs + at, &maps.v, &full[s], x * 64, kvh, row);
+          }
         }
-      }
-    };
-    if constexpr (Q == 0 && !COPY) {
-      // bf16: straight into the ring
+      };
       if (tid < 32)
         for (int it = 0; it < n_kt; ++it) {
           const int s = it % CW_STAGES;
@@ -365,17 +401,19 @@ __global__ void __launch_bounds__(CW_THREADS, 1) chunked_prefill_wgmma(
             mbar_wait(&empty[s], ((it / CW_STAGES) - 1) & 1);
           load_tile(it, s);
         }
-    } else if constexpr (Q == 0) {
+    } else if constexpr (P == CwLoad::kCopy) {
       // bf16 pages of any size: each thread copies its own 16-byte chunks
       // (8 bf16) of a tile's rows straight into the ring stage, a
       // block-table lookup a row made a tile ahead, zeros past the last
-      // key; tile it - (AHEAD - 1) has landed once tile it is issued
-      constexpr int CPR = D / 8;                    // 16-byte chunks a row
-      constexpr int N = CW_KEYS * CPR / 128;        // a thread's chunks
+      // key and at or past column D; tile it - (AHEAD - 1) has landed
+      // once tile it is issued
+      constexpr int CPR = W / 8;                    // 16-byte chunks a row
+      constexpr int N = KEYS * CPR / 128;           // a thread's chunks
       constexpr int RSTEP = 128 / CPR;              // rows between them
       constexpr int AHEAD = CW_STAGES - 1;          // tiles in flight
       const int c = tid % CPR, j0 = tid / CPR;
-      const uint32_t col = (c / 8) * CW_BOX;
+      const bool live = c * 8 < D;
+      const uint32_t col = (c / 8) * KBOX;
       const bf16* kpool = static_cast<const bf16*>(k_pool);
       const bf16* vpool = static_cast<const bf16*>(v_pool);
       int pr[N];
@@ -383,7 +421,8 @@ __global__ void __launch_bounds__(CW_THREADS, 1) chunked_prefill_wgmma(
 #pragma unroll
         for (int n = 0; n < N; ++n) {
           const int kp = kbase + j0 + RSTEP * n;
-          pr[n] = kp <= last_key ? __ldg(btb + kp / bs) * bs + kp % bs : -1;
+          pr[n] = kp <= last_key && live
+                      ? __ldg(btb + kp / bs) * bs + kp % bs : -1;
         }
       };
       auto land = [&](int i) {   // this thread's copies of tile i landed
@@ -397,13 +436,14 @@ __global__ void __launch_bounds__(CW_THREADS, 1) chunked_prefill_wgmma(
 #pragma unroll
         for (int n = 0; n < N; ++n) {
           const uint32_t at =
-              s * TILE + col + swz128(j0 + RSTEP * n, c % 8);
-          const size_t off = ((size_t)max(pr[n], 0) * KVH + kvh) * D + c * 8;
+              s * KT + col + swz128(j0 + RSTEP * n, c % 8);
+          const size_t off =
+              ((size_t)max(pr[n], 0) * KVH + kvh) * D + (live ? c * 8 : 0);
           cp_async_16(smem_u32(ks + at), kpool + off, pr[n] >= 0);
           cp_async_16(smem_u32(vs + at), vpool + off, pr[n] >= 0);
         }
         cp_async_commit();
-        if (it + 1 < n_kt) rows_of((it + 1) * CW_KEYS);
+        if (it + 1 < n_kt) rows_of((it + 1) * KEYS);
         if (it >= AHEAD - 1) {
           cp_async_wait<AHEAD - 1>();
           land(it - (AHEAD - 1));
@@ -412,15 +452,17 @@ __global__ void __launch_bounds__(CW_THREADS, 1) chunked_prefill_wgmma(
       cp_async_wait<0>();
       for (int i = max(n_kt - (AHEAD - 1), 0); i < n_kt; ++i) land(i);
     } else {
-      // codes: each thread copies its own 16-code chunks of a tile's rows
+      // codes: each thread copies its own CHUNK-code chunks of a tile's rows
       // (a block-table lookup a row, made a tile ahead) and one key's k
       // or v scale into a staging buffer by cp.async (zeros past the
-      // last key), and decodes them to bf16 (exactly) into the ring
-      // CW_STAGING - 1 tiles later, when they have landed
-      constexpr int CPR = D / 16;                   // 16-code chunks a row
-      constexpr int N = CW_KEYS * CPR / 128;        // a thread's chunks
+      // last key and at or past column D), and decodes them to bf16
+      // (exactly) into the ring CW_STAGING - 1 tiles later, when they
+      // have landed
+      constexpr int CPR = W / CHUNK;                // chunks a row
+      constexpr int N = KEYS * CPR / 128;           // a thread's chunks
       constexpr int RSTEP = 128 / CPR;              // rows between them
       const int c = tid % CPR, j0 = tid / CPR;
+      const bool live = c * CHUNK < D;
       const uint8_t* kpool = static_cast<const uint8_t*>(k_pool);
       const uint8_t* vpool = static_cast<const uint8_t*>(v_pool);
       int pr[N], sr;
@@ -428,56 +470,81 @@ __global__ void __launch_bounds__(CW_THREADS, 1) chunked_prefill_wgmma(
 #pragma unroll
         for (int n = 0; n < N; ++n) {
           const int kp = kbase + j0 + RSTEP * n;
-          pr[n] = kp <= last_key ? __ldg(btb + kp / bs) * bs + kp % bs : -1;
+          pr[n] = kp <= last_key && live
+                      ? __ldg(btb + kp / bs) * bs + kp % bs : -1;
         }
-        const int kp = kbase + tid % CW_KEYS;
+        const int kp = kbase + tid % KEYS;
         sr = kp <= last_key ? __ldg(btb + kp / bs) * bs + kp % bs : -1;
       };
       auto decode = [&](int i) {
         const int s = i % CW_STAGES;
         const uint8_t* kc = stg + (i % CW_STAGING) * STG;
-        const uint8_t* vc = kc + CW_KEYS * D;
-        const float* sc = reinterpret_cast<const float*>(vc + CW_KEYS * D);
+        const uint8_t* vc = kc + KEYS * W;
+        const float* sc = reinterpret_cast<const float*>(vc + KEYS * W);
         if (i >= CW_STAGES) mbar_wait(&empty[s], ((i / CW_STAGES) - 1) & 1);
 #pragma unroll
         for (int n = 0; n < N; ++n) {
-          const int j = j0 + RSTEP * n, cc = 2 * c;
-          const uint32_t at = (cc / 8) * CW_BOX + swz128(j, cc % 8);
-          const uint32_t at1 = (cc / 8) * CW_BOX + swz128(j, cc % 8 + 1);
-          uint4 lo, hi;
-          codes_to_bf16x16<Q>(
-              *reinterpret_cast<const uint4*>(kc + j * D + c * 16), &lo, &hi);
-          *reinterpret_cast<uint4*>(ks + s * TILE + at) = lo;
-          *reinterpret_cast<uint4*>(ks + s * TILE + at1) = hi;
-          codes_to_bf16x16<Q>(
-              *reinterpret_cast<const uint4*>(vc + j * D + c * 16), &lo, &hi);
-          *reinterpret_cast<uint4*>(vs + s * TILE + at) = lo;
-          *reinterpret_cast<uint4*>(vs + s * TILE + at1) = hi;
+          const int j = j0 + RSTEP * n;
+          if constexpr (CHUNK == 16) {
+            // 16 codes: the 16-byte chunks 2 c and 2 c + 1 of the row
+            const int cc = 2 * c;
+            const uint32_t at = (cc / 8) * KBOX + swz128(j, cc % 8);
+            const uint32_t at1 = (cc / 8) * KBOX + swz128(j, cc % 8 + 1);
+            const uint4 kx = *reinterpret_cast<const uint4*>(kc + j * W +
+                                                             c * 16);
+            const uint4 vx = *reinterpret_cast<const uint4*>(vc + j * W +
+                                                             c * 16);
+            *reinterpret_cast<uint4*>(ks + s * KT + at) =
+                codes_to_bf16x8<Q>(make_uint2(kx.x, kx.y));
+            *reinterpret_cast<uint4*>(ks + s * KT + at1) =
+                codes_to_bf16x8<Q>(make_uint2(kx.z, kx.w));
+            *reinterpret_cast<uint4*>(vs + s * KT + at) =
+                codes_to_bf16x8<Q>(make_uint2(vx.x, vx.y));
+            *reinterpret_cast<uint4*>(vs + s * KT + at1) =
+                codes_to_bf16x8<Q>(make_uint2(vx.z, vx.w));
+          } else {
+            // 8 codes: the 16-byte chunk c of the row
+            const uint32_t at = (c / 8) * KBOX + swz128(j, c % 8);
+            *reinterpret_cast<uint4*>(ks + s * KT + at) = codes_to_bf16x8<Q>(
+                *reinterpret_cast<const uint2*>(kc + j * W + c * 8));
+            *reinterpret_cast<uint4*>(vs + s * KT + at) = codes_to_bf16x8<Q>(
+                *reinterpret_cast<const uint2*>(vc + j * W + c * 8));
+          }
         }
-        (tid < CW_KEYS ? ksc : vsc)[s * CW_KEYS + tid % CW_KEYS] = sc[tid];
+        if (tid < 2 * KEYS)
+          (tid < KEYS ? ksc : vsc)[s * KEYS + tid % KEYS] = sc[tid];
         fence_proxy_async();   // the stores, before wgmma reads them
         mbar_arrive(&full[s]);
       };
       rows_of(0);
       for (int it = 0; it < n_kt; ++it) {
         uint8_t* kd = stg + (it % CW_STAGING) * STG;
-        uint8_t* vd = kd + CW_KEYS * D;
+        uint8_t* vd = kd + KEYS * W;
 #pragma unroll
         for (int n = 0; n < N; ++n) {
           const int j = j0 + RSTEP * n;
-          const size_t off = ((size_t)max(pr[n], 0) * KVH + kvh) * D + c * 16;
-          cp_async_16(smem_u32(kd + j * D + c * 16), kpool + off, pr[n] >= 0);
-          cp_async_16(smem_u32(vd + j * D + c * 16), vpool + off, pr[n] >= 0);
+          const size_t off =
+              ((size_t)max(pr[n], 0) * KVH + kvh) * D +
+              (live ? c * CHUNK : 0);
+          if constexpr (CHUNK == 16) {
+            cp_async_16(smem_u32(kd + j * W + c * 16), kpool + off,
+                        pr[n] >= 0);
+            cp_async_16(smem_u32(vd + j * W + c * 16), vpool + off,
+                        pr[n] >= 0);
+          } else {
+            cp_async_8(smem_u32(kd + j * W + c * 8), kpool + off, pr[n] >= 0);
+            cp_async_8(smem_u32(vd + j * W + c * 8), vpool + off, pr[n] >= 0);
+          }
         }
-        cp_async_4(smem_u32(vd + CW_KEYS * D + tid * 4),
-                   (tid < CW_KEYS ? k_scale : v_scale) + max(sr, 0),
-                   sr >= 0);
+        if (tid < 2 * KEYS)
+          cp_async_4(smem_u32(vd + KEYS * W + tid * 4),
+                     (tid < KEYS ? k_scale : v_scale) + max(sr, 0), sr >= 0);
         cp_async_commit();
         if (it >= CW_STAGING - 1) {   // that tile's copies have landed
           cp_async_wait<CW_STAGING - 1>();
           decode(it - (CW_STAGING - 1));
         }
-        if (it + 1 < n_kt) rows_of((it + 1) * CW_KEYS);
+        if (it + 1 < n_kt) rows_of((it + 1) * KEYS);
       }
       cp_async_wait<0>();
       for (int i = max(n_kt - (CW_STAGING - 1), 0); i < n_kt; ++i) decode(i);
@@ -486,19 +553,20 @@ __global__ void __launch_bounds__(CW_THREADS, 1) chunked_prefill_wgmma(
     // ------------------------------------------------------ consumer
     const int ct = threadIdx.x - 128;
     const int warp = ct / 32, lane = ct % 32, g = lane / 4, tg = lane % 4;
-    // stage the tile's q rows (rows past rep * T are zeros)
+    // stage the tile's q rows (rows past rep * T and columns past D are
+    // zeros)
     {
-      constexpr int CPR = D / 8;
+      constexpr int CPR = W / 8;
 #pragma unroll
       for (int n = 0; n < CW_ROWS * CPR / 128; ++n) {
         const int i = ct + 128 * n, j = i / CPR, c = i % CPR;
         const int row = row0 + j;
         uint4 v = zero4();
-        if (row < RT)
+        if (row < RT && c * 8 < D)
           v = __ldg(reinterpret_cast<const uint4*>(
               q + (((size_t)b * Tc + row / rep) * H + kvh * rep + row % rep) *
                       D + c * 8));
-        *reinterpret_cast<uint4*>(qs + (c / 8) * CW_BOX + swz128(j, c % 8)) =
+        *reinterpret_cast<uint4*>(qs + (c / 8) * CW_QBOX + swz128(j, c % 8)) =
             v;
       }
       fence_proxy_async();
@@ -511,43 +579,44 @@ __global__ void __launch_bounds__(CW_THREADS, 1) chunked_prefill_wgmma(
       lim[i] = min(start + row[i] / rep, n_keys - 1) + 1;
     }
     const float scale_log2 = scale * 1.4426950408889634f;
-    float o[D / 2];
+    float o[W / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < W / 2; ++i) o[i] = 0.f;
     float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // m in log2 units
     const uint32_t qa = smem_u32(qs);
 
     for (int it = 0; it < n_kt; ++it) {
-      const int s = it % CW_STAGES, kbase = it * CW_KEYS;
-      const uint32_t ka = smem_u32(ks + s * TILE);
-      const uint32_t va = smem_u32(vs + s * TILE);
-      float sc[CW_KEYS / 2];
+      const int s = it % CW_STAGES, kbase = it * KEYS;
+      const uint32_t ka = smem_u32(ks + s * KT);
+      const uint32_t va = smem_u32(vs + s * KT);
+      float sc[KEYS / 2];
 #pragma unroll
-      for (int i = 0; i < CW_KEYS / 2; ++i) sc[i] = 0.f;
+      for (int i = 0; i < KEYS / 2; ++i) sc[i] = 0.f;
       mbar_wait(&full[s], (it / CW_STAGES) & 1);
       wgmma_fence();
-      fence_regs<CW_KEYS / 2>(sc);
+      fence_regs<KEYS / 2>(sc);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t off = (kk / 4) * CW_BOX + (kk % 4) * 32;
-        wgmma_ss_n64<0>(sc, desc_sw128(qa + off, 16, 1024),
-                        desc_sw128(ka + off, 16, 1024), 1);
+      for (int kk = 0; kk < W / 16; ++kk) {
+        const uint32_t qo = (kk / 4) * CW_QBOX + (kk % 4) * 32;
+        const uint32_t ko = (kk / 4) * KBOX + (kk % 4) * 32;
+        wgmma_ss_kk<KEYS>(sc, desc_sw128(qa + qo, 16, 1024),
+                          desc_sw128(ka + ko, 16, 1024), 1);
       }
       wgmma_commit();
       wgmma_wait<0>();
-      fence_regs<CW_KEYS / 2>(sc);
+      fence_regs<KEYS / 2>(sc);
 
       // sc[4 j + 2 i + c]: row g + 8 i, key kbase + 8 j + 2 tg + c
       if constexpr (Q != 0) {
 #pragma unroll
-        for (int j = 0; j < CW_KEYS / 8; ++j)
+        for (int j = 0; j < KEYS / 8; ++j)
 #pragma unroll
           for (int c = 0; c < 4; ++c)
-            sc[4 * j + c] *= ksc[s * CW_KEYS + 8 * j + 2 * tg + (c & 1)];
+            sc[4 * j + c] *= ksc[s * KEYS + 8 * j + 2 * tg + (c & 1)];
       }
-      if (kbase + CW_KEYS > mask_from) {
+      if (kbase + KEYS > mask_from) {
 #pragma unroll
-        for (int j = 0; j < CW_KEYS / 8; ++j)
+        for (int j = 0; j < KEYS / 8; ++j)
 #pragma unroll
           for (int c = 0; c < 4; ++c)
             if (kbase + 8 * j + 2 * tg + (c & 1) >= lim[c >> 1])
@@ -555,7 +624,7 @@ __global__ void __launch_bounds__(CW_THREADS, 1) chunked_prefill_wgmma(
       }
       float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-      for (int j = 0; j < CW_KEYS / 8; ++j)
+      for (int j = 0; j < KEYS / 8; ++j)
 #pragma unroll
         for (int c = 0; c < 4; ++c)
           mx[c >> 1] = fmaxf(mx[c >> 1], sc[4 * j + c]);
@@ -569,7 +638,7 @@ __global__ void __launch_bounds__(CW_THREADS, 1) chunked_prefill_wgmma(
         m[i] = mn;
       }
 #pragma unroll
-      for (int j = 0; j < CW_KEYS / 8; ++j)
+      for (int j = 0; j < KEYS / 8; ++j)
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const float e = exp2f(fmaf(sc[4 * j + c], scale_log2, -m[c >> 1]));
@@ -582,48 +651,43 @@ __global__ void __launch_bounds__(CW_THREADS, 1) chunked_prefill_wgmma(
       if constexpr (Q != 0) {
         // V's scale rides on P, after the sum took the unscaled P
 #pragma unroll
-        for (int j = 0; j < CW_KEYS / 8; ++j)
+        for (int j = 0; j < KEYS / 8; ++j)
 #pragma unroll
           for (int c = 0; c < 4; ++c)
-            sc[4 * j + c] *= vsc[s * CW_KEYS + 8 * j + 2 * tg + (c & 1)];
+            sc[4 * j + c] *= vsc[s * KEYS + 8 * j + 2 * tg + (c & 1)];
       }
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
+      for (int j = 0; j < W / 8; ++j)
 #pragma unroll
         for (int c = 0; c < 4; ++c) o[4 * j + c] *= alpha[c >> 1];
-      uint32_t pa[CW_KEYS / 16][4];
+      uint32_t pa[KEYS / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < CW_KEYS / 16; ++kk)
+      for (int kk = 0; kk < KEYS / 16; ++kk)
 #pragma unroll
         for (int r = 0; r < 4; ++r)
           pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
-      if (Q == 0 && kbase + CW_KEYS > last_key + 1) {
+      if (Q == 0 && kbase + KEYS > last_key + 1) {
         // V rows past the last key: whatever the page's unwritten slots
         // (or an earlier tile) left there, zeros, since 0 * NaN is NaN
         const int z0 = last_key + 1 - kbase;
-        for (int i = ct; i < (CW_KEYS - z0) * 8 * (D / 64); i += 128) {
-          const int j = z0 + i / (8 * (D / 64)), r = i % (8 * (D / 64));
-          *reinterpret_cast<uint4*>(vs + s * TILE + (r / 8) * CW_BOX +
-                                    j * 128 + (r % 8) * 16) = zero4();
+        for (int i = ct; i < (KEYS - z0) * 8 * (W / 64); i += 128) {
+          const int j = z0 + i / (8 * (W / 64)), r = i % (8 * (W / 64));
+          *reinterpret_cast<uint4*>(vs + s * KT + (r / 8) * KBOX + j * 128 +
+                                    (r % 8) * 16) = zero4();
         }
         fence_proxy_async();   // before wgmma reads them
         named_bar_sync(1, 128);
       }
 
       wgmma_fence();
-      fence_regs<D / 2>(o);
+      fence_regs<W / 2>(o);
 #pragma unroll
-      for (int kk = 0; kk < CW_KEYS / 16; ++kk) {
-        const uint64_t dv = desc_sw128(va + kk * 16 * 128, CW_BOX, 1024);
-        if constexpr (D == 128)
-          wgmma_rs_n128<1>(o, pa[kk], dv, 1);
-        else
-          wgmma_rs_n64<1>(o, pa[kk], dv, 1);
-      }
+      for (int kk = 0; kk < KEYS / 16; ++kk)
+        wgmma_rs_w<W>(o, pa[kk], desc_sw128(va + kk * 16 * 128, KBOX, 1024));
       wgmma_commit();
       wgmma_wait<0>();
-      fence_regs<D / 2>(o);
-      keep_regs<4 * (CW_KEYS / 16)>(&pa[0][0]);
+      fence_regs<W / 2>(o);
+      keep_regs<4 * (KEYS / 16)>(&pa[0][0]);
       // every lane's reads of the stage (its scales with ld.shared),
       // then lane 0 frees it for the producer's next copy
       fence_proxy_async();
@@ -642,48 +706,69 @@ __global__ void __launch_bounds__(CW_THREADS, 1) chunked_prefill_wgmma(
       const float inv_l = 1.f / fmaxf(l[i], 1e-30f);
       const int t = row[i] / rep, r = row[i] % rep;
       bf16* orow = out + (((size_t)b * Tc + t) * H + kvh * rep + r) * D;
+      // columns 8 j .. 8 j + 7 (D is a multiple of 8): past D lie the
+      // next head's columns
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * tg) =
-            pack_bf16(o[4 * j + 2 * i] * inv_l, o[4 * j + 2 * i + 1] * inv_l);
+      for (int j = 0; j < W / 8; ++j)
+        if (8 * j < D)
+          *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * tg) = pack_bf16(
+              o[4 * j + 2 * i] * inv_l, o[4 * j + 2 * i + 1] * inv_l);
     }
   }
 }
 
-template <int D, int Q, bool COPY>
+template <int W, int Q, CwLoad P, int CHUNK>
 static int launch_chunk_wgmma(const bf16* q, const void* k_pool,
                               const void* v_pool, const float* k_scale,
                               const float* v_scale, const int* bt,
                               const int* pos, bf16* out, int B, int Tc,
-                              int KVH, int rep, int bs, int nb, int nbs,
-                              float scale, cudaStream_t st) {
-  // bf16 pools as [nb * bs, KVH * D]; a box is R rows of one kv head
+                              int KVH, int rep, int D, int bs, int nb,
+                              int nbs, float scale, cudaStream_t st) {
+  // bf16 pools as (D, KVH, nb * bs); a box is R rows of one kv head's 64
+  // columns, zeros past D
   CWMaps maps{};
-  if (Q == 0 && !COPY) {
-    const cuuint64_t dims[2] = {(cuuint64_t)KVH * D, (cuuint64_t)nb * bs};
-    const cuuint64_t strides[1] = {(cuuint64_t)KVH * D * 2};
-    const cuuint32_t box[2] = {64, (cuuint32_t)(bs < CW_KEYS ? bs : CW_KEYS)};
-    if (!(hopper::make_map_bf16(&maps.k, k_pool, 2, dims, strides, box) &&
-          hopper::make_map_bf16(&maps.v, v_pool, 2, dims, strides, box)))
+  if (P == CwLoad::kTma) {
+    const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)KVH,
+                                (cuuint64_t)nb * bs};
+    const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
+                                   (cuuint64_t)KVH * D * 2};
+    const cuuint32_t box[3] = {
+        64, 1, (cuuint32_t)(bs < cw_keys<W>() ? bs : cw_keys<W>())};
+    if (!(hopper::make_map_bf16(&maps.k, k_pool, 3, dims, strides, box) &&
+          hopper::make_map_bf16(&maps.v, v_pool, 3, dims, strides, box)))
       return (int)cudaErrorInvalidValue;
   }
-  constexpr int smem = cw_smem_bytes<D, Q>();
+  constexpr int smem = cw_smem_bytes<W, Q>();
   const cudaError_t e = cudaFuncSetAttribute(
-      chunked_prefill_wgmma<D, Q, COPY>,
+      chunked_prefill_wgmma<W, Q, P, CHUNK>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const int n_rt = (rep * Tc + CW_ROWS - 1) / CW_ROWS;
-  chunked_prefill_wgmma<D, Q, COPY>
-      <<<n_rt * B * KVH, CW_THREADS, smem, st>>>(
+  chunked_prefill_wgmma<W, Q, P, CHUNK><<<n_rt * B * KVH, CW_THREADS, smem, st>>>(
       maps, q, k_pool, v_pool, k_scale, v_scale, bt, pos, out, B, Tc, KVH,
-      rep, bs, nbs, scale);
+      rep, D, bs, nbs, scale);
   return (int)cudaGetLastError();
 }
 
-// the block sizes the bf16 kernel loads from bf16 pools by TMA: whole
-// boxes of 8 to 64 rows a 64-key tile (the rest take the copy producer)
+// the wgmma instance of width W over pools of Q: bf16 pools by TMA boxes
+// or by the copy producer (`copy`), code pools `chunk` codes a copy
+template <int W, int Q>
+static auto chunk_wgmma_launcher(bool copy, int chunk) {
+  if constexpr (Q == 0)
+    return copy ? launch_chunk_wgmma<W, 0, CwLoad::kCopy, 16>
+                : launch_chunk_wgmma<W, 0, CwLoad::kTma, 16>;
+  else
+    return chunk == 8 ? launch_chunk_wgmma<W, Q, CwLoad::kCodes, 8>
+                      : launch_chunk_wgmma<W, Q, CwLoad::kCodes, 16>;
+}
+
+// the block sizes the bf16 kernel loads from bf16 pools by TMA: pages of
+// a multiple of CW_PAGE_ROWS rows, or of 8 to CW_PAGE_ROWS rows that
+// divide it, so that a key tile (64 keys, 32 at W = 256) is whole boxes
+// of one page's rows (the rest take the copy producer)
+constexpr int CW_PAGE_ROWS = 64;
 static bool cw_block_size_ok(int bs) {
-  return bs % CW_KEYS == 0 || (bs >= 8 && CW_KEYS % bs == 0);
+  return bs % CW_PAGE_ROWS == 0 || (bs >= 8 && CW_PAGE_ROWS % bs == 0);
 }
 
 extern "C" int chunked_prefill_smem_bytes(int D, int bs) {
@@ -711,9 +796,10 @@ static int launch_chunk_general(const void* q, const void* k_pool,
   return (int)cudaGetLastError();
 }
 
-// wgmma (the wrapper's route, kernels/chunked_prefill.py wgmma_ok): the
-// bf16 wgmma kernel, D 64 or 128, over bf16 or code pools of any block
-// size, q, the pools and the scales 16-byte aligned; copy (the
+// wgmma (the wrapper's route, kernels/chunked_prefill.py wgmma_width):
+// the bf16 wgmma kernel, D a multiple of 8 up to 256 on the instance of
+// 64, 128 or 256 columns that holds it, over bf16 or code pools of any
+// block size, q, the pools and the scales 16-byte aligned; copy (the
 // wrapper's copy_producer): bf16 pools whose block size is not whole TMA
 // boxes (cw_block_size_ok), loaded by cp.async.  Otherwise the general
 // CUDA-core instance of q's type (dtype 0 f32, 1 bf16): any D <= CP_MAXD
@@ -736,15 +822,16 @@ extern "C" int chunked_prefill(const void* q, const void* k_pool,
   int err = 0;
   DISPATCH_KV(kv, Q, {
     if (wgmma) {
-      if (dtype != 1 || !(D == 64 || D == 128) ||
+      if (dtype != 1 || D <= 0 || D % 8 ||
           copy != (Q == 0 && !cw_block_size_ok(bs)))
         return (int)cudaErrorInvalidValue;
-      auto launch = D == 64 ? (copy ? launch_chunk_wgmma<64, Q, Q == 0>
-                                    : launch_chunk_wgmma<64, Q, false>)
-                            : (copy ? launch_chunk_wgmma<128, Q, Q == 0>
-                                    : launch_chunk_wgmma<128, Q, false>);
+      // code rows are 16-byte aligned where D % 16 == 0, else 8-byte
+      const int chunk = D % 16 ? 8 : 16;
+      auto launch = D <= 64    ? chunk_wgmma_launcher<64, Q>(copy, chunk)
+                    : D <= 128 ? chunk_wgmma_launcher<128, Q>(copy, chunk)
+                               : chunk_wgmma_launcher<256, Q>(copy, chunk);
       return launch((const bf16*)q, k_pool, v_pool, ksp, vsp, btp, posp,
-                    (bf16*)out, B, Tc, KVH, rep, bs, nb, nbs, scale, st);
+                    (bf16*)out, B, Tc, KVH, rep, D, bs, nb, nbs, scale, st);
     }
     DISPATCH_DTYPE(dtype, T, {
       auto launch = D <= 128 ? launch_chunk_general<T, Q, 128>

@@ -12,9 +12,9 @@
 //   flash_fwd<WRITE_LSE=true>   _fwd_kernel_lse  (pallas_call :254)
 //   flash_bwd_dq                _bwd_dq_kernel   (pallas_call :306)
 //   flash_bwd_dkv               _bwd_dkv_kernel  (pallas_call :324)
-// (bf16: fa_fwd_wgmma, fa_bwd_dq_wgmma at every head dim that is a
-// multiple of 8 up to 256, fa_bwd_dkv_wgmma at 64 and 128; the general
-// instances, f32 and the other bf16 shapes: fa_*_general<T, ..., MAXD>)
+// (bf16: fa_fwd_wgmma, fa_bwd_dq_wgmma and fa_bwd_dkv_wgmma at every
+// head dim that is a multiple of 8 up to 256; the general instances, f32
+// and the other bf16 shapes: fa_*_general<T, ..., MAXD>)
 // The TPU grid carried the softmax state (and the dQ / dK / dV sums)
 // from one sequential grid step to the next; here a block owns a tile of
 // rows and loops over the other axis itself.  Tiles wholly above the
@@ -47,7 +47,7 @@
 //   between two barriers) ran at 16 % of it.
 // - bf16 backward, dK/dV: a warp-specialized Hopper kernel
 //   (fa_bwd_dkv_wgmma, below: 128 keys a block held in shared memory,
-//   Q/dO tiles by TMA through a 3-stage ring, wgmma for all four
+//   64 at W = 256, Q/dO tiles by TMA through a ring, wgmma for all four
 //   products, dK and dV in registers to the end, so no atomics).  At T =
 //   8192, 32/8 heads, D = 128 its bound is 1.112 ms of operations; the
 //   mma.sync kernel it replaces (4 warps, 64 keys, 32-query tiles staged
@@ -57,9 +57,8 @@
 // - the general instances, fa_fwd_general<T, WRITE_LSE, MAXD>,
 //   fa_bwd_dq_general<T, MAXD> and fa_bwd_dkv_general<T, MAXD>: f32 (the
 //   CPU-scale check configuration), and bf16 at head dims the wgmma
-//   kernels are not built for (the forward and dQ: not a multiple of 8,
-//   such as 20; dK/dV: also 80, 96, 256, ... up to F_MAXD) or strides TMA
-//   cannot take.  CUDA cores, 16 rows and 16 columns a tile,
+//   kernels are not built for (not a multiple of 8, such as 20 or 100)
+//   or strides TMA cannot take.  CUDA cores, 16 rows and 16 columns a tile,
 //   8 threads a row, the tiles staged in shared memory as f32 (converted
 //   on load), every sum in f32 and one rounding at the store.  A thread
 //   keeps MAXD / 8 columns of its row in registers: the instances of
@@ -442,30 +441,6 @@ __host__ __device__ constexpr int load_regs() {
   return W == 256 ? 24 : 40;
 }
 
-// D[64 x W] (+)= A[64 x 16] (registers) . B[16 x W] (MN-major)
-template <int W>
-__device__ __forceinline__ void wgmma_rs_w(float* d, const uint32_t* a,
-                                           uint64_t db) {
-  if constexpr (W == 256)
-    hopper::wgmma_rs_n256<1>(d, a, db, 1);
-  else if constexpr (W == 128)
-    hopper::wgmma_rs_n128<1>(d, a, db, 1);
-  else
-    hopper::wgmma_rs_n64<1>(d, a, db, 1);
-}
-
-// D[64 x N] (+)= A[64 x 16] . B[16 x N], both K-major in shared memory
-template <int N>
-__device__ __forceinline__ void wgmma_ss_kk(float* d, uint64_t da,
-                                            uint64_t db, int accumulate) {
-  if constexpr (N == 128)
-    hopper::wgmma_ss_n128<0>(d, da, db, accumulate);
-  else if constexpr (N == 64)
-    hopper::wgmma_ss_n64<0>(d, da, db, accumulate);
-  else
-    hopper::wgmma_ss_n32<0>(d, da, db, accumulate);
-}
-
 template <int W, bool WRITE_LSE>
 __global__ void __launch_bounds__(FA_THREADS, 1)
     fa_fwd_wgmma(const __grid_constant__ FAMaps maps, FAParams p) {
@@ -656,63 +631,120 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
 }
 
 // --------------------------------------- bf16 dK/dV (wgmma + TMA)
-// A block owns 128 keys of one (batch, kv head): warpgroups 0 and 1
-// hold 64 keys each and their dK and dV sums in f32 registers to the
-// end (no atomics: the result's bits do not depend on timing), and
-// warpgroup 2 produces.  One producer thread loads the block's K and V
-// once, then, for each query head of the group, 64-row tiles of Q and
-// dO into a 3-stage ring, by TMA from 4-D tensor maps over the
-// [B, H, T, D] strides (128-byte swizzled, D / 64 boxes a tile); the
-// producer warp's lanes copy the tile's lse (times log2 e) and delta
-// rows beside them.  A consumer warpgroup computes S^T = K Q^T and
-// dP^T = V dO^T by wgmma m64n64k16 from shared memory (all K-major),
-// P^T = exp2(S^T scale log2 e - lse log2 e) and dS^T = P^T (dP^T -
-// delta) scale in f32 registers (the mask only on tiles that straddle
-// the diagonal or the ragged end; tiles wholly above the diagonal are
-// skipped), rounds P^T and dS^T to bf16 in the A-fragment layout, and
-// issues dV += P^T dO and dK += dS^T Q with Q and dO read MN-major.
-// Blocks of the first keys, which see the most queries, launch first.
-constexpr int DKV_BN = 128, DKV_BM = 64, DKV_THREADS = 384, DKV_STAGES = 3;
-constexpr int DKV_KBOX = 128 * 128;   // [128 rows][64] bf16
+// A block owns BN keys of one (batch, kv head): warpgroups 0 and 1 hold
+// dK and dV sums in f32 registers to the end (no atomics: the result's
+// bits do not depend on timing), and warpgroup 2 produces.  One producer
+// thread loads the block's K and V once, then, for each query head of
+// the group, 64-row tiles of Q and dO into a ring of STAGES, by TMA from
+// 4-D tensor maps over the [B, H, T, D] strides (128-byte swizzled, W /
+// 64 boxes a tile); the producer warp's lanes copy the tile's lse (times
+// log2 e) and delta rows beside them.  A consumer warpgroup computes
+// S^T = K Q^T and dP^T = V dO^T by wgmma m64n64k16 from shared memory
+// (all K-major) for its 64 keys, P^T = exp2(S^T scale log2 e - lse log2
+// e) and dS^T = P^T (dP^T - delta) scale in f32 registers (the mask only
+// on tiles that straddle the diagonal or the ragged end; tiles wholly
+// above the diagonal are skipped), splits P^T and dS^T each into a bf16
+// fragment and the bf16 rounding of its residual (A-fragment layout),
+// and issues dV += P^T dO and dK += dS^T Q over its CW columns as two
+// products each (Q and dO read MN-major).  Blocks of the first keys,
+// which see the most queries, launch first.
+//
+// Why the residuals: a dK or dV row is a sum over every query that sees
+// the key, whose terms largely cancel (dO and Q take either sign), so
+// one bf16 rounding of P^T and dS^T (FlashAttention-2's) costs up to
+// 2^-8 of each term, which can be several times 2^-8 of the row: on an
+// H100 at Phi-3's shapes the rows came to 0.8-1.01 of the error that
+// chip_smoke.py's rule allows (one bf16 rounding of the row's largest
+// output beyond twice the plain version's), as did SDPA's backward on
+// the same inputs (tools/attention_rule.py).  With the residuals P^T
+// and dS^T enter at 16 bits and the rows sit at a third of the rule;
+// the cost is two more products of the four (of the six at W = 256):
+// 29 % of the kernel's time at D = 128, T = 8192.
+//
+// The instance W (64, 128 or 256 columns) takes head dims as the
+// forward's do: the maps' innermost extent is the true D, so TMA fills
+// the columns D..W-1 of Q, dO, K and V with zeros; the products run at
+// the instance's full width (no run-time guard around wgmma), and the
+// columns of dK and dV past D (zeros) are not stored: in the model's
+// [B, T, H, D] layout they are the next head's.  The padding costs W / D
+// of the true products: 1.33x at D = 96, 1.6x at 80.
+// - W = 64 and 128: BN = 128 keys, 64 a warpgroup, every column; 3
+//   stages (166 KB at W = 128).  A consumer thread holds dK and dV (W / 2
+//   each), S^T and dP^T (32 each) and their bf16 fragments and
+//   residuals (16 each), S^T and dP^T dying as their fragments are
+//   made, under setmaxnreg's 232.
+// - W = 256 (Gemma's heads): dK and dV of 64 keys at 256 columns are 256
+//   f32 registers a thread for one warpgroup, more than a thread has.  So
+//   both warpgroups take the same BN = 64 keys and each keeps 128 of the
+//   256 columns of dK and dV: the registers of the W = 128 instance.
+//   Each warpgroup computes S^T and dP^T for those keys itself (design
+//   (b)): 1.5x the products of computing them once, in exchange for no
+//   exchange of P^T and dS^T through shared memory and no barrier between
+//   the warpgroups on every tile (design (a), FlashAttention-3's, would
+//   make one warpgroup wait on the other's exponentials each tile).  K
+//   and V take 64 KB, 2 stages of Q and dO 128 KB: 194 KB (3 stages would
+//   need 258).
+constexpr int DKV_BM = 64, DKV_THREADS = 384;
 constexpr int DKV_QBOX = 64 * 128;    // [64 rows][64] bf16
 
+// a and b rounded to bf16 (hi), and the bf16 rounding of what that
+// rounding left over (lo): hi + lo holds each to 16 bits
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = pack_bf16(a, b);
+  lo = pack_bf16(a - __uint_as_float(hi << 16),
+                 b - __uint_as_float(hi & 0xffff0000u));
+}
+
+template <int W>
+__host__ __device__ constexpr int dkv_bn() {
+  return W == 256 ? 64 : 128;         // keys a block
+}
+template <int W>
+__host__ __device__ constexpr int dkv_stages() {
+  return W == 256 ? 2 : 3;
+}
+
 // the backward's tensor maps (bwd_maps): dK/dV's boxes are (64, 64, 1,
-// 1) for q and dO and (64, 128, 1, 1) for k and v; dQ's the other way
+// 1) for q and dO and (64, BN, 1, 1) for k and v; dQ's the other way
 struct DKVMaps {
   CUtensorMap q, dout;   // [B, H, Tq, D] as (D, T, H, B)
   CUtensorMap k, v;      // [B, KVH, Tk, D]
 };
 
-template <int D>
+template <int W>
 constexpr int fa_dkv_smem() {
   // alignment; K, V; per stage Q, dO and 64 lse + 64 delta; barriers
-  return 1024 + 2 * (D / 64) * DKV_KBOX +
-         DKV_STAGES * (2 * (D / 64) * DKV_QBOX + 2 * DKV_BM * 4) +
-         (1 + 2 * DKV_STAGES) * 8;
+  return 1024 + 2 * (W / 64) * dkv_bn<W>() * 128 +
+         dkv_stages<W>() * (2 * (W / 64) * DKV_QBOX + 2 * DKV_BM * 4) +
+         (1 + 2 * dkv_stages<W>()) * 8;
 }
 
-template <int D>
+template <int W>
 __global__ void __launch_bounds__(DKV_THREADS, 1)
     fa_bwd_dkv_wgmma(const __grid_constant__ DKVMaps maps, FAParams p) {
   using namespace hopper;
-  constexpr int KT = (D / 64) * DKV_KBOX;       // the K (or V) tile
-  constexpr int QT = (D / 64) * DKV_QBOX;       // one Q (or dO) tile
+  constexpr int BN = dkv_bn<W>(), STAGES = dkv_stages<W>();
+  constexpr int CW = W == 256 ? 128 : W;        // a warpgroup's columns
+  constexpr int KBOX = BN * 128;                // [BN rows][64] bf16
+  constexpr int KT = (W / 64) * KBOX;           // the K (or V) tile
+  constexpr int QT = (W / 64) * DKV_QBOX;       // one Q (or dO) tile
   extern __shared__ uint8_t dkv_smem[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(dkv_smem) + 1023) & ~uintptr_t(1023));
   uint8_t* ks = smem;
   uint8_t* vs = ks + KT;
-  uint8_t* qs = vs + KT;                        // DKV_STAGES tiles
-  uint8_t* dos = qs + DKV_STAGES * QT;          // DKV_STAGES tiles
-  float* rows = reinterpret_cast<float*>(dos + DKV_STAGES * QT);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(rows + DKV_STAGES * 2 * DKV_BM);
+  uint8_t* qs = vs + KT;                        // STAGES tiles
+  uint8_t* dos = qs + STAGES * QT;              // STAGES tiles
+  float* rows = reinterpret_cast<float*>(dos + STAGES * QT);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(rows + STAGES * 2 * DKV_BM);
   uint64_t* kv_full = bars;
   uint64_t* full = bars + 1;
-  uint64_t* empty = full + DKV_STAGES;
+  uint64_t* empty = full + STAGES;
 
   const int rep = p.H / p.KVH, off = p.Tk - p.Tq;
   const int kb = blockIdx.x / (p.B * p.KVH), rest = blockIdx.x % (p.B * p.KVH);
-  const int b = rest / p.KVH, kh = rest % p.KVH, k0 = kb * DKV_BN;
+  const int b = rest / p.KVH, kh = rest % p.KVH, k0 = kb * BN;
   // the first query tile that sees any of this block's keys
   const int qstart = p.causal ? max(0, k0 - off) / DKV_BM * DKV_BM : 0;
   const int n_qt = (p.Tq - qstart + DKV_BM - 1) / DKV_BM;
@@ -720,7 +752,7 @@ __global__ void __launch_bounds__(DKV_THREADS, 1)
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
-    for (int s = 0; s < DKV_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 33);    // the TMA's expect_tx, then each lane
       mbar_init(&empty[s], 8);    // one arrival per consumer warp
     }
@@ -736,21 +768,20 @@ __global__ void __launch_bounds__(DKV_THREADS, 1)
       if (lane == 0) {
         mbar_expect_tx(kv_full, 2 * KT);
 #pragma unroll
-        for (int x = 0; x < D / 64; ++x) {
-          tma_load_4d(ks + x * DKV_KBOX, &maps.k, kv_full, x * 64, k0, kh, b);
-          tma_load_4d(vs + x * DKV_KBOX, &maps.v, kv_full, x * 64, k0, kh, b);
+        for (int x = 0; x < W / 64; ++x) {
+          tma_load_4d(ks + x * KBOX, &maps.k, kv_full, x * 64, k0, kh, b);
+          tma_load_4d(vs + x * KBOX, &maps.v, kv_full, x * 64, k0, kh, b);
         }
       }
       for (int it = 0; it < n_it; ++it) {
-        const int s = it % DKV_STAGES;
+        const int s = it % STAGES;
         const int h = kh * rep + it / n_qt;
         const int q0 = qstart + (it % n_qt) * DKV_BM;
-        if (it >= DKV_STAGES)
-          mbar_wait(&empty[s], ((it / DKV_STAGES) - 1) & 1);
+        if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) - 1) & 1);
         if (lane == 0) {
           mbar_expect_tx(&full[s], 2 * QT);
 #pragma unroll
-          for (int x = 0; x < D / 64; ++x) {
+          for (int x = 0; x < W / 64; ++x) {
             tma_load_4d(qs + s * QT + x * DKV_QBOX, &maps.q, &full[s],
                         x * 64, q0, h, b);
             tma_load_4d(dos + s * QT + x * DKV_QBOX, &maps.dout, &full[s],
@@ -773,22 +804,24 @@ __global__ void __launch_bounds__(DKV_THREADS, 1)
     setmaxnreg_inc<232>();
     const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32;
     const int lane = threadIdx.x % 32, g = lane / 4, tg = lane % 4;
-    const int kw0 = k0 + wg * 64;                 // this warpgroup's keys
+    // this warpgroup's keys and its first column of dK and dV
+    const int kw0 = W == 256 ? k0 : k0 + wg * 64;
+    const int c0 = W == 256 ? wg * CW : 0;
     int key[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) key[i] = kw0 + warp * 16 + g + 8 * i;
     const float scale_log2 = p.scale * 1.4426950408889634f;
-    float dk[D / 2], dv[D / 2];
+    float dk[CW / 2], dv[CW / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
-    const uint32_t ka = smem_u32(ks) + wg * 64 * 128;
-    const uint32_t va = smem_u32(vs) + wg * 64 * 128;
+    for (int i = 0; i < CW / 2; ++i) dk[i] = dv[i] = 0.f;
+    const uint32_t ka = smem_u32(ks) + (kw0 - k0) * 128;
+    const uint32_t va = smem_u32(vs) + (kw0 - k0) * 128;
     mbar_wait(kv_full, 0);
 
     for (int it = 0; it < n_it; ++it) {
-      const int s = it % DKV_STAGES;
+      const int s = it % STAGES;
       const int q0 = qstart + (it % n_qt) * DKV_BM;
-      mbar_wait(&full[s], (it / DKV_STAGES) & 1);
+      mbar_wait(&full[s], (it / STAGES) & 1);
       // tiles whose every query is above this warpgroup's keys add 0
       if (!(p.causal && q0 + DKV_BM - 1 + off < kw0)) {
         const uint32_t qa = smem_u32(qs + s * QT);
@@ -803,16 +836,16 @@ __global__ void __launch_bounds__(DKV_THREADS, 1)
         fence_regs<DKV_BM / 2>(dpt);
         // the k step kk: 32 bytes into a box, boxes of 64 columns
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          const uint32_t ko = (kk / 4) * DKV_KBOX + (kk % 4) * 32;
+        for (int kk = 0; kk < W / 16; ++kk) {
+          const uint32_t ko = (kk / 4) * KBOX + (kk % 4) * 32;
           const uint32_t qo = (kk / 4) * DKV_QBOX + (kk % 4) * 32;
           wgmma_ss_n64<0>(st, desc_sw128(ka + ko, 16, 1024),
                           desc_sw128(qa + qo, 16, 1024), 1);
         }
         wgmma_commit();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          const uint32_t ko = (kk / 4) * DKV_KBOX + (kk % 4) * 32;
+        for (int kk = 0; kk < W / 16; ++kk) {
+          const uint32_t ko = (kk / 4) * KBOX + (kk % 4) * 32;
           const uint32_t qo = (kk / 4) * DKV_QBOX + (kk % 4) * 32;
           wgmma_ss_n64<0>(dpt, desc_sw128(va + ko, 16, 1024),
                           desc_sw128(da + qo, 16, 1024), 1);
@@ -844,36 +877,40 @@ __global__ void __launch_bounds__(DKV_THREADS, 1)
             dpt[4 * j + c] = st[4 * j + c] * (dpt[4 * j + c] - dl_s[qc]) *
                              p.scale;
           }
+        // P^T and dS^T as bf16 fragments (pa, sa), each beside the bf16
+        // rounding of its residual (pl, sl): two products each carry P^T
+        // and dS^T to 16 bits
         uint32_t pa[DKV_BM / 16][4], sa[DKV_BM / 16][4];
+        uint32_t pl[DKV_BM / 16][4], sl[DKV_BM / 16][4];
 #pragma unroll
         for (int kk = 0; kk < DKV_BM / 16; ++kk)
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
-            pa[kk][r] = pack_bf16(st[8 * kk + 2 * r], st[8 * kk + 2 * r + 1]);
-            sa[kk][r] =
-                pack_bf16(dpt[8 * kk + 2 * r], dpt[8 * kk + 2 * r + 1]);
+            split_bf16(st[8 * kk + 2 * r], st[8 * kk + 2 * r + 1], pa[kk][r],
+                       pl[kk][r]);
+            split_bf16(dpt[8 * kk + 2 * r], dpt[8 * kk + 2 * r + 1],
+                       sa[kk][r], sl[kk][r]);
           }
         wgmma_fence();
-        fence_regs<D / 2>(dv);
-        fence_regs<D / 2>(dk);
+        fence_regs<CW / 2>(dv);
+        fence_regs<CW / 2>(dk);
+        // B: this warpgroup's CW columns of dO and Q, from column c0 on
 #pragma unroll
         for (int kk = 0; kk < DKV_BM / 16; ++kk) {
-          const uint64_t dd = desc_sw128(da + kk * 16 * 128, DKV_QBOX, 1024);
-          const uint64_t dq = desc_sw128(qa + kk * 16 * 128, DKV_QBOX, 1024);
-          if constexpr (D == 128) {
-            wgmma_rs_n128<1>(dv, pa[kk], dd, 1);
-            wgmma_rs_n128<1>(dk, sa[kk], dq, 1);
-          } else {
-            wgmma_rs_n64<1>(dv, pa[kk], dd, 1);
-            wgmma_rs_n64<1>(dk, sa[kk], dq, 1);
-          }
+          const uint32_t at = (c0 / 64) * DKV_QBOX + kk * 16 * 128;
+          wgmma_rs_w<CW>(dv, pa[kk], desc_sw128(da + at, DKV_QBOX, 1024));
+          wgmma_rs_w<CW>(dk, sa[kk], desc_sw128(qa + at, DKV_QBOX, 1024));
+          wgmma_rs_w<CW>(dv, pl[kk], desc_sw128(da + at, DKV_QBOX, 1024));
+          wgmma_rs_w<CW>(dk, sl[kk], desc_sw128(qa + at, DKV_QBOX, 1024));
         }
         wgmma_commit();
         wgmma_wait<0>();
-        fence_regs<D / 2>(dv);
-        fence_regs<D / 2>(dk);
+        fence_regs<CW / 2>(dv);
+        fence_regs<CW / 2>(dk);
         keep_regs<4 * (DKV_BM / 16)>(&pa[0][0]);
         keep_regs<4 * (DKV_BM / 16)>(&sa[0][0]);
+        keep_regs<4 * (DKV_BM / 16)>(&pl[0][0]);
+        keep_regs<4 * (DKV_BM / 16)>(&sl[0][0]);
       }
       // every lane's reads of the stage (lse and delta with ld.shared),
       // then lane 0 frees it for the producer's next copy
@@ -885,15 +922,18 @@ __global__ void __launch_bounds__(DKV_THREADS, 1)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       if (key[i] >= p.Tk) continue;
-      bf16* dkr = (bf16*)p.dk + k_off(p, b, kh, key[i]);
-      bf16* dvr = (bf16*)p.dv + k_off(p, b, kh, key[i]);
+      bf16* dkr = (bf16*)p.dk + k_off(p, b, kh, key[i]) + c0;
+      bf16* dvr = (bf16*)p.dv + k_off(p, b, kh, key[i]) + c0;
+      // columns 8 j .. 8 j + 7 (D is a multiple of 8): past D lie the
+      // next head's columns in the model's [B, T, H, D] layout
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        *reinterpret_cast<uint32_t*>(dkr + 8 * j + 2 * tg) =
-            pack_bf16(dk[4 * j + 2 * i], dk[4 * j + 2 * i + 1]);
-        *reinterpret_cast<uint32_t*>(dvr + 8 * j + 2 * tg) =
-            pack_bf16(dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
-      }
+      for (int j = 0; j < CW / 8; ++j)
+        if (c0 + 8 * j < p.D) {
+          *reinterpret_cast<uint32_t*>(dkr + 8 * j + 2 * tg) =
+              pack_bf16(dk[4 * j + 2 * i], dk[4 * j + 2 * i + 1]);
+          *reinterpret_cast<uint32_t*>(dvr + 8 * j + 2 * tg) =
+              pack_bf16(dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
+        }
     }
   }
 }
@@ -1171,14 +1211,12 @@ static FAParams make_params(const void* q, const void* k, const void* v,
 
 // the operands every entry point refuses: the wrapper checks them too.
 // general: the CUDA-core instance of the dtype (f32 always), D <= F_MAXD;
-// else the bf16 wgmma kernels: the forward and dQ (dkv 0) at any D that
-// is a multiple of 8 up to 256, dK/dV (dkv 1) at D 64 or 128
+// else the bf16 wgmma kernels, at any D that is a multiple of 8 up to 256
 static bool bad_shape(int H, int KVH, int Tq, int Tk, int D, int causal,
-                      int dtype, int general, int dkv) {
+                      int dtype, int general) {
   if (KVH <= 0 || H % KVH || (causal && Tq > Tk) || D <= 0) return true;
   if (dtype != 0 && dtype != 1) return true;
   if (general || dtype == 0) return D > F_MAXD;
-  if (dkv) return !(D == 64 || D == 128);
   return D % 8 != 0 || D > 256;
 }
 
@@ -1233,7 +1271,7 @@ static int launch_fwd_wgmma(const FAParams& p, cudaStream_t st) {
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* out, float* lse, FA_ARGS) {
   if (B == 0 || H == 0 || Tq == 0) return 0;
-  if (bad_shape(H, KVH, Tq, Tk, D, causal, dtype, general, 0) || Tk == 0)
+  if (bad_shape(H, KVH, Tq, Tk, D, causal, dtype, general) || Tk == 0)
     return (int)cudaErrorInvalidValue;
   FAParams p = make_params(q, k, v, B, H, KVH, Tq, Tk, D, qsb, qsh, qst, ksb,
                            ksh, kst, causal, scale);
@@ -1294,7 +1332,7 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,
                             const float* delta, void* dq, FA_ARGS) {
   if (B == 0 || H == 0 || Tq == 0) return 0;
-  if (bad_shape(H, KVH, Tq, Tk, D, causal, dtype, general, 0) || Tk == 0)
+  if (bad_shape(H, KVH, Tq, Tk, D, causal, dtype, general) || Tk == 0)
     return (int)cudaErrorInvalidValue;
   FAParams p = make_params(q, k, v, B, H, KVH, Tq, Tk, D, qsb, qsh, qst, ksb,
                            ksh, kst, causal, scale);
@@ -1317,18 +1355,19 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
   return launch_dq_wgmma<256>(p, st);
 }
 
-template <int D>
+template <int W>
 static int launch_dkv_wgmma(const FAParams& p, cudaStream_t st) {
   DKVMaps maps;
-  if (!bwd_maps(&maps, p, DKV_BM, DKV_BN)) return (int)cudaErrorInvalidValue;
-  constexpr int smem = fa_dkv_smem<D>();
+  if (!bwd_maps(&maps, p, DKV_BM, dkv_bn<W>()))
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = fa_dkv_smem<W>();
   const cudaError_t e = cudaFuncSetAttribute(
-      fa_bwd_dkv_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fa_bwd_dkv_wgmma<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  const int n_kb = (p.Tk + DKV_BN - 1) / DKV_BN;
-  fa_bwd_dkv_wgmma<D><<<n_kb * p.B * p.KVH, DKV_THREADS, smem, st>>>(maps,
+  const int n_kb = (p.Tk + dkv_bn<W>() - 1) / dkv_bn<W>();
+  fa_bwd_dkv_wgmma<W><<<n_kb * p.B * p.KVH, DKV_THREADS, smem, st>>>(maps,
                                                                      p);
-  return 0;
+  return (int)cudaGetLastError();
 }
 
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -1336,7 +1375,7 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const float* delta, void* dk, void* dv,
                              FA_ARGS) {
   if (B == 0 || KVH == 0 || Tk == 0) return 0;
-  if (bad_shape(H, KVH, Tq, Tk, D, causal, dtype, general, 1))
+  if (bad_shape(H, KVH, Tq, Tk, D, causal, dtype, general))
     return (int)cudaErrorInvalidValue;
   FAParams p = make_params(q, k, v, B, H, KVH, Tq, Tk, D, qsb, qsh, qst, ksb,
                            ksh, kst, causal, scale);
@@ -1354,17 +1393,15 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                             grid, 2, p, st);
     });
     return (int)cudaErrorInvalidValue;
-  } else {
-    // no query rows: zero sums (dK, dV are dense, from empty_like(k));
-    // the tensor maps take no zero extent
-    if (Tq == 0) {
-      const size_t bytes = (size_t)B * KVH * Tk * D * 2;
-      const cudaError_t e = cudaMemsetAsync(dk, 0, bytes, st);
-      return (int)(e != cudaSuccess ? e : cudaMemsetAsync(dv, 0, bytes, st));
-    }
-    const int err = D == 64 ? launch_dkv_wgmma<64>(p, st)
-                            : launch_dkv_wgmma<128>(p, st);
-    if (err) return err;
   }
-  return (int)cudaGetLastError();
+  // no query rows: zero sums (dK, dV are dense, from empty_like(k)); the
+  // tensor maps take no zero extent
+  if (Tq == 0) {
+    const size_t bytes = (size_t)B * KVH * Tk * D * 2;
+    const cudaError_t e = cudaMemsetAsync(dk, 0, bytes, st);
+    return (int)(e != cudaSuccess ? e : cudaMemsetAsync(dv, 0, bytes, st));
+  }
+  if (D <= 64) return launch_dkv_wgmma<64>(p, st);
+  if (D <= 128) return launch_dkv_wgmma<128>(p, st);
+  return launch_dkv_wgmma<256>(p, st);
 }

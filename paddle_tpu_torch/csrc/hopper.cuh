@@ -86,7 +86,7 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 
 // ----------------------------------------------------------- cp.async
-// `bytes` (4 or 16) from global `src` to shared `dst` without a register
+// `bytes` (4, 8 or 16) from global `src` to shared `dst` without a register
 // (zeros instead when !full, and nothing is read)
 __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
                                             bool full) {
@@ -98,6 +98,12 @@ __device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src,
                                            bool full) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
                "l"(__cvta_generic_to_global(src)), "r"(full ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_8(uint32_t dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(__cvta_generic_to_global(src)), "r"(full ? 8 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -120,6 +126,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -505,6 +522,32 @@ __device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a,
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(accumulate), "n"(TRANS_B));
+}
+
+// D[64 x N] (+)= A[64 x 16] . B[16 x N], both K-major in shared memory
+// (N = 32, 64 or 128 keys of attention's S = Q K^T)
+template <int N>
+__device__ __forceinline__ void wgmma_ss_kk(float* d, uint64_t da,
+                                            uint64_t db, int accumulate) {
+  if constexpr (N == 128)
+    wgmma_ss_n128<0>(d, da, db, accumulate);
+  else if constexpr (N == 64)
+    wgmma_ss_n64<0>(d, da, db, accumulate);
+  else
+    wgmma_ss_n32<0>(d, da, db, accumulate);
+}
+
+// D[64 x W] += A[64 x 16] (registers) . B[16 x W] (MN-major), W = 64,
+// 128 or 256 (attention's O += P V and its gradients' products)
+template <int W>
+__device__ __forceinline__ void wgmma_rs_w(float* d, const uint32_t* a,
+                                           uint64_t db) {
+  if constexpr (W == 256)
+    wgmma_rs_n256<1>(d, a, db, 1);
+  else if constexpr (W == 128)
+    wgmma_rs_n128<1>(d, a, db, 1);
+  else
+    wgmma_rs_n64<1>(d, a, db, 1);
 }
 
 // ------------------------------------------------------- host: tensor maps

@@ -197,19 +197,30 @@ def dtype_code(t) -> int:
 class LaunchCounter:
     """Plain-integer launch counts, one per kernel wrapper.  A wrapper
     adds one where it launches its kernel and nowhere else, so a run can
-    show which kernels its path went through."""
+    show which kernels its path went through.  A wrapper whose kernel
+    has several compiled instances (widths, producers) also names the
+    instance it launched, tallied apart under ``name@instance``
+    (:meth:`by_instance`), so that a run shows which instances ran."""
 
     def __init__(self):
         self.counts: dict = {}
+        self.instances: dict = {}
 
-    def add(self, name: str):
+    def add(self, name: str, instance: str | None = None):
         self.counts[name] = self.counts.get(name, 0) + 1
+        if instance is not None:
+            key = f"{name}@{instance}"
+            self.instances[key] = self.instances.get(key, 0) + 1
 
     def reset(self):
         self.counts.clear()
+        self.instances.clear()
 
     def snapshot(self) -> dict:
         return dict(self.counts)
+
+    def by_instance(self) -> dict:
+        return dict(self.instances)
 
 
 launches = LaunchCounter()

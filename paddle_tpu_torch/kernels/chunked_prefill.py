@@ -5,15 +5,21 @@ Replaces ``paddle_tpu/kernels/chunked_prefill.py`` ``_chunk_kernel``
 (the ``pallas_call`` in ``_pallas_chunked``); the kernel is
 ``csrc/chunked_prefill.cu``, whose header says what bounds it on the
 H100 and how its blocks split the rep*T query rows.  The kernel is
-chosen from the operands before the launch (:func:`wgmma_ok`): bf16 at
-head_dim 64 or 128 (any rep, chunk length, batch and block size) over
-bf16 or code pools, with q, the pools and the scales 16-byte aligned,
-runs the wgmma kernel, whose producer loads bf16 pages of 8, 16, 32 or
-a multiple of 64 keys as TMA boxes and copies every other page size by
-cp.async (:func:`copy_producer`); every other shape up to head_dim 256,
-bf16 or f32, the general CUDA-core instance, counted as
+chosen from the operands before the launch (:func:`wgmma_width`): bf16
+at any head_dim that is a multiple of 8 up to 256 (any rep, chunk
+length, batch and block size) over bf16 or code pools, with q, the pools
+and the scales 16-byte aligned, runs the wgmma kernel on its instance of
+64, 128 or 256 columns (the columns past head_dim zeros, which costs W /
+D of the true products: 1.33x at Phi-3's 96, 1.6x at 80; the instances
+are bound by their products on the H100, the 256-column one also by its
+shared memory, which takes its keys 32 at a time), whose producer loads
+bf16 pages of 8, 16, 32 or a multiple of 64 keys as TMA boxes and copies
+every other page size by cp.async (:func:`copy_producer`); every other
+shape up to head_dim 256 (head_dims not a multiple of 8, such as 20 or
+100), bf16 or f32, the general CUDA-core instance, counted as
 ``chunked_prefill_general`` for bf16 (f32 keeps ``chunked_prefill``).
-head_dim above 256 raises before any launch.
+head_dim above 256 raises before any launch.  There is no fallback: a
+wgmma instance whose tensor maps or launch fail raises.
 
 The caller has rotated q and k (``apply_rope``) and scattered the
 chunk's k/v into the pools; padded chunk positions went to the garbage
@@ -42,17 +48,18 @@ KERNEL = "chunked_prefill"
 GENERAL = "chunked_prefill_general"   # bf16 on the general instance
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256         # csrc/chunked_prefill.cu CP_MAXD
-BF16_HEAD_DIMS = (64, 128)  # the bf16 wgmma kernel's instances
+WGMMA_WIDTHS = (64, 128, 256)  # the bf16 wgmma kernel's instances
 SMEM_LIMIT = 227 * 1024    # the general instance: a block's opt-in smem
-WGMMA_KEYS = 64            # csrc/chunked_prefill.cu CW_KEYS: a key tile
+TMA_PAGE_ROWS = 64         # csrc/chunked_prefill.cu CW_PAGE_ROWS
 
 
 def tma_block_size_ok(bs):
     """csrc/chunked_prefill.cu ``cw_block_size_ok``: the bf16 pages the
-    wgmma kernel loads as TMA boxes, a 64-key tile of whole boxes of one
-    page's rows, 8 to 64 of them (a box is 1024-byte aligned in the
-    128-byte swizzle only from 8 rows up)."""
-    return bs % WGMMA_KEYS == 0 or (bs >= 8 and WGMMA_KEYS % bs == 0)
+    wgmma kernel loads as TMA boxes, those of a multiple of 64 rows or of
+    8 to 64 rows that divide 64 (a box is 1024-byte aligned in the
+    128-byte swizzle only from 8 rows up), so that a key tile (64 keys,
+    32 at 256 columns) is whole boxes of one page's rows."""
+    return bs % TMA_PAGE_ROWS == 0 or (bs >= 8 and TMA_PAGE_ROWS % bs == 0)
 
 
 def copy_producer(bs, kv_cache_dtype=None):
@@ -63,29 +70,55 @@ def copy_producer(bs, kv_cache_dtype=None):
     return kv_cache_dtype is None and not tma_block_size_ok(bs)
 
 
-def wgmma_ok(q, k_pool, v_pool, scales=()):
-    """Whether these operands go to the bf16 wgmma kernel: bf16 q at
-    head_dim 64 or 128, bf16 or code pools of any block size, and q, the
-    pools and the scales 16-byte aligned (its 16-byte loads and TMA
-    copies).  Every other shape takes the general instance."""
-    return (q.dtype == torch.bfloat16 and q.shape[-1] in BF16_HEAD_DIMS
+def wgmma_width(q, k_pool, v_pool, scales=()):
+    """The columns of the bf16 wgmma instance these operands go to, or
+    None where the general instance takes them: bf16 q at a head_dim D
+    that is a multiple of 8, on the instance of 64 (D <= 64), 128 or 256
+    columns, over bf16 or code pools of any block size, with q, the pools
+    and the scales 16-byte aligned (its 16-byte loads and TMA copies).
+    Raises for head_dim above 256, which no kernel takes."""
+    D = q.shape[-1]
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"chunked_attention: head_dim {D} has no kernel "
+                         f"(at most {MAX_HEAD_DIM})")
+    if not (q.dtype == torch.bfloat16 and D % 8 == 0
             and k_pool.shape[1] > 0
             and all(t.data_ptr() % 16 == 0
-                    for t in (q, k_pool, v_pool, *scales)))
+                    for t in (q, k_pool, v_pool, *scales))):
+        return None
+    return next(w for w in WGMMA_WIDTHS if D <= w)
+
+
+def instance(q, k_pool, v_pool, scales=(), kv_cache_dtype=None):
+    """The kernel instance these operands launch, as the launch counter
+    tallies it beside the kernel's name: ``w{W}_tma``, ``w{W}_copy`` or
+    ``w{W}_codes{16|8}`` for the wgmma kernel of W columns by its
+    producer (code pools copy 8 codes at a time where head_dim % 16 ==
+    8), ``maxd128`` or ``maxd256`` for the general one."""
+    W = wgmma_width(q, k_pool, v_pool, scales)
+    D = q.shape[-1]
+    if W is None:
+        return f"maxd{128 if D <= 128 else MAX_HEAD_DIM}"
+    if kv_cache_dtype is not None:
+        return f"w{W}_codes{8 if D % 16 else 16}"
+    return f"w{W}_{'copy' if copy_producer(k_pool.shape[1]) else 'tma'}"
 
 
 def chunked_attention_plain(q, k_pool, v_pool, block_table, positions,
-                            k_scale=None, v_scale=None, kv_cache_dtype=None):
+                            k_scale=None, v_scale=None, kv_cache_dtype=None,
+                            scale=None):
     """The reference's grouped-query chunk attention (``_xla_chunked``
-    and its caller's grouping), in f32 with a full masked softmax."""
+    and its caller's grouping), in f32 with a full masked softmax.
+    ``scale`` defaults to 1/sqrt(head_dim)."""
     B, T, H, D = q.shape
     KVH = k_pool.shape[2]
     rep = H // KVH
     RT = rep * T
     bs = k_pool.shape[1]
     L = block_table.shape[1] * bs
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
     q_g = q.reshape(B, T, KVH, rep, D).permute(0, 2, 3, 1, 4) \
-        .reshape(B, KVH, RT, D).float() * (1.0 / math.sqrt(D))
+        .reshape(B, KVH, RT, D).float() * scale
     bt = block_table.long()
     kb = kv_quant.gather_pages(k_pool, k_scale, bt, kv_cache_dtype) \
         .reshape(B, L, KVH, D)
@@ -135,7 +168,7 @@ def chunked_attention(q, k_pool, v_pool, block_table, positions,
                          f"q {tuple(q.shape)} {q.dtype}, pool "
                          f"{tuple(k_pool.shape)} {k_pool.dtype}")
     scales = () if kv_cache_dtype is None else (k_scale, v_scale)
-    wgmma = wgmma_ok(q, k_pool, v_pool, scales)
+    wgmma = wgmma_width(q, k_pool, v_pool, scales) is not None
     copy = wgmma and copy_producer(bs, kv_cache_dtype)
     if not wgmma:
         smem = _build.bind(KERNEL, "chunked_prefill_smem_bytes",
@@ -160,5 +193,6 @@ def chunked_attention(q, k_pool, v_pool, block_table, positions,
                     nbs, 1.0 / math.sqrt(D), _build.dtype_code(q),
                     kv_quant.KV_DTYPE_CODES[kv_cache_dtype], int(wgmma),
                     int(copy), _build.stream_ptr(q)), name)
-    _build.launches.add(name)
+    _build.launches.add(name, instance(q, k_pool, v_pool, scales,
+                                       kv_cache_dtype))
     return out

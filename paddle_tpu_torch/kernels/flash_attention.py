@@ -24,20 +24,24 @@ views with any strides on the first three axes, so
 :func:`flash_attention_bthd` hands the model's [B, T, H, D] tensors over
 as transposed views, without a copy.
 
-Which kernel runs is chosen for each of the three from the operands
+Which kernel runs is chosen for each of the four from the operands
 before the launch (:func:`wgmma_width`, :func:`general_route`): bf16
-with strides TMA takes runs the wgmma kernels, the forward and dQ at
-every head_dim that is a multiple of 8 up to 256 (the instance of 64,
-128 or 256 columns that holds it, the columns past head_dim zeros: 80
-and 96, as Phi-2 and Phi-3 use, on the 128-column one, Gemma's 256 on
-its own), dK/dV at head_dim 64 or 128; f32, and bf16 at any other shape
-up to head_dim 256 (dK/dV at 80, 96 or 256, every kernel at the tests'
-20) or other strides, the general CUDA-core instances, each bf16 launch
-of them counted under its kernel's name with ``_general`` (f32 keeps
-the plain names).  There is no fallback: a wgmma instance whose tensor
-maps or launch fail raises.  There are no block-size flags and no
-autotune: the TPU kernel's tiling knobs are not function.  CPU tensors
-take the plain versions; CUDA tensors launch the kernels or raise.
+with strides TMA takes runs the wgmma kernels at every head_dim that is
+a multiple of 8 up to 256, on the instance of 64, 128 or 256 columns
+that holds it, the columns past head_dim zeros (80 and 96, as Phi-2 and
+Phi-3 use, on the 128-column one, Gemma's 256 on its own); the padding
+costs W / D of the true products (1.33x at 96, 1.6x at 80).  On the
+H100 each instance is bound by its products; dK/dV's 256-column
+instance computes S and dP once for each of its two warpgroups (1.5x
+its products), since one warpgroup cannot hold 64 keys of dK and dV at
+256 columns.  f32, and bf16 at head_dims that are not a multiple of 8
+(the tests' 20, or 100) or other strides, take the general CUDA-core
+instances, each bf16 launch of them counted under its kernel's name with
+``_general`` (f32 keeps the plain names).  There is no fallback: a wgmma
+instance whose tensor maps or launch fail raises.  There are no
+block-size flags and no autotune: the TPU kernel's tiling knobs are not
+function.  CPU tensors take the plain versions; CUDA tensors launch the
+kernels or raise.
 """
 from __future__ import annotations
 
@@ -55,8 +59,7 @@ BWD_DQ = "flash_attention_bwd_dq"
 BWD_DKV = "flash_attention_bwd_dkv"
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256          # csrc/flash_attention.cu F_MAXD
-WGMMA_WIDTHS = (64, 128, 256)   # the bf16 forward's and dQ's instances
-DKV_HEAD_DIMS = (64, 128)   # the bf16 dK/dV kernel's instances
+WGMMA_WIDTHS = (64, 128, 256)   # the bf16 wgmma kernels' instances
 GENERAL = "_general"        # suffix of a bf16 launch of a general kernel
 
 
@@ -176,23 +179,18 @@ def tma_strides(t):
 def wgmma_width(q, k, kernel):
     """The columns of the bf16 wgmma instance that runs ``kernel`` (FWD,
     FWD_LSE, BWD_DQ or BWD_DKV) on these [B, H, T, D] views, or None
-    where the general instances do: the forward and dQ take a head_dim
-    D that is a multiple of 8 on the instance of 64 (D <= 64), 128 or
-    256 columns, dK/dV D = 64 or 128 on its own; f32 and strides the
-    tensor maps cannot take (:func:`tma_strides`) take the general ones.
-    Raises for head_dim above 256, which no kernel takes."""
+    where the general instances do: every kernel takes a head_dim D that
+    is a multiple of 8 on the instance of 64 (D <= 64), 128 or 256
+    columns; f32, other head_dims and strides the tensor maps cannot
+    take (:func:`tma_strides`) take the general ones.  Raises for
+    head_dim above 256, which no kernel takes."""
     D = q.shape[-1]
     if D > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head_dim {D} has no kernel "
                          f"(at most {MAX_HEAD_DIM})")
     if kernel not in (FWD, FWD_LSE, BWD_DQ, BWD_DKV):
         raise ValueError(f"flash_attention: no kernel {kernel!r}")
-    if q.dtype != torch.bfloat16:
-        return None
-    if kernel == BWD_DKV:
-        if D not in DKV_HEAD_DIMS:
-            return None
-    elif D % 8:
+    if q.dtype != torch.bfloat16 or D % 8:
         return None
     try:
         tma_strides(q), tma_strides(k)
@@ -205,6 +203,17 @@ def general_route(q, k, kernel):
     """Whether the general instances run ``kernel`` on these views (see
     :func:`wgmma_width`)."""
     return wgmma_width(q, k, kernel) is None
+
+
+def instance(q, k, kernel):
+    """The instance of ``kernel`` these views launch, as the launch
+    counter tallies it beside the kernel's name: ``w{W}`` for the wgmma
+    instance of W columns, ``maxd128`` or ``maxd256`` for the general
+    one (head_dim up to 128, or up to 256)."""
+    W = wgmma_width(q, k, kernel)
+    if W is None:
+        return f"maxd{128 if q.shape[-1] <= 128 else MAX_HEAD_DIM}"
+    return f"w{W}"
 
 
 def _launch_name(base, q, k):
@@ -234,7 +243,7 @@ def _fwd_kernel(q, k, v, causal, scale, with_lse):
     name = FWD_LSE if with_lse else FWD
     _build.check(fn(p(q), p(k), p(v), p(o), p(lse) if with_lse else None,
                     *_common_args(q, k, causal, scale, name)), SOURCE)
-    _build.launches.add(_launch_name(name, q, k))
+    _build.launches.add(_launch_name(name, q, k), instance(q, k, name))
     return o, lse
 
 
@@ -253,7 +262,7 @@ def _dq_kernel(q, k, v, do, lse, delta, causal, scale):
     p = _build.ptr
     _build.check(fn(p(q), p(k), p(v), p(do), p(lse), p(delta), p(dq),
                     *_common_args(q, k, causal, scale, BWD_DQ)), SOURCE)
-    _build.launches.add(_launch_name(BWD_DQ, q, k))
+    _build.launches.add(_launch_name(BWD_DQ, q, k), instance(q, k, BWD_DQ))
     return dq
 
 
@@ -263,7 +272,8 @@ def _dkv_kernel(q, k, v, do, lse, delta, causal, scale):
     p = _build.ptr
     _build.check(fn(p(q), p(k), p(v), p(do), p(lse), p(delta), p(dk), p(dv),
                     *_common_args(q, k, causal, scale, BWD_DKV)), SOURCE)
-    _build.launches.add(_launch_name(BWD_DKV, q, k))
+    _build.launches.add(_launch_name(BWD_DKV, q, k),
+                        instance(q, k, BWD_DKV))
     return dk, dv
 
 

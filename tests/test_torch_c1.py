@@ -130,8 +130,8 @@ def _meta(*shape, dtype=torch.bfloat16):
     return torch.empty(*shape, dtype=dtype, device="meta")
 
 
-# (tag, H, KVH, D, block size, whether the fast kernels take it: any
-# rep and block size at head_dim 64 or 128)
+# (tag, H, KVH, D, block size, whether the Hopper paged decode takes it:
+# any rep and block size at head_dim 64 or 128)
 ATTN_SHAPES = [
     ("llama3_8b", 32, 8, 128, 16, True), ("mixtral", 32, 8, 128, 16, True),
     ("tiny_rep2_d64", 4, 2, 64, 8, True),
@@ -158,39 +158,37 @@ def test_decode_route(tag, H, KVH, D, bs, fast):
 @pytest.mark.parametrize("tag,H,KVH,D,bs,fast", ATTN_SHAPES,
                          ids=[s[0] for s in ATTN_SHAPES])
 def test_chunk_route(tag, H, KVH, D, bs, fast):
-    # the wgmma kernel: D 64 or 128 over pools of any page size and rep;
-    # bf16 pages of 8, 16, 32 or a multiple of 64 load as TMA boxes,
-    # others by its copy producer (code pools: their own producer)
+    # the wgmma kernel: any D that is a multiple of 8 up to 256 over pools
+    # of any page size and rep; bf16 pages of 8, 16, 32 or a multiple of
+    # 64 load as TMA boxes, others by its copy producer (code pools:
+    # their own producer); the tiny model's 20 the general instance
     q, pool = _meta(1, 256, H, D), _meta(40, bs, KVH, D)
-    wgmma = D in (64, 128)
-    assert cp.wgmma_ok(q, pool, pool) == wgmma
+    wgmma = D % 8 == 0
+    assert (cp.wgmma_width(q, pool, pool) is not None) == wgmma
     assert cp.copy_producer(bs) == (bs not in (8, 16, 32))
     codes, scale = _meta(40, bs, KVH, D, dtype=torch.int8), \
         _meta(40, bs, dtype=torch.float32)
-    assert cp.wgmma_ok(q, codes, codes, (scale, scale)) == \
-        (D in (64, 128))
+    assert (cp.wgmma_width(q, codes, codes, (scale, scale))
+            is not None) == wgmma
     assert not cp.copy_producer(bs, "fp8")
-    assert wgmma == fast
+    assert wgmma == (fast or tag != "tiny_c1")
 
 
 @pytest.mark.parametrize("tag,H,KVH,D,bs,fast", ATTN_SHAPES,
                          ids=[s[0] for s in ATTN_SHAPES])
 def test_flash_route(tag, H, KVH, D, bs, fast):
     # training's attention with strides TMA takes (the model's
-    # [B, T, H, D] views): the forward and dQ on the wgmma kernels at
-    # every head_dim that is a multiple of 8 (Phi's 80 and 96, Gemma's
-    # 256), dK/dV at D 64 or 128 only; the general ones else (D 20); f32
-    # always the general ones, under the plain names
+    # [B, T, H, D] views): every kernel on the wgmma kernels at every
+    # head_dim that is a multiple of 8 (Phi's 80 and 96, Gemma's 256);
+    # the general ones else (D 20); f32 always the general ones, under
+    # the plain names
     q = _meta(1, 64, H, D).transpose(1, 2)
     k = _meta(1, 64, KVH, D).transpose(1, 2)
-    for kernel in (fa.FWD, fa.FWD_LSE, fa.BWD_DQ):
+    for kernel in (fa.FWD, fa.FWD_LSE, fa.BWD_DQ, fa.BWD_DKV):
         assert fa.general_route(q, k, kernel) == (D % 8 != 0)
         assert fa._launch_name(kernel, q, k) == (
             kernel + "_general" if D % 8 else kernel)
-    assert fa.general_route(q, k, fa.BWD_DKV) == (D not in (64, 128)) == \
-        (not fast)
-    assert fa._launch_name(fa.BWD_DKV, q, k) == (
-        fa.BWD_DKV if fast else fa.BWD_DKV + "_general")
+    assert fa.general_route(q, k, fa.BWD_DKV) == (tag == "tiny_c1")
     f32 = [x.float() for x in (q, k)]
     for kernel in (fa.FWD, fa.FWD_LSE, fa.BWD_DQ, fa.BWD_DKV):
         assert fa.general_route(*f32, kernel)

@@ -22,10 +22,13 @@ its backward (plain PyTorch on both devices) 1e-5 of the largest entry;
 the tiny static BERT's losses 1e-4; the Hopper paged decode, the wgmma
 chunked prefill and the skinny fused_norm_linear group one bf16 rounding
 of the largest output, two runs bit-identical; the wgmma dQ and dK/dV
-by ``_hold_bf16_attention``'s rule, two runs bit-identical.  The
-general bf16 instances (GQA rep 7, pages of 12 tokens, head_dim 20, 80
-and 96, N and K = 4 mod 8, unaligned operands: ``TestCudaGeneral`` and
-the former refusals) by the same rules, each under its own counter;
+by ``_hold_bf16_attention``'s rule, two runs bit-identical; the wgmma
+dK/dV and chunk at head_dims 72 to 256 (``TestCudaWgmmaHeadDims``,
+``TestCudaChunkHeadDims``) by the same rules, the columns past head_dim
+left untouched and a neighbouring kv head's Inf unread.  The general
+bf16 instances (GQA rep 7, pages of 12 tokens, head_dim 20 and 100, N
+and K = 4 mod 8, unaligned operands: ``TestCudaGeneral`` and the former
+refusals) by the same rules, each under its own counter;
 rms_norm one rounding of the largest output and rms_scale 4 f32 ulps
 (``TestCudaNorms``); combine with gates in the tokens' dtype and in f32
 bit-identical to the plain version in every form
@@ -34,13 +37,14 @@ bit-identical to the plain version in every form
 The Llama-3-8B, Mixtral, Qwen2-7B-width and BERT-base shapes are held
 in chip_smoke.py.
 """
+import ctypes
 import math
 
 import numpy as np
 import pytest
 import torch
 
-from paddle_tpu_torch.kernels import (chunked_prefill, fused_linear,
+from paddle_tpu_torch.kernels import (_build, chunked_prefill, fused_linear,
                                       fused_norm_linear, kv_quant, launches,
                                       moe_dispatch, paged_attention,
                                       rms_norm, rope)
@@ -542,7 +546,7 @@ class TestCudaHopperChunk:
         # loaded by the wgmma kernel's copy producer (no longer refused),
         # and agree with the plain version
         ops = _bf16_chunk_operands(1, 8, 2, 4, 64, bs, [3], None, bs)
-        assert chunked_prefill.wgmma_ok(ops[0], ops[1], ops[2])
+        assert chunked_prefill.wgmma_width(ops[0], ops[1], ops[2])
         assert chunked_prefill.copy_producer(bs)
         _hold_chunk(ops, cuda_device)
 
@@ -601,6 +605,75 @@ class TestCudaHopperChunk:
         want = chunked_prefill.chunked_attention_plain(*ops[:5]).float()
         assert float((got.cpu().float() - want).abs().max()) <= \
             float(want.abs().max()) / 128
+
+
+@pytest.mark.cuda
+class TestCudaChunkHeadDims:
+    """chunked_prefill_wgmma at head_dims other than 64 and 128: the
+    instances of 128 columns (72, 80, 96) and 256 (136, 160, 256: 32-key
+    tiles), over bf16 pools (TMA boxes at pages of 16, the copy producer
+    at pages of 12) and int8 and fp8 pools (16-code chunks, 8-code ones
+    at D % 16 == 8)."""
+
+    @pytest.mark.parametrize("bs", [12, 16])
+    @pytest.mark.parametrize("rep", [1, 7])
+    @pytest.mark.parametrize("D", [72, 80, 96, 136, 160, 256])
+    @pytest.mark.parametrize("scheme", [None, "int8", "fp8"])
+    def test_shapes(self, cuda_device, scheme, D, rep, bs):
+        ops = _bf16_chunk_operands(2, 40, 2, rep, D, bs, [0, 37], scheme,
+                                   D + rep + bs)
+        scales = () if scheme is None else (ops[5], ops[6])
+        assert chunked_prefill.wgmma_width(ops[0], ops[1], ops[2],
+                                           scales) == (128 if D <= 128
+                                                       else 256)
+        got = _hold_chunk(ops, cuda_device)
+        assert float(got.abs().max()) < 50.0      # no poison
+
+    @pytest.mark.parametrize("D", [96, 256])
+    @pytest.mark.parametrize("scheme", [None, "int8", "fp8"])
+    def test_frontiers(self, cuda_device, scheme, D):
+        # starts at 0, mid-page, a page edge +- 1 and 32- and 64-key tile
+        # edges +- 1, past the poisoned block 0
+        positions = [0, 37, 15, 16, 31, 32, 33, 63, 64, 65]
+        ops = _bf16_chunk_operands(10, 40, 2, 4, D, 16, positions, scheme,
+                                   D)
+        got = _hold_chunk(ops, cuda_device)
+        assert float(got.abs().max()) < 50.0
+
+    @pytest.mark.parametrize("bs", [12, 16])
+    def test_neighbouring_kv_head_is_not_read(self, cuda_device, bs):
+        # kv head 1 holds +Inf keys and -Inf values in every page: the
+        # query heads of kv head 0 (head_dim 96, the 128-column instance,
+        # whose 64-column boxes reach 32 columns past D) stay finite and
+        # agree with the plain version, two runs the same bits
+        ops = list(_bf16_chunk_operands(2, 40, 2, 3, 96, bs, [0, 37], None,
+                                        bs))
+        ops[1][:, :, 1], ops[2][:, :, 1] = float("inf"), float("-inf")
+        dev = [o.to(cuda_device) if isinstance(o, torch.Tensor) else o
+               for o in ops]
+        launches.reset()
+        got = chunked_prefill.chunked_attention(*dev)
+        again = chunked_prefill.chunked_attention(*dev)
+        assert launches.snapshot() == {chunked_prefill.KERNEL: 2}
+        assert torch.equal(got[:, :, :3], again[:, :, :3])
+        mine = got[:, :, :3].cpu().float()
+        want = chunked_prefill.chunked_attention_plain(*ops)[:, :, :3] \
+            .float()
+        assert bool(torch.isfinite(mine).all())
+        assert float((mine - want).abs().max()) <= \
+            float(want.abs().max()) / 128
+
+    @pytest.mark.parametrize("D,bs", [(96, 12), (256, 12), (96, 16)])
+    def test_ring_reuse_gives_the_same_bits(self, cuda_device, D, bs):
+        # a 256-token chunk at 768 over Phi-3's and Gemma's heads, 100
+        # launches: every output equal to the first's bits
+        ops = _bf16_chunk_operands(1, 256, 4, 2, D, bs, [768], None, D)
+        dev = [o.to(cuda_device) if isinstance(o, torch.Tensor) else o
+               for o in ops]
+        first = _hold_chunk(ops, cuda_device)
+        outs = [chunked_prefill.chunked_attention(*dev) for _ in range(100)]
+        assert sum(not torch.equal(o.cpu().float(), first)
+                   for o in outs) == 0
 
 
 def _hold_dkv(q, k, v, do, causal, plain_on):
@@ -739,31 +812,70 @@ def _hold_fwd(q, k, v, causal):
 
 @pytest.mark.cuda
 class TestCudaWgmmaHeadDims:
-    """The bf16 forward and dQ at head_dims other than 64 and 128, on the
-    wgmma instances of 64 (D = 32), 128 (80 and 96: Phi-2's, Phi-3's) and
-    256 columns (160, and Gemma's 256), TMA filling the columns past D
-    with zeros."""
+    """The bf16 forward, dQ and dK/dV at head_dims other than 64 and 128,
+    on the wgmma instances of 64 (D = 32), 128 (72, and 80 and 96: Phi-2's,
+    Phi-3's) and 256 columns (160, and Gemma's 256), TMA filling the
+    columns past D with zeros."""
 
     @pytest.mark.parametrize("layout", ["bhtd", "bthd"])
     @pytest.mark.parametrize("D", [32, 80, 96, 160, 256])
     @pytest.mark.parametrize("causal", [False, True])
     @pytest.mark.parametrize("H,KVH,Tq,Tk", [
         (4, 4, 1, 2), (8, 1, 130, 130), (4, 1, 100, 333), (8, 2, 200, 1000),
-        (2, 2, 1, 257)])
+        (2, 2, 1, 257), (7, 1, 150, 150)])
     def test_shapes(self, cuda_device, H, KVH, Tq, Tk, causal, D, layout):
-        # ragged T, Tq < Tk, Gemma-2B's 8 q heads over 1 kv head, the
-        # model's [B, T, H, D] views; each kernel's instance from its
-        # route, launched under the plain names
+        # ragged T, Tq < Tk, Gemma-2B's 8 q heads over 1 kv head, GQA rep
+        # 7, the model's [B, T, H, D] views; each kernel's instance from
+        # its route, launched under the plain names
         ops = _attn_inputs(2, H, KVH, Tq, Tk, D, torch.bfloat16,
                            cuda_device, seed=Tq + Tk + D)
         if layout == "bthd":
             ops = [x.transpose(1, 2).contiguous().transpose(1, 2)
                    for x in ops]
         want = 64 if D <= 64 else 128 if D <= 128 else 256
-        for kernel in (fa.FWD, fa.FWD_LSE, fa.BWD_DQ):
+        for kernel in (fa.FWD, fa.FWD_LSE, fa.BWD_DQ, fa.BWD_DKV):
             assert fa.wgmma_width(ops[0], ops[1], kernel) == want
         _hold_fwd(*ops[:3], causal)
         _hold_dq(*ops, causal, "cpu")
+        _hold_dkv(*ops, causal, "cpu")
+
+    @pytest.mark.parametrize("D", [72, 80, 96, 160, 200])
+    def test_dkv_leaves_columns_past_head_dim(self, cuda_device, D):
+        # dK and dV written into views of rows as wide as the instance
+        # (the k, v and outputs' row stride W, their columns D..W-1 the
+        # next head's in the model's layout), those columns holding
+        # sentinels: the kernel stores the first D columns, the bits of a
+        # dense launch, and leaves the sentinels
+        W = 128 if D <= 128 else 256
+        q, k, v, do = _attn_inputs(1, 4, 2, 150, 150, D, torch.bfloat16,
+                                   cuda_device, seed=D)
+        scale = D ** -0.5
+        o, lse = fa._fwd_kernel(q, k, v, True, scale, True)
+        ops = fa._bwd_operands(q, k, v, do, lse, fa._delta(o, do))
+        want = fa._dkv_kernel(*ops, True, scale)
+
+        def wide(x, fill):
+            buf = torch.full((*x.shape[:3], W), fill, dtype=x.dtype,
+                             device=x.device)
+            buf[..., :D] = x
+            return buf
+
+        kw, vw = wide(ops[1], 0.0), wide(ops[2], 0.0)
+        dkw = wide(torch.full_like(ops[1], 3.0), 3.0)
+        dvw = wide(torch.full_like(ops[1], -5.0), -5.0)
+        kv = [x[..., :D] for x in (kw, vw, dkw, dvw)]
+        assert fa.wgmma_width(ops[0], kv[0], fa.BWD_DKV) == W
+        fn = _build.bind(fa.SOURCE, "flash_bwd_dkv",
+                         [ctypes.c_void_p] * 8 + fa._ARGS)
+        p = _build.ptr
+        _build.check(fn(p(ops[0]), p(kv[0]), p(kv[1]), p(ops[3]),
+                        p(ops[4]), p(ops[5]), p(kv[2]), p(kv[3]),
+                        *fa._common_args(ops[0], kv[0], True, scale,
+                                         fa.BWD_DKV)), fa.SOURCE)
+        torch.cuda.synchronize()
+        assert torch.equal(kv[2], want[0]) and torch.equal(kv[3], want[1])
+        assert bool((dkw[..., D:] == 3.0).all())
+        assert bool((dvw[..., D:] == -5.0).all())
 
     @pytest.mark.parametrize("D", [80, 96])
     def test_heads_side_by_side(self, cuda_device, D):
@@ -778,7 +890,7 @@ class TestCudaWgmmaHeadDims:
         launches.reset()
         runs = [_grads(*views, True) for _ in range(3)]
         assert launches.snapshot() == {
-            fa.FWD_LSE: 3, fa.BWD_DQ: 3, fa.BWD_DKV + fa.GENERAL: 3}
+            fa.FWD_LSE: 3, fa.BWD_DQ: 3, fa.BWD_DKV: 3}
         assert all(torch.equal(a, b) for run in runs[1:]
                    for a, b in zip(runs[0], run))
         got = runs[0]
@@ -789,8 +901,9 @@ class TestCudaWgmmaHeadDims:
         for h in range(8):
             for a, b, r in zip(got[:2], plain[:2], ref[:2]):
                 _hold_bf16_attention(a[:, h].cpu(), b[:, h], r[:, h])
-        for a, b, r in zip(got[2:], plain[2:], ref[2:]):
-            _hold_bf16_attention(a.cpu(), b, r)
+        for h in range(2):
+            for a, b, r in zip(got[2:], plain[2:], ref[2:]):
+                _hold_bf16_attention(a[:, h].cpu(), b[:, h], r[:, h])
 
 
 @pytest.mark.cuda
@@ -1670,15 +1783,13 @@ class TestCudaKVWrite:
 
 
 def _hold_general_attention(q, k, v, do, causal):
-    """The attention kernels on bf16 ``q, k, v`` [B, H, T, D] at a
-    head_dim or strides some wgmma kernel does not take: the forward with
-    and without the LSE, dQ and dK/dV, each one launch under the counter
-    of its own route (``_general`` on a general instance: dK/dV always
-    here, the forward and dQ where head_dim is not a multiple of 8 or the
-    strides have no tensor map), two runs the same bits, each output by
-    the rule of ``_hold_bf16_attention`` against the f32 plain version of
-    the same inputs."""
-    assert fa.general_route(q, k, fa.BWD_DKV)
+    """The attention kernels on bf16 ``q, k, v`` [B, H, T, D]: the
+    forward with and without the LSE, dQ and dK/dV, each one launch under
+    the counter of its own route (``_general`` on a general instance:
+    where head_dim is not a multiple of 8 or the strides have no tensor
+    map), two runs the same bits, each output by the rule of
+    ``_hold_bf16_attention`` against the f32 plain version of the same
+    inputs."""
     scale = 1 / math.sqrt(q.shape[-1])
     launches.reset()
     o, lse = fa._fwd_kernel(q, k, v, causal, scale, True)
@@ -1688,7 +1799,6 @@ def _hold_general_attention(q, k, v, do, causal):
     again = fa._bwd_kernels(*ops, causal, scale)
     name = {n: fa._launch_name(n, q, k)
             for n in (fa.FWD_LSE, fa.FWD, fa.BWD_DQ, fa.BWD_DKV)}
-    assert name[fa.BWD_DKV] == fa.BWD_DKV + fa.GENERAL
     assert launches.snapshot() == {name[fa.FWD_LSE]: 1, name[fa.FWD]: 1,
                                    name[fa.BWD_DQ]: 2, name[fa.BWD_DKV]: 2}
     assert torch.equal(o, o2)
@@ -1710,11 +1820,13 @@ def _hold_general_attention(q, k, v, do, causal):
 @pytest.mark.cuda
 class TestCudaGeneral:
     """The general bf16 instances: the shapes the fast kernels are not
-    built for (head_dim 20, 80, 96 and 256, N and K = 4 mod 8), as
-    Phi-3's or Gemma's heads give them, each against its plain version;
-    and the shapes they took before the Hopper decode and the wgmma chunk
-    took any rep and page size (GQA rep 7, pages of 12 tokens, as
-    Qwen2-7B's heads or ServingConfig(block_size=12) give them)."""
+    built for (the decode at head_dim 20, 80, 96 and 256; every kernel at
+    20 and 100, and at 132 and 204 on the instances of head_dim up to
+    256; N and K = 4 mod 8), each against its plain version; and
+    the shapes they took before the fast kernels took them (GQA rep 7,
+    pages of 12 tokens, as Qwen2-7B's heads or
+    ServingConfig(block_size=12) give them; the chunk and attention at
+    Phi-3's and Gemma's head_dims)."""
 
     @pytest.mark.parametrize("scheme", [None, "int8", "fp8"])
     @pytest.mark.parametrize("rep,D,bs", [(7, 128, 12), (7, 20, 16),
@@ -1753,34 +1865,45 @@ class TestCudaGeneral:
                                             (70, 3, 80, 16), (1, 4, 96, 8),
                                             (40, 2, 128, 96),
                                             (40, 2, 256, 12),
-                                            (129, 1, 256, 16)])
+                                            (129, 1, 256, 16),
+                                            (40, 2, 132, 12),
+                                            (70, 1, 204, 16)])
     def test_chunked_prefill(self, cuda_device, scheme, T, rep, D, bs):
-        # head_dim 20, 80, 96 and 256 take the general instance over
-        # every pool (256: its wide instance); head_dim 128 the wgmma
-        # kernel over every pool and page size (pages of 12 or 96 by its
-        # copy producer)
+        # head_dim 20 takes the general instance of head_dim up to 128
+        # over every pool, 132 and 204 that of head_dim up to 256; 80, 96,
+        # 128 and 256 the wgmma kernel's instances of 128 and 256 columns
+        # over every pool and page size (pages of 12 or 96 by its copy
+        # producer)
         ops = _bf16_chunk_operands(2, T, 2, rep, D, bs, [0, 37], scheme,
                                    T + rep + D + bs)
-        wgmma = chunked_prefill.wgmma_ok(
-            ops[0], ops[1], ops[2],
-            () if scheme is None else (ops[5], ops[6]))
-        assert wgmma == (D == 128)
+        scales = () if scheme is None else (ops[5], ops[6])
+        wgmma = chunked_prefill.wgmma_width(ops[0], ops[1], ops[2],
+                                            scales) is not None
+        assert wgmma == (D % 8 == 0)
+        if not wgmma:
+            assert chunked_prefill.instance(ops[0], ops[1], ops[2], scales,
+                                            scheme) == \
+                f"maxd{128 if D <= 128 else 256}"
         got = _hold_chunk(ops, cuda_device, chunked_prefill.KERNEL if wgmma
                           else chunked_prefill.GENERAL)
         assert float(got.abs().max()) < 50.0      # no poison
 
-    @pytest.mark.parametrize("D", [20, 80, 96, 256])
+    @pytest.mark.parametrize("D", [20, 80, 96, 100, 132, 204, 256])
     @pytest.mark.parametrize("causal", [False, True])
     @pytest.mark.parametrize("B,H,KVH,Tq,Tk", [(2, 7, 1, 37, 37),
                                                (1, 4, 2, 100, 130)])
     def test_flash_attention(self, cuda_device, B, H, KVH, Tq, Tk, causal,
                              D):
-        # dK/dV on its general instance at every one of these head_dims;
-        # the forward and dQ too at 20, on their wgmma instances at 80, 96
-        # (128 columns) and 256
+        # every kernel on its general instance at 20 and 100 (head_dim up
+        # to 128) and 132 and 204 (up to 256), on its wgmma instance at
+        # 80, 96 (128 columns) and 256
         ops = _attn_inputs(B, H, KVH, Tq, Tk, D, torch.bfloat16, cuda_device,
                            seed=Tq + D)
-        assert fa.general_route(ops[0], ops[1], fa.BWD_DQ) == (D == 20)
+        for kernel in (fa.FWD, fa.BWD_DQ, fa.BWD_DKV):
+            assert fa.general_route(ops[0], ops[1], kernel) == (D % 8 != 0)
+            assert fa.instance(ops[0], ops[1], kernel) == (
+                f"w{128 if D <= 128 else 256}" if D % 8 == 0
+                else f"maxd{128 if D <= 128 else 256}")
         _hold_general_attention(*ops, causal)
 
     def test_flash_attention_autograd_bthd(self, cuda_device):

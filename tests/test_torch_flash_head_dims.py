@@ -1,10 +1,10 @@
 """FlashAttention at head_dims other than 64 and 128, on the CPU.
 
-On the card the bf16 forward and dQ run on wgmma instances of 64, 128
-and 256 columns that take every head_dim D that is a multiple of 8 up to
-256: TMA fills the columns D..W-1 of each box with zeros and the stores
-skip them (``csrc/flash_attention.cu``); dK/dV keeps its instances of 64
-and 128 and the general one for the rest.  Here: each kernel's route,
+On the card the bf16 forward, dQ and dK/dV run on wgmma instances of
+64, 128 and 256 columns that take every head_dim D that is a multiple of
+8 up to 256: TMA fills the columns D..W-1 of each box with zeros and the
+stores skip them (``csrc/flash_attention.cu``); other head_dims take the
+general instances.  Here: each kernel's route,
 instance and launch name for the shapes of ``test_torch_c1.ATTN_SHAPES``
 (meta tensors), the flag each launch hands the C entry (a fake binding),
 the padded instances' arithmetic (the plain forward, LSE and gradients
@@ -48,8 +48,8 @@ D96 = dict(hidden_size=192, num_attention_heads=2, num_key_value_heads=2)
 
 
 def _width(D):
-    """The forward's and dQ's wgmma instance of a bf16 head_dim D with
-    strides TMA takes; None: the general instances."""
+    """The wgmma instance of a bf16 head_dim D with strides TMA takes;
+    None: the general instances."""
     return None if D % 8 else next(w for w in (64, 128, 256) if D <= w)
 
 
@@ -62,23 +62,19 @@ def _meta(*shape, dtype=torch.bfloat16):
 @pytest.mark.parametrize("tag,H,KVH,D,bs,fast", ATTN_SHAPES,
                          ids=[s[0] for s in ATTN_SHAPES])
 def test_route_instance_and_name(tag, H, KVH, D, bs, fast, layout):
-    # the forward and dQ: the instance of 64, 128 or 256 columns that
-    # holds D (any D that is a multiple of 8); dK/dV: its own D 64 or
-    # 128, the general instance else; the launch names follow
+    # every kernel: the instance of 64, 128 or 256 columns that holds D
+    # (any D that is a multiple of 8), the general instance else; the
+    # launch names follow
     if layout == "bhtd":
         q, k = _meta(1, H, 64, D), _meta(1, KVH, 64, D)
     else:
         q = _meta(1, 64, H, D).transpose(1, 2)
         k = _meta(1, 64, KVH, D).transpose(1, 2)
-    for kernel in (fa.FWD, fa.FWD_LSE, fa.BWD_DQ):
+    for kernel in (fa.FWD, fa.FWD_LSE, fa.BWD_DQ, fa.BWD_DKV):
         assert fa.wgmma_width(q, k, kernel) == _width(D)
         assert fa._launch_name(kernel, q, k) == (
             kernel if _width(D) else kernel + fa.GENERAL)
-    dkv = D if D in fa.DKV_HEAD_DIMS else None
-    assert fa.wgmma_width(q, k, fa.BWD_DKV) == dkv
-    assert fa._launch_name(fa.BWD_DKV, q, k) == (
-        fa.BWD_DKV if dkv else fa.BWD_DKV + fa.GENERAL)
-    assert (dkv is not None) == fast
+    assert (_width(D) is not None) == (tag != "tiny_c1")
 
 
 @pytest.mark.parametrize("D", [80, 96, 256])
@@ -99,7 +95,7 @@ def test_strides_tma_refuses_and_f32_take_the_general_instances(D):
         fa.wgmma_width(k, k, "flash_attention_bwd")
 
 
-@pytest.mark.parametrize("D", [20, 32, 80, 96, 160, 256])
+@pytest.mark.parametrize("D", [20, 32, 80, 96, 132, 160, 256])
 def test_each_launch_hands_the_c_entry_its_route(monkeypatch, D):
     # one launch of each kernel through a fake binding over meta tensors:
     # the general flag each C entry gets, and the counter it adds to
@@ -122,11 +118,15 @@ def test_each_launch_hands_the_c_entry_its_route(monkeypatch, D):
                                        "flash_bwd_dq", "flash_bwd_dkv"]
     assert general == {"flash_fwd": int(not wgmma),
                        "flash_bwd_dq": int(not wgmma),
-                       "flash_bwd_dkv": int(D not in fa.DKV_HEAD_DIMS)}
+                       "flash_bwd_dkv": int(not wgmma)}
     g = "" if wgmma else fa.GENERAL
     want = {fa.FWD_LSE + g: 1, fa.FWD + g: 1, fa.BWD_DQ + g: 1,
-            fa.BWD_DKV + ("" if D in fa.DKV_HEAD_DIMS else fa.GENERAL): 1}
+            fa.BWD_DKV + g: 1}
     assert launches.snapshot() == want
+    # the instance, tallied beside each name: the wgmma width, or the
+    # general instance of head_dim up to 128 or 256
+    inst = f"w{_width(D)}" if wgmma else f"maxd{128 if D <= 128 else 256}"
+    assert launches.by_instance() == {f"{n}@{inst}": 1 for n in want}
     assert o.stride() == q.stride()
 
 

@@ -241,15 +241,15 @@ def test_backward_checks_tma_strides(monkeypatch, layout):
         assert fa.general_route(ops[0], ops[1], kernel)
         assert fa._launch_name(kernel, ops[0], ops[1]) == kernel + "_general"
     # f32 always takes them, under the plain names; head_dim 256 takes
-    # dQ's (and the forward's) wgmma instance of 256 columns and dK/dV's
-    # general one, above 256 nothing
+    # dQ's, dK/dV's (and the forward's) wgmma instances of 256 columns,
+    # above 256 nothing
     f32 = [x.float() for x in ops[:2]]
     assert fa.general_route(*f32, fa.BWD_DQ)
     assert fa._launch_name(fa.BWD_DQ, *f32) == fa.BWD_DQ
     gemma = _view(1, 2, 8, 256, layout)
-    assert fa.general_route(gemma, gemma, fa.BWD_DKV)
-    assert fa._launch_name(fa.BWD_DKV, gemma, gemma) == \
-        fa.BWD_DKV + "_general"
+    assert not fa.general_route(gemma, gemma, fa.BWD_DKV)
+    assert fa._launch_name(fa.BWD_DKV, gemma, gemma) == fa.BWD_DKV
+    assert fa.wgmma_width(gemma, gemma, fa.BWD_DKV) == 256
     assert fa.wgmma_width(gemma, gemma, fa.BWD_DQ) == 256
     assert fa._launch_name(fa.BWD_DQ, gemma, gemma) == fa.BWD_DQ
     wide = _view(1, 2, 8, 384, layout)
@@ -270,20 +270,23 @@ def test_chunk_wgmma_block_sizes(bs, ok):
     assert not cp.copy_producer(bs, "int8")
     q = torch.empty(1, 4, 8, 128, dtype=torch.bfloat16, device="meta")
     pool = torch.empty(3, bs, 2, 128, dtype=torch.bfloat16, device="meta")
-    assert cp.wgmma_ok(q, pool, pool)
+    assert cp.wgmma_width(q, pool, pool) == 128
 
 
 @pytest.mark.parametrize("bs,D,tma", [(12, 64, 0), (16, 64, 1),
-                                      (16, 80, 0), (96, 128, 0)])
+                                      (16, 80, 1), (96, 128, 0),
+                                      (12, 96, 0), (16, 256, 1),
+                                      (16, 100, 1)])
 def test_chunk_refuses_block_sizes_before_launching(monkeypatch, bs, D,
                                                     tma):
-    # a bf16 call over bf16 pools goes to the wgmma kernel at head_dim 64
-    # or 128, by TMA boxes where the page size is whole boxes (tma), else
-    # by its copy producer; another head_dim goes to the general
-    # instance, counted as chunked_prefill_general.  Chosen before the
-    # launch: both flags reach the C entry (here on meta tensors, which
-    # take the kernel path, through a fake binding)
-    wgmma = int(D in (64, 128))
+    # a bf16 call over bf16 pools goes to the wgmma kernel at any head_dim
+    # that is a multiple of 8, by TMA boxes where the page size is whole
+    # boxes, else by its copy producer; another head_dim (100) goes to the
+    # general instance, counted as chunked_prefill_general.  Chosen
+    # before the launch: both flags reach the C entry (here on meta
+    # tensors, which take the kernel path, through a fake binding)
+    wgmma = int(D % 8 == 0)
+    assert cp.tma_block_size_ok(bs) == bool(tma)
     copy = int(wgmma and not tma)
     calls = []
 
@@ -297,7 +300,7 @@ def test_chunk_refuses_block_sizes_before_launching(monkeypatch, bs, D,
     monkeypatch.setattr(_build, "stream_ptr", lambda t: None)
     q = torch.empty(1, 4, 8, D, dtype=torch.bfloat16, device="meta")
     pool = torch.empty(3, bs, 2, D, dtype=torch.bfloat16, device="meta")
-    assert cp.wgmma_ok(q, pool, pool) == bool(wgmma)
+    assert (cp.wgmma_width(q, pool, pool) is not None) == bool(wgmma)
     launches.reset()
     cp.chunked_attention(q, pool, pool,
                          torch.zeros(1, 2, dtype=torch.int32, device="meta"),

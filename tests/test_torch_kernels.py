@@ -244,11 +244,12 @@ class TestChunkedPrefill:
 
     @pytest.mark.parametrize("positions", [[63, 64], [65, 15], [0, 127]])
     def test_frontiers_straddling_the_cuda_tiles_match_jax(self, positions):
-        # the bf16 CUDA kernel loads keys in tiles of WGMMA_KEYS (64) and
-        # packs rows t * rep + r in tiles of 64 (tokens 0-31 and 32-39
-        # here); the plain version, which the card's tests hold it to, is
-        # held to the JAX kernels at those edges
-        assert chunked_prefill.WGMMA_KEYS == 64
+        # the bf16 CUDA kernel loads keys in tiles of 64 (pages of 16 as
+        # whole TMA boxes) and packs rows t * rep + r in tiles of 64
+        # (tokens 0-31 and 32-39 here); the plain version, which the
+        # card's tests hold it to, is held to the JAX kernels at those
+        # edges
+        assert not chunked_prefill.copy_producer(16)
         args = chunk_operands(T=40, bs=16, nbs=12, seed=7)
         args[4] = np.array(positions, np.int32)
         _check_chunk(args)
