@@ -30,10 +30,11 @@
 //   wave), and the scratch of [B, S, H, D] partials is sized without a
 //   host sync.  num_splits, which the JAX function and the plain
 //   version take, does not shape this partition: the two agree up to
-//   the order of f32 sums.  A warp takes PF_STEP keys a step, the steps
-//   of its block dealt round-robin to the 4 warps; a key's row of this
-//   kv head (D * 2 bytes in bf16, D bytes of codes) is spread over D / 8
-//   lanes with one load each (16 bytes of bf16, 8 of codes), the pages
+//   the order of f32 sums.  A warp takes PF_STEP keys a step (half as
+//   many at 256 columns), the steps of its block dealt round-robin to
+//   the 4 warps; a key's row of this kv head (D * 2 bytes in bf16, D
+//   bytes of codes) is spread over W / 8 lanes with one load each (16
+//   bytes of bf16, 8 of codes), the pages
 //   of a step are read two steps ahead and its rows one step ahead (a
 //   cp.async ring of 2-4 steps, tried, was no faster: the loads are not
 //   what waits).  Codes are decoded in registers, exactly decode_code's
@@ -63,10 +64,32 @@
 //   multiplier from the host (__umulhi, exact below 2^31 keys), once a
 //   key a step, into the key's pool row, so the loads that follow are
 //   the same.
+//   Any head_dim D that is a multiple of 8 up to 256: the lanes of a key
+//   and the warp's key groups are summed by xor-shuffle trees, which
+//   need W / 8 lanes a key to be a power of two.  D = 64 and 128 run on
+//   instances of W = D columns with D known at compile time; every other
+//   D on the padded instance of the smallest W in {64, 128, 256} that
+//   holds it (Phi-2's 80 and Phi-3's 96 on 128 columns, Gemma's 256 on
+//   256), with D, and the cos/sin rows' type, read at run time (a
+//   run-time shape costs the common path, so 64 and 128 keep theirs).
+//   A lane whose 8 columns start at or past D loads nothing (the next kv
+//   head's columns follow in the pool row, and an unwritten slot there
+//   may hold Inf), holds q = 0 and partial sums of exactly 0, and the
+//   stores stop at D: such lanes cost issue slots, not bytes (4 of 16 a
+//   key at 96).  The rotation takes the half of D of each dim, since at
+//   D % 16 == 8 a lane's 8 dims straddle the halves.  At 256 columns a
+//   warp's load is one key, so a step takes 4 keys, not 8: the K/V
+//   registers of a step and the next one stay those of 128 columns,
+//   within the 168 registers of 3 blocks a SM; a padded instance of 4
+//   heads over pages found by division takes half as many keys a step
+//   again (it spilled; chip_smoke.py phase 1 fails on any spill of a
+//   padded instance).  The instances of 64 and 128 columns keep their
+//   instructions, and with them the 16-byte spill that those of 4 heads
+//   over pages found by division had before the padded ones.
 // - paged_decode_partials<T, CS, Q> and paged_decode_combine<T>, the
 //   general instance (every shape the Hopper kernel is not built for:
-//   head_dims other than 64 and 128, unaligned pools; f32, which only
-//   the tests serve), two launches: a block owns
+//   bf16 head_dims that are not a multiple of 8, unaligned pools; f32,
+//   which only the tests serve), two launches: a block owns
 //   one (batch, kv head, split) of the wrapper's general_plan, takes pages
 //   round-robin (page p to split p % S) up to the frontier, stages each
 //   page's keys PD_KEYS at a time in shared memory as f32 (converted on
@@ -286,13 +309,34 @@ __device__ __forceinline__ int fast_div(int n, uint32_t magic, int shift) {
   return (int)((__umulhi((uint32_t)n, magic) + (uint32_t)n) >> shift);
 }
 
-// CS: the type of the cos/sin rows (f32, or bf16 as the model's tables);
-// POW2: bs = 1 << bs_shift, else bs with its (bs_magic, bs_shift); FULL:
-// rep == REP in one sub-group, every head count and index known at
-// compile time (the Llama-3-8B and Mixtral shapes keep the instructions
-// they had before the runtime rep: without it their decode took 9 %
-// longer on an H100 80GB HBM3 at 700 W, PERF.md)
-template <int Q, int D, int REP, bool POW2, bool FULL, typename CS>
+// the cos/sin rows of the padded instances, whose type (f32 or bf16) the
+// kernel reads at run time from cs_bf16: their rows are read once a block
+struct CSRuntime {};
+
+template <typename CS>
+__device__ __forceinline__ float load_cs(const CS* p, int i, int) {
+  return to_f32(p[i]);
+}
+template <>
+__device__ __forceinline__ float load_cs<CSRuntime>(const CSRuntime* p,
+                                                    int i, int cs_bf16) {
+  return cs_bf16 ? to_f32(reinterpret_cast<const bf16*>(p)[i])
+                 : reinterpret_cast<const float*>(p)[i];
+}
+
+// W: the columns a key row is spread over (W / 8 lanes); PAD: the head
+// dim D = d_rt, a multiple of 8 up to W, taken at run time (the lanes
+// whose columns start at or past D load nothing, hold q = 0 and partial
+// sums of exactly 0 and store nothing), else D = W (the instances of 64
+// and 128, whose instructions stay those they had before the padded
+// ones); CS: the type of the cos/sin rows (f32, bf16 as the model's
+// tables, or CSRuntime); POW2: bs = 1 << bs_shift, else bs with its
+// (bs_magic, bs_shift); FULL: rep == REP in one sub-group, every head
+// count and index known at compile time (the Llama-3-8B and Mixtral
+// shapes keep the instructions they had before the runtime rep: without
+// it their decode took 9 % longer on an H100 80GB HBM3 at 700 W,
+// PERF.md)
+template <int Q, int W, int REP, bool POW2, bool FULL, bool PAD, typename CS>
 __global__ void __launch_bounds__(PF_THREADS, PF_MIN_BLOCKS)
     paged_decode_hopper(
     const bf16* __restrict__ q, const CS* __restrict__ cs,
@@ -303,17 +347,25 @@ __global__ void __launch_bounds__(PF_THREADS, PF_MIN_BLOCKS)
     float* __restrict__ m_out, float* __restrict__ l_out,
     int* __restrict__ tickets, bf16* __restrict__ out, int KVH, int rep,
     int groups, int bs, uint32_t bs_magic, int bs_shift, int nbs,
-    float scale) {
+    float scale, int d_rt, int cs_bf16) {
+  static_assert(!PAD || !FULL, "the padded instances take a run-time rep");
   constexpr int EPL = PF_EPL;
   constexpr int ESZ = Q == 0 ? 2 : 1;        // bytes an element
-  constexpr int LPK = D / EPL;               // lanes a key row
+  constexpr int LPK = W / EPL;               // lanes a key row
   constexpr int KPW = 32 / LPK;              // keys a warp's load
-  constexpr int U = PF_STEP / KPW;           // loads a step
-  static_assert(KPW <= PF_STEP && PF_STEP % KPW == 0, "step of whole loads");
+  // keys a warp takes a step: at 256 columns a load is one key, and 8
+  // of them would double the K/V registers of a step and the next; a
+  // padded instance of 4 heads over pages found by division takes half
+  // as many again (with PF_STEP it spilled at 128 and 256 columns)
+  constexpr int STEP = (W == 256 ? PF_STEP / 2 : PF_STEP) /
+                       (PAD && REP == 4 && !POW2 && W >= 128 ? 2 : 1);
+  constexpr int U = STEP / KPW;              // loads a step
+  static_assert(KPW <= STEP && STEP % KPW == 0, "step of whole loads");
   using Raw = typename RawT<EPL * ESZ>::type;
-  __shared__ float wacc[PF_WARPS][REP][D];
+  __shared__ float wacc[PF_WARPS][REP][W];
   __shared__ float wm[PF_WARPS][REP], wl[PF_WARPS][REP];
 
+  const int D = PAD ? d_rt : W;
   const int s = blockIdx.x, b = blockIdx.z;
   const int kvh = FULL ? blockIdx.y : blockIdx.y / groups;
   const int sub = FULL ? 0 : blockIdx.y % groups;
@@ -324,11 +376,14 @@ __global__ void __launch_bounds__(PF_THREADS, PF_MIN_BLOCKS)
   const int hd0 = FULL ? kvh * REP : kvh * rep + sub * gsize;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int grp = lane / LPK, d0 = (lane % LPK) * EPL;
+  const bool on = !PAD || d0 < D;            // this lane's columns: dims
   const size_t head0 = ((size_t)b * S + s) * H + hd0;
 
   // the group's q heads rotated (rotate-half RoPE) and scaled, in f32,
   // with log2(e) folded in so that the softmax runs on exp2 (its loads
-  // go out before pos[b]'s); a lane's EPL dims lie in one half of D
+  // go out before pos[b]'s); at 64 and 128 columns a lane's EPL dims lie
+  // in one half of D, a padded instance takes the half of each dim (at
+  // D % 16 == 8 a lane's dims straddle the halves)
   float qr[REP][EPL];
   {
     const int half = D / 2;
@@ -340,15 +395,16 @@ __global__ void __launch_bounds__(PF_THREADS, PF_MIN_BLOCKS)
       const bf16* qh = q + ((size_t)b * H + hd0 + r) * D;
 #pragma unroll
       for (int e = 0; e < EPL; ++e) {
-        const int j = j0 + e;
-        if (r >= nr) {   // a padded row: no q, its sums unused
+        if (r >= nr || !on) {   // a padded row or column: no q
           qr[r][e] = 0.f;
           continue;
         }
+        const bool lo_e = PAD ? d0 + e < half : lo;
+        const int j = PAD ? (lo_e ? d0 + e : d0 + e - half) : j0 + e;
         const float x1 = to_f32(qh[j]), x2 = to_f32(qh[j + half]);
-        const float c = to_f32(cs[b * half + j]);
-        const float sv = to_f32(sn[b * half + j]);
-        qr[r][e] = (lo ? x1 * c - x2 * sv : x2 * c + x1 * sv) * qscale;
+        const float c = load_cs(cs, b * half + j, cs_bf16);
+        const float sv = load_cs(sn, b * half + j, cs_bf16);
+        qr[r][e] = (lo_e ? x1 * c - x2 * sv : x2 * c + x1 * sv) * qscale;
       }
     }
   }
@@ -394,8 +450,12 @@ __global__ void __launch_bounds__(PF_THREADS, PF_MIN_BLOCKS)
                      (key_of(k0, u) & ((1 << bs_shift) - 1))
                : (uint32_t)pg[u];
       const size_t off = (size_t)row * row_bytes + lane_off;
-      kr[u] = __ldg(reinterpret_cast<const Raw*>(kp + off));
-      vr[u] = __ldg(reinterpret_cast<const Raw*>(vp + off));
+      if (on) {
+        kr[u] = __ldg(reinterpret_cast<const Raw*>(kp + off));
+        vr[u] = __ldg(reinterpret_cast<const Raw*>(vp + off));
+      } else {   // columns past D: the next kv head's, never read
+        kr[u] = vr[u] = Raw{};
+      }
       if constexpr (Q != 0) {
         ksc[u] = __ldg(k_scale + row);
         vsc[u] = __ldg(v_scale + row);
@@ -414,11 +474,11 @@ __global__ void __launch_bounds__(PF_THREADS, PF_MIN_BLOCKS)
     for (int e = 0; e < EPL; ++e) acc[r][e] = 0.f;
   }
 
-  constexpr int STRIDE = PF_WARPS * PF_STEP;
+  constexpr int STRIDE = PF_WARPS * STEP;
   Raw kc[U], vc[U];
   float ksc[U], vsc[U];
   int pg1[U], pg2[U];   // pages of the next two steps
-  int k0 = kb + warp * PF_STEP;
+  int k0 = kb + warp * STEP;
   if (k0 < ke) pages(k0, pg1);
   if (k0 + STRIDE < ke) pages(k0 + STRIDE, pg2);
   if (k0 < ke) load(k0, pg1, kc, vc, ksc, vsc);
@@ -559,7 +619,7 @@ __global__ void __launch_bounds__(PF_THREADS, PF_MIN_BLOCKS)
   // m and l (into shared memory) in one round of loads; then their
   // weights 2^(m - max) and the sums, and each output the weighted sum
   // of the acc rows in block order
-  constexpr int IT = (REP * D + PF_THREADS - 1) / PF_THREADS;
+  constexpr int IT = (REP * W + PF_THREADS - 1) / PF_THREADS;
   constexpr int JB = IT <= 4 ? 8 : 4;
   __shared__ float sm_w[PF_MAX_SPLITS][REP], sm_l[PF_MAX_SPLITS][REP];
   __shared__ float sm_lg[REP];
@@ -609,6 +669,17 @@ __global__ void __launch_bounds__(PF_THREADS, PF_MIN_BLOCKS)
   }
 }
 
+// the grid and arguments of every paged_decode_hopper launch
+#define PF_LAUNCH(...)                                                       \
+  __VA_ARGS__<<<dim3(S, KVH * groups, B), PF_THREADS, 0, st>>>(                  \
+      (const bf16*)q, (const CSK*)cs, (const CSK*)sn, k_pool, v_pool,       \
+      (const float*)k_scale, (const float*)v_scale, (const int*)bt,         \
+      (const int*)pos, (float*)acc, (float*)m, (float*)l, (int*)tickets,    \
+      (bf16*)out, KVH, rep, groups, bs, magic, shift, nbs, scale, D,        \
+      cs_dtype);                                                            \
+  return (int)cudaGetLastError();
+
+// D = 64 or 128: the instances of D columns, cos/sin of type CS
 template <int Q, typename CS>
 static int launch_hopper(const void* q, const void* cs, const void* sn,
                          const void* k_pool, const void* v_pool,
@@ -617,17 +688,11 @@ static int launch_hopper(const void* q, const void* cs, const void* sn,
                          void* l, void* tickets, void* out, int B, int KVH,
                          int rep, int D, int bs, int nbs, int S, float scale,
                          int REP, int groups, uint32_t magic, int shift,
-                         cudaStream_t st) {
-#define PF_CASE(R, DD, P2, F)                                                \
-  if (REP == R && D == DD && (magic == 0) == P2 && full == F) {             \
-    paged_decode_hopper<Q, DD, R, P2, F, CS>                                \
-        <<<dim3(S, KVH * groups, B), PF_THREADS, 0, st>>>(                  \
-            (const bf16*)q, (const CS*)cs, (const CS*)sn, k_pool, v_pool,   \
-            (const float*)k_scale, (const float*)v_scale, (const int*)bt,   \
-            (const int*)pos, (float*)acc, (float*)m, (float*)l,             \
-            (int*)tickets, (bf16*)out, KVH, rep, groups, bs, magic, shift,  \
-            nbs, scale);                                                    \
-    return (int)cudaGetLastError();                                         \
+                         int cs_dtype, cudaStream_t st) {
+  using CSK = CS;
+#define PF_CASE(R, DD, P2, F)                                               \
+  if (REP == R && D == DD && (magic == 0) == P2 && full == F) {            \
+    PF_LAUNCH(paged_decode_hopper<Q, DD, R, P2, F, false, CS>)              \
   }
 #define PF_REPS(DD, P2, F) \
   PF_CASE(1, DD, P2, F) PF_CASE(2, DD, P2, F) PF_CASE(4, DD, P2, F)
@@ -640,6 +705,32 @@ static int launch_hopper(const void* q, const void* cs, const void* sn,
 #undef PF_CASE
   return (int)cudaErrorInvalidValue;
 }
+
+// every other D that is a multiple of 8 up to 256: the padded instance of
+// the smallest width W in {64, 128, 256} that holds it, D and the cos/sin
+// rows' type at run time
+template <int Q>
+static int launch_padded(const void* q, const void* cs, const void* sn,
+                         const void* k_pool, const void* v_pool,
+                         const void* k_scale, const void* v_scale,
+                         const void* bt, const void* pos, void* acc, void* m,
+                         void* l, void* tickets, void* out, int B, int KVH,
+                         int rep, int D, int bs, int nbs, int S, float scale,
+                         int REP, int groups, uint32_t magic, int shift,
+                         int W, int cs_dtype, cudaStream_t st) {
+  using CSK = CSRuntime;
+#define PF_CASE(R, WW, P2)                                                  \
+  if (REP == R && W == WW && (magic == 0) == P2) {                         \
+    PF_LAUNCH(paged_decode_hopper<Q, WW, R, P2, false, true, CSRuntime>)    \
+  }
+#define PF_REPS(WW, P2) PF_CASE(1, WW, P2) PF_CASE(2, WW, P2) PF_CASE(4, WW, P2)
+  PF_REPS(64, true) PF_REPS(128, true) PF_REPS(256, true)
+  PF_REPS(64, false) PF_REPS(128, false) PF_REPS(256, false)
+#undef PF_REPS
+#undef PF_CASE
+  return (int)cudaErrorInvalidValue;
+}
+#undef PF_LAUNCH
 
 extern "C" int paged_decode_smem_bytes(int rep, int D, int bs) {
   const int kt = bs < PD_KEYS ? bs : PD_KEYS;
@@ -679,18 +770,21 @@ static int launch_general(const void* q, const void* cs, const void* sn,
 // sn's (the same codes); kv: what the pools hold (0 q's type, 1 int8
 // codes, 2 fp8 codes, with the scales).  hopper (the wrapper's route,
 // kernels/paged_attention.py hopper_path) takes paged_decode_hopper:
-// bf16 q, D in {64, 128}, any rep and bs, 16-byte aligned pools, 1 <= S
-// <= PF_MAX_SPLITS (the wrapper's decode_plan), tickets: B * KVH *
-// groups ints, 0 before the launch and after it, used by one stream at a
-// time; hopper is the instance's REP (kernels/paged_attention.py
+// bf16 q, D a multiple of 8 from 8 to 256, any rep and bs, 16-byte
+// aligned pools, 1 <= S <= PF_MAX_SPLITS (the wrapper's decode_plan),
+// tickets: B * KVH * groups ints, 0 before the launch and after it, used
+// by one stream at a time; width is the instance's columns
+// (hopper_width: the smallest of 64, 128 and 256 that holds D; D == width
+// at 64 and 128 takes the instance of D columns, every other D the
+// padded one), hopper the instance's REP (kernels/paged_attention.py
 // hopper_group: 1, 2 or 4, groups sub-groups of ceil(rep / groups) <=
 // REP heads a kv head; one sub-group of rep == REP heads over a
-// power-of-two bs takes the FULL instance), magic 0 for a power-of-two
-// bs = 1 << shift, else bs's division multiplier (div_magic).  hopper
-// 0: the general instance, any type, rep, bs and D (the shared memory
-// of paged_decode_smem_bytes, at most what a block can have), any S
-// (the wrapper's general_plan), and the combine kernel (tickets
-// unused).
+// power-of-two bs at D == width takes the FULL instance), magic 0 for a
+// power-of-two bs = 1 << shift, else bs's division multiplier
+// (div_magic).  hopper 0: the general instance (width 0), any type, rep,
+// bs and D (the shared memory of paged_decode_smem_bytes, at most what a
+// block can have), any S (the wrapper's general_plan), and the combine
+// kernel (tickets unused).
 extern "C" int paged_decode(const void* q, const void* cs, const void* sn,
                             const void* k_pool, const void* v_pool,
                             const void* k_scale, const void* v_scale,
@@ -698,7 +792,7 @@ extern "C" int paged_decode(const void* q, const void* cs, const void* sn,
                             void* m, void* l, void* tickets, void* out,
                             int B, int KVH, int rep, int D, int bs, int nbs,
                             int S, float scale, int dtype, int cs_dtype,
-                            int kv, int hopper, int groups,
+                            int kv, int width, int hopper, int groups,
                             unsigned int magic, int shift, void* stream) {
   if (B == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
@@ -707,14 +801,25 @@ extern "C" int paged_decode(const void* q, const void* cs, const void* sn,
     const int per = groups > 0 ? (rep + groups - 1) / groups : 0;
     if (dtype != 1 || tickets == nullptr || bs <= 0 || rep <= 0 ||
         per < 1 || per > hopper || (groups - 1) * per >= rep ||
-        (magic == 0 && bs != 1 << shift) || S < 1 || S > PF_MAX_SPLITS)
+        (magic == 0 && bs != 1 << shift) || S < 1 || S > PF_MAX_SPLITS ||
+        D < 8 || D % 8 || width != (D <= 64 ? 64 : D <= 128 ? 128 : 256) ||
+        D > width || (cs_dtype != 0 && cs_dtype != 1))
       return (int)cudaErrorInvalidValue;
+    if (D != width || width == 256) {
+      DISPATCH_KV(kv, Q, {
+        err = launch_padded<Q>(q, cs, sn, k_pool, v_pool, k_scale, v_scale,
+                               bt, pos, acc, m, l, tickets, out, B, KVH, rep,
+                               D, bs, nbs, S, scale, hopper, groups, magic,
+                               shift, width, cs_dtype, st);
+      });
+      return err;
+    }
     DISPATCH_DTYPE(cs_dtype, CS, {
       DISPATCH_KV(kv, Q, {
         err = launch_hopper<Q, CS>(q, cs, sn, k_pool, v_pool, k_scale,
                                    v_scale, bt, pos, acc, m, l, tickets, out,
                                    B, KVH, rep, D, bs, nbs, S, scale, hopper,
-                                   groups, magic, shift, st);
+                                   groups, magic, shift, cs_dtype, st);
       });
     });
     return err;

@@ -26,23 +26,31 @@ kernel dequantizes each row in registers.  Each scheme counts its own
 launches (``paged_decode_int8``, ``paged_decode_fp8``).
 
 Which CUDA kernel runs is chosen from the operands before the launch
-(:func:`hopper_path`).  bf16 q at head_dim 64 or 128 over 16-byte
-aligned pools, any GQA rep and block size, takes ``paged_decode_hopper``,
-one launch whose blocks split each sequence's live keys into chunks of
-``CHUNK_KEYS`` (:func:`decode_plan` sizes the grid and the scratch) and
-whose last block per (sequence, kv head, sub-group) merges their
-shares; it reads bf16 or f32 cos/sin as given.  Its instance holds 1,
-2 or 4 q heads a block (:func:`hopper_group`: rep 3 runs padded to 4,
-rep 7 as sub-groups of 4 and 3 heads), and a block size that is not a
-power of two finds its pages by a multiplier (:func:`div_magic`).  Every other
-shape, bf16 or f32 (which only the tests serve), takes the general
-instance ``paged_decode_partials`` with the splits of
-:func:`general_plan` and a combine kernel: any rep, block size and
-head_dim whose staging fits a block's shared memory, in f32 inside and
-one rounding at the store.  A bf16 call that takes it counts as
-``paged_decode_general`` (``_int8``/``_fp8`` over code pools).  Both
-agree with the plain version up to the order of f32 sums (and the
-Hopper kernel's exp2).
+(:func:`hopper_path`).  bf16 q at a head_dim D that is a multiple of 8
+up to 256 over 16-byte aligned pools, any GQA rep and block size, takes
+``paged_decode_hopper``, one launch whose blocks split each sequence's
+live keys into chunks of ``CHUNK_KEYS`` (:func:`decode_plan` sizes the
+grid and the scratch) and whose last block per (sequence, kv head,
+sub-group) merges their shares; it reads bf16 or f32 cos/sin as given.
+A key row is spread over W / 8 lanes (:func:`hopper_width`: W = 64, 128
+or 256, the smallest that holds D, so that the lanes' shuffle trees are
+powers of two): D = 64 and 128 run on instances of D columns, every
+other D on the padded instance of W columns, which takes D at run time
+and whose lanes past D load nothing (Phi-3-mini's 96 on 128 columns
+costs 4 idle lanes of 16 a key in issue slots, no bytes); its launches
+are tallied by instance (:func:`instance`).  Its instance holds 1, 2 or
+4 q heads a block (:func:`hopper_group`: rep 3 runs padded to 4, rep 7
+as sub-groups of 4 and 3 heads), and a block size that is not a power
+of two finds its pages by a multiplier (:func:`div_magic`).  Every other
+shape (bf16 head_dims that are not a multiple of 8, unaligned pools, or
+f32, which only the tests serve) takes the general instance
+``paged_decode_partials`` with the splits of :func:`general_plan` and a
+combine kernel: any rep, block size and head_dim whose staging fits a
+block's shared memory, in f32 inside and one rounding at the store.  A
+bf16 call that takes it counts as ``paged_decode_general``
+(``_int8``/``_fp8`` over code pools).  There is no fallback: a launch
+that fails raises.  Both agree with the plain version up to the order of
+f32 sums (and the Hopper kernel's exp2).
 """
 from __future__ import annotations
 
@@ -61,8 +69,14 @@ NEG_INF = -1e30
 SMEM_LIMIT = 227 * 1024    # paged_decode_partials: a block's opt-in smem
 CHUNK_KEYS = 64            # csrc/paged_attention.cu PF_CHUNK
 HOPPER_REPS = (1, 2, 4)      # q heads a block of paged_decode_hopper
-HOPPER_DIMS = (64, 128)
+HOPPER_WIDTHS = (64, 128, 256)  # its columns a key row (W / 8 lanes)
+EXACT_WIDTHS = (64, 128)     # the widths built for D == W at compile time
 BLOCKS_PER_SM = 3          # csrc/paged_attention.cu PF_MIN_BLOCKS
+# blocks a SM the splits of a padded instance over bf16 pools aim at: its
+# time at Phi-3-mini's, Phi-2's and Gemma-7B's heads fell by a fifth from
+# 3 to about 10 (the longest sequences' shares end together;
+# tools/decode_splits.py, PERF.md)
+PADDED_BF16_BLOCKS_PER_SM = 10
 MAX_SPLITS = 64            # csrc/paged_attention.cu PF_MAX_SPLITS
 
 
@@ -106,12 +120,16 @@ def div_magic(bs):
     return ((1 << 32) * ((1 << shift) - bs)) // bs + 1, shift
 
 
-def decode_plan(B, KVH, nbs, bs, sm_count, groups=1):
+def decode_plan(B, KVH, nbs, bs, sm_count, groups=1,
+                blocks_per_sm=BLOCKS_PER_SM):
     """Splits of ``paged_decode_hopper``: how many blocks share one
     (sequence, kv head, sub-group)'s live keys (``groups`` sub-groups a
-    kv head, :func:`hopper_group`).  Enough for BLOCKS_PER_SM blocks a
-    SM, as many as its registers let reside at once, so that the live
-    blocks run in one wave when every sequence is long; no more than a
+    kv head, :func:`hopper_group`).  Enough for ``blocks_per_sm`` blocks
+    a SM: by default BLOCKS_PER_SM, as many as its registers let reside
+    at once, so that the live blocks run in one wave when every sequence
+    is long (a padded instance over bf16 pools aims at
+    PADDED_BF16_BLOCKS_PER_SM, several waves of shorter shares); no more
+    than a
     full table has chunks of CHUNK_KEYS, nor MAX_SPLITS (the last
     block's merge keeps a weight of each in shared memory).  The
     kernel's own partition follows each sequence's frontier (block s
@@ -119,8 +137,17 @@ def decode_plan(B, KVH, nbs, bs, sm_count, groups=1):
     [B, S, H, D] partials is an upper bound known
     without a host sync."""
     max_chunks = -(-nbs * bs // CHUNK_KEYS)
-    want = -(-BLOCKS_PER_SM * sm_count // max(1, B * KVH * groups))
+    want = -(-blocks_per_sm * sm_count // max(1, B * KVH * groups))
     return max(1, min(max_chunks, want, MAX_SPLITS))
+
+
+def blocks_per_sm(q, kv_cache_dtype=None):
+    """The blocks a SM :func:`decode_plan` aims at for a Hopper launch:
+    PADDED_BF16_BLOCKS_PER_SM on a padded instance over bf16 pools, else
+    BLOCKS_PER_SM."""
+    padded = instance(q, True).endswith("_pad")
+    return PADDED_BF16_BLOCKS_PER_SM if padded and kv_cache_dtype is None \
+        else BLOCKS_PER_SM
 
 
 def general_plan(B, KVH, nbs, sm_count):
@@ -134,13 +161,33 @@ def general_plan(B, KVH, nbs, sm_count):
 
 
 def hopper_path(q, k_pool, v_pool, rep):
-    """Whether these operands go to ``paged_decode_hopper``: bf16 q at
-    the D it is built for, any rep and block size, and pools 16-byte
-    aligned (its row loads).  Every other shape takes the general
-    instance."""
-    return (q.dtype == torch.bfloat16 and rep >= 1
-            and q.shape[-1] in HOPPER_DIMS and k_pool.shape[1] > 0
+    """Whether these operands go to ``paged_decode_hopper``: bf16 q at a
+    head_dim that is a multiple of 8 up to 256, any rep and block size,
+    and pools 16-byte aligned (its row loads).  Every other shape takes
+    the general instance."""
+    D = q.shape[-1]
+    return (q.dtype == torch.bfloat16 and rep >= 1 and D % 8 == 0
+            and 0 < D <= HOPPER_WIDTHS[-1] and k_pool.shape[1] > 0
             and k_pool.data_ptr() % 16 == 0 and v_pool.data_ptr() % 16 == 0)
+
+
+def hopper_width(D):
+    """The columns W of the ``paged_decode_hopper`` instance of head_dim
+    D: the smallest of HOPPER_WIDTHS that holds it."""
+    return next(w for w in HOPPER_WIDTHS if D <= w)
+
+
+def instance(q, hopper):
+    """The kernel instance a call launches, as the launch counter tallies
+    it beside the kernel's name: ``w64`` or ``w128`` for the Hopper
+    kernel's instances of D = 64 and 128 columns, ``w64_pad``,
+    ``w128_pad`` or ``w256_pad`` for its padded ones (D at run time), None
+    for the general instance."""
+    if not hopper:
+        return None
+    D = q.shape[-1]
+    W = hopper_width(D)
+    return f"w{W}" if D == W and W in EXACT_WIDTHS else f"w{W}_pad"
 
 
 def counter_name(q, hopper, kv_cache_dtype):
@@ -190,13 +237,17 @@ def _combine_splits(acc, m, l):
 
 def paged_decode_attention_plain(q, c, s, k_pool, v_pool, block_table,
                                  positions, num_splits, k_scale=None,
-                                 v_scale=None, kv_cache_dtype=None):
+                                 v_scale=None, kv_cache_dtype=None,
+                                 scale=None):
+    """The reference's decode (``_xla_partials`` and the combine) in f32.
+    ``scale`` defaults to 1/sqrt(head_dim)."""
     B, H, D = q.shape
     KVH = k_pool.shape[2]
     rep = H // KVH
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
     q_g = q.reshape(B, KVH, rep, D)
     q_rot = rotate_half(q_g.float(), c[:, None, None, :],
-                         s[:, None, None, :]) * (1.0 / math.sqrt(D))
+                         s[:, None, None, :]) * scale
     acc, m, l = _plain_partials(q_rot, k_pool, v_pool, block_table,
                                 positions, num_splits, k_scale, v_scale,
                                 kv_cache_dtype)
@@ -233,14 +284,15 @@ def paged_decode_attention(q, c, s, k_pool, v_pool, block_table, positions,
                          f"{tuple(k_pool.shape)} {k_pool.dtype}")
     fn = _build.bind(LIB, "paged_decode",
                      [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
-                     + [ctypes.c_float] + [ctypes.c_int] * 5
+                     + [ctypes.c_float] + [ctypes.c_int] * 6
                      + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p])
     hopper = hopper_path(q, k_pool, v_pool, rep)
+    width = hopper_width(D) if hopper else 0
     REP, groups = hopper_group(rep) if hopper else (0, 1)
     magic, shift = div_magic(bs) if hopper else (0, 0)
     if hopper:
         splits = decode_plan(B, KVH, nbs, bs, _build.sm_count(q.device),
-                             groups)
+                             groups, blocks_per_sm(q, kv_cache_dtype))
     else:
         splits = general_plan(B, KVH, nbs, _build.sm_count(q.device))
         smem = _build.bind(LIB, "paged_decode_smem_bytes",
@@ -270,9 +322,9 @@ def paged_decode_attention(q, c, s, k_pool, v_pool, block_table, positions,
                     tickets, p(out), B, KVH, rep, D, bs, nbs, splits,
                     1.0 / math.sqrt(D), _build.dtype_code(q),
                     _build.dtype_code(c),
-                    kv_quant.KV_DTYPE_CODES[kv_cache_dtype], REP, groups,
-                    magic, shift, _build.stream_ptr(q)), name)
-    _build.launches.add(name)
+                    kv_quant.KV_DTYPE_CODES[kv_cache_dtype], width, REP,
+                    groups, magic, shift, _build.stream_ptr(q)), name)
+    _build.launches.add(name, instance(q, hopper))
     return out
 
 

@@ -13,12 +13,15 @@ kernel (phase 1) and then runs the named phases in order: ``kernels``
 (2), ``train_kernels`` (3), ``moe_kernels`` (2m), ``c1_kernels`` (2c),
 ``static_kernels`` (2s), ``main`` (6, bf16 serving), ``main_quant`` (6
 from quantized pools; runs ``main`` first for its pool size when it is
-not named), ``tiny_c1`` (4c), ``c1_main`` (6c), ``moe_main`` (6m),
-``train_phi3`` (7c); a checkout whose ``chip_smoke.py`` lacks a phase
-skips it, except ``train_phi3``, which such a checkout runs from this
-tool's own ``chip_smoke.py`` over its own package, expecting the
-attention launches its own routes give (``attention_counters``), so
-that the step time of an older package is measured at the same shape.  Each phase prints what ``chip_smoke.py`` prints:
+not named), ``tiny_c1`` (4c), ``c1_main`` (6c), ``phi3_main`` (6p),
+``moe_main`` (6m), ``train_phi3`` (7c); a checkout whose
+``chip_smoke.py`` lacks a phase skips it, except ``train_phi3`` and
+``phi3_main``, which such a checkout runs from this tool's own
+``chip_smoke.py`` over its own package, expecting the launches its own
+routes give (``attention_counters``; ``_serve_main``'s counts, without
+6p's instance checks), so that the step time of an older package is
+measured at the same shape.  Each phase prints what ``chip_smoke.py``
+prints:
 every profiled step its kernel count and kernel time, every serving run
 a digest of its greedy tokens, to compare the checkouts' tokens (a
 checkout whose ``chip_smoke.py`` predates those lines prints neither).
@@ -44,7 +47,7 @@ from pathlib import Path
 
 PHASES = ("kernels", "train_kernels", "moe_kernels", "c1_kernels",
           "static_kernels", "main", "main_quant", "tiny_c1", "c1_main",
-          "moe_main", "train_phi3")
+          "phi3_main", "moe_main", "train_phi3")
 
 CHILD = """
 import hashlib
@@ -169,13 +172,18 @@ for phase in phases:
         cs.phase_main_quant(dev, blocks)
     elif hasattr(cs, "phase_" + phase):
         getattr(cs, "phase_" + phase)(dev)
-    elif phase == "train_phi3":
+    elif phase in ("train_phi3", "phi3_main"):
         spec = importlib.util.spec_from_file_location(
             "turns_smoke", os.environ["TURNS_SMOKE"])
         new = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(new)
-        cfg = new.phi3_mini_config(num_hidden_layers=new.PHI3_LAYERS)
-        new.phase_train_phi3(dev, new.attention_counters(cfg, new.PHI3_T))
+        if phase == "phi3_main":
+            new._serve_main = compared
+            new.phase_phi3_main(dev, strict=False)
+        else:
+            cfg = new.phi3_mini_config(num_hidden_layers=new.PHI3_LAYERS)
+            new.phase_train_phi3(dev, new.attention_counters(cfg,
+                                                             new.PHI3_T))
     else:
         print(f"no phase {phase} in this checkout", flush=True)
     cs.free()

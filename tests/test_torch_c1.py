@@ -131,23 +131,25 @@ def _meta(*shape, dtype=torch.bfloat16):
 
 
 # (tag, H, KVH, D, block size, whether the Hopper paged decode takes it:
-# any rep and block size at head_dim 64 or 128)
+# any rep and block size at every head_dim that is a multiple of 8 up to
+# 256)
 ATTN_SHAPES = [
     ("llama3_8b", 32, 8, 128, 16, True), ("mixtral", 32, 8, 128, 16, True),
     ("tiny_rep2_d64", 4, 2, 64, 8, True),
     ("qwen2_7b_pages12", 28, 4, 128, 12, True),
     ("qwen2_7b_pages16", 28, 4, 128, 16, True),     # rep 7
-    ("tiny_c1", 7, 1, 20, 12, False), ("phi2", 32, 32, 80, 16, False),
-    ("phi3_mini", 32, 32, 96, 16, False),
-    ("gemma_7b", 16, 16, 256, 16, False), ("gemma_2b", 8, 1, 256, 12, False)]
+    ("tiny_c1", 7, 1, 20, 12, False), ("phi2", 32, 32, 80, 16, True),
+    ("phi3_mini", 32, 32, 96, 16, True),
+    ("gemma_7b", 16, 16, 256, 16, True), ("gemma_2b", 8, 1, 256, 12, True)]
 
 
 @pytest.mark.parametrize("tag,H,KVH,D,bs,fast", ATTN_SHAPES,
                          ids=[s[0] for s in ATTN_SHAPES])
 def test_decode_route(tag, H, KVH, D, bs, fast):
-    # the Hopper kernel: D 64 or 128, any rep (padded to 1, 2, 4 or 8 q
-    # heads a block) and page size; every other bf16 shape the general
-    # instance, under its name
+    # the Hopper kernel: every D that is a multiple of 8 up to 256 (on
+    # instances of 64, 128 or 256 columns), any rep (sub-groups of 1, 2
+    # or 4 q heads a block) and page size; every other bf16 shape the
+    # general instance, under its name
     q, pool = _meta(8, H, D), _meta(40, bs, KVH, D)
     assert pa.hopper_path(q, pool, pool, H // KVH) == fast
     want = "paged_decode" if fast else "paged_decode_general"

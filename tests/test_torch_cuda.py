@@ -332,20 +332,30 @@ def _bf16_decode_operands(B, KVH, rep, D, nbs, positions, scheme, seed,
             paged_attention._default_splits(nbs), ks, vs, scheme)
 
 
-def _hold_decode(ops, cuda_device, kernel=paged_attention.KERNEL):
+def _hold_decode(ops, cuda_device, kernel=paged_attention.KERNEL,
+                 instance=None, heads=None):
     """The Hopper decode kernel (or ``kernel``, the general instance) on
-    ``ops`` twice (the same bits), one launch each, against the plain
-    version on the CPU: one bf16 rounding of the largest output (the two
-    differ in the order of f32 sums and the kernel's exp2)."""
+    ``ops`` twice (the same bits), one launch each (on ``instance`` where
+    it is given), against the plain version on the CPU: one bf16 rounding
+    of the largest output (the two differ in the order of f32 sums and
+    the kernel's exp2); with ``heads`` only those q heads are held, and
+    they must be finite."""
     dev = [None if o is None or isinstance(o, (int, str)) else
            o.to(cuda_device) for o in ops]
     dev[7], dev[10] = ops[7], ops[10]
     launches.reset()
     got = paged_attention.paged_decode_attention(*dev)
     again = paged_attention.paged_decode_attention(*dev)
-    assert launches.snapshot() == {kv_quant.counter_name(kernel, ops[10]): 2}
+    name = kv_quant.counter_name(kernel, ops[10])
+    assert launches.snapshot() == {name: 2}
+    if instance is not None:
+        assert launches.by_instance() == {f"{name}@{instance}": 2}
+    heads = slice(None) if heads is None else heads
+    got, again = got[:, heads], again[:, heads]
     assert torch.equal(got, again)
-    want = paged_attention.paged_decode_attention_plain(*ops).float()
+    assert bool(torch.isfinite(got).all())
+    want = paged_attention.paged_decode_attention_plain(*ops)[:, heads]
+    want = want.float()
     assert float((got.cpu().float() - want).abs().max()) <= \
         float(want.abs().max()) / 128
     return got.cpu()
@@ -376,13 +386,14 @@ class TestCudaHopperDecode:
                                     rep * D + B)
         _hold_decode(ops, cuda_device)
 
-    @pytest.mark.parametrize("rep,D,bs", [(3, 128, 16), (4, 96, 16),
+    @pytest.mark.parametrize("rep,D,bs", [(3, 128, 16), (4, 100, 16),
                                           (4, 128, 12)])
     def test_refuses_shapes_it_does_not_take(self, cuda_device, rep, D, bs):
         # the Hopper kernel takes any rep (3 padded to 4 heads a block)
-        # and page size (12: the division by the page size) at D 64 or
-        # 128; bf16 at another D is the general instance's, under its own
-        # counter; each agrees with the plain version
+        # and page size (12: the division by the page size) at every D
+        # that is a multiple of 8; bf16 at another D is the general
+        # instance's, under its own counter; each agrees with the plain
+        # version
         g = torch.Generator().manual_seed(rep * D + bs)
         q = torch.randn(2, 2 * rep, D, generator=g).bfloat16()
         pool = torch.randn(5, bs, 2, D, generator=g).bfloat16()
@@ -390,7 +401,7 @@ class TestCudaHopperDecode:
         ops = [q, ang.cos(), ang.sin(), pool, pool.clone(),
                torch.tensor([[1, 2], [3, 4]], dtype=torch.int32),
                torch.tensor([5, 20], dtype=torch.int32), 1, None, None, None]
-        hopper = D in (64, 128)
+        hopper = D % 8 == 0
         assert paged_attention.hopper_path(q, pool, pool, rep) == hopper
         _hold_decode(ops, cuda_device, paged_attention.KERNEL if hopper
                      else paged_attention.GENERAL)
@@ -430,6 +441,43 @@ class TestCudaHopperDecode:
             got.append(_hold_decode([q, ang.cos(), ang.sin(), k, v, bt, pos,
                                      1, ks, vs, scheme], cuda_device))
         assert torch.equal(*got)
+
+
+@pytest.mark.cuda
+class TestCudaHopperDecodeHeadDims:
+    """paged_decode_hopper at head_dims other than 64 and 128: the padded
+    instances of 128 columns (80, 88: a lane's dims straddle the halves
+    of the rotation, 96) and 256 (160, 256: one key a load, 4 a step),
+    over bf16, int8 and fp8 pools, pages of 12 (the division) and 16,
+    rep 1, 2, 7 (sub-groups of 4 and 3) and 8 (Gemma-2B's 8 q heads over
+    1 kv head)."""
+
+    @pytest.mark.parametrize("bs", [12, 16])
+    @pytest.mark.parametrize("rep", [1, 2, 7, 8])
+    @pytest.mark.parametrize("D", [80, 88, 96, 160, 256])
+    @pytest.mark.parametrize("scheme", [None, "int8", "fp8"])
+    def test_shapes(self, cuda_device, scheme, D, rep, bs):
+        # slot 0 idle on the poisoned block 0; page and 64-key chunk
+        # edges; then kv head 1 poisoned in every page (bf16 +Inf keys
+        # and -Inf values, fp8 NaN codes, int8 codes of 127): kv head 0's
+        # q heads, whose lanes past D sit over kv head 1's columns, stay
+        # finite and agree with the plain version
+        positions = [0, bs - 1, 63, 64, 6 * bs + 5]
+        ops = list(_bf16_decode_operands(5, 2, rep, D, 8, positions, scheme,
+                                         D + rep + bs, bs=bs))
+        assert paged_attention.hopper_path(ops[0], ops[3], ops[4], rep)
+        W = 128 if D <= 128 else 256
+        out = _hold_decode(ops, cuda_device, instance=f"w{W}_pad")
+        assert float(out[1:].float().abs().max()) < 50.0   # no poison
+        if scheme is None:
+            ops[3], ops[4] = ops[3].clone(), ops[4].clone()
+            ops[3][:, :, 1], ops[4][:, :, 1] = float("inf"), float("-inf")
+        else:
+            ops[3], ops[4] = ops[3].clone(), ops[4].clone()
+            code = 0x7F if scheme == "fp8" else 127
+            ops[3][:, :, 1], ops[4][:, :, 1] = code, code
+        _hold_decode(ops, cuda_device, instance=f"w{W}_pad",
+                     heads=slice(0, rep))
 
 
 def _paged_keys(bs, D, scheme=None, B=3, n=48, KVH=2):
@@ -1820,37 +1868,37 @@ def _hold_general_attention(q, k, v, do, causal):
 @pytest.mark.cuda
 class TestCudaGeneral:
     """The general bf16 instances: the shapes the fast kernels are not
-    built for (the decode at head_dim 20, 80, 96 and 256; every kernel at
-    20 and 100, and at 132 and 204 on the instances of head_dim up to
+    built for (the decode at head_dim 20, 92, 100 and 132; every kernel
+    at 20 and 100, and at 132 and 204 on the instances of head_dim up to
     256; N and K = 4 mod 8), each against its plain version; and
     the shapes they took before the fast kernels took them (GQA rep 7,
     pages of 12 tokens, as Qwen2-7B's heads or
-    ServingConfig(block_size=12) give them; the chunk and attention at
-    Phi-3's and Gemma's head_dims)."""
+    ServingConfig(block_size=12) give them; the decode, the chunk and
+    attention at Phi-3's and Gemma's head_dims)."""
 
     @pytest.mark.parametrize("scheme", [None, "int8", "fp8"])
     @pytest.mark.parametrize("rep,D,bs", [(7, 128, 12), (7, 20, 16),
-                                          (3, 80, 12), (4, 96, 64),
-                                          (1, 128, 100), (2, 256, 12)])
+                                          (3, 100, 12), (4, 92, 64),
+                                          (1, 128, 100), (2, 132, 12)])
     def test_paged_decode(self, cuda_device, scheme, rep, D, bs):
-        # slot 0 idle on the poisoned block 0; page and table edges; D 64
-        # and 128 take the Hopper kernel at any rep and page size, the
-        # others (20, 80, 96, 256) the general instance
+        # slot 0 idle on the poisoned block 0; page and table edges; every
+        # D that is a multiple of 8 takes the Hopper kernel at any rep and
+        # page size, the others (20, 92, 100, 132) the general instance
         positions = [0, bs - 1, bs, 3 * bs + 1, 8 * bs - 1]
         ops = _bf16_decode_operands(5, 2, rep, D, 8, positions, scheme,
                                     rep * D + bs, bs=bs)
-        hopper = D in (64, 128)
+        hopper = D % 8 == 0
         assert paged_attention.hopper_path(ops[0], ops[3], ops[4],
                                            rep) == hopper
         out = _hold_decode(ops, cuda_device, paged_attention.KERNEL if hopper
                            else paged_attention.GENERAL)
         assert float(out[1:].float().abs().max()) < 50.0   # no poison
 
-    @pytest.mark.parametrize("D", [128, 96])
+    @pytest.mark.parametrize("D", [128, 100])
     def test_paged_decode_bf16_tables(self, cuda_device, D):
         # the model's bf16 RoPE rows are read as given, the same as their
         # f32 values (the Hopper kernel at rep 7 and pages of 12, the
-        # general one at D 96)
+        # general one at D 100)
         kernel = paged_attention.KERNEL if D == 128 \
             else paged_attention.GENERAL
         ops = list(_bf16_decode_operands(3, 4, 7, D, 6, [0, 40, 71],

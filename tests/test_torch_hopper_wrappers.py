@@ -408,13 +408,37 @@ def test_decode_plan(B, KVH, nbs, bs, splits):
     assert pa.decode_plan(B, KVH, nbs, bs, 132) == splits
 
 
+@pytest.mark.parametrize("B,KVH,D,scheme,splits", [
+    (8, 32, 96, None, 6),      # Phi-3-mini: about 10 blocks a SM
+    (8, 16, 256, None, 11),    # Gemma-7B
+    (8, 32, 96, "int8", 2),    # code pools: 3 blocks a SM
+    (8, 8, 128, None, 7)])     # D = 128: its own instance, 3 a SM
+def test_padded_bf16_decode_plan(monkeypatch, B, KVH, D, scheme, splits):
+    # the splits a launch hands the C entry: a padded instance over bf16
+    # pools aims at PADDED_BF16_BLOCKS_PER_SM blocks a SM
+    calls = _fake_decode(monkeypatch)
+    q = torch.empty(B, KVH, D, dtype=torch.bfloat16, device="meta")
+    dt = torch.bfloat16 if scheme is None else torch.int8
+    pool = torch.empty(600, 16, KVH, D, dtype=dt, device="meta")
+    sc = None if scheme is None else torch.empty(600, 16, device="meta")
+    cs = torch.empty(B, D // 2, device="meta")
+    pa.paged_decode_attention(
+        q, cs, cs, pool, pool,
+        torch.zeros(B, 512, dtype=torch.int32, device="meta"),
+        torch.zeros(B, dtype=torch.int32, device="meta"), 1, sc, sc, scheme)
+    (args,) = calls
+    assert args[20] == splits
+
+
 @pytest.mark.parametrize("dtype,rep,D,bs,want", [
     (torch.bfloat16, 4, 128, 16, True), (torch.bfloat16, 1, 64, 8, True),
     (torch.bfloat16, 8, 128, 32, True),     # two sub-groups of 4
     (torch.float32, 4, 128, 16, False),     # f32 keeps the general kernel
-    # any rep and page size at D 64 or 128; another D the general one
+    # any rep and page size at every D that is a multiple of 8 up to 256;
+    # another D the general one
     (torch.bfloat16, 3, 128, 16, True),     # padded to 4 heads a block
-    (torch.bfloat16, 4, 96, 16, False),
+    (torch.bfloat16, 4, 96, 16, True),      # the padded 128 columns
+    (torch.bfloat16, 4, 100, 16, False),    # not a multiple of 8
     (torch.bfloat16, 4, 128, 12, True)])    # not a power of two
 def test_hopper_path(dtype, rep, D, bs, want):
     q = torch.zeros(2, 2 * rep, D, dtype=dtype)
@@ -497,23 +521,26 @@ def test_decode_passes_group_and_division_before_launching(monkeypatch, rep,
     assert args[16] == rep and args[18] == bs
     assert args[20] == pa.decode_plan(B, KVH, nbs, bs, 132, groups)
     assert args[-5:-1] == (REP, groups, magic, shift)
+    assert args[-6] == 128            # the instance's columns
     assert args[12] is not None       # the tickets
     assert launches.snapshot() == {pa.KERNEL: 1}
+    assert launches.by_instance() == {f"{pa.KERNEL}@w128": 1}
 
 
 def test_decode_general_instance_gets_no_group(monkeypatch):
-    # head_dim 96: the general instance, REP 0, no tickets
+    # head_dim 100 (not a multiple of 8): the general instance, REP 0,
+    # width 0, no tickets
     calls = _fake_decode(monkeypatch)
-    q = torch.empty(2, 14, 96, dtype=torch.bfloat16, device="meta")
-    pool = torch.empty(9, 12, 2, 96, dtype=torch.bfloat16, device="meta")
-    cs = torch.empty(2, 48, device="meta")
+    q = torch.empty(2, 14, 100, dtype=torch.bfloat16, device="meta")
+    pool = torch.empty(9, 12, 2, 100, dtype=torch.bfloat16, device="meta")
+    cs = torch.empty(2, 50, device="meta")
     launches.reset()
     pa.paged_decode_attention(
         q, cs, cs, pool, pool,
         torch.zeros(2, 4, dtype=torch.int32, device="meta"),
         torch.zeros(2, dtype=torch.int32, device="meta"), 1)
     (args,) = calls
-    assert args[-5] == 0 and args[12] is None
+    assert args[-5] == 0 and args[-6] == 0 and args[12] is None
     assert launches.snapshot() == {pa.GENERAL: 1}
 
 
