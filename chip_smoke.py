@@ -38,6 +38,15 @@ Phases, each of which must pass (nothing is caught):
      same from fp8 KV pools, from int8 KV pools and from fp8 pools with
      int8 weights, each pool the bf16 pool's bytes, with the greedy
      token's log-probability drift against the bf16 pool;
+  6s. main sampled serving: phase 6's model, requests, submit order and
+     pool, served twice on fresh engines, with requests 0, 2, 4 and 6
+     sampled (temperature 0.8, top-k 50, top-p 0.95, seed 1000 + i) and
+     request 5 streamed through serving.sse_stream: the greedy
+     requests' tokens equal phase 6's bit for bit, every request has
+     its 32 tokens, the SSE frames decode to request 5's tokens, its
+     summary and [DONE], both runs give the same sampled tokens, and
+     phase 6's launch counts hold; one sampled decode step is profiled,
+     and the sampler alone beside it;
   7. main training: Llama-3-8B width, 8 of its 32 layers, bf16, one
      [1, 8192] batch, AdamW(1e-4): 2 warm-up and 5 timed steps, one
      profiled step and one eval forward without grad; finite, falling
@@ -134,7 +143,12 @@ Static graph (BERT-base, Google's published bert_config.json):
      and fused as in 4s: 2 warm-up, 5 timed and one profiled step; 13
      fused_linear ops in the Program and 13 launches a step; it runs
      last.
-The launch counts of phases 4c, 6, 6c, 6p, 7, 7c, 6m, 7m and 7s, reset
+The sampler (serving/sampling.py: torch ops, no kernel of its own):
+  2d. sample_at over random f32 logits [8, 128256] with greedy lanes and
+     lanes of temperature, top-k and top-p each on and off, at 64 token
+     counters of seeded keys: the tokens on the card equal the CPU's,
+     one for one (on a mismatch the perturbed top-2 margin is printed).
+The launch counts of phases 4c, 6, 6s, 6c, 6p, 7, 7c, 6m, 7m and 7s, reset
 just before each run and read just after it, show that each path went
 through every kernel of its own (and the Llama-3-8B, Mixtral, Qwen2-7B,
 Phi-3-mini and BERT phases through no general instance); a kernel of
@@ -2327,14 +2341,23 @@ def _main_prompts(V):
 
 
 def _serve_main(model, prompts, tag, kv_cache_dtype=None, weight_dtype=None,
-                block_size=MAIN_BS, **pool_size):
+                block_size=MAIN_BS, submit_kwargs=None, stream=None,
+                requests=None, **pool_size):
     """One run of the main serving path: the 8 requests through
     ``serving.Engine`` with the launch counts set to 0 just before and
     read just after, held to exact counts, no leak, and the 128-token
     request's first token equal to a fresh prefill's through a pool of
-    the same KV dtype.  Prints the run's numbers, a digest of its greedy
-    tokens (to compare runs of two versions) and one profiled decode and
-    prefill step.  Returns (numbers, launch counts, engine)."""
+    the same KV dtype.  ``submit_kwargs`` (one dict a request) adds to
+    each submit, as phase 6s's sampling; request ``stream`` is served
+    through ``serving.sse_stream``, whose frames must decode to exactly
+    its tokens, its summary and ``[DONE]``; ``requests`` (a list)
+    receives the requests in submit order.  Prints the run's numbers, a
+    digest of its tokens (to compare runs of two versions) and one
+    profiled decode (greedy and, where one ran, sampled) and prefill
+    step, and the sampler's share of the sampled step.  Returns
+    (numbers, launch counts, engine)."""
+    from types import SimpleNamespace
+
     from paddle_tpu_torch.kernels import (chunked_prefill, launches,
                                           paged_attention)
     from paddle_tpu_torch.kernels.kv_quant import KERNEL as WRITE
@@ -2343,6 +2366,7 @@ def _serve_main(model, prompts, tag, kv_cache_dtype=None, weight_dtype=None,
 
     cfg, V, bs, new = model.config, model.config.vocab_size, block_size, \
         MAIN_NEW
+    kws = submit_kwargs or [{}] * len(prompts)
     torch.cuda.reset_peak_memory_stats()
     eng = Engine(model, ServingConfig(
         max_batch_size=8, block_size=bs, chunk_tokens=256,
@@ -2350,15 +2374,43 @@ def _serve_main(model, prompts, tag, kv_cache_dtype=None, weight_dtype=None,
         **pool_size))
     captured = _capture_steps(eng)
     torch.cuda.synchronize()
+    late = len(prompts) - 1
+    reqs = [None] * len(prompts)
+
+    def submit(i, **extra):
+        reqs[i] = eng.submit(prompts[i], max_new_tokens=new, **kws[i],
+                             **extra)
+        return reqs[i]
+
+    def step():
+        more = eng.step()
+        # the last prompt shares the first one's 512-token prefix: submit
+        # it once that prefix is registered, so it is served from the cache
+        if reqs[late] is None and reqs[0].generated:
+            submit(late)
+            return True
+        return more
+
+    def submit_streamed(prompt, **kw):
+        # sse_stream's submit: the streamed request, then the ones after
+        # it, in the order the other runs submit them
+        reqs[stream] = eng.submit(prompt, **kw)
+        for i in range(stream + 1, late):
+            submit(i)
+        return reqs[stream]
+
     launches.reset()
     t0 = time.perf_counter()
-    reqs = [eng.submit(p, max_new_tokens=new) for p in prompts[:-1]]
-    # the last prompt shares the first one's 512-token prefix: submit it
-    # once that prefix is registered, so it is served from the cache
-    while not reqs[0].generated:
-        eng.step()
-    reqs.append(eng.submit(prompts[-1], max_new_tokens=new))
-    eng.run_until_complete()
+    for i in range(late if stream is None else stream):
+        submit(i)
+    frames = None
+    if stream is not None:
+        from paddle_tpu_torch.serving import sse_stream
+        frames = list(sse_stream(
+            SimpleNamespace(submit=submit_streamed, step=step),
+            prompts[stream], max_new_tokens=new, **kws[stream]))
+    while step():
+        pass
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts, tally = launches.snapshot(), phase_counts()
@@ -2369,9 +2421,14 @@ def _serve_main(model, prompts, tag, kv_cache_dtype=None, weight_dtype=None,
                 not all(0 <= t < V for t in r.generated):
             raise AssertionError(f"{tag} {r.request_id}: {r.finish_reason}, "
                                  f"{len(r.generated)} tokens")
+    if requests is not None:
+        requests.extend(reqs)
+    if frames is not None:
+        _check_sse(tag, frames, reqs[stream])
     digest = hashlib.sha1(json.dumps(
         [[int(t) for t in r.generated] for r in reqs]).encode()).hexdigest()
-    print(f"  {tag}: greedy tokens {digest[:16]}", flush=True)
+    print(f"  {tag}: {'greedy ' if submit_kwargs is None else ''}tokens "
+          f"{digest[:16]}", flush=True)
     ctr = st["counters"]
     L = cfg.num_hidden_layers
     chunks, decodes = ctr["prefill_chunks"], ctr["decode_iterations"]
@@ -2437,7 +2494,10 @@ def _serve_main(model, prompts, tag, kv_cache_dtype=None, weight_dtype=None,
                block_bytes=st["pool"]["block_bytes"],
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     for what, unit in (("decode", "slots running"),
+                       ("sampled decode", "slots running"),
                        ("prefill", "tokens a chunk")):
+        if what not in captured:
+            continue
         n, fn, args = captured[what]
         wall, dev_ms, top, kernels = _step_profile(fn, args)
         mid = float(np.median(dev_ms))
@@ -2449,13 +2509,18 @@ def _serve_main(model, prompts, tag, kv_cache_dtype=None, weight_dtype=None,
               f"({busy})", flush=True)
         for name, ms, count in top:
             print(f"    {ms:8.3f} ms  {count:5d}x  {name[:90]}")
-        out[f"{what}_step_host_ms"] = wall
-        out[f"{what}_step_device_ms"] = dev_ms
-        out[f"{what}_step_kernels"] = kernels
+        key = what.replace(" ", "_")
+        out[f"{key}_step_host_ms"] = wall
+        out[f"{key}_step_device_ms"] = dev_ms
+        out[f"{key}_step_kernels"] = kernels
+        if what == "sampled decode":
+            out.update(_sampler_share(model, kv_cache_dtype, args, mid))
     return out, tally, eng
 
 
 def phase_main(dev):
+    """Phase 6, then 6s on the same model.  Returns phase 6's launch
+    counts and pool size."""
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
     cfg = LlamaConfig.llama3_8b(num_hidden_layers=MAIN_LAYERS)
@@ -2468,10 +2533,131 @@ def phase_main(dev):
     prompts = _main_prompts(cfg.vocab_size)
     num_blocks = 1 + sum(-(-(len(p) + MAIN_NEW) // MAIN_BS)
                          for p in prompts) + 8
-    out, counts, _ = _serve_main(model, prompts, "main",
-                                 num_blocks=num_blocks)
+    greedy = []
+    out, counts, eng = _serve_main(model, prompts, "main",
+                                   num_blocks=num_blocks, requests=greedy)
     print(f"  {json.dumps(out)}", flush=True)
+    del eng
+    gc.collect()
+    phase_main_sampled(model, prompts, num_blocks, greedy, out)
     return counts, num_blocks
+
+
+# ---------------------------------------------------------------- phase 6s
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)   # requests 0, 2, 4, 6
+STREAMED = 5                    # the request phase 6s serves through SSE
+
+
+def phase_main_sampled(model, prompts, num_blocks, greedy, main_out):
+    """Phase 6s: phase 6's model, requests, submit order and pool, with
+    requests 0, 2, 4 and 6 sampled (SAMPLED, seed 1000 + i) and request
+    STREAMED streamed through ``sse_stream``; served twice, each time on
+    a fresh engine.  Each run is held to phase 6's checks (exact launch
+    counts: the sampled step launches phase 6's kernels, its sampler is
+    torch ops), its greedy requests' tokens to phase 6's bit for bit, and
+    its SSE frames to the streamed request's tokens; the two runs must
+    give the same sampled tokens.  Prints the sampled digest, each run's
+    numbers beside phase 6's (``main_out``), one profiled sampled decode
+    step and the sampler's share of it."""
+    kws = [dict(SAMPLED, seed=1000 + i) if i % 2 == 0 else {}
+           for i in range(len(prompts))]
+    print(f"[main sampled] phase 6's model and requests; requests "
+          f"{[i for i, k in enumerate(kws) if k]} sampled ({SAMPLED}, seed "
+          f"1000 + i), request {STREAMED} streamed through sse_stream",
+          flush=True)
+    digests = []
+    for attempt in ("first", "second"):
+        tag = f"main sampled ({attempt} run)"
+        reqs = []
+        out, _, eng = _serve_main(model, prompts, tag, submit_kwargs=kws,
+                                  stream=STREAMED, requests=reqs,
+                                  num_blocks=num_blocks)
+        del eng
+        gc.collect()
+        for i, (r, g) in enumerate(zip(reqs, greedy)):
+            if not kws[i] and r.generated != g.generated:
+                raise AssertionError(
+                    f"{tag}: greedy request {i}'s tokens differ from phase "
+                    "6's")
+        digest = hashlib.sha1(json.dumps(
+            [[int(t) for t in r.generated] for i, r in enumerate(reqs)
+             if kws[i]]).encode()).hexdigest()[:16]
+        digests.append(digest)
+        out["sampled_tokens"] = digest
+        print(f"  {tag}: sampled tokens {digest}; greedy requests equal "
+              f"phase 6's; {out['tokens_per_s']:.1f} tokens/s (phase 6 "
+              f"{main_out['tokens_per_s']:.1f}), mean TTFT "
+              f"{out['mean_ttft_s']:.3f} s ({main_out['mean_ttft_s']:.3f}),"
+              f" mean TPOT {out['mean_tpot_s'] * 1e3:.1f} ms "
+              f"({main_out['mean_tpot_s'] * 1e3:.1f})", flush=True)
+        print(f"  {json.dumps(out)}", flush=True)
+    if digests[0] != digests[1]:
+        raise AssertionError(f"main sampled: the two runs sampled other "
+                             f"tokens ({digests})")
+
+
+# ---------------------------------------------------------------- phase 2d
+SAMPLER_V = 128256              # Llama-3's vocabulary
+SAMPLER_COUNTERS = 64
+# (temperature, top_k, top_p) of the 8 lanes: greedy (one with filters
+# that greedy ignores), temperature alone, with top-k, with top-p, with
+# both (phase 6s's), top-k 1, a wide top-k under a hot temperature
+SAMPLER_LANES = ((0.0, 0, 1.0), (0.8, 0, 1.0), (1.0, 50, 1.0),
+                 (0.7, 0, 0.9), (0.8, 50, 0.95), (0.0, 5, 0.5),
+                 (1.3, 1000, 0.8), (1.0, 1, 1.0))
+
+
+def phase_sampler(dev):
+    """Phase 2d: the sampler (``serving.sampling.sample_tokens``, plain
+    torch ops) on the card against the same function on the CPU, over
+    random f32 logits [8, SAMPLER_V] (N(0, 4^2), from a seed), the lanes
+    of SAMPLER_LANES and SAMPLER_COUNTERS token counters of 8 seeded
+    keys: every token must be equal.  On a mismatch it prints the
+    Gumbel-perturbed top-2 margin of the row (the CPU's filtered logits
+    plus its noise) and fails.  Prints the sampler's time on the card."""
+    from paddle_tpu_torch.serving.sampling import (filter_logits, fold_keys,
+                                                   gumbel, prng_key,
+                                                   sample_at)
+
+    g = torch.Generator().manual_seed(0)
+    logits = torch.randn((len(SAMPLER_LANES), SAMPLER_V), generator=g) * 4
+    temps = torch.tensor([t for t, _, _ in SAMPLER_LANES])
+    top_ks = torch.tensor([k for _, k, _ in SAMPLER_LANES])
+    top_ps = torch.tensor([p for _, _, p in SAMPLER_LANES])
+    keys = torch.from_numpy(np.stack([prng_key(1000 + i)
+                                      for i in range(len(SAMPLER_LANES))]))
+    cpu = (logits, temps, top_ks, top_ps, keys)
+    cuda = tuple(a.to(dev) for a in cpu)
+    print(f"[sampler] sample_at over [{len(SAMPLER_LANES)}, {SAMPLER_V}] f32 "
+          f"logits, lanes (T, top_k, top_p) {SAMPLER_LANES}, "
+          f"{SAMPLER_COUNTERS} counters: cuda against cpu", flush=True)
+    bad = []
+    for c in range(SAMPLER_COUNTERS):
+        ctr = torch.full((len(SAMPLER_LANES),), c, dtype=torch.int64)
+        want = sample_at(*cpu, ctr)
+        got = sample_at(*cuda, ctr.to(dev)).cpu()
+        for row in torch.nonzero(got != want).flatten().tolist():
+            pert = filter_logits(logits[row:row + 1], temps[row:row + 1],
+                                 top_ks[row:row + 1], top_ps[row:row + 1])
+            if temps[row] > 0:
+                pert = pert + gumbel(fold_keys(keys[row:row + 1], c),
+                                     SAMPLER_V)
+            top2 = torch.topk(pert[0], 2).values
+            bad.append((c, row, int(got[row]), int(want[row]),
+                        float(top2[0] - top2[1])))
+    if bad:
+        for c, row, a, b, m in bad:
+            print(f"  counter {c} lane {row}: cuda {a}, cpu {b}; "
+                  f"perturbed top-2 margin {m:.4e}", flush=True)
+        raise AssertionError(f"sampler: {len(bad)} of "
+                             f"{SAMPLER_COUNTERS * len(SAMPLER_LANES)} tokens "
+                             "differ between cuda and cpu")
+    ctr = torch.zeros((len(SAMPLER_LANES),), dtype=torch.int64, device=dev)
+    # few calls: its ~430 launches a call must all queue behind the sleep
+    ms = time_ms(lambda: sample_at(*cuda, ctr), iters=4, warmup=2)
+    print(f"  {SAMPLER_COUNTERS * len(SAMPLER_LANES)} tokens equal; "
+          f"sample_at {ms:.3f} ms on the card (CUDA events, launches "
+          "queued behind a sleep)", flush=True)
 
 
 def phase_moe_main(dev):
@@ -2584,11 +2770,14 @@ def phase_main_quant(dev, bf16_blocks):
 
 
 def _capture_steps(eng):
-    """Wrap the engine's two steps to keep the arguments of one call of
-    each, to replay after the run: the decode step with the most slots
-    running and a full 256-token prefill chunk."""
+    """Wrap the engine's steps to keep the arguments of one call of
+    each, to replay after the run: the decode step (greedy, and sampled
+    where the engine has one) with the most slots running, with copies
+    of the sampled step's per-slot state as it was, and a full 256-token
+    prefill chunk."""
     captured = {}
     decode, prefill = eng._decode_step, eng._prefill_step
+    sampled = getattr(eng, "_sampled_decode_step", None)
 
     def decode_spy(*args):
         running = int((eng._lengths > 0).sum())
@@ -2596,13 +2785,73 @@ def _capture_steps(eng):
             captured["decode"] = (running, decode, args)
         return decode(*args)
 
+    def sampled_spy(*args):
+        running = int((eng._lengths > 0).sum())
+        if running > captured.get("sampled decode", (0,))[0]:
+            captured["sampled decode"] = (
+                running, sampled, args[:4] + tuple(a.clone()
+                                                   for a in args[4:]))
+        return sampled(*args)
+
     def prefill_spy(*args):
         if "prefill" not in captured and args[4] == eng.chunk_tokens - 1:
             captured["prefill"] = (eng.chunk_tokens, prefill, args)
         return prefill(*args)
 
     eng._decode_step, eng._prefill_step = decode_spy, prefill_spy
+    if sampled is not None:
+        eng._sampled_decode_step = sampled_spy
     return captured
+
+
+def _sampler_share(model, kv_cache_dtype, args, step_ms):
+    """The sampler alone (``sample_at``: the fold, the filter and the
+    Gumbel argmax over [S, V] f32 logits) on a captured sampled step's
+    state and its forward pass's logits: its kernel time and count in
+    three profiles, and the median's share of the sampled step's kernel
+    time ``step_ms``."""
+    from paddle_tpu_torch.models.generation import make_paged_decode_step
+    from paddle_tpu_torch.serving.sampling import sample_at
+
+    logits = make_paged_decode_step(model, kv_cache_dtype)(*args[:4])
+    wall, dev_ms, top, kernels = _step_profile(sample_at,
+                                               (logits, *args[4:]))
+    mid = float(np.median(dev_ms))
+    share = mid / step_ms if step_ms else None
+    print(f"  sampler alone ([{logits.shape[0]}, {logits.shape[1]}] f32 "
+          f"logits): {wall:.3f} ms on the host's clock; kernels of "
+          f"{len(dev_ms)} profiles: "
+          + ", ".join(f"{ms:.3f} ms in {k}" for ms, k in
+                      zip(dev_ms, kernels))
+          + ("; share of the sampled step's kernel time "
+             f"{share:.1%}" if share is not None else ""), flush=True)
+    for name, ms, count in top:
+        print(f"    {ms:8.3f} ms  {count:5d}x  {name[:90]}")
+    return {"sampler_host_ms": wall, "sampler_device_ms": dev_ms,
+            "sampler_kernels": kernels, "sampler_share": share}
+
+
+def _check_sse(tag, frames, req):
+    """The SSE frames of a streamed request: one ``data:`` frame a token
+    (``{"token", "index"}``), in order, equal to its tokens, then its
+    summary, then ``[DONE]``."""
+    from paddle_tpu_torch.serving import DONE_FRAME
+
+    body = []
+    for f in frames[:-1]:
+        if not (f.startswith("data: ") and f.endswith("\n\n")):
+            raise AssertionError(f"{tag}: malformed SSE frame {f!r}")
+        body.append(json.loads(f[len("data: "):]))
+    want = [{"token": int(t), "index": i}
+            for i, t in enumerate(req.generated)]
+    summary = {"finish_reason": req.finish_reason,
+               "num_tokens": len(req.generated),
+               "request_id": req.request_id}
+    if frames[-1] != DONE_FRAME or body != want + [summary]:
+        raise AssertionError(f"{tag}: the SSE frames of {req.request_id} "
+                             "are not its tokens, summary and [DONE]")
+    print(f"  {tag}: {req.request_id} streamed {len(frames)} SSE frames: "
+          f"{len(want)} tokens, the summary and [DONE]", flush=True)
 
 
 def _step_profile(fn, args, reps=5, top=8, profiles=3):
@@ -3164,6 +3413,7 @@ def main() -> int:
     free()
     static_entries = phase_static_kernels(dev)
     free()
+    phase_sampler(dev)
     launches.reset()
     phase_tiny(dev)
     phase_tiny_train(dev)

@@ -4,6 +4,9 @@
 - :mod:`cache`     — :class:`BlockKVPool`, the paged cache memory manager
 - :mod:`scheduler` — FCFS + fairness policy, admission control, preemption
 - :mod:`metrics`   — TTFT/TPOT/queue-time counters + engine gauges
+- :mod:`sampling`  — seeded temperature/top-k/top-p (:class:`SamplingParams`)
+- :mod:`stream`    — SSE framing over ``submit(on_token=...)``
+- :mod:`endpoint`  — Predictor-shaped :class:`Endpoint` front door
 
 Quick start::
 
@@ -18,14 +21,18 @@ Quick start::
 from __future__ import annotations
 
 from .cache import BlockKVPool, PoolExhausted
+from .endpoint import Endpoint
 from .engine import Engine, ServingConfig
 from .metrics import RequestTimeline, ServingMetrics
+from .sampling import SamplingParams
 from .scheduler import (FINISHED, PREEMPTED, PREFILLING, QUEUED, RUNNING,
                         AdmissionError, QueueFull, Request, Scheduler)
+from .stream import DONE_FRAME, sse_event, sse_stream, stream_events
 
 __all__ = [
-    "Engine", "ServingConfig", "BlockKVPool", "PoolExhausted", "Scheduler",
-    "Request", "AdmissionError", "QueueFull", "ServingMetrics",
-    "RequestTimeline", "QUEUED", "PREFILLING", "RUNNING", "PREEMPTED",
-    "FINISHED",
+    "Engine", "ServingConfig", "Endpoint", "BlockKVPool", "PoolExhausted",
+    "Scheduler", "Request", "AdmissionError", "QueueFull", "ServingMetrics",
+    "RequestTimeline", "SamplingParams", "sse_event", "sse_stream",
+    "stream_events", "DONE_FRAME", "QUEUED", "PREFILLING", "RUNNING",
+    "PREEMPTED", "FINISHED",
 ]

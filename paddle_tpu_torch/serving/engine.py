@@ -12,22 +12,26 @@ per-slot frontiers [S].  Idle and mid-prefill slots decode into the
 reserved garbage block instead of branching.  Requests enter and leave
 at token granularity.
 
-This engine serves greedy decoding through the fused steps (the mode the
-JAX engine picks on its accelerator), from full-precision or quantized
-KV pools (``kv_cache_dtype`` ``"int8"``/``"fp8"``, sized by
-``num_blocks`` or by a ``kv_pool_bytes`` budget) and with full-precision
-or int8 weights (``weight_dtype``).  Options of later slices raise
-``NotImplementedError`` when set: speculative decoding, sampling, a
-mesh, the startup X-ray / shard-plan audits, streaming callbacks, and
-the overload controls (request deadlines, priorities and load shedding;
-the watchdog and degradation ladder are not part of this engine yet).
+This engine serves through the fused steps (the mode the JAX engine
+picks on its accelerator), from full-precision or quantized KV pools
+(``kv_cache_dtype`` ``"int8"``/``"fp8"``, sized by ``num_blocks`` or by
+a ``kv_pool_bytes`` budget) and with full-precision or int8 weights
+(``weight_dtype``).  Requests decode greedily or sample (temperature,
+top-k, top-p, a per-request seed: ``serving/sampling.py``), and stream
+their tokens through ``on_token``.  Options of later slices raise
+``NotImplementedError`` when set: speculative decoding, a mesh, the
+startup X-ray / shard-plan audits, and the overload controls (request
+and token deadlines, priorities, load shedding, the watchdog and the
+degradation ladder).
 
-Correctness contract: greedy outputs are token-exact with the JAX
-engine on the same weights (tests/test_torch_serving.py), across
-preemption and with the prefix cache on or off.
+Correctness contract: outputs are token-exact with the JAX engine on
+the same weights (tests/test_torch_serving.py,
+tests/test_torch_sampled_serving.py), greedy and sampled under the same
+seeds, across preemption and with the prefix cache on or off.
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
@@ -43,17 +47,32 @@ from ..models.generation import (_cache_dims, make_chunked_prefill_step,
 from ..quantization.serving import quantize_model_weights
 from .cache import BlockKVPool, PoolExhausted
 from .metrics import ServingMetrics
+from .sampling import make_sampled_decode_step, resolve_sampling, sample_at
 from .scheduler import (FINISHED, PREFILLING, RUNNING, AdmissionError,
                         Request, Scheduler)
 
-# ServingConfig fields of later slices: each must stay at its default
-LATER_SLICE_OPTIONS = ("speculative", "mesh", "xray_on_start", "shardplan")
+# ServingConfig fields of later slices, each with the ROADMAP item that
+# ports it: a value other than the field's default raises
+_OVERLOAD = "A1's overload controller"
+LATER_SLICE_OPTIONS = {
+    "speculative": "A1's speculative decoding",
+    "mesh": "A3's mesh runtime",
+    "xray_on_start": "A5's xray", "hbm_budget_bytes": "A5's xray",
+    "xray_chip": "A5's xray", "shardplan": "A5's shard-plan audit",
+    "enable_load_shedding": _OVERLOAD, "shed_safety_factor": _OVERLOAD,
+    "kv_high_watermark": _OVERLOAD, "kv_low_watermark": _OVERLOAD,
+    "watchdog_budget_mult": _OVERLOAD, "watchdog_floor_s": _OVERLOAD,
+    "step_max_retries": _OVERLOAD, "step_retry_backoff_s": _OVERLOAD,
+    "health_recovery_steps": _OVERLOAD,
+}
 
 
 @dataclass
 class ServingConfig:
     """Engine knobs (the reference's names and defaults)."""
 
+    # a replica's name in the reference's fleets; taken and unused here
+    name: str = ""
     max_batch_size: int = 8       # decode-bucket slots
     block_size: int = 16          # KV-cache tokens per block
     num_blocks: int = 128         # pool size incl. reserved block 0
@@ -64,6 +83,9 @@ class ServingConfig:
     # max prefill tokens per iteration before decode runs again; None =
     # one chunk's worth
     prefill_token_budget: Optional[int] = None
+    # the reference's check that a compiled step never retraces: eager
+    # PyTorch steps have no jit cache to retrace, so any value is taken
+    strict_no_retrace: bool = True
     # the port serves the fused steps only: None or True
     fused_kernels: Optional[bool] = None
     # KV pool storage: None full precision; "int8"/"fp8" int8 codes plus
@@ -76,28 +98,49 @@ class ServingConfig:
     # a KV byte budget: when set, num_blocks is derived from it and the
     # pool's block bytes (dtype-aware, scale rows included)
     kv_pool_bytes: Optional[int] = None
-    # ---- later slices: setting any of these raises NotImplementedError
+    # ---- later slices (LATER_SLICE_OPTIONS): only the defaults are taken
     speculative: Any = None
     mesh: Any = None
     xray_on_start: bool = False
+    hbm_budget_bytes: Optional[int] = None
+    xray_chip: str = "v5e"
     shardplan: Any = None
+    enable_load_shedding: bool = True
+    shed_safety_factor: float = 1.0
+    kv_high_watermark: float = 1.0
+    kv_low_watermark: float = 0.75
+    watchdog_budget_mult: float = 20.0
+    watchdog_floor_s: float = 30.0
+    step_max_retries: int = 2
+    step_retry_backoff_s: float = 0.05
+    health_recovery_steps: int = 3
+
+
+_DEFAULTS = {f.name: f.default for f in dataclasses.fields(ServingConfig)}
 
 
 class Engine:
     """Continuous-batching engine over a ``LlamaForCausalLM`` of this
-    package; runs on the model's device."""
+    package; runs on the model's device.  ``generator`` is the CPU
+    ``torch.Generator`` from which a sampled request without a seed
+    draws its key (None: a ``torch.Generator()`` at its fixed default
+    seed, so such runs repeat)."""
 
-    def __init__(self, model, config: Optional[ServingConfig] = None):
+    def __init__(self, model, config: Optional[ServingConfig] = None,
+                 generator: Optional[torch.Generator] = None):
         self.model = model
         self.config = cfg = config or ServingConfig()
-        later = [name for name in LATER_SLICE_OPTIONS
-                 if getattr(cfg, name) not in (None, False)]
+        later = [f"{name} ({item})"
+                 for name, item in LATER_SLICE_OPTIONS.items()
+                 if getattr(cfg, name) != _DEFAULTS[name]]
         if cfg.fused_kernels is False:
             later.append("fused_kernels=False (the unfused path)")
         if later:
             raise NotImplementedError(
                 f"ServingConfig option(s) {', '.join(later)} are not "
                 "ported to paddle_tpu_torch yet")
+        self.generator = generator if generator is not None \
+            else torch.Generator()
         self.device = model.device
         self.kv_cache_dtype = resolve_kv_cache_dtype(cfg.kv_cache_dtype)
         if cfg.weight_dtype:
@@ -137,8 +180,20 @@ class Engine:
                                       np.int32)
         self._lengths = np.zeros((S,), np.int32)
         self._pending = np.zeros((S,), np.int32)  # next token to decode
+        # per-slot sampling state, fixed-shape inputs of the sampled step
+        # on the device: written at a sampled request's first token and
+        # cleared when it leaves its slot.  Greedy slots keep temperature
+        # 0 (the step's argmax lane), so a mixed bucket is one step
+        dev = self.device
+        self._temps = torch.zeros((S,), dtype=torch.float32, device=dev)
+        self._top_ks = torch.zeros((S,), dtype=torch.int64, device=dev)
+        self._top_ps = torch.ones((S,), dtype=torch.float32, device=dev)
+        self._keys = torch.zeros((S, 2), dtype=torch.int64, device=dev)
+        self._counters = torch.zeros((S,), dtype=torch.int64, device=dev)
         self._decode_step = make_paged_decode_step(model,
                                                    self.kv_cache_dtype)
+        self._sampled_decode_step = make_sampled_decode_step(
+            model, self.kv_cache_dtype)
         self._prefill_step = make_chunked_prefill_step(model,
                                                        self.kv_cache_dtype)
         self._finished: Dict[str, Request] = {}
@@ -160,22 +215,26 @@ class Engine:
                ) -> Request:
         """Queue one request and return its :class:`Request` handle.
         Raises :class:`AdmissionError` when the queue is full or the
-        sequence can never fit the pool.  Sampling arguments, streaming
-        callbacks, deadlines and priorities belong to later slices and
-        raise ``NotImplementedError``."""
-        if (temperature or do_sample or top_k or top_p != 1.0
-                or seed is not None or sampling is not None):
+        sequence can never fit the pool.
+
+        Sampling: ``sampling=SamplingParams(...)`` (or a dict of its
+        fields), or ``temperature``/``do_sample``/``top_k``/``top_p``/
+        ``seed``; temperature 0 stays greedy.  A sampled request's key
+        comes from its seed (or the engine's generator) and is folded
+        with the token index on the device, so its tokens do not depend
+        on batching or preemption.  ``on_token`` fires once per token,
+        in order; a callback that raises retires only its request, with
+        ``finish_reason="error"``.  Deadlines and priorities belong to
+        the overload controller of a later slice and raise
+        ``NotImplementedError``."""
+        if token_deadline_s is not None or deadline_s is not None \
+                or priority != 0:
             raise NotImplementedError(
-                "sampled decoding is not ported to paddle_tpu_torch yet; "
-                "this engine decodes greedily")
-        if on_token is not None or token_deadline_s is not None:
-            raise NotImplementedError(
-                "streaming (on_token, token_deadline_s) is not ported to "
-                "paddle_tpu_torch yet")
-        if deadline_s is not None or priority != 0:
-            raise NotImplementedError(
-                "overload control (deadline_s, priority) is not ported to "
-                "paddle_tpu_torch yet")
+                "overload control (token_deadline_s, deadline_s, priority)"
+                " is not ported to paddle_tpu_torch yet")
+        params = resolve_sampling(sampling, temperature=temperature,
+                                  do_sample=do_sample, top_k=top_k,
+                                  top_p=top_p, seed=seed)
         prompt = np.asarray(
             prompt.cpu().numpy() if isinstance(prompt, torch.Tensor)
             else prompt, np.int32).reshape(-1)
@@ -184,7 +243,11 @@ class Engine:
             eos_token_id=eos_token_id,
             stop_sequences=normalize_stop_sequences(stop_sequences,
                                                     tokenizer),
-            request_id=request_id or f"req-{next(self._ids)}")
+            request_id=request_id or f"req-{next(self._ids)}",
+            sampling=params,
+            sampling_key=None if params is None
+            else params.base_key(self.generator),
+            on_token=on_token)
         if req.prompt_len + req.max_new_tokens > self.max_model_len:
             self.metrics.on_reject()
             raise AdmissionError(
@@ -197,6 +260,8 @@ class Engine:
             self.metrics.on_reject()
             raise
         self.metrics.on_submit(req.request_id)
+        if req.on_token is not None:
+            self.metrics.on_stream_start()
         return req
 
     # ------------------------------------------------------------- step
@@ -310,15 +375,35 @@ class Engine:
         req.prefill_chunks += 1
         if req.prefill_pos < req.prompt_len:
             return
-        # prompt complete: the last chunk's logits row is the first token
-        first_tok = int(torch.argmax(last[0]).item())
+        # prompt complete: the last chunk's logits row gives the first
+        # token, a sampled request's at token index 0 of its key (its
+        # slot's counter is 0: a slot's sampling state is clear while no
+        # sampled request holds it)
+        slot = req.slot
+        params = req.sampling
+        if params is not None:
+            self._temps[slot] = params.temperature
+            self._top_ks[slot] = params.top_k
+            self._top_ps[slot] = params.top_p
+            self._keys[slot] = torch.from_numpy(req.sampling_key)
+            one = slice(slot, slot + 1)
+            first = sample_at(last, self._temps[one], self._top_ks[one],
+                              self._top_ps[one], self._keys[one],
+                              self._counters[one])[0]
+            self._counters[slot] = 1
+        else:
+            first = torch.argmax(last[0])
+        first_tok = int(first.item())
         req.state = RUNNING
         req.generated = [first_tok]
-        self._lengths[req.slot] = req.prompt_len
-        self._pending[req.slot] = first_tok
+        self._lengths[slot] = req.prompt_len
+        self._pending[slot] = first_tok
         self.metrics.on_first_token(req.request_id)
         self.metrics.on_prefill_complete(req.prefill_chunks)
         self.pool.register_prefix(req.request_id, req.prompt, req.blocks)
+        if not self._emit_token(req, first_tok):
+            self._retire(req, "error")
+            return
         self._maybe_retire(req)
 
     # ---------------------------------------------------------- decode
@@ -374,14 +459,23 @@ class Engine:
         self.pool.free_request(victim.request_id)
         victim.preemptions += 1
         self.metrics.on_preempt(victim.request_id)
-        self._clear_slot(slot)
+        self._clear_slot(slot, victim)
         self.scheduler.requeue_preempted(victim)
 
-    def _clear_slot(self, slot: int):
+    def _clear_slot(self, slot: int, req: Request):
         self._slots[slot] = None
         self._block_tables[slot] = 0
         self._lengths[slot] = 0
         self._pending[slot] = 0
+        if req.sampling is not None:
+            self._clear_sampling_slot(slot)
+
+    def _clear_sampling_slot(self, slot: int):
+        self._temps[slot] = 0.0
+        self._top_ks[slot] = 0
+        self._top_ps[slot] = 1.0
+        self._keys[slot] = 0
+        self._counters[slot] = 0
 
     def _decode_block_view(self):
         """Block tables with mid-prefill slots masked to the garbage
@@ -395,16 +489,35 @@ class Engine:
                     bt[i] = 0
         return bt
 
+    def _emit_token(self, req: Request, tok: int) -> bool:
+        """Fire the request's streaming callback with ``tok``.  Returns
+        False when the callback raised: the consumer failed, so the
+        caller retires that request as an error and the engine keeps
+        serving the others."""
+        if req.on_token is None:
+            return True
+        try:
+            req.on_token(tok)
+        except Exception as e:  # noqa: BLE001 (consumer isolation)
+            req.error = f"on_token callback: {type(e).__name__}: {e}"
+            return False
+        return True
+
     def _decode_iteration(self):
         self._ensure_blocks()
         active = [r for r in self._slots
                   if r is not None and r.state == RUNNING]
         if not active:
             return
-        logits = self._decode_step(
-            self._dev(self._pending[:, None]), self.pool.layers,
-            self._dev(self._decode_block_view()), self._dev(self._lengths))
-        next_toks = torch.argmax(logits, dim=-1).cpu().numpy()
+        tokens = self._dev(self._pending[:, None])
+        tables = self._dev(self._decode_block_view())
+        lengths = self._dev(self._lengths)
+        if any(r.sampling is not None for r in active):
+            next_toks = self._sampled_iteration(tokens, tables, lengths)
+        else:
+            logits = self._decode_step(tokens, self.pool.layers, tables,
+                                       lengths)
+            next_toks = torch.argmax(logits, dim=-1).cpu().numpy()
         self.metrics.on_decode_iteration(
             len(active), self.config.max_batch_size,
             self.pool.utilization())
@@ -414,7 +527,22 @@ class Engine:
             tok = int(next_toks[slot])
             req.generated.append(tok)
             self._pending[slot] = tok
+            if not self._emit_token(req, tok):
+                self._retire(req, "error")
+                continue
             self._maybe_retire(req)
+
+    def _sampled_iteration(self, tokens, tables, lengths) -> np.ndarray:
+        """The bucket's decode step with the fold, the filter and the
+        Gumbel argmax on the device, run whenever an active slot
+        samples: greedy slots ride along on the temperature-0 argmax
+        lane.  Each sampled slot's counter then moves to its next token
+        index on the device.  Returns the [S] next tokens."""
+        toks = self._sampled_decode_step(
+            tokens, self.pool.layers, tables, lengths, self._temps,
+            self._top_ks, self._top_ps, self._keys, self._counters)
+        self._counters += self._temps > 0
+        return toks.cpu().numpy()
 
     # ----------------------------------------------------------- retire
     def _maybe_retire(self, req: Request):
@@ -433,8 +561,10 @@ class Engine:
         self.pool.free_request(req.request_id)
         req.slot = None
         if slot is not None:
-            self._clear_slot(slot)
+            self._clear_slot(slot, req)
         self.metrics.on_finish(req.request_id, req.num_generated, reason)
+        if req.on_token is not None:
+            self.metrics.on_stream_end()
         self._finished[req.request_id] = req
 
     # ------------------------------------------------------------ misc

@@ -53,6 +53,10 @@ class ServingMetrics:
         self.submitted = 0
         self.rejected = 0
         self.completed = 0          # every retirement, any finish_reason
+        self.failed = 0             # retirements with finish_reason error
+        # tokens of requests that finished as asked (eos, stop, length)
+        self.goodput_tokens = 0
+        self.stream_active = 0      # requests with on_token in flight
         self.preempted = 0          # preemption events
         self.tokens_generated = 0
         self.decode_iterations = 0
@@ -117,11 +121,21 @@ class ServingMetrics:
 
     def on_finish(self, request_id: str, tokens: int, reason: str):
         self.completed += 1
+        if reason == "error":
+            self.failed += 1
         self.tokens_generated += tokens
+        if reason in ("eos", "stop", "length"):
+            self.goodput_tokens += tokens
         t = self.requests[request_id]
         t.finished_ns = _now_ns()
         t.tokens_generated = tokens
         t.finish_reason = reason
+
+    def on_stream_start(self):
+        self.stream_active += 1
+
+    def on_stream_end(self):
+        self.stream_active -= 1
 
     def on_decode_iteration(self, active: int, batch_size: int,
                             cache_utilization: float):
@@ -140,6 +154,7 @@ class ServingMetrics:
                 "requests_submitted": self.submitted,
                 "requests_rejected": self.rejected,
                 "requests_completed": self.completed,
+                "requests_failed": self.failed,
                 "preemptions": self.preempted,
                 "tokens_generated": self.tokens_generated,
                 "decode_iterations": self.decode_iterations,
@@ -148,8 +163,10 @@ class ServingMetrics:
                 "prefix_cache_misses": self.prefix_cache_misses,
                 "prefix_cache_evictions": self.prefix_cache_evictions,
                 "prefill_chunks": self.prefill_chunks,
+                "goodput_tokens": self.goodput_tokens,
             },
             "gauges": {
+                "stream_active": self.stream_active,
                 "batch_occupancy": self.last_batch_occupancy,
                 "batch_occupancy_avg": round(self._occupancy_sum / n, 4),
                 "cache_utilization": self.last_cache_utilization,

@@ -8,7 +8,9 @@ sequence needs a block and the pool is dry, the youngest running request
 is preempted: evicted and requeued at the head with its original
 ordinal, recomputed from its prompt on re-admission, which under greedy
 decoding leaves its output unchanged.  Termination uses the same
-``match_stop`` as generation, plus eos and max_new_tokens.  The
+``match_stop`` as generation, plus eos and max_new_tokens.  A sampled
+request's tokens are drawn from its own key at each token index, so
+recomputing it after preemption gives the same tokens too.  The
 reference's priorities and deadlines belong to its overload controls,
 which a later slice ports.
 """
@@ -51,13 +53,21 @@ class Request:
     eos_token_id: Optional[int] = None
     stop_sequences: List[List[int]] = field(default_factory=list)
     request_id: str = ""
+    # sampling spec (serving/sampling.SamplingParams) or None for greedy;
+    # sampling_key is the request's base key ([2] int64 of uint32 words),
+    # fixed at submit so that a preempted request draws the same tokens
+    sampling: Optional[object] = None
+    sampling_key: Optional[np.ndarray] = field(default=None, repr=False)
+    # streaming (serving/stream.py): called with each token, in order
+    on_token: Optional[object] = field(default=None, repr=False)
     # runtime (engine-owned)
     ordinal: int = field(default_factory=lambda: next(_ordinal))
     state: str = QUEUED
     slot: Optional[int] = None
     blocks: List[int] = field(default_factory=list)
     generated: List[int] = field(default_factory=list)
-    finish_reason: Optional[str] = None     # eos/stop/length
+    finish_reason: Optional[str] = None     # eos/stop/length/error
+    error: Optional[str] = None             # set with finish_reason error
     preemptions: int = 0
     prefill_pos: int = 0                    # prompt tokens already in KV
     prefill_chunks: int = 0

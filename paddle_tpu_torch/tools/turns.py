@@ -11,12 +11,14 @@ so that its own ``chip_smoke.py`` and package are the ones imported and
 its kernels are built into its own ``build/``.  The process builds every
 kernel (phase 1) and then runs the named phases in order: ``kernels``
 (2), ``train_kernels`` (3), ``moe_kernels`` (2m), ``c1_kernels`` (2c),
-``static_kernels`` (2s), ``main`` (6, bf16 serving), ``main_quant`` (6
-from quantized pools; runs ``main`` first for its pool size when it is
-not named), ``tiny_c1`` (4c), ``c1_main`` (6c), ``phi3_main`` (6p),
-``moe_main`` (6m), ``train_phi3`` (7c); a checkout whose
-``chip_smoke.py`` lacks a phase skips it, except ``train_phi3`` and
-``phi3_main``, which such a checkout runs from this tool's own
+``static_kernels`` (2s), ``sampler`` (2d), ``main`` (6, bf16 serving,
+and 6s, the same requests sampled and streamed, where the checkout has
+it),
+``main_quant`` (6 from quantized pools; runs ``main`` first for its pool
+size when it is not named), ``tiny_c1`` (4c), ``c1_main`` (6c),
+``phi3_main`` (6p), ``moe_main`` (6m), ``train_phi3`` (7c); a checkout
+whose ``chip_smoke.py`` lacks a phase skips it, except ``train_phi3``
+and ``phi3_main``, which such a checkout runs from this tool's own
 ``chip_smoke.py`` over its own package, expecting the launches its own
 routes give (``attention_counters``; ``_serve_main``'s counts, without
 6p's instance checks), so that the step time of an older package is
@@ -35,7 +37,8 @@ the same run: for each request whose tokens differ it prints the first
 differing token and the top-2 logit margin of the logits each checkout
 took that token from (the engine's own prefill or decode step; the two
 checkouts agree on every earlier token), each against the bf16
-tolerance at that token, two bf16 ulps of its top logit.
+tolerance at that token, two bf16 ulps of its top logit (nan for a
+token of a sampled decode step, which returns no logits).
 """
 from __future__ import annotations
 
@@ -46,7 +49,7 @@ import sys
 from pathlib import Path
 
 PHASES = ("kernels", "train_kernels", "moe_kernels", "c1_kernels",
-          "static_kernels", "main", "main_quant", "tiny_c1", "c1_main",
+          "static_kernels", "sampler", "main", "main_quant", "tiny_c1", "c1_main",
           "phi3_main", "moe_main", "train_phi3")
 
 CHILD = """
@@ -110,14 +113,19 @@ def prefill_chunk_(self, req):
 def decode_iteration_(self):
     active = [(r, r.slot) for r in self._slots
               if r is not None and r.state == "running"]
+    self.turns_logits = None
     decode_iteration(self)
     if active:
-        rows = top2(self.turns_logits)
+        # a sampled step returns tokens, not logits: no margin for them
+        rows = top2(self.turns_logits) if self.turns_logits is not None \
+            else [None] * len(self._slots)
         for r, slot in active:
             r.turns_top2.append(rows[slot])
 
 
 def margin(pair):
+    if pair is None:
+        return float("nan"), float("nan")
     top, second = pair
     ulp = 2.0 ** (math.floor(math.log2(max(abs(top), 1e-30))) - 7)
     return top - second, 2 * ulp

@@ -1086,6 +1086,54 @@ class TestCudaEngine:
         for a, b in zip(*outs):
             np.testing.assert_array_equal(a, b)
 
+    def test_tiny_sampled_engine_tokens_match_cpu(self, cuda_device):
+        """A bucket of sampled and greedy requests, one streamed: the
+        tokens on the card equal the CPU's (the sampler's keys are
+        integer arithmetic; a token could differ only at a perturbed
+        top-2 margin of a rounding, which these seeds do not meet)."""
+        from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+        from paddle_tpu_torch.serving import Engine, ServingConfig
+
+        cfg = LlamaConfig.tiny()
+        cpu = LlamaForCausalLM(cfg, device="cpu", seed=0)
+        gpu = LlamaForCausalLM(cfg, device=cuda_device, seed=None)
+        gpu.load_state_dict(cpu.state_dict())
+        rng = np.random.RandomState(0)
+        prompts = [rng.randint(1, 256, size=n) for n in (5, 19, 33, 8)]
+        kws = [dict(temperature=0.8, top_k=50, top_p=0.95, seed=1),
+               {}, dict(temperature=1.0, seed=2), {}]
+        outs = []
+        for model in (cpu, gpu):
+            eng = Engine(model, ServingConfig(max_batch_size=4, block_size=8,
+                                              num_blocks=16, chunk_tokens=16))
+            streamed = []
+            reqs = [eng.submit(p, max_new_tokens=6, **kw)
+                    for p, kw in zip(prompts, kws)]
+            reqs.append(eng.submit(prompts[0], max_new_tokens=6,
+                                   on_token=streamed.append, **kws[2]))
+            eng.run_until_complete()
+            eng.pool.check_leaks()
+            assert streamed == reqs[-1].generated
+            outs.append([r.generated for r in reqs])
+        assert outs[1] == outs[0]
+
+    def test_sampler_matches_cpu(self, cuda_device):
+        from paddle_tpu_torch.serving.sampling import prng_key, sample_at
+
+        g = torch.Generator().manual_seed(0)
+        logits = torch.randn((6, 4096), generator=g) * 4
+        temps = t(np.array([0.0, 0.8, 1.0, 0.7, 0.8, 1.3], np.float32))
+        top_ks = t(np.array([0, 0, 50, 0, 50, 1000]))
+        top_ps = t(np.array([1.0, 1.0, 1.0, 0.9, 0.95, 0.8], np.float32))
+        keys = t(np.stack([prng_key(s) for s in range(6)]))
+        cpu = (logits, temps, top_ks, top_ps, keys)
+        gpu = tuple(a.to(cuda_device) for a in cpu)
+        for c in range(16):
+            ctr = torch.full((6,), c)
+            np.testing.assert_array_equal(
+                sample_at(*gpu, ctr.to(cuda_device)).cpu(),
+                sample_at(*cpu, ctr))
+
 
 def _attn_inputs(B, H, KVH, Tq, Tk, D, dtype, device, seed=0):
     g = torch.Generator().manual_seed(seed)

@@ -26,7 +26,7 @@ from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
 from paddle_tpu_torch.nn.layer import EMPTY, Embedding, LayerNorm, Linear
 from paddle_tpu_torch.nn.transformer import (MultiHeadAttention,
                                              TransformerEncoderLayer)
-from paddle_tpu_torch.serving import Engine, ServingConfig
+from paddle_tpu_torch.serving import Endpoint, Engine, ServingConfig
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "paddle_tpu_torch"
@@ -113,6 +113,10 @@ class TestDevice:
         model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
         assert model.lm_head.weight.device.type == "cpu"
         assert Engine(model).pool.layers[0][0].device.type == "cpu"
+        # the sampled step's per-slot state lives on the model's device
+        eng = Endpoint(model).engine
+        assert {t.device.type for t in (eng._temps, eng._top_ks, eng._top_ps,
+                                        eng._keys, eng._counters)} == {"cpu"}
 
     @pytest.mark.parametrize("build", [
         lambda: Linear(64, 32, device="cpu"),
@@ -151,14 +155,43 @@ class TestLaterSliceOptionsRaise:
             Engine(tiny_model, ServingConfig(**{option: value}))
 
     @pytest.mark.parametrize("kwargs", [
-        {"temperature": 0.8}, {"do_sample": True}, {"top_k": 5},
-        {"top_p": 0.9}, {"seed": 3}, {"on_token": print},
         {"token_deadline_s": 1.0}, {"deadline_s": 5.0}, {"priority": 1}])
     def test_submit(self, tiny_model, kwargs):
         eng = Engine(tiny_model, ServingConfig())
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match=next(iter(kwargs))):
             eng.submit(np.arange(1, 5), max_new_tokens=2, **kwargs)
         assert not eng.has_work()
+
+
+class TestSubmitSamplingAndStreaming:
+    """The submit arguments that raised until sampling and streaming
+    were ported, each with its behaviour now: a temperature (or
+    ``do_sample``, temperature 1) samples from a seeded key; ``top_k``,
+    ``top_p`` or ``seed`` alone stay greedy; ``on_token`` streams."""
+
+    @pytest.mark.parametrize("kwargs,temperature", [
+        ({"temperature": 0.8, "seed": 1}, 0.8), ({"do_sample": True}, 1.0),
+        ({"top_k": 5}, None), ({"top_p": 0.9}, None), ({"seed": 3}, None),
+        ({"on_token": "list"}, None)])
+    def test_submit(self, tiny_model, kwargs, temperature):
+        prompt = np.arange(1, 5)
+        eng = Engine(tiny_model, ServingConfig())
+        greedy = eng.submit(prompt, max_new_tokens=6)
+        got = []
+        if kwargs.get("on_token") == "list":
+            kwargs = {"on_token": got.append}
+        req = eng.submit(prompt, max_new_tokens=6, **kwargs)
+        eng.run_until_complete()
+        eng.pool.check_leaks()
+        assert req.finish_reason == "length" and len(req.generated) == 6
+        if temperature is None:
+            assert req.sampling is None
+            assert req.generated == greedy.generated
+        else:
+            assert req.sampling.temperature == temperature
+            assert req.sampling_key is not None
+        if got:
+            assert got == req.generated
 
 
 class TestChipSmokeNeedsAGpu:
