@@ -47,6 +47,15 @@ Phases, each of which must pass (nothing is caught):
      summary and [DONE], both runs give the same sampled tokens, and
      phase 6's launch counts hold; one sampled decode step is profiled,
      and the sampler alone beside it;
+  6g. CUDA graphs: phase 6's model behind an engine that serves 4 of
+     its requests (2 sampled), then one greedy; each of the three
+     captured steps (decode, prefill chunk, sampled decode) replayed on
+     the inputs of its last real call and run eagerly on a copy of the
+     pools: outputs and pools equal bit for bit, the same launches
+     counted; a second engine captures and counts its own graphs and
+     gives the same tokens; a rebound pool raises RetraceError under
+     strict_no_retrace and is one counted retrace a step without it,
+     the tokens after it those of an engine whose pool stayed put;
   7. main training: Llama-3-8B width, 8 of its 32 layers, bf16, one
      [1, 8192] batch, AdamW(1e-4): 2 warm-up and 5 timed steps, one
      profiled step and one eval forward without grad; finite, falling
@@ -156,9 +165,16 @@ the JSON line that its path launched no time fails the run.  Kernels
 with several compiled instances (the paged decode, the chunked prefill
 and the attention: widths, producers) are counted by instance too, and
 such a row reports the launches of its own instance (its "instance"
-key).  Each serving run also prints the kernel time and count of three
-profiles of its decode step and of its
-prefill chunk (torch.profiler).
+key).  Each serving run (4, 4m, 4c, 6 and its quantized runs, 6s, 6c,
+6p, 6m) serves through CUDA graphs of its steps (the main runs capture
+them before their timed run, as a server does at start-up, on inputs
+that address only the garbage block); it asserts one graph of the
+decode step, one of the prefill step and one (6s) or none of the
+sampled decode step after its run, and prints each graph's capture
+seconds.  Each main run also prints its decode step's and prefill
+chunk's host-clock time, the time between CUDA events around one
+replay, and the kernel time and count of three profiles
+(torch.profiler).
 
 Prints the card's name and power limit, then one JSON line of the
 kernels' numbers, then as its last line
@@ -167,6 +183,7 @@ Exits non-zero, printing no result, without a CUDA device.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import hashlib
 import itertools
@@ -1878,6 +1895,7 @@ def _prefix_logits(model, tokens, block_size, chunk, kv_cache_dtype=None):
     bt = torch.zeros((1, nbs), dtype=torch.int32, device=dev)
     bt[0, :n] = torch.arange(1, n + 1, dtype=torch.int32)
     step = make_chunked_prefill_step(model, kv_cache_dtype)
+    step = getattr(step, "eager", step)      # a reference: no graph
     toks = np.asarray(tokens, np.int32)
     for start in range(0, len(toks), chunk):
         part = toks[start:start + chunk]
@@ -1936,7 +1954,7 @@ def _tiny_run(dev, kv_cache_dtype, weight_dtype, cfg=None, block_size=8,
                rng.randint(1, 256, size=30), rng.randint(1, 256, size=11),
                np.concatenate([prefix, rng.randint(1, 256, size=9)]),
                rng.randint(1, 256, size=40), rng.randint(1, 256, size=3)]
-    outs, stats = {}, {}
+    outs, stats, graphs = {}, {}, {}
     for name, model in (("cpu", cpu_model), ("cuda", cuda_model)):
         eng = Engine(model, ServingConfig(
             max_batch_size=4, block_size=block_size,
@@ -1947,13 +1965,15 @@ def _tiny_run(dev, kv_cache_dtype, weight_dtype, cfg=None, block_size=8,
         eng.pool.check_leaks()
         outs[name] = [r.generated for r in reqs]
         stats[name] = eng.stats()["counters"]
+        graphs[name] = _graph_sizes(eng, f"tiny {name}", sampled=False)
     c = stats["cuda"]
     moe = f", {cfg.moe_num_experts} experts" if cfg.moe_num_experts else ""
     dt = "f32" if cfg.dtype == "float32" else "bf16"
     print(f"[tiny{moe and ' moe'}] {dt}{moe}, KV {kv_cache_dtype or dt}, "
           f"weights {weight_dtype or dt}, pages of {block_size}, "
           f"{len(prompts)} requests: preemptions {c['preemptions']}, "
-          f"prefix-cache hits {c['prefix_cache_hits']}", flush=True)
+          f"prefix-cache hits {c['prefix_cache_hits']}; {graphs['cuda']}",
+          flush=True)
     if c["preemptions"] == 0 or c["prefix_cache_hits"] == 0:
         raise AssertionError("the tiny phase must preempt and hit the "
                              f"prefix cache: {c}")
@@ -2373,6 +2393,11 @@ def _serve_main(model, prompts, tag, kv_cache_dtype=None, weight_dtype=None,
         kv_cache_dtype=kv_cache_dtype, weight_dtype=weight_dtype,
         **pool_size))
     captured = _capture_steps(eng)
+    # an older package's engine has no graphs (tools/turns runs it)
+    graphs = hasattr(eng, "decode_cache_size")
+    sampled = any(kws)
+    if graphs:
+        _warm_graphs(eng, sampled)
     torch.cuda.synchronize()
     late = len(prompts) - 1
     reqs = [None] * len(prompts)
@@ -2472,6 +2497,8 @@ def _serve_main(model, prompts, tag, kv_cache_dtype=None, weight_dtype=None,
         raise AssertionError(f"{tag}: launch counts {counts} != {expect}")
     general = sorted(k for k in counts if "_general" in k)
     print(f"  general instances launched: {general or 'none'}", flush=True)
+    if graphs:
+        print(f"  {_graph_sizes(eng, tag, sampled)}", flush=True)
     # the 128-token request's first token again, through a fresh pool
     ref = _prefix_logits(model, prompts[1], bs, 256, kv_cache_dtype)
     if not torch.isfinite(ref).all() or int(ref.argmax()) != \
@@ -2493,24 +2520,30 @@ def _serve_main(model, prompts, tag, kv_cache_dtype=None, weight_dtype=None,
                weight_dtype=weight_dtype, num_blocks=eng.num_blocks,
                block_bytes=st["pool"]["block_bytes"],
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if graphs:
+        out["graph_capture_s"] = {
+            label.split("::")[1]: c["compile_seconds"]
+            for label, c in st["compiles"].items() if c["compiles"]}
     for what, unit in (("decode", "slots running"),
                        ("sampled decode", "slots running"),
                        ("prefill", "tokens a chunk")):
         if what not in captured:
             continue
         n, fn, args = captured[what]
-        wall, dev_ms, top, kernels = _step_profile(fn, args)
+        with _slot_state(eng, args) as bound:
+            wall, span, dev_ms, top, kernels = _step_profile(fn, bound)
         mid = float(np.median(dev_ms))
         busy = f"busy {mid / wall:.1%}" if mid else "not measured"
         each = ", ".join(f"{ms:.3f} ms in {k}" for ms, k in
                          zip(dev_ms, kernels))
         print(f"  {what} step ({n} {unit}): {wall:.3f} ms on the host's "
-              f"clock; kernels of {len(dev_ms)} profiled steps: {each} "
-              f"({busy})", flush=True)
+              f"clock, {span:.3f} ms between CUDA events; kernels of "
+              f"{len(dev_ms)} profiled steps: {each} ({busy})", flush=True)
         for name, ms, count in top:
             print(f"    {ms:8.3f} ms  {count:5d}x  {name[:90]}")
         key = what.replace(" ", "_")
         out[f"{key}_step_host_ms"] = wall
+        out[f"{key}_step_span_ms"] = span
         out[f"{key}_step_device_ms"] = dev_ms
         out[f"{key}_step_kernels"] = kernels
         if what == "sampled decode":
@@ -2540,6 +2573,7 @@ def phase_main(dev):
     del eng
     gc.collect()
     phase_main_sampled(model, prompts, num_blocks, greedy, out)
+    phase_main_graphs(dev, model)
     return counts, num_blocks
 
 
@@ -2594,6 +2628,153 @@ def phase_main_sampled(model, prompts, num_blocks, greedy, main_out):
     if digests[0] != digests[1]:
         raise AssertionError(f"main sampled: the two runs sampled other "
                              f"tokens ({digests})")
+
+
+# ---------------------------------------------------------------- phase 6g
+GRAPH_NEW = 8                   # new tokens a request of phase 6g
+GRAPH_STEPS = ("decode_step", "prefill_step", "sampled_decode_step")
+
+
+def phase_main_graphs(dev, model=None):
+    """Phase 6g: the engine's CUDA graphs against their eager functions,
+    on phase 6's model (Llama-3-8B width, MAIN_LAYERS layers, bf16;
+    built from seed 0 when not given).  An engine serves requests 0-3 of
+    phase 6 (0 and 2 sampled as in 6s), then request 1 again (greedy),
+    with spies keeping a copy of the arguments of the last call of each
+    step.  Each step is replayed on those inputs over the engine's pools
+    (the sampled step over its per-slot tensors, ``_slot_state``) and
+    run eagerly (``GraphStep.eager``) on a copy of the pools as they
+    were: its logits (the sampled step's tokens) and the pools after it
+    must be equal bit for bit, and both must count the same launches.
+    A second engine captures its own graphs, counts its own compiles and
+    gives the first one's tokens; a rebound pool under
+    ``strict_no_retrace`` raises RetraceError; without it the engine
+    counts one retrace of each step and serves requests 4 and 5 as an
+    engine whose pool stayed put does."""
+    from paddle_tpu_torch.kernels import launches
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.observability import RetraceError
+    from paddle_tpu_torch.serving import Engine, ServingConfig
+
+    t_phase = time.perf_counter()
+    if model is None:
+        model = LlamaForCausalLM(LlamaConfig.llama3_8b(
+            num_hidden_layers=MAIN_LAYERS), device=dev, seed=0)
+    prompts = _main_prompts(model.config.vocab_size)
+    first, second = prompts[:4], prompts[4:6]
+    kws = [dict(SAMPLED, seed=1000 + i) if i % 2 == 0 else {}
+           for i in range(len(first))]
+    num_blocks = 1 + sum(-(-(len(p) + GRAPH_NEW) // MAIN_BS)
+                         for p in prompts[:6]) + 8
+    print(f"[main graphs] phase 6's model, pages of {MAIN_BS}, "
+          f"{num_blocks} blocks: requests 0-3 (0 and 2 sampled), then 1 "
+          "again", flush=True)
+
+    def engine(**kw):
+        return Engine(model, ServingConfig(
+            max_batch_size=8, block_size=MAIN_BS, chunk_tokens=256,
+            num_blocks=num_blocks, **kw))
+
+    def serve(eng, batch, batch_kws):
+        reqs = [eng.submit(p, max_new_tokens=GRAPH_NEW, **kw)
+                for p, kw in zip(batch, batch_kws)]
+        eng.run_until_complete()
+        return [[int(t) for t in r.generated] for r in reqs]
+
+    def first_workload(eng):
+        # every step runs: the sampled one while 0 or 2 decode, the
+        # greedy one for request 1 served alone
+        return serve(eng, first, kws) + serve(eng, prompts[1:2], [{}])
+
+    def compiles(eng):
+        return [eng._steps[n].compiles for n in GRAPH_STEPS]
+
+    eng = engine()
+    calls = {}
+    for name in GRAPH_STEPS:
+        # around whatever the engine calls (tools/turns wraps it too)
+        def spy(*args, name=name, step=getattr(eng, f"_{name}")):
+            calls[name] = _copied(args)
+            return step(*args)
+        setattr(eng, f"_{name}", spy)
+    tokens = first_workload(eng)
+    for name in GRAPH_STEPS:
+        step, args = eng._steps[name], calls[name]
+        pools = args[1]
+        before = [tuple(t.clone() for t in e) for e in pools]
+        with _slot_state(eng, args) as bound:
+            mark = launches.mark()
+            got = step(*bound).clone()
+            graph_counts = launches.since(mark)
+            copies = [tuple(t.clone() for t in e) for e in before]
+            mark = launches.mark()
+            want = step.eager(*_on_device(bound[:1], dev), copies,
+                              *_on_device(bound[2:], dev))
+            torch.cuda.synchronize()
+            eager_counts = launches.since(mark)
+        pools_equal = all(torch.equal(a, b) for e, c in zip(pools, copies)
+                          for a, b in zip(e, c))
+        n, same = sum(graph_counts[0].values()), torch.equal(got, want)
+        print(f"  {name}: replay against eager on {tuple(got.shape)} "
+              f"{got.dtype}: {'equal bit for bit' if same else 'DIFFER'}; "
+              f"pools after it {'equal' if pools_equal else 'DIFFER'}; {n} "
+              f"launches counted by the replay, "
+              f"{sum(eager_counts[0].values())} by the eager run",
+              flush=True)
+        if not same:
+            diff = (got.float() - want.float()).abs()
+            raise AssertionError(
+                f"main graphs: {name}'s replay differs from its eager "
+                f"function (max abs {float(diff.max()):.3e} at "
+                f"{int(diff.argmax())}, argmax equal "
+                f"{torch.equal(got.argmax(-1), want.argmax(-1))})")
+        if not pools_equal or graph_counts != eager_counts or n == 0:
+            raise AssertionError(f"main graphs: {name}: pools equal "
+                                 f"{pools_equal}, launches {graph_counts} "
+                                 f"against {eager_counts}")
+        for e, b in zip(pools, before):         # the pools as they were
+            for a, x in zip(e, b):
+                a.copy_(x)
+        del before, copies
+    if compiles(eng) != [1, 1, 1]:
+        raise AssertionError(f"main graphs: compiles {compiles(eng)}")
+    capture_s = {n: eng._steps[n].compile_seconds for n in GRAPH_STEPS}
+
+    other = engine()                            # strict_no_retrace
+    if first_workload(other) != tokens or compiles(other) != [1, 1, 1] \
+            or compiles(eng) != [1, 1, 1]:
+        raise AssertionError(f"main graphs: a second engine's tokens or "
+                             f"compiles ({compiles(other)}, the first "
+                             f"{compiles(eng)}) differ")
+    other.pool.layers = [tuple(t.clone() for t in e)
+                         for e in other.pool.layers]
+    try:
+        serve(other, second, [{}, {}])
+    except RetraceError as e:
+        print(f"  strict_no_retrace, a rebound pool: RetraceError "
+              f"({str(e)[:72]}...)", flush=True)
+    else:
+        raise AssertionError("main graphs: a rebound pool did not raise "
+                             "under strict_no_retrace")
+    del other
+    free()
+    counted = engine(strict_no_retrace=False)
+    first_workload(counted)
+    counted.pool.layers = [tuple(t.clone() for t in e)
+                           for e in counted.pool.layers]
+    got = serve(counted, second, [{}, {}])
+    want = serve(eng, second, [{}, {}])
+    retraces = [counted._steps[n].retraces for n in GRAPH_STEPS]
+    if got != want or retraces != [1, 1, 0]:
+        raise AssertionError(f"main graphs: after a rebound pool, tokens "
+                             f"equal {got == want}, retraces {retraces}")
+    print(f"  strict_no_retrace=False, a rebound pool: retraces "
+          f"{dict(zip(GRAPH_STEPS, retraces))}, requests 4 and 5 as an "
+          f"engine whose pool stayed put; a second engine's own compiles "
+          f"and tokens; capture seconds "
+          + ", ".join(f"{k} {v:.3f}" for k, v in capture_s.items())
+          + f"; phase 6g in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
 
 
 # ---------------------------------------------------------------- phase 2d
@@ -2769,12 +2950,52 @@ def phase_main_quant(dev, bf16_blocks):
     return total
 
 
+def _copied(args):
+    """A copy of a step's arguments as the engine handed them: its host
+    arrays and tensors copied (the engine rewrites its own arrays, and a
+    replayed step's inputs are its static buffers), the pools (a list)
+    kept as they are."""
+    return tuple(a.copy() if isinstance(a, np.ndarray) else
+                 a.clone() if isinstance(a, torch.Tensor) else a
+                 for a in args)
+
+
+SLOT_STATE = ("_temps", "_top_ks", "_top_ps", "_keys", "_counters")
+
+
+@contextlib.contextmanager
+def _slot_state(eng, args):
+    """A recorded sampled decode step's arguments over the engine's own
+    per-slot sampling tensors, which hold the recorded values inside the
+    block and their own again after it: the step binds those tensors by
+    address, as it binds the pools, so a copy would be a new graph.  A
+    decode or prefill step's arguments pass as they are."""
+    if len(args) != 4 + len(SLOT_STATE):
+        yield args
+        return
+    own = [getattr(eng, n) for n in SLOT_STATE]
+    kept = [t.clone() for t in own]
+    for t, a in zip(own, args[4:]):
+        t.copy_(a)
+    try:
+        yield (*args[:4], *own)
+    finally:
+        for t, k in zip(own, kept):
+            t.copy_(k)
+
+
+def _on_device(args, dev):
+    """A step's arguments with its host arrays moved to ``dev``: the
+    form a step's eager function takes."""
+    return [torch.as_tensor(a, device=dev) if isinstance(a, np.ndarray)
+            else a for a in args]
+
+
 def _capture_steps(eng):
-    """Wrap the engine's steps to keep the arguments of one call of
-    each, to replay after the run: the decode step (greedy, and sampled
-    where the engine has one) with the most slots running, with copies
-    of the sampled step's per-slot state as it was, and a full 256-token
-    prefill chunk."""
+    """Wrap the engine's steps to keep a copy of the arguments of one
+    call of each, to replay after the run: the decode step (greedy, and
+    sampled where the engine has one) with the most slots running and a
+    full 256-token prefill chunk."""
     captured = {}
     decode, prefill = eng._decode_step, eng._prefill_step
     sampled = getattr(eng, "_sampled_decode_step", None)
@@ -2782,26 +3003,61 @@ def _capture_steps(eng):
     def decode_spy(*args):
         running = int((eng._lengths > 0).sum())
         if running > captured.get("decode", (0,))[0]:
-            captured["decode"] = (running, decode, args)
+            captured["decode"] = (running, decode, _copied(args))
         return decode(*args)
 
     def sampled_spy(*args):
         running = int((eng._lengths > 0).sum())
         if running > captured.get("sampled decode", (0,))[0]:
-            captured["sampled decode"] = (
-                running, sampled, args[:4] + tuple(a.clone()
-                                                   for a in args[4:]))
+            captured["sampled decode"] = (running, sampled, _copied(args))
         return sampled(*args)
 
     def prefill_spy(*args):
-        if "prefill" not in captured and args[4] == eng.chunk_tokens - 1:
-            captured["prefill"] = (eng.chunk_tokens, prefill, args)
+        if "prefill" not in captured and \
+                int(args[4]) == eng.chunk_tokens - 1:
+            captured["prefill"] = (eng.chunk_tokens, prefill,
+                                   _copied(args))
         return prefill(*args)
 
     eng._decode_step, eng._prefill_step = decode_spy, prefill_spy
     if sampled is not None:
         eng._sampled_decode_step = sampled_spy
     return captured
+
+
+def _graph_sizes(eng, tag, sampled):
+    """Raise unless the engine holds one graph of its decode step, one of
+    its prefill step and one (``sampled``) or none of its sampled decode
+    step; returns a line of the sizes and each graph's capture seconds
+    (the line of an older package without graphs says so)."""
+    if not hasattr(eng, "decode_cache_size"):
+        return "no CUDA graphs in this package"
+    sizes = [eng.decode_cache_size(), eng.prefill_cache_size(),
+             eng.sampled_decode_cache_size()]
+    if sizes != [1, 1, int(sampled)]:
+        raise AssertionError(f"{tag}: graph cache sizes {sizes} != "
+                             f"{[1, 1, int(sampled)]}")
+    compiles = eng.stats()["compiles"]
+    return (f"graphs of decode / prefill / sampled decode {sizes}, "
+            "captured in " + ", ".join(
+                f"{c['compile_seconds']:.3f}" for c in compiles.values()
+                if c["compiles"]) + " s")
+
+
+def _warm_graphs(eng, sampled):
+    """Capture the engine's graphs before a timed run, as a server does
+    at start-up: its prefill and decode steps (and with ``sampled`` its
+    sampled decode step) on all-zero host inputs of the shapes the
+    engine passes, which address only the pools' garbage block 0."""
+    S, nbs = eng.config.max_batch_size, eng.max_blocks_per_seq
+    pools, z = eng.pool.layers, lambda *shape: np.zeros(shape, np.int32)
+    eng._steps["prefill_step"](z(1, eng.chunk_tokens), pools, z(1, nbs),
+                               z(1), 0)
+    eng._steps["decode_step"](z(S, 1), pools, z(S, nbs), z(S))
+    if sampled:
+        eng._steps["sampled_decode_step"](
+            z(S, 1), pools, z(S, nbs), z(S), eng._temps, eng._top_ks,
+            eng._top_ps, eng._keys, eng._counters)
 
 
 def _sampler_share(model, kv_cache_dtype, args, step_ms):
@@ -2813,9 +3069,12 @@ def _sampler_share(model, kv_cache_dtype, args, step_ms):
     from paddle_tpu_torch.models.generation import make_paged_decode_step
     from paddle_tpu_torch.serving.sampling import sample_at
 
-    logits = make_paged_decode_step(model, kv_cache_dtype)(*args[:4])
-    wall, dev_ms, top, kernels = _step_profile(sample_at,
-                                               (logits, *args[4:]))
+    # the step's eager function (a package without graphs: the step)
+    step = make_paged_decode_step(model, kv_cache_dtype)
+    logits = getattr(step, "eager", step)(*_on_device(args[:4],
+                                                      model.device))
+    wall, _, dev_ms, top, kernels = _step_profile(sample_at,
+                                                  (logits, *args[4:]))
     mid = float(np.median(dev_ms))
     share = mid / step_ms if step_ms else None
     print(f"  sampler alone ([{logits.shape[0]}, {logits.shape[1]}] f32 "
@@ -2855,14 +3114,16 @@ def _check_sse(tag, frames, req):
 
 
 def _step_profile(fn, args, reps=5, top=8, profiles=3):
-    """(host-clock ms, [device ms], top kernels, [kernel count]) of one
-    step: the first as the engine sees it (the step, then a
-    synchronize); the second the sum of the step's kernel times in a
-    torch.profiler trace of each of ``profiles`` more calls (0 where the
-    trace shows no device time; one trace has missed kernels before);
-    the third the ``top`` kernels by device time of the last trace as
-    (name, ms, launches); the last the launches of every kernel in each
-    trace."""
+    """(host-clock ms, event ms, [device ms], top kernels, [kernel
+    count]) of one step: the first as the engine sees it (the step, then
+    a synchronize); the second the median over ``reps`` calls of the time
+    between CUDA events recorded on the stream just before and after the
+    call (the device's span of a step, its idle gaps included); the third
+    the sum of the step's kernel times in a torch.profiler trace of each
+    of ``profiles`` more calls (0 where the trace shows no device time;
+    one trace has missed kernels before); the fourth the ``top`` kernels
+    by device time of the last trace as (name, ms, launches); the last
+    the launches of every kernel in each trace."""
     fn(*args)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2870,8 +3131,18 @@ def _step_profile(fn, args, reps=5, top=8, profiles=3):
         fn(*args)
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / reps
+    spans = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(*args)
+        end.record()
+        torch.cuda.synchronize()
+        spans.append(start.elapsed_time(end))
     traces = [_profile_once(fn, args) for _ in range(profiles)]
-    return (wall, [ms for ms, _ in traces], traces[-1][1][:top],
+    return (wall, float(np.median(spans)), [ms for ms, _ in traces],
+            traces[-1][1][:top],
             [sum(r[2] for r in rows) for _, rows in traces])
 
 

@@ -200,7 +200,14 @@ class LaunchCounter:
     show which kernels its path went through.  A wrapper whose kernel
     has several compiled instances (widths, producers) also names the
     instance it launched, tallied apart under ``name@instance``
-    (:meth:`by_instance`), so that a run shows which instances ran."""
+    (:meth:`by_instance`), so that a run shows which instances ran.
+
+    A CUDA graph's replay launches its kernels without running their
+    wrappers, so a graph step (``paddle_tpu_torch.jit.GraphStep``)
+    takes the counts its capture added (:meth:`mark`, :meth:`since`),
+    puts the counts back as they were before its warmup and capture
+    (:meth:`restore`), and adds that delta at every replay
+    (:meth:`replay`): a replayed step counts what an eager one does."""
 
     def __init__(self):
         self.counts: dict = {}
@@ -215,6 +222,30 @@ class LaunchCounter:
     def reset(self):
         self.counts.clear()
         self.instances.clear()
+
+    def mark(self) -> tuple:
+        """The counts as they stand, for :meth:`since` and
+        :meth:`restore`."""
+        return dict(self.counts), dict(self.instances)
+
+    def since(self, mark: tuple) -> tuple:
+        """(counts, instances) added after ``mark``."""
+        return tuple({k: n - old.get(k, 0) for k, n in now.items()
+                      if n != old.get(k, 0)}
+                     for now, old in zip((self.counts, self.instances), mark))
+
+    def restore(self, mark: tuple):
+        """Put the counts back as they were at ``mark``."""
+        for now, old in zip((self.counts, self.instances), mark):
+            now.clear()
+            now.update(old)
+
+    def replay(self, delta: tuple):
+        """Add ``delta`` (from :meth:`since`): one replay of a captured
+        graph."""
+        for now, add in zip((self.counts, self.instances), delta):
+            for k, n in add.items():
+                now[k] = now.get(k, 0) + n
 
     def snapshot(self) -> dict:
         return dict(self.counts)

@@ -367,6 +367,9 @@ def fused_paged_decode(q, k_new, v_new, k_pool, v_pool, block_table,
 
 
 _ticket_buffers: dict = {}
+# every buffer a (device, stream) outgrew: a CUDA graph captured while it
+# was current still counts its tickets there, so none is ever freed
+_outgrown_tickets: list = []
 
 
 def _tickets(device, n):
@@ -376,10 +379,17 @@ def _tickets(device, n):
     block of a (sequence, kv head, sub-group) resets its own), so the
     launches of one stream, which run one after another, share them;
     launches on two streams at once would mix their tickets, hence a
-    buffer each."""
+    buffer each.  A CUDA graph bakes in the buffer of the stream it was
+    captured on (``jit.GraphStep``'s capture stream): its warmup makes
+    or grows the buffer there before capture, so no allocation is
+    recorded into the graph, and graphs replay one after another, as
+    launches of one stream do.  A buffer that a later, larger ``n``
+    outgrows is kept for the graphs that hold it."""
     key = (device, torch.cuda.current_stream(device).cuda_stream)
     buf = _ticket_buffers.get(key)
     if buf is None or buf.numel() < n:
+        if buf is not None:
+            _outgrown_tickets.append(buf)
         buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
         _ticket_buffers[key] = buf
     return buf

@@ -378,17 +378,20 @@ class LlamaModel(nn.Module):
     def forward(self, input_ids, caches=None, positions=None,
                 write_mask=None, last_index=None):
         """Hidden states after the final norm; without ``caches`` the
-        no-cache (training) forward from position 0.  ``last_index``
-        keeps only that token's row before the norm (the norm is per
-        row, so the result is the same row the full forward would
-        give)."""
+        no-cache (training) forward from position 0.  ``last_index`` (an
+        int, or an int tensor of one element on the model's device, as
+        a captured step passes it) keeps only that token's row before
+        the norm (the norm is per row, so the result is the same row the
+        full forward would give)."""
         hidden = self.embed_tokens(input_ids)
         if caches is None:
             caches = [None] * len(self.layers)
         for layer, cache in zip(self.layers, caches):
             hidden = layer(hidden, self.rope_cos, self.rope_sin, cache,
                            positions, write_mask)
-        if last_index is not None:
+        if isinstance(last_index, torch.Tensor):
+            hidden = hidden.index_select(1, last_index.reshape(1))
+        elif last_index is not None:
             hidden = hidden[:, last_index:last_index + 1]
         return self.norm(hidden)
 

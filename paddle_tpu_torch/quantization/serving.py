@@ -16,8 +16,8 @@ included, and keeps the model as it is otherwise:
 The JAX package stores that dequantization in f32 whatever the model's
 dtype; the port keeps the model's dtype, so a bf16 model's kernels go on
 reading bf16 weights.  For an f32 model the two are the same numbers.
-The port's steps read the weights at every call, so nothing needs to be
-rebuilt after the rebind.
+The weights change in place, and the port's steps (their CUDA graphs
+too) read the weights' memory at every call, so nothing is rebuilt.
 
 The scale rule is the JAX package's ``_quantize_weight`` (in
 ``paddle_tpu/quantization/__init__.py``), shared there by QAT, PTQ and

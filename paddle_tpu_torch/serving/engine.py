@@ -24,6 +24,17 @@ startup X-ray / shard-plan audits, and the overload controls (request
 and token deadlines, priorities, load shedding, the watchdog and the
 degradation ladder).
 
+Each step (decode, sampled decode, prefill chunk) is a
+``jit.GraphStep``: on the card it is captured once as a CUDA graph and
+replayed with the iteration's inputs copied into its static buffers,
+as the JAX engine compiles each step once.  The engine's three graphs
+share one memory pool and replay one after another on one stream; a
+step's output is the graph's static tensor, read before the next
+replay.  The steps carry the reference's no-retrace contract
+(``observability.warn_on_retrace``): a second graph of a step (an input
+of another shape, or a rebound pool) raises ``RetraceError`` under
+``strict_no_retrace`` and is counted otherwise.
+
 Correctness contract: outputs are token-exact with the JAX engine on
 the same weights (tests/test_torch_serving.py,
 tests/test_torch_sampled_serving.py), greedy and sampled under the same
@@ -44,6 +55,7 @@ from ..kernels.kv_quant import (KV_DTYPE_CODES, kv_scale_bytes_per_block,
 from ..models.generation import (_cache_dims, make_chunked_prefill_step,
                                  make_paged_decode_step,
                                  normalize_stop_sequences)
+from ..observability import warn_on_retrace
 from ..quantization.serving import quantize_model_weights
 from .cache import BlockKVPool, PoolExhausted
 from .metrics import ServingMetrics
@@ -83,8 +95,10 @@ class ServingConfig:
     # max prefill tokens per iteration before decode runs again; None =
     # one chunk's worth
     prefill_token_budget: Optional[int] = None
-    # the reference's check that a compiled step never retraces: eager
-    # PyTorch steps have no jit cache to retrace, so any value is taken
+    # raise (observability.RetraceError) if a step captures a second CUDA
+    # graph after its first (an input changed shape or a pool was
+    # rebound); when False, such retraces are only counted
+    # (engine._decode_step.retraces)
     strict_no_retrace: bool = True
     # the port serves the fused steps only: None or True
     fused_kernels: Optional[bool] = None
@@ -124,7 +138,13 @@ class Engine:
     package; runs on the model's device.  ``generator`` is the CPU
     ``torch.Generator`` from which a sampled request without a seed
     draws its key (None: a ``torch.Generator()`` at its fixed default
-    seed, so such runs repeat)."""
+    seed, so such runs repeat).
+
+    The steps' graphs bake in the weights' addresses, as the reference
+    bakes its weights in as jit constants: changing a weight in place
+    shows in the next step, rebinding one after construction needs a
+    new engine (``weight_dtype`` quantizes in place before the steps
+    are made)."""
 
     def __init__(self, model, config: Optional[ServingConfig] = None,
                  generator: Optional[torch.Generator] = None):
@@ -190,18 +210,26 @@ class Engine:
         self._top_ps = torch.ones((S,), dtype=torch.float32, device=dev)
         self._keys = torch.zeros((S, 2), dtype=torch.int64, device=dev)
         self._counters = torch.zeros((S,), dtype=torch.int64, device=dev)
-        self._decode_step = make_paged_decode_step(model,
-                                                   self.kv_cache_dtype)
-        self._sampled_decode_step = make_sampled_decode_step(
-            model, self.kv_cache_dtype)
-        self._prefill_step = make_chunked_prefill_step(model,
-                                                       self.kv_cache_dtype)
+        # the reference's compiled steps, each under its no-retrace guard:
+        # its one allowed compile is this engine's capture.  The three
+        # graphs share one memory pool: they replay one after another
+        graphs = torch.cuda.graph_pool_handle() \
+            if self.device.type == "cuda" else None
+        on_retrace = "raise" if cfg.strict_no_retrace else "count"
+        self._steps = {
+            name: warn_on_retrace(make(model, self.kv_cache_dtype, graphs),
+                                  after=1, label=f"serving::{name}",
+                                  on_retrace=on_retrace)
+            for name, make in (
+                ("decode_step", make_paged_decode_step),
+                ("prefill_step", make_chunked_prefill_step),
+                ("sampled_decode_step", make_sampled_decode_step))}
+        self._decode_step = self._steps["decode_step"]
+        self._prefill_step = self._steps["prefill_step"]
+        self._sampled_decode_step = self._steps["sampled_decode_step"]
         self._finished: Dict[str, Request] = {}
         self._ids = itertools.count()
         self._evictions_seen = 0
-
-    def _dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.tensor(a, device=self.device)
 
     # ----------------------------------------------------------- submit
     def submit(self, prompt, max_new_tokens: int = 32,
@@ -368,9 +396,8 @@ class Engine:
         ids = np.zeros((1, C), np.int32)
         ids[0, :n_tok] = req.prompt[start:start + n_tok]
         bt = self._block_tables[req.slot:req.slot + 1]
-        last = self._prefill_step(
-            self._dev(ids), self.pool.layers, self._dev(bt),
-            self._dev(np.asarray([start], np.int32)), n_tok - 1)
+        last = self._prefill_step(ids, self.pool.layers, bt,
+                                  np.asarray([start], np.int32), n_tok - 1)
         req.prefill_pos = start + n_tok
         req.prefill_chunks += 1
         if req.prefill_pos < req.prompt_len:
@@ -509,9 +536,10 @@ class Engine:
                   if r is not None and r.state == RUNNING]
         if not active:
             return
-        tokens = self._dev(self._pending[:, None])
-        tables = self._dev(self._decode_block_view())
-        lengths = self._dev(self._lengths)
+        # host arrays: the step copies them into its static buffers
+        tokens = self._pending[:, None]
+        tables = self._decode_block_view()
+        lengths = self._lengths
         if any(r.sampling is not None for r in active):
             next_toks = self._sampled_iteration(tokens, tables, lengths)
         else:
@@ -574,8 +602,29 @@ class Engine:
             self._evictions_seen = self.pool.evictions
             self.metrics.on_evictions(d)
 
+    def decode_cache_size(self) -> int:
+        """Graphs of the decode step: 1 after warmup, forever (the
+        no-retrace contract)."""
+        return self._steps["decode_step"]._cache_size()
+
+    def prefill_cache_size(self) -> int:
+        """Graphs of the chunked-prefill step: 1 after warmup, for
+        EVERY prompt length and chunk position."""
+        return self._steps["prefill_step"]._cache_size()
+
+    def sampled_decode_cache_size(self) -> int:
+        """Graphs of the sampled decode step: 0 for a greedy-only
+        workload (the step never runs), 1 after the first sampled
+        iteration, forever."""
+        return self._steps["sampled_decode_step"]._cache_size()
+
     def stats(self) -> dict:
         d = self.metrics.as_dict()
         d["pool"] = self.pool.stats()
         d["queue_depth"] = len(self.scheduler.waiting)
+        # compile_stats()'s fields for this engine's three steps
+        d["compiles"] = {}
+        for step in self._steps.values():
+            s = step.stats()
+            d["compiles"][s.pop("label")] = s
         return d

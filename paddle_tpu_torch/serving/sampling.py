@@ -34,7 +34,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..models.generation import make_paged_decode_step
+from ..jit import GraphStep
+from ..models.generation import paged_decode
 
 # key-derivation tags of speculative decoding: the draft proposal, the
 # acceptance uniform and the bonus / residual resample of token i each
@@ -226,15 +227,18 @@ def sample_at(logits, temps, top_ks, top_ps, keys, counters):
                          fold_keys(keys, counters))
 
 
-def make_sampled_decode_step(model, kv_cache_dtype=None):
+def make_sampled_decode_step(model, kv_cache_dtype=None, pool=None):
     """The paged decode step followed, on the device, by the fold, the
     filter and the Gumbel argmax: ``step(tok [S, 1], pools, block_tables
     [S, max_blocks], lengths [S], temps [S] f32, top_ks [S], top_ps [S]
     f32, keys [S, 2] int64, counters [S]) -> next_tok [S]`` int64, so
     only S ids go back to the host.  The forward pass is
     ``make_paged_decode_step``'s; greedy lanes (temperature 0) take the
-    argmax of its logits."""
-    decode = make_paged_decode_step(model, kv_cache_dtype)
+    argmax of its logits.  A :class:`~paddle_tpu_torch.jit.GraphStep`
+    as that step is, which binds the five per-slot tensors by address
+    as it binds the pools: they are the engine's own, written in place
+    for its whole life (``pool``: its graph memory pool)."""
+    decode = paged_decode(model, kv_cache_dtype)
 
     @torch.inference_mode()
     def step(tok, pools, block_tables, lengths, temps, top_ks, top_ps,
@@ -242,4 +246,5 @@ def make_sampled_decode_step(model, kv_cache_dtype=None):
         last = decode(tok, pools, block_tables, lengths)
         return sample_at(last, temps, top_ks, top_ps, keys, counters)
 
-    return step
+    return GraphStep(step, model.device, bound=(1, 4, 5, 6, 7, 8),
+                     pool=pool)

@@ -33,7 +33,10 @@ rms_norm one rounding of the largest output and rms_scale 4 f32 ulps
 (``TestCudaNorms``); combine with gates in the tokens' dtype and in f32
 bit-identical to the plain version in every form
 (``TestCudaCombineForms``); a tiny bf16 decode step's exact launches
-(``TestCudaStepLaunches``).
+(``TestCudaStepLaunches``); the engine's three steps as CUDA graph
+replays bit-identical to their eager functions, out and in the pools,
+with the same launches counted, and a rebound pool a retrace
+(``TestCudaGraphSteps``).
 The Llama-3-8B, Mixtral, Qwen2-7B-width and BERT-base shapes are held
 in chip_smoke.py.
 """
@@ -2201,3 +2204,167 @@ class TestCudaStepLaunches:
                          "fused_norm_linear_skinny": 2 * L})
         assert len(steps) >= 3
         assert all(step == want for step in steps), (steps, want)
+
+
+STEPS = ("decode_step", "prefill_step", "sampled_decode_step")
+
+
+def _copied(a):
+    """A copy of a step argument as the engine handed it: numpy and
+    tensors copied, the pools (a list) kept as they are."""
+    if isinstance(a, np.ndarray):
+        return a.copy()
+    if isinstance(a, torch.Tensor):
+        return a.clone()
+    return a
+
+
+def _recorded_steps(cuda_device):
+    """A tiny bf16 engine that served greedy and sampled requests, and
+    the arguments of the last call of each of its three steps."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import Engine, ServingConfig
+
+    cfg = LlamaConfig.tiny(dtype="bfloat16", hidden_size=128,
+                           num_attention_heads=2, num_key_value_heads=1)
+    model = LlamaForCausalLM(cfg, device=cuda_device, seed=0)
+    eng = Engine(model, ServingConfig(max_batch_size=2, block_size=16,
+                                      num_blocks=16, chunk_tokens=16))
+    calls = {}
+    for name in STEPS:
+        def spy(*args, name=name, step=eng._steps[name]):
+            calls[name] = tuple(_copied(a) for a in args)
+            return step(*args)
+        setattr(eng, f"_{name}", spy)
+    rng = np.random.RandomState(0)
+    eng.submit(rng.randint(1, 256, size=21), max_new_tokens=4)
+    eng.submit(rng.randint(1, 256, size=5), max_new_tokens=4,
+               temperature=0.8, top_k=20, seed=3)
+    eng.run_until_complete()
+    return eng, calls
+
+
+def _on_device(args, dev):
+    return [torch.as_tensor(a, device=dev) if isinstance(a, np.ndarray)
+            else a for a in args]
+
+
+SLOT_STATE = ("_temps", "_top_ks", "_top_ps", "_keys", "_counters")
+
+
+def _bound(eng, args):
+    """A recorded step's arguments as the step binds them: the sampled
+    step's per-slot sampling tensors are the engine's own (bound by
+    address, as the pools are), so the recorded values go back into
+    them; a decode or prefill step's arguments as they are."""
+    if len(args) != 4 + len(SLOT_STATE):
+        return args
+    own = [getattr(eng, n) for n in SLOT_STATE]
+    for t, a in zip(own, args[4:]):
+        t.copy_(a)
+    return (*args[:4], *own)
+
+
+def _replay_against_eager(eng, name, args, dev):
+    """(replay's output, eager output, replay's launches, eager's
+    launches, pools equal after both) of step ``name`` on ``args``: the
+    replay over the engine's pools, the eager function over a copy of
+    them as they were."""
+    step, args = eng._steps[name], _bound(eng, args)
+    pools = args[1]
+    before = [tuple(x.clone() for x in e) for e in pools]
+    mark = launches.mark()
+    got = step(*args).clone()
+    graph_launches = launches.since(mark)
+    copies = [tuple(x.clone() for x in e) for e in before]
+    mark = launches.mark()
+    want = step.eager(*_on_device(args[:1], dev), copies,
+                      *_on_device(args[2:], dev))
+    torch.cuda.synchronize()
+    pools_equal = all(torch.equal(x, y) for e, c in zip(pools, copies)
+                      for x, y in zip(e, c))
+    return got, want, graph_launches, launches.since(mark), pools_equal
+
+
+@pytest.mark.cuda
+class TestCudaGraphSteps:
+    """The engine's steps as CUDA graph replays against their eager
+    functions (``GraphStep.eager``) on the inputs one real call had:
+    the same bits out and in the pools, the same launches counted."""
+
+    def test_replay_matches_eager_bits_and_launches(self, cuda_device):
+        eng, calls = _recorded_steps(cuda_device)
+        assert (eng.decode_cache_size(), eng.prefill_cache_size(),
+                eng.sampled_decode_cache_size()) == (1, 1, 1)
+        for name in STEPS:
+            got, want, graph_launches, eager_launches, pools_equal = \
+                _replay_against_eager(eng, name, calls[name], cuda_device)
+            assert eager_launches == graph_launches, name
+            assert graph_launches[0], name
+            assert torch.equal(got, want), name
+            assert pools_equal, name
+        assert [eng._steps[n].compiles for n in STEPS] == [1, 1, 1]
+
+    def test_an_outgrown_ticket_buffer_stays_with_its_graphs(
+            self, cuda_device):
+        """An engine of more slots than the capture stream's paged-decode
+        tickets hold (one per sequence, kv head and sub-group), made
+        while a smaller engine lives, grows that buffer.  The smaller
+        engine's decode graph still counts its tickets in the buffer it
+        was captured with: after the capture stream has allocated and
+        filled tensors of that buffer's size, its replay equals its
+        eager function."""
+        from paddle_tpu_torch.jit import graphs
+        from paddle_tpu_torch.kernels import paged_attention
+        from paddle_tpu_torch.serving import Engine, ServingConfig
+
+        eng, calls = _recorded_steps(cuda_device)
+        device = torch.device("cuda", torch.cuda.current_device())
+        stream = graphs._capture_streams[device]
+        key = (device, stream.cuda_stream)
+        n = paged_attention._ticket_buffers[key].numel()
+        big = Engine(eng.model, ServingConfig(
+            max_batch_size=n + 16, block_size=16, num_blocks=16,
+            chunk_tokens=16))
+        big.generate([np.arange(1, 6)], max_new_tokens=3)
+        assert paged_attention._ticket_buffers[key].numel() > n
+        with torch.cuda.stream(stream):
+            junk = [torch.full((n,), 7, dtype=torch.int32,
+                               device=cuda_device) for _ in range(8)]
+        torch.cuda.synchronize()
+        got, want, _, _, pools_equal = _replay_against_eager(
+            eng, "decode_step", calls["decode_step"], cuda_device)
+        assert torch.equal(got, want)
+        assert pools_equal
+        assert eng.decode_cache_size() == big.decode_cache_size() == 1
+        del junk
+
+    @pytest.mark.parametrize("strict", [True, False])
+    def test_a_rebound_pool_is_a_retrace(self, cuda_device, strict):
+        from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+        from paddle_tpu_torch.observability import RetraceError
+        from paddle_tpu_torch.serving import Engine, ServingConfig
+
+        model = LlamaForCausalLM(LlamaConfig.tiny(), device=cuda_device,
+                                 seed=0)
+        rng = np.random.RandomState(1)
+        first = [rng.randint(1, 256, size=n) for n in (9, 4)]
+        second = [rng.randint(1, 256, size=n) for n in (14, 6)]
+        engines = [Engine(model, ServingConfig(
+            max_batch_size=2, block_size=8, num_blocks=16, chunk_tokens=16,
+            strict_no_retrace=s)) for s in (strict, True)]
+        outs = [[e.generate(p, max_new_tokens=4) for e in engines]
+                for p in (first,)]
+        eng = engines[0]
+        eng.pool.layers = [tuple(x.clone() for x in e)
+                           for e in eng.pool.layers]
+        if strict:
+            with pytest.raises(RetraceError, match="serving::prefill_step"):
+                eng.generate(second, max_new_tokens=4)
+            return
+        outs.append([e.generate(second, max_new_tokens=4) for e in engines])
+        for got, want in outs:
+            for a, b in zip(got, want):
+                np.testing.assert_array_equal(a, b)
+        assert (eng.decode_cache_size(), eng.prefill_cache_size()) == (2, 2)
+        assert eng._decode_step.retraces == eng._prefill_step.retraces == 1

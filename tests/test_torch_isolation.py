@@ -1,7 +1,9 @@
 """Guards of the PyTorch port (paddle_tpu_torch).
 
 - importing the package and every module in it (the static-graph
-  frontend ``static`` and the ``nn`` layers included) loads no ``jax*``
+  frontend ``static``, the ``nn`` layers, the CUDA-graph steps of
+  ``jit`` and the compile accounting of ``observability`` included;
+  ``compile_tracker`` is a copy, not an import) loads no ``jax*``
   module and nothing of the JAX package (``paddle_tpu`` /
   ``paddle_tpu.*``), and no source file names one;
 - its entry points run on ``cuda`` unless told otherwise, and raise
@@ -42,8 +44,8 @@ print(json.dumps({"bad": bad, "ours": sorted(
     n for n in sys.modules if n.startswith("paddle_tpu_torch"))}))
 """
 # the subpackages the walk must reach (each with at least one module)
-SUBPACKAGES = ("kernels", "models", "nn", "optimizer", "quantization",
-               "serving", "static")
+SUBPACKAGES = ("jit", "kernels", "models", "nn", "observability",
+               "optimizer", "quantization", "serving", "static")
 
 
 def _is_forbidden(module: str) -> bool:
