@@ -56,6 +56,25 @@ Phases, each of which must pass (nothing is caught):
      gives the same tokens; a rebound pool raises RetraceError under
      strict_no_retrace and is one counted retrace a step without it,
      the tokens after it those of an engine whose pool stayed put;
+  6o. overload control: phase 6's model behind fresh engines whose
+     graphs were captured at start-up, with the metrics registry on:
+     (a) the degradation ladder (watermarks 0.5 / 0.3) under a seeded
+     burst of 12 prompts of 256-640 tokens into a pool of 0.8 of their
+     blocks climbs one level a tick to pause_admissions or above,
+     preempts, unwinds to 0 when idle, and every request has the tokens
+     of an engine at the default watermarks; (b) a decode attempt
+     stalled 0.6 s against a 0.25 s floor: one stall, one retry,
+     DEGRADED then SERVING, phase 6's tokens, the retried replay's
+     launches counted twice; (c) a failed prefill attempt absorbed, two
+     quarantining the engine (EngineQuarantined; submit and step refused
+     until revive(), then the stranded request finishes), a poisoned
+     request "error" beside unaffected ones; (d) requests of 1024
+     tokens with a 5 ms deadline shed at submit beside phase 6's request
+     4 with a 10 s deadline, and the watchdog's chunk and decode EWMAs
+     at least phase 6's profiled kernel times (it times the device);
+     (e) a full queue: a higher-priority arrival sheds the youngest
+     lower-priority request and is admitted first; (f) the registry's
+     Prometheus lines of the overload and compile metrics;
   7. main training: Llama-3-8B width, 8 of its 32 layers, bf16, one
      [1, 8192] batch, AdamW(1e-4): 2 warm-up and 5 timed steps, one
      profiled step and one eval forward without grad; finite, falling
@@ -157,8 +176,8 @@ The sampler (serving/sampling.py: torch ops, no kernel of its own):
      lanes of temperature, top-k and top-p each on and off, at 64 token
      counters of seeded keys: the tokens on the card equal the CPU's,
      one for one (on a mismatch the perturbed top-2 margin is printed).
-The launch counts of phases 4c, 6, 6s, 6c, 6p, 7, 7c, 6m, 7m and 7s, reset
-just before each run and read just after it, show that each path went
+The launch counts of phases 4c, 6, 6s, 6o, 6c, 6p, 7, 7c, 6m, 7m and 7s,
+reset just before each run and read just after it, show that each path went
 through every kernel of its own (and the Llama-3-8B, Mixtral, Qwen2-7B,
 Phi-3-mini and BERT phases through no general instance); a kernel of
 the JSON line that its path launched no time fails the run.  Kernels
@@ -2360,6 +2379,49 @@ def _main_prompts(V):
         [np.concatenate([prefix, rng.randint(1, V, size=200)])]
 
 
+def step_launches(cfg, bs, kv_cache_dtype=None):
+    """The launches of one decode step and of one prefill chunk of a
+    serving engine over ``cfg``'s model, pages of ``bs`` tokens and a KV
+    pool of ``kv_cache_dtype``: ({counter: n}, {counter: n})."""
+    from paddle_tpu_torch.kernels import chunked_prefill, paged_attention
+    from paddle_tpu_torch.kernels.kv_quant import KERNEL as WRITE
+    from paddle_tpu_torch.kernels.kv_quant import counter_name
+
+    L = cfg.num_hidden_layers
+    # which kernel of each family the model's shapes take (the wrappers'
+    # routes; a *_general one only where the fast kernel is not built for
+    # them: the C1 phase's)
+    H, KVH, D = cfg.num_attention_heads, cfg.num_key_value_heads, \
+        cfg.head_dim
+    q = torch.empty((1, 1, H, D), dtype=cfg.torch_dtype, device="meta")
+    pool = torch.empty((1, bs, KVH, D), dtype=cfg.torch_dtype, device="meta")
+    hopper = paged_attention.hopper_path(q[0], pool, pool, H // KVH)
+    wgmma = chunked_prefill.wgmma_width(q, pool, pool) is not None
+    fast = all(n % 8 == 0 for n in (cfg.hidden_size, H * D, KVH * D,
+                                    cfg.intermediate_size))
+    fnl_decode = "fused_norm_linear_skinny" if fast \
+        else "fused_norm_linear_general"
+    fnl_chunk = "fused_norm_linear_tiled" if fast \
+        else "fused_norm_linear_general"
+    # the input norm's row scale and one launch for q/k/v in every layer;
+    # a dense layer's post-attention row scale and one launch for gate/up,
+    # a MoE layer's post-attention rms_norm (dispatch reads the normed
+    # rows), one dispatch and one combine; the final norm
+    n_fnl = L if cfg.moe_num_experts else 2 * L
+    per_decode = {"rms_norm": 1, "rms_scale": n_fnl, fnl_decode: n_fnl}
+    per_chunk = {"rms_norm": 1, "rms_scale": n_fnl, fnl_chunk: n_fnl}
+    if cfg.moe_num_experts:
+        for per in (per_decode, per_chunk):
+            per.update(rms_norm=L + 1, moe_dispatch=L, moe_combine=L)
+    per_decode[counter_name(paged_attention.KERNEL if hopper
+                            else paged_attention.GENERAL, kv_cache_dtype)] = L
+    per_chunk[counter_name(chunked_prefill.KERNEL if wgmma
+                           else chunked_prefill.GENERAL, kv_cache_dtype)] = L
+    # the KV write, one launch a layer into every kind of pool
+    per_decode[WRITE] = per_chunk[WRITE] = L
+    return per_decode, per_chunk
+
+
 def _serve_main(model, prompts, tag, kv_cache_dtype=None, weight_dtype=None,
                 block_size=MAIN_BS, submit_kwargs=None, stream=None,
                 requests=None, **pool_size):
@@ -2378,10 +2440,7 @@ def _serve_main(model, prompts, tag, kv_cache_dtype=None, weight_dtype=None,
     (numbers, launch counts, engine)."""
     from types import SimpleNamespace
 
-    from paddle_tpu_torch.kernels import (chunked_prefill, launches,
-                                          paged_attention)
-    from paddle_tpu_torch.kernels.kv_quant import KERNEL as WRITE
-    from paddle_tpu_torch.kernels.kv_quant import counter_name
+    from paddle_tpu_torch.kernels import launches
     from paddle_tpu_torch.serving import Engine, ServingConfig
 
     cfg, V, bs, new = model.config, model.config.vocab_size, block_size, \
@@ -2457,37 +2516,7 @@ def _serve_main(model, prompts, tag, kv_cache_dtype=None, weight_dtype=None,
     ctr = st["counters"]
     L = cfg.num_hidden_layers
     chunks, decodes = ctr["prefill_chunks"], ctr["decode_iterations"]
-    # which kernel of each family the model's shapes take (the wrappers'
-    # routes; a *_general one only where the fast kernel is not built for
-    # them: the C1 phase's)
-    H, KVH, D = cfg.num_attention_heads, cfg.num_key_value_heads, \
-        cfg.head_dim
-    q = torch.empty((1, 1, H, D), dtype=cfg.torch_dtype, device="meta")
-    pool = torch.empty((1, bs, KVH, D), dtype=cfg.torch_dtype, device="meta")
-    hopper = paged_attention.hopper_path(q[0], pool, pool, H // KVH)
-    wgmma = chunked_prefill.wgmma_width(q, pool, pool) is not None
-    fast = all(n % 8 == 0 for n in (cfg.hidden_size, H * D, KVH * D,
-                                    cfg.intermediate_size))
-    fnl_decode = "fused_norm_linear_skinny" if fast \
-        else "fused_norm_linear_general"
-    fnl_chunk = "fused_norm_linear_tiled" if fast \
-        else "fused_norm_linear_general"
-    # the input norm's row scale and one launch for q/k/v in every layer;
-    # a dense layer's post-attention row scale and one launch for gate/up,
-    # a MoE layer's post-attention rms_norm (dispatch reads the normed
-    # rows), one dispatch and one combine; the final norm
-    n_fnl = L if cfg.moe_num_experts else 2 * L
-    per_decode = {"rms_norm": 1, "rms_scale": n_fnl, fnl_decode: n_fnl}
-    per_chunk = {"rms_norm": 1, "rms_scale": n_fnl, fnl_chunk: n_fnl}
-    if cfg.moe_num_experts:
-        for per in (per_decode, per_chunk):
-            per.update(rms_norm=L + 1, moe_dispatch=L, moe_combine=L)
-    per_decode[counter_name(paged_attention.KERNEL if hopper
-                            else paged_attention.GENERAL, kv_cache_dtype)] = L
-    per_chunk[counter_name(chunked_prefill.KERNEL if wgmma
-                           else chunked_prefill.GENERAL, kv_cache_dtype)] = L
-    # the KV write, one launch a layer into every kind of pool
-    per_decode[WRITE] = per_chunk[WRITE] = L
+    per_decode, per_chunk = step_launches(cfg, bs, kv_cache_dtype)
     expect = {k: per_decode.get(k, 0) * decodes + per_chunk.get(k, 0) * chunks
               for k in {**per_decode, **per_chunk}}
     print(f"  launches {counts} over {chunks} prefill chunks and {decodes} "
@@ -2574,6 +2603,8 @@ def phase_main(dev):
     gc.collect()
     phase_main_sampled(model, prompts, num_blocks, greedy, out)
     phase_main_graphs(dev, model)
+    free()
+    phase_main_overload(model, prompts, greedy, out)
     return counts, num_blocks
 
 
@@ -2775,6 +2806,362 @@ def phase_main_graphs(dev, model=None):
           + ", ".join(f"{k} {v:.3f}" for k, v in capture_s.items())
           + f"; phase 6g in {time.perf_counter() - t_phase:.1f} s",
           flush=True)
+
+
+# ---------------------------------------------------------------- phase 6o
+OVERLOAD_NEW = 16               # new tokens a request of phase 6o's ladder
+WATCHED = dict(watchdog_floor_s=0.25, watchdog_budget_mult=50.0,
+               step_max_retries=1, health_recovery_steps=2)
+OVERLOAD_METRICS = ("serving_watchdog_stalls_total",
+                    "serving_step_retries_total", "serving_requests_shed",
+                    "serving_requests_timed_out", "serving_requests_failed",
+                    "serving_requests_rejected", "serving_preemptions",
+                    "serving_degradation_level", "serving_health_state",
+                    "serving_requests_completed", "xla_")
+
+
+def _overload_engine(model, num_blocks, **kw):
+    """A fresh engine on phase 6's model and pages, its prefill and decode
+    graphs captured before it serves (as a server does at start-up): its
+    first watched calls are replays, latency samples."""
+    from paddle_tpu_torch.kernels import launches
+    from paddle_tpu_torch.serving import Engine, ServingConfig
+
+    kw.setdefault("max_batch_size", 8)
+    eng = Engine(model, ServingConfig(block_size=MAIN_BS, chunk_tokens=256,
+                                      num_blocks=num_blocks, **kw))
+    _warm_graphs(eng, False)
+    torch.cuda.synchronize()
+    launches.reset()
+    eng.overload_calls0 = [eng._steps[n].calls for n in GRAPH_STEPS[:2]]
+    return eng
+
+
+def _overload_checks(tag, eng, want_reasons=None, retried_decodes=0):
+    """After a part of phase 6o: one graph of the decode and prefill step
+    and none of the sampled one, no retrace, no leak, the finish reasons
+    asked for, and the launches counted since the engine was made equal
+    to each step's launches times its replays (``calls`` of the guarded
+    step: a stalled attempt ran its step and counts, a failed one did
+    not run it); ``retried_decodes`` decode replays beyond the decode
+    iterations.  Returns the counters."""
+    from paddle_tpu_torch.kernels import launches
+
+    torch.cuda.synchronize()
+    st = eng.stats()
+    ctr = st["counters"]
+    sizes = [eng.decode_cache_size(), eng.prefill_cache_size(),
+             eng.sampled_decode_cache_size()]
+    retraces = [eng._steps[n].retraces for n in GRAPH_STEPS]
+    if sizes != [1, 1, 0] or retraces != [0, 0, 0]:
+        raise AssertionError(f"{tag}: graphs {sizes}, retraces {retraces}")
+    eng.pool.check_leaks()
+    if want_reasons is not None:
+        got = sorted(r["finish_reason"] for r in st["requests"].values())
+        if got != sorted(want_reasons):
+            raise AssertionError(f"{tag}: finish reasons {got} != "
+                                 f"{sorted(want_reasons)}")
+    calls = [eng._steps[n].calls - c0 for n, c0 in
+             zip(GRAPH_STEPS[:2], eng.overload_calls0)]
+    if calls[0] != ctr["decode_iterations"] + retried_decodes:
+        raise AssertionError(f"{tag}: {calls[0]} decode replays over "
+                             f"{ctr['decode_iterations']} iterations and "
+                             f"{retried_decodes} retries")
+    per_decode, per_chunk = step_launches(eng.model.config, MAIN_BS)
+    expect = {k: per_decode.get(k, 0) * calls[0]
+              + per_chunk.get(k, 0) * calls[1]
+              for k in {**per_decode, **per_chunk}}
+    counts = launches.snapshot()
+    if counts != expect:
+        raise AssertionError(f"{tag}: launches {counts} != {expect} "
+                             f"({calls[0]} decode, {calls[1]} chunk "
+                             "replays)")
+    return ctr
+
+
+def _same_tokens(tag, reqs, want):
+    """Each request's tokens against a list of token lists."""
+    for r, w in zip(reqs, want):
+        if [int(t) for t in r.generated] != [int(t) for t in w]:
+            raise AssertionError(f"{tag}: {r.request_id}'s tokens differ "
+                                 "from the reference run's")
+
+
+def phase_main_overload(model, prompts, greedy, main_out):
+    """Phase 6o: the overload controller (serving/overload.py) and its
+    fault plan (resilience/chaos.py) on phase 6's model (Llama-3-8B
+    width, MAIN_LAYERS layers, bf16, pages of MAIN_BS), each part on a
+    fresh engine whose graphs were captured before it served, with the
+    registry on.  ``greedy`` holds phase 6's requests, ``main_out`` its
+    numbers (the profiles of a decode step and a prefill chunk).
+
+    (a) ladder: watermarks 0.5 / 0.3; a seeded burst of 12 prompts of
+        256-640 tokens, 16 new tokens each, into a pool of 0.8 of the
+        burst's blocks: the ladder climbs one level a tick from 0 to
+        pause_admissions or above, preempts, and after the drain idle
+        steps bring it (and its gauge) back to 0; every request
+        finishes "length" with the tokens of the same burst on an engine
+        at the default watermarks;
+    (b) stall: the watchdog at a 0.25 s floor, 50x its EWMA, one retry,
+        recovery after 2 clean steps; the third decode attempt sleeps
+        0.6 s: one stall, one retry, DEGRADED then SERVING, phase 6's
+        tokens for requests 1-3, and the retried decode's replay counted
+        twice;
+    (c) failures: a failed prefill attempt absorbed (phase 6's tokens);
+        two in a row quarantine the engine (EngineQuarantined), which
+        then refuses submit and step until revive(), after which the
+        stranded request finishes with phase 6's tokens; a poisoned
+        request finishes "error" beside unaffected others;
+    (d) shedding: after one drained request, seven seeded prompts of 640
+        tokens and phase 6's request 4 (640 tokens, a 10 s deadline),
+        all prefilled in one iteration (a budget of their 24 chunks),
+        then decoded together; three of 1024 tokens with a
+        5 ms deadline are shed at submit with no tokens; request 4 has
+        phase 6's tokens; the health snapshot's chunk and decode EWMAs
+        are at least the kernel time of phase 6's profiled chunk and
+        decode step (the watchdog times the device, not the launch);
+    (e) priority: a full queue of two; an arrival of priority 5 sheds
+        the youngest waiting request of priority 0 and is admitted
+        first (slot 0);
+    (f) the registry's Prometheus lines of the overload and compile
+        metrics, and the phase's wall time.
+    Every part asserts one graph of each step it ran, no retrace, no
+    leak and exact launch counts; nothing is caught but the faults the
+    part injects."""
+    from paddle_tpu_torch.observability import (get_registry,
+                                                prometheus_text, registry)
+    from paddle_tpu_torch.resilience import FaultPlan
+    from paddle_tpu_torch.resilience.chaos import burst_prompts
+    from paddle_tpu_torch.serving import (DEGRADED, LADDER_LEVELS, SERVING,
+                                          AdmissionError, EngineQuarantined)
+
+    t_phase = time.perf_counter()
+    V = model.config.vocab_size
+    phase6 = [r.generated for r in greedy]
+    get_registry().clear()
+    was_on = registry.enable()
+    print(f"[main overload] phase 6's model, pages of {MAIN_BS}: the ladder, "
+          "a stall, failures and quarantine, shedding, priorities",
+          flush=True)
+
+    # (a) the degradation ladder under a seeded burst
+    burst = burst_prompts(seed=18, n=12, min_len=256, max_len=640, vocab=V)
+    need = sum(-(-(len(p) + OVERLOAD_NEW) // MAIN_BS) for p in burst)
+    nb = 1 + int(0.8 * need)
+    runs = {}
+    for tag, kw in (("ladder", dict(kv_high_watermark=0.5,
+                                    kv_low_watermark=0.3)),
+                    ("default watermarks", {})):
+        eng = _overload_engine(model, nb, max_queue_len=len(burst), **kw)
+        reqs = [eng.submit(p, max_new_tokens=OVERLOAD_NEW) for p in burst]
+        t0 = time.perf_counter()
+        eng.run_until_complete()
+        wall = time.perf_counter() - t0
+        ladder = eng.overload.ladder
+        transitions = list(ladder.transitions)
+        for _ in range(len(LADDER_LEVELS)):
+            eng.step()                         # idle ticks unwind it
+        ctr = _overload_checks(f"6o(a) {tag}", eng,
+                               ["length"] * len(burst))
+        runs[tag] = (reqs, transitions, ctr, wall, ladder.level,
+                     eng.stats()["gauges"]["degradation_level"])
+        del eng
+        free()
+    reqs, transitions, ctr, wall, level, gauge = runs["ladder"]
+    levels = [lvl for _, lvl in transitions]
+    if not levels or any(abs(b - a) != 1 for a, b in
+                         zip([0] + levels, levels)) or \
+            max(levels) < LADDER_LEVELS.index("pause_admissions") or \
+            ctr["preemptions"] == 0 or level != 0 or gauge != 0:
+        raise AssertionError(f"6o(a): transitions {transitions}, "
+                             f"{ctr['preemptions']} preemptions, level "
+                             f"{level}, gauge {gauge}")
+    if runs["default watermarks"][1]:
+        raise AssertionError("6o(a): the default watermarks moved the "
+                             "ladder")
+    _same_tokens("6o(a)", reqs, [r.generated
+                                 for r in runs["default watermarks"][0]])
+    print(f"  (a) ladder: burst of {len(burst)} prompts "
+          f"({min(map(len, burst))}-{max(map(len, burst))} tokens, "
+          f"{OVERLOAD_NEW} new), pool {nb} blocks (0.8 of {need}); "
+          f"watermarks 0.5/0.3: {len(transitions)} transitions, levels "
+          f"{levels}, {ctr['preemptions']} preemptions, {wall:.2f} s "
+          f"(default watermarks: no transition, 0 preemptions "
+          f"{runs['default watermarks'][2]['preemptions'] == 0}, "
+          f"{runs['default watermarks'][3]:.2f} s); every request "
+          "'length' with the default engine's tokens; unwound to 0",
+          flush=True)
+    del runs, reqs
+
+    nb = 1 + sum(-(-(len(p) + MAIN_NEW) // MAIN_BS) for p in prompts) + 8
+
+    # (b) a stalled decode attempt
+    eng = _overload_engine(model, nb, **WATCHED)
+    states = []
+    eng.metrics.on_health = (lambda code, f=eng.metrics.on_health:
+                             (states.append(code), f(code)))
+    reqs = [eng.submit(prompts[i], max_new_tokens=MAIN_NEW)
+            for i in (1, 2, 3)]
+    with FaultPlan(step_delay_s={3: 0.6},
+                   step_fault_scope="serving::decode_step") as plan:
+        eng.run_until_complete()
+    ctr = _overload_checks("6o(b)", eng, ["length"] * 3, retried_decodes=1)
+    h = eng.health()
+    if plan.injected != [("serving_delay", 3, "serving::decode_step")] or \
+            ctr["watchdog_stalls"] != 1 or ctr["step_retries"] != 1 or \
+            states != [1, 0] or h["state"] != SERVING or \
+            eng.overload.decode_ewma.compile_s is not None:
+        raise AssertionError(f"6o(b): injected {plan.injected}, counters "
+                             f"{ctr}, health codes {states}, {h}")
+    _same_tokens("6o(b)", reqs, [phase6[i] for i in (1, 2, 3)])
+    print(f"  (b) stall: {plan.injected}: 1 stall, 1 retry, health "
+          f"{DEGRADED} then {SERVING} (codes {states}), decode budget "
+          f"{eng.overload.decode_watchdog.budget_s():.3f} s, phase 6's "
+          "tokens; the stalled decode's replay counted twice; no capture "
+          "observed by the watchdog (graphs captured at start-up)",
+          flush=True)
+    del eng, reqs
+    free()
+
+    # (c) failures, quarantine and revive, a poisoned request
+    eng = _overload_engine(model, nb, **WATCHED)
+    reqs = [eng.submit(prompts[i], max_new_tokens=MAIN_NEW)
+            for i in (1, 2)]
+    with FaultPlan(fail_step_at={2},
+                   step_fault_scope="serving::prefill_step") as plan:
+        eng.run_until_complete()
+    absorbed = plan.injected
+    _same_tokens("6o(c) absorbed", reqs, [phase6[i] for i in (1, 2)])
+    stranded = eng.submit(prompts[3], max_new_tokens=MAIN_NEW)
+    try:
+        with FaultPlan(fail_step_at={1, 2},
+                       step_fault_scope="serving::prefill_step"):
+            eng.run_until_complete()
+    except EngineQuarantined as e:
+        quarantined = str(e)
+    else:
+        raise AssertionError("6o(c): two failed attempts did not "
+                             "quarantine the engine")
+    try:
+        eng.submit(prompts[1], max_new_tokens=2)
+    except AdmissionError:
+        pass
+    else:
+        raise AssertionError("6o(c): a quarantined engine took a request")
+    try:
+        eng.step()
+    except EngineQuarantined:
+        pass
+    else:
+        raise AssertionError("6o(c): a quarantined engine stepped")
+    failed = eng.health()
+    eng.revive()
+    eng.run_until_complete()
+    _same_tokens("6o(c) revived", [stranded], [phase6[3]])
+    poison = [eng.submit(prompts[i], max_new_tokens=MAIN_NEW,
+                         request_id=f"poison-{i}") for i in (1, 4, 2)]
+    with FaultPlan(fail_request_ids={"poison-4"}) as plan:
+        eng.run_until_complete()
+    if [r.finish_reason for r in poison] != ["length", "error", "length"]:
+        raise AssertionError(f"6o(c): poisoned finish reasons "
+                             f"{[r.finish_reason for r in poison]}")
+    _same_tokens("6o(c) poison", [poison[0], poison[2]],
+                 [phase6[1], phase6[2]])
+    # a retry counted for each failed attempt: 1 absorbed, 2 quarantining
+    ctr = _overload_checks("6o(c)", eng, ["length"] * 5 + ["error"])
+    if ctr["step_retries"] != 3 or ctr["requests_rejected"] != 1 or \
+            failed["state"] != "failed" or \
+            absorbed != [("serving_fail", 2, "serving::prefill_step")]:
+        raise AssertionError(f"6o(c): counters {ctr}, health {failed}, "
+                             f"absorbed {absorbed}")
+    print(f"  (c) failures: {absorbed} absorbed with phase 6's tokens; two "
+          f"in a row: EngineQuarantined ({quarantined[:60]}...), submit "
+          "and step refused, revive() finished the stranded request with "
+          "phase 6's tokens; poison-4 'error' beside phase 6's tokens",
+          flush=True)
+    del eng, reqs, poison, stranded
+    free()
+
+    # (d) shedding
+    fill = burst_prompts(seed=19, n=7, min_len=640, max_len=640, vocab=V)
+    doomed = burst_prompts(seed=20, n=3, min_len=1024, max_len=1024,
+                           vocab=V)
+    (warm,) = burst_prompts(seed=21, n=1, min_len=256, max_len=256,
+                            vocab=V)
+    nb = 1 + sum(-(-(len(p) + MAIN_NEW) // MAIN_BS)
+                 for p in fill + [prompts[4], warm]) + 8
+    # every prompt's 3 chunks in the first iteration: the 8 requests then
+    # decode together, their steps as full as phase 6's profiled one
+    eng = _overload_engine(model, nb, prefill_token_budget=8 * 3 * 256)
+    eng.generate([warm], max_new_tokens=MAIN_NEW)
+    reqs = [eng.submit(p, max_new_tokens=MAIN_NEW) for p in fill]
+    feasible = eng.submit(prompts[4], max_new_tokens=MAIN_NEW,
+                          deadline_s=10.0)
+    shed = [eng.submit(p, max_new_tokens=MAIN_NEW, deadline_s=0.005)
+            for p in doomed]
+    est = eng.overload.estimate_ttft_s(eng, doomed[0])
+    eng.run_until_complete()
+    ctr = _overload_checks("6o(d)", eng,
+                           ["length"] * 9 + ["shed"] * len(doomed))
+    if [r.finish_reason for r in shed] != ["shed"] * len(doomed) or \
+            any(r.generated for r in shed) or \
+            feasible.finish_reason != "length" or \
+            ctr["requests_shed"] != len(doomed):
+        raise AssertionError(f"6o(d): shed {[r.finish_reason for r in shed]}"
+                             f", feasible {feasible.finish_reason}")
+    _same_tokens("6o(d)", [feasible], [phase6[4]])
+    h = eng.health()
+    chunk_ms = max(main_out["prefill_step_device_ms"])
+    decode_ms = max(main_out["decode_step_device_ms"])
+    print(f"  (d) shedding: {len(doomed)} requests of 1024 tokens with a 5 ms "
+          f"deadline shed at submit (estimated TTFT {est:.3f} s), request "
+          f"4 (10 s) 'length' with phase 6's tokens; health {h}",
+          flush=True)
+    print(f"  (d) watchdog EWMAs: chunk {h['ewma_chunk_s'] * 1e3:.3f} ms "
+          f"(phase 6's chunk: {chunk_ms:.3f} ms of kernels), decode "
+          f"{h['ewma_decode_s'] * 1e3:.3f} ms (phase 6's decode step: "
+          f"{decode_ms:.3f} ms of kernels)", flush=True)
+    if h["ewma_chunk_s"] * 1e3 < chunk_ms or \
+            h["ewma_decode_s"] * 1e3 < decode_ms:
+        raise AssertionError("6o(d): a watchdog EWMA is below its step's "
+                             "kernel time: it does not time the device")
+    ewma = (h["ewma_chunk_s"], h["ewma_decode_s"])
+    del eng, reqs, shed, feasible
+    free()
+
+    # (e) priorities at a full queue
+    eng = _overload_engine(model, nb, max_queue_len=2)
+    lo = [eng.submit(prompts[i], max_new_tokens=MAIN_NEW, priority=0)
+          for i in (1, 2)]
+    hi = eng.submit(prompts[3], max_new_tokens=MAIN_NEW, priority=5)
+    if lo[1].finish_reason != "shed" or hi.finish_reason is not None:
+        raise AssertionError(f"6o(e): full queue: {lo[1].finish_reason}")
+    eng.step()
+    slots = (hi.slot, lo[0].slot)
+    eng.run_until_complete()
+    _overload_checks("6o(e)", eng, ["shed", "length", "length"])
+    if slots != (0, 1):
+        raise AssertionError(f"6o(e): admitted into slots {slots}")
+    _same_tokens("6o(e)", [hi, lo[0]], [phase6[3], phase6[1]])
+    print("  (e) priority: a full queue of two; priority 5 shed the "
+          "youngest priority-0 request and took slot 0 before the older "
+          "one; phase 6's tokens", flush=True)
+    del eng, lo, hi
+    free()
+
+    # (f) the registry
+    registry.enable(was_on)
+    lines = [ln for ln in prometheus_text().splitlines()
+             if ln.startswith(OVERLOAD_METRICS)]
+    print("  (f) registry (Prometheus text, overload and compile metrics):",
+          flush=True)
+    for ln in lines:
+        print(f"    {ln}")
+    wall = time.perf_counter() - t_phase
+    print(f"  phase 6o in {wall:.1f} s; EWMAs (d): chunk "
+          f"{ewma[0] * 1e3:.3f} ms, decode {ewma[1] * 1e3:.3f} ms",
+          flush=True)
+    main_out["overload_wall_s"] = wall
 
 
 # ---------------------------------------------------------------- phase 2d

@@ -18,10 +18,15 @@ the reference counts XLA compiles:
   warns (:class:`RetraceWarning`) or raises (:class:`RetraceError`).
   The serving engine's strict no-retrace assertion is this primitive
   with ``on_retrace="raise"``.
-- :func:`compile_stats` aggregates every live tracked function.
-
-The reference also mirrors each compile into its metrics registry; the
-port has no registry yet, so nothing is mirrored.
+- :func:`compile_stats` aggregates every live tracked function;
+  when :func:`registry.enabled`, each compile also lands in the shared
+  registry under the reference's names (``xla_compiles_total`` /
+  ``xla_compile_seconds_total`` counters, the ``xla_jit_cache_entries``
+  gauge and, past the warmup allowance, ``xla_retraces_total``, each
+  labelled by the step's ``fn``), so a dashboard written for the
+  reference reads the port.  Here a "compile" is a graph capture (with
+  its eager warmup, and on a cold build directory the kernels' build);
+  the names keep the reference's ``xla_`` prefix all the same.
 """
 from __future__ import annotations
 
@@ -31,6 +36,8 @@ import time
 import warnings
 import weakref
 from typing import Callable, Dict, List, Optional
+
+from . import registry as _registry
 
 __all__ = [
     "RetraceError",
@@ -113,13 +120,15 @@ class TrackedFunction:
         self.calls += 1
         after = jit_cache_size(self._fn)
         if after > before:
+            dt = time.perf_counter() - t0
             self.compiles += after - before
-            self.compile_seconds += time.perf_counter() - t0
-            self._on_compile(after)
+            self.compile_seconds += dt
+            self._on_compile(after, dt)
         return out
 
-    def _on_compile(self, cache_size: int):
-        """Called after each compiling call (a hook for the guard)."""
+    def _on_compile(self, cache_size: int, dt: float):
+        if _registry.enabled():
+            _mirror_compile(self.label, cache_size, dt)
 
     def stats(self) -> dict:
         return {"label": self.label, "calls": self.calls,
@@ -130,6 +139,21 @@ class TrackedFunction:
     def __repr__(self):
         return (f"<TrackedFunction {self.label!r} compiles={self.compiles} "
                 f"cache={self.cache_size()}>")
+
+
+def _mirror_compile(label: str, cache_size: int, dt: float):
+    """Land one compile (a graph capture) in the shared registry
+    (enabled() only)."""
+    reg = _registry.get_registry()
+    reg.counter("xla_compiles_total",
+                "jit compiles observed per tracked entry point").inc(
+                    fn=label)
+    reg.counter("xla_compile_seconds_total",
+                "cumulative wall seconds of compiling calls").inc(
+                    dt, fn=label)
+    reg.gauge("xla_jit_cache_entries",
+              "live jit-cache entries per tracked entry point").set(
+                  cache_size, fn=label)
 
 
 class _RetraceGuarded(TrackedFunction):
@@ -151,9 +175,15 @@ class _RetraceGuarded(TrackedFunction):
         """Compiles past the warmup allowance."""
         return max(0, self.compiles - self.after)
 
-    def _on_compile(self, cache_size: int):
+    def _on_compile(self, cache_size: int, dt: float):
+        super()._on_compile(cache_size, dt)
         if self.compiles <= self.after:
             return
+        if _registry.enabled():
+            _registry.get_registry().counter(
+                "xla_retraces_total",
+                "compiles past the warmup allowance (H101 at runtime)",
+            ).inc(fn=self.label)
         msg = (f"{self.label}: retraced after warmup (compile "
                f"#{self.compiles}, allowance {self.after}; jit cache now "
                f"{cache_size} entries) — an input changed shape/dtype or "

@@ -2,8 +2,9 @@
 
 - :mod:`engine`    — the continuous-batching :class:`Engine`
 - :mod:`cache`     — :class:`BlockKVPool`, the paged cache memory manager
-- :mod:`scheduler` — FCFS + fairness policy, admission control, preemption
+- :mod:`scheduler` — FCFS + priority policy, admission control, preemption
 - :mod:`metrics`   — TTFT/TPOT/queue-time counters + engine gauges
+- :mod:`overload`  — load shedding, degradation ladder, step watchdog
 - :mod:`sampling`  — seeded temperature/top-k/top-p (:class:`SamplingParams`)
 - :mod:`stream`    — SSE framing over ``submit(on_token=...)``
 - :mod:`endpoint`  — Predictor-shaped :class:`Endpoint` front door
@@ -24,6 +25,8 @@ from .cache import BlockKVPool, PoolExhausted
 from .endpoint import Endpoint
 from .engine import Engine, ServingConfig
 from .metrics import RequestTimeline, ServingMetrics
+from .overload import (DEGRADED, FAILED, LADDER_LEVELS, SERVING,
+                       EngineQuarantined, OverloadController)
 from .sampling import SamplingParams
 from .scheduler import (FINISHED, PREEMPTED, PREFILLING, QUEUED, RUNNING,
                         AdmissionError, QueueFull, Request, Scheduler)
@@ -32,7 +35,8 @@ from .stream import DONE_FRAME, sse_event, sse_stream, stream_events
 __all__ = [
     "Engine", "ServingConfig", "Endpoint", "BlockKVPool", "PoolExhausted",
     "Scheduler", "Request", "AdmissionError", "QueueFull", "ServingMetrics",
-    "RequestTimeline", "SamplingParams", "sse_event", "sse_stream",
-    "stream_events", "DONE_FRAME", "QUEUED", "PREFILLING", "RUNNING",
-    "PREEMPTED", "FINISHED",
+    "RequestTimeline", "OverloadController", "EngineQuarantined",
+    "SamplingParams", "sse_event", "sse_stream", "stream_events",
+    "DONE_FRAME", "LADDER_LEVELS", "SERVING", "DEGRADED", "FAILED",
+    "QUEUED", "PREFILLING", "RUNNING", "PREEMPTED", "FINISHED",
 ]

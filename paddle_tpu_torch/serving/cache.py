@@ -145,6 +145,14 @@ class BlockKVPool:
         """Bytes of the blocks that live requests reference."""
         return self.num_used * self.block_bytes()
 
+    def byte_utilization(self) -> float:
+        """Fraction of the pool's KV byte capacity that live requests
+        reference: the degradation ladder's pressure signal
+        (``serving/overload.py``).  Blocks are alike within one pool, so
+        it equals :meth:`utilization`; in bytes, pools of two KV dtypes
+        sized from one ``kv_pool_bytes`` budget compare per byte."""
+        return self.used_bytes() / self.capacity_bytes()
+
     def blocks_for(self, num_tokens: int) -> int:
         return -(-int(num_tokens) // self.block_size)
 
@@ -178,6 +186,18 @@ class BlockKVPool:
             del self._hash_index[h]
         self.evictions += 1
         return b
+
+    def evict_parked(self, n: Optional[int] = None) -> int:
+        """Evict up to ``n`` (default: all) parked prefix-cache blocks,
+        LRU first, onto the free list; returns how many.  The
+        degradation ladder's first rung: parked blocks already count as
+        headroom (``num_free``), but reclaiming them up front drops their
+        stale index entries before a burst evicts them one by one."""
+        count = 0
+        while self._cached_free and (n is None or count < n):
+            self._free.append(self._evict_lru())
+            count += 1
+        return count
 
     def _release_block(self, b: int):
         self._owners.pop(b, None)
@@ -326,6 +346,5 @@ class BlockKVPool:
             "block_bytes": self.block_bytes(),
             "used_bytes": self.used_bytes(),
             "capacity_bytes": self.capacity_bytes(),
-            "byte_utilization": round(self.used_bytes()
-                                      / self.capacity_bytes(), 4),
+            "byte_utilization": round(self.byte_utilization(), 4),
         }

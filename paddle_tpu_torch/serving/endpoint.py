@@ -99,11 +99,11 @@ class Endpoint:
         return self.engine.stats()
 
     def health(self) -> dict:
-        """The reference reports ``Engine.health()``, the overload
-        controller's state; the port has no overload controller yet."""
-        raise NotImplementedError(
-            "Endpoint.health needs Engine.health, which comes with A1's "
-            "overload controller; it is not ported to paddle_tpu_torch yet")
+        """Engine health snapshot (``Engine.health()``): the overload
+        controller's state, degradation level, watchdog totals, latency
+        EWMAs, queue depth and KV pressure, for a load balancer's
+        probe."""
+        return self.engine.health()
 
 
 class _Handle:

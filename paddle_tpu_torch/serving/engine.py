@@ -18,11 +18,21 @@ picks on its accelerator), from full-precision or quantized KV pools
 a ``kv_pool_bytes`` budget) and with full-precision or int8 weights
 (``weight_dtype``).  Requests decode greedily or sample (temperature,
 top-k, top-p, a per-request seed: ``serving/sampling.py``), and stream
-their tokens through ``on_token``.  Options of later slices raise
-``NotImplementedError`` when set: speculative decoding, a mesh, the
-startup X-ray / shard-plan audits, and the overload controls (request
-and token deadlines, priorities, load shedding, the watchdog and the
-degradation ladder).
+their tokens through ``on_token``.
+
+The overload controller (``serving/overload.py``) is the reference's:
+request and rolling token deadlines on the monotonic clock, priorities
+(admission prefers high, preemption and queue-full shedding take low),
+load shedding at ``submit`` on an estimated TTFT, the KV-pressure
+degradation ladder ticked before each admission, and a watchdog around
+every step call with bounded retries, ``health()`` and ``revive()``.
+Each watched call ends with the step's output on the host (or a
+synchronize), so its time covers the device's work; a call that
+captured a graph is its step's compile observation.  The engine moves
+its host state only after a watched call returns, so a retried step
+writes the same KV rows again.  Options of later slices raise
+``NotImplementedError`` when set: speculative decoding, a mesh and the
+startup X-ray / shard-plan audits.
 
 Each step (decode, sampled decode, prefill chunk) is a
 ``jit.GraphStep``: on the card it is captured once as a CUDA graph and
@@ -38,12 +48,16 @@ of another shape, or a rebound pool) raises ``RetraceError`` under
 Correctness contract: outputs are token-exact with the JAX engine on
 the same weights (tests/test_torch_serving.py,
 tests/test_torch_sampled_serving.py), greedy and sampled under the same
-seeds, across preemption and with the prefix cache on or off.
+seeds, across preemption and with the prefix cache on or off; under the
+same fault schedule (``resilience.FaultPlan``) the finish reasons,
+ladder transitions, counters and health states are the JAX engine's too
+(tests/test_torch_overload.py).
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
@@ -55,27 +69,23 @@ from ..kernels.kv_quant import (KV_DTYPE_CODES, kv_scale_bytes_per_block,
 from ..models.generation import (_cache_dims, make_chunked_prefill_step,
                                  make_paged_decode_step,
                                  normalize_stop_sequences)
-from ..observability import warn_on_retrace
+from ..observability import RetraceError, warn_on_retrace
 from ..quantization.serving import quantize_model_weights
+from ..resilience import chaos
 from .cache import BlockKVPool, PoolExhausted
 from .metrics import ServingMetrics
+from .overload import EngineQuarantined, OverloadController
 from .sampling import make_sampled_decode_step, resolve_sampling, sample_at
 from .scheduler import (FINISHED, PREFILLING, RUNNING, AdmissionError,
-                        Request, Scheduler)
+                        QueueFull, Request, Scheduler)
 
 # ServingConfig fields of later slices, each with the ROADMAP item that
 # ports it: a value other than the field's default raises
-_OVERLOAD = "A1's overload controller"
 LATER_SLICE_OPTIONS = {
     "speculative": "A1's speculative decoding",
     "mesh": "A3's mesh runtime",
     "xray_on_start": "A5's xray", "hbm_budget_bytes": "A5's xray",
     "xray_chip": "A5's xray", "shardplan": "A5's shard-plan audit",
-    "enable_load_shedding": _OVERLOAD, "shed_safety_factor": _OVERLOAD,
-    "kv_high_watermark": _OVERLOAD, "kv_low_watermark": _OVERLOAD,
-    "watchdog_budget_mult": _OVERLOAD, "watchdog_floor_s": _OVERLOAD,
-    "step_max_retries": _OVERLOAD, "step_retry_backoff_s": _OVERLOAD,
-    "health_recovery_steps": _OVERLOAD,
 }
 
 
@@ -83,7 +93,9 @@ LATER_SLICE_OPTIONS = {
 class ServingConfig:
     """Engine knobs (the reference's names and defaults)."""
 
-    # a replica's name in the reference's fleets; taken and unused here
+    # the engine's name: tags its watchdog and chaos step labels as
+    # "serving::decode_step@<name>" (the reference's fleets name their
+    # replicas so); empty keeps the bare labels
     name: str = ""
     max_batch_size: int = 8       # decode-bucket slots
     block_size: int = 16          # KV-cache tokens per block
@@ -112,6 +124,29 @@ class ServingConfig:
     # a KV byte budget: when set, num_blocks is derived from it and the
     # pool's block bytes (dtype-aware, scale rows included)
     kv_pool_bytes: Optional[int] = None
+    # ---- overload control (serving/overload.py) ----
+    # shed at submit() (finish_reason "shed") when the estimated TTFT
+    # (pending prefill tokens over the chunk and decode EWMAs) busts the
+    # deadline; never while the EWMAs are cold
+    enable_load_shedding: bool = True
+    shed_safety_factor: float = 1.0   # shed when est > deadline * factor
+    # KV byte-pressure watermarks of the degradation ladder, with
+    # hysteresis: one level up per iteration STRICTLY above high, one
+    # down below low.  The default high of 1.0 cannot be exceeded, so
+    # the ladder is opt-in
+    kv_high_watermark: float = 1.0
+    kv_low_watermark: float = 0.75
+    # step watchdog: budget = watchdog_budget_mult x the step's EWMA,
+    # floored by watchdog_floor_s; a stall or a step exception gets
+    # step_max_retries retries with backoff from step_retry_backoff_s,
+    # then the engine is DEGRADED (stalls) or FAILED (exceptions,
+    # EngineQuarantined)
+    watchdog_budget_mult: float = 20.0
+    watchdog_floor_s: float = 30.0
+    step_max_retries: int = 2
+    step_retry_backoff_s: float = 0.05
+    # consecutive in-budget steps before DEGRADED heals to SERVING
+    health_recovery_steps: int = 3
     # ---- later slices (LATER_SLICE_OPTIONS): only the defaults are taken
     speculative: Any = None
     mesh: Any = None
@@ -119,15 +154,6 @@ class ServingConfig:
     hbm_budget_bytes: Optional[int] = None
     xray_chip: str = "v5e"
     shardplan: Any = None
-    enable_load_shedding: bool = True
-    shed_safety_factor: float = 1.0
-    kv_high_watermark: float = 1.0
-    kv_low_watermark: float = 0.75
-    watchdog_budget_mult: float = 20.0
-    watchdog_floor_s: float = 30.0
-    step_max_retries: int = 2
-    step_retry_backoff_s: float = 0.05
-    health_recovery_steps: int = 3
 
 
 _DEFAULTS = {f.name: f.default for f in dataclasses.fields(ServingConfig)}
@@ -194,6 +220,7 @@ class Engine:
         self.metrics.on_kv_cache_config(
             KV_DTYPE_CODES[self.kv_cache_dtype],
             kv_scale_bytes_per_block(cfg.block_size, self.kv_cache_dtype))
+        self.overload = OverloadController(cfg, self.metrics)
         S = cfg.max_batch_size
         self._slots: List[Optional[Request]] = [None] * S
         self._block_tables = np.zeros((S, self.max_blocks_per_seq),
@@ -227,6 +254,15 @@ class Engine:
         self._decode_step = self._steps["decode_step"]
         self._prefill_step = self._steps["prefill_step"]
         self._sampled_decode_step = self._steps["sampled_decode_step"]
+        # one watchdog a step, each with its own EWMA; a call that grew
+        # its step's graphs is that EWMA's compile observation.  The
+        # counts are read from _steps: spies may replace the attributes
+        self._sampled_wd = self.overload.extra_watchdog(
+            "sampled_decode_step")
+        for wd, name in ((self.overload.decode_watchdog, "decode_step"),
+                         (self.overload.prefill_watchdog, "prefill_step"),
+                         (self._sampled_wd, "sampled_decode_step")):
+            wd.compiles = lambda step=self._steps[name]: step.compiles
         self._finished: Dict[str, Request] = {}
         self._ids = itertools.count()
         self._evictions_seen = 0
@@ -242,8 +278,23 @@ class Engine:
                deadline_s: Optional[float] = None, priority: int = 0
                ) -> Request:
         """Queue one request and return its :class:`Request` handle.
-        Raises :class:`AdmissionError` when the queue is full or the
-        sequence can never fit the pool.
+        Raises :class:`AdmissionError` when the queue is full, the
+        sequence can never fit the pool, or the engine is quarantined
+        FAILED.
+
+        ``deadline_s`` is an SLO on the monotonic clock from submission:
+        once past it the request retires with ``finish_reason="timeout"``
+        (partial tokens kept), queued, mid-prefill or mid-decode.  When
+        load shedding is on and the latency EWMAs are warm, a request
+        whose estimated time to first token already busts its deadline
+        retires at once with ``finish_reason="shed"`` (returned, not
+        raised).  ``token_deadline_s`` is a rolling inter-token SLO: it
+        moves on at every token, times out a stalled stream, and the
+        shedder takes it as a bound on the first token too.
+        ``priority`` (higher wins) orders overload decisions: admission
+        prefers high, shedding and preemption take the lowest first, and
+        a higher-priority arrival at a FULL queue sheds the
+        lowest-priority waiting request instead of being refused.
 
         Sampling: ``sampling=SamplingParams(...)`` (or a dict of its
         fields), or ``temperature``/``do_sample``/``top_k``/``top_p``/
@@ -252,14 +303,13 @@ class Engine:
         with the token index on the device, so its tokens do not depend
         on batching or preemption.  ``on_token`` fires once per token,
         in order; a callback that raises retires only its request, with
-        ``finish_reason="error"``.  Deadlines and priorities belong to
-        the overload controller of a later slice and raise
-        ``NotImplementedError``."""
-        if token_deadline_s is not None or deadline_s is not None \
-                or priority != 0:
-            raise NotImplementedError(
-                "overload control (token_deadline_s, deadline_s, priority)"
-                " is not ported to paddle_tpu_torch yet")
+        ``finish_reason="error"``."""
+        if self.overload.health.failed:
+            self.metrics.on_reject()
+            raise AdmissionError(
+                "engine quarantined FAILED "
+                f"({self.overload.health.last_error}); revive() after "
+                "operator intervention")
         params = resolve_sampling(sampling, temperature=temperature,
                                   do_sample=do_sample, top_k=top_k,
                                   top_p=top_p, seed=seed)
@@ -272,17 +322,41 @@ class Engine:
             stop_sequences=normalize_stop_sequences(stop_sequences,
                                                     tokenizer),
             request_id=request_id or f"req-{next(self._ids)}",
+            deadline_s=deadline_s, priority=priority,
             sampling=params,
             sampling_key=None if params is None
             else params.base_key(self.generator),
-            on_token=on_token)
+            on_token=on_token, token_deadline_s=token_deadline_s)
         if req.prompt_len + req.max_new_tokens > self.max_model_len:
             self.metrics.on_reject()
             raise AdmissionError(
                 f"{req.request_id}: prompt ({req.prompt_len}) + "
                 f"max_new_tokens ({req.max_new_tokens}) exceeds "
                 f"max_model_len ({self.max_model_len})")
+        # load shedding: when even an optimistic TTFT estimate busts the
+        # SLO, retire now; the caller gets the handle back, "shed"
+        effective_deadline = deadline_s
+        if token_deadline_s is not None:
+            effective_deadline = token_deadline_s \
+                if effective_deadline is None \
+                else min(effective_deadline, token_deadline_s)
+        if self.overload.should_shed(self, req.prompt, effective_deadline):
+            self.metrics.on_submit(req.request_id)
+            if req.on_token is not None:
+                self.metrics.on_stream_start()
+            self._retire(req, "shed")
+            return req
         try:
+            self.scheduler.enqueue(req)
+        except QueueFull:
+            victim = self.scheduler.shed_candidate(req.priority)
+            if victim is None:
+                self.metrics.on_reject()
+                raise
+            # a full queue and a higher-priority arrival: the lowest-
+            # priority waiting request is shed and gives up its place
+            self.scheduler.waiting.remove(victim)
+            self._retire(victim, "shed")
             self.scheduler.enqueue(req)
         except AdmissionError:
             self.metrics.on_reject()
@@ -294,9 +368,18 @@ class Engine:
 
     # ------------------------------------------------------------- step
     def step(self) -> bool:
-        """One engine iteration: admit, advance prefill chunks under the
-        token budget, then one decode step over the bucket.  Returns
-        True while there is work left."""
+        """One engine iteration: a tick of the degradation ladder, admit,
+        advance prefill chunks under the token budget, then one decode
+        step over the bucket.  Returns True while there is work left.
+        Raises :class:`EngineQuarantined` while the engine is FAILED
+        (``revive()`` first)."""
+        if self.overload.health.failed:
+            raise EngineQuarantined(
+                f"engine quarantined FAILED "
+                f"({self.overload.health.last_error}); revive() first")
+        # before admission, so pause_admissions takes effect this
+        # iteration
+        self.overload.ladder.tick(self)
         self._admit()
         self._prefill_tick()
         if any(r is not None and r.state == RUNNING for r in self._slots):
@@ -324,6 +407,13 @@ class Engine:
 
     # -------------------------------------------------------- admission
     def _admit(self):
+        # deadline sweep over the wait queue: an expired request must not
+        # take a prefill and a slot it can no longer use
+        for req in [r for r in self.scheduler.waiting if r.expired()]:
+            self.scheduler.waiting.remove(req)
+            self._retire(req, "timeout")
+        if self.overload.ladder.admissions_paused:
+            return
         free_slots = [i for i, r in enumerate(self._slots) if r is None]
         while free_slots:
             req = self.scheduler.next_admittable()
@@ -355,6 +445,7 @@ class Engine:
         req.slot = slot
         req.blocks = blocks
         req.prefill_pos = cached_len
+        req.cached_tokens = cached_len
         req.prefill_chunks = 0
         self.scheduler.running.append(req)
         self._slots[slot] = req
@@ -363,14 +454,20 @@ class Engine:
         self._lengths[slot] = 0
         self._pending[slot] = 0
         self.metrics.on_admit(req.request_id)
-        self.metrics.on_prefix_lookup(cached_len, req.prompt_len)
+        self.metrics.on_prefix_lookup(req.request_id, cached_len,
+                                      req.prompt_len)
         return True
 
     def _prefill_tick(self):
         """Advance PREFILLING requests by fixed-shape chunks, oldest
-        first, until the token budget runs out (at least one chunk runs
-        each iteration)."""
-        budget = self.config.prefill_token_budget or self.chunk_tokens
+        first, until the token budget (the ladder's) runs out; at least
+        one chunk runs each iteration.  An expired request retires
+        "timeout"; a request whose chunk raises retires "error" and the
+        engine serves the rest (poison isolation), but a quarantine or a
+        retrace is the engine's fault, not the request's, and
+        propagates."""
+        budget = self.overload.ladder.effective_prefill_budget(
+            self.config.prefill_token_budget or self.chunk_tokens)
         prefilling = sorted(
             (r for r in self.scheduler.running if r.state == PREFILLING),
             key=lambda r: r.ordinal)
@@ -378,7 +475,18 @@ class Engine:
             if budget <= 0:
                 break
             while budget > 0 and req.state == PREFILLING:
-                self._prefill_chunk(req)
+                if req.expired():
+                    self._retire(req, "timeout")
+                    break
+                try:
+                    chaos.maybe_fail_request(req.request_id)
+                    self._prefill_chunk(req)
+                except (EngineQuarantined, RetraceError):
+                    raise
+                except Exception as e:  # noqa: BLE001 (poison isolation)
+                    req.error = f"{type(e).__name__}: {e}"
+                    self._retire(req, "error")
+                    break
                 budget -= self.chunk_tokens
 
     def _prefill_chunk(self, req: Request):
@@ -396,37 +504,55 @@ class Engine:
         ids = np.zeros((1, C), np.int32)
         ids[0, :n_tok] = req.prompt[start:start + n_tok]
         bt = self._block_tables[req.slot:req.slot + 1]
-        last = self._prefill_step(ids, self.pool.layers, bt,
-                                  np.asarray([start], np.int32), n_tok - 1)
+        starts = np.asarray([start], np.int32)
+        final = start + n_tok == req.prompt_len
+        params = req.sampling
+        if final and params is not None:
+            # the first token's sampling lane, at token index 0 of the
+            # request's key: the slot's own state is written only after
+            # the watched call, so a retry sees what the first try saw
+            lane = (torch.tensor([params.temperature], dtype=torch.float32),
+                    torch.tensor([params.top_k], dtype=torch.int64),
+                    torch.tensor([params.top_p], dtype=torch.float32),
+                    torch.from_numpy(req.sampling_key)[None],
+                    torch.zeros((1,), dtype=torch.int64))
+            lane = tuple(t.to(self.device) for t in lane)
+
+        def watched():
+            # the step by attribute (spies replace it), then its result
+            # on the host: the first token, or for a chunk that is not
+            # the prompt's last a synchronize, so the watchdog's time
+            # covers the device's work and not the replay's launch
+            last = self._prefill_step(ids, self.pool.layers, bt, starts,
+                                      n_tok - 1)
+            if not final:
+                if last.is_cuda:
+                    torch.cuda.current_stream(last.device).synchronize()
+                return None
+            if params is not None:
+                return int(sample_at(last, *lane)[0].item())
+            return int(torch.argmax(last[0]).item())
+
+        first_tok = self.overload.prefill_watchdog.call(watched)
         req.prefill_pos = start + n_tok
         req.prefill_chunks += 1
-        if req.prefill_pos < req.prompt_len:
+        if not final:
             return
-        # prompt complete: the last chunk's logits row gives the first
-        # token, a sampled request's at token index 0 of its key (its
-        # slot's counter is 0: a slot's sampling state is clear while no
-        # sampled request holds it)
+        # prompt complete: the slot takes the request's sampling state,
+        # its counter at the next token index (1)
         slot = req.slot
-        params = req.sampling
         if params is not None:
             self._temps[slot] = params.temperature
             self._top_ks[slot] = params.top_k
             self._top_ps[slot] = params.top_p
             self._keys[slot] = torch.from_numpy(req.sampling_key)
-            one = slice(slot, slot + 1)
-            first = sample_at(last, self._temps[one], self._top_ks[one],
-                              self._top_ps[one], self._keys[one],
-                              self._counters[one])[0]
             self._counters[slot] = 1
-        else:
-            first = torch.argmax(last[0])
-        first_tok = int(first.item())
         req.state = RUNNING
         req.generated = [first_tok]
         self._lengths[slot] = req.prompt_len
         self._pending[slot] = first_tok
         self.metrics.on_first_token(req.request_id)
-        self.metrics.on_prefill_complete(req.prefill_chunks)
+        self.metrics.on_prefill_complete(req.request_id, req.prefill_chunks)
         self.pool.register_prefix(req.request_id, req.prompt, req.blocks)
         if not self._emit_token(req, first_tok):
             self._retire(req, "error")
@@ -517,10 +643,12 @@ class Engine:
         return bt
 
     def _emit_token(self, req: Request, tok: int) -> bool:
-        """Fire the request's streaming callback with ``tok``.  Returns
-        False when the callback raised: the consumer failed, so the
-        caller retires that request as an error and the engine keeps
-        serving the others."""
+        """Move the request's rolling token deadline on and fire its
+        streaming callback with ``tok``.  Returns False when the
+        callback raised: the consumer failed, so the caller retires that
+        request as an error and the engine keeps serving the others."""
+        if req.token_deadline_s is not None:
+            req.token_deadline_t = time.monotonic() + req.token_deadline_s
         if req.on_token is None:
             return True
         try:
@@ -543,9 +671,14 @@ class Engine:
         if any(r.sampling is not None for r in active):
             next_toks = self._sampled_iteration(tokens, tables, lengths)
         else:
-            logits = self._decode_step(tokens, self.pool.layers, tables,
-                                       lengths)
-            next_toks = torch.argmax(logits, dim=-1).cpu().numpy()
+            def watched():
+                # the step by attribute, its tokens read to the host
+                # inside the watchdog's window (the device's work timed)
+                logits = self._decode_step(tokens, self.pool.layers, tables,
+                                           lengths)
+                return torch.argmax(logits, dim=-1).cpu().numpy()
+
+            next_toks = self.overload.decode_watchdog.call(watched)
         self.metrics.on_decode_iteration(
             len(active), self.config.max_batch_size,
             self.pool.utilization())
@@ -565,12 +698,17 @@ class Engine:
         Gumbel argmax on the device, run whenever an active slot
         samples: greedy slots ride along on the temperature-0 argmax
         lane.  Each sampled slot's counter then moves to its next token
-        index on the device.  Returns the [S] next tokens."""
-        toks = self._sampled_decode_step(
-            tokens, self.pool.layers, tables, lengths, self._temps,
-            self._top_ks, self._top_ps, self._keys, self._counters)
+        index on the device, after the watched call: a retried step
+        draws at the same index.  Returns the [S] next tokens."""
+        def watched():
+            toks = self._sampled_decode_step(
+                tokens, self.pool.layers, tables, lengths, self._temps,
+                self._top_ks, self._top_ps, self._keys, self._counters)
+            return toks.cpu().numpy()
+
+        next_toks = self._sampled_wd.call(watched)
         self._counters += self._temps > 0
-        return toks.cpu().numpy()
+        return next_toks
 
     # ----------------------------------------------------------- retire
     def _maybe_retire(self, req: Request):
@@ -618,10 +756,36 @@ class Engine:
         iteration, forever."""
         return self._steps["sampled_decode_step"]._cache_size()
 
+    def health(self) -> dict:
+        """Engine health snapshot (``serving/overload.py``): state
+        (``"serving"`` / ``"degraded"`` / ``"failed"``), the degradation
+        ladder's level, the watchdogs' stall and retry totals, the
+        latency EWMAs, queue depth and KV pressure; host-side, cheap to
+        poll."""
+        return self.overload.snapshot(self)
+
+    def revive(self):
+        """Operator override after a FAILED quarantine (a watchdog out
+        of retries): health back to SERVING, so ``submit`` and ``step``
+        take work again.  The caller decides the fault is gone."""
+        self.overload.health.revive()
+
+    def pending_prefill_tokens(self) -> int:
+        """Prompt tokens admitted but not yet computed plus every
+        waiting prompt's: the prefill backlog a new arrival queues
+        behind (the TTFT estimate's numerator)."""
+        pending = sum(r.prompt_len - r.prefill_pos
+                      for r in self.scheduler.running
+                      if r.state == PREFILLING)
+        pending += sum(r.prompt_len for r in self.scheduler.waiting)
+        return pending
+
     def stats(self) -> dict:
         d = self.metrics.as_dict()
         d["pool"] = self.pool.stats()
         d["queue_depth"] = len(self.scheduler.waiting)
+        d["pending_prefill_tokens"] = self.pending_prefill_tokens()
+        d["health"] = self.health()
         # compile_stats()'s fields for this engine's three steps
         d["compiles"] = {}
         for step in self._steps.values():

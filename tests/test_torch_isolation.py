@@ -2,8 +2,9 @@
 
 - importing the package and every module in it (the static-graph
   frontend ``static``, the ``nn`` layers, the CUDA-graph steps of
-  ``jit`` and the compile accounting of ``observability`` included;
-  ``compile_tracker`` is a copy, not an import) loads no ``jax*``
+  ``jit``, the compile accounting and metrics registry of
+  ``observability`` and the fault plan of ``resilience`` included; they
+  are copies, not imports) loads no ``jax*``
   module and nothing of the JAX package (``paddle_tpu`` /
   ``paddle_tpu.*``), and no source file names one;
 - its entry points run on ``cuda`` unless told otherwise, and raise
@@ -45,7 +46,8 @@ print(json.dumps({"bad": bad, "ours": sorted(
 """
 # the subpackages the walk must reach (each with at least one module)
 SUBPACKAGES = ("jit", "kernels", "models", "nn", "observability",
-               "optimizer", "quantization", "serving", "static")
+               "optimizer", "quantization", "resilience", "serving",
+               "static")
 
 
 def _is_forbidden(module: str) -> bool:
@@ -155,14 +157,6 @@ class TestLaterSliceOptionsRaise:
     def test_serving_config(self, tiny_model, option, value):
         with pytest.raises(NotImplementedError, match=option):
             Engine(tiny_model, ServingConfig(**{option: value}))
-
-    @pytest.mark.parametrize("kwargs", [
-        {"token_deadline_s": 1.0}, {"deadline_s": 5.0}, {"priority": 1}])
-    def test_submit(self, tiny_model, kwargs):
-        eng = Engine(tiny_model, ServingConfig())
-        with pytest.raises(NotImplementedError, match=next(iter(kwargs))):
-            eng.submit(np.arange(1, 5), max_new_tokens=2, **kwargs)
-        assert not eng.has_work()
 
 
 class TestSubmitSamplingAndStreaming:

@@ -12,6 +12,7 @@ of each other; on any difference a test fails with the perturbed top-2
 margin of the port's logits at that token.
 """
 import json
+import time
 
 import numpy as np
 import pytest
@@ -20,21 +21,28 @@ import torch
 import paddle_tpu as paddle
 from paddle_tpu.models import LlamaConfig as JaxLlamaConfig
 from paddle_tpu.models import LlamaForCausalLM as JaxLlamaForCausalLM
+from paddle_tpu.resilience import FaultPlan as JaxFaultPlan
+from paddle_tpu.resilience.chaos import burst_prompts as jax_burst_prompts
 from paddle_tpu.serving import Endpoint as JaxEndpoint
 from paddle_tpu.serving import Engine as JaxEngine
+from paddle_tpu.serving import EngineQuarantined as JaxEngineQuarantined
 from paddle_tpu.serving import ServingConfig as JaxServingConfig
 from paddle_tpu.serving import sse_stream as jax_sse_stream
 from paddle_tpu.serving import stream_events as jax_stream_events
 from paddle_tpu_torch.convert import from_jax_state_dict
 from paddle_tpu_torch.models import LlamaConfig
 from paddle_tpu_torch.models.generation import make_chunked_prefill_step
+from paddle_tpu_torch.resilience import FaultPlan
+from paddle_tpu_torch.resilience.chaos import burst_prompts
 from paddle_tpu_torch.serving import (DONE_FRAME, Endpoint, Engine,
+                                      EngineQuarantined,
                                       ServingConfig, sse_event, sse_stream,
                                       stream_events)
 from paddle_tpu_torch.serving.cache import BlockKVPool
 from paddle_tpu_torch.serving.engine import LATER_SLICE_OPTIONS
 from paddle_tpu_torch.serving.sampling import (filter_logits, fold_keys,
                                                gumbel)
+from torch_clock import virtual_clock
 
 COUNTERS = ("requests_completed", "preemptions", "prefix_cache_hits",
             "prefix_cache_misses", "prefill_chunks", "decode_iterations",
@@ -365,10 +373,20 @@ class TestEndpoint:
                             "requests_completed"]))
         assert res[1] == res[0]
 
-    def test_health_waits_for_the_overload_controller(self, models):
-        ep = Endpoint(models[1], _config(ServingConfig))
-        with pytest.raises(NotImplementedError, match="overload"):
-            ep.health()
+    def test_health_is_the_engines(self, models):
+        """``Endpoint.health()`` is its engine's snapshot, with the
+        reference's keys and, but for the latency EWMAs, its values."""
+        res = []
+        for ep in self._both(models, max_new_tokens=4):
+            ep.run([_prompts()[1], _prompts()[2]])
+            ep.submit(_prompts()[3])
+            h = ep.health()
+            assert h == ep.engine.health()
+            assert h["ewma_chunk_s"] > 0 and h["ewma_decode_s"] > 0
+            res.append({k: v for k, v in h.items()
+                        if not k.startswith("ewma_")})
+        assert res[1] == res[0]
+        assert res[1]["state"] == "serving" and res[1]["queue_depth"] == 1
 
     def test_takes_an_engine_but_not_a_second_config(self, models):
         eng = Engine(models[1], _config(ServingConfig))
@@ -383,12 +401,108 @@ C3_FIELDS = ("name", "strict_no_retrace", "hbm_budget_bytes", "xray_chip",
              "kv_high_watermark", "kv_low_watermark",
              "watchdog_budget_mult", "watchdog_floor_s", "step_max_retries",
              "step_retry_backoff_s", "health_recovery_steps")
-REFUSED = {"hbm_budget_bytes": 1 << 30, "xray_chip": "v5p",
-           "enable_load_shedding": False, "shed_safety_factor": 2.0,
-           "kv_high_watermark": 0.9, "kv_low_watermark": 0.5,
-           "watchdog_budget_mult": 5.0, "watchdog_floor_s": 1.0,
-           "step_max_retries": 0, "step_retry_backoff_s": 0.5,
-           "health_recovery_steps": 1}
+REFUSED = {"hbm_budget_bytes": 1 << 30, "xray_chip": "v5p"}
+# the overload controller's fields, refused until it was ported, at the
+# values the refusal tests gave them
+OVERLOAD = {"enable_load_shedding": False, "shed_safety_factor": 2.0,
+            "kv_high_watermark": 0.9, "kv_low_watermark": 0.5,
+            "watchdog_budget_mult": 5.0, "watchdog_floor_s": 1.0,
+            "step_max_retries": 0, "step_retry_backoff_s": 0.5,
+            "health_recovery_steps": 1}
+
+
+def _shedding(eng, plan):
+    """The same queue and EWMAs: the estimate, should_shed at five
+    deadlines around it, and whether a request at 0.75 of it is shed."""
+    eng.generate([_prompts()[2]], max_new_tokens=2)
+    for p in _prompts()[:3]:
+        eng.submit(p, max_new_tokens=2)
+    o = eng.overload
+    o.chunk_ewma.value, o.decode_ewma.value = 0.0125, 0.003
+    p = _prompts()[3]
+    est = o.estimate_ttft_s(eng, p)
+    decisions = [o.should_shed(eng, p, est * f)
+                 for f in (0.3, 0.45, 0.75, 1.1, 3.0)]
+    req = eng.submit(p, max_new_tokens=2, deadline_s=3600.0)
+    doomed = eng.submit(p, max_new_tokens=2, deadline_s=est * 0.75)
+    return est, decisions, req.finish_reason, doomed.finish_reason
+
+
+def _ladder(eng, plan):
+    """A seeded burst (each package's own ``burst_prompts``) into a
+    pool of 12 blocks: the ladder's transitions, the preemptions and
+    every request's tokens."""
+    burst = (burst_prompts if plan is FaultPlan else jax_burst_prompts)(
+        seed=5, n=6, min_len=8, max_len=24)
+    reqs = [eng.submit(p, max_new_tokens=6) for p in burst]
+    eng.run_until_complete()
+    for _ in range(5):
+        eng.step()
+    eng.pool.check_leaks()
+    return (eng.overload.ladder.transitions,
+            eng.stats()["counters"]["preemptions"],
+            [r.generated for r in reqs], [r.finish_reason for r in reqs])
+
+
+def _budgets(eng, plan):
+    """Each watchdog's budget cold and at two EWMA values."""
+    out = []
+    for wd in (eng.overload.decode_watchdog, eng.overload.prefill_watchdog):
+        out.append(wd.budget_s())
+        for v in (0.01, 10.0):
+            wd.ewma.value = v
+            out.append(wd.budget_s())
+    return out
+
+
+def _retries(eng, plan):
+    """Attempt 2 (the second prefill chunk) fails: with one attempt the
+    engine quarantines, after a backoff it retries; then revive and
+    drain."""
+    req = eng.submit(_prompts()[3], max_new_tokens=4)
+    t0 = time.monotonic()
+    with plan(fail_step_at={2}) as p:
+        try:
+            eng.run_until_complete()
+            raised = False
+        except (JaxEngineQuarantined, EngineQuarantined):
+            raised = True
+    waited = time.monotonic() - t0
+    state = eng.health()["state"]
+    eng.revive()
+    eng.run_until_complete()
+    c = eng.stats()["counters"]
+    backoff = eng.config.step_retry_backoff_s
+    return (raised, state, p.injected, req.generated, req.finish_reason,
+            c["step_retries"], waited >= backoff if backoff >= 0.5 else None)
+
+
+def _recovery(eng, plan):
+    """A decode attempt stalls 0.6 s against a 0.25 s floor: the health
+    state after every step until the request finishes."""
+    eng.generate([_prompts()[2]], max_new_tokens=2)   # captures, compiles
+    req = eng.submit(_prompts()[2], max_new_tokens=6)
+    states = []
+    with plan(step_delay_s={2: 0.6}) as p:
+        while eng.step():
+            states.append(eng.health()["state"])
+    return states, p.injected, req.generated, eng.health()["watchdog_stalls"]
+
+
+OVERLOAD_EFFECTS = {
+    "enable_load_shedding": (_shedding, {}),
+    "shed_safety_factor": (_shedding, {}),
+    "kv_high_watermark": (_ladder, {"num_blocks": 12}),
+    "kv_low_watermark": (_ladder, {"num_blocks": 12,
+                                   "kv_high_watermark": 0.8}),
+    "watchdog_budget_mult": (_budgets, {}),
+    "watchdog_floor_s": (_budgets, {}),
+    "step_max_retries": (_retries, {}),
+    "step_retry_backoff_s": (_retries, {}),
+    "health_recovery_steps": (_recovery, {"watchdog_floor_s": 0.25,
+                                          "watchdog_budget_mult": 50.0,
+                                          "step_max_retries": 1}),
+}
 
 
 class TestServingConfigC3:
@@ -406,6 +520,28 @@ class TestServingConfigC3:
         assert field in LATER_SLICE_OPTIONS
         with pytest.raises(NotImplementedError, match=field):
             Engine(models[1], ServingConfig(**{field: REFUSED[field]}))
+
+    @pytest.mark.parametrize("field", sorted(OVERLOAD))
+    def test_an_overload_field_is_taken(self, models, field, monkeypatch):
+        """Each field the overload controller reads is taken at the
+        value it was refused at, and acts as in the JAX engine (on a
+        virtual monotonic clock, ``torch_clock``: the stalls and backoffs
+        are the schedule's, whatever the CPU's load)."""
+        virtual_clock(monkeypatch)
+        assert field not in LATER_SLICE_OPTIONS
+        scenario, extra = OVERLOAD_EFFECTS[field]
+        out = []
+        for model, engine_cls, config_cls, plan in (
+                (models[0], JaxEngine, JaxServingConfig, JaxFaultPlan),
+                (models[1], Engine, ServingConfig, FaultPlan)):
+            eng = engine_cls(model, _config(
+                config_cls, **{field: OVERLOAD[field]}, **extra))
+            assert getattr(eng.config, field) == OVERLOAD[field]
+            out.append(scenario(eng, plan))
+        assert out[1] == out[0]
+        # the value moved something that a default engine does otherwise
+        default = Engine(models[1], _config(ServingConfig, **extra))
+        assert scenario(default, FaultPlan) != out[1]
 
     @pytest.mark.parametrize("field,value", [("name", "replica-1"),
                                              ("strict_no_retrace", False)])
