@@ -75,6 +75,28 @@ Phases, each of which must pass (nothing is caught):
      (e) a full queue: a higher-priority arrival sheds the youngest
      lower-priority request and is admitted first; (f) the registry's
      Prometheus lines of the overload and compile metrics;
+  6sp. speculative decoding: phase 6's model, requests and pages behind
+     engines with SpeculativeConfig(draft, 4), a pool sized for both
+     models' layers and the K+1 horizon: (a) a Llama-3.2-3B-width draft
+     (llama32_3b_config, random weights, seed 1), greedy: tokens held to
+     phase 6's by the top-2 margin at a first difference (at most
+     SPEC_MARGIN_ULPS bf16 ulps), one graph each of the draft's prefill,
+     the propose and the verify, a second batch adding none and no
+     retrace, exact launch counts, no leak; the accept rate, tokens/s,
+     TTFT, TPOT and iterations beside phase 6's, each graph profiled
+     three times and the sampler's share of the propose and the verify;
+     (b) the target as its own draft: tokens by the margin rule, and
+     every proposal the target rejects within SPEC_MARGIN_ULPS bf16 ulps
+     of the token it takes in a fresh prefill's logits; (c) requests 0,
+     2, 4 and 6 sampled as in 6s with the 3B draft, served twice: the
+     same tokens, the greedy ones (a)'s; (d) LlamaConfig.tiny in f32
+     with a 1-layer draft (seed 123) on cuda and on cpu, greedy and
+     sampled: the same tokens and counters; (e) the kernels at the
+     path's new shapes against their plain versions, timed as phase 2
+     times them: fused_norm_linear over Llama-3.2-3B's projections at
+     8 rows and Llama-3-8B's at the verify's 40, the paged decode at 24
+     q over 8 kv heads, the chunk and the KV write over 8 sequences of 5
+     tokens at staggered frontiers;
   7. main training: Llama-3-8B width, 8 of its 32 layers, bf16, one
      [1, 8192] batch, AdamW(1e-4): 2 warm-up and 5 timed steps, one
      profiled step and one eval forward without grad; finite, falling
@@ -176,7 +198,7 @@ The sampler (serving/sampling.py: torch ops, no kernel of its own):
      lanes of temperature, top-k and top-p each on and off, at 64 token
      counters of seeded keys: the tokens on the card equal the CPU's,
      one for one (on a mismatch the perturbed top-2 margin is printed).
-The launch counts of phases 4c, 6, 6s, 6o, 6c, 6p, 7, 7c, 6m, 7m and 7s,
+The launch counts of phases 4c, 6, 6s, 6o, 6sp, 6c, 6p, 7, 7c, 6m, 7m and 7s,
 reset just before each run and read just after it, show that each path went
 through every kernel of its own (and the Llama-3-8B, Mixtral, Qwen2-7B,
 Phi-3-mini and BERT phases through no general instance); a kernel of
@@ -184,8 +206,8 @@ the JSON line that its path launched no time fails the run.  Kernels
 with several compiled instances (the paged decode, the chunked prefill
 and the attention: widths, producers) are counted by instance too, and
 such a row reports the launches of its own instance (its "instance"
-key).  Each serving run (4, 4m, 4c, 6 and its quantized runs, 6s, 6c,
-6p, 6m) serves through CUDA graphs of its steps (the main runs capture
+key).  Each serving run (4, 4m, 4c, 6 and its quantized runs, 6s, 6sp,
+6c, 6p, 6m) serves through CUDA graphs of its steps (the main runs capture
 them before their timed run, as a server does at start-up, on inputs
 that address only the garbage block); it asserts one graph of the
 decode step, one of the prefill step and one (6s) or none of the
@@ -417,9 +439,7 @@ def phase_kernels(dev):
     Returns {entry name: numbers} for the JSON line."""
     import torch.nn.functional as F
 
-    from paddle_tpu_torch.kernels import (chunked_prefill,
-                                          fused_norm_linear as fnl,
-                                          kv_quant, launches,
+    from paddle_tpu_torch.kernels import (chunked_prefill, kv_quant,
                                           paged_attention, rms_norm, rope)
 
     g = torch.Generator(device=dev).manual_seed(1)
@@ -474,66 +494,10 @@ def phase_kernels(dev):
     # one launch for q/k/v and one for gate/up, as the model calls them
     # (fused_norm_linear_group); each run twice and compared bit for
     # bit, then RING_STRESS times
-    projs = [(H * D, "none"), (KVH * D, "none"), (KVH * D, "none"),
-             (FFN, "silu"), (FFN, "none")]
-    groups = ((0, 1, 2), (3, 4))
-    ws = [randn(HID, n, std=HID ** -0.5) for n, _ in projs]
-    nw = (1 + 0.1 * randn(HID, dtype=torch.float32)).to(bf)
     for M, name in ((8, "fused_norm_linear_skinny"),
                     (256, "fused_norm_linear_tiled")):
-        x = randn(M, HID) * 3
-        rs = fnl.rms_scale(x, eps)
-
-        def run_kernel():
-            return [o for grp in groups for o in fnl.fused_norm_linear_group(
-                x, rs, nw, [ws[i] for i in grp],
-                [projs[i][1] for i in grp])]
-
-        errs = []
-        launches.reset()
-        got_all, again = run_kernel(), run_kernel()
-        if launches.snapshot() != {name: 2 * len(groups)}:
-            raise AssertionError(f"{name}: launches {launches.snapshot()}, "
-                                 f"not {len(groups)} a run")
-        if not all(torch.equal(a, b) for a, b in zip(got_all, again)):
-            raise AssertionError(f"{name}: two runs differ")
-        # a refill of a TMA ring stage under its readers gives a wrong
-        # sum now and then, not a hang: many launches, every bit compared
-        bad = torch.zeros((len(projs),), dtype=torch.int64, device=dev)
-        for _ in range(RING_STRESS):
-            bad += torch.stack([(a != b).any()
-                                for a, b in zip(run_kernel(), got_all)])
-        bad = bad.tolist()
-        print(f"  {name}: {RING_STRESS} launches of each group, outputs "
-              f"that differ from the first run's: {bad}", flush=True)
-        if any(bad):
-            raise AssertionError(f"{name}: the ring stress found {bad}")
-        for (n, act), wt, got in zip(projs, ws, got_all):
-            ref = fnl.fused_norm_linear_plain(x, rs, nw, wt, act)
-            errs.append(check_close(f"{name} [{M}, {HID}] x [{HID}, {n}] "
-                                    f"{act}", got, ref, bf16_tol(ref)))
-        del got_all, again
-        xn = (x.float() * rs).to(bf) * nw
-
-        def run_plain():
-            for (_, act), wt in zip(projs, ws):
-                fnl.fused_norm_linear_plain(x, rs, nw, wt, act)
-
-        def run_library():
-            for wt in ws:
-                torch.matmul(xn, wt)
-
-        N_all = sum(n for n, _ in projs)
-        # x, nw and rs read once, each w once, each output written once
-        nbytes = 2 * (M * HID + HID + HID * N_all + M * N_all) + M * 4
-        entries[name] = dict(
-            replaces="paddle_tpu/kernels/fused_norm_linear.py:60",
-            source="paddle_tpu_torch/csrc/fused_norm_linear.cu",
-            max_abs_err=max(errs), ms=time_ms(run_kernel, iters=10),
-            plain_ms=time_ms(run_plain, iters=10),
-            library_ms=time_ms(run_library, iters=10),
-            bound=bound_ms(nbytes, 2.0 * M * HID * N_all),
-            work=f"q,k,v,gate,up of one layer at M={M}")
+        entries[name] = fnl_entry(g, name, M, HID, H, KVH, D, FFN,
+                                  stress=RING_STRESS)
 
     # paged decode: B=8 at frontiers spread over 128..1055, bs=16,
     # table width 512 (max_model_len 8192), 4 splits
@@ -699,6 +663,85 @@ def phase_kernels(dev):
     return entries
 
 
+def fnl_entry(g, name, M, HID, H, KVH, D, FFN, stress=0, eps=1e-5,
+              **extra):
+    """fused_norm_linear over the 5 projections of one layer of these
+    widths (q, k, v, gate with silu, up), one launch for q/k/v and one
+    for gate/up as the model calls them (``fused_norm_linear_group``) at
+    M rows: every launch under the counter ``name``, two runs bit for
+    bit, then ``stress`` more launches of each group, every bit
+    compared; each output against its plain version within two bf16
+    ulps; timed beside the plain version and torch.matmul x5.  Returns
+    its entry (``extra`` adds to it)."""
+    from paddle_tpu_torch.kernels import fused_norm_linear as fnl
+    from paddle_tpu_torch.kernels import launches
+
+    bf, dev = torch.bfloat16, g.device
+
+    def randn(*shape, std=1.0, dtype=bf):
+        return (torch.randn(shape, generator=g, device=dev,
+                            dtype=torch.float32) * std).to(dtype)
+
+    projs = [(H * D, "none"), (KVH * D, "none"), (KVH * D, "none"),
+             (FFN, "silu"), (FFN, "none")]
+    groups = ((0, 1, 2), (3, 4))
+    ws = [randn(HID, n, std=HID ** -0.5) for n, _ in projs]
+    nw = (1 + 0.1 * randn(HID, dtype=torch.float32)).to(bf)
+    x = randn(M, HID) * 3
+    rs = fnl.rms_scale(x, eps)
+
+    def run_kernel():
+        return [o for grp in groups for o in fnl.fused_norm_linear_group(
+            x, rs, nw, [ws[i] for i in grp], [projs[i][1] for i in grp])]
+
+    errs = []
+    launches.reset()
+    got_all, again = run_kernel(), run_kernel()
+    if launches.snapshot() != {name: 2 * len(groups)}:
+        raise AssertionError(f"{name}: launches {launches.snapshot()}, "
+                             f"not {len(groups)} a run")
+    if not all(torch.equal(a, b) for a, b in zip(got_all, again)):
+        raise AssertionError(f"{name}: two runs differ")
+    if stress:
+        # a refill of a TMA ring stage under its readers gives a wrong
+        # sum now and then, not a hang: many launches, every bit compared
+        bad = torch.zeros((len(projs),), dtype=torch.int64, device=dev)
+        for _ in range(stress):
+            bad += torch.stack([(a != b).any()
+                                for a, b in zip(run_kernel(), got_all)])
+        bad = bad.tolist()
+        print(f"  {name}: {stress} launches of each group, outputs "
+              f"that differ from the first run's: {bad}", flush=True)
+        if any(bad):
+            raise AssertionError(f"{name}: the ring stress found {bad}")
+    for (n, act), wt, got in zip(projs, ws, got_all):
+        ref = fnl.fused_norm_linear_plain(x, rs, nw, wt, act)
+        errs.append(check_close(f"{name} [{M}, {HID}] x [{HID}, {n}] "
+                                f"{act}", got, ref, bf16_tol(ref)))
+    del got_all, again
+    xn = (x.float() * rs).to(bf) * nw
+
+    def run_plain():
+        for (_, act), wt in zip(projs, ws):
+            fnl.fused_norm_linear_plain(x, rs, nw, wt, act)
+
+    def run_library():
+        for wt in ws:
+            torch.matmul(xn, wt)
+
+    N_all = sum(n for n, _ in projs)
+    # x, nw and rs read once, each w once, each output written once
+    nbytes = 2 * (M * HID + HID + HID * N_all + M * N_all) + M * 4
+    return dict(
+        replaces="paddle_tpu/kernels/fused_norm_linear.py:60",
+        source="paddle_tpu_torch/csrc/fused_norm_linear.cu",
+        max_abs_err=max(errs), ms=time_ms(run_kernel, iters=10),
+        plain_ms=time_ms(run_plain, iters=10),
+        library_ms=time_ms(run_library, iters=10),
+        bound=bound_ms(nbytes, 2.0 * M * HID * N_all),
+        work=f"q,k,v,gate,up of one layer at M={M}, hidden {HID}", **extra)
+
+
 def _gathered(pool, bt, n_keys):
     """[B, KVH, n_keys, D] contiguous K or V of the first n_keys pages
     of ``bt``: the library yardstick's input."""
@@ -810,43 +853,52 @@ def write_entries(g, nb, bt, positions, c, s, bt1, pos1, T):
     for name, form, pool, path in WRITE_CASES:
         ops, kw, masked = _write_operands(g, form, pool, nb, bt, positions,
                                           c, s, bt1, pos1, T)
-        B, n, KVH, D = ops[2].shape
-        N, E = B * n, KVH * D
-        code = 1 if kw["scheme"] else 2
-        # the rows the write leaves: one a kept token, and one for all
-        # the masked tokens (the garbage row holds one of them); the
-        # block table's entries the kept tokens look up, one a page
-        rows = N - len(masked) + bool(masked)
-        table, pos = ops[4].tolist(), ops[5].tolist()
-        gone = set(masked)
-        pages = len({(b, min((pos[b] + j) // 16, len(table[b]) - 1))
-                     for b in range(B) for j in range(n)
-                     if (b, j) not in gone})
-        # each of those rows' new elements read once (bf16) and written
-        # once (a code or bf16) with its scale, the table entries,
-        # positions, c/s rows and mask read once
-        nbytes = 2 * rows * E * (2 + code) + pages * 4 + B * 4 + \
-            (2 * 2 * B * D // 2 if form == "decode" else N) + \
-            (2 * 4 * rows if kw["scheme"] else 0)
-        flops = (2 * 3.0 * rows * E if kw["scheme"] else 0) + \
-            (3.0 * N * E if form == "decode" else 0)
-        entries[name] = dict(
-            path=path, counter=kv_quant.KERNEL,
-            replaces=("paddle_tpu/kernels/paged_attention.py:"
-                      + ("80" if kw["scheme"] else "66")) if form == "decode"
-            else "paddle_tpu/models/llama.py:"
-            + ("390" if kw["scheme"] else "367"),
-            source="paddle_tpu_torch/csrc/kv_quant.cu", max_abs_err=0.0,
-            ms=time_ms(lambda: kv_quant.kv_write(*ops, **kw)),
-            plain_ms=time_ms(lambda: kv_quant.kv_write_plain(*ops, **kw),
-                             iters=5),
-            library_ms=None,
-            bound=bound_ms(nbytes, flops, F32_FLOPS),
-            work=f"k and v rows [{B}, {n}, {KVH}, {D}] of one layer, "
-                 f"{pool} pools, {pages} table entries, "
-                 + ("k rotated" if form == "decode"
-                    else f"{len(masked)} tokens masked"))
+        entries[name] = write_entry(form, pool, path, ops, kw, masked)
     return entries
+
+
+def write_entry(form, pool, path, ops, kw, masked):
+    """The KV write's entry: kv_quant.kv_write on ``ops``/``kw`` (the
+    decode or chunk form, ``masked`` tokens of a chunk masked) timed
+    beside its plain version, with its bound."""
+    from paddle_tpu_torch.kernels import kv_quant
+
+    B, n, KVH, D = ops[2].shape
+    N, E = B * n, KVH * D
+    code = 1 if kw["scheme"] else 2
+    # the rows the write leaves: one a kept token, and one for all the
+    # masked tokens (the garbage row holds one of them); the block
+    # table's entries the kept tokens look up, one a page
+    rows = N - len(masked) + bool(masked)
+    table, pos = ops[4].tolist(), ops[5].tolist()
+    bs = ops[0].shape[1]
+    gone = set(masked)
+    pages = len({(b, min((pos[b] + j) // bs, len(table[b]) - 1))
+                 for b in range(B) for j in range(n) if (b, j) not in gone})
+    # each of those rows' new elements read once (bf16) and written once
+    # (a code or bf16) with its scale, the table entries, positions, c/s
+    # rows and mask read once
+    nbytes = 2 * rows * E * (2 + code) + pages * 4 + B * 4 + \
+        (2 * 2 * B * D // 2 if form == "decode" else N) + \
+        (2 * 4 * rows if kw["scheme"] else 0)
+    flops = (2 * 3.0 * rows * E if kw["scheme"] else 0) + \
+        (3.0 * N * E if form == "decode" else 0)
+    return dict(
+        path=path, counter=kv_quant.KERNEL,
+        replaces=("paddle_tpu/kernels/paged_attention.py:"
+                  + ("80" if kw["scheme"] else "66")) if form == "decode"
+        else "paddle_tpu/models/llama.py:"
+        + ("390" if kw["scheme"] else "367"),
+        source="paddle_tpu_torch/csrc/kv_quant.cu", max_abs_err=0.0,
+        ms=time_ms(lambda: kv_quant.kv_write(*ops, **kw)),
+        plain_ms=time_ms(lambda: kv_quant.kv_write_plain(*ops, **kw),
+                         iters=5),
+        library_ms=None,
+        bound=bound_ms(nbytes, flops, F32_FLOPS),
+        work=f"k and v rows [{B}, {n}, {KVH}, {D}] of one layer, "
+             f"{pool} pools, {pages} table entries, "
+             + ("k rotated" if form == "decode"
+                else f"{len(masked)} tokens masked"))
 
 
 def print_entries(entries):
@@ -1348,7 +1400,8 @@ def phase_counts():
 
 def _attn_operands(g, dev, shape, T=1, start=None):
     """A decode step's (T = 1: 8 sequences at C1_FRONTIERS) or a prefill
-    chunk's (T tokens at ``start``) operands at ``shape`` (C1_QWEN2 ...):
+    chunk's (T tokens at ``start``, or of each sequence at each start of a
+    list) operands at ``shape`` (C1_QWEN2 ...):
     a dict of q, its RoPE rows (decode), bf16 pools over shuffled pages
     of the shape's size, the table at the engine's width for the shape's
     max_position, the positions, and what the library yardstick needs."""
@@ -1359,7 +1412,9 @@ def _attn_operands(g, dev, shape, T=1, start=None):
         return torch.randn(s, generator=g, device=dev).to(bf)
 
     nbs = -(-max_pos // bs)
-    ends = [p + 1 for p in C1_FRONTIERS] if start is None else [start + T]
+    starts = [start] if isinstance(start, int) else start
+    ends = [p + 1 for p in C1_FRONTIERS] if start is None else \
+        [s + T for s in starts]
     B = len(ends)
     per_seq = [-(-e // bs) for e in ends]
     nb = 1 + sum(per_seq)
@@ -1385,12 +1440,14 @@ def _attn_operands(g, dev, shape, T=1, start=None):
         ops["mask"] = (torch.arange(L, device=dev)[None, :]
                        <= pos[:, None])[:, None, None, :]
     else:
-        pos = torch.tensor([start], dtype=torch.int32, device=dev)
-        ops["q"] = randn(1, T, H, D)
+        pos = torch.tensor(starts, dtype=torch.int32, device=dev)
+        ops["q"] = randn(B, T, H, D)
         ops["q_sdpa"] = ops["q"].transpose(1, 2).contiguous()
-        ops["mask"] = (torch.arange(start + T, device=dev)[None, :]
-                       <= start + torch.arange(T, device=dev)[:, None]
-                       )[None, None]
+        # [B, 1, T, L]: key j is seen by token t of sequence b where
+        # j <= starts[b] + t
+        ops["mask"] = (torch.arange(max(ends), device=dev)[None, None, :]
+                       <= (pos[:, None] + torch.arange(T, device=dev))
+                       [:, :, None])[:, None]
     ops["pos"] = pos
     return ops
 
@@ -1515,7 +1572,9 @@ def _chunk_entry(ops, name, path, scheme=None):
     if not torch.equal(got, chunked_prefill.chunked_attention(*args)):
         raise AssertionError(f"{name}: two runs differ")
     ref = chunked_prefill.chunked_attention_plain(*args)
-    T, start, ctx = ops["q"].shape[1], int(ops["pos"][0]), ops["ends"][0]
+    B, T = ops["q"].shape[:2]
+    starts, ctx = ops["pos"].tolist(), max(ops["ends"])
+    start = starts[0] if B == 1 else starts
     err = check_close(f"{name} {tag} T={T} start={start} {H}/{KVH} heads "
                       f"D={D} bs={bs}{'' if scheme is None else ' ' + scheme}"
                       f" on the instance {inst} (two runs bit-identical)",
@@ -1535,7 +1594,7 @@ def _chunk_entry(ops, name, path, scheme=None):
     gathered = [(ops["q_sdpa"].clone(), kg.clone(), vg.clone()) for _ in
                 range(cold_copies(2 * (ops["q"].numel() + 2 * kg.numel())))]
     nbs = ops["nbs"]
-    ckeys = float(sum(start + t + 1 for t in range(T)))
+    ckeys = float(sum(s + t + 1 for s in starts for t in range(T)))
     row = 2 * KVH * D * 2 if scheme is None else 2 * (KVH * D + 4)
     out = dict(
         path=path, counter=name, instance=inst,
@@ -1549,9 +1608,10 @@ def _chunk_entry(ops, name, path, scheme=None):
         library_ms=time_ms_rotating([lambda a=a: sdpa(*a)
                                      for a in gathered]),
         library_hot_ms=time_ms(lambda: sdpa(ops["q_sdpa"], kg, vg)),
-        bound=bound_ms(ctx * row + 2 * 2 * T * H * D
-                       + 4 * (nbs + 1), 4.0 * ckeys * H * D),
-        work=f"one layer's prefill chunk, {tag}: T={T}, context {ctx}, "
+        bound=bound_ms(sum(ops["ends"]) * row + 2 * 2 * B * T * H * D
+                       + 4 * B * (nbs + 1), 4.0 * ckeys * H * D),
+        work=f"one layer's prefill chunk, {tag}: B={B}, T={T}, context "
+             f"{ctx if B == 1 else ops['ends']}, "
              f"{H}/{KVH} heads, D={D}, pages of {bs}"
              f"{'' if scheme is None else ', ' + scheme + ' pools'}, "
              f"L2-cold over {len(cold)} copies (library over "
@@ -2580,9 +2640,9 @@ def _serve_main(model, prompts, tag, kv_cache_dtype=None, weight_dtype=None,
     return out, tally, eng
 
 
-def phase_main(dev):
-    """Phase 6, then 6s on the same model.  Returns phase 6's launch
-    counts and pool size."""
+def _main_model(dev):
+    """Phase 6's model (Llama-3-8B width, MAIN_LAYERS layers, bf16, seed
+    0), its requests and its pool's blocks."""
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
     cfg = LlamaConfig.llama3_8b(num_hidden_layers=MAIN_LAYERS)
@@ -2595,6 +2655,14 @@ def phase_main(dev):
     prompts = _main_prompts(cfg.vocab_size)
     num_blocks = 1 + sum(-(-(len(p) + MAIN_NEW) // MAIN_BS)
                          for p in prompts) + 8
+    return model, prompts, num_blocks
+
+
+def phase_main(dev):
+    """Phase 6, then 6s, 6g, 6o and 6sp on the same model.  Returns phase
+    6's launch counts and pool size, 6sp's launch counts and its kernel
+    rows."""
+    model, prompts, num_blocks = _main_model(dev)
     greedy = []
     out, counts, eng = _serve_main(model, prompts, "main",
                                    num_blocks=num_blocks, requests=greedy)
@@ -2605,7 +2673,9 @@ def phase_main(dev):
     phase_main_graphs(dev, model)
     free()
     phase_main_overload(model, prompts, greedy, out)
-    return counts, num_blocks
+    free()
+    spec_counts, spec_entries = phase_main_spec(model, prompts, greedy, out)
+    return counts, num_blocks, spec_counts, spec_entries
 
 
 # ---------------------------------------------------------------- phase 6s
@@ -3164,6 +3234,577 @@ def phase_main_overload(model, prompts, greedy, main_out):
     main_out["overload_wall_s"] = wall
 
 
+# ---------------------------------------------------------------- phase 6sp
+SPEC_K = 4                      # draft tokens a verify (the engine's default)
+# a greedy token of the speculative engine may differ from phase 6's, and
+# the target may reject its own proposal (self-draft), only where a fresh
+# prefill's logits of the two tokens lie within this many bf16 ulps of
+# its top logit: tools/turns reports against 2, and two bf16 paths of one
+# model have parted at up to 5.5 (PERF.md, PR 11)
+SPEC_MARGIN_ULPS = 8
+SPEC_STEPS = ("draft_prefill_step", "draft_propose_step", "spec_verify_step")
+# the position of each step's pools; where a step binds the per-slot
+# sampling state (the propose and the verify), it follows three later
+SPEC_POOLS = {"draft_prefill_step": 1, "draft_propose_step": 1,
+              "spec_verify_step": 3}
+# (tag, H, KVH, D, page size, table positions, rope_theta) of the draft's
+# decode (Llama-3.2-3B's heads, rep 3) and of the verify's chunk
+# (Llama-3-8B's), both over tables of the engine's width (Llama-3-8B's
+# 8192 positions)
+SPEC_DRAFT_ATTN = ("llama32_3b", 24, 8, 128, 16, 8192, 500000.0)
+SPEC_VERIFY_ATTN = ("verify", 32, 8, 128, 16, 8192, 500000.0)
+
+
+def llama32_3b_config(**overrides):
+    """Llama-3.2-3B's widths from its published config.json
+    (meta-llama/Llama-3.2-3B): vocab 128256, hidden 3072, intermediate
+    8192, 28 layers, 24 q / 8 kv heads (head_dim 128, GQA rep 3),
+    rope_theta 500000, rms_norm_eps 1e-5, max_position 131072.  Two
+    departures: its embeddings are tied and here they are not
+    (``tie_word_embeddings`` is not ported, ROADMAP A2; a tied and an
+    untied head compute the same product), and its llama3 rope scaling
+    is left out (neither package models it, as Phi-3's window)."""
+    import dataclasses
+
+    from paddle_tpu_torch.models import LlamaConfig
+
+    return dataclasses.replace(LlamaConfig(
+        vocab_size=128256, hidden_size=3072, intermediate_size=8192,
+        num_hidden_layers=28, num_attention_heads=24, num_key_value_heads=8,
+        max_position_embeddings=131072, rms_norm_eps=1e-5,
+        rope_theta=500000.0), **overrides)
+
+
+def _merge(a, b, n=1):
+    """Launch counts ``a`` plus ``n`` times ``b``."""
+    return {k: a.get(k, 0) + n * b.get(k, 0) for k in {**a, **b}}
+
+
+def spec_launches(tcfg, dcfg, bs, K):
+    """(per prefill chunk, per speculative iteration) launches of an
+    engine over a target of ``tcfg`` and a draft of ``dcfg``: a chunk is
+    the target's and the draft's prefill chunk; an iteration K+1 draft
+    decode steps and the verify, a chunk-shaped target forward."""
+    _, chunk_t = step_launches(tcfg, bs)
+    decode_d, chunk_d = step_launches(dcfg, bs)
+    return _merge(chunk_t, chunk_d), _merge(chunk_t, decode_d, K + 1)
+
+
+def _record_spec_calls(eng, calls):
+    """Spies on the engine's speculative steps that keep a copy of the
+    arguments of one call of each: the propose and the verify with the
+    most slots running, a full 256-token draft prefill chunk."""
+    for name in SPEC_STEPS:
+        def spy(*args, name=name, step=getattr(eng, f"_{name}")):
+            if name == "draft_prefill_step":
+                n = eng.chunk_tokens
+                keep = name not in calls and int(args[4]) == n - 1
+            else:
+                n = int((eng._lengths > 0).sum())
+                keep = n > calls.get(name, (0,))[0]
+            if keep:
+                calls[name] = (n, step, _copied(args))
+            return step(*args)
+        setattr(eng, f"_{name}", spy)
+
+
+def _warm_spec_graphs(eng):
+    """Capture a speculative engine's graphs before a timed run, as
+    ``_warm_graphs`` does: the target's and the draft's prefill chunk,
+    the propose and the verify, on all-zero host inputs and proposals
+    (only the pools' garbage block 0 is addressed)."""
+    S, nbs, K = eng.config.max_batch_size, eng.max_blocks_per_seq, \
+        eng.spec.num_draft_tokens
+    V, dev = eng.model.config.vocab_size, eng.device
+    state = [getattr(eng, n) for n in SLOT_STATE]
+
+    def z(*shape):
+        return np.zeros(shape, np.int32)
+
+    for name, pools in (("prefill_step", eng._target_pools()),
+                        ("draft_prefill_step", eng._draft_pools())):
+        eng._steps[name](z(1, eng.chunk_tokens), pools, z(1, nbs), z(1), 0)
+    eng._steps["draft_propose_step"](z(S, 1), eng._draft_pools(),
+                                     z(S, nbs), z(S), *state)
+    eng._steps["spec_verify_step"](
+        z(S), torch.zeros((S, K), dtype=torch.int64, device=dev),
+        torch.zeros((S, K, V), dtype=torch.float32, device=dev),
+        eng._target_pools(), z(S, nbs), z(S), *state)
+
+
+def _record_verifies(eng, log):
+    """A spy on the engine's verify that appends, for each call and each
+    running slot, (request, its token count before the call, its K
+    proposals, its committed row, its accepted length)."""
+    step = eng._spec_verify_step
+
+    def spy(*args):
+        out = step(*args)
+        committed, accepted = (t.cpu() for t in out)
+        props = args[1].cpu()
+        for slot, req in enumerate(eng._slots):
+            if req is not None and req.state == "running":
+                log.append((req, len(req.generated), props[slot].tolist(),
+                            committed[slot].tolist(), int(accepted[slot])))
+        return out
+
+    eng._spec_verify_step = spy
+
+
+def _hold_rejections(tag, model, prompts, reqs, log):
+    """Each greedy proposal the target rejected (``_record_verifies``'
+    ``log``) against the token it took instead: a fresh prefill of the
+    request's tokens before that position must put the two within
+    SPEC_MARGIN_ULPS bf16 ulps of its top logit (a near-tie between the
+    draft's decode path and the verify's chunk path), not past it (a
+    draft that reads a hole in its cache proposes far from the target).
+    Returns (rejections, the widest gap in ulps)."""
+    order = {id(r): i for i, r in enumerate(reqs)}
+    n, worst = 0, 0.0
+    for req, before, props, committed, accepted in log:
+        j = before + accepted - 1          # the correction's token index
+        if accepted > SPEC_K or j >= len(req.generated):
+            continue
+        i = order[id(req)]
+        lg = _prefix_logits(model, np.concatenate(
+            [prompts[i], req.generated[:j]]), MAIN_BS, 256).float()
+        top = float(lg.max())
+        ulp = 2.0 ** (math.floor(math.log2(max(abs(top), 1e-30))) - 7)
+        took, proposed = committed[accepted - 1], props[accepted - 1]
+        gap = abs(float(lg[took] - lg[proposed])) / ulp
+        n, worst = n + 1, max(worst, gap)
+        if gap > SPEC_MARGIN_ULPS:
+            raise AssertionError(
+                f"{tag}: request {i} token {j}: the target took {took} "
+                f"over its own proposal {proposed}, {gap:.2f} ulps apart")
+    print(f"  {tag}: {n} rejected proposals, each within {worst:.2f} bf16 "
+          f"ulps of the token the target took (a fresh prefill's logits)",
+          flush=True)
+    return n, worst
+
+
+def _serve_spec(model, draft, prompts, tag, num_blocks, kws=None,
+                calls=None, verifies=None):
+    """Phase 6's requests (the last submitted once the first has its
+    first token, to hit its prefix) through a speculative engine (``draft``
+    proposing SPEC_K tokens) whose graphs were captured first, with the
+    launch counts set to 0 just before and read just after: every request
+    its MAIN_NEW tokens, no leak, every block free again, one graph of
+    each speculative step and of the target's prefill, none of the plain
+    decode steps, and the launches of ``spec_launches``.  ``calls`` takes
+    the recorded calls (``_record_spec_calls``), ``verifies`` each
+    verify's outcome (``_record_verifies``).  Returns (numbers, launch
+    counts with each instance's, engine, requests)."""
+    from paddle_tpu_torch.kernels import launches
+    from paddle_tpu_torch.serving import (Engine, ServingConfig,
+                                          SpeculativeConfig)
+
+    kws = kws or [{}] * len(prompts)
+    eng = Engine(model, ServingConfig(
+        max_batch_size=8, block_size=MAIN_BS, chunk_tokens=256,
+        num_blocks=num_blocks,
+        speculative=SpeculativeConfig(draft, num_draft_tokens=SPEC_K)))
+    if calls is not None:
+        _record_spec_calls(eng, calls)
+    if verifies is not None:
+        _record_verifies(eng, verifies)
+    _warm_spec_graphs(eng)
+    torch.cuda.synchronize()
+    late = len(prompts) - 1
+    reqs = [None] * len(prompts)
+    launches.reset()
+    t0 = time.perf_counter()
+    for i in range(late):
+        reqs[i] = eng.submit(prompts[i], max_new_tokens=MAIN_NEW, **kws[i])
+    while True:
+        more = eng.step()
+        if reqs[late] is None and reqs[0].generated:
+            reqs[late] = eng.submit(prompts[late], max_new_tokens=MAIN_NEW,
+                                    **kws[late])
+        elif not more:
+            break
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, tally = launches.snapshot(), phase_counts()
+    st = eng.stats()
+    eng.pool.check_leaks()
+    if eng.pool.num_free != eng.pool.capacity_blocks:
+        raise AssertionError(f"{tag}: {eng.pool.num_free} of "
+                             f"{eng.pool.capacity_blocks} blocks free")
+    V = model.config.vocab_size
+    for r in reqs:
+        if r.finish_reason != "length" or len(r.generated) != MAIN_NEW or \
+                not all(0 <= t < V for t in r.generated):
+            raise AssertionError(f"{tag} {r.request_id}: {r.finish_reason}, "
+                                 f"{len(r.generated)} tokens")
+    sizes = eng.spec_cache_sizes()
+    plain = [eng.prefill_cache_size(), eng.decode_cache_size(),
+             eng.sampled_decode_cache_size()]
+    if set(sizes.values()) != {1} or plain != [1, 0, 0]:
+        raise AssertionError(f"{tag}: graphs {sizes}, prefill / decode / "
+                             f"sampled decode {plain}")
+    ctr = st["counters"]
+    chunks, iters = ctr["prefill_chunks"], ctr["decode_iterations"]
+    per_chunk, per_iter = spec_launches(model.config, draft.config, MAIN_BS,
+                                        SPEC_K)
+    expect = _merge({k: chunks * n for k, n in per_chunk.items()}, per_iter,
+                    iters)
+    print(f"  {tag}: launches {counts} over {chunks} prefill chunks (the "
+          f"target's and the draft's) and {iters} speculative iterations; "
+          f"expected per chunk {per_chunk}, per iteration {per_iter}",
+          flush=True)
+    if counts != expect:
+        raise AssertionError(f"{tag}: launch counts {counts} != {expect}")
+    if any("_general" in k for k in counts):
+        raise AssertionError(f"{tag}: a general instance launched")
+    digest = hashlib.sha1(json.dumps(
+        [[int(t) for t in r.generated] for r in reqs]).encode()).hexdigest()
+    rq = st["requests"].values()
+    tpot = [r["tpot_s"] for r in rq if r["tpot_s"] is not None]
+    compiles = st["compiles"]
+    out = dict(
+        tokens_per_s=ctr["tokens_generated"] / wall, wall_s=wall,
+        mean_ttft_s=float(np.mean([r["ttft_s"] for r in rq])),
+        mean_tpot_s=float(np.mean(tpot)), tokens=digest[:16],
+        accept_rate=eng.metrics.spec_accept_rate(),
+        spec_tokens_drafted=ctr["spec_tokens_drafted"],
+        spec_tokens_accepted=ctr["spec_tokens_accepted"],
+        decode_iterations=iters, prefill_chunks=chunks,
+        prefix_cache_hits=ctr["prefix_cache_hits"],
+        num_blocks=eng.num_blocks, pool_layers=eng.pool.num_layers,
+        pool_gb=eng.num_blocks * st["pool"]["block_bytes"] / 1e9,
+        graph_capture_s={label.split("::")[1]: c["compile_seconds"]
+                         for label, c in compiles.items()
+                         if c["compiles"]},
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"  {tag}: tokens {digest[:16]}; accept rate "
+          f"{out['accept_rate']:.4f} ({out['spec_tokens_accepted']} of "
+          f"{out['spec_tokens_drafted']} drafts), {iters} iterations, "
+          f"{out['tokens_per_s']:.1f} tokens/s, mean TTFT "
+          f"{out['mean_ttft_s']:.3f} s, mean TPOT "
+          f"{out['mean_tpot_s'] * 1e3:.1f} ms; graphs {sizes}", flush=True)
+    return out, tally, eng, reqs
+
+
+def _hold_greedy(tag, model, prompts, got, want):
+    """Greedy tokens ``got`` against phase 6's ``want`` by the rule of
+    tools/turns: at a request's first differing token, the top-2 margin
+    of a fresh prefill of the tokens before it, in bf16 ulps of the top
+    logit, printed beside turns' 2 and held to SPEC_MARGIN_ULPS.  Returns
+    the requests that differ."""
+    parted = 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a == b:
+            continue
+        parted += 1
+        j = next(k for k, (x, y) in enumerate(zip(a, b)) if x != y)
+        top, second = torch.topk(_prefix_logits(
+            model, np.concatenate([prompts[i], a[:j]]), MAIN_BS, 256)
+            .float(), 2).values.tolist()
+        ulp = 2.0 ** (math.floor(math.log2(max(abs(top), 1e-30))) - 7)
+        m = (top - second) / ulp
+        print(f"  {tag}: request {i} token {j} differs (speculative {a[j]}, "
+              f"phase 6 {b[j]}); top-2 margin of a fresh prefill there "
+              f"{top - second:.4e} = {m:.2f} bf16 ulps of {top:.4f} "
+              f"({'within' if m < 2 else 'past'} turns' 2)", flush=True)
+        if m > SPEC_MARGIN_ULPS:
+            raise AssertionError(f"{tag}: request {i} token {j} differs "
+                                 f"from phase 6's at a margin of {m:.2f} "
+                                 f"ulps > {SPEC_MARGIN_ULPS}")
+    print(f"  {tag}: {len(got) - parted} of {len(got)} requests' greedy "
+          "tokens equal phase 6's", flush=True)
+    return parted
+
+
+def _spec_sampler_share(eng, calls, step_ms):
+    """The sampler's part of the propose and the verify: the K draws and
+    filtered distributions of the propose's passes over [S, V] f32
+    logits, and the verify's acceptance (``spec_acceptance``: the
+    filtered distributions of [S * (K+1), V] logits, the draws), each
+    profiled three times on random logits and the recorded state; the
+    median against the step's median kernel time ``step_ms[name]``."""
+    from paddle_tpu_torch.serving.sampling import (DRAFT_TAG, filtered_probs,
+                                                   fold_keys, sample_tokens)
+    from paddle_tpu_torch.serving.speculative import spec_acceptance
+
+    S, K = eng.config.max_batch_size, eng.spec.num_draft_tokens
+    V, dev = eng.model.config.vocab_size, eng.device
+    g = torch.Generator(device=dev).manual_seed(5)
+    pargs, vargs = calls["draft_propose_step"][2], \
+        calls["spec_verify_step"][2]
+    temps, tks, tps, keys, counters = pargs[4:9]
+    last = torch.randn((S, V), generator=g, device=dev) * 3
+    lg = torch.randn((S, K + 1, V), generator=g, device=dev) * 3
+
+    def propose_sampler():
+        for i in range(K):
+            sample_tokens(last, temps, tks, tps, fold_keys(
+                fold_keys(keys, counters + i), DRAFT_TAG))
+            filtered_probs(last, temps, tks, tps)
+
+    def acceptance():
+        spec_acceptance(lg, vargs[1], vargs[2], *vargs[6:11])
+
+    shares = {}
+    for name, what, fn in (("draft_propose_step", f"{K} draws and "
+                            f"distributions over [{S}, {V}]",
+                            propose_sampler),
+                           ("spec_verify_step", f"the acceptance over "
+                            f"[{S}, {K + 1}, {V}]", acceptance)):
+        _, _, dev_ms, top, _ = _step_profile(fn, ())
+        mid = float(np.median(dev_ms))
+        shares[name] = (mid, mid / step_ms[name] if step_ms[name] else None)
+        print(f"  sampler in {name}: {what}: "
+              + ", ".join(f"{ms:.3f}" for ms in dev_ms) + " ms of kernels"
+              + (f", {shares[name][1]:.1%} of the step's"
+                 if shares[name][1] is not None else ""), flush=True)
+        for kname, ms, count in top[:4]:
+            print(f"    {ms:8.3f} ms  {count:5d}x  {kname[:90]}")
+    return shares
+
+
+def _spec_tiny(dev):
+    """Phase 6sp (d): LlamaConfig.tiny in f32 (seed 0) with a 1-layer
+    draft of it (seed 123), the same weights served on cuda and on cpu
+    with SpeculativeConfig(draft, 3), pages of 4: 6 greedy requests, then
+    the same with requests 0, 2 and 4 sampled; tokens and speculative
+    counters equal."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import (Engine, ServingConfig,
+                                          SpeculativeConfig)
+
+    cfgs = (LlamaConfig.tiny(), LlamaConfig.tiny(num_hidden_layers=1))
+    cpu = [LlamaForCausalLM(c, device="cpu", seed=s)
+           for c, s in zip(cfgs, (0, 123))]
+    cuda = [LlamaForCausalLM(c, device=dev, seed=None) for c in cfgs]
+    for a, b in zip(cuda, cpu):
+        a.load_state_dict(b.state_dict())
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, 256, size=n) for n in (3, 7, 5, 11, 4, 6)]
+    mixed = [dict(temperature=0.8, top_k=16, top_p=0.95, seed=9), {},
+             dict(temperature=1.0, seed=4), {},
+             dict(temperature=0.6, top_p=0.9, seed=2 ** 31 - 1), {}]
+    for what, kws in (("greedy", [{}] * 6), ("sampled", mixed)):
+        out = {}
+        for name, (target, draft) in (("cpu", cpu), ("cuda", cuda)):
+            eng = Engine(target, ServingConfig(
+                max_batch_size=4, block_size=4, num_blocks=64,
+                speculative=SpeculativeConfig(draft, num_draft_tokens=3)))
+            reqs = [eng.submit(p, max_new_tokens=9, **kw)
+                    for p, kw in zip(prompts, kws)]
+            eng.run_until_complete()
+            eng.pool.check_leaks()
+            c = eng.stats()["counters"]
+            out[name] = ([r.generated for r in reqs],
+                         (c["spec_tokens_drafted"],
+                          c["spec_tokens_accepted"]))
+        print(f"  spec tiny ({what}): cuda tokens "
+              f"{'==' if out['cuda'] == out['cpu'] else '!='} cpu tokens; "
+              f"drafted / accepted {out['cuda'][1]} (cpu {out['cpu'][1]})",
+              flush=True)
+        if out["cuda"] != out["cpu"]:
+            raise AssertionError(f"spec tiny ({what}): cuda {out['cuda']} "
+                                 f"!= cpu {out['cpu']}")
+
+
+def spec_kernel_entries(dev):
+    """Phase 6sp (e): the kernels of the speculative path at the shapes
+    the card had not run: fused_norm_linear over Llama-3.2-3B's five
+    projections at a propose pass's 8 rows (2d) and over Llama-3-8B's at
+    the verify's 40 (2v), the paged decode at the draft's 24 q over 8 kv
+    heads (3d), the chunk and the KV write at the verify's 8 sequences of
+    K+1 tokens at staggered frontiers (4v, Sv)."""
+    from paddle_tpu_torch.kernels import (_build, chunked_prefill, kv_quant,
+                                          paged_attention)
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    d = llama32_3b_config()
+    entries = {}
+    print("[spec kernels] the speculative path's new shapes, bf16",
+          flush=True)
+    for name, key, M, (HID, H, KVH, FFN) in (
+            ("fused_norm_linear_skinny", "fused_norm_linear_skinny_llama32_3b",
+             8, (d.hidden_size, d.num_attention_heads,
+                 d.num_key_value_heads, d.intermediate_size)),
+            ("fused_norm_linear_tiled", "fused_norm_linear_tiled_verify",
+             8 * (SPEC_K + 1), (4096, 32, 8, 14336))):
+        entries[key] = fnl_entry(g, name, M, HID, H, KVH, 128, FFN,
+                                 path="spec", counter=name)
+    ops = _attn_operands(g, dev, SPEC_DRAFT_ATTN)
+    H, KVH = SPEC_DRAFT_ATTN[1:3]
+    splits = paged_attention.decode_plan(
+        8, KVH, ops["nbs"], SPEC_DRAFT_ATTN[4], _build.sm_count(dev),
+        paged_attention.hopper_group(H // KVH)[1],
+        paged_attention.blocks_per_sm(ops["q"], None))
+    entries["paged_decode_llama32_3b"] = _decode_entry(
+        ops, None, paged_attention.KERNEL, "spec", splits)
+    del ops
+    ops = _attn_operands(g, dev, SPEC_VERIFY_ATTN, T=SPEC_K + 1,
+                         start=list(C1_FRONTIERS))
+    entries["chunked_prefill_verify"] = _chunk_entry(
+        ops, chunked_prefill.KERNEL, "spec")
+    # the verify's KV write: every one of the K+1 rows kept (an all-true
+    # write mask), into fresh bf16 pools over the chunk's tables
+    bf = torch.bfloat16
+    B, T, KVH, D = 8, SPEC_K + 1, SPEC_VERIFY_ATTN[2], SPEC_VERIFY_ATTN[3]
+    k, v = (torch.randn((B, T, KVH, D), generator=g, device=dev).to(bf)
+            for _ in range(2))
+    pools = [torch.zeros_like(ops["k"]) for _ in range(2)]
+    wops = [*pools, k, v, ops["bt"], ops["pos"]]
+    kw = dict(scheme=None, write_mask=torch.ones((B, T), dtype=torch.bool,
+                                                 device=dev))
+    want_ops = [x.clone() for x in wops]
+    want_kw = dict(kw)
+    _one_launch(kv_quant.KERNEL, lambda: kv_quant.kv_write(*wops, **kw))
+    kv_quant.kv_write_plain(*want_ops, **want_kw)
+    hold_write(f"kv_write, verify rows {list(k.shape)} into bf16 pools",
+               wops, kw, want_ops, want_kw, [])
+    entries["kv_write_verify_bf16"] = write_entry("chunk", "bf16", "spec",
+                                                  wops, kw, [])
+    del ops, wops, want_ops, pools
+    print_entries(entries)
+    return entries
+
+
+def phase_main_spec(model, prompts, greedy, main_out):
+    """Phase 6sp: speculative decoding on phase 6's model (Llama-3-8B
+    width, bf16, seed 0), requests and pages, SPEC_K = 4 drafts a verify,
+    a pool sized for both models' layers and every request's K+1 horizon.
+    (a) A Llama-3.2-3B-width draft (``llama32_3b_config``, random weights,
+    seed 1), greedy: every request's tokens held to phase 6's (``greedy``)
+    by the margin rule (``_hold_greedy``), one graph of each speculative
+    step, a second batch adding none and no retrace, exact launch counts,
+    no leak; its numbers beside phase 6's (``main_out``), each step
+    profiled three times and the sampler's share of the propose and the
+    verify.  (b) The target as its own draft: tokens by the margin rule,
+    every rejected proposal a near-tie (``_hold_rejections``).  (c)
+    Requests 0, 2, 4 and 6 sampled (SAMPLED, seed 1000 + i) with the 3B
+    draft, served twice: the same tokens, the greedy ones (a)'s.  (d)
+    ``_spec_tiny``.  (e) ``spec_kernel_entries``.  Returns ((a)'s launch
+    counts, (e)'s kernel rows)."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+
+    t_phase = time.perf_counter()
+    dev = model.device
+    dcfg = llama32_3b_config()
+    t0 = time.perf_counter()
+    draft = LlamaForCausalLM(dcfg, device=dev, seed=1)
+    torch.cuda.synchronize()
+    want = [r.generated for r in greedy]
+    num_blocks = 1 + sum(-(-(len(p) + MAIN_NEW + SPEC_K) // MAIN_BS)
+                         for p in prompts) + 8
+    print(f"[main spec] phase 6's model with a Llama-3.2-3B-width draft "
+          f"(bf16, {dcfg.num_hidden_layers} layers, random weights, seed 1, "
+          f"made in {time.perf_counter() - t0:.1f} s), {SPEC_K} drafts a "
+          f"verify; a pool of {num_blocks} blocks of {MAIN_BS} tokens over "
+          f"{model.config.num_hidden_layers} + {dcfg.num_hidden_layers} "
+          f"layers (every request's prompt, {MAIN_NEW} new tokens and the "
+          f"K+1 horizon)", flush=True)
+
+    # (a) the 3B draft, greedy
+    calls = {}
+    out, tally, eng, reqs = _serve_spec(model, draft, prompts, "spec (a)",
+                                        num_blocks, calls=calls)
+    _hold_greedy("spec (a)", model, prompts, [r.generated for r in reqs],
+                 want)
+    sizes = eng.spec_cache_sizes()
+    eng.generate(prompts[2:6], max_new_tokens=8)
+    retraces = [eng._steps[n].retraces for n in SPEC_STEPS]
+    eng.pool.check_leaks()
+    if eng.spec_cache_sizes() != sizes or any(retraces) or \
+            eng.pool.num_free != eng.pool.capacity_blocks:
+        raise AssertionError(f"spec (a): after a second batch graphs "
+                             f"{eng.spec_cache_sizes()} (before {sizes}), "
+                             f"retraces {retraces}")
+    print(f"  spec (a): a second batch of 4 requests: graphs {sizes} as "
+          f"before, retraces {retraces}, no block leaked", flush=True)
+    step_ms = {}
+    for name in SPEC_STEPS:
+        n, step, args = calls[name]
+        with _slot_state(eng, args, SPEC_POOLS[name] + 3) as bound:
+            wall, span, dev_ms, top, kernels = _step_profile(step, bound)
+        step_ms[name] = mid = float(np.median(dev_ms))
+        unit = "tokens" if name == "draft_prefill_step" else "slots running"
+        print(f"  {name} ({n} {unit}): {wall:.3f} ms on the host's clock, "
+              f"{span:.3f} ms between CUDA events; kernels of "
+              f"{len(dev_ms)} profiled steps: " + ", ".join(
+                  f"{ms:.3f} ms in {k}" for ms, k in zip(dev_ms, kernels))
+              + (f" (busy {mid / wall:.1%})" if mid else ""), flush=True)
+        for kname, ms, count in top:
+            print(f"    {ms:8.3f} ms  {count:5d}x  {kname[:90]}")
+        out[f"{name}_host_ms"], out[f"{name}_span_ms"] = wall, span
+        out[f"{name}_device_ms"], out[f"{name}_kernels"] = dev_ms, kernels
+    shares = _spec_sampler_share(eng, calls, step_ms)
+    out["sampler_device_ms"] = {k: v[0] for k, v in shares.items()}
+    out["sampler_share"] = {k: v[1] for k, v in shares.items()}
+    print(f"  spec (a): {out['tokens_per_s']:.1f} tokens/s (phase 6 "
+          f"{main_out['tokens_per_s']:.1f}), mean TTFT "
+          f"{out['mean_ttft_s']:.3f} s ({main_out['mean_ttft_s']:.3f}), "
+          f"mean TPOT {out['mean_tpot_s'] * 1e3:.1f} ms "
+          f"({main_out['mean_tpot_s'] * 1e3:.1f})", flush=True)
+    print(f"  {json.dumps(out)}", flush=True)
+    del eng, calls
+    free()
+
+    # (b) the target as its own draft: every rejection a near-tie
+    verifies = []
+    sout, _, seng, sreqs = _serve_spec(model, model, prompts, "spec (b)",
+                                       num_blocks, verifies=verifies)
+    del seng
+    free()
+    _hold_greedy("spec (b)", model, prompts, [r.generated for r in sreqs],
+                 want)
+    sout["rejections"], sout["widest_rejection_ulps"] = _hold_rejections(
+        "spec (b)", model, prompts, sreqs, verifies)
+    print(f"  {json.dumps(sout)}", flush=True)
+
+    # (c) sampled, with the 3B draft, twice
+    kws = [dict(SAMPLED, seed=1000 + i) if i % 2 == 0 else {}
+           for i in range(len(prompts))]
+    digests = []
+    for attempt in ("first", "second"):
+        tag = f"spec (c) sampled, {attempt} run"
+        cout, _, ceng, creqs = _serve_spec(model, draft, prompts, tag,
+                                           num_blocks, kws=kws)
+        del ceng
+        free()
+        for i, r in enumerate(creqs):
+            if not kws[i] and r.generated != reqs[i].generated:
+                raise AssertionError(f"{tag}: greedy request {i}'s tokens "
+                                     "differ from (a)'s")
+        digests.append(hashlib.sha1(json.dumps(
+            [r.generated for i, r in enumerate(creqs) if kws[i]])
+            .encode()).hexdigest()[:16])
+        print(f"  {tag}: sampled tokens {digests[-1]}; greedy requests "
+              f"equal (a)'s; drafted {cout['spec_tokens_drafted']}, "
+              f"accepted {cout['spec_tokens_accepted']}", flush=True)
+    if digests[0] != digests[1]:
+        raise AssertionError(f"spec (c): the two runs sampled other tokens "
+                             f"({digests})")
+    del draft
+    free()
+
+    # (d) the tiny f32 model, cuda against cpu; (e) the kernel rows
+    _spec_tiny(dev)
+    entries = spec_kernel_entries(dev)
+    print(f"  phase 6sp in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return tally, entries
+
+
+def phase_spec_main(dev):
+    """Phase 6's greedy run on its model, then phase 6sp: the speculative
+    path alone (``tools/turns --phases spec_main``).  Returns what
+    ``phase_main_spec`` returns."""
+    model, prompts, num_blocks = _main_model(dev)
+    greedy = []
+    out, _, eng = _serve_main(model, prompts, "main",
+                              num_blocks=num_blocks, requests=greedy)
+    del eng
+    free()
+    return phase_main_spec(model, prompts, greedy, out)
+
+
 # ---------------------------------------------------------------- phase 2d
 SAMPLER_V = 128256              # Llama-3's vocabulary
 SAMPLER_COUNTERS = 64
@@ -3351,21 +3992,22 @@ SLOT_STATE = ("_temps", "_top_ks", "_top_ps", "_keys", "_counters")
 
 
 @contextlib.contextmanager
-def _slot_state(eng, args):
-    """A recorded sampled decode step's arguments over the engine's own
+def _slot_state(eng, args, at=4):
+    """A recorded sampled decode step's arguments (or a speculative
+    step's, whose state starts at position ``at``) over the engine's own
     per-slot sampling tensors, which hold the recorded values inside the
     block and their own again after it: the step binds those tensors by
     address, as it binds the pools, so a copy would be a new graph.  A
     decode or prefill step's arguments pass as they are."""
-    if len(args) != 4 + len(SLOT_STATE):
+    if len(args) != at + len(SLOT_STATE):
         yield args
         return
     own = [getattr(eng, n) for n in SLOT_STATE]
     kept = [t.clone() for t in own]
-    for t, a in zip(own, args[4:]):
+    for t, a in zip(own, args[at:]):
         t.copy_(a)
     try:
-        yield (*args[:4], *own)
+        yield (*args[:at], *own)
     finally:
         for t, k in zip(own, kept):
             t.copy_(k)
@@ -4078,7 +4720,7 @@ def main() -> int:
     phase_tiny_moe(dev)
     c1_tiny_counts = phase_tiny_c1(dev)
     phase_tiny_static(dev)
-    counts, bf16_blocks = phase_main(dev)
+    counts, bf16_blocks, spec_counts, spec_entries = phase_main(dev)
     free()                        # each serving model's 16 GB go first
     quant_counts = phase_main_quant(dev, bf16_blocks)
     free()
@@ -4103,11 +4745,11 @@ def main() -> int:
             "moe_serve": moe_counts, "moe_train": moe_train_counts,
             "static_train": static_counts, "c1_tiny": c1_tiny_counts,
             "c1_serve": c1_counts, "train_phi3": phi3_counts,
-            "phi3_serve": phi3_serve_counts}
+            "phi3_serve": phi3_serve_counts, "spec": spec_counts}
     kernels = []
     for name, e in [*entries.items(), *train_entries.items(),
                     *moe_entries.items(), *c1_entries.items(),
-                    *static_entries.items()]:
+                    *static_entries.items(), *spec_entries.items()]:
         # launches: from the main phase of the kernel's own path (bf16
         # serving, quantized serving or training), under the name of the
         # kernel's counter, of the row's own instance where it has one

@@ -6,6 +6,8 @@
 - :mod:`metrics`   — TTFT/TPOT/queue-time counters + engine gauges
 - :mod:`overload`  — load shedding, degradation ladder, step watchdog
 - :mod:`sampling`  — seeded temperature/top-k/top-p (:class:`SamplingParams`)
+- :mod:`speculative` — draft propose + batched target verify
+  (:class:`SpeculativeConfig`)
 - :mod:`stream`    — SSE framing over ``submit(on_token=...)``
 - :mod:`endpoint`  — Predictor-shaped :class:`Endpoint` front door
 
@@ -30,13 +32,14 @@ from .overload import (DEGRADED, FAILED, LADDER_LEVELS, SERVING,
 from .sampling import SamplingParams
 from .scheduler import (FINISHED, PREEMPTED, PREFILLING, QUEUED, RUNNING,
                         AdmissionError, QueueFull, Request, Scheduler)
+from .speculative import SpeculativeConfig
 from .stream import DONE_FRAME, sse_event, sse_stream, stream_events
 
 __all__ = [
     "Engine", "ServingConfig", "Endpoint", "BlockKVPool", "PoolExhausted",
     "Scheduler", "Request", "AdmissionError", "QueueFull", "ServingMetrics",
     "RequestTimeline", "OverloadController", "EngineQuarantined",
-    "SamplingParams", "sse_event", "sse_stream", "stream_events",
-    "DONE_FRAME", "LADDER_LEVELS", "SERVING", "DEGRADED", "FAILED",
-    "QUEUED", "PREFILLING", "RUNNING", "PREEMPTED", "FINISHED",
+    "SamplingParams", "SpeculativeConfig", "sse_event", "sse_stream",
+    "stream_events", "DONE_FRAME", "LADDER_LEVELS", "SERVING", "DEGRADED",
+    "FAILED", "QUEUED", "PREFILLING", "RUNNING", "PREEMPTED", "FINISHED",
 ]

@@ -20,6 +20,17 @@ a ``kv_pool_bytes`` budget) and with full-precision or int8 weights
 top-k, top-p, a per-request seed: ``serving/sampling.py``), and stream
 their tokens through ``on_token``.
 
+With ``ServingConfig(speculative=...)`` a draft model proposes K tokens
+an iteration and the target verifies all K+1 positions in one batched
+forward with the acceptance on the device (``serving/speculative.py``).
+One pool holds the target's layers followed by the draft's, addressed
+by the same block tables: the draft prefills every chunk into its own
+layer slice of the prompt's blocks, every RUNNING slot gets writable
+blocks for K+1 positions, and after the commit the blocks wholly past
+each slot's new frontier are freed.  Greedy tokens are the plain
+engine's; sampled ones are the reference's rejection sampling under the
+request's key.
+
 The overload controller (``serving/overload.py``) is the reference's:
 request and rolling token deadlines on the monotonic clock, priorities
 (admission prefers high, preemption and queue-full shedding take low),
@@ -31,14 +42,15 @@ synchronize), so its time covers the device's work; a call that
 captured a graph is its step's compile observation.  The engine moves
 its host state only after a watched call returns, so a retried step
 writes the same KV rows again.  Options of later slices raise
-``NotImplementedError`` when set: speculative decoding, a mesh and the
-startup X-ray / shard-plan audits.
+``NotImplementedError`` when set: a mesh and the startup X-ray /
+shard-plan audits.
 
-Each step (decode, sampled decode, prefill chunk) is a
+Each step (decode, sampled decode, prefill chunk, and under speculation
+the draft's prefill chunk, the draft's proposals and the verify) is a
 ``jit.GraphStep``: on the card it is captured once as a CUDA graph and
 replayed with the iteration's inputs copied into its static buffers,
-as the JAX engine compiles each step once.  The engine's three graphs
-share one memory pool and replay one after another on one stream; a
+as the JAX engine compiles each step once.  The engine's graphs share
+one memory pool and replay one after another on one stream; a
 step's output is the graph's static tensor, read before the next
 replay.  The steps carry the reference's no-retrace contract
 (``observability.warn_on_retrace``): a second graph of a step (an input
@@ -47,8 +59,9 @@ of another shape, or a rebound pool) raises ``RetraceError`` under
 
 Correctness contract: outputs are token-exact with the JAX engine on
 the same weights (tests/test_torch_serving.py,
-tests/test_torch_sampled_serving.py), greedy and sampled under the same
-seeds, across preemption and with the prefix cache on or off; under the
+tests/test_torch_sampled_serving.py, tests/test_torch_speculative.py),
+greedy and sampled under the same seeds, with and without speculation,
+across preemption and with the prefix cache on or off; under the
 same fault schedule (``resilience.FaultPlan``) the finish reasons,
 ladder transitions, counters and health states are the JAX engine's too
 (tests/test_torch_overload.py).
@@ -78,11 +91,12 @@ from .overload import EngineQuarantined, OverloadController
 from .sampling import make_sampled_decode_step, resolve_sampling, sample_at
 from .scheduler import (FINISHED, PREFILLING, RUNNING, AdmissionError,
                         QueueFull, Request, Scheduler)
+from .speculative import (SpeculativeConfig, make_draft_propose_step,
+                          make_spec_verify_step)
 
 # ServingConfig fields of later slices, each with the ROADMAP item that
 # ports it: a value other than the field's default raises
 LATER_SLICE_OPTIONS = {
-    "speculative": "A1's speculative decoding",
     "mesh": "A3's mesh runtime",
     "xray_on_start": "A5's xray", "hbm_budget_bytes": "A5's xray",
     "xray_chip": "A5's xray", "shardplan": "A5's shard-plan audit",
@@ -147,8 +161,10 @@ class ServingConfig:
     step_retry_backoff_s: float = 0.05
     # consecutive in-budget steps before DEGRADED heals to SERVING
     health_recovery_steps: int = 3
-    # ---- later slices (LATER_SLICE_OPTIONS): only the defaults are taken
+    # a SpeculativeConfig, or a bare draft model (K = 4): the draft
+    # proposes, the target verifies (serving/speculative.py)
     speculative: Any = None
+    # ---- later slices (LATER_SLICE_OPTIONS): only the defaults are taken
     mesh: Any = None
     xray_on_start: bool = False
     hbm_budget_bytes: Optional[int] = None
@@ -193,11 +209,31 @@ class Engine:
             # in place and idempotent, before the steps are made
             quantize_model_weights(model, cfg.weight_dtype)
         kv_heads, head_dim, dtype = _cache_dims(model)
-        num_layers = model.config.num_hidden_layers
         model_max = model.config.max_position_embeddings
         self.max_model_len = min(cfg.max_model_len or model_max, model_max)
         self.max_blocks_per_seq = -(-self.max_model_len // cfg.block_size)
         self.chunk_tokens = max(1, min(cfg.chunk_tokens, self.max_model_len))
+        # speculative decoding: one pool holds the target's layers
+        # followed by the draft's, addressed by the same block tables
+        spec = cfg.speculative
+        if spec is not None and not isinstance(spec, SpeculativeConfig):
+            spec = SpeculativeConfig(draft_model=spec)
+        self.spec = spec
+        self._n_target_layers = num_layers = model.config.num_hidden_layers
+        if spec is not None:
+            spec.validate_against(model)
+            draft_max = spec.draft_model.config.max_position_embeddings
+            if draft_max < self.max_model_len:
+                raise ValueError(
+                    f"draft max_position_embeddings ({draft_max}) < "
+                    f"max_model_len ({self.max_model_len})")
+            if self.kv_cache_dtype is not None:
+                raise ValueError(
+                    "speculative decoding with a quantized KV cache is not "
+                    "supported yet (the draft/verify rollback paths assume "
+                    "full-precision pool entries); drop kv_cache_dtype or "
+                    "speculative")
+            num_layers += spec.draft_model.config.num_hidden_layers
         self.num_blocks = cfg.num_blocks
         if cfg.kv_pool_bytes is not None:
             per_block = BlockKVPool.block_bytes_for(
@@ -238,31 +274,47 @@ class Engine:
         self._keys = torch.zeros((S, 2), dtype=torch.int64, device=dev)
         self._counters = torch.zeros((S,), dtype=torch.int64, device=dev)
         # the reference's compiled steps, each under its no-retrace guard:
-        # its one allowed compile is this engine's capture.  The three
-        # graphs share one memory pool: they replay one after another
+        # its one allowed compile is this engine's capture.  The graphs
+        # share one memory pool: they replay one after another
         graphs = torch.cuda.graph_pool_handle() \
             if self.device.type == "cuda" else None
         on_retrace = "raise" if cfg.strict_no_retrace else "count"
+        kv = self.kv_cache_dtype
+        steps = {
+            "decode_step": make_paged_decode_step(model, kv, graphs),
+            "prefill_step": make_chunked_prefill_step(model, kv, graphs),
+            "sampled_decode_step": make_sampled_decode_step(model, kv,
+                                                            graphs)}
+        if spec is not None:
+            draft, K = spec.draft_model, spec.num_draft_tokens
+            steps.update(
+                draft_prefill_step=make_chunked_prefill_step(draft, None,
+                                                             graphs),
+                draft_propose_step=make_draft_propose_step(draft, K, None,
+                                                           graphs),
+                spec_verify_step=make_spec_verify_step(model, K, None,
+                                                       graphs))
         self._steps = {
-            name: warn_on_retrace(make(model, self.kv_cache_dtype, graphs),
-                                  after=1, label=f"serving::{name}",
+            name: warn_on_retrace(step, after=1, label=f"serving::{name}",
                                   on_retrace=on_retrace)
-            for name, make in (
-                ("decode_step", make_paged_decode_step),
-                ("prefill_step", make_chunked_prefill_step),
-                ("sampled_decode_step", make_sampled_decode_step))}
-        self._decode_step = self._steps["decode_step"]
-        self._prefill_step = self._steps["prefill_step"]
-        self._sampled_decode_step = self._steps["sampled_decode_step"]
+            for name, step in steps.items()}
+        for name, step in self._steps.items():
+            setattr(self, "_" + name, step)
         # one watchdog a step, each with its own EWMA; a call that grew
         # its step's graphs is that EWMA's compile observation.  The
         # counts are read from _steps: spies may replace the attributes
-        self._sampled_wd = self.overload.extra_watchdog(
-            "sampled_decode_step")
-        for wd, name in ((self.overload.decode_watchdog, "decode_step"),
-                         (self.overload.prefill_watchdog, "prefill_step"),
-                         (self._sampled_wd, "sampled_decode_step")):
-            wd.compiles = lambda step=self._steps[name]: step.compiles
+        watchdogs = {"decode_step": self.overload.decode_watchdog,
+                     "prefill_step": self.overload.prefill_watchdog}
+        for name in self._steps:
+            if name not in watchdogs:
+                watchdogs[name] = self.overload.extra_watchdog(name)
+            watchdogs[name].compiles = \
+                lambda step=self._steps[name]: step.compiles
+        self._sampled_wd = watchdogs["sampled_decode_step"]
+        if spec is not None:
+            self._draft_prefill_wd = watchdogs["draft_prefill_step"]
+            self._draft_propose_wd = watchdogs["draft_propose_step"]
+            self._spec_verify_wd = watchdogs["spec_verify_step"]
         self._finished: Dict[str, Request] = {}
         self._ids = itertools.count()
         self._evictions_seen = 0
@@ -327,12 +379,17 @@ class Engine:
             sampling_key=None if params is None
             else params.base_key(self.generator),
             on_token=on_token, token_deadline_s=token_deadline_s)
-        if req.prompt_len + req.max_new_tokens > self.max_model_len:
+        # speculation writes K positions past the frontier an iteration:
+        # the bound keeps even the deepest (rolled back) write inside
+        # max_model_len
+        limit = self.max_model_len - (
+            self.spec.num_draft_tokens if self.spec is not None else 0)
+        if req.prompt_len + req.max_new_tokens > limit:
             self.metrics.on_reject()
             raise AdmissionError(
                 f"{req.request_id}: prompt ({req.prompt_len}) + "
                 f"max_new_tokens ({req.max_new_tokens}) exceeds "
-                f"max_model_len ({self.max_model_len})")
+                f"max_model_len ({limit})")
         # load shedding: when even an optimistic TTFT estimate busts the
         # SLO, retire now; the caller gets the handle back, "shed"
         effective_deadline = deadline_s
@@ -523,8 +580,8 @@ class Engine:
             # on the host: the first token, or for a chunk that is not
             # the prompt's last a synchronize, so the watchdog's time
             # covers the device's work and not the replay's launch
-            last = self._prefill_step(ids, self.pool.layers, bt, starts,
-                                      n_tok - 1)
+            last = self._prefill_step(ids, self._target_pools(), bt,
+                                      starts, n_tok - 1)
             if not final:
                 if last.is_cuda:
                     torch.cuda.current_stream(last.device).synchronize()
@@ -534,6 +591,17 @@ class Engine:
             return int(torch.argmax(last[0]).item())
 
         first_tok = self.overload.prefill_watchdog.call(watched)
+        if self.spec is not None:
+            # the draft prefills the same chunk into its own layer slice
+            # of the same (already writable) blocks, so the prefix cache
+            # serves both models from one block table
+            def draft_watched():
+                last = self._draft_prefill_step(ids, self._draft_pools(), bt,
+                                                starts, n_tok - 1)
+                if last.is_cuda:
+                    torch.cuda.current_stream(last.device).synchronize()
+
+            self._draft_prefill_wd.call(draft_watched)
         req.prefill_pos = start + n_tok
         req.prefill_chunks += 1
         if not final:
@@ -560,17 +628,18 @@ class Engine:
         self._maybe_retire(req)
 
     # ---------------------------------------------------------- decode
-    def _ensure_blocks(self):
-        """Every RUNNING slot needs a WRITABLE block for its next write
-        position: allocate when the frontier crosses into a new block,
-        copy-on-write a shared one.  A dry pool preempts youngest-first
-        (oldest requests are served first, so a starving old request
-        evicts young ones; a young one preempts itself)."""
+    def _ensure_blocks(self, horizon: int = 1):
+        """Every RUNNING slot needs WRITABLE blocks for its next
+        ``horizon`` write positions (1 for a decode step, K+1 for a
+        verify): allocate when they cross into a new block, copy-on-write
+        a shared one.  A dry pool preempts youngest-first (oldest
+        requests are served first, so a starving old request evicts
+        young ones; a young one preempts itself)."""
         for req in sorted(self.scheduler.running, key=lambda r: r.ordinal):
             if req.slot is None or req.state != RUNNING:
                 continue
             pos = int(self._lengths[req.slot])
-            need = self.pool.blocks_for(pos + 1)
+            need = self.pool.blocks_for(pos + horizon)
             preempted = False
             while len(req.blocks) < need:
                 try:
@@ -658,7 +727,18 @@ class Engine:
             return False
         return True
 
+    # the pool lists the target's layers, then the draft's; each step
+    # takes its model's slice (the steps write the pools in place)
+    def _target_pools(self):
+        return self.pool.layers[:self._n_target_layers]
+
+    def _draft_pools(self):
+        return self.pool.layers[self._n_target_layers:]
+
     def _decode_iteration(self):
+        if self.spec is not None:
+            self._spec_iteration()
+            return
         self._ensure_blocks()
         active = [r for r in self._slots
                   if r is not None and r.state == RUNNING]
@@ -674,8 +754,8 @@ class Engine:
             def watched():
                 # the step by attribute, its tokens read to the host
                 # inside the watchdog's window (the device's work timed)
-                logits = self._decode_step(tokens, self.pool.layers, tables,
-                                           lengths)
+                logits = self._decode_step(tokens, self._target_pools(),
+                                           tables, lengths)
                 return torch.argmax(logits, dim=-1).cpu().numpy()
 
             next_toks = self.overload.decode_watchdog.call(watched)
@@ -702,13 +782,105 @@ class Engine:
         draws at the same index.  Returns the [S] next tokens."""
         def watched():
             toks = self._sampled_decode_step(
-                tokens, self.pool.layers, tables, lengths, self._temps,
+                tokens, self._target_pools(), tables, lengths, self._temps,
                 self._top_ks, self._top_ps, self._keys, self._counters)
             return toks.cpu().numpy()
 
         next_toks = self._sampled_wd.call(watched)
         self._counters += self._temps > 0
         return next_toks
+
+    def _spec_iteration(self):
+        """One speculative iteration: the draft proposes K tokens (one
+        graph over its layer slice), the target verifies the K+1
+        positions with the acceptance on the device, the host commits
+        each slot's accepted tokens, and the blocks past each new
+        frontier are freed.  The proposals go from the propose call to
+        the verify call on the device; only the committed tokens and
+        accepted lengths come to the host.  Host state (frontiers,
+        pending tokens, counters, blocks) moves only after the verify
+        call, so a retried propose or verify runs on the same inputs."""
+        K = self.spec.num_draft_tokens
+        self._ensure_blocks(horizon=K + 1)
+        active = [r for r in self._slots
+                  if r is not None and r.state == RUNNING]
+        if not active:
+            return
+        tables = self._decode_block_view()
+        state = (self._temps, self._top_ks, self._top_ps, self._keys,
+                 self._counters)
+
+        def propose():
+            out = self._draft_propose_step(self._pending[:, None],
+                                           self._draft_pools(), tables,
+                                           self._lengths, *state)
+            # out of the graph's static outputs: the verify's replay may
+            # reuse their memory, and a retried verify reads them again
+            props, probs = (t.clone() for t in out)
+            if props.is_cuda:
+                torch.cuda.current_stream(props.device).synchronize()
+            return props, probs
+
+        props, probs = self._draft_propose_wd.call(propose)
+
+        def verify():
+            committed, accepted = self._spec_verify_step(
+                self._pending, props, probs, self._target_pools(), tables,
+                self._lengths, *state)
+            return committed.cpu().numpy(), accepted.cpu().numpy()
+
+        committed, accepted = self._spec_verify_wd.call(verify)
+        self.metrics.on_decode_iteration(
+            len(active), self.config.max_batch_size,
+            self.pool.utilization())
+        advance = np.zeros((self.config.max_batch_size,), np.int64)
+        accepted_drafts = 0
+        for req in active:
+            slot = req.slot
+            n_new = int(accepted[slot])          # 1..K+1 committed tokens
+            accepted_drafts += n_new - 1
+            self.metrics.on_spec_commit(n_new)
+            taken, finished = 0, False
+            for tok in committed[slot, :n_new]:
+                tok = int(tok)
+                req.generated.append(tok)
+                taken += 1
+                if not self._emit_token(req, tok):
+                    self._retire(req, "error")
+                    finished = True
+                    break
+                reason = self.scheduler.finish_reason(req)
+                if reason is not None:
+                    # an eos, stop or length in mid-commit drops the
+                    # tokens after it, where sequential decoding stops
+                    self._retire(req, reason)
+                    finished = True
+                    break
+            if finished:
+                continue
+            self._lengths[slot] += taken
+            self._pending[slot] = int(committed[slot, taken - 1])
+            if req.sampling is not None:
+                advance[slot] = taken
+            self._rollback_blocks(req)
+        if advance.any():
+            # each sampled slot's counter to its next token index
+            self._counters += torch.from_numpy(advance).to(self.device)
+        self.metrics.on_spec_step(K * len(active), accepted_drafts)
+
+    def _rollback_blocks(self, req: Request):
+        """Cut ``req``'s KV back to its accepted frontier: the blocks
+        wholly past its next write position held only rejected drafts'
+        KV and are freed (``_ensure_blocks`` made them writable, so the
+        request owns them alone).  Rows past the frontier in kept blocks
+        need no scrub: the attention masks them, and the next iteration
+        overwrites them."""
+        keep = self.pool.blocks_for(int(self._lengths[req.slot]) + 1)
+        if len(req.blocks) > keep:
+            tail = req.blocks[keep:]
+            del req.blocks[keep:]
+            self.pool.free(tail, req.request_id)
+            self._block_tables[req.slot, keep:] = 0
 
     # ----------------------------------------------------------- retire
     def _maybe_retire(self, req: Request):
@@ -756,6 +928,15 @@ class Engine:
         iteration, forever."""
         return self._steps["sampled_decode_step"]._cache_size()
 
+    def spec_cache_sizes(self) -> Dict[str, int]:
+        """Graphs of the speculative steps (each 1 after its first
+        call, forever); an empty dict without speculation."""
+        if self.spec is None:
+            return {}
+        return {name: self._steps[f"{name}_step"]._cache_size()
+                for name in ("draft_prefill", "draft_propose",
+                             "spec_verify")}
+
     def health(self) -> dict:
         """Engine health snapshot (``serving/overload.py``): state
         (``"serving"`` / ``"degraded"`` / ``"failed"``), the degradation
@@ -786,7 +967,7 @@ class Engine:
         d["queue_depth"] = len(self.scheduler.waiting)
         d["pending_prefill_tokens"] = self.pending_prefill_tokens()
         d["health"] = self.health()
-        # compile_stats()'s fields for this engine's three steps
+        # compile_stats()'s fields for this engine's steps
         d["compiles"] = {}
         for step in self._steps.values():
             s = step.stats()

@@ -4,11 +4,10 @@
 Per-request timings (TTFT, TPOT, queue time, tokens generated) plus
 engine-level counters and gauges (batch occupancy, cache utilization,
 preemptions, and the overload controller's timeouts, sheds, watchdog
-stalls, step retries, degradation level and health), exportable three
-ways:
+stalls, step retries, degradation level and health, and speculative
+decoding's drafted and accepted tokens), exportable three ways:
 
-- ``as_dict()`` — everything, JSON-ready (the reference's schema, less
-  its speculative-decoding counters, which come with that slice);
+- ``as_dict()`` — everything, JSON-ready (the reference's schema);
 - ``export_chrome(path)`` — chrome://tracing JSON of the recorded
   request spans (queued, decode);
 - the port's ``observability`` registry — every event is mirrored under
@@ -95,6 +94,9 @@ class ServingMetrics:
         self.step_retries = 0       # watchdog retry attempts
         self.degradation_level = 0  # gauge: current ladder level
         self.health_state = 0       # gauge: 0 serving / 1 degraded / 2 failed
+        # speculative decoding (serving/speculative.py)
+        self.spec_tokens_drafted = 0    # draft proposals verified
+        self.spec_tokens_accepted = 0   # proposals the target accepted
         self.stream_active = 0      # requests with on_token in flight
         # the KV pool's storage: dtype code (0 full precision / 1 int8 /
         # 2 fp8) and the f32 scale bytes one block carries per side
@@ -258,6 +260,41 @@ class ServingMetrics:
                               "submit-to-finish request latency"
                               ).observe(d["e2e_s"])
 
+    # --------------------------------------------- speculative decoding
+    def on_spec_commit(self, accepted_len: int):
+        """One slot's verify outcome: ``accepted_len`` tokens committed
+        this iteration (accepted drafts and the bonus or correction
+        token, so 1..K+1)."""
+        reg = self._obs()
+        if reg is not None:
+            reg.histogram("serving_accepted_per_step",
+                          "tokens committed per request per speculative "
+                          "verify step (accepted drafts + bonus)",
+                          buckets=(1, 2, 3, 4, 5, 6, 8, 12, 16)
+                          ).observe(accepted_len)
+
+    def on_spec_step(self, drafted: int, accepted: int):
+        """One speculative iteration over the bucket: ``drafted`` draft
+        proposals verified, ``accepted`` of them kept; the accept-rate
+        gauge is cumulative."""
+        self.spec_tokens_drafted += drafted
+        self.spec_tokens_accepted += accepted
+        reg = self._obs()
+        if reg is not None:
+            reg.counter("serving_spec_tokens_drafted_total",
+                        "draft-model proposals verified by the target"
+                        ).inc(drafted)
+            reg.counter("serving_spec_tokens_accepted_total",
+                        "draft proposals accepted by the target"
+                        ).inc(accepted)
+            reg.gauge("serving_spec_accept_rate",
+                      "accepted / drafted speculative tokens, "
+                      "cumulative").set(self.spec_accept_rate())
+
+    def spec_accept_rate(self) -> float:
+        return self.spec_tokens_accepted \
+            / max(self.spec_tokens_drafted, 1)
+
     # -------------------------------------------------------- streaming
     def on_stream_start(self):
         self.stream_active += 1
@@ -375,10 +412,13 @@ class ServingMetrics:
                 "goodput_tokens": self.goodput_tokens,
                 "watchdog_stalls": self.watchdog_stalls,
                 "step_retries": self.step_retries,
+                "spec_tokens_drafted": self.spec_tokens_drafted,
+                "spec_tokens_accepted": self.spec_tokens_accepted,
             },
             "gauges": {
                 "degradation_level": self.degradation_level,
                 "health_state": self.health_state,
+                "spec_accept_rate": round(self.spec_accept_rate(), 4),
                 "stream_active": self.stream_active,
                 "batch_occupancy": self.last_batch_occupancy,
                 "batch_occupancy_avg": round(self._occupancy_sum / n, 4),

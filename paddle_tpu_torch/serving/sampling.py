@@ -146,7 +146,12 @@ def threefry2x32(k0, k1, x0, x1):
 def fold_keys(keys: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in`` row by row: ``keys [S, 2]`` int64 folded
     with ``data`` ([S] or a scalar, taken as uint32):
-    ``threefry2x32(key, (0, data))``."""
+    ``threefry2x32(key, (0, data))``.  A Python int becomes a fill on
+    the keys' device, not a copy from the host, so the fold can run
+    inside a captured graph."""
+    if isinstance(data, int):
+        data = torch.full(keys.shape[:-1], data, dtype=torch.int64,
+                          device=keys.device)
     data = torch.as_tensor(data, device=keys.device).to(torch.int64)
     data = torch.broadcast_to(data & MASK32, keys.shape[:-1])
     a, b = threefry2x32(keys[..., 0], keys[..., 1],
@@ -164,15 +169,36 @@ def uniform_bits(keys: torch.Tensor, V: int) -> torch.Tensor:
     return a ^ b
 
 
+def _unit_floats(bits: torch.Tensor) -> torch.Tensor:
+    """f32 in [0, 1) from 32 random bits, as jax makes them: the top 23
+    bits as the mantissa of a float in [1, 2), minus 1."""
+    return ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) \
+        - 1.0
+
+
 def gumbel(keys: torch.Tensor, V: int) -> torch.Tensor:
     """``[S, V]`` f32 Gumbel noise: jax's ``gumbel(key, (V,))`` (mode
     "low") for every row, ``-log(-log(u))`` of ``u = uniform(key,
     minval=tiny)``, which equals the JAX package's bit for bit."""
-    bits = uniform_bits(keys, V)
-    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    f = _unit_floats(uniform_bits(keys, V))
     # jax's f * (1 - tiny) + tiny, where 1 - tiny rounds to 1 in f32
     u = torch.clamp_min(f + _TINY, _TINY)
     return -torch.log(-torch.log(u))
+
+
+def uniform(keys: torch.Tensor) -> torch.Tensor:
+    """jax's ``uniform(key, ())`` for every key of ``keys [..., 2]``: one
+    f32 in [0, 1) a key, bit for bit (the counter word 0's bits)."""
+    lead = keys.shape[:-1]
+    bits = uniform_bits(keys.reshape(-1, 2), 1)[:, 0]
+    return _unit_floats(bits).reshape(lead)
+
+
+def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """jax's ``categorical(key, logits)`` row by row: the argmax of the
+    row's ``gumbel(key, (V,))`` noise plus its logits.  ``keys [N, 2]``,
+    ``logits [N, V]`` f32; returns ``[N]`` int64."""
+    return torch.argmax(gumbel(keys, logits.shape[-1]) + logits, dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -214,8 +240,7 @@ def sample_tokens(logits, temps, top_ks, top_ps, keys):
     where ``temps > 0``, the argmax of the raw logits elsewhere.  ``keys
     [N, 2]`` are the rows' per-token keys (already folded with the token
     counter).  Returns ``[N]`` int64."""
-    filt = filter_logits(logits, temps, top_ks, top_ps)
-    sampled = torch.argmax(filt + gumbel(keys, logits.shape[-1]), dim=-1)
+    sampled = categorical(keys, filter_logits(logits, temps, top_ks, top_ps))
     return torch.where(temps > 0, sampled, torch.argmax(logits, dim=-1))
 
 

@@ -12,9 +12,11 @@ its kernels are built into its own ``build/``.  The process builds every
 kernel (phase 1) and then runs the named phases in order: ``kernels``
 (2), ``train_kernels`` (3), ``moe_kernels`` (2m), ``c1_kernels`` (2c),
 ``static_kernels`` (2s), ``sampler`` (2d), ``main`` (6, bf16 serving,
-and 6s, the same requests sampled and streamed, and 6g, the CUDA graphs
-against their eager functions, where the checkout has them),
-``main_graphs`` (6g alone, on a model of its own),
+and 6s, the same requests sampled and streamed, 6g, the CUDA graphs
+against their eager functions, 6o, overload control, and 6sp,
+speculative decoding, where the checkout has them),
+``main_graphs`` (6g alone, on a model of its own), ``spec_main`` (6's
+greedy run, then 6sp),
 ``main_quant`` (6 from quantized pools; runs ``main`` first for its pool
 size when it is not named), ``tiny_c1`` (4c), ``c1_main`` (6c),
 ``phi3_main`` (6p), ``moe_main`` (6m), ``train_phi3`` (7c); a checkout
@@ -51,7 +53,8 @@ from pathlib import Path
 
 PHASES = ("kernels", "train_kernels", "moe_kernels", "c1_kernels",
           "static_kernels", "sampler", "main", "main_graphs", "main_quant",
-          "tiny_c1", "c1_main", "phi3_main", "moe_main", "train_phi3")
+          "spec_main", "tiny_c1", "c1_main", "phi3_main", "moe_main",
+          "train_phi3")
 
 CHILD = """
 import hashlib
@@ -173,10 +176,10 @@ phases = sys.argv[1:]
 blocks = None
 for phase in phases:
     if phase == "main_quant" and blocks is None:
-        _, blocks = cs.phase_main(dev)
+        blocks = cs.phase_main(dev)[1]
         cs.free()
     if phase == "main":
-        _, blocks = cs.phase_main(dev)
+        blocks = cs.phase_main(dev)[1]
     elif phase == "main_quant":
         cs.phase_main_quant(dev, blocks)
     elif hasattr(cs, "phase_" + phase):

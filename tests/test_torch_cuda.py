@@ -2368,3 +2368,84 @@ class TestCudaGraphSteps:
                 np.testing.assert_array_equal(a, b)
         assert (eng.decode_cache_size(), eng.prefill_cache_size()) == (2, 2)
         assert eng._decode_step.retraces == eng._prefill_step.retraces == 1
+
+
+# the speculative steps, each with the position of its pools (its per-slot
+# sampling state, where it binds it, follows three places later)
+SPEC_STEPS = {"draft_prefill_step": 1, "draft_propose_step": 1,
+              "spec_verify_step": 3}
+
+
+def _recorded_spec_steps(cuda_device):
+    """A tiny bf16 engine with a 1-layer draft proposing 3 tokens that
+    served a greedy and a sampled request, and the arguments of the last
+    call of each of its three speculative steps."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import (Engine, ServingConfig,
+                                          SpeculativeConfig)
+
+    cfg = LlamaConfig.tiny(dtype="bfloat16", hidden_size=128,
+                           num_attention_heads=2, num_key_value_heads=1)
+    model = LlamaForCausalLM(cfg, device=cuda_device, seed=0)
+    draft = LlamaForCausalLM(LlamaConfig.tiny(
+        dtype="bfloat16", hidden_size=128, num_attention_heads=2,
+        num_key_value_heads=1, num_hidden_layers=1), device=cuda_device,
+        seed=1)
+    eng = Engine(model, ServingConfig(
+        max_batch_size=2, block_size=16, num_blocks=16, chunk_tokens=16,
+        speculative=SpeculativeConfig(draft, num_draft_tokens=3)))
+    calls = {}
+    for name in SPEC_STEPS:
+        def spy(*args, name=name, step=eng._steps[name]):
+            calls[name] = tuple(_copied(a) for a in args)
+            return step(*args)
+        setattr(eng, f"_{name}", spy)
+    rng = np.random.RandomState(0)
+    eng.submit(rng.randint(1, 256, size=21), max_new_tokens=8)
+    eng.submit(rng.randint(1, 256, size=5), max_new_tokens=8,
+               temperature=0.8, top_k=20, seed=3)
+    eng.run_until_complete()
+    eng.pool.check_leaks()
+    return eng, calls
+
+
+@pytest.mark.cuda
+class TestCudaSpecGraphSteps:
+    """The draft's prefill chunk, the draft's proposals and the verify as
+    CUDA graph replays against their eager functions on the inputs of
+    their last real call: the same bits out and in the pools, the same
+    launches counted."""
+
+    def test_replay_matches_eager_bits_and_launches(self, cuda_device):
+        eng, calls = _recorded_spec_steps(cuda_device)
+        assert eng.spec_cache_sizes() == {
+            "draft_prefill": 1, "draft_propose": 1, "spec_verify": 1}
+        for name, at in SPEC_STEPS.items():
+            step, args = eng._steps[name], list(calls[name])
+            if name != "draft_prefill_step":
+                # the bound sampling state: the engine's own tensors,
+                # holding the recorded values
+                own = [getattr(eng, n) for n in SLOT_STATE]
+                for t, a in zip(own, args[at + 3:]):
+                    t.copy_(a)
+                args[at + 3:] = own
+            pools = args[at]
+            before = [tuple(x.clone() for x in e) for e in pools]
+            mark = launches.mark()
+            out = step(*args)
+            got = [t.clone() for t in (out if isinstance(out, tuple)
+                                       else (out,))]
+            graph_launches = launches.since(mark)
+            copies = [tuple(x.clone() for x in e) for e in before]
+            eager_args = _on_device(args, cuda_device)
+            eager_args[at] = copies
+            mark = launches.mark()
+            want = step.eager(*eager_args)
+            want = want if isinstance(want, tuple) else (want,)
+            torch.cuda.synchronize()
+            assert launches.since(mark) == graph_launches, name
+            assert graph_launches[0], name
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), name
+            assert all(torch.equal(x, y) for e, c in zip(pools, copies)
+                       for x, y in zip(e, c)), name
+        assert [eng._steps[n].compiles for n in SPEC_STEPS] == [1, 1, 1]

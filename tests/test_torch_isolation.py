@@ -30,6 +30,7 @@ from paddle_tpu_torch.nn.layer import EMPTY, Embedding, LayerNorm, Linear
 from paddle_tpu_torch.nn.transformer import (MultiHeadAttention,
                                              TransformerEncoderLayer)
 from paddle_tpu_torch.serving import Endpoint, Engine, ServingConfig
+from paddle_tpu_torch.serving.engine import LATER_SLICE_OPTIONS
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "paddle_tpu_torch"
@@ -151,12 +152,24 @@ def tiny_model():
 
 class TestLaterSliceOptionsRaise:
     @pytest.mark.parametrize("option,value", [
-        ("speculative", object()), ("mesh", {"tp": 2}),
-        ("xray_on_start", True), ("shardplan", True),
+        ("mesh", {"tp": 2}), ("xray_on_start", True), ("shardplan", True),
         ("fused_kernels", False)])
     def test_serving_config(self, tiny_model, option, value):
         with pytest.raises(NotImplementedError, match=option):
             Engine(tiny_model, ServingConfig(**{option: value}))
+
+    def test_speculative_is_ported(self, tiny_model):
+        """``speculative`` no longer raises: a bare draft model is wrapped
+        as ``SpeculativeConfig(draft_model=d, num_draft_tokens=4)``."""
+        from paddle_tpu_torch.serving import SpeculativeConfig
+
+        draft = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=1),
+                                 device="cpu", seed=1)
+        eng = Engine(tiny_model, ServingConfig(speculative=draft,
+                                               num_blocks=16))
+        assert eng.spec == SpeculativeConfig(draft_model=draft,
+                                             num_draft_tokens=4)
+        assert "speculative" not in LATER_SLICE_OPTIONS
 
 
 class TestSubmitSamplingAndStreaming:
