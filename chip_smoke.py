@@ -97,6 +97,28 @@ Phases, each of which must pass (nothing is caught):
      8 rows and Llama-3-8B's at the verify's 40, the paged decode at 24
      q over 8 kv heads, the chunk and the KV write over 8 sequences of 5
      tokens at staggered frontiers;
+  6r. the serving fleet (serving.Router): replicas of phase 6's config
+     over phase 6's model on the card: (a) two bf16 replicas, affinity,
+     seed 0, phase 6's requests submitted before the first step: the
+     placement log, the two requests of the 512-token prefix on one
+     replica, tokens held to phase 6's by the margin rule, exact launch
+     counts, one graph a step a replica; (b) replica-1's decode failed
+     past its retries (FaultPlan) after its graphs were captured: one
+     quarantine, every stranded request resubmitted and finished, tokens
+     by the rule against (a)'s, then revive and a second batch on both
+     replicas; (c) a bf16 and an int8 replica: a chain a dtype, a
+     follow-up placed with affinity on the int8 replica, its tokens held
+     to a single int8 engine's; (d) a multi-tenant trace (REPLAY_TENANTS)
+     through an affinity and a round-robin fleet, each replica's pool
+     sized for the whole trace: per-tenant goodput and TTFTs, the
+     cached-token ratio (affinity above round-robin), round-robin's
+     placement log and cache hits equal to a CPU replay's; (e) the tiny
+     f32 fleet, cuda against cpu: the same placement log and tokens;
+  6u. the unfused path (fused_kernels=False) on phase 6's model,
+     requests and pool: rms_norm and the KV write its only kernels
+     (exact counts), tokens by the margin rule, its decode step and
+     chunk profiled beside phase 6's fused ones; the tiny f32 unfused
+     engine, cuda against cpu;
   7. main training: Llama-3-8B width, 8 of its 32 layers, bf16, one
      [1, 8192] batch, AdamW(1e-4): 2 warm-up and 5 timed steps, one
      profiled step and one eval forward without grad; finite, falling
@@ -198,10 +220,11 @@ The sampler (serving/sampling.py: torch ops, no kernel of its own):
      lanes of temperature, top-k and top-p each on and off, at 64 token
      counters of seeded keys: the tokens on the card equal the CPU's,
      one for one (on a mismatch the perturbed top-2 margin is printed).
-The launch counts of phases 4c, 6, 6s, 6o, 6sp, 6c, 6p, 7, 7c, 6m, 7m and 7s,
-reset just before each run and read just after it, show that each path went
-through every kernel of its own (and the Llama-3-8B, Mixtral, Qwen2-7B,
-Phi-3-mini and BERT phases through no general instance); a kernel of
+The launch counts of phases 4c, 6, 6s, 6o, 6sp, 6r, 6u, 6c, 6p, 7, 7c,
+6m, 7m and 7s, reset just before each run and read just after it, show
+that each path went through every kernel of its own (and the
+Llama-3-8B, Mixtral, Qwen2-7B, Phi-3-mini and BERT phases through no
+general instance); a kernel of
 the JSON line that its path launched no time fails the run.  Kernels
 with several compiled instances (the paged decode, the chunked prefill
 and the attention: widths, producers) are counted by instance too, and
@@ -1957,10 +1980,11 @@ def phase_c1_kernels(dev):
 
 
 # ---------------------------------------------------------------- phase 4
-def _prefix_logits(model, tokens, block_size, chunk, kv_cache_dtype=None):
+def _prefix_logits(model, tokens, block_size, chunk, kv_cache_dtype=None,
+                   fused=None):
     """f32 last-token logits of ``tokens`` through a fresh one-sequence
     pool of ``kv_cache_dtype`` (the chunked prefill step, as the engine
-    runs it)."""
+    runs it; ``fused`` False: the unfused one)."""
     from paddle_tpu_torch.models.generation import make_chunked_prefill_step
     from paddle_tpu_torch.serving.cache import BlockKVPool
 
@@ -1973,7 +1997,8 @@ def _prefix_logits(model, tokens, block_size, chunk, kv_cache_dtype=None):
     nbs = -(-cfg.max_position_embeddings // block_size)
     bt = torch.zeros((1, nbs), dtype=torch.int32, device=dev)
     bt[0, :n] = torch.arange(1, n + 1, dtype=torch.int32)
-    step = make_chunked_prefill_step(model, kv_cache_dtype)
+    step = make_chunked_prefill_step(
+        model, kv_cache_dtype, **({} if fused is None else {"fused": fused}))
     step = getattr(step, "eager", step)      # a reference: no graph
     toks = np.asarray(tokens, np.int32)
     for start in range(0, len(toks), chunk):
@@ -2439,15 +2464,23 @@ def _main_prompts(V):
         [np.concatenate([prefix, rng.randint(1, V, size=200)])]
 
 
-def step_launches(cfg, bs, kv_cache_dtype=None):
+def step_launches(cfg, bs, kv_cache_dtype=None, fused=True):
     """The launches of one decode step and of one prefill chunk of a
     serving engine over ``cfg``'s model, pages of ``bs`` tokens and a KV
-    pool of ``kv_cache_dtype``: ({counter: n}, {counter: n})."""
+    pool of ``kv_cache_dtype``: ({counter: n}, {counter: n}).  The
+    unfused path (``fused`` False) launches rms_norm for each norm and
+    the KV write for each layer, its products and attention being torch
+    ops."""
     from paddle_tpu_torch.kernels import chunked_prefill, paged_attention
     from paddle_tpu_torch.kernels.kv_quant import KERNEL as WRITE
     from paddle_tpu_torch.kernels.kv_quant import counter_name
 
     L = cfg.num_hidden_layers
+    if not fused:
+        per = {"rms_norm": 2 * L + 1, WRITE: L}
+        if cfg.moe_num_experts:
+            per.update(moe_dispatch=L, moe_combine=L)
+        return per, dict(per)
     # which kernel of each family the model's shapes take (the wrappers'
     # routes; a *_general one only where the fast kernel is not built for
     # them: the C1 phase's)
@@ -2576,7 +2609,8 @@ def _serve_main(model, prompts, tag, kv_cache_dtype=None, weight_dtype=None,
     ctr = st["counters"]
     L = cfg.num_hidden_layers
     chunks, decodes = ctr["prefill_chunks"], ctr["decode_iterations"]
-    per_decode, per_chunk = step_launches(cfg, bs, kv_cache_dtype)
+    fused = eng.config.fused_kernels is not False
+    per_decode, per_chunk = step_launches(cfg, bs, kv_cache_dtype, fused)
     expect = {k: per_decode.get(k, 0) * decodes + per_chunk.get(k, 0) * chunks
               for k in {**per_decode, **per_chunk}}
     print(f"  launches {counts} over {chunks} prefill chunks and {decodes} "
@@ -2589,7 +2623,8 @@ def _serve_main(model, prompts, tag, kv_cache_dtype=None, weight_dtype=None,
     if graphs:
         print(f"  {_graph_sizes(eng, tag, sampled)}", flush=True)
     # the 128-token request's first token again, through a fresh pool
-    ref = _prefix_logits(model, prompts[1], bs, 256, kv_cache_dtype)
+    ref = _prefix_logits(model, prompts[1], bs, 256, kv_cache_dtype,
+                         None if fused else False)
     if not torch.isfinite(ref).all() or int(ref.argmax()) != \
             reqs[1].generated[0]:
         raise AssertionError(f"{tag}: the engine's first token disagrees "
@@ -2659,9 +2694,9 @@ def _main_model(dev):
 
 
 def phase_main(dev):
-    """Phase 6, then 6s, 6g, 6o and 6sp on the same model.  Returns phase
-    6's launch counts and pool size, 6sp's launch counts and its kernel
-    rows."""
+    """Phase 6, then 6s, 6g, 6o, 6sp, 6r and 6u on the same model.
+    Returns phase 6's launch counts and pool size, 6sp's launch counts
+    and its kernel rows."""
     model, prompts, num_blocks = _main_model(dev)
     greedy = []
     out, counts, eng = _serve_main(model, prompts, "main",
@@ -2675,6 +2710,10 @@ def phase_main(dev):
     phase_main_overload(model, prompts, greedy, out)
     free()
     spec_counts, spec_entries = phase_main_spec(model, prompts, greedy, out)
+    free()
+    phase_main_fleet(model, prompts, greedy, out)
+    free()
+    phase_main_unfused(model, prompts, num_blocks, greedy, out)
     return counts, num_blocks, spec_counts, spec_entries
 
 
@@ -3486,12 +3525,14 @@ def _serve_spec(model, draft, prompts, tag, num_blocks, kws=None,
     return out, tally, eng, reqs
 
 
-def _hold_greedy(tag, model, prompts, got, want):
-    """Greedy tokens ``got`` against phase 6's ``want`` by the rule of
-    tools/turns: at a request's first differing token, the top-2 margin
-    of a fresh prefill of the tokens before it, in bf16 ulps of the top
-    logit, printed beside turns' 2 and held to SPEC_MARGIN_ULPS.  Returns
-    the requests that differ."""
+def _hold_greedy(tag, model, prompts, got, want, what="speculative",
+                 against="phase 6", kv_cache_dtype=None):
+    """Greedy tokens ``got`` (``what``'s) against ``want`` (``against``'s,
+    phase 6's by default) by the rule of tools/turns: at a request's
+    first differing token, the top-2 margin of a fresh prefill of the
+    tokens before it through a pool of ``kv_cache_dtype``, in bf16 ulps
+    of the top logit, printed beside turns' 2 and held to
+    SPEC_MARGIN_ULPS.  Returns the requests that differ."""
     parted = 0
     for i, (a, b) in enumerate(zip(got, want)):
         if a == b:
@@ -3499,20 +3540,20 @@ def _hold_greedy(tag, model, prompts, got, want):
         parted += 1
         j = next(k for k, (x, y) in enumerate(zip(a, b)) if x != y)
         top, second = torch.topk(_prefix_logits(
-            model, np.concatenate([prompts[i], a[:j]]), MAIN_BS, 256)
-            .float(), 2).values.tolist()
+            model, np.concatenate([prompts[i], a[:j]]), MAIN_BS, 256,
+            kv_cache_dtype).float(), 2).values.tolist()
         ulp = 2.0 ** (math.floor(math.log2(max(abs(top), 1e-30))) - 7)
         m = (top - second) / ulp
-        print(f"  {tag}: request {i} token {j} differs (speculative {a[j]}, "
-              f"phase 6 {b[j]}); top-2 margin of a fresh prefill there "
+        print(f"  {tag}: request {i} token {j} differs ({what} {a[j]}, "
+              f"{against} {b[j]}); top-2 margin of a fresh prefill there "
               f"{top - second:.4e} = {m:.2f} bf16 ulps of {top:.4f} "
               f"({'within' if m < 2 else 'past'} turns' 2)", flush=True)
         if m > SPEC_MARGIN_ULPS:
             raise AssertionError(f"{tag}: request {i} token {j} differs "
-                                 f"from phase 6's at a margin of {m:.2f} "
-                                 f"ulps > {SPEC_MARGIN_ULPS}")
+                                 f"from {against}'s at a margin of "
+                                 f"{m:.2f} ulps > {SPEC_MARGIN_ULPS}")
     print(f"  {tag}: {len(got) - parted} of {len(got)} requests' greedy "
-          "tokens equal phase 6's", flush=True)
+          f"tokens equal {against}'s", flush=True)
     return parted
 
 
@@ -3803,6 +3844,489 @@ def phase_spec_main(dev):
     del eng
     free()
     return phase_main_spec(model, prompts, greedy, out)
+
+
+# ---------------------------------------------------------------- phase 6r
+# replica-1's decode attempts that fail in 6r (b): its third decode
+# iteration's first try and its two retries (step_max_retries=2), after
+# its graphs were captured in (a)
+FLEET_FAULT_AT = {3, 4, 5}
+FLEET_SECOND = (256,) * 6       # (b)'s second batch: prompt lengths
+# 6r (d): the reference's on-TPU tenant mix (bench.py router_replay),
+# brought to Llama-3-8B's scale: (name, kind, requests, shared tokens,
+# tail tokens, new tokens, sampling)
+REPLAY_TENANTS = (
+    ("chat", "chat", 16, 512, (16, 64), 32, {}),
+    ("long", "long", 6, 32, (1024, 2048), 16, {}),
+    ("burst", "burst", 12, 64, (4, 16), 8, {}),
+    ("sampled", "chat", 4, 256, (8, 32), 16,
+     dict(temperature=0.8, top_k=50, top_p=0.95)))
+REPLAY_HORIZON, REPLAY_SEED = 24, 0
+REPLAY_AFFINITY_WEIGHT = 8.0    # the reference bench's
+
+
+def _fleet_engines(model, num_blocks, kv_dtypes=(None, None), **kw):
+    """Replicas ``replica-<i>`` over one model, each with phase 6's
+    config (8 slots, pages of MAIN_BS, chunks of 256) and a pool of
+    ``num_blocks`` of ``kv_dtypes[i]``, their graphs captured before
+    they serve (``_warm_graphs``, greedy and sampled)."""
+    from paddle_tpu_torch.serving import Engine, ServingConfig
+
+    engines = [Engine(model, ServingConfig(
+        name=f"replica-{i}", max_batch_size=8, block_size=MAIN_BS,
+        chunk_tokens=256, num_blocks=num_blocks, kv_cache_dtype=kv, **kw))
+        for i, kv in enumerate(kv_dtypes)]
+    for eng in engines:
+        _warm_graphs(eng, True)
+    return engines
+
+
+def _fleet_checks(tag, engines):
+    """No leak in any pool, one graph of each step a replica, no
+    retrace."""
+    for eng in engines:
+        eng.pool.check_leaks()
+        sizes = [eng.decode_cache_size(), eng.prefill_cache_size(),
+                 eng.sampled_decode_cache_size()]
+        retraces = [eng._steps[n].retraces for n in GRAPH_STEPS]
+        if sizes != [1, 1, 1] or any(retraces):
+            raise AssertionError(f"{tag} {eng.config.name}: graphs {sizes}, "
+                                 f"retraces {retraces}")
+    print(f"  {tag}: every pool free, graphs of decode / prefill / sampled "
+          f"decode [1, 1, 1] a replica, no retrace", flush=True)
+
+
+def _fleet_launches(tag, engines, counts, cfg):
+    """The fleet's launch counts against each replica's step counts."""
+    expect = {}
+    for eng in engines:
+        ctr = eng.stats()["counters"]
+        per_decode, per_chunk = step_launches(cfg, MAIN_BS,
+                                              eng.kv_cache_dtype)
+        for k in {**per_decode, **per_chunk}:
+            expect[k] = expect.get(k, 0) \
+                + per_decode.get(k, 0) * ctr["decode_iterations"] \
+                + per_chunk.get(k, 0) * ctr["prefill_chunks"]
+    if counts != expect:
+        raise AssertionError(f"{tag}: launch counts {counts} != {expect}")
+    print(f"  {tag}: launches {counts}, the replicas' steps' exactly",
+          flush=True)
+
+
+def _homes(log):
+    return [line.split(" -> ")[1].split()[0] for line in log]
+
+
+def _print_log(tag, log):
+    print(f"  {tag}: placement log")
+    for line in log:
+        print(f"    {line}")
+
+
+def phase_main_fleet(model, prompts, greedy, main_out):
+    """Phase 6r: the serving fleet (``serving.Router``) over replicas of
+    phase 6's model on one card.  (a) Two bf16 replicas, affinity, seed
+    0, phase 6's 8 requests all submitted before the first step: the
+    placement log printed, the two requests sharing the 512-token prefix
+    on one replica, each request's tokens held to phase 6's (``greedy``)
+    by the margin rule (prefix hits and chunk boundaries differ from
+    phase 6's), exact launch counts, no leak, one graph a step a
+    replica.  (b) On the same fleet, the requests again under a
+    ``FaultPlan`` that fails replica-1's decode past its retries: one
+    quarantine, every stranded request resubmitted to replica-0 and
+    finished "length", tokens by the rule against (a)'s; then
+    ``revive("replica-1")`` and a second batch served on both replicas,
+    each first token a fresh prefill's, no graph captured again.  (c) A
+    bf16 and an int8 replica: every request finishes, a chain a tag, a
+    follow-up of a prefix registered on the int8 replica placed there
+    with affinity, the int8 replica's tokens held to a single int8
+    engine's.  (d) The replay: ``REPLAY_TENANTS``'s trace through an
+    affinity fleet and a round-robin fleet, per tenant goodput, finish
+    reasons and TTFTs, per fleet the cached-token ratio, placements, wall
+    time and tokens/s; affinity ahead on cached tokens.  (e) The tiny
+    f32 fleet, cuda against cpu: the same placement log and tokens."""
+    from paddle_tpu_torch.kernels import launches
+    from paddle_tpu_torch.resilience import FaultPlan
+    from paddle_tpu_torch.serving import (Engine, Router, ServingConfig,
+                                          Tenant, build_trace, replay_trace)
+
+    t_phase = time.perf_counter()
+    cfg, V = model.config, model.config.vocab_size
+    want = [r.generated for r in greedy]
+    num_blocks = 1 + sum(-(-(len(p) + MAIN_NEW) // MAIN_BS)
+                         for p in prompts) + 8
+    print(f"[main fleet] phase 6's model behind replicas of phase 6's "
+          f"config, {num_blocks} blocks of {MAIN_BS} tokens a replica",
+          flush=True)
+
+    # (a) cold placement and tokens
+    engines = _fleet_engines(model, num_blocks)
+    router = Router(engines, policy="affinity", seed=0)
+    torch.cuda.synchronize()
+    launches.reset()
+    t0 = time.perf_counter()
+    reqs = [router.submit(p, max_new_tokens=MAIN_NEW) for p in prompts]
+    done = router.run_until_complete()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches.snapshot()
+    log = list(router.placement_log)
+    _print_log("fleet (a)", log)
+    homes = _homes(log)
+    if homes[0] != homes[-1]:
+        raise AssertionError(f"fleet (a): the requests sharing the 512-token "
+                             f"prefix went to {homes[0]} and {homes[-1]}")
+    got = [done[r.request_id] for r in reqs]
+    if any(r.finish_reason != "length" or len(r.generated) != MAIN_NEW
+           for r in got):
+        raise AssertionError(f"fleet (a): {[r.finish_reason for r in got]}")
+    a_tokens = [r.generated for r in got]
+    _hold_greedy("fleet (a)", model, prompts, a_tokens, want, what="fleet")
+    _fleet_launches("fleet (a)", engines, counts, cfg)
+    _fleet_checks("fleet (a)", engines)
+    st = router.stats()["router"]
+    tok = sum(len(t) for t in a_tokens)
+    print(f"  fleet (a): requests 0 and 7 (the 512-token prefix) on "
+          f"{homes[0]}; placements {st['placements']}, cached-token ratio "
+          f"{st['cached_token_ratio']}, {tok} tokens in {wall:.3f} s, "
+          f"{tok / wall:.1f} tokens/s (phase 6, one engine: "
+          f"{main_out['tokens_per_s']:.1f})", flush=True)
+
+    # (b) failover: replica-1's decode fails past its retries mid-run
+    first = len(router.placement_log)
+    reqs = [router.submit(p, max_new_tokens=MAIN_NEW) for p in prompts]
+    placed = router.placement_log[first:]
+    on_1 = sum(h == "replica-1" for h in _homes(placed))
+    with FaultPlan(step_fault_scope="decode_step@replica-1",
+                   fail_step_at=FLEET_FAULT_AT) as plan:
+        done = router.run_until_complete()
+    health = router.health()
+    _print_log("fleet (b)", router.placement_log[first:])
+    st = router.stats()["router"]
+    got = [done.get(r.request_id) for r in reqs]
+    if any(r is None or r.finish_reason != "length"
+           or len(r.generated) != MAIN_NEW for r in got):
+        raise AssertionError(f"fleet (b): lost or unfinished requests "
+                             f"{[r and r.finish_reason for r in got]}")
+    if (st["replica_quarantines"], st["requests_resubmitted"]) != (1, on_1) \
+            or on_1 == 0 or health["failed_replicas"] != 1:
+        raise AssertionError(f"fleet (b): {st['replica_quarantines']} "
+                             f"quarantines, {st['requests_resubmitted']} "
+                             f"resubmits of {on_1} stranded, health "
+                             f"{health['state']}")
+    print(f"  fleet (b): injected {plan.injected}; replica-1 quarantined, "
+          f"its {on_1} requests resubmitted to replica-0, all 8 finished "
+          f"\"length\"; fleet health {health['state']} "
+          f"({health['serving_replicas']} serving, "
+          f"{health['failed_replicas']} failed)", flush=True)
+    _hold_greedy("fleet (b)", model, prompts, [r.generated for r in got],
+                 a_tokens, what="failover", against="fleet (a)")
+    router.revive("replica-1")
+    rng = np.random.RandomState(7)
+    second = [rng.randint(1, V, size=n) for n in FLEET_SECOND]
+    first = len(router.placement_log)
+    reqs = [router.submit(p, max_new_tokens=8) for p in second]
+    done = router.run_until_complete()
+    placed = _homes(router.placement_log[first:])
+    if set(placed) != {"replica-0", "replica-1"}:
+        raise AssertionError(f"fleet (b): after revive the second batch "
+                             f"went to {placed}")
+    for p, r in zip(second, reqs):
+        r = done[r.request_id]
+        ref = _prefix_logits(model, p, MAIN_BS, 256)
+        if r.finish_reason != "length" or int(ref.argmax()) != r.generated[0]:
+            raise AssertionError(f"fleet (b): {r.request_id} after revive: "
+                                 f"{r.finish_reason}, first token "
+                                 f"{r.generated[0]} against a fresh "
+                                 f"prefill's {int(ref.argmax())}")
+    _fleet_checks("fleet (b)", engines)
+    print(f"  fleet (b): after revive(\"replica-1\") a second batch of "
+          f"{len(second)} placed on {placed}, every first token a fresh "
+          f"prefill's, health {router.health()['state']}", flush=True)
+    del router, engines, reqs, done, got
+    free()
+
+    # (c) a bf16 and an int8 replica over the same model
+    engines = _fleet_engines(model, num_blocks, kv_dtypes=(None, "int8"))
+    router = Router(engines, policy="affinity", seed=0)
+    chains = router._chain_hex(prompts[0])
+    if sorted(chains) != sorted(e.pool.kv_dtype_tag for e in engines) or \
+            len(chains) != 2:
+        raise AssertionError(f"fleet (c): chains {sorted(chains)}")
+    reqs = [router.submit(p, max_new_tokens=MAIN_NEW) for p in prompts]
+    done = router.run_until_complete()
+    log = list(router.placement_log)
+    _print_log("fleet (c)", log)
+    homes = _homes(log)
+    got = [done[r.request_id] for r in reqs]
+    if any(r.finish_reason != "length" or len(r.generated) != MAIN_NEW
+           for r in got):
+        raise AssertionError(f"fleet (c): {[r.finish_reason for r in got]}")
+    on_q = [i for i, h in enumerate(homes) if h == "replica-1"]
+    on_b = [i for i, h in enumerate(homes) if h == "replica-0"]
+    if not on_q or not on_b:
+        raise AssertionError(f"fleet (c): placements {homes}")
+    _hold_greedy("fleet (c) bf16 replica", model,
+                 [prompts[i] for i in on_b],
+                 [got[i].generated for i in on_b], [want[i] for i in on_b],
+                 what="fleet")
+    single = Engine(model, ServingConfig(
+        max_batch_size=8, block_size=MAIN_BS, chunk_tokens=256,
+        num_blocks=num_blocks, kv_cache_dtype="int8"))
+    sreqs = [single.submit(prompts[i], max_new_tokens=MAIN_NEW)
+             for i in on_q]
+    single.run_until_complete()
+    _hold_greedy("fleet (c) int8 replica", model, [prompts[i] for i in on_q],
+                 [got[i].generated for i in on_q],
+                 [r.generated for r in sreqs], what="fleet",
+                 against="a single int8 engine", kv_cache_dtype="int8")
+    del single, sreqs
+    src = max(on_q, key=lambda i: len(prompts[i]))
+    keep = min(256, (len(prompts[src]) - 1) // MAIN_BS * MAIN_BS)
+    follow = np.concatenate([prompts[src][:keep],
+                             np.random.RandomState(8).randint(1, V, 40)])
+    fr = router.submit(follow, max_new_tokens=8)
+    line = router.placement_log[-1]
+    aff = int(line.split("aff=")[1].split()[0])
+    done = router.run_until_complete()
+    if _homes([line]) != ["replica-1"] or aff <= 0 or \
+            done[fr.request_id].finish_reason != "length":
+        raise AssertionError(f"fleet (c): the follow-up of request {src}'s "
+                             f"prefix: {line}")
+    _fleet_checks("fleet (c)", engines)
+    print(f"  fleet (c): chains for {sorted(chains)}; requests {on_b} on the "
+          f"bf16 replica, {on_q} on the int8 one; a follow-up of request "
+          f"{src}'s first {keep} tokens: {line}", flush=True)
+    del router, engines, reqs, done, got
+    free()
+
+    # (d) the multi-tenant trace through an affinity and a round-robin fleet
+    tenants = [Tenant(name, kind=kind, requests=n, shared_prefix_tokens=sh,
+                      tail_tokens=tail, max_new_tokens=new, **samp)
+               for name, kind, n, sh, tail, new, samp in REPLAY_TENANTS]
+    trace = build_trace(tenants, seed=REPLAY_SEED, horizon=REPLAY_HORIZON,
+                        vocab=V)
+    blocks = 1 + sum(-(-(len(a.prompt) + a.max_new_tokens) // MAIN_BS)
+                     for a in trace) + 8
+    reports = {}
+    for policy in ("affinity", "round_robin"):
+        engines = _fleet_engines(model, blocks, max_queue_len=48)
+        if policy == "affinity":
+            block_bytes = engines[0].pool.block_bytes()
+            print(f"  fleet (d): {len(trace)} arrivals over {REPLAY_HORIZON} "
+                  f"iterations (seed {REPLAY_SEED}), "
+                  f"{sum(len(a.prompt) for a in trace)} prompt tokens; a "
+                  f"pool of {blocks} blocks of {block_bytes / 2**20:.2f} MiB "
+                  f"a replica ({block_bytes * blocks / 1e9:.2f} GB), the "
+                  f"whole trace resident", flush=True)
+        router = Router(engines, policy=policy, seed=0,
+                        affinity_weight=REPLAY_AFFINITY_WEIGHT)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        report = replay_trace(router, trace)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fleet = report["fleet"]
+        for name, _, n, *_ in REPLAY_TENANTS:
+            t = report["tenants"][name]
+            if t["submitted"] != n or sum(t["finished"].values()) != n:
+                raise AssertionError(f"fleet (d) {policy} {name}: {t}")
+        if fleet["requests"] != len(trace):
+            raise AssertionError(f"fleet (d) {policy}: {fleet['requests']} "
+                                 f"of {len(trace)} requests accounted for")
+        _fleet_checks(f"fleet (d) {policy}", engines)
+        generated = sum(t["goodput_tokens"]
+                        for t in report["tenants"].values())
+        for name, t in report["tenants"].items():
+            print(f"  fleet (d) {policy} {name}: goodput "
+                  f"{t['goodput_tokens']} tokens, finished {t['finished']}, "
+                  f"TTFT mean {t['mean_ttft_s'] * 1e3:.1f} ms, p99 "
+                  f"{t['p99_ttft_s'] * 1e3:.1f} ms", flush=True)
+        print(f"  fleet (d) {policy}: cached-token ratio "
+              f"{fleet['cached_token_ratio']}, placements "
+              f"{fleet['placements']}, {wall:.3f} s, "
+              f"{generated / wall:.1f} tokens/s, fleet TTFT p99 "
+              f"{fleet['p99_ttft_s'] * 1e3:.1f} ms", flush=True)
+        reports[policy] = dict(report, wall_s=wall,
+                               tokens_per_s=generated / wall,
+                               affinity_token_ratio=router.stats()[
+                                   "router"]["affinity_token_ratio"],
+                               log=router.placement_log_text())
+        del router, engines
+        free()
+    # round-robin placement reads no clock, and the engines schedule in
+    # iterations: the same trace through a tiny f32 model on the CPU
+    # must give the card's placements, finish reasons and cache hits
+    rr, cpu = reports["round_robin"], _replay_cpu(trace, blocks, V)
+    if cpu["log"] != rr["log"] or cpu["fleet"]["cached_token_ratio"] != \
+            rr["fleet"]["cached_token_ratio"] or \
+            {n: t["finished"] for n, t in cpu["tenants"].items()} != \
+            {n: t["finished"] for n, t in rr["tenants"].items()}:
+        raise AssertionError(f"fleet (d): the round-robin fleet on the card "
+                             f"({rr['fleet']}) is not the CPU's "
+                             f"({cpu['fleet']})")
+    ratios = [reports[p]["fleet"]["cached_token_ratio"]
+              for p in ("affinity", "round_robin")]
+    if not ratios[0] > ratios[1]:
+        raise AssertionError(f"fleet (d): cached-token ratio affinity "
+                             f"{ratios[0]} not above round-robin's "
+                             f"{ratios[1]}")
+    print(f"  fleet (d): round-robin's placement log, finish reasons and "
+          f"cached-token ratio equal the CPU replay's; cached-token ratio "
+          f"affinity {ratios[0]} above round-robin's {ratios[1]} (expected "
+          f"at placement: affinity "
+          f"{reports['affinity']['affinity_token_ratio']}, round-robin "
+          f"{rr['affinity_token_ratio']})", flush=True)
+    for r in reports.values():
+        del r["log"]
+    print(f"  {json.dumps({'fleet_replay': reports, 'blocks': blocks})}",
+          flush=True)
+
+    # (e) the tiny f32 fleet, cuda against cpu
+    _fleet_tiny(model.device)
+    print(f"  phase 6r in {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def _replay_cpu(trace, blocks, vocab):
+    """``trace`` through a round-robin fleet of two replicas of 6r (d)'s
+    config over LlamaConfig.tiny (f32, ``vocab`` tokens) on the CPU: its
+    report and placement log."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import (Engine, Router, ServingConfig,
+                                          replay_trace)
+
+    longest = max(len(a.prompt) + a.max_new_tokens for a in trace)
+    model = LlamaForCausalLM(LlamaConfig.tiny(
+        vocab_size=vocab, max_position_embeddings=longest), device="cpu",
+        seed=0)
+    router = Router([Engine(model, ServingConfig(
+        name=f"replica-{i}", max_batch_size=8, block_size=MAIN_BS,
+        chunk_tokens=256, num_blocks=blocks, max_queue_len=48))
+        for i in range(2)], policy="round_robin", seed=0,
+        affinity_weight=REPLAY_AFFINITY_WEIGHT)
+    report = replay_trace(router, trace)
+    return dict(report, log=router.placement_log_text())
+
+
+def _fleet_tiny(dev):
+    """LlamaConfig.tiny in f32 behind a fleet of two replicas on ``dev``
+    and on the CPU, the same weights and prompts (a family of a shared
+    24-token prefix and unrelated ones) submitted before the first step:
+    the same placement log byte for byte and the same tokens."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import Engine, Router, ServingConfig
+
+    cfg = LlamaConfig.tiny()
+    cpu = LlamaForCausalLM(cfg, device="cpu", seed=0)
+    gpu = LlamaForCausalLM(cfg, device=dev, seed=None)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(0)
+    shared = rng.randint(1, 256, size=24)
+    prompts = [np.concatenate([shared, rng.randint(1, 256, size=n)])
+               for n in (5, 3, 7)] + [rng.randint(1, 256, size=n)
+                                      for n in (9, 17, 6, 30)]
+    out = []
+    for model in (cpu, gpu):
+        router = Router([Engine(model, ServingConfig(
+            name=f"replica-{i}", max_batch_size=2, block_size=8,
+            num_blocks=32, chunk_tokens=16)) for i in range(2)])
+        reqs = [router.submit(p, max_new_tokens=6) for p in prompts]
+        done = router.run_until_complete()
+        for rep in router.replicas:
+            rep.engine.pool.check_leaks()
+        out.append((router.placement_log_text(),
+                    [done[r.request_id].generated for r in reqs]))
+    if out[0] != out[1]:
+        raise AssertionError(f"fleet (e): cuda {out[1]} != cpu {out[0]}")
+    print(f"  fleet (e): tiny f32 fleet, cuda against cpu: the same "
+          f"placement log ({len(prompts)} lines, homes "
+          f"{_homes(out[0][0].splitlines())}) and tokens", flush=True)
+
+
+# ---------------------------------------------------------------- phase 6u
+def phase_main_unfused(model, prompts, num_blocks, greedy, main_out):
+    """Phase 6u: phase 6's model, requests, submit order and pool through
+    ``ServingConfig(fused_kernels=False)``, the reference's unfused path
+    (rms_norm for each norm, plain products, the KV write, the gathered
+    full-buffer attention), ``max_model_len`` phase 6's longest prompt
+    plus its new tokens (the gathered copy spans the block table): exact
+    launch counts (rms_norm and the KV write only, no kernel instance in
+    ``launches.by_instance()``), one graph a step, no leak, tokens held
+    to phase 6's by the margin rule; its decode step and chunk profiled
+    three times, beside phase 6's fused ones; then the tiny f32 unfused
+    engine, cuda against cpu."""
+    from paddle_tpu_torch.kernels import launches
+    from paddle_tpu_torch.kernels.kv_quant import KERNEL as WRITE
+
+    t_phase = time.perf_counter()
+    max_len = max(len(p) for p in prompts) + MAIN_NEW
+    print(f"[main unfused] phase 6's model, requests and pool, "
+          f"fused_kernels=False, max_model_len {max_len}", flush=True)
+    reqs = []
+    out, counts, eng = _serve_main(model, prompts, "main unfused",
+                                   num_blocks=num_blocks, requests=reqs,
+                                   fused_kernels=False,
+                                   max_model_len=max_len)
+    inst = launches.by_instance()
+    if inst:
+        raise AssertionError(f"main unfused: kernel instances launched "
+                             f"{inst}")
+    print(f"  main unfused: rms_norm {counts.get('rms_norm')} and "
+          f"{WRITE} {counts.get(WRITE)} launches; "
+          f"launches.by_instance() {inst} (no attention kernel)",
+          flush=True)
+    del eng
+    free()
+    _hold_greedy("main unfused", model, prompts, [r.generated for r in reqs],
+                 [r.generated for r in greedy], what="unfused")
+    for what in ("decode", "prefill"):
+        key = f"{what}_step_device_ms"
+        print(f"  main unfused: {what} step kernels "
+              f"{out[key]} ms in {out[f'{what}_step_kernels']} launches; "
+              f"phase 6's fused {what} step {main_out[key]} ms in "
+              f"{main_out[f'{what}_step_kernels']}", flush=True)
+    print(f"  main unfused: {out['tokens_per_s']:.1f} tokens/s (phase 6 "
+          f"{main_out['tokens_per_s']:.1f}), mean TTFT "
+          f"{out['mean_ttft_s']:.3f} s ({main_out['mean_ttft_s']:.3f}), "
+          f"mean TPOT {out['mean_tpot_s'] * 1e3:.1f} ms "
+          f"({main_out['mean_tpot_s'] * 1e3:.1f}), peak "
+          f"{out['peak_mem_gb']:.2f} GB", flush=True)
+    print(f"  {json.dumps(out)}", flush=True)
+    _unfused_tiny(model.device)
+    print(f"  phase 6u in {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def _unfused_tiny(dev):
+    """LlamaConfig.tiny in f32 through fused_kernels=False engines on
+    ``dev`` and on the CPU: the same tokens (6 requests, a shared prefix,
+    preemption), one graph a step."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import Engine, ServingConfig
+
+    cfg = LlamaConfig.tiny()
+    cpu = LlamaForCausalLM(cfg, device="cpu", seed=0)
+    gpu = LlamaForCausalLM(cfg, device=dev, seed=None)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(1)
+    shared = rng.randint(1, 256, size=20)
+    prompts = [np.concatenate([shared, rng.randint(1, 256, size=n)])
+               for n in (4, 9)] + [rng.randint(1, 256, size=n)
+                                   for n in (5, 19, 33, 12)]
+    outs = []
+    for model in (cpu, gpu):
+        eng = Engine(model, ServingConfig(
+            max_batch_size=4, block_size=8, num_blocks=14, chunk_tokens=16,
+            fused_kernels=False))
+        outs.append([o.tolist() for o in eng.generate(prompts,
+                                                      max_new_tokens=8)])
+        eng.pool.check_leaks()
+    if outs[0] != outs[1] or eng.decode_cache_size() != 1 or \
+            eng.prefill_cache_size() != 1:
+        raise AssertionError(f"unfused tiny: cuda {outs[1]} != cpu {outs[0]}")
+    print(f"  unfused tiny: f32, cuda against cpu: the same tokens over "
+          f"{len(prompts)} requests "
+          f"({eng.stats()['counters']['preemptions']} preemptions)",
+          flush=True)
 
 
 # ---------------------------------------------------------------- phase 2d

@@ -7,6 +7,12 @@ programs whose shapes never change; here each is a
 its first call on the card and replayed at every later call, with the
 pools bound by address (updated in place, so a step returns only the
 logits).  A step's ``eager`` is the function itself.
+
+Each maker takes ``fused``, as the reference's do: True (or None, the
+mode the JAX engine picks on its accelerator) serves through the fused
+kernels, False through the reference's unfused path
+(``models.llama.LlamaAttention._unfused``).  The mode is baked into the
+step when it is made, so fused and unfused steps are distinct graphs.
 """
 from __future__ import annotations
 
@@ -25,32 +31,39 @@ def _cache_dims(model):
     return kv_heads, cfg.head_dim, cfg.torch_dtype
 
 
-def _paged_caches(pools, block_tables, kv_dtype):
+def resolve_fused(fused) -> bool:
+    """A step's serving mode: None is the fused one (module docstring)."""
+    return fused is None or bool(fused)
+
+
+def _paged_caches(pools, block_tables, kv_dtype, fused=True):
     """Pool entries → per-layer :class:`PagedKVCache` views: ``(k, v)``
     for full-precision pools, ``(k, v, k_scale, v_scale)`` for quantized
-    ones (``serving.cache.BlockKVPool.layers``)."""
+    ones (``serving.cache.BlockKVPool.layers``); ``fused`` the path."""
     if kv_dtype is not None:
-        return [PagedKVCache(k, v, block_tables, ks, vs, kv_dtype)
+        return [PagedKVCache(k, v, block_tables, ks, vs, kv_dtype, fused)
                 for k, v, ks, vs in pools]
-    return [PagedKVCache(k, v, block_tables) for k, v in pools]
+    return [PagedKVCache(k, v, block_tables, fused=fused) for k, v in pools]
 
 
-def paged_decode(model, kv_cache_dtype=None):
+def paged_decode(model, kv_cache_dtype=None, fused=None):
     """The decode step's function, run eagerly: ``decode(tok [B, 1],
     pools, block_tables, lengths) -> last_logits [B, V] f32`` (see
     :func:`make_paged_decode_step`)."""
     kv_cache_dtype = resolve_kv_cache_dtype(kv_cache_dtype)
+    fused = resolve_fused(fused)
 
     @torch.inference_mode()
     def decode(tok, pools, block_tables, lengths):
-        caches = _paged_caches(pools, block_tables, kv_cache_dtype)
+        caches = _paged_caches(pools, block_tables, kv_cache_dtype, fused)
         logits = model(tok, caches, lengths)
         return logits[:, -1].float()
 
     return decode
 
 
-def make_paged_decode_step(model, kv_cache_dtype=None, pool=None):
+def make_paged_decode_step(model, kv_cache_dtype=None, pool=None,
+                           fused=None):
     """The continuous-batching decode step: one token for every slot of
     the bucket, each at its own position.  ``step(tok [B, 1], pools
     [(k, v)] per layer, block_tables [B, max_blocks] int32, lengths [B]
@@ -58,12 +71,14 @@ def make_paged_decode_step(model, kv_cache_dtype=None, pool=None):
     ``lengths[b]``.  ``kv_cache_dtype`` (None / "int8" / "fp8") makes
     each pool entry ``(k, v, k_scale, v_scale)``.  A
     :class:`~paddle_tpu_torch.jit.GraphStep` on the model's device
-    (``pool``: its graph memory pool)."""
-    return GraphStep(paged_decode(model, kv_cache_dtype), model.device,
-                     bound=(1,), pool=pool)
+    (``pool``: its graph memory pool); ``fused`` the serving mode (the
+    module docstring)."""
+    return GraphStep(paged_decode(model, kv_cache_dtype, fused),
+                     model.device, bound=(1,), pool=pool)
 
 
-def make_chunked_prefill_step(model, kv_cache_dtype=None, pool=None):
+def make_chunked_prefill_step(model, kv_cache_dtype=None, pool=None,
+                              fused=None):
     """Chunked prefill straight into the paged pool: ``step(ids [1, C],
     pools, block_table [1, max_blocks] int32, start [1] int32,
     last_index) -> logits [1, V] f32`` of the chunk's last REAL token
@@ -72,13 +87,14 @@ def make_chunked_prefill_step(model, kv_cache_dtype=None, pool=None):
     Only that token's row goes through the final norm and ``lm_head``.
     ``start`` and ``last_index`` are data, as the reference traces them,
     so every chunk of every prompt replays ONE graph.
-    ``kv_cache_dtype`` and ``pool`` as in
+    ``kv_cache_dtype``, ``pool`` and ``fused`` as in
     :func:`make_paged_decode_step`."""
     kv_cache_dtype = resolve_kv_cache_dtype(kv_cache_dtype)
+    fused = resolve_fused(fused)
 
     @torch.inference_mode()
     def step(ids, pools, block_table, start, last_index):
-        caches = _paged_caches(pools, block_table, kv_cache_dtype)
+        caches = _paged_caches(pools, block_table, kv_cache_dtype, fused)
         last_index = torch.as_tensor(last_index, device=ids.device)
         valid = (torch.arange(ids.shape[1], device=ids.device)
                  <= last_index)[None, :]

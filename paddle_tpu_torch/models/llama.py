@@ -10,6 +10,14 @@ The port of ``paddle_tpu/models/llama.py`` in two modes.
   chunked-prefill kernel; the new k/v rows go into the pools through
   ``kernels.kv_quant.kv_write``, quantized as they are written with an
   int8 or fp8 cache.
+- Unfused serving (``PagedKVCache.fused`` False, the reference's
+  ``fused_kernels=False`` path): ``kernels.rms_norm`` before plain
+  q/k/v and gate/up products, RoPE at each sequence's offsets in plain
+  torch ops (the reference's gather form), the new rows written through
+  ``kernels.kv_quant.kv_write``, and attention as the reference's
+  full-buffer masked attention over the pages gathered through the
+  block table (a quantized pool's gathered copy dequantized), plain
+  torch ops as the reference's is XLA.
 - Training (no cache): ``kernels.rms_norm`` before the unfused q/k/v
   and gate/up projections, ``kernels.rope.fused_rope`` on q and k,
   causal ``kernels.flash_attention.flash_attention_bthd``, and with
@@ -49,7 +57,7 @@ from ..device import resolve_device, tf32_if_exact
 from ..kernels.chunked_prefill import chunked_attention
 from ..kernels.flash_attention import flash_attention_bthd
 from ..kernels.fused_norm_linear import fused_norm_linear_group, rms_scale
-from ..kernels.kv_quant import kv_write
+from ..kernels.kv_quant import decode_codes, kv_write
 from ..kernels.moe_dispatch import moe_capacity, moe_combine, moe_dispatch
 from ..kernels.paged_attention import fused_paged_decode
 from ..kernels.rms_norm import rms_norm
@@ -144,18 +152,24 @@ class PagedKVCache:
     Quantized pools (``kv_dtype`` ``"int8"``/``"fp8"``,
     ``kernels/kv_quant``) hold int8 codes, and ``k_scale``/``v_scale``
     [num_blocks, block_size] f32 one scale per row: writes quantize,
-    the attention kernels dequantize as they read."""
+    the attention kernels dequantize as they read.
 
-    __slots__ = ("k", "v", "block_table", "k_scale", "v_scale", "kv_dtype")
+    ``fused`` picks the layer's serving path: the fused kernels (True)
+    or the reference's unfused path (False), baked into a step when it
+    is made, as the reference's ``serving_fusion`` is."""
+
+    __slots__ = ("k", "v", "block_table", "k_scale", "v_scale", "kv_dtype",
+                 "fused")
 
     def __init__(self, k, v, block_table, k_scale=None, v_scale=None,
-                 kv_dtype=None):
+                 kv_dtype=None, fused=True):
         self.k = k
         self.v = v
         self.block_table = block_table
         self.k_scale = k_scale
         self.v_scale = v_scale
         self.kv_dtype = kv_dtype
+        self.fused = fused
 
 
 class Linear(nn.Module):
@@ -194,17 +208,23 @@ class LlamaAttention(nn.Module):
                 write_mask=None):
         """Without a cache, the training forward of the NORMALIZED
         ``hidden`` [B, T, h]: unfused q/k/v, RoPE from position 0, causal
-        attention.  With one, the serving forward: ``hidden`` is the
-        UNNORMALIZED residual stream and the input RMSNorm of
+        attention.  With a fused one, the serving forward: ``hidden`` is
+        the UNNORMALIZED residual stream and the input RMSNorm of
         ``norm_weight`` folds into q/k/v, which share one row scale.
-        ``write_mask`` None means a decode step (T == 1); else
-        it is the [B, T] validity mask of a prefill chunk, whose padded
-        positions write into the garbage block 0."""
+        With an unfused one, the reference's unfused serving forward of
+        the NORMALIZED ``hidden`` (:meth:`_unfused`).  ``write_mask``
+        None means a decode step (T == 1); else it is the [B, T]
+        validity mask of a prefill chunk, whose padded positions write
+        into the garbage block 0."""
         B, T = hidden.shape[0], hidden.shape[1]
-        if cache is None:
+        if cache is None or not cache.fused:
             q = self.q_proj(hidden).reshape(B, T, -1, self.head_dim)
             k = self.k_proj(hidden).reshape(B, T, -1, self.head_dim)
             v = self.v_proj(hidden).reshape(B, T, -1, self.head_dim)
+            if cache is not None:
+                out = self._unfused(q, k, v, cos, sin, cache, positions,
+                                    write_mask)
+                return self.o_proj(out.reshape(B, T, -1))
             q, k = fused_rope(q, cos, sin), fused_rope(k, cos, sin)
             out = flash_attention_bthd(q, k, v, causal=True)
             return self.o_proj(out.reshape(B, T, -1))
@@ -232,6 +252,48 @@ class LlamaAttention(nn.Module):
                                 positions, cache.k_scale, cache.v_scale,
                                 cache.kv_dtype)
         return self.o_proj(out.reshape(B, T, -1))
+
+    def _unfused(self, q, k, v, cos, sin, cache, positions, write_mask):
+        """The reference's unfused paged attention (its gather path):
+        q and k rotated at each sequence's offsets, the new k/v written
+        into the pools (``kv_write``), then :func:`gathered_attention`
+        over every page of the block table."""
+        q = apply_rope(q, cos, sin, positions)
+        k = apply_rope(k, cos, sin, positions)
+        _scatter_chunk(cache, k, v, positions, write_mask)
+        return gathered_attention(q, cache, positions)
+
+
+def gathered_attention(q, cache: PagedKVCache, positions):
+    """Causal attention of q [B, T, H, D] at ``positions[b] + t`` over
+    the full buffer of pages the block table names, the reference's
+    ``_paged_attn``: the pages gathered into a [B, nbs * bs, KVH, D]
+    copy in q's dtype (a quantized pool's codes times their row scales),
+    f32 scores over 1/sqrt(D), keys past each query's position masked to
+    -1e30, an f32 softmax rounded to q's dtype, then the product with
+    the values in q's dtype.  A kv head serves its H / KVH query heads
+    without a repeated copy."""
+    B, T, H, D = q.shape
+    bt = cache.block_table.long()
+    kb, vb = cache.k[bt], cache.v[bt]           # [B, nbs, bs, KVH, D]
+    if cache.kv_dtype is not None:
+        kb = (decode_codes(kb, cache.kv_dtype)
+              * cache.k_scale[bt][..., None, None]).to(q.dtype)
+        vb = (decode_codes(vb, cache.kv_dtype)
+              * cache.v_scale[bt][..., None, None]).to(q.dtype)
+    KVH = kb.shape[3]
+    kb = kb.reshape(B, -1, KVH, D)
+    vb = vb.reshape(B, -1, KVH, D)
+    qg = q.reshape(B, T, KVH, H // KVH, D)
+    scores = torch.einsum("btgrd,bsgd->bgrts", qg.float(), kb.float()) \
+        / math.sqrt(D)
+    q_pos = positions.long()[:, None] + torch.arange(T, device=q.device)
+    k_pos = torch.arange(kb.shape[1], device=q.device)
+    valid = k_pos[None, None, :] <= q_pos[:, :, None]          # [B, T, S]
+    scores = scores.masked_fill(~valid[:, None, None], -1e30)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bgrts,bsgd->btgrd", probs, vb)
+    return out.reshape(B, T, H, D)
 
 
 def _scatter_chunk(cache: PagedKVCache, k, v, positions, write_mask):
@@ -344,9 +406,11 @@ class LlamaDecoderLayer(nn.Module):
 
     def forward(self, hidden, cos, sin, cache=None, positions=None,
                 write_mask=None):
-        if cache is None:      # the training forward
+        if cache is None or not cache.fused:   # training, unfused serving
             normed = self.input_layernorm(hidden)
-            hidden = hidden + self.self_attn(normed, cos, sin)
+            hidden = hidden + self.self_attn(normed, cos, sin, cache,
+                                             positions,
+                                             write_mask=write_mask)
             return hidden + self.mlp(self.post_attention_layernorm(hidden))
         ln = self.input_layernorm
         hidden = hidden + self.self_attn(hidden, cos, sin, cache, positions,

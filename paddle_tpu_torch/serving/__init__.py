@@ -8,6 +8,9 @@
 - :mod:`sampling`  — seeded temperature/top-k/top-p (:class:`SamplingParams`)
 - :mod:`speculative` — draft propose + batched target verify
   (:class:`SpeculativeConfig`)
+- :mod:`router`    — :class:`Router`, prefix- and load-aware fleet
+  placement
+- :mod:`replay`    — multi-tenant trace replay through a router
 - :mod:`stream`    — SSE framing over ``submit(on_token=...)``
 - :mod:`endpoint`  — Predictor-shaped :class:`Endpoint` front door
 
@@ -29,6 +32,9 @@ from .engine import Engine, ServingConfig
 from .metrics import RequestTimeline, ServingMetrics
 from .overload import (DEGRADED, FAILED, LADDER_LEVELS, SERVING,
                        EngineQuarantined, OverloadController)
+from .replay import (Arrival, Tenant, build_trace, default_tenants,
+                     replay_trace)
+from .router import ROUTER_POLICIES, Router, RouterMetrics
 from .sampling import SamplingParams
 from .scheduler import (FINISHED, PREEMPTED, PREFILLING, QUEUED, RUNNING,
                         AdmissionError, QueueFull, Request, Scheduler)
@@ -39,7 +45,8 @@ __all__ = [
     "Engine", "ServingConfig", "Endpoint", "BlockKVPool", "PoolExhausted",
     "Scheduler", "Request", "AdmissionError", "QueueFull", "ServingMetrics",
     "RequestTimeline", "OverloadController", "EngineQuarantined",
-    "SamplingParams", "SpeculativeConfig", "sse_event", "sse_stream",
-    "stream_events", "DONE_FRAME", "LADDER_LEVELS", "SERVING", "DEGRADED",
+    "Router", "RouterMetrics", "ROUTER_POLICIES", "Tenant", "Arrival",
+    "default_tenants", "build_trace", "replay_trace", "SamplingParams",
+    "SpeculativeConfig", "sse_event", "sse_stream", "stream_events", "DONE_FRAME", "LADDER_LEVELS", "SERVING", "DEGRADED",
     "FAILED", "QUEUED", "PREFILLING", "RUNNING", "PREEMPTED", "FINISHED",
 ]

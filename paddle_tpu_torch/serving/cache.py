@@ -86,6 +86,9 @@ class BlockKVPool:
         self._hash_index: Dict[bytes, int] = {}
         self._block_hash: Dict[int, bytes] = {}
         self._cached_free: "OrderedDict[int, None]" = OrderedDict()
+        # chain roots (depth-1 hashes), most recently registered last:
+        # the recency signal prefix_summary() gives a fleet router
+        self._roots: "OrderedDict[bytes, None]" = OrderedDict()
         self.evictions = 0
         self.cow_copies = 0
 
@@ -184,6 +187,7 @@ class BlockKVPool:
         h = self._block_hash.pop(b, None)
         if h is not None and self._hash_index.get(h) == b:
             del self._hash_index[h]
+            self._roots.pop(h, None)
         self.evictions += 1
         return b
 
@@ -297,6 +301,10 @@ class BlockKVPool:
             self._hash_index[h] = b
             self._block_hash[b] = h
             added += 1
+        # an indexed chain's root moves to most recent
+        if chain and chain[0] in self._hash_index:
+            self._roots.pop(chain[0], None)
+            self._roots[chain[0]] = None
         return added
 
     def ensure_writable(self, request_id, block: int) -> int:
@@ -347,4 +355,20 @@ class BlockKVPool:
             "used_bytes": self.used_bytes(),
             "capacity_bytes": self.capacity_bytes(),
             "byte_utilization": round(self.byte_utilization(), 4),
+        }
+
+    def prefix_summary(self, max_roots: int = 8) -> dict:
+        """The prefix index as a fleet router reads it
+        (``serving/router.py``): ``hashes``, every indexed chain hash in
+        hex, against which a router walks a prompt's :meth:`hash_chain`
+        up to the first miss, as :meth:`match_prefix` does; ``roots``,
+        the most recently registered depth-1 hashes, newest first."""
+        roots = [h.hex() for h in reversed(self._roots)]
+        return {
+            "block_size": self.block_size,
+            "kv_dtype": self.kv_dtype_tag,
+            "cached_blocks": self.num_cached,
+            "indexed_blocks": len(self._hash_index),
+            "roots": roots[:max_roots],
+            "hashes": [h.hex() for h in self._hash_index],
         }

@@ -21,17 +21,22 @@ from .scheduler import FINISHED, Request
 
 class Endpoint:
     """``model`` is a causal LM of this package (an :class:`Engine` is
-    built from it with ``config``) or an :class:`Engine`.  The
-    reference's ``Router`` fleets wait for the router's slice."""
+    built from it with ``config``), an :class:`Engine`, or a
+    :class:`~paddle_tpu_torch.serving.router.Router` fleet: the router
+    has the engine's submit / step / run_until_complete / health
+    surface, so everything below serves a fleet, and ``health()``
+    reports the fleet's."""
 
     def __init__(self, model, config: Optional[ServingConfig] = None,
                  **generate_defaults):
-        if isinstance(model, Engine):
+        from .router import Router
+
+        if isinstance(model, (Engine, Router)):
             if config is not None:
                 raise ValueError(
                     "pass ServingConfig when Endpoint builds the engine "
-                    "from a model; a prebuilt Engine already carries its "
-                    "config")
+                    "from a model; a prebuilt Engine/Router already "
+                    "carries its config")
             self.engine = model
         else:
             self.engine = Engine(model, config)
@@ -101,8 +106,8 @@ class Endpoint:
     def health(self) -> dict:
         """Engine health snapshot (``Engine.health()``): the overload
         controller's state, degradation level, watchdog totals, latency
-        EWMAs, queue depth and KV pressure, for a load balancer's
-        probe."""
+        EWMAs, queue depth and KV pressure, for a load balancer's probe;
+        over a router, the fleet's (``Router.health()``)."""
         return self.engine.health()
 
 

@@ -13,7 +13,9 @@ reserved garbage block instead of branching.  Requests enter and leave
 at token granularity.
 
 This engine serves through the fused steps (the mode the JAX engine
-picks on its accelerator), from full-precision or quantized KV pools
+picks on its accelerator) or, with ``fused_kernels=False``, through the
+reference's unfused path (plain products, the gathered full-buffer
+attention; ``models/llama.py``), from full-precision or quantized KV pools
 (``kv_cache_dtype`` ``"int8"``/``"fp8"``, sized by ``num_blocks`` or by
 a ``kv_pool_bytes`` budget) and with full-precision or int8 weights
 (``weight_dtype``).  Requests decode greedily or sample (temperature,
@@ -126,7 +128,9 @@ class ServingConfig:
     # rebound); when False, such retraces are only counted
     # (engine._decode_step.retraces)
     strict_no_retrace: bool = True
-    # the port serves the fused steps only: None or True
+    # the serving path: None or True the fused kernels (the mode the JAX
+    # engine picks on its accelerator), False the reference's unfused
+    # path; baked into the steps when they are made
     fused_kernels: Optional[bool] = None
     # KV pool storage: None full precision; "int8"/"fp8" int8 codes plus
     # one f32 absmax scale per (block, token) row, quantized as each row
@@ -195,8 +199,6 @@ class Engine:
         later = [f"{name} ({item})"
                  for name, item in LATER_SLICE_OPTIONS.items()
                  if getattr(cfg, name) != _DEFAULTS[name]]
-        if cfg.fused_kernels is False:
-            later.append("fused_kernels=False (the unfused path)")
         if later:
             raise NotImplementedError(
                 f"ServingConfig option(s) {', '.join(later)} are not "
@@ -279,21 +281,22 @@ class Engine:
         graphs = torch.cuda.graph_pool_handle() \
             if self.device.type == "cuda" else None
         on_retrace = "raise" if cfg.strict_no_retrace else "count"
-        kv = self.kv_cache_dtype
+        kv, fused = self.kv_cache_dtype, cfg.fused_kernels
         steps = {
-            "decode_step": make_paged_decode_step(model, kv, graphs),
-            "prefill_step": make_chunked_prefill_step(model, kv, graphs),
+            "decode_step": make_paged_decode_step(model, kv, graphs, fused),
+            "prefill_step": make_chunked_prefill_step(model, kv, graphs,
+                                                      fused),
             "sampled_decode_step": make_sampled_decode_step(model, kv,
-                                                            graphs)}
+                                                            graphs, fused)}
         if spec is not None:
             draft, K = spec.draft_model, spec.num_draft_tokens
             steps.update(
-                draft_prefill_step=make_chunked_prefill_step(draft, None,
-                                                             graphs),
-                draft_propose_step=make_draft_propose_step(draft, K, None,
-                                                           graphs),
-                spec_verify_step=make_spec_verify_step(model, K, None,
-                                                       graphs))
+                draft_prefill_step=make_chunked_prefill_step(
+                    draft, None, graphs, fused),
+                draft_propose_step=make_draft_propose_step(
+                    draft, K, None, graphs, fused),
+                spec_verify_step=make_spec_verify_step(
+                    model, K, None, graphs, fused))
         self._steps = {
             name: warn_on_retrace(step, after=1, label=f"serving::{name}",
                                   on_retrace=on_retrace)
@@ -966,6 +969,7 @@ class Engine:
         d["pool"] = self.pool.stats()
         d["queue_depth"] = len(self.scheduler.waiting)
         d["pending_prefill_tokens"] = self.pending_prefill_tokens()
+        d["prefix_index"] = self.pool.prefix_summary()
         d["health"] = self.health()
         # compile_stats()'s fields for this engine's steps
         d["compiles"] = {}

@@ -252,7 +252,8 @@ def sample_at(logits, temps, top_ks, top_ps, keys, counters):
                          fold_keys(keys, counters))
 
 
-def make_sampled_decode_step(model, kv_cache_dtype=None, pool=None):
+def make_sampled_decode_step(model, kv_cache_dtype=None, pool=None,
+                             fused=None):
     """The paged decode step followed, on the device, by the fold, the
     filter and the Gumbel argmax: ``step(tok [S, 1], pools, block_tables
     [S, max_blocks], lengths [S], temps [S] f32, top_ks [S], top_ps [S]
@@ -262,8 +263,9 @@ def make_sampled_decode_step(model, kv_cache_dtype=None, pool=None):
     argmax of its logits.  A :class:`~paddle_tpu_torch.jit.GraphStep`
     as that step is, which binds the five per-slot tensors by address
     as it binds the pools: they are the engine's own, written in place
-    for its whole life (``pool``: its graph memory pool)."""
-    decode = paged_decode(model, kv_cache_dtype)
+    for its whole life (``pool``: its graph memory pool; ``fused`` the
+    serving mode, as the decode step's)."""
+    decode = paged_decode(model, kv_cache_dtype, fused)
 
     @torch.inference_mode()
     def step(tok, pools, block_tables, lengths, temps, top_ks, top_ps,

@@ -46,7 +46,8 @@ from typing import Any
 import torch
 
 from ..jit import GraphStep
-from ..models.generation import _cache_dims, _paged_caches, paged_decode
+from ..models.generation import (_cache_dims, _paged_caches, paged_decode,
+                                 resolve_fused)
 from .sampling import (ACCEPT_TAG, BONUS_TAG, DRAFT_TAG, categorical,
                        filtered_probs, fold_keys, sample_tokens, uniform)
 
@@ -85,7 +86,7 @@ class SpeculativeConfig:
 
 
 def make_draft_propose_step(draft, num_draft, kv_cache_dtype=None,
-                            pool=None):
+                            pool=None, fused=None):
     """``step(tok [S, 1], pools, block_tables [S, max_blocks], lengths
     [S], temps [S] f32, top_ks [S], top_ps [S] f32, keys [S, 2] int64,
     counters [S]) -> (proposals [S, K] int64, draft_probs [S, K, V]
@@ -94,8 +95,9 @@ def make_draft_propose_step(draft, num_draft, kv_cache_dtype=None,
     reference draws from them and discards the draw.  A
     :class:`~paddle_tpu_torch.jit.GraphStep` that binds the pools and the
     engine's five per-slot sampling tensors by address, as the sampled
-    decode step does (``pool``: its graph memory pool)."""
-    decode = paged_decode(draft, kv_cache_dtype)
+    decode step does (``pool``: its graph memory pool; ``fused`` the
+    serving mode of the draft's decodes)."""
+    decode = paged_decode(draft, kv_cache_dtype, fused)
 
     @torch.inference_mode()
     def step(tok, pools, block_tables, lengths, temps, top_ks, top_ps,
@@ -168,7 +170,8 @@ def spec_acceptance(lg, proposals, draft_probs, temps, top_ks, top_ps,
     return committed, n + 1
 
 
-def make_spec_verify_step(model, num_draft, kv_cache_dtype=None, pool=None):
+def make_spec_verify_step(model, num_draft, kv_cache_dtype=None, pool=None,
+                          fused=None):
     """``step(pending [S], proposals [S, K], draft_probs [S, K, V] f32,
     pools, block_tables [S, max_blocks], lengths [S], temps, top_ks,
     top_ps, keys, counters) -> (committed [S, K+1], accepted_len [S])``:
@@ -179,13 +182,14 @@ def make_spec_verify_step(model, num_draft, kv_cache_dtype=None, pool=None):
     :class:`~paddle_tpu_torch.jit.GraphStep` that binds the pools and the
     five per-slot sampling tensors; the proposals and probabilities are
     copied into its static inputs at every call (``pool``: its graph
-    memory pool)."""
+    memory pool; ``fused`` the serving mode of the forward)."""
+    fused = resolve_fused(fused)
 
     @torch.inference_mode()
     def step(pending, proposals, draft_probs, pools, block_tables, lengths,
              temps, top_ks, top_ps, keys, counters):
         ids = torch.cat([pending[:, None].long(), proposals.long()], dim=1)
-        caches = _paged_caches(pools, block_tables, kv_cache_dtype)
+        caches = _paged_caches(pools, block_tables, kv_cache_dtype, fused)
         every = torch.ones(ids.shape, dtype=torch.bool, device=ids.device)
         lg = model(ids, caches, lengths, write_mask=every).float()
         return spec_acceptance(lg, proposals, draft_probs, temps, top_ks,

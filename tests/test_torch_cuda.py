@@ -2449,3 +2449,151 @@ class TestCudaSpecGraphSteps:
             assert all(torch.equal(x, y) for e, c in zip(pools, copies)
                        for x, y in zip(e, c)), name
         assert [eng._steps[n].compiles for n in SPEC_STEPS] == [1, 1, 1]
+
+
+def _tiny_bf16(cuda_device, seed, **kw):
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.tiny(dtype="bfloat16", hidden_size=128,
+                           num_attention_heads=2, num_key_value_heads=1,
+                           **kw)
+    return LlamaForCausalLM(cfg, device=cuda_device, seed=seed)
+
+
+FLEET = dict(max_batch_size=2, block_size=16, num_blocks=24,
+             chunk_tokens=16)
+
+
+@pytest.mark.cuda
+class TestCudaFleet:
+    """Engines of a fleet on one card (``serving.Router``): their graphs
+    replay one after another on one stream, each engine's with its own
+    static inputs, pools and the capture stream's one ticket buffer; a
+    replica drained after a quarantine replays its graphs with its host
+    arrays reset in place and its per-slot sampling tensors at their
+    addresses."""
+
+    def test_two_engines_interleaved_on_one_stream(self, cuda_device):
+        from paddle_tpu_torch.jit import graphs
+        from paddle_tpu_torch.serving import Engine, ServingConfig
+
+        models = [_tiny_bf16(cuda_device, s) for s in (0, 1)]
+        rng = np.random.RandomState(2)
+        prompts = [[rng.randint(1, 256, size=n) for n in (21, 6, 13)]
+                   for _ in models]
+        keys = set(paged_attention._ticket_buffers)
+        alone = [Engine(m, ServingConfig(**FLEET)).generate(
+            p, max_new_tokens=6) for m, p in zip(models, prompts)]
+        engines = [Engine(m, ServingConfig(**FLEET)) for m in models]
+        reqs = [[e.submit(p, max_new_tokens=6) for p in ps]
+                for e, ps in zip(engines, prompts)]
+        while any(e.has_work() for e in engines):
+            for e in engines:      # one step of each, in turn
+                if e.has_work():
+                    e.step()
+        for e, rs, want in zip(engines, reqs, alone):
+            assert [r.output_ids().tolist() for r in rs] == \
+                [w.tolist() for w in want]
+            assert (e.decode_cache_size(), e.prefill_cache_size()) == (1, 1)
+            e.pool.check_leaks()
+        # every graph was captured on the device's capture stream: the
+        # paged decode's tickets of no other stream were made
+        device = torch.device("cuda", torch.cuda.current_device())
+        new = set(paged_attention._ticket_buffers) - keys
+        assert new <= {(device, graphs._capture_streams[device].cuda_stream)}
+        assert alone[0][0].tolist() != alone[1][0].tolist()
+
+    def test_drained_replica_replays_with_inputs_reset_in_place(
+            self, cuda_device):
+        from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+        from paddle_tpu_torch.resilience import FaultPlan
+        from paddle_tpu_torch.serving import Engine, Router, ServingConfig
+
+        # f32: a resubmitted prompt's prefix-cache hits move its chunk
+        # boundaries, which must not move a token
+        model = LlamaForCausalLM(LlamaConfig.tiny(), device=cuda_device,
+                                 seed=0)
+        chaos = dict(FLEET, step_max_retries=1, step_retry_backoff_s=0.0)
+        engines = [Engine(model, ServingConfig(name=f"replica-{i}",
+                                               **chaos)) for i in range(2)]
+        router = Router(engines, policy="round_robin")
+        rng = np.random.RandomState(3)
+        prompts = [rng.randint(1, 256, size=n) for n in (21, 6, 13, 9)]
+        kws = [{}, dict(temperature=0.8, top_k=20, seed=3), {}, {}]
+        ref = Engine(model, ServingConfig(**FLEET))
+        want = [ref.submit(p, max_new_tokens=6, **k)
+                for p, k in zip(prompts, kws)]
+        ref.run_until_complete()
+        # both replicas capture their graphs (greedy and sampled) first
+        router.generate(prompts[:2], max_new_tokens=2)
+        rep = engines[1]
+        rep.generate(prompts[1:2], max_new_tokens=2, **kws[1])
+        sizes = (rep.decode_cache_size(), rep.prefill_cache_size(),
+                 rep.sampled_decode_cache_size())
+        host = [getattr(rep, n) for n in ("_block_tables", "_lengths",
+                                          "_pending")]
+        ptrs = [getattr(rep, n).data_ptr() for n in SLOT_STATE]
+        reqs = [router.submit(p, max_new_tokens=6, **k)
+                for p, k in zip(prompts, kws)]
+        with FaultPlan(step_fault_scope="decode_step@replica-1",
+                       fail_step_at={2, 3}) as plan:
+            done = router.run_until_complete()
+        assert len(plan.injected) == 2
+        st = router.stats()["router"]
+        assert st["replica_quarantines"] == 1
+        assert st["requests_resubmitted"] == 2
+        for r, w in zip(reqs, want):
+            got = done[r.request_id]
+            assert got.finish_reason == "length"
+            assert got.generated == w.generated
+        # the drain reset the replica's inputs in place
+        assert all(a is b for a, b in zip(
+            host, [rep._block_tables, rep._lengths, rep._pending]))
+        assert [getattr(rep, n).data_ptr() for n in SLOT_STATE] == ptrs
+        assert not rep._lengths.any() and not rep._block_tables.any()
+        assert not rep._temps.any() and not rep._counters.any()
+        router.revive("replica-1")
+        again = [rep.submit(p, max_new_tokens=6, **k)
+                 for p, k in zip(prompts, kws)]
+        rep.run_until_complete()
+        assert [r.generated for r in again] == [w.generated for w in want]
+        assert (rep.decode_cache_size(), rep.prefill_cache_size(),
+                rep.sampled_decode_cache_size()) == sizes == (1, 1, 1)
+        for e in engines:
+            e.pool.check_leaks()
+
+
+@pytest.mark.cuda
+class TestCudaUnfused:
+    """``ServingConfig(fused_kernels=False)`` on the card: the tiny f32
+    engine's tokens equal the CPU's, and its steps launch the rms_norm
+    kernel for each norm and the KV write for each layer, no fused
+    kernel."""
+
+    def test_tiny_unfused_engine_tokens_match_cpu(self, cuda_device):
+        from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+        from paddle_tpu_torch.serving import Engine, ServingConfig
+
+        cfg = LlamaConfig.tiny()
+        cpu = LlamaForCausalLM(cfg, device="cpu", seed=0)
+        gpu = LlamaForCausalLM(cfg, device=cuda_device, seed=None)
+        gpu.load_state_dict(cpu.state_dict())
+        rng = np.random.RandomState(0)
+        prompts = [rng.randint(1, 256, size=n) for n in (5, 19, 33)]
+        outs = []
+        for model in (cpu, gpu):
+            eng = Engine(model, ServingConfig(
+                max_batch_size=2, block_size=8, num_blocks=16,
+                chunk_tokens=16, fused_kernels=False))
+            launches.reset()
+            outs.append(eng.generate(prompts, max_new_tokens=6))
+            eng.pool.check_leaks()
+        counts = launches.snapshot()
+        assert set(counts) == {"rms_norm", kv_quant.KERNEL}, counts
+        st = eng.stats()["counters"]
+        L = cfg.num_hidden_layers
+        steps = st["prefill_chunks"] + st["decode_iterations"]
+        assert counts == {"rms_norm": (2 * L + 1) * steps,
+                          kv_quant.KERNEL: L * steps}
+        for a, b in zip(*outs):
+            np.testing.assert_array_equal(a, b)

@@ -3,8 +3,9 @@
 - importing the package and every module in it (the static-graph
   frontend ``static``, the ``nn`` layers, the CUDA-graph steps of
   ``jit``, the compile accounting and metrics registry of
-  ``observability`` and the fault plan of ``resilience`` included; they
-  are copies, not imports) loads no ``jax*``
+  ``observability``, the fault plan of ``resilience``, the fleet router
+  and trace replay of ``serving`` and the ``inference`` front door
+  included; they are copies, not imports) loads no ``jax*``
   module and nothing of the JAX package (``paddle_tpu`` /
   ``paddle_tpu.*``), and no source file names one;
 - its entry points run on ``cuda`` unless told otherwise, and raise
@@ -46,9 +47,9 @@ print(json.dumps({"bad": bad, "ours": sorted(
     n for n in sys.modules if n.startswith("paddle_tpu_torch"))}))
 """
 # the subpackages the walk must reach (each with at least one module)
-SUBPACKAGES = ("jit", "kernels", "models", "nn", "observability",
-               "optimizer", "quantization", "resilience", "serving",
-               "static")
+SUBPACKAGES = ("inference", "jit", "kernels", "models", "nn",
+               "observability", "optimizer", "quantization", "resilience",
+               "serving", "static")
 
 
 def _is_forbidden(module: str) -> bool:
@@ -68,8 +69,14 @@ class TestNoJax:
             for p in PACKAGE.rglob("*.py") if p.name != "__init__.py"}
         assert want <= set(res["ours"])
         for sub in SUBPACKAGES:
-            assert any(n.startswith(f"paddle_tpu_torch.{sub}.")
-                       for n in res["ours"]), sub
+            # a subpackage of modules had one imported; ``inference`` is
+            # its __init__ alone
+            modules = [p for p in (PACKAGE / sub).rglob("*.py")
+                       if p.name != "__init__.py"]
+            assert f"paddle_tpu_torch.{sub}" in res["ours"], sub
+            assert not modules or any(
+                n.startswith(f"paddle_tpu_torch.{sub}.")
+                for n in res["ours"]), sub
 
     def test_source_walk_covers_every_subpackage(self):
         walked = {p.relative_to(PACKAGE).parts[0]
@@ -152,11 +159,27 @@ def tiny_model():
 
 class TestLaterSliceOptionsRaise:
     @pytest.mark.parametrize("option,value", [
-        ("mesh", {"tp": 2}), ("xray_on_start", True), ("shardplan", True),
-        ("fused_kernels", False)])
+        ("mesh", {"tp": 2}), ("xray_on_start", True), ("shardplan", True)])
     def test_serving_config(self, tiny_model, option, value):
         with pytest.raises(NotImplementedError, match=option):
             Engine(tiny_model, ServingConfig(**{option: value}))
+
+    def test_unfused_path_is_ported(self, tiny_model):
+        """``fused_kernels=False`` no longer raises: the engine serves a
+        request through the unfused steps, with the fused engine's
+        tokens."""
+        prompt = np.arange(1, 12)
+        got = {}
+        for fused in (False, True):
+            eng = Engine(tiny_model, ServingConfig(fused_kernels=fused,
+                                                   num_blocks=16))
+            req = eng.submit(prompt, max_new_tokens=5)
+            eng.run_until_complete()
+            eng.pool.check_leaks()
+            assert req.finish_reason == "length"
+            got[fused] = req.generated
+        assert got[False] == got[True]
+        assert "fused_kernels" not in LATER_SLICE_OPTIONS
 
     def test_speculative_is_ported(self, tiny_model):
         """``speculative`` no longer raises: a bare draft model is wrapped
