@@ -32,6 +32,13 @@ Phases, each of which must pass (nothing is caught):
      top-2 margin there is below the f32 tolerance);
   5. tiny training: the same f32 weights trained 5 AdamW steps on cuda
      and on cpu: losses within the f32 tolerance, exact launch counts;
+  5r. tiny training with the recipe: LlamaConfig.tiny with recompute,
+     tied embeddings and the fused loss, f32, the same weights on cuda
+     and on cpu, 5 steps of Llama 2's recipe (AdamW beta2 0.95, epsilon
+     1e-5, weight decay 0.1 over WarmupCosine, ClipGradByGlobalNorm(1.0),
+     which scales every step): losses within the f32 tolerance, each
+     step's learning rate equal and its global norm within it, exact
+     launch counts of a step that recomputes every layer;
   6. main serving: Llama-3-8B width in bf16 (random weights from a seed)
      behind serving.Engine: 8 requests, prompts of 128..1024 tokens, two
      of them sharing a 512-token prefix, 32 new tokens each; then the
@@ -78,7 +85,8 @@ Phases, each of which must pass (nothing is caught):
   6sp. speculative decoding: phase 6's model, requests and pages behind
      engines with SpeculativeConfig(draft, 4), a pool sized for both
      models' layers and the K+1 horizon: (a) a Llama-3.2-3B-width draft
-     (llama32_3b_config, random weights, seed 1), greedy: tokens held to
+     (llama32_3b_config, random weights, seed 1, its embeddings tied as
+     its config ties them), greedy: tokens held to
      phase 6's by the top-2 margin at a first difference (at most
      SPEC_MARGIN_ULPS bf16 ulps), one graph each of the draft's prefill,
      the propose and the verify, a second batch adding none and no
@@ -123,6 +131,16 @@ Phases, each of which must pass (nothing is caught):
      [1, 8192] batch, AdamW(1e-4): 2 warm-up and 5 timed steps, one
      profiled step and one eval forward without grad; finite, falling
      losses and exact launch counts per step.
+  7r. training past 8 layers through recompute: Llama-3-8B width,
+     RECIPE_LAYERS (16) of its 32 layers, each recomputed in the
+     backward, bf16, one [1, 8192] batch, with Llama 2's recipe (AdamW
+     peak 3e-4, beta 0.9 / 0.95, epsilon 1e-5, weight decay 0.1,
+     WarmupCosine of 2 warmup steps of 10 down to 0.1 of the peak,
+     ClipGradByGlobalNorm(1.0)), steps as in phase 7: each step's
+     learning rate and clip norm, the norm within 1e-3 of an f64 norm of
+     the same gradients; the peak memory less the 12 bytes a parameter
+     of state, beside phase 7's; MFU, and its share with the recomputed
+     forward counted; falling losses and exact launch counts.
 Mixture of experts (Mixtral-8x7B's shape, mixtral_config):
   2m. MoE kernels: dispatch and combine against their plain versions at
      hidden 4096, 8 experts, top-2, bf16, at a decode step's, a prefill
@@ -220,8 +238,8 @@ The sampler (serving/sampling.py: torch ops, no kernel of its own):
      lanes of temperature, top-k and top-p each on and off, at 64 token
      counters of seeded keys: the tokens on the card equal the CPU's,
      one for one (on a mismatch the perturbed top-2 margin is printed).
-The launch counts of phases 4c, 6, 6s, 6o, 6sp, 6r, 6u, 6c, 6p, 7, 7c,
-6m, 7m and 7s, reset just before each run and read just after it, show
+The launch counts of phases 4c, 5r, 6, 6s, 6o, 6sp, 6r, 6u, 6c, 6p, 7,
+7r, 7c, 6m, 7m and 7s, reset just before each run and read just after it, show
 that each path went through every kernel of its own (and the
 Llama-3-8B, Mixtral, Qwen2-7B, Phi-3-mini and BERT phases through no
 general instance); a kernel of
@@ -268,6 +286,7 @@ MAIN_LAYERS = 32               # depth of the main serving phase (full: 32)
 TRAIN_LAYERS = 8               # depth of the main training phase (of 32)
 TRAIN_T = 8192                 # its sequence: Llama-3's pretraining context
 TRAIN_WARMUP, TRAIN_STEPS = 2, 5
+RECIPE_LAYERS = 16             # depth of phase 7r (of 32): with recompute
 MOE_LAYERS = 16                # depth of the main MoE serving phase (of 32)
 MOE_TRAIN_LAYERS = 2           # depth of the main MoE training phase
 C1_LAYERS = 4                  # depth of the Qwen2-7B-width phase (of 28)
@@ -2112,7 +2131,7 @@ def attention_counters(cfg, T):
             for n in (fa.FWD, fa.FWD_LSE, fa.BWD_DQ, fa.BWD_DKV)}
 
 
-def train_launches(L, grad=True, moe=False, attn=None):
+def train_launches(L, grad=True, moe=False, attn=None, recompute=False):
     """Kernel launches of one training step (``grad``) or one forward
     without grad of an L-layer model: two RMSNorms a layer and the final
     one (forward only: their backward is plain PyTorch); RoPE on q and
@@ -2120,30 +2139,40 @@ def train_launches(L, grad=True, moe=False, attn=None):
     the counters ``attn`` names for them ({kernel: counter}; by default
     the kernels' own names: no general instance); with ``moe``, one
     dispatch and one combine a layer, and in the backward each again as
-    the other's gradient."""
+    the other's gradient.  With ``recompute`` (and grad) each layer's
+    forward runs again inside the backward, to its last op that saves a
+    tensor (down_proj, or a MoE layer's combine), so every forward
+    kernel of a layer launches twice: two more RMSNorms, two more RoPEs,
+    a second forward with LSE, and a second dispatch and combine; the
+    final norm is outside the layers and runs once.  A forward without
+    grad recomputes nothing."""
     from paddle_tpu_torch.kernels import flash_attention as fa
 
     a = {n: n for n in (fa.FWD, fa.FWD_LSE, fa.BWD_DQ, fa.BWD_DKV)}
     a.update(attn or {})
+    fwd = 1 + bool(grad and recompute)      # forwards of each layer
     if not grad:
         out = {"rms_norm": 2 * L + 1, "rope": 2 * L, a[fa.FWD]: L}
     else:
-        out = {"rms_norm": 2 * L + 1, "rope": 4 * L, a[fa.FWD_LSE]: L,
-               a[fa.BWD_DQ]: L, a[fa.BWD_DKV]: L}
+        out = {"rms_norm": 2 * fwd * L + 1, "rope": (2 * fwd + 2) * L,
+               a[fa.FWD_LSE]: fwd * L, a[fa.BWD_DQ]: L, a[fa.BWD_DKV]: L}
     if moe:
-        out.update(moe_dispatch=L * (1 + grad), moe_combine=L * (1 + grad))
+        n = (fwd + 1) * L if grad else L
+        out.update(moe_dispatch=n, moe_combine=n)
     return out
 
 
-def train_step(model, opt, tokens, marks=None):
+def train_step(model, opt, tokens, marks=None, keep_grads=False):
     """One step; ``marks``, two CUDA events, are recorded after the
-    backward and after the optimizer step."""
+    backward and after the optimizer step.  ``keep_grads`` leaves the
+    gradients on the parameters for the caller to read and clear."""
     loss, _ = model(tokens, labels=tokens)
     loss.backward()
     if marks:
         marks[0].record()
     opt.step()
-    opt.clear_grad()
+    if not keep_grads:
+        opt.clear_grad()
     if marks:
         marks[1].record()
     return float(loss.detach())
@@ -2187,6 +2216,96 @@ def phase_tiny_train(dev, cfg=None):
           f"{per_step}", flush=True)
     if not diff <= F32_TOL or not losses["cuda"][-1] < losses["cuda"][0]:
         raise AssertionError(f"tiny train: losses {losses}")
+
+
+# --------------------------------------------------------------- phase 5r
+# Llama 2's pretraining recipe (Touvron et al. 2023, section 2.2): AdamW
+# with beta2 0.95, epsilon 1e-5 and weight decay 0.1, a cosine schedule
+# after a warmup that decays to 10 % of the peak (WarmupCosine), and the
+# gradients clipped to a global norm of 1.0
+RECIPE = dict(beta1=0.9, beta2=0.95, epsilon=1e-5, weight_decay=0.1)
+RECIPE_SCHEDULE = dict(warmup_steps=2, total_steps=10, min_ratio=0.1)
+RECIPE_PEAK_LR = 3e-4
+RECIPE_CLIP = 1.0
+NORM_RTOL = 1e-3               # a step's clip norm against an f64 norm
+
+
+def recipe_optimizer(params, peak_lr=RECIPE_PEAK_LR, clip=RECIPE_CLIP):
+    """(AdamW over WarmupCosine with a global-norm clip, the schedule,
+    the clip): Llama 2's recipe (RECIPE, RECIPE_SCHEDULE)."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.lr import WarmupCosine
+
+    sched = WarmupCosine(peak_lr, **RECIPE_SCHEDULE)
+    clipper = ClipGradByGlobalNorm(clip)
+    return (AdamW(sched, parameters=params, grad_clip=clipper, **RECIPE),
+            sched, clipper)
+
+
+def f64_grad_norm(params):
+    """The global L2 norm of the parameters' gradients, summed in f64,
+    2^26 elements at a time (an f64 copy of Llama-3-8B's embedding
+    gradient alone would take 4.2 GB)."""
+    total = None
+    for p in params:
+        if p.grad is None:
+            continue
+        for piece in p.grad.reshape(-1).split(1 << 26):
+            s = piece.double().square().sum()
+            total = s if total is None else total + s
+    return float(total.sqrt())
+
+
+def phase_tiny_recipe(dev):
+    """Phase 5r: LlamaConfig.tiny with recompute, tied embeddings and the
+    fused loss, f32, the same seeded weights and batch on cpu (plain
+    versions) and on cuda (kernels): 5 steps of Llama 2's recipe
+    (``recipe_optimizer`` at a peak of 3e-3), whose clip scales every
+    step.  Losses within F32_TOL, each step's learning rate equal and
+    its global norm within F32_TOL relative, exact launch counts of a
+    recomputing step."""
+    from paddle_tpu_torch.kernels import launches
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.tiny(recompute=True, tie_word_embeddings=True,
+                           fused_lm_loss=True, lm_loss_chunk=32)
+    cpu_model = LlamaForCausalLM(cfg, device="cpu", seed=0)
+    cuda_model = LlamaForCausalLM(cfg, device=dev, seed=None)
+    cuda_model.load_state_dict(cpu_model.state_dict())
+    tokens = torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (2, 40)))
+    per_step = train_launches(cfg.num_hidden_layers, recompute=True)
+    runs = {}
+    for name, model in (("cpu", cpu_model), ("cuda", cuda_model)):
+        opt, sched, clip = recipe_optimizer(model.parameters(), 3e-3)
+        x = tokens.to(model.device)
+        losses, lrs, norms = [], [], []
+        for _ in range(5):
+            launches.reset()
+            lrs.append(opt.get_lr())
+            losses.append(train_step(model, opt, x))
+            norms.append(float(clip.last_global_norm))
+            counts = launches.snapshot()
+            want = per_step if name == "cuda" else {}
+            if counts != want:
+                raise AssertionError(f"tiny recipe on {name}: launches "
+                                     f"{counts} != {want}")
+            sched.step()
+        runs[name] = (losses, lrs, norms)
+    (closs, clr, cnorm), (gloss, glr, gnorm) = runs["cpu"], runs["cuda"]
+    diff = float(np.abs(np.subtract(gloss, closs)).max())
+    ndiff = max(abs(a - b) / b for a, b in zip(gnorm, cnorm))
+    print(f"[tiny recipe] f32, recompute, tied embeddings, fused loss; "
+          f"AdamW {RECIPE} over WarmupCosine(3e-3, {RECIPE_SCHEDULE}), "
+          f"ClipGradByGlobalNorm({RECIPE_CLIP}), 5 steps: cuda losses "
+          f"{[round(v, 6) for v in gloss]}, max |cuda - cpu| {diff:.2e} "
+          f"(tolerance {F32_TOL:.0e}); learning rates {glr}; global norms "
+          f"{[round(v, 4) for v in gnorm]}, max relative |cuda - cpu| "
+          f"{ndiff:.2e}; launches a step {per_step}", flush=True)
+    if not diff <= F32_TOL or glr != clr or not ndiff <= F32_TOL or \
+            not min(gnorm) > RECIPE_CLIP or not gloss[-1] < gloss[0]:
+        raise AssertionError(f"tiny recipe: {runs}")
 
 
 # --------------------------------------------------------------- phase 4c
@@ -3298,11 +3417,9 @@ def llama32_3b_config(**overrides):
     """Llama-3.2-3B's widths from its published config.json
     (meta-llama/Llama-3.2-3B): vocab 128256, hidden 3072, intermediate
     8192, 28 layers, 24 q / 8 kv heads (head_dim 128, GQA rep 3),
-    rope_theta 500000, rms_norm_eps 1e-5, max_position 131072.  Two
-    departures: its embeddings are tied and here they are not
-    (``tie_word_embeddings`` is not ported, ROADMAP A2; a tied and an
-    untied head compute the same product), and its llama3 rope scaling
-    is left out (neither package models it, as Phi-3's window)."""
+    rope_theta 500000, rms_norm_eps 1e-5, max_position 131072, tied
+    embeddings.  One departure: its llama3 rope scaling is left out
+    (neither package models it, as Phi-3's window)."""
     import dataclasses
 
     from paddle_tpu_torch.models import LlamaConfig
@@ -3311,7 +3428,7 @@ def llama32_3b_config(**overrides):
         vocab_size=128256, hidden_size=3072, intermediate_size=8192,
         num_hidden_layers=28, num_attention_heads=24, num_key_value_heads=8,
         max_position_embeddings=131072, rms_norm_eps=1e-5,
-        rope_theta=500000.0), **overrides)
+        rope_theta=500000.0, tie_word_embeddings=True), **overrides)
 
 
 def _merge(a, b, n=1):
@@ -4743,13 +4860,23 @@ def _families(rows):
 
 
 # ---------------------------------------------------------------- phase 7
-def phase_train(dev, cfg, T, tag, title, attn=None):
+# each training phase's numbers by its tag (phase 7r sets its memory
+# beside phase 7's)
+TRAIN_OUT = {}
+
+
+def phase_train(dev, cfg, T, tag, title, attn=None, recipe=False):
     """The training path of ``cfg`` (bf16, fused loss), one [1, T] batch
-    with labels = tokens, AdamW(1e-4) with its defaults; every step and
-    the eval forward launch exactly ``train_launches`` (``attn``: the
-    attention's counters, by default no general instance).  Returns the
-    launch counts of the whole phase.  A MoE model's MFU counts its
-    active parameters: the experts' weights K / E of them."""
+    with labels = tokens, AdamW(1e-4) with its defaults, or with
+    ``recipe`` Llama 2's (``recipe_optimizer``: each step's learning
+    rate and clip norm printed, the norm held to an f64 norm of the same
+    gradients within NORM_RTOL); every step and the eval forward launch
+    exactly ``train_launches`` (``attn``: the attention's counters, by
+    default no general instance; a ``recompute`` config's steps
+    recompute every layer).  Returns the launch counts of the whole
+    phase.  A MoE model's MFU counts its active parameters: the experts'
+    weights K / E of them; the recomputed forward is not model work, and
+    its share is printed beside."""
     from paddle_tpu_torch.kernels import launches
     from paddle_tpu_torch.models import LlamaForCausalLM
     from paddle_tpu_torch.optimizer import AdamW
@@ -4758,25 +4885,51 @@ def phase_train(dev, cfg, T, tag, title, attn=None):
     L, V, E = cfg.num_hidden_layers, cfg.vocab_size, cfg.moe_num_experts
     t0 = time.perf_counter()
     model = LlamaForCausalLM(cfg, device=dev, seed=0)
-    opt = AdamW(1e-4, parameters=model.parameters())
+    if recipe:
+        opt, sched, clip = recipe_optimizer(model.parameters())
+    else:
+        opt = AdamW(1e-4, parameters=model.parameters())
     n_params = sum(p.numel() for p in model.parameters())
     experts = sum(p.numel() for n, p in model.named_parameters()
                   if n.endswith(("w_gate", "w_up", "w_down")))
     n_active = n_params - (experts * (E - cfg.moe_top_k) // E if E else 0)
+    layer_active = sum(p.numel() for p in model.model.layers.parameters()) \
+        - (experts * (E - cfg.moe_top_k) // E if E else 0)
     tokens = torch.from_numpy(np.random.RandomState(0).randint(
         0, V, (1, T))).to(dev)
     torch.cuda.synchronize()
+    how = (f"recompute, AdamW {RECIPE} over WarmupCosine({RECIPE_PEAK_LR}, "
+           f"{RECIPE_SCHEDULE}), ClipGradByGlobalNorm({RECIPE_CLIP})"
+           if recipe else "AdamW(1e-4)")
     print(f"[{tag}] {title}, bf16, {L} of 32 layers, {n_params / 1e9:.3f} B "
           f"parameters ({n_active / 1e9:.3f} B active), random weights "
-          f"(seed 0) in {time.perf_counter() - t0:.1f} s; batch [1, {T}]",
-          flush=True)
-    per_step = train_launches(L, moe=E > 0, attn=attn)
+          f"(seed 0) in {time.perf_counter() - t0:.1f} s; batch [1, {T}]; "
+          f"{how}", flush=True)
+    per_step = train_launches(L, moe=E > 0, attn=attn,
+                              recompute=cfg.recompute)
     per_eval = train_launches(L, grad=False, moe=E > 0, attn=attn)
     marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    schedule = []
 
     def step():
         marks[0].record()
-        return train_step(model, opt, tokens, marks[1:])
+        return train_step(model, opt, tokens, marks[1:], keep_grads=recipe)
+
+    def after_step(i):
+        """The recipe's step ``i``: its learning rate and clip norm, the
+        norm against f64, then the schedule advanced and the gradients
+        cleared."""
+        lr, norm = opt.get_lr(), float(clip.last_global_norm)
+        ref = f64_grad_norm(model.parameters())
+        schedule.append(dict(lr=lr, global_norm=norm, f64_norm=ref))
+        print(f"  step {i}: learning rate {lr:.6g}, global gradient norm "
+              f"{norm:.6f} (f64 {ref:.6f}, relative difference "
+              f"{abs(norm - ref) / ref:.2e})", flush=True)
+        if not abs(norm - ref) <= NORM_RTOL * ref:
+            raise AssertionError(f"{tag} step {i}: clip norm {norm} against "
+                                 f"f64 {ref}")
+        sched.step()
+        opt.clear_grad()
 
     def counted(fn, want, what):
         before = launches.snapshot()
@@ -4798,8 +4951,12 @@ def phase_train(dev, cfg, T, tag, title, attn=None):
             step_ms.append((time.perf_counter() - t0) * 1e3)
             fwd_bwd_ms.append(marks[0].elapsed_time(marks[1]))
             opt_ms.append(marks[1].elapsed_time(marks[2]))
+        if recipe:
+            after_step(i)
     dev_ms, rows = counted(lambda: _profile_once(step, ()), per_step,
                            "profiled train step")
+    if recipe:
+        after_step(len(losses))
     with torch.no_grad():
         eval_loss = counted(lambda: float(model(tokens, labels=tokens)[0]),
                             per_eval, "eval forward")
@@ -4819,22 +4976,44 @@ def phase_train(dev, cfg, T, tag, title, attn=None):
     mean_ms = float(np.mean(step_ms))
     tok_s = T / mean_ms * 1e3
     flops_per_token = 6.0 * n_active + 12.0 * L * cfg.hidden_size * T
+    # the recomputed forward of every layer: its products and attention
+    recomputed = (2.0 * layer_active + 4.0 * L * cfg.hidden_size * T) \
+        if cfg.recompute else 0.0
+    state_gb = 12 * n_params / 1e9      # bf16 weight and grad, f32 moments
     out = dict(step_ms=step_ms, mean_step_ms=mean_ms, tokens_per_s=tok_s,
                fwd_bwd_ms=float(np.mean(fwd_bwd_ms)),
                adamw_ms=float(np.mean(opt_ms)),
                mfu=tok_s * flops_per_token / BF16_FLOPS,
-               flops_per_token=flops_per_token, n_params=n_params,
+               mfu_with_recompute=tok_s * (flops_per_token + recomputed)
+               / BF16_FLOPS,
+               flops_per_token=flops_per_token,
+               recomputed_flops_per_token=recomputed, n_params=n_params,
                n_active_params=n_active,
-               first_loss=losses[0], last_loss=losses[-1],
+               first_loss=losses[0], last_loss=losses[-1], losses=losses,
                eval_loss=eval_loss, peak_mem_gb=peak_gb,
-               step_device_ms=dev_ms, layers=L, tokens=T)
+               state_gb=state_gb, peak_less_state_gb=peak_gb - state_gb,
+               step_device_ms=dev_ms, layers=L, tokens=T,
+               recompute=cfg.recompute, schedule=schedule)
+    TRAIN_OUT[tag] = out
     busy = f"busy {dev_ms / mean_ms:.1%}" if dev_ms else "not measured"
+    extra = (f" ({out['mfu_with_recompute']:.1%} with the recomputed "
+             f"forward counted)" if cfg.recompute else "")
     print(f"  step {mean_ms:.1f} ms on the host's clock (mean of "
-          f"{TRAIN_STEPS}), {tok_s:.0f} tokens/s, MFU {out['mfu']:.1%}; "
-          f"forward+backward {out['fwd_bwd_ms']:.1f} ms and AdamW "
+          f"{TRAIN_STEPS}), {tok_s:.0f} tokens/s, MFU {out['mfu']:.1%}"
+          f"{extra}; forward+backward {out['fwd_bwd_ms']:.1f} ms and AdamW "
           f"{out['adamw_ms']:.1f} ms on the device's clock; "
           f"one step's kernels {dev_ms:.1f} ms on the device ({busy}); "
-          f"peak memory {peak_gb:.1f} GB", flush=True)
+          f"peak memory {peak_gb:.1f} GB, of which {state_gb:.1f} GB are "
+          f"the 12 bytes a parameter of weights, gradients and moments, "
+          f"{peak_gb - state_gb:.1f} GB the rest", flush=True)
+    if recipe and "train" in TRAIN_OUT:
+        base = TRAIN_OUT["train"]
+        print(f"  beside phase 7 ({base['layers']} layers, no recompute): "
+              f"peak {base['peak_mem_gb']:.1f} GB, state "
+              f"{base['state_gb']:.1f} GB, the rest "
+              f"{base['peak_less_state_gb']:.1f} GB; step "
+              f"{base['mean_step_ms']:.1f} ms, AdamW {base['adamw_ms']:.1f} "
+              f"ms", flush=True)
     print("  by family:")
     for name, (ms, count) in _families(rows).items():
         print(f"    {ms:8.3f} ms  {count:5d}x  {name}")
@@ -5241,6 +5420,7 @@ def main() -> int:
     launches.reset()
     phase_tiny(dev)
     phase_tiny_train(dev)
+    phase_tiny_recipe(dev)
     phase_tiny_moe(dev)
     c1_tiny_counts = phase_tiny_c1(dev)
     phase_tiny_static(dev)
@@ -5257,6 +5437,13 @@ def main() -> int:
     train_counts = phase_train(dev, LlamaConfig.llama3_8b(
         num_hidden_layers=TRAIN_LAYERS, fused_lm_loss=True), TRAIN_T,
         "train", "Llama-3-8B width")
+    free()
+    recipe_counts = phase_train(dev, LlamaConfig.llama3_8b(
+        num_hidden_layers=RECIPE_LAYERS, recompute=True, fused_lm_loss=True),
+        TRAIN_T, "train recipe", "Llama-3-8B width", recipe=True)
+    if any("_general" in k for k in recipe_counts):
+        raise AssertionError(f"train recipe: a general instance launched: "
+                             f"{recipe_counts}")
     free()
     phi3_counts = phase_train_phi3(dev)
     free()

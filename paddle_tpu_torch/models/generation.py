@@ -84,7 +84,7 @@ def make_chunked_prefill_step(model, kv_cache_dtype=None, pool=None,
     last_index) -> logits [1, V] f32`` of the chunk's last REAL token
     (``last_index``, an int or a one-element int tensor); positions past
     it are padding, written to the garbage block and never returned.
-    Only that token's row goes through the final norm and ``lm_head``.
+    Only that token's row goes through the final norm and the head.
     ``start`` and ``last_index`` are data, as the reference traces them,
     so every chunk of every prompt replays ONE graph.
     ``kv_cache_dtype``, ``pool`` and ``fused`` as in

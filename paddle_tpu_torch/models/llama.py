@@ -24,7 +24,10 @@ The port of ``paddle_tpu/models/llama.py`` in two modes.
   ``labels`` the next-token loss, chunked over tokens under
   ``fused_lm_loss`` so the [tokens, vocab] logits never exist whole.
   Every kernel there is differentiable (``torch.autograd.Function``s
-  whose backward runs the backward kernels).
+  whose backward runs the backward kernels).  Under ``recompute`` each
+  decoder layer runs through ``distributed.recompute`` while grad is
+  on: its activations are dropped and its forward kernels run again in
+  the backward (the JAX model's per-layer ``jax.checkpoint``).
 - Mixture of experts (``moe_num_experts > 0``): each layer's MLP is
   :class:`LlamaMoEMLP`, top-k routing through ``kernels.moe_dispatch``.
   In serving, such a layer folds its input RMSNorm into its q/k/v as a
@@ -34,7 +37,10 @@ The port of ``paddle_tpu/models/llama.py`` in two modes.
   dispatch reads the normalized rows.
 The final norm is ``kernels.rms_norm``.  The embedding, the
 projections that no kernel fuses and ``lm_head`` are plain matrix
-products, as the JAX package leaves them to XLA.
+products, as the JAX package leaves them to XLA.  Under
+``tie_word_embeddings`` there is no ``lm_head``: the logits are the
+rows times the embedding table [V, hidden] transposed, and the
+embedding's gradient sums the lookup's and the head's.
 
 Weights use Paddle's layout: every linear weight is [in, out].  The
 RoPE tables are kept in the model's dtype, as the JAX model's
@@ -54,6 +60,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device, tf32_if_exact
+from ..distributed.recompute import recompute
 from ..kernels.chunked_prefill import chunked_attention
 from ..kernels.flash_attention import flash_attention_bthd
 from ..kernels.fused_norm_linear import fused_norm_linear_group, rms_scale
@@ -86,11 +93,13 @@ class LlamaConfig:
     moe_num_experts: int = 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 2.0
+    # the head is the embedding table (no lm_head)
+    tie_word_embeddings: bool = False
+    # each decoder layer recomputed in the backward (training only)
+    recompute: bool = False
     # options of the JAX model that the port does not have yet: anything
     # but these values raises NotImplementedError
-    tie_word_embeddings: bool = False
     sequence_parallel: bool = False
-    recompute: bool = False
     context_parallel: str = ""
     dtype: str = "bfloat16"
 
@@ -442,13 +451,21 @@ class LlamaModel(nn.Module):
     def forward(self, input_ids, caches=None, positions=None,
                 write_mask=None, last_index=None):
         """Hidden states after the final norm; without ``caches`` the
-        no-cache (training) forward from position 0.  ``last_index`` (an
+        no-cache (training) forward from position 0, each layer under
+        :func:`recompute` when the config asks for it and grad is on
+        (a no-grad forward, such as an eval, runs the layers as they
+        are).  ``last_index`` (an
         int, or an int tensor of one element on the model's device, as
         a captured step passes it) keeps only that token's row before
         the norm (the norm is per row, so the result is the same row the
         full forward would give)."""
         hidden = self.embed_tokens(input_ids)
         if caches is None:
+            if self.config.recompute and torch.is_grad_enabled():
+                for layer in self.layers:
+                    hidden = recompute(layer, hidden, self.rope_cos,
+                                       self.rope_sin)
+                return self.norm(hidden)
             caches = [None] * len(self.layers)
         for layer, cache in zip(self.layers, caches):
             hidden = layer(hidden, self.rope_cos, self.rope_sin, cache,
@@ -500,14 +517,15 @@ class _F32Logits(torch.autograd.Function):
 
 def _chunk_nll(h, w, labels):
     """Summed NLL of one token chunk: h [n, hidden] against the f32
-    lm_head weight w [hidden, V]; labels -1 are padding."""
+    head weight w [hidden, V] (a transposed view when tied); labels -1
+    are padding."""
     logits = _F32Logits.apply(h, w)
     lse = torch.logsumexp(logits, dim=-1)
     picked = logits.gather(-1, labels.clamp(min=0)[:, None])[:, 0]
     return ((lse - picked) * (labels >= 0).float()).sum()
 
 
-def fused_causal_lm_loss(hidden, w, labels, chunk):
+def fused_causal_lm_loss(hidden, w, labels, chunk, w_is_vocab_major=False):
     """The JAX ``_fused_causal_lm_loss``: next-token NLL computed
     ``chunk`` tokens at a time, each chunk's logits recomputed in the
     backward (``torch.utils.checkpoint`` in place of ``jax.checkpoint``)
@@ -517,7 +535,10 @@ def fused_causal_lm_loss(hidden, w, labels, chunk):
     The logits are f32 from the model-dtype operands (:class:`_F32Logits`):
     the hidden rows and an f32 copy of the weight (made once, its
     gradient summed over the chunks in f32) go through an f32 matrix
-    product, in TF32 on the card when the rows are bf16."""
+    product, in TF32 on the card when the rows are bf16.  ``w`` is
+    [hidden, V], or with ``w_is_vocab_major`` the tied embedding table
+    [V, hidden], whose f32 copy the products read through a transposed
+    view (no second copy of the table)."""
     h = hidden[:, :-1]
     lab = labels[:, 1:].long()
     B, T, H = h.shape
@@ -530,7 +551,7 @@ def fused_causal_lm_loss(hidden, w, labels, chunk):
     if pad:
         hf = F.pad(hf, (0, 0, 0, pad))
         labf = F.pad(labf, (0, pad), value=-1)
-    wf = w.float()
+    wf = w.float().t() if w_is_vocab_major else w.float()
     total = hidden.new_zeros((), dtype=torch.float32)
     for c in range(n_chunks):
         rows = slice(c * csize, (c + 1) * csize)
@@ -541,17 +562,18 @@ def fused_causal_lm_loss(hidden, w, labels, chunk):
 
 # options of the JAX LlamaConfig the port does not have yet, with the one
 # value each may take
-UNPORTED_OPTIONS = {"tie_word_embeddings": False, "sequence_parallel": False,
-                    "recompute": False, "context_parallel": ""}
+UNPORTED_OPTIONS = {"sequence_parallel": False, "context_parallel": ""}
 
 
 class LlamaForCausalLM(nn.Module):
     """Llama causal LM on ``device`` (default ``cuda``; raises without a
     GPU unless ``device="cpu"``).  Weights are random from ``seed``
     (normal, std 1/sqrt(fan_in) for projections, the router and the
-    expert stacks, 1 for the embedding, ones for the norms); ``seed=None`` leaves them uninitialized for a
-    loader such as ``convert.from_jax_state_dict`` to fill.  Every
-    parameter is trainable."""
+    expert stacks, 1 for the embedding, ones for the norms), drawn in
+    the order of the modules, ``lm_head`` last (a tied model has none);
+    ``seed=None`` leaves them uninitialized for a loader such as
+    ``convert.from_jax_state_dict`` to fill.  Every parameter is
+    trainable."""
 
     def __init__(self, config: LlamaConfig, device=None,
                  seed: Optional[int] = 0):
@@ -585,7 +607,16 @@ class LlamaForCausalLM(nn.Module):
 
         with torch.no_grad():
             self.model = LlamaModel(config, make, make_norm, make_embed)
-            self.lm_head = Linear(make(config.hidden_size, config.vocab_size))
+            if not config.tie_word_embeddings:
+                self.lm_head = Linear(make(config.hidden_size,
+                                           config.vocab_size))
+
+    def logits(self, hidden):
+        """The head: ``hidden @ lm_head.weight``, or tied ``hidden @
+        embed_tokens.weight.t()``, in the model's dtype."""
+        if self.config.tie_word_embeddings:
+            return hidden @ self.model.embed_tokens.weight.t()
+        return self.lm_head(hidden)
 
     def forward(self, input_ids, caches=None, positions=None,
                 write_mask=None, last_index=None, labels=None):
@@ -600,9 +631,12 @@ class LlamaForCausalLM(nn.Module):
         hidden = self.model(input_ids, caches, positions, write_mask,
                             last_index)
         if labels is None:
-            return self.lm_head(hidden)
+            return self.logits(hidden)
         if self.config.fused_lm_loss:
-            return fused_causal_lm_loss(hidden, self.lm_head.weight, labels,
-                                        self.config.lm_loss_chunk), None
-        logits = self.lm_head(hidden)
+            tied = self.config.tie_word_embeddings
+            w = self.model.embed_tokens.weight if tied else self.lm_head.weight
+            return fused_causal_lm_loss(hidden, w, labels,
+                                        self.config.lm_loss_chunk,
+                                        w_is_vocab_major=tied), None
+        logits = self.logits(hidden)
         return causal_lm_loss(logits, labels), logits

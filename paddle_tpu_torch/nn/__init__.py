@@ -1,10 +1,13 @@
 """The port's neural-network layers (``paddle_tpu/nn``): the functionals
-and modules BERT needs, each functional one op to the static recorder."""
-from . import functional
+and modules BERT needs, each functional one op to the static recorder,
+and gradient clipping (``clip``)."""
+from . import clip, functional
+from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
 from .layer import Dropout, Embedding, LayerNorm, Linear
 from .transformer import (MultiHeadAttention, TransformerEncoder,
                           TransformerEncoderLayer)
 
-__all__ = ["Dropout", "Embedding", "LayerNorm", "Linear",
+__all__ = ["ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue",
+           "Dropout", "Embedding", "LayerNorm", "Linear",
            "MultiHeadAttention", "TransformerEncoder",
-           "TransformerEncoderLayer", "functional"]
+           "TransformerEncoderLayer", "clip", "functional"]

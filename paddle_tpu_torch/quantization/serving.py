@@ -5,7 +5,10 @@ model's layers hand their raw ``weight`` tensors to the fused kernels
 (``fused_norm_linear``) and to plain products, so there is no per-layer
 forward to swap: :func:`quantize_model_weights` quantizes every
 :class:`~paddle_tpu_torch.models.llama.Linear` weight IN PLACE, lm_head
-included, and keeps the model as it is otherwise:
+included, and keeps the model as it is otherwise.  A model with tied
+embeddings has no lm_head: its head is the embedding table, which stays
+in full precision, as the JAX package quantizes only its ``Linear``
+layer types and leaves embedding tables alone:
 
 * the per-output-channel absmax codes and f32 scales become buffers of
   the layer (``weight_int8`` [in, out] int8, ``weight_scale`` [1, out]

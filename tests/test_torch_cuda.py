@@ -36,7 +36,11 @@ bit-identical to the plain version in every form
 (``TestCudaStepLaunches``); the engine's three steps as CUDA graph
 replays bit-identical to their eager functions, out and in the pools,
 with the same launches counted, and a rebound pool a retrace
-(``TestCudaGraphSteps``).
+(``TestCudaGraphSteps``); per-layer recompute's gradients bit-equal to
+none with every forward kernel of a layer launched twice, a CUDA
+generator's dropout replayed, and each optimizer's 4 steps under a
+schedule and a clip against the CPU's (f32 within 2^-22 of the largest
+entry, bf16 one ulp: ``TestCudaRecipe``).
 The Llama-3-8B, Mixtral, Qwen2-7B-width and BERT-base shapes are held
 in chip_smoke.py.
 """
@@ -2597,3 +2601,108 @@ class TestCudaUnfused:
                           kv_quant.KERNEL: L * steps}
         for a, b in zip(*outs):
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+class TestCudaRecipe:
+    """The training recipe on the card: per-layer recompute replays the
+    kernels' autograd Functions inside the backward (their state is in
+    ``ctx`` alone), so the gradients equal those without recompute bit
+    for bit, with every forward kernel of a layer launched twice; a
+    CUDA generator's dropout masks replay under recompute; the update
+    rules and the global-norm clip agree with the CPU's (f32 within
+    2^-22 of the largest entry, the CPU's square root not being always
+    correctly rounded; bf16 parameters within one ulp)."""
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("moe", [False, True])
+    def test_recompute_gradients_bit_equal(self, cuda_device, dtype, moe):
+        from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+        extra = dict(moe_num_experts=4, moe_top_k=2,
+                     moe_capacity_factor=2.0) if moe else {}
+        tokens = torch.from_numpy(np.random.RandomState(0).randint(
+            0, 256, (2, 40))).to(cuda_device)
+        out, L = [], 2
+        for rc in (False, True):
+            cfg = LlamaConfig.tiny(recompute=rc, dtype=dtype,
+                                   fused_lm_loss=True, lm_loss_chunk=32,
+                                   **extra)
+            model = LlamaForCausalLM(cfg, device=cuda_device, seed=3)
+            launches.reset()
+            loss, _ = model(tokens, labels=tokens)
+            loss.backward()
+            torch.cuda.synchronize()
+            fwd = 2 if rc else 1
+            want = {"rms_norm": 2 * fwd * L + 1, "rope": (2 * fwd + 2) * L,
+                    fa.FWD_LSE: fwd * L, fa.BWD_DQ: L, fa.BWD_DKV: L}
+            if moe:
+                want.update(moe_dispatch=(fwd + 1) * L,
+                            moe_combine=(fwd + 1) * L)
+            assert launches.snapshot() == want
+            out.append((loss.detach().cpu(),
+                        {n: p.grad.cpu() for n, p in
+                         model.named_parameters()}))
+        assert torch.equal(out[0][0], out[1][0])
+        for name, g in out[0][1].items():
+            assert torch.equal(g, out[1][1][name]), name
+
+    def test_cuda_generator_replays_dropout(self, cuda_device):
+        from paddle_tpu_torch.distributed import recompute
+        from paddle_tpu_torch.nn import functional as TF
+
+        gen = torch.Generator(device=cuda_device).manual_seed(5)
+        lin = torch.nn.Linear(64, 64).to(cuda_device)
+        x0 = torch.randn(32, 64, device=cuda_device)
+
+        def f(x):
+            return TF.dropout(lin(x), 0.5, True, gen).tanh()
+
+        start = gen.get_state()
+        out = []
+        for fn in (f, lambda x: recompute(f, x)):
+            gen.set_state(start)
+            lin.zero_grad()
+            x = x0.clone().requires_grad_()
+            fn(x).square().sum().backward()
+            out.append((x.grad, lin.weight.grad.clone(), gen.get_state()))
+        for a, b in zip(*out):
+            assert torch.equal(a, b)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("name", ["SGD", "Momentum", "Adam", "AdamW",
+                                      "Adagrad", "Adadelta", "RMSProp",
+                                      "Adamax", "Lamb", "LarsMomentum"])
+    def test_optimizers_match_cpu(self, cuda_device, name, dtype):
+        from paddle_tpu_torch import nn as tnn
+        from paddle_tpu_torch import optimizer as topt
+        from paddle_tpu_torch.optimizer import lr as tlr
+
+        rng = np.random.RandomState(1)
+        init = [(rng.randn(*s) * 0.1).astype(np.float32)
+                for s in ((96, 64), (64,), (64, 32))]
+        grads = [[(rng.randn(*a.shape) * 0.01).astype(np.float32)
+                  for a in init] for _ in range(4)]
+        kw = {"LarsMomentum": dict(lars_coeff=0.01, epsilon=1e-8),
+              "RMSProp": dict(momentum=0.5, centered=True)}.get(name, {})
+        out = []
+        for dev in ("cpu", cuda_device):
+            params = [torch.nn.Parameter(t(a).to(dev, dtype))
+                      for a in init]
+            opt = getattr(topt, name)(
+                tlr.StepDecay(0.01, step_size=2, gamma=0.5),
+                parameters=params, grad_clip=tnn.ClipGradByGlobalNorm(0.02),
+                **kw)
+            for step in grads:
+                for p, g in zip(params, step):
+                    p.grad = t(g).to(dev, dtype)
+                opt.step()
+                opt._learning_rate.step()
+            out.append([p.detach().cpu().float() for p in params])
+        for c, g in zip(*out):
+            if dtype == torch.bfloat16:
+                mag = torch.maximum(c.abs(), g.abs()).clamp_min(1e-30)
+                ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+                assert bool(((c - g).abs() <= ulp).all())
+            else:
+                close(g, c, 2.0 ** -22 * float(c.abs().max()))

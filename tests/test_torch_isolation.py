@@ -1,11 +1,13 @@
 """Guards of the PyTorch port (paddle_tpu_torch).
 
 - importing the package and every module in it (the static-graph
-  frontend ``static``, the ``nn`` layers, the CUDA-graph steps of
-  ``jit``, the compile accounting and metrics registry of
-  ``observability``, the fault plan of ``resilience``, the fleet router
-  and trace replay of ``serving`` and the ``inference`` front door
-  included; they are copies, not imports) loads no ``jax*``
+  frontend ``static``, the ``nn`` layers and gradient clipping, the
+  optimizers and learning-rate schedulers of ``optimizer``, the
+  recomputation of ``distributed``, the CUDA-graph steps of ``jit``,
+  the compile accounting and metrics registry of ``observability``, the
+  fault plan of ``resilience``, the fleet router and trace replay of
+  ``serving`` and the ``inference`` front door included; they are
+  copies, not imports) loads no ``jax*``
   module and nothing of the JAX package (``paddle_tpu`` /
   ``paddle_tpu.*``), and no source file names one;
 - its entry points run on ``cuda`` unless told otherwise, and raise
@@ -47,7 +49,7 @@ print(json.dumps({"bad": bad, "ours": sorted(
     n for n in sys.modules if n.startswith("paddle_tpu_torch"))}))
 """
 # the subpackages the walk must reach (each with at least one module)
-SUBPACKAGES = ("inference", "jit", "kernels", "models", "nn",
+SUBPACKAGES = ("distributed", "inference", "jit", "kernels", "models", "nn",
                "observability", "optimizer", "quantization", "resilience",
                "serving", "static")
 

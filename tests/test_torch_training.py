@@ -145,8 +145,7 @@ class TestTrainingPath:
             model(x, caches=[], positions=x[:, 0], labels=x)
 
     @pytest.mark.parametrize("option,value", [
-        ("tie_word_embeddings", True), ("sequence_parallel", True),
-        ("recompute", True), ("context_parallel", "ring")])
+        ("sequence_parallel", True), ("context_parallel", "ring")])
     def test_unported_config_options_raise(self, option, value):
         with pytest.raises(NotImplementedError, match=option):
             LlamaForCausalLM(LlamaConfig.tiny(**{option: value}),
