@@ -39,6 +39,16 @@ Phases, each of which must pass (nothing is caught):
      which scales every step): losses within the f32 tolerance, each
      step's learning rate equal and its global norm within it, exact
      launch counts of a step that recomputes every layer;
+  5h. tiny training through hapi.Model.fit: LlamaConfig.tiny in f32,
+     the same weights on cuda and on cpu, one epoch of 8 batches [2, 32]
+     under AdamW(1e-3), CrossEntropyLoss and Accuracy: each step's loss,
+     evaluate and predict within the f32 tolerance, exact launch counts
+     a step and an eval forward; on cuda, two uninterrupted fits equal
+     bit for bit (printed), a fit killed by FaultPlan(kill_at_step=5)
+     and a fresh model resumed through resilience.ResilienceCallback to
+     the uninterrupted weights bit for bit, a NaN batch skipped and
+     rolled back, a crash mid-save leaving checkpoint 1, and a
+     bit-flipped newest checkpoint skipped by the next resume;
   6. main serving: Llama-3-8B width in bf16 (random weights from a seed)
      behind serving.Engine: 8 requests, prompts of 128..1024 tokens, two
      of them sharing a 512-token prefix, 32 new tokens each; then the
@@ -141,6 +151,15 @@ Phases, each of which must pass (nothing is caught):
      the same gradients; the peak memory less the 12 bytes a parameter
      of state, beside phase 7's; MFU, and its share with the recomputed
      forward counted; falling losses and exact launch counts.
+  7h. training through hapi.Model.fit at Llama-3-8B width: 8 of its
+     32 layers, bf16, the logits path (the network's logits into a
+     separate CrossEntropyLoss), AdamW(1e-4), Accuracy, one epoch of one
+     random [1, 4096] batch 6 times with the metrics registry on: the
+     StepTimer's steps/s, tokens/s and data / device split, the host
+     step and MFU, the peak memory less the state; evaluate on 2
+     batches, predict on 1; exact launch counts a step and an eval
+     forward; falling losses; then phase 7's fused-loss loop on the same
+     model beside it.
 Mixture of experts (Mixtral-8x7B's shape, mixtral_config):
   2m. MoE kernels: dispatch and combine against their plain versions at
      hidden 4096, 8 experts, top-2, bf16, at a decode step's, a prefill
@@ -238,8 +257,9 @@ The sampler (serving/sampling.py: torch ops, no kernel of its own):
      lanes of temperature, top-k and top-p each on and off, at 64 token
      counters of seeded keys: the tokens on the card equal the CPU's,
      one for one (on a mismatch the perturbed top-2 margin is printed).
-The launch counts of phases 4c, 5r, 6, 6s, 6o, 6sp, 6r, 6u, 6c, 6p, 7,
-7r, 7c, 6m, 7m and 7s, reset just before each run and read just after it, show
+The launch counts of phases 4c, 5r, 5h, 6, 6s, 6o, 6sp, 6r, 6u, 6c, 6p,
+7, 7r, 7h, 7c, 6m, 7m and 7s, reset just before each run and read just
+after it, show
 that each path went through every kernel of its own (and the
 Llama-3-8B, Mixtral, Qwen2-7B, Phi-3-mini and BERT phases through no
 general instance); a kernel of
@@ -271,6 +291,7 @@ import hashlib
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -2306,6 +2327,239 @@ def phase_tiny_recipe(dev):
     if not diff <= F32_TOL or glr != clr or not ndiff <= F32_TOL or \
             not min(gnorm) > RECIPE_CLIP or not gloss[-1] < gloss[0]:
         raise AssertionError(f"tiny recipe: {runs}")
+
+
+# --------------------------------------------------------------- phase 5h
+HAPI_BATCHES, HAPI_B, HAPI_T = 8, 2, 33   # phase 5h's epoch: batches of
+                                          # [2, 33] token rows
+HAPI_KILL = 5                  # the step phase 5h's killed fit dies at
+SAVE_CALLS = 4                 # FaultPlan's on_save calls a checkpoint of
+                               # the callback makes: its model, optimizer
+                               # and meta files, then the commit
+
+
+def _delta(before, after):
+    return {k: n - before.get(k, 0) for k, n in after.items()
+            if n != before.get(k, 0)}
+
+
+def hapi_recorder(want, what):
+    """A hapi Callback that holds the kernel launches of every executed
+    train batch to ``want`` and records its loss and host-clock ms (the
+    batch ends with the loss on the host, so the span holds the step's
+    device time)."""
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    from paddle_tpu_torch.kernels import launches
+
+    class Recorder(Callback):
+        def __init__(self):
+            super().__init__()
+            self.losses, self.ms = [], []
+
+        def on_train_batch_begin(self, step, logs=None):
+            self.before = launches.snapshot()
+            self.t0 = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            self.ms.append((time.perf_counter() - self.t0) * 1e3)
+            got = _delta(self.before, launches.snapshot())
+            if got != want:
+                raise AssertionError(f"{what} {step}: launches {got} != "
+                                     f"{want}")
+            self.losses.append(logs["loss"])
+
+    return Recorder()
+
+
+def counted_call(fn, want, what):
+    """``fn()``, whose kernel launches must be ``want``."""
+    from paddle_tpu_torch.kernels import launches
+
+    before = launches.snapshot()
+    out = fn()
+    got = _delta(before, launches.snapshot())
+    if got != want:
+        raise AssertionError(f"{what}: launches {got} != {want}")
+    return out
+
+
+def phase_tiny_hapi(dev):
+    """Phase 5h: ``Model.fit`` on LlamaConfig.tiny in f32, the same
+    seeded weights on cuda (kernels) and on cpu (plain versions), one
+    epoch of HAPI_BATCHES batches (ids[:, :-1], ids[:, 1:]) under AdamW
+    (1e-3), CrossEntropyLoss and Accuracy: each step's loss within
+    F32_TOL, exact launches a step (train_launches) and an eval forward,
+    ``evaluate`` and ``predict`` the same.  Then on cuda, through
+    resilience.ResilienceCallback (save_every=1): two uninterrupted fits
+    compared bit for bit (printed); a fit killed at step HAPI_KILL and a
+    fresh model resumed from its checkpoints to the end of the epoch, its
+    weights bit-identical to the uninterrupted fit's; a NaN batch (soft
+    labels poisoned by FaultPlan.poison_batch) skipped and rolled back;
+    a crash in the second checkpoint's optimizer write leaving
+    checkpoint 1 readable; the newest checkpoint bit-flipped, skipped by
+    the next resume."""
+    import tempfile
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.resilience import (ChaosError, FaultPlan,
+                                             ResilienceCallback,
+                                             ResilientCheckpointer,
+                                             SimulatedPreemption, chaos)
+
+    cfg = LlamaConfig.tiny()
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    ids = np.random.RandomState(1).randint(0, V, (HAPI_BATCHES, HAPI_B,
+                                                  HAPI_T))
+    data = [(x[:, :-1], x[:, 1:]) for x in ids]
+    init = LlamaForCausalLM(cfg, device="cpu", seed=0).state_dict()
+
+    def make(device, soft=False):
+        net = LlamaForCausalLM(cfg, device=device, seed=None)
+        net.load_state_dict(init)
+        m = pt.Model(net)
+        m.prepare(pt.optimizer.AdamW(1e-3, parameters=net.parameters()),
+                  pt.nn.CrossEntropyLoss(soft_label=soft),
+                  pt.metric.Accuracy())
+        return m
+
+    def fit(m, what, callbacks=(), loader=data):
+        want = per_step if m._device().type == "cuda" else {}
+        rec = hapi_recorder(want, what)
+        m.fit(loader, epochs=1, verbose=0, callbacks=[rec, *callbacks])
+        return rec.losses
+
+    def weights(m):
+        return [p.detach().clone() for p in m.network.parameters()]
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    per_step = train_launches(L)
+    per_eval = train_launches(L, grad=False)
+    runs = {}
+    for name, device in (("cpu", "cpu"), ("cuda", dev)):
+        m = make(device)
+        losses = fit(m, f"5h fit on {name}, step")
+        on_card = torch.device(device).type == "cuda"
+        ev = counted_call(lambda: m.evaluate(data[:2], verbose=0),
+                          {k: 2 * v for k, v in per_eval.items()}
+                          if on_card else {}, f"5h evaluate on {name}")
+        pred = counted_call(lambda: m.predict(data[:1])[0][0],
+                            per_eval if on_card else {},
+                            f"5h predict on {name}")
+        runs[name] = (losses, ev, pred, weights(m))
+    (closs, cev, cpred, _), (gloss, gev, gpred, uninterrupted) = \
+        runs["cpu"], runs["cuda"]
+    diff = float(np.abs(np.subtract(gloss, closs)).max())
+    ev_diff = abs(gev["loss"] - cev["loss"])
+    pred_diff = float(np.abs(gpred - cpred).max())
+    print(f"[tiny hapi] f32, fit over {HAPI_BATCHES} batches [{HAPI_B}, "
+          f"{HAPI_T - 1}]: cuda losses {[round(x, 6) for x in gloss]}, max "
+          f"|cuda - cpu| {diff:.2e}; evaluate {gev} (cpu {cev}), "
+          f"|cuda - cpu| {ev_diff:.2e}; predict logits max |cuda - cpu| "
+          f"{pred_diff:.2e} (tolerance {F32_TOL:.0e}); launches a step "
+          f"{per_step}, an eval forward {per_eval}", flush=True)
+    if not (diff <= F32_TOL and ev_diff <= F32_TOL and pred_diff <= F32_TOL
+            and gev["acc"] == cev["acc"] and gloss[-1] < gloss[0]):
+        raise AssertionError(f"tiny hapi: cuda {gloss} {gev}, cpu {closs} "
+                             f"{cev}")
+
+    m = make(dev)
+    fit(m, "5h second uninterrupted fit, step")
+    deterministic = same(weights(m), uninterrupted)
+    print(f"  two uninterrupted cuda fits agree bit for bit: "
+          f"{'yes' if deterministic else 'NO'}", flush=True)
+    if not deterministic:
+        raise AssertionError("tiny hapi: the cuda fit is not deterministic; "
+                             "resume cannot be held bit for bit")
+
+    with tempfile.TemporaryDirectory() as ck:
+        killed = make(dev)
+        try:
+            with FaultPlan(kill_at_step=HAPI_KILL):
+                fit(killed, "5h killed fit, step",
+                    [ResilienceCallback(ck, save_every=1)])
+        except SimulatedPreemption:
+            pass
+        else:
+            raise AssertionError("tiny hapi: the kill did not fire")
+        resumed = make(dev)
+        cb = ResilienceCallback(ck, save_every=1)
+        after = fit(resumed, "5h resumed fit, step", [cb])
+        bitwise = same(weights(resumed), uninterrupted)
+        print(f"  killed at step {HAPI_KILL}, resumed: events "
+              f"{cb.events[:2]}..., {len(after)} steps run, weights "
+              f"bit-identical to the uninterrupted fit: {bitwise}",
+              flush=True)
+        if cb.events[0] != ("resume", HAPI_KILL) or \
+                len(after) != HAPI_BATCHES - HAPI_KILL or not bitwise:
+            raise AssertionError(f"tiny hapi resume: {cb.events}")
+
+    onehot = [(x, np.eye(V, dtype=np.float32)[y]) for x, y in data]
+
+    class Poisoned:
+        def __len__(self):
+            return len(onehot)
+
+        def __iter__(self):
+            for i, (x, y) in enumerate(onehot):
+                yield tuple(chaos.poison_batch(i, [x, y]))
+
+    with tempfile.TemporaryDirectory() as ck:
+        m = make(dev, soft=True)
+        cb = ResilienceCallback(ck, save_every=100)
+        with FaultPlan(nan_batch_steps={3}) as plan:
+            fit(m, "5h poisoned fit, step", [cb], Poisoned())
+        finite = all(torch.isfinite(w).all() for w in weights(m))
+        print(f"  NaN batch 3: injected {plan.injected}, events "
+              f"{cb.events}, sentry {cb.sentry.stats()}, weights finite: "
+              f"{finite}", flush=True)
+        if ("poison", 3) not in plan.injected or \
+                ("skip", 3) not in cb.events or not finite:
+            raise AssertionError(f"tiny hapi NaN batch: {cb.events}")
+
+    with tempfile.TemporaryDirectory() as ck:
+        m = make(dev)
+        cb = ResilienceCallback(ck, save_every=1)
+        try:
+            with FaultPlan(crash_on_save=SAVE_CALLS + 2) as plan:
+                fit(m, "5h fit crashing mid-save, step", [cb])
+        except ChaosError:
+            pass
+        else:
+            raise AssertionError("tiny hapi: the save crash did not fire")
+        finally:
+            cb.checkpointer.close()
+        store = ResilientCheckpointer(ck)
+        step, state = store.restore_latest()
+        leftovers = [n for n in os.listdir(ck) if n.startswith(".tmp-")]
+        print(f"  crash in checkpoint 2's second write: injected "
+              f"{plan.injected}, committed {store.steps()}, restored step "
+              f"{step}, corrupt skipped {store.corrupt_skipped}, staging "
+              f"left {leftovers}", flush=True)
+        if store.steps() != [1] or step != 1 or leftovers or \
+                store.corrupt_skipped or "model" not in state:
+            raise AssertionError("tiny hapi: crash mid-save")
+
+    with tempfile.TemporaryDirectory() as ck:
+        try:
+            with FaultPlan(kill_at_step=3,
+                           corrupt_after_save={3 * SAVE_CALLS: "bitflip"}):
+                fit(make(dev), "5h fit with a corrupted checkpoint, step",
+                    [ResilienceCallback(ck, save_every=1)])
+        except SimulatedPreemption:
+            pass
+        resumed = make(dev)
+        cb = ResilienceCallback(ck, save_every=1)
+        fit(resumed, "5h fit resumed past a corrupt checkpoint, step", [cb])
+        skipped = cb.checkpointer.corrupt_skipped
+        bitwise = same(weights(resumed), uninterrupted)
+        print(f"  checkpoint 3 bit-flipped: resume events {cb.events[:1]}, "
+              f"{skipped} corrupt checkpoint skipped, weights bit-identical "
+              f"to the uninterrupted fit: {bitwise}", flush=True)
+        if cb.events[0] != ("resume", 2) or skipped != 1 or not bitwise:
+            raise AssertionError(f"tiny hapi corrupt resume: {cb.events}")
 
 
 # --------------------------------------------------------------- phase 4c
@@ -5041,6 +5295,139 @@ def phase_train_phi3(dev, attn=None):
     return counts
 
 
+# --------------------------------------------------------------- phase 7h
+HAPI_LAYERS = 8                # phase 7h: Llama-3-8B width, 8 of 32 layers
+HAPI_SEQ = 4096                # its batches: [1, 4096] token rows
+HAPI_STEPS = 6                 # an epoch of this many copies of one batch
+HAPI_WARMUP = 2                # fit steps left out of the step's mean
+HAPI_FUSED_STEPS = 3           # timed steps of phase 7's fused-loss loop
+
+
+def phase_train_hapi(dev, cfg=None, T=HAPI_SEQ):
+    """Phase 7h: ``Model.fit`` at Llama-3-8B width (``cfg``: HAPI_LAYERS
+    layers), bf16, on the logits path (``fused_lm_loss`` off: hapi feeds
+    ``network(ids)`` to a separate ``CrossEntropyLoss``), AdamW(1e-4) and
+    Accuracy: one epoch of HAPI_STEPS copies of one random [1, T] batch
+    with the metrics registry armed (the StepTimer's split), then
+    ``evaluate`` on 2 other batches and ``predict`` on 1, every step and
+    eval forward held to train_launches; the loss finite and falling.
+    The batch repeats, as phase 7's does: over distinct random batches
+    this rate raises the loss (12.24 to 12.43 in 6 steps on the card).  Then the same model
+    and optimizer through phase 7's fused-loss loop (train_step), for
+    the cost of the [T, vocab] f32 log-softmax that fit's users pay.
+    Returns the fit's launch counts."""
+    import dataclasses
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import observability
+    from paddle_tpu_torch.kernels import launches
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = cfg or LlamaConfig.llama3_8b(num_hidden_layers=HAPI_LAYERS)
+    L, V, H = cfg.num_hidden_layers, cfg.vocab_size, cfg.hidden_size
+    torch.cuda.reset_peak_memory_stats()
+    net = LlamaForCausalLM(cfg, device=dev, seed=0)
+    opt = pt.optimizer.AdamW(1e-4, parameters=net.parameters())
+    model = pt.Model(net)
+    model.prepare(opt, pt.nn.CrossEntropyLoss(), pt.metric.Accuracy())
+    n_params = sum(p.numel() for p in net.parameters())
+    rng = np.random.RandomState(2)
+    data = [(x[:, :-1], x[:, 1:]) for x in
+            (rng.randint(0, V, (1, T + 1)) for _ in range(4))]
+    train, held = data[:1] * HAPI_STEPS, data[1:]
+    per_step = train_launches(L)
+    per_eval = train_launches(L, grad=False)
+    print(f"[train hapi] Llama-3-8B width, bf16, {L} of 32 layers, "
+          f"{n_params / 1e9:.3f} B parameters, logits path; Model.fit, "
+          f"AdamW(1e-4), CrossEntropyLoss, Accuracy; one random batch "
+          f"[1, {T}] {HAPI_STEPS} times", flush=True)
+
+    rec = hapi_recorder(per_step, "7h fit step")
+    reg = observability.get_registry()
+    reg.clear()
+    launches.reset()
+    prev = observability.enable()
+    try:
+        history = model.fit(train, epochs=1, verbose=0, callbacks=[rec])
+    finally:
+        observability.enable(prev)
+    counts = phase_counts()
+    snaps = {snap.name: snap.series for snap in observability.collect()}
+    split = {dict(k)["phase"]: v for k, v in
+             snaps["train_step_seconds"].items()}
+    ev = counted_call(lambda: model.evaluate(held[:2], verbose=0),
+                      {k: 2 * v for k, v in per_eval.items()},
+                      "7h evaluate")
+    pred = counted_call(lambda: model.predict(held[2:])[0][0], per_eval,
+                        "7h predict")
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = rec.losses
+    if not (all(math.isfinite(x) for x in losses + [ev["loss"]])
+            and losses[-1] < losses[0] and pred.shape == (1, T, V)
+            and np.isfinite(pred).all()
+            and history["loss"] == [losses[-1]]):
+        raise AssertionError(f"train hapi: losses {losses}, eval {ev}")
+    mean_ms = float(np.mean(rec.ms[HAPI_WARMUP:]))
+    tok_s = T / mean_ms * 1e3
+    flops_per_token = 6.0 * n_params + 12.0 * L * H * T
+    state_gb = 12 * n_params / 1e9
+    out = dict(
+        step_ms=rec.ms, mean_step_ms=mean_ms, tokens_per_s=tok_s,
+        mfu=tok_s * flops_per_token / BF16_FLOPS, losses=losses,
+        eval={k: float(v) for k, v in ev.items()}, steptimer=dict(
+            steps=snaps["train_steps_total"][()],
+            tokens=snaps["train_tokens_total"][()],
+            steps_per_s=snaps["train_steps_per_sec"][()],
+            tokens_per_s=snaps["train_tokens_per_sec"][()],
+            data_s=split["data"]["sum"], device_s=split["device"]["sum"],
+            total_s=split["total"]["sum"]),
+        peak_mem_gb=peak_gb, state_gb=state_gb,
+        peak_less_state_gb=peak_gb - state_gb, n_params=n_params,
+        layers=L, tokens=T)
+    st = out["steptimer"]
+    print(f"  losses {[round(x, 4) for x in losses]}; evaluate {ev}; "
+          f"predict logits {tuple(pred.shape)}", flush=True)
+    print(f"  StepTimer: {st['steps']:.0f} steps, {st['steps_per_s']:.3f} "
+          f"steps/s, {st['tokens_per_s']:.0f} tokens/s (run averages, the "
+          f"first step included); data {st['data_s'] * 1e3:.1f} ms, device "
+          f"{st['device_s'] * 1e3:.1f} ms of {st['total_s'] * 1e3:.1f} ms",
+          flush=True)
+    print(f"  step {mean_ms:.1f} ms on the host's clock (mean of steps "
+          f"{HAPI_WARMUP}..{HAPI_STEPS - 1}; all {[round(x, 1) for x in rec.ms]}"
+          f"), {tok_s:.0f} tokens/s, MFU {out['mfu']:.1%}; peak memory "
+          f"{peak_gb:.1f} GB, of which {state_gb:.1f} GB are the 12 bytes a "
+          f"parameter, {peak_gb - state_gb:.1f} GB the rest; launches a "
+          f"step {per_step}, an eval forward {per_eval}", flush=True)
+
+    # the same model through phase 7's loop with the fused chunked loss
+    net.config = dataclasses.replace(cfg, fused_lm_loss=True)
+    tokens = torch.from_numpy(train[0][0]).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    fused_ms = []
+    for i in range(HAPI_WARMUP + HAPI_FUSED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = counted_call(lambda: train_step(net, opt, tokens), per_step,
+                            f"7h fused-loss step {i}")
+        torch.cuda.synchronize()
+        if i >= HAPI_WARMUP:
+            fused_ms.append((time.perf_counter() - t0) * 1e3)
+        if not math.isfinite(loss):
+            raise AssertionError(f"train hapi fused loop: loss {loss}")
+    net.config = cfg
+    out.update(fused_step_ms=fused_ms,
+               fused_mean_step_ms=float(np.mean(fused_ms)),
+               fused_peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"  beside it, phase 7's loop (fused chunked loss, no [{T}, {V}] "
+          f"logits) on the same model: step {out['fused_mean_step_ms']:.1f} "
+          f"ms (mean of {HAPI_FUSED_STEPS}), peak "
+          f"{out['fused_peak_mem_gb']:.1f} GB; fit's logits path costs "
+          f"{mean_ms - out['fused_mean_step_ms']:.1f} ms a step", flush=True)
+    print(f"  {json.dumps(out)}", flush=True)
+    return counts
+
+
 # ------------------------------------------------------- static graph
 # (tag, M, K, N, activation, bias, dtype) of phase 2s; the first two are
 # the main path's (BERT-base's FFN and MLM transform) and go in the
@@ -5421,6 +5808,7 @@ def main() -> int:
     phase_tiny(dev)
     phase_tiny_train(dev)
     phase_tiny_recipe(dev)
+    phase_tiny_hapi(dev)
     phase_tiny_moe(dev)
     c1_tiny_counts = phase_tiny_c1(dev)
     phase_tiny_static(dev)
@@ -5447,6 +5835,8 @@ def main() -> int:
     free()
     phi3_counts = phase_train_phi3(dev)
     free()
+    hapi_counts = phase_train_hapi(dev)
+    free()
     moe_train_counts = phase_train(dev, mixtral_config(
         num_hidden_layers=MOE_TRAIN_LAYERS, fused_lm_loss=True),
         MOE_TRAIN_T, "train moe", "Mixtral-8x7B width")
@@ -5456,7 +5846,8 @@ def main() -> int:
             "moe_serve": moe_counts, "moe_train": moe_train_counts,
             "static_train": static_counts, "c1_tiny": c1_tiny_counts,
             "c1_serve": c1_counts, "train_phi3": phi3_counts,
-            "phi3_serve": phi3_serve_counts, "spec": spec_counts}
+            "phi3_serve": phi3_serve_counts, "spec": spec_counts,
+            "hapi_train": hapi_counts}
     kernels = []
     for name, e in [*entries.items(), *train_entries.items(),
                     *moe_entries.items(), *c1_entries.items(),

@@ -14,7 +14,11 @@ chunked-prefill steps, from full-precision or int8 / fp8 KV pools, with
 full-precision or int8 weights), the no-cache training path, and the
 static-graph frontend (``static``: record a Program, fuse linear ->
 activation pairs into the ``fused_linear`` kernel, train it with
-``Executor``), which BERT (``models.bert``) runs on.
+``Executor``), which BERT (``models.bert``) runs on, and the high-level
+training loop (``Model``, from ``hapi``: ``prepare`` / ``fit`` /
+``evaluate`` / ``predict`` with ``io``'s loaders, ``metric``, ``nn``'s
+losses, callbacks and ``resilience.ResilienceCallback``'s resumable,
+NaN-guarded checkpoints).
 
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.serving import Engine, ServingConfig
@@ -22,11 +26,21 @@ activation pairs into the ``fused_linear`` kernel, train it with
     eng = Engine(model, ServingConfig(max_batch_size=8))
     req = eng.submit(prompt_ids, max_new_tokens=16)
     eng.run_until_complete()
+
+    import paddle_tpu_torch as paddle
+    model = paddle.Model(LlamaForCausalLM(LlamaConfig.tiny()))
+    model.prepare(paddle.optimizer.AdamW(1e-3, parameters=model.parameters()),
+                  paddle.nn.CrossEntropyLoss(), paddle.metric.Accuracy())
+    model.fit(batches, epochs=1)          # batches of (ids, next ids)
 """
 from __future__ import annotations
 
-from . import static
+from . import io, metric, nn, optimizer, static
 from .device import resolve_device
+from .framework.io import load, save
+from .hapi import Model, summary
 from .static import disable_static, enable_static
 
-__all__ = ["disable_static", "enable_static", "resolve_device", "static"]
+__all__ = ["Model", "disable_static", "enable_static", "io", "load",
+           "metric", "nn", "optimizer", "resolve_device", "save", "static",
+           "summary"]

@@ -126,17 +126,92 @@ def _dropout(x, p, generator, scale):
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def _reduce(out, reduction):
+    if reduction == "mean":
+        return out.mean()
+    if reduction == "sum":
+        return out.sum()
+    if reduction == "none":
+        return out
+    raise ValueError(f"unknown reduction {reduction!r}")
+
+
 @op("cross_entropy")
-def cross_entropy(input, label, ignore_index=-100):
-    """Mean hard-label cross-entropy over the labels that are not
-    ``ignore_index``, in f32 (0 when every label is ignored, as the JAX
-    package's ``max(count, 1)`` makes it).  input [..., C], label [...]."""
-    logp = torch.log_softmax(input.float(), dim=-1)
+def cross_entropy(input, label, weight=None, ignore_index=-100,
+                  reduction="mean", soft_label=False, axis=-1,
+                  use_softmax=True, label_smoothing=0.0):
+    """The JAX ``cross_entropy`` with every argument, computed in f32
+    (the JAX function computes in the logits' dtype: the same numbers
+    for f32 logits).  Hard labels (``label`` [...] or with a size-1
+    ``axis``) are class indices, those equal to ``ignore_index`` left
+    out; ``label_smoothing`` mixes in the mean negative log-probability
+    over the classes; ``weight`` [C] scales each label's loss, and
+    ``"mean"`` then divides by the summed weights of the labels kept,
+    else by their count (at least 1).  Soft labels are distributions
+    over ``axis`` (smoothed toward uniform), and ``"mean"`` is the plain
+    mean.  ``use_softmax=False`` takes probabilities (their log, clipped
+    to [1e-15, 1])."""
+    x = input.float()
+    axis = axis % x.ndim
+    logp = torch.log_softmax(x, dim=axis) if use_softmax \
+        else torch.log(x.clamp(1e-15, 1.0))
+    if soft_label:
+        soft = label.float()
+        if label_smoothing > 0.0:
+            soft = soft * (1 - label_smoothing) \
+                + label_smoothing / x.shape[axis]
+        return _reduce(-(soft * logp).sum(axis), reduction)
+    if label.ndim == logp.ndim:
+        label = label.squeeze(axis)
     valid = label != ignore_index
     safe = torch.where(valid, label, torch.zeros_like(label)).long()
-    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
-    total = torch.where(valid, nll, torch.zeros_like(nll)).sum()
-    return total / valid.sum().clamp_min(1).float()
+    nll = -torch.gather(logp, axis, safe.unsqueeze(axis)).squeeze(axis)
+    loss = torch.where(valid, nll, torch.zeros_like(nll))
+    if label_smoothing > 0.0:
+        smooth = -logp.mean(axis)
+        loss = (1 - label_smoothing) * loss + label_smoothing * torch.where(
+            valid, smooth, torch.zeros_like(smooth))
+    w = None
+    if weight is not None:
+        w = torch.where(valid, weight.float()[safe], torch.zeros_like(loss))
+        loss = loss * w
+    if reduction == "mean":
+        denom = w.sum() if w is not None \
+            else valid.sum().clamp_min(1).float()
+        return loss.sum() / denom
+    return _reduce(loss, reduction)
+
+
+@op("nll_loss")
+def nll_loss(input, label, weight=None, ignore_index=-100, reduction="mean"):
+    """The JAX ``nll_loss``: log-probabilities ``input`` [N, C, ...],
+    class indices ``label`` [N, ...]; ``weight`` [C] scales each label's
+    loss and ``"mean"`` divides by the weights of the labels kept (else
+    by their count, at least 1)."""
+    valid = label != ignore_index
+    safe = torch.where(valid, label, torch.zeros_like(label)).long()
+    loss = -torch.gather(input, 1, safe.unsqueeze(1)).squeeze(1)
+    wsum = None
+    if weight is not None:
+        w = weight[safe]
+        loss = loss * w
+        wsum = torch.where(valid, w, torch.zeros_like(w)).sum()
+    loss = torch.where(valid, loss, torch.zeros_like(loss))
+    if reduction == "mean":
+        denom = wsum if wsum is not None \
+            else valid.sum().clamp_min(1).to(loss.dtype)
+        return loss.sum() / denom
+    return _reduce(loss, reduction)
+
+
+@op("mse_loss")
+def mse_loss(input, label, reduction="mean"):
+    return _reduce((input - label).square(), reduction)
+
+
+@op("l1_loss")
+def l1_loss(input, label, reduction="mean"):
+    return _reduce((input - label).abs(), reduction)
 
 
 @op("scaled_dot_product_attention")

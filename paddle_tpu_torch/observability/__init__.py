@@ -10,14 +10,15 @@ over the port's producers:
   ``serving.metrics`` under the reference's ``serving_*`` names);
 - any compiled entry point wrapped with :func:`track_compiles` /
   :func:`warn_on_retrace` (graph captures and retraces of the serving
-  steps, under the reference's ``xla_*`` names).
+  steps, under the reference's ``xla_*`` names);
+- ``hapi.Model.fit`` (through :class:`StepTimer`: steps/s, tokens/s,
+  data-wait against device-wait, loss) and the resilient checkpointer
+  (save latency, corrupt checkpoints skipped).
 
 Telemetry is OFF by default: every producer checks :func:`enabled`
 first.  Turning it on is one line — ``FileSink(dir).start()`` (periodic
 Prometheus + JSON dumps), or :func:`enable` plus an explicit
-:func:`prometheus_text` / :func:`to_json` export.  The reference's
-``StepTimer`` belongs to its ``hapi`` training loop, which is not
-ported.
+:func:`prometheus_text` / :func:`to_json` export.
 
 Pure stdlib; importable from anywhere in the port without cycles.
 """
@@ -50,6 +51,7 @@ from .compile_tracker import (  # noqa: F401
     track_compiles,
     warn_on_retrace,
 )
+from .step_metrics import StepTimer, count_tokens  # noqa: F401
 
 __all__ = [
     # registry
@@ -62,4 +64,6 @@ __all__ = [
     # compile tracking
     "RetraceError", "RetraceWarning", "TrackedFunction", "compile_stats",
     "jit_cache_size", "track_compiles", "warn_on_retrace",
+    # step metrics
+    "StepTimer", "count_tokens",
 ]

@@ -44,14 +44,25 @@ its accumulators in place under ``torch.no_grad()`` (the counterpart of
 the JAX package's ``_static_minimize`` writeback ops), and an op that
 counts the step.
 
-Not ported yet (each raises ``NotImplementedError``): ``lr_ratio`` and
-per-group options in parameter groups.
+``state_dict()`` / ``set_state_dict()`` use the JAX package's keys:
+``"{accumulator}_{index}"`` over the flat parameter order, ``"@step"``,
+``"@global_step"`` and, with a scheduler, ``"LR_Scheduler"``; a restored
+accumulator is a fresh tensor on its parameter's device, never the
+caller's (the rules update accumulators in place).
+
+Per-group options (``{"params": ..., "learning_rate": ...,
+"weight_decay": ...}``) and ``AdamW(lr_ratio=...)`` are accepted and, as
+in the JAX package, change nothing (its ``step`` drops the group and
+never reads ``lr_ratio``); one ``UserWarning`` names the keys ignored.
 """
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
 
+from ..framework.io import to_tensor
 from .lr import LRScheduler
 
 _f32 = np.float32
@@ -291,13 +302,10 @@ class Optimizer:
     def _register(self, parameters) -> list:
         """The flat parameter list of ``parameters`` (tensors, ``(name,
         tensor)`` pairs or groups ``{"params": [...]}``), names noted."""
-        out = []
+        out, ignored = [], set()
         for p in parameters:
             if isinstance(p, dict):
-                if set(p) != {"params"}:
-                    raise NotImplementedError(
-                        "per-group options are not ported yet: "
-                        f"{sorted(set(p) - {'params'})}")
+                ignored |= set(p) - {"params"}
                 group = p["params"]
             else:
                 group = [p]
@@ -306,6 +314,10 @@ class Optimizer:
                     pname, q = q
                     self._names[id(q)] = pname
                 out.append(q)
+        if ignored:
+            warnings.warn(f"parameter-group option(s) {sorted(ignored)} are "
+                          "ignored, as the JAX package ignores them",
+                          UserWarning, stacklevel=3)
         return out
 
     def _param_name(self, p) -> str:
@@ -423,6 +435,46 @@ class Optimizer:
         """The 1-based step a bias correction uses."""
         return self._step_count + 1
 
+    def state_dict(self) -> dict:
+        """The JAX package's layout: each accumulator as
+        ``"{name}_{index}"`` (the parameter's index in the flat parameter
+        list) holding a copy, ``"@step"`` and ``"@global_step"`` (one
+        count here: the JAX package keeps a host and a device copy of
+        it, always equal in its dygraph and static steps), and with a
+        scheduler ``"LR_Scheduler"``."""
+        index = {id(p): i for i, p in enumerate(self._parameter_list)}
+        state = {f"{name}_{index.get(pid, pid)}": acc.detach().clone()
+                 for name, store in self._accumulators.items()
+                 for pid, acc in store.items()}
+        state["@step"] = self._step_count
+        state["@global_step"] = self._step_count
+        if self._lr_scheduler is not None:
+            state["LR_Scheduler"] = self._lr_scheduler.state_dict()
+        return state
+
+    def set_state_dict(self, state: dict):
+        """Load a :meth:`state_dict` of either package: the step from
+        ``"@global_step"`` (else ``"@step"``), each ``"{name}_{index}"``
+        copied into a fresh tensor on that parameter's device (a tensor,
+        a numpy array, or a bf16 ``framework.io.TensorPayload``); keys
+        that name no parameter are skipped, as in the JAX package."""
+        self._step_count = int(state.get("@global_step",
+                                         state.get("@step", 0)))
+        params = self._parameter_list
+        for key, value in state.items():
+            if key in ("@step", "@global_step"):
+                continue
+            if key == "LR_Scheduler":
+                if self._lr_scheduler is not None:
+                    self._lr_scheduler.set_state_dict(value)
+                continue
+            name, _, idx = key.rpartition("_")
+            if not idx.isdigit() or int(idx) >= len(params):
+                continue
+            p = params[int(idx)]
+            acc = to_tensor(value).to(p.device, copy=True)
+            self._accumulators.setdefault(name, {})[id(p)] = acc
+
 
 class SGD(Optimizer):
     def __init__(self, learning_rate=0.001, parameters=None,
@@ -476,7 +528,8 @@ class AdamW(Optimizer):
                  lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
                  lazy_mode=False, multi_precision=False, name=None):
         if lr_ratio is not None:
-            raise NotImplementedError("lr_ratio is not ported yet")
+            warnings.warn("AdamW's lr_ratio is ignored, as the JAX package "
+                          "ignores it", UserWarning, stacklevel=2)
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          name, multi_precision)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon

@@ -4,10 +4,12 @@
   frontend ``static``, the ``nn`` layers and gradient clipping, the
   optimizers and learning-rate schedulers of ``optimizer``, the
   recomputation of ``distributed``, the CUDA-graph steps of ``jit``,
-  the compile accounting and metrics registry of ``observability``, the
-  fault plan of ``resilience``, the fleet router and trace replay of
-  ``serving`` and the ``inference`` front door included; they are
-  copies, not imports) loads no ``jax*``
+  the compile accounting, metrics registry and StepTimer of
+  ``observability``, the fault plan, checkpointer, sentry and callback
+  of ``resilience``, the fleet router and trace replay of ``serving``,
+  the ``hapi`` training loop, the datasets and loaders of ``io``,
+  ``metric``, ``framework``'s save and load, and the ``inference`` front
+  door included; they are copies, not imports) loads no ``jax*``
   module and nothing of the JAX package (``paddle_tpu`` /
   ``paddle_tpu.*``), and no source file names one;
 - its entry points run on ``cuda`` unless told otherwise, and raise
@@ -49,9 +51,10 @@ print(json.dumps({"bad": bad, "ours": sorted(
     n for n in sys.modules if n.startswith("paddle_tpu_torch"))}))
 """
 # the subpackages the walk must reach (each with at least one module)
-SUBPACKAGES = ("distributed", "inference", "jit", "kernels", "models", "nn",
-               "observability", "optimizer", "quantization", "resilience",
-               "serving", "static")
+SUBPACKAGES = ("distributed", "framework", "hapi", "inference", "io", "jit",
+               "kernels", "metric", "models", "nn", "observability",
+               "optimizer", "quantization", "resilience", "serving",
+               "static")
 
 
 def _is_forbidden(module: str) -> bool:

@@ -324,6 +324,115 @@ class TestChromeSpans:
 
 
 # ---------------------------------------------------------------------------
+# the StepTimer and hapi.Model.fit's step telemetry
+# ---------------------------------------------------------------------------
+
+def _train_metrics(reg_mod, run):
+    """``run()`` under a cleared, armed registry: {name: (kind, {labels:
+    value, or a histogram's count})} of the ``train_*`` metrics (the
+    timings themselves are host clocks and differ)."""
+    reg_mod.get_registry().clear()
+    prev = reg_mod.enable()
+    try:
+        run()
+    finally:
+        reg_mod.enable(prev)
+    out = {}
+    for snap in reg_mod.collect():
+        if not snap.name.startswith("train_"):
+            continue
+        out[snap.name] = (snap.kind, {
+            k: (v["count"] if snap.kind == "histogram" else
+                v if snap.name in ("train_steps_total", "train_tokens_total",
+                                   "train_loss") else None)
+            for k, v in snap.series.items()})
+    return out
+
+
+STEP_NAMES = ["train_loss", "train_step_seconds", "train_steps_per_sec",
+              "train_steps_total", "train_tokens_per_sec",
+              "train_tokens_total"]
+
+
+class TestStepTimerMatchesJax:
+    def test_counts_and_names(self, jax_obs):
+        from paddle_tpu.observability.step_metrics import StepTimer as JTimer
+
+        from paddle_tpu_torch.observability import StepTimer
+
+        batches = [np.zeros((2, 16), np.int64), np.zeros((3, 8), np.int64),
+                   [np.zeros((1, 5), np.int64), np.zeros(7)]]
+
+        def drive(timer_cls, as_tensor):
+            def run():
+                timer = timer_cls()
+                for i, batch in timer.timed_enumerate(batches):
+                    inputs = [as_tensor(b) for b in batch] \
+                        if isinstance(batch, list) else as_tensor(batch)
+                    timer.step(loss=0.5 * (i + 1), inputs=inputs)
+                run.summary = timer.summary()
+            return run
+
+        jrun = drive(JTimer, lambda a: a)
+        trun = drive(StepTimer, torch.from_numpy)
+        want = _train_metrics(jax_obs[0], jrun)
+        got = _train_metrics(registry, trun)
+        assert sorted(got) == sorted(want) == STEP_NAMES
+        assert got == want
+        assert trun.summary["tokens"] == jrun.summary["tokens"] == 32 + 24 + 5
+        assert trun.summary["steps"] == 3
+        assert trun.summary["last_loss"] == 1.5
+
+    def test_count_tokens(self):
+        from paddle_tpu_torch.observability import count_tokens
+
+        assert count_tokens(torch.zeros(4, 8)) == 32
+        assert count_tokens([(np.zeros((2, 3)),)]) == 6
+        assert count_tokens({"ids": torch.zeros(5)}) == 5
+        assert count_tokens("text") == 0 and count_tokens([]) == 0
+
+    def test_fit_mirrors_the_same_metrics(self, jax_obs):
+        import paddle_tpu as paddle
+        from paddle_tpu import nn as jnn
+
+        import paddle_tpu_torch as pt
+
+        rng = np.random.RandomState(0)
+        data = [(rng.randn(4, 3).astype(np.float32),
+                 rng.randn(4, 2).astype(np.float32)) for _ in range(5)]
+
+        def jax_fit():
+            paddle.seed(0)
+            net = jnn.Linear(3, 2)
+            m = paddle.Model(net)
+            m.prepare(paddle.optimizer.SGD(0.1, parameters=net.parameters()),
+                      jnn.MSELoss())
+            m.fit(data, epochs=2, verbose=0)
+
+        def port_fit():
+            net = pt.nn.Linear(3, 2, device="cpu")
+            m = pt.Model(net)
+            m.prepare(pt.optimizer.SGD(0.1, parameters=net.parameters()),
+                      pt.nn.MSELoss())
+            m.fit(data, epochs=2, verbose=0)
+
+        want = _train_metrics(jax_obs[0], jax_fit)
+        got = _train_metrics(registry, port_fit)
+        assert sorted(got) == STEP_NAMES
+        for name in ("train_steps_total", "train_tokens_total",
+                     "train_step_seconds"):
+            assert got[name] == want[name], name
+        assert got["train_step_seconds"][1] == {
+            (("phase", "data"),): 10, (("phase", "device"),): 10,
+            (("phase", "total"),): 10}
+        # off by default: an unarmed fit records nothing
+        registry.get_registry().clear()
+        port_fit()
+        assert not [s for s in registry.collect()
+                    if s.name.startswith("train_")]
+
+
+# ---------------------------------------------------------------------------
 # on the card: the watchdog times the device's work
 # ---------------------------------------------------------------------------
 

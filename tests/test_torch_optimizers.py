@@ -86,7 +86,10 @@ def _ulps(a, b):
 
 
 class Pair:
-    """The same named parameters in both packages."""
+    """The same named parameters in both packages.  The torch tensors
+    are copies: the JAX package reads a numpy array into its buffer
+    asynchronously, so a torch tensor sharing that array's memory and
+    updated in place could be read half-written under load."""
 
     def __init__(self, dtype, seed=0, frozen=()):
         init = _init(seed)
@@ -95,7 +98,7 @@ class Pair:
                                   name=n, trainable=n not in frozen)
                     for n, v in init.items()}
         self.torch = {n: torch.nn.Parameter(
-            torch.from_numpy(v).to(getattr(torch, dtype)),
+            torch.from_numpy(v.copy()).to(getattr(torch, dtype)),
             requires_grad=n not in frozen) for n, v in init.items()}
 
     def set_grads(self, step, skip=()):
@@ -106,7 +109,7 @@ class Pair:
                 continue
             self.jax[n].grad = JTensor(jnp.asarray(g, getattr(jnp,
                                                               self.dtype)))
-            self.torch[n].grad = torch.from_numpy(g).to(
+            self.torch[n].grad = torch.from_numpy(g.copy()).to(
                 getattr(torch, self.dtype))
 
     def check(self, what=""):
