@@ -24,6 +24,13 @@ Phases, each of which must pass (nothing is caught):
      training path's shapes (T = 8192, hidden 4096, 32 q / 8 kv heads,
      head_dim 128, bf16, causal), with the same numbers; the attention
      kernels run twice (dQ ATTN_STRESS more times), the bits compared;
+  3q. sequence-parallel attention forms (sp_kernel_entries): the
+     forward with LSE, dQ and dK/dV as ring attention runs them on a
+     held block, not causal at Tq = Tk = 8192 with f32 outputs (the
+     forward beside its bf16-output time), and as sequence parallelism
+     alone runs them, causal with Tq = 2048 < Tk = 8192 (bottom-right),
+     each against its plain version, beside SDPA's time on the same
+     mask;
   4. tiny: LlamaConfig.tiny() in f32, the same seeded weights served on
      cuda (kernels) and on cpu (plain versions), from f32, int8 and fp8
      KV pools and from fp8 pools with int8 weights: greedy tokens must be
@@ -193,6 +200,23 @@ Phases, each of which must pass (nothing is caught):
      4 ranks of {"data": 2, "expert": 2} restore step 2 with reshard,
      every part bit for bit against the checkpoint's whole arrays cut to
      it, and rerun step 3 against the first world's.
+  7q. sequence and context parallelism: Llama-3-8B width, 2 of its 32
+     layers, bf16, max_position_embeddings 32768, one global [1, 32768]
+     batch, 4 ranks of {"sp": 4} on the one card over gloo (each rank
+     8192 positions), one world running in turn context_parallel="ring",
+     "ulysses" (8 kv heads over sp 4: the all-to-all path) and
+     sequence_parallel=True alone, each a fresh model from seed 0, the
+     forward and backward of the model's own fused shifted loss, the
+     gradients summed over sp, one SGD step; against the same model and
+     batch unsharded at T = 32768 in this process: (a) the loss within
+     2^-10 relative, (b) every parameter's summed gradient within 0.05
+     relative 2-norm (paddle_tpu_torch.tools.mesh_controls --sp plants
+     faults that fail these), (c) each rank's attention launches exact
+     (ring: r + 1 forward, dQ and dK/dV blocks a layer on rank r, f32
+     outputs; the other kernels the unsharded step's), (d) the
+     collectives and staged ones of each step (the ring's hops staged,
+     Ulysses's all-to-alls and the gathers not), (e) each mode's step
+     seconds, each rank's peak memory and the card's.
 Mixture of experts (Mixtral-8x7B's shape, mixtral_config):
   2m. MoE kernels: dispatch and combine against their plain versions at
      hidden 4096, 8 experts, top-2, bf16, at a decode step's, a prefill
@@ -1253,6 +1277,263 @@ def phase_train_kernels(dev):
           "backward = dQ, dK and dV together; library: SDPA forward "
           "(without and with grad) and its backward as (fwd+bwd) - fwd, "
           "dQ, dK and dV together")
+    print_entries(entries)
+    return entries
+
+
+SP_KV_T = 8192                 # phase 3q: a held ring block, Tq = Tk
+SP_TQ = 2048                   # the Tq < Tk rows: queries
+SP_TK = 8192                   # and keys (the plain version holds the
+                               # [H, Tq, Tk] f32 scores)
+
+
+def _lower_right_sdpa(q, k, v):
+    """SDPA with the bottom-right causal mask of Tq < Tk (PyTorch's
+    is_causal is top-left), enable_gqa."""
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+
+    return F.scaled_dot_product_attention(
+        q, k, v, attn_mask=causal_lower_right(q.shape[2], k.shape[2]),
+        enable_gqa=True)
+
+
+def hold_rounded_once(tag, f32_outs, bf16_outs):
+    """The f32-output form writes the accumulators its bf16 form rounds:
+    each f32 output rounded to bf16 is the bf16 launch's output on the
+    same operands bit for bit, and some element of it is not a bf16
+    value (an epilogue that rounded before its f32 store would give
+    only bf16 values).  Exact; no tolerance."""
+    for n, a in f32_outs.items():
+        b = bf16_outs[n]
+        if not torch.equal(a.to(torch.bfloat16), b):
+            bad = int((a.to(torch.bfloat16) != b).sum())
+            raise AssertionError(f"{tag} {n}: the f32 form rounded to bf16 "
+                                 f"differs from the bf16 form in {bad} "
+                                 "elements")
+        kept = int((a != a.to(torch.bfloat16).float()).sum())
+        if kept == 0:
+            raise AssertionError(f"{tag} {n}: every f32 output is a bf16 "
+                                 "value (rounded before the store)")
+        print(f"  {tag} {n}: f32 form rounded once is the bf16 form bit "
+              f"for bit; {kept} of {a.numel()} elements keep bits bf16 "
+              "drops", flush=True)
+
+
+def sp_kernel_entries(dev):
+    """Phase 3q: the attention kernels in the forms phase 7q launches
+    (module docstring), at Llama-3-8B's heads (32 q / 8 kv, head_dim
+    128), bf16, in the model's [B, T, H, D] memory order.  The ring's
+    block: not causal, Tq = Tk = SP_KV_T, O, dQ, dK and dV written in
+    f32 (``out_f32``), held by ``hold_bf16_attention`` against the f32
+    plain version with the bf16 plain version's rounding allowed (the
+    f32 form may be no worse than the bf16 one); the f32 plain versions
+    run a quarter of the heads at a time.  Sequence parallelism alone:
+    causal with Tq = SP_TQ < Tk = SP_TK, bottom-right, the forward in
+    bf16 and the backward in f32 as ``_GatheredKV`` runs them.  Every
+    f32 output is held to a single rounding by ``hold_rounded_once``
+    against the bf16 form's launch on the same operands.  The rows'
+    launches are phase 7q's ring and sequence-parallel worlds'."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    bf = torch.bfloat16
+    H, KVH, D = 32, 8, 128
+    scale = D ** -0.5
+    where = "paddle_tpu/kernels/flash_attention.py"
+    src = "paddle_tpu_torch/csrc/flash_attention.cu"
+    entries = {}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(bf)
+
+    def operands(Tq, Tk):
+        return [t.transpose(1, 2) for t in (
+            randn(1, Tq, H, D), randn(1, Tk, KVH, D), randn(1, Tk, KVH, D),
+            randn(1, Tq, H, D))]
+
+    def hold(tag, got, ins, causal, o, lse, split, bwd_f32):
+        """Every output of ``got`` against the plain versions over
+        ``split`` parts of the heads; returns the worst error of each."""
+        err = dict.fromkeys(got, 0.0)
+        hq, hk = H // split, KVH // split
+        for j in range(split):
+            qs, ks = slice(j * hq, (j + 1) * hq), slice(j * hk, (j + 1) * hk)
+            part = (ins[0][:, qs], ins[1][:, ks], ins[2][:, ks],
+                    ins[3][:, qs])
+            ko, klse = o[:, qs], lse[:, qs]
+            po, plse = fa.flash_fwd_plain(*part[:3], causal, scale)
+            plain = dict(o=po, lse=plse, **dict(zip(
+                ("dq", "dk", "dv"), fa.flash_bwd_plain(
+                    *part[:3], ko, klse, part[3], causal, scale))))
+            f = [t.float() for t in part]
+            ro, rlse = fa.flash_fwd_plain(*f[:3], causal, scale)
+            ref = dict(o=ro, lse=rlse, **dict(zip(
+                ("dq", "dk", "dv"), fa.flash_bwd_plain(
+                    *f[:3], ko.float(), klse, f[3], causal, scale))))
+            for n in got:
+                sl = ks if n in ("dk", "dv") else qs
+                if n == "lse":
+                    e = check_close(f"{tag} lse heads {sl.start}..",
+                                    got[n][:, sl], ref[n], F32_TOL)
+                else:
+                    e = hold_bf16_attention(
+                        f"{tag} {n} heads {sl.start}..{sl.stop - 1}",
+                        got[n][:, sl], plain[n], ref[n], n == "dq")
+                err[n] = max(err[n], e)
+            del plain, ref, f, po, plse, ro, rlse
+        return err
+
+    # the ring's held block: not causal, f32 outputs
+    T = SP_KV_T
+    print(f"[sp kernels] Llama-3-8B heads, bf16: ring block Tq = Tk = {T} "
+          f"not causal, f32 outputs; Tq = {SP_TQ} < Tk = {SP_TK} causal",
+          flush=True)
+    q, k, v, do = operands(T, T)
+    o, lse = fa._fwd_kernel(q, k, v, False, scale, True, out_f32=True)
+    ob = o.to(bf)
+    ops = fa._bwd_operands(q, k, v, do, lse, fa._delta(ob, do))
+    dq = fa._dq_kernel(*ops, False, scale, out_f32=True)
+    dk, dv = fa._dkv_kernel(*ops, False, scale, out_f32=True)
+    torch.cuda.synchronize()
+    if not all(t.dtype == torch.float32 for t in (o, dq, dk, dv)):
+        raise AssertionError("sp kernels: an f32-output form wrote "
+                             "another dtype")
+    err = hold("ring block", dict(o=o, lse=lse, dq=dq, dk=dk, dv=dv),
+               (q, k, v, do), False, ob, lse, 4, True)
+    o_b, lse_b = fa._fwd_kernel(q, k, v, False, scale, True)
+    if not torch.equal(lse, lse_b):
+        raise AssertionError("sp kernels: the f32-output forward's LSE is "
+                             "not the bf16 one's")
+    hold_rounded_once("ring block", dict(o=o, dq=dq, dk=dk, dv=dv), dict(
+        o=o_b, dq=fa._dq_kernel(*ops, False, scale),
+        **dict(zip(("dk", "dv"), fa._dkv_kernel(*ops, False, scale)))))
+    del o_b, lse_b
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def sdpa(*args, **kw):
+        return F.scaled_dot_product_attention(*args, enable_gqa=True, **kw)
+
+    with torch.no_grad():
+        sdpa_ms = time_ms(lambda: sdpa(q, k, v), iters=10)
+    sdpa_grad_ms = time_ms(lambda: sdpa(qg, kg, vg), iters=10)
+    sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        sdpa(qg, kg, vg), (qg, kg, vg), do), iters=10) - sdpa_grad_ms
+    parts = [(slice(j * 8, (j + 1) * 8), slice(j * 2, (j + 1) * 2))
+             for j in range(4)]
+
+    def plain_fwd():
+        for qs, ks in parts:
+            fa.flash_fwd_plain(q[:, qs], k[:, ks], v[:, ks], False, scale,
+                               out_f32=True)
+
+    def plain_bwd():
+        for qs, ks in parts:
+            fa.flash_bwd_plain(q[:, qs], k[:, ks], v[:, ks], ob[:, qs],
+                               lse[:, qs], do[:, qs], False, scale,
+                               out_f32=True)
+
+    plain_fwd_ms = time_ms(plain_fwd, iters=2, warmup=1)
+    plain_bwd_ms = time_ms(plain_bwd, iters=2, warmup=1)
+    prod = 2.0 * T * T * D * H
+    q_bytes, kv_bytes, row_bytes = 2 * T * H * D, 2 * T * KVH * D, 4 * H * T
+    work = f"ring block: B=1, Tq=Tk={T}, 32/8 heads, D=128, not causal"
+    inst = fa.instance(q, k, fa.FWD_LSE, out_f32=True)
+    bf16_out_ms = time_ms(lambda: fa._fwd_kernel(q, k, v, False, scale,
+                                                 True), iters=10)
+    entries["flash_attention_fwd_lse_ring"] = dict(
+        counter=fa.FWD_LSE, instance=inst, path="sp_ring",
+        replaces=f"{where}:97", source=src,
+        max_abs_err=max(err["o"], err["lse"]),
+        ms=time_ms(lambda: fa._fwd_kernel(q, k, v, False, scale, True,
+                                          out_f32=True), iters=10),
+        bf16_out_ms=bf16_out_ms, plain_ms=plain_fwd_ms,
+        library_ms=sdpa_grad_ms,
+        bound=bound_ms(3 * q_bytes + 2 * kv_bytes + row_bytes, 2 * prod),
+        work=work + ", f32 O")
+    entries["flash_attention_bwd_dq_ring"] = dict(
+        counter=fa.BWD_DQ, instance=inst, path="sp_ring",
+        replaces=f"{where}:113", source=src, max_abs_err=err["dq"],
+        ms=time_ms(lambda: fa._dq_kernel(*ops, False, scale, out_f32=True),
+                   iters=10),
+        plain_ms=plain_bwd_ms, library_ms=sdpa_bwd_ms,
+        bound=bound_ms(2 * q_bytes + 2 * kv_bytes + 2 * row_bytes
+                       + 2 * q_bytes, 3 * prod), work=work + ", f32 dQ")
+    entries["flash_attention_bwd_dkv_ring"] = dict(
+        counter=fa.BWD_DKV, instance=inst, path="sp_ring",
+        replaces=f"{where}:151", source=src,
+        max_abs_err=max(err["dk"], err["dv"]),
+        ms=time_ms(lambda: fa._dkv_kernel(*ops, False, scale, out_f32=True),
+                   iters=10),
+        plain_ms=plain_bwd_ms, library_ms=sdpa_bwd_ms,
+        bound=bound_ms(2 * q_bytes + 2 * kv_bytes + 2 * row_bytes
+                       + 4 * kv_bytes, 4 * prod), work=work + ", f32 dK/dV")
+    f32_ms = entries["flash_attention_fwd_lse_ring"]["ms"]
+    print(f"  ring block forward: f32 O {f32_ms:.3f} ms, bf16 O "
+          f"{bf16_out_ms:.3f} ms; SDPA not causal {sdpa_ms:.3f} ms (no "
+          "grad)", flush=True)
+    del q, k, v, do, o, ob, lse, ops, dq, dk, dv, qg, kg, vg
+
+    # sequence parallelism alone: causal, Tq < Tk (bottom-right)
+    Tq, Tk = SP_TQ, SP_TK
+    q, k, v, do = operands(Tq, Tk)
+    o, lse = fa._fwd_kernel(q, k, v, True, scale, True)
+    ops = fa._bwd_operands(q, k, v, do, lse, fa._delta(o, do))
+    dq = fa._dq_kernel(*ops, True, scale, out_f32=True)
+    dk, dv = fa._dkv_kernel(*ops, True, scale, out_f32=True)
+    err = hold(f"Tq {Tq} < Tk {Tk}", dict(o=o, lse=lse, dq=dq, dk=dk, dv=dv),
+               (q, k, v, do), True, o, lse, 1, True)
+    hold_rounded_once(f"Tq {Tq} < Tk {Tk}", dict(dq=dq, dk=dk, dv=dv), dict(
+        dq=fa._dq_kernel(*ops, True, scale),
+        **dict(zip(("dk", "dv"), fa._dkv_kernel(*ops, True, scale)))))
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    lib_grad_ms = time_ms(lambda: _lower_right_sdpa(qg, kg, vg), iters=10)
+    lib_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        _lower_right_sdpa(qg, kg, vg), (qg, kg, vg), do),
+        iters=10) - lib_grad_ms
+    plain_fwd_ms = time_ms(lambda: fa.flash_fwd_plain(q, k, v, True, scale),
+                           iters=2, warmup=1)
+    plain_bwd_ms = time_ms(lambda: fa.flash_bwd_plain(
+        q, k, v, o, lse, do, True, scale, out_f32=True), iters=2, warmup=1)
+    pairs = Tq * (Tk - Tq + 1) + Tq * (Tq - 1) / 2
+    prod = 2.0 * pairs * D * H
+    q_bytes, kv_bytes, row_bytes = 2 * Tq * H * D, 2 * Tk * KVH * D, \
+        4 * H * Tq
+    work = (f"gathered keys: B=1, Tq={Tq} < Tk={Tk}, 32/8 heads, D=128, "
+            "causal bottom-right")
+    entries["flash_attention_fwd_lse_tq_lt_tk"] = dict(
+        counter=fa.FWD_LSE, instance=fa.instance(q, k, fa.FWD_LSE),
+        path="sp_seq", replaces=f"{where}:97", source=src,
+        max_abs_err=max(err["o"], err["lse"]),
+        ms=time_ms(lambda: fa._fwd_kernel(q, k, v, True, scale, True),
+                   iters=10),
+        plain_ms=plain_fwd_ms, library_ms=lib_grad_ms,
+        bound=bound_ms(2 * q_bytes + 2 * kv_bytes + row_bytes, 2 * prod),
+        work=work)
+    f32o = fa.instance(q, k, fa.BWD_DQ, out_f32=True)
+    entries["flash_attention_bwd_dq_tq_lt_tk"] = dict(
+        counter=fa.BWD_DQ, instance=f32o, path="sp_seq",
+        replaces=f"{where}:113", source=src, max_abs_err=err["dq"],
+        ms=time_ms(lambda: fa._dq_kernel(*ops, True, scale, out_f32=True),
+                   iters=10),
+        plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms,
+        bound=bound_ms(2 * q_bytes + 2 * kv_bytes + 2 * row_bytes
+                       + 2 * q_bytes, 3 * prod), work=work + ", f32 dQ")
+    entries["flash_attention_bwd_dkv_tq_lt_tk"] = dict(
+        counter=fa.BWD_DKV, instance=f32o, path="sp_seq",
+        replaces=f"{where}:151", source=src,
+        max_abs_err=max(err["dk"], err["dv"]),
+        ms=time_ms(lambda: fa._dkv_kernel(*ops, True, scale, out_f32=True),
+                   iters=10),
+        plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms,
+        bound=bound_ms(2 * q_bytes + 2 * kv_bytes + 2 * row_bytes
+                       + 4 * kv_bytes, 4 * prod),
+        work=work + ", f32 dK/dV")
+    print("  plain backward = dQ, dK and dV together; library: SDPA with "
+          "grad (the forward) and its backward as (fwd+bwd) - fwd, on the "
+          "same mask (bottom-right for Tq < Tk)", flush=True)
     print_entries(entries)
     return entries
 
@@ -5854,6 +6135,168 @@ def phase_mesh_train(dev, config="llama3_8b", layers=MESH_LAYERS,
     print(f"  {json.dumps(dict(losses=r0['losses'], unsharded=single['losses'], step_ms=r0['step_ms'], unsharded_step_ms=single['step_ms'], loss_rel=read['loss'], update_rel=read['update'][read['worst']], bytes=r0['bytes'], peak_gb=peaks, card_peak_mib=smi.peak_mib, collectives=calls, staged=staged, seconds=dict(A=a_s, B=c_s), save_s=save_s, restore_s=restore_s, shard_files=[c["shard_files"] for r in ranks for c in r["checkpoints"]], shard_bytes=[c["bytes"] for r in ranks for c in r["checkpoints"]]))}", flush=True)
 
 
+SP_AXES = {"sp": 4}            # phase 7q: ring, Ulysses, sequence-parallel
+SP_LAYERS = 2                  # Llama-3-8B width, 2 of 32 layers
+SP_SEQ = 32768                 # one [1, SP_SEQ] batch: 8192 positions a rank
+SP_LR = 1e-4                   # the SGD step of each mode
+SP_MODES = ("ring", "ulysses", "sequence_parallel")
+
+
+def sp_attention_launches(mode, rank, layers, sp):
+    """A rank's attention launches (by instance) in one step of phase
+    7q's ``mode``: ring, rank r runs its r + 1 held blocks a layer (the
+    later ones skipped) with f32 outputs; Ulysses one launch of each at
+    full T; sequence parallelism alone one causal Tq < Tk forward and
+    the backward with f32 dK/dV (dQ too)."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    f32o = "w128" + fa.F32_OUT
+    if mode == "ring":
+        n = layers * (rank + 1)
+        return {f"{k}@{f32o}": n for k in (fa.FWD_LSE, fa.BWD_DQ,
+                                           fa.BWD_DKV)}
+    if mode == "ulysses":
+        return {f"{k}@w128": layers for k in (fa.FWD_LSE, fa.BWD_DQ,
+                                              fa.BWD_DKV)}
+    return {f"{fa.FWD_LSE}@w128": layers, f"{fa.BWD_DQ}@{f32o}": layers,
+            f"{fa.BWD_DKV}@{f32o}": layers}
+
+
+def sp_collectives(mode, layers, sp, n_params, kv_heads):
+    """(collectives, staged) of one step of phase 7q's ``mode`` on a
+    rank: the ring's hops (sp - 1 a layer forward, sp backward), all
+    staged through host memory by the port under gloo; Ulysses's 8
+    all-to-alls a layer (the ring's hops where the kv heads do not
+    divide by sp); the gathered k/v (2 all-gathers forward, 2
+    reduce-scatters backward); the next rank's first label (one
+    all-gather); one all-reduce a gradient."""
+    calls = {"all_gather": 1, "all_reduce": n_params}
+    staged = {}
+    if mode == "ring" or (mode == "ulysses" and kv_heads % sp):
+        calls["ring_exchange"] = staged["ring_exchange"] = \
+            layers * (2 * sp - 1)
+    elif mode == "ulysses":
+        calls["all_to_all_single"] = 8 * layers
+    else:
+        calls["all_gather"] += 2 * layers
+        calls["reduce_scatter"] = 2 * layers
+    return calls, staged
+
+
+def phase_mesh_sp(dev, config="llama3_8b", layers=SP_LAYERS, seq=SP_SEQ):
+    """Phase 7q (module docstring): ``config`` at ``layers`` layers,
+    bf16, one global [1, ``seq``] batch, SP_MODES in one world of
+    SP_AXES over gloo (``paddle_tpu_torch.tools.mesh_train --sp-modes``),
+    against the unsharded forward and backward in this process first
+    (``mesh_train.sp_against_single``).  Returns each mode's launches
+    summed over the ranks, by kernel and by instance (``sp_ring``,
+    ``sp_ulysses``, ``sp_seq``), for the kernel rows of phase 3q."""
+    import shutil
+
+    from paddle_tpu_torch.tools import mesh_train
+
+    out = os.path.abspath(os.path.join("build", "mesh_7q"))
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    sp = SP_AXES["sp"]
+    dev_arg = "cuda:0" if dev.type == "cuda" else "cpu"
+    common = ["--sp-modes", ",".join(SP_MODES), "--config", config,
+              "--layers", str(layers), "--seq", str(seq), "--batch", "1",
+              "--lr", str(SP_LR), "--device", dev_arg]
+    if config == "tiny":
+        common += ["--dtype", "bfloat16"]
+    t_all = time.perf_counter()
+    print(f"[train sp mesh] {config} width, bf16, {layers} layers, global "
+          f"batch [1, {seq}], {SP_AXES}: {', '.join(SP_MODES)}, each a "
+          f"forward, backward and SGD({SP_LR}) step", flush=True)
+    ref = os.path.join(out, "ref_grads.pt")
+    mesh_train.main(common + ["--out", os.path.join(out, "single"),
+                              "--save-grads", ref])
+    with open(os.path.join(out, "single", "rank0.json")) as f:
+        single = json.load(f)
+    free()
+    print(f"  unsharded: loss {single['loss']:.6f}, forward and backward "
+          f"{single['fb_s']:.2f} s, SGD {single['sgd_s']:.2f} s, peak "
+          f"{single['peak_gb']:.1f} GB", flush=True)
+    with _SmiPeak() as smi:
+        ranks, _, secs, _ = _mesh_world(
+            common + ["--axes", json.dumps(SP_AXES), "--backend", "gloo",
+                      "--timeout", str(MESH_WORLD_S), "--ref-grads", ref],
+            out, "world", n=sp, phase="7q")
+    if len(ranks) != sp:
+        raise AssertionError(f"7q: {len(ranks)} of {sp} ranks reported")
+    r0 = ranks[0]
+    read, fails = mesh_train.sp_against_single(r0, single)
+    print(f"  world: gloo, {sp} ranks on {dev_arg}, {secs:.1f} s with "
+          "start-up", flush=True)
+    n_params = len(r0["modes"][SP_MODES[0]]["grad_err"])
+    rest = {k: v for k, v in single["launches"].items()
+            if not k.startswith("flash_attention")}
+    runs = {}
+    for mode in SP_MODES:
+        m = read[mode]
+        print(f"  {mode}: (a) loss {r0['modes'][mode]['loss']:.6f} vs "
+              f"unsharded {single['loss']:.6f}: |diff| / |loss| "
+              f"{m['loss']:.3g} (limit {mesh_train.SP_LOSS_REL:.3g}); (b) "
+              f"worst gradient {m['grad']:.3g} ({m['worst']}; limit "
+              f"{mesh_train.SP_GRAD_REL:.3g}), median {m['median']:.3g} "
+              f"over {n_params} parameters", flush=True)
+        want_calls, want_staged = sp_collectives(
+            mode, layers, sp, n_params,
+            2 if config == "tiny" else 8)
+        summed = {}
+        for r in ranks:
+            res = r["modes"][mode]
+            if res["part"] != [1, seq // sp] or not res["finite"]:
+                raise AssertionError(f"7q {mode}: rank {r['rank']} part "
+                                     f"{res['part']}, finite "
+                                     f"{res['finite']}")
+            attn = {k: n for k, n in res["instances"].items()
+                    if k.startswith("flash_attention")}
+            other = {k: n for k, n in res["launches"].items()
+                     if not k.startswith("flash_attention")}
+            want = {} if dev.type == "cpu" else sp_attention_launches(
+                mode, r["rank"], layers, sp)
+            if attn != want or other != rest or \
+                    any("_general" in k for k in res["launches"]):
+                raise AssertionError(
+                    f"7q {mode}: rank {r['rank']} attention launches "
+                    f"{attn}, want {want}; other {other}, want {rest}")
+            if res["collectives"] != want_calls or \
+                    (dev.type == "cuda" and res["staged"] != want_staged):
+                raise AssertionError(
+                    f"7q {mode}: rank {r['rank']} collectives "
+                    f"{res['collectives']} / staged {res['staged']}, want "
+                    f"{want_calls} / {want_staged}")
+            for k, n in (*res["launches"].items(),
+                         *res["instances"].items()):
+                summed[k] = summed.get(k, 0) + n
+        runs[{"ring": "sp_ring", "ulysses": "sp_ulysses",
+              "sequence_parallel": "sp_seq"}[mode]] = summed
+        steps = [r["modes"][mode]["step_s"] for r in ranks]
+        peaks = [r["modes"][mode]["peak_gb"] for r in ranks]
+        res0 = r0["modes"][mode]
+        shown = [sp_attention_launches(mode, r, layers, sp)
+                 for r in range(sp)] if dev.type == "cuda" else \
+            "{} on the CPU"
+        print(f"  {mode}: (c) attention launches a rank {shown}; "
+              f"the other kernels the unsharded step's; (d) collectives "
+              f"{res0['collectives']}, staged {res0['staged']}; (e) step "
+              f"{max(steps):.2f} s on the slowest rank (forward and "
+              f"backward {res0['fb_s']:.2f} s, gradient sum "
+              f"{res0['reduce_s']:.2f} s, SGD {res0['sgd_s']:.2f} s on "
+              f"rank 0), peak allocated {min(peaks):.1f}-{max(peaks):.1f} "
+              f"GB a rank", flush=True)
+    print(f"  (e) card peak {smi.peak_mib / 1024:.1f} GiB used (nvidia-smi, "
+          f"{sp} contexts included)", flush=True)
+    if fails:
+        raise AssertionError(f"7q: {'; '.join(fails)}")
+    shutil.rmtree(out, ignore_errors=True)
+    print(f"  phase 7q: {time.perf_counter() - t_all:.1f} s", flush=True)
+    print(f"  {json.dumps(dict(unsharded=dict(loss=single['loss'], fb_s=single['fb_s'], peak_gb=single['peak_gb']), modes={m: dict(loss=r0['modes'][m]['loss'], loss_rel=read[m]['loss'], grad_rel=read[m]['grad'], grad_worst=read[m]['worst'], step_s=[r['modes'][m]['step_s'] for r in ranks], fb_s=[r['modes'][m]['fb_s'] for r in ranks], reduce_s=[r['modes'][m]['reduce_s'] for r in ranks], peak_gb=[r['modes'][m]['peak_gb'] for r in ranks], collectives=r0['modes'][m]['collectives'], staged=r0['modes'][m]['staged']) for m in SP_MODES}, card_peak_mib=smi.peak_mib, world_s=secs))}", flush=True)
+    return runs
+
+
 EP_AXES = {"data": 2, "fsdp": 2, "expert": 2}   # tests/test_moe_sp_workloads.py
 EP_RESTORE_AXES = {"data": 2, "expert": 2}     # world B of phase 7e
 EP_LAYERS = 1                  # phase 7e: Mixtral-8x7B width, 1 of 32 layers
@@ -6429,6 +6872,9 @@ def main() -> int:
     phase_build()
     entries = phase_kernels(dev)
     train_entries = phase_train_kernels(dev)
+    free()
+    sp_entries = sp_kernel_entries(dev)
+    free()
     moe_entries = phase_moe_kernels(dev)
     free()
     c1_entries = phase_c1_kernels(dev)
@@ -6473,6 +6919,8 @@ def main() -> int:
     free()
     mesh_moe_counts = phase_mesh_moe(dev)
     free()
+    sp_counts = phase_mesh_sp(dev)
+    free()
     moe_train_counts = phase_train(dev, mixtral_config(
         num_hidden_layers=MOE_TRAIN_LAYERS, fused_lm_loss=True),
         MOE_TRAIN_T, "train moe", "Mixtral-8x7B width")
@@ -6483,9 +6931,11 @@ def main() -> int:
             "static_train": static_counts, "c1_tiny": c1_tiny_counts,
             "c1_serve": c1_counts, "train_phi3": phi3_counts,
             "phi3_serve": phi3_serve_counts, "spec": spec_counts,
-            "hapi_train": hapi_counts, "mesh_moe": mesh_moe_counts}
+            "hapi_train": hapi_counts, "mesh_moe": mesh_moe_counts,
+            **sp_counts}
     kernels = []
     for name, e in [*entries.items(), *train_entries.items(),
+                    *sp_entries.items(),
                     *moe_entries.items(), *c1_entries.items(),
                     *static_entries.items(), *spec_entries.items()]:
         # launches: from the main phase of the kernel's own path (bf16
@@ -6509,7 +6959,8 @@ def main() -> int:
             "bound_share": e["bound"][0] / e["ms"],
             "x_library": None if e["library_ms"] is None
             else e["ms"] / e["library_ms"],
-            **{k: e[k] for k in ("hot_ms", "library_hot_ms") if k in e}})
+            **{k: e[k] for k in ("hot_ms", "library_hot_ms", "bf16_out_ms")
+               if k in e}})
     print(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(smi_line())
     print(json.dumps({"kernels": kernels}))

@@ -23,6 +23,12 @@
 // Masked keys get weight exactly 0, and every row sees key 0, so the
 // running max is finite after the first tile.  lse/delta are plain
 // [B, H, Tq] f32 rows (the TPU's 128-lane broadcast is not carried over).
+// Every entry takes out_f32: O, dQ, dK and dV are written in the
+// operands' type, or as f32 when it is set (ring attention's partial
+// blocks, kernels/ring_attention.py, summed over the ring in f32 and
+// rounded once; the sequence-parallel dK/dV, summed over the ranks).
+// It is a run-time flag read once in each kernel's epilogue, so it adds
+// no instance.
 //
 // Bound on the H100: operations (forward 2 products of Tq*Tk*D per head,
 // dQ 3, dK/dV 4, halved by the causal mask), at Llama-3-8B's T = 8192.
@@ -87,6 +93,7 @@ struct FAParams {
   int64_t ksb, ksh, kst;  // strides of k, v, dK, dV
   int causal;
   float scale;
+  int out_f32;         // O, dQ, dK, dV written as f32 (partials)
 };
 
 __device__ __forceinline__ int64_t q_off(const FAParams& p, int b, int h,
@@ -97,6 +104,29 @@ __device__ __forceinline__ int64_t k_off(const FAParams& p, int b, int h,
                                          int t) {
   return b * p.ksb + h * p.ksh + t * p.kst;
 }
+// an output element (O, dQ, dK or dV) at element offset `at`: f32 when
+// the caller asked for f32 partials (p.out_f32: ring attention's blocks,
+// summed in f32 and rounded once), else the operands' type
+template <typename T>
+__device__ __forceinline__ void store_out(const FAParams& p, void* base,
+                                          int64_t at, float x) {
+  if (p.out_f32)
+    static_cast<float*>(base)[at] = x;
+  else
+    static_cast<T*>(base)[at] = from_f32<T>(x);
+}
+
+// two adjacent bf16-kernel outputs at an even element offset `at`
+__device__ __forceinline__ void store_pair(const FAParams& p, void* base,
+                                           int64_t at, float a, float b) {
+  if (p.out_f32)
+    *reinterpret_cast<float2*>(static_cast<float*>(base) + at) =
+        make_float2(a, b);
+  else
+    *reinterpret_cast<uint32_t*>(static_cast<bf16*>(base) + at) =
+        pack_bf16(a, b);
+}
+
 // keys [0, key_limit) are visible to query row i (i < Tq)
 __device__ __forceinline__ int key_limit(const FAParams& p, int i) {
   return p.causal ? min(p.Tk, i + (p.Tk - p.Tq) + 1) : p.Tk;
@@ -193,11 +223,11 @@ __global__ void __launch_bounds__(F_THREADS) fa_fwd_general(FAParams p) {
   const int row = q0 + my_row;
   if (row < p.Tq) {
     const float l = l_s[my_row];
-    T* o = (T*)p.out + q_off(p, b, h, row);
+    const int64_t o = q_off(p, b, h, row);
 #pragma unroll
     for (int j = 0; j < F_DPT; ++j) {
       const int d = j * F_PARTS + part;
-      if (d < D) o[d] = from_f32<T>(acc[j] / fmaxf(l, 1e-30f));
+      if (d < D) store_out<T>(p, p.out, o + d, acc[j] / fmaxf(l, 1e-30f));
     }
     if (WRITE_LSE && part == 0)
       p.lse[((size_t)b * p.H + h) * p.Tq + row] =
@@ -277,11 +307,11 @@ __global__ void __launch_bounds__(F_THREADS) fa_bwd_dq_general(FAParams p) {
   }
   const int row = q0 + my_row;
   if (row < p.Tq) {
-    T* dq = (T*)p.dq + q_off(p, b, h, row);
+    const int64_t dq = q_off(p, b, h, row);
 #pragma unroll
     for (int j = 0; j < F_DPT; ++j) {
       const int d = j * F_PARTS + part;
-      if (d < D) dq[d] = from_f32<T>(acc[j]);
+      if (d < D) store_out<T>(p, p.dq, dq + d, acc[j]);
     }
   }
 }
@@ -370,14 +400,13 @@ __global__ void __launch_bounds__(F_THREADS) fa_bwd_dkv_general(FAParams p) {
   }
   const int key = k0 + my_row;
   if (key < p.Tk) {
-    T* dkr = (T*)p.dk + k_off(p, b, kh, key);
-    T* dvr = (T*)p.dv + k_off(p, b, kh, key);
+    const int64_t at = k_off(p, b, kh, key);
 #pragma unroll
     for (int j = 0; j < F_DPT; ++j) {
       const int d = j * F_PARTS + part;
       if (d < D) {
-        dkr[d] = from_f32<T>(dk[j]);
-        dvr[d] = from_f32<T>(dv[j]);
+        store_out<T>(p, p.dk, at + d, dk[j]);
+        store_out<T>(p, p.dv, at + d, dv[j]);
       }
     }
   }
@@ -615,14 +644,14 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
     for (int i = 0; i < 2; ++i) {
       if (row[i] >= p.Tq) continue;
       const float inv_l = 1.f / fmaxf(l[i], 1e-30f);
-      bf16* orow = (bf16*)p.out + q_off(p, b, h, row[i]);
+      const int64_t orow = q_off(p, b, h, row[i]);
       // columns 8 j .. 8 j + 7 (D is a multiple of 8): past D lie the
       // next head's columns in the model's [B, T, H, D] layout
 #pragma unroll
       for (int j = 0; j < W / 8; ++j)
         if (8 * j < p.D)
-          *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * tg) = pack_bf16(
-              o[4 * j + 2 * i] * inv_l, o[4 * j + 2 * i + 1] * inv_l);
+          store_pair(p, p.out, orow + 8 * j + 2 * tg,
+                     o[4 * j + 2 * i] * inv_l, o[4 * j + 2 * i + 1] * inv_l);
       if (WRITE_LSE && tg == 0)
         p.lse[((size_t)b * p.H + h) * p.Tq + row[i]] =
             (m[i] + log2f(fmaxf(l[i], 1e-30f))) * 0.6931471805599453f;
@@ -922,17 +951,16 @@ __global__ void __launch_bounds__(DKV_THREADS, 1)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       if (key[i] >= p.Tk) continue;
-      bf16* dkr = (bf16*)p.dk + k_off(p, b, kh, key[i]) + c0;
-      bf16* dvr = (bf16*)p.dv + k_off(p, b, kh, key[i]) + c0;
+      const int64_t at = k_off(p, b, kh, key[i]) + c0;
       // columns 8 j .. 8 j + 7 (D is a multiple of 8): past D lie the
       // next head's columns in the model's [B, T, H, D] layout
 #pragma unroll
       for (int j = 0; j < CW / 8; ++j)
         if (c0 + 8 * j < p.D) {
-          *reinterpret_cast<uint32_t*>(dkr + 8 * j + 2 * tg) =
-              pack_bf16(dk[4 * j + 2 * i], dk[4 * j + 2 * i + 1]);
-          *reinterpret_cast<uint32_t*>(dvr + 8 * j + 2 * tg) =
-              pack_bf16(dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
+          store_pair(p, p.dk, at + 8 * j + 2 * tg, dk[4 * j + 2 * i],
+                     dk[4 * j + 2 * i + 1]);
+          store_pair(p, p.dv, at + 8 * j + 2 * tg, dv[4 * j + 2 * i],
+                     dv[4 * j + 2 * i + 1]);
         }
     }
   }
@@ -1145,13 +1173,13 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       if (row[i] >= p.Tq) continue;
-      bf16* dqr = (bf16*)p.dq + q_off(p, b, h, row[i]);
+      const int64_t dqr = q_off(p, b, h, row[i]);
       // columns past D: the next head's in the [B, T, H, D] layout
 #pragma unroll
       for (int j = 0; j < W / 8; ++j)
         if (8 * j < p.D)
-          *reinterpret_cast<uint32_t*>(dqr + 8 * j + 2 * tg) =
-              pack_bf16(dq[4 * j + 2 * i], dq[4 * j + 2 * i + 1]);
+          store_pair(p, p.dq, dqr + 8 * j + 2 * tg, dq[4 * j + 2 * i],
+                     dq[4 * j + 2 * i + 1]);
     }
   }
 }
@@ -1223,7 +1251,7 @@ static bool bad_shape(int H, int KVH, int Tq, int Tk, int D, int causal,
 #define FA_ARGS                                                         \
   int B, int H, int KVH, int Tq, int Tk, int D, int64_t qsb, int64_t qsh, \
       int64_t qst, int64_t ksb, int64_t ksh, int64_t kst, int causal,     \
-      float scale, int dtype, int general, void* stream
+      float scale, int dtype, int out_f32, int general, void* stream
 
 // the three tensor maps of q [B, H, Tq, D] and k, v [B, KVH, Tk, D]
 // from the strides in p (elements; each a multiple of 8, checked by the
@@ -1275,6 +1303,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   FAParams p = make_params(q, k, v, B, H, KVH, Tq, Tk, D, qsb, qsh, qst, ksb,
                            ksh, kst, causal, scale);
+  p.out_f32 = out_f32;
   p.out = out;
   p.lse = lse;
   cudaStream_t st = (cudaStream_t)stream;
@@ -1336,6 +1365,7 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   FAParams p = make_params(q, k, v, B, H, KVH, Tq, Tk, D, qsb, qsh, qst, ksb,
                            ksh, kst, causal, scale);
+  p.out_f32 = out_f32;
   p.dout = dout;
   p.lse = const_cast<float*>(lse);
   p.delta = delta;
@@ -1379,6 +1409,7 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   FAParams p = make_params(q, k, v, B, H, KVH, Tq, Tk, D, qsb, qsh, qst, ksb,
                            ksh, kst, causal, scale);
+  p.out_f32 = out_f32;
   p.dout = dout;
   p.lse = const_cast<float*>(lse);
   p.delta = delta;
@@ -1397,7 +1428,7 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
   // no query rows: zero sums (dK, dV are dense, from empty_like(k)); the
   // tensor maps take no zero extent
   if (Tq == 0) {
-    const size_t bytes = (size_t)B * KVH * Tk * D * 2;
+    const size_t bytes = (size_t)B * KVH * Tk * D * (out_f32 ? 4 : 2);
     const cudaError_t e = cudaMemsetAsync(dk, 0, bytes, st);
     return (int)(e != cudaSuccess ? e : cudaMemsetAsync(dv, 0, bytes, st));
   }

@@ -7,9 +7,13 @@ and the hybrid topology (``mesh``), tensor-parallel layers
 (``executor``), activation recomputation (``recompute``), the process
 context and local bootstrap (``bootstrap``), sharded state-dict
 checkpoints (``checkpoint``), expert-parallel routing (``utils``'s
-``global_scatter``/``global_gather``) and the MoE layers (``moe``)."""
+``global_scatter``/``global_gather``), the MoE layers (``moe``), and
+sequence and context parallelism (``sequence_parallel``; the ring and
+Ulysses attentions, exported here as the JAX package exports them)."""
+from ..kernels.ring_attention import ring_attention
+from ..kernels.ulysses_attention import ulysses_attention
 from . import (bootstrap, checkpoint, collective, executor, fleet, launch,
-               sharding)
+               sequence_parallel, sharding)
 from .collective import (Group, ParallelMode, ReduceOp, all_gather,
                          all_gather_object, all_reduce, alltoall,
                          alltoall_single, barrier, broadcast,
@@ -21,7 +25,8 @@ from .executor import (MeshExecutor, active_mesh, active_mesh_axes,
                        as_executor, current_executor, default_shardplan_mesh)
 from .mesh import (CommunicateTopology, HybridCommunicateGroup, Mesh,
                    ProcessMesh, fleet_mesh, get_hybrid_communicate_group,
-                   get_mesh, init_mesh, reset_mesh, set_mesh, use_mesh)
+                   get_mesh, init_mesh, reset_mesh, sequence_group,
+                   set_mesh, use_mesh)
 from .parallel import (DataParallel, current_device, destroy_parallel_env,
                        init_parallel_env)
 from .parallel_layers import (ColumnParallelLinear, ParallelCrossEntropy,
@@ -58,7 +63,8 @@ __all__ = [
     "is_initialized", "isend", "launch", "llama_param_role",
     "llama_param_specs", "mark_sharding", "model_parallel_random_seed",
     "new_group", "recompute", "recompute_sequential", "recv", "reduce",
-    "reduce_scatter", "reset_mesh", "reshard", "save_group_sharded_model",
-    "scatter", "send", "set_mesh", "shard_op", "shard_tensor", "sharding",
-    "split", "use_mesh", "wait",
+    "reduce_scatter", "reset_mesh", "reshard", "ring_attention",
+    "save_group_sharded_model", "scatter", "send", "sequence_group",
+    "sequence_parallel", "set_mesh", "shard_op", "shard_tensor", "sharding",
+    "split", "ulysses_attention", "use_mesh", "wait",
 ]

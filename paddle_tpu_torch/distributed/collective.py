@@ -21,8 +21,9 @@ avg; f32 and bf16), ``reduce``, ``all_gather``,
 ``gather``, ``scatter`` and ``barrier`` on CUDA tensors (copying
 through host memory itself), and fails ``send``/``recv`` of a CUDA
 tensor (the TCP pair writes from the device pointer and aborts the
-process).  Those two (:data:`GLOO_CUDA_STAGED`) go through a pinned
-host buffer here: the tensor copied to it, the call made on it, the
+process).  Those two and :func:`ring_exchange`, made of the same
+point-to-point calls (:data:`GLOO_CUDA_STAGED`), go through pinned
+host buffers here: the tensor copied to it, the call made on it, the
 result copied back.  Each such call adds one to :func:`staged_counts`
 under its name, and every call of this module adds one to
 :func:`counts`, so a caller can print what a step staged.  The list
@@ -45,12 +46,13 @@ __all__ = [
     "barrier", "broadcast", "broadcast_object_list", "comm_device", "counts",
     "get_group",
     "irecv", "isend", "mean_rounded_once", "new_group", "recv", "reduce",
-    "reduce_scatter", "reset_counts", "scatter", "send", "split",
-    "staged_counts", "sum_rounded_once", "wait", "world_group",
+    "reduce_scatter", "reset_counts", "ring_exchange", "scatter", "send",
+    "split", "staged_counts", "sum_divided_rounded_once",
+    "sum_rounded_once", "wait", "world_group",
 ]
 
 #: calls gloo fails on CUDA tensors; they are staged through host memory
-GLOO_CUDA_STAGED = frozenset({"send", "recv"})
+GLOO_CUDA_STAGED = frozenset({"send", "recv", "ring_exchange"})
 
 _CALLS: collections.Counter = collections.Counter()
 _STAGED: collections.Counter = collections.Counter()
@@ -250,14 +252,14 @@ def _wide(tensor, nranks):
     return tensor.float() if tensor.element_size() < 4 else tensor
 
 
-def _rounded_once(tensor, group, mean):
+def _rounded_once(tensor, group, divisor):
     g = _group(group)
     if _trivial(g):
         return tensor
     wide = _wide(tensor, g.nranks)
     all_reduce(wide, group=g)
-    if mean:
-        wide.div_(g.nranks)
+    if divisor != 1:
+        wide.div_(divisor)
     return tensor if wide is tensor else tensor.copy_(wide)
 
 
@@ -266,7 +268,7 @@ def sum_rounded_once(tensor, group=None):
     once: the parts widened (:func:`_wide`), summed by one
     ``all_reduce``, the sum copied back.  A sum of equal parts is exact
     in the wide type, whatever the backend's order."""
-    return _rounded_once(tensor, group, mean=False)
+    return _rounded_once(tensor, group, 1)
 
 
 def mean_rounded_once(tensor, group=None):
@@ -274,7 +276,16 @@ def mean_rounded_once(tensor, group=None):
     :func:`sum_rounded_once` divided in the wide type (halving two
     parts is exact in any type) and rounded to the tensor's dtype once;
     the mean of equal tensors is each of them, bit for bit."""
-    return _rounded_once(tensor, group, mean=True)
+    return _rounded_once(tensor, group, _group(group).nranks)
+
+
+def sum_divided_rounded_once(tensor, group, divisor):
+    """``tensor`` summed over ``group`` and divided by ``divisor``, in
+    place, rounded once as :func:`mean_rounded_once` (the sequence-
+    parallel gradient: summed over the ``sp`` ranks, each holding a
+    share of one global mean, and averaged over the data ranks, the
+    group being both and ``divisor`` the data ranks' count)."""
+    return _rounded_once(tensor, group, divisor)
 
 
 def all_gather(tensor_list, tensor, group=None, sync_op=True, axis=0):
@@ -468,6 +479,33 @@ def isend(tensor, dst=0, group=None):
 
 def irecv(tensor, src=0, group=None):
     return recv(tensor, src, group, sync_op=False)
+
+
+def ring_exchange(tensors, group=None):
+    """One hop of a ring over the group's ranks: each of ``tensors``
+    goes to the next rank of the group, and the previous rank's come
+    back, as new tensors, in the same order.  Every rank posts all its sends and receives together
+    (``batch_isend_irecv``) and then waits, so no two neighbours wait on
+    each other whatever the backend's buffering.  One call of
+    :func:`counts` a hop; gloo on CUDA tensors stages it through pinned
+    host buffers (:func:`staged_counts`)."""
+    g = _group(group)
+    _peerless(g)
+    n = g.nranks
+    nxt, prv = g.ranks[(g.rank + 1) % n], g.ranks[(g.rank - 1) % n]
+    ins = [t.contiguous() for t in tensors]
+    outs = [torch.empty_like(t) for t in ins]
+    k = len(ins)
+
+    def hop(*bufs):
+        ops = [dist.P2POp(dist.isend, b, nxt, g.pg) for b in bufs[:k]] + \
+            [dist.P2POp(dist.irecv, b, prv, g.pg) for b in bufs[k:]]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+
+    _call("ring_exchange", g, hop, *ins, *outs,
+          written=tuple(range(k, 2 * k)))
+    return outs
 
 
 def barrier(group=None):

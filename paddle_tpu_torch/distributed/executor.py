@@ -15,6 +15,18 @@ out over a mesh of devices:
 - ``reduce_gradients`` averages each gradient over ``data`` (the other
   axes computed on the same rows, so their gradients need no sum: the
   parallel layers' collectives already made them whole);
+- a model that splits its sequence over ``sp`` (a Llama with
+  ``context_parallel`` or ``sequence_parallel`` on a mesh with an
+  ``sp`` axis of more than one rank, ``sequence_sharded``) gets each
+  [B, T, ...] batch leaf cut along the sequence too (``sequence_spec``:
+  batch on ``data``, sequence on ``sp``; inputs and labels alike, the
+  model carrying the labels across the boundaries); a rank's loss is
+  then its share of the global mean (``loss_share`` makes an outside
+  loss, a mean over the rank's tokens, one), so the gradients are
+  SUMMED over ``sp`` and averaged over ``data``, rounded once, and the
+  loss reported is the shares' sum averaged over ``data``.  A mesh with
+  ``sp`` and a model with neither option stays replicated over ``sp``,
+  as in the JAX package;
 - ``host_state``/``scatter_state`` make a host copy of this rank's parts
   of a state tree and put a tree's parts back into this rank's
   parameters and slots, with no collective (the sharded checkpoint,
@@ -40,6 +52,7 @@ import torch
 from . import collective
 from .env import get_rank, get_world_size
 from .mesh import Mesh
+from .sequence_parallel import uses_sequence_parallel
 from .sharding import (PartitionSpec, Placement, SpecLayout, _entry_axes,
                        placement_of)
 
@@ -119,6 +132,7 @@ class MeshExecutor:
         self.mesh = Mesh(dict(zip(names, sizes)), ranks)
         self.axes: Dict[str, int] = dict(zip(names, sizes))
         self.layout = layout if layout is not None else SpecLayout()
+        self.sequence_sharded = False
         if register:
             global _ACTIVE
             _ACTIVE = self
@@ -188,6 +202,15 @@ class MeshExecutor:
                 "tied embeddings on a tp > 1 mesh (the vocab-parallel "
                 "table as the head) are not ported; they belong to "
                 "ROADMAP item A3")
+        if getattr(cfg, "moe_num_experts", 0) > 0 and \
+                self._splits_sequence(cfg):
+            raise NotImplementedError(
+                "a mixture-of-experts model with its sequence split over "
+                "sp (capacity over the global tokens) is not ported")
+
+    def _splits_sequence(self, cfg) -> bool:
+        return uses_sequence_parallel(cfg) and \
+            self.mesh.axis_size(self.layout.sp_axis) > 1
 
     def shard_params(self, layer) -> int:
         """Make every parameter this rank's part under its role's spec,
@@ -223,6 +246,8 @@ class MeshExecutor:
         parameters and its optimizer's slots."""
         net = getattr(model, "network", model)
         self._check_model(net)
+        cfg = getattr(net, "config", None)
+        self.sequence_sharded = cfg is not None and self._splits_sequence(cfg)
         self.shard_params(net)
         opt = getattr(model, "_optimizer", None)
         if opt is not None:
@@ -239,19 +264,29 @@ class MeshExecutor:
 
     def shard_batch(self, values):
         """This rank's rows (dim 0 split along the layout's batch axis)
-        of each batch leaf; other leaves as they are."""
-        spec = self.layout.batch_spec()
+        of each batch leaf, and of a ``sequence_sharded`` model's [B, T,
+        ...] leaves its positions too (dim 1 along ``sp``); other leaves
+        as they are."""
+        batch = self.layout.batch_spec()
         out = []
         for v in values:
             if isinstance(v, torch.Tensor) or isinstance(v, np.ndarray):
                 t = torch.as_tensor(v)
+                seq = self.sequence_sharded and t.dim() >= 2
+                spec = self.layout.sequence_spec() if seq else batch
                 pl = self.placement(spec, tuple(t.shape))
-                if pl.replicated and self.mesh.axis_size(
+                if pl.parts(0) == 1 and self.mesh.axis_size(
                         self.layout.batch_axis or "") > 1:
                     raise ValueError(
                         f"a batch of {t.shape[0]} rows does not split over "
                         f"{self.mesh.axis_size(self.layout.batch_axis)} "
                         "data ranks")
+                if seq and pl.parts(1) == 1:
+                    raise ValueError(
+                        f"a sequence of {t.shape[1]} positions does not "
+                        f"split over "
+                        f"{self.mesh.axis_size(self.layout.sp_axis)} sp "
+                        "ranks")
                 out.append(pl.local(t) if isinstance(v, torch.Tensor)
                            else pl.local(t).numpy())
             else:
@@ -264,24 +299,56 @@ class MeshExecutor:
             return collective.Group([get_rank()])
         return self.mesh.group(axis)
 
+    def sequence_reduction(self):
+        """``(group, divisor)`` of a ``sequence_sharded`` model's
+        reductions: the group of the data and ``sp`` axes and the data
+        ranks' count (a sum over ``sp``, a mean over ``data``); None
+        otherwise."""
+        if not self.sequence_sharded:
+            return None
+        axes = [a for a in (self.layout.batch_axis, self.layout.sp_axis)
+                if a is not None and a in self.mesh.shape]
+        return self.mesh.group(*axes), self.data_group().nranks
+
+    def loss_share(self, loss):
+        """A loss computed on this rank's part of the batch as a mean
+        over its tokens, made its share of the global mean: divided by
+        the ``sp`` ranks when the model splits its sequence over them
+        (equal parts), as it is otherwise."""
+        if not self.sequence_sharded:
+            return loss
+        return loss / self.mesh.axis_size(self.layout.sp_axis)
+
     @torch.no_grad()
     def reduce_gradients(self, network) -> None:
         """Average every gradient over the data group, in parameter
         order (every rank walks the same order), each rounded once to
-        its dtype (``collective.mean_rounded_once``)."""
+        its dtype (``collective.mean_rounded_once``); a
+        ``sequence_sharded`` model's summed over ``sp`` as well
+        (:meth:`sequence_reduction`)."""
         g = self.data_group()
+        sp = self.sequence_reduction()
         for p in network.parameters():
             if p.grad is not None:
-                collective.mean_rounded_once(p.grad, g)
+                if sp is not None:
+                    collective.sum_divided_rounded_once(p.grad, *sp)
+                else:
+                    collective.mean_rounded_once(p.grad, g)
 
     def mean_over_data(self, value: float) -> float:
-        """A per-rank scalar (a loss) averaged over the data group."""
-        g = self.data_group()
+        """A per-rank scalar (a loss) averaged over the data group; the
+        shares of a ``sequence_sharded`` model summed over ``sp`` first
+        (the global loss)."""
+        g, div = self.sequence_reduction() or (self.data_group(), None)
         if g.nranks == 1:
             return float(value)
         t = torch.tensor([float(value)], dtype=torch.float64,
                          device=collective.comm_device(g))
-        collective.all_reduce(t, collective.ReduceOp.AVG, g)
+        if div is None:
+            collective.all_reduce(t, collective.ReduceOp.AVG, g)
+        else:
+            collective.all_reduce(t, group=g)
+            t /= div
         return float(t[0])
 
     # ----------------------------------------------------- checkpoints

@@ -21,6 +21,17 @@ ranks do:
   parameters for its forward (``_zero3_hooks``) and the gather's
   backward reduce-scatters the gradient.
 
+``sep_degree`` makes the mesh's ``sp`` axis.  A model that splits its
+sequence over it (a Llama with ``context_parallel`` or
+``sequence_parallel``; ``distributed_model`` marks each of its
+parameters) takes this rank's positions of each batch
+(``sequence_parallel.sequence_part`` over
+``hcg.get_sep_parallel_group()``) and gives its share of the global
+loss, so the step SUMS each marked parameter's gradient over ``sp``
+before the means over the data ranks.  Any other model in the session
+stays replicated over ``sp``: its gradients are averaged over the data
+ranks only.
+
 A parameter's part is along the canonical ``SpecLayout`` role's dim
 (``fsdp`` read as ``sharding``, ``tp`` as ``mp``) at stages 2 and 3,
 else along its first dim the sharding degree divides.  Parameters of
@@ -36,6 +47,7 @@ from .. import collective
 from ..env import get_rank, get_world_size
 from ..mesh import (CommunicateTopology, HybridCommunicateGroup, fleet_mesh,
                     get_hybrid_communicate_group, get_mesh, reset_mesh)
+from ..sequence_parallel import uses_sequence_parallel
 from ..sharding import (PartitionSpec, Placement, SpecLayout,
                         llama_param_role, placement_of)
 from .distributed_strategy import DistributedStrategy
@@ -116,6 +128,12 @@ def distributed_model(model):
             stage = int((fleet.strategy.sharding_configs or {}).get(
                 "stage", 3))
         apply_group_sharding(model, mesh, stage=stage)
+    cfg = getattr(model, "config", None)
+    if cfg is not None and uses_sequence_parallel(cfg) and \
+            mesh.shape.get("sp", 1) > 1:
+        # each gradient is this rank's share of a sum over sp
+        for p in model.parameters():
+            p._sequence_sharded = True
     return model
 
 
@@ -259,6 +277,19 @@ def shard_optimizer(optimizer, model=None, mesh=None):
     data_axes = _data_axes(mesh)
     dp_axes = tuple(a for a in data_axes if a != "sharding")
 
+    def whole_mean(p, axes):
+        """``p.grad`` averaged over ``axes`` (summed over ``sp`` as
+        well for a parameter of a model that splits its sequence over
+        it), rounded once."""
+        if getattr(p, "_sequence_sharded", False):
+            n = 1
+            for a in axes:
+                n *= mesh.shape[a]
+            collective.sum_divided_rounded_once(
+                p.grad, mesh.group(*axes, "sp"), n)
+        elif axes:
+            collective.mean_rounded_once(p.grad, mesh.group(*axes))
+
     @torch.no_grad()
     def step():
         swapped = []
@@ -270,10 +301,10 @@ def shard_optimizer(optimizer, model=None, mesh=None):
             if zpl is None or stage >= 3:
                 # whole, or a stage-3 part whose gather's backward
                 # already averaged over sharding
-                axes = dp_axes if stage >= 3 else data_axes
-                if axes:
-                    collective.mean_rounded_once(p.grad, mesh.group(*axes))
+                whole_mean(p, dp_axes if stage >= 3 else data_axes)
                 continue
+            if getattr(p, "_sequence_sharded", False):
+                collective.sum_rounded_once(p.grad, mesh.group("sp"))
             dim = zpl.dim_of("sharding")
             group = zpl.group(dim)
             if stage == 2:

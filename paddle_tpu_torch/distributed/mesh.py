@@ -32,7 +32,7 @@ from .env import get_rank, get_world_size
 __all__ = ["CommunicateTopology", "HybridCommunicateGroup", "Mesh",
            "ProcessMesh", "data_group", "fleet_mesh", "get_mesh",
            "get_hybrid_communicate_group", "init_mesh", "model_axis",
-           "reset_mesh", "set_mesh", "use_mesh"]
+           "reset_mesh", "sequence_group", "set_mesh", "use_mesh"]
 
 _GLOBAL_MESH: Optional["Mesh"] = None
 _GLOBAL_HCG: Optional["HybridCommunicateGroup"] = None
@@ -217,6 +217,15 @@ def _role_group(role: str, mesh=None) -> "collective.Group":
     return mesh.group(axis)
 
 
+def sequence_group(mesh=None) -> Optional["collective.Group"]:
+    """This rank's ``sp`` group on ``mesh`` (or the active one), along
+    which a sequence- or context-parallel model splits its sequence;
+    None where there is no ``sp`` axis."""
+    mesh = mesh or _active_mesh()
+    axis = _axis(mesh, "sp")
+    return None if axis is None else mesh.group(axis)
+
+
 def data_group(mesh=None) -> "collective.Group":
     """The data-parallel group of ``mesh`` (or the active one); the
     world without a mesh."""
@@ -318,6 +327,9 @@ class HybridCommunicateGroup:
     def get_data_parallel_rank(self):
         return self._rank("dp")
 
+    def get_sep_parallel_rank(self):
+        return self._rank("sp")
+
     def get_model_parallel_rank(self):
         return self._rank("mp")
 
@@ -339,6 +351,9 @@ class HybridCommunicateGroup:
 
     def get_sharding_parallel_group(self):
         return self._group("sharding")
+
+    def get_sep_parallel_group(self):
+        return self._group("sp")
 
     def get_expert_parallel_group(self):
         return self._group("ep")

@@ -25,7 +25,13 @@ backward on them, averages the gradients over ``data``
 is the mean over the data ranks, the JAX package's global mean.  On a
 tp > 1 mesh a Llama's logits are this rank's part of the vocabulary:
 the loss must be vocab-parallel (``distributed.ParallelCrossEntropy``);
-metrics and ``predict`` read the logits gathered whole.  ``save`` /
+metrics and ``predict`` read the logits gathered whole.  A model that
+splits its sequence over an ``sp`` axis (``context_parallel`` or
+``sequence_parallel``) gets its inputs and labels cut along the
+sequence too, the loss (a mean over the rank's tokens) taken as its
+share of the global mean (``MeshExecutor.loss_share``), the gradients
+summed over ``sp``; the loss returned is still the global mean.
+``save`` /
 ``load`` gather the state to rank 0, which writes and reads the files,
 and put it back into every rank's parts.
 
@@ -157,9 +163,15 @@ class Model:
         return self._on_device(xs)
 
     def _whole_rows(self, t):
-        """The data ranks' rows of ``t`` concatenated (every rank)."""
+        """The data ranks' rows of ``t`` concatenated (every rank), each
+        row whole along a split sequence first."""
         from ..distributed import collective
+        from ..distributed.mesh import sequence_group
 
+        if self._mesh_executor.sequence_sharded and t.dim() >= 2:
+            sp = sequence_group(self._mesh_executor.mesh)
+            t = torch.cat(collective.all_gather(None, t.contiguous(),
+                                                group=sp), dim=1)
         g = self._mesh_executor.data_group()
         return torch.cat(collective.all_gather(None, t.contiguous(),
                                                group=g), dim=0)
@@ -176,6 +188,13 @@ class Model:
             outputs = mp_all_gather(outputs, group)
         return self._whole_rows(outputs)
 
+    def _share(self, losses):
+        """Under a mesh, the loss as this rank's share of the global
+        one (``MeshExecutor.loss_share``)."""
+        if self._mesh_executor is None:
+            return losses
+        return self._mesh_executor.loss_share(losses)
+
     def _loss_value(self, losses) -> float:
         loss = float(losses.detach().float().mean())
         if self._mesh_executor is not None:
@@ -190,7 +209,7 @@ class Model:
         self.network.train()
         inputs, labels = self._batch(inputs), self._batch(labels)
         outputs = self.network(*inputs)
-        losses = self._loss(outputs, *labels)
+        losses = self._share(self._loss(outputs, *labels))
         losses.backward()
         if self._mesh_executor is not None:
             self._mesh_executor.reduce_gradients(self.network)
@@ -206,7 +225,7 @@ class Model:
         self.network.eval()
         inputs, labels = self._batch(inputs), self._batch(labels)
         outputs = self.network(*inputs)
-        losses = self._loss(outputs, *labels)
+        losses = self._share(self._loss(outputs, *labels))
         self._update_metrics(outputs, labels)
         return self._loss_value(losses)
 

@@ -10,6 +10,12 @@ grad, which also writes the f32 logsumexp rows), ``_bwd_dq_kernel``
 ``csrc/flash_attention.cu``, whose header says what bounds them on the
 H100 and how their blocks split the work.
 
+Every function takes ``out_f32``: the outputs (O, dQ, dK, dV) in f32
+rather than the operands' dtype, for a caller that sums partial
+results before one rounding (``kernels.ring_attention``'s blocks, the
+sequence-parallel dK/dV); the launch is counted under its instance with
+:data:`F32_OUT`.
+
 Semantics follow the JAX package: logits ``(q . k) * scale`` in f32,
 causal masking bottom-right (query i sees key j iff j <= i + Tk - Tq),
 ``lse = m + log(l)``, and the FlashAttention-2 backward that recomputes
@@ -61,6 +67,7 @@ NEG_INF = -1e30
 MAX_HEAD_DIM = 256          # csrc/flash_attention.cu F_MAXD
 WGMMA_WIDTHS = (64, 128, 256)   # the bf16 wgmma kernels' instances
 GENERAL = "_general"        # suffix of a bf16 launch of a general kernel
+F32_OUT = "_f32o"           # suffix of an instance's launch with f32 outputs
 
 
 # ------------------------------------------------------------ plain versions
@@ -90,16 +97,18 @@ def attn_reference(q, k, v, causal, scale):
     return torch.einsum("bhts,bhsd->bhtd", probs, v)
 
 
-def flash_fwd_plain(q, k, v, causal, scale):
-    """``(o, lse)`` as the kernels compute them: o in q's dtype, lse f32
-    [B, H, Tq].  k/v [B, KVH, Tk, D] with KVH dividing H."""
+def flash_fwd_plain(q, k, v, causal, scale, out_f32=False):
+    """``(o, lse)`` as the kernels compute them: o in q's dtype (f32 with
+    ``out_f32``), lse f32 [B, H, Tq].  k/v [B, KVH, Tk, D] with KVH
+    dividing H."""
     rep = q.shape[1] // k.shape[1]
     s = _logits(q, _repeat_kv(k, rep), causal, scale)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
     o = torch.einsum("bhts,bhsd->bhtd", p, _repeat_kv(v, rep).float())
-    return (o / l).to(q.dtype), (m + torch.log(l)).squeeze(-1)
+    o = o / l
+    return (o if out_f32 else o.to(q.dtype)), (m + torch.log(l)).squeeze(-1)
 
 
 def _delta(o, do):
@@ -108,7 +117,7 @@ def _delta(o, do):
     return (do.float() * o.float()).sum(-1)
 
 
-def _bwd_plain(q, k, v, do, lse, delta, causal, scale):
+def _bwd_plain(q, k, v, do, lse, delta, causal, scale, out_f32=False):
     B, H, Tq, D = q.shape
     KVH, Tk = k.shape[1], k.shape[2]
     rep = H // KVH
@@ -122,20 +131,23 @@ def _bwd_plain(q, k, v, do, lse, delta, causal, scale):
     if rep > 1:
         dk = dk.reshape(B, KVH, rep, Tk, D).sum(2)
         dv = dv.reshape(B, KVH, rep, Tk, D).sum(2)
+    if out_f32:
+        return dq, dk, dv
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_bwd_plain(q, k, v, o, lse, do, causal, scale):
+def flash_bwd_plain(q, k, v, o, lse, do, causal, scale, out_f32=False):
     """FlashAttention-2 backward ``(dq, dk, dv)``: P recomputed from the
     LSE, dS = P * (dO V^T - delta) * scale, all in f32, each gradient
     rounded once to its operand's dtype (dK/dV summed over each kv
-    head's group first)."""
-    return _bwd_plain(q, k, v, do, lse, _delta(o, do), causal, scale)
+    head's group first), or kept in f32 with ``out_f32``."""
+    return _bwd_plain(q, k, v, do, lse, _delta(o, do), causal, scale,
+                      out_f32)
 
 
 # ------------------------------------------------------------------ kernels
 _ARGS = [ctypes.c_int] * 6 + [ctypes.c_int64] * 6 + [
-    ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p]
 
 
@@ -205,15 +217,16 @@ def general_route(q, k, kernel):
     return wgmma_width(q, k, kernel) is None
 
 
-def instance(q, k, kernel):
+def instance(q, k, kernel, out_f32=False):
     """The instance of ``kernel`` these views launch, as the launch
     counter tallies it beside the kernel's name: ``w{W}`` for the wgmma
     instance of W columns, ``maxd128`` or ``maxd256`` for the general
-    one (head_dim up to 128, or up to 256)."""
+    one (head_dim up to 128, or up to 256); a bf16 launch that writes
+    f32 outputs (``out_f32``) adds :data:`F32_OUT`."""
     W = wgmma_width(q, k, kernel)
-    if W is None:
-        return f"maxd{128 if q.shape[-1] <= 128 else MAX_HEAD_DIM}"
-    return f"w{W}"
+    name = f"maxd{128 if q.shape[-1] <= 128 else MAX_HEAD_DIM}" \
+        if W is None else f"w{W}"
+    return name + F32_OUT if out_f32 and q.dtype != torch.float32 else name
 
 
 def _launch_name(base, q, k):
@@ -223,27 +236,34 @@ def _launch_name(base, q, k):
     return base + GENERAL if general else base
 
 
-def _common_args(q, k, causal, scale, kernel):
+def _common_args(q, k, causal, scale, kernel, out_f32=False):
     B, H, Tq, D = q.shape
     KVH, Tk = k.shape[1], k.shape[2]
     return [B, H, KVH, Tq, Tk, D, *_strides(q), *_strides(k),
-            int(causal), float(scale), _build.dtype_code(q),
+            int(causal), float(scale), _build.dtype_code(q), int(out_f32),
             int(general_route(q, k, kernel)), _build.stream_ptr(q)]
 
 
-def _fwd_kernel(q, k, v, causal, scale, with_lse):
+def _out_like(t, out_f32):
+    """An output with ``t``'s strides (the kernels index outputs by
+    their operand's strides), in f32 when ``out_f32``."""
+    return torch.empty_like(t, dtype=torch.float32 if out_f32 else None)
+
+
+def _fwd_kernel(q, k, v, causal, scale, with_lse, out_f32=False):
     _build.require_cuda(FWD, q, k, v, contiguous=False)
     q, k = _kernel_view(q), _kernel_view(k)
     v = _like(_kernel_view(v), k)
-    o = torch.empty_like(q)
+    o = _out_like(q, out_f32)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device) \
         if with_lse else None
     fn = _build.bind(SOURCE, "flash_fwd", [ctypes.c_void_p] * 5 + _ARGS)
     p = _build.ptr
     name = FWD_LSE if with_lse else FWD
     _build.check(fn(p(q), p(k), p(v), p(o), p(lse) if with_lse else None,
-                    *_common_args(q, k, causal, scale, name)), SOURCE)
-    _build.launches.add(_launch_name(name, q, k), instance(q, k, name))
+                    *_common_args(q, k, causal, scale, name, out_f32)), SOURCE)
+    _build.launches.add(_launch_name(name, q, k),
+                        instance(q, k, name, out_f32))
     return o, lse
 
 
@@ -256,44 +276,51 @@ def _bwd_operands(q, k, v, do, lse, delta):
             delta.contiguous())
 
 
-def _dq_kernel(q, k, v, do, lse, delta, causal, scale):
-    dq = torch.empty_like(q)
+def _dq_kernel(q, k, v, do, lse, delta, causal, scale, out_f32=False):
+    dq = _out_like(q, out_f32)
     fn = _build.bind(SOURCE, "flash_bwd_dq", [ctypes.c_void_p] * 7 + _ARGS)
     p = _build.ptr
     _build.check(fn(p(q), p(k), p(v), p(do), p(lse), p(delta), p(dq),
-                    *_common_args(q, k, causal, scale, BWD_DQ)), SOURCE)
-    _build.launches.add(_launch_name(BWD_DQ, q, k), instance(q, k, BWD_DQ))
+                    *_common_args(q, k, causal, scale, BWD_DQ, out_f32)),
+                 SOURCE)
+    _build.launches.add(_launch_name(BWD_DQ, q, k),
+                        instance(q, k, BWD_DQ, out_f32))
     return dq
 
 
-def _dkv_kernel(q, k, v, do, lse, delta, causal, scale):
-    dk, dv = torch.empty_like(k), torch.empty_like(k)
+def _dkv_kernel(q, k, v, do, lse, delta, causal, scale, out_f32=False):
+    dk, dv = _out_like(k, out_f32), _out_like(k, out_f32)
     fn = _build.bind(SOURCE, "flash_bwd_dkv", [ctypes.c_void_p] * 8 + _ARGS)
     p = _build.ptr
     _build.check(fn(p(q), p(k), p(v), p(do), p(lse), p(delta), p(dk), p(dv),
-                    *_common_args(q, k, causal, scale, BWD_DKV)), SOURCE)
+                    *_common_args(q, k, causal, scale, BWD_DKV, out_f32)),
+                 SOURCE)
     _build.launches.add(_launch_name(BWD_DKV, q, k),
-                        instance(q, k, BWD_DKV))
+                        instance(q, k, BWD_DKV, out_f32))
     return dk, dv
 
 
-def _bwd_kernels(q, k, v, do, lse, delta, causal, scale):
+def _bwd_kernels(q, k, v, do, lse, delta, causal, scale, out_f32=False):
     ops = _bwd_operands(q, k, v, do, lse, delta)
-    return (_dq_kernel(*ops, causal, scale),
-            *_dkv_kernel(*ops, causal, scale))
+    return (_dq_kernel(*ops, causal, scale, out_f32),
+            *_dkv_kernel(*ops, causal, scale, out_f32))
 
 
-def _fwd(q, k, v, causal, scale, with_lse):
+def _fwd(q, k, v, causal, scale, with_lse, out_f32=False):
+    """``(o, lse or None)``: the plain version for CPU tensors, the
+    kernels for CUDA ones; o in f32 with ``out_f32``."""
     if q.device.type == "cpu":
-        o, lse = flash_fwd_plain(q, k, v, causal, scale)
+        o, lse = flash_fwd_plain(q, k, v, causal, scale, out_f32)
         return o, lse if with_lse else None
-    return _fwd_kernel(q, k, v, causal, scale, with_lse)
+    return _fwd_kernel(q, k, v, causal, scale, with_lse, out_f32)
 
 
-def _bwd(q, k, v, do, lse, delta, causal, scale):
+def _bwd(q, k, v, do, lse, delta, causal, scale, out_f32=False):
+    """``(dq, dk, dv)`` from the LSE and delta given: the plain version
+    for CPU tensors, the kernels for CUDA ones; f32 with ``out_f32``."""
     if q.device.type == "cpu":
-        return _bwd_plain(q, k, v, do, lse, delta, causal, scale)
-    return _bwd_kernels(q, k, v, do, lse, delta, causal, scale)
+        return _bwd_plain(q, k, v, do, lse, delta, causal, scale, out_f32)
+    return _bwd_kernels(q, k, v, do, lse, delta, causal, scale, out_f32)
 
 
 class _FlashAttention(torch.autograd.Function):

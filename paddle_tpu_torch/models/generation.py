@@ -13,8 +13,16 @@ mode the JAX engine picks on its accelerator) serves through the fused
 kernels, False through the reference's unfused path
 (``models.llama.LlamaAttention._unfused``).  The mode is baked into the
 step when it is made, so fused and unfused steps are distinct graphs.
+
+:func:`make_ring_sp_step` is the no-grad full-sequence forward of a
+sequence- or context-parallel model on an ``sp`` mesh (the reference's
+``make_ring_sp_step``), a plain function with the reference's
+no-retrace bookkeeping: one cache entry per input signature, tracked
+under the label ``"ring_sp"`` (``observability.compile_tracker``).
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -103,6 +111,44 @@ def make_chunked_prefill_step(model, kv_cache_dtype=None, pool=None,
         return logits[:, 0].float()
 
     return GraphStep(step, model.device, bound=(1,), pool=pool)
+
+
+def make_ring_sp_step(model, mesh=None):
+    """The full-sequence forward through the sequence-parallel attention
+    path (``LlamaConfig.context_parallel`` / ``sequence_parallel``):
+    ``step(ids [B, T]) -> logits [B, T/sp, V]`` f32, this rank's rows
+    (positions ``rank * T/sp`` on) of the global ``ids``, without grad;
+    on a mesh without an ``sp`` axis (the dense fallback, the CPU parity
+    path) all T rows.  ``mesh`` is installed around the call
+    (``distributed.use_mesh``); None keeps the active one.  One step per
+    model and mesh (made once, then returned again), one cache entry per
+    signature of ``ids`` (shape and dtype): a
+    ``TrackedFunction`` labelled ``"ring_sp"`` (``compile_stats``)."""
+    step = getattr(model, "_ring_sp_step", None)
+    if step is not None and getattr(model, "_ring_sp_step_mesh",
+                                    None) is mesh:
+        return step
+    from ..distributed.mesh import sequence_group, use_mesh
+    from ..distributed.sequence_parallel import (sequence_part,
+                                                 uses_sequence_parallel)
+    from ..observability.compile_tracker import track_compiles
+
+    def ring_sp(ids):
+        ctx = use_mesh(mesh) if mesh is not None else contextlib.nullcontext()
+        with torch.no_grad(), ctx:
+            ids = torch.as_tensor(ids, device=model.device)
+            ring_sp._cache.setdefault((tuple(ids.shape), ids.dtype), True)
+            group = sequence_group()
+            if uses_sequence_parallel(model.config) and group is not None \
+                    and group.nranks > 1:
+                ids = sequence_part(ids, group)
+            return model(ids).float()
+
+    ring_sp._cache = {}
+    step = track_compiles(ring_sp, label="ring_sp")
+    model._ring_sp_step = step
+    model._ring_sp_step_mesh = mesh
+    return step
 
 
 def normalize_stop_sequences(stop_sequences, tokenizer=None):

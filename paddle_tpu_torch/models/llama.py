@@ -44,6 +44,20 @@ The port of ``paddle_tpu/models/llama.py`` in two modes.
   product; every kernel runs on the rank's local shapes.  The labels'
   loss over a split vocabulary is vocab-parallel; the fused chunked
   loss refuses one.
+- Sequence and context parallelism (``sequence_parallel``,
+  ``context_parallel`` on a mesh with an ``sp`` axis,
+  ``distributed.sequence_parallel``): a rank holds only its T/sp
+  positions from the embedding on; RoPE rotates them at the rank's
+  offset; the no-cache attention is ring attention
+  (``context_parallel="ring"`` or any value but ``"ulysses"``,
+  ``kernels.ring_attention``), Ulysses (``"ulysses"``,
+  ``kernels.ulysses_attention``), or, with ``sequence_parallel`` alone,
+  attention over k and v gathered from the group (causal with Tq < Tk);
+  the loss carries the labels across the shard boundaries and divides
+  by the whole sequence's count, so each rank's loss and gradients are
+  its share of the global ones (summed over ``sp`` by
+  ``distributed.MeshExecutor``).  Without an ``sp`` axis both options
+  leave the model dense, the JAX model's fallback.
 The final norm is ``kernels.rms_norm``.  The embedding, the
 projections that no kernel fuses and ``lm_head`` are plain matrix
 products, as the JAX package leaves them to XLA.  Under
@@ -73,6 +87,9 @@ from ..distributed.parallel_layers import (_split, column_input, fsdp_gather,
                                            sharded_embedding, sharded_matmul,
                                            vocab_parallel_cross_entropy)
 from ..distributed.recompute import recompute
+from ..distributed.sequence_parallel import (gathered_kv_attention,
+                                             next_token_pairs,
+                                             sequence_shards)
 from ..distributed.sharding import placement_of
 from ..kernels.chunked_prefill import chunked_attention
 from ..kernels.flash_attention import flash_attention_bthd
@@ -80,8 +97,10 @@ from ..kernels.fused_norm_linear import fused_norm_linear_group, rms_scale
 from ..kernels.kv_quant import decode_codes, kv_write
 from ..kernels.moe_dispatch import moe_capacity, moe_combine, moe_dispatch
 from ..kernels.paged_attention import fused_paged_decode
+from ..kernels.ring_attention import ring_attention
 from ..kernels.rms_norm import rms_norm
 from ..kernels.rope import fused_rope
+from ..kernels.ulysses_attention import ulysses_attention
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -110,9 +129,11 @@ class LlamaConfig:
     tie_word_embeddings: bool = False
     # each decoder layer recomputed in the backward (training only)
     recompute: bool = False
-    # options of the JAX model that the port does not have yet: anything
-    # but these values raises NotImplementedError
+    # the sequence split over the mesh's sp axis (module docstring):
+    # attention over k/v gathered from the sp ranks ...
     sequence_parallel: bool = False
+    # ... or "ring" / "ulysses" attention ("" dense; any other value is
+    # ring, as in the JAX model)
     context_parallel: str = ""
     dtype: str = "bfloat16"
 
@@ -221,6 +242,7 @@ class LlamaAttention(nn.Module):
         super().__init__()
         h, hd = config.hidden_size, config.head_dim
         self.head_dim = hd
+        self.context_parallel = config.context_parallel
         self.q_proj = Linear(make(h, config.num_attention_heads * hd))
         self.k_proj = Linear(make(h, config.num_key_value_heads * hd))
         self.v_proj = Linear(make(h, config.num_key_value_heads * hd))
@@ -228,12 +250,16 @@ class LlamaAttention(nn.Module):
 
     def forward(self, hidden, cos, sin, cache: Optional[PagedKVCache] = None,
                 positions=None, norm_weight=None, norm_eps=None,
-                write_mask=None):
+                write_mask=None, seq=None):
         """Without a cache, the training forward of the NORMALIZED
         ``hidden`` [B, T, h]: unfused q/k/v, RoPE from position 0, causal
-        attention.  With a fused one, the serving forward: ``hidden`` is
-        the UNNORMALIZED residual stream and the input RMSNorm of
-        ``norm_weight`` folds into q/k/v, which share one row scale.
+        attention; with ``seq`` (``distributed.sequence_parallel.
+        SequenceShards``) ``hidden`` is this rank's T/sp positions, RoPE
+        starts at its offset and attention covers the whole sequence
+        (:meth:`_sequence_attention`).  With a fused one, the serving
+        forward: ``hidden`` is the UNNORMALIZED residual stream and the
+        input RMSNorm of ``norm_weight`` folds into q/k/v, which share
+        one row scale.
         With an unfused one, the reference's unfused serving forward of
         the NORMALIZED ``hidden`` (:meth:`_unfused`).  ``write_mask``
         None means a decode step (T == 1); else it is the [B, T]
@@ -249,8 +275,12 @@ class LlamaAttention(nn.Module):
                 out = self._unfused(q, k, v, cos, sin, cache, positions,
                                     write_mask)
                 return self.o_proj(out.reshape(B, T, -1))
-            q, k = fused_rope(q, cos, sin), fused_rope(k, cos, sin)
-            out = flash_attention_bthd(q, k, v, causal=True)
+            at = 0 if seq is None else seq.offset
+            q, k = fused_rope(q, cos, sin, at), fused_rope(k, cos, sin, at)
+            if seq is None:
+                out = flash_attention_bthd(q, k, v, causal=True)
+            else:
+                out = self._sequence_attention(q, k, v, seq)
             return self.o_proj(out.reshape(B, T, -1))
         rs = rms_scale(hidden, norm_eps)
         q, k, v = fused_norm_linear_group(
@@ -276,6 +306,17 @@ class LlamaAttention(nn.Module):
                                 positions, cache.k_scale, cache.v_scale,
                                 cache.kv_dtype)
         return self.o_proj(out.reshape(B, T, -1))
+
+    def _sequence_attention(self, q, k, v, seq):
+        """Causal attention of this rank's positions over the whole
+        sequence: Ulysses, ring, or (``sequence_parallel`` alone) the
+        keys gathered from the group."""
+        cp = self.context_parallel
+        if cp == "ulysses":
+            return ulysses_attention(q, k, v, causal=True, group=seq.group)
+        if cp:
+            return ring_attention(q, k, v, causal=True, group=seq.group)
+        return gathered_kv_attention(q, k, v, seq)
 
     def _unfused(self, q, k, v, cos, sin, cache, positions, write_mask):
         """The reference's unfused paged attention (its gather path):
@@ -462,12 +503,12 @@ class LlamaDecoderLayer(nn.Module):
             else LlamaMLP(config, make)
 
     def forward(self, hidden, cos, sin, cache=None, positions=None,
-                write_mask=None):
+                write_mask=None, seq=None):
         if cache is None or not cache.fused:   # training, unfused serving
             normed = self.input_layernorm(hidden)
             hidden = hidden + self.self_attn(normed, cos, sin, cache,
                                              positions,
-                                             write_mask=write_mask)
+                                             write_mask=write_mask, seq=seq)
             return hidden + self.mlp(self.post_attention_layernorm(hidden))
         ln = self.input_layernorm
         hidden = hidden + self.self_attn(hidden, cos, sin, cache, positions,
@@ -506,18 +547,22 @@ class LlamaModel(nn.Module):
         int, or an int tensor of one element on the model's device, as
         a captured step passes it) keeps only that token's row before
         the norm (the norm is per row, so the result is the same row the
-        full forward would give)."""
+        full forward would give).  On a mesh whose ``sp`` axis splits the
+        sequence (:meth:`shards`), ``input_ids`` are this rank's T/sp
+        positions and so are the rows returned."""
         hidden = sharded_embedding(input_ids, self.embed_tokens.weight)
+        seq = None
         if caches is None:
+            seq = self.shards(input_ids)
             if self.config.recompute and torch.is_grad_enabled():
                 for layer in self.layers:
                     hidden = recompute(layer, hidden, self.rope_cos,
-                                       self.rope_sin)
+                                       self.rope_sin, seq=seq)
                 return self.norm(hidden)
             caches = [None] * len(self.layers)
         for layer, cache in zip(self.layers, caches):
             hidden = layer(hidden, self.rope_cos, self.rope_sin, cache,
-                           positions, write_mask)
+                           positions, write_mask, seq)
         if isinstance(last_index, torch.Tensor):
             hidden = hidden.index_select(1, last_index.reshape(1))
         elif last_index is not None:
@@ -525,18 +570,29 @@ class LlamaModel(nn.Module):
         return self.norm(hidden)
 
 
-def causal_lm_loss(logits, labels, vocab_group=None):
+    def shards(self, input_ids):
+        """This rank's part of the sequence (``SequenceShards``) when
+        the model splits it over the active mesh's ``sp`` axis, else
+        None (``distributed.sequence_parallel.sequence_shards``)."""
+        return sequence_shards(self.config, input_ids.shape[1])
+
+
+def causal_lm_loss(logits, labels, vocab_group=None, seq=None):
     """Mean next-token NLL over every position of logits [B, T, V] (the
     JAX forward's unfused ``causal_lm_loss``: f32 log-softmax, labels
     shifted by one).  With ``vocab_group`` the logits are this rank's
     part of the vocabulary, and the softmax runs over the group
-    (``distributed.vocab_parallel_cross_entropy``)."""
+    (``distributed.vocab_parallel_cross_entropy``).  With ``seq`` the
+    logits and labels are this rank's positions: the sum over its
+    predicted tokens divided by the whole sequence's count
+    (``next_token_pairs``), its share of the global mean."""
+    lg, lab, count = next_token_pairs(logits, labels, seq)
     if vocab_group is not None:
-        return vocab_parallel_cross_entropy(
-            logits[:, :-1], labels[:, 1:].long(), vocab_group).mean()
-    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
-    picked = logp.gather(-1, labels[:, 1:, None].long())[..., 0]
-    return -picked.mean()
+        nll = vocab_parallel_cross_entropy(lg, lab.long(), vocab_group)
+    else:
+        logp = torch.log_softmax(lg.float(), dim=-1)
+        nll = -logp.gather(-1, lab[..., None].long())[..., 0]
+    return nll.mean() if seq is None else nll.sum() / count
 
 
 class _F32Logits(torch.autograd.Function):
@@ -578,7 +634,8 @@ def _chunk_nll(h, w, labels):
     return ((lse - picked) * (labels >= 0).float()).sum()
 
 
-def fused_causal_lm_loss(hidden, w, labels, chunk, w_is_vocab_major=False):
+def fused_causal_lm_loss(hidden, w, labels, chunk, w_is_vocab_major=False,
+                         seq=None):
     """The JAX ``_fused_causal_lm_loss``: next-token NLL computed
     ``chunk`` tokens at a time, each chunk's logits recomputed in the
     backward (``torch.utils.checkpoint`` in place of ``jax.checkpoint``)
@@ -591,9 +648,11 @@ def fused_causal_lm_loss(hidden, w, labels, chunk, w_is_vocab_major=False):
     product, in TF32 on the card when the rows are bf16.  ``w`` is
     [hidden, V], or with ``w_is_vocab_major`` the tied embedding table
     [V, hidden], whose f32 copy the products read through a transposed
-    view (no second copy of the table)."""
-    h = hidden[:, :-1]
-    lab = labels[:, 1:].long()
+    view (no second copy of the table).  With ``seq`` (this rank's
+    positions of a split sequence) the sum is divided by the whole
+    sequence's count (``next_token_pairs``)."""
+    h, lab, count = next_token_pairs(hidden, labels, seq)
+    lab = lab.long()
     B, T, H = h.shape
     n_tok = B * T
     hf = h.reshape(n_tok, H)
@@ -610,12 +669,7 @@ def fused_causal_lm_loss(hidden, w, labels, chunk, w_is_vocab_major=False):
         rows = slice(c * csize, (c + 1) * csize)
         total = total + checkpoint(_chunk_nll, hf[rows], wf, labf[rows],
                                    use_reentrant=False)
-    return total / n_tok
-
-
-# options of the JAX LlamaConfig the port does not have yet, with the one
-# value each may take
-UNPORTED_OPTIONS = {"sequence_parallel": False, "context_parallel": ""}
+    return total / count
 
 
 class LlamaForCausalLM(nn.Module):
@@ -631,11 +685,6 @@ class LlamaForCausalLM(nn.Module):
     def __init__(self, config: LlamaConfig, device=None,
                  seed: Optional[int] = 0):
         super().__init__()
-        for option, value in UNPORTED_OPTIONS.items():
-            if getattr(config, option) != value:
-                raise NotImplementedError(
-                    f"LlamaConfig.{option}={getattr(config, option)!r} is "
-                    "not ported to paddle_tpu_torch yet")
         self.config = config
         self.device = resolve_device(device)
         dtype = config.torch_dtype
@@ -691,13 +740,18 @@ class LlamaForCausalLM(nn.Module):
         the model's dtype.  Without caches, the training forward from
         position 0: logits [B, T, V]; with ``labels`` [B, T] (the next
         token of position t is ``labels[:, t + 1]``) ``(loss, None)``
-        under ``fused_lm_loss`` and ``(loss, logits)`` otherwise."""
+        under ``fused_lm_loss`` and ``(loss, logits)`` otherwise.  On a
+        mesh whose ``sp`` axis splits the sequence, ``input_ids`` and
+        ``labels`` are this rank's positions (cut alike), the logits
+        its rows and the loss its share of the global mean (the labels
+        carried across the boundary, the whole sequence's count)."""
         if labels is not None and caches is not None:
             raise ValueError("labels belong to the no-cache forward")
         hidden = self.model(input_ids, caches, positions, write_mask,
                             last_index)
         if labels is None:
             return self.logits(hidden)
+        labels_seq = self.model.shards(input_ids)
         vocab_group = self._vocab_group()
         if self.config.fused_lm_loss:
             if vocab_group is not None:
@@ -710,6 +764,8 @@ class LlamaForCausalLM(nn.Module):
             w = self.model.embed_tokens.weight if tied else self.lm_head.weight
             return fused_causal_lm_loss(hidden, fsdp_gather(w), labels,
                                         self.config.lm_loss_chunk,
-                                        w_is_vocab_major=tied), None
+                                        w_is_vocab_major=tied,
+                                        seq=labels_seq), None
         logits = self.logits(hidden)
-        return causal_lm_loss(logits, labels, vocab_group), logits
+        return causal_lm_loss(logits, labels, vocab_group,
+                              labels_seq), logits

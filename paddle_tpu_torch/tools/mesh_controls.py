@@ -26,6 +26,16 @@ comparison) are :data:`EXPERT`; ``--faults a,b`` picks others::
         "fsdp": 2, "expert": 2}' --backend gloo --out build/ep_controls \
         -- --config mixtral --layers 1 --seq 1024 --device cuda:0
 
+Phase 7q's program (``mesh_train --sp-modes``) takes the faults of
+:data:`SEQUENCE` and its own comparison (``mesh_train.sp_against_single``
+over the ring, Ulysses and sequence-parallel modes), each reading
+printed as a multiple of its bound::
+
+    python -m paddle_tpu_torch.tools.mesh_controls --axes '{"sp": 4}' \
+        --backend gloo --out build/sp_controls -- --sp-modes \
+        ring,ulysses,sequence_parallel --config llama3_8b --layers 2 \
+        --seq 32768 --batch 1 --lr 1e-4 --device cuda:0
+
 Prints one line a copy and, as the last line, a JSON object of every
 copy's readings; exits 1 unless ``as_is`` passed and every fault was
 refused.
@@ -75,9 +85,37 @@ FAULTS = {
         "        if group.nranks > 1:\n"
         "            collective.all_reduce(out, group=group)\n",
         "        pass\n"),
+    # the ring with the causal offset dropped: every held block masked
+    # as if it were the diagonal
+    "ring_no_offset": (
+        "kernels/ring_attention.py",
+        "        diag = causal and src == rank\n",
+        "        diag = causal\n"),
+    # labels not carried across the shard boundary: each rank's loss is
+    # the dense model's on its part (shifted within it, its own count)
+    "labels_not_carried": (
+        "models/llama.py",
+        "        labels_seq = self.model.shards(input_ids)\n",
+        "        labels_seq = None\n"),
+    # the gradients averaged over sp instead of summed
+    "sp_grad_mean": (
+        "distributed/executor.py",
+        "                    collective.sum_divided_rounded_once(p.grad, "
+        "*sp)\n",
+        "                    collective.mean_rounded_once(p.grad, sp[0])\n"),
 }
 DENSE = ("no_data_mean", "fsdp_first_part", "no_tp_sum")
 EXPERT = ("no_expert_data_mean", "combine_drops_remote")
+SEQUENCE = ("ring_no_offset", "labels_not_carried", "sp_grad_mean")
+
+
+def sp_margins(read):
+    """Each mode's readings of phase 7q's comparison as multiples of
+    their bounds: ``{mode: [loss / SP_LOSS_REL, grad / SP_GRAD_REL]}``
+    and the largest of all."""
+    out = {m: [r["loss"] / mesh_train.SP_LOSS_REL,
+               r["grad"] / mesh_train.SP_GRAD_REL] for m, r in read.items()}
+    return out, max(max(v) for v in out.values())
 
 
 def planted_copy(fault, root: Path) -> Path:
@@ -113,8 +151,9 @@ def main(argv=None) -> int:
     a = ap.parse_args(argv)
     common = [x for x in a.train_args if x != "--"]
     moe = any(c in common for c in ("mixtral", "tiny_moe"))
+    seq = "--sp-modes" in common
     faults = a.faults.split(",") if a.faults else \
-        list(EXPERT if moe else DENSE)
+        list(SEQUENCE if seq else EXPERT if moe else DENSE)
     n = 1
     for size in json.loads(a.axes).values():
         n *= size
@@ -123,7 +162,8 @@ def main(argv=None) -> int:
     ref = out / "ref.pt"
     train = [sys.executable, "-m", "paddle_tpu_torch.tools.mesh_train",
              *common]
-    subprocess.run(train + ["--out", str(out / "single"), "--save-params",
+    subprocess.run(train + ["--out", str(out / "single"),
+                            "--save-grads" if seq else "--save-params",
                             str(ref)], cwd=PKG.parent, check=True)
     with open(out / "single" / "rank0.json") as f:
         single = json.load(f)
@@ -135,7 +175,8 @@ def main(argv=None) -> int:
                "--log_dir", str(root / "log"), "-m",
                "paddle_tpu_torch.tools.mesh_train", *common, "--axes",
                a.axes, "--backend", a.backend, "--timeout", str(a.timeout),
-               "--ref", str(ref), "--out", str(root / "res")]
+               "--ref-grads" if seq else "--ref", str(ref), "--out",
+               str(root / "res")]
         env = {**os.environ, "PYTHONPATH": str(root)}
         code = subprocess.run(cmd, cwd=root, env=env).returncode
         res = root / "res" / "rank0.json"
@@ -145,7 +186,19 @@ def main(argv=None) -> int:
                   flush=True)
             continue
         with open(res) as f:
-            read, fails = mesh_train.against_single(json.load(f), single)
+            r0 = json.load(f)
+        if seq:
+            read, fails = mesh_train.sp_against_single(r0, single)
+            margins, top = sp_margins(read)
+            results[name] = {"ran": True, "refused": bool(fails),
+                             "margins": margins, "largest": top,
+                             "fails": fails}
+            shown = {m: [round(x, 3) for x in v] for m, v in margins.items()}
+            print(f"[control {name}] {'refused' if fails else 'passed'}: "
+                  f"readings / bounds (loss, gradient) {shown}; largest "
+                  f"{top:.3g}", flush=True)
+            continue
+        read, fails = mesh_train.against_single(r0, single)
         results[name] = {"ran": True, "refused": bool(fails),
                          "loss": read["loss"], "worst": read["worst"],
                          "update": read["update"][read["worst"]],

@@ -44,6 +44,25 @@ to its limits.  The backend and device default to
 ``init_parallel_env``'s (NCCL on ``cuda:LOCAL_RANK``, which refuses more
 ranks than cards), the unsharded run's device to the card.
 
+With ``--sp-modes ring,ulysses,sequence_parallel`` it is phase 7q's
+program instead (:func:`sp_main`): for each mode in turn a fresh model
+(seed 0, the fused loss) with that option (``context_parallel="ring"``
+or ``"ulysses"``, or ``sequence_parallel=True``) is laid out on
+``--axes`` (``{"sp": 4}``) through ``distributed.MeshExecutor``, takes
+its rank's positions of one global batch [``--batch``, ``--seq``], runs
+the forward and backward of the model's own shifted loss (its share of
+the global mean), sums the gradients over ``sp``
+(``reduce_gradients``) and takes one SGD(``--lr``) step.  Without
+``--axes`` it is the unsharded forward and backward of the same model
+and batch, its gradients written to ``--save-grads``; with
+``--ref-grads`` (that file) rank 0 measures every parameter's summed
+gradient against it (:func:`sp_against_single` holds them to
+``SP_LOSS_REL`` and ``SP_GRAD_REL``).  Each rank writes
+``DIR/rank<r>.json``: for each mode the global loss, the step's
+seconds (forward and backward, the gradient sum, the SGD step), the
+launches by kernel and instance, the collectives and staged ones, the
+peak memory, and rank 0's gradient readings.
+
 Each rank writes ``DIR/rank<r>.json``: its mesh coordinates, each
 step's loss, host-clock ms, the collectives it made and those staged
 through host memory, its kernel launches (by kernel and by instance),
@@ -265,6 +284,151 @@ def restore_check(net, opt, ckpt, step) -> dict:
     return {"checked": len(pairs), "mismatched": bad}
 
 
+#: phase 7q (a): |loss - unsharded| / |unsharded| of each mode
+SP_LOSS_REL = 2.0 ** -10
+#: phase 7q (b): ||g - g_unsharded|| / ||g_unsharded|| of every
+#: parameter's gradient summed over sp
+SP_GRAD_REL = 0.05
+SP_OPTIONS = {"ring": dict(context_parallel="ring"),
+              "ulysses": dict(context_parallel="ulysses"),
+              "sequence_parallel": dict(sequence_parallel=True)}
+
+
+def sp_against_single(r0, single):
+    """Phase 7q's comparison of each mode of rank 0's results with the
+    unsharded run: (a) the global loss within ``SP_LOSS_REL``; (b) every
+    parameter's gradient, summed over sp, within ``SP_GRAD_REL``
+    (relative 2-norm; a parameter whose unsharded gradient is 0 must
+    get 0).  Returns ``({mode: {"loss": x, "grad": worst, "worst":
+    name}}, failures)``."""
+    read, fails = {}, []
+    want = single["loss"]
+    for mode, res in r0["modes"].items():
+        loss = abs(res["loss"] - want) / abs(want) \
+            if math.isfinite(res["loss"]) else math.inf
+        rel = {n: e / ref if ref else (0.0 if e == 0 else math.inf)
+               for n, (e, ref) in res["grad_err"].items()}
+        worst = max(rel, key=rel.get)
+        read[mode] = {"loss": loss, "grad": rel[worst], "worst": worst,
+                      "median": float(np.median(list(rel.values())))}
+        if not loss <= SP_LOSS_REL:
+            fails.append(f"(a) {mode}: loss {res['loss']} vs unsharded "
+                         f"{want}: {loss:.3g} > {SP_LOSS_REL:.3g}")
+        if not rel[worst] <= SP_GRAD_REL:
+            fails.append(f"(b) {mode}: {worst}'s gradient off by "
+                         f"{rel[worst]:.3g} > {SP_GRAD_REL:.3g}")
+    return read, fails
+
+
+def sp_main(a) -> int:
+    """Phase 7q's rank program (the module docstring)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.kernels import launches
+
+    modes = a.sp_modes.split(",")
+    sharded = a.axes is not None
+    if sharded:
+        dist.init_parallel_env(backend=a.backend, device=a.device,
+                               timeout=a.timeout)
+        dev = dist.current_device()
+    else:
+        dev = torch.device(a.device or "cuda")
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    rank = dist.get_rank()
+    rng = np.random.RandomState(a.data_seed)
+    cfg0 = _config(a)
+    ids_all = torch.from_numpy(rng.randint(0, cfg0.vocab_size,
+                                           (a.batch, a.seq))).to(dev)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    refs = None
+    if a.ref_grads and rank == 0:
+        refs = torch.load(a.ref_grads, mmap=True)
+    out = {"rank": rank, "world": dist.get_world_size(), "device": str(dev),
+           "modes": {}}
+    for mode in (modes if sharded else modes[:1]):
+        import dataclasses
+
+        from paddle_tpu_torch.models import LlamaForCausalLM
+
+        cfg = dataclasses.replace(cfg0, fused_lm_loss=True,
+                                  **(SP_OPTIONS[mode] if sharded else {}))
+        net = LlamaForCausalLM(cfg, device=dev, seed=0)
+        opt = pt.optimizer.SGD(a.lr, parameters=net.parameters())
+        ex = dist.MeshExecutor(json.loads(a.axes)) if sharded else None
+        ids = ids_all
+        if ex is not None:
+            ex.install(net)
+            ids, = ex.shard_batch([ids_all])
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        sync()
+        launches.reset()
+        dist.collective.reset_counts()
+        t0 = time.perf_counter()
+        loss, _ = net(ids, labels=ids)
+        loss.backward()
+        sync()
+        t1 = time.perf_counter()
+        if ex is not None:
+            ex.reduce_gradients(net)
+        sync()
+        t2 = time.perf_counter()
+        counts = dist.collective.counts()
+        staged = dist.collective.staged_counts()
+        res = dict(part=list(ids.shape), launches=launches.snapshot(),
+                   instances=launches.by_instance(), collectives=counts,
+                   staged=staged, fb_s=t1 - t0, reduce_s=t2 - t1)
+        res["loss"] = ex.mean_over_data(float(loss.detach())) \
+            if ex is not None else float(loss.detach())
+        if refs is not None:
+            err = {}
+            for name, p in net.named_parameters():
+                ref = refs[name].to(dev).float()
+                g = p.grad.float()
+                err[name] = [float(torch.linalg.vector_norm(g - ref)),
+                             float(torch.linalg.vector_norm(ref))]
+                del ref, g
+            res["grad_err"] = err
+        if a.save_grads:
+            torch.save({n: p.grad.detach().cpu()
+                        for n, p in net.named_parameters()}, a.save_grads)
+        sync()
+        t3 = time.perf_counter()
+        opt.step()
+        opt.clear_grad()
+        sync()
+        res["sgd_s"] = time.perf_counter() - t3
+        res["step_s"] = t2 - t0 + res["sgd_s"]
+        res["finite"] = all(bool(torch.isfinite(p).all())
+                            for p in net.parameters())
+        res["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9 \
+            if cuda else 0.0
+        out["modes"][mode if sharded else "unsharded"] = res
+        if ex is not None:
+            ex.close()
+        del net, opt, loss
+        if cuda:
+            torch.cuda.empty_cache()
+    if not sharded:
+        out.update(out["modes"].pop("unsharded"))
+    os.makedirs(a.out, exist_ok=True)
+    with open(os.path.join(a.out, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    if sharded:
+        dist.collective.barrier()
+        dist.destroy_parallel_env()
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser("paddle_tpu_torch.tools.mesh_train")
     ap.add_argument("--axes", default=None,
@@ -298,12 +462,18 @@ def main(argv=None) -> int:
     ap.add_argument("--check-restore", action="store_true")
     ap.add_argument("--ref", default=None)
     ap.add_argument("--save-params", default=None)
+    ap.add_argument("--sp-modes", default=None,
+                    help="phase 7q: comma-separated SP_OPTIONS")
+    ap.add_argument("--save-grads", default=None)
+    ap.add_argument("--ref-grads", default=None)
     ap.add_argument("--out", required=True)
     a = ap.parse_args(argv)
     # eight processes share one card: segments that grow in place keep
     # each allocator's reserve close to what it holds
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                           "expandable_segments:True")
+    if a.sp_modes:
+        return sp_main(a)
 
     import paddle_tpu_torch as pt
     from paddle_tpu_torch import distributed as dist

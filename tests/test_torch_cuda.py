@@ -2855,3 +2855,141 @@ class TestCudaMeshTP:
             np.testing.assert_array_equal(res["ring"], np.full(4, 2 - r))
             assert res["staged"] == {"send": 1, "recv": 1}
             assert res["counts"]["send"] == res["counts"]["recv"] == 1
+
+
+@pytest.mark.cuda
+class TestCudaSequenceParallel:
+    """Sequence and context parallelism on the card.  In this process:
+    the flash kernels' f32-output form (ring attention's blocks) against
+    the plain versions at bf16, and the causal forms with Tq < Tk
+    (sequence parallelism alone) at bf16 and f32.  Two ranks on the one
+    card over gloo (``{"sp": 2}``, the tiny f32 Llama with ring, Ulysses
+    and sequence parallelism alone; tests/torch_mesh_cuda_rank.py
+    ``sp``) against the unsharded model on the card: the global loss and
+    every gradient, summed over sp, within 1e-4; the ring's hops staged
+    through host memory and counted, Ulysses's all-to-alls not staged."""
+
+    @staticmethod
+    def _operands(dev, dtype, B, Tq, Tk, H, KVH, D, seed=5):
+        g = torch.Generator().manual_seed(seed)
+        q, do = (torch.randn(B, Tq, H, D, generator=g) for _ in range(2))
+        k, v = (torch.randn(B, Tk, KVH, D, generator=g) for _ in range(2))
+        return [t.to(dtype).to(dev).transpose(1, 2) for t in (q, k, v, do)]
+
+    @pytest.mark.parametrize("causal", [False, True])
+    def test_f32_outputs_match_the_plain_version(self, cuda_device, causal):
+        from paddle_tpu_torch.kernels import flash_attention as fa
+
+        q, k, v, do = self._operands(cuda_device, torch.bfloat16, 1, 384,
+                                     384, 8, 2, 128)
+        scale = 128 ** -0.5
+        launches.reset()
+        o, lse = fa._fwd(q, k, v, causal, scale, True, out_f32=True)
+        dq, dk, dv = fa._bwd(q, k, v, do, lse, fa._delta(o, do), causal,
+                             scale, out_f32=True)
+        torch.cuda.synchronize()
+        assert all(t.dtype == torch.float32 for t in (o, dq, dk, dv))
+        assert o.stride() == q.stride() and dk.stride() == k.stride()
+        ops = [t.cpu() for t in (q, k, v, do)]
+        po, plse = fa.flash_fwd_plain(*ops[:3], causal, scale, out_f32=True)
+        pg = fa._bwd_plain(*ops[:3], ops[3], lse.cpu(),
+                           fa._delta(o.cpu(), ops[3]), causal, scale,
+                           out_f32=True)
+        # the kernels round P and dS to bf16 (2^-8); the plain version
+        # keeps them in f32
+        for got, want in zip((o, lse, dq, dk, dv), (po, plse, *pg)):
+            top = float(want.abs().max())
+            assert float((got.cpu() - want).abs().max()) <= 2 ** -7 * top
+        f32o = {f"{n}@w128{fa.F32_OUT}": 1
+                for n in (fa.FWD_LSE, fa.BWD_DQ, fa.BWD_DKV)}
+        assert launches.by_instance() == f32o
+        # one rounding: the f32 outputs rounded to bf16 are the bf16
+        # form's on the same operands bit for bit, and not bf16 values
+        ob, lseb = fa._fwd(q, k, v, causal, scale, True)
+        bf = fa._bwd(q, k, v, do, lse, fa._delta(o, do), causal, scale)
+        assert torch.equal(lse, lseb)
+        for got, want in zip((o, dq, dk, dv), (ob, *bf)):
+            assert want.dtype == torch.bfloat16
+            assert torch.equal(got.to(torch.bfloat16), want)
+            assert not torch.equal(got, got.to(torch.bfloat16).float())
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_causal_with_fewer_queries_than_keys(self, cuda_device, dtype):
+        from paddle_tpu_torch.kernels import flash_attention as fa
+
+        q, k, v, do = self._operands(cuda_device, dtype, 2, 136, 520, 8, 4,
+                                     64)
+        scale = 64 ** -0.5
+        o, lse = fa._fwd(q, k, v, True, scale, True)
+        dq, dk, dv = fa._bwd(q, k, v, do, lse, fa._delta(o, do), True, scale)
+        ops = [t.cpu().float() for t in (q, k, v, do)]
+        po, plse = fa.flash_fwd_plain(*ops[:3], True, scale)
+        pg = fa.flash_bwd_plain(*ops[:3], o.cpu().float(), lse.cpu(), ops[3],
+                                True, scale)
+        tol = 2e-5 if dtype == torch.float32 else 2 ** -7
+        for got, want in zip((o, lse, dq, dk, dv), (po, plse, *pg)):
+            top = float(want.abs().max())
+            assert float((got.cpu().float() - want).abs().max()) <= tol * top
+
+    def test_sp2_world_matches_the_unsharded_model(self, cuda_device,
+                                                   tmp_path, monkeypatch):
+        import os
+        import pickle
+        from pathlib import Path
+
+        from paddle_tpu_torch.distributed.launch import Controller
+        from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+        from torch_mesh_cuda_rank import SEQ, SP_MODES, tokens
+
+        for name in ("rms_norm", "rope", "flash_attention"):
+            _build.load(name)          # built once, before the ranks load
+        net = LlamaForCausalLM(LlamaConfig.tiny(max_position_embeddings=SEQ),
+                               device=cuda_device, seed=0)
+        ids = tokens(cuda_device)
+        loss, _ = net(ids, labels=ids)
+        loss.backward()
+        torch.cuda.synchronize()
+        loss = float(loss.detach())
+        root = Path(__file__).resolve().parents[1]
+        monkeypatch.setenv("PYTHONPATH", os.pathsep.join(
+            [str(root), str(root / "tests"), os.environ.get("PYTHONPATH", "")]))
+        ctl = Controller(str(root / "tests" / "torch_mesh_cuda_rank.py"),
+                         [str(tmp_path), "sp"], nproc_per_node=2,
+                         timeout=300, log_dir=str(tmp_path / "log"))
+        code = ctl.run()
+        logs = "".join((tmp_path / "log" / f"workerlog.{r}").read_text()[-2000:]
+                       for r in range(2)
+                       if (tmp_path / "log" / f"workerlog.{r}").exists())
+        assert code == 0, logs
+        ranks = []
+        for r in range(2):
+            with open(tmp_path / f"rank{r}.pkl", "rb") as f:
+                ranks.append(pickle.load(f))
+        for mode in SP_MODES:
+            for r, res in enumerate(ranks):
+                got = res[mode]
+                assert got["part"] == (2, SEQ // 2)
+                assert abs(got["loss"] - loss) <= 1e-4 * abs(loss)
+                for name, p in net.named_parameters():
+                    want = p.grad.cpu().numpy()
+                    np.testing.assert_allclose(got["grads"][name], want,
+                                               rtol=1e-4, atol=1e-5,
+                                               err_msg=f"{mode} {name}")
+                attn = {k: n for k, n in got["launches"].items()
+                        if k.startswith("flash_attention")}
+                L = 2
+                if mode == "ring":
+                    # rank r runs r + 1 blocks a layer, forward and back
+                    assert attn == {"flash_attention_fwd_lse": L * (r + 1),
+                                    "flash_attention_bwd_dq": L * (r + 1),
+                                    "flash_attention_bwd_dkv": L * (r + 1)}
+                    assert got["staged"] == {"ring_exchange":
+                                             got["counts"]["ring_exchange"]}
+                    assert got["counts"]["ring_exchange"] == L * (1 + 2)
+                else:
+                    assert attn == {"flash_attention_fwd_lse": L,
+                                    "flash_attention_bwd_dq": L,
+                                    "flash_attention_bwd_dkv": L}
+                    assert got["staged"] == {}
+                if mode == "ulysses":
+                    assert got["counts"]["all_to_all_single"] == 8 * L

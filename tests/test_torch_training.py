@@ -147,9 +147,21 @@ class TestTrainingPath:
     @pytest.mark.parametrize("option,value", [
         ("sequence_parallel", True), ("context_parallel", "ring")])
     def test_unported_config_options_raise(self, option, value):
-        with pytest.raises(NotImplementedError, match=option):
-            LlamaForCausalLM(LlamaConfig.tiny(**{option: value}),
-                             device="cpu")
+        # the sequence options, which the port once refused (hence the
+        # name): with no mesh with an sp axis the option leaves the model
+        # dense (the JAX model's fallback), the same loss and gradients
+        # bit for bit
+        ids = torch.from_numpy(np.random.RandomState(3).randint(
+            0, 256, (2, 16)))
+        grads = []
+        for cfg in (LlamaConfig.tiny(**{option: value}), LlamaConfig.tiny()):
+            model = LlamaForCausalLM(cfg, device="cpu", seed=5)
+            loss, _ = model(ids, labels=ids)
+            loss.backward()
+            grads.append([loss.detach()] + [p.grad for p in
+                                            model.parameters()])
+        for got, want in zip(*grads):
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
 
     def test_unknown_config_option_refused(self):
         with pytest.raises(TypeError):

@@ -10,9 +10,15 @@
   (seed 0, 4 experts) on ``{"expert": 2}``, one forward and backward,
   the gradients gathered whole, and ``global_scatter`` of a CUDA tensor
   (staged through host memory).
+- ``TestCudaSequenceParallel`` (MODE ``sp``): the tiny f32 Llama (seed
+  0) with each of ``SP_MODES`` on ``{"sp": 2}``, each rank its half of
+  the sequence, the model's shifted loss (its share of the global one),
+  one backward, the gradients summed over sp by
+  ``MeshExecutor.reduce_gradients``; the launches, collectives and
+  staged ones of each.
 
     python -m paddle_tpu_torch.distributed.launch --nproc_per_node 2 \\
-        tests/torch_mesh_cuda_rank.py OUT [ep]
+        tests/torch_mesh_cuda_rank.py OUT [ep|sp]
 """
 import os
 import pickle
@@ -35,12 +41,50 @@ def tokens(device):
 
 
 MOE = dict(moe_num_experts=4, moe_capacity_factor=1.0)
+SP_MODES = {"ring": dict(context_parallel="ring"),
+            "ulysses": dict(context_parallel="ulysses"),
+            "sequence_parallel": dict(sequence_parallel=True)}
+
+
+def sequence_modes(dev):
+    """Each of SP_MODES on {"sp": 2}: the global loss, every gradient
+    (whole: the parameters are replicated), launches and collectives."""
+    out = {}
+    for name, opts in SP_MODES.items():
+        net = LlamaForCausalLM(LlamaConfig.tiny(max_position_embeddings=SEQ,
+                                                **opts),
+                               device=dev, seed=0)
+        ex = dist.MeshExecutor({"sp": 2})
+        ex.install(net)
+        ids, = ex.shard_batch([tokens(dev)])
+        launches.reset()
+        dist.collective.reset_counts()
+        loss, _ = net(ids, labels=ids)
+        loss.backward()
+        ex.reduce_gradients(net)
+        torch.cuda.synchronize()
+        out[name] = dict(
+            loss=ex.mean_over_data(float(loss.detach())),
+            part=tuple(ids.shape), launches=launches.snapshot(),
+            counts=dist.collective.counts(),
+            staged=dist.collective.staged_counts(),
+            grads={n: p.grad.cpu().numpy()
+                   for n, p in net.named_parameters()})
+        ex.close()
+    return out
 
 
 def main(out, mode=None):
     dist.init_parallel_env(backend="gloo", device="cuda:0", timeout=120)
     dev = dist.current_device()
     torch.backends.cuda.matmul.allow_tf32 = False
+    if mode == "sp":
+        res = sequence_modes(dev)
+        with open(os.path.join(out, f"rank{dist.get_rank()}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+        dist.barrier()
+        dist.destroy_parallel_env()
+        return
     ep = mode == "ep"
     net = LlamaForCausalLM(LlamaConfig.tiny(max_position_embeddings=SEQ,
                                             **(MOE if ep else {})),

@@ -786,6 +786,211 @@ def case_ep_ckpt_restore(inp):
             "slots": slots, "loss": loss}
 
 
+# --------------------------------------------- sequence / context parallel
+def _sp_part(a, group, dim=1):
+    from paddle_tpu_torch.distributed.sequence_parallel import sequence_part
+
+    return sequence_part(_t(a), group, dim).contiguous()
+
+
+def _attention_case(fn, q, k, v, w, group):
+    """This rank's output and dq/dk/dv of ``sum(fn(q, k, v) * w)`` on its
+    positions of the global q, k, v and cotangent w."""
+    ql, kl, vl = (_sp_part(a, group).requires_grad_() for a in (q, k, v))
+    out = fn(ql, kl, vl)
+    (out * _sp_part(w, group)).sum().backward()
+    return {"out": _np(out), "dq": _np(ql.grad), "dk": _np(kl.grad),
+            "dv": _np(vl.grad)}
+
+
+def case_sp_attention(inp):
+    """Ring and Ulysses attention on an sp 8 mesh (and Ulysses on sp 4 x
+    tp 2 with each tp rank's heads): this rank's output and gradients
+    of each of the module's inputs, and the hops and all-to-alls made."""
+    from paddle_tpu_torch.kernels.ring_attention import ring_attention
+    from paddle_tpu_torch.kernels.ulysses_attention import ulysses_attention
+
+    out = {}
+    mesh = dist.Mesh({"sp": 8})
+    g = mesh.group("sp")
+    for name, a in inp["cases"].items():
+        causal = a["causal"]
+        C.reset_counts()
+        if name.startswith("ring"):
+            fn = lambda q, k, v, c=causal: ring_attention(  # noqa: E731
+                q, k, v, mesh=mesh, causal=c)
+        else:
+            fn = lambda q, k, v, c=causal: ulysses_attention(  # noqa: E731
+                q, k, v, mesh=mesh, causal=c)
+        out[name] = _attention_case(fn, a["q"], a["k"], a["v"], a["w"], g)
+        out[name]["counts"] = C.counts()
+        out[name]["staged"] = C.staged_counts()
+    a = inp["tp"]
+    mesh = dist.Mesh({"sp": 4, "tp": 2})
+    g, tp = mesh.group("sp"), mesh.group("tp")
+    heads = [_sp_part(x, tp, dim=2).numpy() for x in (a["q"], a["k"], a["v"],
+                                                       a["w"])]
+    res = _attention_case(lambda q, k, v: ulysses_attention(
+        q, k, v, mesh=mesh, causal=True, head_axis="tp"), *heads, g)
+    res["heads"] = (tp.rank, heads[0].shape[2])
+    out["ulysses_tp"] = res
+    return out
+
+
+def _sp_hapi(inp, axes, **overrides):
+    ex = dist.MeshExecutor(axes)
+    net = _llama(inp, ex, **overrides)
+    model = pt.Model(net)
+    model.prepare(pt.optimizer.AdamW(3e-4, parameters=net.parameters()),
+                  lm_loss, mesh=ex)
+    return model
+
+
+def case_sp_llama(inp):
+    """The tiny Llama with each sequence/context-parallel option on
+    {data: 2, sp: 4} (or the mode's own axes) through
+    hapi.Model(mesh=...): the global losses of 3 AdamW steps, the
+    gathered final parameters, this rank's input part, and the in-model
+    loss (labels shifted inside the model, fused and not; the logits
+    path alone where tp splits the vocabulary) of the first batch as
+    the global mean."""
+    out = {}
+    for name, opts in inp["modes"].items():
+        axes = inp["mode_axes"].get(name, inp["axes"])
+        model = _sp_hapi(dict(inp, llama=inp["weights"][name]), axes,
+                         **opts)
+        ex = model._mesh_executor
+        losses = _train(model, inp["batches"])
+        net = model.network
+        ids, = ex.shard_batch([inp["batches"][0].astype(np.int64)])
+        ids = torch.from_numpy(ids)
+        shifted = {}
+        for fused in (False, True)[:1 if "tp" in axes else 2]:
+            net.config.fused_lm_loss = fused
+            with torch.no_grad():
+                shifted[fused] = ex.mean_over_data(float(net(ids,
+                                                             labels=ids)[0]))
+        net.config.fused_lm_loss = False
+        b = inp["batches"][0]
+        predict = _np(model.predict_batch([b]))
+        evaluated = model.eval_batch([b], [b.astype(np.int64)])
+        out[name] = {"losses": losses, "part": tuple(ids.shape),
+                     "predict": predict, "eval": evaluated,
+                     "sharded": ex.sequence_sharded, "shifted": shifted,
+                     "final": {n: _np(gather_full(p))
+                               for n, p in net.named_parameters()}}
+        ex.close()
+    return out
+
+
+def case_sp_fleet(inp):
+    """fleet with dp 2 x sep 4 and a ring Llama: each rank's rows and
+    positions of every batch (sequence_part over the sep group), the
+    model's own shifted loss, the fleet step (summed over sep, averaged
+    over dp): the global losses and the final parameters.  Then a dense
+    Llama in the same session, replicated over sep, trained with SGD
+    (averaged over dp only): its global losses and final parameters."""
+    from paddle_tpu_torch.convert import from_jax_state_dict
+    from paddle_tpu_torch.distributed.sequence_parallel import sequence_part
+    from paddle_tpu_torch.models import LlamaConfig
+
+    hcg = _fleet(dp=2, sep=4).hcg
+    cfg = LlamaConfig.tiny(max_position_embeddings=inp["seq"],
+                           context_parallel="ring")
+    net = fleet.distributed_model(from_jax_state_dict(inp["llama"], cfg,
+                                                      device=CPU))
+    opt = fleet.distributed_optimizer(
+        pt.optimizer.AdamW(3e-4, parameters=net.parameters()))
+    d, nd = hcg.get_data_parallel_rank(), hcg.get_data_parallel_world_size()
+    sep = hcg.get_sep_parallel_group()
+    both = dist.get_mesh().group("dp", "sp")
+    losses = []
+    for b in inp["batches"]:
+        rows = b.shape[0] // nd
+        ids = sequence_part(torch.from_numpy(
+            b[d * rows:(d + 1) * rows].astype(np.int64)), sep)
+        loss, _ = net(ids, labels=ids)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        t = loss.detach().reshape(1).double()
+        C.all_reduce(t, group=both)
+        losses.append(float(t[0]) / nd)
+    out = {"losses": losses, "sep": (hcg.get_sep_parallel_world_size(),
+                                     hcg.get_sep_parallel_rank()),
+           "final": {n: _np(p) for n, p in net.named_parameters()}}
+    dense = fleet.distributed_model(from_jax_state_dict(
+        inp["llama"], LlamaConfig.tiny(max_position_embeddings=inp["seq"]),
+        device=CPU))
+    opt = fleet.distributed_optimizer(
+        pt.optimizer.SGD(inp["sgd_lr"], parameters=dense.parameters()))
+    dp = dist.get_mesh().group("dp")
+    losses = []
+    for b in inp["batches"]:
+        ids = torch.from_numpy(b[d * rows:(d + 1) * rows].astype(np.int64))
+        loss, _ = dense(ids, labels=ids)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        t = loss.detach().reshape(1).double()
+        C.all_reduce(t, group=dp)
+        losses.append(float(t[0]) / nd)
+    out["dense"] = {"losses": losses,
+                    "final": {n: _np(p) for n, p in dense.named_parameters()}}
+    _reset()
+    return out
+
+
+def case_sp_step(inp):
+    """make_ring_sp_step on {data: 2, sp: 4} with a ring Llama: this
+    rank's logits rows of the global ids, the step's cache size after
+    two calls, and that the model keeps one step for its mesh."""
+    from paddle_tpu_torch.models.generation import make_ring_sp_step
+
+    ex = dist.MeshExecutor(inp["axes"], register=False)
+    net = _llama(inp, ex, context_parallel="ring")
+    step = make_ring_sp_step(net, mesh=ex.mesh)
+    ids = inp["ids"]
+    first = step(ids)
+    again = step(ids)
+    return {"logits": _np(first), "same": bool(torch.equal(first, again)),
+            "cache": step._cache_size(),
+            "kept": make_ring_sp_step(net, mesh=ex.mesh) is step,
+            "coord": ex.mesh.coord}
+
+
+def case_sp_refusals(inp):
+    """What a sequence-parallel mesh refuses: a sequence that does not
+    split over sp, a MoE model with its sequence split; and a model
+    with neither option stays replicated over sp (its batch cut on
+    data only, its gradients averaged over data)."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    out = {}
+    ex = dist.MeshExecutor({"data": 2, "sp": 4})
+    net = LlamaForCausalLM(LlamaConfig.tiny(context_parallel="ring"),
+                           device=CPU)
+    ex.install(net)
+    try:
+        ex.shard_batch([np.zeros((2, 6), np.int64)])
+    except ValueError as e:
+        out["odd_sequence"] = str(e)
+    ex.close()
+    ex = dist.MeshExecutor({"data": 2, "sp": 4})
+    moe = LlamaForCausalLM(LlamaConfig.tiny(sequence_parallel=True,
+                                            moe_num_experts=4), device=CPU)
+    try:
+        ex.install(moe)
+    except NotImplementedError as e:
+        out["moe"] = str(e)
+    ex.close()
+    ex = dist.MeshExecutor({"data": 2, "sp": 4})
+    ex.install(LlamaForCausalLM(LlamaConfig.tiny(), device=CPU))
+    out["dense"] = (ex.sequence_sharded, ex.sequence_reduction(),
+                    ex.shard_batch([np.zeros((2, 8), np.int64)])[0].shape)
+    ex.close()
+    return out
+
 CASES = {name[5:]: fn for name, fn in globals().items()
          if name.startswith("case_")}
 
