@@ -235,7 +235,30 @@ Phases, each of which must pass (nothing is caught):
      every one staged through host memory), (f) each rank's peak under
      1F1B (steps 2-3) and GPipe (step 4), stage 0's 1F1B peak below its
      GPipe peak, beside one microbatch's saved activations, (g) step
-     seconds beside the unsharded step and the card's peak.
+     seconds beside the unsharded step and the card's peak, (h) a fifth
+     step, 1F1B under ClipGradByGlobalNorm(PP_CLIP): every stage's norm
+     the whole model's, within PP_CLIP_REL of the unsharded step's, and
+     the norm bites.
+  7t. tensor parallelism's leftovers and fleet's meta-optimizers: one
+     world of 4 ranks on the one card over gloo (mesh_train --tp-runs),
+     each run followed by the same run unsharded on rank 0 alone, its
+     final parameters scattered to the parts' holders: (a) Llama-3-8B
+     width, 2 layers, bf16, hapi.Model(mesh={"data": 2, "tp": 2}), the
+     fused loss over a vocabulary split across tp, 3 AdamW steps of [2,
+     2048]; (b) Llama-3.2-3B width (tied), 2 layers, bf16, fleet {"dp":
+     2, "mp": 2}, a fused and a logits step; (c) the same in f32 under
+     dgc, gradient merge with local SGD, and lars, 4 steps each; (B)
+     Mixtral-8x7B width, 1 layer, bf16, {"expert": 2, "tp": 2}, 3 AdamW
+     steps of [2, 1024], dropless: (1) losses and (2) every update
+     within the run's bounds (mesh_train.tp_bounds: 7d's for the bf16
+     runs, the f32 runs' own), (3) every rank's launches exact (rows
+     1t, 5, 6b-6d; 8a, 8b on every rank of B), (4) a rank's peak and
+     bytes of parts, step seconds beside the unsharded step's, the
+     collectives split into the fused loss's and the rest, the card's
+     peak, (5) a control: the merge-with-local-SGD run against its
+     emulation with the syncs left out must be refused, (6) the f32
+     row-parallel rule's cost at 7d's products against the bf16 product
+     (row_parallel_cost).
 Mixture of experts (Mixtral-8x7B's shape, mixtral_config):
   2m. MoE kernels: dispatch and combine against their plain versions at
      hidden 4096, 8 experts, top-2, bf16, at a decode step's, a prefill
@@ -1697,6 +1720,8 @@ def phase_moe_kernels(dev):
                            2.0 * n_kept * HID, F32_FLOPS),
             work=work)
     entries.update(moe_ep_forms(g, dev, md))
+    entries.update(moe_ep_forms(g, dev, md, T=MESH_BATCH * EP_SEQ, coord=0,
+                                form="tp", path="mesh_tp"))
     print("  library: index_add_ of the routed rows, pre-weighted, into a "
           "zeroed buffer (dispatch); F.embedding_bag(mode='sum', "
           "per_sample_weights) over the [E*C, M] table (combine)")
@@ -1704,27 +1729,31 @@ def phase_moe_kernels(dev):
     return entries
 
 
-def moe_ep_forms(g, dev, md):
-    """The forms phase 7e's expert-parallel layer (``distributed.moe.
+def moe_ep_forms(g, dev, md, T=None, coord=1, form="ep", path="mesh_moe"):
+    """The forms an expert-parallel layer (``distributed.moe.
     expert_ffn``) gives the MoE kernels on one rank, at its shapes: the
-    rank's T = EP_SEQ tokens routed top-2 over 8 experts, its E_loc = 4
-    experts (those of expert coordinate 1), C_loc = min(C, T) = T, every
+    rank's T tokens (default EP_SEQ) routed top-2 over 8 experts, its
+    E_loc = 4 experts (those of expert coordinate ``coord``), C_loc =
+    min(C, T) = T, every
     choice of another rank's expert remapped to expert 0 and slot C_loc,
-    which the kernels skip.  The dispatch forward (bf16, weight 1) and
-    its backward (a combine over f32 rows, f32 weight 1), the combine
+    which the kernels skip: phase 7e's rank (T = EP_SEQ, ``form`` "ep")
+    and phase 7t's world B rank 0 (T = 2 * EP_SEQ, the whole batch, as
+    no data axis splits it; its f32 rows the tp ranks' partial sums;
+    ``form`` "tp").  The dispatch forward (bf16, weight 1) and its
+    backward (a combine over f32 rows, f32 weight 1), the combine
     forward (f32 rows and f32 gates) and its backward (a bf16 dispatch
     with the bf16 gates), each bit-identical to the plain version (each
     output one rounded product, or an f32 sum of at most K = 2 products
     in the same order); the two forwards are rows of the kernels line
     (timed L2-cold, each call on its own copy of the rows, and L2-hot),
-    their launches those of 7e's rank 0."""
+    their launches those of the phase's rank 0 (``path``)."""
     import torch.nn.functional as F
 
     bf, f32 = torch.bfloat16, torch.float32
     HID, E, K = MOE_HID, 8, 2
-    T = EP_SEQ
+    T = EP_SEQ if T is None else T
     E_loc = E // EP_AXES["expert"]
-    e0, C_loc = E_loc, T
+    e0, C_loc = E_loc * coord, T
     src, where = "paddle_tpu_torch/csrc/moe_dispatch.cu", \
         "paddle_tpu/kernels/moe_dispatch.py"
     eidx, sidx, gate = _moe_routing(g, T, E, K)
@@ -1773,8 +1802,8 @@ def moe_ep_forms(g, dev, md):
                                mode="sum", per_sample_weights=w_lib)
 
     return {
-        "moe_dispatch_ep": dict(
-            path="mesh_moe", counter=md.DISPATCH, replaces=f"{where}:53",
+        f"moe_dispatch_{form}": dict(
+            path=path, counter=md.DISPATCH, replaces=f"{where}:53",
             source=src, max_abs_err=err_d,
             ms=time_ms_rotating([lambda t=t: md._dispatch(
                 t, le, ls, ones, E_loc, C_loc) for t in toks]),
@@ -1787,8 +1816,8 @@ def moe_ep_forms(g, dev, md):
             library_hot_ms=time_ms(lambda: dispatch_lib(rows[0])),
             bound=bound_ms(d_bytes, 2.0 * n_kept * HID, F32_FLOPS),
             work=work + ", bf16, weight 1, L2-cold"),
-        "moe_combine_ep_f32": dict(
-            path="mesh_moe", counter=md.COMBINE, replaces=f"{where}:83",
+        f"moe_combine_{form}_f32": dict(
+            path=path, counter=md.COMBINE, replaces=f"{where}:83",
             source=src, max_abs_err=err_c,
             ms=time_ms_rotating([lambda x=x: md._combine(x, le, ls, gate32)
                                  for x in eos]),
@@ -6325,6 +6354,9 @@ PP_SEQ = 2048                  # a microbatch: [1, PP_SEQ]
 PP_MICRO = 8                   # accumulate_steps M (the global batch's rows)
 PP_STEPS = ("1F1B", "1F1B", "1F1B", "FThenB")
 PP_LR = 1e-4
+PP_CLIP = 1e-3                 # the clipped 1F1B step after PP_STEPS: a
+                               # global norm far below the gradients'
+PP_CLIP_REL = 2.0 ** -10       # every rank's norm against the unsharded
 
 
 def pp_launches(layers, micro, last):
@@ -6358,7 +6390,7 @@ def phase_mesh_pp(dev, config="llama3_8b", layers=PP_LAYERS, seq=PP_SEQ):
     common = ["--pp-steps", ",".join(PP_STEPS), "--config", config,
               "--layers", str(layers), "--seq", str(seq), "--batch", str(M),
               "--micro-batches", str(M), "--lr", str(PP_LR), "--device",
-              dev_arg]
+              dev_arg, "--clip-norm", str(PP_CLIP)]
     if config == "tiny":
         common += ["--dtype", "bfloat16"]
     t_all = time.perf_counter()
@@ -6455,6 +6487,20 @@ def phase_mesh_pp(dev, config="llama3_8b", layers=PP_LAYERS, seq=PP_SEQ):
                      f"its GPipe peak {stage0['sched_peak_gb'][gpipe]} GB")
     if not all(r["finite"] for r in ranks):
         fails.append("a rank's parameters are not finite")
+    # (h) the clipped step: every stage clipped by the whole model's norm
+    norm = single["clip_norm"]
+    clip_rel = max(abs(r["clip_norm"] - norm) / norm for r in ranks)
+    print(f"  (h) step {len(PP_STEPS) + 1} (1F1B) clipped to the global "
+          f"norm {PP_CLIP}: unsharded norm {norm:.6g} (it bites: "
+          f"{norm > PP_CLIP}); the stages' norms "
+          f"{sorted({r['clip_norm'] for r in ranks})}, worst |diff| / norm "
+          f"{clip_rel:.3g} (limit {PP_CLIP_REL:.3g}); its loss "
+          f"{r0['losses'][-1]} vs unsharded {single['losses'][-1]} and "
+          "every update over the run within (a) and (b)'s limits",
+          flush=True)
+    if not (norm > PP_CLIP and clip_rel <= PP_CLIP_REL):
+        fails.append(f"(h) clip norms {[r['clip_norm'] for r in ranks]} vs "
+                     f"unsharded {norm} (clip {PP_CLIP})")
     slowest = [max(r["step_s"][i] for r in ranks)
                for i in range(len(PP_STEPS))]
     print(f"  (g) step s on the host clock, slowest rank "
@@ -6468,8 +6514,209 @@ def phase_mesh_pp(dev, config="llama3_8b", layers=PP_LAYERS, seq=PP_SEQ):
         raise AssertionError(f"7p: {'; '.join(fails)}")
     shutil.rmtree(out, ignore_errors=True)
     print(f"  phase 7p: {time.perf_counter() - t_all:.1f} s", flush=True)
-    print(f"  {json.dumps(dict(losses=r0['losses'], unsharded=single['losses'], loss_rel=read['loss'], update_rel=read['update'][read['worst']], update_worst=read['worst'], step_s={r['rank']: r['step_s'] for r in ranks}, unsharded_step_s=single['step_s'], sched_peak_gb={r['rank']: r['sched_peak_gb'] for r in ranks}, step_peak_gb={r['rank']: r['step_peak_gb'] for r in ranks}, act_gb={r['rank']: r['act_gb'][0] for r in ranks}, param_bytes={r['rank']: r['param_bytes'] for r in ranks}, card_peak_mib=smi.peak_mib, world_s=secs))}", flush=True)
+    print(f"  {json.dumps(dict(losses=r0['losses'], unsharded=single['losses'], loss_rel=read['loss'], update_rel=read['update'][read['worst']], update_worst=read['worst'], clip_norm=norm, clip_rel=clip_rel, step_s={r['rank']: r['step_s'] for r in ranks}, unsharded_step_s=single['step_s'], sched_peak_gb={r['rank']: r['sched_peak_gb'] for r in ranks}, step_peak_gb={r['rank']: r['step_peak_gb'] for r in ranks}, act_gb={r['rank']: r['act_gb'][0] for r in ranks}, param_bytes={r['rank']: r['param_bytes'] for r in ranks}, card_peak_mib=smi.peak_mib, world_s=secs))}", flush=True)
     return summed
+
+
+TP_NAMES = ("a", "b", "c_dgc", "c_gm_localsgd", "c_lars", "B")  # phase 7t
+TP_WORLD = 4                   # its ranks: world A {"data": 2, "tp": 2} and
+                               # fleet {"dp": 2, "mp": 2}; world B {"expert":
+                               # 2, "tp": 2}, in one launch
+TP_CHAINS = {"c_dgc": ["DGCMomentum"], "c_lars": ["LarsMomentum"],
+             "c_gm_localsgd": ["LocalSGDOptimizer", "GradientMergeOptimizer",
+                               "AdamW"]}
+
+
+def _split_counts(calls):
+    """A step's collectives: the fused loss's (``fused_loss.*``) and the
+    rest."""
+    fused = {k: n for k, n in calls.items() if k.startswith("fused_loss.")}
+    return fused, {k: n for k, n in calls.items() if k not in fused}
+
+
+TP_ROWS = 2048                 # a 7d data rank's tokens: [1, 2048]
+TP_PRODUCTS = {"o_proj": (2048, 4096), "down_proj": (7168, 4096)}
+                               # Llama-3-8B's row-parallel weights on one of
+                               # 7d's tp 2 ranks: [in / tp, out]
+
+
+def row_parallel_cost(dev):
+    """The f32 row-parallel rule's cost on one tp rank at phase 7d's
+    products (TP_PRODUCTS, bf16, TP_ROWS rows): ``parallel_layers.
+    f32_partial`` (the rule: cuBLAS's bf16 product with an f32 output)
+    against the bf16 product a rank rounded before (``x @ w``) and the
+    rule's first form, the f32 product of f32 casts in TF32, each beside
+    its bound (bf16 operands read once, the output written once; the
+    products at the bf16 peak), and the rule against a true f32 product
+    of the same operands.  The sum's bytes through a collective double
+    with the rule (f32 against bf16)."""
+    from paddle_tpu_torch.device import tf32_if_exact
+    from paddle_tpu_torch.distributed.parallel_layers import f32_partial
+
+    def tf32_casts(x, w):
+        with tf32_if_exact(x.dtype):
+            return x.float() @ w.float()
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    out = {}
+    for name, (k, n) in TP_PRODUCTS.items():
+        x = torch.randn(TP_ROWS, k, device=dev, generator=g,
+                        dtype=torch.bfloat16)
+        w = torch.randn(k, n, device=dev, generator=g,
+                        dtype=torch.bfloat16) * k ** -0.5
+        flops = 2.0 * TP_ROWS * k * n
+        ins = 2.0 * (TP_ROWS * k + k * n)
+        row = dict(bf16_ms=time_ms(lambda: x @ w),
+                   rule_ms=time_ms(lambda: f32_partial(x, w)),
+                   tf32_casts_ms=time_ms(lambda: tf32_casts(x, w)),
+                   bf16_bound_ms=bound_ms(ins + 2.0 * TP_ROWS * n, flops)[0],
+                   rule_bound_ms=bound_ms(ins + 4.0 * TP_ROWS * n,
+                                          flops)[0])
+        ref = x.float() @ w.float()
+        row["rule_max_abs_err"] = float((f32_partial(x, w) - ref).abs().max())
+        out[name] = row
+        print(f"  (6) {name} [{TP_ROWS}, {k}] x [{k}, {n}] bf16: the f32 "
+              f"rule {row['rule_ms']:.4f} ms (bound "
+              f"{row['rule_bound_ms']:.4f}), the bf16 product "
+              f"{row['bf16_ms']:.4f} ms (bound {row['bf16_bound_ms']:.4f}),"
+              f" f32 casts in TF32 {row['tf32_casts_ms']:.4f} ms; the rule "
+              f"against an f32 product: {row['rule_max_abs_err']:.3g}",
+              flush=True)
+        del x, w, ref
+    return out
+
+
+def phase_mesh_tp(dev):
+    """Phase 7t (module docstring): ``mesh_train.TP_RUNS`` in one world
+    of TP_WORLD ranks on the one card over gloo, each run followed by the
+    same run unsharded on rank 0 alone (one replica a data rank under
+    local SGD, its rows each, the replicas averaged at its syncs), its
+    final parameters scattered to the parts' holders: (a) Llama-3-8B's widths at
+    2 layers, bf16, hapi.Model(mesh={"data": 2, "tp": 2}), the fused
+    loss over 64128 vocabulary columns a rank, 3 AdamW steps; (b)
+    Llama-3.2-3B's (tied) at 2 layers, bf16, fleet {"dp": 2, "mp": 2},
+    a fused and a logits step; (c) the same model in f32 under dgc
+    (sparsity 0.999, rampup 1), gradient merge (k 2) with local SGD (k
+    2), and lars, 4 steps each; (B) Mixtral-8x7B's widths at 1 layer,
+    bf16, {"expert": 2, "tp": 2}, dropless, 3 AdamW steps.  Each run
+    against its unsharded run (``mesh_train.tp_against_single`` at
+    ``tp_bounds``: 7d's for bf16, the f32 runs' own): (1) each step's
+    loss, (2) every parameter's update; (3)
+    every rank's launches those of its steps (``train_launches``, w128
+    instances in bf16, MoE dispatch and combine on every rank of B), the
+    optimizer chain of (c); (4) a rank's peak memory and bytes of parts,
+    the step seconds beside the unsharded step's, the collectives split
+    into the fused loss's and the rest, the card's peak; (5) the
+    control: the merge-with-local-SGD run compared again, against its
+    emulation with the syncs left out, must be refused; (6)
+    :func:`row_parallel_cost`.  Returns world B rank 0's launches (by
+    kernel and instance)."""
+    import shutil
+
+    from paddle_tpu_torch.tools import mesh_train
+
+    out = os.path.abspath(os.path.join("build", "mesh_7t"))
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    dev_arg = "cuda:0" if dev.type == "cuda" else "cpu"
+    t_all = time.perf_counter()
+    print(f"[train tp mesh] runs {list(TP_NAMES)} "
+          f"({', '.join(f'{k}: {v}' for k, v in mesh_train.TP_RUNS.items())})",
+          flush=True)
+    with _SmiPeak() as smi:
+        world, _, secs, _ = _mesh_world(
+            ["--tp-runs", ",".join(TP_NAMES), "--device", dev_arg,
+             "--backend", "gloo", "--timeout", str(MESH_WORLD_S)],
+            out, "world", n=TP_WORLD, phase="7t")
+    if len(world) != TP_WORLD:
+        raise AssertionError(f"7t: {len(world)} of {TP_WORLD} ranks "
+                             "reported")
+    single = {n: world[0]["runs"][n]["single"] for n in TP_NAMES}
+    print(f"  world: gloo, {TP_WORLD} ranks on {dev_arg}, {secs:.1f} s with "
+          "start-up and the unsharded runs on rank 0", flush=True)
+    fails, summary = [], {}
+    for name in TP_NAMES:
+        spec = mesh_train.TP_RUNS[name]
+        ranks = [dict(r["runs"][name], rank=r["rank"]) for r in world]
+        ref = single[name]
+        bounds = mesh_train.tp_bounds(spec)
+        read, bad = mesh_train.tp_against_single(ranks, ref, bounds)
+        fails += [f"{name} {b}" for b in bad]
+        cfg = mesh_train._tp_config(spec)
+        bf16 = cfg.dtype == "bfloat16"
+        want = {} if dev.type == "cpu" else {
+            k: spec["steps"] * v for k, v in train_launches(
+                spec["layers"], moe=cfg.moe_num_experts > 0,
+                attn=attention_counters(cfg, spec["seq"])).items()}
+        for r in ranks:
+            inst = r["instances"]
+            if r["launches"] != want or (dev.type == "cuda" and bf16 and any(
+                    "128" not in k.split("@")[1] for k in inst)):
+                fails.append(f"{name} (3) rank {r['rank']} launches "
+                             f"{r['launches']} / {inst}, want {want}")
+            if name in TP_CHAINS and r["chain"] != TP_CHAINS[name]:
+                fails.append(f"{name} (3) rank {r['rank']} optimizer "
+                             f"{r['chain']}")
+        r0 = ranks[0]
+        fused, rest = _split_counts(r0["collectives"][-1])
+        step = float(np.mean([max(r["step_s"][i] for r in ranks)
+                              for i in range(1, spec["steps"])]))
+        one = float(np.mean(ref["step_s"][1:]))
+        peaks = [r["peak_gb"] for r in ranks]
+        b = r0["bytes"]
+        print(f"  ({name}) {cfg.dtype}, {spec.get('mesh') or spec['fleet']}"
+              f"{' ' + str(spec['meta']) if spec.get('meta') else ''}, "
+              f"{spec['steps']} steps of [{spec['batch']}, {spec['seq']}]"
+              f", {r0['chain']}: (1) losses {r0['losses'][0]} vs unsharded "
+              f"{ref['losses']}: worst |diff| / |loss| {read['loss']:.3g} "
+              f"(limit {bounds[0]:.3g}); (2) worst update "
+              f"{read['update'][read['worst']]:.3g} ({read['worst']}; limit "
+              f"{bounds[1]:.3g}), median "
+              f"{float(np.median(list(read['update'].values()))):.3g}; (3) "
+              f"launches a rank {r0['launches']}; (4) step "
+              f"{step:.3f} s (slowest rank, steps 2..) beside unsharded "
+              f"{one:.3f} s; rank peak {min(peaks):.2f}-{max(peaks):.2f} GB;"
+              f" rank 0 parts {b['split_params'] / 1e9:.3f} GB of split "
+              f"parameters ({b['split_params_whole'] / 1e9:.3f} whole), "
+              f"{b['split_slots'] / 1e9:.3f} GB of their slots, "
+              f"{r0['parts']}; collectives a step: fused loss {fused}, the "
+              f"rest {rest}, staged {r0['staged'][-1]}", flush=True)
+        summary[name] = dict(losses=[r["losses"][0] for r in ranks],
+                             unsharded=ref["losses"], loss_rel=read["loss"],
+                             update_rel=read["update"][read["worst"]],
+                             update_worst=read["worst"],
+                             step_s=[r["step_s"] for r in ranks],
+                             unsharded_step_s=ref["step_s"], peak_gb=peaks,
+                             unsharded_peak_gb=ref["peak_gb"],
+                             bytes=b, fused_loss_calls=fused,
+                             other_calls=rest, launches=r0["launches"])
+        if spec.get("control"):
+            # (5) the planted fault: the emulation without local SGD's
+            # syncs; the same comparison must refuse it
+            ctl = [dict(r, vs_ref=r["control_vs_ref"]) for r in ranks]
+            cread, cbad = mesh_train.tp_against_single(
+                ctl, dict(ref, losses=ref["control_losses"]), bounds)
+            print(f"  ({name}) (5) control, against its emulation with the "
+                  f"syncs left out: worst loss {cread['loss']:.3g}, worst "
+                  f"update {cread['update'][cread['worst']]:.3g} "
+                  f"({cread['worst']}) beside the limits {bounds}: "
+                  f"{'refused' if cbad else 'NOT refused'}", flush=True)
+            if not cbad:
+                fails.append(f"{name} (5) the unsynced emulation passed")
+            summary[name].update(
+                control_loss_rel=cread["loss"],
+                control_update_rel=cread["update"][cread["worst"]])
+    print(f"  card peak {smi.peak_mib / 1024:.1f} GiB used (nvidia-smi, "
+          f"{TP_WORLD} contexts included)", flush=True)
+    if fails:
+        raise AssertionError(f"7t: {'; '.join(fails)}")
+    shutil.rmtree(out, ignore_errors=True)
+    cost = row_parallel_cost(dev)
+    print(f"  phase 7t: {time.perf_counter() - t_all:.1f} s", flush=True)
+    print(f"  {json.dumps(dict(runs=summary, card_peak_mib=smi.peak_mib, world_s=secs, row_parallel=cost))}",
+          flush=True)
+    b0 = world[0]["runs"]["B"]
+    return {**b0["launches"], **b0["instances"]}
 
 
 EP_AXES = {"data": 2, "fsdp": 2, "expert": 2}   # tests/test_moe_sp_workloads.py
@@ -7098,6 +7345,8 @@ def main() -> int:
     free()
     phase_mesh_pp(dev)
     free()
+    tp_counts = phase_mesh_tp(dev)
+    free()
     moe_train_counts = phase_train(dev, mixtral_config(
         num_hidden_layers=MOE_TRAIN_LAYERS, fused_lm_loss=True),
         MOE_TRAIN_T, "train moe", "Mixtral-8x7B width")
@@ -7109,7 +7358,7 @@ def main() -> int:
             "c1_serve": c1_counts, "train_phi3": phi3_counts,
             "phi3_serve": phi3_serve_counts, "spec": spec_counts,
             "hapi_train": hapi_counts, "mesh_moe": mesh_moe_counts,
-            **sp_counts}
+            "mesh_tp": tp_counts, **sp_counts}
     kernels = []
     for name, e in [*entries.items(), *train_entries.items(),
                     *sp_entries.items(),

@@ -51,6 +51,13 @@
 //   S = mma(q, codes_k) * k_scale[key] / sqrt(D),
 //   O += mma(bf16(P * v_scale[key]), codes_v), l += P (unscaled, f32),
 // so the only rounding left is the one of P that FA-2 already has.
+//
+// Its instances compile as CP_UNITS translation units at once
+// (kernels/_build.py SPLIT), linked into one library: unit CP_UNIT = 0
+// holds the entry points and the general instances; unit 1 the wgmma
+// instances of 64, 128 and 256 columns over bf16 pools (TMA and copy
+// producers), unit 2 those over int8 codes and unit 3 over fp8 codes.
+// Without CP_UNIT the file is every unit.
 #include <cstdint>
 
 #include "common.cuh"
@@ -718,7 +725,7 @@ __global__ void __launch_bounds__(CW_THREADS, 1) chunked_prefill_wgmma(
 }
 
 template <int W, int Q, CwLoad P, int CHUNK>
-static int launch_chunk_wgmma(const bf16* q, const void* k_pool,
+int launch_chunk_wgmma(const bf16* q, const void* k_pool,
                               const void* v_pool, const float* k_scale,
                               const float* v_scale, const int* bt,
                               const int* pos, bf16* out, int B, int Tc,
@@ -749,6 +756,32 @@ static int launch_chunk_wgmma(const bf16* q, const void* k_pool,
       rep, D, bs, nbs, scale);
   return (int)cudaGetLastError();
 }
+
+// the instances of each unit past 0 (the file's head comment), each
+// declaration after X (nothing, or extern in unit 0)
+#define CP_INST(X, W, Q, P, C)                                             \
+  X template int launch_chunk_wgmma<W, Q, CwLoad::P, C>(                  \
+      const bf16*, const void*, const void*, const float*, const float*,   \
+      const int*, const int*, bf16*, int, int, int, int, int, int, int, int, \
+      float, cudaStream_t);
+#define CP_BF16_UNIT(X, W) \
+  CP_INST(X, W, 0, kCopy, 16) CP_INST(X, W, 0, kTma, 16)
+#define CP_CODE_UNIT(X, W, Q) \
+  CP_INST(X, W, Q, kCodes, 8) CP_INST(X, W, Q, kCodes, 16)
+#define CP_UNIT_1(X) \
+  CP_BF16_UNIT(X, 64) CP_BF16_UNIT(X, 128) CP_BF16_UNIT(X, 256)
+#define CP_UNIT_2(X) \
+  CP_CODE_UNIT(X, 64, 1) CP_CODE_UNIT(X, 128, 1) CP_CODE_UNIT(X, 256, 1)
+#define CP_UNIT_3(X) \
+  CP_CODE_UNIT(X, 64, 2) CP_CODE_UNIT(X, 128, 2) CP_CODE_UNIT(X, 256, 2)
+#define CP_CAT_(a, b) a##b
+#define CP_CAT(a, b) CP_CAT_(a, b)
+#if defined(CP_UNIT) && CP_UNIT > 0
+CP_CAT(CP_UNIT_, CP_UNIT)()
+#else
+#if defined(CP_UNIT)
+CP_UNIT_1(extern) CP_UNIT_2(extern) CP_UNIT_3(extern)
+#endif
 
 // the wgmma instance of width W over pools of Q: bf16 pools by TMA boxes
 // or by the copy producer (`copy`), code pools `chunk` codes a copy
@@ -842,3 +875,4 @@ extern "C" int chunked_prefill(const void* q, const void* k_pool,
   });
   return err;
 }
+#endif  // unit 0

@@ -71,6 +71,13 @@
 //   MAXD 128 serve D <= 128 with the registers they always had, those of
 //   256 the wider heads (Gemma's), whose tiles need more than 48 KB of
 //   shared memory.  Simple rather than fast.
+//
+// Its instances compile as FA_UNITS translation units at once
+// (kernels/_build.py SPLIT), linked into one library: unit FA_UNIT = 0
+// holds the entry points and the general instances; unit 1 the forward
+// of 64, 128 and 256 columns (with and without the LSE), unit 2 dQ and
+// unit 3 dK/dV at those widths.  Without FA_UNIT the file is every
+// unit.
 #include <cmath>
 #include <cstdint>
 
@@ -1184,6 +1191,115 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
   }
 }
 
+// ------------------------------------------------ wgmma launchers
+// the three tensor maps of q [B, H, Tq, D] and k, v [B, KVH, Tk, D]
+// from the strides in p (elements; each a multiple of 8, checked by the
+// wrapper and refused here by cuTensorMapEncodeTiled otherwise), boxes
+// of 128 rows of q and k_rows of k and v
+static bool fa_maps(FAMaps* maps, const FAParams& p, int k_rows) {
+  const cuuint32_t box[4] = {64, FA_BM, 1, 1};
+  const cuuint32_t kbox[4] = {64, (cuuint32_t)k_rows, 1, 1};
+  const cuuint64_t qd[4] = {(cuuint64_t)p.D, (cuuint64_t)p.Tq,
+                            (cuuint64_t)p.H, (cuuint64_t)p.B};
+  const cuuint64_t qs[3] = {(cuuint64_t)p.qst * 2, (cuuint64_t)p.qsh * 2,
+                            (cuuint64_t)p.qsb * 2};
+  const cuuint64_t kd[4] = {(cuuint64_t)p.D, (cuuint64_t)p.Tk,
+                            (cuuint64_t)p.KVH, (cuuint64_t)p.B};
+  const cuuint64_t ks[3] = {(cuuint64_t)p.kst * 2, (cuuint64_t)p.ksh * 2,
+                            (cuuint64_t)p.ksb * 2};
+  return hopper::make_map_bf16(&maps->q, p.q, 4, qd, qs, box) &&
+         hopper::make_map_bf16(&maps->k, p.k, 4, kd, ks, kbox) &&
+         hopper::make_map_bf16(&maps->v, p.v, 4, kd, ks, kbox);
+}
+
+template <int W, bool WRITE_LSE>
+int launch_fwd_wgmma(const FAParams& p, cudaStream_t st) {
+  FAMaps maps;
+  if (!fa_maps(&maps, p, fa_bn<W>())) return (int)cudaErrorInvalidValue;
+  constexpr int smem = fa_fwd_smem<W>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      fa_fwd_wgmma<W, WRITE_LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  const int n_qt = (p.Tq + FA_BM - 1) / FA_BM;
+  fa_fwd_wgmma<W, WRITE_LSE><<<n_qt * p.B * p.H, FA_THREADS, smem, st>>>(
+      maps, p);
+  return (int)cudaGetLastError();
+}
+
+// the tensor maps of the backward: q and dO [B, H, Tq, D] with boxes of
+// q_rows rows, k and v [B, KVH, Tk, D] with boxes of k_rows (dK/dV: 64
+// and 128; dQ: 128 and 64)
+static bool bwd_maps(DKVMaps* maps, const FAParams& p, int q_rows,
+                     int k_rows) {
+  const cuuint32_t qbox[4] = {64, (cuuint32_t)q_rows, 1, 1};
+  const cuuint32_t kbox[4] = {64, (cuuint32_t)k_rows, 1, 1};
+  const cuuint64_t qd[4] = {(cuuint64_t)p.D, (cuuint64_t)p.Tq,
+                            (cuuint64_t)p.H, (cuuint64_t)p.B};
+  const cuuint64_t qs[3] = {(cuuint64_t)p.qst * 2, (cuuint64_t)p.qsh * 2,
+                            (cuuint64_t)p.qsb * 2};
+  const cuuint64_t kd[4] = {(cuuint64_t)p.D, (cuuint64_t)p.Tk,
+                            (cuuint64_t)p.KVH, (cuuint64_t)p.B};
+  const cuuint64_t ks[3] = {(cuuint64_t)p.kst * 2, (cuuint64_t)p.ksh * 2,
+                            (cuuint64_t)p.ksb * 2};
+  return hopper::make_map_bf16(&maps->q, p.q, 4, qd, qs, qbox) &&
+         hopper::make_map_bf16(&maps->dout, p.dout, 4, qd, qs, qbox) &&
+         hopper::make_map_bf16(&maps->k, p.k, 4, kd, ks, kbox) &&
+         hopper::make_map_bf16(&maps->v, p.v, 4, kd, ks, kbox);
+}
+
+template <int W>
+int launch_dq_wgmma(const FAParams& p, cudaStream_t st) {
+  DKVMaps maps;
+  if (!bwd_maps(&maps, p, DQ_BM, dq_bn<W>()))
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = fa_dq_smem<W>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      fa_bwd_dq_wgmma<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int n_qt = (p.Tq + DQ_BM - 1) / DQ_BM;
+  fa_bwd_dq_wgmma<W><<<n_qt * p.B * p.H, DQ_THREADS, smem, st>>>(maps, p);
+  return (int)cudaGetLastError();
+}
+
+template <int W>
+int launch_dkv_wgmma(const FAParams& p, cudaStream_t st) {
+  DKVMaps maps;
+  if (!bwd_maps(&maps, p, DKV_BM, dkv_bn<W>()))
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = fa_dkv_smem<W>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      fa_bwd_dkv_wgmma<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int n_kb = (p.Tk + dkv_bn<W>() - 1) / dkv_bn<W>();
+  fa_bwd_dkv_wgmma<W><<<n_kb * p.B * p.KVH, DKV_THREADS, smem, st>>>(maps,
+                                                                     p);
+  return (int)cudaGetLastError();
+}
+
+// the instances of each unit past 0 (the file's head comment), each
+// declaration after X (nothing, or extern in unit 0)
+#define FA_FWD_UNIT(X, W)                                                 \
+  X template int launch_fwd_wgmma<W, false>(const FAParams&, cudaStream_t); \
+  X template int launch_fwd_wgmma<W, true>(const FAParams&, cudaStream_t);
+#define FA_DQ_UNIT(X, W) \
+  X template int launch_dq_wgmma<W>(const FAParams&, cudaStream_t);
+#define FA_DKV_UNIT(X, W) \
+  X template int launch_dkv_wgmma<W>(const FAParams&, cudaStream_t);
+#define FA_UNIT_1(X) \
+  FA_FWD_UNIT(X, 64) FA_FWD_UNIT(X, 128) FA_FWD_UNIT(X, 256)
+#define FA_UNIT_2(X) FA_DQ_UNIT(X, 64) FA_DQ_UNIT(X, 128) FA_DQ_UNIT(X, 256)
+#define FA_UNIT_3(X) \
+  FA_DKV_UNIT(X, 64) FA_DKV_UNIT(X, 128) FA_DKV_UNIT(X, 256)
+#define FA_CAT_(a, b) a##b
+#define FA_CAT(a, b) FA_CAT_(a, b)
+#if defined(FA_UNIT) && FA_UNIT > 0
+FA_CAT(FA_UNIT_, FA_UNIT)()
+#else
+#if defined(FA_UNIT)
+FA_UNIT_1(extern) FA_UNIT_2(extern) FA_UNIT_3(extern)
+#endif
+
 // ------------------------------------------------------------ C entry
 // the general instances' shared memory (kind 0 forward, 1 dQ, 2 dK/dV):
 // 26 to 35 KB at D = 128, 50 to 68 KB at D = 256
@@ -1253,43 +1369,8 @@ static bool bad_shape(int H, int KVH, int Tq, int Tk, int D, int causal,
       int64_t qst, int64_t ksb, int64_t ksh, int64_t kst, int causal,     \
       float scale, int dtype, int out_f32, int general, void* stream
 
-// the three tensor maps of q [B, H, Tq, D] and k, v [B, KVH, Tk, D]
-// from the strides in p (elements; each a multiple of 8, checked by the
-// wrapper and refused here by cuTensorMapEncodeTiled otherwise), boxes
-// of 128 rows of q and k_rows of k and v
-static bool fa_maps(FAMaps* maps, const FAParams& p, int k_rows) {
-  const cuuint32_t box[4] = {64, FA_BM, 1, 1};
-  const cuuint32_t kbox[4] = {64, (cuuint32_t)k_rows, 1, 1};
-  const cuuint64_t qd[4] = {(cuuint64_t)p.D, (cuuint64_t)p.Tq,
-                            (cuuint64_t)p.H, (cuuint64_t)p.B};
-  const cuuint64_t qs[3] = {(cuuint64_t)p.qst * 2, (cuuint64_t)p.qsh * 2,
-                            (cuuint64_t)p.qsb * 2};
-  const cuuint64_t kd[4] = {(cuuint64_t)p.D, (cuuint64_t)p.Tk,
-                            (cuuint64_t)p.KVH, (cuuint64_t)p.B};
-  const cuuint64_t ks[3] = {(cuuint64_t)p.kst * 2, (cuuint64_t)p.ksh * 2,
-                            (cuuint64_t)p.ksb * 2};
-  return hopper::make_map_bf16(&maps->q, p.q, 4, qd, qs, box) &&
-         hopper::make_map_bf16(&maps->k, p.k, 4, kd, ks, kbox) &&
-         hopper::make_map_bf16(&maps->v, p.v, 4, kd, ks, kbox);
-}
-
-template <int W, bool WRITE_LSE>
-static int launch_fwd_wgmma(const FAParams& p, cudaStream_t st) {
-  FAMaps maps;
-  if (!fa_maps(&maps, p, fa_bn<W>())) return (int)cudaErrorInvalidValue;
-  constexpr int smem = fa_fwd_smem<W>();
-  const cudaError_t e = cudaFuncSetAttribute(
-      fa_fwd_wgmma<W, WRITE_LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (e != cudaSuccess) return (int)e;
-  const int n_qt = (p.Tq + FA_BM - 1) / FA_BM;
-  fa_fwd_wgmma<W, WRITE_LSE><<<n_qt * p.B * p.H, FA_THREADS, smem, st>>>(
-      maps, p);
-  return (int)cudaGetLastError();
-}
-
 template <bool WRITE_LSE>
-static int launch_fwd_wgmma(const FAParams& p, cudaStream_t st) {
+int launch_fwd_wgmma(const FAParams& p, cudaStream_t st) {
   if (p.D <= 64) return launch_fwd_wgmma<64, WRITE_LSE>(p, st);
   if (p.D <= 128) return launch_fwd_wgmma<128, WRITE_LSE>(p, st);
   return launch_fwd_wgmma<256, WRITE_LSE>(p, st);
@@ -1322,41 +1403,6 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   return lse ? launch_fwd_wgmma<true>(p, st) : launch_fwd_wgmma<false>(p, st);
 }
 
-// the tensor maps of the backward: q and dO [B, H, Tq, D] with boxes of
-// q_rows rows, k and v [B, KVH, Tk, D] with boxes of k_rows (dK/dV: 64
-// and 128; dQ: 128 and 64)
-static bool bwd_maps(DKVMaps* maps, const FAParams& p, int q_rows,
-                     int k_rows) {
-  const cuuint32_t qbox[4] = {64, (cuuint32_t)q_rows, 1, 1};
-  const cuuint32_t kbox[4] = {64, (cuuint32_t)k_rows, 1, 1};
-  const cuuint64_t qd[4] = {(cuuint64_t)p.D, (cuuint64_t)p.Tq,
-                            (cuuint64_t)p.H, (cuuint64_t)p.B};
-  const cuuint64_t qs[3] = {(cuuint64_t)p.qst * 2, (cuuint64_t)p.qsh * 2,
-                            (cuuint64_t)p.qsb * 2};
-  const cuuint64_t kd[4] = {(cuuint64_t)p.D, (cuuint64_t)p.Tk,
-                            (cuuint64_t)p.KVH, (cuuint64_t)p.B};
-  const cuuint64_t ks[3] = {(cuuint64_t)p.kst * 2, (cuuint64_t)p.ksh * 2,
-                            (cuuint64_t)p.ksb * 2};
-  return hopper::make_map_bf16(&maps->q, p.q, 4, qd, qs, qbox) &&
-         hopper::make_map_bf16(&maps->dout, p.dout, 4, qd, qs, qbox) &&
-         hopper::make_map_bf16(&maps->k, p.k, 4, kd, ks, kbox) &&
-         hopper::make_map_bf16(&maps->v, p.v, 4, kd, ks, kbox);
-}
-
-template <int W>
-static int launch_dq_wgmma(const FAParams& p, cudaStream_t st) {
-  DKVMaps maps;
-  if (!bwd_maps(&maps, p, DQ_BM, dq_bn<W>()))
-    return (int)cudaErrorInvalidValue;
-  constexpr int smem = fa_dq_smem<W>();
-  const cudaError_t e = cudaFuncSetAttribute(
-      fa_bwd_dq_wgmma<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  const int n_qt = (p.Tq + DQ_BM - 1) / DQ_BM;
-  fa_bwd_dq_wgmma<W><<<n_qt * p.B * p.H, DQ_THREADS, smem, st>>>(maps, p);
-  return (int)cudaGetLastError();
-}
-
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,
                             const float* delta, void* dq, FA_ARGS) {
@@ -1383,21 +1429,6 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
   if (D <= 64) return launch_dq_wgmma<64>(p, st);
   if (D <= 128) return launch_dq_wgmma<128>(p, st);
   return launch_dq_wgmma<256>(p, st);
-}
-
-template <int W>
-static int launch_dkv_wgmma(const FAParams& p, cudaStream_t st) {
-  DKVMaps maps;
-  if (!bwd_maps(&maps, p, DKV_BM, dkv_bn<W>()))
-    return (int)cudaErrorInvalidValue;
-  constexpr int smem = fa_dkv_smem<W>();
-  const cudaError_t e = cudaFuncSetAttribute(
-      fa_bwd_dkv_wgmma<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  const int n_kb = (p.Tk + dkv_bn<W>() - 1) / dkv_bn<W>();
-  fa_bwd_dkv_wgmma<W><<<n_kb * p.B * p.KVH, DKV_THREADS, smem, st>>>(maps,
-                                                                     p);
-  return (int)cudaGetLastError();
 }
 
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -1436,3 +1467,4 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (D <= 128) return launch_dkv_wgmma<128>(p, st);
   return launch_dkv_wgmma<256>(p, st);
 }
+#endif  // unit 0

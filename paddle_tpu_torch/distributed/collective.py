@@ -34,6 +34,7 @@ form of ``alltoall``, which gloo has for no tensor, is one
 from __future__ import annotations
 
 import collections
+import contextlib
 from typing import Optional, Sequence
 
 import torch
@@ -45,7 +46,8 @@ __all__ = [
     "GLOO_CUDA_STAGED", "Group", "PIPELINE_P2P", "ParallelMode",
     "ReduceOp", "all_gather",
     "all_gather_object", "all_reduce", "alltoall", "alltoall_single",
-    "barrier", "broadcast", "broadcast_object_list", "comm_device", "counts",
+    "barrier", "broadcast", "broadcast_object_list", "comm_device",
+    "counted_under", "counts",
     "get_group",
     "irecv", "isend", "mean_rounded_once", "new_group", "recv",
     "recv_backward", "recv_forward", "reduce", "reduce_scatter",
@@ -67,6 +69,18 @@ GLOO_CUDA_STAGED = frozenset({"send", "recv", "ring_exchange",
 
 _CALLS: collections.Counter = collections.Counter()
 _STAGED: collections.Counter = collections.Counter()
+_TAGS: list = []
+
+
+@contextlib.contextmanager
+def counted_under(tag: str):
+    """Count the collectives made inside the block as ``tag.call`` (the
+    fused loss's apart from the rest of a step)."""
+    _TAGS.append(tag)
+    try:
+        yield
+    finally:
+        _TAGS.pop()
 
 
 def counts() -> dict:
@@ -220,10 +234,11 @@ def _call(name, g: Group, fn, *tensors, written=()):
     """Run ``fn(*tensors)`` on the process group, through pinned host
     copies when gloo cannot take the CUDA tensors; the copies of
     ``written`` (indices into ``tensors``) are copied back."""
-    _CALLS[name] += 1
+    key = f"{_TAGS[-1]}.{name}" if _TAGS else name
+    _CALLS[key] += 1
     if not _staged(name, g, tensors):
         return fn(*tensors)
-    _STAGED[name] += 1
+    _STAGED[key] += 1
     host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
             for t in tensors]
     out = fn(*host)

@@ -54,7 +54,7 @@ from .env import get_rank, get_world_size
 from .mesh import Mesh
 from .sequence_parallel import uses_sequence_parallel
 from .sharding import (PartitionSpec, Placement, SpecLayout, _entry_axes,
-                       placement_of)
+                       lay_out_by_role, placement_of)
 
 __all__ = ["MeshExecutor", "active_mesh", "active_mesh_axes", "as_executor",
            "current_executor", "default_shardplan_mesh"]
@@ -191,46 +191,21 @@ class MeshExecutor:
         if cfg is None:
             return
         if getattr(cfg, "moe_num_experts", 0) > 0 and \
-                self.mesh.axis_size(self.layout.tp_axis) > 1:
-            raise NotImplementedError(
-                "a mixture-of-experts model on a tp > 1 mesh (expert "
-                "stacks split over tp) is not ported: lay the experts out "
-                "over the expert and fsdp axes")
-        if getattr(cfg, "tie_word_embeddings", False) and \
-                self.mesh.axis_size(self.layout.tp_axis) > 1:
-            raise NotImplementedError(
-                "tied embeddings on a tp > 1 mesh (the vocab-parallel "
-                "table as the head) are not ported; they belong to "
-                "ROADMAP item A3")
-        if getattr(cfg, "moe_num_experts", 0) > 0 and \
                 self._splits_sequence(cfg):
             raise NotImplementedError(
                 "a mixture-of-experts model with its sequence split over "
-                "sp (capacity over the global tokens) is not ported")
+                "sp (capacity over the global tokens) is not ported; it "
+                "waits for the last of ROADMAP item A3's smaller leftovers")
 
     def _splits_sequence(self, cfg) -> bool:
         return uses_sequence_parallel(cfg) and \
             self.mesh.axis_size(self.layout.sp_axis) > 1
 
     def shard_params(self, layer) -> int:
-        """Make every parameter this rank's part under its role's spec,
-        in place (the same ``nn.Parameter``, so optimizers keep it), with
-        its ``placement``; returns the count laid out.  A parameter
-        already laid out on this mesh is left alone."""
-        n = 0
-        for name, p in layer.named_parameters():
-            pl = placement_of(p)
-            if pl is not None and pl.mesh is self.mesh:
-                if tuple(p.shape) == pl.full_shape != pl.local_shape:
-                    p.data = pl.local(p.data)   # a whole value loaded
-                continue
-            pl = self.placement(self.layout.param_spec(name),
-                                tuple(p.shape))
-            if not pl.replicated:
-                p.data = pl.local(p.data)
-            p.placement = pl
-            n += 1
-        return n
+        """Make every parameter this rank's part under its role's spec
+        (``sharding.lay_out_by_role``); returns the count laid out.  A
+        parameter already laid out on this mesh is left alone."""
+        return len(lay_out_by_role(layer, self.mesh, self.layout))
 
     def install_optimizer(self, opt) -> None:
         opt._mesh_executor = self

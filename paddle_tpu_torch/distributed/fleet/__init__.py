@@ -2,10 +2,14 @@
 ``paddle_tpu/distributed/fleet/__init__.py``).
 
 ``init`` makes the hybrid mesh of ``strategy.hybrid_configs`` over the
-world's ranks; ``distributed_model`` lays the model out (ZeRO over the
-``sharding`` axis: ``apply_group_sharding``); ``distributed_optimizer``
-makes the optimizer's step reduce the gradients over the data-parallel
-ranks and, with ZeRO, update each parameter's part and gather it back.
+world's ranks; ``distributed_model`` lays the model out (a Llama's
+Megatron parts over ``mp``, expert stacks over ``ep`` and ``mp``, ZeRO
+over the ``sharding`` axis: ``apply_group_sharding``);
+``distributed_optimizer`` makes the optimizer's step reduce the
+gradients over the data-parallel ranks and, with ZeRO, update each
+parameter's part and gather it back, and applies the strategy's
+meta-optimizers (``meta_optimizers``: dgc, lars, gradient merge, local
+SGD).
 
 ZeRO stages (the reference's ``apply_group_sharding``), over the
 ``sharding`` axis, whose ranks take different rows as data-parallel
@@ -49,10 +53,13 @@ from ..mesh import (CommunicateTopology, HybridCommunicateGroup, fleet_mesh,
                     get_hybrid_communicate_group, get_mesh, reset_mesh)
 from ..sequence_parallel import uses_sequence_parallel
 from ..sharding import (PartitionSpec, Placement, SpecLayout,
-                        llama_param_role, placement_of)
+                        lay_out_by_role, llama_param_role, placement_of)
 from .distributed_strategy import DistributedStrategy
+from .meta_optimizers import (DGCMomentum, GradientMergeOptimizer,
+                              LocalSGDOptimizer)
 
-__all__ = ["DistributedStrategy", "Fleet", "PaddleCloudRoleMaker", "Role",
+__all__ = ["DGCMomentum", "DistributedStrategy", "Fleet",
+           "LocalSGDOptimizer", "PaddleCloudRoleMaker", "Role",
            "UserDefinedRoleMaker", "UtilBase", "apply_group_sharding",
            "barrier_worker", "distributed_model", "distributed_optimizer",
            "fleet", "init", "is_first_worker", "shard_optimizer",
@@ -104,29 +111,34 @@ def shutdown():
 
 
 def distributed_model(model):
-    """Lay ``model`` out for the installed mesh: a MoE Llama's expert
-    stacks along ``ep`` (dim 0, expert parallelism: each rank its
-    experts, the gradients averaged over the data ranks only), ZeRO over
-    ``sharding`` (stage from ``strategy.sharding_configs``, default 3).
-    On a mesh with ``pp`` > 1 a ``PipelineLayer`` comes back as
-    ``PipelineParallel`` (the reference's ``fleet_base.py:1042``), which
-    trains one stage a rank with the 1F1B schedule, with ``dp`` and with
-    ``mp`` (its layers' Megatron parts); any other model there raises,
-    as does a pipeline on a mesh with ``sharding``, ``sep`` or ``ep``
-    > 1, and expert stacks on a mesh with ``sharding`` or ``mp`` > 1."""
+    """Lay ``model`` out for the installed mesh (``_lay_out_roles``): a
+    MoE Llama's expert stacks along ``ep`` (dim 0, expert parallelism:
+    each rank its experts, the gradients averaged over the data ranks
+    only) and ``mp`` (each expert's FFN Megatron-parallel), a Llama's
+    Megatron parts along ``mp``, and at ZeRO stage 3 all of them along
+    ``sharding`` too by role; then ZeRO over ``sharding`` (stage from
+    ``strategy.sharding_configs``, default 3) for every parameter left
+    whole (stages 1 and 2 leave the state of parts split over ``ep`` and
+    ``mp`` whole).  On a mesh with ``pp`` > 1 a ``PipelineLayer``
+    comes back as ``PipelineParallel`` (the reference's
+    ``fleet_base.py:1042``), which trains one stage a rank with the 1F1B
+    schedule, with ``dp`` and with ``mp`` (its layers' Megatron parts);
+    any other model there raises, as does a pipeline on a mesh with
+    ``sharding``, ``sep`` or ``ep`` > 1."""
     mesh = get_mesh()
     if mesh is None:
         return model
     if mesh.shape.get("pp", 1) > 1:
         return _pipeline_model(model, mesh)
-    if mesh.shape.get("ep", 1) > 1:
-        _lay_out_experts(model, mesh)
     hcg = fleet.hcg or get_hybrid_communicate_group()
+    stage = 0
     if hcg is not None and hcg.get_sharding_parallel_world_size() > 1:
         stage = 3
         if fleet.strategy is not None:
             stage = int((fleet.strategy.sharding_configs or {}).get(
                 "stage", 3))
+    _lay_out_roles(model, mesh, stage)
+    if stage:
         apply_group_sharding(model, mesh, stage=stage)
     cfg = getattr(model, "config", None)
     if cfg is not None and uses_sequence_parallel(cfg) and \
@@ -149,7 +161,8 @@ def _pipeline_model(model, mesh):
     if other:
         raise NotImplementedError(
             f"pipeline parallelism with {other} > 1 on the same mesh is "
-            "not ported (ROADMAP item A3); compose pp with dp and mp")
+            "not ported (the last of ROADMAP item A3's smaller leftovers); "
+            "compose pp with dp and mp")
     if model.num_stages != mesh.shape["pp"]:
         raise ValueError(f"a PipelineLayer of {model.num_stages} stages on "
                          f"a mesh of pp {mesh.shape['pp']}")
@@ -157,22 +170,37 @@ def _pipeline_model(model, mesh):
                             get_hybrid_communicate_group(), fleet.strategy)
 
 
-def _lay_out_experts(model, mesh):
-    """Each expert stack of ``model`` (a MoE Llama's ``w_gate``,
-    ``w_up``, ``w_down``) this rank's part along ``ep``."""
-    stacks = [(n, p) for n, p in model.named_parameters()
-              if llama_param_role(n) in ("moe_expert_in", "moe_expert_out")
-              and placement_of(p) is None]
-    if stacks and (mesh.shape.get("sharding", 1) > 1
-                   or mesh.shape.get("mp", 1) > 1):
-        raise NotImplementedError(
-            "expert stacks with ZeRO (sharding) or mp on the same mesh are "
-            "not ported; use ep with dp (or hapi.Model(mesh=...) with "
-            "the expert and fsdp axes)")
-    for _, p in stacks:
-        pl = Placement(mesh, PartitionSpec("ep"), p.shape)
-        p.data = pl.local(p.data)
-        p.placement = pl
+_EXPERT_ROLES = ("moe_expert_in", "moe_expert_out")
+
+
+def _lay_out_roles(model, mesh, zero_stage=0):
+    """``model``'s parameters laid out by their canonical Llama role
+    (``sharding.lay_out_by_role``, the ``SpecLayout`` read with
+    ``expert`` as ``ep``, ``tp`` as ``mp`` and ``fsdp`` as
+    ``sharding``) along the mesh's ``ep`` and ``mp`` axes, and under
+    ZeRO stage 3 (``zero_stage``) along ``sharding`` too: the expert
+    stacks of any model (a MoE Llama's ``w_gate``/``w_up`` on ``(ep,
+    sharding, mp)``, ``w_down`` on ``(ep, mp, sharding)``), and on an
+    ``mp`` axis every parameter of a model that opts in
+    (``canonical_layout``, a Llama's: column-parallel q/k/v and gate/up,
+    row-parallel o/down, the vocab-parallel table and head, a tied
+    table both).  A part split over ``sharding`` is a stage-3 part,
+    gathered for each product (``parallel_layers.fsdp_gather``,
+    ``moe.ExpertLayout.gather``), whose gradient the gather's backward
+    averages over ``sharding``.  At stages 1 and 2 the parts split over
+    ``mp`` or ``ep`` keep their state whole (ZeRO takes the parameters
+    left whole).  Parameters already laid out keep their placement."""
+    axes = tuple(a for a in ("ep", "mp") if mesh.shape.get(a, 1) > 1)
+    keep = axes + (("sharding",) if zero_stage >= 3 else ())
+    if not keep:
+        return
+    layout = SpecLayout(data_axis="dp", fsdp_axis="sharding", tp_axis="mp",
+                        batch_axis="dp", expert_axis="ep")
+    dense = "mp" in axes and getattr(model, "canonical_layout", False)
+    for p in lay_out_by_role(model, mesh, layout, keep,
+                             None if dense else _EXPERT_ROLES):
+        if "sharding" in p.placement.axes:
+            p._zero_stage, p._zero_placement = 3, p.placement
 
 
 def _zero_spec(p, mesh) -> PartitionSpec:
@@ -301,9 +329,15 @@ def shard_optimizer(optimizer, model=None, mesh=None):
         """``p.grad`` averaged over ``axes`` (summed over ``sp`` as
         well for a parameter of a model that splits its sequence over
         it), rounded once.  A pipeline's parameters come averaged over
-        ``dp`` from its schedule."""
+        ``dp`` from its schedule; under local SGD each rank keeps its
+        own gradient (summed over ``sp`` alone)."""
         if getattr(p, "_pipeline_reduced", False):
             return
+        if getattr(optimizer, "_local_sgd", False):
+            axes = ()
+            if getattr(p, "_sequence_sharded", False):
+                collective.sum_rounded_once(p.grad, mesh.group("sp"))
+                return
         if getattr(p, "_sequence_sharded", False):
             n = 1
             for a in axes:
@@ -341,38 +375,102 @@ def shard_optimizer(optimizer, model=None, mesh=None):
             else:
                 collective.mean_rounded_once(p.grad, mesh.group(*data_axes))
                 g = zpl.local(p.grad)
-            swapped.append((p, p.data, zpl))
+            swapped.append((p, placement_of(p), zpl))
             p.data = zpl.local(p.data)
             p.grad = g
             p.placement = zpl
         try:
             out = orig_step()
         finally:
-            for p, _, zpl in swapped:
+            for p, prior, zpl in swapped:
                 dim = zpl.dim_of("sharding")
                 p.data = torch.cat(collective.all_gather(
                     None, p.data, group=zpl.group(dim)), dim=dim)
                 p.grad = None
-                del p.placement
+                if prior is None:
+                    del p.placement
+                else:
+                    p.placement = prior
         return out
 
     optimizer.step = step
     return optimizer
 
 
+def _swapped(optimizer, cls, **kwargs):
+    """A ``cls`` over ``optimizer``'s parameters (their names kept),
+    learning rate and clip."""
+    new = cls(learning_rate=optimizer._learning_rate,
+              momentum=optimizer._momentum,
+              parameters=list(optimizer._parameter_list),
+              grad_clip=optimizer._grad_clip, **kwargs)
+    new._names = dict(optimizer._names)
+    return new
+
+
 def distributed_optimizer(optimizer, strategy=None):
     """The optimizer with the hybrid mesh's step (``shard_optimizer``):
     gradients averaged over the data ranks, ZeRO parts updated and
-    gathered.  The strategy's meta-optimizers (dgc, lars, gradient merge,
-    local SGD) are not ported and raise."""
+    gathered; then the strategy's meta-optimizers in the reference's
+    order (``meta_optimizers``): ``dgc`` makes a ``Momentum`` a
+    ``DGCMomentum`` (any other optimizer: a warning, and as it is),
+    ``lars`` a plain ``Momentum`` a ``LarsMomentum`` with
+    ``lars_configs``, ``gradient_merge`` wraps it, and ``localsgd``
+    wraps outermost, its step skipping the gradients' mean over the
+    data ranks and its syncs averaging the parameters over them.  Local
+    SGD with ZeRO (``sharding``) or on a pipeline raises: both average
+    over the data ranks inside the step."""
+    import warnings
+
+    from ...optimizer.optimizer import LarsMomentum, Momentum
+
     strategy = strategy or fleet.strategy
-    for flag in ("dgc", "lars", "gradient_merge", "localsgd"):
-        if strategy is not None and getattr(strategy, flag, False):
+    on = (lambda flag: strategy is not None and
+          bool(getattr(strategy, flag, False)))
+    if on("dgc"):
+        if isinstance(optimizer, Momentum) and \
+                not isinstance(optimizer, DGCMomentum):
+            optimizer = _swapped(
+                optimizer, DGCMomentum,
+                weight_decay=optimizer._weight_decay or None,
+                use_nesterov=optimizer._use_nesterov,
+                multi_precision=optimizer._multi_precision,
+                **(strategy.dgc_configs or {}))
+        elif not isinstance(optimizer, DGCMomentum):
+            warnings.warn("strategy.dgc only applies to Momentum optimizers "
+                          f"(got {type(optimizer).__name__}); ignored, as "
+                          "the reference's DGCOptimizer ignores it")
+    if on("lars"):
+        if type(optimizer) is Momentum:
+            optimizer = _swapped(optimizer, LarsMomentum,
+                                 **(strategy.lars_configs or {}))
+        elif not isinstance(optimizer, LarsMomentum):
+            warnings.warn("strategy.lars only applies to Momentum optimizers "
+                          f"(got {type(optimizer).__name__}); ignored, as "
+                          "the reference's LarsOptimizer ignores it")
+    mesh = get_mesh()
+    if on("localsgd") and mesh is not None:
+        busy = [a for a in ("sharding", "pp") if mesh.shape.get(a, 1) > 1]
+        if busy:
             raise NotImplementedError(
-                f"strategy.{flag} (a fleet meta-optimizer) is not ported to "
-                "paddle_tpu_torch")
+                f"strategy.localsgd with {busy} > 1: ZeRO and the pipeline "
+                "schedule average over the data ranks inside the step; "
+                "local SGD there waits for the last of ROADMAP item A3's "
+                "smaller leftovers")
+        optimizer._local_sgd = True
     optimizer._is_distributed = True
-    return shard_optimizer(optimizer)
+    optimizer = shard_optimizer(optimizer)
+    if on("gradient_merge"):
+        cfg = strategy.gradient_merge_configs or {}
+        optimizer = GradientMergeOptimizer(
+            optimizer, k_steps=cfg.get("k_steps", 1), avg=cfg.get("avg", True))
+    if on("localsgd"):
+        axes = () if mesh is None else tuple(
+            a for a in ("dp", "data") if mesh.shape.get(a, 1) > 1)
+        optimizer = LocalSGDOptimizer(
+            optimizer, **(strategy.localsgd_configs or {}),
+            group=mesh.group(*axes) if axes else None)
+    return optimizer
 
 
 worker_index = get_rank

@@ -50,8 +50,18 @@ only, so the tokens are replicated across the expert ranks:
 Non-local choices reach the kernels remapped to expert 0 and slot
 C_loc, a slot the kernels skip (``routed`` in ``csrc/moe_dispatch.cu``
 checks 0 <= e < E and 0 <= s < C before any row is read or written).
-``expert_ffn`` raises where the stacks are split over the
-model-parallel axis (tp/mp).
+
+Stacks split over the model-parallel axis as well (tp, or fleet's
+``mp``; the reference's ``(expert, fsdp, tp)`` for ``w_gate``/``w_up``
+and ``(expert, tp, fsdp)`` for ``w_down``) make each expert's FFN
+Megatron-parallel: gate and up column-parallel, down row-parallel, so a
+tp rank's expert rows are partial sums over its columns.  The router and
+the routing stay replicated (every tp rank routes the same rows the same
+way, so the slots and the capacity agree), and the tp ranks join the
+expert group (``ExpertLayout.group``): the partial rows, kept in f32, go
+through the same f32 combine and the same one sum over the group before
+the one rounding, and the backward's partials (the tokens' and the
+gates') are summed over it too.
 """
 from __future__ import annotations
 
@@ -98,6 +108,7 @@ class ExpertLayout:
         me = collective.Group([get_rank()])
         self.num_experts = num_experts
         self.placement = pl
+        self.tp_axis = None
         if pl is None or pl.replicated:
             self.E_loc, self.e0 = num_experts, 0
             self.group = me
@@ -106,15 +117,16 @@ class ExpertLayout:
         from .mesh import get_hybrid_communicate_group, model_axis
 
         axis = model_axis(pl.mesh)
-        if axis is not None and axis in pl.axes:
-            raise NotImplementedError(
-                "expert stacks split over the model-parallel axis "
-                f"({axis}) are not ported: lay the experts out over the "
-                "expert and fsdp axes")
+        self.tp_axis = axis if axis is not None and axis in pl.axes \
+            else None
         self.E_loc = pl.local_shape[0]
         self.e0 = pl.index(0) * self.E_loc
         self.group = me
-        if pl.parts(0) > 1:
+        if self.tp_axis is not None:
+            # the expert ranks' and the tp ranks' partial outputs are
+            # summed together, in f32, before the one rounding
+            self.group = pl.mesh.group(*pl.dims[0], self.tp_axis)
+        elif pl.parts(0) > 1:
             hcg = get_hybrid_communicate_group()
             hg = hcg.get_expert_parallel_group() if hcg is not None and \
                 getattr(hcg, "_mesh", None) is pl.mesh else None
@@ -131,18 +143,22 @@ class ExpertLayout:
         return self.placement is not None and not self.placement.replicated
 
     def gather(self, w):
-        """A stack whole along its splits other than the expert dim (its
-        ``fsdp`` parts), differentiable (the backward keeps this rank's
-        slice of the gradient: the group computed it alike)."""
-        from .parallel_layers import _FSDPGather
+        """A stack whole along its splits other than the expert dim and
+        the tp dim (its ``fsdp`` parts, or fleet's stage-3 ``sharding``
+        parts), differentiable (the backward keeps this rank's slice of
+        the gradient: the ``fsdp`` group computed it alike; averaged over
+        ``sharding``, whose ranks took other rows)."""
+        from .parallel_layers import _FSDPGather, _zero_part
 
         pl = placement_of(w)
         if pl is None:
             return w
+        whole = w
         for d in range(1, len(pl.dims)):
-            if pl.parts(d) > 1:
-                w = _FSDPGather.apply(w, pl.group(d), d)
-        return w
+            if pl.parts(d) > 1 and self.tp_axis not in pl.dims[d]:
+                whole = _FSDPGather.apply(whole, pl.group(d), d,
+                                          _zero_part(w, pl, d))
+        return whole
 
     def lower_counts(self, counts):
         """``(sum over the lower data ranks, sum over all)`` of each data
@@ -210,13 +226,13 @@ class _EPCombine(torch.autograd.Function):
     over the group)."""
 
     @staticmethod
-    def forward(ctx, eo, le, ls, w, group):
+    def forward(ctx, eo, le, ls, w, group, dtype):
         ctx.save_for_backward(eo, le, ls, w)
         ctx.group = group
         out = _combine(eo.float(), le, ls, w.float())
         if group.nranks > 1:
             collective.all_reduce(out, group=group)
-        return out.to(eo.dtype)
+        return out.to(dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -230,7 +246,7 @@ class _EPCombine(torch.autograd.Function):
             dw = _weights_grad(eo, g, le, ls, C_loc).to(w.dtype)
             if ctx.group.nranks > 1:
                 collective.sum_rounded_once(dw, ctx.group)
-        return d_eo, None, None, dw, None
+        return d_eo, None, None, dw, None, None
 
 
 def expert_ffn(tokens, eidx, slot, kept, weights, C, layout: ExpertLayout,
@@ -239,7 +255,10 @@ def expert_ffn(tokens, eidx, slot, kept, weights, C, layout: ExpertLayout,
     the choices ``eidx`` [n, K] of this rank's experts dispatched to
     their data-rank-local ``slot`` (kept where ``kept``: the global slot
     below C), ``ffn`` on the local buffer [E_loc, C_loc, M], and each
-    token's K rows combined with ``weights`` (the module docstring)."""
+    token's K rows combined with ``weights`` (the module docstring).
+    With stacks split over tp, ``ffn`` gives this rank's partial rows
+    (best in f32), summed with the others' over ``layout.group``; the
+    output is in the tokens' dtype."""
     n = tokens.shape[0]
     C_loc = max(1, min(C, n))
     local = (eidx >= layout.e0) & (eidx < layout.e0 + layout.E_loc)
@@ -247,7 +266,8 @@ def expert_ffn(tokens, eidx, slot, kept, weights, C, layout: ExpertLayout,
     ls = torch.where(local & kept, slot, C_loc).int()
     disp = _EPDispatch.apply(tokens, le, ls, layout.E_loc, C_loc,
                              layout.group)
-    return _EPCombine.apply(ffn(disp), le, ls, weights, layout.group)
+    return _EPCombine.apply(ffn(disp), le, ls, weights, layout.group,
+                            tokens.dtype)
 
 
 class _DataMean(torch.autograd.Function):

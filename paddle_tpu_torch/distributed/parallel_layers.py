@@ -18,10 +18,11 @@ model-parallel group (the Megatron f/g pair and its gather/scatter):
 
 Sums over a group round once to the tensor's dtype
 (``collective.sum_rounded_once``: two bf16 partials summed in bf16,
-more in f32 and rounded to bf16 once).  Each rank's partial product is itself the
-local matrix product rounded to the model's dtype, so a row-parallel
-output of bf16 operands is rounded twice (the partials, then the sum)
-where an unsharded product is rounded once.
+more in f32 and rounded to bf16 once).  Every row-parallel product
+(``RowParallelLinear``, :func:`sharded_matmul` for a model laid out by
+the executor or fleet, a MoE expert's down product) keeps each rank's
+partial product in f32 (:func:`f32_partial`) and rounds the f32 sum
+once, as the unsharded product rounds its f32 accumulator once.
 
 ``ColumnParallelLinear``, ``RowParallelLinear`` and
 ``VocabParallelEmbedding`` hold the reference's weights ([in, out],
@@ -50,7 +51,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..device import resolve_device
+from ..device import resolve_device, tf32_if_exact
 from . import collective
 from .mesh import _active_mesh, get_hybrid_communicate_group, model_axis
 from .sharding import PartitionSpec, Placement, placement_of
@@ -159,47 +160,124 @@ def _gather_dim(w, group, dim):
                                            group=group), dim=dim)
 
 
-def _own(full, group, dim):
+def _own(full, group, dim, average=False):
+    """This rank's slice of ``full`` along ``dim``; with ``average``, the
+    slices averaged over ``group`` (a reduce-scatter) first: its ranks
+    computed ``full`` from different rows."""
+    if average:
+        parts = list(full.chunk(group.nranks, dim=dim))
+        out = torch.empty_like(parts[0],
+                               memory_format=torch.contiguous_format)
+        collective.reduce_scatter(out, parts, collective.ReduceOp.AVG,
+                                  group)
+        return out
     n = full.shape[dim] // group.nranks
     return full.narrow(dim, group.rank * n, n).contiguous()
 
 
+def _zero_part(w, pl, dim) -> bool:
+    """Whether ``w``'s split along ``dim`` is a ZeRO stage-3 part over
+    fleet's ``sharding`` axis, whose ranks take different rows (its
+    gradient is averaged over them), not an ``fsdp`` split."""
+    return getattr(w, "_zero_stage", 0) >= 3 and \
+        pl.dims[dim] == ("sharding",)
+
+
 class _FSDPGather(torch.autograd.Function):
     """The whole of ``w`` along ``dim`` over ``group``; backward, this
-    rank's slice of the gradient (the group computed it alike)."""
+    rank's slice of the gradient (the group computed it alike), or with
+    ``average`` the group's slices averaged."""
 
     @staticmethod
-    def forward(ctx, w, group, dim):
-        ctx.group, ctx.dim = group, dim
+    def forward(ctx, w, group, dim, average=False):
+        ctx.group, ctx.dim, ctx.average = group, dim, average
         return _gather_dim(w, group, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return _own(g, ctx.group, ctx.dim), None, None
+        return _own(g, ctx.group, ctx.dim, ctx.average), None, None, None
 
 
-class _GatheredMatmul(torch.autograd.Function):
-    """``x @ W`` with ``W`` gathered along ``dim`` over ``group`` from
-    this rank's part ``w``; the whole W is not kept: the backward
-    gathers it again for dx and keeps this rank's slice of dW."""
+def _f32_product(x, w):
+    """``x @ w`` (w [in, out], or a batch of them) unrounded, in f32: on
+    the card, of bf16 or f16 operands, cuBLAS's product with an f32
+    output; else the f32 product (TF32 on the card, which holds such
+    operands exactly)."""
+    if x.is_cuda and w.dtype == x.dtype and \
+            x.dtype in (torch.bfloat16, torch.float16):
+        if w.dim() == 2:
+            y = torch.mm(x.reshape(-1, x.shape[-1]), w,
+                         out_dtype=torch.float32)
+            return y.reshape(*x.shape[:-1], w.shape[-1])
+        return torch.bmm(x, w, out_dtype=torch.float32)
+    with tf32_if_exact(x.dtype):
+        return x.float() @ w.float()
+
+
+class _F32Partial(torch.autograd.Function):
+    """:func:`_f32_product`; the backward rounds the f32 gradient to the
+    operands' dtype first, as the gradient of a product rounded to it
+    comes."""
 
     @staticmethod
-    def forward(ctx, x, w, group, dim):
+    def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
-        ctx.group, ctx.dim = group, dim
-        return x @ _gather_dim(w, group, dim)
+        return _f32_product(x, w)
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = g @ _gather_dim(w, ctx.group, ctx.dim).t()
+            dx = g @ w.transpose(-1, -2)
         if ctx.needs_input_grad[1]:
-            dw_full = x.reshape(-1, x.shape[-1]).t() @ \
-                g.reshape(-1, g.shape[-1])
-            dw = _own(dw_full, ctx.group, ctx.dim).to(w.dtype)
-        return dx, dw, None, None
+            dw = x.transpose(-1, -2) @ g if w.dim() == 3 else \
+                x.reshape(-1, x.shape[-1]).t() @ g.reshape(-1, g.shape[-1])
+        return dx, dw
+
+
+def f32_partial(x, w):
+    """``x @ w`` unrounded, in f32 (:func:`_f32_product`): a
+    row-parallel rank's partial product, summed in f32 before its one
+    rounding."""
+    return _F32Partial.apply(x, w)
+
+
+class _ShardedMatmul(torch.autograd.Function):
+    """``x @ W`` of a weight laid out on a mesh, W this rank's part
+    ``w`` gathered along ``fdim`` over ``fgroup`` (its ``fsdp`` or
+    stage-3 parts; None: whole) and not kept: the backward gathers it
+    again for dx and keeps this rank's slice of dW (with ``average``,
+    the group's slices averaged).  With ``mgroup`` (a row-parallel
+    weight) the partial products are f32 (:func:`_f32_product`), summed
+    over the model-parallel group and rounded once to x's dtype; the
+    backward is the unsharded product's, the sum's gradient being the
+    output's."""
+
+    @staticmethod
+    def forward(ctx, x, w, fgroup, fdim, average, mgroup):
+        ctx.save_for_backward(x, w)
+        ctx.fgroup, ctx.fdim, ctx.average = fgroup, fdim, average
+        W = w if fgroup is None else _gather_dim(w, fgroup, fdim)
+        if mgroup is None:
+            return x @ W
+        return collective.sum_rounded_once(_f32_product(x, W),
+                                           mgroup).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        W = w if ctx.fgroup is None else _gather_dim(w, ctx.fgroup, ctx.fdim)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = g @ W.t()
+        if ctx.needs_input_grad[1]:
+            dw = x.reshape(-1, x.shape[-1]).t() @ g.reshape(-1, g.shape[-1])
+            if ctx.fgroup is not None:
+                dw = _own(dw, ctx.fgroup, ctx.fdim, ctx.average)
+            dw = dw.to(w.dtype)
+        return dx, dw, None, None, None, None
 
 
 def _split(pl: Placement):
@@ -222,9 +300,10 @@ def fsdp_gather(w):
     pl = placement_of(w)
     if pl is None:
         return w
+    whole = w
     for d, g in _split(pl)[2]:
-        w = _FSDPGather.apply(w, g, d)
-    return w
+        whole = _FSDPGather.apply(whole, g, d, _zero_part(w, pl, d))
+    return whole
 
 
 def column_input(x, weight):
@@ -242,9 +321,10 @@ def column_input(x, weight):
 def sharded_matmul(x, weight):
     """``x @ weight`` of a weight [in, out] laid out by its placement:
     gathered along its other splits, row-parallel (the partial products
-    summed over the model-parallel group) when its input features are
-    split there.  A column-parallel input goes through
-    :func:`column_input` first."""
+    summed in f32 over the model-parallel group and rounded once,
+    :class:`_ShardedMatmul`) when its input features are split
+    there.  A column-parallel input goes through :func:`column_input`
+    first."""
     pl = placement_of(weight)
     if pl is None:
         return x @ weight
@@ -252,9 +332,13 @@ def sharded_matmul(x, weight):
     if len(other) > 1:
         raise NotImplementedError("a weight split along both dims outside "
                                   "the model-parallel axis")
-    y = _GatheredMatmul.apply(x, weight, *other[0][::-1]) if other \
-        else x @ weight
-    return mp_allreduce(y, mgroup) if mdim == 0 else y
+    if mdim != 0 and not other:
+        return x @ weight
+    fdim, fgroup = other[0] if other else (None, None)
+    return _ShardedMatmul.apply(
+        x, weight, fgroup, fdim,
+        bool(other) and _zero_part(weight, pl, fdim),
+        mgroup if mdim == 0 else None)
 
 
 def _vocab_lookup(ids, w, group):
@@ -350,9 +434,10 @@ class ColumnParallelLinear(_ParallelLayer):
 
 class RowParallelLinear(_ParallelLayer):
     """``x @ W + b`` with W [in, out] split by input features over the
-    model-parallel group: the partial products summed over it, then the
-    (replicated) bias added once.  Without ``input_is_parallel`` the
-    input is whole and each rank takes its part."""
+    model-parallel group: the f32 partial products summed over it and
+    rounded once (:class:`_ShardedMatmul`), then the (replicated) bias
+    added once.  Without ``input_is_parallel`` the input is whole and
+    each rank takes its part."""
 
     def __init__(self, in_features, out_features, weight_attr=None,
                  has_bias=True, input_is_parallel=False,
@@ -370,7 +455,9 @@ class RowParallelLinear(_ParallelLayer):
     def forward(self, x):
         if not self.input_is_parallel:
             x = mp_scatter(x, self.group)
-        out = mp_allreduce(x @ self.weight, self.group)
+        out = _ShardedMatmul.apply(
+            x, self.weight, None, None, False,
+            self.group if self.group.nranks > 1 else None)
         return out + self.bias if self.bias is not None else out
 
 
@@ -397,13 +484,18 @@ class VocabParallelEmbedding(_ParallelLayer):
 
 class _VocabParallelCE(torch.autograd.Function):
     """Per-row softmax cross entropy of logits split by vocabulary over
-    ``group``, in f32: the max, the sum of exponentials and the label's
-    shifted logit each all-reduced; rows labelled ``ignore_index`` give
-    0 and no gradient."""
+    ``group``, in f32: the max all-reduced, then the sum of
+    exponentials and the label's shifted logit (the rank owning its
+    column gives it, the others 0) all-reduced together, two
+    collectives in all; rows labelled ``ignore_index`` give 0 and no
+    gradient.  The backward is softmax minus one-hot over the rank's
+    own columns, with no collective."""
 
     @staticmethod
     def forward(ctx, logits, labels, group, ignore_index):
         x = logits.float()          # becomes the probabilities, in place
+        if x is logits:
+            x = x.clone()
         vloc = x.shape[-1]
         gmax = x.max(dim=-1).values
         collective.all_reduce(gmax, collective.ReduceOp.MAX, group=group)
@@ -412,11 +504,10 @@ class _VocabParallelCE(torch.autograd.Function):
         loc = labels.long() - group.rank * vloc
         inside = (loc >= 0) & (loc < vloc) & valid
         loc = loc.clamp(0, vloc - 1)
-        picked = x.gather(-1, loc[..., None])[..., 0] * inside
-        collective.all_reduce(picked, group=group)
-        x.exp_()
-        total = x.sum(dim=-1)
-        collective.all_reduce(total, group=group)
+        both = torch.stack([x.gather(-1, loc[..., None])[..., 0] * inside,
+                            x.exp_().sum(dim=-1)])
+        collective.all_reduce(both, group=group)
+        picked, total = both[0], both[1]
         loss = (total.log() - picked) * valid
         ctx.save_for_backward(x.div_(total[..., None]), loc, inside, valid)
         ctx.dtype = logits.dtype

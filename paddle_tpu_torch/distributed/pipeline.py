@@ -72,7 +72,8 @@ __all__ = ["LayerDesc", "PipelineLayer", "PipelineParallel",
 
 SCHEDULES = ("1F1B", "FThenB")
 _AMP = ("train_batch with a GradScaler (the reference's amp path) waits "
-        "for ROADMAP item A5's amp")
+        "for ROADMAP item A5's amp, with the last of A3's smaller "
+        "leftovers")
 
 
 # ------------------------------------------------------------ schedule
@@ -590,6 +591,14 @@ class PipelineParallel(nn.Module):
         for p in layers.parameters():
             # the schedule averages these gradients over dp itself
             p._pipeline_reduced = True
+        if self._group is not None and self._group.nranks > 1:
+            # a global-norm clip sums the stages' totals over pp, each
+            # shared weight counted on the first stage holding it
+            for p in layers.parameters():
+                p._pipeline_norm = (self._group, True)
+            for key, g in layers._shared_groups.items():
+                for p in layers.shared_layers[key].parameters():
+                    p._pipeline_norm = (self._group, g.rank == 0)
         self.last_stats: Optional[ScheduleStats] = None
 
     def forward(self, *args, **kwargs):

@@ -16,7 +16,8 @@ any other; what must see the whole tensor gathers it
 reference's canonical Llama layout, unchanged: column-parallel q/k/v
 and gate/up and row-parallel o/down (the features on ``tp``, ``fsdp``
 on the other dim), a vocab-parallel embedding and head, replicated
-norms, the batch on ``data``.
+norms, the batch on ``data``.  ``lay_out_by_role`` makes a model's
+parameters their parts under it (the executor's and fleet's layout).
 
 ``shard_tensor``/``mark_sharding``/``reshard`` take this rank's part of
 a tensor every rank holds whole (every rank built it from one seeded
@@ -36,8 +37,9 @@ import torch
 from . import collective
 
 __all__ = ["PartitionSpec", "Placement", "SpecLayout", "gather_full",
-           "get_sharding_spec", "group_sharded_parallel", "llama_param_role",
-           "llama_param_specs", "mark_sharding", "reshard",
+           "get_sharding_spec", "group_sharded_parallel", "lay_out_by_role",
+           "llama_param_role", "llama_param_specs", "mark_sharding",
+           "reshard",
            "save_group_sharded_model", "shard_op", "shard_tensor"]
 
 
@@ -268,6 +270,39 @@ class Placement:
 
 def placement_of(t) -> Optional[Placement]:
     return getattr(t, "placement", None)
+
+
+def lay_out_by_role(model, mesh, layout: SpecLayout, keep_axes=None,
+                    roles=None) -> list:
+    """Make ``model``'s parameters this rank's parts on ``mesh``, in
+    place (the same ``nn.Parameter``s, so optimizers keep them), each
+    under its role's spec in ``layout`` (``param_spec``: no role, whole)
+    and carrying its ``placement``: only the spec's entries whose axes
+    are all in ``keep_axes`` (default: every axis) split, and only the
+    parameters whose role is in ``roles`` (default: every parameter)
+    laid out.  A parameter already laid out on ``mesh`` keeps its
+    placement (a whole value loaded into it is cut back to its part).
+    Returns the parameters laid out."""
+    out = []
+    for name, p in model.named_parameters():
+        if roles is not None and llama_param_role(name) not in roles:
+            continue
+        pl = placement_of(p)
+        if pl is not None and pl.mesh is mesh:
+            if tuple(p.shape) == pl.full_shape != pl.local_shape:
+                p.data = pl.local(p.data)
+            continue
+        spec = layout.param_spec(name)
+        if keep_axes is not None:
+            spec = PartitionSpec(*[
+                e if set(_entry_axes(e)) <= set(keep_axes) else None
+                for e in spec])
+        pl = Placement(mesh, spec, p.shape)
+        if not pl.replicated:
+            p.data = pl.local(p.data)
+        p.placement = pl
+        out.append(p)
+    return out
 
 
 def gather_full(t: torch.Tensor) -> torch.Tensor:

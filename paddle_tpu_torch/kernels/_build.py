@@ -36,7 +36,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 #: source: (macro, units) of the sources compiled as several units
-SPLIT = {"paged_attention": ("PD_UNIT", 10)}
+SPLIT = {"paged_attention": ("PD_UNIT", 10),
+         "flash_attention": ("FA_UNIT", 4),
+         "chunked_prefill": ("CP_UNIT", 4)}
 
 _libs: dict = {}
 _lock = threading.Lock()

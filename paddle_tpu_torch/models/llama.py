@@ -42,8 +42,12 @@ The port of ``paddle_tpu/models/llama.py`` in two modes.
   o_proj and down_proj row-parallel, the embedding and the head
   vocab-parallel, the norms whole, and ``fsdp`` dims gathered for each
   product; every kernel runs on the rank's local shapes.  The labels'
-  loss over a split vocabulary is vocab-parallel; the fused chunked
-  loss refuses one.
+  loss over a split vocabulary is vocab-parallel, on the logits path and
+  in the fused chunked loss alike; a tied table split by rows over tp
+  is both the vocab-parallel lookup and the vocab-parallel head.
+  Expert stacks split over tp are column-parallel (gate/up) and
+  row-parallel (down) within each expert, their partial outputs summed
+  in f32 with the expert ranks' before the combine's one rounding.
 - Sequence and context parallelism (``sequence_parallel``,
   ``context_parallel`` on a mesh with an ``sp`` axis,
   ``distributed.sequence_parallel``): a rank holds only its T/sp
@@ -83,8 +87,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device, tf32_if_exact
-from ..distributed.parallel_layers import (_split, column_input, fsdp_gather,
-                                           sharded_embedding, sharded_matmul,
+from ..distributed.parallel_layers import (_split, column_input,
+                                           f32_partial, fsdp_gather,
+                                           mp_identity, sharded_embedding,
+                                           sharded_matmul,
                                            vocab_parallel_cross_entropy)
 from ..distributed.recompute import recompute
 from ..distributed.sequence_parallel import (gathered_kv_attention,
@@ -432,7 +438,11 @@ class LlamaMoEMLP(nn.Module):
     slots are global (the lower data ranks' choices counted first), each
     rank runs dispatch and combine over its own experts and their
     gathered ``fsdp`` parts, and the f32 combine is summed over the
-    expert ranks before its one rounding."""
+    expert ranks before its one rounding.  Stacks split over tp make
+    each expert's gate/up column-parallel and down row-parallel: the
+    down product's partial rows are f32 (``parallel_layers.f32_partial``,
+    every row-parallel product's rule), and the tp ranks join the expert
+    ranks' f32 sum."""
 
     def __init__(self, config: LlamaConfig, make):
         super().__init__()
@@ -485,7 +495,9 @@ class LlamaMoEMLP(nn.Module):
             g = torch.bmm(disp, wg)
             u = torch.bmm(disp, wu)
             act = F.silu(g.float()).to(disp.dtype) * u
-            return torch.bmm(act, wd)
+            if ep.tp_axis is None:
+                return torch.bmm(act, wd)
+            return f32_partial(act, wd)   # rounded once, after the sum
 
         return expert_ffn(x.reshape(n, h), eidx, sidx, kept, gate, C, ep,
                           ffn).reshape(B, T, h)
@@ -624,18 +636,28 @@ class _F32Logits(torch.autograd.Function):
         return dh, dw
 
 
-def _chunk_nll(h, w, labels):
+def _chunk_nll(h, w, labels, group=None):
     """Summed NLL of one token chunk: h [n, hidden] against the f32
     head weight w [hidden, V] (a transposed view when tied); labels -1
-    are padding."""
+    are padding.  With ``group``, w holds this rank's V/n columns of the
+    vocabulary and the softmax runs over the group
+    (``distributed.vocab_parallel_cross_entropy``: the max, then the sum
+    of exponentials with the target's logit, two collectives, counted
+    under ``fused_loss``)."""
     logits = _F32Logits.apply(h, w)
+    if group is not None:
+        from ..distributed.collective import counted_under
+
+        with counted_under("fused_loss"):
+            return vocab_parallel_cross_entropy(logits, labels, group,
+                                                ignore_index=-1).sum()
     lse = torch.logsumexp(logits, dim=-1)
     picked = logits.gather(-1, labels.clamp(min=0)[:, None])[:, 0]
     return ((lse - picked) * (labels >= 0).float()).sum()
 
 
 def fused_causal_lm_loss(hidden, w, labels, chunk, w_is_vocab_major=False,
-                         seq=None):
+                         seq=None, vocab_group=None):
     """The JAX ``_fused_causal_lm_loss``: next-token NLL computed
     ``chunk`` tokens at a time, each chunk's logits recomputed in the
     backward (``torch.utils.checkpoint`` in place of ``jax.checkpoint``)
@@ -650,7 +672,15 @@ def fused_causal_lm_loss(hidden, w, labels, chunk, w_is_vocab_major=False,
     [V, hidden], whose f32 copy the products read through a transposed
     view (no second copy of the table).  With ``seq`` (this rank's
     positions of a split sequence) the sum is divided by the whole
-    sequence's count (``next_token_pairs``)."""
+    sequence's count (``next_token_pairs``).
+
+    With ``vocab_group`` (the tp group a vocabulary split over tp ranks
+    lies on), ``w`` is this rank's part of the head, V/n columns (rows
+    of a tied table), each chunk's NLL is vocab-parallel
+    (:func:`_chunk_nll`), and the rows' gradient is summed over the
+    group, as a column-parallel input's is."""
+    if vocab_group is not None:
+        hidden = mp_identity(hidden, vocab_group)
     h, lab, count = next_token_pairs(hidden, labels, seq)
     lab = lab.long()
     B, T, H = h.shape
@@ -668,7 +698,7 @@ def fused_causal_lm_loss(hidden, w, labels, chunk, w_is_vocab_major=False,
     for c in range(n_chunks):
         rows = slice(c * csize, (c + 1) * csize)
         total = total + checkpoint(_chunk_nll, hf[rows], wf, labf[rows],
-                                   use_reentrant=False)
+                                   vocab_group, use_reentrant=False)
     return total / count
 
 
@@ -681,6 +711,11 @@ class LlamaForCausalLM(nn.Module):
     ``seed=None`` leaves them uninitialized for a loader such as
     ``convert.from_jax_state_dict`` to fill.  Every parameter is
     trainable."""
+
+    #: the parameters' names carry the canonical Llama roles
+    #: (``sharding.llama_param_role``): fleet lays the model's Megatron
+    #: parts out over ``mp`` by role
+    canonical_layout = True
 
     def __init__(self, config: LlamaConfig, device=None,
                  seed: Optional[int] = 0):
@@ -719,7 +754,11 @@ class LlamaForCausalLM(nn.Module):
         on a mesh gives this rank's part of the vocabulary when the
         vocabulary is split over tp."""
         if self.config.tie_word_embeddings:
-            return hidden @ fsdp_gather(self.model.embed_tokens.weight).t()
+            w = self.model.embed_tokens.weight
+            group = self._vocab_group()
+            if group is not None:     # the table's rows are the vocab's
+                hidden = mp_identity(hidden, group)
+            return hidden @ fsdp_gather(w).t()
         return self.lm_head(column_input(hidden, self.lm_head.weight))
 
     def _vocab_group(self):
@@ -754,18 +793,13 @@ class LlamaForCausalLM(nn.Module):
         labels_seq = self.model.shards(input_ids)
         vocab_group = self._vocab_group()
         if self.config.fused_lm_loss:
-            if vocab_group is not None:
-                raise NotImplementedError(
-                    "the fused chunked loss over a vocabulary split across "
-                    "tp ranks waits for ROADMAP item A3's vocab-parallel "
-                    "fused loss; train with fused_lm_loss=False (the "
-                    "logits path, vocab-parallel) on a tp > 1 mesh")
             tied = self.config.tie_word_embeddings
             w = self.model.embed_tokens.weight if tied else self.lm_head.weight
             return fused_causal_lm_loss(hidden, fsdp_gather(w), labels,
                                         self.config.lm_loss_chunk,
                                         w_is_vocab_major=tied,
-                                        seq=labels_seq), None
+                                        seq=labels_seq,
+                                        vocab_group=vocab_group), None
         logits = self.logits(hidden)
         return causal_lm_loss(logits, labels, vocab_group,
                               labels_seq), logits

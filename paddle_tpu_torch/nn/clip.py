@@ -32,7 +32,12 @@ holds its part of the gradient: the squared sums (or, for
 the same axes are added, then summed (max-reduced) over the group of
 those axes, so each part counts once and a replicated parameter, whose
 every rank holds the same gradient, counts once too.  Every rank of the
-mesh computes the same norm.
+mesh computes the same norm.  A pipeline stage's parameters
+(``distributed.PipelineParallel`` marks them) hold only their stage's
+part of the model: the stage's total, reduced over its own axes first,
+is then summed (max-reduced) over the pipeline group, a weight that
+several stages share (``SharedLayerDesc``) counted on the first of them
+alone, so every stage clips by the norm of the whole model.
 """
 from __future__ import annotations
 
@@ -58,12 +63,21 @@ def _sq_sum(g):
 def _over_shards(params, values, reduce_op="sum"):
     """The sum (or max) of per-parameter ``values`` over the whole of
     every parameter: values grouped by the mesh axes their parameter is
-    split over, each group's total reduced over those axes' ranks."""
+    split over, each group's total reduced over those axes' ranks, in
+    one order on every rank; a pipeline stage's total then reduced over
+    the pipeline group (the module docstring)."""
     from ..distributed import collective
     from ..distributed.sharding import placement_of
 
     groups = {}
+    stages = None
     for p, v in zip(params, values):
+        # (the pipeline group, whether this stage counts the weight)
+        pipeline = getattr(p, "_pipeline_norm", None)
+        if pipeline is not None:
+            stages = pipeline[0]
+            if not pipeline[1]:
+                continue
         pl = placement_of(p)
         key = () if pl is None or pl.replicated else pl.axes
         groups.setdefault(key, (pl, []))[1].append(v)
@@ -80,6 +94,12 @@ def _over_shards(params, values, reduce_op="sum"):
                                         pl.mesh.group(*key))
         total = acc if total is None else (
             torch.maximum(total, acc) if reduce_op == "max" else total + acc)
+    if stages is not None:
+        if total is None:
+            total = torch.zeros_like(values[0])
+        op = collective.ReduceOp.MAX if reduce_op == "max" \
+            else collective.ReduceOp.SUM
+        total = collective.all_reduce(total.clone(), op, stages)
     return total
 
 

@@ -222,12 +222,27 @@ def _norm(x):
     return x.float().square().sum().sqrt()
 
 
+def _norms(p, *xs):
+    """The f32 L2 norms of tensors shaped as parameter ``p``, each of
+    the whole parameter: a part laid out on a mesh (``p.placement``)
+    has its squared sums added over the ranks holding the other parts
+    (one collective for all of them)."""
+    pl = getattr(p, "placement", None)
+    if pl is None or pl.replicated:
+        return tuple(_norm(x) for x in xs)
+    from ..distributed import collective
+
+    sq = torch.stack([x.float().square().sum() for x in xs])
+    collective.all_reduce(sq, group=pl.mesh.group(*pl.axes))
+    return tuple(sq.sqrt())
+
+
 def lamb_rule(p, m, v, g, lr, beta1, beta2, eps, step, wd):
     """The JAX ``_lamb_rule``: the moments and bias corrections of
     :func:`adamw_rule`; ``r = mhat / (sqrt(vhat) + eps) + wd * p``
-    (fused); the trust ratio ``||p|| / ||r||`` of two f32 norms, 1.0
-    unless both are positive; ``p - (lr * trust) * r`` fused, rounded
-    once."""
+    (fused); the trust ratio ``||p|| / ||r||`` of two f32 norms (the
+    whole parameter's, :func:`_norms`), 1.0 unless both are positive;
+    ``p - (lr * trust) * r`` fused, rounded once."""
     g = g.float()
     pf = p.float()
     _lerp_(m, beta1, g)
@@ -236,7 +251,7 @@ def lamb_rule(p, m, v, g, lr, beta1, beta2, eps, step, wd):
     r = (m / _bias_correction(beta1, step, m)).div_(den)
     if wd:
         r = torch.add(r, pf, alpha=_s(wd), out=r)
-    p_norm, r_norm = _norm(pf), _norm(r)
+    p_norm, r_norm = _norms(p, pf, r)
     trust = torch.where((p_norm > 0) & (r_norm > 0), p_norm / r_norm,
                         torch.ones_like(p_norm))
     return p.copy_(torch.addcmul(pf, r, trust * -_s(lr)))
@@ -247,9 +262,10 @@ def lars_rule(p, vel, g, lr, mu, lars_coeff, lars_wd, eps):
     both f32 norms positive, ``local_lr = lr * coeff * ||p|| / (||g|| +
     wd * ||p|| + eps)`` (the sum's multiply-add fused), else ``lr``;
     ``vel = mu * vel + local_lr * (g + wd * p)``, the inner and outer
-    multiply-adds fused; ``p - vel`` in f32, rounded once."""
+    multiply-adds fused; ``p - vel`` in f32, rounded once.  The norms
+    are the whole parameter's (:func:`_norms`) when ``p`` is a part."""
     pf, gf = p.float(), g.float()
-    p_norm, g_norm = _norm(pf), _norm(gf)
+    p_norm, g_norm = _norms(p, pf, gf)
     num = p_norm * _s(_f32(lr) * _f32(lars_coeff))
     den = torch.add(g_norm, p_norm, alpha=_s(lars_wd)).add_(_s(eps))
     local_lr = torch.where((p_norm > 0) & (g_norm > 0), num / den,

@@ -70,7 +70,9 @@ layer's weights from its own seed) trained through ``fleet.init``
 distributed_model`` (a ``PipelineParallel``) and its ``train_batch``,
 one step a listed schedule, ``--micro-batches`` M microbatches of the
 global batch [``--batch``, ``--seq``] (seed ``--data-seed``; the pipe's
-own shifted loss), AdamW(``--lr``).  Without ``--axes`` it is the
+own shifted loss), AdamW(``--lr``); with ``--clip-norm`` one more 1F1B
+step under ``ClipGradByGlobalNorm`` of that norm, whose global norm (the
+whole model's on every stage) each rank reports.  Without ``--axes`` it is the
 unsharded run of the same pipe in one process (every stage, the 1F1B
 schedule: one microbatch's forward and backward after another), which
 writes its final parameters to ``--save-params`` (``{"final": ...}``);
@@ -82,6 +84,30 @@ seconds, kernel launches (by kernel and instance), pipeline hops (and
 those staged), the schedule's peak allocated memory (from the start of
 ``train_batch`` to its optimizer step) and microbatches in flight, and
 the bytes one microbatch's forward kept.
+
+With ``--tp-runs a,b,c_dgc,c_gm_localsgd,c_lars,B`` it is phase 7t's
+program (:func:`tp_main`, :data:`TP_RUNS`): each run a fresh model (seed
+0) trained ``steps`` global batches [``batch``, ``seq``] (seed
+``--data-seed``) with the model's own loss (each step's path from
+``fused``: the fused chunked loss or the logits): (a) Llama-3-8B's widths
+at 2 layers laid out by ``hapi.Model(mesh={"data": 2, "tp": 2})``
+(``prepare``; the steps by hand, as hapi feeds the logits path only),
+the fused loss over the split vocabulary; (b) Llama-3.2-3B's (tied) at 2
+layers through fleet ``{"dp": 2, "mp": 2}``, a fused and a logits step;
+(c) the same model in f32 under fleet's ``dgc``, ``gradient_merge`` with
+``localsgd``, and ``lars``; (B) Mixtral-8x7B's widths at 1 layer on
+``{"expert": 2, "tp": 2}``.  It runs in the launcher's world, each run
+followed by the same run unsharded on rank 0 alone (one replica a data
+rank under local SGD, fed its rows, the replicas' parameters averaged
+at its sync steps), whose final parameters rank 0 scatters to the
+ranks holding each part: each rank writes every run's losses, step
+seconds, collectives, staged calls, launches, peak memory, bytes of
+parts and each parameter's update against the unsharded run's
+(:func:`tp_against_single`, at the run's ``bounds``), rank 0 the
+unsharded runs' numbers too.  A run with ``control`` is compared a
+second time, against its emulation with the local-SGD syncs left out (a
+planted fault the comparison must refuse).  Nothing else is written (a
+machine's disk takes a bounded number of bytes a call).
 
 Each rank writes ``DIR/rank<r>.json``: its mesh coordinates, each
 step's loss, host-clock ms, the collectives it made and those staged
@@ -482,6 +508,374 @@ def pp_against_single(ranks, single):
     return {"loss": max(losses), "update": upd, "worst": worst}, fails
 
 
+def llama32_3b(**overrides):
+    """Llama-3.2-3B's widths (meta-llama/Llama-3.2-3B config.json): vocab
+    128256, hidden 3072, intermediate 8192, 28 layers, 24 q / 8 kv heads,
+    rope_theta 500000, tied embeddings (its llama3 rope scaling left out,
+    as neither package models it)."""
+    import dataclasses
+
+    from paddle_tpu_torch.models import LlamaConfig
+
+    return dataclasses.replace(LlamaConfig(
+        vocab_size=128256, hidden_size=3072, intermediate_size=8192,
+        num_hidden_layers=28, num_attention_heads=24, num_key_value_heads=8,
+        max_position_embeddings=131072, rms_norm_eps=1e-5,
+        rope_theta=500000.0, tie_word_embeddings=True), **overrides)
+
+
+_B = dict(config="llama32_3b", layers=2, fleet={"dp": 2, "mp": 2},
+          seq=2048, batch=2)
+#: (c) in f32: DGC's top-k choice and LARS's norms then compare without
+#: the flips that bf16 roundings of the summed gradients cause
+_C = dict(_B, steps=4, fused=(True,) * 4, dtype="float32")
+#: phase 7t's runs (:func:`tp_main`): world A's (a), (b) and the three
+#: meta-optimizer runs (c) of the tied model, and world B.  ``mesh``: the
+#: hapi.Model(mesh=...) layout; ``fleet``: fleet's hybrid degrees;
+#: ``fused``: each step's loss path (the fused chunked loss, or the
+#: logits); ``meta``: the strategy's meta-optimizer flags and configs;
+#: ``bounds``: (loss, update) limits of :func:`tp_against_single`, 7d's
+#: for the bf16 runs; the f32 runs' each ~60x above the loss and 6-25x
+#: above the update read in a sound run (NVIDIA H100 80GB HBM3 at 700 W:
+#: losses 1.05e-7-1.59e-7; updates dgc 0.00781, whose top k flips at its
+#: threshold, merge with local SGD 4.32e-4, lars 4.44e-6); ``control``:
+#: compared again against the emulation without local SGD's syncs
+TP_RUNS = {
+    "a": dict(config="llama3_8b", layers=2, mesh={"data": 2, "tp": 2},
+              seq=2048, batch=2, steps=3, fused=(True,) * 3, opt="adamw",
+              lr=1e-4),
+    "b": dict(_B, steps=2, fused=(True, False), opt="adamw", lr=1e-4),
+    "c_dgc": dict(_C, opt="momentum", lr=0.01, meta={"dgc": {
+        "rampup_begin_step": 1, "sparsity": 0.999}}, bounds=(1e-5, 0.05)),
+    "c_gm_localsgd": dict(_C, opt="adamw", lr=1e-4, meta={
+        "gradient_merge": {"k_steps": 2, "avg": True},
+        "localsgd": {"k_steps": 2, "begin_step": 1}}, bounds=(1e-5, 5e-3),
+        control=True),
+    "c_lars": dict(_C, opt="momentum", lr=10.0, meta={"lars": {
+        "lars_coeff": 0.001, "lars_weight_decay": 0.0005}},
+        bounds=(1e-5, 1e-4)),
+    "B": dict(config="mixtral", layers=1, mesh={"expert": 2, "tp": 2},
+              seq=1024, batch=2, steps=3, fused=(True,) * 3, opt="adamw",
+              lr=1e-4),
+}
+
+
+def _tp_config(spec):
+    """The run's config, in the run's dtype."""
+    from paddle_tpu_torch.models import LlamaConfig
+
+    make = {"llama3_8b": LlamaConfig.llama3_8b, "llama32_3b": llama32_3b,
+            "mixtral": mixtral}[spec["config"]]
+    return make(num_hidden_layers=spec["layers"],
+                max_position_embeddings=spec["seq"],
+                fused_lm_loss=spec["fused"][0],
+                dtype=spec.get("dtype", "bfloat16"))
+
+
+def _tp_strategy(spec):
+    from paddle_tpu_torch.distributed import fleet
+
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {f"{k}_degree": v
+                        for k, v in (spec.get("fleet") or {}).items()}
+    for flag, cfg in (spec.get("meta") or {}).items():
+        setattr(s, flag, True)
+        setattr(s, f"{flag}_configs", dict(cfg))
+    return s
+
+
+def _tp_optimizer(spec, params, strategy):
+    """The run's optimizer: AdamW or Momentum(0.9) over ``params``, then
+    fleet's wrap (with ``strategy``'s meta-optimizers) where the run has
+    a fleet layout or meta-optimizers (unsharded: no mesh, so no
+    collective)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed import fleet
+
+    opt = pt.optimizer.AdamW(spec["lr"], parameters=params) \
+        if spec["opt"] == "adamw" else \
+        pt.optimizer.Momentum(spec["lr"], momentum=0.9, parameters=params)
+    if spec.get("fleet") or spec.get("meta"):
+        opt = fleet.distributed_optimizer(opt, strategy)
+    return opt
+
+
+def _tp_vs_ref(held, ref, replica, dev):
+    """``{name: [||dw - dw_ref||, ||dw_ref||]}`` of every parameter on
+    every rank (a collective of the world): dw this rank's part's update
+    (``held``: its parts before and after the run, and their placements)
+    and dw_ref the same part of the update of unsharded replica
+    ``replica`` (rank 0's ``ref``: each replica's final parameters, whole,
+    on the host; None elsewhere), each part scattered from rank 0
+    (``executor._scatter_leaf``); the squares summed over the ranks
+    holding the other parts, so the norms are the whole parameter's."""
+    from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.distributed.executor import _Leaf, _scatter_leaf
+
+    count = [None if ref is None else len(ref)]
+    collective.broadcast_object_list(count, 0)
+    out = {}
+    for name in sorted(held["init"]):
+        w0 = held["init"][name]
+        pl = held["placements"][name]
+        split = pl is not None and not pl.replicated
+        shape = pl.full_shape if split else tuple(w0.shape)
+        leaf = _Leaf(shape, str(w0.dtype).replace("torch.", ""))
+        sq = None
+        for r in range(count[0]):
+            full = ref[r][name] if ref is not None else None
+            part = _scatter_leaf(leaf, full, pl)
+            if r == replica:
+                w0d = w0.to(dev).float()
+                d_ref = part.to(dev).float() - w0d
+                d = held["final"][name].to(dev).float() - w0d
+                sq = torch.stack([(d - d_ref).square().sum(),
+                                  d_ref.square().sum()]).double()
+                del w0d, d_ref, d
+            del part
+        if split:
+            collective.all_reduce(sq, group=pl.mesh.group(*pl.axes))
+        out[name] = [float(sq[0].sqrt()), float(sq[1].sqrt())]
+    return out
+
+
+def tp_run(name, spec, a, dev, sharded, synced=True) -> dict:
+    """One run of :data:`TP_RUNS` on this rank (``sharded``: in the
+    world, its layout from the spec) or unsharded in this process (with
+    local SGD, one replica a data rank, fed its rows, the replicas'
+    parameters averaged at the wrapper's sync steps, or never with
+    ``synced`` False: the planted fault of a ``control``).  Returns the
+    run's numbers; unsharded, also each replica's final parameters."""
+    import gc
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import collective, fleet
+    from paddle_tpu_torch.distributed.fleet.meta_optimizers import _base
+    from paddle_tpu_torch.distributed.sharding import placement_of
+    from paddle_tpu_torch.kernels import launches
+    from paddle_tpu_torch.models import LlamaForCausalLM
+
+    cuda = dev.type == "cuda"
+    cfg = _tp_config(spec)
+    strategy = _tp_strategy(spec)
+    local = "localsgd" in (spec.get("meta") or {})
+    dp = (spec.get("fleet") or {}).get("dp") or \
+        (spec.get("mesh") or {}).get("data", 1)
+    ex, nets, opts = None, [], []
+    if not sharded:
+        fleet.shutdown()          # no mesh: the optimizers' steps are local
+    if sharded and spec.get("fleet"):
+        fleet.init(is_collective=True, strategy=strategy)
+        nets.append(fleet.distributed_model(
+            LlamaForCausalLM(cfg, device=dev, seed=0)))
+    elif sharded:
+        nets.append(LlamaForCausalLM(cfg, device=dev, seed=0))
+    else:
+        nets = [LlamaForCausalLM(cfg, device=dev, seed=0)
+                for _ in range(dp if local else 1)]
+    for net in nets:
+        opts.append(_tp_optimizer(spec, list(net.named_parameters()),
+                                  strategy))
+    if sharded and spec.get("mesh"):
+        ex = dist.MeshExecutor(spec["mesh"])
+        pt.Model(nets[0]).prepare(opts[0], None, mesh=ex)
+    syncs = []
+    if not sharded and local:
+        for opt in opts:
+            opt._average_parameters = lambda: syncs.append(synced)
+    init = {n: p.detach().to("cpu", copy=True)
+            for n, p in nets[0].named_parameters()} if sharded else None
+    rank_rows = None
+    if sharded and spec.get("fleet"):
+        hcg = fleet.fleet.hcg
+        rank_rows = (hcg.get_data_parallel_rank(), dp)
+        data_group = hcg.get_data_parallel_group()
+    rng = np.random.RandomState(a.data_seed)
+    batches = [torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, (spec["batch"], spec["seq"]))).to(dev)
+        for _ in range(spec["steps"])]
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    launches.reset()
+    res = dict(losses=[[] for _ in nets], step_s=[], collectives=[],
+               staged=[])
+    for i, ids in enumerate(batches):
+        collective.reset_counts()
+        t0 = time.perf_counter()
+        for r, (net, opt) in enumerate(zip(nets, opts)):
+            net.config.fused_lm_loss = spec["fused"][i]
+            if ex is not None:
+                x, = ex.shard_batch([ids])
+            elif rank_rows is not None or len(nets) > 1:
+                d, n = rank_rows if rank_rows is not None else (r, dp)
+                rows = ids.shape[0] // n
+                x = ids[d * rows:(d + 1) * rows]
+            else:
+                x = ids
+            loss, _ = net(x, labels=x)
+            loss.backward()
+            if ex is not None:
+                ex.reduce_gradients(net)
+            opt.step()
+            opt.clear_grad()
+            value = float(loss.detach())
+            if ex is not None:
+                value = ex.mean_over_data(value)
+            elif rank_rows is not None and not local:
+                t = torch.tensor([value], dtype=torch.float64,
+                                 device=collective.comm_device(data_group))
+                collective.all_reduce(t, collective.ReduceOp.AVG,
+                                      data_group)
+                value = float(t[0])
+            res["losses"][r].append(value)
+        if any(syncs):
+            syncs.clear()
+            with torch.no_grad():
+                for ps in zip(*(net.parameters() for net in nets)):
+                    mean = (ps[0] + ps[1]) / 2 if len(ps) == 2 else \
+                        sum(ps) / len(ps)
+                    for p in ps:
+                        p.copy_(mean)
+        if cuda:
+            torch.cuda.synchronize()
+        res["step_s"].append(time.perf_counter() - t0)
+        res["collectives"].append(collective.counts())
+        res["staged"].append(collective.staged_counts())
+    res.update(launches=launches.snapshot(),
+               instances=launches.by_instance(),
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9
+               if cuda else 0.0,
+               bytes=shard_bytes(nets[0], _base(opts[0])),
+               finite=all(bool(torch.isfinite(p).all())
+                          for net in nets for p in net.parameters()),
+               chain=[type(o).__name__ for o in _chain(opts[0])])
+    if sharded:
+        res["replica"] = rank_rows[0] if (local and rank_rows is not None) \
+            else 0
+        res["parts"] = {n: list(p.shape) for n, p in
+                        nets[0].named_parameters()
+                        if n.endswith(("w_gate", "w_down",
+                                       "embed_tokens.weight"))}
+        res["held"] = dict(init=init, placements={
+            n: placement_of(p) for n, p in nets[0].named_parameters()},
+            final={n: p.detach().to("cpu", copy=True)
+                   for n, p in nets[0].named_parameters()})
+    else:
+        res["final"] = [{n: p.detach().to("cpu", copy=True)
+                         for n, p in net.named_parameters()} for net in nets]
+    if ex is not None:
+        ex.close()
+    if spec.get("fleet") and sharded:
+        fleet.shutdown()
+    del nets, opts, batches, init
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return res
+
+
+def _chain(opt):
+    """``opt`` and the optimizers it wraps, outermost first."""
+    out = [opt]
+    while "_inner" in vars(out[-1]):
+        out.append(out[-1]._inner)
+    return out
+
+
+def tp_bounds(spec):
+    """A run's (loss, update) limits: (a) |loss - unsharded| /
+    |unsharded| at every step, (b) ||dw - dw_unsharded|| /
+    ||dw_unsharded|| of every parameter over the run; 7d's unless the
+    run states its own."""
+    return spec.get("bounds", (LOSS_REL, UPDATE_REL))
+
+
+def tp_against_single(ranks, single, bounds):
+    """Phase 7t's comparison of one run across a world's ranks with its
+    unsharded run, at ``bounds`` (:func:`tp_bounds`): (a) each step's
+    loss (under local SGD each rank against the replica of its data
+    rank, else the global loss, equal on every rank); (b) every
+    parameter's update (a parameter the unsharded run left as it was
+    must stay), and some parameter moved.  Returns ``(readings,
+    failures)``."""
+    loss_rel, update_rel = bounds
+    fails, worst_loss, upd = [], 0.0, {}
+    for r in ranks:
+        want = single["losses"][r["replica"]]
+        got = r["losses"][0]
+        rel = [abs(g - w) / abs(w) if math.isfinite(g) else math.inf
+               for g, w in zip(got, want)]
+        if len(rel) != len(want) or max(rel) > loss_rel:
+            fails.append(f"(a) rank {r['rank']} losses {got} vs unsharded "
+                         f"{want}: worst {max(rel):.3g} > {loss_rel:.3g}")
+        worst_loss = max(worst_loss, max(rel))
+        for n, (e, ref) in r["vs_ref"].items():
+            upd[n] = max(upd.get(n, 0.0), e / ref if ref else
+                         (0.0 if e == 0 else math.inf))
+        if not r["finite"]:
+            fails.append(f"rank {r['rank']}: parameters not finite")
+    worst = max(upd, key=upd.get)
+    if not upd[worst] <= update_rel:
+        fails.append(f"(b) {worst}'s update off by {upd[worst]:.3g} of the "
+                     f"unsharded one's > {update_rel:.3g}")
+    if not any(ref for r in ranks for _, ref in r["vs_ref"].values()):
+        fails.append("(b) the unsharded run moved no parameter")
+    return {"loss": worst_loss, "update": upd, "worst": worst}, fails
+
+
+def tp_main(a) -> int:
+    """Phase 7t's program (the module docstring): the runs of
+    ``--tp-runs`` in turn in the launcher's world, each followed by its
+    unsharded run on rank 0 alone (the other ranks' models freed, their
+    parts kept on the host) and the comparison (:func:`_tp_vs_ref`),
+    and a ``control`` run's against its unsynced emulation too: nothing
+    is written but each rank's JSON."""
+    from paddle_tpu_torch import distributed as dist
+
+    names = a.tp_runs.split(",")
+    dist.init_parallel_env(backend=a.backend, device=a.device,
+                           timeout=a.timeout)
+    dev = dist.current_device()
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    rank = dist.get_rank()
+    out = dict(rank=rank, world=dist.get_world_size(), device=str(dev),
+               runs={})
+    for name in names:
+        res = tp_run(name, TP_RUNS[name], a, dev, True)
+        held = res.pop("held")
+        dist.collective.barrier()
+        ref = None
+        if rank == 0:
+            single = tp_run(name, TP_RUNS[name], a, dev, False)
+            ref = single.pop("final")
+            res["single"] = single
+        dist.collective.barrier()
+        res["vs_ref"] = _tp_vs_ref(held, ref, res["replica"], dev)
+        if TP_RUNS[name].get("control"):
+            ref = None
+            if rank == 0:
+                bad = tp_run(name, TP_RUNS[name], a, dev, False,
+                             synced=False)
+                ref = bad.pop("final")
+                res["single"]["control_losses"] = bad["losses"]
+            dist.collective.barrier()
+            res["control_vs_ref"] = _tp_vs_ref(held, ref, res["replica"],
+                                               dev)
+        del held, ref
+        out["runs"][name] = res
+    os.makedirs(a.out, exist_ok=True)
+    with open(os.path.join(a.out, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.collective.barrier()
+    dist.destroy_parallel_env()
+    return 0
+
+
 def p2p_messages(counts) -> dict:
     """The activations and gradients a rank sent and received, from its
     pipeline hops (``collective.counts()``)."""
@@ -506,6 +900,8 @@ def pp_main(a) -> int:
     from paddle_tpu_torch.models.llama_pp import LlamaForCausalLMPipe
 
     schedules = a.pp_steps.split(",")
+    if a.clip_norm is not None:          # the clipped step, last
+        schedules.append("1F1B")
     sharded = a.axes is not None
     if sharded:
         dist.init_parallel_env(backend=a.backend, device=a.device,
@@ -564,7 +960,11 @@ def pp_main(a) -> int:
                step_s=[], launches=[], instances=[], hops=[], staged=[],
                in_flight=[], sched_peak_gb=[], step_peak_gb=[],
                act_gb=[])
-    for ids, mode in zip(data, schedules):
+    clip = None
+    for i, (ids, mode) in enumerate(zip(data, schedules)):
+        if a.clip_norm is not None and i == len(schedules) - 1:
+            clip = pt.nn.ClipGradByGlobalNorm(a.clip_norm)
+            opt._grad_clip = clip
         model.schedule_mode = mode
         if cuda:
             torch.cuda.synchronize()
@@ -592,6 +992,8 @@ def pp_main(a) -> int:
             torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else 0.0)
     res["finite"] = all(bool(torch.isfinite(p).all())
                         for p in named.values())
+    if clip is not None:
+        res["clip_norm"] = float(clip.last_global_norm)
     if refs is not None:
         err = {}
         for n, p in named.items():
@@ -658,7 +1060,12 @@ def main(argv=None) -> int:
                     help="phase 7p: each step's schedule (1F1B, FThenB)")
     ap.add_argument("--micro-batches", type=int, default=8,
                     help="phase 7p: accumulate_steps M")
+    ap.add_argument("--clip-norm", type=float, default=None,
+                    help="phase 7p: one more 1F1B step, its gradients "
+                         "clipped to this global norm")
     ap.add_argument("--ref-grads", default=None)
+    ap.add_argument("--tp-runs", default=None,
+                    help="phase 7t: comma-separated TP_RUNS")
     ap.add_argument("--out", required=True)
     a = ap.parse_args(argv)
     # eight processes share one card: segments that grow in place keep
@@ -669,6 +1076,8 @@ def main(argv=None) -> int:
         return sp_main(a)
     if a.pp_steps:
         return pp_main(a)
+    if a.tp_runs:
+        return tp_main(a)
 
     import paddle_tpu_torch as pt
     from paddle_tpu_torch import distributed as dist

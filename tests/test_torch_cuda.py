@@ -3064,3 +3064,66 @@ class TestCudaPipeline:
                         if k in hops} == hops == got["staged"]
                 assert got["in_flight"] == (M if mode == "FThenB"
                                             else min(2 - s, M))
+
+
+@pytest.mark.cuda
+class TestCudaTensorParallel:
+    """Tensor parallelism's leftovers on the card (two ranks on cuda:0
+    over gloo, tests/torch_mesh_cuda_rank.py ``tp``), each against the
+    same model unsharded on the card: the tied tiny f32 Llama with the
+    fused chunked loss over a vocabulary split across ``{"tp": 2}`` (the
+    table's rows, the fused loss's collectives counted apart), and the
+    tiny f32 MoE Llama with its expert stacks split over tp (each
+    expert's down product an f32 partial summed with the other rank's
+    before the combine's rounding): the loss and every gradient, gathered
+    whole, within 1e-4 (``close``), and each rank's kernel launches those
+    of the unsharded step."""
+
+    def test_tp2_world_matches_the_unsharded_models(self, cuda_device,
+                                                    tmp_path, monkeypatch):
+        import os
+        import pickle
+        from pathlib import Path
+
+        from paddle_tpu_torch.distributed.launch import Controller
+        from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+        from torch_mesh_cuda_rank import SEQ, TP_MODELS, tokens
+
+        for name in ("rms_norm", "rope", "flash_attention", "moe_dispatch"):
+            _build.load(name)          # built once, before the ranks load
+        want = {}
+        for tag, opts in TP_MODELS.items():
+            net = LlamaForCausalLM(LlamaConfig.tiny(
+                max_position_embeddings=SEQ, **opts), device=cuda_device,
+                seed=0)
+            ids = tokens(cuda_device)
+            launches.reset()
+            loss, _ = net(ids, labels=ids)
+            loss.backward()
+            torch.cuda.synchronize()
+            want[tag] = (float(loss), launches.snapshot(),
+                         {n: p.grad.cpu().numpy()
+                          for n, p in net.named_parameters()})
+        root = Path(__file__).resolve().parents[1]
+        monkeypatch.setenv("PYTHONPATH", os.pathsep.join(
+            [str(root), str(root / "tests"), os.environ.get("PYTHONPATH", "")]))
+        ctl = Controller(str(root / "tests" / "torch_mesh_cuda_rank.py"),
+                         [str(tmp_path), "tp"], nproc_per_node=2,
+                         timeout=300, log_dir=str(tmp_path / "log"))
+        code = ctl.run()
+        logs = "".join((tmp_path / "log" / f"workerlog.{r}").read_text()[-2000:]
+                       for r in range(2)
+                       if (tmp_path / "log" / f"workerlog.{r}").exists())
+        assert code == 0, logs
+        for r in range(2):
+            with open(tmp_path / f"rank{r}.pkl", "rb") as f:
+                res = pickle.load(f)
+            for tag, got in res.items():
+                loss, counted, grads = want[tag]
+                close(got["loss"], loss)
+                assert got["launches"] == counted, tag
+                for name, g in grads.items():
+                    close(got["grads"][name], g)
+            # [2, 32] rows: 62 predicted tokens in 4 chunks of 16, a max
+            # and one packed sum a chunk, again in the recompute
+            assert res["tied_fused"]["counts"]["fused_loss.all_reduce"] == 16

@@ -502,16 +502,28 @@ class TestRefusals:
         ("install_serving", "NotImplementedError", "A3"),
         ("reconcile_train", "NotImplementedError", "A5"),
         ("reconcile_serving", "NotImplementedError", "A5"),
-        ("moe", "NotImplementedError", "tp > 1"),
-        ("tied", "NotImplementedError", "A3"),
-        ("fused_loss_tp", "NotImplementedError", "A3"),
         ("wrong_size", "ValueError", "needs"),
-        ("mesh_size", "ValueError", "needs"),
-        ("meta_optimizer", "NotImplementedError", "dgc")])
+        ("mesh_size", "ValueError", "needs")])
     def test_refused_across_ranks(self, world, key, kind, word):
         for res in result(world, "refusals"):
             assert res[key] is not None and res[key][0] == kind, res[key]
             assert word in res[key][1]
+
+    @pytest.mark.parametrize("key,part,want", [
+        ("moe", "moe_part", (4, 32, 64)),        # [E, h / fsdp, m / tp]
+        ("tied", "tied_part", (128, 32)),         # [V / tp, h / fsdp]
+        ("fused_loss_tp", None, None),
+        ("meta_optimizer", "meta_optimizer_class", "DGCMomentum")])
+    def test_former_refusals_run_across_ranks(self, world, key, part, want):
+        """A MoE model and tied embeddings on a tp > 1 mesh, the fused
+        loss over a split vocabulary and fleet's meta-optimizers ran
+        (``tests/test_torch_tensor_parallel.py`` and
+        ``tests/test_torch_meta_optimizers.py`` hold them against the
+        JAX package)."""
+        for res in result(world, "refusals"):
+            assert res[key] is None, res[key]
+            if part is not None:
+                assert res[part] == want
 
     def test_nccl_with_more_ranks_than_cards(self, monkeypatch):
         monkeypatch.setenv("LOCAL_WORLD_SIZE",

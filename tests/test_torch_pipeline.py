@@ -32,6 +32,12 @@ virtual CPU devices, the same numpy inputs and weights (carried by
   stage s under 1F1B, M under GPipe: the CPU form of the memory
   claim), their hops against ``schedule_p2p_calls``, and the same loss
   and gradients from both, bit for bit.
+- ``ClipGradByGlobalNorm`` at half the gradients' norm over one
+  ``train_batch`` of the tied pipe (4 layers) on pp 2 x dp 2 and pp 2 x
+  mp 2: every stage clips by the whole model's norm, the table shared
+  by the first and last stage counted once, as the JAX model's single
+  table is; the norm and the loss within 1e-5 relative, each update
+  within 1e-4 of its largest entry against the JAX unsharded step.
 - The refusals: a ``scaler``, a batch that does not divide into M
   microbatches, a plain module on a pp mesh, pp with ZeRO.
 """
@@ -63,7 +69,7 @@ from torch_mesh_world import ROOT, result, run_world
 
 RANKS = ROOT / "tests" / "torch_pipeline_ranks.py"
 CASES4 = ("pp_gpipe", "pp_generic", "pp_llama_dp", "pp_tied",
-          "pp_schedules", "pp_refusals", "pp_opt_state")
+          "pp_schedules", "pp_refusals", "pp_opt_state", "pp_clip")
 CASES8 = ("pp_llama_steps", "pp_fleet_generic", "pp_tpxpp")
 TINY = dict(vocab_size=256, hidden_size=64, intermediate_size=128,
             num_hidden_layers=2, num_attention_heads=4,
@@ -355,6 +361,45 @@ def _opt_state():
                                  for k, v in pl.state_dict().items()})
 
 
+def _clip():
+    """The tied tiny Llama (4 layers) unsharded, one SGD step on [4, 16]
+    under ClipGradByGlobalNorm at half the gradients' global norm: the
+    initial weights and the final ones under the pipe's names, the
+    norm, the loss."""
+    from paddle_tpu_torch.convert import pipeline_named
+    from paddle_tpu_torch.models import LlamaConfig
+
+    d = dict(TINY, num_hidden_layers=4, tie_word_embeddings=True)
+    cfg = _jcfg(d)
+    lr = 0.1
+    ids = np.random.RandomState(4).randint(
+        0, cfg.vocab_size, (4, 16)).astype(np.int64)
+
+    def named(model):
+        return _tree(pipeline_named(*extract_pipeline_params(model),
+                                    LlamaConfig(**d)))
+
+    paddle.seed(0)
+    model = JLlama(cfg)
+    t = paddle.to_tensor(ids)
+    loss, _ = model(t, labels=t)
+    loss.backward()
+    norm = float(np.sqrt(sum(float((np.asarray(p.grad.numpy(),
+                                               np.float64) ** 2).sum())
+                             for p in model.parameters())))
+    model.clear_gradients()
+    clip = norm / 2
+    init = named(model)
+    yield dict(cfg=d, init=init, ids=ids, clip=clip, lr=lr)
+    opt = paddle.optimizer.SGD(lr, parameters=model.parameters(),
+                               grad_clip=jnn.ClipGradByGlobalNorm(clip))
+    loss, _ = model(t, labels=t)
+    loss.backward()
+    opt.step()
+    yield dict(norm=norm, loss=float(loss.numpy()), final=named(model),
+               init=init)
+
+
 @pytest.fixture(scope="module")
 def jax_side(tmp_path_factory):
     """Each case's inputs, then (while the two worlds run the port's
@@ -363,7 +408,8 @@ def jax_side(tmp_path_factory):
     sides = {"pp_gpipe": _gpipe(), "pp_generic": _generic(),
              "pp_llama_dp": _llama_dp(), "pp_llama_steps": _llama_steps(),
              "pp_tied": _tied(), "pp_fleet_generic": _fleet_generic(),
-             "pp_tpxpp": _tpxpp(), "pp_opt_state": _opt_state()}
+             "pp_tpxpp": _tpxpp(), "pp_opt_state": _opt_state(),
+             "pp_clip": _clip()}
     inputs = {name: next(gen) for name, gen in sides.items()}
     rng = np.random.RandomState(3)
     inputs["pp_schedules"] = dict(
@@ -572,6 +618,31 @@ class TestTPxPP:
         np.testing.assert_allclose(rs[0]["losses"], want["losses"],
                                    rtol=1e-4)
         assert rs[0]["losses"][-1] < rs[0]["losses"][0]
+
+
+class TestGlobalNormClip:
+    @pytest.mark.parametrize("degrees", [("pp",), ("pp", "mp")])
+    def test_clip_takes_the_whole_models_norm(self, world4, jax_side,
+                                              degrees):
+        """Every stage clips by the norm of the whole model (the tied
+        table counted once), so the clipped SGD step equals the JAX
+        unsharded one: the norm within 1e-5 relative, each parameter's
+        update within 1e-4 of its largest entry (the f32 sums over the
+        ranks round in another order than XLA's)."""
+        want = jax_side["pp_clip"]
+        init = want["init"]
+        held = set()
+        for res in result(world4, "pp_clip"):
+            got = res[degrees]
+            np.testing.assert_allclose(got["norm"], want["norm"], rtol=1e-5)
+            np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5)
+            for name, w in got["final"].items():
+                d_want = want["final"][name] - init[name]
+                np.testing.assert_allclose(
+                    w - init[name], d_want, rtol=0,
+                    atol=1e-4 * float(np.abs(d_want).max()), err_msg=name)
+                held.add(name)
+        assert held == set(want["final"])
 
 
 class TestRefusals:

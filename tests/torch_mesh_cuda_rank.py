@@ -16,13 +16,18 @@
   one backward, the gradients summed over sp by
   ``MeshExecutor.reduce_gradients``; the launches, collectives and
   staged ones of each.
+- ``TestCudaTensorParallel`` (MODE ``tp``): on ``{"tp": 2}``, the tied
+  tiny f32 Llama (seed 0) with the fused chunked loss over the split
+  vocabulary, then the tiny f32 MoE Llama (seed 0, 4 experts) with its
+  expert stacks split over tp: each one forward and backward, the
+  gradients gathered whole, the launches and collectives of each.
 - ``TestCudaPipeline`` (MODE ``pp``): the tiny f32 ``LlamaForCausalLMPipe``
   (seed 0) on ``{"pp": 2}``, one stage a rank, the schedule of
   ``PP_MICRO`` microbatches (1F1B, then GPipe): the loss, this stage's
   gradients, the launches and the hops (staged through host memory).
 
     python -m paddle_tpu_torch.distributed.launch --nproc_per_node 2 \\
-        tests/torch_mesh_cuda_rank.py OUT [ep|sp|pp]
+        tests/torch_mesh_cuda_rank.py OUT [ep|sp|pp|tp]
 """
 import os
 import pickle
@@ -78,6 +83,40 @@ def sequence_modes(dev):
     return out
 
 
+TP_MODELS = {"tied_fused": dict(tie_word_embeddings=True, fused_lm_loss=True,
+                                lm_loss_chunk=16),
+             "moe": MOE}
+
+
+def tensor_parallel(dev):
+    """Each of TP_MODELS on {"tp": 2}: the loss, every gradient gathered
+    whole, the launches and the collectives."""
+    out = {}
+    for name, opts in TP_MODELS.items():
+        net = LlamaForCausalLM(LlamaConfig.tiny(max_position_embeddings=SEQ,
+                                                **opts),
+                               device=dev, seed=0)
+        ex = dist.MeshExecutor({"tp": 2})
+        ex.install(net)
+        ids = tokens(dev)
+        launches.reset()
+        dist.collective.reset_counts()
+        loss, _ = net(ids, labels=ids)
+        loss.backward()
+        torch.cuda.synchronize()
+        grads = {}
+        for n, p in net.named_parameters():
+            g = p.grad
+            if getattr(p, "placement", None) is not None:
+                g.placement = p.placement
+            grads[n] = gather_full(g).cpu().numpy()
+        out[name] = dict(loss=float(loss.detach()),
+                         launches=launches.snapshot(),
+                         counts=dist.collective.counts(), grads=grads)
+        ex.close()
+    return out
+
+
 PP_MICRO = 2
 
 
@@ -118,8 +157,9 @@ def main(out, mode=None):
     dist.init_parallel_env(backend="gloo", device="cuda:0", timeout=120)
     dev = dist.current_device()
     torch.backends.cuda.matmul.allow_tf32 = False
-    if mode in ("sp", "pp"):
-        res = sequence_modes(dev) if mode == "sp" else pipeline_stage(dev)
+    if mode in ("sp", "pp", "tp"):
+        res = {"sp": sequence_modes, "pp": pipeline_stage,
+               "tp": tensor_parallel}[mode](dev)
         with open(os.path.join(out, f"rank{dist.get_rank()}.pkl"), "wb") as f:
             pickle.dump(res, f)
         dist.barrier()

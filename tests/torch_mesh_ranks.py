@@ -328,8 +328,9 @@ def case_topology(inp):
 
 
 def case_refusals(inp):
-    """What this slice refuses across ranks, by exception type and a
-    word of its message."""
+    """What the mesh runtime refuses across ranks, by exception type and
+    a word of its message (None where it ran), and the parts of what
+    earlier slices refused and now runs."""
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
     out = {}
@@ -355,19 +356,25 @@ def case_refusals(inp):
     catch("install_serving", lambda: ex.install_serving(None, None))
     catch("reconcile_train", lambda: ex.reconcile_train())
     catch("reconcile_serving", lambda: ex.reconcile_serving())
-    catch("moe", lambda: ex.install(LlamaForCausalLM(
-        LlamaConfig.tiny(moe_num_experts=4), device=CPU)))
-    catch("tied", lambda: ex.install(LlamaForCausalLM(
-        LlamaConfig.tiny(tie_word_embeddings=True), device=CPU)))
+    # what earlier slices refused on this mesh now runs
+    moe = LlamaForCausalLM(LlamaConfig.tiny(moe_num_experts=4), device=CPU)
+    catch("moe", lambda: ex.install(moe))
+    out["moe_part"] = tuple(moe.model.layers[0].mlp.w_gate.shape)
+    tied = LlamaForCausalLM(LlamaConfig.tiny(tie_word_embeddings=True),
+                            device=CPU)
+    catch("tied", lambda: ex.install(tied))
+    out["tied_part"] = tuple(tied.model.embed_tokens.weight.shape)
     net = LlamaForCausalLM(LlamaConfig.tiny(fused_lm_loss=True), device=CPU)
     ex.install(net)
     ids = torch.zeros(1, 8, dtype=torch.long)
     catch("fused_loss_tp", lambda: net(ids, labels=ids))
     catch("wrong_size", lambda: dist.MeshExecutor({"data": 3}))
     catch("mesh_size", lambda: dist.init_mesh({"dp": 3}))
-    catch("meta_optimizer", lambda: fleet.distributed_optimizer(
-        pt.optimizer.SGD(0.1, parameters=[torch.nn.Parameter(
-            torch.zeros(2))]), _dgc()))
+    opt = []
+    catch("meta_optimizer", lambda: opt.append(fleet.distributed_optimizer(
+        pt.optimizer.Momentum(0.1, parameters=[torch.nn.Parameter(
+            torch.zeros(2))]), _dgc())))
+    out["meta_optimizer_class"] = type(opt[0]).__name__ if opt else None
     _reset()
     return out
 

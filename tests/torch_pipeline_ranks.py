@@ -345,6 +345,36 @@ def case_pp_tpxpp(inp):
     return out
 
 
+def case_pp_clip(inp):
+    """One train_batch of the tied tiny Llama pipe (4 layers, M = 2)
+    with SGD under ClipGradByGlobalNorm at a norm that bites, on {"pp":
+    2, "dp": 2} and on {"pp": 2, "mp": 2}: the norm every rank clipped
+    by, and this stage's parameters after the step (gathered over
+    mp)."""
+    from paddle_tpu_torch.distributed.sharding import gather_full
+
+    cfg = _cfg(inp["cfg"])
+    out = {}
+    for degrees in (dict(pp=2), dict(pp=2, mp=2)):
+        _fleet(**degrees)
+        fleet.fleet.strategy.pipeline_configs = {"accumulate_steps": 2}
+        pl = LlamaForCausalLMPipe(cfg, device=CPU, seed=None)
+        load_pipeline_stage(pl, inp["init"])
+        model = fleet.distributed_model(pl)
+        clip = pt.nn.ClipGradByGlobalNorm(inp["clip"])
+        opt = fleet.distributed_optimizer(pt.optimizer.SGD(
+            inp["lr"], parameters=list(pl.named_parameters()),
+            grad_clip=clip))
+        ids = _t(inp["ids"])
+        loss = float(model.train_batch((ids, ids), opt))
+        out[tuple(degrees)] = dict(
+            loss=loss, norm=float(clip.last_global_norm),
+            stage=pl.stage_id,
+            final={n: _np(gather_full(p)) for n, p in pl.named_parameters()})
+        _reset()
+    return out
+
+
 CASES = {name[5:]: fn for name, fn in globals().items()
          if name.startswith("case_")}
 
